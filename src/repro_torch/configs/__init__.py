@@ -1,0 +1,46 @@
+"""Architecture registry of the port: ``get(arch_id)`` / ``get_smoke(arch_id)``.
+
+Same published numbers as ``repro.configs``, for the dense token-mode
+architectures this package runs.  The reference's other architectures
+raise ``NotImplementedError`` until their layers are ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ArchConfig
+
+#: CLI ids of the ported architectures
+PORTED = ("gemma-7b", "h2o-danube-1.8b", "deepseek-7b", "gemma3-1b")
+
+#: architectures of the reference whose layer kinds are not ported yet
+NOT_PORTED = ("internvl2-26b", "hubert-xlarge", "qwen2-moe-a2.7b",
+              "olmoe-1b-7b", "mamba2-780m", "hymba-1.5b")
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def _module(arch_id: str):
+    name = _module_name(arch_id)
+    if name in map(_module_name, NOT_PORTED):
+        raise NotImplementedError(f"{arch_id}: not yet ported")
+    if name not in map(_module_name, PORTED):
+        raise KeyError(f"unknown architecture {arch_id!r}; known: {PORTED}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get(arch_id: str, **overrides) -> ArchConfig:
+    cfg = _module(arch_id).CONFIG
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def get_smoke(arch_id: str, **overrides) -> ArchConfig:
+    cfg = _module(arch_id).SMOKE
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def all_archs() -> list[str]:
+    return list(PORTED)

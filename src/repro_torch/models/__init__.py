@@ -1,0 +1,11 @@
+"""Model substrate of the port: config, layers, attention, dense transformer."""
+from .config import ArchConfig
+from .model import Model, synthetic_batch
+from .transformer import (
+    compute_copy, decode_step, forward, init_cache, init_params,
+)
+
+__all__ = [
+    "ArchConfig", "Model", "synthetic_batch", "compute_copy",
+    "decode_step", "forward", "init_cache", "init_params",
+]

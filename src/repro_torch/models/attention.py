@@ -1,0 +1,249 @@
+"""Attention: GQA/MQA/MHA, causal + bidirectional, sliding-window.
+
+Port of ``repro.models.attention``.  Shapes: q (B,S,Hq,D); k,v
+(B,S,Hkv,D); GQA groups Hq into Hkv bundles.
+
+* ``full_attention``  — S×S masked attention (causal or bidirectional).
+* ``local_attention`` — chunk-banded SWA over the own and previous chunk.
+* ``decode_attention``— one query against a KV cache (online softmax over
+  cache blocks, plain torch: the reference has no kernel for it).
+
+``attn_block`` sends prefill attention on a CUDA tensor to the
+flash-attention kernel, whatever ``use_kernels`` says; on a CPU tensor it
+takes the reference's branches exactly.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+
+from .layers import apply_rope, as_dtype, cast, rms_norm, scalar
+
+NEG_INF = -2.0e38
+
+
+def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0:
+        return torch.tanh(scores / cap) * cap
+    return scores
+
+
+def _repeat_kv(k: torch.Tensor, n_q: int) -> torch.Tensor:
+    """GQA → MHA expansion: (B,S,Hkv,D) → (B,S,Hq,D)."""
+    hkv = k.shape[2]
+    if hkv == n_q:
+        return k
+    return k.repeat_interleave(n_q // hkv, dim=2)
+
+
+def _sdp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: torch.Tensor | None, softcap: float) -> torch.Tensor:
+    """Masked softmax(QKᵀ)V on (B,S,H,D) operands, softmax in fp32.
+
+    q is scaled in its own dtype; the score dot is then taken on fp32
+    operands, because the reference's dot has an fp32 accumulator and an
+    fp32 result (``preferred_element_type``) where a bf16 ``matmul`` would
+    round the scores to bf16.  The probs go back to v's dtype before PV."""
+    d = q.shape[-1]
+    qs = q * scalar(d ** -0.5, q)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    scores = _softcap(scores, softcap)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True, softcap: float = 0.0,
+                   q_chunk: int = 0) -> torch.Tensor:
+    """Masked softmax attention; ``q_chunk`` > 0 streams query blocks so
+    the score buffer never exceeds (q_chunk, Sk)."""
+    b, sq, hq, d = q.shape
+    kf = _repeat_kv(k, hq)
+    vf = _repeat_kv(v, hq)
+    sk = kf.shape[1]
+
+    if not q_chunk or sq <= q_chunk:
+        mask = None
+        if causal:
+            mask = torch.ones((sq, sk), dtype=torch.bool,
+                              device=q.device).tril(diagonal=sk - sq)
+        return _sdp(q, kf, vf, mask, softcap)
+
+    if sq % q_chunk:
+        raise ValueError(f"seq {sq} is not a multiple of q_chunk {q_chunk}")
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    outs = []
+    for start in range(0, sq, q_chunk):
+        mask = None
+        if causal:
+            qpos = start + torch.arange(q_chunk, device=q.device)[:, None]
+            mask = qpos >= kpos
+        outs.append(_sdp(q[:, start:start + q_chunk], kf, vf, mask, softcap))
+    return torch.cat(outs, dim=1)
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int, causal: bool = True,
+                    q_chunk: int = 0) -> torch.Tensor:
+    """Chunk-banded sliding-window attention.
+
+    Queries in chunk c attend to keys in chunks c-1 and c, masked to the
+    true window: allowed iff 0 <= q_pos - k_pos < window.  Unlike ``_sdp``,
+    the unchunked path takes the score einsum in the input dtype and casts
+    to fp32 after it, as the reference does (attention.py:153-154)."""
+    b, s, hq, d = q.shape
+    w = min(window, s)
+    pad = (w - s % w) % w
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+    sp = q.shape[1]
+    c = sp // w
+    kf = _repeat_kv(k, hq)
+    vf = _repeat_kv(v, hq)
+    qc = q.reshape(b, c, w, hq, d)
+    kc = kf.reshape(b, c, w, hq, d)
+    vc = vf.reshape(b, c, w, hq, d)
+    # previous chunk: shift right; chunk 0's "previous" is masked out
+    k2 = torch.cat([torch.roll(kc, 1, dims=1), kc], dim=2)      # (B,C,2W,·)
+    v2 = torch.cat([torch.roll(vc, 1, dims=1), vc], dim=2)
+
+    i = torch.arange(w, device=q.device)[:, None]
+    j = torch.arange(2 * w, device=q.device)[None, :]
+    dist = i + w - j
+    band = (dist >= 0) & (dist < w) if causal else (dist.abs() < w)
+
+    if q_chunk:
+        outs = []
+        for idx in range(c):
+            mask = band & ~((idx == 0) & (j < w))                # (W, 2W)
+            outs.append(_sdp(qc[:, idx], k2[:, idx], v2[:, idx],
+                             mask[None, None], 0.0))
+        out = torch.stack(outs, dim=1)
+    else:
+        scores = torch.einsum("bcqhd,bckhd->bchqk", qc * scalar(d ** -0.5, qc),
+                              k2).float()
+        chunk_idx = torch.arange(c, device=q.device)[:, None, None]
+        mask = band[None] & ~((chunk_idx == 0) & (j[None] < w))  # (C,W,2W)
+        scores = torch.where(mask[None, :, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bchqk,bckhd->bcqhd", probs, v2)
+    out = out.reshape(b, sp, hq, d)
+    return out[:, :s] if pad else out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """One new query per sequence against the KV cache.
+
+    q (B,1,Hq,D); caches (B,T,Hkv,D); lengths (B,) valid entries.  The
+    reference's flash-decode: cache blocks of up to 4096 entries under an
+    online softmax in fp32; products in the cache dtype, sums in fp32."""
+    b, _, hq, d = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    q0 = q[:, 0].reshape(b, hkv, g, d)
+    qg = q0 * scalar(d ** -0.5, q0)                              # (B,Hkv,G,D)
+    blk = t if t % 4096 else 4096
+
+    m = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    for start in range(0, t, blk):
+        k_blk = k_cache[:, start:start + blk]
+        v_blk = v_cache[:, start:start + blk]
+        s = torch.sum(qg[:, None] * k_blk[:, :, :, None, :], dim=-1,
+                      dtype=torch.float32)                       # (B,blk,Hkv,G)
+        s = _softcap(s, softcap)
+        kpos = start + torch.arange(blk, device=q.device)
+        valid = (kpos[None, :] < lengths[:, None])[:, :, None, None]
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=1))                  # (B,Hkv,G)
+        p = torch.exp(s - m_new[:, None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=1)
+        acc = acc * alpha[..., None] + torch.sum(
+            p[..., None].to(v_blk.dtype) * v_blk[:, :, :, None, :],
+            dim=1, dtype=torch.float32)                          # (B,Hkv,G,D)
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full attention sub-block (projections + rope + attention + out-proj)
+# ---------------------------------------------------------------------------
+
+def attn_block(
+    x: torch.Tensor,
+    p: dict[str, torch.Tensor],
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    kind: str,                 # attn | swa | enc
+    window: int,
+    positions: torch.Tensor,
+    rope_theta: float,
+    q_chunk: int = 0,
+    softcap: float = 0.0,
+    qk_norm: bool = False,
+    norm_eps: float = 1e-6,
+    compute_dtype: str | torch.dtype = torch.bfloat16,
+    use_kernels: bool = False,
+    cache: dict | None = None,
+) -> tuple[torch.Tensor, dict | None]:
+    """Complete attention sub-layer.  With ``cache`` (decode), x is
+    (B,1,d) and the cache tensors are written in place at ``cache['pos']``
+    (a Python int), where the reference returns updated copies."""
+    cd = as_dtype(compute_dtype)
+    b, s, _ = x.shape
+    xc = cast(x, cd)
+    q = (xc @ cast(p["wq"], cd)).reshape(b, s, n_heads, head_dim)
+    k = (xc @ cast(p["wk"], cd)).reshape(b, s, n_kv_heads, head_dim)
+    v = (xc @ cast(p["wv"], cd)).reshape(b, s, n_kv_heads, head_dim)
+    if qk_norm:
+        q = rms_norm(q, p["q_norm"], norm_eps)
+        k = rms_norm(k, p["k_norm"], norm_eps)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        # decode: write k,v at pos (ring slot pos % t for SWA), then attend
+        t = cache["k"].shape[1]
+        pos = cache["pos"]
+        slot = pos % t if kind == "swa" and window > 0 else pos
+        slot = min(slot, t - 1)  # dynamic_update_slice clamps its start
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        lengths = torch.full((b,), min(pos + 1, t), dtype=torch.int32,
+                             device=x.device)
+        out = decode_attention(q, cache["k"], cache["v"], lengths, softcap)
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    elif x.is_cuda:
+        # all prefill attention on the card goes to the kernel, including
+        # swa with s > window (its window mask is exact) and enc
+        # (bidirectional)
+        if softcap and softcap > 0:
+            raise NotImplementedError(
+                "the flash-attention kernel has no logit softcap")
+        out = fa.flash_attention(q, k, v, causal=kind != "enc",
+                                 window=window if kind == "swa" else 0)
+    elif kind == "swa" and window and s > window:
+        out = local_attention(q, k, v, window, causal=True, q_chunk=q_chunk)
+    elif kind == "enc":
+        out = full_attention(q, k, v, causal=False, softcap=softcap,
+                             q_chunk=q_chunk)
+    elif use_kernels:
+        out = fa.flash_attention(q, k, v, causal=True,
+                                 window=window if kind == "swa" else 0)
+    else:
+        out = full_attention(q, k, v, causal=True, softcap=softcap,
+                             q_chunk=q_chunk)
+    out = out.reshape(b, s, n_heads * head_dim)
+    return out @ cast(p["wo"], cd), new_cache

@@ -1,0 +1,136 @@
+"""Whole-model parity of the port against the JAX package, on the four
+dense smoke architectures, with the JAX weights bridged across.
+
+Tolerances on the logits (|logits| ≲ 1 here):
+* fp32 compute: 1e-4 (summation order only, over a few layers);
+* bf16 compute: 2e-2 — the logits are bf16, whose step is 2**-7 ≈ 7.8e-3
+  between 1 and 2, and the residual stream is rounded to bf16 after every
+  layer; measured differences are one step (3.9e-3 at |logits| ≤ 1.5).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.checkpoint import ckpt  # noqa: E402
+from repro.configs import get as jget, get_smoke as jget_smoke  # noqa: E402
+from repro.models import Model as JModel  # noqa: E402
+
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import all_archs, get, get_smoke  # noqa: E402
+from repro_torch.models import Model, compute_copy  # noqa: E402
+from torch_parity import assert_close, both, np32  # noqa: E402
+
+ARCHS = all_archs()
+TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+JNP_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _pair(arch, **overrides):
+    """(JAX model, JAX params, port model, port params) with shared weights."""
+    jcfg = jget_smoke(arch, **overrides)
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = Model(get_smoke(arch, **overrides), device="cpu")
+    tp = bridge.params_from_numpy(jax.device_get(jp), "cpu")
+    return jm, jp, tm, tp
+
+
+def _tokens(cfg, b, s, seed=0):
+    return both(np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_match_reference(arch):
+    for port, ref in ((get(arch), jget(arch)), (get_smoke(arch), jget_smoke(arch))):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.segments() == ref.segments()
+        assert port.param_count() == ref.param_count()
+        assert port.padded_vocab == ref.padded_vocab
+        assert port.has_decode() == ref.has_decode()
+
+
+def test_unported_arch_raises():
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get("mamba2-780m")
+    with pytest.raises(KeyError):
+        get("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype,use_kernels", [
+    ("float32", False), ("float32", True), ("bfloat16", False)])
+def test_forward_matches_jax(arch, dtype, use_kernels):
+    jm, jp, tm, tp = _pair(arch, compute_dtype=dtype, use_kernels=use_kernels)
+    tj, tt = _tokens(tm.cfg, 2, 24)   # 24 > smoke window 16
+    want, _ = jax.jit(jm.forward)(jp, {"tokens": tj})
+    with torch.inference_mode():
+        got = tm.forward(tp, {"tokens": tt})
+    assert got.shape == (2, 24, tm.cfg.vocab_size)
+    assert_close(got, want, TOLS[dtype])
+    # serving from the compute-dtype copy gives the same logits
+    with torch.inference_mode():
+        again = tm.forward(compute_copy(tm.cfg, tp), {"tokens": tt})
+    torch.testing.assert_close(again, got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_steps_match_jax(arch, dtype):
+    jm, jp, tm, tp = _pair(arch, compute_dtype=dtype)
+    tj, tt = _tokens(tm.cfg, 2, 8, seed=1)
+    jc = jm.init_cache(2, 12, dtype=JNP_DT[dtype])
+    tc = tm.init_cache(2, 12, dtype=dtype)
+    jstep = jax.jit(jm.decode_step)
+    for t in range(8):
+        want, jc = jstep(jp, jc, tj[:, t:t + 1])
+        with torch.inference_mode():
+            got, tc = tm.decode_step(tp, tc, tt[:, t:t + 1])
+        assert_close(got, want, TOLS[dtype])
+        assert tc["pos"] == int(jc["pos"]) == t + 1
+    for (seg_t, seg_j) in zip(tc["segments"], jc["segments"]):
+        assert_close(seg_t["k"], seg_j["k"], TOLS[dtype])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_consistency(arch):
+    """Teacher-forced decode reproduces the forward logits (the port alone,
+    as tests/test_archs_smoke.py checks the reference), threshold 0.1."""
+    tm = Model(get_smoke(arch), device="cpu")
+    params = tm.init(0)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, tm.cfg.vocab_size, (1, 8)))
+    with torch.inference_mode():
+        logits_all = tm.forward(params, {"tokens": toks})
+        cache = tm.init_cache(1, 16, dtype="float32")
+        outs = []
+        for t in range(8):
+            lg, cache = tm.decode_step(params, cache, toks[:, t:t + 1])
+            outs.append(lg)
+    err = (torch.stack(outs, dim=1).float() - logits_all.float()).abs().max()
+    assert float(err) < 0.1, f"decode/prefill mismatch {float(err)}"
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bridge_round_trip_and_keys(arch):
+    jp = jax.device_get(JModel(jget_smoke(arch)).init(jax.random.PRNGKey(3)))
+    tp = bridge.params_from_numpy(jp, "cpu")
+    back = bridge.params_to_numpy(tp)
+    want = ckpt._flatten(jp)
+    got = bridge.flatten(back)
+    assert set(got) == set(want)
+    assert set(bridge.flatten(tp)) == set(want)
+    for key, arr in want.items():
+        assert got[key].dtype == np.asarray(arr).dtype
+        np.testing.assert_array_equal(got[key], np.asarray(arr))
+    # the port's own init has the same layout as the reference's
+    own = Model(get_smoke(arch), device="cpu").init(0)
+    own_flat = bridge.flatten(own)
+    assert set(own_flat) == set(want)
+    for key, arr in want.items():
+        assert tuple(own_flat[key].shape) == np.asarray(arr).shape, key
+        assert own_flat[key].dtype == torch.float32

@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving path on one CUDA card and checks it.
+"""Drives the PyTorch port's serving paths on one CUDA card and checks them.
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Phases, each printing one JSON line; any failure raises, so the script
-exits non-zero and prints no result line:
+Two serving paths, gemma3-1b (attention: the flash-attention kernel) and
+mamba2-780m (SSM: the two SSD-scan kernels).  Phases, each printing one
+JSON line; any failure raises, so the script exits non-zero and prints no
+result line:
 
 1. environment: card name and power limit, torch / CUDA / nvcc versions,
    the TF32 switches;
-2. build: the CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc);
-3. kernels against their plain versions at the main path's shapes
-   (gemma3-1b prefill, plus h2o-danube and deepseek head dims), with the
-   kernel's, the plain version's and one PyTorch call's times and the
-   card's bound for the same work; the error is gated both absolutely and
-   relative to each output row's largest element;
-4. prefill: full-width gemma3-1b ``forward`` on a (4, 2048) batch, with
-   the launch counts reset just before it and read just after;
-5. correctness at full width: prefill against teacher-forced decode over
-   a prompt of several key tiles, and a 600-token forward (past the
-   window of 512) against the same model with the kernel's plain version
-   in its place; then the card's forward against the CPU's on a small
+2. build: every CUDA source under ``src/repro_torch/kernels/csrc`` (one
+   nvcc each, all at once), with ptxas's registers and spills;
+
+then for each path in turn (gemma3-1b, then mamba2-780m):
+
+3. kernels against their plain versions at the path's shapes (gemma3-1b
+   prefill plus h2o-danube and deepseek head dims; mamba2-780m prefill
+   plus hymba-1.5b's SSD shape, G > 1, S < chunk and an initial state),
+   with the kernel's, the plain version's and (for attention) one PyTorch
+   call's times and the card's bound for the same work; the error is gated
+   both absolutely and relative to each output row's (attention) or each
+   (batch, head)'s (SSD) largest element; then the kernels' calls of one
+   prefill, timed together;
+4. prefill: full-width ``forward`` on a (4, 2048) batch, with the launch
+   counts reset just before it and read just after;
+5. correctness at full width: prefill against teacher-forced decode, and
+   a forward against the same model with the kernels' plain version in
+   their place; then the card's forward against the CPU's on a small
    config;
 6. serve: ``ServeEngine`` answers 8 requests of 16 new tokens each;
 7. profile: one prefill and a window of decode steps under
@@ -32,6 +40,7 @@ no CPU mode: without a CUDA device the script exits with an error.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -67,6 +76,13 @@ CPU_GPU_TOL = 5e-2            # bf16 logits of |x| < 2: a few bf16 steps
 # difference.
 CONSISTENCY_MAX_REL = 0.25
 CONSISTENCY_MEAN_REL = 0.05
+# Those bounds are for gemma3-1b's 26 layers.  Each layer's few bf16 steps
+# of difference are carried, and mixed, by every layer after it, so the
+# difference at the logits grows with the depth: as sqrt(depth) if the
+# layers' differences stay independent, linearly if they add coherently.
+# The bounds take the linear envelope, x depth / 26 (mamba2-780m, 48
+# layers: 0.46 max, 0.092 mean).
+CONSISTENCY_LAYERS = 26
 CONSISTENCY_PROMPT = 160      # 3 key tiles of 64: the online softmax runs
 WINDOW_CHECK_SEQ = 600        # past gemma3-1b's window of 512
 PROFILE_DECODE_STEPS = 8
@@ -77,6 +93,21 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:90"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+#: the TPU kernel each SSD kernel replaces: the chunk states are the state
+#: half of _intra_kernel; the scan holds its y half, the host scan and
+#: _inter_kernel (see the source's header)
+SSD_REPLACES = {"ssd_chunk_state": "src/repro/kernels/ssd_scan.py:28",
+                "ssd_chunk_scan": "src/repro/kernels/ssd_scan.py:61"}
+SSD_TOL = 5e-2                # bf16, the reference's SSD kernel tolerance
+# The same error relative to each (batch, head)'s largest |element|: y and
+# the final state are rounded to bf16 on both sides (at most one bf16 step,
+# 2**-8 of an element, apart), and the kernels' products keep ~16 bits of
+# the fp32 operands (hi + lo bf16 parts), so the plain version and the
+# kernels should differ by ~2**-8 of the largest element; 5e-2 is 12 steps.
+SSD_SLAB_REL_TOL = 5e-2
+SSD_CONSISTENCY_PROMPT = 512  # two chunks of 256: the inter-chunk term runs
+SSD_PLAIN_CHECK_SEQ = 2048    # eight chunks
 
 
 def emit(phase: str, **fields) -> None:
@@ -120,6 +151,36 @@ def attention_floor_ms(b, s, hq, hkv, d, causal, window) -> tuple[float, float]:
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def ssd_floor_ms(b, s, h, p, g, n, chunk, part="function",
+                 init_bytes=0) -> tuple[float, float]:
+    """(ms for its operations, ms for its bytes) on the card, for the whole
+    SSD scan (``part="function"``) or for one kernel's own reads and writes
+    (``"chunk_state"``, ``"chunk_scan"``).  Operations are the chunked
+    algorithm's: C·Bᵀ once per group and (scores)·X over the allowed
+    (i, j ≤ i) pairs of each chunk, the chunk states and the inter-chunk
+    term.  Bytes: x, y, B, C, the final state in bf16, log_a fp32, the
+    initial state at ``init_bytes`` an element (0: none), and the fp32
+    passed states (one per chunk) that go from the first kernel to the
+    second."""
+    q = min(chunk, s)
+    c = s // q
+    pairs = c * q * (q + 1) // 2
+    x = 2 * b * s * h * p                 # x, and y alike
+    la = 4 * b * s * h
+    bc = 2 * b * s * g * n                # B, and C alike
+    states = 4 * b * h * c * p * n
+    final = 2 * b * h * p * n
+    init = init_bytes * b * h * p * n
+    f_state = 2 * b * h * s * p * n
+    f_scan = 2 * b * g * pairs * n + 2 * b * h * pairs * p + 2 * b * h * s * n * p
+    flops, nbytes = {
+        "chunk_state": (f_state, x + la + bc + init + states + final),
+        "chunk_scan": (f_scan, 2 * x + la + 2 * bc + states),
+        "function": (f_state + f_scan, 2 * x + la + 2 * bc + final + init),
+    }[part]
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
 def bound(ops_ms: float, bytes_ms: float) -> tuple[float, str]:
     """The least time for the work, and what sets it."""
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -131,9 +192,22 @@ def row_rel_err(out: torch.Tensor, want: torch.Tensor) -> float:
     return ((o - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(1e-6)).max().item()
 
 
-def logits_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """How far two (positions, vocab) logit tables are apart, relative to
-    the spread of ``want``; raises past the CONSISTENCY bounds."""
+def slab_rel_err(out: torch.Tensor, want: torch.Tensor,
+                 keep: tuple[int, ...]) -> float:
+    """max over slabs of max |out - want| / max |want|, a slab being one
+    index of the ``keep`` dims (for SSD outputs: one (batch, head))."""
+    o, w = out.float(), want.float()
+    rest = [d for d in range(o.dim()) if d not in keep]
+    return ((o - w).abs().amax(rest) / w.abs().amax(rest).clamp_min(1e-6)).max().item()
+
+
+def logits_agreement(got: torch.Tensor, want: torch.Tensor,
+                     layers: int = CONSISTENCY_LAYERS) -> dict:
+    """How far two (positions, vocab) logit tables of a model of ``layers``
+    layers are apart, relative to the spread of ``want``; raises past the
+    CONSISTENCY bounds, scaled to the depth."""
+    max_rel = CONSISTENCY_MAX_REL * layers / CONSISTENCY_LAYERS
+    mean_rel = CONSISTENCY_MEAN_REL * layers / CONSISTENCY_LAYERS
     diff = (got - want).abs()
     spread = want.std().item()
     top2 = want.topk(2, dim=-1).values
@@ -145,10 +219,9 @@ def logits_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
         "mean_rel_to_std": diff.mean().item() / spread,
         "argmax_agree": int(agree.sum()), "positions": int(agree.numel()),
         "decisive_positions": int(decisive.sum()),
-        "bound_max_rel": CONSISTENCY_MAX_REL, "bound_mean_rel": CONSISTENCY_MEAN_REL,
+        "bound_max_rel": max_rel, "bound_mean_rel": mean_rel,
     }
-    if not (out["max_rel_to_std"] <= CONSISTENCY_MAX_REL
-            and out["mean_rel_to_std"] <= CONSISTENCY_MEAN_REL
+    if not (out["max_rel_to_std"] <= max_rel and out["mean_rel_to_std"] <= mean_rel
             and bool(agree[decisive].all())):
         raise AssertionError(f"logits disagree: {out}")
     return out
@@ -159,6 +232,8 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_attention" in low:
         return "flash_attention"
+    if "ssd_chunk" in low:
+        return "ssd_scan"
     if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
         return "matmul"
     if "memcpy" in low or "memset" in low:
@@ -240,36 +315,14 @@ def sdpa_call(q, k, v, causal, window):
         qt, kt, vt, is_causal=causal)
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
-    src = Path(__file__).resolve().parent / "src"
-    if not (src / "repro_torch").is_dir():
-        raise SystemExit(f"chip_smoke: the port's sources are not under {src}")
-    sys.path.insert(0, str(src))
-
+def gemma3_path(dev, card) -> dict:
+    """Phases 3-7 for gemma3-1b; returns its kernel's entry of the kernels
+    line."""
     from repro_torch import bridge
     from repro_torch.configs import get, get_smoke
-    from repro_torch.device import resolve_device
-    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Model, compute_copy, synthetic_batch
     from repro_torch.serve.engine import Request, ServeEngine
-
-    dev = resolve_device()
-    card = nvidia_smi()
-    nvcc = subprocess.run([_build.nvcc(), "--version"], check=True,
-                          capture_output=True, text=True).stdout.strip().splitlines()[-1]
-    emit("environment", nvidia_smi=card, torch=torch.__version__,
-         cuda=torch.version.cuda, nvcc=nvcc, python=sys.version.split()[0],
-         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
-         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
-
-    # -- 2. build ----------------------------------------------------------
-    build_s = _build.build()
-    ptxas = [line.strip() for line in _build.build_log.splitlines()
-             if "registers" in line or "spill" in line]
-    emit("build", seconds=build_s, source=FA_SOURCE, ptxas=ptxas)
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device=dev)
@@ -454,11 +507,305 @@ def main() -> None:
              "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")},
          **prof)
 
-    print(json.dumps({"kernels": [{
+    return {
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
         "replaces": FA_REPLACES, "launches": prefill_launches,
         "max_abs_err": max_err, **prefill_attn,
-    }]}), flush=True)
+    }
+
+
+def ssd_inputs(gen, dev, b, s, h, p, g, n, init):
+    """x, log_a, B, C (and an initial state) at SSD scales like the
+    reference's kernel tests: |x| ~ 0.5, log_a = -0.3 softplus(N(0, 1))."""
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    x = normal(b, s, h, p, scale=0.5).to(torch.bfloat16)
+    log_a = -torch.nn.functional.softplus(normal(b, s, h, scale=1.0)) * 0.3
+    bm = normal(b, s, g, n, scale=0.3).to(torch.bfloat16)
+    cm = normal(b, s, g, n, scale=0.3).to(torch.bfloat16)
+    h0 = normal(b, h, p, n, scale=0.2) if init else None
+    return x, log_a, bm, cm, h0
+
+
+def mamba2_path(dev, card) -> list[dict]:
+    """Phases 3-7 for mamba2-780m; returns its two kernels' entries of the
+    kernels line."""
+    from repro_torch import bridge
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.models import Model, compute_copy, synthetic_batch
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    cfg = get("mamba2-780m")
+    h, p, g, n, chunk = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                         cfg.ssm_state, cfg.ssm_chunk)
+
+    # -- 3. the SSD kernels against their plain versions ---------------------
+    cases = [  # name, B, S, H, P, G, N, chunk, initial state
+        ("mamba2-780m prefill", 4, 2048, h, p, g, n, chunk, False),
+        ("hymba-1.5b SSD", 4, 2048, 50, 64, 1, 16, 256, False),
+        ("G 4, N 64", 2, 1024, 16, 64, 4, 64, 256, False),
+        ("S 100 < chunk", 4, 100, h, p, g, n, chunk, False),
+        ("initial state", 2, 512, h, p, g, n, chunk, True),
+    ]
+    max_err = {"ssd_chunk_state": 0.0, "ssd_chunk_scan": 0.0}
+    for name, b, s, hh, pp, gg, nn, ch, init in cases:
+        x, la, bm, cm, h0 = ssd_inputs(gen, dev, b, s, hh, pp, gg, nn, init)
+        q = min(ch, s)
+        prev, final = kssd.chunk_state(x, la, bm, chunk=ch, initial_state=h0)
+        y = kssd.chunk_scan(x, la, bm, cm, prev, chunk=ch)
+        torch.cuda.synchronize()
+        want_prev, _ = kssd.chunk_state_plain(x, la, bm, q, h0)
+        want_y, want_final = kssd.ssd_scan_plain(x, la, bm, cm, chunk=ch,
+                                                 initial_state=h0)
+        errs = {   # max |err|, and relative to each (batch, head)'s max |want|
+            "prev": ((prev - want_prev).abs().max().item(),
+                     slab_rel_err(prev, want_prev, keep=(0, 1))),
+            "y": ((y.float() - want_y.float()).abs().max().item(),
+                  slab_rel_err(y, want_y, keep=(0, 2))),
+            "final": ((final.float() - want_final.float()).abs().max().item(),
+                      slab_rel_err(final, want_final, keep=(0, 1))),
+        }
+        for what, (err, rel) in errs.items():
+            if not (err <= SSD_TOL and rel <= SSD_SLAB_REL_TOL):
+                raise AssertionError(f"ssd {name} {what}: max |err| {err} (tol "
+                                     f"{SSD_TOL}), per (b, h) {rel} (tol "
+                                     f"{SSD_SLAB_REL_TOL})")
+        max_err["ssd_chunk_state"] = max(max_err["ssd_chunk_state"], errs["prev"][0],
+                                         errs["final"][0])
+        max_err["ssd_chunk_scan"] = max(max_err["ssd_chunk_scan"], errs["y"][0])
+        init_bytes = 4 if init else 0
+        bounds = {part: bound(*ssd_floor_ms(b, s, hh, pp, gg, nn, ch, part, init_bytes))
+                  for part in ("chunk_state", "chunk_scan", "function")}
+        emit("kernel_check", kernel="ssd_scan", case=name,
+             shape=[b, s, hh, pp, gg, nn, q], initial_state=init,
+             errors={k: {"max_abs_err": e, "max_bh_rel_err": r}
+                     for k, (e, r) in errs.items()},
+             tol=SSD_TOL, bh_rel_tol=SSD_SLAB_REL_TOL,
+             chunk_state_ms=time_ms(lambda: kssd.chunk_state(
+                 x, la, bm, chunk=ch, initial_state=h0), 20),
+             chunk_scan_ms=time_ms(lambda: kssd.chunk_scan(
+                 x, la, bm, cm, prev, chunk=ch), 20),
+             ms=time_ms(lambda: kssd.ssd_scan(x, la, bm, cm, chunk=ch,
+                                              initial_state=h0), 20),
+             chunk_state_plain_ms=time_ms(lambda: kssd.chunk_state_plain(
+                 x, la, bm, q, h0), 3, 1),
+             chunk_scan_plain_ms=time_ms(lambda: kssd.chunk_scan_plain(
+                 x, la, bm, cm, prev, q), 3, 1),
+             plain_ms=time_ms(lambda: kssd.ssd_scan_plain(
+                 x, la, bm, cm, chunk=ch, initial_state=h0), 3, 1),
+             chunk_state_bound_ms=bounds["chunk_state"][0],
+             chunk_state_bound_by=bounds["chunk_state"][1],
+             chunk_scan_bound_ms=bounds["chunk_scan"][0],
+             chunk_scan_bound_by=bounds["chunk_scan"][1],
+             bound_ms=bounds["function"][0], bound_by=bounds["function"][1],
+             library_ms=None, nvidia_smi=card)
+        del x, la, bm, cm, h0, prev, y, final, want_prev, want_y, want_final
+
+    # the SSD work of one mamba2-780m prefill: one scan per layer
+    b, s = 4, 2048
+    x, la, bm, cm, _ = ssd_inputs(gen, dev, b, s, h, p, g, n, False)
+    prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk)
+    layers = range(cfg.n_layers)
+    mix = {}
+    for part, kernel, plain in (
+            ("chunk_state", lambda: kssd.chunk_state(x, la, bm, chunk=chunk),
+             lambda: kssd.chunk_state_plain(x, la, bm, chunk)),
+            ("chunk_scan", lambda: kssd.chunk_scan(x, la, bm, cm, prev, chunk=chunk),
+             lambda: kssd.chunk_scan_plain(x, la, bm, cm, prev, chunk)),
+            ("function", lambda: kssd.ssd_scan(x, la, bm, cm, chunk=chunk),
+             lambda: kssd.ssd_scan_plain(x, la, bm, cm, chunk=chunk))):
+        ops_ms, bytes_ms = ssd_floor_ms(b, s, h, p, g, n, chunk, part)
+        mix_bound_ms, mix_bound_by = bound(cfg.n_layers * ops_ms,
+                                           cfg.n_layers * bytes_ms)
+        mix[part] = {
+            "ms": time_ms(lambda: [kernel() for _ in layers], 10),
+            "plain_ms": time_ms(lambda: [plain() for _ in layers], 2, 1),
+            "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
+            "library_ms": None,
+        }
+    emit("kernel_prefill_mix", kernel="ssd_scan", layers=cfg.n_layers,
+         shape=[b, s, h, p, g, n, chunk], nvidia_smi=card, **mix)
+    del x, la, bm, cm, prev
+
+    # -- 4. prefill: the main path, at full width -----------------------------
+    model = Model(cfg, dev)
+    params = compute_copy(cfg, model.init(seed=0))   # bf16 serving copy
+    batch = synthetic_batch(cfg, b, s, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kssd.state_launches = kssd.scan_launches = fa.launches = 0
+    with torch.inference_mode():
+        logits = model.forward(params, batch)
+    torch.cuda.synchronize()
+    launches = {"ssd_chunk_state": kssd.state_launches,
+                "ssd_chunk_scan": kssd.scan_launches,
+                "flash_attention": fa.launches}
+    want = {"ssd_chunk_state": cfg.n_layers, "ssd_chunk_scan": cfg.n_layers,
+            "flash_attention": 0}
+    if launches != want:
+        raise AssertionError(f"prefill launches {launches}, want {want}")
+    if tuple(logits.shape) != (b, s, cfg.vocab_size):
+        raise AssertionError(f"logits shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite")
+    del logits
+    times = []
+    with torch.inference_mode():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model.forward(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    prefill_s = float(np.median(times))
+    emit("prefill", arch=cfg.name, batch=b, seq=s, launches=launches,
+         seconds=prefill_s, tokens_per_s=b * s / prefill_s, runs=times,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=card)
+
+    # -- 5. correctness ---------------------------------------------------------
+    # (a) prefill (kernels) against teacher-forced decode (ssd_step), over
+    # two chunks, so the inter-chunk path runs
+    prompt = synthetic_batch(cfg, 1, SSD_CONSISTENCY_PROMPT, gen, dev)["tokens"]
+    with torch.inference_mode():
+        fwd = model.forward(params, {"tokens": prompt})[0].float()
+        cache = model.init_cache(1, SSD_CONSISTENCY_PROMPT)
+        dec = []
+        for t in range(prompt.shape[1]):
+            lg, cache = model.decode_step(params, cache, prompt[:, t:t + 1])
+            dec.append(lg[0].float())
+    dec = torch.stack(dec)
+    emit("prefill_decode_consistency", arch=cfg.name, prompt=SSD_CONSISTENCY_PROMPT,
+         chunks=SSD_CONSISTENCY_PROMPT // chunk,
+         **logits_agreement(dec, fwd, cfg.n_layers))
+    # how far each of the two bf16 paths is from the fp32 logits of the same
+    # weights (the kernels' plain version computing in fp32): a rounding
+    # difference leaves them about equally far, a fault in the kernels
+    # leaves the prefill farther
+    ref_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    ref_params = compute_copy(ref_cfg, params)
+    kernel = kssd.ssd_scan
+    with torch.inference_mode():
+        kssd.ssd_scan = kssd.ssd_scan_plain
+        try:
+            ref = Model(ref_cfg, dev).forward(ref_params, {"tokens": prompt})[0].float()
+        finally:
+            kssd.ssd_scan = kernel
+    spread = ref.std().item()
+    emit("distance_from_fp32", arch=cfg.name, prompt=SSD_CONSISTENCY_PROMPT,
+         **{f"{name}_max_rel_to_std": (out - ref).abs().max().item() / spread
+            for name, out in (("prefill", fwd), ("decode", dec))},
+         **{f"{name}_mean_rel_to_std": (out - ref).abs().mean().item() / spread
+            for name, out in (("prefill", fwd), ("decode", dec))})
+    del fwd, dec, cache, ref, ref_params
+
+    # (a2) the kernels' forward against the same forward with the plain
+    # version in their place, over 8 chunks
+    toks = synthetic_batch(cfg, 1, SSD_PLAIN_CHECK_SEQ, gen, dev)
+    with torch.inference_mode():
+        got = model.forward(params, toks)[0].float()
+        kssd.ssd_scan = kssd.ssd_scan_plain
+        try:
+            want_logits = model.forward(params, toks)[0].float()
+        finally:
+            kssd.ssd_scan = kernel
+    emit("forward_vs_plain_ssd", arch=cfg.name, seq=SSD_PLAIN_CHECK_SEQ,
+         chunks=SSD_PLAIN_CHECK_SEQ // chunk,
+         **logits_agreement(got, want_logits, cfg.n_layers))
+    del got, want_logits
+
+    # (b) the card's forward (kernels) against the CPU's (their plain version)
+    small = get_smoke("mamba2-780m", use_kernels=True)
+    sm_cpu = Model(small, "cpu")
+    sp_cpu = sm_cpu.init(seed=1)
+    sp_gpu = bridge.params_from_numpy(bridge.params_to_numpy(sp_cpu), dev)
+    seq = 3 * small.ssm_chunk
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, small.vocab_size, (2, seq)))
+    with torch.inference_mode():
+        want_small = sm_cpu.forward(sp_cpu, {"tokens": toks}).float()
+        got_small = Model(small, dev).forward(sp_gpu, {"tokens": toks.to(dev)}).float().cpu()
+    small_err = (got_small - want_small).abs().max().item()
+    emit("small_forward_vs_cpu", arch=small.name, seq=seq, max_abs=small_err,
+         tol=CPU_GPU_TOL)
+    if not small_err <= CPU_GPU_TOL:
+        raise AssertionError(f"card vs CPU forward: {small_err} > {CPU_GPU_TOL}")
+
+    # -- 6. serve -----------------------------------------------------------------
+    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
+    rng = np.random.default_rng(0)
+    for rid in range(8):
+        prompt_ids = rng.integers(0, cfg.vocab_size, rng.integers(2, 6)).tolist()
+        engine.submit(Request(rid=rid, prompt=prompt_ids, max_new=16))
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
+        raise AssertionError(f"served {len(done)} requests: "
+                             f"{[len(r.generated) for r in done]}")
+    n_tok = sum(len(r.generated) for r in done)
+    emit("serve", arch=cfg.name, requests=len(done), slots=4, new_tokens=n_tok,
+         final_pos=engine.cache["pos"], seconds=serve_s,
+         decode_tokens_per_s=n_tok / serve_s,
+         steps_per_s=engine.cache["pos"] / serve_s, nvidia_smi=card)
+
+    # -- 7. profile: where the time goes ------------------------------------------
+    with torch.inference_mode():
+        prof = profiled(lambda: model.forward(params, batch), 1)
+    emit("profile_prefill", arch=cfg.name, batch=b, seq=s, nvidia_smi=card, **prof)
+    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
+    for rid in range(4):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, 4).tolist(), max_new=PROFILE_DECODE_STEPS + 8))
+    for _ in range(4):                                      # warm-up
+        engine.step()
+    prof = profiled(engine.step, PROFILE_DECODE_STEPS)
+    emit("profile_decode", arch=cfg.name, slots=4, nvidia_smi=card,
+         per_step={k: prof[k] / PROFILE_DECODE_STEPS for k in (
+             "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")},
+         **prof)
+
+    return [{"name": name, "route": "cuda", "source": SSD_SOURCE,
+             "replaces": SSD_REPLACES[name], "launches": launches[name],
+             "max_abs_err": max_err[name], **mix[part]}
+            for name, part in (("ssd_chunk_state", "chunk_state"),
+                               ("ssd_chunk_scan", "chunk_scan"))]
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        raise SystemExit(f"chip_smoke: the port's sources are not under {src}")
+    sys.path.insert(0, str(src))
+
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import _build
+
+    dev = resolve_device()
+    card = nvidia_smi()
+    nvcc = subprocess.run([_build.nvcc(), "--version"], check=True,
+                          capture_output=True, text=True).stdout.strip().splitlines()[-1]
+    emit("environment", nvidia_smi=card, torch=torch.__version__,
+         cuda=torch.version.cuda, nvcc=nvcc, python=sys.version.split()[0],
+         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
+
+    # -- 2. build: every source, one nvcc each, all at once ------------------
+    build_s = _build.build()
+    ptxas = {name: [line.strip() for line in log.splitlines()
+                    if "registers" in line or "spill" in line]
+             for name, log in _build.build_log.items()}
+    emit("build", seconds=build_s, sources=[FA_SOURCE, SSD_SOURCE], ptxas=ptxas)
+
+    kernels = [gemma3_path(dev, card)]
+    torch.cuda.empty_cache()
+    kernels += mamba2_path(dev, card)
+
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
-"""Builds the port's CUDA source with nvcc and loads it with ctypes.
+"""Builds the port's CUDA sources with nvcc and loads them with ctypes.
 
-``csrc/flash_attention.cu`` becomes one shared library with a plain C
-interface, compiled for ``sm_90a`` at first CUDA use into
-``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``), keyed by a hash of every file under ``csrc/`` and the
-flags, so an edited source is rebuilt and an unchanged one is not.
-Nothing here runs at import: the CPU tests import every module.
+Every ``csrc/*.cu`` becomes one shared library with a plain C interface,
+compiled for ``sm_90a`` at first CUDA use into ``build/repro_torch_kernels/``
+at the repository root (listed in ``.gitignore``), keyed by a hash of every
+file under ``csrc/`` and the flags, so an edited source is rebuilt and an
+unchanged one is not.  One :func:`build` starts an nvcc for each source that
+is not built yet, all at once, and waits for them all.  Nothing here runs at
+import: the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -18,13 +19,13 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-#: compiler output of the build this process ran ("" if it ran none)
-build_log = ""
+#: compiler output of the builds this process ran, by source name
+#: (``"flash_attention.cu"``); a source built by an earlier process has none
+build_log: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -34,37 +35,54 @@ def nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target() -> Path:
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _target(source: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{SOURCE.stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> float:
-    """Compiles the source unless it is built already.  Returns the seconds
-    spent; raises with the compiler's output if the build fails."""
-    global build_log
+    """Compiles every source that is not built already, in parallel.
+    Returns the seconds spent; raises with the compiler's output if a build
+    fails (after every started nvcc has ended)."""
     t0 = time.perf_counter()
-    target = _target()
-    if not target.exists():
+    jobs = []
+    for src in sources():
+        target = _target(src)
+        if target.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE.name} "
-                               f"(exit {res.returncode}):\n{build_log}")
-        os.replace(tmp, target)       # atomic: a reader sees all or nothing
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((src, target, tmp, proc))
+    failed = []
+    for src, target, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        build_log[src.name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src.name} (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, target)   # atomic: a reader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return time.perf_counter() - t0
 
 
-def library() -> ctypes.CDLL:
-    """The loaded library, built first if needed."""
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    source = CSRC / f"{name}.cu"
+    if not source.exists():
+        raise FileNotFoundError(source)
     build()
-    return ctypes.CDLL(str(_target()))
+    return ctypes.CDLL(str(_target(source)))

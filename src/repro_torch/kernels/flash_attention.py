@@ -39,7 +39,7 @@ flash_attention_plain = flash_attention_ref
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = _build.library()
+    lib = _build.library("flash_attention")
     # pointers and the stream as c_void_p, or ctypes cuts them to 32 bits
     lib.flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])

@@ -26,3 +26,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,
+                 c_mat: torch.Tensor, initial_state: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact sequential SSD recurrence, one time step at a time, in fp32.
+
+    x (B,S,H,P); log_a (B,S,H); b_mat, c_mat (B,S,G,N); initial_state
+    (B,H,P,N).  Returns (y (B,S,H,P), final state (B,H,P,N)), both in x's
+    dtype.  Head h reads group h // (H/G)."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    bh = b_mat.float().repeat_interleave(rep, dim=2)
+    ch = c_mat.float().repeat_interleave(rep, dim=2)
+    state = (initial_state.float() if initial_state is not None
+             else torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                              device=x.device))
+    ys = []
+    for t in range(s):
+        a = torch.exp(log_a[:, t].float())[..., None, None]
+        state = state * a + torch.einsum("bhp,bhn->bhpn", x[:, t].float(),
+                                         bh[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state.to(x.dtype)

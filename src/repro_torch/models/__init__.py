@@ -1,4 +1,5 @@
-"""Model substrate of the port: config, layers, attention, dense transformer."""
+"""Model substrate of the port: config, layers, attention, the Mamba2 SSM
+block, and the transformer over dense and ssm layers."""
 from .config import ArchConfig
 from .model import Model, synthetic_batch
 from .transformer import (

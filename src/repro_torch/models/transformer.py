@@ -1,10 +1,10 @@
-"""Model assembly: embeddings → layer segments → head (dense subset).
+"""Model assembly: embeddings → layer segments → head.
 
-Port of ``repro.models.transformer`` for the kinds ``attn`` and ``swa``
-with token inputs.  Consecutive layers of one kind form a *segment* whose
-parameters are stacked on a leading layer axis, the reference's layout; a
-Python loop over that axis replaces ``lax.scan``.  ``loss_fn``, remat,
-MoE, SSM, hybrid and encoder layers are not ported yet.
+Port of ``repro.models.transformer`` for the kinds ``attn``, ``swa`` and
+``ssm`` with token inputs.  Consecutive layers of one kind form a *segment*
+whose parameters are stacked on a leading layer axis, the reference's
+layout; a Python loop over that axis replaces ``lax.scan``.  ``loss_fn``,
+remat, MoE, hybrid and encoder layers are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,17 +17,19 @@ from .config import ArchConfig
 from .layers import (
     as_dtype, cast, embed_tokens, mlp, normal_init, rms_norm, unembed,
 )
+from .ssm import init_ssm_cache, mamba2_block
 
-DENSE_KINDS = ("attn", "swa")
+PORTED_KINDS = ("attn", "swa", "ssm")
 
 #: leaves the reference casts to the compute dtype at every use (matmul
-#: weights and the embedding table); norm scales stay in param dtype
+#: weights and the embedding table); norm scales, the conv, dt_bias, A_log
+#: and D stay in param dtype
 _CAST_ON_USE = ("embed", "lm_head", "wq", "wk", "wv", "wo", "wi_gate",
-                "wi_up")
+                "wi_up", "in_proj", "out_proj")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    kinds = set(cfg.layer_types) - set(DENSE_KINDS)
+    kinds = set(cfg.layer_types) - set(PORTED_KINDS)
     if kinds or cfg.input_mode != "tokens" or cfg.mlp_act == "gelu_nogate":
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)} / input mode "
@@ -38,15 +40,38 @@ def _check_supported(cfg: ArchConfig) -> None:
 # Parameter initialization
 # ---------------------------------------------------------------------------
 
-def _init_segment(gen: torch.Generator, cfg: ArchConfig, n: int
+def _init_ssm(gen: torch.Generator, cfg: ArchConfig, n: int) -> dict[str, Any]:
+    """Mamba2 mixer parameters of ``n`` layers, stacked (reference
+    ``_init_ssm``)."""
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    dt = as_dtype(cfg.param_dtype)
+    gn = cfg.ssm_groups * cfg.ssm_state
+    conv_ch = di + 2 * gn
+    dev = gen.device
+    a_init = torch.linspace(1.0, 16.0, h, device=dev)
+    return {
+        "in_proj": normal_init(gen, (n, d, 2 * di + 2 * gn + h), dt),
+        "conv_w": normal_init(gen, (n, cfg.ssm_conv, conv_ch), dt, 0.2),
+        "conv_b": torch.zeros((n, conv_ch), dtype=dt, device=dev),
+        "dt_bias": torch.zeros((n, h), dtype=dt, device=dev),
+        "A_log": torch.log(a_init).to(dt).expand(n, h).clone(),
+        "D": torch.ones((n, h), dtype=dt, device=dev),
+        "norm": torch.zeros((n, di), dtype=dt, device=dev),
+        "out_proj": normal_init(gen, (n, di, d), dt),
+    }
+
+
+def _init_segment(gen: torch.Generator, cfg: ArchConfig, kind: str, n: int
                   ) -> dict[str, Any]:
-    """Parameters of ``n`` dense layers, stacked on a leading axis."""
+    """Parameters of ``n`` layers of one kind, stacked on a leading axis."""
     d, ad, kd, ff = cfg.d_model, cfg.attn_dim, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff
     dt = as_dtype(cfg.param_dtype)
 
     def zeros(*shape):
         return torch.zeros((n, *shape), dtype=dt, device=gen.device)
 
+    if kind == "ssm":   # norm1 → mixer → residual; no norm2, no MLP
+        return {"norm1": zeros(d), "ssm": _init_ssm(gen, cfg, n)}
     attn = {
         "wq": normal_init(gen, (n, d, ad), dt),
         "wk": normal_init(gen, (n, d, kd), dt),
@@ -69,8 +94,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict[str, Any]:
     dt = as_dtype(cfg.param_dtype)
     params: dict[str, Any] = {
         "embed": normal_init(generator, (cfg.padded_vocab, cfg.d_model), dt),
-        "segments": [_init_segment(generator, cfg, count)
-                     for _, count in cfg.segments()],
+        "segments": [_init_segment(generator, cfg, kind, count)
+                     for kind, count in cfg.segments()],
         "final_norm": torch.zeros((cfg.d_model,), dtype=dt,
                                   device=generator.device),
     }
@@ -109,9 +134,17 @@ def _layer(seg: Any, i: int) -> Any:
 def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
                lp: dict[str, Any], positions: torch.Tensor,
                cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
-    """One dense layer: returns (x, new_cache)."""
+    """One layer: returns (x, new_cache)."""
     eps = cfg.norm_eps
     h = rms_norm(x, lp["norm1"], eps)
+    if kind == "ssm":
+        y, new_cache = mamba2_block(
+            h, lp["ssm"], d_inner=cfg.d_inner, state_dim=cfg.ssm_state,
+            head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
+            conv_width=cfg.ssm_conv, chunk=cfg.ssm_chunk,
+            compute_dtype=cfg.compute_dtype, cache=cache,
+            use_kernels=cfg.use_kernels)
+        return x + y.to(x.dtype), new_cache
     a_out, new_cache = attn_block(
         h, lp["attn"],
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -167,12 +200,20 @@ def forward(cfg: ArchConfig, params: dict[str, Any],
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: str | torch.dtype = torch.bfloat16,
                device: torch.device | str = "cuda") -> dict[str, Any]:
-    """Per-segment stacked KV caches; swa segments hold a ring of
-    ``min(window, max_len)`` entries.  ``pos`` is one Python int shared by
-    every slot, as in the reference."""
+    """Per-segment stacked caches: KV for attention (swa segments hold a
+    ring of ``min(window, max_len)`` entries), conv state in ``dtype`` and
+    SSM state in fp32 for ssm.  ``pos`` is one Python int shared by every
+    slot, as in the reference."""
     _check_supported(cfg)
     segments = []
     for kind, count in cfg.segments():
+        if kind == "ssm":
+            c = init_ssm_cache(batch, cfg.d_inner, cfg.ssm_state,
+                               cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_conv,
+                               dtype, device)
+            segments.append({k: v[None].repeat(count, *([1] * v.dim()))
+                             for k, v in c.items() if k != "pos"})
+            continue
         t = min(cfg.window, max_len) if kind == "swa" and cfg.window else max_len
         shape = (count, batch, t, cfg.n_kv_heads, cfg.head_dim)
         segments.append({
@@ -186,7 +227,10 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
     """One autoregressive step → (logits (B,V), cache).  token: (B, 1).
 
     The cache tensors are updated in place; the returned cache holds the
-    same tensors and ``pos + 1``."""
+    same tensors and ``pos + 1``.  An ssm segment's conv state takes the
+    dtype the reference's concatenation gives it (cache and compute dtype
+    promoted): a bf16 conv cache under fp32 compute becomes fp32 at the
+    first step, as the reference's returned cache does."""
     if not cfg.has_decode():
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
     pos = cache["pos"]
@@ -195,6 +239,17 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     for (kind, count), seg, seg_cache in zip(
             cfg.segments(), params["segments"], cache["segments"]):
+        if kind == "ssm":
+            conv_dt = torch.promote_types(seg_cache["conv"].dtype, x.dtype)
+            seg_cache["conv"] = seg_cache["conv"].to(conv_dt)
+            for i in range(count):
+                lc = {"conv": seg_cache["conv"][i], "ssm": seg_cache["ssm"][i],
+                      "pos": pos}
+                x, nc = layer_body(cfg, kind, x, _layer(seg, i), positions,
+                                   cache=lc)
+                seg_cache["conv"][i] = nc["conv"]
+                seg_cache["ssm"][i] = nc["ssm"]
+            continue
         for i in range(count):
             lc = {"k": seg_cache["k"][i], "v": seg_cache["v"][i], "pos": pos}
             x, _ = layer_body(cfg, kind, x, _layer(seg, i), positions, cache=lc)

@@ -38,6 +38,59 @@ def test_gemma3_prefill_bound():
     assert cs.bound(1.0, 2.0) == (2.0, "bytes")
 
 
+def test_mamba2_prefill_ssd_bound():
+    """B 4, S 2048, H 48, P 64, G 1, N 128, Q 256: the whole scan must move
+    ~110 MB (x and y 50.3 MB each, B, C and log_a 5.8 MB, the final state
+    3.1 MB), ~33 us at 3.35 TB/s, and is bound by bytes."""
+    b, s, h, p, g, n, q = 4, 2048, 48, 64, 1, 128, 256
+    ops, nbytes = cs.ssd_floor_ms(b, s, h, p, g, n, q)
+    x = 2 * b * s * h * p
+    assert x == 50_331_648
+    want_bytes = 2 * x + 4 * b * s * h + 2 * (2 * b * s * g * n) + 2 * b * h * p * n
+    assert want_bytes == pytest.approx(109.6e6, rel=1e-3)
+    assert nbytes == pytest.approx(want_bytes / 3.35e12 * 1e3)
+    assert nbytes == pytest.approx(0.03271, rel=1e-3)
+    pairs = (s // q) * q * (q + 1) // 2            # j <= i within each chunk
+    flops = (2 * b * h * s * p * n                 # chunk states
+             + 2 * b * g * pairs * n               # C.B^T, once per group
+             + 2 * b * h * pairs * p               # (scores) X
+             + 2 * b * h * s * n * p)              # inter-chunk C.prev^T
+    assert ops == pytest.approx(flops / 989e12 * 1e3)
+    assert cs.bound(ops, nbytes) == (nbytes, "bytes")
+    # each kernel's own reads and writes: the fp32 passed states (50.3 MB)
+    # are written by the first (with the final state) and read by the second
+    states = 4 * b * h * (s // q) * p * n
+    _, st_bytes = cs.ssd_floor_ms(b, s, h, p, g, n, q, "chunk_state")
+    _, sc_bytes = cs.ssd_floor_ms(b, s, h, p, g, n, q, "chunk_scan")
+    assert st_bytes * 3.35e12 / 1e3 == pytest.approx(
+        x + 4 * b * s * h + 2 * b * s * g * n + states + 2 * b * h * p * n)
+    assert sc_bytes * 3.35e12 / 1e3 == pytest.approx(
+        2 * x + 4 * b * s * h + 2 * (2 * b * s * g * n) + states)
+    assert (st_bytes + sc_bytes - nbytes) * 3.35e12 / 1e3 == pytest.approx(
+        2 * states + x + 4 * b * s * h + 2 * b * s * g * n)
+    # an initial state is read once more, at its own element size
+    _, with_init = cs.ssd_floor_ms(b, s, h, p, g, n, q, init_bytes=4)
+    assert (with_init - nbytes) * 3.35e12 / 1e3 == pytest.approx(4 * b * h * p * n)
+
+
+def test_ssd_bound_of_a_short_prompt_counts_one_chunk():
+    """S 100 < chunk 256: one chunk of Q = 100, 5050 allowed pairs."""
+    ops, _ = cs.ssd_floor_ms(1, 100, 1, 64, 1, 16, 256, "chunk_scan")
+    flops = 2 * 5050 * 16 + 2 * 5050 * 64 + 2 * 100 * 16 * 64
+    assert ops == pytest.approx(flops / 989e12 * 1e3)
+
+
+def test_slab_relative_error_per_batch_and_head():
+    want = torch.ones(2, 5, 3, 4)                 # (B, S, H, P)
+    want[1, :, 2] = 0.01                          # one small (b, h)
+    out = want.clone()
+    out[1, 3, 2, 0] += 0.002
+    assert cs.slab_rel_err(out, want, keep=(0, 2)) == pytest.approx(0.2, rel=1e-4)
+    out = want.clone()
+    out[0, 0, 0, 0] += 0.002
+    assert cs.slab_rel_err(out, want, keep=(0, 2)) == pytest.approx(0.002, rel=1e-3)
+
+
 def test_row_relative_error_sees_a_small_row():
     """An error too small for the absolute gate fails the row-relative one
     when it sits in a row of small values."""
@@ -59,6 +112,20 @@ def test_logits_agreement():
         cs.logits_agreement(want + 0.5 * want.std(), want)
 
 
+def test_logits_agreement_bounds_scale_with_depth():
+    """One logit moved by 0.3 std fails the 26-layer max bound and passes
+    the 48-layer one (0.25 and 0.05 times 48 / 26: 0.4615, 0.0923)."""
+    want = torch.from_numpy(np.random.default_rng(0).normal(size=(6, 50))).float()
+    shifted = want.clone()
+    shifted[0, want[0].argmin()] += 0.3 * want.std()
+    with pytest.raises(AssertionError, match="logits disagree"):
+        cs.logits_agreement(shifted, want)
+    out = cs.logits_agreement(shifted, want, layers=48)
+    assert out["bound_max_rel"] == pytest.approx(0.25 * 48 / 26)
+    assert out["bound_mean_rel"] == pytest.approx(0.05 * 48 / 26)
+    assert out["max_rel_to_std"] == pytest.approx(0.3, rel=1e-5)
+
+
 def test_busy_time_is_the_union_of_intervals():
     assert cs.busy_us([]) == 0.0
     assert cs.busy_us([(20, 30), (0, 10), (5, 15), (21, 22)]) == 25.0
@@ -68,6 +135,10 @@ def test_busy_time_is_the_union_of_intervals():
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::flash_attention_fwd_kernel<256>(...)",
      "flash_attention"),
+    ("void (anonymous namespace)::ssd_chunk_state_kernel<64, 128>(Params)",
+     "ssd_scan"),
+    ("void (anonymous namespace)::ssd_chunk_scan_kernel<64, 128>(Params)",
+     "ssd_scan"),
     ("nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN", "matmul"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),
     ("Memcpy HtoD (Pageable -> Device)", "copy"),

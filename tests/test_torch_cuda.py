@@ -1,8 +1,9 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: skipped where there is no card.  Run on a machine with
 one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
-Tolerance 2e-2 in bf16, as the reference's kernel tests.
+Tolerances in bf16, as the reference's kernel tests: 2e-2 for flash
+attention, 5e-2 for the SSD scan.
 """
 import pytest
 
@@ -70,4 +71,99 @@ def test_forward_on_card_matches_cpu(dev):
     got = Model(cfg, dev).forward(bridge.params_from_numpy(
         bridge.params_to_numpy(params), dev), {"tokens": toks.to(dev)})
     assert fa.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.float().cpu(), want, atol=5e-2, rtol=5e-2)
+
+
+def _ssd(dev, b, s, h, p, g, n, init, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    x = normal(b, s, h, p, scale=0.5).to(torch.bfloat16)
+    la = -torch.nn.functional.softplus(normal(b, s, h, scale=1.0)) * 0.3
+    bm = normal(b, s, g, n, scale=0.3).to(torch.bfloat16)
+    cm = normal(b, s, g, n, scale=0.3).to(torch.bfloat16)
+    h0 = normal(b, h, p, n, scale=0.2) if init else None
+    return x, la, bm, cm, h0
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 64), (512, 256), (100, 256),
+                                     (192, 64), (48, 16)])
+@pytest.mark.parametrize("h,p,g,n", [(4, 64, 1, 128), (6, 64, 2, 64),
+                                     (4, 64, 4, 16), (2, 16, 1, 16)])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_kernels_match_plain(dev, s, chunk, h, p, g, n, init):
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, h0 = _ssd(dev, 2, s, h, p, g, n, init)
+    before = (kssd.state_launches, kssd.scan_launches)
+    y, final = kssd.ssd_scan(x, la, bm, cm, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    assert (kssd.state_launches, kssd.scan_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert y.dtype == final.dtype == torch.bfloat16
+    want_y, want_final = kssd.ssd_scan_plain(x, la, bm, cm, chunk=chunk,
+                                             initial_state=h0)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(final.float(), want_final.float(), atol=5e-2,
+                               rtol=5e-2)
+    prev, final_again = kssd.chunk_state(x, la, bm, chunk=chunk,
+                                         initial_state=h0)
+    want_prev, _ = kssd.chunk_state_plain(x, la, bm, min(chunk, s), h0)
+    torch.testing.assert_close(prev, want_prev, atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(final_again, final, atol=0, rtol=0)
+
+
+def test_ssd_kernels_read_strided_b_and_c(dev):
+    """B and C as views into one wider (B, S, channels) tensor, the way the
+    Mamba2 block hands them over: read in place, same result."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, _ = _ssd(dev, 2, 128, 4, 64, 1, 128, False)
+    wide = torch.cat([torch.zeros(2, 128, 64, device=dev, dtype=torch.bfloat16),
+                      bm.flatten(2), cm.flatten(2)], dim=-1)
+    bv = wide[..., 64:192].reshape(2, 128, 1, 128)
+    cv = wide[..., 192:].reshape(2, 128, 1, 128)
+    assert not bv.is_contiguous()
+    got = kssd.ssd_scan(x, la, bv, cv, chunk=64)
+    want = kssd.ssd_scan(x, la, bm, cm, chunk=64)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=0, rtol=0)
+
+
+def test_ssd_kernels_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, _ = _ssd(dev, 1, 64, 2, 64, 1, 128, False)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kssd.ssd_scan(x.float(), la, bm, cm, chunk=64)
+    with pytest.raises(TypeError, match="float32"):
+        kssd.ssd_scan(x, la.to(torch.bfloat16), bm, cm, chunk=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        kssd.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), la, bm, cm,
+                      chunk=64)
+    with pytest.raises(ValueError, match="not divisible by chunk"):
+        kssd.ssd_scan(x[:, :48], la[:, :48], bm[:, :48], cm[:, :48], chunk=32)
+    with pytest.raises(ValueError, match="not supported"):
+        kssd.ssd_scan(x[..., :32].contiguous(), la, bm, cm, chunk=64)
+    with pytest.raises(ValueError, match="chunk 512"):
+        big = _ssd(dev, 1, 512, 2, 64, 1, 128, False)
+        kssd.ssd_scan(*big[:4], chunk=512)
+
+
+def test_mamba2_forward_on_card_matches_cpu(dev):
+    """Small mamba2 config: the card's forward (the SSD kernels on every
+    layer) against the CPU's (their plain version), on the same weights."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.models import Model
+    cfg = get_smoke("mamba2-780m", use_kernels=True)
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 3 * cfg.ssm_chunk))
+    want = cpu.forward(params, {"tokens": toks}).float()
+    before = (kssd.state_launches, kssd.scan_launches)
+    got = Model(cfg, dev).forward(bridge.params_from_numpy(
+        bridge.params_to_numpy(params), dev), {"tokens": toks.to(dev)})
+    assert (kssd.state_launches, kssd.scan_launches) == (
+        before[0] + cfg.n_layers, before[1] + cfg.n_layers)
     torch.testing.assert_close(got.float().cpu(), want, atol=5e-2, rtol=5e-2)

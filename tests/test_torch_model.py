@@ -1,5 +1,6 @@
-"""Whole-model parity of the port against the JAX package, on the four
-dense smoke architectures, with the JAX weights bridged across.
+"""Whole-model parity of the port against the JAX package, on the smoke
+configs of every ported architecture (four dense, mamba2), with the JAX
+weights bridged across.
 
 Tolerances on the logits (|logits| ≲ 1 here):
 * fp32 compute: 1e-4 (summation order only, over a few layers);
@@ -28,6 +29,7 @@ from torch_parity import assert_close, both, np32  # noqa: E402
 ARCHS = all_archs()
 TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
 JNP_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _pair(arch, **overrides):
@@ -44,6 +46,13 @@ def _tokens(cfg, b, s, seed=0):
     return both(np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)))
 
 
+def _prefill_len(cfg):
+    """24 for the dense archs (past the smoke window of 16); for an ssm
+    arch two chunks (32 at the smoke chunk of 16), since the reference
+    rejects a sequence that is not a multiple of its chunk."""
+    return 2 * cfg.ssm_chunk if "ssm" in cfg.layer_types else 24
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_reference(arch):
     for port, ref in ((get(arch), jget(arch)), (get_smoke(arch), jget_smoke(arch))):
@@ -56,7 +65,7 @@ def test_configs_match_reference(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get("mamba2-780m")
+        get("hymba-1.5b")
     with pytest.raises(KeyError):
         get("no-such-arch")
 
@@ -66,11 +75,12 @@ def test_unported_arch_raises():
     ("float32", False), ("float32", True), ("bfloat16", False)])
 def test_forward_matches_jax(arch, dtype, use_kernels):
     jm, jp, tm, tp = _pair(arch, compute_dtype=dtype, use_kernels=use_kernels)
-    tj, tt = _tokens(tm.cfg, 2, 24)   # 24 > smoke window 16
+    s = _prefill_len(tm.cfg)
+    tj, tt = _tokens(tm.cfg, 2, s)
     want, _ = jax.jit(jm.forward)(jp, {"tokens": tj})
     with torch.inference_mode():
         got = tm.forward(tp, {"tokens": tt})
-    assert got.shape == (2, 24, tm.cfg.vocab_size)
+    assert got.shape == (2, s, tm.cfg.vocab_size)
     assert_close(got, want, TOLS[dtype])
     # serving from the compute-dtype copy gives the same logits
     with torch.inference_mode():
@@ -93,7 +103,9 @@ def test_decode_steps_match_jax(arch, dtype):
         assert_close(got, want, TOLS[dtype])
         assert tc["pos"] == int(jc["pos"]) == t + 1
     for (seg_t, seg_j) in zip(tc["segments"], jc["segments"]):
-        assert_close(seg_t["k"], seg_j["k"], TOLS[dtype])
+        for name in ("conv", "ssm") if "ssm" in seg_t else ("k",):
+            assert seg_t[name].dtype == TORCH_DT[str(seg_j[name].dtype)]
+            assert_close(seg_t[name], seg_j[name], TOLS[dtype])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -1,5 +1,8 @@
 """The port's ServeEngine against the JAX ServeEngine: same bridged
-weights, same requests (gemma3 smoke, fp32) → the same greedy tokens."""
+weights, same requests (gemma3 and mamba2 smoke, fp32) → the same greedy
+tokens.  Both engines keep a slot's cache when a new request takes the
+slot (for mamba2: its conv and SSM state), so the tokens match only if
+the port keeps it too."""
 import dataclasses
 
 import jax
@@ -26,9 +29,10 @@ def _requests(vocab, n, cls):
                 max_new=6) for i in range(n)]
 
 
-def test_greedy_tokens_match_jax_engine():
-    jcfg = dataclasses.replace(jget_smoke("gemma3-1b"), compute_dtype="float32")
-    cfg = get_smoke("gemma3-1b", compute_dtype="float32")
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m"])
+def test_greedy_tokens_match_jax_engine(arch):
+    jcfg = dataclasses.replace(jget_smoke(arch), compute_dtype="float32")
+    cfg = get_smoke(arch, compute_dtype="float32")
     jparams = JModel(jcfg).init(jax.random.PRNGKey(0))
     params = bridge.params_from_numpy(jax.device_get(jparams), "cpu")
 
@@ -45,8 +49,9 @@ def test_greedy_tokens_match_jax_engine():
     assert tdone == jdone
 
 
-def test_serve_cli_on_cpu(capsys):
-    done = serve_cli.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m"])
+def test_serve_cli_on_cpu(capsys, arch):
+    done = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--requests", "3", "--slots", "2", "--max-new", "4"])
     assert len(done) == 3 and all(len(r.generated) == 4 for r in done)
     assert "served 3 requests / 12 tokens" in capsys.readouterr().out

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Two serving paths, gemma3-1b (attention: the flash-attention kernel) and
-mamba2-780m (SSM: the two SSD-scan kernels).  Phases, each printing one
+Three serving paths: gemma3-1b (attention: the flash-attention kernel),
+mamba2-780m (SSM: the two SSD-scan kernels) and olmoe-1b-7b (MoE: the
+grouped-GEMM kernel, with flash attention).  Phases, each printing one
 JSON line; any failure raises, so the script exits non-zero and prints no
 result line:
 
@@ -13,22 +14,27 @@ result line:
 2. build: every CUDA source under ``src/repro_torch/kernels/csrc`` (one
    nvcc each, all at once), with ptxas's registers and spills;
 
-then for each path in turn (gemma3-1b, then mamba2-780m):
+then for each path in turn (gemma3-1b, mamba2-780m, olmoe-1b-7b):
 
 3. kernels against their plain versions at the path's shapes (gemma3-1b
    prefill plus h2o-danube and deepseek head dims; mamba2-780m prefill
-   plus hymba-1.5b's SSD shape, G > 1, S < chunk and an initial state),
-   with the kernel's, the plain version's and (for attention) one PyTorch
-   call's times and the card's bound for the same work; the error is gated
-   both absolutely and relative to each output row's (attention) or each
+   plus hymba-1.5b's SSD shape, G > 1, S < chunk and an initial state;
+   olmoe-1b-7b prefill and decode plus qwen2-moe-a2.7b's expert shapes and
+   edge cases of the group sizes), with the kernel's, the plain version's
+   and (for attention and the grouped GEMM) one PyTorch call's times and
+   the card's bound for the same work; the error is gated both absolutely
+   and relative to each output row's (attention, grouped GEMM) or each
    (batch, head)'s (SSD) largest element; then the kernels' calls of one
    prefill, timed together;
 4. prefill: full-width ``forward`` on a (4, 2048) batch, with the launch
-   counts reset just before it and read just after;
+   counts reset just before it and read just after (olmoe-1b-7b with both
+   MoE dispatches; then qwen2-moe-a2.7b at full width and 4 of its 24
+   layers);
 5. correctness at full width: prefill against teacher-forced decode, and
    a forward against the same model with the kernels' plain version in
-   their place; then the card's forward against the CPU's on a small
-   config;
+   their place (for olmoe-1b-7b also the count of routing decisions that
+   differ between the two runs); then the card's forward against the
+   CPU's on a small config;
 6. serve: ``ServeEngine`` answers 8 requests of 16 new tokens each;
 7. profile: one prefill and a window of decode steps under
    ``torch.profiler``: device busy time and idle share, kernel launches,
@@ -40,8 +46,10 @@ no CPU mode: without a CUDA device the script exits with an error.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -108,6 +116,22 @@ SSD_TOL = 5e-2                # bf16, the reference's SSD kernel tolerance
 SSD_SLAB_REL_TOL = 5e-2
 SSD_CONSISTENCY_PROMPT = 512  # two chunks of 256: the inter-chunk term runs
 SSD_PLAIN_CHECK_SEQ = 2048    # eight chunks
+GMM_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
+GMM_REPLACES = "src/repro/kernels/moe_gmm.py:66"
+# The reference's bf16 tolerance for the grouped matmul
+# (tests/test_kernels.py: assert_allclose with atol 2e-2 and rtol 2e-2),
+# elementwise: |kernel - plain| <= 2e-2 + 2e-2 |plain|.  Both sides round
+# fp32 sums to bf16; at the model's scales (x ~ N(0, 1), w ~ N(0, 0.02^2),
+# d 2048: |y| ~ 0.9, up to ~5) one bf16 step is 2**-5 = 0.031 above
+# |y| = 4, which a purely absolute 2e-2 would refuse.  The error relative
+# to each row's largest |y| (ROW_REL_TOL) is gated too.
+GMM_TOL = 2e-2
+MOE_PLAIN_CHECK_SEQ = 2048
+QWEN2_MOE_LAYERS = 4          # of 24: the full depth does not fit 80 GB
+QWEN2_MOE_DEPTH_SCALE = math.sqrt(QWEN2_MOE_LAYERS / CONSISTENCY_LAYERS)
+#: host synchronisations a decode step may make besides one a layer (the
+#: attention's 0-d scale): the engine's token upload and argmax read
+DECODE_ENGINE_SYNCS = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -181,6 +205,17 @@ def ssd_floor_ms(b, s, h, p, g, n, chunk, part="function",
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def gmm_floor_ms(t: int, d: int, f: int, nonempty: int) -> tuple[float, float]:
+    """(ms for its operations, ms for its bytes) on the card for one grouped
+    matmul of T rows (d -> f) over ``nonempty`` experts that have rows:
+    2·T·d·f tensor-core FLOPs; x and y read and written once and the
+    weights of the non-empty experts read once (an empty expert's are not
+    needed), all bf16."""
+    flops = 2 * t * d * f
+    nbytes = 2 * (t * d + nonempty * d * f + t * f)
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
 def bound(ops_ms: float, bytes_ms: float) -> tuple[float, str]:
     """The least time for the work, and what sets it."""
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -201,13 +236,100 @@ def slab_rel_err(out: torch.Tensor, want: torch.Tensor,
     return ((o - w).abs().amax(rest) / w.abs().amax(rest).clamp_min(1e-6)).max().item()
 
 
+def gmm_errors(out: torch.Tensor, want: torch.Tensor) -> dict:
+    """The grouped GEMM's error against its plain version; raises past the
+    elementwise GMM_TOL (absolute plus relative) or ROW_REL_TOL."""
+    o, w = out.float(), want.float()
+    err = (o - w).abs()
+    out_of_tol = int((err > GMM_TOL + GMM_TOL * w.abs()).sum())
+    errs = {"max_abs_err": err.max().item(),
+            "max_row_rel_err": row_rel_err(out, want),
+            "elements_out_of_tol": out_of_tol,
+            "max_abs_y": w.abs().max().item()}
+    if out_of_tol or errs["max_row_rel_err"] > ROW_REL_TOL:
+        raise AssertionError(f"grouped_matmul disagrees with its plain version: "
+                             f"{errs} (atol = rtol = {GMM_TOL}, row-relative "
+                             f"{ROW_REL_TOL})")
+    return errs
+
+
+def routing_differences(got: list[torch.Tensor], want: list[torch.Tensor],
+                        top_k: int) -> dict:
+    """Tokens whose top-k expert set differs between two runs, layer by
+    layer, from each layer's router logits (T, E) in both runs; beside the
+    count, the largest gap between the k-th and the (k+1)-th logit of
+    ``want`` among the tokens that differ, the median gap of all tokens,
+    and how far a token's logits moved between the runs.  A set can change
+    only where the gap is at most twice the token's largest move, so flips
+    on near-ties show as differing gaps far below the median gap."""
+    per_layer, flipped, gaps, shifts = [], [], [], []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        top = w.topk(top_k + 1, dim=-1)
+        want_set = top.indices[:, :top_k].sort(-1).values
+        got_set = g.topk(top_k, dim=-1).indices.sort(-1).values
+        differ = (got_set != want_set).any(-1)
+        gap = top.values[:, top_k - 1] - top.values[:, top_k]
+        per_layer.append(int(differ.sum()))
+        flipped.append(gap[differ])
+        gaps.append(gap)
+        shifts.append((g - w).abs().amax(-1))
+    flipped_gap, gap, shift = torch.cat(flipped), torch.cat(gaps), torch.cat(shifts)
+    return {"tokens": int(want[0].shape[0]), "layers": len(want),
+            "differing_per_layer": per_layer, "differing": sum(per_layer),
+            "max_gap_of_differing": (flipped_gap.max().item()
+                                     if flipped_gap.numel() else None),
+            "median_logit_gap": gap.median().item(),
+            "median_logit_shift": shift.median().item(),
+            "max_logit_shift": shift.max().item()}
+
+
+@contextlib.contextmanager
+def recorded_routing(moe_mod):
+    """Records every router call of the port's MoE layers, in call order,
+    as (probs, logits) pairs, each (T, E), into the list it yields."""
+    calls: list[tuple[torch.Tensor, torch.Tensor]] = []
+    router_probs = moe_mod.router_probs
+
+    def record(x, w_router):
+        probs, logits = router_probs(x, w_router)
+        calls.append((probs.detach(), logits.detach()))
+        return probs, logits
+
+    moe_mod.router_probs = record
+    try:
+        yield calls
+    finally:
+        moe_mod.router_probs = router_probs
+
+
+@contextlib.contextmanager
+def replayed_routing(moe_mod, calls):
+    """Makes the port's MoE layers route as a recorded run did: each router
+    call returns the next recorded (probs, logits)."""
+    recorded = iter(calls)
+    router_probs = moe_mod.router_probs
+    moe_mod.router_probs = lambda x, w_router: next(recorded)
+    try:
+        yield
+    finally:
+        moe_mod.router_probs = router_probs
+
+
+def logits_of(calls) -> list[torch.Tensor]:
+    return [logits for _, logits in calls]
+
+
 def logits_agreement(got: torch.Tensor, want: torch.Tensor,
-                     layers: int = CONSISTENCY_LAYERS) -> dict:
+                     layers: int = CONSISTENCY_LAYERS, gate: bool = True,
+                     depth_scale: float | None = None) -> dict:
     """How far two (positions, vocab) logit tables of a model of ``layers``
-    layers are apart, relative to the spread of ``want``; raises past the
-    CONSISTENCY bounds, scaled to the depth."""
-    max_rel = CONSISTENCY_MAX_REL * layers / CONSISTENCY_LAYERS
-    mean_rel = CONSISTENCY_MEAN_REL * layers / CONSISTENCY_LAYERS
+    layers are apart, relative to the spread of ``want``; with ``gate``,
+    raises past the CONSISTENCY bounds, scaled to the depth (by
+    ``layers / 26`` unless ``depth_scale`` is given)."""
+    scale = layers / CONSISTENCY_LAYERS if depth_scale is None else depth_scale
+    max_rel = CONSISTENCY_MAX_REL * scale
+    mean_rel = CONSISTENCY_MEAN_REL * scale
     diff = (got - want).abs()
     spread = want.std().item()
     top2 = want.topk(2, dim=-1).values
@@ -221,10 +343,47 @@ def logits_agreement(got: torch.Tensor, want: torch.Tensor,
         "decisive_positions": int(decisive.sum()),
         "bound_max_rel": max_rel, "bound_mean_rel": mean_rel,
     }
-    if not (out["max_rel_to_std"] <= max_rel and out["mean_rel_to_std"] <= mean_rel
-            and bool(agree[decisive].all())):
-        raise AssertionError(f"logits disagree: {out}")
+    out["within_bounds"] = (out["max_rel_to_std"] <= max_rel
+                            and out["mean_rel_to_std"] <= mean_rel
+                            and bool(agree[decisive].all()))
+    if gate:
+        require_agreement(out)
     return out
+
+
+def require_agreement(out: dict) -> None:
+    if not out["within_bounds"]:
+        raise AssertionError(f"logits disagree: {out}")
+
+
+def forward_vs_plain_gmm(model, params, toks, layers: int, top_k: int,
+                         depth_scale: float | None = None) -> dict:
+    """The kernels' forward against the same forward with the grouped GEMM's
+    plain version in the kernel's place, twice: routing freely (a near-tie
+    may then route another way: ``free``) and replaying the kernel run's
+    routing, so that only the rounding differs (``same_routing``); and the
+    routing differences of the free run.  Gates nothing: the caller emits,
+    then gates."""
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.models import moe
+    kernel = moe_gmm.grouped_matmul
+    with torch.inference_mode():
+        with recorded_routing(moe) as got_routes:
+            got = model.forward(params, toks)[0].float()
+        moe_gmm.grouped_matmul = moe_gmm.grouped_matmul_plain
+        try:
+            with recorded_routing(moe) as free_routes:
+                free = model.forward(params, toks)[0].float()
+            with replayed_routing(moe, got_routes):
+                same = model.forward(params, toks)[0].float()
+        finally:
+            moe_gmm.grouped_matmul = kernel
+    return {
+        "routing": routing_differences(logits_of(got_routes),
+                                       logits_of(free_routes), top_k),
+        "free": logits_agreement(got, free, layers, False, depth_scale),
+        "same_routing": logits_agreement(got, same, layers, False, depth_scale),
+    }
 
 
 def kernel_class(name: str) -> str:
@@ -234,6 +393,8 @@ def kernel_class(name: str) -> str:
         return "flash_attention"
     if "ssd_chunk" in low:
         return "ssd_scan"
+    if "grouped_matmul" in low:
+        return "grouped_matmul"
     if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
         return "matmul"
     if "memcpy" in low or "memset" in low:
@@ -257,8 +418,8 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
 def summarize(prof, wall_s: float, steps: int) -> dict:
     """One profiled window: host wall time (ending in a synchronise), the
     device's busy time (union of its kernel and copy intervals) and idle
-    share, kernel launches and host synchronisations, and device time by
-    kernel class and by kernel name."""
+    share, kernel launches and host synchronisations, device time by
+    kernel class and by kernel name, and the host's own time by operator."""
     device, launches, syncs = [], 0, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -274,6 +435,9 @@ def summarize(prof, wall_s: float, steps: int) -> dict:
         ms = (e.time_range.end - e.time_range.start) / 1e3
         by_class[kernel_class(e.name)] += ms
         by_name[e.name[:80]] += ms
+    host_ms: dict[str, float] = collections.Counter()
+    for avg in prof.key_averages():
+        host_ms[avg.key[:60]] += avg.self_cpu_time_total / 1e3
     wall_ms = wall_s * 1e3
     return {
         "steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -282,6 +446,7 @@ def summarize(prof, wall_s: float, steps: int) -> dict:
         "host_syncs": syncs,
         "device_ms_by_class": dict(sorted(by_class.items(), key=lambda x: -x[1])),
         "top_kernels_ms": dict(by_name.most_common(12)),
+        "top_host_ops_ms": dict(host_ms.most_common(12)),
     }
 
 
@@ -774,6 +939,363 @@ def mamba2_path(dev, card) -> list[dict]:
                                ("ssd_chunk_scan", "chunk_scan"))]
 
 
+def moe_group_sizes(gen, dev, tokens: int, n_experts: int, top_k: int,
+                    d: int = 2048) -> torch.Tensor:
+    """Group sizes (int32, on the card) of a real top-k routing: ``tokens``
+    hidden states N(0, 1) through a router N(0, 0.02^2) (the port's init
+    scale), top-k of the fp32 softmax, counted per expert."""
+    from repro_torch.models import moe
+    x = torch.randn((tokens, d), generator=gen, device=dev)
+    w = torch.randn((d, n_experts), generator=gen, device=dev) * 0.02
+    probs, _ = moe.router_probs(x, w)
+    idx = probs.topk(top_k, dim=-1).indices.reshape(-1)
+    return torch.zeros(n_experts, dtype=torch.int32, device=dev).scatter_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
+def gmm_case_sizes(gen, dev, t: int, n_experts: int, kind: str,
+                   top_k: int) -> torch.Tensor:
+    """Group sizes summing to ``t``: from a top-k routing of t / k tokens
+    (``"route"``), all in one expert (``"one"``), or cut at random points,
+    empty groups included (``"random"``)."""
+    if kind == "route":
+        return moe_group_sizes(gen, dev, t // top_k, n_experts, top_k)
+    sizes = torch.zeros(n_experts, dtype=torch.int32, device=dev)
+    if kind == "one":
+        sizes[n_experts // 3] = t
+        return sizes
+    cuts = torch.randint(0, t + 1, (n_experts - 1,), generator=gen,
+                         device=dev).sort().values
+    return torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), t)]
+                     ).diff().to(torch.int32)
+
+
+def grouped_mm_call(x, w, sizes):
+    """One PyTorch call for the same grouped product (``torch._grouped_mm``
+    with int32 group ends), a yardstick for the kernel only, never used by
+    the port: (the call, None), or (None, the reason there is none)."""
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    if grouped_mm is None:
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    try:
+        grouped_mm(x, w, offs=offs)
+    except RuntimeError as exc:
+        return None, f"torch._grouped_mm refused these inputs: {exc}"
+    return (lambda: grouped_mm(x, w, offs=offs)), None
+
+
+def olmoe_path(dev, card) -> dict:
+    """Phases 3-7 for olmoe-1b-7b, then prefill and the plain-GEMM check of
+    qwen2-moe-a2.7b at full width and reduced depth; returns the grouped
+    GEMM's entry of the kernels line."""
+    from repro_torch import bridge
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.models import Model, compute_copy, moe, synthetic_batch
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    cfg = get("olmoe-1b-7b")
+    qcfg = get("qwen2-moe-a2.7b")
+    d, f, e, k, n_layers = (cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.top_k,
+                            cfg.n_layers)
+    b, s = 4, 2048
+    rows, qrows = b * s * k, b * s * qcfg.top_k
+
+    # -- 3. the grouped GEMM against its plain version ------------------------
+    cases = [  # name, T, d, f, E, group sizes, top-k of the routing
+        ("olmoe-1b-7b gate/up", rows, d, f, e, "route", k),
+        ("olmoe-1b-7b down", rows, f, d, e, "route", k),
+        ("qwen2-moe-a2.7b gate/up", qrows, qcfg.d_model, qcfg.moe_d_ff,
+         qcfg.n_experts, "route", qcfg.top_k),
+        ("qwen2-moe-a2.7b down", qrows, qcfg.moe_d_ff, qcfg.d_model,
+         qcfg.n_experts, "route", qcfg.top_k),
+        ("olmoe-1b-7b decode, 4 tokens", 4 * k, d, f, e, "route", k),
+        ("all rows in one expert", 4096, d, f, e, "one", k),
+        ("1000 rows, ragged tiles", 1000, d, f, e, "random", k),
+        ("one row", 1, d, f, e, "random", k),
+    ]
+    max_err = 0.0
+    for name, t, dd, ff, ee, kind, kk in cases:
+        x = torch.randn((t, dd), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((ee, dd, ff), generator=gen, device=dev) * 0.02
+             ).to(torch.bfloat16)
+        sizes = gmm_case_sizes(gen, dev, t, ee, kind, kk)
+        out = moe_gmm.grouped_matmul(x, w, sizes)
+        want = moe_gmm.grouped_matmul_plain(x, w, sizes)
+        torch.cuda.synchronize()
+        errs = gmm_errors(out, want)
+        max_err = max(max_err, errs["max_abs_err"])
+        nonempty = int((sizes > 0).sum())
+        bound_ms, bound_by = bound(*gmm_floor_ms(t, dd, ff, nonempty))
+        lib, no_lib = grouped_mm_call(x, w, sizes)
+        emit("kernel_check", kernel="grouped_matmul", case=name,
+             shape=[t, dd, ff, ee], nonempty_experts=nonempty,
+             largest_group=int(sizes.max()), **errs, tol=GMM_TOL,
+             row_rel_tol=ROW_REL_TOL,
+             ms=time_ms(lambda: moe_gmm.grouped_matmul(x, w, sizes), 20),
+             plain_ms=time_ms(lambda: moe_gmm.grouped_matmul_plain(x, w, sizes), 3, 1),
+             library_ms=time_ms(lib, 20) if lib else None,
+             library=no_lib or "torch._grouped_mm",
+             bound_ms=bound_ms, bound_by=bound_by, nvidia_smi=card)
+        del x, w, out, want, lib
+
+    # the grouped GEMMs of one olmoe-1b-7b prefill: gate, up, down a layer
+    sizes = moe_group_sizes(gen, dev, b * s, e, k)
+    nonempty = int((sizes > 0).sum())
+    x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    hid = torch.randn((rows, f), generator=gen, device=dev).to(torch.bfloat16)
+    w_in = [(torch.randn((e, d, f), generator=gen, device=dev) * 0.02
+             ).to(torch.bfloat16) for _ in range(2)]
+    w_down = (torch.randn((e, f, d), generator=gen, device=dev) * 0.02
+              ).to(torch.bfloat16)
+    calls = [(x, w_in[0]), (x, w_in[1]), (hid, w_down)] * n_layers
+    libs = [grouped_mm_call(a, w, sizes) for a, w in calls[:3]]
+    floors = [gmm_floor_ms(rows, a.shape[1], w.shape[2], nonempty) for a, w in calls]
+    mix_bound_ms, mix_bound_by = bound(sum(fl[0] for fl in floors),
+                                       sum(fl[1] for fl in floors))
+    no_lib = next((why for call, why in libs if call is None), None)
+    gmm_mix = {
+        "ms": time_ms(lambda: [moe_gmm.grouped_matmul(a, w, sizes) for a, w in calls], 5),
+        "plain_ms": time_ms(lambda: [moe_gmm.grouped_matmul_plain(a, w, sizes)
+                                     for a, w in calls], 1, 1),
+        "library_ms": (None if no_lib else
+                       time_ms(lambda: [call() for call, _ in libs * n_layers], 5)),
+        "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
+    }
+    emit("kernel_prefill_mix", kernel="grouped_matmul", calls=len(calls),
+         shape=[rows, d, f, e], nonempty_experts=nonempty,
+         library=no_lib or "torch._grouped_mm", nvidia_smi=card, **gmm_mix)
+    del x, hid, w_in, w_down, calls, libs
+
+    # -- 4. prefill: the main path (default dispatch) and the other one -------
+    model = Model(cfg, dev)
+    params = compute_copy(cfg, model.init(seed=0))   # bf16 serving copy
+    batch = synthetic_batch(cfg, b, s, gen, dev)
+    moe_block = transformer.moe_block
+    main_launches = None
+    for dispatch in (cfg.moe_dispatch, "ragged"):
+        dmodel = Model(dataclasses.replace(cfg, moe_dispatch=dispatch), dev)
+        drops = []
+
+        def recording(*args, **kwargs):
+            out, aux = moe_block(*args, **kwargs)
+            drops.append(aux["dropped"])
+            return out, aux
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        transformer.moe_block = recording
+        moe_gmm.launches = fa.launches = 0
+        try:
+            with torch.inference_mode():
+                logits = dmodel.forward(params, batch)
+            torch.cuda.synchronize()
+        finally:
+            transformer.moe_block = moe_block
+        launches = {"grouped_matmul": moe_gmm.launches,
+                    "flash_attention": fa.launches}
+        want = {"grouped_matmul": 3 * n_layers, "flash_attention": n_layers}
+        if launches != want:
+            raise AssertionError(f"{dispatch} prefill launches {launches}, want {want}")
+        if main_launches is None:
+            main_launches = launches["grouped_matmul"]
+        if tuple(logits.shape) != (b, s, cfg.vocab_size):
+            raise AssertionError(f"logits shape {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{dispatch} prefill logits are not finite")
+        del logits
+        times = []
+        with torch.inference_mode():
+            for _ in range(3):
+                t0 = time.perf_counter()
+                dmodel.forward(params, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        prefill_s = float(np.median(times))
+        emit("prefill", arch=cfg.name, moe_dispatch=dispatch, batch=b, seq=s,
+             launches=launches, seconds=prefill_s, tokens_per_s=b * s / prefill_s,
+             runs=times, dropped_share=torch.stack(drops).mean().item(),
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=card)
+
+    # -- 5. correctness, dropless (ragged): prefill and decode route alike ----
+    rmodel = Model(dataclasses.replace(cfg, moe_dispatch="ragged"), dev)
+    # (a) prefill (kernels) against teacher-forced decode (plain attention,
+    # grouped GEMM over K rows a step), over several key tiles
+    prompt = synthetic_batch(cfg, 1, CONSISTENCY_PROMPT, gen, dev)["tokens"]
+    with torch.inference_mode():
+        with recorded_routing(moe) as fwd_routes:
+            fwd = rmodel.forward(params, {"tokens": prompt})[0].float()
+        cache = rmodel.init_cache(1, CONSISTENCY_PROMPT)
+        dec = []
+        with recorded_routing(moe) as dec_routes:
+            for t in range(prompt.shape[1]):
+                lg, cache = rmodel.decode_step(params, cache, prompt[:, t:t + 1])
+                dec.append(lg[0].float())
+        # decode's routing, layer by layer, replayed into the prefill
+        dec_routes = [tuple(torch.cat([c[j] for c in dec_routes[i::n_layers]])
+                            for j in (0, 1)) for i in range(n_layers)]
+        with replayed_routing(moe, dec_routes):
+            fwd_same = rmodel.forward(params, {"tokens": prompt})[0].float()
+    dec = torch.stack(dec)
+    routing = routing_differences(logits_of(dec_routes), logits_of(fwd_routes), k)
+    free = logits_agreement(dec, fwd, n_layers, gate=False)
+    same = logits_agreement(dec, fwd_same, n_layers, gate=False)
+    emit("prefill_decode_consistency", arch=cfg.name, moe_dispatch="ragged",
+         prompt=CONSISTENCY_PROMPT, routing=routing, same_routing=same, **free)
+    require_agreement(free)
+    require_agreement(same)
+    del fwd, fwd_same, dec, cache, fwd_routes, dec_routes
+
+    # (a2) the kernel's forward against the same forward with the grouped
+    # GEMM's plain version in the kernel's place
+    toks = synthetic_batch(cfg, 1, MOE_PLAIN_CHECK_SEQ, gen, dev)
+    out = forward_vs_plain_gmm(rmodel, params, toks, n_layers, k)
+    emit("forward_vs_plain_gmm", arch=cfg.name, moe_dispatch="ragged",
+         seq=MOE_PLAIN_CHECK_SEQ, routing=out["routing"],
+         same_routing=out["same_routing"], **out["free"])
+    require_agreement(out["free"])
+    require_agreement(out["same_routing"])
+
+    # (b) the card's forward (kernels) against the CPU's (plain versions), on
+    # the small configs, both dispatches
+    for arch in ("olmoe-1b-7b", "qwen2-moe-a2.7b"):
+        for dispatch in ("einsum", "ragged"):
+            small = get_smoke(arch, moe_dispatch=dispatch)
+            sm_cpu = Model(small, "cpu")
+            sp_cpu = sm_cpu.init(seed=1)
+            sp_gpu = bridge.params_from_numpy(bridge.params_to_numpy(sp_cpu), dev)
+            toks = torch.from_numpy(np.random.default_rng(1).integers(
+                0, small.vocab_size, (2, 40)))
+            with torch.inference_mode():
+                want_small = sm_cpu.forward(sp_cpu, {"tokens": toks}).float()
+                before = moe_gmm.launches
+                got_small = Model(small, dev).forward(
+                    sp_gpu, {"tokens": toks.to(dev)}).float().cpu()
+            small_err = (got_small - want_small).abs().max().item()
+            emit("small_forward_vs_cpu", arch=small.name, moe_dispatch=dispatch,
+                 seq=40, max_abs=small_err, tol=CPU_GPU_TOL,
+                 grouped_matmul_launches=moe_gmm.launches - before)
+            if moe_gmm.launches - before != 3 * small.n_layers:
+                raise AssertionError(f"{small.name}: {moe_gmm.launches - before} "
+                                     f"grouped_matmul launches")
+            if not small_err <= CPU_GPU_TOL:
+                raise AssertionError(f"card vs CPU forward: {small_err} > {CPU_GPU_TOL}")
+
+    # -- 6. serve (default dispatch) --------------------------------------------
+    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
+    rng = np.random.default_rng(0)
+    for rid in range(8):
+        prompt_ids = rng.integers(0, cfg.vocab_size, rng.integers(2, 6)).tolist()
+        engine.submit(Request(rid=rid, prompt=prompt_ids, max_new=16))
+    moe_gmm.launches = 0
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = moe_gmm.launches
+    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
+        raise AssertionError(f"served {len(done)} requests: "
+                             f"{[len(r.generated) for r in done]}")
+    if serve_launches != 3 * n_layers * engine.cache["pos"]:
+        raise AssertionError(f"serve launched grouped_matmul {serve_launches} "
+                             f"times in {engine.cache['pos']} steps")
+    n_tok = sum(len(r.generated) for r in done)
+    emit("serve", arch=cfg.name, moe_dispatch=cfg.moe_dispatch, requests=len(done),
+         slots=4, max_len=1024, new_tokens=n_tok, final_pos=engine.cache["pos"],
+         seconds=serve_s, decode_tokens_per_s=n_tok / serve_s,
+         steps_per_s=engine.cache["pos"] / serve_s,
+         grouped_matmul_launches=serve_launches, nvidia_smi=card)
+
+    # -- 7. profile: where the time goes ------------------------------------------
+    with torch.inference_mode():
+        prof = profiled(lambda: model.forward(params, batch), 1)
+    emit("profile_prefill", arch=cfg.name, batch=b, seq=s, nvidia_smi=card, **prof)
+    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
+    for rid in range(4):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, 4).tolist(), max_new=PROFILE_DECODE_STEPS + 8))
+    for _ in range(4):                                      # warm-up
+        engine.step()
+    prof = profiled(engine.step, PROFILE_DECODE_STEPS)
+    per_step = {key: prof[key] / PROFILE_DECODE_STEPS for key in (
+        "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")}
+    emit("profile_decode", arch=cfg.name, slots=4, max_len=1024, nvidia_smi=card,
+         per_step=per_step, **prof)
+    # the MoE layer reads nothing back: one synchronisation a layer (the
+    # attention's existing 0-d scale) and the engine's own
+    if per_step["host_syncs"] > n_layers + DECODE_ENGINE_SYNCS:
+        raise AssertionError(f"{per_step['host_syncs']} host synchronisations a "
+                             f"decode step, want at most {n_layers} + "
+                             f"{DECODE_ENGINE_SYNCS}")
+    del engine, model, params, batch
+    torch.cuda.empty_cache()
+
+    # -- 4, 5 for qwen2-moe-a2.7b at full width, 4 of its 24 layers ----------
+    qcut = dataclasses.replace(qcfg, n_layers=QWEN2_MOE_LAYERS,
+                               layer_types=("moe",) * QWEN2_MOE_LAYERS)
+    qmodel = Model(qcut, dev)
+    qparams = compute_copy(qcut, qmodel.init(seed=0))
+    qbatch = synthetic_batch(qcut, b, s, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    moe_gmm.launches = fa.launches = 0
+    with torch.inference_mode():
+        logits = qmodel.forward(qparams, qbatch)
+    torch.cuda.synchronize()
+    launches = {"grouped_matmul": moe_gmm.launches, "flash_attention": fa.launches}
+    want = {"grouped_matmul": 3 * QWEN2_MOE_LAYERS, "flash_attention": QWEN2_MOE_LAYERS}
+    if launches != want:
+        raise AssertionError(f"{qcut.name} prefill launches {launches}, want {want}")
+    if tuple(logits.shape) != (b, s, qcut.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{qcut.name} prefill logits: {tuple(logits.shape)}, "
+                             f"not all finite")
+    del logits
+    times = []
+    with torch.inference_mode():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            qmodel.forward(qparams, qbatch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    prefill_s = float(np.median(times))
+    emit("prefill", arch=qcut.name, layers=f"{QWEN2_MOE_LAYERS} of {qcfg.n_layers}",
+         moe_dispatch=qcut.moe_dispatch, batch=b, seq=s, launches=launches,
+         seconds=prefill_s, tokens_per_s=b * s / prefill_s, runs=times,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=card)
+    # The bounds hold the rounding, so they gate the run with the same
+    # routing; a flip on a near-tie is a step set by the expert weights and
+    # the router probability, not by the depth, so at 4 layers the free
+    # run's logits are reported, not gated.  Depth scaling at 4 layers: the
+    # two models of error growth (linear if the layers' differences add
+    # coherently, sqrt if independently) meet at 26 layers, and below it
+    # the sqrt one is the larger; so the cut model takes sqrt(4 / 26):
+    # 0.098·std max, 0.0196·std mean (the linear 0.038·std max is about one
+    # bf16 step of the largest logits, ~3-5, and is refused by rounding
+    # alone: 0.052·std measured on an H100 with the same routing).
+    qr = Model(dataclasses.replace(qcut, moe_dispatch="ragged"), dev)
+    toks = synthetic_batch(qcut, 1, MOE_PLAIN_CHECK_SEQ, gen, dev)
+    out = forward_vs_plain_gmm(qr, qparams, toks, QWEN2_MOE_LAYERS, qcut.top_k,
+                               depth_scale=QWEN2_MOE_DEPTH_SCALE)
+    emit("forward_vs_plain_gmm", arch=qcut.name,
+         layers=f"{QWEN2_MOE_LAYERS} of {qcfg.n_layers}", moe_dispatch="ragged",
+         seq=MOE_PLAIN_CHECK_SEQ, routing=out["routing"],
+         same_routing=out["same_routing"], **out["free"])
+    require_agreement(out["same_routing"])
+    del out, qparams, qmodel, qr, qbatch
+
+    return {
+        "name": "grouped_matmul", "route": "cuda", "source": GMM_SOURCE,
+        "replaces": GMM_REPLACES, "launches": main_launches,
+        "max_abs_err": max_err, **gmm_mix,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -799,11 +1321,14 @@ def main() -> None:
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
              for name, log in _build.build_log.items()}
-    emit("build", seconds=build_s, sources=[FA_SOURCE, SSD_SOURCE], ptxas=ptxas)
+    emit("build", seconds=build_s, sources=[FA_SOURCE, SSD_SOURCE, GMM_SOURCE],
+         ptxas=ptxas)
 
     kernels = [gemma3_path(dev, card)]
     torch.cuda.empty_cache()
     kernels += mamba2_path(dev, card)
+    torch.cuda.empty_cache()
+    kernels.append(olmoe_path(dev, card))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get(arch_id)`` / ``get_smoke(arch_id)``.
 
-Same published numbers as ``repro.configs``, for the dense token-mode and
-Mamba2 (``ssm``) architectures this package runs.  The reference's other
+Same published numbers as ``repro.configs``, for the dense token-mode,
+Mamba2 (``ssm``) and MoE architectures this package runs.  The reference's other
 architectures raise ``NotImplementedError`` until their layers are ported.
 """
 from __future__ import annotations
@@ -13,11 +13,10 @@ from repro_torch.models.config import ArchConfig
 
 #: CLI ids of the ported architectures
 PORTED = ("gemma-7b", "h2o-danube-1.8b", "deepseek-7b", "gemma3-1b",
-          "mamba2-780m")
+          "mamba2-780m", "olmoe-1b-7b", "qwen2-moe-a2.7b")
 
 #: architectures of the reference whose layer kinds are not ported yet
-NOT_PORTED = ("internvl2-26b", "hubert-xlarge", "qwen2-moe-a2.7b",
-              "olmoe-1b-7b", "hymba-1.5b")
+NOT_PORTED = ("internvl2-26b", "hubert-xlarge", "hymba-1.5b")
 
 
 def _module_name(arch_id: str) -> str:

@@ -350,6 +350,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 16: return launch<16>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
     case 32: return launch<32>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
     case 80: return launch<80>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
     case 128: return launch<128>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);

@@ -26,8 +26,8 @@ from . import _build
 from .ref import flash_attention_ref
 
 #: head dims the CUDA source is compiled for (its ``switch`` in
-#: ``flash_attention_fwd``)
-HEAD_DIMS = (32, 80, 128, 256)
+#: ``flash_attention_fwd``); 16 is the MoE smoke configs'
+HEAD_DIMS = (16, 32, 80, 128, 256)
 
 #: kernel launches since the last reset; the wrapper adds one per launch
 launches = 0

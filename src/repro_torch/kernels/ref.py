@@ -51,3 +51,22 @@ def ssd_scan_ref(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,
                                          bh[:, t])
         ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), state.to(x.dtype)
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       group_sizes: torch.Tensor) -> torch.Tensor:
+    """Per-row expert matmul oracle: ``y[t] = x[t] @ w[expert_of(t)]`` for
+    rows sorted by expert.  x (T,d); w (E,d,f); group_sizes (E,) summing to
+    T.  Products and sums in fp32; output (T,f) in x's dtype.
+
+    One product per non-empty expert over its rows, at offsets from a
+    cumulative sum, rather than the (T,d,f) gathered weight the JAX oracle
+    builds (at olmoe-1b-7b prefill that tensor would be 550 GB)."""
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    start = 0
+    for e, end in enumerate(torch.cumsum(group_sizes, 0).tolist()):
+        if end > start:
+            out[start:end] = x[start:end].float() @ w[e].float()
+        start = end
+    return out.to(x.dtype)

@@ -3,6 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --requests 8 --slots 4 --max-new 16 [--smoke] [--device cpu]
 
+``--arch`` takes any ported id: gemma3-1b, mamba2-780m, olmoe-1b-7b (MoE,
+the grouped-GEMM kernel), qwen2-moe-a2.7b, ...  At full depth
+qwen2-moe-a2.7b does not fit one 80 GB card (fp32 init plus the bf16
+serving copy, ~86 GB).
+
 Full width unless ``--smoke``; on ``cuda`` unless ``--device cpu``.
 Runs under the PaPaS engine like any program, e.g. a study with
 ``command: python -m repro_torch.launch.serve --arch ${args:arch}``.

@@ -1,10 +1,11 @@
 """Model assembly: embeddings → layer segments → head.
 
-Port of ``repro.models.transformer`` for the kinds ``attn``, ``swa`` and
-``ssm`` with token inputs.  Consecutive layers of one kind form a *segment*
-whose parameters are stacked on a leading layer axis, the reference's
-layout; a Python loop over that axis replaces ``lax.scan``.  ``loss_fn``,
-remat, MoE, hybrid and encoder layers are not ported yet.
+Port of ``repro.models.transformer`` for the kinds ``attn``, ``swa``,
+``ssm`` and ``moe`` with token inputs.  Consecutive layers of one kind form
+a *segment* whose parameters are stacked on a leading layer axis, the
+reference's layout; a Python loop over that axis replaces ``lax.scan``.
+``loss_fn`` (and with it the MoE aux losses), remat, hybrid and encoder
+layers are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,13 +18,16 @@ from .config import ArchConfig
 from .layers import (
     as_dtype, cast, embed_tokens, mlp, normal_init, rms_norm, unembed,
 )
+from .moe import moe_block
 from .ssm import init_ssm_cache, mamba2_block
 
-PORTED_KINDS = ("attn", "swa", "ssm")
+PORTED_KINDS = ("attn", "swa", "ssm", "moe")
 
 #: leaves the reference casts to the compute dtype at every use (matmul
-#: weights and the embedding table); norm scales, the conv, dt_bias, A_log
-#: and D stay in param dtype
+#: weights, expert weights included, and the embedding table); norm
+#: scales, the conv, dt_bias, A_log, D, the MoE router and the shared
+#: expert's token gate stay in param dtype (the reference reads the last
+#: two in fp32)
 _CAST_ON_USE = ("embed", "lm_head", "wq", "wk", "wv", "wo", "wi_gate",
                 "wi_up", "in_proj", "out_proj")
 
@@ -61,6 +65,28 @@ def _init_ssm(gen: torch.Generator, cfg: ArchConfig, n: int) -> dict[str, Any]:
     }
 
 
+def _init_moe(gen: torch.Generator, cfg: ArchConfig, n: int) -> dict[str, Any]:
+    """Router, routed experts and the optional shared expert (with its
+    token gate) of ``n`` layers, stacked (reference ``_init_moe``)."""
+    d, ffm, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    dt = as_dtype(cfg.param_dtype)
+    p: dict[str, Any] = {
+        "router": normal_init(gen, (n, d, e), dt),
+        "wi_gate": normal_init(gen, (n, e, d, ffm), dt),
+        "wi_up": normal_init(gen, (n, e, d, ffm), dt),
+        "wo": normal_init(gen, (n, e, ffm, d), dt),
+    }
+    if cfg.n_shared_experts:
+        ffs = cfg.d_ff
+        p["shared"] = {
+            "wi_gate": normal_init(gen, (n, d, ffs), dt),
+            "wi_up": normal_init(gen, (n, d, ffs), dt),
+            "wo": normal_init(gen, (n, ffs, d), dt),
+            "gate": normal_init(gen, (n, d, 1), dt),
+        }
+    return p
+
+
 def _init_segment(gen: torch.Generator, cfg: ArchConfig, kind: str, n: int
                   ) -> dict[str, Any]:
     """Parameters of ``n`` layers of one kind, stacked on a leading axis."""
@@ -81,6 +107,9 @@ def _init_segment(gen: torch.Generator, cfg: ArchConfig, kind: str, n: int
     if cfg.qk_norm:
         attn["q_norm"] = zeros(cfg.head_dim)
         attn["k_norm"] = zeros(cfg.head_dim)
+    if kind == "moe":   # the MoE FFN in place of the MLP
+        return {"norm1": zeros(d), "norm2": zeros(d), "attn": attn,
+                "moe": _init_moe(gen, cfg, n)}
     mlp_p = {"wi_gate": normal_init(gen, (n, d, ff), dt),
              "wi_up": normal_init(gen, (n, d, ff), dt),
              "wo": normal_init(gen, (n, ff, d), dt)}
@@ -145,18 +174,30 @@ def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
             compute_dtype=cfg.compute_dtype, cache=cache,
             use_kernels=cfg.use_kernels)
         return x + y.to(x.dtype), new_cache
+    attn_kind = "attn" if kind == "moe" else kind
     a_out, new_cache = attn_block(
         h, lp["attn"],
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, kind=kind, window=cfg.window,
+        head_dim=cfg.head_dim, kind=attn_kind, window=cfg.window,
         positions=positions,
-        rope_theta=cfg.rope_theta_global if kind == "attn" else cfg.rope_theta,
+        rope_theta=(cfg.rope_theta_global if attn_kind == "attn"
+                    else cfg.rope_theta),
         q_chunk=cfg.attn_q_chunk, softcap=cfg.logit_softcap,
         qk_norm=cfg.qk_norm, norm_eps=eps, compute_dtype=cfg.compute_dtype,
         use_kernels=cfg.use_kernels, cache=cache)
     x = x + a_out.to(x.dtype)
     h2 = rms_norm(x, lp["norm2"], eps)
-    f_out = mlp(h2, lp["mlp"], cfg.mlp_act, cfg.compute_dtype)
+    if kind == "moe":
+        # aux losses are for training (loss_fn), not ported yet; the
+        # reference's forward and decode use moe_groups = 1
+        f_out, _ = moe_block(
+            h2, lp["moe"], n_experts=cfg.n_experts,
+            n_shared=cfg.n_shared_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
+            router_renorm=cfg.router_renorm, dispatch=cfg.moe_dispatch,
+            groups=1, compute_dtype=cfg.compute_dtype)
+    else:
+        f_out = mlp(h2, lp["mlp"], cfg.mlp_act, cfg.compute_dtype)
     return x + f_out.to(x.dtype), new_cache
 
 
@@ -187,7 +228,8 @@ def _head(cfg: ArchConfig, params: dict[str, Any]) -> torch.Tensor:
 def forward(cfg: ArchConfig, params: dict[str, Any],
             batch: dict[str, torch.Tensor]) -> torch.Tensor:
     """Full forward pass → logits (B,S,V), sliced to ``vocab_size``.
-    (The reference also returns MoE aux losses; dense layers have none.)"""
+    (The reference also returns the MoE aux losses; they serve training,
+    which is not ported yet.)"""
     x = backbone(cfg, params, batch)
     logits = unembed(x, _head(cfg, params), cfg.compute_dtype)
     return logits[..., :cfg.vocab_size]
@@ -200,9 +242,9 @@ def forward(cfg: ArchConfig, params: dict[str, Any],
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: str | torch.dtype = torch.bfloat16,
                device: torch.device | str = "cuda") -> dict[str, Any]:
-    """Per-segment stacked caches: KV for attention (swa segments hold a
-    ring of ``min(window, max_len)`` entries), conv state in ``dtype`` and
-    SSM state in fp32 for ssm.  ``pos`` is one Python int shared by every
+    """Per-segment stacked caches: KV for attention and moe layers (swa
+    segments hold a ring of ``min(window, max_len)`` entries), conv state
+    in ``dtype`` and SSM state in fp32 for ssm.  ``pos`` is one Python int shared by every
     slot, as in the reference."""
     _check_supported(cfg)
     segments = []

@@ -108,8 +108,14 @@ def test_logits_agreement():
     want = torch.from_numpy(np.random.default_rng(0).normal(size=(6, 50))).float()
     same = cs.logits_agreement(want.clone(), want)
     assert same["max_abs"] == 0.0 and same["argmax_agree"] == 6
+    assert same["within_bounds"]
     with pytest.raises(AssertionError, match="logits disagree"):
         cs.logits_agreement(want + 0.5 * want.std(), want)
+    # without the gate: reported, and require_agreement raises later
+    out = cs.logits_agreement(want + 0.5 * want.std(), want, gate=False)
+    assert not out["within_bounds"]
+    with pytest.raises(AssertionError, match="logits disagree"):
+        cs.require_agreement(out)
 
 
 def test_logits_agreement_bounds_scale_with_depth():
@@ -126,10 +132,110 @@ def test_logits_agreement_bounds_scale_with_depth():
     assert out["max_rel_to_std"] == pytest.approx(0.3, rel=1e-5)
 
 
+def test_shallow_cut_takes_the_sqrt_depth_scaling():
+    """At 4 of 26 layers sqrt(4/26) = 0.392 is above 4/26 = 0.154: the
+    qwen2-moe cut gets 0.098·std max and 0.0196·std mean."""
+    assert cs.QWEN2_MOE_DEPTH_SCALE == pytest.approx(0.3922, abs=1e-4)
+    assert cs.QWEN2_MOE_DEPTH_SCALE > cs.QWEN2_MOE_LAYERS / cs.CONSISTENCY_LAYERS
+    want = torch.from_numpy(np.random.default_rng(0).normal(size=(6, 50))).float()
+    out = cs.logits_agreement(want.clone(), want, cs.QWEN2_MOE_LAYERS,
+                              depth_scale=cs.QWEN2_MOE_DEPTH_SCALE)
+    assert out["bound_max_rel"] == pytest.approx(0.25 * 0.3922, abs=1e-4)
+    assert out["bound_mean_rel"] == pytest.approx(0.05 * 0.3922, abs=1e-5)
+
+
 def test_busy_time_is_the_union_of_intervals():
     assert cs.busy_us([]) == 0.0
     assert cs.busy_us([(20, 30), (0, 10), (5, 15), (21, 22)]) == 25.0
     assert cs.busy_us([(0, 10), (10, 12)]) == 12.0
+
+
+def test_olmoe_prefill_gmm_bound():
+    """T 65536 (4 x 2048 tokens x top-8), d 2048, f 1024, all 64 experts
+    with rows: 2.7e11 FLOPs, 0.278 ms at 989 TFLOP/s, against 671 MB,
+    0.200 ms: bound by operations; the 48 calls of a prefill ~13.3 ms."""
+    ops, nbytes = cs.gmm_floor_ms(65536, 2048, 1024, 64)
+    assert ops == pytest.approx(2 * 65536 * 2048 * 1024 / 989e12 * 1e3)
+    assert ops == pytest.approx(0.278, abs=5e-4)
+    want_bytes = 2 * (65536 * 2048 + 64 * 2048 * 1024 + 65536 * 1024)
+    assert want_bytes == pytest.approx(671e6, rel=1e-3)
+    assert nbytes == pytest.approx(want_bytes / 3.35e12 * 1e3)
+    assert nbytes == pytest.approx(0.200, abs=5e-4)
+    assert cs.bound(ops, nbytes) == (ops, "operations")
+    # gate, up (2048 -> 1024) and down (1024 -> 2048): the same work each
+    down_ops, down_bytes = cs.gmm_floor_ms(65536, 1024, 2048, 64)
+    assert (down_ops, down_bytes) == pytest.approx((ops, nbytes))
+    assert 48 * ops == pytest.approx(13.3, abs=0.05)
+
+
+def test_decode_gmm_bound_counts_only_the_experts_with_rows():
+    """32 rows (4 tokens x top-8) over 25 non-empty of 64 experts: the
+    weights of those 25 are the bytes, and they bound the call."""
+    ops, nbytes = cs.gmm_floor_ms(32, 2048, 1024, 25)
+    want_bytes = 2 * (32 * 2048 + 25 * 2048 * 1024 + 32 * 1024)
+    assert nbytes == pytest.approx(want_bytes / 3.35e12 * 1e3)
+    assert cs.bound(ops, nbytes) == (nbytes, "bytes")
+    _, all_bytes = cs.gmm_floor_ms(32, 2048, 1024, 64)
+    assert all_bytes > 2.5 * nbytes
+
+
+def test_gmm_errors_gate_elementwise_with_relative_part():
+    """One bf16 step (2**-5) at |y| = 5 passes (2e-2 + 2e-2 * 5); the same
+    error at |y| = 0.1 fails the elementwise gate."""
+    want = torch.full((4, 8), 0.1)
+    want[0, 0] = 5.0
+    out = want.clone()
+    out[0, 0] += 2 ** -5
+    errs = cs.gmm_errors(out, want)
+    assert errs["max_abs_err"] == pytest.approx(2 ** -5)
+    assert errs["elements_out_of_tol"] == 0
+    out = want.clone()
+    out[1, 3] += 2 ** -5
+    with pytest.raises(AssertionError, match="grouped_matmul disagrees"):
+        cs.gmm_errors(out, want)
+
+
+def test_routing_differences_counts_tokens_whose_set_differs():
+    want = [torch.tensor([[5.0, 3.0, 2.0, 0.0],
+                          [1.0, 2.0, 3.0, 4.0],
+                          [4.0, 3.1, 2.9, 0.0]]),
+            torch.tensor([[2.5, 2.0, 3.0, 1.0]] * 3)]
+    got = [w.clone() for w in want]
+    out = cs.routing_differences(got, want, top_k=2)
+    assert out["differing_per_layer"] == [0, 0] and out["differing"] == 0
+    assert out["max_gap_of_differing"] is None and out["max_logit_shift"] == 0.0
+    # a near-tie (gap 0.2) tipped over, and the same set in another order
+    got[0][2] = torch.tensor([4.0, 2.99, 3.01, 0.0])
+    got[0][0] = torch.tensor([3.0, 5.0, 2.0, 0.0])
+    out = cs.routing_differences(got, want, top_k=2)
+    assert out["differing_per_layer"] == [1, 0]
+    assert out["max_gap_of_differing"] == pytest.approx(0.2)
+    assert out["max_logit_shift"] == pytest.approx(2.0)
+    assert out["tokens"] == 3 and out["layers"] == 2
+    assert out["median_logit_gap"] == pytest.approx(0.5)
+
+
+def test_routing_is_recorded_and_replayed():
+    """recorded_routing keeps every router call's (probs, logits);
+    replayed_routing hands them back in order, whatever the input."""
+    import types
+
+    def router_probs(x, w):
+        logits = x @ w
+        return torch.softmax(logits, -1), logits
+
+    mod = types.SimpleNamespace(router_probs=router_probs)
+    w = torch.eye(3)
+    with cs.recorded_routing(mod) as calls:
+        mod.router_probs(torch.ones(2, 3), w)
+        mod.router_probs(torch.zeros(2, 3), w)
+    assert mod.router_probs is router_probs and len(calls) == 2
+    assert [lg.sum().item() for lg in cs.logits_of(calls)] == [6.0, 0.0]
+    with cs.replayed_routing(mod, calls):
+        probs, logits = mod.router_probs(torch.full((2, 3), 7.0), w)
+        assert logits.sum().item() == 6.0
+        assert mod.router_probs(None, None)[1].sum().item() == 0.0
+    assert mod.router_probs is router_probs
 
 
 @pytest.mark.parametrize("name,cls", [
@@ -139,6 +245,8 @@ def test_busy_time_is_the_union_of_intervals():
      "ssd_scan"),
     ("void (anonymous namespace)::ssd_chunk_scan_kernel<64, 128>(Params)",
      "ssd_scan"),
+    ("(anonymous namespace)::grouped_matmul_kernel(__nv_bfloat16 const*, ...)",
+     "grouped_matmul"),
     ("nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN", "matmul"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),
     ("Memcpy HtoD (Pageable -> Device)", "copy"),

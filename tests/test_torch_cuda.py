@@ -3,7 +3,7 @@
 Marked ``cuda``: skipped where there is no card.  Run on a machine with
 one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Tolerances in bf16, as the reference's kernel tests: 2e-2 for flash
-attention, 5e-2 for the SSD scan.
+attention and the grouped matmul, 5e-2 for the SSD scan.
 """
 import pytest
 
@@ -29,7 +29,7 @@ def _qkv(dev, b, s, hq, hkv, d, seed=0):
 
 @pytest.mark.parametrize("s,hq,hkv,d", [
     (128, 4, 4, 32), (130, 4, 2, 128), (64, 8, 1, 80), (200, 4, 1, 128),
-    (1, 2, 1, 256), (257, 4, 1, 256)])
+    (1, 2, 1, 256), (257, 4, 1, 256), (72, 4, 4, 16)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0),
                                            (False, 48)])
 def test_kernel_matches_plain(dev, s, hq, hkv, d, causal, window):
@@ -166,4 +166,93 @@ def test_mamba2_forward_on_card_matches_cpu(dev):
         bridge.params_to_numpy(params), dev), {"tokens": toks.to(dev)})
     assert (kssd.state_launches, kssd.scan_launches) == (
         before[0] + cfg.n_layers, before[1] + cfg.n_layers)
+    torch.testing.assert_close(got.float().cpu(), want, atol=5e-2, rtol=5e-2)
+
+
+def _gmm_sizes(dev, t, e, kind, seed=0):
+    """Group sizes (int32, on the card) summing to t."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    sizes = torch.zeros(e, dtype=torch.int32, device=dev)
+    if kind == "one":
+        sizes[e - 1] = t
+    elif kind == "first-empty-last":     # the first and the last group empty
+        sizes[1] = t // 3
+        sizes[e - 2] += t - t // 3
+    else:
+        cuts = torch.randint(0, t + 1, (e - 1,), generator=gen, device=dev).sort().values
+        sizes = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), t)]
+                          ).diff().to(torch.int32)
+    return sizes
+
+
+def _gmm_inputs(dev, t, d, f, e, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((e, d, f), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize("t,d,f,e", [
+    (1, 64, 32, 8),          # one row
+    (37, 64, 32, 8),         # smoke widths
+    (300, 128, 136, 5),      # f past one column tile, ragged
+    (1000, 2048, 1024, 64),  # olmoe widths, most groups short
+    (777, 2048, 1408, 60),   # qwen2-moe widths
+    (513, 1024, 2048, 16),   # a down projection
+    (96, 40, 24, 3),         # d and f not multiples of the tiles
+])
+@pytest.mark.parametrize("kind", ["random", "one", "first-empty-last"])
+def test_gmm_kernel_matches_plain(dev, t, d, f, e, kind):
+    from repro_torch.kernels import moe_gmm
+    x, w = _gmm_inputs(dev, t, d, f, e)
+    sizes = _gmm_sizes(dev, t, e, kind)
+    before = moe_gmm.launches
+    out = moe_gmm.grouped_matmul(x, w, sizes)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (t, f)
+    want = moe_gmm.grouped_matmul_plain(x, w, sizes)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_gmm_kernel_refuses_what_it_does_not_take(dev):
+    from repro_torch.kernels import moe_gmm
+    x, w = _gmm_inputs(dev, 64, 64, 32, 4)
+    sizes = _gmm_sizes(dev, 64, 4, "random")
+    with pytest.raises(TypeError, match="bfloat16"):
+        moe_gmm.grouped_matmul(x.float(), w.float(), sizes)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gmm.grouped_matmul(x.t().contiguous().t(), w, sizes)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gmm.grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2), sizes)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        x12, w12 = _gmm_inputs(dev, 64, 12, 32, 4)
+        moe_gmm.grouped_matmul(x12, w12, sizes)
+    with pytest.raises(TypeError, match="int32"):
+        moe_gmm.grouped_matmul(x, w, sizes.long())
+    with pytest.raises(ValueError, match="on cpu"):
+        moe_gmm.grouped_matmul(x, w, sizes.cpu())
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("dispatch", ["einsum", "ragged"])
+def test_moe_forward_on_card_matches_cpu(dev, arch, dispatch):
+    """Small MoE configs: the card's forward (the grouped GEMM for every
+    expert product, flash attention at head dim 16) against the CPU's
+    (their plain versions), on the same weights, bf16."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.models import Model
+    cfg = get_smoke(arch, moe_dispatch=dispatch)
+    cpu = Model(cfg, "cpu")
+    params = cpu.init(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40))
+    want = cpu.forward(params, {"tokens": toks}).float()
+    before = moe_gmm.launches
+    got = Model(cfg, dev).forward(bridge.params_from_numpy(
+        bridge.params_to_numpy(params), dev), {"tokens": toks.to(dev)})
+    assert moe_gmm.launches == before + 3 * cfg.n_layers
     torch.testing.assert_close(got.float().cpu(), want, atol=5e-2, rtol=5e-2)

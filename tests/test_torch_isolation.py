@@ -114,3 +114,18 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
     q = torch.empty(1, 8, 2, 32, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="no kernel for device"):
         fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+def test_cuda_tensor_never_reaches_the_plain_grouped_matmul(monkeypatch):
+    """The same for the grouped GEMM's wrapper."""
+    from repro_torch.kernels import moe_gmm
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a device tensor")
+
+    monkeypatch.setattr(moe_gmm, "grouped_matmul_plain", boom)
+    x = torch.empty(16, 32, device="meta", dtype=torch.bfloat16)
+    w = torch.empty(4, 32, 16, device="meta", dtype=torch.bfloat16)
+    sizes = torch.empty(4, device="meta", dtype=torch.int32)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        moe_gmm.grouped_matmul(x, w, sizes)

@@ -12,7 +12,9 @@ result line:
 1. environment: card name and power limit, torch / CUDA / nvcc versions,
    the TF32 switches;
 2. build: every CUDA source under ``src/repro_torch/kernels/csrc`` (one
-   nvcc each, all at once), with ptxas's registers and spills;
+   nvcc each, all at once), with ptxas's registers and spills, and the
+   lines that flag a kernel: spills, an ignored setmaxnreg, wgmma
+   serialised by the compiler;
 
 then for each path in turn (gemma3-1b, mamba2-780m, olmoe-1b-7b):
 
@@ -20,12 +22,14 @@ then for each path in turn (gemma3-1b, mamba2-780m, olmoe-1b-7b):
    prefill plus h2o-danube and deepseek head dims; mamba2-780m prefill
    plus hymba-1.5b's SSD shape, G > 1, S < chunk and an initial state;
    olmoe-1b-7b prefill and decode plus qwen2-moe-a2.7b's expert shapes and
-   edge cases of the group sizes), with the kernel's, the plain version's
-   and (for attention and the grouped GEMM) one PyTorch call's times and
-   the card's bound for the same work; the error is gated both absolutely
-   and relative to each output row's (attention, grouped GEMM) or each
-   (batch, head)'s (SSD) largest element; then the kernels' calls of one
-   prefill, timed together;
+   edge cases of the group sizes, and olmoe-1b-7b's attention, its 16
+   calls of a prefill), with the kernel's, the plain version's and (for
+   attention and the grouped GEMM) one PyTorch call's times and the card's
+   bound for the same work, and at decode the grouped GEMM wrapper's host
+   time a call; the error is gated both absolutely and relative to each
+   output row's (attention, grouped GEMM) or each (batch, head)'s (SSD)
+   largest element; then the kernels' calls of one prefill, timed
+   together;
 4. prefill: full-width ``forward`` on a (4, 2048) batch, with the launch
    counts reset just before it and read just after (olmoe-1b-7b with both
    MoE dispatches; then qwen2-moe-a2.7b at full width and 4 of its 24
@@ -50,6 +54,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -144,6 +149,37 @@ def nvidia_smi() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
+def host_us(fn) -> float:
+    """Host time of one call of ``fn`` in µs, without a synchronisation:
+    1,000 calls in rounds of 100, the host clock around each round only
+    (the device drains between rounds, off the clock), so the host never
+    waits on a full launch queue."""
+    fn()
+    total = 0.0
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / 1000 * 1e6
+
+
+def ptxas_flags(log: str) -> list[str]:
+    """The lines of an nvcc log that flag a kernel as slower than its
+    source asks: spills to local memory, ptxas ignoring setmaxnreg (C7508)
+    and wgmma serialised by the compiler ("Potential Performance Loss")."""
+    flags = []
+    for line in log.splitlines():
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if (spills and any(int(n) for n in spills.groups())
+                or "C7508" in line or "setmaxnreg ignored" in line
+                or "Potential Performance Loss" in line):
+            flags.append(line.strip())
+    return flags
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` in ms, by CUDA events around ``iters`` runs."""
     for _ in range(warmup):
@@ -214,6 +250,13 @@ def gmm_floor_ms(t: int, d: int, f: int, nonempty: int) -> tuple[float, float]:
     flops = 2 * t * d * f
     nbytes = 2 * (t * d + nonempty * d * f + t * f)
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def gmm_row_tiles(group_sizes: torch.Tensor) -> int:
+    """Row tiles the grouped GEMM runs for these group sizes: each expert's
+    rows in tiles of 128, the last one partial (against T / 128 if every
+    tile were full)."""
+    return int(((group_sizes.long() + 127) // 128).sum())
 
 
 def bound(ops_ms: float, bytes_ms: float) -> tuple[float, str]:
@@ -480,6 +523,25 @@ def sdpa_call(q, k, v, causal, window):
         qt, kt, vt, is_causal=causal)
 
 
+def serve_requests(cfg, params, dev, rng):
+    """Phase 6's workload: ``ServeEngine`` on 4 slots (``max_len`` 1024)
+    answers 8 requests of 16 new tokens, prompts of 2-5 tokens drawn from
+    ``rng``.  Returns the engine, the tokens generated and the seconds."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
+    for rid in range(8):
+        prompt_ids = rng.integers(0, cfg.vocab_size, rng.integers(2, 6)).tolist()
+        engine.submit(Request(rid=rid, prompt=prompt_ids, max_new=16))
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
+        raise AssertionError(f"served {len(done)} requests: "
+                             f"{[len(r.generated) for r in done]}")
+    return engine, sum(len(r.generated) for r in done), serve_s
+
+
 def gemma3_path(dev, card) -> dict:
     """Phases 3-7 for gemma3-1b; returns its kernel's entry of the kernels
     line."""
@@ -635,22 +697,11 @@ def gemma3_path(dev, card) -> dict:
         raise AssertionError(f"card vs CPU forward: {small_err} > {CPU_GPU_TOL}")
 
     # -- 6. serve -----------------------------------------------------------------
-    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
-    rng = np.random.default_rng(0)
-    for rid in range(8):
-        prompt_ids = rng.integers(0, cfg.vocab_size, rng.integers(2, 6)).tolist()
-        engine.submit(Request(rid=rid, prompt=prompt_ids, max_new=16))
     fa.launches = 0
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
     serve_launches = fa.launches
-    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
-        raise AssertionError(f"served {len(done)} requests: "
-                             f"{[len(r.generated) for r in done]}")
-    n_tok = sum(len(r.generated) for r in done)
-    emit("serve", arch=cfg.name, requests=len(done), slots=4, max_len=1024,
+    emit("serve", arch=cfg.name, requests=8, slots=4, max_len=1024,
          new_tokens=n_tok, final_pos=engine.cache["pos"], seconds=serve_s,
          decode_tokens_per_s=n_tok / serve_s,
          steps_per_s=engine.cache["pos"] / serve_s,
@@ -898,20 +949,9 @@ def mamba2_path(dev, card) -> list[dict]:
         raise AssertionError(f"card vs CPU forward: {small_err} > {CPU_GPU_TOL}")
 
     # -- 6. serve -----------------------------------------------------------------
-    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
     rng = np.random.default_rng(0)
-    for rid in range(8):
-        prompt_ids = rng.integers(0, cfg.vocab_size, rng.integers(2, 6)).tolist()
-        engine.submit(Request(rid=rid, prompt=prompt_ids, max_new=16))
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
-        raise AssertionError(f"served {len(done)} requests: "
-                             f"{[len(r.generated) for r in done]}")
-    n_tok = sum(len(r.generated) for r in done)
-    emit("serve", arch=cfg.name, requests=len(done), slots=4, new_tokens=n_tok,
+    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
+    emit("serve", arch=cfg.name, requests=8, slots=4, new_tokens=n_tok,
          final_pos=engine.cache["pos"], seconds=serve_s,
          decode_tokens_per_s=n_tok / serve_s,
          steps_per_s=engine.cache["pos"] / serve_s, nvidia_smi=card)
@@ -1006,6 +1046,37 @@ def olmoe_path(dev, card) -> dict:
     b, s = 4, 2048
     rows, qrows = b * s * k, b * s * qcfg.top_k
 
+    # -- 3. flash attention at olmoe's shape: the 16 calls of a prefill --------
+    # (its own generator: the later phases draw from ``gen`` as they did
+    # before this check was added)
+    agen = torch.Generator(device=dev)
+    agen.manual_seed(4)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, key, val = [torch.randn((b, s, h, hd), generator=agen, device=dev
+                               ).to(torch.bfloat16) for h in (hq, hkv, hkv)]
+    out = fa.flash_attention(q, key, val, causal=True)
+    want = fa.flash_attention_plain(q, key, val, causal=True)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    rel = row_rel_err(out, want)
+    if not (err <= KERNEL_TOL and rel <= ROW_REL_TOL):
+        raise AssertionError(f"flash_attention at olmoe's shape: max |err| {err} "
+                             f"(tol {KERNEL_TOL}), row-relative {rel} (tol {ROW_REL_TOL})")
+    ops_ms, bytes_ms = attention_floor_ms(b, s, hq, hkv, hd, True, 0)
+    bound_ms, bound_by = bound(n_layers * ops_ms, n_layers * bytes_ms)
+    sdpa = sdpa_call(q, key, val, True, 0)
+    emit("kernel_check", kernel="flash_attention", case="olmoe-1b-7b prefill",
+         calls=n_layers, shape=[b, s, hq, hkv, hd], causal=True, window=0,
+         max_abs_err=err, tol=KERNEL_TOL, max_row_rel_err=rel,
+         row_rel_tol=ROW_REL_TOL,
+         ms=time_ms(lambda: [fa.flash_attention(q, key, val, causal=True)
+                             for _ in range(n_layers)], 5),
+         plain_ms=time_ms(lambda: [fa.flash_attention_plain(q, key, val, causal=True)
+                                   for _ in range(n_layers)], 1, 1),
+         library_ms=time_ms(lambda: [sdpa() for _ in range(n_layers)], 5),
+         bound_ms=bound_ms, bound_by=bound_by, nvidia_smi=card)
+    del q, key, val, out, want, sdpa
+
     # -- 3. the grouped GEMM against its plain version ------------------------
     cases = [  # name, T, d, f, E, group sizes, top-k of the routing
         ("olmoe-1b-7b gate/up", rows, d, f, e, "route", k),
@@ -1033,15 +1104,19 @@ def olmoe_path(dev, card) -> dict:
         nonempty = int((sizes > 0).sum())
         bound_ms, bound_by = bound(*gmm_floor_ms(t, dd, ff, nonempty))
         lib, no_lib = grouped_mm_call(x, w, sizes)
+        # the wrapper's host time a call where decode makes it: 48 a step
+        host = ({"host_us": host_us(lambda: moe_gmm.grouped_matmul(x, w, sizes))}
+                if t == 4 * k else {})
         emit("kernel_check", kernel="grouped_matmul", case=name,
              shape=[t, dd, ff, ee], nonempty_experts=nonempty,
-             largest_group=int(sizes.max()), **errs, tol=GMM_TOL,
+             largest_group=int(sizes.max()), row_tiles=gmm_row_tiles(sizes),
+             **errs, tol=GMM_TOL,
              row_rel_tol=ROW_REL_TOL,
              ms=time_ms(lambda: moe_gmm.grouped_matmul(x, w, sizes), 20),
              plain_ms=time_ms(lambda: moe_gmm.grouped_matmul_plain(x, w, sizes), 3, 1),
              library_ms=time_ms(lib, 20) if lib else None,
              library=no_lib or "torch._grouped_mm",
-             bound_ms=bound_ms, bound_by=bound_by, nvidia_smi=card)
+             bound_ms=bound_ms, bound_by=bound_by, nvidia_smi=card, **host)
         del x, w, out, want, lib
 
     # the grouped GEMMs of one olmoe-1b-7b prefill: gate, up, down a layer
@@ -1069,6 +1144,7 @@ def olmoe_path(dev, card) -> dict:
     }
     emit("kernel_prefill_mix", kernel="grouped_matmul", calls=len(calls),
          shape=[rows, d, f, e], nonempty_experts=nonempty,
+         row_tiles=gmm_row_tiles(sizes),
          library=no_lib or "torch._grouped_mm", nvidia_smi=card, **gmm_mix)
     del x, hid, w_in, w_down, calls, libs
 
@@ -1187,25 +1263,14 @@ def olmoe_path(dev, card) -> dict:
                 raise AssertionError(f"card vs CPU forward: {small_err} > {CPU_GPU_TOL}")
 
     # -- 6. serve (default dispatch) --------------------------------------------
-    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
-    rng = np.random.default_rng(0)
-    for rid in range(8):
-        prompt_ids = rng.integers(0, cfg.vocab_size, rng.integers(2, 6)).tolist()
-        engine.submit(Request(rid=rid, prompt=prompt_ids, max_new=16))
     moe_gmm.launches = 0
-    t0 = time.perf_counter()
-    done = engine.run()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
     serve_launches = moe_gmm.launches
-    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
-        raise AssertionError(f"served {len(done)} requests: "
-                             f"{[len(r.generated) for r in done]}")
     if serve_launches != 3 * n_layers * engine.cache["pos"]:
         raise AssertionError(f"serve launched grouped_matmul {serve_launches} "
                              f"times in {engine.cache['pos']} steps")
-    n_tok = sum(len(r.generated) for r in done)
-    emit("serve", arch=cfg.name, moe_dispatch=cfg.moe_dispatch, requests=len(done),
+    emit("serve", arch=cfg.name, moe_dispatch=cfg.moe_dispatch, requests=8,
          slots=4, max_len=1024, new_tokens=n_tok, final_pos=engine.cache["pos"],
          seconds=serve_s, decode_tokens_per_s=n_tok / serve_s,
          steps_per_s=engine.cache["pos"] / serve_s,
@@ -1322,7 +1387,8 @@ def main() -> None:
                     if "registers" in line or "spill" in line]
              for name, log in _build.build_log.items()}
     emit("build", seconds=build_s, sources=[FA_SOURCE, SSD_SOURCE, GMM_SOURCE],
-         ptxas=ptxas)
+         ptxas=ptxas, flags={name: ptxas_flags(log)
+                             for name, log in _build.build_log.items()})
 
     kernels = [gemma3_path(dev, card)]
     torch.cuda.empty_cache()

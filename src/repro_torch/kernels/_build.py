@@ -5,8 +5,10 @@ compiled for ``sm_90a`` at first CUDA use into ``build/repro_torch_kernels/``
 at the repository root (listed in ``.gitignore``), keyed by a hash of every
 file under ``csrc/`` and the flags, so an edited source is rebuilt and an
 unchanged one is not.  One :func:`build` starts an nvcc for each source that
-is not built yet, all at once, and waits for them all.  Nothing here runs at
-import: the CPU tests import every module.
+is not built yet, all at once, and waits for them all.  Another directory of
+sources (an older commit's ``csrc/``, to time its kernels beside these) is
+built and loaded the same way.  Nothing here runs at import: the CPU tests
+import every module.
 """
 from __future__ import annotations
 
@@ -38,25 +40,25 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
 def _target(source: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.iterdir()):
+    for f in sorted(source.parent.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> float:
-    """Compiles every source that is not built already, in parallel.
+def build(csrc: Path = CSRC) -> float:
+    """Compiles every source of ``csrc`` not built already, in parallel.
     Returns the seconds spent; raises with the compiler's output if a build
     fails (after every started nvcc has ended)."""
     t0 = time.perf_counter()
     jobs = []
-    for src in sources():
+    for src in sources(csrc):
         target = _target(src)
         if target.exists():
             continue
@@ -79,10 +81,10 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    source = CSRC / f"{name}.cu"
+def library(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library of ``<csrc>/<name>.cu``, built first if needed."""
+    source = csrc / f"{name}.cu"
     if not source.exists():
         raise FileNotFoundError(source)
-    build()
+    build(csrc)
     return ctypes.CDLL(str(_target(source)))

@@ -10,39 +10,64 @@
 // What bounds it on an H100: at olmoe-1b-7b prefill (T = 4 x 2048 x 8 =
 // 65536 rows, d 2048, f 1024, E 64) one call does 2 T d f = 2.7e11 FLOPs
 // (0.278 ms at 989 TFLOP/s) against 671 MB of x, w and y (0.200 ms at
-// 3.35 TB/s): bound by operations.  At decode (32 rows over 64 experts,
-// ~25 of them with rows) it must read only the non-empty experts' weights,
-// ~100 MB a call, and is bound by bytes.
+// 3.35 TB/s): bound by operations, so the tensor cores must be kept busy.
+// At decode (32 rows over 64 experts, ~30 of them with rows) it does
+// 1.3e8 FLOPs against the non-empty experts' weights, ~126 MB (0.038 ms):
+// bound by bytes, so it must read only those weights, with enough loads in
+// flight to stream them at the memory's rate.
 //
 // What the design does about that:
-// * The TPU packed the rows so that each expert's segment filled whole
-//   row blocks (a static worst case of T + E*BT rows), then gathered the
-//   result back.  Here nothing is packed: a block owns one 128-row tile of
-//   one expert and one 128-column tile of the output; rows past the
-//   group's end are zero-filled by cp.async and never stored.
-// * The grid is the host-known worst case, (ceil(T/128) + E) row tiles x
-//   ceil(f/128) column tiles.  Each block reads the E group sizes from the
-//   device, prefix-sums them in shared memory (one warp scan), and finds
-//   its expert by binary search over the cumulative tile counts; blocks
-//   past the last real tile exit at once.  So the host never reads the
-//   group sizes (no synchronisation), and an empty expert gets no tile and
-//   reads none of its weights.
-// * Products on the tensor cores: mma.sync m16n8k16, bf16 operands, fp32
-//   accumulators.  8 warps in a 2 x 4 layout, each 64 x 32 outputs; K in
-//   steps of 32 through a 3-stage cp.async ring in shared memory, so two
-//   k-steps of copies are in flight while one is multiplied.
-// * Blocks are numbered column tile fastest: the column tiles of one row
-//   tile run together and share its rows in L2, and an expert's weight
-//   slab (4 MB at olmoe) is reused by its row tiles while it is in L2.
-// * Rows are padded by 16 bytes in shared memory so that ldmatrix reads of
-//   8 rows hit 8 different bank groups.
-// Left for later: wgmma, TMA and warp specialisation, a persistent grid,
-// and gate and up fused into one pass over x.
+// * A block computes 128 x 256 output tiles (at BN 128 each product needs
+//   4/3 the operand bytes, and a build of it was slower at every shape).  Products by wgmma m64n256k16 (bf16 operands, fp32
+//   accumulators in registers), both operands read from shared memory:
+//   x K-major, w as it lies (N contiguous: the instruction's transpose flag
+//   for B), so the weights keep the port's layout.
+// * Operands arrive by TMA into a ring of kStages (3) stages, each one
+//   k-step (64 deep, 128 bytes of bf16: the 128-byte swizzle) of a 128-row
+//   tile of x and a 64 x BN slab of the expert's weight.  x is a 2-D
+//   tensor map (d, T): a tile starts at any row; rows past T come in as
+//   zeros, rows past the group's end (the next expert's) are loaded and
+//   never stored.  w is a 3-D map (f, d, E), so a K tail (d not a multiple
+//   of 64) is zero-filled inside the expert and never reads expert e + 1.
+// * Warp specialisation: one producer warpgroup (one thread issues every
+//   load; setmaxnreg.dec to 40 registers) and two consumer warpgroups
+//   (64 rows of the tile each; setmaxnreg.inc to 232), handing stages over
+//   by mbarriers: "full" (TMA bytes arrived) and "empty" (every consumer
+//   warp's wgmmas on the stage have finished).  No block-wide barrier
+//   after set-up.
+// * A persistent grid: min(#SMs, worst-case tiles) blocks.  Each block
+//   reads the E group sizes from the device and prefix-sums rows and row
+//   tiles in shared memory (one warp scan), then walks the tiles
+//   blockIdx.x, blockIdx.x + gridDim.x, ... up to the real count, which
+//   only the device knows; a tile finds its expert by binary search.  So
+//   the host never reads the group sizes (no synchronisation) and an
+//   empty expert gets no tile and has none of its weights read.  The ring's
+//   barrier phases run on across tiles.  Column tiles of one row tile are
+//   neighbours in the walk, so the blocks working at one time share a few
+//   row tiles of x and one or two experts' weights in L2.
+// * The epilogue rounds the fp32 sums to bf16 (__floats2bfloat162_rn)
+//   into a buffer in shared memory laid out as the TMA store of y reads
+//   it: 64 x 64 boxes with the 128-byte swizzle, which also spreads the
+//   fragment's stores over 32 banks.  A warpgroup whose 64 rows all lie
+//   in the group (row < row_end; the rows past it are another tile's)
+//   then stores them by TMA, cut at f and T by the tensor map; the stores
+//   drain while the next tile is multiplied, and the producer is already
+//   loading that tile's stages.  Only where a group ends inside the 64
+//   rows do its threads store the rows that are the tile's, 16 bytes at a
+//   time.  Stores straight from the fragment (4 bytes, 8 rows a warp
+//   instruction) would keep the tensor cores waiting.  No split-K, no
+//   atomics: the output is deterministic.
+// * The ring gets 3 stages, not 4: the epilogue's buffer (66 KB) takes the
+//   fourth's room.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/_build.py).  Plain C
-// interface, loaded with ctypes; the kernel allocates nothing.
+// interface, loaded with ctypes; the kernel allocates nothing.  The tensor
+// maps are encoded on the host for every call (x moves); the driver's
+// encoder is found through the runtime (cudaGetDriverEntryPoint), so
+// nothing beyond the runtime is linked.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,89 +76,272 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 128;  // rows of a tile (all of one expert)
-constexpr int kBN = 128;  // output columns of a tile
-constexpr int kBK = 32;   // depth of one k-step
-constexpr int kWarpsM = 2;
-constexpr int kWarpsN = 4;
-constexpr int kThreads = kWarpsM * kWarpsN * 32;
-constexpr int kWM = kBM / kWarpsM;  // 64 rows a warp
-constexpr int kWN = kBN / kWarpsN;  // 32 columns a warp
-constexpr int kMT = kWM / 16;       // m16 tiles a warp
-constexpr int kNT = kWN / 8;        // n8 tiles a warp
+constexpr int kBM = 128;              // rows of a tile: 64 a consumer warpgroup
+constexpr int kBN = 256;              // output columns of a tile
+constexpr int kBK = 64;               // depth of a k-step: 128 bytes of bf16
+constexpr int kChunkN = 64;           // columns of one TMA box of w (128 bytes)
+constexpr int kConsumers = 2;         // consumer warpgroups
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kATile = kBM * kBK * 2;                 // bytes of x a stage
+constexpr int kWChunk = kBK * kChunkN * 2;            // bytes of one w box
+constexpr int kBTile = kBN * kBK * 2;                 // bytes of w a stage
+constexpr int kStageBytes = kATile + kBTile;
+// The epilogue's bf16 tile: for each consumer warpgroup, BN / 64 boxes of
+// 64 rows x 64 columns (128 bytes a row, 128-byte swizzle), as the TMA
+// store of y reads them.
+constexpr int kOutBox = 64 * kChunkN * 2;
+constexpr int kOutBytes = kConsumers * (kBN / kChunkN) * kOutBox;
+// Stages of the ring: 3 (48 KB each) fit beside it in 227 KB.
 constexpr int kStages = 3;
-constexpr int kAStride = kBK + 8;  // padded rows, in elements
-constexpr int kBStride = kBN + 8;
-constexpr int kATile = kBM * kAStride;
-constexpr int kBTile = kBK * kBStride;
-constexpr int kSmemBytes = kStages * (kATile + kBTile) * sizeof(bf16);
+// + 1024 bytes to align the ring
+constexpr int kSmemBytes = kStages * kStageBytes + kOutBytes + 1024;
 // Most experts the group table in shared memory holds (MAX_EXPERTS in
 // repro_torch/kernels/moe_gmm.py).
 constexpr int kMaxExperts = 512;
+static_assert(kSmemBytes <= 227 * 1024, "shared memory");
+static_assert(kATile % 1024 == 0 && kWChunk % 1024 == 0, "swizzle atoms");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte asynchronous copy; with valid == false nothing is read and the
-// 16 bytes of shared memory are zero-filled.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n));
+// -- mbarriers ---------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// Blocks until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// -- TMA loads (complete on an mbarrier, out-of-bounds elements are zeros) --
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// -- wgmma -------------------------------------------------------------------
+
+// Shared-memory matrix descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (B128).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// Keeps the compiler from moving accumulator registers across the
+// asynchronous wgmma (it writes them until wgmma_wait).
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// -- the epilogue's asynchronous stores -------------------------------------
+
+// Stores a box of shared memory to global memory through a tensor map, in
+// the background (out-of-bounds elements are not written); tracked by this
+// thread's bulk groups.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Waits until this thread's bulk stores are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Makes this thread's shared-memory stores visible to the TMA stores.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A barrier over one warpgroup (ids 1 and up; 0 is __syncthreads).
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
+// d (64 x 256, fp32, the wgmma fragment) += a (64 x 16, K-major) *
+// b (16 x 256, N-major: the transpose flag), both from shared memory;
+// with accumulate == 0, d = a * b.
+__device__ __forceinline__ void wgmma_tile(float (&d)[128], uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// c += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Where tile `tile` of the walk lies: its expert, first row, the end of the
+// expert's rows and its first output column.  Tiles are numbered column
+// tile fastest.
+struct Tile {
+  int e, row0, row_end, n0;
+};
+
+__device__ __forceinline__ Tile locate(int tile, int col_tiles, int experts,
+                                       const int* s_row_end,
+                                       const int* s_tile_end) {
+  const int row_tile = tile / col_tiles;
+  // the first e with s_tile_end[e] > row_tile (never an empty expert, whose
+  // count equals its predecessor's)
+  int lo = 0;
+  int hi = experts - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (s_tile_end[mid] > row_tile)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  Tile t;
+  t.e = lo;
+  const int first_tile = lo > 0 ? s_tile_end[lo - 1] : 0;
+  const int group_start = lo > 0 ? s_row_end[lo - 1] : 0;
+  t.row0 = group_start + (row_tile - first_tile) * kBM;
+  t.row_end = s_row_end[lo];
+  t.n0 = (tile % col_tiles) * kBN;
+  return t;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    grouped_matmul_kernel(const bf16* __restrict__ x,
-                          const bf16* __restrict__ w,
+__global__ void __launch_bounds__(kThreads, 1)
+    grouped_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_w,
+                          const __grid_constant__ CUtensorMap map_y,
                           const int* __restrict__ group_sizes,
                           bf16* __restrict__ y, int rows, int k_dim,
                           int n_dim, int experts) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_a = reinterpret_cast<bf16*>(smem_raw);
-  bf16* s_b = s_a + kStages * kATile;
+  extern __shared__ unsigned char smem_raw[];
   // Inclusive prefix sums over the experts of their rows and row tiles.
   __shared__ int s_row_end[kMaxExperts];
   __shared__ int s_tile_end[kMaxExperts];
+  __shared__ uint64_t full_bar[kStages];
+  __shared__ uint64_t empty_bar[kStages];
+  // The 128-byte swizzle repeats every 1024 bytes: stages start on it.
+  const uint32_t ring = (smem_addr(smem_raw) + 1023) & ~1023u;
 
   const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_addr(&full_bar[s]), 1);
+      mbar_init(smem_addr(&empty_bar[s]), kConsumers * 4);  // every warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   for (int e = tid; e < experts; e += kThreads) {
     // clamped, so that sizes that do not sum to T never reach past x or y
     s_row_end[e] = min(max(group_sizes[e], 0), rows);
@@ -166,157 +374,240 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const int col_tiles = (n_dim + kBN - 1) / kBN;
-  const int row_tile = blockIdx.x / col_tiles;
-  const int n0 = (blockIdx.x % col_tiles) * kBN;
-  if (row_tile >= s_tile_end[experts - 1]) return;  // past the last real tile
-  // The expert of this row tile: the first e with s_tile_end[e] > row_tile
-  // (never an empty expert, whose count equals its predecessor's).
-  int lo = 0;
-  int hi = experts - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (s_tile_end[mid] > row_tile)
-      hi = mid;
-    else
-      lo = mid + 1;
-  }
-  const int e = lo;
-  const int first_tile = e > 0 ? s_tile_end[e - 1] : 0;
-  const int group_start = e > 0 ? s_row_end[e - 1] : 0;
-  const int row0 = group_start + (row_tile - first_tile) * kBM;
-  const int row_end = s_row_end[e];
-  const bf16* w_e = w + static_cast<int64_t>(e) * k_dim * n_dim;
-
+  const int tiles = s_tile_end[experts - 1] * col_tiles;
   const int k_steps = (k_dim + kBK - 1) / kBK;
-  // Copies one k-step of the row tile (A) and of the expert's weight (B)
-  // into a stage; rows past the group and columns past f or d are zeros.
-  auto load_stage = [&](int stage, int step) {
-    const int k0 = step * kBK;
-    bf16* sa = s_a + stage * kATile;
-    bf16* sb = s_b + stage * kBTile;
-#pragma unroll
-    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
-      const int r = i / (kBK / 8);
-      const int c = i % (kBK / 8);
-      const int row = row0 + r;
-      const int k = k0 + c * 8;
-      const bool valid = row < row_end && k < k_dim;
-      cp_async_16(sa + r * kAStride + c * 8,
-                  valid ? x + static_cast<int64_t>(row) * k_dim + k : x, valid);
-    }
-#pragma unroll
-    for (int i = tid; i < kBK * (kBN / 8); i += kThreads) {
-      const int r = i / (kBN / 8);
-      const int c = i % (kBN / 8);
-      const int k = k0 + r;
-      const int n = n0 + c * 8;
-      const bool valid = k < k_dim && n < n_dim;
-      cp_async_16(sb + r * kBStride + c * 8,
-                  valid ? w_e + static_cast<int64_t>(k) * n_dim + n : w,
-                  valid);
-    }
-  };
+  const int wg = tid / 128;
 
-  // Every step commits exactly one cp.async group (empty past the last
-  // k-step), so "at most kStages - 2 pending" means "this step's is in".
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < k_steps) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int warp_m = warp / kWarpsN;
-  const int warp_n = warp % kWarpsN;
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  for (int step = 0; step < k_steps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // this step's tiles are in; every warp is done with
-                      // the stage the next copy overwrites
-    const int ahead = step + kStages - 1;
-    if (ahead < k_steps) load_stage(ahead % kStages, ahead);
-    cp_async_commit();
-
-    const bf16* sa = s_a + (step % kStages) * kATile;
-    const bf16* sb = s_b + (step % kStages) * kBTile;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        ldmatrix_x4(a[mt], sa + (warp_m * kWM + mt * 16 + lane % 16) * kAStride +
-                               kk * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int nb = 0; nb < kNT / 2; ++nb) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, sb + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) *
-                                      kBStride +
-                                  warp_n * kWN + nb * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(acc[mt][2 * nb], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * nb + 1], a[mt], b[2], b[3]);
+  // One if/else on the warpgroup, never rejoined: ptxas honours setmaxnreg
+  // only so.
+  if (wg == kConsumers) {
+    // -- producer: one thread issues every TMA load ------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == kConsumers * 128) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_x))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_w))
+                   : "memory");
+      int it = 0;  // k-steps loaded so far, over all of this block's tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const Tile t = locate(tile, col_tiles, experts, s_row_end, s_tile_end);
+        // boxes of w wholly past f would load only zeros: skip them (their
+        // columns are never stored)
+        const int chunks =
+            min(kBN / kChunkN, (n_dim - t.n0 + kChunkN - 1) / kChunkN);
+        for (int ks = 0; ks < k_steps; ++ks, ++it) {
+          const int stage = it % kStages;
+          const uint32_t full = smem_addr(&full_bar[stage]);
+          mbar_wait(smem_addr(&empty_bar[stage]), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(full, kATile + chunks * kWChunk);
+          const uint32_t a = ring + stage * kStageBytes;
+          tma_load_2d(a, &map_x, full, ks * kBK, t.row0);
+          for (int c = 0; c < chunks; ++c)
+            tma_load_3d(a + kATile + c * kWChunk, &map_w, full,
+                        t.n0 + c * kChunkN, ks * kBK, t.e);
         }
       }
     }
-  }
-  cp_async_wait<0>();  // no copy outlives the block
+  } else {
+    // -- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of a tile ---
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    // this warpgroup's 64 rows of the epilogue's tile
+    const uint32_t out =
+        ring + kStages * kStageBytes + wg * (kBN / kChunkN) * kOutBox;
+    unsigned char* out_ptr = smem_raw + (out - smem_addr(smem_raw));
+    float acc[kBN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const Tile t = locate(tile, col_tiles, experts, s_row_end, s_tile_end);
+      for (int ks = 0; ks < k_steps; ++ks, ++it) {
+        const int stage = it % kStages;
+        mbar_wait(smem_addr(&full_bar[stage]), (it / kStages) & 1);
+        const uint32_t a = ring + stage * kStageBytes + wg * (64 * kBK * 2);
+        const uint32_t b = ring + stage * kStageBytes + kATile;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // x: K-major rows of 128 bytes, 8-row swizzle atoms 1024 bytes
+          // apart (SBO); a 16-deep slice starts 32 bytes further along.
+          // w: N-major, rows of 64 columns 128 bytes apart, 8-row atoms
+          // 1024 bytes apart (SBO), the 64-column boxes kWChunk apart (LBO);
+          // a 16-deep slice starts 16 rows further down.
+          wgmma_tile(acc, smem_desc(a + kk * 32, 16, 1024),
+                     smem_desc(b + kk * 16 * 128, kWChunk, 1024),
+                     ks > 0 || kk > 0);
+        }
+        wgmma_commit();
+        fence_acc(acc);
+        // the previous k-step's wgmmas are done: give its stage back
+        wgmma_wait<1>();
+        if (ks > 0 && lane == 0)
+          mbar_arrive(smem_addr(&empty_bar[(it + kStages - 1) % kStages]));
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0)
+        mbar_arrive(smem_addr(&empty_bar[(it + kStages - 1) % kStages]));
 
+      // Epilogue: round to bf16 into shared memory, then TMA stores of the
+      // warpgroup's 64 rows (cut at f and T by the tensor map) if they all
+      // lie in the group, else 16-byte stores of the rows that do.  The
+      // TMA stores run on while the next tile is multiplied; the buffer is
+      // written again only once they have read it.
+      if (tid % 128 == 0) bulk_wait_read();
+      warpgroup_sync(1 + wg);
+      // fragment element 4j + r holds row 16 warp + lane / 4 (+ 8 for
+      // r >= 2) and columns 8j + 2 (lane % 4) (+ 1 for odd r); column 8j
+      // lies in box j / 8, at 16-byte chunk j % 8 of its row, which the
+      // 128-byte swizzle moves to chunk (j % 8) ^ (row % 8)
+      const int r0 = warp * 16 + lane / 4;
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+      for (int half = 0; half < 2; ++half) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + warp_m * kWM + mt * 16 + lane / 4 + r * 8;
-      if (row >= row_end) continue;
-      bf16* out_row = y + static_cast<int64_t>(row) * n_dim;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int col = n0 + warp_n * kWN + nt * 8 + 2 * (lane % 4);
-        if (col < n_dim)  // f is a multiple of 8: col + 1 < f as well
-          *reinterpret_cast<__nv_bfloat162*>(out_row + col) =
-              __floats2bfloat162_rn(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
+        for (int j = 0; j < kBN / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out_ptr + (j / 8) * kOutBox + (r0 + 8 * half) * 128 +
+              (((j % 8) ^ (r0 % 8)) * 16) + (lane % 4) * 4) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                    acc[4 * j + 2 * half + 1]);
+      }
+      fence_async_shared();
+      warpgroup_sync(1 + wg);
+      const int row0 = t.row0 + wg * 64;
+      if (row0 + 64 <= t.row_end) {
+        if (tid % 128 == 0) {
+          for (int b = 0; b < kBN / kChunkN && t.n0 + b * kChunkN < n_dim; ++b)
+            tma_store_2d(&map_y, out + b * kOutBox, t.n0 + b * kChunkN, row0);
+          bulk_commit();
+        }
+      } else {
+        // the group ends inside these 64 rows: 64 rows x BN / 8 chunks
+        for (int i = tid % 128; i < 64 * (kBN / 8); i += 128) {
+          const int r = i / (kBN / 8);
+          const int j = i % (kBN / 8);
+          const int col = t.n0 + j * 8;
+          if (row0 + r < t.row_end && col < n_dim)
+            *reinterpret_cast<uint4*>(y + static_cast<int64_t>(row0 + r) *
+                                              n_dim + col) =
+                *reinterpret_cast<const uint4*>(
+                    out_ptr + (j / 8) * kOutBox + r * 128 +
+                    (((j % 8) ^ (r % 8)) * 16));
+        }
       }
     }
+    if (tid % 128 == 0) bulk_wait();  // the buffer outlives the stores
   }
 }
+
+// The driver's tensor-map encoder, found once through the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map with the 128-byte swizzle; dims and box innermost first,
+// strides in bytes of every dim but the innermost.
+bool encode(CUtensorMap* map, const void* base, int rank,
+            const cuuint64_t* dims, const cuuint64_t* strides,
+            const cuuint32_t* box) {
+  const EncodeTiled fn = encoder();
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                  const_cast<void*>(base), dims, strides, box, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Per device: the SM count, and whether the kernel's shared memory limit
+// has been raised.
+constexpr int kMaxDevices = 64;
+int device_sms[kMaxDevices];
 
 }  // namespace
 
 extern "C" {
 
 // x: (rows, k_dim), w: (experts, k_dim, n_dim), y: (rows, n_dim), all
-// contiguous bf16; group_sizes: (experts,) int32 on the device.  k_dim and
-// n_dim multiples of 8 (16-byte rows).  Returns the launch's cudaError_t
-// (0 on success).
+// contiguous bf16, 16-byte aligned; group_sizes: (experts,) int32 on the
+// device.  k_dim and n_dim multiples of 8 (16-byte rows).  Returns the
+// launch's cudaError_t (0 on success).
 int grouped_matmul(const void* x, const void* w, const void* group_sizes,
                    void* y, int rows, int k_dim, int n_dim, int experts,
                    void* stream) {
   if (rows <= 0 || k_dim <= 0 || n_dim <= 0 || experts <= 0 ||
       experts > kMaxExperts || k_dim % 8 || n_dim % 8)
     return cudaErrorInvalidValue;
-  static bool smem_raised = false;
-  if (!smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        grouped_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (device_sms[dev] == 0) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    smem_raised = true;
+    err = cudaFuncSetAttribute(grouped_matmul_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    device_sms[dev] = sms;
   }
-  const long long row_tiles = (rows + kBM - 1) / kBM + experts;
-  const long long blocks = row_tiles * ((n_dim + kBN - 1) / kBN);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  grouped_matmul_kernel<<<static_cast<unsigned>(blocks), kThreads, kSmemBytes,
+
+  CUtensorMap map_x, map_w, map_y;
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(k_dim),
+                                static_cast<cuuint64_t>(rows)};
+  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(k_dim) * 2};
+  const cuuint32_t x_box[2] = {kBK, kBM};
+  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(n_dim),
+                                static_cast<cuuint64_t>(k_dim),
+                                static_cast<cuuint64_t>(experts)};
+  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(n_dim) * 2,
+                                   static_cast<cuuint64_t>(k_dim) * n_dim * 2};
+  const cuuint32_t w_box[3] = {kChunkN, kBK, 1};
+  const cuuint64_t y_dims[2] = {static_cast<cuuint64_t>(n_dim),
+                                static_cast<cuuint64_t>(rows)};
+  const cuuint64_t y_strides[1] = {static_cast<cuuint64_t>(n_dim) * 2};
+  const cuuint32_t y_box[2] = {kChunkN, 64};
+  if (!encode(&map_x, x, 2, x_dims, x_strides, x_box) ||
+      !encode(&map_w, w, 3, w_dims, w_strides, w_box) ||
+      !encode(&map_y, y, 2, y_dims, y_strides, y_box))
+    return cudaErrorInvalidValue;
+
+  // Each expert with rows adds at most one partial row tile.
+  const long long row_tiles =
+      (rows + kBM - 1) / kBM + (experts < rows ? experts : rows);
+  const long long worst = row_tiles * ((n_dim + kBN - 1) / kBN);
+  const int blocks =
+      static_cast<int>(worst < device_sms[dev] ? worst : device_sms[dev]);
+  grouped_matmul_kernel<<<blocks, kThreads, kSmemBytes,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const int*>(group_sizes), static_cast<bf16*>(y), rows,
-      k_dim, n_dim, experts);
+      map_x, map_w, map_y, static_cast<const int*>(group_sizes),
+      static_cast<bf16*>(y),
+      rows, k_dim, n_dim, experts);
   return cudaGetLastError();
 }
 

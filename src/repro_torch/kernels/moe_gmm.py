@@ -3,8 +3,12 @@ version.
 
 Port of the TPU kernel ``repro.kernels.moe_gmm.grouped_matmul`` (and its
 jit wrapper ``repro.kernels.ops.grouped_matmul``).  The kernel is
-``csrc/moe_gmm.cu`` (CUDA C++ for sm_90a; its header says what bounds it
-and how a block finds its expert without the TPU's pack pass).
+``csrc/moe_gmm.cu``, CUDA C++ for sm_90a: a persistent grid (one block an
+SM) walks 128 x 256 output tiles, each block finding its tiles' experts
+from the device's group sizes; in a block one warpgroup issues TMA loads
+into a 3-stage shared-memory ring and two warpgroups multiply with wgmma,
+then stage the bf16 tile in shared memory for TMA stores to y.  Its
+header says what bounds it and what the design does about that.
 
 * A CPU tensor goes to :func:`grouped_matmul_plain`, one fp32 product per
   non-empty expert (the oracle ``ref.grouped_matmul_ref``).
@@ -39,14 +43,18 @@ launches = 0
 grouped_matmul_plain = grouped_matmul_ref
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.library("moe_gmm")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry point of a loaded build of ``moe_gmm.cu``."""
     # pointers and the stream as c_void_p, or ctypes cuts them to 32 bits
     lib.grouped_matmul.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.grouped_matmul.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(_build.library("moe_gmm"))
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:

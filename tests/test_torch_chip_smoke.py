@@ -266,3 +266,51 @@ def test_summary_of_a_window_without_device_events():
     assert out["device_events"] == 0 and out["device_busy_ms"] == 0.0
     assert out["idle_share"] is None          # no device trace: no share
     assert out["kernel_launches"] == 0
+
+
+def test_ptxas_flags_spills_and_ignored_setmaxnreg():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function 'k1' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers, 4144 bytes smem",
+        "    16 bytes stack frame, 12 bytes spill stores, 0 bytes spill loads",
+        "ptxas warning : (C7508) setmaxnreg ignored; unable to determine "
+        "register count at entry",
+        "ptxas info    : (C7518) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized",
+    ])
+    flags = cs.ptxas_flags(log)
+    assert len(flags) == 3
+    assert flags[0].startswith("16 bytes stack frame, 12 bytes spill stores")
+    assert "C7508" in flags[1] and "C7518" in flags[2]
+    assert cs.ptxas_flags(log.splitlines()[1]) == []
+
+
+def test_host_us_times_every_call_and_syncs_between_rounds(monkeypatch):
+    """1,000 timed calls in rounds of 100 after one warm-up call, a
+    synchronisation before each round and one at the end."""
+    syncs, calls = [], []
+    monkeypatch.setattr(cs.torch.cuda, "synchronize", lambda: syncs.append(len(calls)))
+    us = cs.host_us(lambda: calls.append(1))
+    assert len(calls) == 1001
+    assert syncs == [1 + 100 * i for i in range(10)] + [1001]
+    assert 0 < us < 1e4
+
+
+def test_gmm_row_tiles_counts_each_experts_partial_tile():
+    sizes = torch.tensor([0, 1, 128, 129, 300], dtype=torch.int32)
+    assert cs.gmm_row_tiles(sizes) == 0 + 1 + 1 + 2 + 3
+    assert cs.gmm_row_tiles(torch.zeros(4, dtype=torch.int32)) == 0
+
+
+def test_serve_requests_answers_eight_requests_of_sixteen_tokens(monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model, compute_copy
+    monkeypatch.setattr(cs.torch.cuda, "synchronize", lambda: None)
+    cfg = get_smoke("gemma3-1b")
+    params = compute_copy(cfg, Model(cfg, "cpu").init(seed=0))
+    engine, n_tok, seconds = cs.serve_requests(cfg, params, "cpu",
+                                               np.random.default_rng(0))
+    assert n_tok == 8 * 16 and seconds > 0
+    # 8 requests on 4 slots: two rounds of at least 2 prompt + 16 new tokens
+    assert engine.cache["pos"] >= 2 * 17

@@ -202,6 +202,11 @@ def _gmm_inputs(dev, t, d, f, e, seed=0):
     (777, 2048, 1408, 60),   # qwen2-moe widths
     (513, 1024, 2048, 16),   # a down projection
     (96, 40, 24, 3),         # d and f not multiples of the tiles
+    (300, 1000, 1024, 8),    # a K tail inside the expert (d % 64 = 40)
+    (300, 256, 200, 8),      # an N tail (f % 256 = 200, a box across f)
+    (65, 128, 256, 4),       # one row past a 64-row warpgroup's half
+    (600, 128, 256, 512),    # 512 experts: most empty, many of one row
+    (32, 2048, 1024, 64),    # olmoe decode: 4 tokens x top-8
 ])
 @pytest.mark.parametrize("kind", ["random", "one", "first-empty-last"])
 def test_gmm_kernel_matches_plain(dev, t, d, f, e, kind):
@@ -215,6 +220,18 @@ def test_gmm_kernel_matches_plain(dev, t, d, f, e, kind):
     assert out.dtype == torch.bfloat16 and out.shape == (t, f)
     want = moe_gmm.grouped_matmul_plain(x, w, sizes)
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_gmm_kernel_is_deterministic(dev):
+    """No split-K and no atomics: two calls on the same inputs give the
+    same bits, also when a persistent block walks many tiles."""
+    from repro_torch.kernels import moe_gmm
+    x, w = _gmm_inputs(dev, 4096, 1024, 2048, 64)
+    sizes = _gmm_sizes(dev, 4096, 64, "random")
+    first = moe_gmm.grouped_matmul(x, w, sizes)
+    second = moe_gmm.grouped_matmul(x, w, sizes)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_gmm_kernel_refuses_what_it_does_not_take(dev):

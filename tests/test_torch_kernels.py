@@ -5,8 +5,13 @@ On a CPU tensor the port's wrapper takes the kernel's plain version
 interpret mode through ``repro.kernels.ops``, as ``tests/test_kernels.py``
 does.  The CUDA kernel itself is held against the plain version on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
-Tolerances are the reference's own: 2e-5 in fp32, 2e-2 in bf16.
+Tolerances are the reference's own: 2e-5 in fp32, 2e-2 in bf16.  Also
+how the kernels' sources are keyed and bound, which needs no compiler.
 """
+import ctypes
+import shutil
+import types
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -55,3 +60,28 @@ def test_cpu_tensor_never_counts_a_launch():
     before = fa.launches
     fa.flash_attention(q, k, v)
     assert fa.launches == before
+
+
+def test_build_keys_a_source_directory_by_its_own_files(tmp_path):
+    """Another tree's sources build beside these under a name of their own;
+    the same files give the same library."""
+    from repro_torch.kernels import _build
+    same, other = tmp_path / "same", tmp_path / "other"
+    shutil.copytree(_build.CSRC, same)
+    other.mkdir()
+    (other / "moe_gmm.cu").write_text("// another version of the kernel\n")
+    assert _build.sources(other) == [other / "moe_gmm.cu"]
+    mine = _build._target(_build.CSRC / "moe_gmm.cu")
+    assert _build._target(same / "moe_gmm.cu") == mine
+    theirs = _build._target(other / "moe_gmm.cu")
+    assert theirs != mine and theirs.parent == _build.BUILD_DIR
+    assert theirs.name.startswith("libmoe_gmm-")
+
+
+def test_gmm_bind_declares_the_c_entry_point():
+    from repro_torch.kernels import moe_gmm
+    lib = types.SimpleNamespace(grouped_matmul=types.SimpleNamespace())
+    assert moe_gmm.bind(lib) is lib
+    assert lib.grouped_matmul.argtypes == (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    assert lib.grouped_matmul.restype is ctypes.c_int

@@ -19,7 +19,7 @@ result line:
 then for each path in turn (gemma3-1b, mamba2-780m, olmoe-1b-7b):
 
 3. kernels against their plain versions at the path's shapes (gemma3-1b
-   prefill plus h2o-danube and deepseek head dims; mamba2-780m prefill
+   prefill plus h2o-danube, deepseek and hymba head dims; mamba2-780m prefill
    plus hymba-1.5b's SSD shape, G > 1, S < chunk and an initial state;
    olmoe-1b-7b prefill and decode plus qwen2-moe-a2.7b's expert shapes and
    edge cases of the group sizes, and olmoe-1b-7b's attention, its 16
@@ -106,6 +106,22 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:90"
+#: flash attention against its plain version, before gemma3-1b's prefill:
+#: name, B, S, Hq, Hkv, D, causal, window (every head dim the kernel is
+#: compiled for; olmoe-1b-7b's shape is checked on its own path)
+FA_CASES = [
+    ("gemma3-1b global", 4, 2048, 4, 1, 256, True, 0),
+    ("gemma3-1b swa", 4, 2048, 4, 1, 256, True, 512),
+    ("gemma3-1b swa S=window", 4, 512, 4, 1, 256, True, 512),
+    ("gemma3-1b ragged", 4, 1000, 4, 1, 256, True, 0),
+    ("gemma3-1b ragged swa", 4, 1000, 4, 1, 256, True, 512),
+    ("h2o-danube-1.8b", 4, 2048, 32, 8, 80, True, 4096),
+    ("deepseek-7b", 4, 2048, 32, 32, 128, True, 0),
+    ("hymba-1.5b swa", 4, 2048, 25, 5, 64, True, 1024),
+    ("bidirectional D128", 2, 200, 4, 2, 128, False, 0),
+    ("smoke D32 window", 2, 40, 2, 1, 32, True, 16),
+    ("smoke D16 MHA", 2, 72, 4, 4, 16, True, 0),
+]
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 #: the TPU kernel each SSD kernel replaces: the chunk states are the state
 #: half of _intra_kernel; the scan holds its y half, the host scan and
@@ -560,19 +576,8 @@ def gemma3_path(dev, card) -> dict:
                             dtype=torch.float32).to(torch.bfloat16)
                 for h in (hq, hkv, hkv)]
 
-    cases = [  # name, B, S, Hq, Hkv, D, causal, window
-        ("gemma3-1b global", 4, 2048, 4, 1, 256, True, 0),
-        ("gemma3-1b swa", 4, 2048, 4, 1, 256, True, 512),
-        ("gemma3-1b swa S=window", 4, 512, 4, 1, 256, True, 512),
-        ("gemma3-1b ragged", 4, 1000, 4, 1, 256, True, 0),
-        ("gemma3-1b ragged swa", 4, 1000, 4, 1, 256, True, 512),
-        ("h2o-danube-1.8b", 4, 2048, 32, 8, 80, True, 4096),
-        ("deepseek-7b", 4, 2048, 32, 32, 128, True, 0),
-        ("bidirectional D128", 2, 200, 4, 2, 128, False, 0),
-        ("smoke D32 window", 2, 40, 2, 1, 32, True, 16),
-    ]
     max_err = 0.0
-    for name, b, s, hq, hkv, d, causal, window in cases:
+    for name, b, s, hq, hkv, d, causal, window in FA_CASES:
         q, k, v = qkv(b, s, hq, hkv, d)
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)

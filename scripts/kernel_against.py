@@ -1,0 +1,273 @@
+#!/usr/bin/env python3
+"""Times one of this tree's kernels beside another version of it, on one CUDA
+card, in one process.
+
+    python3 scripts/kernel_against.py gmm OTHER_CSRC [--serve-pairs N]
+    python3 scripts/kernel_against.py fa OTHER_CSRC [--prefill-pairs N]
+
+Run from the repository root.  ``OTHER_CSRC`` is another tree's
+``src/repro_torch/kernels/csrc`` (e.g. an older commit unpacked under
+``build/``), whose source of the kernel (``moe_gmm.cu`` for ``gmm``,
+``flash_attention.cu`` for ``fa``) has the same C entry point.  Both are built
+and loaded by ``repro_torch.kernels._build`` and every call goes through the
+port's wrapper (``moe_gmm.grouped_matmul``, ``flash_attention.flash_attention``),
+pointed at one build or the other in turns.  Prints each build's ptxas lines,
+then for ``gmm``:
+
+* at olmoe-1b-7b's prefill and decode shapes and qwen2-moe-a2.7b's, each
+  build's error against the plain version (``chip_smoke.gmm_errors``) and
+  its time in turns (this, other, other, this) beside ``torch._grouped_mm``,
+  and at the decode shape each build's host time a call
+  (``chip_smoke.host_us``, in turns as well): one JSON line a shape;
+* with ``--serve-pairs N`` (default 10), N pairs of chip_smoke's serve phase
+  (``chip_smoke.serve_requests``) on olmoe-1b-7b at full width with each
+  build, the order alternating from pair to pair, each beside a gemma3-1b
+  serve run (no grouped GEMM: it shows how the host drifts), after one
+  uncounted pair that warms both up: one JSON line a run, then the medians
+  of the olmoe/gemma3 decode rate ratio for each build;
+
+and for ``fa``:
+
+* at gemma3-1b's global and window layers, h2o-danube-1.8b's (D 80) and
+  deepseek-7b's (D 128, 32 heads) shapes, gemma3-1b's 26 calls of a prefill
+  and olmoe-1b-7b's 16, each build's error against the plain version (max
+  |err| and the largest error relative to its row's largest element,
+  ``chip_smoke.row_rel_err``) and its time in turns beside
+  ``scaled_dot_product_attention`` and the card's bound: one JSON line a
+  case;
+* with ``--prefill-pairs N`` (default 5), N pairs of full-width prefills
+  (``forward`` on a (4, 2048) batch, median of 3) of gemma3-1b and
+  olmoe-1b-7b with each build, the order alternating, after one uncounted
+  pair: one JSON line a run, then each build's medians;
+
+then the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import _build, flash_attention, moe_gmm  # noqa: E402
+
+#: kernel argument -> (wrapper module, source name)
+KERNELS = {"gmm": (moe_gmm, "moe_gmm"), "fa": (flash_attention, "flash_attention")}
+
+
+@contextlib.contextmanager
+def using(module, lib):
+    """The port's wrapper in ``module`` launches from ``lib`` inside the block."""
+    loader = module._library
+    module._library = lambda: lib
+    try:
+        yield
+    finally:
+        module._library = loader
+
+
+def gmm_cases(libs: dict, dev) -> None:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = [  # name, T, d, f, E, top-k of the routing
+        ("olmoe-1b-7b gate/up", 65536, 2048, 1024, 64, 8),
+        ("olmoe-1b-7b down", 65536, 1024, 2048, 64, 8),
+        ("qwen2-moe-a2.7b gate/up", 32768, 2048, 1408, 60, 4),
+        ("qwen2-moe-a2.7b down", 32768, 1408, 2048, 60, 4),
+        ("olmoe-1b-7b decode, 4 tokens", 32, 2048, 1024, 64, 8),
+    ]
+    turns = (*libs, *reversed(libs))
+    for name, t, d, f, e, k in cases:
+        x = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((e, d, f), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        sizes = cs.moe_group_sizes(gen, dev, t // k, e, k)
+        want = moe_gmm.grouped_matmul_plain(x, w, sizes)
+
+        def call():
+            return moe_gmm.grouped_matmul(x, w, sizes)
+
+        errs, times, host = {}, {v: [] for v in libs}, None
+        for v, lib in libs.items():
+            with using(moe_gmm, lib):
+                errs[v] = cs.gmm_errors(call(), want)["max_abs_err"]
+        for v in turns:
+            with using(moe_gmm, libs[v]):
+                times[v].append(cs.time_ms(call, 20))
+        if t <= 4 * k:   # decode: the host's time a call is what it costs
+            host = {v: [] for v in libs}
+            for v in turns:
+                with using(moe_gmm, libs[v]):
+                    host[v].append(cs.host_us(call))
+        lib_call, no_lib = cs.grouped_mm_call(x, w, sizes)
+        nonempty = int((sizes > 0).sum())
+        cs.emit("gmm_against", case=name, shape=[t, d, f, e], nonempty_experts=nonempty,
+                max_abs_err=errs, ms=times, host_us=host,
+                library_ms=cs.time_ms(lib_call, 20) if lib_call else None,
+                library=no_lib or "torch._grouped_mm",
+                bound_ms=cs.bound(*cs.gmm_floor_ms(t, d, f, nonempty))[0])
+        del x, w, want
+
+
+def serve_pairs(libs: dict, dev, pairs: int) -> None:
+    from repro_torch.configs import get
+    from repro_torch.models import Model, compute_copy
+
+    models = {}
+    for arch in ("olmoe-1b-7b", "gemma3-1b"):
+        cfg = get(arch)
+        models[arch] = (cfg, compute_copy(cfg, Model(cfg, dev).init(seed=0)))
+        torch.cuda.empty_cache()
+    ratios = {v: [] for v in libs}
+    for i in range(-1, pairs):   # pair -1 warms both builds up: not counted
+        for v in (list(libs) if i % 2 == 0 else list(reversed(libs))):
+            rates = {}
+            with using(moe_gmm, libs[v]):
+                for arch, (cfg, params) in models.items():
+                    _, n_tok, seconds = cs.serve_requests(
+                        cfg, params, dev, np.random.default_rng(0))
+                    rates[arch] = n_tok / seconds
+            ratio = rates["olmoe-1b-7b"] / rates["gemma3-1b"]
+            if i >= 0:
+                ratios[v].append(ratio)
+            cs.emit("serve_against", pair=i, build=v, decode_tokens_per_s=rates,
+                    olmoe_over_gemma3=ratio)
+    cs.emit("serve_against_summary", pairs=pairs,
+            median_olmoe_over_gemma3={v: float(np.median(r)) for v, r in ratios.items()},
+            ratios=ratios)
+
+
+def fa_shapes() -> list[tuple]:
+    """The flash-attention cases: name, B, S, Hq, Hkv, D, causal, the
+    windows of its calls (one call each)."""
+    from repro_torch.configs import get
+
+    gemma3 = get("gemma3-1b")
+    windows = [gemma3.window if kind == "swa" else 0 for kind in gemma3.layer_types]
+    return [
+        ("gemma3-1b global", 4, 2048, 4, 1, 256, True, [0]),
+        ("gemma3-1b swa", 4, 2048, 4, 1, 256, True, [512]),
+        ("gemma3-1b prefill, 26 calls", 4, 2048, 4, 1, 256, True, windows),
+        ("olmoe-1b-7b prefill, 16 calls", 4, 2048, 16, 16, 128, True, [0] * 16),
+        ("h2o-danube-1.8b", 4, 2048, 32, 8, 80, True, [4096]),
+        ("deepseek-7b", 4, 2048, 32, 32, 128, True, [0]),
+    ]
+
+
+def fa_cases(libs: dict, dev, cases: list[tuple] | None = None) -> None:
+    """Each build in ``libs`` at each case: errors, then times in turns
+    (the builds in order, then in reverse)."""
+    fa = flash_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    turns = (*libs, *reversed(libs))
+    for name, b, s, hq, hkv, d, causal, wins in cases or fa_shapes():
+        q, k, v = [torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv)]
+        errs = {ver: {"max_abs_err": 0.0, "max_row_rel_err": 0.0} for ver in libs}
+        for w in sorted(set(wins)):
+            want = fa.flash_attention_plain(q, k, v, causal=causal, window=w)
+            for ver, lib in libs.items():
+                with using(fa, lib):
+                    out = fa.flash_attention(q, k, v, causal=causal, window=w)
+                e = errs[ver]
+                e["max_abs_err"] = max(e["max_abs_err"],
+                                       (out.float() - want.float()).abs().max().item())
+                e["max_row_rel_err"] = max(e["max_row_rel_err"], cs.row_rel_err(out, want))
+                del out
+            del want
+
+        def call():
+            return [fa.flash_attention(q, k, v, causal=causal, window=w) for w in wins]
+
+        iters = max(2, 20 // len(wins))
+        times = {ver: [] for ver in libs}
+        for ver in turns:
+            with using(fa, libs[ver]):
+                times[ver].append(cs.time_ms(call, iters))
+        sdpa = [cs.sdpa_call(q, k, v, causal, w) for w in wins]
+        floors = [cs.attention_floor_ms(b, s, hq, hkv, d, causal, w) for w in wins]
+        bound_ms, bound_by = cs.bound(sum(f[0] for f in floors), sum(f[1] for f in floors))
+        cs.emit("fa_against", case=name, calls=len(wins), shape=[b, s, hq, hkv, d],
+                causal=causal, windows=sorted(set(wins)), errors=errs, ms=times,
+                library_ms=cs.time_ms(lambda: [c() for c in sdpa], iters),
+                library="scaled_dot_product_attention",
+                bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, sdpa
+
+
+def prefill_pairs(libs: dict, dev, pairs: int) -> None:
+    from repro_torch.configs import get
+    from repro_torch.models import Model, compute_copy, synthetic_batch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    models = {}
+    for arch in ("gemma3-1b", "olmoe-1b-7b"):
+        cfg = get(arch)
+        model = Model(cfg, dev)
+        models[arch] = (model, compute_copy(cfg, model.init(seed=0)),
+                        synthetic_batch(cfg, 4, 2048, gen, dev))
+        torch.cuda.empty_cache()
+    seconds = {ver: {arch: [] for arch in models} for ver in libs}
+    for i in range(-1, pairs):   # pair -1 warms both builds up: not counted
+        for ver in (list(libs) if i % 2 == 0 else list(reversed(libs))):
+            run = {}
+            with using(flash_attention, libs[ver]), torch.inference_mode():
+                for arch, (model, params, batch) in models.items():
+                    times = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        model.forward(params, batch)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                    run[arch] = float(np.median(times))
+                    if i >= 0:
+                        seconds[ver][arch].append(run[arch])
+            cs.emit("prefill_against", pair=i, build=ver, seconds=run)
+    cs.emit("prefill_against_summary", pairs=pairs,
+            median_seconds={ver: {arch: float(np.median(ts)) for arch, ts in by.items()}
+                            for ver, by in seconds.items()},
+            seconds=seconds)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("kernel", choices=sorted(KERNELS))
+    ap.add_argument("other_csrc", type=Path,
+                    help="another tree's src/repro_torch/kernels/csrc")
+    ap.add_argument("--serve-pairs", type=int, default=10, help="gmm only")
+    ap.add_argument("--prefill-pairs", type=int, default=5, help="fa only")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_against: no CUDA device")
+    dev = torch.device("cuda")
+    module, source = KERNELS[args.kernel]
+    libs = {}
+    for ver, csrc in (("this", _build.CSRC), ("other", args.other_csrc.resolve())):
+        _build.build_log.pop(f"{source}.cu", None)
+        libs[ver] = module.bind(_build.library(source, csrc))
+        log = _build.build_log.get(f"{source}.cu", "")
+        cs.emit("build", build=ver, csrc=str(csrc),
+                ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln],
+                flags=cs.ptxas_flags(log))
+    if args.kernel == "gmm":
+        gmm_cases(libs, dev)
+        if args.serve_pairs:
+            serve_pairs(libs, dev, args.serve_pairs)
+    else:
+        fa_cases(libs, dev)
+        if args.prefill_pairs:
+            prefill_pairs(libs, dev, args.prefill_pairs)
+    print(cs.nvidia_smi(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,128 +4,315 @@
 // (body _attn_kernel, the pl.pallas_call at :127; padding wrapper
 // kernels/ops.py::flash_attention).  Same function: exact attention with an
 // online softmax; running max m, row sum l and the output accumulator in
-// fp32; GQA by reading KV head h / (Hq / Hkv); masks causal, sliding window
-// (0 <= q - k < window) or bidirectional, plus the key bound k < S; rows
-// whose every key is masked give 0 (the l == 0 guard).
+// fp32; GQA by reading KV head h / (Hq / Hkv) in place; masks causal,
+// sliding window (0 <= q - k < window) or bidirectional, plus the key bound
+// k < S; rows whose every key is masked give 0 (the l == 0 guard).
 //
 // What bounds it on an H100: at the gemma3-1b prefill shapes (B 4, S 2048,
 // Hq 4, Hkv 1, D 256) one call does ~1.5e10 (window 512) to ~3.4e10 (global)
 // tensor-core FLOPs against ~42 MB of Q, K, V and O, so it is bound by
-// operations, not bytes (see PERF.md for the numbers).
+// operations, not bytes (see PERF.md for the numbers): the tensor cores
+// must be kept busy, which on Hopper takes wgmma fed by TMA.
 //
 // What the design does about that:
-// * The products QK^T and PV run on the tensor cores (mma.sync m16n8k16,
-//   bf16 operands, fp32 accumulators).  A block of 4 warps owns 64 query
-//   rows of one (batch, head); each warp owns 16 rows, so the softmax row
-//   statistics stay in registers and need only quad shuffles.
-// * The TPU's sequential KV grid axis becomes a loop inside the block.
-//   Its bounds replace the Pallas tile skip (pl.when(reachable)): key tiles
-//   run from max(0, q_start - window + 1) to q_end (causal), so the work
-//   done is the mask's, not S^2.
-// * K and V tiles are staged in shared memory once per block and read by
-//   all 4 warps; the V copy (cp.async) is in flight while QK^T runs.
-// * The ragged edge (S not a multiple of 64) is zero-filled by cp.async and
-//   masked; nothing is padded in device memory.
-// * Query tiles are launched last-first, so the long causal rows start
-//   early and the short ones fill the tail.
-// * At D = 256 the Q, K and V tiles take 99 KB, above the 48 KB static
-//   limit: the shared memory is dynamic, raised per instantiation with
-//   cudaFuncSetAttribute.  Rows are padded by 16 bytes so that ldmatrix
-//   reads of 8 rows hit 8 different bank groups.
-// Left for later: wgmma, TMA and warp specialisation, a double-buffered
-// K/V ring, and a persistent grid.
+// * A block serves 128 query rows of one (batch, head) with 3 warpgroups:
+//   one producer (a single thread issues every TMA load; setmaxnreg.dec to
+//   24 registers) and two consumers of 64 rows each (setmaxnreg.inc to
+//   240: 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536).  One if/else on
+//   the warpgroup that never rejoins, or ptxas ignores setmaxnreg.
+// * Q, K and V arrive by TMA through 4-D tensor maps over (D, H, S, B)
+//   with the 128-byte swizzle and boxes 64 columns wide.  D is padded to a
+//   multiple of 64 in shared memory only (16, 32 -> 64; 80 -> 128): columns
+//   past D and rows past S come in as zeros (the maps' out-of-bounds fill),
+//   so nothing is padded in device memory and one swizzle and descriptor
+//   scheme serves every head dim (at D 80 the tensor work is 1.6x).
+//   Q is loaded once; K and V go through a 2-stage ring with full and
+//   empty mbarriers of their own, so QK^T of a tile starts while its V is
+//   still in flight (2 stages is the most that fits at D 256).
+// * S = Q K^T by wgmma m64nBKk16, both operands K-major in shared memory.
+//   BK, the key tile, is 128 up to D_pad 128 and 64 at D 256 (shared
+//   memory: 64 KB of Q + 2 x (32 + 32) KB of K and V = 192 KB at D 256;
+//   32 + 2 x 64 = 160 KB at D 128).
+// * The mask and the online softmax run on the accumulator registers once
+//   the wgmma has completed (a branch around a wgmma makes ptxas serialise
+//   it).  Only tiles that cross the diagonal, the window's far edge or S
+//   are masked.  A row's max and sum are reduced over the 4 threads that
+//   share it in the accumulator layout.  Masked scores are -inf; a row
+//   that has seen only masked keys subtracts 0 instead of its max, so
+//   exp2 gives 0 and never nan.  exp2 is the special-function unit's
+//   (ex2.approx.ftz: results below 2^-126 of the row's max become 0).
+//   O is rescaled only when some row's max moved in the warp.
+// * O += P V by wgmma m64nD_padk16 with A from registers: the fp32 S
+//   fragment is rounded to bf16 and is already the A fragment of the next
+//   product, k16 slice by k16 slice.  V is read N-major through the
+//   instruction's transpose flag: 64-column boxes BK rows deep, so the
+//   descriptor's leading offset (next 64 columns) is BK x 128 bytes and its
+//   stride offset (next 8 keys) 1024.
+// * Overlap.  A consumer issues tile t's QK^T and tile t - 1's PV together
+//   and runs tile t's softmax while PV is on the tensor cores.  Up to
+//   D_pad 128 the two consumers also take turns issuing their products
+//   (named barriers, FA3's ping-pong), so one's softmax runs under the
+//   other's products; at D 256 that was slower and is off (PERF.md).
+// * The TPU's sequential KV grid axis becomes the loop over key tiles.
+//   Its bounds replace the Pallas tile skip (pl.when(reachable)): the
+//   producer loads the tiles that any of the block's 128 rows can reach;
+//   each consumer runs its products only on the tiles its own 64 rows
+//   reach and only waits and releases the others, so the work done is the
+//   mask's, not S^2.
+// * Epilogue: O / l rounded to bf16 into the consumer's own 64 rows of the
+//   Q buffer (Q is dead after its last QK^T), in the swizzled layout the TMA
+//   store reads; the store clips rows past S and columns past D.  No
+//   atomics: the output is deterministic.
+// * Block order.  The (batch, head) pairs are cut into even sections whose
+//   K and V fit in L2 together (20 MB of the 50); within a section the
+//   longest query tiles run first, the pairs fastest, so the long causal
+//   rows start early and the heads of one KV group run together.  Walking
+//   every pair at once re-read K and V from device memory at olmoe's and
+//   deepseek's shapes (64 and 128 MB of K and V).
+//
+// What still holds it back (PERF.md): with the softmax removed the
+// products run at ~70% of the card's peak; the softmax is not wholly
+// hidden under them; each block pays its own Q load, pipeline fill and
+// epilogue (no persistent grid), which short rows (window 512) feel most.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/_build.py).  Plain C
-// interface, loaded with ctypes; the kernel allocates nothing.
+// interface, loaded with ctypes; the kernel allocates nothing.  The tensor
+// maps are encoded on the host for every call (hopper.cuh).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <array>
+
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int kBlockQ = 64;  // query rows per block (16 per warp)
-constexpr int kBlockK = 64;  // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-// Finite stand-in for -inf (the Pallas kernel's NEG_INF): a row that has
-// seen only masked keys keeps m finite, so exp2(m_old - m_new) is never nan.
-constexpr float kMaskedScore = -1.0e30f;
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kRowsWG = 64;                        // query rows a consumer
+constexpr int kBlockQ = kConsumers * kRowsWG;      // query rows a block
+constexpr int kChunk = 64;     // head-dim columns of a box: 128 bytes of bf16
+constexpr int kStages = 2;     // the K/V ring (3 was no faster at D 128)
+// K and V bytes a section of blocks may share in the 50 MB L2
+constexpr long long kL2Budget = 20LL << 20;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+template <int D>
+struct Tiles {
+  static constexpr int kDPad = (D + kChunk - 1) / kChunk * kChunk;
+  static constexpr int kChunks = kDPad / kChunk;
+  static constexpr int kBK = kDPad >= 256 ? 64 : 128;  // keys a tile
+  // The consumers take turns on the tensor cores up to D_pad 128; at 256
+  // taking turns was slower (PERF.md).
+  static constexpr bool kPingPong = kDPad <= 128;
+  static constexpr int kQBox = kRowsWG * 128;          // 64 rows x 64 cols
+  static constexpr int kQBytes = kConsumers * kChunks * kQBox;
+  static constexpr int kKVBox = kBK * 128;             // BK rows x 64 cols
+  static constexpr int kKVBytes = kChunks * kKVBox;    // one K or V tile
+  // + 1024 bytes to align the buffers on the swizzle's 1024-byte atoms
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;
+  static_assert(kSmem <= 227 * 1024, "shared memory");
+  static_assert(kQBox % 1024 == 0 && kKVBox % 1024 == 0, "swizzle atoms");
+};
 
-// 16-byte asynchronous copy; with valid == false nothing is read and the
-// 16 bytes of shared memory are zero-filled.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+// d (64 x 64, fp32) = or += a (64 x 16) * b (16 x 64), both K-major in
+// shared memory (128-byte swizzle); accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
+// d (64 x 128, fp32) = or += a (64 x 16) * b (16 x 128), both K-major in
+// shared memory (128-byte swizzle); accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// c += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 64, fp32) += a (64 x 16, bf16 A fragments in registers) *
+// b (16 x 64, N-major in shared memory: the transpose flag).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 128, fp32) += a (64 x 16, bf16 A fragments in registers) *
+// b (16 x 128, N-major in shared memory: the transpose flag).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 256, fp32) += a (64 x 16, bf16 A fragments in registers) *
+// b (16 x 256, N-major in shared memory: the transpose flag).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Rounds two fp32 values to a bf16 pair: lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copies rows [row0, row0 + 64) of one head into a padded shared tile;
-// rows at or beyond seq_len are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* head,
-                                          int64_t row_stride, int row0,
-                                          int seq_len) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kStride = D + 8;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kBlockK * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int ch = i % kChunks;
-    const int row = row0 + r;
-    const bool valid = row < seq_len;
-    const bf16* src = head + (valid ? row * row_stride + ch * 8 : 0);
-    cp_async_16(tile + r * kStride + ch * 8, src, valid);
-  }
+// 2^x by the special-function unit, subnormal results flushed to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ bool allowed(int qpos, int kpos, int seq_len,
@@ -134,205 +321,445 @@ __device__ __forceinline__ bool allowed(int qpos, int kpos, int seq_len,
          (window <= 0 || qpos - kpos < window);
 }
 
+// S = Q K^T for one key tile, issued (not waited for): D_pad / 16 k-steps;
+// Q and the K tile are K-major rows of 128 bytes, 8-row swizzle atoms 1024
+// bytes apart (SBO), a 16-deep slice 32 bytes further along, the next 64
+// columns the next box.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_fwd_kernel(const bf16* __restrict__ q,
-                               const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, bf16* __restrict__ o,
-                               int seq_len, int hq, int hkv, int causal,
-                               int window, float scale_log2) {
-  static_assert(kBlockQ == kBlockK, "load_tile serves Q, K and V tiles");
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kStride = D + 8;  // padded row, in elements
-  constexpr int kNBlocks = kBlockK / 8;
-  constexpr int kDBlocks = D / 8;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);
-  bf16* s_k = s_q + kBlockQ * kStride;
-  bf16* s_v = s_k + kBlockK * kStride;
-
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // last tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int h_kv = h / (hq / hkv);
-  const int q_start = q_tile * kBlockQ;
-
-  const int64_t q_row_stride = static_cast<int64_t>(hq) * D;
-  const int64_t kv_row_stride = static_cast<int64_t>(hkv) * D;
-  const bf16* q_head = q + (static_cast<int64_t>(b) * seq_len * hq + h) * D;
-  const bf16* k_head = k + (static_cast<int64_t>(b) * seq_len * hkv + h_kv) * D;
-  const bf16* v_head = v + (static_cast<int64_t>(b) * seq_len * hkv + h_kv) * D;
-  bf16* o_head = o + (static_cast<int64_t>(b) * seq_len * hq + h) * D;
-
-  // Key tiles this query tile can reach (the Pallas kernel's tile skip).
-  int k_lo = 0;
-  int k_hi = seq_len;
-  if (window > 0) k_lo = max(0, q_start - window + 1);
-  if (causal) k_hi = min(seq_len, q_start + kBlockQ);
-  const int t_lo = k_lo / kBlockK;
-  const int t_hi = (k_hi + kBlockK - 1) / kBlockK;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int quad_row = lane / 4;  // row within the 8-row half of the warp
-  const int quad_col = lane % 4;
-  const int row_a = q_start + warp * 16 + quad_row;  // and row_a + 8
-
-  // Copies run one step ahead of the products.  Every step commits exactly
-  // one cp.async group (empty when there is nothing left to load), so
-  // "wait until one group is pending" always means "the older tile is in".
-  load_tile<D>(s_q, q_head, q_row_stride, q_start, seq_len);
-  cp_async_commit();
-  if (t_lo < t_hi) load_tile<D>(s_k, k_head, kv_row_stride, t_lo * kBlockK, seq_len);
-  cp_async_commit();
-  if (t_lo < t_hi) load_tile<D>(s_v, v_head, kv_row_stride, t_lo * kBlockK, seq_len);
-  cp_async_commit();
-
-  float acc[kDBlocks][4];
+__device__ __forceinline__ void issue_qk(float (&s)[Tiles<D>::kBK / 2],
+                                         uint32_t q_wg, uint32_t k_tile) {
+  using T = Tiles<D>;
 #pragma unroll
-  for (int j = 0; j < kDBlocks; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {kMaskedScore, kMaskedScore};
-  float l[2] = {0.f, 0.f};  // per-thread partial row sums
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k_start = t * kBlockK;
-    const bool has_next = t + 1 < t_hi;
-    // A tile needs the mask only where it crosses the sequence end, the
-    // diagonal or the window's far edge; the rest of the band skips it.
-    const bool needs_mask =
-        k_start + kBlockK > seq_len ||
-        (causal && k_start + kBlockK - 1 > q_start) ||
-        (window > 0 && k_start < q_start + kBlockQ - window);
-    cp_async_wait<1>();  // Q and K(t) are in; V(t) may be in flight
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[kNBlocks][4];
+  for (int c = 0; c < T::kChunks; ++c) {
 #pragma unroll
-    for (int n = 0; n < kNBlocks; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, s_q + (warp * 16 + lane % 16) * kStride + kk * 16 +
-                         (lane / 16) * 8);
-#pragma unroll
-      for (int nb = 0; nb < kBlockK / 16; ++nb) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, s_k + (nb * 16 + (lane / 16) * 8 + lane % 8) * kStride +
-                            kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * nb], a, bk[0], bk[1]);
-        mma_bf16(s[2 * nb + 1], a, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with s_k: fetch K(t + 1)
-    if (has_next)
-      load_tile<D>(s_k, k_head, kv_row_stride, k_start + kBlockK, seq_len);
-    cp_async_commit();
-
-    // Mask, then the online softmax in base 2 (scale folded with log2 e).
-    float m_new[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kNBlocks; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qpos = row_a + (e / 2) * 8;
-        const int kpos = k_start + n * 8 + 2 * quad_col + (e % 2);
-        s[n][e] = !needs_mask || allowed(qpos, kpos, seq_len, causal, window)
-                      ? s[n][e] * scale_log2
-                      : kMaskedScore;
-        m_new[e / 2] = fmaxf(m_new[e / 2], s[n][e]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-      const float alpha = exp2f(m[r] - m_new[r]);
-      m[r] = m_new[r];
-      l[r] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kDBlocks; ++j) {
-        acc[j][2 * r] *= alpha;
-        acc[j][2 * r + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kNBlocks; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // masked entries contribute 0 even while m is still kMaskedScore
-        const float p =
-            s[n][e] == kMaskedScore ? 0.f : exp2f(s[n][e] - m[e / 2]);
-        s[n][e] = p;
-        l[e / 2] += p;
-      }
-    }
-
-    cp_async_wait<1>();  // V(t) is in; K(t + 1) may be in flight
-    __syncthreads();
-
-    // O += P V; P goes from the S accumulators straight to A fragments.
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, s_v + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) *
-                                        kStride +
-                                  dn * 16 + (lane / 16) * 8);
-        mma_bf16(acc[2 * dn], a, bv[0], bv[1]);
-        mma_bf16(acc[2 * dn + 1], a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with s_v: fetch V(t + 1)
-    if (has_next)
-      load_tile<D>(s_v, v_head, kv_row_stride, k_start + kBlockK, seq_len);
-    cp_async_commit();
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      wgmma_ss(s, smem_desc(q_wg + c * T::kQBox + kk * 32, 16, 1024),
+               smem_desc(k_tile + c * T::kKVBox + kk * 32, 16, 1024),
+               c > 0 || kk > 0);
   }
-  cp_async_wait<0>();  // no copy outlives the block, even with no key tile
+}
 
+// O += P V for one key tile, issued (not waited for): the V tile N-major,
+// rows of 64 columns 128 bytes apart, 8-key atoms 1024 bytes apart (SBO),
+// the next 64 columns the next box, BK x 128 bytes on (LBO); a 16-key slice
+// starts 16 rows down.
+template <int D>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[Tiles<D>::kDPad / 2],
+    const uint32_t (&p)[Tiles<D>::kBK / 16][4], uint32_t v_tile) {
+  using T = Tiles<D>;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float inv = l[r] == 0.f ? 1.f : 1.f / l[r];  // the l == 0 guard
-    const int qpos = row_a + r * 8;
-    if (qpos >= seq_len) continue;
-    bf16* out_row = o_head + qpos * q_row_stride;
+  for (int kk = 0; kk < T::kBK / 16; ++kk)
+    wgmma_rs(o, p[kk], smem_desc(v_tile + kk * 16 * 128, T::kKVBox, 1024));
+}
+
+// Sets the scores of masked (q, k) pairs to -inf.  Accumulator element
+// 4j + r holds row `row` (+ 8 for r >= 2) and key `key` + 8j (+ 1 for odd r).
+template <int BK>
+__device__ __forceinline__ void mask_scores(float (&s)[BK / 2], int row,
+                                            int key, int seq_len, int causal,
+                                            int window) {
 #pragma unroll
-    for (int j = 0; j < kDBlocks; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(out_row + j * 8 + 2 * quad_col) =
-          __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (!allowed(row + 8 * (r / 2), key + 8 * j + (r % 2), seq_len, causal,
+                   window))
+        s[4 * j + r] = -INFINITY;
     }
   }
 }
+
+// The online softmax of one tile, in base 2 with the scale folded with
+// log2 e: updates the running max m and this thread's partial sums l of its
+// two rows, gives the factor alpha by which O must shrink, and replaces the
+// scores by exp2(s scale - m).  A row with no allowed key yet subtracts 0:
+// exp2(-inf) = 0, never nan.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2],
+                                               float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) mx[r / 2] = fmaxf(mx[r / 2], s[4 * j + r]);
+  }
+  float neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the 4 threads that share a row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = exp2_ftz(m[r] - m_use);
+    m[r] = m_new;
+    neg_m[r] = -m_use;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float e = exp2_ftz(fmaf(s[4 * j + r], scale_log2, neg_m[r / 2]));
+      s[4 * j + r] = e;
+      l[r / 2] += e;
+    }
+  }
+}
+
+// P in bf16: the S fragment's columns 16kk .. 16kk + 15 are the A fragment
+// of the kk-th 16-key slice of O += P V.
+template <int BK>
+__device__ __forceinline__ void to_bf16(const float (&s)[BK / 2],
+                                        uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  }
+}
+
+// Keeps P's registers live, so not reused, until the wgmma reading them
+// has completed (the compiler takes the wgmma for synchronous).
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&p)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(p[i][j])::"memory");
+  }
+}
+
+// O *= alpha, row by row; skipped once the row maxima have settled and
+// alpha is 1 on every row of the warp (exact: it multiplies by 1).
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+  if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) return;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[4 * j + r] *= alpha[r / 2];
+  }
+}
+
+// With kOn, the two consumers take turns issuing their products (named
+// barriers 3 and 4, each counting both warpgroups), so one's softmax runs
+// under the other's products.
+template <bool kOn>
+__device__ __forceinline__ void turn_wait(int wg) {
+  if (kOn) asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
+}
+template <bool kOn>
+__device__ __forceinline__ void turn_pass(int wg) {
+  if (kOn) asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_o,
+                               int seq_len, int hq, int hkv, int causal,
+                               int window, int section, float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int kBK = T::kBK;
+  constexpr int kChunks = T::kChunks;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t q_full;
+  __shared__ uint64_t k_full[kStages], v_full[kStages];
+  __shared__ uint64_t k_empty[kStages], v_empty[kStages];
+  // The 128-byte swizzle repeats every 1024 bytes: every box starts on it.
+  const uint32_t s_q = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_k = s_q + T::kQBytes;               // + stage x kKVBytes
+  const uint32_t s_v = s_k + kStages * T::kKVBytes;
+
+  // Blocks walk sections of `section` (batch, head) pairs, whose K and V
+  // fit in L2 together; in a section, query tiles last first and the pairs
+  // fastest, so the long causal rows start early and the heads of one KV
+  // group run together.
+  const int pairs = gridDim.y * gridDim.z;
+  const int linear = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int first = linear / (section * gridDim.x) * section;
+  const int in_section = min(section, pairs - first);
+  const int idx = linear - first * gridDim.x;
+  const int q_tile = gridDim.x - 1 - idx / in_section;
+  const int pair = first + idx % in_section;
+  const int h = pair % hq;
+  const int b = pair / hq;
+  const int h_kv = h / (hq / hkv);
+  const int q_start = q_tile * kBlockQ;
+
+  // Key tiles any of the block's rows can reach (the Pallas tile skip).
+  const int k_lo = window > 0 ? max(0, q_start - window + 1) : 0;
+  const int k_hi = causal ? min(seq_len, q_start + kBlockQ) : seq_len;
+  const int t_lo = k_lo / kBK;
+  const int t_hi = (k_hi + kBK - 1) / kBK;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(smem_addr(&q_full), 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_addr(&k_full[s]), 1);
+      mbar_init(smem_addr(&v_full[s]), 1);
+      mbar_init(smem_addr(&k_empty[s]), kConsumers * 4);  // every warp
+      mbar_init(smem_addr(&v_empty[s]), kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = tid / 128;
+
+  // One if/else on the warpgroup, never rejoined: ptxas honours setmaxnreg
+  // only so.
+  if (wg == kConsumers) {
+    // -- producer: one thread issues every TMA load --------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers * 128) {
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      const uint32_t qf = smem_addr(&q_full);
+      mbar_expect_tx(qf, T::kQBytes);
+      for (int w = 0; w < kConsumers; ++w)
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(s_q + (w * kChunks + c) * T::kQBox, &map_q, qf,
+                      c * kChunk, h, q_start + w * kRowsWG, b);
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int i = t - t_lo;
+        const int stage = i % kStages;
+        const uint32_t parity = ((i / kStages) & 1) ^ 1;
+        const uint32_t kf = smem_addr(&k_full[stage]);
+        const uint32_t vf = smem_addr(&v_full[stage]);
+        mbar_wait(smem_addr(&k_empty[stage]), parity);
+        mbar_expect_tx(kf, T::kKVBytes);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(s_k + stage * T::kKVBytes + c * T::kKVBox, &map_k, kf,
+                      c * kChunk, h_kv, t * kBK, b);
+        mbar_wait(smem_addr(&v_empty[stage]), parity);
+        mbar_expect_tx(vf, T::kKVBytes);
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(s_v + stage * T::kKVBytes + c * T::kKVBox, &map_v, vf,
+                      c * kChunk, h_kv, t * kBK, b);
+      }
+    }
+  } else {
+    // -- consumers: warpgroup wg owns query rows [q0, q0 + 64) ---------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    const int q0 = q_start + wg * kRowsWG;
+    // accumulator element 4j + r holds row 16 warp + lane / 4 (+ 8 for
+    // r >= 2) and column 8j + 2 (lane % 4) (+ 1 for odd r)
+    const int row = q0 + warp * 16 + lane / 4;
+    const int col = 2 * (lane % 4);
+    // This warpgroup's own key tiles, inside the block's, at least one
+    // (only rows past S reach none: they are computed and never stored).
+    const int lo_key = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int hi_key = causal ? min(seq_len, q0 + kRowsWG) : seq_len;
+    const int lo = min(max(lo_key / kBK, t_lo), t_hi - 1);
+    const int hi = min(max((hi_key + kBK - 1) / kBK, lo + 1), t_hi);
+    const uint32_t q_wg = s_q + wg * kChunks * T::kQBox;
+    const auto stage_of = [&](int t) { return (t - t_lo) % kStages; };
+    const auto parity_of = [&](int t) {
+      return static_cast<uint32_t>(((t - t_lo) / kStages) & 1);
+    };
+    const auto needs_mask = [&](int k_start) {
+      // the tile crosses the sequence end, the diagonal or the window's
+      // far edge
+      return k_start + kBK > seq_len || (causal && k_start + kBK - 1 > q0) ||
+             (window > 0 && k_start < q0 + kRowsWG - window);
+    };
+    // A tile outside this warpgroup's rows' reach: wait for it (so that the
+    // release counts toward this tile's phase) and hand it back.
+    const auto pass = [&](int t) {
+      const int stage = stage_of(t);
+      mbar_wait(smem_addr(&k_full[stage]), parity_of(t));
+      if (lane == 0) mbar_arrive(smem_addr(&k_empty[stage]));
+      mbar_wait(smem_addr(&v_full[stage]), parity_of(t));
+      if (lane == 0) mbar_arrive(smem_addr(&v_empty[stage]));
+      turn_wait<T::kPingPong>(wg);
+      turn_pass<T::kPingPong>(wg);
+    };
+
+    float o[T::kDPad / 2];
+#pragma unroll
+    for (int j = 0; j < T::kDPad / 2; ++j) o[j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};   // running max, scaled (base 2)
+    float l[2] = {0.f, 0.f};               // this thread's partial row sums
+    float alpha[2];
+    float s[kBK / 2];
+    uint32_t p[kBK / 16][4];
+    // Q is in (and the epilogue may reuse its buffer) once this completes.
+    mbar_wait(smem_addr(&q_full), 0);
+    if (T::kPingPong && wg == 0) turn_pass<true>(1);   // the first turn is 0's
+
+    for (int t = t_lo; t < lo; ++t) pass(t);
+    // The products of tile t + 1's QK^T and tile t's PV are issued together,
+    // and tile t + 1's softmax runs while PV is on the tensor cores.
+    {
+      const int stage = stage_of(lo);
+      mbar_wait(smem_addr(&k_full[stage]), parity_of(lo));
+      turn_wait<T::kPingPong>(wg);
+      fence_acc(s);
+      wgmma_fence();
+      issue_qk<D>(s, q_wg, s_k + stage * T::kKVBytes);
+      wgmma_commit();
+      turn_pass<T::kPingPong>(wg);
+      wgmma_wait<0>();
+      fence_acc(s);
+      if (lane == 0) mbar_arrive(smem_addr(&k_empty[stage]));
+      if (needs_mask(lo * kBK))
+        mask_scores<kBK>(s, row, lo * kBK + col, seq_len, causal, window);
+      online_softmax<kBK>(s, m, l, alpha, scale_log2);
+      to_bf16<kBK>(s, p);
+    }
+    for (int t = lo + 1; t < hi; ++t) {
+      const int ks = stage_of(t);
+      const int vs = stage_of(t - 1);
+      // opaque to the compiler, so that it does not keep Q's descriptors
+      // in registers from one tile to the next
+      uint32_t q_addr = q_wg;
+      asm volatile("" : "+r"(q_addr));
+      mbar_wait(smem_addr(&k_full[ks]), parity_of(t));
+      turn_wait<T::kPingPong>(wg);
+      fence_acc(s);
+      wgmma_fence();
+      issue_qk<D>(s, q_addr, s_k + ks * T::kKVBytes);
+      wgmma_commit();
+      rescale(o, alpha);
+      mbar_wait(smem_addr(&v_full[vs]), parity_of(t - 1));
+      fence_acc(o);
+      wgmma_fence();
+      issue_pv<D>(o, p, s_v + vs * T::kKVBytes);
+      wgmma_commit();
+      turn_pass<T::kPingPong>(wg);
+      wgmma_wait<1>();   // QK^T is done, PV may still run
+      fence_acc(s);
+      if (lane == 0) mbar_arrive(smem_addr(&k_empty[ks]));
+      if (needs_mask(t * kBK))
+        mask_scores<kBK>(s, row, t * kBK + col, seq_len, causal, window);
+      online_softmax<kBK>(s, m, l, alpha, scale_log2);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_frag(p);
+      if (lane == 0) mbar_arrive(smem_addr(&v_empty[vs]));
+      to_bf16<kBK>(s, p);
+    }
+    {
+      const int vs = stage_of(hi - 1);
+      rescale(o, alpha);
+      mbar_wait(smem_addr(&v_full[vs]), parity_of(hi - 1));
+      turn_wait<T::kPingPong>(wg);
+      fence_acc(o);
+      wgmma_fence();
+      issue_pv<D>(o, p, s_v + vs * T::kKVBytes);
+      wgmma_commit();
+      turn_pass<T::kPingPong>(wg);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_frag(p);
+      if (lane == 0) mbar_arrive(smem_addr(&v_empty[vs]));
+    }
+    for (int t = hi; t < t_hi; ++t) pass(t);
+
+    // Epilogue: O / l in bf16 into this warpgroup's rows of the Q buffer,
+    // laid out as the TMA store reads it (64 x 64 boxes, 128-byte swizzle:
+    // column 8j is 16-byte chunk j % 8 of its row in box j / 8, moved to
+    // chunk (j % 8) ^ (row % 8)), then one TMA store a box.
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = l[r] == 0.f ? 1.f : 1.f / l[r];  // the l == 0 guard
+    }
+    warpgroup_sync(1 + wg);   // every warp's products are done with Q
+    unsigned char* q_ptr = smem_raw + (q_wg - smem_addr(smem_raw));
+    const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rr = r0 + 8 * half;
+#pragma unroll
+      for (int j = 0; j < T::kDPad / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(
+            q_ptr + (j / 8) * T::kQBox + rr * 128 + (((j % 8) ^ (rr % 8)) * 16) +
+            (lane % 4) * 4) =
+            __floats2bfloat162_rn(o[4 * j + 2 * half] * inv[half],
+                                  o[4 * j + 2 * half + 1] * inv[half]);
+    }
+    fence_async_shared();
+    warpgroup_sync(1 + wg);
+    if (tid % 128 == 0 && q0 < seq_len) {
+      for (int c = 0; c < kChunks && c * kChunk < D; ++c)
+        tma_store_4d(&map_o, q_wg + c * T::kQBox, c * kChunk, h, q0, b);
+      bulk_commit();
+      bulk_wait();   // the buffer outlives the stores
+    }
+  }
+}
+
+// Per device: whether each instantiation's shared-memory limit is raised.
+constexpr int kMaxDevices = 64;
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int seq_len, int hq, int hkv, int causal, int window,
            cudaStream_t stream) {
-  const int smem = (kBlockQ + 2 * kBlockK) * (D + 8) * sizeof(bf16);
-  static bool smem_raised = false;
-  if (!smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_fwd_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using T = Tiles<D>;
+  static bool raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(flash_attention_fwd_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::kSmem);
     if (err != cudaSuccess) return err;
-    smem_raised = true;
+    raised[dev] = true;
   }
+  // (D, H, S, B), innermost first; boxes of 64 columns x 1 head x rows.
+  const auto dims = [&](int heads) {
+    return std::array<cuuint64_t, 4>{static_cast<cuuint64_t>(D),
+                                     static_cast<cuuint64_t>(heads),
+                                     static_cast<cuuint64_t>(seq_len),
+                                     static_cast<cuuint64_t>(batch)};
+  };
+  const auto strides = [&](int heads) {
+    const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
+    return std::array<cuuint64_t, 3>{static_cast<cuuint64_t>(D) * 2, row,
+                                     row * seq_len};
+  };
+  const auto q_dims = dims(hq), kv_dims = dims(hkv);
+  const auto q_strides = strides(hq), kv_strides = strides(hkv);
+  const cuuint32_t q_box[4] = {kChunk, 1, kRowsWG, 1};
+  const cuuint32_t kv_box[4] = {kChunk, 1, T::kBK, 1};
+  CUtensorMap map_q, map_k, map_v, map_o;
+  if (!encode(&map_q, q, 4, q_dims.data(), q_strides.data(), q_box) ||
+      !encode(&map_k, k, 4, kv_dims.data(), kv_strides.data(), kv_box) ||
+      !encode(&map_v, v, 4, kv_dims.data(), kv_strides.data(), kv_box) ||
+      !encode(&map_o, o, 4, q_dims.data(), q_strides.data(), q_box))
+    return cudaErrorInvalidValue;
   const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, hq, batch);
+  // (batch, head) pairs a section: whole KV groups whose K and V take at
+  // most kL2Budget bytes, the pairs spread evenly over the sections (a
+  // small last section would leave SMs idle at the end)
+  const long long pairs = static_cast<long long>(hq) * batch;
+  const long long kv_bytes = 2LL * seq_len * D * 2;
+  const long long group = hq / hkv;
+  const long long most = std::max(1LL, kL2Budget / kv_bytes) * group;
+  const long long sections = (pairs + most - 1) / most;
+  const int section = static_cast<int>(
+      ((pairs + sections - 1) / sections + group - 1) / group * group);
   const float scale_log2 = rsqrtf(static_cast<float>(D)) * 1.4426950408889634f;
-  flash_attention_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), seq_len, hq, hkv,
-      causal, window, scale_log2);
+  flash_attention_fwd_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(
+      map_q, map_k, map_v, map_o, seq_len, hq, hkv, causal, window, section,
+      scale_log2);
   return cudaGetLastError();
 }
 
@@ -341,8 +768,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 extern "C" {
 
 // q, o: (B, S, Hq, D); k, v: (B, S, Hkv, D); all contiguous bf16 on one
-// device.  Returns the launch's cudaError_t (0 on success).  The head dims
-// compiled here are HEAD_DIMS in repro_torch/kernels/flash_attention.py.
+// device, 16-byte aligned.  Returns the launch's cudaError_t (0 on
+// success).  The head dims compiled here are HEAD_DIMS in
+// repro_torch/kernels/flash_attention.py.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int batch, int seq_len, int hq, int hkv, int head_dim,
                         int causal, int window, void* stream) {
@@ -352,6 +780,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   switch (head_dim) {
     case 16: return launch<16>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
     case 32: return launch<32>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
+    case 64: return launch<64>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
     case 80: return launch<80>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
     case 128: return launch<128>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
     case 256: return launch<256>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);

@@ -2,8 +2,12 @@
 
 Port of the TPU kernel ``repro.kernels.flash_attention`` and its padding
 wrapper ``repro.kernels.ops.flash_attention``.  The kernel is
-``csrc/flash_attention.cu`` (CUDA C++ for sm_90a; its header says what
-bounds it and how it is built).
+``csrc/flash_attention.cu``, CUDA C++ for sm_90a: a block of three
+warpgroups serves 128 query rows of one (batch, head); one warpgroup
+issues TMA loads of Q and of a 2-stage K/V ring, two multiply with wgmma
+(QK^T from shared memory, PV with P from registers) and run the online
+softmax between the products.  Its header says what bounds it, how it is
+built and what the design does about it.
 
 * A CPU tensor goes to :func:`flash_attention_plain`, a dense masked
   softmax in fp32 (the oracle ``ref.flash_attention_ref``).
@@ -26,8 +30,8 @@ from . import _build
 from .ref import flash_attention_ref
 
 #: head dims the CUDA source is compiled for (its ``switch`` in
-#: ``flash_attention_fwd``); 16 is the MoE smoke configs'
-HEAD_DIMS = (16, 32, 80, 128, 256)
+#: ``flash_attention_fwd``); 16 is the MoE smoke configs', 64 hymba-1.5b's
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 #: kernel launches since the last reset; the wrapper adds one per launch
 launches = 0
@@ -37,14 +41,18 @@ launches = 0
 flash_attention_plain = flash_attention_ref
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.library("flash_attention")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C entry point of a loaded build of ``flash_attention.cu``."""
     # pointers and the stream as c_void_p, or ctypes cuts them to 32 bits
     lib.flash_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.flash_attention_fwd.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(_build.library("flash_attention"))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -28,6 +28,13 @@ def test_mask_pairs_counts_the_allowed_pairs(s, causal, window):
     assert cs.mask_pairs(s, causal, window) == int(allowed.sum())
 
 
+def test_fa_cases_cover_every_head_dim():
+    """The card script holds the kernel against its plain version at every
+    head dim it is compiled for."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert {case[5] for case in cs.FA_CASES} >= set(HEAD_DIMS)
+
+
 def test_gemma3_prefill_bound():
     """B 4, S 2048, Hq 4, Hkv 1, D 256: each layer is bound by operations."""
     ops, nbytes = cs.attention_floor_ms(4, 2048, 4, 1, 256, True, 0)

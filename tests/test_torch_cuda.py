@@ -29,9 +29,10 @@ def _qkv(dev, b, s, hq, hkv, d, seed=0):
 
 @pytest.mark.parametrize("s,hq,hkv,d", [
     (128, 4, 4, 32), (130, 4, 2, 128), (64, 8, 1, 80), (200, 4, 1, 128),
-    (1, 2, 1, 256), (257, 4, 1, 256), (72, 4, 4, 16)])
+    (1, 2, 1, 256), (257, 4, 1, 256), (72, 4, 4, 16), (1000, 25, 5, 64),
+    (1000, 4, 1, 256)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0),
-                                           (False, 48)])
+                                           (False, 48), (True, 16)])
 def test_kernel_matches_plain(dev, s, hq, hkv, d, causal, window):
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _qkv(dev, 2, s, hq, hkv, d)
@@ -41,6 +42,18 @@ def test_kernel_matches_plain(dev, s, hq, hkv, d, causal, window):
     assert fa.launches == before + 1
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_kernel_is_deterministic(dev):
+    """No atomics and no split over keys: two launches on the same inputs
+    give the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    for d, window in ((256, 512), (128, 0), (64, 16)):
+        q, k, v = _qkv(dev, 2, 1000, 8, 2, d)
+        first = fa.flash_attention(q, k, v, window=window)
+        second = fa.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):

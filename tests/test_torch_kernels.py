@@ -37,6 +37,7 @@ def _inputs(s, hq, hkv, d, dtype, b=2):
     (64, 2, 2, 16),      # MHA
     (64, 4, 2, 32),      # GQA 2
     (64, 4, 1, 80),      # MQA (group 4), head dim 80
+    (64, 5, 1, 64),      # group 5 (hymba-1.5b's), head dim 64
     (50, 4, 1, 32),      # ragged S: not a multiple of the block
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -85,3 +86,11 @@ def test_gmm_bind_declares_the_c_entry_point():
     assert lib.grouped_matmul.argtypes == (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     assert lib.grouped_matmul.restype is ctypes.c_int
+
+
+def test_fa_bind_declares_the_c_entry_point():
+    lib = types.SimpleNamespace(flash_attention_fwd=types.SimpleNamespace())
+    assert fa.bind(lib) is lib
+    assert lib.flash_attention_fwd.argtypes == (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    assert lib.flash_attention_fwd.restype is ctypes.c_int

@@ -20,12 +20,15 @@ then for each path in turn (gemma3-1b, mamba2-780m, olmoe-1b-7b):
 
 3. kernels against their plain versions at the path's shapes (gemma3-1b
    prefill plus h2o-danube, deepseek and hymba head dims; mamba2-780m prefill
-   plus hymba-1.5b's SSD shape, G > 1, S < chunk and an initial state;
+   plus hymba-1.5b's SSD shape, G > 1, S < chunk, an initial state, a chunk
+   of 96 (partial row tiles) and 256 chunks a chain (the state hand-off);
    olmoe-1b-7b prefill and decode plus qwen2-moe-a2.7b's expert shapes and
    edge cases of the group sizes, and olmoe-1b-7b's attention, its 16
    calls of a prefill), with the kernel's, the plain version's and (for
    attention and the grouped GEMM) one PyTorch call's times and the card's
-   bound for the same work, and at decode the grouped GEMM wrapper's host
+   bound for the same work (for the SSD kernels also their own device
+   time by the profiler, ``kernel_ms``: the wrappers' host time a call can
+   exceed ssd_chunk_state's), and at decode the grouped GEMM wrapper's host
    time a call; the error is gated both absolutely and relative to each
    output row's (attention, grouped GEMM) or each (batch, head)'s (SSD)
    largest element; then the kernels' calls of one prefill, timed
@@ -191,7 +194,7 @@ def ptxas_flags(log: str) -> list[str]:
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if (spills and any(int(n) for n in spills.groups())
                 or "C7508" in line or "setmaxnreg ignored" in line
-                or "Potential Performance Loss" in line):
+                or "C7518" in line or "Potential Performance Loss" in line):
             flags.append(line.strip())
     return flags
 
@@ -208,6 +211,23 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, match: str, iters: int = 10) -> float:
+    """Mean device time in ms, per call of ``fn``, of the kernels whose
+    names contain ``match``, from the profiler's kernel intervals: unlike
+    CUDA events around a loop, it leaves out the time the card waits for
+    the host between launches (a wrapper's host time can exceed a short
+    kernel's device time)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
+    return us / iters / 1e3
 
 
 def mask_pairs(s: int, causal: bool, window: int) -> int:
@@ -771,6 +791,10 @@ def mamba2_path(dev, card) -> list[dict]:
         ("G 4, N 64", 2, 1024, 16, 64, 4, 64, 256, False),
         ("S 100 < chunk", 4, 100, h, p, g, n, chunk, False),
         ("initial state", 2, 512, h, p, g, n, chunk, True),
+        # Q not a multiple of 64 over several chunks: partial row tiles
+        ("S 480, chunk 96", 2, 480, h, p, g, n, 96, True),
+        # the hand-off under stress: 96 chains of 256 chunks, 24,576 blocks
+        ("hand-off, 256 chunks", 2, 16384, h, p, g, n, 64, False),
     ]
     max_err = {"ssd_chunk_state": 0.0, "ssd_chunk_scan": 0.0}
     for name, b, s, hh, pp, gg, nn, ch, init in cases:
@@ -844,6 +868,11 @@ def mamba2_path(dev, card) -> list[dict]:
                                            cfg.n_layers * bytes_ms)
         mix[part] = {
             "ms": time_ms(lambda: [kernel() for _ in layers], 10),
+            # the kernels' own device time: the wrappers' host time a call
+            # (~60-100 us) can exceed ssd_chunk_state's, and then ``ms``
+            # counts the card waiting for the host
+            "kernel_ms": kernel_ms(lambda: [kernel() for _ in layers],
+                                   "ssd_" + part if part != "function" else "ssd_chunk", 3),
             "plain_ms": time_ms(lambda: [plain() for _ in layers], 2, 1),
             "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
             "library_ms": None,

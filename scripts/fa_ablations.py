@@ -79,42 +79,52 @@ ABLATIONS = {
 }
 
 
-def ablated(name: str) -> Path:
-    """A copy of this tree's csrc/ with the ablation's edits; raises if an
-    edit's text is not in the source."""
-    csrc = OUT / name
+def ablated(name: str, source: str = "flash_attention.cu",
+            ablations: dict = ABLATIONS, out: Path = OUT) -> Path:
+    """A copy of this tree's csrc/ under ``out`` with ablation ``name``'s
+    edits of ``source``, the other sources left out; raises if an edit's
+    text is not in the source."""
+    csrc = out / name
     if csrc.exists():
         shutil.rmtree(csrc)
     shutil.copytree(_build.CSRC, csrc)
-    src = csrc / "flash_attention.cu"
+    src = csrc / source
     text = src.read_text()
-    for old, new in ABLATIONS[name][1]:
+    for old, new in ablations[name][1]:
         if old not in text:
-            raise ValueError(f"ablation {name}: text not in flash_attention.cu:\n{old}")
+            raise ValueError(f"ablation {name}: text not in {source}:\n{old}")
         text = text.replace(old, new)
     src.write_text(text)
     for other in csrc.glob("*.cu"):   # build only the kernel under test
-        if other.name != "flash_attention.cu":
+        if other.name != source:
             other.unlink()
     return csrc
 
 
+def builds(names: list[str], module, source: str = "flash_attention.cu",
+           ablations: dict = ABLATIONS, out: Path = OUT) -> dict:
+    """This tree's build of ``source`` and one per ablation in ``names``,
+    each bound by ``module.bind``; emits each ablation's ptxas flags."""
+    unknown = [n for n in names if n not in ablations]
+    if unknown:
+        raise SystemExit(f"unknown ablations {unknown}; known: {list(ablations)}")
+    stem = source.removesuffix(".cu")
+    libs = {"this": module.bind(_build.library(stem))}
+    for name in names:
+        csrc = ablated(name, source, ablations, out)
+        _build.build_log.pop(source, None)
+        libs[name] = module.bind(_build.library(stem, csrc))
+        cs.emit("build", build=name, shows=ablations[name][0],
+                flags=cs.ptxas_flags(_build.build_log.get(source, "")))
+    return libs
+
+
 def main() -> None:
     names = sys.argv[1:] or list(ABLATIONS)
-    unknown = [n for n in names if n not in ABLATIONS]
-    if unknown:
-        raise SystemExit(f"fa_ablations: unknown {unknown}; known: {list(ABLATIONS)}")
     if not torch.cuda.is_available():
         raise SystemExit("fa_ablations: no CUDA device")
     dev = torch.device("cuda")
-    libs = {"this": flash_attention.bind(_build.library("flash_attention"))}
-    for name in names:
-        csrc = ablated(name)
-        _build.build_log.pop("flash_attention.cu", None)
-        libs[name] = flash_attention.bind(_build.library("flash_attention", csrc))
-        log = _build.build_log.get("flash_attention.cu", "")
-        cs.emit("build", build=name, shows=ABLATIONS[name][0],
-                flags=cs.ptxas_flags(log))
+    libs = builds(names, flash_attention)
     cases = ka.fa_shapes() + [
         ("deepseek-7b bidirectional", 4, 2048, 32, 32, 128, False, [0]),
         ("gemma3-1b bidirectional", 4, 2048, 4, 1, 256, False, [0]),

@@ -4,15 +4,17 @@ card, in one process.
 
     python3 scripts/kernel_against.py gmm OTHER_CSRC [--serve-pairs N]
     python3 scripts/kernel_against.py fa OTHER_CSRC [--prefill-pairs N]
+    python3 scripts/kernel_against.py ssd OTHER_CSRC [--prefill-pairs N]
 
 Run from the repository root.  ``OTHER_CSRC`` is another tree's
 ``src/repro_torch/kernels/csrc`` (e.g. an older commit unpacked under
 ``build/``), whose source of the kernel (``moe_gmm.cu`` for ``gmm``,
-``flash_attention.cu`` for ``fa``) has the same C entry point.  Both are built
-and loaded by ``repro_torch.kernels._build`` and every call goes through the
-port's wrapper (``moe_gmm.grouped_matmul``, ``flash_attention.flash_attention``),
-pointed at one build or the other in turns.  Prints each build's ptxas lines,
-then for ``gmm``:
+``flash_attention.cu`` for ``fa``, ``ssd_scan.cu`` for ``ssd``) has the same C
+entry points.  Both are built and loaded by ``repro_torch.kernels._build`` and
+every call goes through the port's wrapper (``moe_gmm.grouped_matmul``,
+``flash_attention.flash_attention``, ``ssd_scan.chunk_state`` and
+``chunk_scan``), pointed at one build or the other in turns.  Prints each
+build's ptxas lines, then for ``gmm``:
 
 * at olmoe-1b-7b's prefill and decode shapes and qwen2-moe-a2.7b's, each
   build's error against the plain version (``chip_smoke.gmm_errors``) and
@@ -40,6 +42,23 @@ and for ``fa``:
   olmoe-1b-7b with each build, the order alternating, after one uncounted
   pair: one JSON line a run, then each build's medians;
 
+and for ``ssd``:
+
+* at mamba2-780m's prefill shape, hymba-1.5b's (H 50, N 16) and a G 4,
+  N 64 one, each build's error against the plain versions (prev, the final
+  state and y: max |err| and the largest error relative to its (batch,
+  head)'s largest element, ``chip_smoke.slab_rel_err``) and the times of
+  ``chunk_state`` and ``chunk_scan`` in turns (``ms`` by CUDA events around
+  20 calls; ``kernel_ms``, the kernel's own device time by the profiler,
+  ``chip_smoke.kernel_ms``), beside the plain versions' times and each
+  kernel's bound (``chip_smoke.ssd_floor_ms``), and the
+  first build's host µs a call (``chip_smoke.host_us``: where it nears the
+  device time, the timing is the host's); both builds' ``chunk_scan`` read
+  the plain version's prev: one JSON line a case;
+* with ``--prefill-pairs N`` (default 5), N pairs of full-width
+  mamba2-780m prefills (median of 3) with each build, the order
+  alternating, after one uncounted pair;
+
 then the card's name and power limit.
 """
 from __future__ import annotations
@@ -58,9 +77,11 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, moe_gmm  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
 
 #: kernel argument -> (wrapper module, source name)
-KERNELS = {"gmm": (moe_gmm, "moe_gmm"), "fa": (flash_attention, "flash_attention")}
+KERNELS = {"gmm": (moe_gmm, "moe_gmm"), "fa": (flash_attention, "flash_attention"),
+           "ssd": (ssd_scan, "ssd_scan")}
 
 
 @contextlib.contextmanager
@@ -203,14 +224,75 @@ def fa_cases(libs: dict, dev, cases: list[tuple] | None = None) -> None:
         del q, k, v, sdpa
 
 
-def prefill_pairs(libs: dict, dev, pairs: int) -> None:
+#: the SSD cases: name, B, S, H, P, G, N, chunk
+SSD_SHAPES = [
+    ("mamba2-780m prefill", 4, 2048, 48, 64, 1, 128, 256),
+    ("hymba-1.5b SSD", 4, 2048, 50, 64, 1, 16, 256),
+    ("G 4, N 64", 2, 1024, 16, 64, 4, 64, 256),
+]
+
+
+def ssd_cases(libs: dict, dev) -> None:
+    """Each build in ``libs`` at each of :data:`SSD_SHAPES`: errors, then
+    each kernel's times in turns (the builds in order, then in reverse)."""
+    kssd = ssd_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    turns = (*libs, *reversed(libs))
+    for name, b, s, h, p, g, n, chunk in SSD_SHAPES:
+        x, la, bm, cm, _ = cs.ssd_inputs(gen, dev, b, s, h, p, g, n, False)
+        q = min(chunk, s)
+        want_prev, want_final = kssd.chunk_state_plain(x, la, bm, q)
+        want_y = kssd.chunk_scan_plain(x, la, bm, cm, want_prev, q)
+        errs = {}
+        for ver, lib in libs.items():
+            with using(kssd, lib):
+                prev, final = kssd.chunk_state(x, la, bm, chunk=chunk)
+                y = kssd.chunk_scan(x, la, bm, cm, want_prev, chunk=chunk)
+            torch.cuda.synchronize()
+            errs[ver] = {
+                what: {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                       "max_bh_rel_err": cs.slab_rel_err(got, want, keep)}
+                for what, got, want, keep in (
+                    ("prev", prev, want_prev, (0, 1)),
+                    ("final", final, want_final, (0, 1)),
+                    ("y", y, want_y, (0, 2)))}
+            del prev, final, y
+        calls = {"chunk_state": lambda: kssd.chunk_state(x, la, bm, chunk=chunk),
+                 "chunk_scan": lambda: kssd.chunk_scan(x, la, bm, cm, want_prev,
+                                                       chunk=chunk)}
+        plain = {"chunk_state": lambda: kssd.chunk_state_plain(x, la, bm, q),
+                 "chunk_scan": lambda: kssd.chunk_scan_plain(x, la, bm, cm,
+                                                             want_prev, q)}
+        out = {}
+        for part, call in calls.items():
+            times = {ver: [] for ver in libs}
+            kernel = {ver: [] for ver in libs}
+            for ver in turns:
+                with using(kssd, libs[ver]):
+                    times[ver].append(cs.time_ms(call, 20))
+                    kernel[ver].append(cs.kernel_ms(call, f"ssd_{part}"))
+            bound_ms, bound_by = cs.bound(*cs.ssd_floor_ms(b, s, h, p, g, n, chunk, part))
+            with using(kssd, libs[turns[0]]):
+                host = cs.host_us(call)
+            out[part] = {"ms": times, "kernel_ms": kernel,
+                         "plain_ms": cs.time_ms(plain[part], 3, 1),
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         f"host_us_{turns[0]}": host}
+        cs.emit("ssd_against", case=name, shape=[b, s, h, p, g, n, q], errors=errs,
+                **out)
+        del x, la, bm, cm, want_prev, want_final, want_y
+
+
+def prefill_pairs(libs: dict, dev, pairs: int, module=flash_attention,
+                  archs=("gemma3-1b", "olmoe-1b-7b")) -> None:
     from repro_torch.configs import get
     from repro_torch.models import Model, compute_copy, synthetic_batch
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     models = {}
-    for arch in ("gemma3-1b", "olmoe-1b-7b"):
+    for arch in archs:
         cfg = get(arch)
         model = Model(cfg, dev)
         models[arch] = (model, compute_copy(cfg, model.init(seed=0)),
@@ -220,7 +302,7 @@ def prefill_pairs(libs: dict, dev, pairs: int) -> None:
     for i in range(-1, pairs):   # pair -1 warms both builds up: not counted
         for ver in (list(libs) if i % 2 == 0 else list(reversed(libs))):
             run = {}
-            with using(flash_attention, libs[ver]), torch.inference_mode():
+            with using(module, libs[ver]), torch.inference_mode():
                 for arch, (model, params, batch) in models.items():
                     times = []
                     for _ in range(3):
@@ -244,7 +326,7 @@ def main() -> None:
     ap.add_argument("other_csrc", type=Path,
                     help="another tree's src/repro_torch/kernels/csrc")
     ap.add_argument("--serve-pairs", type=int, default=10, help="gmm only")
-    ap.add_argument("--prefill-pairs", type=int, default=5, help="fa only")
+    ap.add_argument("--prefill-pairs", type=int, default=5, help="fa and ssd")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_against: no CUDA device")
@@ -262,10 +344,14 @@ def main() -> None:
         gmm_cases(libs, dev)
         if args.serve_pairs:
             serve_pairs(libs, dev, args.serve_pairs)
-    else:
+    elif args.kernel == "fa":
         fa_cases(libs, dev)
         if args.prefill_pairs:
             prefill_pairs(libs, dev, args.prefill_pairs)
+    else:
+        ssd_cases(libs, dev)
+        if args.prefill_pairs:
+            prefill_pairs(libs, dev, args.prefill_pairs, ssd_scan, ("mamba2-780m",))
     print(cs.nvidia_smi(), flush=True)
 
 

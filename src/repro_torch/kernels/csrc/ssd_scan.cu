@@ -15,126 +15,173 @@
 //
 // B and C of group h / (H / G) serve head h; nothing is repeated to H heads.
 //
-// Two kernels, split where the work changes its shape:
-// * ssd_chunk_state: one block per (c, h, b) computes state_c with the
-//   tensor cores (mma.sync m16n8k16, bf16 operands, fp32 sums) into an
-//   fp32 (B, H, C, P, N) buffer, and exp(total_c) into a (B, H, C) one.
-//   The last block of each (b, h) to finish (an atomic count per (b, h))
-//   then passes the states along the chunks, in place, so the buffer ends
-//   up holding prev_c, and writes the final state.  It is the state half
-//   of _intra_kernel and the host scan.
-// * ssd_chunk_scan: one block per (64-row tile, c, (b, h)) computes its 64
-//   rows of y: the inter-chunk term C . prev_c^T, then the intra-chunk term
-//   tile by tile as in flash attention (S = C B^T masked by the decay, then
-//   S X), the next B and x tiles loading while the current one is used.
-//   y_intra never leaves the chip: it is the Y half of _intra_kernel fused
-//   with _inter_kernel.
-//
 // What bounds it on an H100: at the mamba2-780m prefill shape (B 4, S 2048,
 // H 48, P 64, N 128, Q 256) the function must move ~110 MB (x and y in
 // bf16, B, C, log_a, the final state) and do ~20 GFLOP, so it is bound by
-// bytes (~33 us).  This design moves about 2.4x that: x is read by both
-// kernels, and the fp32 chunk states are written, passed and read once.
-// The Pallas design's fp32 y_intra round trip (~200 MB) is gone.
+// bytes (~33 us).  Split in two kernels it also writes and reads the fp32
+// states (50 MB each way), and each kernel alone is bound by bytes too:
+// ssd_chunk_state by x and the states (~32 us), ssd_chunk_scan by x, y and
+// the states (~47 us), the latter with as many tensor-core operations
+// (~45 GFLOP with the hi + lo halves below, ~46 us at peak).  So both must
+// stream their bytes at the memory's rate, with the tensor cores busy under
+// the loads: TMA and wgmma.
+//
+// Two kernels, split where the work changes its shape:
+// * ssd_chunk_state: one block of one warpgroup per (b, h, c) computes
+//   state_c = (x o w)^T B by wgmma m64nNk16, w_j = exp(total - cum_j), and
+//   hands the states along the chunks.  Thread 0 issues TMA loads of the
+//   chunk's 64-row tiles of x and B into a 2-stage mbarrier ring (49 KB at
+//   N 128), so three blocks share an SM and hide each other's latencies
+//   (the ticket, the first loads, the hand-off).  A is (x o w)^T from
+//   registers: ldmatrix.trans of the x tile, scaled, split into bf16 hi +
+//   lo, two wgmmas; B is read N-major from shared memory through the
+//   transpose flag.  P 16 is padded to the 64 rows of a wgmma by the x
+//   map's zero fill, N 16 to 64 columns by the B map's.
+// * The state pass is a chained hand-off (a decoupled look-back over the
+//   chunks).  Each block takes its (b, h, c) from an atomic ticket, chunk
+//   by chunk, so the block of chunk c - 1 took an earlier ticket and has
+//   started before the block of chunk c can wait on it: no schedule of the
+//   blocks can deadlock.  Block c computes state_c, then waits on chunk c's
+//   flag (thread 0, ld.acquire.gpu, then a block barrier), reads prev_c
+//   past L1 (written by another SM; L2 should still hold it), writes
+//   prev_c+1 = prev_c exp(total_c) + state_c past L1, every thread fences
+//   its stores (__threadfence), and thread 0 raises flag c + 1
+//   (st.release.gpu after a block barrier); the block of chunk 0 writes
+//   prev_0 and the last chunk's writes the final state.  The state goes
+//   through shared memory first, so that prev is read and written in
+//   coalesced float4s.  Each prev
+//   is written once and read once; no sum uses atomics, so the result is
+//   the same bits every run.
+// * ssd_chunk_scan: one block per (b, c, h), heads fastest, so the blocks
+//   that run together share one chunk of B and C in L2.  Three warpgroups:
+//   one loads (one thread issues TMA loads of every tile of the chunk's C,
+//   B and x, each tile on its own mbarrier, while the warpgroup computes
+//   cum, then converts prev_c, read once with every load in flight, into
+//   bf16 hi and lo tiles in shared memory, K-major); two consumers each own
+//   64-row tiles of y, paired long with short (tiles w and T - 1 - w) so
+//   that both do the same work.  A row tile t runs, for each key tile
+//   u <= t: S = C_t . B_u^T by wgmma from shared memory, the decay masked
+//   before the exponent in registers, S split into bf16 hi + lo A
+//   fragments in registers, y += S x_u by wgmma with x read N-major (the
+//   transpose flag): the scores never touch shared memory.  As in flash
+//   attention, tile u's scores and tile u - 1's S x are issued together
+//   and tile u's decay runs while S x is on the tensor cores.  Then the
+//   inter-chunk term C_t . prev^T by wgmma from shared memory (hi, then
+//   lo; prev_c's conversion has run under the intra-chunk term), its rows
+//   scaled by exp(cum_i) into y.  y is rounded to bf16 into the row tile's
+//   dead C buffer and stored by TMA, which clips rows past Q and columns
+//   past P.  At 193 KB of shared memory (Q 256, N 128) one block fills an
+//   SM.
+//
+// Tiles arrive through 5-D tensor maps with a chunk dimension, x and y as
+// (P, H, Q, C, B), B and C as (N, G, Q, C, B), 64 x 64 boxes with the
+// 128-byte swizzle: a box never runs into the next chunk, rows past Q come
+// in as zeros, and every stride is read in place (B and C are views into the
+// conv output).
 //
 // Precision.  C . B^T multiplies bf16 inputs, exact in fp32 sums.  The three
 // products whose left operand is fp32 in the reference (scores * decay,
 // x * exp(total - cum), and the state prev) split that operand into two
-// bf16 parts, hi = bf16(v) and lo = bf16(v - hi), and run one mma on each:
-// about 16 bits of mantissa instead of bf16's 8, at twice the tensor-core
-// work, which is not what bounds this function.
+// bf16 parts, hi = bf16(v) and lo = bf16(v - hi), and run one product on
+// each: about 16 bits of mantissa instead of bf16's 8, at twice the
+// tensor-core work.
 //
-// The decay is masked before the exponent: exp(cum_i - cum_j) is evaluated
-// only where j <= i (and j < Q), since the masked entries have positive
-// exponents and overflow.
+// The decay is masked before the exponent: the masked entries (j > i or
+// j >= Q) have positive exponents and would overflow, so their exponents
+// are -inf and their decay 0.  In chunk_scan the exponential is __expf
+// (decay_scores), relative error ~2^-22.
 //
-// Any Q <= 256 is taken: rows past Q are zero-filled by cp.async and masked.
-// Left for later: wgmma and TMA, and one fused kernel that keeps x on chip
-// between the two passes.
+// Any Q <= 256 is taken (rows past Q are zero-filled by the maps and
+// masked), any (P, N) of SSD_DISPATCH.
+//
+// What still holds them back (PERF.md; scripts/ssd_ablations.py): at the
+// mamba2 shape ssd_chunk_state runs at ~53% of its bound and
+// ssd_chunk_scan at ~30%.  Without its intra-chunk products the scan still
+// takes ~55% of its time: one block fills an SM, so a block's first loads,
+// cum, prev_c's conversion and epilogue are hidden under no other block's
+// products.  Left for later: a persistent scan that loads the next
+// (b, c, h) under this one's products, one fused kernel that keeps x on
+// chip between the two passes, and C . B^T computed once for the heads of
+// a group.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/_build.py).  Plain C
-// interface, loaded with ctypes; the kernels allocate nothing.
+// interface, loaded with ctypes; the kernels allocate nothing.  The tensor
+// maps are encoded on the host for every call (hopper.cuh).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int kTile = 64;  // rows per tile: 16 per warp
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxChunk = 2 * kThreads;  // chunk_cumsum: two rows a thread
+constexpr int kTile = 64;            // rows of a tile: one wgmma's M
+constexpr int kBox = kTile * 128;    // bytes of a 64 x 64 bf16 box
+constexpr int kMaxChunk = 256;       // Q: two rows a thread in chunk_cumsum
+constexpr int kMaxTiles = kMaxChunk / kTile;
+constexpr int kStateThreads = 128;   // ssd_chunk_state: one warpgroup,
+constexpr int kStateStages = 2;      // a 2-stage ring of x and B tiles,
+constexpr int kStateBlocks = 3;      // three blocks an SM (4: spills)
+constexpr int kConsumers = 2;        // ssd_chunk_scan: consumer warpgroups
+constexpr int kScanThreads = (kConsumers + 1) * 128;
+constexpr int kLoaderBar = 3;        // named barrier of the loading warpgroup
 
-struct Params {
-  const bf16* x;            // (B, S, H, P), strides x_s*
-  const float* la;          // (B, S, H), strides la_s*
-  const bf16* b;            // (B, S, G, N), strides b_s*
-  const bf16* c;            // (B, S, G, N), strides c_s*
-  float* states;            // (B, H, C, P, N) contiguous
-  float* decay;             // (B, H, C) contiguous: exp(total_c)
-  const float* init;        // (B, H, P, N) contiguous, or null: zeros
-  int* counters;            // (B, H) zeros: chunk_state's finished blocks
-  bf16* y;                  // (B, S, H, P) contiguous
-  bf16* final_state;        // (B, H, P, N) contiguous
-  int batch, seq, heads, groups, q, n_chunks;
-  int64_t x_sb, x_ss, x_sh, la_sb, la_ss, la_sh;
-  int64_t b_sb, b_ss, b_sg, c_sb, c_ss, c_sg;
+// Head dim P and state dim N padded to the 64 columns of a box.
+template <int P, int N>
+struct Shape {
+  static_assert(P % 16 == 0 && P <= 64 && N % 16 == 0 && N <= 128, "dims");
+  static constexpr int kNPad = (N + 63) / 64 * 64;
+  static constexpr int kNBoxes = kNPad / 64;
+  // dynamic shared memory: the state kernel's ring, the scan kernel's
+  // `tiles` row tiles (+ 1024 to align the boxes on the swizzle's
+  // 1024-byte atoms)
+  static constexpr int state_smem() {
+    return kStateStages * (1 + kNBoxes) * kBox + 1024;
+  }
+  static constexpr int scan_smem(int tiles) {
+    return (tiles * (2 * kNBoxes + 1) + 2 * kNBoxes) * kBox + 1024;
+  }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; with valid == false nothing is read and the
-// 16 bytes of shared memory are zero-filled.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
+struct Params {
+  const float* la;          // (B, S, H), strides la_s*
+  const float* init;        // (B, H, P, N) contiguous, or null: zeros
+  float* states;            // (B, H, C, P, N) contiguous: prev_c
+  bf16* final_state;        // (B, H, P, N) contiguous
+  int* flags;               // (B, H, C) zeros: prev_c is written
+  int* ticket;              // zero: the next block's (b, h, c)
+  int batch, seq, heads, groups, q, n_chunks;
+  int64_t la_sb, la_ss, la_sh;
+};
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
+                                                  uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(addr));
 }
 
-// c += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
 }
 
 // (lo, hi) fp32 pair -> its bf16 part and the bf16 of the remainder.
@@ -142,38 +189,26 @@ __device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& big,
                                            uint32_t& small) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   const float2 hf = __bfloat1622float2(h);
-  big = as_u32(h);
-  small = as_u32(__floats2bfloat162_rn(lo - hf.x, hi - hf.y));
+  big = *reinterpret_cast<const uint32_t*>(&h);
+  small = pack_bf16(lo - hf.x, hi - hf.y);
 }
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
 }
 
-// Copies rows [row0, row0 + 64) of a (rows, COLS) view with row stride
-// `stride` (elements) into a shared tile with rows padded by 8 elements;
-// rows at or beyond n_rows are zero-filled.
-template <int COLS>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
-                                          int64_t stride, int row0,
-                                          int n_rows) {
-  constexpr int kChunks = COLS / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int ch = i % kChunks;
-    const int row = row0 + r;
-    const bool valid = row < n_rows;
-    cp_async_16(tile + r * (COLS + 8) + ch * 8,
-                src + (valid ? row * stride + ch * 8 : 0), valid);
-  }
+// Byte offset of the 16-byte chunk `ch` (8 bf16 columns) of row `row` in a
+// box of 128-byte rows with the 128-byte swizzle.
+__device__ __forceinline__ uint32_t swizzled(int row, int ch) {
+  return row * 128 + ((ch ^ (row % 8)) * 16);
 }
 
 // cum[r] = la[0] + ... + la[r] for r < q (inclusive, fp32); rows past q
 // count la = 0.  la is one head's column, `stride` floats between rows.
-// Two rows a thread, a shuffle scan over each warp, then the warps' totals.
+// Run by the 128 threads t of one warpgroup, two rows each (a shuffle scan
+// over each warp, then the warps' totals); `bar` is their named barrier.
 __device__ void chunk_cumsum(float* cum, float* warp_total, const float* la,
-                             int64_t stride, int q) {
-  const int t = threadIdx.x;
+                             int64_t stride, int q, int t, int bar) {
   const int lane = t % 32;
   const int warp = t / 32;
   const float v0 = 2 * t < q ? la[(2 * t) * stride] : 0.f;
@@ -187,370 +222,587 @@ __device__ void chunk_cumsum(float* cum, float* warp_total, const float* la,
   float excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.f;
   if (lane == 31) warp_total[warp] = incl;
-  __syncthreads();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
   float base = 0.f;
   for (int w = 0; w < warp; ++w) base += warp_total[w];
   cum[2 * t] = base + excl + v0;
   cum[2 * t + 1] = cum[2 * t] + v1;
-  __syncthreads();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 1: chunk states, then the state passing.  Grid (C, H, B); warp w
-// owns state rows p in [16w, 16w + 16) and all N columns:
-// state = (x * w)^T B over the chunk's rows, with w_j = exp(total - cum_j).
+// Kernel 1: chunk states and the chained hand-off.  One warpgroup a block;
+// warp w owns state rows p in [16w, 16w + 16), all N columns: accumulator
+// element 4j + r holds row 16w + lane / 4 (+ 8 for r >= 2), column
+// 8j + 2 (lane % 4) (+ 1 for odd r).  The chunk's 64-row tiles of x and B
+// go through a 2-stage ring (49 KB of shared memory at N 128), so three
+// blocks share an SM and hide each other's latencies: the ticket, the
+// first loads, the hand-off.
 // ---------------------------------------------------------------------------
 template <int P, int N>
-__global__ void __launch_bounds__(kThreads)
-    ssd_chunk_state_kernel(const Params prm) {
-  static_assert(P % 16 == 0 && N % 16 == 0 && P / 16 <= kWarps, "tile shape");
+__global__ void __launch_bounds__(kStateThreads, kStateBlocks)
+    ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap map_x,
+                           const __grid_constant__ CUtensorMap map_b,
+                           const Params prm) {
+  using S = Shape<P, N>;
+  constexpr int kNB = S::kNBoxes;
+  constexpr int kStage = (1 + kNB) * kBox;   // x, then B's boxes
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kStateStages];
   __shared__ float weight[kMaxChunk];
-  __shared__ float warp_total[kWarps];
-  __shared__ bool is_last;
-  __shared__ __align__(16) bf16 s_x[kTile * (P + 8)];
-  __shared__ __align__(16) bf16 s_b[kTile * (N + 8)];
-
-  const int c = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (prm.heads / prm.groups);
+  __shared__ float warp_total[4];
+  __shared__ int s_ticket;
+  const uint32_t s_ring = (smem_addr(smem_raw) + 1023) & ~1023u;
   const int q = prm.q;
-  const int64_t bh = static_cast<int64_t>(b) * prm.heads + h;
-  const int64_t row0 = static_cast<int64_t>(c) * q;
-  const bf16* x = prm.x + b * prm.x_sb + row0 * prm.x_ss + h * prm.x_sh;
-  const bf16* bm = prm.b + b * prm.b_sb + row0 * prm.b_ss + g * prm.b_sg;
-  const float* la = prm.la + b * prm.la_sb + h * prm.la_sh;
+  const int tiles = (q + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
 
-  chunk_cumsum(weight, warp_total, la + row0 * prm.la_ss, prm.la_ss, q);
+  if (tid == 0) {
+    s_ticket = atomicAdd(prm.ticket, 1);
+    for (int st = 0; st < kStateStages; ++st) mbar_init(smem_addr(&full[st]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Tickets run chunk by chunk, the (b, h) pairs fastest.
+  const int pairs = prm.batch * prm.heads;
+  const int c = s_ticket / pairs;
+  const int bh = s_ticket % pairs;
+  const int b = bh / prm.heads;
+  const int h = bh % prm.heads;
+  const int g = h / (prm.heads / prm.groups);
+
+  // tile t of x and B into stage t % 2 (thread 0 only)
+  const auto load = [&](int t) {
+    const uint32_t bar = smem_addr(&full[t % kStateStages]);
+    const uint32_t dst = s_ring + (t % kStateStages) * kStage;
+    mbar_expect_tx(bar, kStage);
+    tma_load_5d(dst, &map_x, bar, 0, h, t * kTile, c, b);
+    for (int nb = 0; nb < kNB; ++nb)
+      tma_load_5d(dst + (1 + nb) * kBox, &map_b, bar, nb * 64, g, t * kTile, c, b);
+  };
+  if (tid == 0) {
+    for (int t = 0; t < tiles && t < kStateStages; ++t) load(t);
+  }
+
+  chunk_cumsum(weight, warp_total,
+               prm.la + b * prm.la_sb + static_cast<int64_t>(c) * q * prm.la_ss +
+                   h * prm.la_sh,
+               prm.la_ss, q, tid, 1);
   const float total = weight[q - 1];
-  if (threadIdx.x == 0)
-    prm.decay[bh * prm.n_chunks + c] = expf(total);
   __syncthreads();  // every thread has read total before it is overwritten
-  for (int j = threadIdx.x; j < kMaxChunk; j += kThreads)
+  for (int j = tid; j < kMaxChunk; j += kStateThreads)
     weight[j] = j < q ? expf(total - weight[j]) : 0.f;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const bool active = warp < P / 16;
-  float acc[N / 8][4];
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int j0 = 0; j0 < q; j0 += kTile) {
-    load_tile<P>(s_x, x, prm.x_ss, j0, q);
-    load_tile<N>(s_b, bm, prm.b_ss, j0, q);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    if (active) {
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        // A = x^T (rows p, k = j): transposed loads of the [j][p] tile
-        uint32_t a[4], a_hi[4], a_lo[4];
-        ldmatrix_x4_trans(a, s_x + (kk * 16 + (lane / 16) * 8 + lane % 8) * (P + 8) +
-                                 warp * 16 + ((lane / 8) % 2) * 8);
-        const int j = j0 + kk * 16 + 2 * (lane % 4);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int jr = j + (r / 2) * 8;  // registers 2, 3 hold k + 8
-          const float2 v = unpack_bf16(a[r]);
-          split_bf16(v.x * weight[jr], v.y * weight[jr + 1], a_hi[r], a_lo[r]);
-        }
-#pragma unroll
-        for (int nb = 0; nb < N / 16; ++nb) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, s_b + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) *
-                                          (N + 8) +
-                                    nb * 16 + (lane / 16) * 8);
-          mma_bf16(acc[2 * nb], a_hi, bv[0], bv[1]);
-          mma_bf16(acc[2 * nb], a_lo, bv[0], bv[1]);
-          mma_bf16(acc[2 * nb + 1], a_hi, bv[2], bv[3]);
-          mma_bf16(acc[2 * nb + 1], a_lo, bv[2], bv[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with the tiles
-  }
-
-  float* states = prm.states + bh * prm.n_chunks * P * N;
-  if (active) {
-    float* out = states + static_cast<int64_t>(c) * P * N;
-    const int p = warp * 16 + lane / 4;
-#pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      const int col = n * 8 + 2 * (lane % 4);
-      *reinterpret_cast<float2*>(out + p * N + col) = make_float2(acc[n][0], acc[n][1]);
-      *reinterpret_cast<float2*>(out + (p + 8) * N + col) =
-          make_float2(acc[n][2], acc[n][3]);
-    }
-  }
-
-  // The last block of this (b, h) to get here passes the states along the
-  // chunks (threadFenceReduction: publish, count, and the last one reads).
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    is_last = atomicAdd(prm.counters + bh, 1) == prm.n_chunks - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-
-  // states[c] <- prev_c in place; each thread owns the same float4s of
-  // every chunk's (P, N) state and carries their running value.
-  constexpr int kVec = (P * N + 4 * kThreads - 1) / (4 * kThreads);
-  float4 run[kVec];
-#pragma unroll
-  for (int v = 0; v < kVec; ++v) {
-    const int e = (v * kThreads + threadIdx.x) * 4;
-    run[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (prm.init && e < P * N)
-      run[v] = *reinterpret_cast<const float4*>(prm.init + bh * P * N + e);
-  }
-  for (int cc = 0; cc < prm.n_chunks; ++cc) {
-    float* st = states + static_cast<int64_t>(cc) * P * N;
-    // Other blocks' writes: loaded past L1.  All of a chunk's loads are
-    // issued before its first store, since each __stcg orders the memory
-    // accesses around it: one memory latency a chunk, not one a float4.
-    const float seg = __ldcg(prm.decay + bh * prm.n_chunks + cc);
-    float4 s[kVec];
-#pragma unroll
-    for (int v = 0; v < kVec; ++v) {
-      const int e = (v * kThreads + threadIdx.x) * 4;
-      if (e < P * N) s[v] = __ldcg(reinterpret_cast<const float4*>(st + e));
-    }
-#pragma unroll
-    for (int v = 0; v < kVec; ++v) {
-      const int e = (v * kThreads + threadIdx.x) * 4;
-      if (e >= P * N) continue;
-      __stcg(reinterpret_cast<float4*>(st + e), run[v]);
-      run[v] = make_float4(run[v].x * seg + s[v].x, run[v].y * seg + s[v].y,
-                           run[v].z * seg + s[v].z, run[v].w * seg + s[v].w);
-    }
-  }
-  bf16* fin = prm.final_state + bh * P * N;
-#pragma unroll
-  for (int v = 0; v < kVec; ++v) {
-    const int e = (v * kThreads + threadIdx.x) * 4;
-    if (e >= P * N) continue;
-    *reinterpret_cast<__nv_bfloat162*>(fin + e) =
-        __floats2bfloat162_rn(run[v].x, run[v].y);
-    *reinterpret_cast<__nv_bfloat162*>(fin + e + 2) =
-        __floats2bfloat162_rn(run[v].z, run[v].w);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Kernel 2: outputs.  Grid (row tiles of Q, C, B * H).  Shared memory
-// (dynamic): the C tile of the block's rows and two buffers each of a B and
-// an x tile.  prev_c comes from the passed states in fp32, straight from
-// global memory into the B fragments, split into bf16 hi + lo.
-// ---------------------------------------------------------------------------
-template <int P, int N>
-struct ScanSmem {
-  static constexpr int kC = kTile * (N + 8);   // bf16 elements
-  static constexpr int kB = kTile * (N + 8);
-  static constexpr int kX = kTile * (P + 8);
-  static constexpr int kBytes = (kC + 2 * (kB + kX)) * 2;
-};
-
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads)
-    ssd_chunk_scan_kernel(const Params prm) {
-  static_assert(P % 16 == 0 && N % 16 == 0, "tile shape");
-  using L = ScanSmem<P, N>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const s_c = reinterpret_cast<bf16*>(smem_raw);
-  // buffer k (0 or 1) of the B and x tiles; computed, not indexed from an
-  // array, which would put the array in local memory
-  auto s_b = [s_c](int k) { return s_c + L::kC + k * (L::kB + L::kX); };
-  auto s_x = [s_c](int k) { return s_c + L::kC + k * (L::kB + L::kX) + L::kB; };
-  __shared__ float cum[kMaxChunk];
-  __shared__ float warp_total[kWarps];
-
-  const int tile = gridDim.x - 1 - blockIdx.x;  // long rows first
-  const int c = blockIdx.y;
-  const int64_t bh = blockIdx.z;
-  const int b = blockIdx.z / prm.heads;
-  const int h = blockIdx.z % prm.heads;
-  const int g = h / (prm.heads / prm.groups);
-  const int q = prm.q;
-  const int i0 = tile * kTile;  // first row of this tile within the chunk
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int quad_row = lane / 4;
-  const int quad_col = lane % 4;
-  const int row_a = i0 + warp * 16 + quad_row;  // and row_a + 8
-
-  const int64_t row0 = static_cast<int64_t>(c) * q;
-  const bf16* cm = prm.c + b * prm.c_sb + row0 * prm.c_ss + g * prm.c_sg;
-  const bf16* bm = prm.b + b * prm.b_sb + row0 * prm.b_ss + g * prm.b_sg;
-  const bf16* x = prm.x + b * prm.x_sb + row0 * prm.x_ss + h * prm.x_sh;
-  load_tile<N>(s_c, cm, prm.c_ss, i0, q);
-  load_tile<N>(s_b(0), bm, prm.b_ss, 0, q);
-  load_tile<P>(s_x(0), x, prm.x_ss, 0, q);
-  cp_async_commit();
-  chunk_cumsum(cum, warp_total,
-               prm.la + b * prm.la_sb + row0 * prm.la_ss + h * prm.la_sh,
-               prm.la_ss, q);
-  cp_async_wait_all();
   __syncthreads();
 
-  // Inter-chunk term: y = (C prev^T) exp(cum_i), prev as hi + lo.
-  float y[P / 8][4];
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  float acc[S::kNPad / 2];
 #pragma unroll
-  for (int n = 0; n < P / 8; ++n) y[n][0] = y[n][1] = y[n][2] = y[n][3] = 0.f;
-  {
-    const float* prev = prm.states + (bh * prm.n_chunks + c) * P * N;
-#pragma unroll 1
-    for (int kk = 0; kk < N / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, s_c + (warp * 16 + lane % 16) * (N + 8) + kk * 16 + (lane / 16) * 8);
-      const int n0 = kk * 16 + 2 * quad_col;
-#pragma unroll
-      for (int nb = 0; nb < P / 8; ++nb) {
-        // B[k = n][col = p] = prev[p][n]: two consecutive n per register
-        const float* row = prev + (nb * 8 + quad_row) * N + n0;
-        const float2 v0 = __ldg(reinterpret_cast<const float2*>(row));
-        const float2 v1 = __ldg(reinterpret_cast<const float2*>(row + 8));
-        uint32_t hi0, lo0, hi1, lo1;
-        split_bf16(v0.x, v0.y, hi0, lo0);
-        split_bf16(v1.x, v1.y, hi1, lo1);
-        mma_bf16(y[nb], a, hi0, hi1);
-        mma_bf16(y[nb], a, lo0, lo1);
-      }
-    }
-    // rows past q read cum[q..], which hold cum[q - 1]: finite, unwritten
-    const float ea = expf(cum[row_a]);
-    const float eb = expf(cum[row_a + 8]);
-#pragma unroll
-    for (int n = 0; n < P / 8; ++n) {
-      y[n][0] *= ea;
-      y[n][1] *= ea;
-      y[n][2] *= eb;
-      y[n][3] *= eb;
-    }
-  }
+  for (int i = 0; i < S::kNPad / 2; ++i) acc[i] = 0.f;
 
-  // Intra-chunk term over the key tiles up to this tile's diagonal; tile
-  // u + 1 loads into the other buffer while tile u is used.
-  for (int u = 0; u <= tile; ++u) {
-    const int j0 = u * kTile;
-    if (u < tile) {
-      load_tile<N>(s_b((u + 1) % 2), bm, prm.b_ss, j0 + kTile, q);
-      load_tile<P>(s_x((u + 1) % 2), x, prm.x_ss, j0 + kTile, q);
-    }
-    cp_async_commit();
-    const bf16* sb = s_b(u % 2);
-    const bf16* sx = s_x(u % 2);
-
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, s_c + (warp * 16 + lane % 16) * (N + 8) + kk * 16 +
-                         (lane / 16) * 8);
-#pragma unroll
-      for (int nb = 0; nb < kTile / 16; ++nb) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, sb + (nb * 16 + (lane / 16) * 8 + lane % 8) * (N + 8) +
-                            kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * nb], a, bk[0], bk[1]);
-        mma_bf16(s[2 * nb + 1], a, bk[2], bk[3]);
-      }
-    }
-    // decay, masked before the exponent
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = row_a + (e / 2) * 8;
-        const int j = j0 + n * 8 + 2 * quad_col + (e % 2);
-        s[n][e] = j <= i && j < q ? s[n][e] * expf(cum[i] - cum[j]) : 0.f;
-      }
-    }
-    // y += S x, S as hi + lo
+  for (int t = 0; t < tiles; ++t) {
+    const uint32_t x_tile = s_ring + (t % kStateStages) * kStage;
+    mbar_wait(smem_addr(&full[t % kStateStages]), (t / kStateStages) & 1);
+    // A = (x o w)^T, rows p, k = j: transposed loads of the [j][p] tile;
+    // lanes 8i .. 8i + 7 address matrix i: j + 8 (i / 2), p + 8 (i % 2)
+    uint32_t a_hi[kTile / 16][4], a_lo[kTile / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a_hi[4], a_lo[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], a_hi[0], a_lo[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], a_hi[1], a_lo[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], a_hi[2], a_lo[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], a_hi[3], a_lo[3]);
+      const int row = kk * 16 + (lane / 16) * 8 + lane % 8;
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, x_tile + swizzled(row, 2 * warp + (lane / 8) % 2));
+      const int j = t * kTile + kk * 16 + 2 * (lane % 4);
 #pragma unroll
-      for (int dn = 0; dn < P / 16; ++dn) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, sx + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) *
-                                       (P + 8) +
-                                  dn * 16 + (lane / 16) * 8);
-        mma_bf16(y[2 * dn], a_hi, bv[0], bv[1]);
-        mma_bf16(y[2 * dn], a_lo, bv[0], bv[1]);
-        mma_bf16(y[2 * dn + 1], a_hi, bv[2], bv[3]);
-        mma_bf16(y[2 * dn + 1], a_lo, bv[2], bv[3]);
+      for (int r = 0; r < 4; ++r) {
+        const int jr = j + (r / 2) * 8;  // registers 2, 3 hold k + 8
+        const float2 v = unpack_bf16(a[r]);
+        split_bf16(v.x * weight[jr], v.y * weight[jr + 1], a_hi[kk][r],
+                   a_lo[kk][r]);
       }
     }
-    cp_async_wait_all();  // tile u + 1 is in
-    __syncthreads();      // and every warp is done with tile u's buffer
+    // B: the [j][n] tile N-major (transpose flag); a 16-row slice starts
+    // 16 rows down, 8-row atoms 1024 bytes apart, the next 64 columns the
+    // next box
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint64_t desc = smem_desc(x_tile + kBox + kk * 16 * 128, kBox, 1024);
+      wgmma_rs(acc, a_hi[kk], desc);
+      wgmma_rs(acc, a_lo[kk], desc);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frag(a_hi);
+    fence_frag(a_lo);
+    if (t + kStateStages < tiles) {
+      __syncthreads();   // every warp is done with the stage
+      if (tid == 0) load(t + kStateStages);
+    }
   }
 
+  // -- the hand-off: prev_c+1 = prev_c exp(total_c) + state_c --------------
+  // state_c into shared memory (the ring is free now), rows of N + 4
+  // floats (the padding spreads a warp's fragment stores over the banks),
+  // then every thread takes float4s of the (P, N) state: coalesced loads and
+  // stores, few registers.
+  constexpr int kRow = N + 4;
+  static_assert(P * kRow * 4 <= kStateStages * kStage, "state staging");
+  float* st = reinterpret_cast<float*>(smem_raw + (s_ring - smem_addr(smem_raw)));
+  __syncthreads();   // every warp is done with the ring
+  {
+    const int p0 = warp * 16 + lane / 4;
+    const int n0 = 2 * (lane % 4);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row_a + r * 8;
-    if (i >= q) continue;
-    bf16* out = prm.y + ((b * static_cast<int64_t>(prm.seq) + row0 + i) * prm.heads + h) * P;
+    for (int j = 0; j < S::kNPad / 8; ++j) {
 #pragma unroll
-    for (int n = 0; n < P / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + 2 * quad_col) =
-          __floats2bfloat162_rn(y[n][2 * r], y[n][2 * r + 1]);
+      for (int half = 0; half < 2; ++half) {
+        const int p = p0 + 8 * half;
+        const int n = 8 * j + n0;
+        if (p < P && n < N)
+          *reinterpret_cast<float2*>(st + p * kRow + n) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    }
+  }
+  const int64_t slot = static_cast<int64_t>(P) * N;
+  float* states = prm.states + static_cast<int64_t>(bh) * prm.n_chunks * slot;
+  // prev_c: chunk 0's is the initial state (or zeros), which it also
+  // writes as prev_0; any other's was written by the block of chunk c - 1
+  const float* prev = c > 0 ? states + c * slot
+                            : prm.init ? prm.init + bh * slot : nullptr;
+  if (c > 0 && tid == 0) {
+    const int* flag = prm.flags + static_cast<int64_t>(bh) * prm.n_chunks + c;
+    while (ld_acquire(flag) == 0) __nanosleep(64);
+  }
+  __syncthreads();   // the staged state, and prev_c once the flag is up
+  const float decay = expf(total);
+  const bool last = c + 1 == prm.n_chunks;
+  float* next = states + (c + 1) * slot;
+  bf16* fin = prm.final_state + bh * slot;
+  // every thread's loads of prev_c in flight at once (16 float4s at N 128)
+  constexpr int kVec = (P * N + 4 * kStateThreads - 1) / (4 * kStateThreads);
+  float4 pv[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const int e = 4 * (i * kStateThreads + tid);
+    // written by another SM: read past L1
+    pv[i] = prev && e < P * N ? __ldcg(reinterpret_cast<const float4*>(prev + e))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const int e = 4 * (i * kStateThreads + tid);
+    if (e >= P * N) break;
+    const float4 v = pv[i];
+    if (c == 0) *reinterpret_cast<float4*>(states + e) = v;
+    const float4 sc = *reinterpret_cast<const float4*>(st + (e / N) * kRow + e % N);
+    const float4 r = make_float4(fmaf(v.x, decay, sc.x), fmaf(v.y, decay, sc.y),
+                                 fmaf(v.z, decay, sc.z), fmaf(v.w, decay, sc.w));
+    if (!last) {
+      __stcg(reinterpret_cast<float4*>(next + e), r);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(fin + e) = __floats2bfloat162_rn(r.x, r.y);
+      *reinterpret_cast<__nv_bfloat162*>(fin + e + 2) = __floats2bfloat162_rn(r.z, r.w);
+    }
+  }
+  if (!last) {
+    __threadfence();   // this thread's part of prev_c+1 is visible on the device
+    __syncthreads();   // ... and every thread's
+    if (tid == 0)
+      st_release(prm.flags + static_cast<int64_t>(bh) * prm.n_chunks + c + 1, 1);
   }
 }
 
-template <int P, int N>
-int launch_state(const Params& prm, cudaStream_t stream) {
-  const dim3 grid(prm.n_chunks, prm.heads, prm.batch);
-  ssd_chunk_state_kernel<P, N><<<grid, kThreads, 0, stream>>>(prm);
-  return cudaGetLastError();
+// S = C_t B_u^T for one key tile, issued (not waited for): both K-major (n),
+// 8-row atoms 1024 bytes apart, a 16-deep slice 32 bytes along, the next 64
+// columns the next box.
+template <int kNB>
+__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t c_tile,
+                                             uint32_t b_tile) {
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(s, smem_desc(c_tile + nb * kBox + kk * 32, 16, 1024),
+               smem_desc(b_tile + nb * kBox + kk * 32, 16, 1024),
+               nb > 0 || kk > 0);
+  }
 }
 
-template <int P, int N>
-int launch_scan(const Params& prm, cudaStream_t stream) {
-  const int smem = ScanSmem<P, N>::kBytes;
-  static bool smem_raised = false;
-  if (!smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_scan_kernel<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    smem_raised = true;
+// y += S x_u, S as hi + lo A fragments, issued (not waited for): x N-major
+// (the transpose flag), a 16-key slice 16 rows down.
+__device__ __forceinline__ void issue_sx(float (&y)[32],
+                                         const uint32_t (&a_hi)[4][4],
+                                         const uint32_t (&a_lo)[4][4],
+                                         uint32_t x_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dx = smem_desc(x_tile + kk * 16 * 128, kBox, 1024);
+    wgmma_rs(y, a_hi[kk], dx);
+    wgmma_rs(y, a_lo[kk], dx);
   }
-  const dim3 grid((prm.q + kTile - 1) / kTile, prm.n_chunks,
-                  prm.batch * prm.heads);
-  ssd_chunk_scan_kernel<P, N><<<grid, kThreads, smem, stream>>>(prm);
-  return cudaGetLastError();
+}
+
+// s_ij <- s_ij exp(cum_i - cum_j) where j <= i and j < q, else 0: the
+// decay masked before the exponent, branch-free (a masked exponent is -inf,
+// whose exponential is 0; a branch around each element's exponent cost as
+// much as the rest of the kernel).  The exponent is the special-function
+// unit's (__expf: ex2.approx of the difference times log2 e, relative
+// error ~2^-22, results below 2^-126 flushed to 0), far inside the ~16 bits
+// that the hi + lo split keeps.  Accumulator element 4j + r holds row `row`
+// (+ 8 for r >= 2) and key `key` + 8j (+ 1 for odd r).
+__device__ __forceinline__ void decay_scores(float (&s)[32], const float* cum,
+                                             int row, int key, int q) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = row + 8 * (r / 2);
+      const int kj = key + 8 * j + r % 2;
+      const float e = kj <= i && kj < q ? cum[i] - cum[kj] : -INFINITY;
+      s[4 * j + r] *= __expf(e);
+    }
+  }
+}
+
+// S as hi + lo bf16 A fragments: columns 16kk .. 16kk + 15 of the
+// accumulator are the A fragment of the kk-th 16-key slice.
+__device__ __forceinline__ void split_scores(const float (&s)[32],
+                                             uint32_t (&a_hi)[4][4],
+                                             uint32_t (&a_lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1], a_hi[kk][i], a_lo[kk][i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: outputs.  One block per (b, c, h); warpgroup 2 loads, 0 and 1
+// compute 64-row tiles of y.  Shared memory (dynamic, 1024-aligned boxes):
+// the chunk's C tiles, B tiles, x tiles, then prev_c's hi and lo parts.
+// ---------------------------------------------------------------------------
+template <int P, int N>
+__global__ void __launch_bounds__(kScanThreads, 1)
+    ssd_chunk_scan_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_b,
+                          const __grid_constant__ CUtensorMap map_c,
+                          const __grid_constant__ CUtensorMap map_y,
+                          const Params prm) {
+  using S = Shape<P, N>;
+  constexpr int kNB = S::kNBoxes;
+  constexpr int kNPad = S::kNPad;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kMaxTiles];   // tile t of C, B and x is in
+  __shared__ uint64_t cum_ready;         // cum is in
+  __shared__ uint64_t prev_ready;        // prev_c's hi and lo parts are in
+  __shared__ float cum[kMaxChunk];
+  __shared__ float warp_total[4];
+  const int q = prm.q;
+  const int tiles = (q + kTile - 1) / kTile;
+  const uint32_t s_c = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_b = s_c + tiles * kNB * kBox;     // + (t kNB + box) kBox
+  const uint32_t s_x = s_b + tiles * kNB * kBox;     // + t kBox
+  const uint32_t s_hi = s_x + tiles * kBox;          // + box kBox
+  const uint32_t s_lo = s_hi + kNB * kBox;
+
+  // heads fastest: the blocks running together share a chunk of B and C
+  const int h = blockIdx.x % prm.heads;
+  const int c = (blockIdx.x / prm.heads) % prm.n_chunks;
+  const int b = blockIdx.x / (prm.heads * prm.n_chunks);
+  const int g = h / (prm.heads / prm.groups);
+  const int64_t bh = static_cast<int64_t>(b) * prm.heads + h;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int t = 0; t < tiles; ++t) mbar_init(smem_addr(&full[t]), 1);
+    mbar_init(smem_addr(&cum_ready), 128);
+    mbar_init(smem_addr(&prev_ready), 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = tid / 128;
+
+  if (wg == kConsumers) {
+    // -- loads: TMA for the tiles, this warpgroup for cum and prev_c ---------
+    const int t128 = tid % 128;
+    if (t128 == 0) {
+      for (int t = 0; t < tiles; ++t) {
+        const uint32_t bar = smem_addr(&full[t]);
+        mbar_expect_tx(bar, (2 * kNB + 1) * kBox);
+        for (int nb = 0; nb < kNB; ++nb) {
+          tma_load_5d(s_c + (t * kNB + nb) * kBox, &map_c, bar, nb * 64, g,
+                      t * kTile, c, b);
+          tma_load_5d(s_b + (t * kNB + nb) * kBox, &map_b, bar, nb * 64, g,
+                      t * kTile, c, b);
+        }
+        tma_load_5d(s_x + t * kBox, &map_x, bar, 0, h, t * kTile, c, b);
+      }
+    }
+    chunk_cumsum(cum, warp_total,
+                 prm.la + b * prm.la_sb + static_cast<int64_t>(c) * q * prm.la_ss +
+                     h * prm.la_sh,
+                 prm.la_ss, q, t128, kLoaderBar);
+    mbar_arrive(smem_addr(&cum_ready));
+    // prev_c (P, N) fp32 -> bf16 hi and lo, [p][n] K-major boxes of 64
+    // rows (p, zero past P) x 64 columns (n, zero past N: C's columns there
+    // are zeros, and 0 x garbage could be nan).  Every load is issued
+    // before the first is used.
+    constexpr int kItems = 64 * kNPad / 8 / 128;   // 8 floats a thread each
+    const float* prev = prm.states + (bh * prm.n_chunks + c) * P * N;
+    float4 v[kItems][2];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int e = i * 128 + t128;
+      const int p = e / (kNPad / 8);
+      const int n = (e % (kNPad / 8)) * 8;
+      v[i][0] = v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (p < P && n < N) {
+        v[i][0] = *reinterpret_cast<const float4*>(prev + p * N + n);
+        v[i][1] = *reinterpret_cast<const float4*>(prev + p * N + n + 4);
+      }
+    }
+    unsigned char* smem = smem_raw + (s_hi - smem_addr(smem_raw));
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int e = i * 128 + t128;
+      const int p = e / (kNPad / 8);
+      const int n = (e % (kNPad / 8)) * 8;
+      uint4 hi, lo;
+      split_bf16(v[i][0].x, v[i][0].y, hi.x, lo.x);
+      split_bf16(v[i][0].z, v[i][0].w, hi.y, lo.y);
+      split_bf16(v[i][1].x, v[i][1].y, hi.z, lo.z);
+      split_bf16(v[i][1].z, v[i][1].w, hi.w, lo.w);
+      const uint32_t off = (n / 64) * kBox + swizzled(p, (n % 64) / 8);
+      *reinterpret_cast<uint4*>(smem + off) = hi;
+      *reinterpret_cast<uint4*>(smem + kNB * kBox + off) = lo;
+    }
+    fence_async_shared();   // the wgmmas read what these threads wrote
+    mbar_arrive(smem_addr(&prev_ready));
+  } else {
+    // -- consumers: warpgroup wg owns row tiles wg and T - 1 - wg -------------
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    const int col = 2 * (lane % 4);
+    // long with short: T 4 -> {0, 3}, {1, 2}; T 3 -> {0, 2}, {1}; T 2 ->
+    // {0}, {1}; T 1 -> {0}, {}
+    const int count = (wg < tiles) + (tiles - 1 - wg >= kConsumers);
+    mbar_wait(smem_addr(&cum_ready), 0);
+    for (int k = 0; k < count; ++k) {
+      const int t = k == 0 ? wg : tiles - 1 - wg;
+      const uint32_t c_t = s_c + t * kNB * kBox;
+      // accumulator element 4j + r holds row `row` (+ 8 for r >= 2) of the
+      // chunk and column 8j + col (+ 1 for odd r)
+      const int row = t * kTile + warp * 16 + lane / 4;
+      float y[32], s[32];
+      uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) y[i] = 0.f;
+
+      // Intra-chunk term over the key tiles up to the diagonal.  The
+      // products of key tile u's scores and tile u - 1's S x are issued
+      // together, and tile u's decay runs while S x is on the tensor cores.
+      mbar_wait(smem_addr(&full[t]), 0);   // C_t
+      mbar_wait(smem_addr(&full[0]), 0);
+      fence_acc(s);
+      wgmma_fence();
+      issue_scores<kNB>(s, c_t, s_b);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      decay_scores(s, cum, row, col, q);
+      split_scores(s, a_hi, a_lo);
+      for (int u = 1; u <= t; ++u) {
+        mbar_wait(smem_addr(&full[u]), 0);
+        fence_acc(s);
+        wgmma_fence();
+        issue_scores<kNB>(s, c_t, s_b + u * kNB * kBox);
+        wgmma_commit();
+        fence_acc(y);
+        wgmma_fence();
+        issue_sx(y, a_hi, a_lo, s_x + (u - 1) * kBox);
+        wgmma_commit();
+        wgmma_wait<1>();   // the scores are done, S x may still run
+        fence_acc(s);
+        decay_scores(s, cum, row, u * kTile + col, q);
+        wgmma_wait<0>();
+        fence_acc(y);
+        fence_frag(a_hi);
+        fence_frag(a_lo);
+        split_scores(s, a_hi, a_lo);
+      }
+      fence_acc(y);
+      wgmma_fence();
+      issue_sx(y, a_hi, a_lo, s_x + t * kBox);
+      wgmma_commit();
+
+      // Inter-chunk term: (C_t prev^T) exp(cum_i), prev as hi + lo, into s
+      // while the last S x runs; C_t and prev both K-major (n).
+      mbar_wait(smem_addr(&prev_ready), 0);
+      fence_acc(s);
+      wgmma_fence();
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = smem_desc(c_t + nb * kBox + kk * 32, 16, 1024);
+          wgmma_ss(s, da, smem_desc(s_hi + nb * kBox + kk * 32, 16, 1024),
+                   nb > 0 || kk > 0);
+          wgmma_ss(s, da, smem_desc(s_lo + nb * kBox + kk * 32, 16, 1024), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(y);
+      fence_acc(s);
+      fence_frag(a_hi);
+      fence_frag(a_lo);
+      // rows past q read cum[q..], which hold cum[q - 1]: finite
+      const float ea = expf(cum[row]);
+      const float eb = expf(cum[row + 8]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[4 * j] += s[4 * j] * ea;
+        y[4 * j + 1] += s[4 * j + 1] * ea;
+        y[4 * j + 2] += s[4 * j + 2] * eb;
+        y[4 * j + 3] += s[4 * j + 3] * eb;
+      }
+
+      // Epilogue: y in bf16 into C_t's first box (dead now), laid out as
+      // the TMA store reads it, then one store, clipped at Q and P.
+      warpgroup_sync(1 + wg);   // every warp's products are done with C_t
+      unsigned char* out = smem_raw + (c_t - smem_addr(smem_raw));
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rr = warp * 16 + lane / 4 + 8 * half;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(out + swizzled(rr, j) + (lane % 4) * 4) =
+              __floats2bfloat162_rn(y[4 * j + 2 * half], y[4 * j + 2 * half + 1]);
+      }
+      fence_async_shared();
+      warpgroup_sync(1 + wg);
+      if (tid % 128 == 0) {
+        tma_store_5d(&map_y, c_t, 0, h, t * kTile, c, b);
+        bulk_commit();
+      }
+    }
+    if (tid % 128 == 0) bulk_wait_read();   // the stores have read the buffers
+  }
 }
 
 // dims: batch, seq, heads, groups, head_dim P, state_dim N, Q, then the
 // element strides of dims 0-2 of x, log_a, B and C (12 values).
-bool fill(Params& prm, const long long* d, int& p, int& n) {
+struct Call {
+  Params prm;
+  int p, n;
+  int64_t x_s[3], b_s[3], c_s[3];
+};
+
+bool fill(Call& call, const long long* d) {
+  Params& prm = call.prm;
   prm.batch = static_cast<int>(d[0]);
   prm.seq = static_cast<int>(d[1]);
   prm.heads = static_cast<int>(d[2]);
   prm.groups = static_cast<int>(d[3]);
-  p = static_cast<int>(d[4]);
-  n = static_cast<int>(d[5]);
+  call.p = static_cast<int>(d[4]);
+  call.n = static_cast<int>(d[5]);
   prm.q = static_cast<int>(d[6]);
-  prm.x_sb = d[7], prm.x_ss = d[8], prm.x_sh = d[9];
+  for (int i = 0; i < 3; ++i) {
+    call.x_s[i] = d[7 + i];
+    call.b_s[i] = d[13 + i];
+    call.c_s[i] = d[16 + i];
+  }
   prm.la_sb = d[10], prm.la_ss = d[11], prm.la_sh = d[12];
-  prm.b_sb = d[13], prm.b_ss = d[14], prm.b_sg = d[15];
-  prm.c_sb = d[16], prm.c_ss = d[17], prm.c_sg = d[18];
-  if (prm.batch <= 0 || prm.seq <= 0 || prm.groups <= 0 || prm.q <= 0 ||
-      prm.q > kMaxChunk || prm.seq % prm.q != 0 ||
-      prm.heads % prm.groups != 0 || prm.seq / prm.q > 65535 ||
-      static_cast<long long>(prm.batch) * prm.heads > 65535)
+  if (prm.batch <= 0 || prm.seq <= 0 || prm.heads <= 0 || prm.groups <= 0 ||
+      prm.q <= 0 || prm.q > kMaxChunk || prm.seq % prm.q != 0 ||
+      prm.heads % prm.groups != 0 ||
+      static_cast<long long>(prm.batch) * prm.heads * (prm.seq / prm.q) >
+          0x7fffffffLL)
     return false;
   prm.n_chunks = prm.seq / prm.q;
   return true;
+}
+
+// A 5-D map over (cols, heads or groups, Q, C, B) of a (B, S, heads, cols)
+// bf16 view with element strides s (batch, seq, head); 64 x 64 boxes.
+bool encode_5d(CUtensorMap* map, const void* base, int cols, int heads,
+               const Params& prm, const int64_t (&s)[3]) {
+  const cuuint64_t dims[5] = {
+      static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(heads),
+      static_cast<cuuint64_t>(prm.q), static_cast<cuuint64_t>(prm.n_chunks),
+      static_cast<cuuint64_t>(prm.batch)};
+  const cuuint64_t strides[4] = {
+      static_cast<cuuint64_t>(s[2]) * 2, static_cast<cuuint64_t>(s[1]) * 2,
+      static_cast<cuuint64_t>(s[1]) * prm.q * 2, static_cast<cuuint64_t>(s[0]) * 2};
+  const cuuint32_t box[5] = {64, 1, kTile, 1, 1};
+  return encode(map, base, 5, dims, strides, box);
+}
+
+// Per device: whether each instantiation's shared-memory limit is raised.
+constexpr int kMaxDevices = 64;
+
+template <typename K>
+int raise_smem(K kernel, int bytes, bool (&raised)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <int P, int N>
+int launch_state(const Call& call, const void* x, const void* b,
+                 cudaStream_t stream) {
+  using S = Shape<P, N>;
+  static bool raised[kMaxDevices];
+  const int err = raise_smem(ssd_chunk_state_kernel<P, N>,
+                             S::state_smem(), raised);
+  if (err != cudaSuccess) return err;
+  const Params& prm = call.prm;
+  CUtensorMap map_x, map_b;
+  if (!encode_5d(&map_x, x, P, prm.heads, prm, call.x_s) ||
+      !encode_5d(&map_b, b, N, prm.groups, prm, call.b_s))
+    return cudaErrorInvalidValue;
+  const int blocks = prm.batch * prm.heads * prm.n_chunks;
+  ssd_chunk_state_kernel<P, N><<<blocks, kStateThreads, S::state_smem(),
+                                 stream>>>(map_x, map_b, prm);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
+int launch_scan(const Call& call, const void* x, const void* b, const void* c,
+                void* y, cudaStream_t stream) {
+  using S = Shape<P, N>;
+  static_assert(S::scan_smem(kMaxTiles) <= 227 * 1024, "shared memory");
+  static bool raised[kMaxDevices];
+  const int err = raise_smem(ssd_chunk_scan_kernel<P, N>,
+                             S::scan_smem(kMaxTiles), raised);
+  if (err != cudaSuccess) return err;
+  const Params& prm = call.prm;
+  // y (B, S, H, P) contiguous
+  const int64_t y_s[3] = {static_cast<int64_t>(prm.seq) * prm.heads * P,
+                          static_cast<int64_t>(prm.heads) * P, P};
+  CUtensorMap map_x, map_b, map_c, map_y;
+  if (!encode_5d(&map_x, x, P, prm.heads, prm, call.x_s) ||
+      !encode_5d(&map_b, b, N, prm.groups, prm, call.b_s) ||
+      !encode_5d(&map_c, c, N, prm.groups, prm, call.c_s) ||
+      !encode_5d(&map_y, y, P, prm.heads, prm, y_s))
+    return cudaErrorInvalidValue;
+  const int tiles = (prm.q + kTile - 1) / kTile;
+  const int blocks = prm.batch * prm.heads * prm.n_chunks;
+  ssd_chunk_scan_kernel<P, N><<<blocks, kScanThreads, S::scan_smem(tiles),
+                                stream>>>(map_x, map_b, map_c, map_y, prm);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -558,54 +810,48 @@ bool fill(Params& prm, const long long* d, int& p, int& n) {
 // The (P, N) pairs compiled here are HEAD_STATE_DIMS in
 // repro_torch/kernels/ssd_scan.py.  Each function returns the launch's
 // cudaError_t (0 on success).
-#define SSD_DISPATCH(FN)                                       \
-  if (p == 64 && n == 128) return FN<64, 128>(prm, s);         \
-  if (p == 64 && n == 64) return FN<64, 64>(prm, s);           \
-  if (p == 64 && n == 16) return FN<64, 16>(prm, s);           \
-  if (p == 16 && n == 16) return FN<16, 16>(prm, s);           \
+#define SSD_DISPATCH(FN, ...)                                            \
+  if (call.p == 64 && call.n == 128) return FN<64, 128>(__VA_ARGS__);   \
+  if (call.p == 64 && call.n == 64) return FN<64, 64>(__VA_ARGS__);     \
+  if (call.p == 64 && call.n == 16) return FN<64, 16>(__VA_ARGS__);     \
+  if (call.p == 16 && call.n == 16) return FN<16, 16>(__VA_ARGS__);     \
   return cudaErrorInvalidValue;
 
 extern "C" {
 
 // states (B, H, C, P, N) fp32, holding prev_c (the state entering chunk
 // c), and final_state (B, H, P, N) bf16 <- x, log_a, B and the initial
-// state (fp32, or null for zeros).  Workspace: decay, B * H * C fp32;
-// counters, B * H int32 zeros.
+// state (fp32, or null for zeros).  Workspace, zeroed by the caller for
+// every call: flags, B * H * C int32; ticket, one int32.
 int ssd_chunk_state(const void* x, const void* log_a, const void* b,
                     const void* init, void* states, void* final_state,
-                    void* decay, void* counters, const long long* dims,
+                    void* flags, void* ticket, const long long* dims,
                     void* stream) {
-  Params prm = {};
-  int p, n;
-  if (!fill(prm, dims, p, n)) return cudaErrorInvalidValue;
-  prm.x = static_cast<const bf16*>(x);
+  Call call = {};
+  if (!fill(call, dims)) return cudaErrorInvalidValue;
+  Params& prm = call.prm;
   prm.la = static_cast<const float*>(log_a);
-  prm.b = static_cast<const bf16*>(b);
   prm.init = static_cast<const float*>(init);
   prm.states = static_cast<float*>(states);
   prm.final_state = static_cast<bf16*>(final_state);
-  prm.decay = static_cast<float*>(decay);
-  prm.counters = static_cast<int*>(counters);
+  prm.flags = static_cast<int*>(flags);
+  prm.ticket = static_cast<int*>(ticket);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SSD_DISPATCH(launch_state)
+  SSD_DISPATCH(launch_state, call, x, b, s)
 }
 
-// y (B, S, H, P) bf16 <- x, log_a, B, C and the passed states (prev_c)
-// from ssd_chunk_state.
+// y (B, S, H, P) bf16, contiguous <- x, log_a, B, C and the passed states
+// (prev_c) from ssd_chunk_state.
 int ssd_chunk_scan(const void* x, const void* log_a, const void* b,
                    const void* c, const void* states, void* y,
                    const long long* dims, void* stream) {
-  Params prm = {};
-  int p, n;
-  if (!fill(prm, dims, p, n)) return cudaErrorInvalidValue;
-  prm.x = static_cast<const bf16*>(x);
+  Call call = {};
+  if (!fill(call, dims)) return cudaErrorInvalidValue;
+  Params& prm = call.prm;
   prm.la = static_cast<const float*>(log_a);
-  prm.b = static_cast<const bf16*>(b);
-  prm.c = static_cast<const bf16*>(c);
   prm.states = static_cast<float*>(const_cast<void*>(states));
-  prm.y = static_cast<bf16*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SSD_DISPATCH(launch_scan)
+  SSD_DISPATCH(launch_scan, call, x, b, c, y, s)
 }
 
 }  // extern "C"

@@ -12,8 +12,9 @@ built and what the design does about it.
 * A CPU tensor goes to :func:`flash_attention_plain`, a dense masked
   softmax in fp32 (the oracle ``ref.flash_attention_ref``).
 * A CUDA tensor goes to the kernel, or the wrapper raises: bf16 only,
-  head dims in :data:`HEAD_DIMS`, contiguous (B, S, H, D) layout.  There
-  is no fallback to the plain version.
+  head dims in :data:`HEAD_DIMS`, contiguous (B, S, H, D) layout, no
+  input that requires grad while grad mode is on (the kernel has no
+  backward yet).  There is no fallback to the plain version.
 
 Shapes: q (B, S, Hq, D); k, v (B, S, Hkv, D) with Hq a multiple of Hkv.
 Masks: ``causal`` and ``window`` (allowed iff 0 <= q - k < window when
@@ -26,7 +27,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, refuse_grad
 from .ref import flash_attention_ref
 
 #: head dims the CUDA source is compiled for (its ``switch`` in
@@ -84,6 +85,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v)

@@ -15,7 +15,9 @@ header says what bounds it and what the design does about that.
 * A CUDA tensor goes to the kernel, or the wrapper raises: x (T, d) and
   w (E, d, f) contiguous bfloat16, d and f multiples of 8, at most
   :data:`MAX_EXPERTS` experts, group sizes a contiguous int32 tensor on
-  the same device.  There is no fallback to the plain version.  The
+  the same device, no input that requires grad while grad mode is on
+  (the kernel has no backward yet).  There is no fallback to the plain
+  version.  The
   wrapper never reads the group sizes on the host, so a call does not
   synchronise.
 
@@ -29,7 +31,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, refuse_grad
 from .ref import grouped_matmul_ref
 
 #: the most experts the kernel takes (``kMaxExperts`` in the CUDA source)
@@ -92,6 +94,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     global launches
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, group_sizes)
+    refuse_grad("grouped_matmul", x, w)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check(x, w, group_sizes)

@@ -2,12 +2,14 @@
 
 Port of the TPU kernels ``repro.kernels.ssd_scan`` (``_intra_kernel``, the
 host ``associative_scan`` over chunk states, ``_inter_kernel``).  The
-kernels are ``csrc/ssd_scan.cu`` (CUDA C++ for sm_90a; its header says what
-bounds them and how the work is split between them):
+kernels are ``csrc/ssd_scan.cu`` (CUDA C++ for sm_90a: TMA loads and wgmma
+products; its header says what bounds them and how the work is split
+between them):
 
 * ``ssd_chunk_state`` — every chunk's state ``Σ_j exp(total − cum_j)
-  x_j ⊗ B_j`` (fp32), passed along the chunks (the state entering each
-  chunk) and the final state; plain version :func:`chunk_state_plain`;
+  x_j ⊗ B_j`` (fp32), handed along the chunks from block to block (the
+  state entering each chunk) and the final state; plain version
+  :func:`chunk_state_plain`;
 * ``ssd_chunk_scan``  — y, intra- and inter-chunk terms together; plain
   version :func:`chunk_scan_plain`.
 
@@ -16,8 +18,9 @@ kernels compute (scores and the intra-chunk output in fp32).  A CUDA
 tensor goes to the kernels, or the wrapper raises: x, B and C bf16 and
 log_a fp32; each of them with its last dim contiguous, rows 16-byte
 aligned (any other strides are read in place); (P, N) in
-:data:`HEAD_STATE_DIMS`; Q = min(chunk, S) at most 256 and dividing S.
-There is no fallback to the plain version.
+:data:`HEAD_STATE_DIMS`; Q = min(chunk, S) at most 256 and dividing S; no
+input that requires grad while grad mode is on (the kernels have no
+backward yet).  There is no fallback to the plain version.
 
 Shapes: x (B,S,H,P) dt-scaled inputs; log_a (B,S,H); b_mat, c_mat
 (B,S,G,N) with H a multiple of G; initial_state (B,H,P,N).  Returns
@@ -30,7 +33,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, refuse_grad
 
 #: (head dim P, state dim N) pairs the CUDA source is compiled for (its
 #: ``SSD_DISPATCH``)
@@ -124,15 +127,19 @@ def ssd_scan_plain(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,
     return chunk_scan_plain(x, log_a, b_mat, c_mat, prev, q), final
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.library("ssd_scan")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the two C entry points of a loaded build of ``ssd_scan.cu``."""
     # pointers and the stream as c_void_p, or ctypes cuts them to 32 bits
     lib.ssd_chunk_state.argtypes = [ctypes.c_void_p] * 10
     lib.ssd_chunk_state.restype = ctypes.c_int
     lib.ssd_chunk_scan.argtypes = [ctypes.c_void_p] * 8
     lib.ssd_chunk_scan.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(_build.library("ssd_scan"))
 
 
 def _check(x, log_a, b_mat, c_mat, chunk, initial_state) -> int:
@@ -206,14 +213,18 @@ def chunk_state(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor, *,
     if not _on_card(x):
         _check_divides(x.shape[1], q)
         return chunk_state_plain(x, log_a, b_mat, q, initial_state)
+    refuse_grad("ssd_chunk_state", x, log_a, b_mat, initial_state)
     _check(x, log_a, b_mat, b_mat, chunk, initial_state)
     bsz, s, h, p = x.shape
     n = b_mat.shape[3]
     prev = torch.empty((bsz, h, s // q, p, n), dtype=torch.float32,
                        device=x.device)
     final = torch.empty((bsz, h, p, n), dtype=x.dtype, device=x.device)
-    decay = torch.empty((bsz, h, s // q), dtype=torch.float32, device=x.device)
-    counters = torch.zeros((bsz, h), dtype=torch.int32, device=x.device)
+    # the hand-off's flags, one a chunk, then its ticket: zeroed every call
+    # (B x H ints after the flags, not one: a build of the kernel from
+    # before the hand-off takes them as its per-(b, h) counters)
+    work = torch.zeros(bsz * h * (s // q + 1), dtype=torch.int32,
+                       device=x.device)
     init = (initial_state.to(torch.float32).contiguous()
             if initial_state is not None else None)
     dims = _dims(x, log_a, b_mat, b_mat, q)
@@ -221,7 +232,8 @@ def chunk_state(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor, *,
         _raise_on(_library().ssd_chunk_state(
             x.data_ptr(), log_a.data_ptr(), b_mat.data_ptr(),
             init.data_ptr() if init is not None else None, prev.data_ptr(),
-            final.data_ptr(), decay.data_ptr(), counters.data_ptr(),
+            final.data_ptr(), work.data_ptr(),
+            work.data_ptr() + 4 * bsz * h * (s // q),
             ctypes.addressof(dims),
             torch.cuda.current_stream(x.device).cuda_stream), "ssd_chunk_state")
     state_launches += 1
@@ -238,6 +250,7 @@ def chunk_scan(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,
     if not _on_card(x):
         _check_divides(x.shape[1], q)
         return chunk_scan_plain(x, log_a, b_mat, c_mat, prev, q)
+    refuse_grad("ssd_chunk_scan", x, log_a, b_mat, c_mat, prev)
     _check(x, log_a, b_mat, c_mat, chunk, None)
     bsz, s, h, p = x.shape
     n = b_mat.shape[3]

@@ -2,6 +2,7 @@
 its profile summary (the script itself runs only on a card)."""
 import importlib.util
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -321,3 +322,38 @@ def test_serve_requests_answers_eight_requests_of_sixteen_tokens(monkeypatch):
     assert n_tok == 8 * 16 and seconds > 0
     # 8 requests on 4 slots: two rounds of at least 2 prompt + 16 new tokens
     assert engine.cache["pos"] >= 2 * 17
+
+
+def test_kernel_ms_sums_only_the_matching_kernels_per_call(monkeypatch):
+    """The device time per call of the kernels whose names match, from the
+    profiler's kernel intervals (in us), leaving out the other kernels and
+    the host's events."""
+    calls = []
+
+    def event(name, start, end, on_card=True):
+        return SimpleNamespace(
+            name=name, time_range=SimpleNamespace(start=start, end=end),
+            device_type=(cs.torch.autograd.DeviceType.CUDA if on_card
+                         else cs.torch.autograd.DeviceType.CPU))
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [event("ssd_chunk_state_kernel<64, 128>", 0.0, 60.0),
+                    event("ssd_chunk_state_kernel<64, 128>", 100.0, 160.0),
+                    event("vectorized_elementwise_kernel", 60.0, 100.0),
+                    event("ssd_chunk_state", 0.0, 1000.0, on_card=False)]
+
+    monkeypatch.setattr(cs, "profile", Profile)
+    monkeypatch.setattr(cs.torch.cuda, "synchronize", lambda: None)
+    ms = cs.kernel_ms(lambda: calls.append(1), "ssd_chunk_state", iters=2)
+    assert ms == pytest.approx(0.060)
+    assert len(calls) == 3   # one warm-up, then the profiled calls

@@ -127,6 +127,60 @@ def test_ssd_kernels_match_plain(dev, s, chunk, h, p, g, n, init):
     torch.testing.assert_close(final_again, final, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("s,chunk", [(480, 96), (480, 160), (300, 100)])
+@pytest.mark.parametrize("h,p,g,n", [(4, 64, 1, 128), (6, 64, 2, 64),
+                                     (4, 64, 4, 16), (2, 16, 1, 16)])
+def test_ssd_kernels_match_plain_ragged_chunks(dev, s, chunk, h, p, g, n):
+    """Q not a multiple of 64 over several chunks: each chunk's last row
+    tile is partial, and the hand-off runs along them."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, h0 = _ssd(dev, 2, s, h, p, g, n, True, seed=3)
+    y, final = kssd.ssd_scan(x, la, bm, cm, chunk=chunk, initial_state=h0)
+    prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    want_y, want_final = kssd.ssd_scan_plain(x, la, bm, cm, chunk=chunk,
+                                             initial_state=h0)
+    want_prev, _ = kssd.chunk_state_plain(x, la, bm, chunk, h0)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(final.float(), want_final.float(), atol=5e-2,
+                               rtol=5e-2)
+    torch.testing.assert_close(prev, want_prev, atol=5e-2, rtol=5e-2)
+
+
+def test_ssd_hand_off_along_256_chunks(dev):
+    """The chained hand-off under stress: 96 (batch, head) chains of 256
+    chunks each, 24,576 blocks waiting on one another; it must finish and
+    agree with the plain version."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, _ = _ssd(dev, 2, 16384, 48, 64, 1, 128, False, seed=4)
+    y, final = kssd.ssd_scan(x, la, bm, cm, chunk=64)
+    prev, _ = kssd.chunk_state(x, la, bm, chunk=64)
+    torch.cuda.synchronize()
+    want_prev, want_final = kssd.chunk_state_plain(x, la, bm, 64)
+    torch.testing.assert_close(prev, want_prev, atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(final.float(), want_final.float(), atol=5e-2,
+                               rtol=5e-2)
+    want_y = kssd.chunk_scan_plain(x, la, bm, cm, want_prev, 64)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("s,chunk,h,p,g,n,init", [
+    (2048, 256, 48, 64, 1, 128, False), (2048, 256, 50, 64, 1, 16, False),
+    (1024, 256, 16, 64, 4, 64, True), (480, 96, 4, 16, 1, 16, True)])
+def test_ssd_kernels_are_deterministic(dev, s, chunk, h, p, g, n, init):
+    """No atomics in any sum and each state handed on once: two calls on
+    the same inputs give the same bits."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, h0 = _ssd(dev, 2, s, h, p, g, n, init, seed=5)
+    first = kssd.chunk_state(x, la, bm, chunk=chunk, initial_state=h0)
+    second = kssd.chunk_state(x, la, bm, chunk=chunk, initial_state=h0)
+    y1 = kssd.chunk_scan(x, la, bm, cm, first[0], chunk=chunk)
+    y2 = kssd.chunk_scan(x, la, bm, cm, first[0], chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(y1, y2)
+
+
 def test_ssd_kernels_read_strided_b_and_c(dev):
     """B and C as views into one wider (B, S, channels) tensor, the way the
     Mamba2 block hands them over: read in place, same result."""
@@ -286,3 +340,50 @@ def test_moe_forward_on_card_matches_cpu(dev, arch, dispatch):
         bridge.params_to_numpy(params), dev), {"tokens": toks.to(dev)})
     assert moe_gmm.launches == before + 3 * cfg.n_layers
     torch.testing.assert_close(got.float().cpu(), want, atol=5e-2, rtol=5e-2)
+
+
+def _grad_calls(dev):
+    """name -> (launch count, a call of the wrapper on card tensors, the
+    inputs that can require grad)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels import ssd_scan as kssd
+    q, k, v = _qkv(dev, 1, 128, 2, 1, 64)
+    xg, w = _gmm_inputs(dev, 64, 64, 32, 4)
+    sizes = _gmm_sizes(dev, 64, 4, "random")
+    x, la, bm, cm, _ = _ssd(dev, 1, 128, 2, 64, 1, 128, False)
+    prev, _ = kssd.chunk_state(x, la, bm, chunk=64)
+    return {
+        "flash_attention": (lambda: fa.launches,
+                            lambda: fa.flash_attention(q, k, v), (q, k, v)),
+        "grouped_matmul": (lambda: moe_gmm.launches,
+                           lambda: moe_gmm.grouped_matmul(xg, w, sizes), (xg, w)),
+        "ssd_chunk_state": (lambda: kssd.state_launches,
+                            lambda: kssd.chunk_state(x, la, bm, chunk=64),
+                            (x, la, bm)),
+        "ssd_chunk_scan": (lambda: kssd.scan_launches,
+                           lambda: kssd.chunk_scan(x, la, bm, cm, prev, chunk=64),
+                           (x, la, bm, cm, prev)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "grouped_matmul",
+                                  "ssd_chunk_state", "ssd_chunk_scan"])
+def test_kernels_refuse_a_gradient_they_cannot_give(dev, name):
+    """An input that requires grad under grad mode is refused before the
+    launch; under no_grad and inference_mode the kernel runs."""
+    count, call, inputs = _grad_calls(dev)[name]
+    for t in inputs:
+        t.requires_grad_(True)
+        before = count()
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        assert count() == before
+        for mode in (torch.no_grad, torch.inference_mode):
+            with mode():
+                out = call()
+            assert count() == before + 1
+            before = count()
+            assert not (out[0] if isinstance(out, tuple) else out).requires_grad
+        t.requires_grad_(False)
+    torch.cuda.synchronize()

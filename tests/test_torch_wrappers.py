@@ -1,0 +1,145 @@
+"""The kernel wrappers' contract where there is no card.
+
+* A tensor off the CPU that requires grad while grad mode is on is
+  refused before any launch (the CUDA kernels have no backward yet); under
+  ``no_grad`` or ``inference_mode``, or without ``requires_grad``, the
+  wrapper goes on to its checks.  Meta tensors stand in for a card's: they
+  reach the same branch and fail later, at the device check, never at a
+  launch.
+* CPU tensors still take the plain versions, which differentiate.
+* Each ``bind`` declares the C entry points of its CUDA source as the
+  source defines them (read from the source: no compiler needed).
+"""
+import ctypes
+import re
+import types
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm  # noqa: E402
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+
+GRAD_ERROR = "requires grad"
+
+
+def _meta(*shape, dtype=torch.bfloat16, grad=False):
+    return torch.empty(shape, device="meta", dtype=dtype, requires_grad=grad)
+
+
+def _calls(grad: bool):
+    """name -> a call of one wrapper on meta tensors; ``grad`` marks one
+    input as requiring grad."""
+    def fa_call():
+        q = _meta(1, 64, 2, 64, grad=grad)
+        k = _meta(1, 64, 1, 64)
+        return fa.flash_attention(q, k, k)
+
+    def gmm_call():
+        x = _meta(64, 64)
+        w = _meta(4, 64, 32, grad=grad)
+        return moe_gmm.grouped_matmul(x, w, _meta(4, dtype=torch.int32))
+
+    def state_call():
+        x = _meta(1, 64, 2, 64)
+        la = _meta(1, 64, 2, dtype=torch.float32, grad=grad)
+        b = _meta(1, 64, 1, 128)
+        return kssd.chunk_state(x, la, b, chunk=64)
+
+    def scan_call():
+        x = _meta(1, 64, 2, 64)
+        la = _meta(1, 64, 2, dtype=torch.float32)
+        b = _meta(1, 64, 1, 128, grad=grad)
+        prev = _meta(1, 2, 1, 64, 128, dtype=torch.float32)
+        return kssd.chunk_scan(x, la, b, b, prev, chunk=64)
+
+    return {"flash_attention": fa_call, "grouped_matmul": gmm_call,
+            "ssd_chunk_state": state_call, "ssd_chunk_scan": scan_call}
+
+
+@pytest.fixture
+def meta_is_card(monkeypatch):
+    """The SSD wrappers ask ``_on_card`` first: a meta tensor passes as a
+    card's, so that the guard after it is reached."""
+    monkeypatch.setattr(kssd, "_on_card", lambda x: True)
+
+
+WRAPPERS = sorted(_calls(False))
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_guard_refuses_grad_before_any_launch(meta_is_card, monkeypatch, name):
+    def no_launch(*a, **k):
+        raise AssertionError("a kernel was built or launched")
+
+    monkeypatch.setattr(_build, "library", no_launch)
+    with pytest.raises(RuntimeError, match=GRAD_ERROR) as err:
+        _calls(True)[name]()
+    assert name in str(err.value)
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "no input needs grad"])
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_guard_lets_calls_without_grad_through(meta_is_card, mode, name):
+    """Past the guard, the meta tensors fail at the device check (not a
+    card), never at the guard."""
+    ctx = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode,
+           "no input needs grad": torch.enable_grad}[mode]
+    with ctx(), pytest.raises((ValueError, RuntimeError)) as err:
+        _calls(mode != "no input needs grad")[name]()
+    assert GRAD_ERROR not in str(err.value)
+
+
+def test_cpu_tensors_still_differentiate():
+    """The plain versions on the CPU carry the gradient, as the reference's
+    default path does."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 16, 2, 16, generator=gen, requires_grad=True)
+    k = torch.randn(1, 16, 1, 16, generator=gen, requires_grad=True)
+    fa.flash_attention(q, k, k).sum().backward()
+    x = torch.randn(8, 16, generator=gen, requires_grad=True)
+    w = torch.randn(2, 16, 8, generator=gen, requires_grad=True)
+    moe_gmm.grouped_matmul(x, w, torch.tensor([3, 5], dtype=torch.int32)).sum().backward()
+    xs = torch.randn(1, 32, 2, 16, generator=gen, requires_grad=True)
+    la = -torch.rand(1, 32, 2, generator=gen)
+    bm = torch.randn(1, 32, 1, 16, generator=gen, requires_grad=True)
+    y, final = kssd.ssd_scan(xs, la, bm, bm, chunk=16)
+    (y.sum() + final.sum()).backward()
+    for t in (q, k, x, w, xs, bm):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert t.grad.abs().sum() > 0
+
+
+_C_TYPES = {"int": ctypes.c_int}
+
+
+def _c_entry_points(source: str) -> dict[str, list]:
+    """The ctypes argtypes of every function in the source's extern "C"
+    block: pointers (and the stream) as c_void_p, ints as c_int."""
+    text = (_build.CSRC / source).read_text()
+    block = text[text.index('extern "C" {'):]
+    out = {}
+    for name, params in re.findall(r"^int (\w+)\(([^)]*)\)", block, re.M):
+        types_ = []
+        for param in params.split(","):
+            decl = " ".join(param.split()[:-1])
+            types_.append(ctypes.c_void_p if "*" in decl else _C_TYPES[decl])
+        out[name] = types_
+    return out
+
+
+@pytest.mark.parametrize("module,source,names", [
+    (fa, "flash_attention.cu", ["flash_attention_fwd"]),
+    (moe_gmm, "moe_gmm.cu", ["grouped_matmul"]),
+    (kssd, "ssd_scan.cu", ["ssd_chunk_scan", "ssd_chunk_state"])])
+def test_bind_declares_the_c_entry_points_of_the_source(module, source, names):
+    entries = _c_entry_points(source)
+    assert sorted(entries) == names
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in entries})
+    assert module.bind(lib) is lib
+    for name, argtypes in entries.items():
+        assert list(getattr(lib, name).argtypes) == argtypes, name
+        assert getattr(lib, name).restype is ctypes.c_int

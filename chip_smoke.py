@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving paths on one CUDA card and checks them.
+"""Drives the PyTorch port's serving and training paths on one CUDA card and
+checks them.
 
     python3 chip_smoke.py          # from the repository root, one card
 
 Three serving paths: gemma3-1b (attention: the flash-attention kernel),
 mamba2-780m (SSM: the two SSD-scan kernels) and olmoe-1b-7b (MoE: the
-grouped-GEMM kernel, with flash attention).  Phases, each printing one
+grouped-GEMM kernel, with flash attention); then the gemma3-1b training
+path (the flash-attention forward with its LSE and the backward kernels).
+Phases, each printing one
 JSON line; any failure raises, so the script exits non-zero and prints no
 result line:
 
@@ -46,6 +49,26 @@ then for each path in turn (gemma3-1b, mamba2-780m, olmoe-1b-7b):
 7. profile: one prefill and a window of decode steps under
    ``torch.profiler``: device busy time and idle share, kernel launches,
    host synchronisations and device time by kernel class.
+
+Then the training path of gemma3-1b:
+
+3. the flash-attention backward against its plain backward (and the
+   forward's LSE against logsumexp of the plain scores) at gemma3-1b's
+   global, window and ragged shapes, D 128 (olmoe-1b-7b, deepseek-7b),
+   hymba-1.5b's, bidirectional D 80, the smoke head dims and rows whose LSE
+   marks them as having seen no key, with the kernel's, the plain
+   backward's and ``torch.autograd.grad`` through SDPA's times and the
+   bound; then the 26 backward calls of one train step, timed together;
+4. train: ``repro_torch.launch.train.main`` on gemma3-1b at full width and
+   depth (fp32 parameters, bf16 compute, full remat), a (4, 2048) batch
+   from ``make_stream``, 2 warm-up and 5 timed steps, with the launch counts
+   reset just before and read just after: step time, tokens/s, 6·N·T
+   utilisation and peak memory;
+5. correctness: one step's loss and gradients with the kernels against the
+   same with the plain attention in their place, then 8 steps on one
+   repeated batch, in which the loss must fall, and one step's launches
+   (26 forward + 26 recomputed by the remat, 26 backward);
+6. profile: one train step under ``torch.profiler``.
 
 Then the kernels line, the card line and, last, the result line.  There is
 no CPU mode: without a CUDA device the script exits with an error.
@@ -125,6 +148,53 @@ FA_CASES = [
     ("smoke D32 window", 2, 40, 2, 1, 32, True, 16),
     ("smoke D16 MHA", 2, 72, 4, 4, 16, True, 0),
 ]
+#: the flash-attention backward against its plain backward, before the
+#: gemma3-1b training path: name, B, S, Hq, Hkv, D, causal, window, and
+#: whether some rows' LSE is set to -inf (rows that saw no key: no mask of
+#: the kernel leaves a row of S empty, so the backward's contract for such
+#: a row is checked on the forward's LSE with those rows marked)
+FA_BWD_CASES = [
+    ("gemma3-1b global", 4, 2048, 4, 1, 256, True, 0, False),
+    ("gemma3-1b swa", 4, 2048, 4, 1, 256, True, 512, False),
+    ("gemma3-1b ragged", 4, 1000, 4, 1, 256, True, 0, False),
+    ("olmoe-1b-7b D128", 4, 2048, 16, 16, 128, True, 0, False),
+    ("deepseek-7b D128", 4, 2048, 32, 32, 128, True, 0, False),
+    ("hymba-1.5b swa", 4, 2048, 25, 5, 64, True, 1024, False),
+    ("bidirectional D80", 2, 200, 4, 2, 80, False, 0, False),
+    ("smoke D32 window", 2, 40, 2, 1, 32, True, 16, False),
+    ("smoke D16 MHA", 2, 72, 4, 4, 16, True, 0, False),
+    ("rows that saw no key", 2, 300, 4, 2, 128, True, 64, True),
+]
+# The backward's gate, the same form as the forward's (ROW_REL_TOL): per
+# row of dQ, dK or dV (over D), max |kernel - plain| <= 2e-2 of the row's
+# largest |plain| element, plus an absolute floor of 1e-3 for rows whose
+# elements are all small.  The kernel rounds P and dS to bf16 as operands
+# (2**-9 relative each) and its outputs to bf16 (one step, 2**-8 of the
+# row's largest element at worst); the plain backward keeps fp32 throughout.
+BWD_ROW_REL_TOL = 2e-2
+BWD_ABS_FLOOR = 1e-3
+# The forward's LSE against torch.logsumexp of the plain fp32 scores: the
+# kernel sums exp2 by the special-function unit (2 ulp) in fp32, so the
+# LSE agrees to ~1e-6; 1e-3 absolute (natural log) is the gate.
+LSE_TOL = 1e-3
+#: the training path: gemma3-1b at full width and depth, launch.train on a
+#: (4, 2048) batch from make_stream; 2 warm-up steps, then 5 timed
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# The kernels' training step against the same step with the plain
+# attention in the kernels' place, at full width (both bf16 compute, the
+# same fp32 weights and batch).  The bounds come from the forward's check
+# (CONSISTENCY_*), where the same two paths give logits whose mean
+# difference is bounded at 0.05 of the logits' std: the loss is a mean over
+# the positions of lse - gold, which moves by at most twice the row's
+# largest logit difference, so |delta loss| <= 2 x 0.05 x std(logits); the
+# gradient norm sums ~1e9 squared elements, each carrying differences of
+# the size of the activations' mean relative difference, bounded at 0.05.
+TRAIN_LOSS_STD_TOL = 2 * CONSISTENCY_MEAN_REL
+TRAIN_GNORM_REL_TOL = CONSISTENCY_MEAN_REL
+#: steps on one repeated batch in which the loss must fall, and by how much
+LEARN_STEPS = 8
+LEARN_DROP = 0.95
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 #: the TPU kernel each SSD kernel replaces: the chunk states are the state
 #: half of _intra_kernel; the scan holds its y half, the host scan and
@@ -468,6 +538,8 @@ def forward_vs_plain_gmm(model, params, toks, layers: int, top_k: int,
 def kernel_class(name: str) -> str:
     """A coarse class of a device event in a profile, by its name."""
     low = name.lower()
+    if "flash_attention_bwd" in low:
+        return "flash_attention_bwd"
     if "flash_attention" in low:
         return "flash_attention"
     if "ssd_chunk" in low:
@@ -541,22 +613,58 @@ def profiled(fn, steps: int) -> dict:
     return summarize(prof, wall, steps)
 
 
-def sdpa_call(q, k, v, causal, window):
-    """One PyTorch call for the same attention (K, V expanded beforehand);
-    a yardstick for the kernel only, never used by the port."""
+def sdpa_inputs(q, k, v, causal, window):
+    """q, K and V expanded to every query head, in SDPA's (B, H, S, D)
+    layout, and the keyword arguments of the mask."""
     group = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(group, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(group, dim=2).transpose(1, 2)
-    s = q.shape[1]
-    if window > 0:
-        i = torch.arange(s, device=q.device)[:, None]
-        j = torch.arange(s, device=q.device)[None, :]
-        mask = (i - j < window) & ((i >= j) if causal else True)
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask)
-    return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal)
+    if window <= 0:
+        return qt, kt, vt, {"is_causal": causal}
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(q.shape[1], device=q.device)[None, :]
+    return qt, kt, vt, {"attn_mask": (i - j < window) & ((i >= j) if causal else True)}
+
+
+def sdpa_call(q, k, v, causal, window):
+    """One PyTorch call for the same attention (K, V expanded beforehand);
+    a yardstick for the kernel only, never used by the port."""
+    qt, kt, vt, mask = sdpa_inputs(q, k, v, causal, window)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, **mask)
+
+
+def sdpa_grad_call(q, k, v, do, causal, window):
+    """One PyTorch call for the same backward: ``torch.autograd.grad``
+    through ``sdpa_call``'s attention (K, V expanded beforehand, so its dK
+    and dV are per query head, not summed over the group); a yardstick for
+    the backward kernel only, never used by the port."""
+    *leaves, mask = sdpa_inputs(q, k, v, causal, window)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, **mask)
+    return lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                       retain_graph=True)
+
+
+def attention_bwd_floor_ms(b, s, hq, hkv, d, causal, window) -> tuple[float, float]:
+    """(ms for its tensor-core operations, ms for its bytes) of the attention
+    backward: five products per allowed (q, k) pair (S, dP, dV, dQ, dK), so
+    2.5x the forward's 4·B·Hq·D FLOPs; q, k, v, O, dO and dQ, dK, dV once in
+    bf16 and the LSE once in fp32."""
+    flops = 10 * b * hq * d * mask_pairs(s, causal, window)
+    nbytes = 2 * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def grad_row_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, max over rows of the error less the row's allowed
+    BWD_ROW_REL_TOL · max |want row| + BWD_ABS_FLOOR): the second <= 0
+    passes."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(-1)
+    return (err.max().item(),
+            (err - BWD_ROW_REL_TOL * w.abs().amax(-1) - BWD_ABS_FLOOR).max().item())
 
 
 def serve_requests(cfg, params, dev, rng):
@@ -1395,6 +1503,222 @@ def olmoe_path(dev, card) -> dict:
     }
 
 
+def gemma3_train_path(dev, card) -> dict:
+    """The training slice: the flash-attention backward against its plain
+    version, gemma3-1b training at full width through ``launch.train``, the
+    kernels' step against the plain attention's, a falling loss, the launch
+    counts of one step and its profile.  Returns the backward kernel's entry
+    of the kernels line."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import (
+        AdamW, cosine_schedule, global_norm, value_and_grad,
+    )
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    # -- 3. the backward kernel against its plain version --------------------
+    max_err = 0.0
+    for name, b, s, hq, hkv, d, causal, window, empty_rows in FA_BWD_CASES:
+        q, k, v = normal(b, s, hq, d), normal(b, s, hkv, d), normal(b, s, hkv, d)
+        do = normal(b, s, hq, d)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, window=window)
+        lse_err = (lse - fa.flash_attention_lse_plain(
+            q, k, causal=causal, window=window)).abs().max().item()
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"flash_attention LSE {name}: {lse_err} > {LSE_TOL}")
+        if empty_rows:
+            lse[:, :, 5:70] = float("-inf")
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                            window=window)
+        torch.cuda.synchronize()
+        errs = {}
+        for part, a, w in zip(("dq", "dk", "dv"), got, want):
+            errs[part], over = grad_row_err(a, w)
+            if over > 0:
+                raise AssertionError(
+                    f"flash_attention_bwd {name}: {part} max |err| {errs[part]}, "
+                    f"past the row gate ({BWD_ROW_REL_TOL} of the row's largest "
+                    f"|plain| + {BWD_ABS_FLOOR}) by {over}")
+        if empty_rows and not bool((got[0][:, 5:70] == 0).all()):
+            raise AssertionError("flash_attention_bwd: a row that saw no key has dQ != 0")
+        max_err = max(max_err, *errs.values())
+        bound_ms, bound_by = bound(*attention_bwd_floor_ms(b, s, hq, hkv, d,
+                                                           causal, window))
+        emit("kernel_check", kernel="flash_attention_bwd", case=name,
+             shape=[b, s, hq, hkv, d], causal=causal, window=window,
+             rows_without_keys=empty_rows, lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
+             max_abs_err=errs, row_rel_tol=BWD_ROW_REL_TOL, abs_floor=BWD_ABS_FLOOR,
+             ms=time_ms(lambda: fa.flash_attention_bwd(
+                 q, k, v, out, lse, do, causal=causal, window=window), 10),
+             plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
+                 q, k, v, out, lse, do, causal=causal, window=window), 2, 1),
+             library_ms=time_ms(sdpa_grad_call(q, k, v, do, causal, window), 10),
+             bound_ms=bound_ms, bound_by=bound_by, nvidia_smi=card)
+        del q, k, v, do, out, lse, got, want
+
+    # the backward's work in one gemma3-1b train step: one call per layer
+    cfg = get("gemma3-1b")
+    windows = [cfg.window if kind == "swa" else 0 for kind in cfg.layer_types]
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v = (normal(b, s, h, cfg.head_dim)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    do = normal(b, s, cfg.n_heads, cfg.head_dim)
+    saved = {w: fa.flash_attention_with_lse(q, k, v, window=w) for w in set(windows)}
+    lib_calls = [sdpa_grad_call(q, k, v, do, True, w) for w in windows]
+    floors = [attention_bwd_floor_ms(b, s, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim, True, w) for w in windows]
+    mix_bound_ms, mix_bound_by = bound(sum(f[0] for f in floors),
+                                       sum(f[1] for f in floors))
+    train_attn = {
+        "ms": time_ms(lambda: [fa.flash_attention_bwd(q, k, v, *saved[w], do, window=w)
+                               for w in windows], 5),
+        "plain_ms": time_ms(lambda: [fa.flash_attention_bwd_plain(
+            q, k, v, *saved[w], do, window=w) for w in windows], 1, 1),
+        "library_ms": time_ms(lambda: [c() for c in lib_calls], 5),
+        "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
+    }
+    emit("kernel_train_mix", kernel="flash_attention_bwd", layers=len(windows),
+         shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+         nvidia_smi=card, **train_attn)
+    del q, k, v, do, saved, lib_calls
+    torch.cuda.empty_cache()
+
+    # -- 4. train: the main path, at full width and depth ----------------------
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.bwd_launches = 0
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    out = train.main(["--arch", "gemma3-1b", "--steps", str(steps),
+                      "--batch", str(b), "--seq", str(s), "--log-every", "1"])
+    fwd_launches, bwd_launches = fa.launches, fa.bwd_launches
+    want_fwd, want_bwd = 2 * cfg.n_layers * steps, cfg.n_layers * steps
+    if (fwd_launches, bwd_launches) != (want_fwd, want_bwd):
+        raise AssertionError(f"training launched flash_attention {fwd_launches} "
+                             f"and its backward {bwd_launches} times, want "
+                             f"{want_fwd} and {want_bwd}")
+    if out["steps_run"] != steps or not math.isfinite(out["loss"]):
+        raise AssertionError(f"training ran {out['steps_run']} steps, loss {out['loss']}")
+    timed = out["step_seconds"][TRAIN_WARMUP:]
+    step_s = float(np.median(timed))
+    n_params, tokens = cfg.param_count(), b * s
+    emit("train", arch=cfg.name, batch=b, seq=s, remat=cfg.remat,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         loss_chunk=cfg.loss_chunk, warmup_steps=TRAIN_WARMUP,
+         step_seconds=out["step_seconds"], step_ms=step_s * 1e3,
+         tokens_per_s=tokens / step_s, params=n_params,
+         mfu_6nt=6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         flash_attention_launches=fwd_launches,
+         flash_attention_bwd_launches=bwd_launches,
+         final_loss=out["loss"], final_grad_norm=out["grad_norm"], nvidia_smi=card)
+    torch.cuda.empty_cache()
+
+    # -- 5. correctness at full width ------------------------------------------
+    # (a) the kernels' gradient against the plain attention's, one step's
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             make_stream(cfg, b, s, seed=0).batch_at(0).items()}
+    pgen = torch.Generator(device=dev)
+    pgen.manual_seed(0)
+    params = tfm.init_params(cfg, pgen)
+
+    def loss(p, bt):
+        return tfm.loss_fn(cfg, p, bt)
+
+    (k_loss, _), k_grads = value_and_grad(loss, params, batch)
+    kernel = fa.flash_attention
+    fa.flash_attention = fa.flash_attention_plain
+    try:
+        (p_loss, _), p_grads = value_and_grad(loss, params, batch)
+    finally:
+        fa.flash_attention = kernel
+    with torch.no_grad():
+        logit_std = tfm.forward(cfg, params, {"tokens": batch["tokens"][:1]}).float().std().item()
+    k_norm, p_norm = global_norm(k_grads).item(), global_norm(p_grads).item()
+    plain_flat = flatten(p_grads)
+    leaf_rel = {key: ((a - plain_flat[key]).abs().max()
+                      / plain_flat[key].abs().max().clamp_min(1e-30)).item()
+                for key, a in flatten(k_grads).items()}
+    agreement = {
+        "loss": k_loss.item(), "plain_loss": p_loss.item(),
+        "abs_loss_diff": abs(k_loss.item() - p_loss.item()), "logit_std": logit_std,
+        "bound_abs_loss_diff": TRAIN_LOSS_STD_TOL * logit_std,
+        "grad_norm": k_norm, "plain_grad_norm": p_norm,
+        "grad_norm_rel_err": abs(k_norm - p_norm) / p_norm,
+        "bound_grad_norm_rel_err": TRAIN_GNORM_REL_TOL,
+        "leaf_max_abs_diff_over_max_abs_grad": leaf_rel,
+    }
+    emit("train_step_vs_plain_attention", arch=cfg.name, batch=b, seq=s, **agreement)
+    if not (agreement["abs_loss_diff"] <= agreement["bound_abs_loss_diff"]
+            and agreement["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL):
+        raise AssertionError(f"kernel and plain training steps disagree: {agreement}")
+    del params, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+    # (b) the loss falls on one repeated batch; (c) one step's launches
+    opt = AdamW(schedule=cosine_schedule(1e-3, 1, LEARN_STEPS), weight_decay=0.0)
+    pgen.manual_seed(1)
+    state = init_train_state(cfg, opt, pgen)
+    step = make_train_step(cfg, opt)
+    losses = []
+    for i in range(LEARN_STEPS):
+        fa.launches = fa.bwd_launches = 0
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            step_launches = {"flash_attention": fa.launches,
+                             "flash_attention_bwd": fa.bwd_launches}
+    emit("train_learns", arch=cfg.name, steps=LEARN_STEPS, losses=losses,
+         bound_last_over_first=LEARN_DROP, step_launches=step_launches)
+    if not losses[-1] < LEARN_DROP * losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if step_launches != {"flash_attention": 2 * cfg.n_layers,
+                         "flash_attention_bwd": cfg.n_layers}:
+        raise AssertionError(f"one train step launched {step_launches}, want "
+                             f"{2 * cfg.n_layers} forward (26 + 26 recomputed "
+                             f"by the full remat) and {cfg.n_layers} backward")
+
+    # -- 6. profile: where the time of one train step goes --------------------
+    # (also the device time of fill kernels: indexing each layer out of a
+    # stacked weight would fill a zero stack per layer in the backward; the
+    # model unbinds each stacked leaf once instead, whose backward is one
+    # stack)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels_ms: dict[str, float] = collections.Counter()
+    for e in trace.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_ms[e.name[:200]] += (e.time_range.end - e.time_range.start) / 1e3
+    emit("profile_train_step", arch=cfg.name, batch=b, seq=s, nvidia_smi=card,
+         fill_ms=sum(ms for name, ms in kernels_ms.items() if "fill" in name.lower()),
+         elementwise_top_ms=dict(collections.Counter(
+             {n: ms for n, ms in kernels_ms.items()
+              if kernel_class(n) == "elementwise"}).most_common(10)),
+         **summarize(trace, wall, 1))
+    del state, step
+    torch.cuda.empty_cache()
+
+    return {
+        "name": "flash_attention_bwd", "route": "cuda", "source": FA_SOURCE,
+        "replaces": FA_REPLACES, "launches": bwd_launches,
+        "max_abs_err": max_err, **train_attn,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -1429,6 +1753,8 @@ def main() -> None:
     kernels += mamba2_path(dev, card)
     torch.cuda.empty_cache()
     kernels.append(olmoe_path(dev, card))
+    torch.cuda.empty_cache()
+    kernels.append(gemma3_train_path(dev, card))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -7,9 +7,10 @@ import torch
 def refuse_grad(kernel: str, *tensors: torch.Tensor | None) -> None:
     """Raises when autograd would need a gradient through ``kernel``.
 
-    The CUDA kernels have no backward yet: their outputs are fresh tensors
-    filled outside autograd, so a gradient would silently skip them.  A
-    wrapper calls this for a tensor off the CPU, before it launches: under
+    The SSD-scan and grouped-GEMM kernels have no backward yet (flash
+    attention has one, as an autograd.Function): their outputs are fresh
+    tensors filled outside autograd, so a gradient would silently skip them.
+    Their wrappers call this for a tensor off the CPU, before they launch: under
     ``torch.no_grad()`` or ``torch.inference_mode()``, or with inputs that do
     not require grad, it passes.  CPU tensors take the plain versions, which
     differentiate."""

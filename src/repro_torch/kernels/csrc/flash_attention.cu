@@ -1,4 +1,6 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in, bf16 out, fp32 softmax.
+// Flash attention for Hopper (sm_90a), bf16 in, bf16 out, fp32 softmax: the
+// forward (with the rows' log-sum-exp as an optional output) and, below it,
+// the backward (dQ, dK, dV from that log-sum-exp).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // (body _attn_kernel, the pl.pallas_call at :127; padding wrapper
@@ -59,6 +61,8 @@
 //   each consumer runs its products only on the tiles its own 64 rows
 //   reach and only waits and releases the others, so the work done is the
 //   mask's, not S^2.
+// * The log-sum-exp of each row, ln 2 (m + log2 l), goes to an fp32 (B, Hq, S)
+//   output when the caller passes one (training: the backward reads it).
 // * Epilogue: O / l rounded to bf16 into the consumer's own 64 rows of the
 //   Q buffer (Q is dead after its last QK^T), in the swizzled layout the TMA
 //   store reads; the store clips rows past S and columns past D.  No
@@ -267,8 +271,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                                const __grid_constant__ CUtensorMap map_k,
                                const __grid_constant__ CUtensorMap map_v,
                                const __grid_constant__ CUtensorMap map_o,
-                               int seq_len, int hq, int hkv, int causal,
-                               int window, int section, float scale_log2) {
+                               float* __restrict__ lse, int seq_len, int hq,
+                               int hkv, int causal, int window, int section,
+                               float scale_log2) {
   using T = Tiles<D>;
   constexpr int kBK = T::kBK;
   constexpr int kChunks = T::kChunks;
@@ -481,6 +486,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = l[r] == 0.f ? 1.f : 1.f / l[r];  // the l == 0 guard
     }
+    // The log-sum-exp of each row's scaled scores, natural log, for the
+    // backward: ln 2 (m + log2 l), -inf for a row that saw no key.
+    if (lse != nullptr && lane % 4 == 0) {
+      float* lse_bh = lse + (static_cast<long long>(b) * hq + h) * seq_len;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row + 8 * r < seq_len)
+          lse_bh[row + 8 * r] =
+              l[r] == 0.f ? -INFINITY : (m[r] + log2f(l[r])) * 0.6931471805599453f;
+      }
+    }
     warpgroup_sync(1 + wg);   // every warp's products are done with Q
     unsigned char* q_ptr = smem_raw + (q_wg - smem_addr(smem_raw));
     const int r0 = warp * 16 + lane / 4;
@@ -510,8 +526,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 constexpr int kMaxDevices = 64;
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int seq_len, int hq, int hkv, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int seq_len, int hq, int hkv, int causal, int window,
            cudaStream_t stream) {
   using T = Tiles<D>;
   static bool raised[kMaxDevices];
@@ -561,34 +577,576 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
       ((pairs + sections - 1) / sections + group - 1) / group * group);
   const float scale_log2 = rsqrtf(static_cast<float>(D)) * 1.4426950408889634f;
   flash_attention_fwd_kernel<D><<<grid, kThreads, T::kSmem, stream>>>(
-      map_q, map_k, map_v, map_o, seq_len, hq, hkv, causal, window, section,
-      scale_log2);
+      map_q, map_k, map_v, map_o, lse, seq_len, hq, hkv, causal, window,
+      section, scale_log2);
   return cudaGetLastError();
 }
+
+// ===========================================================================
+// Backward: dQ, dK and dV from the forward's log-sum-exp (FA2's algorithm)
+// ===========================================================================
+//
+// The Pallas kernel has no backward: the reference differentiates its plain
+// attention with XLA's autodiff.  This is that gradient on the card, for the
+// forward above.  From q, k, v, o, dO (bf16) and the forward's LSE (fp32):
+//   delta = rowsum(dO o O);  P = exp(Q K^T scale - LSE);  dV = P^T dO;
+//   dS = P o (dO V^T - delta);  dQ = dS K scale;  dK = dS^T Q scale,
+// with the forward's masks (causal, window, bidirectional, k < S), every sum
+// in fp32 and P and dS rounded to bf16 as operands of the last three
+// products.  A row whose LSE is -inf (it saw no key) contributes nothing.
+//
+// What bounds it: five products per allowed (q, k) pair, 2.5x the forward's
+// operations, against ~9 tensors of bytes, so operations.  This first
+// version recomputes S and dP in both kernels (7 products), with mma.sync
+// m16n8k16 tiles fed by ldmatrix from padded shared memory (row stride D + 8
+// elements: the 8 rows of an ldmatrix fall on distinct banks); each block
+// loads its next inner tile by cp.async into a second buffer while it
+// computes the current one.  What holds it back (PERF.md, by ablation):
+// the operands' traffic through ldmatrix and the loads; wgmma and TMA are
+// later work.
+//
+// Two kernels, launched in order by one entry point, both deterministic (no
+// atomics):
+// * dq: one block of 8 warps serves 64 query rows of one (batch, head).  It
+//   first computes delta for its rows (written out for the second kernel),
+//   then walks the key tiles its rows reach (64 keys each): S and dP for the
+//   tile, dS into shared memory in bf16, dQ += dS K in registers.
+// * dkv: one block serves a tile of key rows of one (batch, KV head) -- 64
+//   rows, or 32 at D 256, so that the dK and dV accumulators (2 x rows x D
+//   fp32) take at most 64 registers a thread and do not spill -- and walks
+//   every query head of the KV group and, in each, the query tiles that
+//   reach its keys: S^T and dP^T, P^T and dS^T into shared memory in bf16,
+//   then dV += P^T dO and dK += dS^T Q.  Summing over the group's heads in
+//   one block is the GQA reduction, in a fixed order.
+// Tiles that no row of the block reaches are skipped, so gemma3's window-512
+// layers at S 2048 do about a quarter of a global layer's work.
+
+namespace bwd {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 64;        // query rows of a dq block; query/key tiles
+constexpr int kLdS = kTile + 8;  // row stride (elements) of the bf16 score tiles
+
+template <int D>
+struct Shape {
+  static constexpr int kLd = D + 8;                 // row stride, elements
+  static constexpr int kKeyRows = D >= 256 ? 32 : 64;  // key rows of a dkv block
+  // dq: warps 4 (rows) x 2 (columns)
+  static constexpr int kDqNt = D / 16;              // n8 tiles of dQ a warp
+  static constexpr int kDqSmem =   // Q, dO, 2 x (K, V), dS, LSE, delta
+      6 * kTile * kLd * 2 + kTile * kLdS * 2 + 2 * kTile * 4;
+  // dkv: warps (key rows / 16) x the rest
+  static constexpr int kWm = kKeyRows / 16;
+  static constexpr int kWn = kWarps / kWm;
+  static constexpr int kScoreNt = kTile / kWn / 8;  // n8 tiles of S^T a warp
+  static constexpr int kAccNt = D / 8 / kWn;        // n8 tiles of dK, dV a warp
+  // K, V, 2 x (Q, dO), P^T, dS^T, 2 x (LSE, delta)
+  static constexpr int kDkvSmem = 2 * kKeyRows * kLd * 2 + 4 * kTile * kLd * 2 +
+                                  2 * kKeyRows * kLdS * 2 + 4 * kTile * 4;
+  static_assert(D % 16 == 0, "head dim");
+  static_assert(kScoreNt % 2 == 0, "score tiles come in pairs");
+  static_assert(D % (8 * kWn) == 0, "dK/dV columns split over the warps");
+  static_assert(kDqSmem <= 227 * 1024 && kDkvSmem <= 227 * 1024, "shared memory");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  // src-size 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16) b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copies rows [row0, row0 + kRows) of a (S, H, D) slice (rows `stride`
+// elements apart) into shared memory at `dst` (row stride D + 8), 16 bytes a
+// thread and step; rows at or past S become zeros.  Not waited for.
+template <int D, int kRows>
+__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src,
+                                          int row0, int seq_len, long long stride) {
+  constexpr int kPerRow = D / 8;
+  for (int i = threadIdx.x; i < kRows * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = i % kPerRow;
+    const bool valid = row0 + r < seq_len;
+    const __nv_bfloat16* p = valid ? src + (row0 + r) * stride + c * 8 : src;
+    cp_async16(dst + (r * (D + 8) + c * 8) * 2, p, valid);
+  }
+}
+
+// c[j] (16 x 8, n8 tile j) = A B, A 16 rows of `a` (row-major, k contiguous,
+// `ld` bytes a row), B's column n row n of `bt` (n-major, k contiguous), k
+// over kDepth.  Each ldmatrix.x4 of bt gives the b fragments of two n8 tiles.
+template <int kNt, int kDepth>
+__device__ __forceinline__ void warp_abt(float (&c)[kNt][4], uint32_t a,
+                                         uint32_t bt, int ld, int lane) {
+#pragma unroll
+  for (int j = 0; j < kNt; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  const uint32_t a_row = a + (lane % 16) * ld + (lane / 16) * 16;
+  const uint32_t b_row = bt + ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 16;
+#pragma unroll
+  for (int k = 0; k < kDepth / 16; ++k) {
+    uint32_t af[4];
+    ldsm_x4(af, a_row + k * 32);
+#pragma unroll
+    for (int j = 0; j < kNt; j += 2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b_row + j * 8 * ld + k * 32);
+      mma16816(c[j], af, bf[0], bf[1]);
+      mma16816(c[j + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// c[j] += A B, A 16 rows of `a` (row-major, `lda` bytes a row), B kDepth
+// rows of `b` (k-major: row k holds the n columns, `ldb` bytes a row), read
+// with ldmatrix's transpose; kNt n8 tiles from b's first column.
+template <int kNt, int kDepth>
+__device__ __forceinline__ void warp_ab(float (&c)[kNt][4], uint32_t a, int lda,
+                                        uint32_t b, int ldb, int lane) {
+  const uint32_t a_row = a + (lane % 16) * lda + (lane / 16) * 16;
+  const uint32_t b_row = b + (((lane / 8) % 2) * 8 + lane % 8) * ldb + (lane / 16) * 16;
+#pragma unroll
+  for (int k = 0; k < kDepth / 16; ++k) {
+    uint32_t af[4];
+    ldsm_x4(af, a_row + k * 32);
+#pragma unroll
+    for (int j = 0; j + 1 < kNt; j += 2) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, b_row + k * 16 * ldb + j * 16);
+      mma16816(c[j], af, bf[0], bf[1]);
+      mma16816(c[j + 1], af, bf[2], bf[3]);
+    }
+    if constexpr (kNt % 2 == 1) {
+      uint32_t bf[2];
+      ldsm_x2_t(bf, b_row + k * 16 * ldb + (kNt - 1) * 16);
+      mma16816(c[kNt - 1], af, bf[0], bf[1]);
+    }
+  }
+}
+
+__device__ __forceinline__ bool allowed_pair(int qpos, int kpos, int seq_len,
+                                             int causal, int window) {
+  return qpos < seq_len && allowed(qpos, kpos, seq_len, causal, window);
+}
+
+// A row's LSE in base 2 for exp2: +inf for a row past S or one that saw no
+// key (LSE -inf), so that its P is exp2(-inf) = 0.
+__device__ __forceinline__ float lse_base2(const float* lse, int qpos, int seq_len) {
+  if (qpos >= seq_len) return INFINITY;
+  const float x = lse[qpos];
+  return x == -INFINITY ? INFINITY : x * 1.4426950408889634f;
+}
+
+// Stores a warp's 16 x (8 kNt) fp32 fragments (times `scale`) as bf16 into
+// rows [row0, row0 + 16) and columns [col0, ...) of a (S, H, D) slice, rows
+// at or past S skipped.
+template <int kNt>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&c)[kNt][4],
+                                           int row0, int col0, int seq_len,
+                                           long long stride, float scale, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + lane / 4 + 8 * half;
+    if (r >= seq_len) continue;
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r * stride + col0 + 8 * j +
+                                         2 * (lane % 4)) =
+          __floats2bfloat162_rn(c[j][2 * half] * scale, c[j][2 * half + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+    const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
+    __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int seq_len,
+    int hq, int hkv, int causal, int window, float scale, float scale_log2) {
+  using T = Shape<D>;
+  constexpr int kLdB = T::kLd * 2;   // bytes a row
+  constexpr int kTileB = kTile * kLdB;
+  extern __shared__ unsigned char smem_raw[];
+  // Q, dO, then K and V in two buffers each (tile i + 1 loads while tile i
+  // is computed), dS, the rows' LSE and delta
+  const uint32_t s_q = smem_addr(smem_raw);
+  const uint32_t s_do = s_q + kTileB;
+  const uint32_t s_k = s_do + kTileB;      // + buffer x kTileB
+  const uint32_t s_v = s_k + 2 * kTileB;   // + buffer x kTileB
+  const uint32_t s_ds = s_v + 2 * kTileB;
+  __nv_bfloat16* ds_ptr = reinterpret_cast<__nv_bfloat16*>(smem_raw + 6 * kTileB);
+  float* lse_s = reinterpret_cast<float*>(smem_raw + 6 * kTileB + kTile * kLdS * 2);
+  float* delta_s = lse_s + kTile;
+  const __nv_bfloat16* do_ptr = reinterpret_cast<const __nv_bfloat16*>(smem_raw + kTileB);
+
+  // the longest causal rows first
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int h_kv = h / (hq / hkv);
+  const long long q_stride = static_cast<long long>(hq) * D;
+  const long long kv_stride = static_cast<long long>(hkv) * D;
+  const long long q_off = (static_cast<long long>(b) * seq_len * hq + h) * D;
+  const long long kv_off = (static_cast<long long>(b) * seq_len * hkv + h_kv) * D;
+  const float* lse_bh = lse + (static_cast<long long>(b) * hq + h) * seq_len;
+  float* delta_bh = delta + (static_cast<long long>(b) * hq + h) * seq_len;
+
+  // the key tiles these rows reach
+  const int k_lo = window > 0 ? max(0, q_start - window + 1) : 0;
+  const int k_hi = causal ? min(seq_len, q_start + kTile) : seq_len;
+  const int t0 = k_lo / kTile;
+  const int n_tiles = (k_hi + kTile - 1) / kTile - t0;   // >= 1
+  const auto load_kv = [&](int i) {
+    load_rows<D, kTile>(s_k + (i & 1) * kTileB, k + kv_off, (t0 + i) * kTile,
+                        seq_len, kv_stride);
+    load_rows<D, kTile>(s_v + (i & 1) * kTileB, v + kv_off, (t0 + i) * kTile,
+                        seq_len, kv_stride);
+    cp_async_commit();
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  load_rows<D, kTile>(s_q, q + q_off, q_start, seq_len, q_stride);
+  load_rows<D, kTile>(s_do, dout + q_off, q_start, seq_len, q_stride);
+  cp_async_commit();
+  load_kv(0);
+  cp_async_wait<1>();   // Q and dO are in; the first K and V may still fly
+  __syncthreads();
+
+  // delta = rowsum(dO o O) for the block's rows, 8 rows a warp
+  for (int rr = 0; rr < kTile / kWarps; ++rr) {
+    const int r = warp * (kTile / kWarps) + rr;
+    const int qpos = q_start + r;
+    float acc = 0.f;
+    if (qpos < seq_len) {
+      for (int d = lane; d < D; d += 32)
+        acc += __bfloat162float(do_ptr[r * T::kLd + d]) *
+               __bfloat162float(o[q_off + qpos * q_stride + d]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      delta_s[r] = acc;
+      lse_s[r] = lse_base2(lse_bh, qpos, seq_len);
+      if (qpos < seq_len) delta_bh[qpos] = acc;
+    }
+  }
+
+  // warp (wm, wn): rows 16 wm; score columns 32 wn; dQ columns wn D / 2
+  const int wm = warp % 4, wn = warp / 4;
+  float acc[T::kDqNt][4];
+#pragma unroll
+  for (int j = 0; j < T::kDqNt; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) {
+      load_kv(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile i's K and V (and delta_s, lse_s) are in
+    const int k_start = (t0 + i) * kTile;
+    const uint32_t k_buf = s_k + (i & 1) * kTileB;
+    const uint32_t v_buf = s_v + (i & 1) * kTileB;
+
+    float s[4][4], dp[4][4];
+    warp_abt<4, D>(s, s_q + wm * 16 * kLdB, k_buf + wn * 32 * kLdB, kLdB, lane);
+    warp_abt<4, D>(dp, s_do + wm * 16 * kLdB, v_buf + wn * 32 * kLdB, kLdB, lane);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wm * 16 + lane / 4 + 8 * half;
+      const float m2 = lse_s[r], dl = delta_s[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wn * 32 + 8 * j + 2 * (lane % 4);
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = allowed_pair(q_start + r, k_start + c + e, seq_len, causal, window);
+          const float p = ok ? exp2_ftz(fmaf(s[j][2 * half + e], scale_log2, -m2)) : 0.f;
+          ds[e] = p * (dp[j][2 * half + e] - dl);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(ds_ptr + r * kLdS + c) =
+            __floats2bfloat162_rn(ds[0], ds[1]);
+      }
+    }
+    __syncthreads();
+    warp_ab<T::kDqNt, kTile>(acc, s_ds + wm * 16 * kLdS * 2, kLdS * 2,
+                             k_buf + wn * (D / 2) * 2, kLdB, lane);
+    __syncthreads();   // dS and this K, V buffer are overwritten next
+  }
+  store_rows<T::kDqNt>(dq + q_off, acc, q_start + wm * 16, wn * (D / 2), seq_len,
+                       q_stride, scale, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkv_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ lse,
+    const float* __restrict__ delta, const __nv_bfloat16* __restrict__ dout,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int seq_len,
+    int hq, int hkv, int causal, int window, float scale, float scale_log2) {
+  using T = Shape<D>;
+  constexpr int kRows = T::kKeyRows;
+  constexpr int kLdB = T::kLd * 2;
+  constexpr int kTileB = kTile * kLdB;
+  extern __shared__ unsigned char smem_raw[];
+  // K, V; Q and dO in two buffers each (query tile i + 1 loads while tile i
+  // is computed); P^T, dS^T; the query rows' LSE and delta, two buffers
+  const uint32_t s_k = smem_addr(smem_raw);
+  const uint32_t s_v = s_k + kRows * kLdB;
+  const uint32_t s_q = s_v + kRows * kLdB;    // + buffer x kTileB
+  const uint32_t s_do = s_q + 2 * kTileB;     // + buffer x kTileB
+  const uint32_t s_p = s_do + 2 * kTileB;
+  const uint32_t s_ds = s_p + kRows * kLdS * 2;
+  unsigned char* score_raw = smem_raw + 2 * kRows * kLdB + 4 * kTileB;
+  __nv_bfloat16* p_ptr = reinterpret_cast<__nv_bfloat16*>(score_raw);
+  __nv_bfloat16* ds_ptr = p_ptr + kRows * kLdS;
+  float* lse_s = reinterpret_cast<float*>(score_raw + 2 * kRows * kLdS * 2);  // [2][64]
+  float* delta_s = lse_s + 2 * kTile;                                         // [2][64]
+
+  const int key_start = blockIdx.x * kRows;   // the longest causal columns first
+  const int h_kv = blockIdx.y, b = blockIdx.z;
+  const int group = hq / hkv;
+  const long long q_stride = static_cast<long long>(hq) * D;
+  const long long kv_stride = static_cast<long long>(hkv) * D;
+  const long long kv_off = (static_cast<long long>(b) * seq_len * hkv + h_kv) * D;
+
+  // the query tiles that reach these keys, in every head of the KV group:
+  // item i is head h_kv * group + i / n_tiles, query tile t0 + i % n_tiles
+  const int q_lo = causal ? key_start : 0;
+  const int q_hi = window > 0 ? min(seq_len, key_start + kRows - 1 + window) : seq_len;
+  const int t0 = q_lo / kTile;
+  const int n_tiles = (q_hi + kTile - 1) / kTile - t0;   // >= 1
+  const int n_items = group * n_tiles;
+  // Issues item i's loads into buffer i & 1: Q and dO by cp.async (then
+  // committed), the rows' LSE and delta by the first 64 threads.
+  const auto load_item = [&](int i) {
+    const int h = h_kv * group + i / n_tiles;
+    const int q_start = (t0 + i % n_tiles) * kTile;
+    const long long q_off = (static_cast<long long>(b) * seq_len * hq + h) * D;
+    load_rows<D, kTile>(s_q + (i & 1) * kTileB, q + q_off, q_start, seq_len, q_stride);
+    load_rows<D, kTile>(s_do + (i & 1) * kTileB, dout + q_off, q_start, seq_len,
+                        q_stride);
+    cp_async_commit();
+    if (threadIdx.x < kTile) {
+      const long long bh = (static_cast<long long>(b) * hq + h) * seq_len;
+      const int qpos = q_start + threadIdx.x;
+      lse_s[(i & 1) * kTile + threadIdx.x] = lse_base2(lse + bh, qpos, seq_len);
+      delta_s[(i & 1) * kTile + threadIdx.x] = qpos < seq_len ? delta[bh + qpos] : 0.f;
+    }
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // warp (wm, wn): key rows 16 wm; score columns wn 64 / kWn; dK, dV columns
+  // wn D / kWn
+  const int wm = warp % T::kWm, wn = warp / T::kWm;
+  constexpr int kScoreCols = kTile / T::kWn;
+  constexpr int kAccCols = D / T::kWn;
+
+  load_rows<D, kRows>(s_k, k + kv_off, key_start, seq_len, kv_stride);
+  load_rows<D, kRows>(s_v, v + kv_off, key_start, seq_len, kv_stride);
+  load_item(0);   // commits K and V with item 0's Q and dO
+
+  float acc_dk[T::kAccNt][4], acc_dv[T::kAccNt][4];
+#pragma unroll
+  for (int j = 0; j < T::kAccNt; ++j) {
+    acc_dk[j][0] = acc_dk[j][1] = acc_dk[j][2] = acc_dk[j][3] = 0.f;
+    acc_dv[j][0] = acc_dv[j][1] = acc_dv[j][2] = acc_dv[j][3] = 0.f;
+  }
+
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) {
+      load_item(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // item i's Q, dO, LSE and delta are in
+    const int q_start = (t0 + i % n_tiles) * kTile;
+    const uint32_t q_buf = s_q + (i & 1) * kTileB;
+    const uint32_t do_buf = s_do + (i & 1) * kTileB;
+    const float* lse_i = lse_s + (i & 1) * kTile;
+    const float* delta_i = delta_s + (i & 1) * kTile;
+
+    float st[T::kScoreNt][4], dpt[T::kScoreNt][4];
+    warp_abt<T::kScoreNt, D>(st, s_k + wm * 16 * kLdB, q_buf + wn * kScoreCols * kLdB,
+                             kLdB, lane);
+    warp_abt<T::kScoreNt, D>(dpt, s_v + wm * 16 * kLdB, do_buf + wn * kScoreCols * kLdB,
+                             kLdB, lane);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wm * 16 + lane / 4 + 8 * half;   // key row
+#pragma unroll
+      for (int j = 0; j < T::kScoreNt; ++j) {
+        const int c = wn * kScoreCols + 8 * j + 2 * (lane % 4);   // query column
+        float pv[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = allowed_pair(q_start + c + e, key_start + r, seq_len,
+                                       causal, window);
+          pv[e] = ok ? exp2_ftz(fmaf(st[j][2 * half + e], scale_log2, -lse_i[c + e]))
+                     : 0.f;
+          ds[e] = pv[e] * (dpt[j][2 * half + e] - delta_i[c + e]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(p_ptr + r * kLdS + c) =
+            __floats2bfloat162_rn(pv[0], pv[1]);
+        *reinterpret_cast<__nv_bfloat162*>(ds_ptr + r * kLdS + c) =
+            __floats2bfloat162_rn(ds[0], ds[1]);
+      }
+    }
+    __syncthreads();
+    warp_ab<T::kAccNt, kTile>(acc_dv, s_p + wm * 16 * kLdS * 2, kLdS * 2,
+                              do_buf + wn * kAccCols * 2, kLdB, lane);
+    warp_ab<T::kAccNt, kTile>(acc_dk, s_ds + wm * 16 * kLdS * 2, kLdS * 2,
+                              q_buf + wn * kAccCols * 2, kLdB, lane);
+    __syncthreads();   // the score tiles and this item's buffers are overwritten next
+  }
+  store_rows<T::kAccNt>(dk + kv_off, acc_dk, key_start + wm * 16, wn * kAccCols,
+                        seq_len, kv_stride, scale, lane);
+  store_rows<T::kAccNt>(dv + kv_off, acc_dv, key_start + wm * 16, wn * kAccCols,
+                        seq_len, kv_stride, 1.f, lane);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const float* lse, const void* dout, void* dq, void* dk, void* dv,
+           float* delta, int batch, int seq_len, int hq, int hkv, int causal,
+           int window, cudaStream_t stream) {
+  using T = Shape<D>;
+  static bool raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::kDqSmem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               T::kDkvSmem);
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  using bf16 = __nv_bfloat16;
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const dim3 grid_dq((seq_len + kTile - 1) / kTile, hq, batch);
+  flash_attention_bwd_dq_kernel<D><<<grid_dq, kThreads, T::kDqSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o), lse,
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), delta, seq_len, hq,
+      hkv, causal, window, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_dkv((seq_len + T::kKeyRows - 1) / T::kKeyRows, hkv, batch);
+  flash_attention_bwd_dkv_kernel<D><<<grid_dkv, kThreads, T::kDkvSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), lse, delta, static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_len, hq, hkv, causal,
+      window, scale, scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
 
 }  // namespace
 
 extern "C" {
 
 // q, o: (B, S, Hq, D); k, v: (B, S, Hkv, D); all contiguous bf16 on one
-// device, 16-byte aligned.  Returns the launch's cudaError_t (0 on
-// success).  The head dims compiled here are HEAD_DIMS in
-// repro_torch/kernels/flash_attention.py.
+// device, 16-byte aligned.  lse: (B, Hq, S) fp32, written when not null.
+// Returns the launch's cudaError_t (0 on success).  The head dims compiled
+// here are HEAD_DIMS in repro_torch/kernels/flash_attention.py.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int batch, int seq_len, int hq, int hkv, int head_dim,
-                        int causal, int window, void* stream) {
+                        void* lse, int batch, int seq_len, int hq, int hkv,
+                        int head_dim, int causal, int window, void* stream) {
   if (batch <= 0 || seq_len <= 0 || hkv <= 0 || hq % hkv != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (head_dim) {
-    case 16: return launch<16>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
-    case 32: return launch<32>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
-    case 64: return launch<64>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
-    case 80: return launch<80>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
-    case 128: return launch<128>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
-    case 256: return launch<256>(q, k, v, o, batch, seq_len, hq, hkv, causal, window, s);
+    case 16: return launch<16>(q, k, v, o, l, batch, seq_len, hq, hkv, causal, window, s);
+    case 32: return launch<32>(q, k, v, o, l, batch, seq_len, hq, hkv, causal, window, s);
+    case 64: return launch<64>(q, k, v, o, l, batch, seq_len, hq, hkv, causal, window, s);
+    case 80: return launch<80>(q, k, v, o, l, batch, seq_len, hq, hkv, causal, window, s);
+    case 128: return launch<128>(q, k, v, o, l, batch, seq_len, hq, hkv, causal, window, s);
+    case 256: return launch<256>(q, k, v, o, l, batch, seq_len, hq, hkv, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The backward of flash_attention_fwd: q, k, v, o, dout as there (dout o's
+// shape), lse its (B, Hq, S) fp32 output; writes dq (q's shape) and dk, dv
+// (k's shape) in bf16, and delta, (B, Hq, S) fp32 scratch.  Launches the dq
+// kernel, then the dkv kernel, on `stream`.  Returns the first failing
+// launch's cudaError_t (0 on success).
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* o, const void* lse, const void* dout,
+                        void* dq, void* dk, void* dv, void* delta, int batch,
+                        int seq_len, int hq, int hkv, int head_dim, int causal,
+                        int window, void* stream) {
+  if (batch <= 0 || seq_len <= 0 || hkv <= 0 || hq % hkv != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+#define REPRO_FA_BWD(D)                                                       \
+  bwd::launch<D>(q, k, v, o, l, dout, dq, dk, dv, dl, batch, seq_len, hq, hkv, \
+                 causal, window, s)
+  switch (head_dim) {
+    case 16: return REPRO_FA_BWD(16);
+    case 32: return REPRO_FA_BWD(32);
+    case 64: return REPRO_FA_BWD(64);
+    case 80: return REPRO_FA_BWD(80);
+    case 128: return REPRO_FA_BWD(128);
+    case 256: return REPRO_FA_BWD(256);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_FA_BWD
 }
 
 }  // extern "C"

@@ -1,20 +1,30 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
 Port of the TPU kernel ``repro.kernels.flash_attention`` and its padding
-wrapper ``repro.kernels.ops.flash_attention``.  The kernel is
-``csrc/flash_attention.cu``, CUDA C++ for sm_90a: a block of three
-warpgroups serves 128 query rows of one (batch, head); one warpgroup
-issues TMA loads of Q and of a 2-stage K/V ring, two multiply with wgmma
-(QK^T from shared memory, PV with P from registers) and run the online
-softmax between the products.  Its header says what bounds it, how it is
-built and what the design does about it.
+wrapper ``repro.kernels.ops.flash_attention``.  The kernels are in
+``csrc/flash_attention.cu``, CUDA C++ for sm_90a:
+
+* the forward: a block of three warpgroups serves 128 query rows of one
+  (batch, head); one warpgroup issues TMA loads of Q and of a 2-stage K/V
+  ring, two multiply with wgmma (QK^T from shared memory, PV with P from
+  registers) and run the online softmax between the products.  It can also
+  write each row's log-sum-exp (LSE), which the backward reads;
+* the backward, which the Pallas kernel never had (the reference
+  differentiates its plain attention with XLA): two mma.sync kernels, dQ
+  (which also computes delta = rowsum(dO∘O)) and then dK/dV, the dK/dV
+  block summing over the query heads of its KV group.
+
+The source's header says what bounds each and what its design does about it.
 
 * A CPU tensor goes to :func:`flash_attention_plain`, a dense masked
-  softmax in fp32 (the oracle ``ref.flash_attention_ref``).
-* A CUDA tensor goes to the kernel, or the wrapper raises: bf16 only,
-  head dims in :data:`HEAD_DIMS`, contiguous (B, S, H, D) layout, no
-  input that requires grad while grad mode is on (the kernel has no
-  backward yet).  There is no fallback to the plain version.
+  softmax in fp32 (the oracle ``ref.flash_attention_ref``), which
+  differentiates by autograd.
+* A CUDA tensor goes to the kernels, or the wrapper raises: bf16 only, head
+  dims in :data:`HEAD_DIMS`, contiguous (B, S, H, D) layout.  Under grad
+  mode with an input that requires grad, the call goes through
+  :class:`FlashAttention`, whose forward saves the LSE and whose backward
+  launches the backward kernels.  There is no fallback to the plain version.
 
 Shapes: q (B, S, Hq, D); k, v (B, S, Hkv, D) with Hq a multiple of Hkv.
 Masks: ``causal`` and ``window`` (allowed iff 0 <= q - k < window when
@@ -27,27 +37,37 @@ import functools
 
 import torch
 
-from . import _build, refuse_grad
-from .ref import flash_attention_ref
+from . import _build
+from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
 
 #: head dims the CUDA source is compiled for (its ``switch`` in
-#: ``flash_attention_fwd``); 16 is the MoE smoke configs', 64 hymba-1.5b's
+#: ``flash_attention_fwd`` and ``flash_attention_bwd``); 16 is the MoE smoke
+#: configs', 64 hymba-1.5b's
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
-#: kernel launches since the last reset; the wrapper adds one per launch
+#: forward kernel launches since the last reset; the wrapper adds one per
+#: launch
 launches = 0
+#: backward launches (the dQ kernel, then the dK/dV kernel) since the last
+#: reset; the wrapper adds one per call of ``flash_attention_bwd`` in C
+bwd_launches = 0
 
-#: the plain version of the kernel's function, for CPU tensors and for
-#: holding the kernel against on the card
+#: the plain versions of the kernels' functions, for CPU tensors and for
+#: holding the kernels against on the card
 flash_attention_plain = flash_attention_ref
+flash_attention_lse_plain = flash_attention_lse_ref
+flash_attention_bwd_plain = flash_attention_bwd_ref
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the C entry point of a loaded build of ``flash_attention.cu``."""
+    """Declares the C entry points of a loaded build of ``flash_attention.cu``."""
     # pointers and the stream as c_void_p, or ctypes cuts them to 32 bits
     lib.flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.flash_attention_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -56,7 +76,10 @@ def _library() -> ctypes.CDLL:
     return bind(_build.library("flash_attention"))
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           *like_q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,S,Hq,D), k = v (B,S,Hkv,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -68,7 +91,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported by the kernel; "
                          f"supported: {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for t in like_q:
+        if t.shape != q.shape:
+            raise ValueError(f"want {tuple(q.shape)}, got {tuple(t.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v),
+                    *((f"q-shaped input {i}", t) for i, t in enumerate(like_q))):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
@@ -79,26 +106,102 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Exact attention, output (B, S, Hq, D) in q's dtype."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             window: int, with_lse: bool
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One launch of the forward kernel: (O, the rows' LSE or None)."""
     global launches
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    refuse_grad("flash_attention", q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v)
     b, s, hq, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
             b, s, hq, k.shape[2], d, int(causal), int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")
     launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             *, causal: bool = True, window: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's output and its rows' LSE, (B, Hq, S) fp32 (no
+    autograd); the plain versions for a CPU tensor."""
+    if q.device.type == "cpu":
+        return (flash_attention_plain(q, k, v, causal=causal, window=window),
+                flash_attention_lse_plain(q, k, causal=causal, window=window))
+    return _forward(q, k, v, causal, window, with_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention from the forward's output ``o`` and LSE and
+    the output's gradient ``do``; the backward kernels on a CUDA tensor, the
+    plain backward on a CPU tensor."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+    _check(q, k, v, o, do)
+    b, s, hq, d = q.shape
+    if (lse.shape != (b, hq, s) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be contiguous fp32 {(b, hq, s)} on "
+                         f"{q.device}; got {lse.dtype} {tuple(lse.shape)} "
+                         f"on {lse.device}")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, s, hq, k.shape[2], d,
+            int(causal), int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"cudaError {err}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernels under autograd: the forward saves q, k, v, O and the LSE;
+    the backward launches the backward kernels on dO made contiguous."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Exact attention, output (B, S, Hq, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, with_lse=False)[0]

@@ -6,11 +6,9 @@ import torch
 NEG_INF = -2.0e38
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Dense masked attention oracle. q (B,S,Hq,D); k,v (B,S,Hkv,D).
-
-    Scores, softmax and PV in fp32; output in q's dtype."""
+def _scaled_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 scores q·k / sqrt(D) as (B, Hkv, G, S, S) and the (S, S) mask."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, d).float() * d ** -0.5
@@ -22,10 +20,60 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = i >= j
     if window > 0:
         mask = mask & (i - j < window)
+    return scores, mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Dense masked attention oracle. q (B,S,Hq,D); k,v (B,S,Hkv,D).
+
+    Scores, softmax and PV in fp32; output in q's dtype."""
+    b, s, hq, d = q.shape
+    scores, mask = _scaled_scores(q, k, causal, window)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Each row's log-sum-exp of its masked scaled scores, (B, Hq, S) fp32,
+    natural log; -inf for a row whose every key is masked."""
+    b, s, hq, _ = q.shape
+    scores, mask = _scaled_scores(q, k, causal, window)
+    lse = torch.logsumexp(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    return lse.reshape(b, hq, s)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                            *, causal: bool = True, window: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of attention from the forward's output ``o`` and its rows'
+    log-sum-exp ``lse`` (B, Hq, S), densely in fp32 (FA2's formulas):
+    delta = rowsum(dO∘O), P = exp(QKᵀ·scale − LSE), dV = PᵀdO,
+    dS = P∘(dO·Vᵀ − delta), dQ = dS·K·scale, dK = dSᵀ·Q·scale.  dK and dV
+    sum over the query heads of each KV group.  A row whose LSE is -inf
+    (it saw no key) has P = 0.  Returns (dq, dk, dv) in q's dtype."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scores, mask = _scaled_scores(q, k, causal, window)
+    lse_g = lse.float().reshape(b, hkv, g, s)[..., None]
+    live = mask & torch.isfinite(lse_g)
+    p = torch.where(live, torch.exp(scores - torch.where(live, lse_g, 0.0)), 0.0)
+    do_g = do.reshape(b, s, hkv, g, d).float()
+    o_g = o.reshape(b, s, hkv, g, d).float()
+    delta = (do_g * o_g).sum(-1).permute(0, 2, 3, 1)[..., None]    # (B,Hkv,G,S,1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do_g)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do_g, v.float())
+    ds = p * (dp - delta)
+    scale = d ** -0.5
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                      q.reshape(b, s, hkv, g, d).float()) * scale
+    return (dq.reshape(b, s, hq, d).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype))
 
 
 def ssd_scan_ref(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,

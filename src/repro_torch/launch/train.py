@@ -1,0 +1,111 @@
+"""Training entry point of the port (counterpart of ``repro.launch.train``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
+        --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/run1 \\
+        [--smoke] [--device cpu]
+
+Full width unless ``--smoke``; on ``cuda`` unless ``--device cpu``; one
+device (no mesh).  Builds the train state, the data stream and the train
+step; checkpoints every ``--ckpt-every`` steps and at the end, and resumes
+from the latest checkpoint when restarted: kill it mid-run and rerun the
+same command.  On a card the attention runs the flash-attention kernels
+forward and backward; mamba2 and MoE training on a card raise (their
+kernels have no backward yet), and on the CPU every kernel takes its plain
+version.  Runs under the PaPaS engine like any program, e.g. a study with
+``command: python -m repro_torch.launch.train --lr ${args:lr}``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import get, get_smoke
+from repro_torch.data.pipeline import make_stream
+from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import AdamW, cosine_schedule
+from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """Runs the training; returns the last logged step's metrics, and
+    ``steps_run``, ``tokens``, ``seconds`` and ``step_seconds``: the host
+    time of each step, which ends at its log line's reading of the metrics
+    (a wait for the device), so with ``--log-every 1`` each is the step's
+    whole time."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma3-1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    dev = resolve_device(args.device)
+    opt = AdamW(schedule=cosine_schedule(args.lr, args.warmup, args.steps))
+    step_fn = make_train_step(cfg, opt, TrainStepConfig(n_micro=args.n_micro))
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    state = init_train_state(cfg, opt, gen)
+
+    start_step = 0
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        state = ckpt.restore(state, args.ckpt_dir)
+        start_step = int(state["step"])
+        print(f"[restore] resumed from step {start_step}")
+
+    stream = make_stream(cfg, args.batch, args.seq, seed=args.seed,
+                         start_step=start_step)
+    t0 = last = time.time()
+    tokens = 0
+    metrics: dict[str, float] = {}
+    step_seconds = []
+    for i, host_batch in enumerate(stream):
+        step = start_step + i
+        if step >= args.steps:
+            break
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+        state, out = step_fn(state, batch)
+        tokens += args.batch * args.seq
+        if step % args.log_every == 0 or step == args.steps - 1:
+            metrics = {k: float(v) for k, v in out.items()}
+            dt = time.time() - t0
+            print(f"step {step:5d} loss={metrics['loss']:.4f} "
+                  f"ce={metrics['ce']:.4f} "
+                  f"gnorm={metrics['grad_norm']:.3f} "
+                  f"lr={metrics['lr']:.2e} "
+                  f"tok/s={tokens / max(dt, 1e-9):,.0f}", flush=True)
+        now = time.time()
+        step_seconds.append(now - last)
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            path = ckpt.save(state, args.ckpt_dir, step + 1)
+            print(f"[ckpt] saved {path}", flush=True)
+        last = time.time()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.time() - t0
+    if args.ckpt_dir:
+        ckpt.save(state, args.ckpt_dir, int(state["step"]))
+    if "loss" in metrics:
+        print(f"done: final loss {metrics['loss']:.4f}")
+    else:
+        print(f"done: no step to run (at step {start_step} of {args.steps})")
+    return {**metrics, "steps_run": len(step_seconds), "tokens": tokens,
+            "seconds": seconds, "step_seconds": step_seconds}
+
+
+if __name__ == "__main__":
+    main()

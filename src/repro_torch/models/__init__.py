@@ -4,10 +4,11 @@ from .config import ArchConfig
 from .model import Model, synthetic_batch
 from .moe import moe_block
 from .transformer import (
-    compute_copy, decode_step, forward, init_cache, init_params,
+    compute_copy, decode_step, forward, init_cache, init_params, loss_fn,
 )
 
 __all__ = [
     "ArchConfig", "Model", "synthetic_batch", "compute_copy",
-    "decode_step", "forward", "init_cache", "init_params", "moe_block",
+    "decode_step", "forward", "init_cache", "init_params", "loss_fn",
+    "moe_block",
 ]

@@ -11,7 +11,7 @@ import torch
 from repro_torch.device import resolve_device
 
 from .config import ArchConfig
-from .transformer import decode_step, forward, init_cache, init_params
+from .transformer import decode_step, forward, init_cache, init_params, loss_fn
 
 
 class Model:
@@ -30,6 +30,10 @@ class Model:
     def forward(self, params: dict[str, Any],
                 batch: dict[str, torch.Tensor]) -> torch.Tensor:
         return forward(self.cfg, params, batch)
+
+    def loss(self, params: dict[str, Any], batch: dict[str, torch.Tensor],
+             moe_groups: int = 1) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        return loss_fn(self.cfg, params, batch, moe_groups)
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: str | torch.dtype = torch.bfloat16) -> dict[str, Any]:

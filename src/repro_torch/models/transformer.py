@@ -4,14 +4,19 @@ Port of ``repro.models.transformer`` for the kinds ``attn``, ``swa``,
 ``ssm`` and ``moe`` with token inputs.  Consecutive layers of one kind form
 a *segment* whose parameters are stacked on a leading layer axis, the
 reference's layout; a Python loop over that axis replaces ``lax.scan``.
-``loss_fn`` (and with it the MoE aux losses), remat, hybrid and encoder
-layers are not ported yet.
+The MoE aux losses are summed over the layers, as the reference's scan
+carry does, and ``loss_fn`` adds them to the masked cross entropy; each
+layer runs under ``torch.utils.checkpoint`` as ``cfg.remat`` says (the
+reference's ``jax.checkpoint``).  Hybrid and encoder layers are not ported
+yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from .attention import attn_block
 from .config import ArchConfig
@@ -138,7 +143,9 @@ def compute_copy(cfg: ArchConfig, params: dict[str, Any]) -> dict[str, Any]:
     """The parameters with every leaf that the reference casts at each use
     held in the compute dtype already.  A cast gives the same values once
     as at every use, so serving from this copy changes no result and saves
-    re-casting the weights on every step."""
+    re-casting the weights on every step.  For serving only: training casts
+    at each use, as the reference does, so that the fp32 leaves get fp32
+    gradients."""
     def walk(node: Any, key: str) -> Any:
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
@@ -149,11 +156,21 @@ def compute_copy(cfg: ArchConfig, params: dict[str, Any]) -> dict[str, Any]:
     return walk(params, "")
 
 
-def _layer(seg: Any, i: int) -> Any:
-    """Layer ``i`` of a stacked segment (views, no copies)."""
+def _layers(seg: Any, count: int) -> list[Any]:
+    """The ``count`` layers of a stacked segment, as views: one
+    ``torch.unbind`` of each stacked leaf, whose backward is one ``stack``
+    (indexing each layer would fill a zero tensor the size of the whole
+    stack, per layer, in the backward)."""
     if isinstance(seg, dict):
-        return {k: _layer(v, i) for k, v in seg.items()}
-    return seg[i]
+        per_key = {k: _layers(v, count) for k, v in seg.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(count)]
+    return list(torch.unbind(seg))
+
+
+def _zero_aux(device: torch.device | str) -> dict[str, torch.Tensor]:
+    """Zero aux losses: the sum's start, and a model without MoE layers'."""
+    return {name: torch.zeros((), dtype=torch.float32, device=device)
+            for name in ("load_balance", "router_z", "dropped")}
 
 
 # ---------------------------------------------------------------------------
@@ -162,9 +179,13 @@ def _layer(seg: Any, i: int) -> Any:
 
 def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
                lp: dict[str, Any], positions: torch.Tensor,
-               cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
-    """One layer: returns (x, new_cache)."""
+               cache: dict | None = None, moe_groups: int = 1
+               ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None, dict | None]:
+    """One layer: returns (x, aux, new_cache).  ``aux`` is None for a layer
+    without an MoE FFN, whose aux losses are zero (the reference returns
+    zeros; here serving then allocates nothing for them)."""
     eps = cfg.norm_eps
+    aux = None
     h = rms_norm(x, lp["norm1"], eps)
     if kind == "ssm":
         y, new_cache = mamba2_block(
@@ -173,7 +194,7 @@ def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
             conv_width=cfg.ssm_conv, chunk=cfg.ssm_chunk,
             compute_dtype=cfg.compute_dtype, cache=cache,
             use_kernels=cfg.use_kernels)
-        return x + y.to(x.dtype), new_cache
+        return x + y.to(x.dtype), aux, new_cache
     attn_kind = "attn" if kind == "moe" else kind
     a_out, new_cache = attn_block(
         h, lp["attn"],
@@ -188,36 +209,67 @@ def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
     x = x + a_out.to(x.dtype)
     h2 = rms_norm(x, lp["norm2"], eps)
     if kind == "moe":
-        # aux losses are for training (loss_fn), not ported yet; the
-        # reference's forward and decode use moe_groups = 1
-        f_out, _ = moe_block(
+        f_out, aux = moe_block(
             h2, lp["moe"], n_experts=cfg.n_experts,
             n_shared=cfg.n_shared_experts, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
             router_renorm=cfg.router_renorm, dispatch=cfg.moe_dispatch,
-            groups=1, compute_dtype=cfg.compute_dtype)
+            groups=moe_groups, compute_dtype=cfg.compute_dtype)
     else:
         f_out = mlp(h2, lp["mlp"], cfg.mlp_act, cfg.compute_dtype)
-    return x + f_out.to(x.dtype), new_cache
+    return x + f_out.to(x.dtype), aux, new_cache
 
 
 # ---------------------------------------------------------------------------
 # Forward pass
 # ---------------------------------------------------------------------------
 
+def _save_dots(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
+    """remat="dots": keep the matrix products without batch dims (the
+    projections and MLP products, ``aten.mm``), recompute the rest, as
+    ``checkpoint_dots_with_no_batch_dims`` does in the reference."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ArchConfig, fn):
+    """``fn`` run bare (``"none"``), under ``torch.utils.checkpoint``
+    (``"full"``: everything inside is recomputed in the backward) or
+    checkpointed with the matrix products saved (``"dots"``)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kwargs: dict[str, Any] = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(ckpt.checkpoint, fn, **kwargs)
+
+
 def backbone(cfg: ArchConfig, params: dict[str, Any],
-             batch: dict[str, torch.Tensor]) -> torch.Tensor:
-    """Embeddings → layers → final norm.  Returns x (B,S,d)."""
+             batch: dict[str, torch.Tensor], moe_groups: int = 1
+             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Embeddings → layers → final norm.  Returns (x (B,S,d), aux losses
+    summed over the layers)."""
     _check_supported(cfg)
     x = embed_tokens(batch["tokens"], params["embed"], cfg.embed_scale,
                      cfg.compute_dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    aux_total = _zero_aux(x.device)
     for (kind, count), seg in zip(cfg.segments(), params["segments"]):
-        for i in range(count):
-            x, _ = layer_body(cfg, kind, x, _layer(seg, i), positions)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        def body(xc, lp, _kind=kind):
+            xn, aux, _ = layer_body(cfg, _kind, xc, lp, positions,
+                                    moe_groups=moe_groups)
+            return xn, aux
+
+        run = _remat(cfg, body)
+        for lp in _layers(seg, count):
+            x, aux = run(x, lp)
+            if aux is not None:
+                aux_total = {k: v + aux[k] for k, v in aux_total.items()}
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
 def _head(cfg: ArchConfig, params: dict[str, Any]) -> torch.Tensor:
@@ -227,12 +279,57 @@ def _head(cfg: ArchConfig, params: dict[str, Any]) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params: dict[str, Any],
             batch: dict[str, torch.Tensor]) -> torch.Tensor:
-    """Full forward pass → logits (B,S,V), sliced to ``vocab_size``.
-    (The reference also returns the MoE aux losses; they serve training,
-    which is not ported yet.)"""
-    x = backbone(cfg, params, batch)
+    """Full forward pass → logits (B,S,V), sliced to ``vocab_size``.  (The
+    reference also returns the MoE aux losses; here ``loss_fn`` reads them
+    from ``backbone``, and serving needs only the logits.)"""
+    x, _ = backbone(cfg, params, batch)
     logits = unembed(x, _head(cfg, params), cfg.compute_dtype)
     return logits[..., :cfg.vocab_size]
+
+
+def _ce_terms(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+              compute_dtype: str | torch.dtype, vocab_size: int) -> torch.Tensor:
+    """Summed masked NLL for one (B, C, d) slice.  Pad-vocab columns (>=
+    ``vocab_size``) are masked out of the softmax; labels < 0 are ignored."""
+    logits = unembed(x, head, compute_dtype).float()
+    if logits.shape[-1] > vocab_size:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(col < vocab_size, logits, -1e30)
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    return ((lse - gold) * mask).sum()
+
+
+def loss_fn(cfg: ArchConfig, params: dict[str, Any],
+            batch: dict[str, torch.Tensor], moe_groups: int = 1
+            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Masked causal-LM cross entropy (+ MoE aux).  labels < 0 ignored.
+
+    With ``cfg.loss_chunk`` the CE is computed over sequence chunks, each
+    checkpointed, so the (B,S,V) logits are never resident at once.
+    Returns (loss, {"ce", "loss", load_balance, router_z, dropped})."""
+    x, aux = backbone(cfg, params, batch, moe_groups)
+    labels = batch["labels"]
+    head = _head(cfg, params)
+    s = x.shape[1]
+    chunk = cfg.loss_chunk
+    if chunk and s > chunk and s % chunk == 0:
+        nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for start in range(0, s, chunk):
+            args = (x[:, start:start + chunk], head,
+                    labels[:, start:start + chunk], cfg.compute_dtype,
+                    cfg.vocab_size)
+            nll_sum = nll_sum + (
+                ckpt.checkpoint(_ce_terms, *args, use_reentrant=False)
+                if torch.is_grad_enabled() else _ce_terms(*args))
+    else:
+        nll_sum = _ce_terms(x, head, labels, cfg.compute_dtype, cfg.vocab_size)
+    denom = (labels >= 0).sum().clamp_min(1).float()
+    ce = nll_sum / denom
+    loss = ce + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
+    return loss, {"ce": ce, "loss": loss, **aux}
 
 
 # ---------------------------------------------------------------------------
@@ -284,17 +381,16 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
         if kind == "ssm":
             conv_dt = torch.promote_types(seg_cache["conv"].dtype, x.dtype)
             seg_cache["conv"] = seg_cache["conv"].to(conv_dt)
-            for i in range(count):
+            for i, lp in enumerate(_layers(seg, count)):
                 lc = {"conv": seg_cache["conv"][i], "ssm": seg_cache["ssm"][i],
                       "pos": pos}
-                x, nc = layer_body(cfg, kind, x, _layer(seg, i), positions,
-                                   cache=lc)
+                x, _, nc = layer_body(cfg, kind, x, lp, positions, cache=lc)
                 seg_cache["conv"][i] = nc["conv"]
                 seg_cache["ssm"][i] = nc["ssm"]
             continue
-        for i in range(count):
+        for i, lp in enumerate(_layers(seg, count)):
             lc = {"k": seg_cache["k"][i], "v": seg_cache["v"][i], "pos": pos}
-            x, _ = layer_body(cfg, kind, x, _layer(seg, i), positions, cache=lc)
+            x, _, _ = layer_body(cfg, kind, x, lp, positions, cache=lc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x, _head(cfg, params), cfg.compute_dtype)[:, 0]
     return (logits[..., :cfg.vocab_size],

@@ -249,6 +249,10 @@ def test_routing_is_recorded_and_replayed():
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::flash_attention_fwd_kernel<256>(...)",
      "flash_attention"),
+    ("void (anonymous namespace)::bwd::flash_attention_bwd_dq_kernel<256>(...)",
+     "flash_attention_bwd"),
+    ("void (anonymous namespace)::bwd::flash_attention_bwd_dkv_kernel<256>(...)",
+     "flash_attention_bwd"),
     ("void (anonymous namespace)::ssd_chunk_state_kernel<64, 128>(Params)",
      "ssd_scan"),
     ("void (anonymous namespace)::ssd_chunk_scan_kernel<64, 128>(Params)",
@@ -357,3 +361,32 @@ def test_kernel_ms_sums_only_the_matching_kernels_per_call(monkeypatch):
     ms = cs.kernel_ms(lambda: calls.append(1), "ssd_chunk_state", iters=2)
     assert ms == pytest.approx(0.060)
     assert len(calls) == 3   # one warm-up, then the profiled calls
+
+
+def test_fa_bwd_cases_cover_every_head_dim():
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert {case[5] for case in cs.FA_BWD_CASES} >= set(HEAD_DIMS)
+    assert any(case[8] for case in cs.FA_BWD_CASES)   # rows without keys
+
+
+def test_attention_backward_bound():
+    """Five products per allowed pair (2.5x the forward's operations); q,
+    k, v, O, dO, dQ, dK, dV once in bf16 and the LSE once in fp32."""
+    b, s, hq, hkv, d = 4, 2048, 4, 1, 256
+    fwd_ops, _ = cs.attention_floor_ms(b, s, hq, hkv, d, True, 512)
+    ops, nbytes = cs.attention_bwd_floor_ms(b, s, hq, hkv, d, True, 512)
+    assert ops == pytest.approx(2.5 * fwd_ops)
+    want = 2 * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s
+    assert nbytes == pytest.approx(want / 3.35e12 * 1e3)
+    assert cs.bound(ops, nbytes)[1] == "operations"
+
+
+def test_grad_row_err_gates_each_row_on_its_own_scale():
+    want = torch.tensor([[1.0, -2.0], [0.001, 0.0]])
+    # 2e-2 of 2.0 + 1e-3 = 0.041 allowed in row 0; 1e-3 + 2e-5 in row 1
+    got = want + torch.tensor([[0.04, 0.0], [0.0, 0.0]])
+    err, over = cs.grad_row_err(got, want)
+    assert err == pytest.approx(0.04) and over < 0
+    got = want + torch.tensor([[0.0, 0.0], [0.002, 0.0]])
+    err, over = cs.grad_row_err(got, want)
+    assert err == pytest.approx(0.002) and over > 0

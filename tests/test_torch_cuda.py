@@ -3,7 +3,9 @@
 Marked ``cuda``: skipped where there is no card.  Run on a machine with
 one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Tolerances in bf16, as the reference's kernel tests: 2e-2 for flash
-attention and the grouped matmul, 5e-2 for the SSD scan.
+attention and the grouped matmul, 5e-2 for the SSD scan.  The flash-attention
+backward (no Pallas counterpart) is held against its plain backward at 2e-2
+of each row's largest |element| plus 1e-3, the gate of ``chip_smoke.py``.
 """
 import pytest
 
@@ -345,17 +347,13 @@ def test_moe_forward_on_card_matches_cpu(dev, arch, dispatch):
 def _grad_calls(dev):
     """name -> (launch count, a call of the wrapper on card tensors, the
     inputs that can require grad)."""
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm
     from repro_torch.kernels import ssd_scan as kssd
-    q, k, v = _qkv(dev, 1, 128, 2, 1, 64)
     xg, w = _gmm_inputs(dev, 64, 64, 32, 4)
     sizes = _gmm_sizes(dev, 64, 4, "random")
     x, la, bm, cm, _ = _ssd(dev, 1, 128, 2, 64, 1, 128, False)
     prev, _ = kssd.chunk_state(x, la, bm, chunk=64)
     return {
-        "flash_attention": (lambda: fa.launches,
-                            lambda: fa.flash_attention(q, k, v), (q, k, v)),
         "grouped_matmul": (lambda: moe_gmm.launches,
                            lambda: moe_gmm.grouped_matmul(xg, w, sizes), (xg, w)),
         "ssd_chunk_state": (lambda: kssd.state_launches,
@@ -367,8 +365,8 @@ def _grad_calls(dev):
     }
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "grouped_matmul",
-                                  "ssd_chunk_state", "ssd_chunk_scan"])
+@pytest.mark.parametrize("name", ["grouped_matmul", "ssd_chunk_state",
+                                  "ssd_chunk_scan"])
 def test_kernels_refuse_a_gradient_they_cannot_give(dev, name):
     """An input that requires grad under grad mode is refused before the
     launch; under no_grad and inference_mode the kernel runs."""
@@ -387,3 +385,108 @@ def test_kernels_refuse_a_gradient_they_cannot_give(dev, name):
             assert not (out[0] if isinstance(out, tuple) else out).requires_grad
         t.requires_grad_(False)
     torch.cuda.synchronize()
+
+
+def _grad_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows (the last dim) of max |got - want| less the allowed
+    2e-2 · max |want row| + 1e-3; <= 0 passes."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().amax(-1) - 2e-2 * w.abs().amax(-1) - 1e-3).max().item()
+
+
+@pytest.mark.parametrize("s,hq,hkv,d", [
+    (128, 4, 4, 32), (130, 4, 2, 128), (64, 8, 1, 80), (200, 4, 1, 128),
+    (1, 2, 1, 256), (257, 4, 1, 256), (72, 4, 4, 16), (300, 10, 5, 64),
+    (1000, 4, 1, 256)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0),
+                                           (False, 48), (True, 16)])
+def test_backward_kernel_matches_plain(dev, s, hq, hkv, d, causal, window):
+    """The forward's LSE against logsumexp of the plain scores; the backward
+    kernels against the plain backward on the same O, LSE and dO."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(dev, 2, s, hq, hkv, d)
+    do = _qkv(dev, 2, s, hq, hkv, d, seed=1)[0]
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(
+        lse, fa.flash_attention_lse_plain(q, k, causal=causal, window=window),
+        atol=1e-3, rtol=1e-4)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        assert _grad_err(a, b) <= 0, name
+
+
+def test_backward_kernel_rows_that_saw_no_key(dev):
+    """Rows whose LSE is -inf (the forward's mark for a row that saw no key)
+    get a zero dQ and add nothing to dK and dV, as in the plain backward."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(dev, 2, 300, 4, 2, 128)
+    do = _qkv(dev, 2, 300, 4, 2, 128, seed=1)[0]
+    out, lse = fa.flash_attention_with_lse(q, k, v, window=64)
+    lse[:, :, 5:70] = float("-inf")
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, window=64)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, window=64)
+    assert bool((got[0][:, 5:70] == 0).all())
+    for a, b in zip(got, want):
+        assert _grad_err(a, b) <= 0
+
+
+def test_backward_kernel_is_deterministic(dev):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(dev, 2, 1000, 8, 2, 256)
+    do = _qkv(dev, 2, 1000, 8, 2, 256, seed=1)[0]
+    out, lse = fa.flash_attention_with_lse(q, k, v, window=512)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, window=512)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do, window=512)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_gives_the_gradient_under_grad(dev):
+    """Under grad mode the wrapper goes through the autograd.Function: one
+    forward launch, and one backward launch when the gradient is taken; the
+    gradients are the plain backward's."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (t.requires_grad_(True) for t in _qkv(dev, 2, 300, 4, 1, 256))
+    do = _qkv(dev, 2, 300, 4, 1, 256, seed=1)[0]
+    fwd, bwd = fa.launches, fa.bwd_launches
+    out = fa.flash_attention(q, k, v, window=128)
+    assert out.requires_grad and fa.launches == fwd + 1
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert fa.bwd_launches == bwd + 1
+    with torch.no_grad():
+        lse = fa.flash_attention_lse_plain(q, k, window=128)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, window=128)
+    for a, b in zip(grads, want):
+        assert _grad_err(a, b) <= 0
+
+
+def test_gemma3_trains_on_card_through_the_backward_kernel(dev):
+    """launch.train on the card at smoke size: every attention of a step
+    goes through the kernels (2 forward launches a layer with the full
+    remat, 1 backward), and the loss is finite."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    cfg = get_smoke("gemma3-1b")
+    fa.launches = fa.bwd_launches = 0
+    out = train.main(["--arch", "gemma3-1b", "--smoke", "--steps", "2",
+                      "--batch", "2", "--seq", "16", "--log-every", "1"])
+    torch.cuda.synchronize()
+    assert out["steps_run"] == 2 and out["loss"] == out["loss"]
+    assert (fa.launches, fa.bwd_launches) == (4 * cfg.n_layers, 2 * cfg.n_layers)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "olmoe-1b-7b"])
+def test_ssm_and_moe_training_on_card_raise(dev, arch):
+    """Their kernels have no backward: training on the card raises the
+    wrappers' gradient error, with no fallback to the plain path."""
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="requires grad"):
+        train.main(["--arch", arch, "--smoke", "--steps", "1", "--batch", "1",
+                    "--seq", "32"])

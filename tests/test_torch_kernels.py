@@ -5,8 +5,11 @@ On a CPU tensor the port's wrapper takes the kernel's plain version
 interpret mode through ``repro.kernels.ops``, as ``tests/test_kernels.py``
 does.  The CUDA kernel itself is held against the plain version on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
-Tolerances are the reference's own: 2e-5 in fp32, 2e-2 in bf16.  Also
-how the kernels' sources are keyed and bound, which needs no compiler.
+Tolerances are the reference's own: 2e-5 in fp32, 2e-2 in bf16.  The
+backward's plain version (the Pallas kernel has no backward) is held
+against autograd of the plain forward and JAX's autodiff of the
+reference's plain attention.  Also how the kernels' sources are keyed and
+bound, which needs no compiler.
 """
 import ctypes
 import shutil
@@ -89,8 +92,102 @@ def test_gmm_bind_declares_the_c_entry_point():
 
 
 def test_fa_bind_declares_the_c_entry_point():
-    lib = types.SimpleNamespace(flash_attention_fwd=types.SimpleNamespace())
+    lib = types.SimpleNamespace(flash_attention_fwd=types.SimpleNamespace(),
+                                flash_attention_bwd=types.SimpleNamespace())
     assert fa.bind(lib) is lib
+    # q, k, v, o and the optional LSE
     assert lib.flash_attention_fwd.argtypes == (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    # q, k, v, o, lse, dout, dq, dk, dv, delta
+    assert lib.flash_attention_bwd.argtypes == (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     assert lib.flash_attention_fwd.restype is ctypes.c_int
+    assert lib.flash_attention_bwd.restype is ctypes.c_int
+
+
+# -- the backward's plain version -------------------------------------------
+
+BWD_CASES = [
+    # s, hq, hkv, d, causal, window
+    (40, 2, 2, 16, True, 0),      # MHA
+    (40, 4, 1, 32, True, 0),      # MQA, gemma3's grouping
+    (50, 6, 3, 16, True, 12),     # GQA 2, window, ragged S
+    (37, 4, 2, 32, False, 0),     # bidirectional, ragged S
+    (33, 4, 1, 16, False, 9),     # bidirectional window
+]
+
+
+def _grad_inputs(s, hq, hkv, d, seed=0):
+    q, k, v = (torch.from_numpy(randn(seed + i, 2, s, h, d))
+               for i, h in enumerate((hq, hkv, hkv)))
+    do = torch.from_numpy(randn(seed + 9, 2, s, hq, d))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("s,hq,hkv,d,causal,window", BWD_CASES)
+def test_plain_backward_matches_autograd(s, hq, hkv, d, causal, window):
+    """FA2's formulas from the saved LSE and O against autograd of the plain
+    forward, fp32: summation order only (1e-5)."""
+    q, k, v, do = _grad_inputs(s, hq, hkv, d)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=causal, window=window)
+    want = torch.autograd.grad(out, leaves, do)
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(o, out.detach(), atol=0, rtol=0)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("s,hq,hkv,d,causal,window", BWD_CASES)
+def test_plain_backward_matches_the_reference_autodiff(s, hq, hkv, d, causal, window):
+    """The same gradients as JAX's autodiff of the reference's plain
+    attention (``repro.kernels.ref``), fp32: 2e-5."""
+    import jax
+    q, k, v, do = _grad_inputs(s, hq, hkv, d, seed=3)
+    _, vjp = jax.vjp(lambda *a: ref.flash_attention_ref(
+        *a, causal=causal, window=window), q.numpy(), k.numpy(), v.numpy())
+    want = vjp(do.numpy())
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    for a, b in zip(got, want):
+        assert_close(a, b, 2e-5)
+
+
+def test_lse_is_the_rows_logsumexp():
+    q, k, _, _ = _grad_inputs(30, 4, 2, 16)
+    lse = fa.flash_attention_lse_plain(q, k, causal=True, window=7)
+    assert lse.shape == (2, 4, 30) and lse.dtype == torch.float32
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k.repeat_interleave(2, 2)) / 4.0
+    i, j = torch.arange(30)[:, None], torch.arange(30)[None, :]
+    allowed = (i >= j) & (i - j < 7)
+    want = torch.logsumexp(scores.masked_fill(~allowed, float("-inf")), -1)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
+
+
+def test_plain_backward_rows_that_saw_no_key():
+    """A row whose LSE is -inf (the forward's mark for a row that saw no
+    key) has P = 0: its dQ is 0 and it adds nothing to dK and dV, as if its
+    output's gradient were 0."""
+    q, k, v, do = _grad_inputs(24, 4, 2, 16)
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=True, window=8)
+    lse[:, 1, 3:10] = float("-inf")
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=8)
+    assert bool(torch.isfinite(torch.cat([g.flatten() for g in got])).all())
+    assert bool((got[0][:, 3:10, 1] == 0).all())
+    do_zero = do.clone()
+    do_zero[:, 3:10, 1] = 0
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True, window=8)
+    want = torch.autograd.grad(out, leaves, do_zero)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_cpu_backward_never_counts_a_launch():
+    q, k, v, do = _grad_inputs(16, 2, 1, 16)
+    before = fa.bwd_launches, fa.launches
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert (fa.bwd_launches, fa.launches) == before

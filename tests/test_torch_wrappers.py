@@ -1,11 +1,13 @@
 """The kernel wrappers' contract where there is no card.
 
 * A tensor off the CPU that requires grad while grad mode is on is
-  refused before any launch (the CUDA kernels have no backward yet); under
-  ``no_grad`` or ``inference_mode``, or without ``requires_grad``, the
-  wrapper goes on to its checks.  Meta tensors stand in for a card's: they
-  reach the same branch and fail later, at the device check, never at a
-  launch.
+  refused before any launch by the SSD-scan and grouped-GEMM wrappers
+  (their CUDA kernels have no backward yet); under ``no_grad`` or
+  ``inference_mode``, or without ``requires_grad``, the wrapper goes on to
+  its checks.  Flash attention has a backward: under grad its wrapper goes
+  through its ``autograd.Function`` instead of any guard.  Meta tensors
+  stand in for a card's: they reach the same branch and fail later, at the
+  device check, never at a launch.
 * CPU tensors still take the plain versions, which differentiate.
 * Each ``bind`` declares the C entry points of its CUDA source as the
   source defines them (read from the source: no compiler needed).
@@ -68,9 +70,11 @@ def meta_is_card(monkeypatch):
 
 
 WRAPPERS = sorted(_calls(False))
+#: the wrappers whose kernels have no backward, so refuse a gradient
+GUARDED = [name for name in WRAPPERS if name != "flash_attention"]
 
 
-@pytest.mark.parametrize("name", WRAPPERS)
+@pytest.mark.parametrize("name", GUARDED)
 def test_guard_refuses_grad_before_any_launch(meta_is_card, monkeypatch, name):
     def no_launch(*a, **k):
         raise AssertionError("a kernel was built or launched")
@@ -91,6 +95,36 @@ def test_guard_lets_calls_without_grad_through(meta_is_card, mode, name):
     with ctx(), pytest.raises((ValueError, RuntimeError)) as err:
         _calls(mode != "no input needs grad")[name]()
     assert GRAD_ERROR not in str(err.value)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_under_grad_reaches_its_autograd_function(monkeypatch, which):
+    """An input that requires grad under grad mode sends the call through
+    ``FlashAttention`` (forward saving the LSE for the backward kernels),
+    which fails at the device check on a meta tensor: no guard, no build,
+    no launch."""
+    def no_launch(*a, **k):
+        raise AssertionError("a kernel was built or launched")
+
+    entered = []
+    forward = fa.FlashAttention.forward
+
+    def spy(ctx, *args):
+        entered.append(args[3:])
+        return forward(ctx, *args)
+
+    monkeypatch.setattr(_build, "library", no_launch)
+    monkeypatch.setattr(fa.FlashAttention, "forward", staticmethod(spy))
+    q, k, v = _meta(1, 64, 2, 64), _meta(1, 64, 1, 64), _meta(1, 64, 1, 64)
+    {"q": q, "k": k, "v": v}[which].requires_grad_(True)
+    with pytest.raises(ValueError, match="no kernel for device meta") as err:
+        fa.flash_attention(q, k, v, causal=True, window=16)
+    assert GRAD_ERROR not in str(err.value)
+    assert entered == [(True, 16)]
+    # without grad the same call never enters it
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel for device"):
+        fa.flash_attention(q, k, v)
+    assert len(entered) == 1
 
 
 def test_cpu_tensors_still_differentiate():
@@ -132,7 +166,7 @@ def _c_entry_points(source: str) -> dict[str, list]:
 
 
 @pytest.mark.parametrize("module,source,names", [
-    (fa, "flash_attention.cu", ["flash_attention_fwd"]),
+    (fa, "flash_attention.cu", ["flash_attention_bwd", "flash_attention_fwd"]),
     (moe_gmm, "moe_gmm.cu", ["grouped_matmul"]),
     (kssd, "ssd_scan.cu", ["ssd_chunk_scan", "ssd_chunk_state"])])
 def test_bind_declares_the_c_entry_points_of_the_source(module, source, names):

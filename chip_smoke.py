@@ -52,7 +52,9 @@ then for each path in turn (gemma3-1b, mamba2-780m, olmoe-1b-7b):
 
 Then the training path of gemma3-1b:
 
-3. the flash-attention backward against its plain backward (and the
+3. ptxas's registers and spills of the backward's kernels (prep, main,
+   dQ conversion) from this run's build; the flash-attention backward
+   against its plain backward (and the
    forward's LSE against logsumexp of the plain scores) at gemma3-1b's
    global, window and ragged shapes, D 128 (olmoe-1b-7b, deepseek-7b),
    hymba-1.5b's, bidirectional D 80, the smoke head dims and rows whose LSE
@@ -132,6 +134,10 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:90"
+#: the backward's design, redesigned for Hopper after a first mma.sync
+#: version (dQ and dK/dV kernels, S and dP computed in both)
+FA_BWD_DESIGN = ("wgmma + TMA, warp-specialised: S and dP once a tile pair, "
+                 "dQ added in key-tile order by a chained hand-off")
 #: flash attention against its plain version, before gemma3-1b's prefill:
 #: name, B, S, Hq, Hkv, D, causal, window (every head dim the kernel is
 #: compiled for; olmoe-1b-7b's shape is checked on its own path)
@@ -267,6 +273,34 @@ def ptxas_flags(log: str) -> list[str]:
                 or "C7518" in line or "Potential Performance Loss" in line):
             flags.append(line.strip())
     return flags
+
+
+def ptxas_kernels(log: str, match: str) -> dict[str, dict]:
+    """Registers and spills of each kernel of an nvcc ``-Xptxas=-v`` log
+    whose mangled name holds ``match``, keyed by its name and first template
+    argument (``flash_attention_bwd_kernel<256>``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            fn, name = entry.group(1), None
+            # Itanium mangling: the length of each name, then the name
+            found = re.search(r"(\d+)(" + re.escape(match) + ")", fn)
+            if found:
+                end = found.start(2) + int(found.group(1))
+                arg = re.match(r"ILi(\d+)E", fn[end:])
+                name = fn[found.start(2):end] + (f"<{arg.group(1)}>" if arg else "")
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills:
+            out[name]["spill_stores"], out[name]["spill_loads"] = map(int, spills.groups())
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[name]["registers"] = int(regs.group(1))
+    return out
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1527,7 +1561,12 @@ def gemma3_train_path(dev, card) -> dict:
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.float32).to(torch.bfloat16)
 
-    # -- 3. the backward kernel against its plain version --------------------
+    # -- 3. the backward kernels against their plain version ------------------
+    # (ptxas of its prep, main and dQ-convert kernels, from this run's build)
+    from repro_torch.kernels import _build
+    emit("build_flash_attention_bwd", nvidia_smi=card,
+         ptxas=ptxas_kernels(_build.build_log.get("flash_attention.cu", ""),
+                             "flash_attention_bwd"))
     max_err = 0.0
     for name, b, s, hq, hkv, d, causal, window, empty_rows in FA_BWD_CASES:
         q, k, v = normal(b, s, hq, d), normal(b, s, hkv, d), normal(b, s, hkv, d)
@@ -1715,7 +1754,7 @@ def gemma3_train_path(dev, card) -> dict:
     return {
         "name": "flash_attention_bwd", "route": "cuda", "source": FA_SOURCE,
         "replaces": FA_REPLACES, "launches": bwd_launches,
-        "max_abs_err": max_err, **train_attn,
+        "design": FA_BWD_DESIGN, "max_abs_err": max_err, **train_attn,
     }
 
 

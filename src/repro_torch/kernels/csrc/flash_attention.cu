@@ -583,511 +583,884 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 // ===========================================================================
-// Backward: dQ, dK and dV from the forward's log-sum-exp (FA2's algorithm)
+// Backward: dQ, dK and dV from the forward's log-sum-exp (FA3's algorithm)
 // ===========================================================================
 //
 // The Pallas kernel has no backward: the reference differentiates its plain
-// attention with XLA's autodiff.  This is that gradient on the card, for the
+// attention with XLA's autodiff.  This replaces that XLA gradient, for the
 // forward above.  From q, k, v, o, dO (bf16) and the forward's LSE (fp32):
 //   delta = rowsum(dO o O);  P = exp(Q K^T scale - LSE);  dV = P^T dO;
 //   dS = P o (dO V^T - delta);  dQ = dS K scale;  dK = dS^T Q scale,
 // with the forward's masks (causal, window, bidirectional, k < S), every sum
 // in fp32 and P and dS rounded to bf16 as operands of the last three
-// products.  A row whose LSE is -inf (it saw no key) contributes nothing.
+// products.  A row whose LSE is -inf (it saw no key) contributes nothing
+// and gets dQ = 0.  GQA reads KV head h / (Hq / Hkv) in place.
 //
-// What bounds it: five products per allowed (q, k) pair, 2.5x the forward's
-// operations, against ~9 tensors of bytes, so operations.  This first
-// version recomputes S and dP in both kernels (7 products), with mma.sync
-// m16n8k16 tiles fed by ldmatrix from padded shared memory (row stride D + 8
-// elements: the 8 rows of an ldmatrix fall on distinct banks); each block
-// loads its next inner tile by cp.async into a second buffer while it
-// computes the current one.  What holds it back (PERF.md, by ablation):
-// the operands' traffic through ldmatrix and the loads; wgmma and TMA are
-// later work.
+// What bounds it on an H100: five products per allowed (q, k) pair, 2.5x
+// the forward's operations, against ~9 tensors of bytes; at gemma3-1b's
+// training shapes (B 4, S 2048, Hq 4, Hkv 1, D 256) ~8.6e10 FLOPs (global
+// layer) against ~42 MB, so operations (PERF.md has the numbers).  The
+// tensor cores must be fed: wgmma from shared memory filled by TMA, and
+// each product done once.
 //
-// Two kernels, launched in order by one entry point, both deterministic (no
-// atomics):
-// * dq: one block of 8 warps serves 64 query rows of one (batch, head).  It
-//   first computes delta for its rows (written out for the second kernel),
-//   then walks the key tiles its rows reach (64 keys each): S and dP for the
-//   tile, dS into shared memory in bf16, dQ += dS K in registers.
-// * dkv: one block serves a tile of key rows of one (batch, KV head) -- 64
-//   rows, or 32 at D 256, so that the dK and dV accumulators (2 x rows x D
-//   fp32) take at most 64 registers a thread and do not spill -- and walks
-//   every query head of the KV group and, in each, the query tiles that
-//   reach its keys: S^T and dP^T, P^T and dS^T into shared memory in bf16,
-//   then dV += P^T dO and dK += dS^T Q.  Summing over the group's heads in
-//   one block is the GQA reduction, in a fixed order.
-// Tiles that no row of the block reaches are skipped, so gemma3's window-512
-// layers at S 2048 do about a quarter of a global layer's work.
-
+// Three kernels, launched in order by one entry point:
+// * prep: delta = rowsum(dO o O) and the LSE in base 2 (+inf for a row that
+//   saw no key or lies past S, so that its P is exp2(-inf) = 0), both fp32
+//   (B, Hq, S padded to 64 rows); zeroes the hand-offs' counters and the
+//   block ticket.
+// * main: a block owns a tile of key rows of one (batch, KV head) and
+//   computes S and dP once for every (query row, key) pair that the mask
+//   allows in it: 5 products a pair.  Three warpgroups: the producer's
+//   (setmaxnreg.dec to 24 registers: one thread issues every load, another
+//   is the dQ writer, below) and two consumers (setmaxnreg.inc to 240:
+//   128 x 24 + 256 x 240 = 64,512 of 65,536).
+//   - K and V of the tile are loaded once, through the forward's 4-D
+//     tensor maps (D, H, S, B) with the 128-byte swizzle, 64-column boxes;
+//     D is padded to a multiple of 64 in shared memory only (16, 32 -> 64;
+//     80 -> 128) by the maps' out-of-bounds zeros, rows past S too.
+//   - The block walks query heads of its KV group (the GQA sum of dK and dV
+//     is this loop, in a fixed order) and in each the 64-row query tiles
+//     that reach its keys, last first.  The producer streams each tile's
+//     Q, dO (TMA) and its rows' LSE and delta (bulk copies) through a
+//     2-stage ring with full and empty mbarriers (a third stage gained
+//     nothing up to D 128 and does not fit at D 256).
+//   - S^T = K Q^T and dP^T = V dO^T by wgmma from shared memory (both
+//     operands K-major); the mask, P = exp2(S^T scale log2 e - LSE2) and
+//     dS^T = P o (dP^T - delta) on the accumulator registers.
+//   - dV += P^T dO and dK += dS^T Q by wgmma, dO and Q read N-major (the
+//     transpose flag); dQ's part, dS K, by wgmma with dS^T read from shared
+//     memory (bf16, 128-byte swizzle) as an MN-major A and K N-major.
+//   - Up to D_pad 128 a block has 128 key rows, 64 a consumer: each
+//     consumer computes its own S^T and dP^T (m64n64), keeps dK and dV of
+//     its rows for every column (m64nD_pad: 128 registers at D 128), takes
+//     P^T and dS^T as A fragments from registers (as the forward's PV) and
+//     writes dS^T once to shared memory for dQ, whose columns the two
+//     consumers split (m64n64 each at D_pad 128; at D_pad 64 both compute
+//     the 64 columns and the second discards them: a branch around a wgmma
+//     makes ptxas serialise every wgmma of the kernel).  64 key rows a
+//     block in D 256's layout was 1.7-1.8x slower at D 128 (PERF.md).
+//   - At D 256 the accumulators decide.  dK and dV of 64 key rows are
+//     128 KB of fp32, 256 registers a thread for one warpgroup, so a block
+//     has 64 key rows and the consumers split the columns: consumer w holds
+//     dK, dV and dQ columns [128w, 128w + 128) (m64n128, 64 registers each;
+//     ~200 live at the peak, under the 240).  S^T and dP^T are split by
+//     query columns instead (m64n32 each, w's 32 queries), written to
+//     shared memory as P^T and dS^T in bf16, and both consumers' dV, dK and
+//     dQ products read them from there as A.  Shared memory at D 256: K
+//     and V 2 x 32 KB, the ring 2 x (Q 32 + dO 32) KB, P^T and dS^T 2 x
+//     8 KB, the rows' LSE and delta 1 KB, 1 KB to align = 210 KB of the
+//     227 KB; a third ring stage (64 KB) does not fit.  Up to D_pad 128:
+//     K, V 2 x 32, the ring 2 x 32, dS^T 16, 2 = 146 KB.
+//   - Load balance.  Under a causal mask key tile 0 meets every query
+//     tile; with gemma3-1b's one KV head its block would do 4 heads x 32
+//     tiles, twice an even share of the work over the SMs.  The host then
+//     splits the group's heads over 2 or 4 blocks (split_heads); the parts
+//     add their fp32 dK and dV in order through the workspace (the later
+//     part waits on the earlier one's counter), the last writes them out.
+//   - dK (times scale) and dV leave in bf16 through the ring's shared
+//     memory (dead by then) and TMA stores, which clip rows past S and
+//     columns past D.  No atomics: each (b, KV head, key tile) is written
+//     by one block.
+// * convert: dQ = scale x the fp32 accumulator, rounded to bf16.
+//
+// dQ stays deterministic.  Every key tile that reaches a query tile adds
+// its dS K to that tile's fp32 accumulator (the workspace the wrapper
+// allocates; the kernel allocates nothing), in ascending key-tile order.
+// The consumers leave an item's fp32 part (64 x D_pad floats, in their
+// register order) in the item's ring stage, which is exactly its size (Q
+// and dO are dead by then).  The dQ writer thread waits (ld.acquire.gpu)
+// until the tile's counter says that the key tiles before this one have
+// added theirs, stores (the first) or adds (the rest: cp.reduce.async.bulk
+// .add.f32) the part by one bulk copy, hands the stage back to the producer
+// once the copy has read it, and raises the counter (st.release.gpu) once
+// the copy is complete.  So every element is the same sum in the same
+// order every run, and the consumers never wait on the hand-off themselves.
+// Blocks take their (key tile, b, KV head, part) from an atomic ticket, key
+// tile before key tile within a section of (b, KV head) pairs: the block
+// of key tile j - 1 has started before the block of key tile j can wait on
+// it, so no schedule of the blocks can deadlock; under the causal mask the
+// longest key tiles start first.  Sections are one wave of blocks or more
+// (while their dQ accumulators, Q, dO, K and V fit 20 MB of L2), used only
+// past half a wave of pairs: deepseek-7b's 128 pairs otherwise added to dQ
+// tiles that L2 no longer held.  A block walks its query tiles last first,
+// so the predecessor in the chain reaches a tile no later than its
+// successor (first to last was 1.5x slower over a train step's calls).
+//
+// What still holds it back (PERF.md: scripts/fa_bwd_ablations.py, and
+// scripts/fa_bwd_phases.py, which times each role's phases by clock64):
+// at D 256 the consumers wait 35-42% of an item for its Q and dO, because
+// a stage is handed back only once the dQ writer's bulk copy has read the
+// fp32 part out of it (~3,000 cycles for 64 KB: the SM's rate to L2), and
+// the writer is busy 81-89% of the time (turn, read, completion); at D 128
+// the elementwise work (~35%) and the products (~31%) of each consumer
+// run one after the other, with no overlap between the two consumers.
+// Over a train step's calls, removing the products or the elementwise work
+// saves 1-3%, the inner loads 11%, the whole dQ hand-off 25%.
+//
 namespace bwd {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;        // query rows of a dq block; query/key tiles
-constexpr int kLdS = kTile + 8;  // row stride (elements) of the bf16 score tiles
+constexpr int kConsumersB = 2;                  // consumer warpgroups
+constexpr int kThreadsB = (kConsumersB + 1) * 128;
+constexpr int kBM = 64;                         // query rows a step
+// named barriers of the two consumers (256 threads; 0 is __syncthreads)
+constexpr int kBarScores = 1;   // P^T / dS^T are in shared memory
+constexpr int kBarDone = 2;     // both consumers' products of an item are done
+constexpr int kBarOut = 3;      // (+ warpgroup: 3, 4) the epilogue's tiles
+constexpr int kBarPart = 5;     // the dK/dV partial sums' turn has come, or they are out
 
 template <int D>
 struct Shape {
-  static constexpr int kLd = D + 8;                 // row stride, elements
-  static constexpr int kKeyRows = D >= 256 ? 32 : 64;  // key rows of a dkv block
-  // dq: warps 4 (rows) x 2 (columns)
-  static constexpr int kDqNt = D / 16;              // n8 tiles of dQ a warp
-  static constexpr int kDqSmem =   // Q, dO, 2 x (K, V), dS, LSE, delta
-      6 * kTile * kLd * 2 + kTile * kLdS * 2 + 2 * kTile * 4;
-  // dkv: warps (key rows / 16) x the rest
-  static constexpr int kWm = kKeyRows / 16;
-  static constexpr int kWn = kWarps / kWm;
-  static constexpr int kScoreNt = kTile / kWn / 8;  // n8 tiles of S^T a warp
-  static constexpr int kAccNt = D / 8 / kWn;        // n8 tiles of dK, dV a warp
-  // K, V, 2 x (Q, dO), P^T, dS^T, 2 x (LSE, delta)
-  static constexpr int kDkvSmem = 2 * kKeyRows * kLd * 2 + 4 * kTile * kLd * 2 +
-                                  2 * kKeyRows * kLdS * 2 + 4 * kTile * 4;
-  static_assert(D % 16 == 0, "head dim");
-  static_assert(kScoreNt % 2 == 0, "score tiles come in pairs");
-  static_assert(D % (8 * kWn) == 0, "dK/dV columns split over the warps");
-  static_assert(kDqSmem <= 227 * 1024 && kDkvSmem <= 227 * 1024, "shared memory");
+  static constexpr int kDPad = (D + kChunk - 1) / kChunk * kChunk;
+  static constexpr int kChunks = kDPad / kChunk;
+  // D 256: the consumers split the columns (and S's query columns)
+  static constexpr bool kSplit = kDPad > 128;
+  static constexpr int kBN = kSplit ? 64 : 128;               // key rows a block
+  static constexpr int kScoreN = kSplit ? kBM / 2 : kBM;      // S^T's columns a consumer
+  static constexpr int kAccN = kSplit ? kDPad / 2 : kDPad;    // dK/dV columns a consumer
+  static constexpr int kDqParts = kDPad >= 128 ? 2 : 1;       // dQ's column parts
+  static constexpr int kDqN = kDPad / kDqParts;               // dQ columns a consumer
+  static constexpr int kKVBox = kBN * 128;                    // kBN rows x 64 cols
+  static constexpr int kKVBytes = kChunks * kKVBox;
+  static constexpr int kQBox = kBM * 128;                     // 64 rows x 64 cols
+  static constexpr int kQBytes = kChunks * kQBox;
+  static constexpr int kStageBytes = 2 * kQBytes;             // Q, then dO
+  static constexpr int kScoreBytes = kBN * 128;               // kBN keys x 64 queries, bf16
+  static constexpr int kScoreTiles = kSplit ? 2 : 1;          // dS^T (then P^T)
+  static constexpr int kRowBytes = 2 * kBM * 4;               // a stage's LSE2, delta
+  static constexpr int kStages = 2;                           // the Q/dO ring (3 at D 256: 274 KB)
+  static constexpr int kSmem = 2 * kKVBytes + kStages * kStageBytes +
+                               kScoreTiles * kScoreBytes + kStages * kRowBytes + 1024;
+  // the epilogue's dK and dV tiles, both consumers', in the ring
+  static constexpr int kOutBytes = 2 * (kAccN / kChunk) * kQBox;
+  static_assert(kSmem <= 227 * 1024, "shared memory");
+  static_assert(kConsumersB * kOutBytes <= kStages * kStageBytes, "epilogue");
+  // an item's dQ part (64 x D_pad fp32) leaves through its stage's Q and dO
+  static_assert(kBM * kDPad * 4 == kStageBytes, "dQ part in a stage");
+  static_assert(kKVBox % 1024 == 0 && kQBox % 1024 == 0, "swizzle atoms");
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
+// The workspace of one call, in 4-byte words: the dQ accumulator (64 x
+// D_pad floats a (b, query head, query tile)), the rows' LSE2 and delta
+// (B x Hq x S_pad each); under GQA (Hq > Hkv) the dK/dV partial sums of
+// the blocks that split a KV group's heads (2 x 128 x D_pad floats a
+// (b, KV head, 128 keys)); the dQ hand-off's counters (B x Hq x query
+// tiles); under GQA the partial sums' counters (B x Hkv x S_pad / 64); the
+// ticket.  flash_attention.py's _bwd_workspace_bytes is the same.
+struct Work {
+  float* dq_acc;
+  float* lse2;
+  float* delta;
+  float* dkv_part;   // null without GQA
+  int* counters;     // then the partial sums' counters, then the ticket
+  int* dkv_flags;
+  int* ticket;
+  int n_zero;        // the ints from counters to the ticket
+};
+
+template <int D>
+Work carve(void* base, int batch, int seq_len, int hq, int hkv) {
+  const long long n_qt = (seq_len + kBM - 1) / kBM;
+  const long long rows = static_cast<long long>(batch) * hq * n_qt * kBM;
+  const bool gqa = hq > hkv;
+  const long long kv_rows = static_cast<long long>(batch) * hkv * ((seq_len + 127) / 128 * 128);
+  const long long n_flags = gqa ? static_cast<long long>(batch) * hkv * n_qt : 0;
+  Work w;
+  w.dq_acc = static_cast<float*>(base);
+  w.lse2 = w.dq_acc + rows * Shape<D>::kDPad;
+  w.delta = w.lse2 + rows;
+  w.dkv_part = gqa ? w.delta + rows : nullptr;
+  w.counters = reinterpret_cast<int*>(w.delta + rows + (gqa ? 2 * kv_rows * Shape<D>::kDPad : 0));
+  w.dkv_flags = w.counters + batch * hq * n_qt;
+  w.ticket = w.dkv_flags + n_flags;
+  w.n_zero = static_cast<int>(batch * hq * n_qt + n_flags + 1);
+  return w;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+struct Params {
+  const float* lse2;   // (B, Hq, S_pad): LSE log2 e; +inf: no key, or past S
+  const float* delta;  // (B, Hq, S_pad)
+  float* dq_acc;
+  int* counters;       // (B, Hq, query tiles): key tiles added so far
+  float* dkv_part;     // a (b, KV head, key tile)'s dK, dV partial sums
+  int* dkv_flags;      // ... and the parts added to them so far
+  int* ticket;
+  int batch, seq_len, hq, hkv, causal, window, n_qt;
+  int split;           // blocks a (b, KV head, key tile): the group's heads split
+  int section;         // (b, KV head) pairs whose blocks run key tile by key tile
+  float scale, scale_log2;
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// Waits until at most N of this thread's committed groups are in flight.
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// a barrier over the two consumer warpgroups
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Orders this thread's generic-proxy accesses to global memory with its
+// bulk (async-proxy) ones.
+__device__ __forceinline__ void fence_proxy_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16) b (16 x 8, bf16)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copies rows [row0, row0 + kRows) of a (S, H, D) slice (rows `stride`
-// elements apart) into shared memory at `dst` (row stride D + 8), 16 bytes a
-// thread and step; rows at or past S become zeros.  Not waited for.
-template <int D, int kRows>
-__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src,
-                                          int row0, int seq_len, long long stride) {
-  constexpr int kPerRow = D / 8;
-  for (int i = threadIdx.x; i < kRows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = i % kPerRow;
-    const bool valid = row0 + r < seq_len;
-    const __nv_bfloat16* p = valid ? src + (row0 + r) * stride + c * 8 : src;
-    cp_async16(dst + (r * (D + 8) + c * 8) * 2, p, valid);
-  }
-}
-
-// c[j] (16 x 8, n8 tile j) = A B, A 16 rows of `a` (row-major, k contiguous,
-// `ld` bytes a row), B's column n row n of `bt` (n-major, k contiguous), k
-// over kDepth.  Each ldmatrix.x4 of bt gives the b fragments of two n8 tiles.
-template <int kNt, int kDepth>
-__device__ __forceinline__ void warp_abt(float (&c)[kNt][4], uint32_t a,
-                                         uint32_t bt, int ld, int lane) {
+__device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
-  for (int j = 0; j < kNt; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-  const uint32_t a_row = a + (lane % 16) * ld + (lane / 16) * 16;
-  const uint32_t b_row = bt + ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 16;
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// S^T = K Q^T and dP^T = V dO^T for this consumer, issued (not waited for):
+// D_pad / 16 k-steps, every operand K-major (rows of 128 bytes, 8-row atoms
+// 1024 bytes apart, a 16-deep slice 32 bytes along, the next 64 columns the
+// next box).  Up to D_pad 128 consumer wg takes key rows [64 wg, 64 wg + 64)
+// and all 64 queries; at D 256 all 64 keys and queries [32 wg, 32 wg + 32).
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&st)[Shape<D>::kScoreN / 2],
+                                             float (&dpt)[Shape<D>::kScoreN / 2],
+                                             uint32_t s_k, uint32_t s_v, uint32_t sq,
+                                             uint32_t sdo, int wg) {
+  using T = Shape<D>;
+  const uint32_t a_off = T::kSplit ? 0 : wg * 64 * 128;
+  const uint32_t b_off = T::kSplit ? wg * T::kScoreN * 128 : 0;
 #pragma unroll
-  for (int k = 0; k < kDepth / 16; ++k) {
-    uint32_t af[4];
-    ldsm_x4(af, a_row + k * 32);
+  for (int c = 0; c < T::kChunks; ++c) {
 #pragma unroll
-    for (int j = 0; j < kNt; j += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b_row + j * 8 * ld + k * 32);
-      mma16816(c[j], af, bf[0], bf[1]);
-      mma16816(c[j + 1], af, bf[2], bf[3]);
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      const uint32_t a = c * T::kKVBox + a_off + kk * 32;
+      const uint32_t b = c * T::kQBox + b_off + kk * 32;
+      wgmma_ss<0, 0>(st, smem_desc(s_k + a, 16, 1024), smem_desc(sq + b, 16, 1024),
+                       c > 0 || kk > 0);
+      wgmma_ss<0, 0>(dpt, smem_desc(s_v + a, 16, 1024), smem_desc(sdo + b, 16, 1024),
+                       c > 0 || kk > 0);
     }
   }
 }
 
-// c[j] += A B, A 16 rows of `a` (row-major, `lda` bytes a row), B kDepth
-// rows of `b` (k-major: row k holds the n columns, `ldb` bytes a row), read
-// with ldmatrix's transpose; kNt n8 tiles from b's first column.
-template <int kNt, int kDepth>
-__device__ __forceinline__ void warp_ab(float (&c)[kNt][4], uint32_t a, int lda,
-                                        uint32_t b, int ldb, int lane) {
-  const uint32_t a_row = a + (lane % 16) * lda + (lane / 16) * 16;
-  const uint32_t b_row = b + (((lane / 8) % 2) * 8 + lane % 8) * ldb + (lane / 16) * 16;
+// P and dS from S^T and dP^T in place.  Element 4j + r holds key `key`
+// (+ 8 for r >= 2) and query `query` + 8j (+ 1 for odd r); lse2 and delta
+// point at this thread's first query's entries.
+template <int N>
+__device__ __forceinline__ void grads(float (&s)[N / 2], float (&dp)[N / 2],
+                                      const float* lse2, const float* delta, int query,
+                                      int key, bool mask, int seq_len, int causal,
+                                      int window, float scale_log2) {
 #pragma unroll
-  for (int k = 0; k < kDepth / 16; ++k) {
-    uint32_t af[4];
-    ldsm_x4(af, a_row + k * 32);
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j);
+    const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j);
 #pragma unroll
-    for (int j = 0; j + 1 < kNt; j += 2) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, b_row + k * 16 * ldb + j * 16);
-      mma16816(c[j], af, bf[0], bf[1]);
-      mma16816(c[j + 1], af, bf[2], bf[3]);
-    }
-    if constexpr (kNt % 2 == 1) {
-      uint32_t bf[2];
-      ldsm_x2_t(bf, b_row + k * 16 * ldb + (kNt - 1) * 16);
-      mma16816(c[kNt - 1], af, bf[0], bf[1]);
+    for (int r = 0; r < 4; ++r) {
+      float p = exp2_ftz(fmaf(s[4 * j + r], scale_log2, -(r % 2 ? l2.y : l2.x)));
+      if (mask && !allowed(query + 8 * j + r % 2, key + 8 * (r / 2), seq_len, causal,
+                           window))
+        p = 0.f;
+      s[4 * j + r] = p;
+      dp[4 * j + r] = p * (dp[4 * j + r] - (r % 2 ? dl.y : dl.x));
     }
   }
 }
 
-__device__ __forceinline__ bool allowed_pair(int qpos, int kpos, int seq_len,
-                                             int causal, int window) {
-  return qpos < seq_len && allowed(qpos, kpos, seq_len, causal, window);
+// Rounds an S^T-shaped fragment (N query columns from 16-byte chunk
+// `chunk0`) to bf16 into a score tile: rows of keys, 128 bytes of queries
+// each, 128-byte swizzle (chunk j of row r at (j ^ (r % 8)) x 16).
+template <int N>
+__device__ __forceinline__ void store_scores(unsigned char* tile, const float (&v)[N / 2],
+                                             int row, int chunk0, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rr = row + 8 * half;
+      *reinterpret_cast<uint32_t*>(tile + rr * 128 + (((chunk0 + j) ^ (rr % 8)) * 16) +
+                                   (lane % 4) * 4) =
+          pack_bf16(v[4 * j + 2 * half], v[4 * j + 2 * half + 1]);
+    }
+  }
 }
 
-// A row's LSE in base 2 for exp2: +inf for a row past S or one that saw no
-// key (LSE -inf), so that its P is exp2(-inf) = 0.
-__device__ __forceinline__ float lse_base2(const float* lse, int qpos, int seq_len) {
-  if (qpos >= seq_len) return INFINITY;
-  const float x = lse[qpos];
-  return x == -INFINITY ? INFINITY : x * 1.4426950408889634f;
-}
-
-// Stores a warp's 16 x (8 kNt) fp32 fragments (times `scale`) as bf16 into
-// rows [row0, row0 + 16) and columns [col0, ...) of a (S, H, D) slice, rows
-// at or past S skipped.
-template <int kNt>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&c)[kNt][4],
-                                           int row0, int col0, int seq_len,
-                                           long long stride, float scale, int lane) {
+// One accumulator (64 rows x N columns) times `factor` in bf16 into 64 x 64
+// boxes at `out`, laid out as the TMA store reads them (the forward's
+// epilogue).
+template <int N>
+__device__ __forceinline__ void stage_out(unsigned char* out, const float (&acc)[N / 2],
+                                          float factor, int warp, int lane) {
+  const int r0 = warp * 16 + lane / 4;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = row0 + lane / 4 + 8 * half;
-    if (r >= seq_len) continue;
+    const int rr = r0 + 8 * half;
 #pragma unroll
-    for (int j = 0; j < kNt; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + r * stride + col0 + 8 * j +
-                                         2 * (lane % 4)) =
-          __floats2bfloat162_rn(c[j][2 * half] * scale, c[j][2 * half + 1] * scale);
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + (j / 8) * (kBM * 128) + rr * 128 + (((j % 8) ^ (rr % 8)) * 16) +
+          (lane % 4) * 4) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half] * factor,
+                                acc[4 * j + 2 * half + 1] * factor);
+  }
+}
+
+// delta and the base-2 LSE of one row of (B, Hq, S_pad) a warp (8 of D a
+// lane), and zeros for the hand-offs' counters.
+template <int D>
+__global__ void __launch_bounds__(256) flash_attention_bwd_prep_kernel(
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ lse2,
+    float* __restrict__ delta, int* __restrict__ zeros, int n_zero, int seq_len,
+    int hq, int s_pad, long long rows) {
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (tid < n_zero) zeros[tid] = 0;
+  const long long row = tid / 32;   // one warp a row of (B, Hq, S_pad)
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int s = static_cast<int>(row % s_pad);
+  const long long bh = row / s_pad;
+  float acc = 0.f, l2 = INFINITY;
+  if (s < seq_len) {
+    const long long off = ((bh / hq * seq_len + s) * hq + bh % hq) * D;
+    for (int d = lane * 8; d < D; d += 256) {
+      const uint4 a = *reinterpret_cast<const uint4*>(o + off + d);
+      const uint4 g = *reinterpret_cast<const uint4*>(dout + off + d);
+      const uint32_t av[4] = {a.x, a.y, a.z, a.w}, gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[i]));
+        const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gv[i]));
+        acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+      }
+    }
+#pragma unroll
+    for (int off2 = 16; off2 > 0; off2 /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off2);
+    const float x = lse[bh * seq_len + s];
+    l2 = x == -INFINITY ? INFINITY : x * 1.4426950408889634f;
+  }
+  if (lane == 0) {
+    lse2[row] = l2;
+    delta[row] = acc;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-    const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dout,
-    __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int seq_len,
-    int hq, int hkv, int causal, int window, float scale, float scale_log2) {
+__global__ void __launch_bounds__(kThreadsB, 1)
+    flash_attention_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const __grid_constant__ CUtensorMap map_dk,
+                               const __grid_constant__ CUtensorMap map_dv,
+                               const Params prm) {
   using T = Shape<D>;
-  constexpr int kLdB = T::kLd * 2;   // bytes a row
-  constexpr int kTileB = kTile * kLdB;
+  constexpr int kBN = T::kBN;
+  constexpr int kChunks = T::kChunks;
   extern __shared__ unsigned char smem_raw[];
-  // Q, dO, then K and V in two buffers each (tile i + 1 loads while tile i
-  // is computed), dS, the rows' LSE and delta
-  const uint32_t s_q = smem_addr(smem_raw);
-  const uint32_t s_do = s_q + kTileB;
-  const uint32_t s_k = s_do + kTileB;      // + buffer x kTileB
-  const uint32_t s_v = s_k + 2 * kTileB;   // + buffer x kTileB
-  const uint32_t s_ds = s_v + 2 * kTileB;
-  __nv_bfloat16* ds_ptr = reinterpret_cast<__nv_bfloat16*>(smem_raw + 6 * kTileB);
-  float* lse_s = reinterpret_cast<float*>(smem_raw + 6 * kTileB + kTile * kLdS * 2);
-  float* delta_s = lse_s + kTile;
-  const __nv_bfloat16* do_ptr = reinterpret_cast<const __nv_bfloat16*>(smem_raw + kTileB);
+  __shared__ uint64_t kv_full, drained;
+  __shared__ uint64_t full[T::kStages], empty[T::kStages], dq_full[T::kStages];
+  __shared__ int s_ticket;
+  // The 128-byte swizzle repeats every 1024 bytes: every tile starts on it.
+  const uint32_t s_k = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_v = s_k + T::kKVBytes;
+  const uint32_t s_ring = s_v + T::kKVBytes;   // + stage x (Q, dO)
+  const uint32_t s_ds = s_ring + T::kStages * T::kStageBytes;
+  const uint32_t s_p = s_ds + T::kScoreBytes;  // at D 256 only
+  const uint32_t s_rows = s_ds + T::kScoreTiles * T::kScoreBytes;  // + stage x (LSE2, delta)
+  unsigned char* const smem = smem_raw - smem_addr(smem_raw);      // + a shared address
 
-  // the longest causal rows first
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int h_kv = h / (hq / hkv);
-  const long long q_stride = static_cast<long long>(hq) * D;
-  const long long kv_stride = static_cast<long long>(hkv) * D;
-  const long long q_off = (static_cast<long long>(b) * seq_len * hq + h) * D;
-  const long long kv_off = (static_cast<long long>(b) * seq_len * hkv + h_kv) * D;
-  const float* lse_bh = lse + (static_cast<long long>(b) * hq + h) * seq_len;
-  float* delta_bh = delta + (static_cast<long long>(b) * hq + h) * seq_len;
-
-  // the key tiles these rows reach
-  const int k_lo = window > 0 ? max(0, q_start - window + 1) : 0;
-  const int k_hi = causal ? min(seq_len, q_start + kTile) : seq_len;
-  const int t0 = k_lo / kTile;
-  const int n_tiles = (k_hi + kTile - 1) / kTile - t0;   // >= 1
-  const auto load_kv = [&](int i) {
-    load_rows<D, kTile>(s_k + (i & 1) * kTileB, k + kv_off, (t0 + i) * kTile,
-                        seq_len, kv_stride);
-    load_rows<D, kTile>(s_v + (i & 1) * kTileB, v + kv_off, (t0 + i) * kTile,
-                        seq_len, kv_stride);
-    cp_async_commit();
-  };
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  load_rows<D, kTile>(s_q, q + q_off, q_start, seq_len, q_stride);
-  load_rows<D, kTile>(s_do, dout + q_off, q_start, seq_len, q_stride);
-  cp_async_commit();
-  load_kv(0);
-  cp_async_wait<1>();   // Q and dO are in; the first K and V may still fly
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_ticket = atomicAdd(prm.ticket, 1);
+    mbar_init(smem_addr(&kv_full), 1);
+    mbar_init(smem_addr(&drained), 1);
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), 1);                   // the dQ writer
+      mbar_init(smem_addr(&dq_full[s]), kConsumersB * 4);   // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-
-  // delta = rowsum(dO o O) for the block's rows, 8 rows a warp
-  for (int rr = 0; rr < kTile / kWarps; ++rr) {
-    const int r = warp * (kTile / kWarps) + rr;
-    const int qpos = q_start + r;
-    float acc = 0.f;
-    if (qpos < seq_len) {
-      for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(do_ptr[r * T::kLd + d]) *
-               __bfloat162float(o[q_off + qpos * q_stride + d]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      delta_s[r] = acc;
-      lse_s[r] = lse_base2(lse_bh, qpos, seq_len);
-      if (qpos < seq_len) delta_bh[qpos] = acc;
-    }
-  }
-
-  // warp (wm, wn): rows 16 wm; score columns 32 wn; dQ columns wn D / 2
-  const int wm = warp % 4, wn = warp / 4;
-  float acc[T::kDqNt][4];
-#pragma unroll
-  for (int j = 0; j < T::kDqNt; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) {
-      load_kv(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // tile i's K and V (and delta_s, lse_s) are in
-    const int k_start = (t0 + i) * kTile;
-    const uint32_t k_buf = s_k + (i & 1) * kTileB;
-    const uint32_t v_buf = s_v + (i & 1) * kTileB;
-
-    float s[4][4], dp[4][4];
-    warp_abt<4, D>(s, s_q + wm * 16 * kLdB, k_buf + wn * 32 * kLdB, kLdB, lane);
-    warp_abt<4, D>(dp, s_do + wm * 16 * kLdB, v_buf + wn * 32 * kLdB, kLdB, lane);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wm * 16 + lane / 4 + 8 * half;
-      const float m2 = lse_s[r], dl = delta_s[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = wn * 32 + 8 * j + 2 * (lane % 4);
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = allowed_pair(q_start + r, k_start + c + e, seq_len, causal, window);
-          const float p = ok ? exp2_ftz(fmaf(s[j][2 * half + e], scale_log2, -m2)) : 0.f;
-          ds[e] = p * (dp[j][2 * half + e] - dl);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(ds_ptr + r * kLdS + c) =
-            __floats2bfloat162_rn(ds[0], ds[1]);
-      }
-    }
-    __syncthreads();
-    warp_ab<T::kDqNt, kTile>(acc, s_ds + wm * 16 * kLdS * 2, kLdS * 2,
-                             k_buf + wn * (D / 2) * 2, kLdB, lane);
-    __syncthreads();   // dS and this K, V buffer are overwritten next
-  }
-  store_rows<T::kDqNt>(dq + q_off, acc, q_start + wm * 16, wn * (D / 2), seq_len,
-                       q_stride, scale, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ lse,
-    const float* __restrict__ delta, const __nv_bfloat16* __restrict__ dout,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int seq_len,
-    int hq, int hkv, int causal, int window, float scale, float scale_log2) {
-  using T = Shape<D>;
-  constexpr int kRows = T::kKeyRows;
-  constexpr int kLdB = T::kLd * 2;
-  constexpr int kTileB = kTile * kLdB;
-  extern __shared__ unsigned char smem_raw[];
-  // K, V; Q and dO in two buffers each (query tile i + 1 loads while tile i
-  // is computed); P^T, dS^T; the query rows' LSE and delta, two buffers
-  const uint32_t s_k = smem_addr(smem_raw);
-  const uint32_t s_v = s_k + kRows * kLdB;
-  const uint32_t s_q = s_v + kRows * kLdB;    // + buffer x kTileB
-  const uint32_t s_do = s_q + 2 * kTileB;     // + buffer x kTileB
-  const uint32_t s_p = s_do + 2 * kTileB;
-  const uint32_t s_ds = s_p + kRows * kLdS * 2;
-  unsigned char* score_raw = smem_raw + 2 * kRows * kLdB + 4 * kTileB;
-  __nv_bfloat16* p_ptr = reinterpret_cast<__nv_bfloat16*>(score_raw);
-  __nv_bfloat16* ds_ptr = p_ptr + kRows * kLdS;
-  float* lse_s = reinterpret_cast<float*>(score_raw + 2 * kRows * kLdS * 2);  // [2][64]
-  float* delta_s = lse_s + 2 * kTile;                                         // [2][64]
-
-  const int key_start = blockIdx.x * kRows;   // the longest causal columns first
-  const int h_kv = blockIdx.y, b = blockIdx.z;
-  const int group = hq / hkv;
-  const long long q_stride = static_cast<long long>(hq) * D;
-  const long long kv_stride = static_cast<long long>(hkv) * D;
-  const long long kv_off = (static_cast<long long>(b) * seq_len * hkv + h_kv) * D;
-
-  // the query tiles that reach these keys, in every head of the KV group:
-  // item i is head h_kv * group + i / n_tiles, query tile t0 + i % n_tiles
-  const int q_lo = causal ? key_start : 0;
-  const int q_hi = window > 0 ? min(seq_len, key_start + kRows - 1 + window) : seq_len;
-  const int t0 = q_lo / kTile;
-  const int n_tiles = (q_hi + kTile - 1) / kTile - t0;   // >= 1
-  const int n_items = group * n_tiles;
-  // Issues item i's loads into buffer i & 1: Q and dO by cp.async (then
-  // committed), the rows' LSE and delta by the first 64 threads.
-  const auto load_item = [&](int i) {
-    const int h = h_kv * group + i / n_tiles;
-    const int q_start = (t0 + i % n_tiles) * kTile;
-    const long long q_off = (static_cast<long long>(b) * seq_len * hq + h) * D;
-    load_rows<D, kTile>(s_q + (i & 1) * kTileB, q + q_off, q_start, seq_len, q_stride);
-    load_rows<D, kTile>(s_do + (i & 1) * kTileB, dout + q_off, q_start, seq_len,
-                        q_stride);
-    cp_async_commit();
-    if (threadIdx.x < kTile) {
-      const long long bh = (static_cast<long long>(b) * hq + h) * seq_len;
-      const int qpos = q_start + threadIdx.x;
-      lse_s[(i & 1) * kTile + threadIdx.x] = lse_base2(lse + bh, qpos, seq_len);
-      delta_s[(i & 1) * kTile + threadIdx.x] = qpos < seq_len ? delta[bh + qpos] : 0.f;
-    }
+  // Tickets run section by section of (batch, KV head) pairs; in a section
+  // key tile by key tile, then pair by pair, then the parts of a split
+  // group of heads, fastest.
+  const int pairs = prm.batch * prm.hkv;
+  const int n_kt = (prm.seq_len + kBN - 1) / kBN;
+  const int per_pair = n_kt * prm.split;
+  const int first = s_ticket / (prm.section * per_pair) * prm.section;
+  const int in_section = min(prm.section, pairs - first);
+  const int r = s_ticket - first * per_pair;
+  const int kt = r / (in_section * prm.split);
+  const int pair = first + r % (in_section * prm.split) / prm.split;
+  const int part = r % prm.split;
+  const int unit = kt * pairs + pair;   // (key tile, b, KV head)
+  const int b = pair / prm.hkv;
+  const int h_kv = pair % prm.hkv;
+  const int group = prm.hq / prm.hkv;
+  const int heads = group / prm.split;     // this block's query heads
+  const int seq_len = prm.seq_len;
+  const int key0 = kt * kBN;
+  // The query tiles that these keys reach: the mask's band.
+  const int key_end = min(seq_len, key0 + kBN);
+  const int q_lo = prm.causal ? key0 : 0;
+  const int q_hi = prm.window > 0 ? min(seq_len, key_end - 1 + prm.window) : seq_len;
+  const int qt_lo = q_lo / kBM;
+  const int n_t = (q_hi + kBM - 1) / kBM - qt_lo;   // >= 1
+  const int n_items = heads * n_t;
+  // item i: query head h_kv group + part heads + i / n_t, query tile (last
+  // first)
+  const auto head_of = [&](int i) { return h_kv * group + part * heads + i / n_t; };
+  const auto tile_of = [&](int i) { return qt_lo + n_t - 1 - i % n_t; };
+  const long long s_pad = static_cast<long long>(prm.n_qt) * kBM;
+  // an item's dQ accumulator (64 x D_pad floats, the consumers' register
+  // order) and its counter
+  const auto dq_tile = [&](int i) {
+    return (static_cast<long long>(b) * prm.hq + head_of(i)) * prm.n_qt + tile_of(i);
   };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // warp (wm, wn): key rows 16 wm; score columns wn 64 / kWn; dK, dV columns
-  // wn D / kWn
-  const int wm = warp % T::kWm, wn = warp / T::kWm;
-  constexpr int kScoreCols = kTile / T::kWn;
-  constexpr int kAccCols = D / T::kWn;
-
-  load_rows<D, kRows>(s_k, k + kv_off, key_start, seq_len, kv_stride);
-  load_rows<D, kRows>(s_v, v + kv_off, key_start, seq_len, kv_stride);
-  load_item(0);   // commits K and V with item 0's Q and dO
-
-  float acc_dk[T::kAccNt][4], acc_dv[T::kAccNt][4];
-#pragma unroll
-  for (int j = 0; j < T::kAccNt; ++j) {
-    acc_dk[j][0] = acc_dk[j][1] = acc_dk[j][2] = acc_dk[j][3] = 0.f;
-    acc_dv[j][0] = acc_dv[j][1] = acc_dv[j][2] = acc_dv[j][3] = 0.f;
-  }
-
-  for (int i = 0; i < n_items; ++i) {
-    if (i + 1 < n_items) {
-      load_item(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // item i's Q, dO, LSE and delta are in
-    const int q_start = (t0 + i % n_tiles) * kTile;
-    const uint32_t q_buf = s_q + (i & 1) * kTileB;
-    const uint32_t do_buf = s_do + (i & 1) * kTileB;
-    const float* lse_i = lse_s + (i & 1) * kTile;
-    const float* delta_i = delta_s + (i & 1) * kTile;
-
-    float st[T::kScoreNt][4], dpt[T::kScoreNt][4];
-    warp_abt<T::kScoreNt, D>(st, s_k + wm * 16 * kLdB, q_buf + wn * kScoreCols * kLdB,
-                             kLdB, lane);
-    warp_abt<T::kScoreNt, D>(dpt, s_v + wm * 16 * kLdB, do_buf + wn * kScoreCols * kLdB,
-                             kLdB, lane);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wm * 16 + lane / 4 + 8 * half;   // key row
-#pragma unroll
-      for (int j = 0; j < T::kScoreNt; ++j) {
-        const int c = wn * kScoreCols + 8 * j + 2 * (lane % 4);   // query column
-        float pv[2], ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = allowed_pair(q_start + c + e, key_start + r, seq_len,
-                                       causal, window);
-          pv[e] = ok ? exp2_ftz(fmaf(st[j][2 * half + e], scale_log2, -lse_i[c + e]))
-                     : 0.f;
-          ds[e] = pv[e] * (dpt[j][2 * half + e] - delta_i[c + e]);
+  const int wg = tid / 128;
+  // One if/else on the warpgroup, never rejoined: ptxas honours setmaxnreg
+  // only so.
+  if (wg == kConsumersB) {
+    // -- producer: one thread issues every load ------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumersB * 128) {
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      prefetch_tensormap(&map_do);
+      const uint32_t kvf = smem_addr(&kv_full);
+      mbar_expect_tx(kvf, 2 * T::kKVBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load_4d(s_k + c * T::kKVBox, &map_k, kvf, c * kChunk, h_kv, key0, b);
+        tma_load_4d(s_v + c * T::kKVBox, &map_v, kvf, c * kChunk, h_kv, key0, b);
+      }
+      // item i's Q, dO, LSE2 and delta into stage `stage`
+      const auto load_item = [&](int i, int stage) {
+        const int h = head_of(i);
+        const int q0 = tile_of(i) * kBM;
+        const uint32_t bar = smem_addr(&full[stage]);
+        const uint32_t sq = s_ring + stage * T::kStageBytes;
+        mbar_expect_tx(bar, T::kStageBytes + T::kRowBytes);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load_4d(sq + c * T::kQBox, &map_q, bar, c * kChunk, h, q0, b);
+          tma_load_4d(sq + T::kQBytes + c * T::kQBox, &map_do, bar, c * kChunk, h, q0, b);
         }
-        *reinterpret_cast<__nv_bfloat162*>(p_ptr + r * kLdS + c) =
-            __floats2bfloat162_rn(pv[0], pv[1]);
-        *reinterpret_cast<__nv_bfloat162*>(ds_ptr + r * kLdS + c) =
-            __floats2bfloat162_rn(ds[0], ds[1]);
+        const long long row = (static_cast<long long>(b) * prm.hq + h) * s_pad + q0;
+        const uint32_t rows = s_rows + stage * T::kRowBytes;
+        bulk_load(rows, prm.lse2 + row, kBM * 4, bar);
+        bulk_load(rows + kBM * 4, prm.delta + row, kBM * 4, bar);
+      };
+      for (int i = 0; i < n_items; ++i) {
+        const int stage = i % T::kStages;
+        mbar_wait(smem_addr(&empty[stage]), ((i / T::kStages) & 1) ^ 1);
+        load_item(i, stage);
+      }
+    } else if (tid == kConsumersB * 128 + 32) {
+      // -- the dQ writer: each item's part, in its key tile's turn ----------
+      // The consumers leave an item's fp32 dQ part in its stage (Q and dO
+      // are dead by then).  Wait until the key tiles before this one have
+      // added theirs to the query tile (ld.acquire of its counter), store
+      // (the first) or add (the rest) the part by one bulk copy, hand the
+      // stage back once it is read, and raise the counter (st.release) once
+      // the copy is complete.
+      for (int i = 0; i < n_items; ++i) {
+        const int stage = i % T::kStages;
+        const int q0 = tile_of(i) * kBM;
+        const int turn = kt - (prm.window > 0 ? max(0, q0 - prm.window + 1) : 0) / kBN;
+        int* counter = prm.counters + dq_tile(i);
+        float* dst = prm.dq_acc + dq_tile(i) * (kBM * T::kDPad);
+        const uint32_t src = s_ring + stage * T::kStageBytes;
+        mbar_wait(smem_addr(&dq_full[stage]), (i / T::kStages) & 1);
+        if (turn > 0) {
+          while (ld_acquire(counter) < turn) __nanosleep(32);
+          fence_proxy_global();
+          bulk_reduce_add_f32(dst, src, T::kStageBytes);
+        } else {
+          bulk_store(dst, src, T::kStageBytes);
+        }
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(smem_addr(&empty[stage]));
+        bulk_wait();
+        fence_proxy_global();
+        __threadfence();
+        st_release(counter, turn + 1);
+      }
+      mbar_arrive(smem_addr(&drained));
+    }
+  } else {
+    // -- consumers ------------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    // This consumer's part of S^T: key rows [r_wg, r_wg + 64) of the tile,
+    // query columns [c_wg, c_wg + kScoreN); accumulator element 4j + r holds
+    // row 16 warp + lane / 4 (+ 8 for r >= 2), column 8j + 2 (lane % 4)
+    // (+ 1 for odd r).
+    const int r_wg = T::kSplit ? 0 : 64 * wg;
+    const int c_wg = T::kSplit ? T::kScoreN * wg : 0;
+    const int key_row = r_wg + warp * 16 + lane / 4;
+    const int col = c_wg + 2 * (lane % 4);
+
+    float dk[T::kAccN / 2], dv[T::kAccN / 2];
+    zero(dk);
+    zero(dv);
+    mbar_wait(smem_addr(&kv_full), 0);
+
+    for (int i = 0; i < n_items; ++i) {
+      const int q0 = tile_of(i) * kBM;
+      const int stage = i % T::kStages;
+      const uint32_t sq = s_ring + stage * T::kStageBytes;
+      const uint32_t sdo = sq + T::kQBytes;
+      const float* lse2_s = reinterpret_cast<const float*>(smem + s_rows + stage * T::kRowBytes);
+      const float* delta_s = lse2_s + kBM;
+      // opaque to the compiler, so that it does not keep descriptors in
+      // registers from one item to the next
+      uint32_t k_addr = s_k;
+      asm volatile("" : "+r"(k_addr));
+      mbar_wait(smem_addr(&full[stage]), (i / T::kStages) & 1);
+
+      float st[T::kScoreN / 2], dpt[T::kScoreN / 2];
+      fence_acc(st);
+      fence_acc(dpt);
+      wgmma_fence();
+      issue_scores<D>(st, dpt, k_addr, s_v, sq, sdo, wg);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+      {
+        // the mask is needed where this consumer's part crosses S, the
+        // diagonal or the window's far edge
+        const int k_first = key0 + r_wg;
+        const int q_first = q0 + c_wg;
+        const bool mask = k_first + 64 > seq_len ||
+                          (prm.causal && q_first < k_first + 63) ||
+                          (prm.window > 0 && q_first + T::kScoreN - 1 - k_first >= prm.window);
+        grads<T::kScoreN>(st, dpt, lse2_s + col, delta_s + col, q0 + col, key0 + key_row,
+                          mask, seq_len, prm.causal, prm.window, prm.scale_log2);
+      }
+
+      float dq[T::kDqN / 2];
+      if constexpr (!T::kSplit) {
+        // dS^T of this consumer's 64 keys into shared memory for dQ; the
+        // other consumer's products of the last item are done with it
+        // (kBarDone)
+        store_scores<T::kScoreN>(smem + s_ds, dpt, key_row, 0, lane);
+        uint32_t pf[kBM / 16][4], dsf[kBM / 16][4];
+        to_bf16<kBM>(st, pf);
+        to_bf16<kBM>(dpt, dsf);
+        fence_async_shared();
+        // dV += P^T dO and dK += dS^T Q for this consumer's keys (A from
+        // registers; dO and Q N-major: 64-column boxes 64 rows deep, the
+        // next 64 columns kQBox on, 8-row atoms 1024 bytes apart), issued
+        // before the other consumer's dS^T is in; then dQ = dS K for its
+        // columns (dS^T MN-major: rows of keys; K N-major)
+        fence_acc(dv);
+        fence_acc(dk);
+        fence_acc(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk)
+          wgmma_rs(dv, pf[kk], smem_desc(sdo + kk * 16 * 128, T::kQBox, 1024));
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk)
+          wgmma_rs(dk, dsf[kk], smem_desc(sq + kk * 16 * 128, T::kQBox, 1024));
+        wgmma_commit();
+        consumers_sync(kBarScores);
+        const uint32_t k_cols = k_addr + (T::kDqParts > 1 ? wg : 0) * T::kKVBox;
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          wgmma_ss<1, 1>(dq, smem_desc(s_ds + kk * 16 * 128, T::kScoreBytes, 1024),
+                           smem_desc(k_cols + kk * 16 * 128, T::kKVBox, 1024), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_frag(pf);
+        fence_frag(dsf);
+      } else {
+        // P^T and dS^T of this consumer's 32 queries into shared memory,
+        // then every product reads both consumers' parts from there:
+        // dV, dK += (P^T, dS^T) (K-major A) x (dO, Q) columns [128 wg, +128)
+        // N-major; dQ = dS K for the same columns
+        store_scores<T::kScoreN>(smem + s_p, st, key_row, c_wg / 8, lane);
+        store_scores<T::kScoreN>(smem + s_ds, dpt, key_row, c_wg / 8, lane);
+        fence_async_shared();
+        consumers_sync(kBarScores);
+        const uint32_t box = wg * (T::kAccN / kChunk);
+        fence_acc(dv);
+        fence_acc(dk);
+        fence_acc(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk)
+          wgmma_ss<0, 1>(dv, smem_desc(s_p + kk * 32, 16, 1024),
+                           smem_desc(sdo + box * T::kQBox + kk * 16 * 128, T::kQBox, 1024), 1);
+#pragma unroll
+        for (int kk = 0; kk < kBM / 16; ++kk)
+          wgmma_ss<0, 1>(dk, smem_desc(s_ds + kk * 32, 16, 1024),
+                           smem_desc(sq + box * T::kQBox + kk * 16 * 128, T::kQBox, 1024), 1);
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          wgmma_ss<1, 1>(dq, smem_desc(s_ds + kk * 16 * 128, T::kScoreBytes, 1024),
+                           smem_desc(k_addr + box * T::kKVBox + kk * 16 * 128, T::kKVBox, 1024),
+                           kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      fence_acc(dv);
+      fence_acc(dk);
+      fence_acc(dq);
+      // Both consumers are done with the stage's Q and dO and with the score
+      // tiles: this consumer's dQ part goes to the stage, float4s in
+      // register order (conflict-free), for the dQ writer.
+      consumers_sync(kBarDone);
+      if (wg < T::kDqParts) {
+        float4* out = reinterpret_cast<float4*>(smem + sq) + wg * (T::kDqN / 8) * 128 +
+                      tid % 128;
+#pragma unroll
+        for (int j = 0; j < T::kDqN / 8; ++j)
+          out[j * 128] = make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2], dq[4 * j + 3]);
+      }
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&dq_full[stage]));
+    }
+
+    // A group of heads split over blocks: the parts add their dK and dV in
+    // order through fp32 partial sums (float4s in register order), each
+    // waiting for the one before (ld.acquire of the unit's counter); the
+    // last part writes the sums out.
+    float4* const sums = reinterpret_cast<float4*>(prm.dkv_part) +
+                         static_cast<long long>(unit) * (2 * kBN * T::kDPad / 4) +
+                         wg * 2 * (T::kAccN / 8) * 128 + tid % 128;
+    int* const sums_counter = prm.dkv_flags + unit;
+    if (part > 0) {
+      if (tid == 0) {
+        while (ld_acquire(sums_counter) < part) __nanosleep(64);
+      }
+      __syncwarp();
+      consumers_sync(kBarPart);
+#pragma unroll
+      for (int j = 0; j < T::kAccN / 8; ++j) {
+        const float4 a = __ldcg(sums + j * 128);
+        const float4 c = __ldcg(sums + (T::kAccN / 8 + j) * 128);
+        dk[4 * j] += a.x; dk[4 * j + 1] += a.y; dk[4 * j + 2] += a.z; dk[4 * j + 3] += a.w;
+        dv[4 * j] += c.x; dv[4 * j + 1] += c.y; dv[4 * j + 2] += c.z; dv[4 * j + 3] += c.w;
       }
     }
-    __syncthreads();
-    warp_ab<T::kAccNt, kTile>(acc_dv, s_p + wm * 16 * kLdS * 2, kLdS * 2,
-                              do_buf + wn * kAccCols * 2, kLdB, lane);
-    warp_ab<T::kAccNt, kTile>(acc_dk, s_ds + wm * 16 * kLdS * 2, kLdS * 2,
-                              q_buf + wn * kAccCols * 2, kLdB, lane);
-    __syncthreads();   // the score tiles and this item's buffers are overwritten next
+    if (part + 1 < prm.split) {
+#pragma unroll
+      for (int j = 0; j < T::kAccN / 8; ++j) {
+        __stcg(sums + j * 128, make_float4(dk[4 * j], dk[4 * j + 1], dk[4 * j + 2], dk[4 * j + 3]));
+        __stcg(sums + (T::kAccN / 8 + j) * 128,
+               make_float4(dv[4 * j], dv[4 * j + 1], dv[4 * j + 2], dv[4 * j + 3]));
+      }
+      __threadfence();
+      consumers_sync(kBarPart);
+      if (tid == 0) st_release(sums_counter, part + 1);
+    } else {
+      // Epilogue: dK x scale and dV in bf16 into this consumer's part of the
+      // ring, once the dQ writer has read its last part there, then one TMA
+      // store a 64 x 64 box.
+      mbar_wait(smem_addr(&drained), 0);
+      const uint32_t s_out = s_ring + wg * T::kOutBytes;
+      constexpr int kBoxes = T::kAccN / kChunk;
+      stage_out<T::kAccN>(smem + s_out, dk, prm.scale, warp, lane);
+      stage_out<T::kAccN>(smem + s_out + kBoxes * T::kQBox, dv, 1.f, warp, lane);
+      fence_async_shared();
+      warpgroup_sync(kBarOut + wg);
+      const int row0 = key0 + r_wg;
+      if (tid % 128 == 0 && row0 < seq_len) {
+        for (int c = 0; c < kBoxes; ++c) {
+          const int gc = (T::kSplit ? wg * kBoxes : 0) + c;   // column box in dK, dV
+          if (gc * kChunk >= D) break;
+          tma_store_4d(&map_dk, s_out + c * T::kQBox, gc * kChunk, h_kv, row0, b);
+          tma_store_4d(&map_dv, s_out + (kBoxes + c) * T::kQBox, gc * kChunk, h_kv, row0, b);
+        }
+        bulk_commit();
+        bulk_wait();   // the shared memory outlives the stores
+      }
+    }
   }
-  store_rows<T::kAccNt>(dk + kv_off, acc_dk, key_start + wm * 16, wn * kAccCols,
-                        seq_len, kv_stride, scale, lane);
-  store_rows<T::kAccNt>(dv + kv_off, acc_dv, key_start + wm * 16, wn * kAccCols,
-                        seq_len, kv_stride, 1.f, lane);
+}
+
+// dQ = scale x the accumulator of one (b, query head, query tile) a block,
+// in bf16.  The accumulator's float4 number (part, j, th) holds elements
+// 4j .. 4j + 3 of consumer thread th of dQ part `part` (the main kernel's
+// register order): rows r and r + 8 (r = 16 (th / 32) + th % 32 / 4),
+// columns c and c + 1 (c = part N + 8j + 2 (th % 4)).  A warp takes 8 j's
+// by 4 th's of one r, so each of its stores writes 128 contiguous bytes of
+// a dQ row.
+template <int D>
+__global__ void __launch_bounds__(256) flash_attention_bwd_convert_kernel(
+    const float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq, int seq_len,
+    int hq, int n_qt, float scale) {
+  using T = Shape<D>;
+  constexpr int kJ = T::kDqN / 8;             // float4s of a thread's part
+  constexpr int kPartF4 = kJ * 128;
+  static_assert(kJ % 8 == 0, "a warp's 8 j's");
+  const long long chunk = blockIdx.x;
+  const int t = static_cast<int>(chunk % n_qt);
+  const long long bh = chunk / n_qt;
+  const int h = static_cast<int>(bh % hq);
+  const long long b = bh / hq;
+  const float4* src = reinterpret_cast<const float4*>(dq_acc + chunk * kBM * T::kDPad);
+  for (int f = threadIdx.x; f < T::kDqParts * kPartF4; f += blockDim.x) {
+    // f = ((part x 32 + th / 4) x kJ / 8 + j / 8) x 32 + (j % 8) x 4 + th % 4
+    const int lane = f % 32;
+    const int jb = f / 32 % (kJ / 8);
+    const int th4 = f / 32 / (kJ / 8) % 32;
+    const int part = f / 32 / (kJ / 8) / 32;
+    const int j = jb * 8 + lane / 4;
+    const int th = th4 * 4 + lane % 4;
+    const int c = part * T::kDqN + 8 * j + 2 * (lane % 4);
+    if (c >= D) continue;
+    const int row = t * kBM + (th4 / 8) * 16 + th4 % 8;
+    const float4 v = src[part * kPartF4 + j * 128 + th];
+    if (row < seq_len)
+      *reinterpret_cast<__nv_bfloat162*>(dq + ((b * seq_len + row) * hq + h) * D + c) =
+          __floats2bfloat162_rn(v.x * scale, v.y * scale);
+    if (row + 8 < seq_len)
+      *reinterpret_cast<__nv_bfloat162*>(dq + ((b * seq_len + row + 8) * hq + h) * D + c) =
+          __floats2bfloat162_rn(v.z * scale, v.w * scale);
+  }
+}
+
+// The query tiles that key tile kt reaches (the mask's band), as the kernel
+// counts them.
+inline int reached(int kt, int bn, int seq_len, int causal, int window) {
+  const int key0 = kt * bn;
+  const int key_end = std::min(seq_len, key0 + bn);
+  const int q_lo = causal ? key0 : 0;
+  const int q_hi = window > 0 ? std::min(seq_len, key_end - 1 + window) : seq_len;
+  return (q_hi + kBM - 1) / kBM - q_lo / kBM;
+}
+
+// Blocks a (b, KV head, key tile) takes: 1, or a divisor of the group size
+// that splits the group's heads when the block of the longest key tile
+// would otherwise run past 1.2x an even share of the work over the SMs
+// (gemma3-1b's global layer: Hkv 1, key tile 0 meets every query tile).
+template <int D>
+int split_heads(int seq_len, int n_kt, int batch, int hq, int hkv, int causal, int window,
+                int sms) {
+  const int group = hq / hkv;
+  long long total = 0;
+  int longest = 0;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int n = reached(kt, Shape<D>::kBN, seq_len, causal, window);
+    total += n;
+    longest = std::max(longest, n);
+  }
+  const double even = static_cast<double>(total) * group * batch * hkv / sms;
+  for (int split = 1; split < group; ++split) {
+    if (group % split == 0 && static_cast<double>(longest) * group / split <= 1.2 * even)
+      return split;
+  }
+  return group;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const float* lse, const void* dout, void* dq, void* dk, void* dv,
-           float* delta, int batch, int seq_len, int hq, int hkv, int causal,
+           void* workspace, int batch, int seq_len, int hq, int hkv, int causal,
            int window, cudaStream_t stream) {
   using T = Shape<D>;
-  static bool raised[kMaxDevices];
+  using bf16 = __nv_bfloat16;
+  static int device_sms[kMaxDevices];   // 0: the attribute not raised yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!raised[dev]) {
-    err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               T::kDqSmem);
+  if (device_sms[dev] == 0) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(flash_attention_bwd_dkv_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               T::kDkvSmem);
+    err = cudaFuncSetAttribute(flash_attention_bwd_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
     if (err != cudaSuccess) return err;
-    raised[dev] = true;
+    device_sms[dev] = sms;
   }
-  using bf16 = __nv_bfloat16;
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const dim3 grid_dq((seq_len + kTile - 1) / kTile, hq, batch);
-  flash_attention_bwd_dq_kernel<D><<<grid_dq, kThreads, T::kDqSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o), lse,
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), delta, seq_len, hq,
-      hkv, causal, window, scale, scale_log2);
+  const int n_qt = (seq_len + kBM - 1) / kBM;
+  const long long rows = static_cast<long long>(batch) * hq * n_qt * kBM;
+  const Work w = carve<D>(workspace, batch, seq_len, hq, hkv);
+  const long long prep_threads = std::max<long long>(rows * 32, w.n_zero);
+  flash_attention_bwd_prep_kernel<D><<<static_cast<unsigned>((prep_threads + 255) / 256),
+                                       256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, w.lse2, w.delta,
+      w.counters, w.n_zero, seq_len, hq, n_qt * kBM, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_dkv((seq_len + T::kKeyRows - 1) / T::kKeyRows, hkv, batch);
-  flash_attention_bwd_dkv_kernel<D><<<grid_dkv, kThreads, T::kDkvSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), lse, delta, static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_len, hq, hkv, causal,
-      window, scale, scale_log2);
+
+  // (D, H, S, B), innermost first; boxes of 64 columns x 1 head x rows
+  const auto dims = [&](int heads) {
+    return std::array<cuuint64_t, 4>{static_cast<cuuint64_t>(D),
+                                     static_cast<cuuint64_t>(heads),
+                                     static_cast<cuuint64_t>(seq_len),
+                                     static_cast<cuuint64_t>(batch)};
+  };
+  const auto strides = [&](int heads) {
+    const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
+    return std::array<cuuint64_t, 3>{static_cast<cuuint64_t>(D) * 2, row, row * seq_len};
+  };
+  const auto q_dims = dims(hq), kv_dims = dims(hkv);
+  const auto q_strides = strides(hq), kv_strides = strides(hkv);
+  const cuuint32_t q_box[4] = {kChunk, 1, kBM, 1};
+  const cuuint32_t kv_box[4] = {kChunk, 1, T::kBN, 1};
+  CUtensorMap map_q, map_k, map_v, map_do, map_dk, map_dv;
+  if (!encode(&map_q, q, 4, q_dims.data(), q_strides.data(), q_box) ||
+      !encode(&map_do, dout, 4, q_dims.data(), q_strides.data(), q_box) ||
+      !encode(&map_k, k, 4, kv_dims.data(), kv_strides.data(), kv_box) ||
+      !encode(&map_v, v, 4, kv_dims.data(), kv_strides.data(), kv_box) ||
+      !encode(&map_dk, dk, 4, kv_dims.data(), kv_strides.data(), q_box) ||
+      !encode(&map_dv, dv, 4, kv_dims.data(), kv_strides.data(), q_box))
+    return cudaErrorInvalidValue;
+  Params prm;
+  prm.lse2 = w.lse2;
+  prm.delta = w.delta;
+  prm.dq_acc = w.dq_acc;
+  prm.counters = w.counters;
+  prm.dkv_part = w.dkv_part;
+  prm.dkv_flags = w.dkv_flags;
+  prm.ticket = w.ticket;
+  prm.batch = batch;
+  prm.seq_len = seq_len;
+  prm.hq = hq;
+  prm.hkv = hkv;
+  prm.causal = causal;
+  prm.window = window;
+  prm.n_qt = n_qt;
+  prm.scale = 1.f / sqrtf(static_cast<float>(D));
+  prm.scale_log2 = prm.scale * 1.4426950408889634f;
+  const int n_kt = (seq_len + T::kBN - 1) / T::kBN;
+  prm.split = split_heads<D>(seq_len, n_kt, batch, hq, hkv, causal, window, device_sms[dev]);
+  // Key tile by key tile over every (b, KV head) pair, the key tiles of one
+  // pair are pairs x split tickets apart.  Past half a wave of blocks
+  // (deepseek-7b: 128 pairs) they run a wave apart, and the later ones add
+  // to dQ tiles that L2 no longer holds (134 MB of accumulators re-read and
+  // re-written in device memory).  Then the pairs go in sections of about
+  // a wave of blocks, or more while their dQ accumulators, Q, dO, K and V
+  // fit kL2Budget; sections of fewer pairs only cost balance.
+  const int pairs = batch * hkv;
+  const long long pair_bytes = static_cast<long long>(hq / hkv) * n_qt * kBM *
+                                   (T::kDPad * 4 + 2 * D * 2) +
+                               2LL * seq_len * D * 2;
+  const int per_pair = n_kt * prm.split;
+  prm.section = pairs;
+  if (pairs * prm.split > device_sms[dev] / 2)
+    prm.section = static_cast<int>(std::min<long long>(
+        pairs, std::max<long long>((device_sms[dev] + per_pair - 1) / per_pair,
+                                   kL2Budget / pair_bytes)));
+  flash_attention_bwd_kernel<D><<<n_kt * batch * hkv * prm.split, kThreadsB, T::kSmem,
+                                  stream>>>(
+      map_q, map_k, map_v, map_do, map_dk, map_dv, prm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_attention_bwd_convert_kernel<D><<<batch * hq * n_qt, 256, 0, stream>>>(
+      w.dq_acc, static_cast<bf16*>(dq), seq_len, hq, n_qt, prm.scale);
   return cudaGetLastError();
 }
 
@@ -1121,22 +1494,25 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 
 // The backward of flash_attention_fwd: q, k, v, o, dout as there (dout o's
 // shape), lse its (B, Hq, S) fp32 output; writes dq (q's shape) and dk, dv
-// (k's shape) in bf16, and delta, (B, Hq, S) fp32 scratch.  Launches the dq
-// kernel, then the dkv kernel, on `stream`.  Returns the first failing
-// launch's cudaError_t (0 on success).
+// (k's shape) in bf16.  workspace: fp32 scratch, 16-byte aligned, of the
+// bytes that flash_attention.py's _bwd_workspace_bytes gives (bwd::carve
+// lays it out: the dQ accumulator, the rows' LSE and delta, the dK/dV
+// partial sums of a split group of heads, counters and the ticket), at
+// least 4 B Hq S.
+// Launches the prep, main and convert kernels on `stream`.
+// Returns the first failing launch's cudaError_t (0 on success).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* lse, const void* dout,
-                        void* dq, void* dk, void* dv, void* delta, int batch,
+                        void* dq, void* dk, void* dv, void* workspace, int batch,
                         int seq_len, int hq, int hkv, int head_dim, int causal,
                         int window, void* stream) {
   if (batch <= 0 || seq_len <= 0 || hkv <= 0 || hq % hkv != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-#define REPRO_FA_BWD(D)                                                       \
-  bwd::launch<D>(q, k, v, o, l, dout, dq, dk, dv, dl, batch, seq_len, hq, hkv, \
-                 causal, window, s)
+#define REPRO_FA_BWD(D)                                                      \
+  bwd::launch<D>(q, k, v, o, l, dout, dq, dk, dv, workspace, batch, seq_len, \
+                 hq, hkv, causal, window, s)
   switch (head_dim) {
     case 16: return REPRO_FA_BWD(16);
     case 32: return REPRO_FA_BWD(32);

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) primitives shared by the port's kernels: shared-memory
-// addresses, mbarriers, TMA loads and stores through tensor maps, wgmma
-// descriptors, the wgmma instructions the kernels use (m64n64/128/256k16,
-// bf16 in, fp32 sums; A from shared memory or registers) and their fences,
-// bulk-group waits, warpgroup barriers, and the host's tensor-map encoder.
+// addresses, mbarriers, TMA loads and stores through tensor maps, plain
+// bulk copies (a load, a store, an fp32 add into global memory), wgmma
+// descriptors, the wgmma instructions the kernels use (m64n32/64/128/256k16,
+// bf16 in, fp32 sums; A from shared memory or registers; either operand
+// K-major or MN-major) and their fences, bulk-group waits, warpgroup
+// barriers, and the host's tensor-map encoder.
 // Included by moe_gmm.cu, flash_attention.cu and ssd_scan.cu; each of them
 // is one translation unit and one shared library
 // (repro_torch/kernels/_build.py, which rebuilds all when this file
@@ -105,6 +107,17 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst,
       : "memory");
 }
 
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on an mbarrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -141,10 +154,30 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d (64 x 64, fp32) = or += a (64 x 16) * b (16 x 64), both K-major in
-// shared memory (128-byte swizzle); accumulate == 0 overwrites d.
+// d (64 x N, fp32) = or += a (64 x 16) * b (16 x N), both in shared memory
+// (128-byte swizzle), N = 32, 64 or 128 by d's size; kTransA / kTransB 1
+// reads that operand MN-major (the instruction's transpose flags), 0 (the
+// default) K-major; accumulate == 0 overwrites d.
+template <int kTransA = 0, int kTransB = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
-                                         uint64_t desc_b, int accumulate) {
+                                           uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -152,7 +185,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -162,13 +195,12 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
-// d (64 x 128, fp32) = or += a (64 x 16) * b (16 x 128), both K-major in
-// shared memory (128-byte swizzle); accumulate == 0 overwrites d.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
-                                         uint64_t desc_b, int accumulate) {
+                                           uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -180,7 +212,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -198,7 +230,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 // d (64 x 64, fp32) += a (64 x 16, bf16 A fragments in registers) *
@@ -367,6 +399,24 @@ __device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
       "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group "
       "[%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from shared to global memory, or its fp32 elements added to
+// those in global memory (reduced at L2); tracked by this thread's bulk
+// groups.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, uint32_t src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(src), "r"(bytes)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {

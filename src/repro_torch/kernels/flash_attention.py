@@ -11,9 +11,15 @@ wrapper ``repro.kernels.ops.flash_attention``.  The kernels are in
   registers) and run the online softmax between the products.  It can also
   write each row's log-sum-exp (LSE), which the backward reads;
 * the backward, which the Pallas kernel never had (the reference
-  differentiates its plain attention with XLA): two mma.sync kernels, dQ
-  (which also computes delta = rowsum(dO∘O)) and then dK/dV, the dK/dV
-  block summing over the query heads of its KV group.
+  differentiates its plain attention with XLA): a prep kernel (delta =
+  rowsum(dO∘O), the LSE in base 2), then one wgmma + TMA kernel whose
+  block owns a tile of key rows of one (batch, KV head), walks the query
+  heads of its KV group (or a part of them, when one group's block would
+  run far longer than the rest) and computes S and dP once per tile pair:
+  dK and dV stay in its registers, dQ's parts are added to an fp32
+  accumulator by bulk copies in ascending key-tile order (a chained
+  hand-off: deterministic); then a pass that rounds dQ to bf16.  The
+  wrapper allocates the kernels' fp32 workspace (:func:`_bwd_workspace_bytes`).
 
 The source's header says what bounds each and what its design does about it.
 
@@ -48,7 +54,7 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: forward kernel launches since the last reset; the wrapper adds one per
 #: launch
 launches = 0
-#: backward launches (the dQ kernel, then the dK/dV kernel) since the last
+#: backward launches (its prep, main and dQ-convert kernels) since the last
 #: reset; the wrapper adds one per call of ``flash_attention_bwd`` in C
 bwd_launches = 0
 
@@ -141,6 +147,22 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, causal, window, with_lse=True)
 
 
+def _bwd_workspace_bytes(b: int, s: int, hq: int, hkv: int, d: int) -> int:
+    """Bytes of the backward kernels' fp32 scratch (``bwd::carve`` in the
+    source), with S and D rounded up to 64: the dQ accumulator, B·Hq·S_pad·
+    D_pad floats; the rows' base-2 LSE and delta, B·Hq·S_pad each; under GQA
+    the dK/dV partial sums of blocks that split a KV group's heads,
+    2·B·Hkv·S_128·D_pad floats (S rounded up to 128); the dQ hand-off's
+    B·Hq·S_pad/64 counters, under GQA the partial sums' B·Hkv·S_pad/64, and
+    one ticket."""
+    n_qt, d_pad = -(-s // 64), -(-d // 64) * 64
+    rows = b * hq * n_qt * 64
+    gqa = hq > hkv
+    kv_rows = b * hkv * -(-s // 128) * 128 if gqa else 0
+    flags = b * hkv * n_qt if gqa else 0
+    return 4 * (rows * (d_pad + 2) + 2 * kv_rows * d_pad + b * hq * n_qt + flags + 1)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: int = 0
@@ -162,13 +184,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    work = torch.empty(_bwd_workspace_bytes(b, s, hq, k.shape[2], d) // 4,
+                       dtype=torch.float32,
+                       device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, s, hq, k.shape[2], d,
+            dv.data_ptr(), work.data_ptr(), b, s, hq, k.shape[2], d,
             int(causal), int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

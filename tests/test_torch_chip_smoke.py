@@ -249,9 +249,11 @@ def test_routing_is_recorded_and_replayed():
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::flash_attention_fwd_kernel<256>(...)",
      "flash_attention"),
-    ("void (anonymous namespace)::bwd::flash_attention_bwd_dq_kernel<256>(...)",
+    ("void (anonymous namespace)::bwd::flash_attention_bwd_prep_kernel<256>(...)",
      "flash_attention_bwd"),
-    ("void (anonymous namespace)::bwd::flash_attention_bwd_dkv_kernel<256>(...)",
+    ("void (anonymous namespace)::bwd::flash_attention_bwd_kernel<256>(CUtensorMap, ...)",
+     "flash_attention_bwd"),
+    ("void (anonymous namespace)::bwd::flash_attention_bwd_convert_kernel<80>(...)",
      "flash_attention_bwd"),
     ("void (anonymous namespace)::ssd_chunk_state_kernel<64, 128>(Params)",
      "ssd_scan"),
@@ -296,6 +298,32 @@ def test_ptxas_flags_spills_and_ignored_setmaxnreg():
     assert flags[0].startswith("16 bytes stack frame, 12 bytes spill stores")
     assert "C7508" in flags[1] and "C7518" in flags[2]
     assert cs.ptxas_flags(log.splitlines()[1]) == []
+
+
+def test_ptxas_kernels_reads_each_kernels_registers_and_spills():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_13bwd26flash_attention_bwd_kernelILi256EEEv14CUtensorMap_stS2_"
+        "NS0_6ParamsE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_13bwd26flash_attention",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 32 bytes smem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_126flash_attention_fwd_kernelILi64EEEv14CUtensorMap_st' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 90 registers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_13bwd34flash_attention_bwd_convert_kernelILi80EEEvPKfP13"
+        "__nv_bfloat16iiif' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 32 registers, 380 bytes cmem[0]",
+    ])
+    assert cs.ptxas_kernels(log, "flash_attention_bwd") == {
+        "flash_attention_bwd_kernel<256>": {"registers": 168, "spill_stores": 0,
+                                            "spill_loads": 0},
+        "flash_attention_bwd_convert_kernel<80>": {"registers": 32, "spill_stores": 4,
+                                                   "spill_loads": 4},
+    }
 
 
 def test_host_us_times_every_call_and_syncs_between_rounds(monkeypatch):

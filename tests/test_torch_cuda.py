@@ -447,6 +447,53 @@ def test_backward_kernel_is_deterministic(dev):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window", [
+    (1, 4096, 4, 1, 256, True, 0),     # the dQ hand-off: 64 key tiles add to the last
+    (1, 4096, 4, 2, 128, True, 0),     # ... 32 key tiles of 128 rows
+    (2, 512, 8, 1, 128, True, 0),      # a GQA group of 8 heads
+    (2, 300, 8, 1, 256, True, 96),     # ... at D 256, with a window
+    (2, 1000, 4, 2, 80, True, 0),      # S no multiple of a tile
+    (2, 1000, 4, 1, 256, False, 200),
+    (2, 72, 4, 1, 256, True, 0),
+    (2, 72, 8, 1, 64, False, 0),
+    (2, 256, 64, 64, 64, True, 0),     # 128 (b, head) pairs: more than a section
+])
+def test_backward_kernel_hand_off_and_tiles_match_plain(dev, b, s, hq, hkv, d, causal,
+                                                        window):
+    """The backward against the plain backward where its design is tested:
+    long chains of key tiles adding to one query tile's dQ, a GQA group in
+    one block or split over several, sequences that end inside a tile, and
+    more (batch, head) pairs than one section of blocks."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(dev, b, s, hq, hkv, d)
+    do = _qkv(dev, b, s, hq, hkv, d, seed=1)[0]
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert _grad_err(a, w) <= 0, name
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", [
+    (4, 2048, 4, 1, 256, 0),   # gemma3-1b's global layer: chains of 32 key tiles
+    (2, 1000, 8, 2, 80, 0),    # D 80, padded to 128 in shared memory
+])
+def test_backward_kernel_is_deterministic_where_dq_is_handed_off(dev, b, s, hq, hkv, d,
+                                                                 window):
+    """dQ's parts are added in ascending key-tile order: three calls give the
+    same bytes."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(dev, b, s, hq, hkv, d)
+    do = _qkv(dev, b, s, hq, hkv, d, seed=1)[0]
+    out, lse = fa.flash_attention_with_lse(q, k, v, window=window)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    for _ in range(2):
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
 def test_flash_attention_gives_the_gradient_under_grad(dev):
     """Under grad mode the wrapper goes through the autograd.Function: one
     forward launch, and one backward launch when the gradient is taken; the

@@ -98,11 +98,29 @@ def test_fa_bind_declares_the_c_entry_point():
     # q, k, v, o and the optional LSE
     assert lib.flash_attention_fwd.argtypes == (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    # q, k, v, o, lse, dout, dq, dk, dv, delta
+    # q, k, v, o, lse, dout, dq, dk, dv, workspace
     assert lib.flash_attention_bwd.argtypes == (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     assert lib.flash_attention_fwd.restype is ctypes.c_int
     assert lib.flash_attention_bwd.restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d", [(4, 2048, 4, 1, 256), (2, 1000, 8, 2, 80),
+                                         (2, 1, 2, 2, 16), (4, 2048, 16, 16, 128)])
+def test_bwd_workspace_holds_the_kernels_scratch(b, s, hq, hkv, d):
+    """The backward kernels' fp32 scratch (``bwd::carve`` in the source): the
+    dQ accumulator of each 64-row query tile at D padded to 64, the rows'
+    base-2 LSE and delta, under GQA the dK/dV partial sums of a split group
+    (128 key rows a unit) and their counters, a counter a query tile and the
+    ticket; at least the (B, Hq, S) fp32 delta that a build of the first
+    backward takes there."""
+    n_qt, d_pad = -(-s // 64), -(-d // 64) * 64
+    rows = b * hq * n_qt * 64
+    split_sums = 2 * b * hkv * -(-s // 128) * 128 * d_pad if hq > hkv else 0
+    ints = b * hq * n_qt + (b * hkv * n_qt if hq > hkv else 0) + 1
+    want = 4 * (rows * d_pad + 2 * rows + split_sums + ints)
+    assert fa._bwd_workspace_bytes(b, s, hq, hkv, d) == want
+    assert want >= 4 * b * hq * s
 
 
 # -- the backward's plain version -------------------------------------------

@@ -7,7 +7,9 @@ checks them.
 Three serving paths: gemma3-1b (attention: the flash-attention kernel),
 mamba2-780m (SSM: the two SSD-scan kernels) and olmoe-1b-7b (MoE: the
 grouped-GEMM kernel, with flash attention); then the gemma3-1b training
-path (the flash-attention forward with its LSE and the backward kernels).
+path (the flash-attention forward with its LSE and the backward kernels),
+the mamba2-780m training path (the SSD scan's backward kernels) and the
+gang trainer (several members in one batched run).
 Phases, each printing one
 JSON line; any failure raises, so the script exits non-zero and prints no
 result line:
@@ -71,6 +73,33 @@ Then the training path of gemma3-1b:
    repeated batch, in which the loss must fall, and one step's launches
    (26 forward + 26 recomputed by the remat, 26 backward);
 6. profile: one train step under ``torch.profiler``.
+
+Then the training path of mamba2-780m (the SSD scan's backward kernels):
+
+3. ptxas's registers and spills of the SSD kernels; the two backward
+   kernels (``ssd_chunk_scan_bwd``, ``ssd_chunk_state_bwd``) against their
+   plain versions at mamba2-780m's training shape, hymba-1.5b's SSD, the
+   (64, 64) pair with G 4, the (16, 16) pair, and with an initial state and
+   a gradient of the final state: each output within 5e-2 of its (batch,
+   head)'s largest |plain|; their times, the plain versions' and the
+   bounds; then the 48 calls of each in one train step, timed together;
+4. train: ``launch.train.main`` on mamba2-780m at full width and depth, a
+   (4, 2048) batch, 2 warm-up and 3 timed steps, the launch counts reset
+   just before and read just after: step time, tokens/s, 6·N·T share and
+   peak memory;
+5. correctness: the kernels' step against the plain SSD's (|Δloss| ≤
+   0.1·std(logits), grad-norm relative error ≤ 0.05), 8 steps on one batch
+   (the loss must fall) and one step's launches (96 of each forward SSD
+   kernel, 48 + 48 by the full remat; 48 of each backward);
+6. profile: one train step.
+
+Then the gang (``repro_torch.train.ensemble.train_gang``): gemma3-1b at
+full width, members 0 and 1 (own lr, 2 × 1024 tokens a step each, 3
+steps) each alone and both in one gang: every step's loss of the gang
+within 5e-3 (relative) of the member's alone, and the flash-attention
+launches a step the same for two members as for one; step time and peak
+memory of each run; the same for a smoke-size mamba2 gang (the SSD scan's
+vmap rule); a one-step gang of two gemma3-1b members under the profiler.
 
 Then the kernels line, the card line and, last, the result line.  There is
 no CPU mode: without a CUDA device the script exits with an error.
@@ -216,6 +245,31 @@ SSD_TOL = 5e-2                # bf16, the reference's SSD kernel tolerance
 SSD_SLAB_REL_TOL = 5e-2
 SSD_CONSISTENCY_PROMPT = 512  # two chunks of 256: the inter-chunk term runs
 SSD_PLAIN_CHECK_SEQ = 2048    # eight chunks
+#: the SSD backward kernels replace no Pallas kernel: the reference
+#: differentiates its plain SSD with XLA autodiff
+SSD_BWD_REPLACES = ("XLA autodiff of repro.kernels.ssd_scan / "
+                    "repro.models.ssm.ssd_chunked (src/repro/models/ssm.py:27)")
+SSD_BWD_DESIGN = ("scalar fp32 bodies over 64-row tiles in shared memory; the "
+                  "reverse state pass by the chained hand-off")
+#: the backward kernels against their plain versions: name, B, S, H, P, G,
+#: N, chunk, with an initial state and dfinal; mamba2-780m's training
+#: shape, hymba-1.5b's SSD, every other (P, N) of HEAD_STATE_DIMS
+SSD_BWD_CASES = [
+    ("mamba2-780m train", 4, 2048, 48, 64, 1, 128, 256, False),
+    ("hymba-1.5b SSD", 4, 2048, 50, 64, 1, 16, 256, False),
+    ("(64, 64), G 4", 2, 1024, 16, 64, 4, 64, 256, False),
+    ("(16, 16)", 2, 1024, 8, 16, 1, 16, 256, False),
+    ("initial state and dfinal", 2, 512, 48, 64, 1, 128, 256, True),
+]
+#: the mamba2-780m training path: launch.train at full width and depth on a
+#: (4, 2048) batch, 2 warm-up and 3 timed steps
+SSM_TRAIN_WARMUP, SSM_TRAIN_TIMED = 2, 3
+#: the gang: gemma3-1b at full width, two members with their own lr, a
+#: (2, 1024) batch each, 3 steps; each member's losses against the same
+#: core run with that member alone (M = 1), at the reference's bf16 loss
+#: tolerance (relative: the losses are ~12.5)
+GANG_ARCH, GANG_LRS, GANG_BATCH, GANG_SEQ, GANG_STEPS = "gemma3-1b", (3e-4, 1e-3), 2, 1024, 3
+GANG_LOSS_REL_TOL = 5e-3
 GMM_SOURCE = "src/repro_torch/kernels/csrc/moe_gmm.cu"
 GMM_REPLACES = "src/repro/kernels/moe_gmm.py:66"
 # The reference's bf16 tolerance for the grouped matmul
@@ -277,8 +331,9 @@ def ptxas_flags(log: str) -> list[str]:
 
 def ptxas_kernels(log: str, match: str) -> dict[str, dict]:
     """Registers and spills of each kernel of an nvcc ``-Xptxas=-v`` log
-    whose mangled name holds ``match``, keyed by its name and first template
-    argument (``flash_attention_bwd_kernel<256>``)."""
+    whose mangled name starts with ``match``, keyed by its name and integer
+    template arguments (``flash_attention_bwd_kernel<256>``,
+    ``ssd_chunk_scan_bwd_kernel<64, 128>``)."""
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -287,9 +342,16 @@ def ptxas_kernels(log: str, match: str) -> dict[str, dict]:
             # Itanium mangling: the length of each name, then the name
             found = re.search(r"(\d+)(" + re.escape(match) + ")", fn)
             if found:
-                end = found.start(2) + int(found.group(1))
-                arg = re.match(r"ILi(\d+)E", fn[end:])
-                name = fn[found.start(2):end] + (f"<{arg.group(1)}>" if arg else "")
+                # the fewest trailing digits that cover the match (a
+                # namespace's digits may run into the length: _GLOBAL__N_1)
+                digits = found.group(1)
+                length = next(int(digits[-k:]) for k in range(1, len(digits) + 1)
+                              if int(digits[-k:]) >= len(match))
+                end = found.start(2) + length
+                args = re.match(r"I((?:Li\d+E)+)E", fn[end:])
+                name = fn[found.start(2):end] + (
+                    f"<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+                    if args else "")
                 out[name] = {}
             continue
         if name is None:
@@ -377,6 +439,40 @@ def ssd_floor_ms(b, s, h, p, g, n, chunk, part="function",
         "chunk_state": (f_state, x + la + bc + init + states + final),
         "chunk_scan": (f_scan, 2 * x + la + 2 * bc + states),
         "function": (f_state + f_scan, 2 * x + la + 2 * bc + final + init),
+    }[part]
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def ssd_bwd_floor_ms(b, s, h, p, g, n, chunk, part, dfinal=False
+                     ) -> tuple[float, float]:
+    """(ms for its operations, ms for its bytes) on the card for one call
+    of a backward kernel, its own reads and writes each counted once.
+
+    ``"chunk_scan_bwd"``: C·Bᵀ once per group and dS = dy·xᵀ, dx, dC and dB
+    over the allowed (i, j ≤ i) pairs, prev_cᵀ·dy and dprev over every step
+    (bf16 tensor-core FLOPs, the least the card could take); reads x, dy,
+    B, C (bf16), log_a and the states (fp32); writes dx, dB and dC per head,
+    dprev and dcum (fp32).  ``"chunk_state_bwd"``: G·B_j and Gᵀ·x_j over
+    every step; reads x, B, log_a, the states, dprev and dfinal, reads and
+    writes dx, dB per head and dcum, writes G (fp32)."""
+    q = min(chunk, s)
+    c = s // q
+    pairs = c * q * (q + 1) // 2
+    x = 2 * b * s * h * p                 # x, and dy alike (bf16)
+    bc = 2 * b * s * g * n                # B, and C alike (bf16)
+    la = 4 * b * s * h                    # log_a, and dcum alike (fp32)
+    dx = 4 * b * s * h * p
+    dbc = 4 * b * s * h * n               # dB per head, and dC alike
+    states = 4 * b * h * c * p * n        # prev, dprev and G alike
+    fin = 4 * b * h * p * n if dfinal else 0
+    flops, nbytes = {
+        "chunk_scan_bwd": (
+            2 * b * g * pairs * n + 2 * b * h * pairs * (2 * p + 2 * n)
+            + 4 * b * h * s * p * n,
+            2 * x + 2 * bc + la + states + dx + 2 * dbc + states + la),
+        "chunk_state_bwd": (
+            4 * b * h * s * p * n,
+            x + bc + la + 2 * states + fin + 2 * (dx + dbc + la) + states),
     }[part]
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
@@ -576,6 +672,8 @@ def kernel_class(name: str) -> str:
         return "flash_attention_bwd"
     if "flash_attention" in low:
         return "flash_attention"
+    if "ssd_chunk" in low and "bwd" in low:
+        return "ssd_scan_bwd"
     if "ssd_chunk" in low:
         return "ssd_scan"
     if "grouped_matmul" in low:
@@ -1758,6 +1856,321 @@ def gemma3_train_path(dev, card) -> dict:
     }
 
 
+def ssm_train_path(dev, card) -> list[dict]:
+    """The SSD backward kernels against their plain versions, then mamba2-780m
+    training at full width through ``launch.train``, the kernels' step
+    against the plain SSD's, a falling loss and one step's launches.
+    Returns the two backward kernels' entries of the kernels line."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import (
+        AdamW, cosine_schedule, global_norm, value_and_grad,
+    )
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    cfg = get("mamba2-780m")
+    h, p, g, n, chunk = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                         cfg.ssm_state, cfg.ssm_chunk)
+    from repro_torch.kernels import _build
+    emit("build_ssd_bwd", nvidia_smi=card,
+         ptxas=ptxas_kernels(_build.build_log.get("ssd_scan.cu", ""), "ssd_chunk_"))
+
+    # -- 3. the backward kernels against their plain versions ------------------
+    keep = {"dx": (0, 2), "db": (0, 2), "dc": (0, 2), "dprev": (0, 1),
+            "dcum": (0, 2), "g": (0, 1)}
+    max_err = {"ssd_chunk_scan_bwd": 0.0, "ssd_chunk_state_bwd": 0.0}
+    for name, b, s, hh, pp, gg, nn, ch, init in SSD_BWD_CASES:
+        x, la, bm, cm, h0 = ssd_inputs(gen, dev, b, s, hh, pp, gg, nn, init)
+        dy = torch.randn((b, s, hh, pp), generator=gen, device=dev).to(torch.bfloat16)
+        dfinal = torch.randn((b, hh, pp, nn), generator=gen, device=dev) if init else None
+        q = min(ch, s)
+        prev, _ = kssd.chunk_state(x, la, bm, chunk=ch, initial_state=h0)
+        got = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=ch)
+        want = kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, q)
+        errs = {}
+        for part, a, w in zip(("dx", "db", "dc", "dprev", "dcum"), got, want):
+            errs["scan_bwd " + part] = ((a - w).abs().max().item(),
+                                        slab_rel_err(a, w, keep[part]))
+        # the state kernel on the plain scan backward's outputs (contiguous
+        # copies: it adds to them in place)
+        args = [t.clone(memory_format=torch.contiguous_format)
+                for t in (want[3], want[0], want[1], want[4])]
+        got = kssd.chunk_state_bwd(x, la, bm, prev, *args, chunk=ch, dfinal=dfinal)
+        want = kssd.chunk_state_bwd_plain(x, la, bm, prev, want[3], want[0],
+                                          want[1], want[4], q, dfinal)
+        torch.cuda.synchronize()
+        for part, a, w in zip(("dx", "db", "dcum", "g"), got, want):
+            errs["state_bwd " + part] = ((a - w).abs().max().item(),
+                                         slab_rel_err(a, w, keep[part]))
+        for what, (err, rel) in errs.items():
+            if not rel <= SSD_SLAB_REL_TOL:
+                raise AssertionError(f"ssd backward {name} {what}: max |err| {err}, "
+                                     f"per (b, h) {rel} > {SSD_SLAB_REL_TOL}")
+            kernel = "ssd_chunk_" + what.split()[0]
+            max_err[kernel] = max(max_err[kernel], err)
+        scan_bound = bound(*ssd_bwd_floor_ms(b, s, hh, pp, gg, nn, ch, "chunk_scan_bwd"))
+        state_bound = bound(*ssd_bwd_floor_ms(b, s, hh, pp, gg, nn, ch,
+                                              "chunk_state_bwd", dfinal=init))
+        emit("kernel_check", kernel="ssd_scan_bwd", case=name,
+             shape=[b, s, hh, pp, gg, nn, q], initial_state_and_dfinal=init,
+             errors={k: {"max_abs_err": e, "max_bh_rel_err": r}
+                     for k, (e, r) in errs.items()},
+             bh_rel_tol=SSD_SLAB_REL_TOL,
+             chunk_scan_bwd_ms=time_ms(lambda: kssd.chunk_scan_bwd(
+                 x, la, bm, cm, prev, dy, chunk=ch), 5),
+             chunk_state_bwd_ms=time_ms(lambda: kssd.chunk_state_bwd(
+                 x, la, bm, prev, *args, chunk=ch, dfinal=dfinal), 5),
+             chunk_scan_bwd_plain_ms=time_ms(lambda: kssd.chunk_scan_bwd_plain(
+                 x, la, bm, cm, prev, dy, q), 2, 1),
+             chunk_state_bwd_plain_ms=time_ms(lambda: kssd.chunk_state_bwd_plain(
+                 x, la, bm, prev, *args, q, dfinal), 2, 1),
+             chunk_scan_bwd_bound_ms=scan_bound[0], chunk_scan_bwd_bound_by=scan_bound[1],
+             chunk_state_bwd_bound_ms=state_bound[0],
+             chunk_state_bwd_bound_by=state_bound[1], library_ms=None,
+             nvidia_smi=card)
+        del x, la, bm, cm, h0, dy, dfinal, prev, got, want, args
+    torch.cuda.empty_cache()
+
+    # the backward's work in one mamba2-780m train step: one call of each
+    # kernel per layer
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    x, la, bm, cm, _ = ssd_inputs(gen, dev, b, s, h, p, g, n, False)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
+    prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk)
+    scan_out = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=chunk)
+    layers = range(cfg.n_layers)
+    mix = {}
+    for part, kernel, plain in (
+            ("chunk_scan_bwd",
+             lambda: kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=chunk),
+             lambda: kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, chunk)),
+            ("chunk_state_bwd",
+             lambda: kssd.chunk_state_bwd(x, la, bm, prev, scan_out[3], scan_out[0],
+                                          scan_out[1], scan_out[4], chunk=chunk),
+             lambda: kssd.chunk_state_bwd_plain(x, la, bm, prev, scan_out[3],
+                                                scan_out[0], scan_out[1],
+                                                scan_out[4], chunk))):
+        ops_ms, bytes_ms = ssd_bwd_floor_ms(b, s, h, p, g, n, chunk, part)
+        mix_bound_ms, mix_bound_by = bound(cfg.n_layers * ops_ms,
+                                           cfg.n_layers * bytes_ms)
+        mix[part] = {
+            "ms": time_ms(lambda: [kernel() for _ in layers], 3, 1),
+            "plain_ms": time_ms(lambda: [plain() for _ in layers], 1, 1),
+            "bound_ms": mix_bound_ms, "bound_by": mix_bound_by, "library_ms": None,
+        }
+    emit("kernel_train_mix", kernel="ssd_scan_bwd", layers=cfg.n_layers,
+         shape=[b, s, h, p, g, n, chunk], nvidia_smi=card, **mix)
+    del x, la, bm, cm, dy, prev, scan_out
+    torch.cuda.empty_cache()
+
+    def counts():
+        return {"ssd_chunk_state": kssd.state_launches,
+                "ssd_chunk_scan": kssd.scan_launches,
+                "ssd_chunk_state_bwd": kssd.state_bwd_launches,
+                "ssd_chunk_scan_bwd": kssd.scan_bwd_launches}
+
+    def reset():
+        kssd.state_launches = kssd.scan_launches = 0
+        kssd.state_bwd_launches = kssd.scan_bwd_launches = 0
+
+    def per_steps(k):
+        return {"ssd_chunk_state": 2 * cfg.n_layers * k,
+                "ssd_chunk_scan": 2 * cfg.n_layers * k,
+                "ssd_chunk_state_bwd": cfg.n_layers * k,
+                "ssd_chunk_scan_bwd": cfg.n_layers * k}
+
+    # -- 4. train: the main path, at full width and depth ----------------------
+    torch.cuda.reset_peak_memory_stats()
+    steps = SSM_TRAIN_WARMUP + SSM_TRAIN_TIMED
+    reset()
+    out = train.main(["--arch", "mamba2-780m", "--steps", str(steps), "--batch", str(b),
+                      "--seq", str(s), "--log-every", "1"])
+    launches = counts()
+    if launches != per_steps(steps):
+        raise AssertionError(f"mamba2 training launched {launches}, want "
+                             f"{per_steps(steps)}")
+    if out["steps_run"] != steps or not math.isfinite(out["loss"]):
+        raise AssertionError(f"training ran {out['steps_run']} steps, loss {out['loss']}")
+    step_s = float(np.median(out["step_seconds"][SSM_TRAIN_WARMUP:]))
+    n_params, tokens = cfg.param_count(), b * s
+    emit("train", arch=cfg.name, batch=b, seq=s, remat=cfg.remat,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         warmup_steps=SSM_TRAIN_WARMUP, step_seconds=out["step_seconds"],
+         step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, params=n_params,
+         mfu_6nt=6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+         final_loss=out["loss"], final_grad_norm=out["grad_norm"], nvidia_smi=card)
+    torch.cuda.empty_cache()
+
+    # -- 5. correctness at full width ------------------------------------------
+    # (a) the kernels' step against the plain SSD's, one step's loss and grads
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             make_stream(cfg, b, s, seed=0).batch_at(0).items()}
+    pgen = torch.Generator(device=dev)
+    pgen.manual_seed(0)
+    params = tfm.init_params(cfg, pgen)
+
+    def loss(prm, bt):
+        return tfm.loss_fn(cfg, prm, bt)
+
+    (k_loss, _), k_grads = value_and_grad(loss, params, batch)
+    kernel = kssd.ssd_scan
+    kssd.ssd_scan = kssd.ssd_scan_plain
+    try:
+        (p_loss, _), p_grads = value_and_grad(loss, params, batch)
+    finally:
+        kssd.ssd_scan = kernel
+    with torch.no_grad():
+        logit_std = tfm.forward(cfg, params, {"tokens": batch["tokens"][:1]}).float().std().item()
+    k_norm, p_norm = global_norm(k_grads).item(), global_norm(p_grads).item()
+    plain_flat = flatten(p_grads)
+    agreement = {
+        "loss": k_loss.item(), "plain_loss": p_loss.item(),
+        "abs_loss_diff": abs(k_loss.item() - p_loss.item()), "logit_std": logit_std,
+        "bound_abs_loss_diff": TRAIN_LOSS_STD_TOL * logit_std,
+        "grad_norm": k_norm, "plain_grad_norm": p_norm,
+        "grad_norm_rel_err": abs(k_norm - p_norm) / p_norm,
+        "bound_grad_norm_rel_err": TRAIN_GNORM_REL_TOL,
+        "leaf_max_abs_diff_over_max_abs_grad": {
+            key: ((a - plain_flat[key]).abs().max()
+                  / plain_flat[key].abs().max().clamp_min(1e-30)).item()
+            for key, a in flatten(k_grads).items()},
+    }
+    emit("train_step_vs_plain_ssd", arch=cfg.name, batch=b, seq=s, **agreement)
+    if not (agreement["abs_loss_diff"] <= agreement["bound_abs_loss_diff"]
+            and agreement["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL):
+        raise AssertionError(f"kernel and plain SSD training steps disagree: {agreement}")
+    del params, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+    # (b) the loss falls on one repeated batch; (c) one step's launches
+    opt = AdamW(schedule=cosine_schedule(1e-3, 1, LEARN_STEPS), weight_decay=0.0)
+    pgen.manual_seed(1)
+    state = init_train_state(cfg, opt, pgen)
+    step = make_train_step(cfg, opt)
+    losses = []
+    for i in range(LEARN_STEPS):
+        reset()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            step_launches = counts()
+    emit("train_learns", arch=cfg.name, steps=LEARN_STEPS, losses=losses,
+         bound_last_over_first=LEARN_DROP, step_launches=step_launches)
+    if not losses[-1] < LEARN_DROP * losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if step_launches != per_steps(1):
+        raise AssertionError(f"one train step launched {step_launches}, want "
+                             f"{per_steps(1)} (the forward kernels twice a layer "
+                             f"by the full remat, the backward kernels once)")
+
+    # -- 6. profile: where the time of one train step goes --------------------
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit("profile_train_step", arch=cfg.name, batch=b, seq=s, nvidia_smi=card,
+         **summarize(trace, wall, 1))
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    return [{"name": "ssd_" + part, "route": "cuda", "source": SSD_SOURCE,
+             "replaces": SSD_BWD_REPLACES, "launches": launches["ssd_" + part],
+             "design": SSD_BWD_DESIGN, "max_abs_err": max_err["ssd_" + part],
+             **mix[part]}
+            for part in ("chunk_scan_bwd", "chunk_state_bwd")]
+
+
+def gang_path(dev, card) -> None:
+    """The gang trainer: gemma3-1b at full width, two members with their own
+    lr in one batched run against each member alone (the same core with
+    M = 1): the losses of every step agree and the flash-attention launches
+    a step do not grow with M; then a smoke-size mamba2 gang, so that the
+    SSD scan's vmap rule launches its kernels."""
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.train import ensemble
+
+    def fa_counts():
+        return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches}
+
+    def ssd_counts():
+        return {"ssd_chunk_state": kssd.state_launches,
+                "ssd_chunk_scan": kssd.scan_launches,
+                "ssd_chunk_state_bwd": kssd.state_bwd_launches,
+                "ssd_chunk_scan_bwd": kssd.scan_bwd_launches}
+
+    def reset():
+        fa.launches = fa.bwd_launches = 0
+        kssd.state_launches = kssd.scan_launches = 0
+        kssd.state_bwd_launches = kssd.scan_bwd_launches = 0
+
+    for cfg, batch, seq in ((get(GANG_ARCH), GANG_BATCH, GANG_SEQ),
+                            (get_smoke("mamba2-780m"), 2, 64)):
+        runs = {}
+        for members in ((0,), (1,), (0, 1)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params, tokens = ensemble.init_members(cfg, members, GANG_STEPS, batch,
+                                                   seq, dev)
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            losses = ensemble.train_gang(cfg, params, tokens,
+                                         [GANG_LRS[i] for i in members],
+                                         warmup=max(1, GANG_STEPS // 10))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = fa_counts() if "attn" in cfg.layer_types else ssd_counts()
+            runs[members] = {
+                "losses": losses.float().cpu().T.tolist(),
+                "launches_per_step": {k: v / GANG_STEPS for k, v in counts.items()},
+                "step_ms": seconds / GANG_STEPS * 1e3,
+                "tokens_per_s": len(members) * batch * seq * GANG_STEPS / seconds,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            }
+            del params, tokens, losses
+        gang = runs[(0, 1)]
+        rel = [abs(a - b) / abs(b) for i in (0, 1)
+               for a, b in zip(gang["losses"][i], runs[(i,)]["losses"][0])]
+        emit("gang", arch=cfg.name, members=2, lrs=list(GANG_LRS), batch=batch,
+             seq=seq, steps=GANG_STEPS,
+             runs={"+".join(map(str, m)): r for m, r in runs.items()},
+             max_loss_rel_diff_vs_alone=max(rel), bound_loss_rel_diff=GANG_LOSS_REL_TOL,
+             nvidia_smi=card)
+        if not max(rel) <= GANG_LOSS_REL_TOL:
+            raise AssertionError(f"{cfg.name}: the gang's losses differ from each "
+                                 f"member's alone by {max(rel)} > {GANG_LOSS_REL_TOL}")
+        one = runs[(0,)]["launches_per_step"]
+        if gang["launches_per_step"] != one or not all(one.values()):
+            raise AssertionError(f"{cfg.name}: launches a step {gang['launches_per_step']} "
+                                 f"for 2 members, {one} for one")
+        torch.cuda.empty_cache()
+    # where the time of a one-step gang of two gemma3-1b members goes (the
+    # optimizer state's allocation included)
+    cfg = get(GANG_ARCH)
+    params, tokens = ensemble.init_members(cfg, (0, 1), 1, GANG_BATCH, GANG_SEQ, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        ensemble.train_gang(cfg, params, tokens, list(GANG_LRS), warmup=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit("profile_gang_step", arch=cfg.name, members=2, batch=GANG_BATCH,
+         seq=GANG_SEQ, nvidia_smi=card, **summarize(trace, wall, 1))
+    del params, tokens
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -1794,6 +2207,9 @@ def main() -> None:
     kernels.append(olmoe_path(dev, card))
     torch.cuda.empty_cache()
     kernels.append(gemma3_train_path(dev, card))
+    torch.cuda.empty_cache()
+    kernels += ssm_train_path(dev, card)
+    gang_path(dev, card)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,7 @@
 // Mamba2 SSD chunked scan for Hopper (sm_90a): bf16 x, B, C; fp32 log-decay;
-// fp32 states; bf16 y and final state.
+// fp32 states; bf16 y and final state.  The backward's two kernels
+// (ssd_chunk_scan_bwd, ssd_chunk_state_bwd) follow the forward's, with
+// their own note.
 //
 // Replaces the TPU kernels of src/repro/kernels/ssd_scan.py: _intra_kernel
 // (the pl.pallas_call at :106), the host associative_scan over chunk states
@@ -694,6 +696,475 @@ __global__ void __launch_bounds__(kScanThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward: two kernels that replace no Pallas kernel: they replace the
+// XLA autodiff through which the reference differentiates its SSD
+// (repro.kernels.ssd_scan, repro.models.ssm.ssd_chunked).  Scalar fp32 bodies over tiles of
+// 64 rows in shared memory, each thread owning a 4 x 4 (or 4 x N/16) patch
+// of every product: simple and right first; tensor cores are for a later
+// version.  Per (b, h, c), with S_ij = (C_i . B_j) exp(cum_i - cum_j) for
+// j <= i, dS_ij = dy_i . x_j and T = cum[Q - 1]:
+//
+// ssd_chunk_scan_bwd, one block per (b, c, h), heads fastest:
+//   dx_j   = sum_i S_ij dy_i                      (the intra term's part)
+//   dC_i   = sum_j dS_ij e_ij B_j + exp(cum_i) prev_c^T dy_i
+//   dB_j   = sum_i dS_ij e_ij C_i                 (per head: fp32, B, S, H, N)
+//   dcum_i = sum_j S_ij dS_ij - sum_i' S_i'i dS_i'i + exp(cum_i) dy_i.(prev_c C_i)
+//   dprev_c = sum_i exp(cum_i) dy_i (x) C_i
+// Phase A walks the row tiles I (dC_I, dcum's row sums, the inter term,
+// dprev), phase B the key tiles J (dx_J, dB_J, dcum's column sums): S and
+// dS of a tile pair are computed in both, so no sum needs atomics.
+//
+// ssd_chunk_state_bwd, one block per (b, h, c), tickets in reverse chunk
+// order: the state pass in reverse, G_C = dfinal (or 0), G_c = dprev_c +
+// exp(T_c) G_c+1, written over dprev_c (so dprev_0 becomes the initial
+// state's gradient) and handed to chunk c - 1 by the chained hand-off of
+// the forward (flag c raised after G_c is written; chunk c's block took its
+// ticket after chunk c + 1's).  Then, with w_j = exp(T - cum_j) and
+// G = G_c+1: dx_j += w_j G B_j, dB_j += w_j G^T x_j, dcum_j -= w_j x_j^T G
+// B_j, and dcum[Q - 1] += exp(T) <prev_c, G> + sum_j w_j x_j^T G B_j.
+//
+// dx, dB, dC, dcum and dprev are fp32; the wrapper sums dB and dC over the
+// heads of a group, turns dcum into dlog_a (a reverse cumsum within each
+// chunk) and rounds dx to bf16: torch glue (ssd_scan.py, _bwd_finish).
+// Every sum runs in a fixed order: the same bits every run.
+//
+// What bounds them: the function is bound by bytes (at the mamba2-780m
+// training shape ~0.2 ms each on an H100: the per-head fp32 dB and dC, the
+// states and their gradients; chip_smoke.py ssd_bwd_floor_ms).  These
+// bodies are bound instead by the CUDA cores and shared memory: the scan's
+// backward does ~100 GFLOP of fp32 FMAs there (S and dS twice, ~33 M FMAs
+// per (b, h, c)) with two to three FMAs per shared-memory load and one
+// 151 KB block an SM.  wgmma for the five products, S and dS computed
+// once, is the way to the bound.
+// ---------------------------------------------------------------------------
+constexpr int kBwdThreads = 256;
+
+template <int P, int N>
+struct BwdShape {
+  static constexpr int kLdN = N + 1;     // padded rows: no bank conflicts
+  static constexpr int kLdP = P + 1;
+  static constexpr int kLdT = kTile + 1;
+  static constexpr int kCn = N / 16;     // columns a thread owns, of N
+  static constexpr int kCp = P / 16;     // ... of P
+  static constexpr int scan_bytes() {
+    return 4 * (2 * kTile * kLdN + 2 * kTile * kLdP + 3 * kTile * kLdT +
+                2 * kMaxChunk);
+  }
+  static constexpr int state_bytes() {
+    return 4 * (P * kLdN + kTile * kLdP + kTile * kLdN + kMaxChunk);
+  }
+};
+
+struct BwdParams {
+  const bf16* x;
+  const bf16* b;
+  const bf16* c;
+  const bf16* dy;           // (B, S, H, P) contiguous
+  const float* la;
+  const float* prev;        // (B, H, C, P, N): the forward's states
+  const float* dfinal;      // (B, H, P, N) contiguous, or null: zeros
+  float* dx;                // (B, S, H, P)
+  float* db;                // (B, S, H, N), per head
+  float* dc;                // (B, S, H, N), per head
+  float* dprev;             // (B, H, C, P, N): dprev_c, then G_c
+  float* dcum;              // (B, S, H)
+  int* flags;               // (B, H, C) zeros: G_c is written
+  int* ticket;              // zero
+  int batch, seq, heads, groups, q, n_chunks;
+  int64_t x_s[3], la_s[3], b_s[3], c_s[3];
+};
+
+// Rows [r0, r0 + 64) of a chunk's (Q, COLS) slab of a bf16 tensor (element
+// (r, col) at base[r * row_stride + col]) into fp32 rows of `ld` floats;
+// rows past q are zeros.
+template <int COLS>
+__device__ void load_rows(float* dst, int ld, const bf16* base,
+                          int64_t row_stride, int r0, int q) {
+  for (int e = threadIdx.x; e < kTile * COLS; e += kBwdThreads) {
+    const int r = e / COLS, col = e % COLS;
+    dst[r * ld + col] = r0 + r < q
+        ? __bfloat162float(base[(r0 + r) * row_stride + col]) : 0.f;
+  }
+}
+
+// Sum over the 16 lanes of a half warp (the threads of one row of patches).
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The block's sum of v, the same on every thread, in a fixed order.
+__device__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < kBwdThreads / 32; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ssd_chunk_scan_bwd_kernel(const BwdParams prm) {
+  using S = BwdShape<P, N>;
+  constexpr int kLdN = S::kLdN, kLdP = S::kLdP, kLdT = S::kLdT;
+  constexpr int kCn = S::kCn, kCp = S::kCp;
+  extern __shared__ float sm[];
+  float* c_t = sm;                        // C of row tile I, [i][n]
+  float* b_t = c_t + kTile * kLdN;        // B of key tile J [j][n]; prev [p][n]
+  float* dy_t = b_t + kTile * kLdN;       // dy of row tile I, [i][p]
+  float* x_t = dy_t + kTile * kLdP;       // x of key tile J, [j][p]
+  float* s_t = x_t + kTile * kLdP;        // S_ij, [i][j]
+  float* a_t = s_t + kTile * kLdT;        // dS_ij e_ij
+  float* r_t = a_t + kTile * kLdT;        // S_ij dS_ij
+  float* cum = r_t + kTile * kLdT;        // [kMaxChunk]
+  float* dcum = cum + kMaxChunk;          // [kMaxChunk]
+  __shared__ float warp_total[4];
+
+  const int tid = threadIdx.x;
+  const int ti = tid / 16, tj = tid % 16;   // the thread's patch
+  const int h = blockIdx.x % prm.heads;
+  const int c = (blockIdx.x / prm.heads) % prm.n_chunks;
+  const int b = blockIdx.x / (prm.heads * prm.n_chunks);
+  const int g = h / (prm.heads / prm.groups);
+  const int q = prm.q;
+  const int tiles = (q + kTile - 1) / kTile;
+  const int64_t row0 = static_cast<int64_t>(c) * q;
+  const int64_t bs = static_cast<int64_t>(b) * prm.seq + row0;   // (b, row 0)
+  const int64_t hp = static_cast<int64_t>(prm.heads) * P;
+  const int64_t hn = static_cast<int64_t>(prm.heads) * N;
+  const bf16* xg = prm.x + b * prm.x_s[0] + row0 * prm.x_s[1] + h * prm.x_s[2];
+  const bf16* bg = prm.b + b * prm.b_s[0] + row0 * prm.b_s[1] + g * prm.b_s[2];
+  const bf16* cg = prm.c + b * prm.c_s[0] + row0 * prm.c_s[1] + g * prm.c_s[2];
+  const bf16* dyg = prm.dy + bs * hp + h * P;
+  const int64_t slot = (static_cast<int64_t>(b) * prm.heads + h) * prm.n_chunks + c;
+
+  if (tid < 128)
+    chunk_cumsum(cum, warp_total,
+                 prm.la + b * prm.la_s[0] + row0 * prm.la_s[1] + h * prm.la_s[2],
+                 prm.la_s[1], q, tid, 1);
+  for (int i = tid; i < kMaxChunk; i += kBwdThreads) dcum[i] = 0.f;
+  __syncthreads();
+
+  // S, dS e and S dS of row tile I against key tile J (c_t, dy_t, b_t, x_t
+  // loaded), each thread its rows ti + 16a, columns tj + 16k
+  const auto pair = [&](int I, int J) {
+    float cb[4][4] = {}, ds[4][4] = {};
+    for (int n = 0; n < N; ++n) {
+      float cr[4], br[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) cr[a] = c_t[(ti + 16 * a) * kLdN + n];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) br[k] = b_t[(tj + 16 * k) * kLdN + n];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) cb[a][k] = fmaf(cr[a], br[k], cb[a][k]);
+    }
+    for (int p = 0; p < P; ++p) {
+      float dr[4], xr[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) dr[a] = dy_t[(ti + 16 * a) * kLdP + p];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) xr[k] = x_t[(tj + 16 * k) * kLdP + p];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ds[a][k] = fmaf(dr[a], xr[k], ds[a][k]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = ti + 16 * a, j = tj + 16 * k;
+        const int gi = I * kTile + i, gj = J * kTile + j;
+        // masked before the exponent: j > i would overflow
+        const float e = gj <= gi && gi < q ? expf(cum[gi] - cum[gj]) : 0.f;
+        const float sv = cb[a][k] * e;
+        s_t[i * kLdT + j] = sv;
+        a_t[i * kLdT + j] = ds[a][k] * e;
+        r_t[i * kLdT + j] = sv * ds[a][k];
+      }
+  };
+
+  // -- phase A: row tiles ---------------------------------------------------
+  float dprev[kCp][kCn] = {};   // rows p = ti + 16a, columns n = tj + 16k
+  for (int I = 0; I < tiles; ++I) {
+    __syncthreads();   // c_t, dy_t free
+    load_rows<N>(c_t, kLdN, cg, prm.c_s[1], I * kTile, q);
+    load_rows<P>(dy_t, kLdP, dyg, hp, I * kTile, q);
+    float dc[4][kCn] = {};
+    for (int J = 0; J <= I; ++J) {
+      __syncthreads();   // b_t, x_t and the pair's tiles free
+      load_rows<N>(b_t, kLdN, bg, prm.b_s[1], J * kTile, q);
+      load_rows<P>(x_t, kLdP, xg, prm.x_s[1], J * kTile, q);
+      __syncthreads();
+      pair(I, J);
+      __syncthreads();
+      for (int j = 0; j < kTile; ++j) {
+        float ar[4], br[kCn];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) ar[a] = a_t[(ti + 16 * a) * kLdT + j];
+#pragma unroll
+        for (int k = 0; k < kCn; ++k) br[k] = b_t[j * kLdN + tj + 16 * k];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int k = 0; k < kCn; ++k) dc[a][k] = fmaf(ar[a], br[k], dc[a][k]);
+      }
+      if (tid < kTile) {
+        float sum = 0.f;
+        for (int j = 0; j < kTile; ++j) sum += r_t[tid * kLdT + j];
+        dcum[I * kTile + tid] += sum;
+      }
+    }
+    __syncthreads();   // b_t free, dcum's row sums done
+    // the inter term: u_i = exp(cum_i) prev_c^T dy_i
+    const float* prev = prm.prev + slot * P * N;
+    for (int e = tid; e < P * N; e += kBwdThreads)
+      b_t[(e / N) * kLdN + e % N] = prev[e];
+    __syncthreads();
+    float u[4][kCn] = {};
+    for (int p = 0; p < P; ++p) {
+      float dr[4], pr[kCn];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) dr[a] = dy_t[(ti + 16 * a) * kLdP + p];
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) pr[k] = b_t[p * kLdN + tj + 16 * k];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < kCn; ++k) u[a][k] = fmaf(dr[a], pr[k], u[a][k]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = ti + 16 * a, gi = I * kTile + i;
+      const float ec = gi < q ? expf(cum[gi]) : 0.f;
+      float part = 0.f;
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) {
+        const float uv = u[a][k] * ec;
+        dc[a][k] += uv;
+        part = fmaf(uv, c_t[i * kLdN + tj + 16 * k], part);
+      }
+      part = half_warp_sum(part);
+      if (tj == 0 && gi < q) dcum[gi] += part;
+      if (gi < q) {
+        float* out = prm.dc + (bs + gi) * hn + h * N;
+#pragma unroll
+        for (int k = 0; k < kCn; ++k) out[tj + 16 * k] = dc[a][k];
+      }
+    }
+    // dprev_c += sum_i exp(cum_i) dy_i (x) C_i
+    for (int i = 0; i < kTile && I * kTile + i < q; ++i) {
+      const float ec = expf(cum[I * kTile + i]);
+      float dr[kCp], cr[kCn];
+#pragma unroll
+      for (int a = 0; a < kCp; ++a) dr[a] = dy_t[i * kLdP + ti + 16 * a] * ec;
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) cr[k] = c_t[i * kLdN + tj + 16 * k];
+#pragma unroll
+      for (int a = 0; a < kCp; ++a)
+#pragma unroll
+        for (int k = 0; k < kCn; ++k) dprev[a][k] = fmaf(dr[a], cr[k], dprev[a][k]);
+    }
+  }
+  {
+    float* out = prm.dprev + slot * P * N;
+#pragma unroll
+    for (int a = 0; a < kCp; ++a)
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) out[(ti + 16 * a) * N + tj + 16 * k] = dprev[a][k];
+  }
+
+  // -- phase B: key tiles ---------------------------------------------------
+  for (int J = 0; J < tiles; ++J) {
+    __syncthreads();   // b_t, x_t free
+    load_rows<N>(b_t, kLdN, bg, prm.b_s[1], J * kTile, q);
+    load_rows<P>(x_t, kLdP, xg, prm.x_s[1], J * kTile, q);
+    float dx[4][kCp] = {}, db[4][kCn] = {};   // rows j = ti + 16a
+    for (int I = J; I < tiles; ++I) {
+      __syncthreads();   // c_t, dy_t and the pair's tiles free
+      load_rows<N>(c_t, kLdN, cg, prm.c_s[1], I * kTile, q);
+      load_rows<P>(dy_t, kLdP, dyg, hp, I * kTile, q);
+      __syncthreads();
+      pair(I, J);
+      __syncthreads();
+      for (int i = 0; i < kTile; ++i) {
+        float sr[4], ar[4], dr[kCp], cr[kCn];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          sr[a] = s_t[i * kLdT + ti + 16 * a];
+          ar[a] = a_t[i * kLdT + ti + 16 * a];
+        }
+#pragma unroll
+        for (int k = 0; k < kCp; ++k) dr[k] = dy_t[i * kLdP + tj + 16 * k];
+#pragma unroll
+        for (int k = 0; k < kCn; ++k) cr[k] = c_t[i * kLdN + tj + 16 * k];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int k = 0; k < kCp; ++k) dx[a][k] = fmaf(sr[a], dr[k], dx[a][k]);
+#pragma unroll
+          for (int k = 0; k < kCn; ++k) db[a][k] = fmaf(ar[a], cr[k], db[a][k]);
+        }
+      }
+      if (tid < kTile) {
+        float sum = 0.f;
+        for (int i = 0; i < kTile; ++i) sum += r_t[i * kLdT + tid];
+        dcum[J * kTile + tid] -= sum;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int gj = J * kTile + ti + 16 * a;
+      if (gj >= q) continue;
+      float* ox = prm.dx + (bs + gj) * hp + h * P;
+      float* ob = prm.db + (bs + gj) * hn + h * N;
+#pragma unroll
+      for (int k = 0; k < kCp; ++k) ox[tj + 16 * k] = dx[a][k];
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) ob[tj + 16 * k] = db[a][k];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < q; i += kBwdThreads)
+    prm.dcum[(bs + i) * prm.heads + h] = dcum[i];
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ssd_chunk_state_bwd_kernel(const BwdParams prm) {
+  using S = BwdShape<P, N>;
+  constexpr int kLdN = S::kLdN, kLdP = S::kLdP;
+  constexpr int kCn = S::kCn, kCp = S::kCp;
+  extern __shared__ float sm[];
+  float* g_s = sm;                        // G_c+1, [p][n]
+  float* x_t = g_s + P * kLdN;            // x rows, [j][p]
+  float* b_t = x_t + kTile * kLdP;        // B rows, [j][n]
+  float* w = b_t + kTile * kLdN;          // cum, then w_j = exp(T - cum_j)
+  __shared__ float warp_total[4];
+  __shared__ float red[kBwdThreads / 32];
+  __shared__ int s_ticket;
+
+  const int tid = threadIdx.x;
+  const int ti = tid / 16, tj = tid % 16;
+  if (tid == 0) s_ticket = atomicAdd(prm.ticket, 1);
+  __syncthreads();
+  // Tickets run chunk by chunk from the last, the (b, h) pairs fastest.
+  const int pairs = prm.batch * prm.heads;
+  const int c = prm.n_chunks - 1 - s_ticket / pairs;
+  const int bh = s_ticket % pairs;
+  const int b = bh / prm.heads;
+  const int h = bh % prm.heads;
+  const int g = h / (prm.heads / prm.groups);
+  const int q = prm.q;
+  const int64_t row0 = static_cast<int64_t>(c) * q;
+  const int64_t bs = static_cast<int64_t>(b) * prm.seq + row0;
+  const int64_t hp = static_cast<int64_t>(prm.heads) * P;
+  const int64_t hn = static_cast<int64_t>(prm.heads) * N;
+  const bf16* xg = prm.x + b * prm.x_s[0] + row0 * prm.x_s[1] + h * prm.x_s[2];
+  const bf16* bg = prm.b + b * prm.b_s[0] + row0 * prm.b_s[1] + g * prm.b_s[2];
+
+  if (tid < 128)
+    chunk_cumsum(w, warp_total,
+                 prm.la + b * prm.la_s[0] + row0 * prm.la_s[1] + h * prm.la_s[2],
+                 prm.la_s[1], q, tid, 1);
+  __syncthreads();
+  const float total = w[q - 1];
+  __syncthreads();   // every thread has read total before it is overwritten
+  for (int j = tid; j < kMaxChunk; j += kBwdThreads)
+    w[j] = j < q ? expf(total - w[j]) : 0.f;
+
+  // -- the state pass: G_c = dprev_c + exp(T_c) G_c+1 ----------------------
+  const int64_t slot = static_cast<int64_t>(P) * N;
+  float* gbuf = prm.dprev + static_cast<int64_t>(bh) * prm.n_chunks * slot;
+  const float* prev = prm.prev + (static_cast<int64_t>(bh) * prm.n_chunks + c) * slot;
+  const bool last = c + 1 == prm.n_chunks;
+  const float* next = !last ? gbuf + (c + 1) * slot
+                            : prm.dfinal ? prm.dfinal + bh * slot : nullptr;
+  if (!last && tid == 0) {
+    const int* flag = prm.flags + static_cast<int64_t>(bh) * prm.n_chunks + c + 1;
+    while (ld_acquire(flag) == 0) __nanosleep(64);
+  }
+  __syncthreads();
+  const float decay = expf(total);
+  float dt = 0.f;   // this thread's part of <prev_c, G_c+1>
+  for (int e = tid; e < P * N; e += kBwdThreads) {
+    // written by another SM: read past L1
+    const float gn = next ? __ldcg(next + e) : 0.f;
+    g_s[(e / N) * kLdN + e % N] = gn;
+    dt = fmaf(prev[e], gn, dt);
+    __stcg(gbuf + c * slot + e, fmaf(decay, gn, gbuf[c * slot + e]));
+  }
+  if (c > 0) {
+    __threadfence();   // this thread's part of G_c is visible on the device
+    __syncthreads();   // ... and every thread's
+    if (tid == 0) st_release(prm.flags + static_cast<int64_t>(bh) * prm.n_chunks + c, 1);
+  }
+  __syncthreads();
+
+  // -- the chunk-state term, with G = G_c+1 ---------------------------------
+  float t_sum = 0.f;
+  for (int r0 = 0; r0 < q; r0 += kTile) {
+    __syncthreads();   // x_t, b_t free
+    load_rows<P>(x_t, kLdP, xg, prm.x_s[1], r0, q);
+    load_rows<N>(b_t, kLdN, bg, prm.b_s[1], r0, q);
+    __syncthreads();
+    float gb[4][kCp] = {};   // (G B_j)_p: rows j = ti + 16a, p = tj + 16k
+    for (int n = 0; n < N; ++n) {
+      float br[4], gr[kCp];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) br[a] = b_t[(ti + 16 * a) * kLdN + n];
+#pragma unroll
+      for (int k = 0; k < kCp; ++k) gr[k] = g_s[(tj + 16 * k) * kLdN + n];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < kCp; ++k) gb[a][k] = fmaf(br[a], gr[k], gb[a][k]);
+    }
+    float gx[4][kCn] = {};   // (G^T x_j)_n: rows j = ti + 16a, n = tj + 16k
+    for (int p = 0; p < P; ++p) {
+      float xr[4], gr[kCn];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) xr[a] = x_t[(ti + 16 * a) * kLdP + p];
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) gr[k] = g_s[p * kLdN + tj + 16 * k];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < kCn; ++k) gx[a][k] = fmaf(xr[a], gr[k], gx[a][k]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = ti + 16 * a, gj = r0 + j;
+      const float wj = w[gj];
+      float part = 0.f;
+#pragma unroll
+      for (int k = 0; k < kCp; ++k) part = fmaf(x_t[j * kLdP + tj + 16 * k], gb[a][k], part);
+      const float t = wj * half_warp_sum(part);
+      if (gj >= q) continue;
+      float* ox = prm.dx + (bs + gj) * hp + h * P;
+      float* ob = prm.db + (bs + gj) * hn + h * N;
+#pragma unroll
+      for (int k = 0; k < kCp; ++k) ox[tj + 16 * k] += wj * gb[a][k];
+#pragma unroll
+      for (int k = 0; k < kCn; ++k) ob[tj + 16 * k] += wj * gx[a][k];
+      if (tj == 0) {
+        prm.dcum[(bs + gj) * prm.heads + h] -= t;
+        t_sum += t;
+      }
+    }
+  }
+  // dT: the pass's term and the chunk-state term, into the last row's dcum
+  const float d_total = decay * block_sum(dt, red) + block_sum(t_sum, red);
+  if (tid == 0) prm.dcum[(bs + q - 1) * prm.heads + h] += d_total;
+}
+
 // dims: batch, seq, heads, groups, head_dim P, state_dim N, Q, then the
 // element strides of dims 0-2 of x, log_a, B and C (12 values).
 struct Call {
@@ -805,6 +1276,48 @@ int launch_scan(const Call& call, const void* x, const void* b, const void* c,
   return cudaGetLastError();
 }
 
+
+// The backward's parameters from a filled call and the forward's inputs.
+BwdParams bwd_params(const Call& call, const void* x, const void* log_a,
+                     const void* b, const void* c, const void* states) {
+  const Params& prm = call.prm;
+  BwdParams bp = {};
+  bp.x = static_cast<const bf16*>(x);
+  bp.b = static_cast<const bf16*>(b);
+  bp.c = static_cast<const bf16*>(c);
+  bp.la = static_cast<const float*>(log_a);
+  bp.prev = static_cast<const float*>(states);
+  bp.batch = prm.batch, bp.seq = prm.seq, bp.heads = prm.heads;
+  bp.groups = prm.groups, bp.q = prm.q, bp.n_chunks = prm.n_chunks;
+  bp.la_s[0] = prm.la_sb, bp.la_s[1] = prm.la_ss, bp.la_s[2] = prm.la_sh;
+  for (int i = 0; i < 3; ++i)
+    bp.x_s[i] = call.x_s[i], bp.b_s[i] = call.b_s[i], bp.c_s[i] = call.c_s[i];
+  return bp;
+}
+
+template <int P, int N>
+int launch_scan_bwd(const BwdParams& bp, cudaStream_t stream) {
+  using S = BwdShape<P, N>;
+  static_assert(S::scan_bytes() <= 227 * 1024, "shared memory");
+  static bool raised[kMaxDevices];
+  const int err = raise_smem(ssd_chunk_scan_bwd_kernel<P, N>, S::scan_bytes(), raised);
+  if (err != cudaSuccess) return err;
+  ssd_chunk_scan_bwd_kernel<P, N><<<bp.batch * bp.heads * bp.n_chunks, kBwdThreads,
+                                    S::scan_bytes(), stream>>>(bp);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
+int launch_state_bwd(const BwdParams& bp, cudaStream_t stream) {
+  using S = BwdShape<P, N>;
+  static bool raised[kMaxDevices];
+  const int err = raise_smem(ssd_chunk_state_bwd_kernel<P, N>, S::state_bytes(), raised);
+  if (err != cudaSuccess) return err;
+  ssd_chunk_state_bwd_kernel<P, N><<<bp.batch * bp.heads * bp.n_chunks, kBwdThreads,
+                                     S::state_bytes(), stream>>>(bp);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The (P, N) pairs compiled here are HEAD_STATE_DIMS in
@@ -852,6 +1365,52 @@ int ssd_chunk_scan(const void* x, const void* log_a, const void* b,
   prm.states = static_cast<float*>(const_cast<void*>(states));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SSD_DISPATCH(launch_scan, call, x, b, c, y, s)
+}
+
+
+// The scan's backward, from dy (B, S, H, P) bf16 contiguous: dx (B, S, H, P)
+// (its intra term), dB and dC per head (B, S, H, N), dstates (B, H, C, P, N):
+// each chunk's dprev_c, dcum (B, S, H); all fp32 and contiguous, every
+// element written.
+int ssd_chunk_scan_bwd(const void* x, const void* log_a, const void* b,
+                       const void* c, const void* states, const void* dy,
+                       void* dx, void* db, void* dc, void* dstates, void* dcum,
+                       const long long* dims, void* stream) {
+  Call call = {};
+  if (!fill(call, dims)) return cudaErrorInvalidValue;
+  BwdParams bp = bwd_params(call, x, log_a, b, c, states);
+  bp.dy = static_cast<const bf16*>(dy);
+  bp.dx = static_cast<float*>(dx);
+  bp.db = static_cast<float*>(db);
+  bp.dc = static_cast<float*>(dc);
+  bp.dprev = static_cast<float*>(dstates);
+  bp.dcum = static_cast<float*>(dcum);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SSD_DISPATCH(launch_scan_bwd, bp, s)
+}
+
+// The state pass in reverse and the chunk-state term: dstates (dprev_c from
+// ssd_chunk_scan_bwd) becomes G_c, the gradient of the state entering chunk
+// c (G_0: the initial state's); the chunk-state term is added to dx, dB
+// (per head) and dcum.  dfinal (B, H, P, N) fp32, or null for zeros.
+// Workspace, zeroed by the caller for every call: flags, B * H * C int32;
+// ticket, one int32.
+int ssd_chunk_state_bwd(const void* x, const void* log_a, const void* b,
+                        const void* states, const void* dfinal, void* dstates,
+                        void* dx, void* db, void* dcum, void* flags,
+                        void* ticket, const long long* dims, void* stream) {
+  Call call = {};
+  if (!fill(call, dims)) return cudaErrorInvalidValue;
+  BwdParams bp = bwd_params(call, x, log_a, b, b, states);
+  bp.dfinal = static_cast<const float*>(dfinal);
+  bp.dprev = static_cast<float*>(dstates);
+  bp.dx = static_cast<float*>(dx);
+  bp.db = static_cast<float*>(db);
+  bp.dcum = static_cast<float*>(dcum);
+  bp.flags = static_cast<int*>(flags);
+  bp.ticket = static_cast<int*>(ticket);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SSD_DISPATCH(launch_state_bwd, bp, s)
 }
 
 }  // extern "C"

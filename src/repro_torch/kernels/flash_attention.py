@@ -28,9 +28,10 @@ The source's header says what bounds each and what its design does about it.
   differentiates by autograd.
 * A CUDA tensor goes to the kernels, or the wrapper raises: bf16 only, head
   dims in :data:`HEAD_DIMS`, contiguous (B, S, H, D) layout.  Under grad
-  mode with an input that requires grad, the call goes through
-  :class:`FlashAttention`, whose forward saves the LSE and whose backward
-  launches the backward kernels.  There is no fallback to the plain version.
+  mode with an input that requires grad, or under ``torch.func.vmap``, the
+  call goes through :class:`FlashAttention`, whose forward saves the LSE,
+  whose backward launches the backward kernels and whose vmap rule folds
+  the member dim into the batch.  There is no fallback to the plain version.
 
 Shapes: q (B, S, Hq, D); k, v (B, S, Hkv, D) with Hq a multiple of Hkv.
 Masks: ``causal`` and ``window`` (allowed iff 0 <= q - k < window when
@@ -43,7 +44,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, batched, fold_members, needs_grad, unfold_members
 from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
 
 #: head dims the CUDA source is compiled for (its ``switch`` in
@@ -204,21 +205,38 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class FlashAttention(torch.autograd.Function):
     """The kernels under autograd: the forward saves q, k, v, O and the LSE;
-    the backward launches the backward kernels on dO made contiguous."""
+    the backward launches the backward kernels on dO made contiguous.  Under
+    ``torch.func.vmap`` the rule folds the member dim into the batch: one
+    launch for all members, forward and backward.  Outputs: O and the LSE
+    (not differentiable)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
-        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+    def forward(q, k, v, causal: bool, window: int):
+        return _forward(q, k, v, causal, window, with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        out, lse = output
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
         ctx.causal, ctx.window = causal, window
-        return out
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, _):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
                                          causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        m = info.batch_size
+        # the kernels take contiguous (B, S, H, D) tensors
+        folded = [fold_members(t, d, m).contiguous()
+                  for t, d in zip((q, k, v), in_dims[:3])]
+        out, lse = FlashAttention.apply(*folded, causal, window)
+        return (unfold_members(out, m), unfold_members(lse, m)), (0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -226,6 +244,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Exact attention, output (B, S, Hq, D) in q's dtype."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, window)
+    if needs_grad(q, k, v) or batched(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window)[0]
     return _forward(q, k, v, causal, window, with_lse=False)[0]

@@ -7,8 +7,9 @@ reference's layout; a Python loop over that axis replaces ``lax.scan``.
 The MoE aux losses are summed over the layers, as the reference's scan
 carry does, and ``loss_fn`` adds them to the masked cross entropy; each
 layer runs under ``torch.utils.checkpoint`` as ``cfg.remat`` says (the
-reference's ``jax.checkpoint``).  Hybrid and encoder layers are not ported
-yet.
+reference's ``jax.checkpoint``).  A gang's members (``members=True``)
+are stacked on a leading axis of every leaf and run in one batched pass.
+Hybrid and encoder layers are not ported yet.
 """
 from __future__ import annotations
 
@@ -156,15 +157,16 @@ def compute_copy(cfg: ArchConfig, params: dict[str, Any]) -> dict[str, Any]:
     return walk(params, "")
 
 
-def _layers(seg: Any, count: int) -> list[Any]:
-    """The ``count`` layers of a stacked segment, as views: one
-    ``torch.unbind`` of each stacked leaf, whose backward is one ``stack``
-    (indexing each layer would fill a zero tensor the size of the whole
-    stack, per layer, in the backward)."""
+def _layers(seg: Any, count: int, axis: int = 0) -> list[Any]:
+    """The ``count`` layers of a stacked segment (layer axis ``axis``: 1
+    behind a gang's member axis), as views: one ``torch.unbind`` of each
+    stacked leaf, whose backward is one ``stack`` (indexing each layer would
+    fill a zero tensor the size of the whole stack, per layer, in the
+    backward)."""
     if isinstance(seg, dict):
-        per_key = {k: _layers(v, count) for k, v in seg.items()}
+        per_key = {k: _layers(v, count, axis) for k, v in seg.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(count)]
-    return list(torch.unbind(seg))
+    return list(torch.unbind(seg, dim=axis))
 
 
 def _zero_aux(device: torch.device | str) -> dict[str, torch.Tensor]:
@@ -246,15 +248,40 @@ def _remat(cfg: ArchConfig, fn):
     return functools.partial(ckpt.checkpoint, fn, **kwargs)
 
 
+def check_gang(cfg: ArchConfig) -> None:
+    """Raises for an architecture whose layers a gang cannot batch yet."""
+    if "moe" in cfg.layer_types:
+        raise ValueError(
+            f"{cfg.name}: a gang cannot batch its MoE layers yet (the "
+            f"grouped-GEMM kernel has no member-axis rule and no backward)")
+
+
+def _over_members(fn, members: bool, out_dims: Any = 0):
+    """``fn``, or for a gang ``fn`` under ``torch.func.vmap`` over the
+    leading member axis of every argument."""
+    return torch.func.vmap(fn, out_dims=out_dims) if members else fn
+
+
 def backbone(cfg: ArchConfig, params: dict[str, Any],
-             batch: dict[str, torch.Tensor], moe_groups: int = 1
+             batch: dict[str, torch.Tensor], moe_groups: int = 1,
+             members: bool = False
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Embeddings → layers → final norm.  Returns (x (B,S,d), aux losses
-    summed over the layers)."""
+    summed over the layers).
+
+    With ``members`` the parameters and tokens of a gang carry a leading
+    member axis and x is (M,B,S,d): every piece (the embedding, each layer
+    inside its checkpoint, the final norm) runs under ``torch.func.vmap``,
+    so one pass serves all members (the kernels' vmap rules fold the members
+    into their batch)."""
     _check_supported(cfg)
-    x = embed_tokens(batch["tokens"], params["embed"], cfg.embed_scale,
-                     cfg.compute_dtype)
-    b, s, _ = x.shape
+    if members:
+        check_gang(cfg)
+    x = _over_members(
+        lambda tok, table: embed_tokens(tok, table, cfg.embed_scale,
+                                        cfg.compute_dtype),
+        members)(batch["tokens"], params["embed"])
+    b, s = x.shape[-3], x.shape[-2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     aux_total = _zero_aux(x.device)
@@ -264,17 +291,19 @@ def backbone(cfg: ArchConfig, params: dict[str, Any],
                                     moe_groups=moe_groups)
             return xn, aux
 
-        run = _remat(cfg, body)
-        for lp in _layers(seg, count):
+        # (a gang has no MoE layer, so no aux losses: out_dims None)
+        run = _remat(cfg, _over_members(body, members, out_dims=(0, None)))
+        for lp in _layers(seg, count, axis=int(members)):
             x, aux = run(x, lp)
             if aux is not None:
                 aux_total = {k: v + aux[k] for k, v in aux_total.items()}
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
+    final = _over_members(lambda xf, w: rms_norm(xf, w, cfg.norm_eps), members)
+    return final(x, params["final_norm"]), aux_total
 
 
 def _head(cfg: ArchConfig, params: dict[str, Any]) -> torch.Tensor:
     return (params["lm_head"] if not cfg.tie_embeddings
-            else params["embed"].T)
+            else params["embed"].mT)
 
 
 def forward(cfg: ArchConfig, params: dict[str, Any],
@@ -303,30 +332,35 @@ def _ce_terms(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(cfg: ArchConfig, params: dict[str, Any],
-            batch: dict[str, torch.Tensor], moe_groups: int = 1
+            batch: dict[str, torch.Tensor], moe_groups: int = 1,
+            members: bool = False
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Masked causal-LM cross entropy (+ MoE aux).  labels < 0 ignored.
 
     With ``cfg.loss_chunk`` the CE is computed over sequence chunks, each
     checkpointed, so the (B,S,V) logits are never resident at once.
-    Returns (loss, {"ce", "loss", load_balance, router_z, dropped})."""
-    x, aux = backbone(cfg, params, batch, moe_groups)
+    Returns (loss, {"ce", "loss", load_balance, router_z, dropped}).  With
+    ``members`` (a gang, see :func:`backbone`) the loss and the CE are per
+    member, (M,), each CE chunk under ``torch.func.vmap``."""
+    x, aux = backbone(cfg, params, batch, moe_groups, members)
     labels = batch["labels"]
     head = _head(cfg, params)
-    s = x.shape[1]
+    s = x.shape[-2]
     chunk = cfg.loss_chunk
+    ce_terms = _over_members(
+        functools.partial(_ce_terms, compute_dtype=cfg.compute_dtype,
+                          vocab_size=cfg.vocab_size), members)
     if chunk and s > chunk and s % chunk == 0:
-        nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        nll_sum = torch.zeros(x.shape[:-3], dtype=torch.float32, device=x.device)
         for start in range(0, s, chunk):
-            args = (x[:, start:start + chunk], head,
-                    labels[:, start:start + chunk], cfg.compute_dtype,
-                    cfg.vocab_size)
+            args = (x[..., start:start + chunk, :], head,
+                    labels[..., start:start + chunk])
             nll_sum = nll_sum + (
-                ckpt.checkpoint(_ce_terms, *args, use_reentrant=False)
-                if torch.is_grad_enabled() else _ce_terms(*args))
+                ckpt.checkpoint(ce_terms, *args, use_reentrant=False)
+                if torch.is_grad_enabled() else ce_terms(*args))
     else:
-        nll_sum = _ce_terms(x, head, labels, cfg.compute_dtype, cfg.vocab_size)
-    denom = (labels >= 0).sum().clamp_min(1).float()
+        nll_sum = ce_terms(x, head, labels)
+    denom = (labels >= 0).flatten(-2).sum(-1).clamp_min(1).float()
     ce = nll_sum / denom
     loss = ce + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
     return loss, {"ce": ce, "loss": loss, **aux}

@@ -5,7 +5,9 @@ one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Tolerances in bf16, as the reference's kernel tests: 2e-2 for flash
 attention and the grouped matmul, 5e-2 for the SSD scan.  The flash-attention
 backward (no Pallas counterpart) is held against its plain backward at 2e-2
-of each row's largest |element| plus 1e-3, the gate of ``chip_smoke.py``.
+of each row's largest |element| plus 1e-3, the gate of ``chip_smoke.py``;
+the SSD backward kernels (no Pallas counterpart either) against theirs at
+5e-2 of each (batch, head) slab's largest |element|, the SSD gate.
 """
 import pytest
 
@@ -529,11 +531,174 @@ def test_gemma3_trains_on_card_through_the_backward_kernel(dev):
     assert (fa.launches, fa.bwd_launches) == (4 * cfg.n_layers, 2 * cfg.n_layers)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b"])
 def test_ssm_and_moe_training_on_card_raise(dev, arch):
-    """Their kernels have no backward: training on the card raises the
-    wrappers' gradient error, with no fallback to the plain path."""
+    """MoE training on the card raises, naming the grouped-GEMM backward it
+    lacks, with no fallback to the plain path (the SSM trains since the SSD
+    scan has its backward kernels: see the next test)."""
     from repro_torch.launch import train
-    with pytest.raises(RuntimeError, match="requires grad"):
+    with pytest.raises(NotImplementedError, match="grouped-GEMM"):
         train.main(["--arch", arch, "--smoke", "--steps", "1", "--batch", "1",
                     "--seq", "32"])
+
+
+def test_mamba2_trains_on_card_through_the_ssd_backward_kernels(dev):
+    """launch.train of the smoke mamba2 on the card: each layer's SSD runs
+    the forward kernels twice (the full remat) and the backward kernels
+    once a step, and the loss is finite."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import train
+    cfg = get_smoke("mamba2-780m")
+    kssd.state_launches = kssd.scan_launches = 0
+    kssd.state_bwd_launches = kssd.scan_bwd_launches = 0
+    out = train.main(["--arch", "mamba2-780m", "--smoke", "--steps", "2",
+                      "--batch", "2", "--seq", "32", "--log-every", "1"])
+    torch.cuda.synchronize()
+    assert out["steps_run"] == 2 and out["loss"] == out["loss"]
+    n = 2 * cfg.n_layers
+    assert (kssd.state_launches, kssd.scan_launches, kssd.state_bwd_launches,
+            kssd.scan_bwd_launches) == (2 * n, 2 * n, n, n)
+
+
+def _slab_over(got: torch.Tensor, want: torch.Tensor, keep: tuple[int, ...],
+               tol: float = 5e-2) -> float:
+    """max over slabs (one index of the ``keep`` dims: a (batch, head)) of
+    max |got - want| less tol · max |want|; <= 0 passes."""
+    g, w = got.float(), want.float()
+    rest = [d for d in range(g.dim()) if d not in keep]
+    return ((g - w).abs().amax(rest) - tol * w.abs().amax(rest)).max().item()
+
+
+#: the dims of a (batch, head) slab of each backward output
+_BWD_KEEP = {"dx": (0, 2), "db": (0, 2), "dc": (0, 2), "dprev": (0, 1),
+             "dcum": (0, 2), "g": (0, 1)}
+
+
+def _ssd_bwd_case(dev, b, s, h, p, g, n, chunk, init, seed=6):
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, h0 = _ssd(dev, b, s, h, p, g, n, init, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
+    dfinal = (torch.randn((b, h, p, n), generator=gen, device=dev)
+              if init else None)
+    prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk, initial_state=h0)
+    return x, la, bm, cm, h0, dy, dfinal, prev
+
+
+@pytest.mark.parametrize("h,p,g,n", [(4, 64, 1, 128), (6, 64, 2, 64),
+                                     (4, 64, 4, 16), (2, 16, 1, 16)])
+@pytest.mark.parametrize("s,chunk,init", [(512, 256, False), (480, 96, True),
+                                          (64, 64, True)])
+def test_ssd_backward_kernels_match_plain(dev, h, p, g, n, s, chunk, init):
+    """Each backward kernel against its plain version on the same inputs
+    (the state kernel on the scan kernel's plain outputs), every output
+    within 5e-2 of its (batch, head) slab's largest |plain|; then the whole
+    gradient of ``ssd_scan`` under autograd against ``ssd_scan_bwd_plain``."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, h0, dy, dfinal, prev = _ssd_bwd_case(dev, 2, s, h, p, g, n,
+                                                        chunk, init)
+    q = min(chunk, s)
+    before = (kssd.scan_bwd_launches, kssd.state_bwd_launches)
+    got = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=chunk)
+    want = kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, q)
+    for name, a, w in zip(("dx", "db", "dc", "dprev", "dcum"), got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        assert _slab_over(a, w, _BWD_KEEP[name]) <= 0, name
+    args = [t.clone(memory_format=torch.contiguous_format)
+            for t in (want[3], want[0], want[1], want[4])]
+    got = kssd.chunk_state_bwd(x, la, bm, prev, *args, chunk=chunk, dfinal=dfinal)
+    want = kssd.chunk_state_bwd_plain(x, la, bm, prev, want[3], want[0], want[1],
+                                      want[4], q, dfinal)
+    torch.cuda.synchronize()
+    assert (kssd.scan_bwd_launches, kssd.state_bwd_launches) == (before[0] + 1,
+                                                                 before[1] + 1)
+    for name, a, w in zip(("dx", "db", "dcum", "g"), got, want):
+        assert _slab_over(a, w, _BWD_KEEP[name]) <= 0, name
+    # the whole gradient through the autograd.Function
+    ins = [t.clone().requires_grad_() for t in (x, la, bm, cm)] + (
+        [h0.clone().requires_grad_()] if init else [])
+    y, final = kssd.ssd_scan(*ins[:4], chunk=chunk,
+                             initial_state=ins[4] if init else None)
+    outs, cots = (y, final) if init else (y,), (dy, dfinal.to(final.dtype)) if init else (dy,)
+    grads = torch.autograd.grad(outs, ins, cots)
+    want = kssd.ssd_scan_bwd_plain(x, la, bm, cm, prev, dy, q, dfinal.to(final.dtype) if init else None,
+                                   h0)
+    for name, a, w, keep in zip(("dx", "dlog_a", "dB", "dC", "dinit"), grads, want,
+                                ((0, 2), (0, 2), (0, 2), (0, 2), (0, 1))):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert _slab_over(a, w, keep) <= 0, name
+
+
+@pytest.mark.parametrize("s,chunk,h,p,g,n,init", [
+    (2048, 256, 48, 64, 1, 128, True), (2048, 256, 50, 64, 1, 16, False),
+    (480, 96, 4, 16, 1, 16, True)])
+def test_ssd_backward_kernels_are_deterministic(dev, s, chunk, h, p, g, n, init):
+    """No atomics in any sum and each G handed on once: two calls give the
+    same bits."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, h0, dy, dfinal, prev = _ssd_bwd_case(dev, 2, s, h, p, g, n,
+                                                        chunk, init, seed=8)
+    runs = []
+    for _ in range(2):
+        dx, db, dc, dprev, dcum = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy,
+                                                      chunk=chunk)
+        runs.append((dc,) + kssd.chunk_state_bwd(x, la, bm, prev, dprev, dx, db,
+                                                 dcum, chunk=chunk, dfinal=dfinal))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_ssd_backward_hand_off_along_256_chunks(dev):
+    """The reverse hand-off under stress: 96 chains of 256 chunks."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, h0, dy, dfinal, prev = _ssd_bwd_case(dev, 2, 16384, 48, 64, 1,
+                                                        128, 64, False, seed=9)
+    dx, db, dc, dprev, dcum = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=64)
+    want = kssd.chunk_state_bwd_plain(x, la, bm, prev, dprev, dx, db, dcum, 64)
+    got = kssd.chunk_state_bwd(x, la, bm, prev, dprev.clone(), dx.clone(),
+                               db.clone(), dcum.clone(), chunk=64)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dx", "db", "dcum", "g"), got, want):
+        assert _slab_over(a, w, _BWD_KEEP[name]) <= 0, name
+
+
+def test_vmap_rules_launch_once_for_all_members(dev):
+    """Under torch.func.vmap over 3 members, flash attention and the SSD
+    scan launch each kernel once, forward and backward, and agree with a
+    loop over the members."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as kssd
+    m = 3
+    q, k, v = (torch.stack(t) for t in zip(*[_qkv(dev, 2, 200, 4, 1, 128, seed=i)
+                                            for i in range(m)]))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    do = torch.stack([_qkv(dev, 2, 200, 4, 1, 128, seed=10 + i)[0] for i in range(m)])
+    before = (fa.launches, fa.bwd_launches)
+    out = torch.func.vmap(lambda a, b, c: fa.flash_attention(a, b, c, window=64))(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for i in range(m):
+        mine = [t[i].detach().requires_grad_() for t in (q, k, v)]
+        want = fa.flash_attention(*mine, window=64)
+        torch.testing.assert_close(out[i], want, atol=2e-2, rtol=2e-2)
+        for g_, w_ in zip(grads, torch.autograd.grad(want, mine, do[i])):
+            assert _grad_err(g_[i], w_) <= 0
+
+    cases = [_ssd(dev, 2, 512, 4, 64, 1, 128, True, seed=20 + i) for i in range(m)]
+    ins = [torch.stack(t).requires_grad_() for t in list(zip(*cases))[:4]]
+    dy = torch.stack([_qkv(dev, 2, 512, 4, 1, 64, seed=30 + i)[0] for i in range(m)])
+    counts = lambda: (kssd.state_launches, kssd.scan_launches,
+                      kssd.state_bwd_launches, kssd.scan_bwd_launches)
+    before = counts()
+    y, _ = torch.func.vmap(lambda *a: kssd.ssd_scan(*a, chunk=256))(*ins)
+    grads = torch.autograd.grad(y, ins, dy)
+    assert counts() == tuple(c + 1 for c in before)
+    for i in range(m):
+        mine = [t[i].detach().requires_grad_() for t in ins]
+        wy, _ = kssd.ssd_scan(*mine, chunk=256)
+        assert _slab_over(y[i], wy, (0, 2)) <= 0
+        for g_, w_ in zip(grads, torch.autograd.grad(wy, mine, dy[i])):
+            assert _slab_over(g_[i], w_, (0, 2)) <= 0

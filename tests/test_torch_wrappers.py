@@ -1,11 +1,12 @@
 """The kernel wrappers' contract where there is no card.
 
 * A tensor off the CPU that requires grad while grad mode is on is
-  refused before any launch by the SSD-scan and grouped-GEMM wrappers
-  (their CUDA kernels have no backward yet); under ``no_grad`` or
-  ``inference_mode``, or without ``requires_grad``, the wrapper goes on to
-  its checks.  Flash attention has a backward: under grad its wrapper goes
-  through its ``autograd.Function`` instead of any guard.  Meta tensors
+  refused before any launch by the grouped-GEMM wrapper and by the two
+  SSD-scan kernels' wrappers called alone (they have no backward of their
+  own); under ``no_grad`` or ``inference_mode``, or without
+  ``requires_grad``, the wrapper goes on to its checks.  Flash attention
+  and the whole SSD scan have a backward: under grad their wrappers go
+  through their ``autograd.Function`` instead of any guard.  Meta tensors
   stand in for a card's: they reach the same branch and fail later, at the
   device check, never at a launch.
 * CPU tensors still take the plain versions, which differentiate.
@@ -109,9 +110,9 @@ def test_flash_attention_under_grad_reaches_its_autograd_function(monkeypatch, w
     entered = []
     forward = fa.FlashAttention.forward
 
-    def spy(ctx, *args):
+    def spy(*args):   # the setup_context form: forward takes no ctx
         entered.append(args[3:])
-        return forward(ctx, *args)
+        return forward(*args)
 
     monkeypatch.setattr(_build, "library", no_launch)
     monkeypatch.setattr(fa.FlashAttention, "forward", staticmethod(spy))
@@ -124,6 +125,46 @@ def test_flash_attention_under_grad_reaches_its_autograd_function(monkeypatch, w
     # without grad the same call never enters it
     with torch.no_grad(), pytest.raises(ValueError, match="no kernel for device"):
         fa.flash_attention(q, k, v)
+    assert len(entered) == 1
+
+
+@pytest.mark.parametrize("which", ["x", "log_a", "b_mat", "c_mat", "initial_state"])
+def test_ssd_scan_under_grad_reaches_its_autograd_function(meta_is_card, monkeypatch,
+                                                           which):
+    """An input of ``ssd_scan`` that requires grad under grad mode sends the
+    call through ``SSDScan`` (whose forward launches the two forward
+    kernels and saves what the backward kernels read), past no guard; on a
+    meta tensor it stops at the first launch, before any build."""
+    def no_launch(*a, **k):
+        raise AssertionError("a kernel was built or launched")
+
+    class Reached(Exception):
+        pass
+
+    def at_launch(*args):
+        raise Reached
+
+    entered = []
+    forward = kssd.SSDScan.forward
+
+    def spy(*args):
+        entered.append(args[5])
+        return forward(*args)
+
+    monkeypatch.setattr(_build, "library", no_launch)
+    monkeypatch.setattr(kssd, "_state_launch", at_launch)
+    monkeypatch.setattr(kssd.SSDScan, "forward", staticmethod(spy))
+    ins = {"x": _meta(1, 64, 2, 64), "log_a": _meta(1, 64, 2, dtype=torch.float32),
+           "b_mat": _meta(1, 64, 1, 128), "c_mat": _meta(1, 64, 1, 128),
+           "initial_state": _meta(1, 2, 64, 128, dtype=torch.float32)}
+    ins[which].requires_grad_(True)
+    with pytest.raises(Reached):
+        kssd.ssd_scan(*(ins[k] for k in ("x", "log_a", "b_mat", "c_mat")),
+                      chunk=64, initial_state=ins["initial_state"])
+    assert entered == [64]
+    # without grad the same call never enters it: chunk_state's own launch
+    with torch.no_grad(), pytest.raises(Reached):
+        kssd.ssd_scan(ins["x"], ins["log_a"], ins["b_mat"], ins["c_mat"], chunk=64)
     assert len(entered) == 1
 
 
@@ -168,7 +209,8 @@ def _c_entry_points(source: str) -> dict[str, list]:
 @pytest.mark.parametrize("module,source,names", [
     (fa, "flash_attention.cu", ["flash_attention_bwd", "flash_attention_fwd"]),
     (moe_gmm, "moe_gmm.cu", ["grouped_matmul"]),
-    (kssd, "ssd_scan.cu", ["ssd_chunk_scan", "ssd_chunk_state"])])
+    (kssd, "ssd_scan.cu", ["ssd_chunk_scan", "ssd_chunk_scan_bwd",
+                           "ssd_chunk_state", "ssd_chunk_state_bwd"])])
 def test_bind_declares_the_c_entry_points_of_the_source(module, source, names):
     entries = _c_entry_points(source)
     assert sorted(entries) == names

@@ -77,12 +77,16 @@ Then the training path of gemma3-1b:
 Then the training path of mamba2-780m (the SSD scan's backward kernels):
 
 3. ptxas's registers and spills of the SSD kernels; the two backward
-   kernels (``ssd_chunk_scan_bwd``, ``ssd_chunk_state_bwd``) against their
-   plain versions at mamba2-780m's training shape, hymba-1.5b's SSD, the
-   (64, 64) pair with G 4, the (16, 16) pair, and with an initial state and
-   a gradient of the final state: each output within 5e-2 of its (batch,
-   head)'s largest |plain|; their times, the plain versions' and the
-   bounds; then the 48 calls of each in one train step, timed together;
+   kernels (``ssd_chunk_state_bwd``, then ``ssd_chunk_scan_bwd`` on the
+   plain state pass's outputs) against their plain versions at
+   mamba2-780m's training shape, hymba-1.5b's SSD, the (64, 64) pair with
+   G 4, the (16, 16) pair, and with an initial state and a gradient of the
+   final state: each output (G, G_0, dT; dx, dlog_a, dB and dC with their
+   slices added) within 5e-2 of its (batch, head)'s largest |plain|; their
+   times, the whole backward's (both kernels and the glue, as ``SSDScan``
+   runs it), the plain versions' and the bounds (each kernel's own, the
+   function's for the whole); then the 48 calls of each, and of the whole
+   backward, in one train step, timed together;
 4. train: ``launch.train.main`` on mamba2-780m at full width and depth, a
    (4, 2048) batch, 2 warm-up and 3 timed steps, the launch counts reset
    just before and read just after: step time, tokens/s, 6·N·T share and
@@ -249,8 +253,11 @@ SSD_PLAIN_CHECK_SEQ = 2048    # eight chunks
 #: differentiates its plain SSD with XLA autodiff
 SSD_BWD_REPLACES = ("XLA autodiff of repro.kernels.ssd_scan / "
                     "repro.models.ssm.ssd_chunked (src/repro/models/ssm.py:27)")
-SSD_BWD_DESIGN = ("scalar fp32 bodies over 64-row tiles in shared memory; the "
-                  "reverse state pass by the chained hand-off")
+SSD_BWD_DESIGN = ("wgmma on TMA-fed tiles: the reverse state pass (dy and C, the "
+                  "forward's chained hand-off run backwards) first; then a block a "
+                  "(b, chunk, set of a group's heads) computes S and dS once a tile "
+                  "pair, dx in bf16, dlog_a, and dB and dC summed over the set's "
+                  "heads on chip (dC in an fp32 chunk accumulator in shared memory)")
 #: the backward kernels against their plain versions: name, B, S, H, P, G,
 #: N, chunk, with an initial state and dfinal; mamba2-780m's training
 #: shape, hymba-1.5b's SSD, every other (P, N) of HEAD_STATE_DIMS
@@ -348,9 +355,9 @@ def ptxas_kernels(log: str, match: str) -> dict[str, dict]:
                 length = next(int(digits[-k:]) for k in range(1, len(digits) + 1)
                               if int(digits[-k:]) >= len(match))
                 end = found.start(2) + length
-                args = re.match(r"I((?:Li\d+E)+)E", fn[end:])
+                args = re.match(r"I((?:L[ib]\d+E)+)E", fn[end:])
                 name = fn[found.start(2):end] + (
-                    f"<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+                    f"<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
                     if args else "")
                 out[name] = {}
             continue
@@ -443,36 +450,42 @@ def ssd_floor_ms(b, s, h, p, g, n, chunk, part="function",
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def ssd_bwd_floor_ms(b, s, h, p, g, n, chunk, part, dfinal=False
-                     ) -> tuple[float, float]:
-    """(ms for its operations, ms for its bytes) on the card for one call
-    of a backward kernel, its own reads and writes each counted once.
+def ssd_bwd_floor_ms(b, s, h, p, g, n, chunk, part, dfinal=False, init=False,
+                     slices=1) -> tuple[float, float]:
+    """(ms for its operations, ms for its bytes) on the card for the SSD
+    scan's whole backward (``part="function"``) or one call of a backward
+    kernel, its own reads and writes each counted once.
 
-    ``"chunk_scan_bwd"``: C·Bᵀ once per group and dS = dy·xᵀ, dx, dC and dB
-    over the allowed (i, j ≤ i) pairs, prev_cᵀ·dy and dprev over every step
-    (bf16 tensor-core FLOPs, the least the card could take); reads x, dy,
-    B, C (bf16), log_a and the states (fp32); writes dx, dB and dC per head,
-    dprev and dcum (fp32).  ``"chunk_state_bwd"``: G·B_j and Gᵀ·x_j over
-    every step; reads x, B, log_a, the states, dprev and dfinal, reads and
-    writes dx, dB per head and dcum, writes G (fp32)."""
+    Operations (bf16 tensor-core FLOPs, the least the card could take): C·Bᵀ
+    once per group and dS = dy·xᵀ, dx, dB and dC over the allowed (i, j ≤ i)
+    pairs, the inter term prev_cᵀ·dy, dprev and the chunk-state term's G·B_j
+    and Gᵀ·x_j over every step.  ``"chunk_state_bwd"``: dprev; reads dy and
+    C (bf16), log_a, prev (fp32, for dT) and dfinal, writes G_c+1, G_0 and
+    dT (fp32).  ``"chunk_scan_bwd"``: the rest; reads x, dy, B, C (bf16),
+    log_a, prev, G_c+1 and dT, writes dx (bf16), dlog_a and dB and dC as
+    ``slices`` fp32 slices a group.  ``"function"``: both; reads x, dy, B,
+    C, log_a, prev and dfinal once and writes dx, dlog_a, dB and dC (in
+    their inputs' dtypes) and the initial state's gradient once."""
     q = min(chunk, s)
     c = s // q
     pairs = c * q * (q + 1) // 2
-    x = 2 * b * s * h * p                 # x, and dy alike (bf16)
-    bc = 2 * b * s * g * n                # B, and C alike (bf16)
-    la = 4 * b * s * h                    # log_a, and dcum alike (fp32)
-    dx = 4 * b * s * h * p
-    dbc = 4 * b * s * h * n               # dB per head, and dC alike
-    states = 4 * b * h * c * p * n        # prev, dprev and G alike
-    fin = 4 * b * h * p * n if dfinal else 0
+    x = 2 * b * s * h * p                 # x, dy and dx alike (bf16)
+    bc = 2 * b * s * g * n                # B, C, dB and dC alike (bf16)
+    la = 4 * b * s * h                    # log_a, and dlog_a alike (fp32)
+    states = 4 * b * h * c * p * n        # prev, and G alike (fp32)
+    fin = 4 * b * h * p * n               # dfinal, and G_0 alike (fp32)
+    dt = 4 * b * h * c
+    slab = 4 * b * s * g * slices * n     # dB, and dC alike, as fp32 slices
+    f_state = 2 * b * h * s * p * n
+    f_scan = 2 * b * g * pairs * n + 2 * b * h * pairs * (2 * p + 2 * n) \
+        + 6 * b * h * s * p * n
+    dfin = fin if dfinal else 0
     flops, nbytes = {
-        "chunk_scan_bwd": (
-            2 * b * g * pairs * n + 2 * b * h * pairs * (2 * p + 2 * n)
-            + 4 * b * h * s * p * n,
-            2 * x + 2 * bc + la + states + dx + 2 * dbc + states + la),
-        "chunk_state_bwd": (
-            4 * b * h * s * p * n,
-            x + bc + la + 2 * states + fin + 2 * (dx + dbc + la) + states),
+        "chunk_state_bwd": (f_state, x + bc + la + states + dfin + states + fin + dt),
+        "chunk_scan_bwd": (f_scan, 2 * x + 2 * bc + la + 2 * states + dt
+                           + x + la + 2 * slab),
+        "function": (f_state + f_scan, 2 * x + 2 * bc + la + states + dfin
+                     + x + la + 2 * bc + (fin if init else 0)),
     }[part]
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
@@ -1882,81 +1895,94 @@ def ssm_train_path(dev, card) -> list[dict]:
          ptxas=ptxas_kernels(_build.build_log.get("ssd_scan.cu", ""), "ssd_chunk_"))
 
     # -- 3. the backward kernels against their plain versions ------------------
-    keep = {"dx": (0, 2), "db": (0, 2), "dc": (0, 2), "dprev": (0, 1),
-            "dcum": (0, 2), "g": (0, 1)}
+    keep = {"gnext": (0, 1), "dinit": (0, 1), "dT": (0, 1), "dx": (0, 2),
+            "dlog_a": (0, 2), "dB": (0, 2), "dC": (0, 2)}
     max_err = {"ssd_chunk_scan_bwd": 0.0, "ssd_chunk_state_bwd": 0.0}
+
+    def summed(out):   # the scan backward's dB and dC slices added
+        return out[0], out[1], out[2].sum(3), out[3].sum(3)
+
     for name, b, s, hh, pp, gg, nn, ch, init in SSD_BWD_CASES:
         x, la, bm, cm, h0 = ssd_inputs(gen, dev, b, s, hh, pp, gg, nn, init)
         dy = torch.randn((b, s, hh, pp), generator=gen, device=dev).to(torch.bfloat16)
         dfinal = torch.randn((b, hh, pp, nn), generator=gen, device=dev) if init else None
         q = min(ch, s)
         prev, _ = kssd.chunk_state(x, la, bm, chunk=ch, initial_state=h0)
-        got = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=ch)
-        want = kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, q)
         errs = {}
-        for part, a, w in zip(("dx", "db", "dc", "dprev", "dcum"), got, want):
-            errs["scan_bwd " + part] = ((a - w).abs().max().item(),
-                                        slab_rel_err(a, w, keep[part]))
-        # the state kernel on the plain scan backward's outputs (contiguous
-        # copies: it adds to them in place)
-        args = [t.clone(memory_format=torch.contiguous_format)
-                for t in (want[3], want[0], want[1], want[4])]
-        got = kssd.chunk_state_bwd(x, la, bm, prev, *args, chunk=ch, dfinal=dfinal)
-        want = kssd.chunk_state_bwd_plain(x, la, bm, prev, want[3], want[0],
-                                          want[1], want[4], q, dfinal)
-        torch.cuda.synchronize()
-        for part, a, w in zip(("dx", "db", "dcum", "g"), got, want):
+        got = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=ch, dfinal=dfinal)
+        state = kssd.chunk_state_bwd_plain(dy, la, cm, prev, q, dfinal)
+        for part, a, w in zip(("gnext", "dinit", "dT"), got, state):
             errs["state_bwd " + part] = ((a - w).abs().max().item(),
                                          slab_rel_err(a, w, keep[part]))
+        # the scan kernel on the plain state pass's outputs
+        gnext, _, d_total = state
+        got = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, gnext, d_total, chunk=ch)
+        want = kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, gnext, d_total, q)
+        torch.cuda.synchronize()
+        for part, a, w in zip(("dx", "dlog_a", "dB", "dC"), summed(got), summed(want)):
+            errs["scan_bwd " + part] = ((a - w).abs().max().item(),
+                                        slab_rel_err(a, w, keep[part]))
         for what, (err, rel) in errs.items():
             if not rel <= SSD_SLAB_REL_TOL:
                 raise AssertionError(f"ssd backward {name} {what}: max |err| {err}, "
                                      f"per (b, h) {rel} > {SSD_SLAB_REL_TOL}")
             kernel = "ssd_chunk_" + what.split()[0]
             max_err[kernel] = max(max_err[kernel], err)
-        scan_bound = bound(*ssd_bwd_floor_ms(b, s, hh, pp, gg, nn, ch, "chunk_scan_bwd"))
-        state_bound = bound(*ssd_bwd_floor_ms(b, s, hh, pp, gg, nn, ch,
-                                              "chunk_state_bwd", dfinal=init))
+        slices = hh // kssd.bwd_heads_per_block(hh, gg) // gg
+        bounds = {part: bound(*ssd_bwd_floor_ms(b, s, hh, pp, gg, nn, ch, part,
+                                                dfinal=init, init=init, slices=slices))
+                  for part in ("chunk_scan_bwd", "chunk_state_bwd", "function")}
+        init_dtype = h0.dtype if init else None
         emit("kernel_check", kernel="ssd_scan_bwd", case=name,
              shape=[b, s, hh, pp, gg, nn, q], initial_state_and_dfinal=init,
+             heads_per_block=kssd.bwd_heads_per_block(hh, gg), slices_per_group=slices,
              errors={k: {"max_abs_err": e, "max_bh_rel_err": r}
                      for k, (e, r) in errs.items()},
              bh_rel_tol=SSD_SLAB_REL_TOL,
-             chunk_scan_bwd_ms=time_ms(lambda: kssd.chunk_scan_bwd(
-                 x, la, bm, cm, prev, dy, chunk=ch), 5),
              chunk_state_bwd_ms=time_ms(lambda: kssd.chunk_state_bwd(
-                 x, la, bm, prev, *args, chunk=ch, dfinal=dfinal), 5),
-             chunk_scan_bwd_plain_ms=time_ms(lambda: kssd.chunk_scan_bwd_plain(
-                 x, la, bm, cm, prev, dy, q), 2, 1),
+                 dy, la, cm, prev, chunk=ch, dfinal=dfinal), 5),
+             chunk_scan_bwd_ms=time_ms(lambda: kssd.chunk_scan_bwd(
+                 x, la, bm, cm, prev, dy, gnext, d_total, chunk=ch), 5),
+             backward_ms=time_ms(lambda: kssd.ssd_scan_bwd(
+                 x, la, bm, cm, prev, dy, chunk=ch, dfinal=dfinal,
+                 init_dtype=init_dtype), 5),
              chunk_state_bwd_plain_ms=time_ms(lambda: kssd.chunk_state_bwd_plain(
-                 x, la, bm, prev, *args, q, dfinal), 2, 1),
-             chunk_scan_bwd_bound_ms=scan_bound[0], chunk_scan_bwd_bound_by=scan_bound[1],
-             chunk_state_bwd_bound_ms=state_bound[0],
-             chunk_state_bwd_bound_by=state_bound[1], library_ms=None,
-             nvidia_smi=card)
-        del x, la, bm, cm, h0, dy, dfinal, prev, got, want, args
+                 dy, la, cm, prev, q, dfinal), 2, 1),
+             chunk_scan_bwd_plain_ms=time_ms(lambda: kssd.chunk_scan_bwd_plain(
+                 x, la, bm, cm, prev, dy, gnext, d_total, q), 2, 1),
+             backward_plain_ms=time_ms(lambda: kssd.ssd_scan_bwd_plain(
+                 x, la, bm, cm, prev, dy, q, dfinal, h0), 2, 1),
+             **{f"{part}_bound_ms": bd[0] for part, bd in bounds.items()},
+             **{f"{part}_bound_by": bd[1] for part, bd in bounds.items()},
+             library_ms=None, nvidia_smi=card)
+        del x, la, bm, cm, h0, dy, dfinal, prev, got, want, state, gnext, d_total
     torch.cuda.empty_cache()
 
     # the backward's work in one mamba2-780m train step: one call of each
-    # kernel per layer
+    # kernel per layer, and the whole backward (both kernels and the glue,
+    # as SSDScan runs it) against the function's bound
     b, s = TRAIN_BATCH, TRAIN_SEQ
     x, la, bm, cm, _ = ssd_inputs(gen, dev, b, s, h, p, g, n, False)
     dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
     prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk)
-    scan_out = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=chunk)
+    gnext, _, d_total = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=chunk)
+    slices = h // kssd.bwd_heads_per_block(h, g) // g
     layers = range(cfg.n_layers)
     mix = {}
     for part, kernel, plain in (
             ("chunk_scan_bwd",
-             lambda: kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=chunk),
-             lambda: kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, chunk)),
+             lambda: kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, gnext, d_total,
+                                         chunk=chunk),
+             lambda: kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, gnext,
+                                               d_total, chunk)),
             ("chunk_state_bwd",
-             lambda: kssd.chunk_state_bwd(x, la, bm, prev, scan_out[3], scan_out[0],
-                                          scan_out[1], scan_out[4], chunk=chunk),
-             lambda: kssd.chunk_state_bwd_plain(x, la, bm, prev, scan_out[3],
-                                                scan_out[0], scan_out[1],
-                                                scan_out[4], chunk))):
-        ops_ms, bytes_ms = ssd_bwd_floor_ms(b, s, h, p, g, n, chunk, part)
+             lambda: kssd.chunk_state_bwd(dy, la, cm, prev, chunk=chunk),
+             lambda: kssd.chunk_state_bwd_plain(dy, la, cm, prev, chunk)),
+            ("function",
+             lambda: kssd.ssd_scan_bwd(x, la, bm, cm, prev, dy, chunk=chunk),
+             lambda: kssd.ssd_scan_bwd_plain(x, la, bm, cm, prev, dy, chunk))):
+        ops_ms, bytes_ms = ssd_bwd_floor_ms(b, s, h, p, g, n, chunk, part,
+                                            slices=slices)
         mix_bound_ms, mix_bound_by = bound(cfg.n_layers * ops_ms,
                                            cfg.n_layers * bytes_ms)
         mix[part] = {
@@ -1965,8 +1991,9 @@ def ssm_train_path(dev, card) -> list[dict]:
             "bound_ms": mix_bound_ms, "bound_by": mix_bound_by, "library_ms": None,
         }
     emit("kernel_train_mix", kernel="ssd_scan_bwd", layers=cfg.n_layers,
-         shape=[b, s, h, p, g, n, chunk], nvidia_smi=card, **mix)
-    del x, la, bm, cm, dy, prev, scan_out
+         shape=[b, s, h, p, g, n, chunk], slices_per_group=slices, nvidia_smi=card,
+         **mix)
+    del x, la, bm, cm, dy, prev, gnext, d_total
     torch.cuda.empty_cache()
 
     def counts():

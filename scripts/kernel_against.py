@@ -5,6 +5,7 @@ card, in one process.
     python3 scripts/kernel_against.py gmm OTHER_CSRC [--serve-pairs N]
     python3 scripts/kernel_against.py fa OTHER_CSRC [--prefill-pairs N]
     python3 scripts/kernel_against.py ssd OTHER_CSRC [--prefill-pairs N]
+    python3 scripts/kernel_against.py ssd_bwd OTHER_CSRC
 
 Run from the repository root.  ``OTHER_CSRC`` is another tree's
 ``src/repro_torch/kernels/csrc`` (e.g. an older commit unpacked under
@@ -59,12 +60,30 @@ and for ``ssd``:
   mamba2-780m prefills (median of 3) with each build, the order
   alternating, after one uncounted pair;
 
+and for ``ssd_bwd``, the SSD scan's backward, where ``OTHER_CSRC``'s
+``ssd_scan.cu`` has the earlier backward interface (``ssd_chunk_scan_bwd``
+first, writing dx, dB and dC per head, dprev and dcum in fp32, then
+``ssd_chunk_state_bwd`` adding the chunk-state term to them in place; torch
+glue after: :func:`earlier_backward`) and this tree's goes through the
+port's wrappers (``chunk_state_bwd``, ``chunk_scan_bwd``, ``ssd_scan_bwd``):
+
+* at mamba2-780m's training shape, hymba-1.5b's SSD and the (64, 64) G 4
+  case, each build's error against ``ssd_scan_bwd_plain`` (dx, dlog_a, dB,
+  dC: max |err| and the largest error relative to its (batch, head or
+  group)'s largest element) and, in turns (this, other, other, this), the
+  time of each backward kernel and of the whole backward (both kernels and
+  the glue), by CUDA events around 10 calls and the kernels' own device
+  time by the profiler, beside the plain versions' times and the bounds of
+  each of this tree's kernels and of the function
+  (``chip_smoke.ssd_bwd_floor_ms``): one JSON line a case;
+
 then the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import sys
 import time
 from pathlib import Path
@@ -81,7 +100,12 @@ from repro_torch.kernels import ssd_scan  # noqa: E402
 
 #: kernel argument -> (wrapper module, source name)
 KERNELS = {"gmm": (moe_gmm, "moe_gmm"), "fa": (flash_attention, "flash_attention"),
-           "ssd": (ssd_scan, "ssd_scan")}
+           "ssd": (ssd_scan, "ssd_scan"), "ssd_bwd": (ssd_scan, "ssd_scan")}
+
+#: the SSD backward's cases: name, B, S, H, P, G, N, chunk
+SSD_BWD_SHAPES = [("mamba2-780m train", 4, 2048, 48, 64, 1, 128, 256),
+                  ("hymba-1.5b SSD", 4, 2048, 50, 64, 1, 16, 256),
+                  ("(64, 64), G 4", 2, 1024, 16, 64, 4, 64, 256)]
 
 
 @contextlib.contextmanager
@@ -284,6 +308,116 @@ def ssd_cases(libs: dict, dev) -> None:
         del x, la, bm, cm, want_prev, want_final, want_y
 
 
+def earlier_backward(lib, x, la, bm, cm, prev, dy, chunk):
+    """The SSD backward through a build of ``ssd_scan.cu`` with the earlier
+    interface: ``ssd_chunk_scan_bwd`` (dx's intra term, dB and dC per head,
+    dprev and dcum, all fp32), then ``ssd_chunk_state_bwd`` (the state pass
+    in reverse, its term added to dx, dB and dcum in place), then the glue
+    (dlog_a by a reverse cumsum, dB and dC summed over each group's heads,
+    dx in bf16).  Returns callables (scan, state, whole): the two launches
+    alone (``state`` on ``scan``'s outputs) and the whole backward, which
+    returns (dx, dlog_a, dB, dC)."""
+    lib.ssd_chunk_scan_bwd.argtypes = [ctypes.c_void_p] * 13
+    lib.ssd_chunk_state_bwd.argtypes = [ctypes.c_void_p] * 13
+    bsz, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    q = min(chunk, s)
+    c = s // q
+    f32 = {"dtype": torch.float32, "device": x.device}
+    dims = ssd_scan._dims(x, la, bm, cm, q)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def scan():
+        outs = [torch.empty(shape, **f32) for shape in (
+            (bsz, s, h, p), (bsz, s, h, n), (bsz, s, h, n), (bsz, h, c, p, n),
+            (bsz, s, h))]
+        ssd_scan._raise_on(lib.ssd_chunk_scan_bwd(
+            x.data_ptr(), la.data_ptr(), bm.data_ptr(), cm.data_ptr(), prev.data_ptr(),
+            dy.data_ptr(), *(t.data_ptr() for t in outs), ctypes.addressof(dims),
+            stream), "ssd_chunk_scan_bwd (earlier)")
+        return outs
+
+    def state(outs):
+        dx, db, _, dprev, dcum = outs
+        work = torch.zeros(bsz * h * c + 1, dtype=torch.int32, device=x.device)
+        ssd_scan._raise_on(lib.ssd_chunk_state_bwd(
+            x.data_ptr(), la.data_ptr(), bm.data_ptr(), prev.data_ptr(), None,
+            dprev.data_ptr(), dx.data_ptr(), db.data_ptr(), dcum.data_ptr(),
+            work.data_ptr(), work.data_ptr() + 4 * bsz * h * c, ctypes.addressof(dims),
+            stream), "ssd_chunk_state_bwd (earlier)")
+        return outs
+
+    def whole():
+        dx, db, dc, _, dcum = state(scan())
+        dla = dcum.reshape(bsz, c, q, h).flip(2).cumsum(2).flip(2).reshape(bsz, s, h)
+        return (dx.to(x.dtype), dla, db.reshape(bsz, s, g, h // g, n).sum(3).to(bm.dtype),
+                dc.reshape(bsz, s, g, h // g, n).sum(3).to(cm.dtype))
+
+    return scan, state, whole
+
+
+def ssd_bwd_cases(libs: dict, dev) -> None:
+    """This tree's SSD backward (``libs["this"]``) and the earlier interface's
+    (``libs["other"]``) at each of :data:`SSD_BWD_SHAPES`: errors, then
+    each kernel's and the whole backward's times in turns."""
+    kssd = ssd_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    turns = ("this", "other", "other", "this")
+    for name, b, s, h, p, g, n, chunk in SSD_BWD_SHAPES:
+        x, la, bm, cm, _ = cs.ssd_inputs(gen, dev, b, s, h, p, g, n, False)
+        dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
+        q = min(chunk, s)
+        with using(kssd, libs["this"]):
+            prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk)
+            gnext, _, d_total = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=chunk)
+        want = kssd.ssd_scan_bwd_plain(x, la, bm, cm, prev, dy, q)[:4]
+        scan, state, whole = earlier_backward(libs["other"], x, la, bm, cm, prev, dy,
+                                              chunk)
+        outs = scan()
+        calls = {
+            "this": {"state_bwd": lambda: kssd.chunk_state_bwd(dy, la, cm, prev,
+                                                               chunk=chunk),
+                     "scan_bwd": lambda: kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy,
+                                                             gnext, d_total, chunk=chunk),
+                     "backward": lambda: kssd.ssd_scan_bwd(x, la, bm, cm, prev, dy,
+                                                           chunk=chunk)},
+            "other": {"state_bwd": lambda: state(outs), "scan_bwd": scan,
+                      "backward": whole}}
+        errs = {}
+        for ver in ("this", "other"):
+            with using(kssd, libs[ver]):
+                got = calls[ver]["backward"]()
+            torch.cuda.synchronize()
+            errs[ver] = {
+                what: {"max_abs_err": (a.float() - w.float()).abs().max().item(),
+                       "max_bh_rel_err": cs.slab_rel_err(a, w, (0, 2))}
+                for what, a, w in zip(("dx", "dlog_a", "dB", "dC"), got, want)}
+            del got
+        slices = h // kssd.bwd_heads_per_block(h, g) // g
+        out = {}
+        for part, match in (("state_bwd", "ssd_chunk_state"),
+                            ("scan_bwd", "ssd_chunk_scan_bwd"), ("backward", "ssd_chunk")):
+            times = {ver: [] for ver in libs}
+            kernel = {ver: [] for ver in libs}
+            for ver in turns:
+                with using(kssd, libs[ver]):
+                    times[ver].append(cs.time_ms(calls[ver][part], 10))
+                    kernel[ver].append(cs.kernel_ms(calls[ver][part], match))
+            floor = {"state_bwd": "chunk_state_bwd", "scan_bwd": "chunk_scan_bwd",
+                     "backward": "function"}[part]
+            bound_ms, bound_by = cs.bound(*cs.ssd_bwd_floor_ms(b, s, h, p, g, n, chunk,
+                                                               floor, slices=slices))
+            out[part] = {"ms": times, "kernel_ms": kernel, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        out["backward"]["plain_ms"] = cs.time_ms(
+            lambda: kssd.ssd_scan_bwd_plain(x, la, bm, cm, prev, dy, q), 2, 1)
+        cs.emit("ssd_bwd_against", case=name, shape=[b, s, h, p, g, n, q],
+                heads_per_block=kssd.bwd_heads_per_block(h, g), errors=errs, **out)
+        del x, la, bm, cm, dy, prev, gnext, d_total, want, outs, calls
+        torch.cuda.empty_cache()
+
+
 def prefill_pairs(libs: dict, dev, pairs: int, module=flash_attention,
                   archs=("gemma3-1b", "olmoe-1b-7b")) -> None:
     from repro_torch.configs import get
@@ -348,6 +482,8 @@ def main() -> None:
         fa_cases(libs, dev)
         if args.prefill_pairs:
             prefill_pairs(libs, dev, args.prefill_pairs)
+    elif args.kernel == "ssd_bwd":
+        ssd_bwd_cases(libs, dev)
     else:
         ssd_cases(libs, dev)
         if args.prefill_pairs:

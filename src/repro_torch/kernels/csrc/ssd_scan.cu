@@ -126,7 +126,7 @@ using namespace hopper;
 
 constexpr int kTile = 64;            // rows of a tile: one wgmma's M
 constexpr int kBox = kTile * 128;    // bytes of a 64 x 64 bf16 box
-constexpr int kMaxChunk = 256;       // Q: two rows a thread in chunk_cumsum
+constexpr int kMaxChunk = 256;       // Q: at most 256 rows a chunk
 constexpr int kMaxTiles = kMaxChunk / kTile;
 constexpr int kStateThreads = 128;   // ssd_chunk_state: one warpgroup,
 constexpr int kStateStages = 2;      // a 2-stage ring of x and B tiles,
@@ -159,6 +159,11 @@ struct Params {
   bf16* final_state;        // (B, H, P, N) contiguous
   int* flags;               // (B, H, C) zeros: prev_c is written
   int* ticket;              // zero: the next block's (b, h, c)
+  // the backward's state pass only (ssd_chunk_state_bwd): init is dfinal,
+  // states G_c+1, and
+  float* final_f32;         // (B, H, P, N): G_0, the initial state's gradient
+  const float* prev;        // (B, H, C, P, N): the forward's prev_c
+  float* dt;                // (B, H, C): exp(T_c) <prev_c, G_c+1>
   int batch, seq, heads, groups, q, n_chunks;
   int64_t la_sb, la_ss, la_sh;
 };
@@ -207,15 +212,23 @@ __device__ __forceinline__ uint32_t swizzled(int row, int ch) {
 
 // cum[r] = la[0] + ... + la[r] for r < q (inclusive, fp32); rows past q
 // count la = 0.  la is one head's column, `stride` floats between rows.
-// Run by the 128 threads t of one warpgroup, two rows each (a shuffle scan
-// over each warp, then the warps' totals); `bar` is their named barrier.
+// Run by the 256 / kRows threads t of whole warps, kRows rows each (a
+// shuffle scan over each warp, then the warps' totals); `bar` is their
+// named barrier.
+template <int kRows>
 __device__ void chunk_cumsum(float* cum, float* warp_total, const float* la,
                              int64_t stride, int q, int t, int bar) {
+  constexpr int kThreads = kMaxChunk / kRows;
   const int lane = t % 32;
   const int warp = t / 32;
-  const float v0 = 2 * t < q ? la[(2 * t) * stride] : 0.f;
-  const float v1 = 2 * t + 1 < q ? la[(2 * t + 1) * stride] : 0.f;
-  float incl = v0 + v1;
+  float v[kRows];
+  float incl = 0.f;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int r = kRows * t + k;
+    v[k] = r < q ? la[r * stride] : 0.f;
+    incl += v[k];
+  }
 #pragma unroll
   for (int off = 1; off < 32; off *= 2) {
     const float n = __shfl_up_sync(0xffffffffu, incl, off);
@@ -224,12 +237,29 @@ __device__ void chunk_cumsum(float* cum, float* warp_total, const float* la,
   float excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.f;
   if (lane == 31) warp_total[warp] = incl;
-  asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
-  float base = 0.f;
-  for (int w = 0; w < warp; ++w) base += warp_total[w];
-  cum[2 * t] = base + excl + v0;
-  cum[2 * t + 1] = cum[2 * t] + v1;
-  asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(kThreads) : "memory");
+  float run = 0.f;
+  for (int w = 0; w < warp; ++w) run += warp_total[w];
+  run += excl;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    run += v[k];
+    cum[kRows * t + k] = run;
+  }
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(kThreads) : "memory");
+}
+
+// The block's sum of v (kStateThreads threads), the same on every thread,
+// in a fixed order.
+__device__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < kStateThreads / 32; ++w) s += red[w];
+  __syncthreads();
+  return s;
 }
 
 // ---------------------------------------------------------------------------
@@ -240,12 +270,16 @@ __device__ void chunk_cumsum(float* cum, float* warp_total, const float* la,
 // go through a 2-stage ring (49 KB of shared memory at N 128), so three
 // blocks share an SM and hide each other's latencies: the ticket, the
 // first loads, the hand-off.
+//
+// kBwd: the same body runs the backward's state pass
+// (ssd_chunk_state_bwd_kernel, see the backward's note): map_x reads dy,
+// map_b reads C, the weight is exp(cum_j), the chunks run last to first and
+// the hand-off passes G.
 // ---------------------------------------------------------------------------
-template <int P, int N>
-__global__ void __launch_bounds__(kStateThreads, kStateBlocks)
-    ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap map_x,
-                           const __grid_constant__ CUtensorMap map_b,
-                           const Params prm) {
+template <int P, int N, bool kBwd>
+__device__ __forceinline__ void chunk_state_body(const CUtensorMap& map_x,
+                                                 const CUtensorMap& map_b,
+                                                 const Params& prm) {
   using S = Shape<P, N>;
   constexpr int kNB = S::kNBoxes;
   constexpr int kStage = (1 + kNB) * kBox;   // x, then B's boxes
@@ -253,6 +287,7 @@ __global__ void __launch_bounds__(kStateThreads, kStateBlocks)
   __shared__ uint64_t full[kStateStages];
   __shared__ float weight[kMaxChunk];
   __shared__ float warp_total[4];
+  __shared__ float red[kStateThreads / 32];
   __shared__ int s_ticket;
   const uint32_t s_ring = (smem_addr(smem_raw) + 1023) & ~1023u;
   const int q = prm.q;
@@ -265,9 +300,10 @@ __global__ void __launch_bounds__(kStateThreads, kStateBlocks)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // Tickets run chunk by chunk, the (b, h) pairs fastest.
+  // Tickets run chunk by chunk (from the last in the backward), the (b, h)
+  // pairs fastest.
   const int pairs = prm.batch * prm.heads;
-  const int c = s_ticket / pairs;
+  const int c = kBwd ? prm.n_chunks - 1 - s_ticket / pairs : s_ticket / pairs;
   const int bh = s_ticket % pairs;
   const int b = bh / prm.heads;
   const int h = bh % prm.heads;
@@ -286,14 +322,14 @@ __global__ void __launch_bounds__(kStateThreads, kStateBlocks)
     for (int t = 0; t < tiles && t < kStateStages; ++t) load(t);
   }
 
-  chunk_cumsum(weight, warp_total,
+  chunk_cumsum<2>(weight, warp_total,
                prm.la + b * prm.la_sb + static_cast<int64_t>(c) * q * prm.la_ss +
                    h * prm.la_sh,
                prm.la_ss, q, tid, 1);
   const float total = weight[q - 1];
   __syncthreads();  // every thread has read total before it is overwritten
   for (int j = tid; j < kMaxChunk; j += kStateThreads)
-    weight[j] = j < q ? expf(total - weight[j]) : 0.f;
+    weight[j] = j < q ? expf(kBwd ? weight[j] : total - weight[j]) : 0.f;
   __syncthreads();
 
   const int warp = tid / 32;
@@ -344,11 +380,15 @@ __global__ void __launch_bounds__(kStateThreads, kStateBlocks)
     }
   }
 
-  // -- the hand-off: prev_c+1 = prev_c exp(total_c) + state_c --------------
-  // state_c into shared memory (the ring is free now), rows of N + 4
-  // floats (the padding spreads a warp's fragment stores over the banks),
-  // then every thread takes float4s of the (P, N) state: coalesced loads and
-  // stores, few registers.
+  // -- the hand-off -------------------------------------------------------
+  // Forward: prev_c+1 = prev_c exp(total_c) + state_c, first chunk to last;
+  // backward: G_c = G_c+1 exp(T_c) + dprev_c, last chunk to first.  `in`
+  // enters this chunk's step (prev_c; G_c+1), `out` leaves it (prev_c+1;
+  // G_c, stored where the next chunk's block reads its `in`).
+  // The step's state goes into shared memory first (the ring is free now),
+  // rows of N + 4 floats (the padding spreads a warp's fragment stores over
+  // the banks), then every thread takes float4s of the (P, N) state:
+  // coalesced loads and stores, few registers.
   constexpr int kRow = N + 4;
   static_assert(P * kRow * 4 <= kStateStages * kStage, "state staging");
   float* st = reinterpret_cast<float*>(smem_raw + (s_ring - smem_addr(smem_raw)));
@@ -370,51 +410,82 @@ __global__ void __launch_bounds__(kStateThreads, kStateBlocks)
   }
   const int64_t slot = static_cast<int64_t>(P) * N;
   float* states = prm.states + static_cast<int64_t>(bh) * prm.n_chunks * slot;
-  // prev_c: chunk 0's is the initial state (or zeros), which it also
-  // writes as prev_0; any other's was written by the block of chunk c - 1
-  const float* prev = c > 0 ? states + c * slot
-                            : prm.init ? prm.init + bh * slot : nullptr;
-  if (c > 0 && tid == 0) {
+  // the chain's first step takes the initial state (dfinal), or zeros, and
+  // also stores it as its `in`; any other step's `in` was stored by the
+  // block of the chunk before it in the chain
+  const bool head = kBwd ? c + 1 == prm.n_chunks : c == 0;
+  const bool tail = kBwd ? c == 0 : c + 1 == prm.n_chunks;
+  const int out_c = kBwd ? c - 1 : c + 1;
+  const float* in = !head ? states + c * slot
+                          : prm.init ? prm.init + bh * slot : nullptr;
+  if (!head && tid == 0) {
     const int* flag = prm.flags + static_cast<int64_t>(bh) * prm.n_chunks + c;
     while (ld_acquire(flag) == 0) __nanosleep(64);
   }
-  __syncthreads();   // the staged state, and prev_c once the flag is up
+  __syncthreads();   // the staged state, and `in` once the flag is up
   const float decay = expf(total);
-  const bool last = c + 1 == prm.n_chunks;
-  float* next = states + (c + 1) * slot;
-  bf16* fin = prm.final_state + bh * slot;
-  // every thread's loads of prev_c in flight at once (16 float4s at N 128)
+  float* next = states + out_c * slot;
+  // every thread's loads of `in` in flight at once (16 float4s at N 128)
   constexpr int kVec = (P * N + 4 * kStateThreads - 1) / (4 * kStateThreads);
   float4 pv[kVec];
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
     const int e = 4 * (i * kStateThreads + tid);
     // written by another SM: read past L1
-    pv[i] = prev && e < P * N ? __ldcg(reinterpret_cast<const float4*>(prev + e))
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    pv[i] = in && e < P * N ? __ldcg(reinterpret_cast<const float4*>(in + e))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  float dot = 0.f;   // the backward's <prev_c, G_c+1>, this thread's part
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
     const int e = 4 * (i * kStateThreads + tid);
     if (e >= P * N) break;
     const float4 v = pv[i];
-    if (c == 0) *reinterpret_cast<float4*>(states + e) = v;
+    if (head) *reinterpret_cast<float4*>(states + c * slot + e) = v;
+    if constexpr (kBwd) {
+      const float4 pr = *reinterpret_cast<const float4*>(
+          prm.prev + (static_cast<int64_t>(bh) * prm.n_chunks + c) * slot + e);
+      dot = fmaf(v.x, pr.x, fmaf(v.y, pr.y, fmaf(v.z, pr.z, fmaf(v.w, pr.w, dot))));
+    }
     const float4 sc = *reinterpret_cast<const float4*>(st + (e / N) * kRow + e % N);
     const float4 r = make_float4(fmaf(v.x, decay, sc.x), fmaf(v.y, decay, sc.y),
                                  fmaf(v.z, decay, sc.z), fmaf(v.w, decay, sc.w));
-    if (!last) {
+    if (!tail) {
       __stcg(reinterpret_cast<float4*>(next + e), r);
+    } else if constexpr (kBwd) {
+      *reinterpret_cast<float4*>(prm.final_f32 + bh * slot + e) = r;
     } else {
+      bf16* fin = prm.final_state + bh * slot;
       *reinterpret_cast<__nv_bfloat162*>(fin + e) = __floats2bfloat162_rn(r.x, r.y);
       *reinterpret_cast<__nv_bfloat162*>(fin + e + 2) = __floats2bfloat162_rn(r.z, r.w);
     }
   }
-  if (!last) {
-    __threadfence();   // this thread's part of prev_c+1 is visible on the device
+  if (!tail) {
+    __threadfence();   // this thread's part of `out` is visible on the device
     __syncthreads();   // ... and every thread's
     if (tid == 0)
-      st_release(prm.flags + static_cast<int64_t>(bh) * prm.n_chunks + c + 1, 1);
+      st_release(prm.flags + static_cast<int64_t>(bh) * prm.n_chunks + out_c, 1);
   }
+  if constexpr (kBwd) {
+    const float sum = block_sum(dot, red);
+    if (tid == 0) prm.dt[static_cast<int64_t>(bh) * prm.n_chunks + c] = decay * sum;
+  }
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kStateThreads, kStateBlocks)
+    ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap map_x,
+                           const __grid_constant__ CUtensorMap map_b,
+                           const Params prm) {
+  chunk_state_body<P, N, false>(map_x, map_b, prm);
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kStateThreads, kStateBlocks)
+    ssd_chunk_state_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
+                               const __grid_constant__ CUtensorMap map_b,
+                               const Params prm) {
+  chunk_state_body<P, N, true>(map_x, map_b, prm);
 }
 
 // S = C_t B_u^T for one key tile, issued (not waited for): both K-major (n),
@@ -544,7 +615,7 @@ __global__ void __launch_bounds__(kScanThreads, 1)
         tma_load_5d(s_x + t * kBox, &map_x, bar, 0, h, t * kTile, c, b);
       }
     }
-    chunk_cumsum(cum, warp_total,
+    chunk_cumsum<2>(cum, warp_total,
                  prm.la + b * prm.la_sb + static_cast<int64_t>(c) * q * prm.la_ss +
                      h * prm.la_sh,
                  prm.la_ss, q, t128, kLoaderBar);
@@ -699,470 +770,662 @@ __global__ void __launch_bounds__(kScanThreads, 1)
 // ---------------------------------------------------------------------------
 // The backward: two kernels that replace no Pallas kernel: they replace the
 // XLA autodiff through which the reference differentiates its SSD
-// (repro.kernels.ssd_scan, repro.models.ssm.ssd_chunked).  Scalar fp32 bodies over tiles of
-// 64 rows in shared memory, each thread owning a 4 x 4 (or 4 x N/16) patch
-// of every product: simple and right first; tensor cores are for a later
-// version.  Per (b, h, c), with S_ij = (C_i . B_j) exp(cum_i - cum_j) for
-// j <= i, dS_ij = dy_i . x_j and T = cum[Q - 1]:
+// (repro.kernels.ssd_scan, repro.models.ssm.ssd_chunked).  Per (b, h, c),
+// with S_ij = (C_i . B_j) e_ij, e_ij = exp(cum_i - cum_j) for j <= i (else
+// 0), dS_ij = dy_i . x_j, A_ij = dS_ij e_ij, R_ij = S_ij dS_ij, T = cum[Q-1],
+// w_j = exp(T - cum_j) and G_c the gradient of the state entering chunk c:
 //
-// ssd_chunk_scan_bwd, one block per (b, c, h), heads fastest:
-//   dx_j   = sum_i S_ij dy_i                      (the intra term's part)
-//   dC_i   = sum_j dS_ij e_ij B_j + exp(cum_i) prev_c^T dy_i
-//   dB_j   = sum_i dS_ij e_ij C_i                 (per head: fp32, B, S, H, N)
-//   dcum_i = sum_j S_ij dS_ij - sum_i' S_i'i dS_i'i + exp(cum_i) dy_i.(prev_c C_i)
-//   dprev_c = sum_i exp(cum_i) dy_i (x) C_i
-// Phase A walks the row tiles I (dC_I, dcum's row sums, the inter term,
-// dprev), phase B the key tiles J (dx_J, dB_J, dcum's column sums): S and
-// dS of a tile pair are computed in both, so no sum needs atomics.
+// ssd_chunk_state_bwd (launched first; kernel 1 with kBwd): the state pass
+//   in reverse.  dprev_c = sum_i exp(cum_i) dy_i (x) C_i by wgmma (the
+//   forward's (x o w)^T B with dy, C and exp(cum)), G_C = dfinal (or 0),
+//   G_c = dprev_c + exp(T_c) G_c+1, handed from chunk c + 1's block to
+//   chunk c's by the forward's ticketed chained hand-off run backwards.
+//   Writes gnext[c] = G_c+1 (what chunk c's outputs need), G_0 (the initial
+//   state's gradient) and dT_c = exp(T_c) <prev_c, G_c+1>, all fp32.
 //
-// ssd_chunk_state_bwd, one block per (b, h, c), tickets in reverse chunk
-// order: the state pass in reverse, G_C = dfinal (or 0), G_c = dprev_c +
-// exp(T_c) G_c+1, written over dprev_c (so dprev_0 becomes the initial
-// state's gradient) and handed to chunk c - 1 by the chained hand-off of
-// the forward (flag c raised after G_c is written; chunk c's block took its
-// ticket after chunk c + 1's).  Then, with w_j = exp(T - cum_j) and
-// G = G_c+1: dx_j += w_j G B_j, dB_j += w_j G^T x_j, dcum_j -= w_j x_j^T G
-// B_j, and dcum[Q - 1] += exp(T) <prev_c, G> + sum_j w_j x_j^T G B_j.
+// ssd_chunk_scan_bwd: everything else, in final form:
+//   dx_j   = sum_{i >= j} S_ij dy_i + w_j G_c+1 B_j           (bf16)
+//   dB_j   = sum_i A_ij C_i + w_j G_c+1^T x_j                (summed over heads)
+//   dC_i   = sum_j A_ij B_j + exp(cum_i) prev_c^T dy_i       (summed over heads)
+//   dcum_i = sum_j R_ij - sum_i' R_i'i + exp(cum_i) dy_i . (prev_c C_i)
+//            - w_i x_i . (G_c+1 B_i), plus dT_c + sum_j w_j x_j . (G_c+1 B_j)
+//            at i = Q - 1;  dlog_a = its reverse cumsum within the chunk.
+//   One block a (b, c, set of `rep` heads of one group), heads fastest.
+//   Roles: a consumer warpgroup; a producer warp (one thread issues every
+//   TMA load through the forward's 5-D maps: B_J with x_J, then C_I with
+//   dy_I, each buffer on full/empty mbarriers); three converter warps that
+//   turn prev_c and G_c+1 (fp32) into hi + lo bf16 operand planes in shared
+//   memory, and with a (J, head)'s first planes compute the head's cum of
+//   log_a, each loaded into registers while the consumer still works on
+//   the planes' last use.  The consumer walks key tiles J, then the set's
+//   heads, then row tiles I >= J.  For each tile pair it computes S^T =
+//   B_J C_I^T and dS^T = x_J dy_I^T once (wgmma, both K-major from shared
+//   memory), masks the decay before the exponent, takes R's row sums (into
+//   dcum_j, in registers) and column sums (over the warps through shared
+//   memory, into dcum_i), and then:
+//   - dx_J += S^T dy_I with S^T as hi + lo bf16 A fragments (registers);
+//   - A^T goes to shared memory as hi + lo bf16 tiles, from which come
+//     dB_J += A^T C_I (A^T read K-major) and dC_I's part A B_J (read
+//     MN-major, 64 columns a commit group), by wgmma with C_I and B_J
+//     N-major; the stage goes back to the producer before dC's part.
+//   dx_J stays in registers over I and leaves in bf16 at the end of the
+//   head; dB_J stays in registers over the heads and I (the sum over the
+//   group's heads on chip) and leaves once a J.  dC_I sums over J and the
+//   heads: each part is added, by the thread that holds it, to an fp32
+//   accumulator of the whole chunk in shared memory (16-byte chunks
+//   swizzled by row: conflict-free), written out once at the end.  dB and
+//   dC leave in fp32, one slice a block's set of heads (B, S, H / rep, N);
+//   the wrapper adds the slices of a group in a fixed order.  The inter
+//   term (prev_c's planes, once a head, with the first key tile) and the
+//   chunk-state term (G_c+1's planes, at the start of each (J, head)) are
+//   wgmma products on the same tiles.  Every sum runs in a fixed order and
+//   no atomics add floats: the same bits every run, and for a batch of gang
+//   members the same bits as each alone (rep does not depend on the batch).
 //
-// dx, dB, dC, dcum and dprev are fp32; the wrapper sums dB and dC over the
-// heads of a group, turns dcum into dlog_a (a reverse cumsum within each
-// chunk) and rounds dx to bf16: torch glue (ssd_scan.py, _bwd_finish).
-// Every sum runs in a fixed order: the same bits every run.
+//   Why a block owns a chunk, and not a key tile with dC handed on in
+//   key-tile order through L2 (the flash-attention backward's dQ): a chunk
+//   has at most 4 key tiles, so a block a key tile would repeat the per-
+//   head set-up (cum, G's planes, x) 4 times over as many blocks, and each
+//   dC part would travel to L2 and back in turn; inside one block the parts
+//   meet in shared memory.  The price is the chunk's fp32 dC (128 KB at
+//   Q 256, N 128).  Chosen from these counts, not by timing the other; the
+//   sum over heads was measured (scripts/ssd_ablations.py
+//   bwd-one-head-a-block: one head a block is 1.18x slower at mamba2's
+//   shape, and its 48 slices a group make the whole backward 1.7x slower).
 //
-// What bounds them: the function is bound by bytes (at the mamba2-780m
-// training shape ~0.2 ms each on an H100: the per-head fp32 dB and dC, the
-// states and their gradients; chip_smoke.py ssd_bwd_floor_ms).  These
-// bodies are bound instead by the CUDA cores and shared memory: the scan's
-// backward does ~100 GFLOP of fp32 FMAs there (S and dS twice, ~33 M FMAs
-// per (b, h, c)) with two to three FMAs per shared-memory load and one
-// 151 KB block an SM.  wgmma for the five products, S and dS computed
-// once, is the way to the bound.
+// Precision: the fp32 operands (the decayed scores S and A, prev, G) are
+// split into bf16 hi + lo parts, as in the forward: ~16 bits of mantissa.
+//
+// What bounds them (chip_smoke.py ssd_bwd_floor_ms): at the mamba2-780m
+// training shape the whole backward must move ~213 MB (x, dy and dx in
+// bf16, the fp32 states prev; ~64 us on an H100) and do ~65 GFLOP (C B^T
+// once a group; ~66 us); the state pass moves dy, prev and G (~161 MB,
+// ~48 us); the scan's backward x, dy, dx, prev, G and the dB/dC slices
+// (~292 MB, ~87 us) and issues ~143 GFLOP of wgmma (C B^T for each head,
+// the hi + lo halves; ~0.15 ms at peak).  What holds the scan's backward
+// back (PERF.md; scripts/ssd_bwd_phases.py and ssd_ablations.py): the
+// consumer's elementwise work on a tile pair (the decay, R's sums, the hi
+// + lo splits, A^T's stores) takes a third of its cycles, dC's parts and
+// their accumulation a sixth, the inter and chunk-state terms a quarter,
+// the tensor-core phases under a tenth: one warpgroup a block, so one warp
+// a scheduler, and nothing hides the elementwise latency.  The dC
+// accumulators leave room for one block an SM and a single-stage ring.
+// Next: a second consumer warpgroup that takes half of each pair's
+// columns.
 // ---------------------------------------------------------------------------
-constexpr int kBwdThreads = 256;
+constexpr int kConverters = 96;    // threads that fill the operand planes
+// one consumer warpgroup, one producer warp, three converter warps
+constexpr int kBwdThreads = 128 + 32 + kConverters;
+constexpr int kMaxRep = 12;        // heads a block of the scan's backward walks
+constexpr int kBarBwd = 1;         // the consumer warpgroup's named barrier
+
+struct BwdParams {
+  const float* la;          // (B, S, H), strides la_s*
+  const float* prev;        // (B, H, C, P, N): the forward's prev_c
+  const float* gnext;       // (B, H, C, P, N): G_c+1
+  const float* dt;          // (B, H, C): exp(T_c) <prev_c, G_c+1>
+  bf16* dx;                 // (B, S, H, P)
+  float* dla;               // (B, S, H)
+  float* db;                // (B, S, H / rep, N): a block's heads summed
+  float* dc;                // (B, S, H / rep, N)
+  int batch, seq, heads, groups, q, n_chunks, rep;
+  int64_t la_sb, la_ss, la_sh;
+};
 
 template <int P, int N>
 struct BwdShape {
-  static constexpr int kLdN = N + 1;     // padded rows: no bank conflicts
-  static constexpr int kLdP = P + 1;
-  static constexpr int kLdT = kTile + 1;
-  static constexpr int kCn = N / 16;     // columns a thread owns, of N
-  static constexpr int kCp = P / 16;     // ... of P
-  static constexpr int scan_bytes() {
-    return 4 * (2 * kTile * kLdN + 2 * kTile * kLdP + 3 * kTile * kLdT +
-                2 * kMaxChunk);
-  }
-  static constexpr int state_bytes() {
-    return 4 * (P * kLdN + kTile * kLdP + kTile * kLdN + kMaxChunk);
+  static constexpr int kNPad = Shape<P, N>::kNPad;
+  static constexpr int kNB = Shape<P, N>::kNBoxes;
+  static constexpr int kKN = N / 16;    // 16-deep k-steps over n
+  static constexpr int kKP = P / 16;    // ... over p
+  // dynamic shared memory for `tiles` row tiles: B_J (kNB boxes), x_J, C_I
+  // (kNB), dy_I, the operand planes (hi, lo: kNB boxes each), the chunk's
+  // dC accumulators (tiles x 64 x kNPad fp32), dcum (kMaxRep x 256 fp32)
+  // and 1024 to align the boxes on the swizzle's atoms
+  static constexpr int kBoxes = 4 * kNB + 2;
+  static constexpr int smem(int tiles) {
+    return kBoxes * kBox + tiles * kTile * kNPad * 4 + kMaxRep * kMaxChunk * 4 + 1024;
   }
 };
 
-struct BwdParams {
-  const bf16* x;
-  const bf16* b;
-  const bf16* c;
-  const bf16* dy;           // (B, S, H, P) contiguous
-  const float* la;
-  const float* prev;        // (B, H, C, P, N): the forward's states
-  const float* dfinal;      // (B, H, P, N) contiguous, or null: zeros
-  float* dx;                // (B, S, H, P)
-  float* db;                // (B, S, H, N), per head
-  float* dc;                // (B, S, H, N), per head
-  float* dprev;             // (B, H, C, P, N): dprev_c, then G_c
-  float* dcum;              // (B, S, H)
-  int* flags;               // (B, H, C) zeros: G_c is written
-  int* ticket;              // zero
-  int batch, seq, heads, groups, q, n_chunks;
-  int64_t x_s[3], la_s[3], b_s[3], c_s[3];
-};
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
 
-// Rows [r0, r0 + 64) of a chunk's (Q, COLS) slab of a bf16 tensor (element
-// (r, col) at base[r * row_stride + col]) into fp32 rows of `ld` floats;
-// rows past q are zeros.
-template <int COLS>
-__device__ void load_rows(float* dst, int ld, const bf16* base,
-                          int64_t row_stride, int r0, int q) {
-  for (int e = threadIdx.x; e < kTile * COLS; e += kBwdThreads) {
-    const int r = e / COLS, col = e % COLS;
-    dst[r * ld + col] = r0 + r < q
-        ? __bfloat162float(base[(r0 + r) * row_stride + col]) : 0.f;
+// Sum over the 4 lanes of a quad (the threads of one accumulator row).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Float offset of element (row, col) of a 64 x W fp32 accumulator tile
+// whose 16-byte chunks are swizzled by row % 8: a warp's float2s of one
+// accumulator register pair fall on distinct banks.
+template <int W>
+__device__ __forceinline__ int acc_off(int row, int col) {
+  return row * W + ((((col >> 2) ^ (row & 7))) << 2) + (col & 3);
+}
+
+// tile += v, v a warpgroup's 64 x 2V accumulator (element 4j + r: row
+// row0 + 8 (r / 2), column 8j + col0 + r % 2) of a 64 x W tile.
+template <int W, int V>
+__device__ __forceinline__ void add_to_tile(float* tile, const float (&v)[V],
+                                            int row0, int col0) {
+#pragma unroll
+  for (int j = 0; j < V / 4; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float2* d = reinterpret_cast<float2*>(tile + acc_off<W>(row0 + 8 * half, 8 * j + col0));
+      float2 a = *d;
+      a.x += v[4 * j + 2 * half];
+      a.y += v[4 * j + 2 * half + 1];
+      *d = a;
+    }
   }
 }
 
-// Sum over the 16 lanes of a half warp (the threads of one row of patches).
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+// A (P, N) fp32 matrix for the operand planes, in two steps: this thread's
+// part of it into registers (load_planes, early), then into the planes as
+// bf16 hi and lo parts (store_planes): [p][n] boxes of 64 rows (zero past
+// P) by 64 columns (zero past N: 0 x garbage could be nan), 128-byte
+// swizzle.  Run by kConverters threads t, 8 floats an item.
+template <int P, int N>
+struct Planes {
+  static constexpr int kNPad = Shape<P, N>::kNPad;
+  static constexpr int kItems = 64 * kNPad / 8;
+  static constexpr int kPer = (kItems + kConverters - 1) / kConverters;
+  float4 v[kPer][2];
 
-// The block's sum of v, the same on every thread, in a fixed order.
-__device__ float block_sum(float v, float* red) {
+  __device__ __forceinline__ void load(const float* src, int t) {
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int w = 0; w < kBwdThreads / 32; ++w) s += red[w];
-  __syncthreads();
-  return s;
+    for (int i = 0; i < kPer; ++i) {
+      const int e = i * kConverters + t;
+      const int p = e / (kNPad / 8);
+      const int n = (e % (kNPad / 8)) * 8;
+      v[i][0] = v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < kItems && p < P && n < N) {
+        v[i][0] = *reinterpret_cast<const float4*>(src + p * N + n);
+        v[i][1] = *reinterpret_cast<const float4*>(src + p * N + n + 4);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(unsigned char* hi, unsigned char* lo, int t) const {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = i * kConverters + t;
+      if (e >= kItems) break;
+      const int p = e / (kNPad / 8);
+      const int n = (e % (kNPad / 8)) * 8;
+      uint4 h, l;
+      split_bf16(v[i][0].x, v[i][0].y, h.x, l.x);
+      split_bf16(v[i][0].z, v[i][0].w, h.y, l.y);
+      split_bf16(v[i][1].x, v[i][1].y, h.z, l.z);
+      split_bf16(v[i][1].z, v[i][1].w, h.w, l.w);
+      const uint32_t off = (n / 64) * kBox + swizzled(p, (n % 64) / 8);
+      *reinterpret_cast<uint4*>(hi + off) = h;
+      *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+  }
+};
+
+// The bf16 pair (col, col + 1) of row `row` of a chunk tile of 64-column
+// boxes in shared memory, as floats.
+__device__ __forceinline__ float2 tile_pair(const unsigned char* tile, int row, int col) {
+  return unpack_bf16(*reinterpret_cast<const uint32_t*>(
+      tile + (col / 64) * kBox + swizzled(row, (col % 64) / 8) + (col % 8) * 2));
 }
 
 template <int P, int N>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    ssd_chunk_scan_bwd_kernel(const BwdParams prm) {
+    ssd_chunk_scan_bwd_kernel(const __grid_constant__ CUtensorMap map_x,
+                              const __grid_constant__ CUtensorMap map_dy,
+                              const __grid_constant__ CUtensorMap map_b,
+                              const __grid_constant__ CUtensorMap map_c,
+                              const BwdParams prm) {
   using S = BwdShape<P, N>;
-  constexpr int kLdN = S::kLdN, kLdP = S::kLdP, kLdT = S::kLdT;
-  constexpr int kCn = S::kCn, kCp = S::kCp;
-  extern __shared__ float sm[];
-  float* c_t = sm;                        // C of row tile I, [i][n]
-  float* b_t = c_t + kTile * kLdN;        // B of key tile J [j][n]; prev [p][n]
-  float* dy_t = b_t + kTile * kLdN;       // dy of row tile I, [i][p]
-  float* x_t = dy_t + kTile * kLdP;       // x of key tile J, [j][p]
-  float* s_t = x_t + kTile * kLdP;        // S_ij, [i][j]
-  float* a_t = s_t + kTile * kLdT;        // dS_ij e_ij
-  float* r_t = a_t + kTile * kLdT;        // S_ij dS_ij
-  float* cum = r_t + kTile * kLdT;        // [kMaxChunk]
-  float* dcum = cum + kMaxChunk;          // [kMaxChunk]
+  constexpr int kNB = S::kNB, kNPad = S::kNPad, kKN = S::kKN, kKP = S::kKP;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t xb_full, xb_empty, st_full, st_empty, pl_full, pl_empty;
+  __shared__ float cum_buf[2][kMaxChunk];   // a (J, head)'s cum, double-buffered
+  __shared__ float cum[kMaxChunk];          // the consumer's scratch (dlog_a)
+  __shared__ float cv_total[2];             // the converters' warp totals
+  __shared__ float colbuf[4][kTile];
   __shared__ float warp_total[4];
-
-  const int tid = threadIdx.x;
-  const int ti = tid / 16, tj = tid % 16;   // the thread's patch
-  const int h = blockIdx.x % prm.heads;
-  const int c = (blockIdx.x / prm.heads) % prm.n_chunks;
-  const int b = blockIdx.x / (prm.heads * prm.n_chunks);
-  const int g = h / (prm.heads / prm.groups);
+  __shared__ float red[4];
+  __shared__ float dtot[kMaxRep];
   const int q = prm.q;
   const int tiles = (q + kTile - 1) / kTile;
-  const int64_t row0 = static_cast<int64_t>(c) * q;
-  const int64_t bs = static_cast<int64_t>(b) * prm.seq + row0;   // (b, row 0)
-  const int64_t hp = static_cast<int64_t>(prm.heads) * P;
-  const int64_t hn = static_cast<int64_t>(prm.heads) * N;
-  const bf16* xg = prm.x + b * prm.x_s[0] + row0 * prm.x_s[1] + h * prm.x_s[2];
-  const bf16* bg = prm.b + b * prm.b_s[0] + row0 * prm.b_s[1] + g * prm.b_s[2];
-  const bf16* cg = prm.c + b * prm.c_s[0] + row0 * prm.c_s[1] + g * prm.c_s[2];
-  const bf16* dyg = prm.dy + bs * hp + h * P;
-  const int64_t slot = (static_cast<int64_t>(b) * prm.heads + h) * prm.n_chunks + c;
+  const uint32_t s_b = (smem_addr(smem_raw) + 1023) & ~1023u;   // B_J
+  const uint32_t s_x = s_b + kNB * kBox;                        // x_J
+  const uint32_t s_c = s_x + kBox;                              // C_I
+  const uint32_t s_dy = s_c + kNB * kBox;                       // dy_I
+  const uint32_t s_hi = s_dy + kBox;                            // operand planes
+  const uint32_t s_lo = s_hi + kNB * kBox;
+  unsigned char* const smem = smem_raw - smem_addr(smem_raw);   // + a shared address
+  float* const dcacc = reinterpret_cast<float*>(smem + s_lo + kNB * kBox);
+  float* const dcum = dcacc + tiles * kTile * kNPad;            // + r x 256
 
-  if (tid < 128)
-    chunk_cumsum(cum, warp_total,
-                 prm.la + b * prm.la_s[0] + row0 * prm.la_s[1] + h * prm.la_s[2],
-                 prm.la_s[1], q, tid, 1);
-  for (int i = tid; i < kMaxChunk; i += kBwdThreads) dcum[i] = 0.f;
-  __syncthreads();
-
-  // S, dS e and S dS of row tile I against key tile J (c_t, dy_t, b_t, x_t
-  // loaded), each thread its rows ti + 16a, columns tj + 16k
-  const auto pair = [&](int I, int J) {
-    float cb[4][4] = {}, ds[4][4] = {};
-    for (int n = 0; n < N; ++n) {
-      float cr[4], br[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) cr[a] = c_t[(ti + 16 * a) * kLdN + n];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) br[k] = b_t[(tj + 16 * k) * kLdN + n];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) cb[a][k] = fmaf(cr[a], br[k], cb[a][k]);
-    }
-    for (int p = 0; p < P; ++p) {
-      float dr[4], xr[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) dr[a] = dy_t[(ti + 16 * a) * kLdP + p];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) xr[k] = x_t[(tj + 16 * k) * kLdP + p];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) ds[a][k] = fmaf(dr[a], xr[k], ds[a][k]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = ti + 16 * a, j = tj + 16 * k;
-        const int gi = I * kTile + i, gj = J * kTile + j;
-        // masked before the exponent: j > i would overflow
-        const float e = gj <= gi && gi < q ? expf(cum[gi] - cum[gj]) : 0.f;
-        const float sv = cb[a][k] * e;
-        s_t[i * kLdT + j] = sv;
-        a_t[i * kLdT + j] = ds[a][k] * e;
-        r_t[i * kLdT + j] = sv * ds[a][k];
-      }
-  };
-
-  // -- phase A: row tiles ---------------------------------------------------
-  float dprev[kCp][kCn] = {};   // rows p = ti + 16a, columns n = tj + 16k
-  for (int I = 0; I < tiles; ++I) {
-    __syncthreads();   // c_t, dy_t free
-    load_rows<N>(c_t, kLdN, cg, prm.c_s[1], I * kTile, q);
-    load_rows<P>(dy_t, kLdP, dyg, hp, I * kTile, q);
-    float dc[4][kCn] = {};
-    for (int J = 0; J <= I; ++J) {
-      __syncthreads();   // b_t, x_t and the pair's tiles free
-      load_rows<N>(b_t, kLdN, bg, prm.b_s[1], J * kTile, q);
-      load_rows<P>(x_t, kLdP, xg, prm.x_s[1], J * kTile, q);
-      __syncthreads();
-      pair(I, J);
-      __syncthreads();
-      for (int j = 0; j < kTile; ++j) {
-        float ar[4], br[kCn];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) ar[a] = a_t[(ti + 16 * a) * kLdT + j];
-#pragma unroll
-        for (int k = 0; k < kCn; ++k) br[k] = b_t[j * kLdN + tj + 16 * k];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int k = 0; k < kCn; ++k) dc[a][k] = fmaf(ar[a], br[k], dc[a][k]);
-      }
-      if (tid < kTile) {
-        float sum = 0.f;
-        for (int j = 0; j < kTile; ++j) sum += r_t[tid * kLdT + j];
-        dcum[I * kTile + tid] += sum;
-      }
-    }
-    __syncthreads();   // b_t free, dcum's row sums done
-    // the inter term: u_i = exp(cum_i) prev_c^T dy_i
-    const float* prev = prm.prev + slot * P * N;
-    for (int e = tid; e < P * N; e += kBwdThreads)
-      b_t[(e / N) * kLdN + e % N] = prev[e];
-    __syncthreads();
-    float u[4][kCn] = {};
-    for (int p = 0; p < P; ++p) {
-      float dr[4], pr[kCn];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) dr[a] = dy_t[(ti + 16 * a) * kLdP + p];
-#pragma unroll
-      for (int k = 0; k < kCn; ++k) pr[k] = b_t[p * kLdN + tj + 16 * k];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int k = 0; k < kCn; ++k) u[a][k] = fmaf(dr[a], pr[k], u[a][k]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ti + 16 * a, gi = I * kTile + i;
-      const float ec = gi < q ? expf(cum[gi]) : 0.f;
-      float part = 0.f;
-#pragma unroll
-      for (int k = 0; k < kCn; ++k) {
-        const float uv = u[a][k] * ec;
-        dc[a][k] += uv;
-        part = fmaf(uv, c_t[i * kLdN + tj + 16 * k], part);
-      }
-      part = half_warp_sum(part);
-      if (tj == 0 && gi < q) dcum[gi] += part;
-      if (gi < q) {
-        float* out = prm.dc + (bs + gi) * hn + h * N;
-#pragma unroll
-        for (int k = 0; k < kCn; ++k) out[tj + 16 * k] = dc[a][k];
-      }
-    }
-    // dprev_c += sum_i exp(cum_i) dy_i (x) C_i
-    for (int i = 0; i < kTile && I * kTile + i < q; ++i) {
-      const float ec = expf(cum[I * kTile + i]);
-      float dr[kCp], cr[kCn];
-#pragma unroll
-      for (int a = 0; a < kCp; ++a) dr[a] = dy_t[i * kLdP + ti + 16 * a] * ec;
-#pragma unroll
-      for (int k = 0; k < kCn; ++k) cr[k] = c_t[i * kLdN + tj + 16 * k];
-#pragma unroll
-      for (int a = 0; a < kCp; ++a)
-#pragma unroll
-        for (int k = 0; k < kCn; ++k) dprev[a][k] = fmaf(dr[a], cr[k], dprev[a][k]);
-    }
-  }
-  {
-    float* out = prm.dprev + slot * P * N;
-#pragma unroll
-    for (int a = 0; a < kCp; ++a)
-#pragma unroll
-      for (int k = 0; k < kCn; ++k) out[(ti + 16 * a) * N + tj + 16 * k] = dprev[a][k];
-  }
-
-  // -- phase B: key tiles ---------------------------------------------------
-  for (int J = 0; J < tiles; ++J) {
-    __syncthreads();   // b_t, x_t free
-    load_rows<N>(b_t, kLdN, bg, prm.b_s[1], J * kTile, q);
-    load_rows<P>(x_t, kLdP, xg, prm.x_s[1], J * kTile, q);
-    float dx[4][kCp] = {}, db[4][kCn] = {};   // rows j = ti + 16a
-    for (int I = J; I < tiles; ++I) {
-      __syncthreads();   // c_t, dy_t and the pair's tiles free
-      load_rows<N>(c_t, kLdN, cg, prm.c_s[1], I * kTile, q);
-      load_rows<P>(dy_t, kLdP, dyg, hp, I * kTile, q);
-      __syncthreads();
-      pair(I, J);
-      __syncthreads();
-      for (int i = 0; i < kTile; ++i) {
-        float sr[4], ar[4], dr[kCp], cr[kCn];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          sr[a] = s_t[i * kLdT + ti + 16 * a];
-          ar[a] = a_t[i * kLdT + ti + 16 * a];
-        }
-#pragma unroll
-        for (int k = 0; k < kCp; ++k) dr[k] = dy_t[i * kLdP + tj + 16 * k];
-#pragma unroll
-        for (int k = 0; k < kCn; ++k) cr[k] = c_t[i * kLdN + tj + 16 * k];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-#pragma unroll
-          for (int k = 0; k < kCp; ++k) dx[a][k] = fmaf(sr[a], dr[k], dx[a][k]);
-#pragma unroll
-          for (int k = 0; k < kCn; ++k) db[a][k] = fmaf(ar[a], cr[k], db[a][k]);
-        }
-      }
-      if (tid < kTile) {
-        float sum = 0.f;
-        for (int i = 0; i < kTile; ++i) sum += r_t[i * kLdT + tid];
-        dcum[J * kTile + tid] -= sum;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int gj = J * kTile + ti + 16 * a;
-      if (gj >= q) continue;
-      float* ox = prm.dx + (bs + gj) * hp + h * P;
-      float* ob = prm.db + (bs + gj) * hn + h * N;
-#pragma unroll
-      for (int k = 0; k < kCp; ++k) ox[tj + 16 * k] = dx[a][k];
-#pragma unroll
-      for (int k = 0; k < kCn; ++k) ob[tj + 16 * k] = db[a][k];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < q; i += kBwdThreads)
-    prm.dcum[(bs + i) * prm.heads + h] = dcum[i];
-}
-
-template <int P, int N>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    ssd_chunk_state_bwd_kernel(const BwdParams prm) {
-  using S = BwdShape<P, N>;
-  constexpr int kLdN = S::kLdN, kLdP = S::kLdP;
-  constexpr int kCn = S::kCn, kCp = S::kCp;
-  extern __shared__ float sm[];
-  float* g_s = sm;                        // G_c+1, [p][n]
-  float* x_t = g_s + P * kLdN;            // x rows, [j][p]
-  float* b_t = x_t + kTile * kLdP;        // B rows, [j][n]
-  float* w = b_t + kTile * kLdN;          // cum, then w_j = exp(T - cum_j)
-  __shared__ float warp_total[4];
-  __shared__ float red[kBwdThreads / 32];
-  __shared__ int s_ticket;
+  // heads fastest: the blocks running together share a chunk of B and C
+  const int sets = prm.heads / prm.rep;
+  const int set = blockIdx.x % sets;
+  const int c = (blockIdx.x / sets) % prm.n_chunks;
+  const int b = blockIdx.x / (sets * prm.n_chunks);
+  const int h0 = set * prm.rep;
+  const int g = h0 / (prm.heads / prm.groups);
+  const int64_t row0_s = static_cast<int64_t>(b) * prm.seq + static_cast<int64_t>(c) * q;
 
   const int tid = threadIdx.x;
-  const int ti = tid / 16, tj = tid % 16;
-  if (tid == 0) s_ticket = atomicAdd(prm.ticket, 1);
+  if (tid == 0) {
+    mbar_init(smem_addr(&xb_full), 1);
+    mbar_init(smem_addr(&xb_empty), 128);
+    mbar_init(smem_addr(&st_full), 1);
+    mbar_init(smem_addr(&st_empty), 128);
+    mbar_init(smem_addr(&pl_full), kConverters);
+    mbar_init(smem_addr(&pl_empty), 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  // Tickets run chunk by chunk from the last, the (b, h) pairs fastest.
-  const int pairs = prm.batch * prm.heads;
-  const int c = prm.n_chunks - 1 - s_ticket / pairs;
-  const int bh = s_ticket % pairs;
-  const int b = bh / prm.heads;
-  const int h = bh % prm.heads;
-  const int g = h / (prm.heads / prm.groups);
-  const int q = prm.q;
-  const int64_t row0 = static_cast<int64_t>(c) * q;
-  const int64_t bs = static_cast<int64_t>(b) * prm.seq + row0;
-  const int64_t hp = static_cast<int64_t>(prm.heads) * P;
-  const int64_t hn = static_cast<int64_t>(prm.heads) * N;
-  const bf16* xg = prm.x + b * prm.x_s[0] + row0 * prm.x_s[1] + h * prm.x_s[2];
-  const bf16* bg = prm.b + b * prm.b_s[0] + row0 * prm.b_s[1] + g * prm.b_s[2];
 
-  if (tid < 128)
-    chunk_cumsum(w, warp_total,
-                 prm.la + b * prm.la_s[0] + row0 * prm.la_s[1] + h * prm.la_s[2],
-                 prm.la_s[1], q, tid, 1);
-  __syncthreads();
-  const float total = w[q - 1];
-  __syncthreads();   // every thread has read total before it is overwritten
-  for (int j = tid; j < kMaxChunk; j += kBwdThreads)
-    w[j] = j < q ? expf(total - w[j]) : 0.f;
-
-  // -- the state pass: G_c = dprev_c + exp(T_c) G_c+1 ----------------------
+  unsigned char* const hi = smem + s_hi;
+  unsigned char* const lo = smem + s_lo;
   const int64_t slot = static_cast<int64_t>(P) * N;
-  float* gbuf = prm.dprev + static_cast<int64_t>(bh) * prm.n_chunks * slot;
-  const float* prev = prm.prev + (static_cast<int64_t>(bh) * prm.n_chunks + c) * slot;
-  const bool last = c + 1 == prm.n_chunks;
-  const float* next = !last ? gbuf + (c + 1) * slot
-                            : prm.dfinal ? prm.dfinal + bh * slot : nullptr;
-  if (!last && tid == 0) {
-    const int* flag = prm.flags + static_cast<int64_t>(bh) * prm.n_chunks + c + 1;
-    while (ld_acquire(flag) == 0) __nanosleep(64);
+  if (tid >= 160) {
+    // -- the converters: prev_c (with the first key tile) and G_c+1 of each
+    // (J, head) into the planes, in the consumer's order; each loaded into
+    // registers while the consumer still works on the planes' last use
+    // and, with a (J, head)'s first planes, the head's cum into cum_buf
+    const int t = tid - 160;
+    Planes<P, N> pl;
+    int pu = 0, jh = 0;
+    for (int J = 0; J < tiles; ++J) {
+      for (int r = 0; r < prm.rep; ++r, ++jh) {
+        const int h = h0 + r;
+        const int64_t bhc = (static_cast<int64_t>(b) * prm.heads + h) * prm.n_chunks + c;
+        for (int k = J == 0 ? 0 : 1; k < 2; ++k) {
+          pl.load((k == 0 ? prm.prev : prm.gnext) + bhc * slot, t);
+          // cum_buf[jh % 2] was last read in (J, head) jh - 2, whose planes
+          // were handed back before this thread's last fill
+          if (k == (J == 0 ? 0 : 1) && t < 64)
+            chunk_cumsum<4>(cum_buf[jh & 1], cv_total,
+                           prm.la + b * prm.la_sb + static_cast<int64_t>(c) * q * prm.la_ss +
+                               h * prm.la_sh,
+                           prm.la_ss, q, t, 2);
+          mbar_wait(smem_addr(&pl_empty), (pu & 1) ^ 1);
+          pl.store(hi, lo, t);
+          fence_async_shared();   // the wgmmas read what these threads wrote
+          mbar_arrive(smem_addr(&pl_full));
+          ++pu;
+        }
+      }
+    }
+    return;
   }
-  __syncthreads();
-  const float decay = expf(total);
-  float dt = 0.f;   // this thread's part of <prev_c, G_c+1>
-  for (int e = tid; e < P * N; e += kBwdThreads) {
-    // written by another SM: read past L1
-    const float gn = next ? __ldcg(next + e) : 0.f;
-    g_s[(e / N) * kLdN + e % N] = gn;
-    dt = fmaf(prev[e], gn, dt);
-    __stcg(gbuf + c * slot + e, fmaf(decay, gn, gbuf[c * slot + e]));
+  if (tid >= 128) {
+    // -- the producer: one thread issues every load, in the consumer's order
+    if (tid == 128) {
+      int it = 0, xu = 0;
+      for (int J = 0; J < tiles; ++J) {
+        for (int r = 0; r < prm.rep; ++r) {
+          const int h = h0 + r;
+          mbar_wait(smem_addr(&xb_empty), (xu & 1) ^ 1);
+          const uint32_t xf = smem_addr(&xb_full);
+          mbar_expect_tx(xf, (r == 0 ? kNB + 1 : 1) * kBox);
+          tma_load_5d(s_x, &map_x, xf, 0, h, J * kTile, c, b);
+          if (r == 0) {
+            for (int nb = 0; nb < kNB; ++nb)
+              tma_load_5d(s_b + nb * kBox, &map_b, xf, nb * 64, g, J * kTile, c, b);
+          }
+          ++xu;
+          // the inter term's row tiles (with the first key tile), then the pairs'
+          const int inter = J == 0 ? tiles : 0;
+          for (int k = 0; k < inter + tiles - J; ++k) {
+            const int I = k < inter ? k : J + k - inter;
+            mbar_wait(smem_addr(&st_empty), (it & 1) ^ 1);
+            const uint32_t sf = smem_addr(&st_full);
+            mbar_expect_tx(sf, (kNB + 1) * kBox);
+            for (int nb = 0; nb < kNB; ++nb)
+              tma_load_5d(s_c + nb * kBox, &map_c, sf, nb * 64, g, I * kTile, c, b);
+            tma_load_5d(s_dy, &map_dy, sf, 0, h, I * kTile, c, b);
+            ++it;
+          }
+        }
+      }
+    }
+    return;
   }
-  if (c > 0) {
-    __threadfence();   // this thread's part of G_c is visible on the device
-    __syncthreads();   // ... and every thread's
-    if (tid == 0) st_release(prm.flags + static_cast<int64_t>(bh) * prm.n_chunks + c, 1);
-  }
-  __syncthreads();
 
-  // -- the chunk-state term, with G = G_c+1 ---------------------------------
-  float t_sum = 0.f;
-  for (int r0 = 0; r0 < q; r0 += kTile) {
-    __syncthreads();   // x_t, b_t free
-    load_rows<P>(x_t, kLdP, xg, prm.x_s[1], r0, q);
-    load_rows<N>(b_t, kLdN, bg, prm.b_s[1], r0, q);
-    __syncthreads();
-    float gb[4][kCp] = {};   // (G B_j)_p: rows j = ti + 16a, p = tj + 16k
-    for (int n = 0; n < N; ++n) {
-      float br[4], gr[kCp];
+  // -- the consumer warpgroup ------------------------------------------------
+  const int warp = tid / 32, lane = tid % 32;
+  // accumulator element 4j + r: row row0 + 8 (r / 2), column 8j + col0 + r % 2
+  const int row0 = warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  for (int e = tid; e < tiles * kTile * kNPad / 4; e += 128)
+    reinterpret_cast<float4*>(dcacc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = tid; e < prm.rep * kMaxChunk; e += 128) dcum[e] = 0.f;
+  if (tid < kMaxRep) dtot[tid] = 0.f;
+  warpgroup_sync(kBarBwd);
+  int it = 0, xu = 0, pu = 0;
+
+  for (int J = 0; J < tiles; ++J) {
+    float db[kNPad / 2];
+    zero(db);
+    for (int r = 0; r < prm.rep; ++r) {
+      const int h = h0 + r;
+      float* const dcum_h = dcum + r * kMaxChunk;
+      // this (J, head)'s cum, from the converters with its first planes
+      const float* const cum = cum_buf[(J * prm.rep + r) & 1];
+
+      // -- the inter-chunk term, once a head (with the first key tile):
+      // dC_I += exp(cum_i) (dy_I prev_c), dcum_i += that row . C_i
+      const int inter = J == 0 ? tiles : 0;
+      if (inter > 0) {
+        mbar_wait(smem_addr(&pl_full), pu & 1);   // prev_c
+        ++pu;
+      }
+      for (int I = 0; I < inter; ++I) {
+        mbar_wait(smem_addr(&st_full), it & 1);
+        float acc[kNPad / 2];
+        fence_acc(acc);
+        wgmma_fence();
+        // dy_I K-major (p), prev N-major: 16 rows of p a step
 #pragma unroll
-      for (int a = 0; a < 4; ++a) br[a] = b_t[(ti + 16 * a) * kLdN + n];
+        for (int kk = 0; kk < kKP; ++kk)
+          wgmma_ss<0, 1>(acc, smem_desc(s_dy + kk * 32, 16, 1024),
+                         smem_desc(s_hi + kk * 16 * 128, kBox, 1024), kk > 0);
 #pragma unroll
-      for (int k = 0; k < kCp; ++k) gr[k] = g_s[(tj + 16 * k) * kLdN + n];
+        for (int kk = 0; kk < kKP; ++kk)
+          wgmma_ss<0, 1>(acc, smem_desc(s_dy + kk * 32, 16, 1024),
+                         smem_desc(s_lo + kk * 16 * 128, kBox, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+        float part[2] = {0.f, 0.f};
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int half = 0; half < 2; ++half) {
+          // rows past q: dy is zero there, and cum finite
+          const float ea = expf(cum[I * kTile + row0 + 8 * half]);
 #pragma unroll
-        for (int k = 0; k < kCp; ++k) gb[a][k] = fmaf(br[a], gr[k], gb[a][k]);
+          for (int j = 0; j < kNPad / 8; ++j) {
+            acc[4 * j + 2 * half] *= ea;
+            acc[4 * j + 2 * half + 1] *= ea;
+            if (8 * j < N) {
+              const float2 cv = tile_pair(smem + s_c, row0 + 8 * half, 8 * j + col0);
+              part[half] = fmaf(acc[4 * j + 2 * half], cv.x,
+                                fmaf(acc[4 * j + 2 * half + 1], cv.y, part[half]));
+            }
+          }
+          part[half] = quad_sum(part[half]);
+        }
+        mbar_arrive(smem_addr(&st_empty));
+        ++it;
+        if (lane % 4 == 0) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int i = I * kTile + row0 + 8 * half;
+            if (i < q) dcum_h[i] += part[half];
+          }
+        }
+        add_to_tile<kNPad>(dcacc + I * kTile * kNPad, acc, row0, col0);
+      }
+
+      if (inter > 0) mbar_arrive(smem_addr(&pl_empty));   // done with prev_c
+
+      // -- the chunk-state term with G = G_c+1 (N-major planes): dx_J =
+      // w (B_J G^T), dB_J += w (x_J G), dcum_j -= w_j x_j . (G B_j)
+      mbar_wait(smem_addr(&pl_full), pu & 1);   // G_c+1
+      ++pu;
+      const float total = cum[q - 1];
+      mbar_wait(smem_addr(&xb_full), xu & 1);
+      float dx[32];
+      float rowacc[2];
+      {
+        float tmp[kNPad / 2];
+        fence_acc(dx);
+        fence_acc(tmp);
+        wgmma_fence();
+        // B_J and G both K-major (n): 16 columns of n a step, the next 64
+        // the next box
+#pragma unroll
+        for (int kk = 0; kk < kKN; ++kk) {
+          const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+          wgmma_ss(dx, smem_desc(s_b + off, 16, 1024), smem_desc(s_hi + off, 16, 1024),
+                   kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kKN; ++kk) {
+          const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+          wgmma_ss(dx, smem_desc(s_b + off, 16, 1024), smem_desc(s_lo + off, 16, 1024), 1);
+        }
+        // x_J K-major (p), G N-major
+#pragma unroll
+        for (int kk = 0; kk < kKP; ++kk)
+          wgmma_ss<0, 1>(tmp, smem_desc(s_x + kk * 32, 16, 1024),
+                         smem_desc(s_hi + kk * 16 * 128, kBox, 1024), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < kKP; ++kk)
+          wgmma_ss<0, 1>(tmp, smem_desc(s_x + kk * 32, 16, 1024),
+                         smem_desc(s_lo + kk * 16 * 128, kBox, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dx);
+        fence_acc(tmp);
+        float w[2], t[2] = {0.f, 0.f};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = J * kTile + row0 + 8 * half;
+          w[half] = j < q ? expf(total - cum[j]) : 0.f;
+#pragma unroll
+          for (int jj = 0; jj < P / 8; ++jj) {
+            const float2 xv = tile_pair(smem + s_x, row0 + 8 * half, 8 * jj + col0);
+            t[half] = fmaf(xv.x, dx[4 * jj + 2 * half],
+                           fmaf(xv.y, dx[4 * jj + 2 * half + 1], t[half]));
+          }
+          t[half] = quad_sum(t[half]);
+          rowacc[half] = -w[half] * t[half];
+        }
+        // dT's chunk-state part, sum_j w_j x_j . (G B_j): one value a row
+        float tsum = lane % 4 == 0 ? w[0] * t[0] + w[1] * t[1] : 0.f;
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2) tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
+        if (lane == 0) red[warp] = tsum;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dx[i] *= w[(i % 4) / 2];
+#pragma unroll
+        for (int i = 0; i < kNPad / 2; ++i) db[i] = fmaf(w[(i % 4) / 2], tmp[i], db[i]);
+      }
+      warpgroup_sync(kBarBwd);   // every warp is done with the planes; red is in
+      if (tid == 0) dtot[r] += red[0] + red[1] + red[2] + red[3];
+
+      // -- the tile pairs (I >= J): S^T and dS^T once each -------------------
+      float rowpart[2] = {0.f, 0.f};
+      for (int I = J; I < tiles; ++I) {
+        mbar_wait(smem_addr(&st_full), it & 1);
+        float s[32], ds[32];
+        fence_acc(s);
+        fence_acc(ds);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKN; ++kk) {
+          const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+          wgmma_ss(s, smem_desc(s_b + off, 16, 1024), smem_desc(s_c + off, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kKP; ++kk)
+          wgmma_ss(ds, smem_desc(s_x + kk * 32, 16, 1024),
+                   smem_desc(s_dy + kk * 32, 16, 1024), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(s);
+        fence_acc(ds);
+        // rows are keys j, columns queries i: the decay masked before the
+        // exponent (-inf where j > i or j >= q), branch-free; R's column
+        // sums over the warp's 16 rows, then (colbuf) the warps
+        float col[16];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          col[2 * jj] = col[2 * jj + 1] = 0.f;
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            const int j = J * kTile + row0 + 8 * (rr / 2);
+            const int i = I * kTile + 8 * jj + col0 + rr % 2;
+            const float e = __expf(j <= i && j < q ? cum[i] - cum[j] : -INFINITY);
+            const float sv = s[4 * jj + rr] * e;
+            const float rv = sv * ds[4 * jj + rr];
+            s[4 * jj + rr] = sv;
+            ds[4 * jj + rr] *= e;
+            rowpart[rr / 2] += rv;
+            col[2 * jj + rr % 2] += rv;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          col[k] += __shfl_xor_sync(0xffffffffu, col[k], 4);
+          col[k] += __shfl_xor_sync(0xffffffffu, col[k], 8);
+          col[k] += __shfl_xor_sync(0xffffffffu, col[k], 16);
+        }
+        if (lane < 4) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            *reinterpret_cast<float2*>(&colbuf[warp][8 * jj + col0]) =
+                make_float2(col[2 * jj], col[2 * jj + 1]);
+        }
+        // A^T (rows j, 128 bytes of i) into the planes, then S^T as A
+        // fragments
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = row0 + 8 * half;
+            uint32_t vh, vl;
+            split_bf16(ds[4 * jj + 2 * half], ds[4 * jj + 2 * half + 1], vh, vl);
+            const uint32_t off = swizzled(row, jj) + col0 * 2;
+            *reinterpret_cast<uint32_t*>(hi + off) = vh;
+            *reinterpret_cast<uint32_t*>(lo + off) = vl;
+          }
+        }
+        uint32_t a_hi[4][4], a_lo[4][4];
+        split_scores(s, a_hi, a_lo);
+        fence_async_shared();
+        warpgroup_sync(kBarBwd);   // A^T and colbuf are in
+        if (tid < kTile && I * kTile + tid < q)
+          dcum_h[I * kTile + tid] += colbuf[0][tid] + colbuf[1][tid] + colbuf[2][tid] +
+                                     colbuf[3][tid];
+        fence_acc(dx);
+        fence_acc(db);
+        wgmma_fence();
+        // dx_J += S^T dy_I: dy_I N-major, 16 rows of i a step
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t d = smem_desc(s_dy + kk * 16 * 128, kBox, 1024);
+          wgmma_rs(dx, a_hi[kk], d);
+          wgmma_rs(dx, a_lo[kk], d);
+        }
+        // dB_J += A^T C_I: A^T K-major (i), C_I N-major
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t d = smem_desc(s_c + kk * 16 * 128, kBox, 1024);
+          wgmma_ss<0, 1>(db, smem_desc(s_hi + kk * 32, 16, 1024), d, 1);
+          wgmma_ss<0, 1>(db, smem_desc(s_lo + kk * 32, 16, 1024), d, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dx);
+        fence_acc(db);
+        fence_frag(a_hi);
+        fence_frag(a_lo);
+        mbar_arrive(smem_addr(&st_empty));   // C_I and dy_I are read
+        ++it;
+        // dC_I's part A B_J, 64 columns a commit group (the registers): A^T
+        // read MN-major (rows j are its k), B_J N-major; the first group's
+        // sum goes into shared memory while the second runs
+        float part[kNB][32];
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb) {
+          fence_acc(part[nb]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t d = smem_desc(s_b + nb * kBox + kk * 16 * 128, kBox, 1024);
+            wgmma_ss<1, 1>(part[nb], smem_desc(s_hi + kk * 16 * 128, kBox, 1024), d,
+                           kk > 0);
+            wgmma_ss<1, 1>(part[nb], smem_desc(s_lo + kk * 16 * 128, kBox, 1024), d, 1);
+          }
+          wgmma_commit();
+        }
+        float* const tile = dcacc + I * kTile * kNPad;
+        if constexpr (kNB == 2) {
+          wgmma_wait<1>();
+          fence_acc(part[0]);
+          add_to_tile<kNPad>(tile, part[0], row0, col0);
+        }
+        wgmma_wait<0>();
+        fence_acc(part[kNB - 1]);
+        add_to_tile<kNPad>(tile, part[kNB - 1], row0, 64 * (kNB - 1) + col0);
+        warpgroup_sync(kBarBwd);   // every warp is done with the planes and colbuf
+      }
+
+      // -- the end of (J, head): dcum's row terms, dx_J out in bf16 ----------
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float rs = quad_sum(rowpart[half]);
+        const int j = J * kTile + row0 + 8 * half;
+        if (lane % 4 == 0 && j < q) dcum_h[j] += rowacc[half] - rs;
+        if (j < q) {
+          bf16* out = prm.dx + ((row0_s + j) * prm.heads + h) * P;
+#pragma unroll
+          for (int jj = 0; jj < P / 8; ++jj)
+            *reinterpret_cast<__nv_bfloat162*>(out + 8 * jj + col0) =
+                __floats2bfloat162_rn(dx[4 * jj + 2 * half], dx[4 * jj + 2 * half + 1]);
+        }
+      }
+      mbar_arrive(smem_addr(&xb_empty));
+      ++xu;
+      mbar_arrive(smem_addr(&pl_empty));   // the planes' A^T is dead
     }
-    float gx[4][kCn] = {};   // (G^T x_j)_n: rows j = ti + 16a, n = tj + 16k
-    for (int p = 0; p < P; ++p) {
-      float xr[4], gr[kCn];
+    // -- dB_J, summed over the set's heads, out in fp32 ---------------------
 #pragma unroll
-      for (int a = 0; a < 4; ++a) xr[a] = x_t[(ti + 16 * a) * kLdP + p];
+    for (int half = 0; half < 2; ++half) {
+      const int j = J * kTile + row0 + 8 * half;
+      if (j >= q) continue;
+      float* out = prm.db + ((row0_s + j) * sets + set) * N;
 #pragma unroll
-      for (int k = 0; k < kCn; ++k) gr[k] = g_s[p * kLdN + tj + 16 * k];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int k = 0; k < kCn; ++k) gx[a][k] = fmaf(xr[a], gr[k], gx[a][k]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int j = ti + 16 * a, gj = r0 + j;
-      const float wj = w[gj];
-      float part = 0.f;
-#pragma unroll
-      for (int k = 0; k < kCp; ++k) part = fmaf(x_t[j * kLdP + tj + 16 * k], gb[a][k], part);
-      const float t = wj * half_warp_sum(part);
-      if (gj >= q) continue;
-      float* ox = prm.dx + (bs + gj) * hp + h * P;
-      float* ob = prm.db + (bs + gj) * hn + h * N;
-#pragma unroll
-      for (int k = 0; k < kCp; ++k) ox[tj + 16 * k] += wj * gb[a][k];
-#pragma unroll
-      for (int k = 0; k < kCn; ++k) ob[tj + 16 * k] += wj * gx[a][k];
-      if (tj == 0) {
-        prm.dcum[(bs + gj) * prm.heads + h] -= t;
-        t_sum += t;
+      for (int jj = 0; jj < kNPad / 8; ++jj) {
+        if (8 * jj >= N) break;
+        *reinterpret_cast<float2*>(out + 8 * jj + col0) =
+            make_float2(db[4 * jj + 2 * half], db[4 * jj + 2 * half + 1]);
       }
     }
   }
-  // dT: the pass's term and the chunk-state term, into the last row's dcum
-  const float d_total = decay * block_sum(dt, red) + block_sum(t_sum, red);
-  if (tid == 0) prm.dcum[(bs + q - 1) * prm.heads + h] += d_total;
+
+  // -- dlog_a: dcum with dT at the last row, summed from the chunk's end ----
+  warpgroup_sync(kBarBwd);
+  for (int r = 0; r < prm.rep; ++r) {
+    const int h = h0 + r;
+    float* const dcum_h = dcum + r * kMaxChunk;
+    if (tid == 0)
+      dcum_h[q - 1] += dtot[r] + prm.dt[(static_cast<int64_t>(b) * prm.heads + h) *
+                                            prm.n_chunks + c];
+    warpgroup_sync(kBarBwd);
+    // cum[k] = dcum[q - 1] + ... + dcum[q - 1 - k]
+    chunk_cumsum<2>(cum, warp_total, dcum_h + q - 1, -1, q, tid, kBarBwd);
+    for (int k = tid; k < q; k += 128)
+      prm.dla[(row0_s + q - 1 - k) * prm.heads + h] = cum[k];
+    warpgroup_sync(kBarBwd);
+  }
+  // -- dC, summed over the set's heads, out in fp32 -------------------------
+  for (int e = tid; e < tiles * kTile * kNPad / 4; e += 128) {
+    const int I = e / (kTile * kNPad / 4);
+    const int row = (e / (kNPad / 4)) % kTile;
+    const int col = (e % (kNPad / 4)) * 4;
+    const int i = I * kTile + row;
+    if (i < q && col < N)
+      *reinterpret_cast<float4*>(prm.dc + ((row0_s + i) * sets + set) * N + col) =
+          *reinterpret_cast<const float4*>(dcacc + I * kTile * kNPad +
+                                           acc_off<kNPad>(row, col));
+  }
 }
 
 // dims: batch, seq, heads, groups, head_dim P, state_dim N, Q, then the
@@ -1231,13 +1494,14 @@ int raise_smem(K kernel, int bytes, bool (&raised)[kMaxDevices]) {
   return cudaSuccess;
 }
 
-template <int P, int N>
+// The state pass, forward or (kBwd: x is dy, b is C) backward.
+template <int P, int N, bool kBwd>
 int launch_state(const Call& call, const void* x, const void* b,
                  cudaStream_t stream) {
   using S = Shape<P, N>;
+  const auto kernel = kBwd ? ssd_chunk_state_bwd_kernel<P, N> : ssd_chunk_state_kernel<P, N>;
   static bool raised[kMaxDevices];
-  const int err = raise_smem(ssd_chunk_state_kernel<P, N>,
-                             S::state_smem(), raised);
+  const int err = raise_smem(kernel, S::state_smem(), raised);
   if (err != cudaSuccess) return err;
   const Params& prm = call.prm;
   CUtensorMap map_x, map_b;
@@ -1245,9 +1509,20 @@ int launch_state(const Call& call, const void* x, const void* b,
       !encode_5d(&map_b, b, N, prm.groups, prm, call.b_s))
     return cudaErrorInvalidValue;
   const int blocks = prm.batch * prm.heads * prm.n_chunks;
-  ssd_chunk_state_kernel<P, N><<<blocks, kStateThreads, S::state_smem(),
-                                 stream>>>(map_x, map_b, prm);
+  kernel<<<blocks, kStateThreads, S::state_smem(), stream>>>(map_x, map_b, prm);
   return cudaGetLastError();
+}
+
+template <int P, int N>
+int launch_state_fwd(const Call& call, const void* x, const void* b,
+                     cudaStream_t stream) {
+  return launch_state<P, N, false>(call, x, b, stream);
+}
+
+template <int P, int N>
+int launch_state_bwd(const Call& call, const void* dy, const void* c,
+                     cudaStream_t stream) {
+  return launch_state<P, N, true>(call, dy, c, stream);
 }
 
 template <int P, int N>
@@ -1277,44 +1552,35 @@ int launch_scan(const Call& call, const void* x, const void* b, const void* c,
 }
 
 
-// The backward's parameters from a filled call and the forward's inputs.
-BwdParams bwd_params(const Call& call, const void* x, const void* log_a,
-                     const void* b, const void* c, const void* states) {
+template <int P, int N>
+int launch_scan_bwd(const Call& call, int rep, const void* x, const void* b,
+                    const void* c, const void* dy, BwdParams bp,
+                    cudaStream_t stream) {
+  using S = BwdShape<P, N>;
+  // the static shared memory (barriers, cum, colbuf, ...) is under 2.5 KB
+  static_assert(S::smem(kMaxTiles) + 2560 <= 227 * 1024, "shared memory");
   const Params& prm = call.prm;
-  BwdParams bp = {};
-  bp.x = static_cast<const bf16*>(x);
-  bp.b = static_cast<const bf16*>(b);
-  bp.c = static_cast<const bf16*>(c);
-  bp.la = static_cast<const float*>(log_a);
-  bp.prev = static_cast<const float*>(states);
+  if (rep < 1 || rep > kMaxRep || (prm.heads / prm.groups) % rep != 0)
+    return cudaErrorInvalidValue;
+  static bool raised[kMaxDevices];
+  const int err = raise_smem(ssd_chunk_scan_bwd_kernel<P, N>, S::smem(kMaxTiles), raised);
+  if (err != cudaSuccess) return err;
+  // dy (B, S, H, P) contiguous
+  const int64_t dy_s[3] = {static_cast<int64_t>(prm.seq) * prm.heads * P,
+                           static_cast<int64_t>(prm.heads) * P, P};
+  CUtensorMap map_x, map_dy, map_b, map_c;
+  if (!encode_5d(&map_x, x, P, prm.heads, prm, call.x_s) ||
+      !encode_5d(&map_dy, dy, P, prm.heads, prm, dy_s) ||
+      !encode_5d(&map_b, b, N, prm.groups, prm, call.b_s) ||
+      !encode_5d(&map_c, c, N, prm.groups, prm, call.c_s))
+    return cudaErrorInvalidValue;
   bp.batch = prm.batch, bp.seq = prm.seq, bp.heads = prm.heads;
-  bp.groups = prm.groups, bp.q = prm.q, bp.n_chunks = prm.n_chunks;
-  bp.la_s[0] = prm.la_sb, bp.la_s[1] = prm.la_ss, bp.la_s[2] = prm.la_sh;
-  for (int i = 0; i < 3; ++i)
-    bp.x_s[i] = call.x_s[i], bp.b_s[i] = call.b_s[i], bp.c_s[i] = call.c_s[i];
-  return bp;
-}
-
-template <int P, int N>
-int launch_scan_bwd(const BwdParams& bp, cudaStream_t stream) {
-  using S = BwdShape<P, N>;
-  static_assert(S::scan_bytes() <= 227 * 1024, "shared memory");
-  static bool raised[kMaxDevices];
-  const int err = raise_smem(ssd_chunk_scan_bwd_kernel<P, N>, S::scan_bytes(), raised);
-  if (err != cudaSuccess) return err;
-  ssd_chunk_scan_bwd_kernel<P, N><<<bp.batch * bp.heads * bp.n_chunks, kBwdThreads,
-                                    S::scan_bytes(), stream>>>(bp);
-  return cudaGetLastError();
-}
-
-template <int P, int N>
-int launch_state_bwd(const BwdParams& bp, cudaStream_t stream) {
-  using S = BwdShape<P, N>;
-  static bool raised[kMaxDevices];
-  const int err = raise_smem(ssd_chunk_state_bwd_kernel<P, N>, S::state_bytes(), raised);
-  if (err != cudaSuccess) return err;
-  ssd_chunk_state_bwd_kernel<P, N><<<bp.batch * bp.heads * bp.n_chunks, kBwdThreads,
-                                     S::state_bytes(), stream>>>(bp);
+  bp.groups = prm.groups, bp.q = prm.q, bp.n_chunks = prm.n_chunks, bp.rep = rep;
+  bp.la_sb = prm.la_sb, bp.la_ss = prm.la_ss, bp.la_sh = prm.la_sh;
+  const int tiles = (prm.q + kTile - 1) / kTile;
+  const int blocks = prm.batch * prm.n_chunks * (prm.heads / rep);
+  ssd_chunk_scan_bwd_kernel<P, N><<<blocks, kBwdThreads, S::smem(tiles), stream>>>(
+      map_x, map_dy, map_b, map_c, bp);
   return cudaGetLastError();
 }
 
@@ -1350,7 +1616,7 @@ int ssd_chunk_state(const void* x, const void* log_a, const void* b,
   prm.flags = static_cast<int*>(flags);
   prm.ticket = static_cast<int*>(ticket);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SSD_DISPATCH(launch_state, call, x, b, s)
+  SSD_DISPATCH(launch_state_fwd, call, x, b, s)
 }
 
 // y (B, S, H, P) bf16, contiguous <- x, log_a, B, C and the passed states
@@ -1368,49 +1634,57 @@ int ssd_chunk_scan(const void* x, const void* log_a, const void* b,
 }
 
 
-// The scan's backward, from dy (B, S, H, P) bf16 contiguous: dx (B, S, H, P)
-// (its intra term), dB and dC per head (B, S, H, N), dstates (B, H, C, P, N):
-// each chunk's dprev_c, dcum (B, S, H); all fp32 and contiguous, every
-// element written.
-int ssd_chunk_scan_bwd(const void* x, const void* log_a, const void* b,
-                       const void* c, const void* states, const void* dy,
-                       void* dx, void* db, void* dc, void* dstates, void* dcum,
-                       const long long* dims, void* stream) {
+// The backward's state pass, from dy (B, S, H, P) bf16 contiguous, log_a,
+// C and the forward's states prev (B, H, C, P, N) fp32: gnext (B, H, C, P,
+// N) fp32, holding G_c+1 (the gradient of the state leaving chunk c), dinit
+// (B, H, P, N) fp32 (G_0, the initial state's gradient) and dt (B, H, C)
+// fp32 (exp(T_c) <prev_c, G_c+1>).  dfinal (B, H, P, N) fp32, or null for
+// zeros.  dims as for ssd_chunk_state with dy's strides in x's place and
+// C's in B's.  Workspace, zeroed by the caller for every call: flags,
+// B * H * C int32; ticket, one int32.
+int ssd_chunk_state_bwd(const void* dy, const void* log_a, const void* c,
+                        const void* states, const void* dfinal, void* gnext,
+                        void* dinit, void* dt, void* flags, void* ticket,
+                        const long long* dims, void* stream) {
   Call call = {};
   if (!fill(call, dims)) return cudaErrorInvalidValue;
-  BwdParams bp = bwd_params(call, x, log_a, b, c, states);
-  bp.dy = static_cast<const bf16*>(dy);
-  bp.dx = static_cast<float*>(dx);
-  bp.db = static_cast<float*>(db);
-  bp.dc = static_cast<float*>(dc);
-  bp.dprev = static_cast<float*>(dstates);
-  bp.dcum = static_cast<float*>(dcum);
+  Params& prm = call.prm;
+  prm.la = static_cast<const float*>(log_a);
+  prm.init = static_cast<const float*>(dfinal);
+  prm.states = static_cast<float*>(gnext);
+  prm.final_f32 = static_cast<float*>(dinit);
+  prm.prev = static_cast<const float*>(states);
+  prm.dt = static_cast<float*>(dt);
+  prm.flags = static_cast<int*>(flags);
+  prm.ticket = static_cast<int*>(ticket);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SSD_DISPATCH(launch_scan_bwd, bp, s)
+  SSD_DISPATCH(launch_state_bwd, call, dy, c, s)
 }
 
-// The state pass in reverse and the chunk-state term: dstates (dprev_c from
-// ssd_chunk_scan_bwd) becomes G_c, the gradient of the state entering chunk
-// c (G_0: the initial state's); the chunk-state term is added to dx, dB
-// (per head) and dcum.  dfinal (B, H, P, N) fp32, or null for zeros.
-// Workspace, zeroed by the caller for every call: flags, B * H * C int32;
-// ticket, one int32.
-int ssd_chunk_state_bwd(const void* x, const void* log_a, const void* b,
-                        const void* states, const void* dfinal, void* dstates,
-                        void* dx, void* db, void* dcum, void* flags,
-                        void* ticket, const long long* dims, void* stream) {
+// The rest of the backward, from x, log_a, B, C, dy (B, S, H, P) bf16
+// contiguous, the forward's states and ssd_chunk_state_bwd's gnext and dt:
+// dx (B, S, H, P) bf16, dla (B, S, H) fp32 (log_a's gradient), db and dc
+// (B, S, H / rep, N) fp32 (B's and C's gradients, each summed over one
+// block's `rep` heads), all contiguous, every element written.  dims as
+// for ssd_chunk_scan, then rep (a divisor of H / G, at most kMaxRep).
+int ssd_chunk_scan_bwd(const void* x, const void* log_a, const void* b,
+                       const void* c, const void* dy, const void* states,
+                       const void* gnext, const void* dt, void* dx, void* dla,
+                       void* db, void* dc, const long long* dims, void* stream) {
   Call call = {};
   if (!fill(call, dims)) return cudaErrorInvalidValue;
-  BwdParams bp = bwd_params(call, x, log_a, b, b, states);
-  bp.dfinal = static_cast<const float*>(dfinal);
-  bp.dprev = static_cast<float*>(dstates);
-  bp.dx = static_cast<float*>(dx);
+  BwdParams bp = {};
+  bp.la = static_cast<const float*>(log_a);
+  bp.prev = static_cast<const float*>(states);
+  bp.gnext = static_cast<const float*>(gnext);
+  bp.dt = static_cast<const float*>(dt);
+  bp.dx = static_cast<bf16*>(dx);
+  bp.dla = static_cast<float*>(dla);
   bp.db = static_cast<float*>(db);
-  bp.dcum = static_cast<float*>(dcum);
-  bp.flags = static_cast<int*>(flags);
-  bp.ticket = static_cast<int*>(ticket);
+  bp.dc = static_cast<float*>(dc);
+  const int rep = static_cast<int>(dims[19]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SSD_DISPATCH(launch_state_bwd, bp, s)
+  SSD_DISPATCH(launch_scan_bwd, call, rep, x, b, c, dy, bp, s)
 }
 
 }  // extern "C"

@@ -12,12 +12,13 @@ for sm_90a; its notes say what bounds them and how the work is split):
   :func:`chunk_state_plain`;
 * ``ssd_chunk_scan``  — y, intra- and inter-chunk terms together; plain
   version :func:`chunk_scan_plain`;
-* ``ssd_chunk_scan_bwd`` — the gradient of the scan's y: the intra term's
-  dx, dB and dC per head, each chunk's dprev and dcum; plain version
-  :func:`chunk_scan_bwd_plain`;
-* ``ssd_chunk_state_bwd`` — the state pass in reverse and the chunk-state
-  term; plain version :func:`chunk_state_bwd_plain`.  The glue between
-  them and the inputs' gradients (:func:`_bwd_finish`) is torch.
+* ``ssd_chunk_state_bwd`` — the backward's state pass, in reverse: the
+  gradient of the state leaving each chunk (fp32), the initial state's and
+  each chunk's dT term; plain version :func:`chunk_state_bwd_plain`;
+* ``ssd_chunk_scan_bwd`` — the rest of the gradient in final form: dx,
+  dlog_a, and dB and dC summed over each block's heads (fp32 slices);
+  plain version :func:`chunk_scan_bwd_plain`.  The glue after them
+  (:func:`_bwd_finish`: the slices of each group added) is torch.
 
 A CPU tensor goes to the plain versions, which compute what the two Pallas
 kernels compute (scores and the intra-chunk output in fp32).  A CUDA
@@ -51,6 +52,9 @@ HEAD_STATE_DIMS = ((64, 128), (64, 64), (64, 16), (16, 16))
 
 #: the longest chunk the kernels take (Q rows of one chunk in one block)
 MAX_CHUNK = 256
+
+#: the most heads a block of ``ssd_chunk_scan_bwd`` walks (its kMaxRep)
+MAX_BWD_HEADS = 12
 
 #: kernel launches since the last reset; each wrapper adds one per launch
 state_launches = 0
@@ -139,22 +143,58 @@ def ssd_scan_plain(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,
     return chunk_scan_plain(x, log_a, b_mat, c_mat, prev, q), final
 
 
+def chunk_state_bwd_plain(dy: torch.Tensor, log_a: torch.Tensor,
+                          c_mat: torch.Tensor, prev: torch.Tensor, q: int,
+                          dfinal: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, ...]:
+    """Plain version of ``ssd_chunk_state_bwd``: the state pass in reverse.
+    With dprev_c = Σ_i e^{cum_i} dy_i ⊗ C_i (the gradient of the inter term
+    through prev_c), G_C = dfinal (or 0) and G_c = dprev_c + e^{T_c} G_c+1
+    (T the chunk's total log decay).  Returns (gnext (B,H,C,P,N): G_c+1, the
+    gradient of the state leaving chunk c; dinit (B,H,P,N): G_0, the initial
+    state's; dT (B,H,C): e^{T_c} ⟨prev_c, G_c+1⟩), all fp32."""
+    bsz, s, h, p = dy.shape
+    g, n = c_mat.shape[2], c_mat.shape[3]
+    c, rep = s // q, h // g
+    dyq = dy.float().reshape(bsz, c, q, g, rep, p)
+    cq = c_mat.float().reshape(bsz, c, q, g, n)
+    cum = _chunk_cumsum(log_a, g, q)                       # (B,C,Q,G,R)
+    dprev = torch.einsum("bcigrp,bcign,bcigr->bgrcpn", dyq, cq, cum.exp())
+    seg = cum[:, :, -1].exp().permute(0, 2, 3, 1)          # (B,G,R,C)
+    run = (dfinal.float().reshape(bsz, g, rep, p, n) if dfinal is not None
+           else torch.zeros((bsz, g, rep, p, n), dtype=torch.float32,
+                            device=dy.device))
+    gnext = [None] * c
+    for ci in reversed(range(c)):
+        gnext[ci] = run
+        run = dprev[:, :, :, ci] + seg[..., ci, None, None] * run
+    gnext = torch.stack(gnext, dim=3)                      # (B,G,R,C,P,N)
+    d_total = seg * torch.einsum("bgrcpn,bgrcpn->bgrc",
+                                 prev.reshape(bsz, g, rep, c, p, n), gnext)
+    return (gnext.reshape(bsz, h, c, p, n), run.reshape(bsz, h, p, n),
+            d_total.reshape(bsz, h, c).contiguous())
+
+
 def chunk_scan_bwd_plain(x: torch.Tensor, log_a: torch.Tensor,
                          b_mat: torch.Tensor, c_mat: torch.Tensor,
-                         prev: torch.Tensor, dy: torch.Tensor, q: int
+                         prev: torch.Tensor, dy: torch.Tensor,
+                         gnext: torch.Tensor, d_total: torch.Tensor, q: int
                          ) -> tuple[torch.Tensor, ...]:
-    """Plain version of ``ssd_chunk_scan_bwd``: the gradient of
-    :func:`chunk_scan_plain`'s y, all fp32.  Per chunk, with S_ij =
-    (C_i·B_j) exp(cum_i − cum_j) for j ≤ i (masked before exp):
+    """Plain version of ``ssd_chunk_scan_bwd``: the rest of the gradient,
+    from :func:`chunk_state_bwd_plain`'s G_c+1 (``gnext``) and dT.  Per
+    chunk, with S_ij = (C_i·B_j) e^{cum_i − cum_j} for j ≤ i (masked before
+    exp), dS_ij = dy_i·x_j, A_ij = dS_ij e^{cum_i − cum_j}, R = S ∘ dS,
+    w_j = e^{T − cum_j} and G = G_c+1:
 
-    * inter term: dprev_c = Σ_i e^{cum_i} dy_i ⊗ C_i, dC_i += e^{cum_i}
-      prev_cᵀ dy_i, dcum_i += e^{cum_i} dy_i·(prev_c C_i);
-    * intra term: dx_j = Σ_i S_ij dy_i; with dS_ij = dy_i·x_j, dC_i +=
-      Σ_j dS_ij e^{cum_i−cum_j} B_j, dB_j = Σ_i dS_ij e^{cum_i−cum_j} C_i,
-      dcum_i += Σ_j S_ij dS_ij and dcum_j −= Σ_i S_ij dS_ij.
+    * dx_j = Σ_i S_ij dy_i + w_j G B_j;
+    * dB_j = Σ_i A_ij C_i + w_j Gᵀ x_j, dC_i = Σ_j A_ij B_j + e^{cum_i}
+      prev_cᵀ dy_i, each summed over a group's heads;
+    * dcum_i = Σ_j R_ij − Σ_i' R_i'i + e^{cum_i} dy_i·(prev_c C_i) − w_i
+      x_iᵀ G B_i, and at the chunk's last step also dT + Σ_j w_j x_jᵀ G B_j;
+      dlog_a is its reverse cumsum within the chunk.
 
-    Returns (dx (B,S,H,P), dB and dC per head (B,S,H,N), dprev (B,H,C,P,N),
-    dcum (B,S,H))."""
+    Returns (dx in x's dtype, dlog_a (B,S,H) fp32, dB and dC as (B,S,G,1,N)
+    fp32: one slice of each group's heads, as the kernel's slices)."""
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     c, rep = s // q, h // g
@@ -163,11 +203,9 @@ def chunk_scan_bwd_plain(x: torch.Tensor, log_a: torch.Tensor,
     bq = b_mat.float().reshape(bsz, c, q, g, n)
     cq = c_mat.float().reshape(bsz, c, q, g, n)
     cum = _chunk_cumsum(log_a, g, q)                       # (B,C,Q,G,R)
-    ecum = cum.exp()
 
-    dprev = torch.einsum("bcigrp,bcign,bcigr->bgrcpn", dyq, cq, ecum)
     dc = torch.einsum("bgrcpn,bcigrp->bcigrn",
-                      prev.reshape(bsz, g, rep, c, p, n), dyq) * ecum[..., None]
+                      prev.reshape(bsz, g, rep, c, p, n), dyq) * cum.exp()[..., None]
     dcum = torch.einsum("bcigrn,bcign->bcigr", dc, cq)
 
     mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
@@ -182,72 +220,36 @@ def chunk_scan_bwd_plain(x: torch.Tensor, log_a: torch.Tensor,
     db = torch.einsum("bcijgr,bcign->bcjgrn", dscore, cq)
     r = scores * ds
     dcum = dcum + r.sum(3) - r.sum(2)
-    return (dx.reshape(bsz, s, h, p), db.reshape(bsz, s, h, n),
-            dc.reshape(bsz, s, h, n), dprev.reshape(bsz, h, c, p, n),
-            dcum.reshape(bsz, s, h))
 
-
-def chunk_state_bwd_plain(x: torch.Tensor, log_a: torch.Tensor,
-                          b_mat: torch.Tensor, prev: torch.Tensor,
-                          dprev: torch.Tensor, dx: torch.Tensor,
-                          db: torch.Tensor, dcum: torch.Tensor, q: int,
-                          dfinal: torch.Tensor | None = None
-                          ) -> tuple[torch.Tensor, ...]:
-    """Plain version of ``ssd_chunk_state_bwd``: the state pass in reverse
-    and the chunk-state term, added to what :func:`chunk_scan_bwd_plain`
-    gave.  With G_C = dfinal (or 0) and G_c = dprev_c + e^{T_c} G_c+1 (T the
-    chunk's total log decay), dT_c = e^{T_c} ⟨prev_c, G_c+1⟩; then with
-    w_j = e^{T − cum_j}: dx_j += w_j G_c+1 B_j, dB_j += w_j G_c+1ᵀ x_j,
-    dT += Σ_j w_j x_jᵀ G_c+1 B_j and dcum_j −= the same term; dT is added
-    to the chunk's last dcum.  Returns (dx, dB per head, dcum, G (B,H,C,P,N):
-    G_c, the gradient of the state entering chunk c; G_0 is the initial
-    state's)."""
-    bsz, s, h, p = x.shape
-    g, n = b_mat.shape[2], b_mat.shape[3]
-    c, rep = s // q, h // g
-    xq = x.float().reshape(bsz, c, q, g, rep, p)
-    bq = b_mat.float().reshape(bsz, c, q, g, n)
-    cum = _chunk_cumsum(log_a, g, q)                       # (B,C,Q,G,R)
-    total = cum[:, :, -1]                                  # (B,C,G,R)
-    seg = total.exp().permute(0, 2, 3, 1)                  # (B,G,R,C)
-    dprev = dprev.reshape(bsz, g, rep, c, p, n)
-    run = (dfinal.float().reshape(bsz, g, rep, p, n) if dfinal is not None
-           else torch.zeros((bsz, g, rep, p, n), dtype=torch.float32,
-                            device=x.device))
-    g_next, g_tot = [None] * c, [None] * c
-    for ci in reversed(range(c)):
-        g_next[ci] = run
-        run = dprev[:, :, :, ci] + seg[..., ci, None, None] * run
-        g_tot[ci] = run
-    g_next = torch.stack(g_next, dim=3)                    # (B,G,R,C,P,N)
-    d_total = seg * torch.einsum("bgrcpn,bgrcpn->bgrc",
-                                 prev.reshape(bsz, g, rep, c, p, n), g_next)
-    w = torch.exp(total[:, :, None] - cum)                 # (B,C,Q,G,R)
-    gb = torch.einsum("bgrcpn,bcjgn->bcjgrp", g_next, bq)
-    gx = torch.einsum("bgrcpn,bcjgrp->bcjgrn", g_next, xq)
+    w = torch.exp(cum[:, :, -1:] - cum)                    # (B,C,Q,G,R)
+    gn = gnext.reshape(bsz, g, rep, c, p, n)
+    gb = torch.einsum("bgrcpn,bcjgn->bcjgrp", gn, bq)
+    gx = torch.einsum("bgrcpn,bcjgrp->bcjgrn", gn, xq)
     t = torch.einsum("bcjgrp,bcjgrp->bcjgr", xq, gb) * w
-    d_total = d_total.permute(0, 3, 1, 2) + t.sum(2)       # (B,C,G,R)
-    dcum_add = -t
-    dcum_add[:, :, -1] += d_total
-    return (dx + (gb * w[..., None]).reshape(bsz, s, h, p),
-            db + (gx * w[..., None]).reshape(bsz, s, h, n),
-            dcum + dcum_add.reshape(bsz, s, h),
-            torch.stack(g_tot, dim=3).reshape(bsz, h, c, p, n))
+    dx = dx + gb * w[..., None]
+    db = db + gx * w[..., None]
+    dcum = dcum - t
+    dcum[:, :, -1] += t.sum(2) + d_total.reshape(bsz, g, rep, c).permute(0, 3, 1, 2)
+    dla = dcum.flip(2).cumsum(2).flip(2)
+    return (dx.reshape(bsz, s, h, p).to(x.dtype), dla.reshape(bsz, s, h),
+            db.sum(4).reshape(bsz, s, g, 1, n), dc.sum(4).reshape(bsz, s, g, 1, n))
 
 
-def _bwd_finish(dx, db, dc, dcum, g_tot, x, log_a, b_mat, c_mat, q,
+def _bwd_finish(dx, dla, db, dc, dinit, log_a, b_mat, c_mat,
                 init_dtype: torch.dtype | None):
     """The backward's glue after the two kernels (or their plain versions):
-    dlog_a is the reverse cumsum of dcum within each chunk, dB and dC are
-    summed over the heads of a group (the forward reads a group's B and C
-    for each of its heads), the initial state's gradient is G_0."""
-    bsz, s, h, _ = x.shape
-    g, n = b_mat.shape[2], b_mat.shape[3]
-    dla = dcum.reshape(bsz, s // q, q, h).flip(2).cumsum(2).flip(2)
-    return (dx.to(x.dtype), dla.reshape(bsz, s, h).to(log_a.dtype),
-            db.reshape(bsz, s, g, h // g, n).sum(3).to(b_mat.dtype),
-            dc.reshape(bsz, s, g, h // g, n).sum(3).to(c_mat.dtype),
-            g_tot[:, :, 0].to(init_dtype) if init_dtype is not None else None)
+    dB and dC are the sums of their slices (B, S, G, k, N), added in a fixed
+    order (elementwise: the same bits whatever the batch), each cast to its
+    input's dtype; the initial state's gradient is G_0."""
+    def total(slices):
+        out = slices[:, :, :, 0]
+        for k in range(1, slices.shape[3]):
+            out = out + slices[:, :, :, k]
+        return out
+
+    return (dx, dla.to(log_a.dtype), total(db).to(b_mat.dtype),
+            total(dc).to(c_mat.dtype),
+            dinit.to(init_dtype) if init_dtype is not None else None)
 
 
 def ssd_scan_bwd_plain(x: torch.Tensor, log_a: torch.Tensor,
@@ -261,24 +263,23 @@ def ssd_scan_bwd_plain(x: torch.Tensor, log_a: torch.Tensor,
     ``prev`` (the states entering each chunk, from the forward): (dx,
     dlog_a, dB, dC, dinitial_state), each in its input's dtype (dinitial_state
     None without an initial state)."""
-    dx, db, dc, dprev, dcum = chunk_scan_bwd_plain(x, log_a, b_mat, c_mat,
-                                                   prev, dy, q)
-    dx, db, dcum, g_tot = chunk_state_bwd_plain(x, log_a, b_mat, prev, dprev,
-                                                dx, db, dcum, q, dfinal)
-    return _bwd_finish(dx, db, dc, dcum, g_tot, x, log_a, b_mat, c_mat, q,
+    gnext, dinit, d_total = chunk_state_bwd_plain(dy, log_a, c_mat, prev, q, dfinal)
+    dx, dla, db, dc = chunk_scan_bwd_plain(x, log_a, b_mat, c_mat, prev, dy,
+                                           gnext, d_total, q)
+    return _bwd_finish(dx, dla, db, dc, dinit, log_a, b_mat, c_mat,
                        initial_state.dtype if initial_state is not None else None)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the two C entry points of a loaded build of ``ssd_scan.cu``."""
+    """Declares the four C entry points of a loaded build of ``ssd_scan.cu``."""
     # pointers and the stream as c_void_p, or ctypes cuts them to 32 bits
     lib.ssd_chunk_state.argtypes = [ctypes.c_void_p] * 10
     lib.ssd_chunk_state.restype = ctypes.c_int
     lib.ssd_chunk_scan.argtypes = [ctypes.c_void_p] * 8
     lib.ssd_chunk_scan.restype = ctypes.c_int
-    lib.ssd_chunk_scan_bwd.argtypes = [ctypes.c_void_p] * 13
+    lib.ssd_chunk_scan_bwd.argtypes = [ctypes.c_void_p] * 14
     lib.ssd_chunk_scan_bwd.restype = ctypes.c_int
-    lib.ssd_chunk_state_bwd.argtypes = [ctypes.c_void_p] * 13
+    lib.ssd_chunk_state_bwd.argtypes = [ctypes.c_void_p] * 12
     lib.ssd_chunk_state_bwd.restype = ctypes.c_int
     return lib
 
@@ -326,11 +327,11 @@ def _check(x, log_a, b_mat, c_mat, chunk, initial_state) -> int:
     return q
 
 
-def _dims(x, log_a, b_mat, c_mat, q) -> ctypes.Array:
+def _dims(x, log_a, b_mat, c_mat, q, *extra: int) -> ctypes.Array:
     bsz, s, h, p = x.shape
     vals = [bsz, s, h, b_mat.shape[2], p, b_mat.shape[3], q,
             *x.stride()[:3], *log_a.stride(), *b_mat.stride()[:3],
-            *c_mat.stride()[:3]]
+            *c_mat.stride()[:3], *extra]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -429,101 +430,133 @@ def _scan_launch(x, log_a, b_mat, c_mat, prev, chunk):
     return y
 
 
-def chunk_scan_bwd(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,
-                   c_mat: torch.Tensor, prev: torch.Tensor, dy: torch.Tensor,
-                   *, chunk: int = 256) -> tuple[torch.Tensor, ...]:
-    """``ssd_chunk_scan_bwd`` (the plain version on a CPU tensor): (dx, dB
-    and dC per head, dprev, dcum), fp32, as :func:`chunk_scan_bwd_plain`
-    gives them.  ``dy`` (B, S, H, P) in x's dtype."""
-    q = min(chunk, x.shape[1])
-    if not _on_card(x):
-        _check_divides(x.shape[1], q)
-        return chunk_scan_bwd_plain(x, log_a, b_mat, c_mat, prev, dy, q)
-    return _scan_bwd_launch(x, log_a, b_mat, c_mat, prev, dy, chunk)
+def bwd_heads_per_block(h: int, g: int) -> int:
+    """Heads a block of ``ssd_chunk_scan_bwd`` walks (its ``rep``): the
+    largest divisor of a group's heads up to :data:`MAX_BWD_HEADS`.  The
+    kernel sums dB and dC over them on chip and writes one fp32 slice of
+    each a block; it does not depend on the batch, so a gang member's
+    gradient has the same bits alone and in the gang."""
+    per_group = h // g
+    return max(d for d in range(1, min(per_group, MAX_BWD_HEADS) + 1)
+               if per_group % d == 0)
 
 
-def _scan_bwd_launch(x, log_a, b_mat, c_mat, prev, dy, chunk):
-    """One launch of ``ssd_chunk_scan_bwd`` (checked first)."""
-    global scan_bwd_launches
-    q = _check(x, log_a, b_mat, c_mat, chunk, None)
-    bsz, s, h, p = x.shape
-    n = b_mat.shape[3]
-    _check_fp32("prev", prev, (bsz, h, s // q, p, n), x.device)
-    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
-        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device}: "
-                         f"want x's {tuple(x.shape)} {x.dtype} on {x.device}")
-    dy = dy.contiguous()
-    f32 = {"dtype": torch.float32, "device": x.device}
-    dx = torch.empty((bsz, s, h, p), **f32)
-    db = torch.empty((bsz, s, h, n), **f32)
-    dc = torch.empty((bsz, s, h, n), **f32)
-    dprev = torch.empty((bsz, h, s // q, p, n), **f32)
-    dcum = torch.empty((bsz, s, h), **f32)
-    dims = _dims(x, log_a, b_mat, c_mat, q)
-    with torch.cuda.device(x.device):
-        _raise_on(_library().ssd_chunk_scan_bwd(
-            x.data_ptr(), log_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-            prev.data_ptr(), dy.data_ptr(), dx.data_ptr(), db.data_ptr(),
-            dc.data_ptr(), dprev.data_ptr(), dcum.data_ptr(),
-            ctypes.addressof(dims),
-            torch.cuda.current_stream(x.device).cuda_stream), "ssd_chunk_scan_bwd")
-    scan_bwd_launches += 1
-    return dx, db, dc, dprev, dcum
-
-
-def chunk_state_bwd(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,
-                    prev: torch.Tensor, dprev: torch.Tensor, dx: torch.Tensor,
-                    db: torch.Tensor, dcum: torch.Tensor, *, chunk: int = 256,
+def chunk_state_bwd(dy: torch.Tensor, log_a: torch.Tensor, c_mat: torch.Tensor,
+                    prev: torch.Tensor, *, chunk: int = 256,
                     dfinal: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, ...]:
-    """``ssd_chunk_state_bwd`` (the plain version on a CPU tensor): (dx, dB
-    per head, dcum, G), as :func:`chunk_state_bwd_plain` gives them.  On the
-    card it adds to ``dx``, ``db`` and ``dcum`` in place and turns ``dprev``
-    into G in place (the tensors returned are those given)."""
-    q = min(chunk, x.shape[1])
-    if not _on_card(x):
-        _check_divides(x.shape[1], q)
-        return chunk_state_bwd_plain(x, log_a, b_mat, prev, dprev, dx, db,
-                                     dcum, q, dfinal)
-    return _state_bwd_launch(x, log_a, b_mat, prev, dprev, dx, db, dcum, chunk,
-                             dfinal)
+    """``ssd_chunk_state_bwd`` (the plain version on a CPU tensor): (gnext,
+    dinit, dT), fp32, as :func:`chunk_state_bwd_plain` gives them.  ``dy``
+    (B, S, H, P) in x's dtype; ``prev`` the forward's states."""
+    q = min(chunk, dy.shape[1])
+    if not _on_card(dy):
+        _check_divides(dy.shape[1], q)
+        return chunk_state_bwd_plain(dy, log_a, c_mat, prev, q, dfinal)
+    return _state_bwd_launch(dy, log_a, c_mat, prev, dfinal, chunk)
 
 
-def _state_bwd_launch(x, log_a, b_mat, prev, dprev, dx, db, dcum, chunk, dfinal):
+def _state_bwd_launch(dy, log_a, c_mat, prev, dfinal, chunk):
     """One launch of ``ssd_chunk_state_bwd`` (checked first)."""
     global state_bwd_launches
-    q = _check(x, log_a, b_mat, b_mat, chunk, None)
-    bsz, s, h, p = x.shape
-    n = b_mat.shape[3]
-    for name, t, shape in (("prev", prev, (bsz, h, s // q, p, n)),
-                           ("dprev", dprev, (bsz, h, s // q, p, n)),
-                           ("dx", dx, (bsz, s, h, p)), ("db", db, (bsz, s, h, n)),
-                           ("dcum", dcum, (bsz, s, h))):
-        _check_fp32(name, t, shape, x.device)
+    dy = dy.contiguous()
+    q = _check(dy, log_a, c_mat, c_mat, chunk, None)
+    bsz, s, h, p = dy.shape
+    n = c_mat.shape[3]
+    _check_fp32("prev", prev, (bsz, h, s // q, p, n), dy.device)
     if dfinal is not None:
         if tuple(dfinal.shape) != (bsz, h, p, n):
             raise ValueError(f"dfinal {tuple(dfinal.shape)}, want {(bsz, h, p, n)}")
         dfinal = dfinal.to(torch.float32).contiguous()
+    f32 = {"dtype": torch.float32, "device": dy.device}
+    gnext = torch.empty((bsz, h, s // q, p, n), **f32)
+    dinit = torch.empty((bsz, h, p, n), **f32)
+    d_total = torch.empty((bsz, h, s // q), **f32)
     # the hand-off's flags, one a chunk, then its ticket: zeroed every call
-    work = torch.zeros(bsz * h * (s // q) + 1, dtype=torch.int32, device=x.device)
-    dims = _dims(x, log_a, b_mat, b_mat, q)
-    with torch.cuda.device(x.device):
+    work = torch.zeros(bsz * h * (s // q) + 1, dtype=torch.int32, device=dy.device)
+    dims = _dims(dy, log_a, c_mat, c_mat, q)
+    with torch.cuda.device(dy.device):
         _raise_on(_library().ssd_chunk_state_bwd(
-            x.data_ptr(), log_a.data_ptr(), b_mat.data_ptr(), prev.data_ptr(),
-            dfinal.data_ptr() if dfinal is not None else None, dprev.data_ptr(),
-            dx.data_ptr(), db.data_ptr(), dcum.data_ptr(), work.data_ptr(),
+            dy.data_ptr(), log_a.data_ptr(), c_mat.data_ptr(), prev.data_ptr(),
+            dfinal.data_ptr() if dfinal is not None else None, gnext.data_ptr(),
+            dinit.data_ptr(), d_total.data_ptr(), work.data_ptr(),
             work.data_ptr() + 4 * bsz * h * (s // q), ctypes.addressof(dims),
-            torch.cuda.current_stream(x.device).cuda_stream), "ssd_chunk_state_bwd")
+            torch.cuda.current_stream(dy.device).cuda_stream), "ssd_chunk_state_bwd")
     state_bwd_launches += 1
-    return dx, db, dcum, dprev
+    return gnext, dinit, d_total
+
+
+def chunk_scan_bwd(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, prev: torch.Tensor, dy: torch.Tensor,
+                   gnext: torch.Tensor, d_total: torch.Tensor, *,
+                   chunk: int = 256) -> tuple[torch.Tensor, ...]:
+    """``ssd_chunk_scan_bwd`` (the plain version on a CPU tensor): (dx in
+    x's dtype, dlog_a (B, S, H) fp32, dB and dC as (B, S, G, k, N) fp32
+    slices, k per group), as :func:`chunk_scan_bwd_plain` gives them (k 1
+    there); ``gnext`` and ``d_total`` from :func:`chunk_state_bwd`."""
+    q = min(chunk, x.shape[1])
+    if not _on_card(x):
+        _check_divides(x.shape[1], q)
+        return chunk_scan_bwd_plain(x, log_a, b_mat, c_mat, prev, dy, gnext,
+                                    d_total, q)
+    return _scan_bwd_launch(x, log_a, b_mat, c_mat, prev, dy, gnext, d_total, chunk)
+
+
+def _scan_bwd_launch(x, log_a, b_mat, c_mat, prev, dy, gnext, d_total, chunk):
+    """One launch of ``ssd_chunk_scan_bwd`` (checked first)."""
+    global scan_bwd_launches
+    q = _check(x, log_a, b_mat, c_mat, chunk, None)
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    for name, t, shape in (("prev", prev, (bsz, h, s // q, p, n)),
+                           ("gnext", gnext, (bsz, h, s // q, p, n)),
+                           ("d_total", d_total, (bsz, h, s // q))):
+        _check_fp32(name, t, shape, x.device)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device}: "
+                         f"want x's {tuple(x.shape)} {x.dtype} on {x.device}")
+    dy = dy.contiguous()
+    rep = bwd_heads_per_block(h, g)
+    f32 = {"dtype": torch.float32, "device": x.device}
+    dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    dla = torch.empty((bsz, s, h), **f32)
+    db = torch.empty((bsz, s, h // rep, n), **f32)
+    dc = torch.empty((bsz, s, h // rep, n), **f32)
+    dims = _dims(x, log_a, b_mat, c_mat, q, rep)
+    with torch.cuda.device(x.device):
+        _raise_on(_library().ssd_chunk_scan_bwd(
+            x.data_ptr(), log_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            dy.data_ptr(), prev.data_ptr(), gnext.data_ptr(), d_total.data_ptr(),
+            dx.data_ptr(), dla.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            ctypes.addressof(dims),
+            torch.cuda.current_stream(x.device).cuda_stream), "ssd_chunk_scan_bwd")
+    scan_bwd_launches += 1
+    k = h // rep // g
+    return dx, dla, db.view(bsz, s, g, k, n), dc.view(bsz, s, g, k, n)
+
+
+def ssd_scan_bwd(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor,
+                 c_mat: torch.Tensor, prev: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int = 256, dfinal: torch.Tensor | None = None,
+                 init_dtype: torch.dtype | None = None
+                 ) -> tuple[torch.Tensor | None, ...]:
+    """The SSD scan's gradient as :class:`SSDScan`'s backward runs it:
+    :func:`chunk_state_bwd`, :func:`chunk_scan_bwd`, then the glue (the
+    plain versions on a CPU tensor).  (dx, dlog_a, dB, dC, dinitial_state
+    in ``init_dtype``, or None)."""
+    gnext, dinit, d_total = chunk_state_bwd(dy, log_a, c_mat, prev, chunk=chunk,
+                                            dfinal=dfinal)
+    dx, dla, db, dc = chunk_scan_bwd(x, log_a, b_mat, c_mat, prev, dy, gnext,
+                                     d_total, chunk=chunk)
+    return _bwd_finish(dx, dla, db, dc, dinit, log_a, b_mat, c_mat, init_dtype)
 
 
 class SSDScan(torch.autograd.Function):
     """The kernels under autograd: the forward launches ``ssd_chunk_state``
     and ``ssd_chunk_scan`` and saves x, log_a, B, C and the states entering
-    each chunk (fp32); the backward launches ``ssd_chunk_scan_bwd`` and
-    ``ssd_chunk_state_bwd``, then sums dB and dC over each group's heads and
-    turns dcum into dlog_a (torch glue).  Under ``torch.func.vmap`` the rule
+    each chunk (fp32); the backward launches ``ssd_chunk_state_bwd`` (the
+    state pass in reverse), then ``ssd_chunk_scan_bwd`` (dx, dlog_a, and dB
+    and dC summed over each block's heads), and adds the dB and dC slices
+    of each group (torch glue).  Under ``torch.func.vmap`` the rule
     folds the member dim into the batch: one launch of each kernel for all
     members, forward and backward.  Outputs: y, the final state, and the
     states (not differentiable)."""
@@ -545,16 +578,9 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dfinal, _):
         x, log_a, b_mat, c_mat, prev = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(x)
-        dx, db, dc, dprev, dcum = _scan_bwd_launch(
-            x, log_a, b_mat, c_mat, prev, dy.to(x.dtype), ctx.chunk)
-        dx, db, dcum, g_tot = _state_bwd_launch(
-            x, log_a, b_mat, prev, dprev, dx, db, dcum, ctx.chunk, dfinal)
-        dx, dla, dbm, dcm, dinit = _bwd_finish(
-            dx, db, dc, dcum, g_tot, x, log_a, b_mat, c_mat,
-            min(ctx.chunk, x.shape[1]), ctx.init_dtype)
-        return dx, dla, dbm, dcm, dinit, None
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype)
+        return ssd_scan_bwd(x, log_a, b_mat, c_mat, prev, dy, chunk=ctx.chunk,
+                            dfinal=dfinal, init_dtype=ctx.init_dtype) + (None,)
 
     @staticmethod
     def vmap(info, in_dims, x, log_a, b_mat, c_mat, initial_state, chunk):

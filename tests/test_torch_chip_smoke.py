@@ -81,6 +81,34 @@ def test_mamba2_prefill_ssd_bound():
     assert (with_init - nbytes) * 3.35e12 / 1e3 == pytest.approx(4 * b * h * p * n)
 
 
+def test_mamba2_train_ssd_backward_bound():
+    """B 4, S 2048, H 48, P 64, G 1, N 128, Q 256: the whole backward must
+    read x, dy (bf16), B, C, log_a and the fp32 states and write dx, dlog_a,
+    dB and dC once, ~213 MB; each kernel counts its own reads and writes."""
+    b, s, h, p, g, n, q = 4, 2048, 48, 64, 1, 128, 256
+    x, bc, la = 2 * b * s * h * p, 2 * b * s * g * n, 4 * b * s * h
+    states, fin, dt = 4 * b * h * (s // q) * p * n, 4 * b * h * p * n, 4 * b * h * (s // q)
+    ops, nbytes = cs.ssd_bwd_floor_ms(b, s, h, p, g, n, q, "function")
+    assert nbytes * 3.35e12 / 1e3 == pytest.approx(3 * x + 4 * bc + 2 * la + states)
+    assert nbytes * 3.35e12 / 1e3 == pytest.approx(212.86e6, rel=1e-4)
+    pairs = (s // q) * q * (q + 1) // 2
+    flops = (2 * b * g * pairs * n                 # C.B^T, once per group
+             + 2 * b * h * pairs * (2 * p + 2 * n)  # dS, dx, dB, dC
+             + 8 * b * h * s * p * n)              # inter, dprev, G.B, G^T.x
+    assert ops == pytest.approx(flops / 989e12 * 1e3)
+    _, st = cs.ssd_bwd_floor_ms(b, s, h, p, g, n, q, "chunk_state_bwd")
+    assert st * 3.35e12 / 1e3 == pytest.approx(x + bc + la + 2 * states + fin + dt)
+    st_ops, sc = cs.ssd_bwd_floor_ms(b, s, h, p, g, n, q, "chunk_scan_bwd", slices=4)
+    assert sc * 3.35e12 / 1e3 == pytest.approx(
+        3 * x + 2 * bc + 2 * la + 2 * states + dt + 2 * 4 * b * s * g * 4 * n)
+    assert st_ops < ops
+    # an initial state and dfinal: dfinal read by the state pass, the
+    # initial state's gradient written by the function
+    _, with_init = cs.ssd_bwd_floor_ms(b, s, h, p, g, n, q, "function", dfinal=True,
+                                       init=True)
+    assert (with_init - nbytes) * 3.35e12 / 1e3 == pytest.approx(2 * fin)
+
+
 def test_ssd_bound_of_a_short_prompt_counts_one_chunk():
     """S 100 < chunk 256: one chunk of Q = 100, 5050 allowed pairs."""
     ops, _ = cs.ssd_floor_ms(1, 100, 1, 64, 1, 16, 256, "chunk_scan")
@@ -259,6 +287,10 @@ def test_routing_is_recorded_and_replayed():
      "ssd_scan"),
     ("void (anonymous namespace)::ssd_chunk_scan_kernel<64, 128>(Params)",
      "ssd_scan"),
+    ("void (anonymous namespace)::ssd_chunk_state_bwd_kernel<64, 128>(Params)",
+     "ssd_scan_bwd"),
+    ("void (anonymous namespace)::ssd_chunk_scan_bwd_kernel<64, 16>(BwdParams)",
+     "ssd_scan_bwd"),
     ("(anonymous namespace)::grouped_matmul_kernel(__nv_bfloat16 const*, ...)",
      "grouped_matmul"),
     ("nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN", "matmul"),
@@ -324,6 +356,19 @@ def test_ptxas_kernels_reads_each_kernels_registers_and_spills():
         "flash_attention_bwd_convert_kernel<80>": {"registers": 32, "spill_stores": 4,
                                                    "spill_loads": 4},
     }
+
+
+def test_ptxas_kernels_reads_a_bool_template_argument():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_122ssd_chunk_state_kernelILi64ELi128ELb1EEEv14CUtensorMap_stS1_"
+        "6Params' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 139 registers",
+    ])
+    assert cs.ptxas_kernels(log, "ssd_chunk_") == {
+        "ssd_chunk_state_kernel<64, 128, 1>": {"registers": 139, "spill_stores": 0,
+                                               "spill_loads": 0}}
 
 
 def test_host_us_times_every_call_and_syncs_between_rounds(monkeypatch):

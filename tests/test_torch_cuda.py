@@ -570,9 +570,10 @@ def _slab_over(got: torch.Tensor, want: torch.Tensor, keep: tuple[int, ...],
     return ((g - w).abs().amax(rest) - tol * w.abs().amax(rest)).max().item()
 
 
-#: the dims of a (batch, head) slab of each backward output
-_BWD_KEEP = {"dx": (0, 2), "db": (0, 2), "dc": (0, 2), "dprev": (0, 1),
-             "dcum": (0, 2), "g": (0, 1)}
+#: the dims of a (batch, head) slab of each backward output (dB and dC: a
+#: (batch, group))
+_BWD_KEEP = {"gnext": (0, 1), "dinit": (0, 1), "dT": (0, 1), "dx": (0, 2),
+             "dlog_a": (0, 2), "dB": (0, 2), "dC": (0, 2)}
 
 
 def _ssd_bwd_case(dev, b, s, h, p, g, n, chunk, init, seed=6):
@@ -587,13 +588,19 @@ def _ssd_bwd_case(dev, b, s, h, p, g, n, chunk, init, seed=6):
     return x, la, bm, cm, h0, dy, dfinal, prev
 
 
+def _slices_summed(out):
+    """The scan backward's outputs with dB's and dC's slices added."""
+    dx, dla, db, dc = out
+    return dx, dla, db.sum(3), dc.sum(3)
+
+
 @pytest.mark.parametrize("h,p,g,n", [(4, 64, 1, 128), (6, 64, 2, 64),
                                      (4, 64, 4, 16), (2, 16, 1, 16)])
 @pytest.mark.parametrize("s,chunk,init", [(512, 256, False), (480, 96, True),
                                           (64, 64, True)])
 def test_ssd_backward_kernels_match_plain(dev, h, p, g, n, s, chunk, init):
     """Each backward kernel against its plain version on the same inputs
-    (the state kernel on the scan kernel's plain outputs), every output
+    (the scan kernel on the plain state pass's outputs), every output
     within 5e-2 of its (batch, head) slab's largest |plain|; then the whole
     gradient of ``ssd_scan`` under autograd against ``ssd_scan_bwd_plain``."""
     from repro_torch.kernels import ssd_scan as kssd
@@ -601,20 +608,20 @@ def test_ssd_backward_kernels_match_plain(dev, h, p, g, n, s, chunk, init):
                                                         chunk, init)
     q = min(chunk, s)
     before = (kssd.scan_bwd_launches, kssd.state_bwd_launches)
-    got = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=chunk)
-    want = kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, q)
-    for name, a, w in zip(("dx", "db", "dc", "dprev", "dcum"), got, want):
+    got = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=chunk, dfinal=dfinal)
+    want = kssd.chunk_state_bwd_plain(dy, la, cm, prev, q, dfinal)
+    for name, a, w in zip(("gnext", "dinit", "dT"), got, want):
         assert a.dtype == torch.float32 and a.shape == w.shape, name
         assert _slab_over(a, w, _BWD_KEEP[name]) <= 0, name
-    args = [t.clone(memory_format=torch.contiguous_format)
-            for t in (want[3], want[0], want[1], want[4])]
-    got = kssd.chunk_state_bwd(x, la, bm, prev, *args, chunk=chunk, dfinal=dfinal)
-    want = kssd.chunk_state_bwd_plain(x, la, bm, prev, want[3], want[0], want[1],
-                                      want[4], q, dfinal)
+    got = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, want[0], want[2], chunk=chunk)
+    want = kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, want[0], want[2], q)
     torch.cuda.synchronize()
     assert (kssd.scan_bwd_launches, kssd.state_bwd_launches) == (before[0] + 1,
                                                                  before[1] + 1)
-    for name, a, w in zip(("dx", "db", "dcum", "g"), got, want):
+    assert got[0].dtype == torch.bfloat16 and got[2].shape[:3] == (2, s, g)
+    for name, a, w in zip(("dx", "dlog_a", "dB", "dC"), _slices_summed(got),
+                          _slices_summed(want)):
+        assert a.shape == w.shape, name
         assert _slab_over(a, w, _BWD_KEEP[name]) <= 0, name
     # the whole gradient through the autograd.Function
     ins = [t.clone().requires_grad_() for t in (x, la, bm, cm)] + (
@@ -642,10 +649,9 @@ def test_ssd_backward_kernels_are_deterministic(dev, s, chunk, h, p, g, n, init)
                                                         chunk, init, seed=8)
     runs = []
     for _ in range(2):
-        dx, db, dc, dprev, dcum = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy,
-                                                      chunk=chunk)
-        runs.append((dc,) + kssd.chunk_state_bwd(x, la, bm, prev, dprev, dx, db,
-                                                 dcum, chunk=chunk, dfinal=dfinal))
+        state = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=chunk, dfinal=dfinal)
+        runs.append(state + kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, state[0],
+                                                state[2], chunk=chunk))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -656,13 +662,51 @@ def test_ssd_backward_hand_off_along_256_chunks(dev):
     from repro_torch.kernels import ssd_scan as kssd
     x, la, bm, cm, h0, dy, dfinal, prev = _ssd_bwd_case(dev, 2, 16384, 48, 64, 1,
                                                         128, 64, False, seed=9)
-    dx, db, dc, dprev, dcum = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, chunk=64)
-    want = kssd.chunk_state_bwd_plain(x, la, bm, prev, dprev, dx, db, dcum, 64)
-    got = kssd.chunk_state_bwd(x, la, bm, prev, dprev.clone(), dx.clone(),
-                               db.clone(), dcum.clone(), chunk=64)
+    want = kssd.chunk_state_bwd_plain(dy, la, cm, prev, 64)
+    got = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=64)
     torch.cuda.synchronize()
-    for name, a, w in zip(("dx", "db", "dcum", "g"), got, want):
+    for name, a, w in zip(("gnext", "dinit", "dT"), got, want):
         assert _slab_over(a, w, _BWD_KEEP[name]) <= 0, name
+
+
+@pytest.mark.parametrize("h,g,slices", [(6, 2, 1), (26, 1, 13), (24, 2, 1)])
+def test_ssd_backward_sums_db_and_dc_over_a_groups_heads(dev, h, g, slices):
+    """dB and dC leave the scan's backward summed over each block's heads
+    (``slices`` per group); added up they are the plain sum over the
+    group's heads."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, bm, cm, h0, dy, dfinal, prev = _ssd_bwd_case(dev, 2, 512, h, 64, g, 64,
+                                                        256, False, seed=10)
+    gnext, _, d_total = kssd.chunk_state_bwd_plain(dy, la, cm, prev, 256)
+    got = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, gnext, d_total)
+    want = kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, gnext, d_total, 256)
+    torch.cuda.synchronize()
+    assert got[2].shape == got[3].shape == (2, 512, g, slices, 64)
+    for name, a, w in zip(("dB", "dC"), _slices_summed(got)[2:], _slices_summed(want)[2:]):
+        assert _slab_over(a, w, _BWD_KEEP[name]) <= 0, name
+
+
+def test_ssd_backward_of_a_gang_equals_each_member_alone(dev):
+    """Under torch.func.vmap over two members the SSD backward launches
+    each kernel once, and every member's gradients have the same bits as
+    that member's alone (the heads a block walks do not depend on the
+    batch, and the slices are added elementwise)."""
+    from repro_torch.kernels import ssd_scan as kssd
+    m = 2
+    cases = [_ssd(dev, 2, 512, 48, 64, 1, 128, True, seed=40 + i) for i in range(m)]
+    ins = [torch.stack(t).requires_grad_() for t in list(zip(*cases))]
+    dy = torch.stack([_qkv(dev, 2, 512, 48, 1, 64, seed=50 + i)[0] for i in range(m)])
+    before = (kssd.state_bwd_launches, kssd.scan_bwd_launches)
+    y, _ = torch.func.vmap(lambda x, la, b, c, h0: kssd.ssd_scan(
+        x, la, b, c, chunk=256, initial_state=h0))(*ins)
+    grads = torch.autograd.grad(y, ins, dy)
+    assert (kssd.state_bwd_launches, kssd.scan_bwd_launches) == (before[0] + 1,
+                                                                 before[1] + 1)
+    for i in range(m):
+        mine = [t[i].detach().requires_grad_() for t in ins]
+        wy, _ = kssd.ssd_scan(*mine[:4], chunk=256, initial_state=mine[4])
+        for g_, w_ in zip(grads, torch.autograd.grad(wy, mine, dy[i])):
+            assert torch.equal(g_[i], w_)
 
 
 def test_vmap_rules_launch_once_for_all_members(dev):

@@ -11,7 +11,8 @@ bf16 (atol and rtol), on dx, dlog_a, dB and dC (summed over each group's
 heads) and the initial state's gradient.  Then :class:`SSDScan`'s
 plumbing with the launches replaced by the plain versions: a gradient
 through ``ssd_scan`` on a "card" tensor reaches the Function and matches
-autograd.
+autograd; the wrappers on CPU tensors, the heads a backward block walks and
+the glue that adds dB's and dC's slices.
 """
 import jax
 import jax.numpy as jnp
@@ -161,18 +162,45 @@ def test_gradient_through_ssd_scan_reaches_the_function(monkeypatch, init):
 
 
 def test_kernel_wrappers_take_the_plain_backward_on_the_cpu():
-    """``chunk_scan_bwd`` and ``chunk_state_bwd`` on CPU tensors are their
+    """``chunk_state_bwd`` and ``chunk_scan_bwd`` on CPU tensors are their
     plain versions (the card's launches are checked by the card's tests)."""
     t = _inputs(32, 2, 16, 1, 16, "float32", True, True, seed=4)
     x, la, b, c, dy = (t[k][1] for k in ("x", "log_a", "b", "c", "dy"))
     prev, _ = kssd.chunk_state_plain(x, la, b, 16, t["init"][1])
-    got = kssd.chunk_scan_bwd(x, la, b, c, prev, dy, chunk=16)
-    want = kssd.chunk_scan_bwd_plain(x, la, b, c, prev, dy, 16)
+    got = kssd.chunk_state_bwd(dy, la, c, prev, chunk=16, dfinal=t["dfinal"][1])
+    want = kssd.chunk_state_bwd_plain(dy, la, c, prev, 16, t["dfinal"][1])
     for a, w in zip(got, want):
         assert torch.equal(a, w)
-    got = kssd.chunk_state_bwd(x, la, b, prev, *want[3:4], *want[0:2], want[4],
-                               chunk=16, dfinal=t["dfinal"][1])
-    want = kssd.chunk_state_bwd_plain(x, la, b, prev, want[3], want[0], want[1],
-                                      want[4], 16, t["dfinal"][1])
+    got = kssd.chunk_scan_bwd(x, la, b, c, prev, dy, *want[0:3:2], chunk=16)
+    want = kssd.chunk_scan_bwd_plain(x, la, b, c, prev, dy, want[0], want[2], 16)
     for a, w in zip(got, want):
         assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("h,g", [(6, 2), (26, 1), (48, 1), (50, 1), (4, 4)])
+def test_heads_a_backward_block_walks(h, g):
+    """``ssd_chunk_scan_bwd``'s blocks walk the largest divisor of a group's
+    heads up to MAX_BWD_HEADS (the slices of dB and dC a group gets is the
+    quotient), whatever the batch."""
+    rep = kssd.bwd_heads_per_block(h, g)
+    assert (h // g) % rep == 0 and 1 <= rep <= kssd.MAX_BWD_HEADS
+    assert not any((h // g) % d == 0 for d in range(rep + 1, kssd.MAX_BWD_HEADS + 1))
+    assert {(6, 2): 3, (26, 1): 2, (48, 1): 12, (50, 1): 10, (4, 4): 1}[(h, g)] == rep
+
+
+def test_backward_glue_adds_the_slices_of_each_group():
+    """``_bwd_finish`` adds dB's and dC's slices (B, S, G, k, N) of a group
+    in order and casts each gradient to its input's dtype."""
+    rng = np.random.default_rng(5)
+    db = torch.from_numpy(rng.standard_normal((2, 8, 2, 3, 4)).astype(np.float32))
+    dc = torch.from_numpy(rng.standard_normal((2, 8, 2, 3, 4)).astype(np.float32))
+    dx, dla = torch.zeros(2, 8, 4, 4, dtype=torch.bfloat16), torch.zeros(2, 8, 4)
+    b_mat = torch.zeros(2, 8, 2, 4, dtype=torch.bfloat16)
+    out = kssd._bwd_finish(dx, dla, db, dc, torch.zeros(2, 4, 4, 4), dla, b_mat,
+                           b_mat, torch.bfloat16)
+    assert out[0] is dx and out[1].dtype == torch.float32
+    assert torch.equal(out[2], (db[:, :, :, 0] + db[:, :, :, 1] + db[:, :, :, 2]).to(
+        torch.bfloat16))
+    assert torch.equal(out[3], (dc[:, :, :, 0] + dc[:, :, :, 1] + dc[:, :, :, 2]).to(
+        torch.bfloat16))
+    assert out[4].dtype == torch.bfloat16

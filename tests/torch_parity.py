@@ -85,10 +85,10 @@ def patch_plain_launches(monkeypatch) -> dict[str, int]:
         "scan", lambda x, la, b, c, prev, chunk:
         kssd.chunk_scan_plain(x, la, b, c, prev, q_of(x, chunk))))
     monkeypatch.setattr(kssd, "_scan_bwd_launch", counted(
-        "scan_bwd", lambda x, la, b, c, prev, dy, chunk:
-        kssd.chunk_scan_bwd_plain(x, la, b, c, prev, dy, q_of(x, chunk))))
+        "scan_bwd", lambda x, la, b, c, prev, dy, gnext, d_total, chunk:
+        kssd.chunk_scan_bwd_plain(x, la, b, c, prev, dy, gnext, d_total,
+                                  q_of(x, chunk))))
     monkeypatch.setattr(kssd, "_state_bwd_launch", counted(
-        "state_bwd", lambda x, la, b, prev, dprev, dx, db, dcum, chunk, dfinal:
-        kssd.chunk_state_bwd_plain(x, la, b, prev, dprev, dx, db, dcum,
-                                   q_of(x, chunk), dfinal)))
+        "state_bwd", lambda dy, la, c, prev, dfinal, chunk:
+        kssd.chunk_state_bwd_plain(dy, la, c, prev, q_of(dy, chunk), dfinal)))
     return calls

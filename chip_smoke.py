@@ -8,7 +8,8 @@ Three serving paths: gemma3-1b (attention: the flash-attention kernel),
 mamba2-780m (SSM: the two SSD-scan kernels) and olmoe-1b-7b (MoE: the
 grouped-GEMM kernel, with flash attention); then the gemma3-1b training
 path (the flash-attention forward with its LSE and the backward kernels),
-the mamba2-780m training path (the SSD scan's backward kernels) and the
+the mamba2-780m training path (the SSD scan's backward kernels), the
+olmoe-1b-7b training path (the grouped GEMM's dx and dw kernels) and the
 gang trainer (several members in one batched run).
 Phases, each printing one
 JSON line; any failure raises, so the script exits non-zero and prints no
@@ -97,13 +98,44 @@ Then the training path of mamba2-780m (the SSD scan's backward kernels):
    kernel, 48 + 48 by the full remat; 48 of each backward);
 6. profile: one train step.
 
+Then the training path of olmoe-1b-7b (the grouped GEMM's backward):
+
+3. ptxas's registers and spills of the grouped GEMM's kernels; dx =
+   dy·w[e]ᵀ and dw = x_eᵀ·dy_e against their plain versions at olmoe's
+   gate/up and down shapes (T 65,536 rows of a top-8 routing),
+   qwen2-moe-a2.7b's (E 60, f 1408, top-4), every row in one expert, 1000
+   rows in groups off the 64-row steps with empty experts, and one row:
+   dx within GMM_TOL (absolute plus relative) and 2e-2 of each row's
+   largest; dw, written into a NaN-filled buffer, within 2e-2 of each
+   expert slab's largest |plain|, an empty expert's slab exactly zero;
+   their times, the plain versions', ``torch._grouped_mm``'s and the bound;
+4. train: full width (d 2048, 64 experts top-8, 16 heads of 128, the
+   einsum dispatch), depth cut by memory (MOE_TRAIN_DEPTHS: 8 of 16 layers
+   if the reckoning and the measured peak fit MOE_TRAIN_BUDGET_GB, else
+   4), ``init_train_state`` and ``make_train_step`` with ``launch.train``'s
+   optimizer and schedule on (4, 2048) batches from ``make_stream``, 2
+   warm-up and 3 timed steps, the launch counts reset before and read
+   after: step time, tokens/s, 6·N_active·T utilisation (top-8 of 64
+   experts) and peak memory;
+5. correctness: one step's loss and gradients with the kernels against the
+   same with the plain grouped GEMM, the plain run choosing the experts the
+   kernels' run chose with its own differentiable router probabilities
+   (|Δloss| ≤ 0.1·std(logits), grad-norm relative error ≤ 0.05; the free
+   run's difference reported, not gated), 8 steps on one batch (the loss
+   must fall) and one step's launches (6·L forward grouped GEMMs, 3·L dx,
+   3·L dw, 2·L + L flash attention);
+6. profile: one train step; then a step's 3·L dx and 3·L dw calls timed
+   together, and ``launch.train.main`` on the smoke MoE config on the
+   card.
+
 Then the gang (``repro_torch.train.ensemble.train_gang``): gemma3-1b at
 full width, members 0 and 1 (own lr, 2 × 1024 tokens a step each, 3
 steps) each alone and both in one gang: every step's loss of the gang
 within 5e-3 (relative) of the member's alone, and the flash-attention
 launches a step the same for two members as for one; step time and peak
 memory of each run; the same for a smoke-size mamba2 gang (the SSD scan's
-vmap rule); a one-step gang of two gemma3-1b members under the profiler.
+vmap rule) and a smoke-size olmoe gang (the grouped GEMM's, forward, dx
+and dw); a one-step gang of two gemma3-1b members under the profiler.
 
 Then the kernels line, the card line and, last, the result line.  There is
 no CPU mode: without a CUDA device the script exits with an error.
@@ -287,9 +319,35 @@ GMM_REPLACES = "src/repro/kernels/moe_gmm.py:66"
 # |y| = 4, which a purely absolute 2e-2 would refuse.  The error relative
 # to each row's largest |y| (ROW_REL_TOL) is gated too.
 GMM_TOL = 2e-2
+#: the grouped GEMM's gradient kernels replace no Pallas kernel: the
+#: reference differentiates jax.lax.ragged_dot with XLA
+GMM_BWD_REPLACES = ("gradient of src/repro/kernels/moe_gmm.py:66; the reference "
+                    "differentiates jax.lax.ragged_dot, src/repro/models/moe.py:161-163")
+# dw against its plain version: max |kernel - plain| within 2e-2 of each
+# expert slab's largest |plain| (a slab sums up to T rows, so its elements
+# reach ~sqrt(rows); the output is rounded to bf16 on both sides, 2**-8 of
+# an element), and an empty expert's slab exactly zero.
+GMM_DW_SLAB_TOL = 2e-2
 MOE_PLAIN_CHECK_SEQ = 2048
 QWEN2_MOE_LAYERS = 4          # of 24: the full depth does not fit 80 GB
 QWEN2_MOE_DEPTH_SCALE = math.sqrt(QWEN2_MOE_LAYERS / CONSISTENCY_LAYERS)
+#: the olmoe-1b-7b training path: full width, cut in depth by memory; a
+#: (4, 2048) batch from make_stream, 2 warm-up and 3 timed steps.  fp32
+#: parameters, gradients, AdamW's fp32 master copy and its two moments hold
+#: TRAIN_BYTES_PER_PARAM bytes a parameter; AdamW's update makes a few
+#: fp32 temporaries of one leaf at a time (UPDATE_TEMPORARIES of the
+#: largest, a stacked expert weight (layers, E, d, f)); and a step's
+#: activations, with full remat one MoE layer's recompute at a time (its
+#: T·K rows through three grouped GEMMs, the fp32 combine, dw in bf16 and
+#: its fp32 cast), take a few GB.  The depth is the deepest of
+#: MOE_TRAIN_DEPTHS whose reckoning fits MOE_TRAIN_BUDGET_GB; a measured
+#: peak above the budget falls to the next.
+MOE_TRAIN_DEPTHS = (8, 4)
+MOE_TRAIN_BUDGET_GB = 72.0
+TRAIN_BYTES_PER_PARAM = 20
+UPDATE_TEMPORARIES = 5
+MOE_TRAIN_ACTIVATION_GB = 8.0
+MOE_TRAIN_WARMUP, MOE_TRAIN_TIMED = 2, 3
 #: host synchronisations a decode step may make besides one a layer (the
 #: attention's 0-d scale): the engine's token upload and argmax read
 DECODE_ENGINE_SYNCS = 4
@@ -508,6 +566,81 @@ def gmm_row_tiles(group_sizes: torch.Tensor) -> int:
     return int(((group_sizes.long() + 127) // 128).sum())
 
 
+def gmm_dw_floor_ms(t: int, d: int, f: int, experts: int) -> tuple[float, float]:
+    """(ms for its operations, ms for its bytes) for one dw = x_eᵀ·dy_e over
+    T rows: 2·T·d·f FLOPs; x (T, d) and dy (T, f) read once, dw (E, d, f)
+    written once (every expert's slab, the empty ones' zeros too), bf16.
+    (dx = dy·w[e]ᵀ moves what the forward moves: :func:`gmm_floor_ms` with
+    d and f in the forward's roles.)"""
+    flops = 2 * t * d * f
+    nbytes = 2 * (t * d + t * f + experts * d * f)
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def moe_train_reckoning_gb(cfg, layers: int) -> dict[str, float]:
+    """GB that training ``cfg`` cut to its first ``layers`` layers needs:
+    the state (TRAIN_BYTES_PER_PARAM a parameter), AdamW's temporaries of
+    its largest leaf, the activations, and their total."""
+    state = TRAIN_BYTES_PER_PARAM * cut_depth(cfg, layers).param_count() / 1e9
+    largest = 4 * layers * cfg.n_experts * cfg.d_model * cfg.moe_d_ff / 1e9
+    out = {"state_gb": state, "update_gb": UPDATE_TEMPORARIES * largest,
+           "activation_gb": MOE_TRAIN_ACTIVATION_GB}
+    return {**out, "total_gb": sum(out.values())}
+
+
+def moe_train_depth(cfg, budget_gb: float = MOE_TRAIN_BUDGET_GB,
+                    depths: tuple[int, ...] = MOE_TRAIN_DEPTHS) -> int:
+    """The deepest of ``depths`` whose reckoning fits ``budget_gb``."""
+    for layers in depths:
+        if moe_train_reckoning_gb(cfg, layers)["total_gb"] <= budget_gb:
+            return layers
+    raise ValueError(f"{cfg.name}: not even {depths[-1]} layers fit {budget_gb} GB")
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` with its first ``layers`` layers (a cut of depth only)."""
+    return dataclasses.replace(cfg, n_layers=layers,
+                               layer_types=cfg.layer_types[:layers])
+
+
+def active_params(cfg) -> int:
+    """Parameters a token passes through: every parameter but the routed
+    experts a token does not choose (top-k of E in each MoE layer)."""
+    moe_layers = sum(kind == "moe" for kind in cfg.layer_types)
+    experts = moe_layers * cfg.n_experts * 3 * cfg.d_model * cfg.moe_d_ff
+    return cfg.param_count() - experts * (cfg.n_experts - cfg.top_k) // cfg.n_experts
+
+
+def moe_step_launches(layers: int) -> dict[str, int]:
+    """Kernel launches of one MoE train step under full remat: each layer's
+    three grouped GEMMs and its attention run in the forward and again in
+    the recompute; the backward launches a dx and a dw for each GEMM and
+    one attention backward."""
+    return {"grouped_matmul": 6 * layers, "grouped_matmul_dx": 3 * layers,
+            "grouped_matmul_dw": 3 * layers, "flash_attention": 2 * layers,
+            "flash_attention_bwd": layers}
+
+
+def dw_errors(out: torch.Tensor, want: torch.Tensor,
+              group_sizes: torch.Tensor) -> dict:
+    """dw's error against its plain version; raises past GMM_DW_SLAB_TOL of
+    an expert slab's largest |plain|, on a non-finite element, or where an
+    empty expert's slab is not exactly zero."""
+    o, w = out.float(), want.float()
+    err = (o - w).abs().amax((1, 2))
+    rel = (err / w.abs().amax((1, 2)).clamp_min(1e-30))[group_sizes > 0]
+    errs = {"max_abs_err": err.max().item(),
+            "max_slab_rel_err": rel.max().item() if rel.numel() else 0.0,
+            "empty_experts": int((group_sizes == 0).sum()),
+            "empty_slabs_exactly_zero": bool((o[group_sizes == 0] == 0).all()),
+            "all_finite": bool(torch.isfinite(o).all())}
+    if not (errs["all_finite"] and errs["empty_slabs_exactly_zero"]
+            and errs["max_slab_rel_err"] <= GMM_DW_SLAB_TOL):
+        raise AssertionError(f"grouped_matmul_dw disagrees with its plain version: "
+                             f"{errs} (slab-relative {GMM_DW_SLAB_TOL})")
+    return errs
+
+
 def bound(ops_ms: float, bytes_ms: float) -> tuple[float, str]:
     """The least time for the work, and what sets it."""
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
@@ -608,6 +741,49 @@ def replayed_routing(moe_mod, calls):
         moe_mod.router_probs = router_probs
 
 
+@contextlib.contextmanager
+def recorded_choices(moe_mod):
+    """Records the top-k expert indices (T, K) of every routing call of the
+    port's MoE layers, in call order, into the list it yields."""
+    calls: list[torch.Tensor] = []
+    route = moe_mod._route
+
+    def record(x, w_router, top_k, router_renorm):
+        out = route(x, w_router, top_k, router_renorm)
+        calls.append(out[3].detach())
+        return out
+
+    moe_mod._route = record
+    try:
+        yield calls
+    finally:
+        moe_mod._route = route
+
+
+@contextlib.contextmanager
+def replayed_choices(moe_mod, calls):
+    """Makes the port's MoE layers choose the experts a recorded run chose,
+    call by call, while the router's probabilities stay this run's own and
+    differentiable: the top-k weights are the probabilities gathered at
+    the recorded indices (renormalised where the config says)."""
+    recorded = iter(calls)
+    route = moe_mod._route
+
+    def replay(x, w_router, top_k, router_renorm):
+        probs, logits = moe_mod.router_probs(x, w_router)
+        top_idx = next(recorded)
+        top_p = probs.gather(-1, top_idx)
+        if router_renorm:
+            top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+        return probs, logits, top_p, top_idx
+
+    moe_mod._route = replay
+    try:
+        yield
+    finally:
+        moe_mod._route = route
+
+
 def logits_of(calls) -> list[torch.Tensor]:
     return [logits for _, logits in calls]
 
@@ -689,6 +865,8 @@ def kernel_class(name: str) -> str:
         return "ssd_scan_bwd"
     if "ssd_chunk" in low:
         return "ssd_scan"
+    if "grouped_matmul_dw" in low or "grouped_matmul_kernel<true>" in low:
+        return "grouped_matmul_bwd"
     if "grouped_matmul" in low:
         return "grouped_matmul"
     if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
@@ -1299,8 +1477,10 @@ def gmm_case_sizes(gen, dev, t: int, n_experts: int, kind: str,
 
 def grouped_mm_call(x, w, sizes):
     """One PyTorch call for the same grouped product (``torch._grouped_mm``
-    with int32 group ends), a yardstick for the kernel only, never used by
-    the port: (the call, None), or (None, the reason there is none)."""
+    with int32 group ends: the rows of x (T, d) against w (E, d, f) for y
+    and dx, or the columns of x (d, T) against the rows of w (T, f) for
+    dw), a yardstick for the kernels only, never used by the port: (the
+    call, None), or (None, the reason there is none)."""
     grouped_mm = getattr(torch, "_grouped_mm", None)
     if grouped_mm is None:
         return None, f"torch {torch.__version__} has no torch._grouped_mm"
@@ -1588,8 +1768,7 @@ def olmoe_path(dev, card) -> dict:
     torch.cuda.empty_cache()
 
     # -- 4, 5 for qwen2-moe-a2.7b at full width, 4 of its 24 layers ----------
-    qcut = dataclasses.replace(qcfg, n_layers=QWEN2_MOE_LAYERS,
-                               layer_types=("moe",) * QWEN2_MOE_LAYERS)
+    qcut = cut_depth(qcfg, QWEN2_MOE_LAYERS)
     qmodel = Model(qcut, dev)
     qparams = compute_copy(qcut, qmodel.init(seed=0))
     qbatch = synthetic_batch(qcut, b, s, gen, dev)
@@ -2116,19 +2295,313 @@ def ssm_train_path(dev, card) -> list[dict]:
             for part in ("chunk_scan_bwd", "chunk_state_bwd")]
 
 
+def moe_train_path(dev, card) -> list[dict]:
+    """The MoE training slice: the grouped GEMM's dx and dw kernels against
+    their plain versions, olmoe-1b-7b training at full width and a depth cut
+    by memory (``init_train_state`` and ``make_train_step`` with
+    ``launch.train``'s optimizer and schedule), the kernels' step against the
+    plain grouped GEMM's with the routing replayed, a falling loss, one
+    step's launches and its profile, then ``launch.train`` on a smoke MoE
+    config on the card.  Returns dx's and dw's entries of the kernels line."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import (
+        AdamW, cosine_schedule, global_norm, value_and_grad,
+    )
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cfg, qcfg = get("olmoe-1b-7b"), get("qwen2-moe-a2.7b")
+    d, f, e, k = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.top_k
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    rows, qrows = b * s * k, b * s * qcfg.top_k
+
+    def counts():
+        return {"grouped_matmul": moe_gmm.launches,
+                "grouped_matmul_dx": moe_gmm.dx_launches,
+                "grouped_matmul_dw": moe_gmm.dw_launches,
+                "flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches}
+
+    def reset():
+        moe_gmm.launches = moe_gmm.dx_launches = moe_gmm.dw_launches = 0
+        fa.launches = fa.bwd_launches = 0
+
+    # -- 3. dx and dw against their plain versions ----------------------------
+    # (ptxas of the forward, dx and dw kernels, from this run's build)
+    emit("build_grouped_matmul", nvidia_smi=card,
+         ptxas=ptxas_kernels(_build.build_log.get("moe_gmm.cu", ""), "grouped_matmul"))
+    cases = [  # name, T, d, f, E, group sizes, top-k of the routing
+        ("olmoe-1b-7b gate/up", rows, d, f, e, "route", k),
+        ("olmoe-1b-7b down", rows, f, d, e, "route", k),
+        ("qwen2-moe-a2.7b gate/up (f 1408: 5.5 column tiles)", qrows,
+         qcfg.d_model, qcfg.moe_d_ff, qcfg.n_experts, "route", qcfg.top_k),
+        ("qwen2-moe-a2.7b down", qrows, qcfg.moe_d_ff, qcfg.d_model,
+         qcfg.n_experts, "route", qcfg.top_k),
+        ("all rows in one expert", 4096, d, f, e, "one", k),
+        ("1000 rows: groups off 64-row steps, empty experts", 1000, d, f, e, "random", k),
+        ("one row", 1, d, f, e, "random", k),
+    ]
+    max_err = {"dx": 0.0, "dw": 0.0}
+    for name, t, dd, ff, ee, kind, kk in cases:
+        x = torch.randn((t, dd), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((ee, dd, ff), generator=gen, device=dev) * 0.02
+             ).to(torch.bfloat16)
+        dy = torch.randn((t, ff), generator=gen, device=dev).to(torch.bfloat16)
+        sizes = gmm_case_sizes(gen, dev, t, ee, kind, kk)
+        dx = moe_gmm.grouped_matmul_dx(dy, w, sizes)
+        # a NaN-filled buffer: an element the kernel skipped shows
+        dw = moe_gmm.grouped_matmul_dw(x, dy, sizes, out=torch.full(
+            (ee, dd, ff), float("nan"), dtype=torch.bfloat16, device=dev))
+        want_dx = moe_gmm.grouped_matmul_dx_plain(dy, w, sizes)
+        want_dw = moe_gmm.grouped_matmul_dw_plain(x, dy, sizes)
+        torch.cuda.synchronize()
+        errs = {"dx": gmm_errors(dx, want_dx), "dw": dw_errors(dw, want_dw, sizes)}
+        nonempty = int((sizes > 0).sum())
+        floors = {"dx": gmm_floor_ms(t, ff, dd, nonempty),
+                  "dw": gmm_dw_floor_ms(t, dd, ff, ee)}
+        calls = {"dx": (lambda: moe_gmm.grouped_matmul_dx(dy, w, sizes),
+                        lambda: moe_gmm.grouped_matmul_dx_plain(dy, w, sizes)),
+                 "dw": (lambda: moe_gmm.grouped_matmul_dw(x, dy, sizes),
+                        lambda: moe_gmm.grouped_matmul_dw_plain(x, dy, sizes))}
+        libs = {"dx": grouped_mm_call(dy, w.transpose(1, 2), sizes),
+                "dw": grouped_mm_call(x.t(), dy, sizes)}
+        for part in ("dx", "dw"):
+            max_err[part] = max(max_err[part], errs[part]["max_abs_err"])
+            bound_ms, bound_by = bound(*floors[part])
+            lib, no_lib = libs[part]
+            emit("kernel_check", kernel=f"grouped_matmul_{part}", case=name,
+                 shape=[t, dd, ff, ee], nonempty_experts=nonempty,
+                 largest_group=int(sizes.max()), row_tiles=gmm_row_tiles(sizes),
+                 **errs[part], tol=GMM_TOL if part == "dx" else GMM_DW_SLAB_TOL,
+                 ms=time_ms(calls[part][0], 20),
+                 plain_ms=time_ms(calls[part][1], 3, 1),
+                 library_ms=time_ms(lib, 20) if lib else None,
+                 library=no_lib or "torch._grouped_mm",
+                 bound_ms=bound_ms, bound_by=bound_by, nvidia_smi=card)
+        del x, w, dy, dx, dw, want_dx, want_dw, calls, libs
+    torch.cuda.empty_cache()
+
+    # -- 4. train: full width, the depth the memory allows ---------------------
+    reckoning = {layers: moe_train_reckoning_gb(cfg, layers) for layers in MOE_TRAIN_DEPTHS}
+    steps = MOE_TRAIN_WARMUP + MOE_TRAIN_TIMED
+    opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))   # launch.train's defaults
+    stream = make_stream(cfg, b, s, seed=0)
+    batches = [{key: torch.from_numpy(v).to(dev) for key, v in
+                stream.batch_at(i).items()} for i in range(steps)]
+    pgen = torch.Generator(device=dev)
+    first = moe_train_depth(cfg, MOE_TRAIN_BUDGET_GB, MOE_TRAIN_DEPTHS)
+    for layers in MOE_TRAIN_DEPTHS[MOE_TRAIN_DEPTHS.index(first):]:
+        mcfg = cut_depth(cfg, layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pgen.manual_seed(0)
+        state = init_train_state(mcfg, opt, pgen)
+        step = make_train_step(mcfg, opt)
+        torch.cuda.synchronize()
+        reset()
+        times, losses = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))     # waits for the step
+            times.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = counts()
+        del state, step, metrics
+        if peak_gb <= MOE_TRAIN_BUDGET_GB or layers == MOE_TRAIN_DEPTHS[-1]:
+            break
+        emit("train_depth_over_budget", arch=cfg.name, layers=layers,
+             peak_mem_gb=peak_gb, budget_gb=MOE_TRAIN_BUDGET_GB)
+    want = {key: v * steps for key, v in moe_step_launches(layers).items()}
+    if launches != want:
+        raise AssertionError(f"{mcfg.name} training launched {launches}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{mcfg.name} training losses {losses}")
+    if peak_gb > MOE_TRAIN_BUDGET_GB:
+        raise AssertionError(f"{mcfg.name} at {layers} layers peaks at {peak_gb} GB "
+                             f"> {MOE_TRAIN_BUDGET_GB}")
+    step_s = float(np.median(times[MOE_TRAIN_WARMUP:]))
+    n_active, tokens = active_params(mcfg), b * s
+    emit("train", arch=cfg.name, layers=f"{layers} of {cfg.n_layers}",
+         reckoning_by_layers=reckoning, budget_gb=MOE_TRAIN_BUDGET_GB,
+         batch=b, seq=s, remat=mcfg.remat, moe_dispatch=mcfg.moe_dispatch,
+         param_dtype=mcfg.param_dtype, compute_dtype=mcfg.compute_dtype,
+         warmup_steps=MOE_TRAIN_WARMUP, step_seconds=times, step_ms=step_s * 1e3,
+         tokens_per_s=tokens / step_s, params=mcfg.param_count(),
+         active_params=n_active,
+         mfu_6nt=6 * n_active * tokens / (step_s * PEAK_BF16_FLOPS),
+         peak_mem_gb=peak_gb, launches=launches, losses=losses, nvidia_smi=card)
+    torch.cuda.empty_cache()
+
+    # -- 5. correctness at full width ------------------------------------------
+    # (a) the kernels' gradient against the plain grouped GEMM's, one step's,
+    # the plain run choosing the experts the kernels' run chose (a near-tie
+    # may flip the routing: ROADMAP C7) with its own differentiable router
+    # probabilities; then the plain run routing freely, reported only
+    batch = batches[0]
+    pgen.manual_seed(0)
+    params = tfm.init_params(mcfg, pgen)
+
+    def loss(p, bt):
+        return tfm.loss_fn(mcfg, p, bt)
+
+    with recorded_choices(moe) as choices:
+        (k_loss, _), k_grads = value_and_grad(loss, params, batch)
+    kernel = moe_gmm.grouped_matmul
+    moe_gmm.grouped_matmul = moe_gmm.grouped_matmul_plain
+    try:
+        with replayed_choices(moe, choices):
+            (p_loss, _), p_grads = value_and_grad(loss, params, batch)
+        k_norm, p_norm = global_norm(k_grads).item(), global_norm(p_grads).item()
+        plain_flat = flatten(p_grads)
+        leaf_rel = {key: ((a - plain_flat[key]).abs().max()
+                          / plain_flat[key].abs().max().clamp_min(1e-30)).item()
+                    for key, a in flatten(k_grads).items()}
+        del p_grads, plain_flat
+        (f_loss, _), f_grads = value_and_grad(loss, params, batch)
+        f_norm = global_norm(f_grads).item()
+        del f_grads
+    finally:
+        moe_gmm.grouped_matmul = kernel
+    with torch.no_grad():
+        logit_std = tfm.forward(mcfg, params, {"tokens": batch["tokens"][:1]}
+                                ).float().std().item()
+    agreement = {
+        "loss": k_loss.item(), "plain_loss": p_loss.item(),
+        "abs_loss_diff": abs(k_loss.item() - p_loss.item()), "logit_std": logit_std,
+        "bound_abs_loss_diff": TRAIN_LOSS_STD_TOL * logit_std,
+        "grad_norm": k_norm, "plain_grad_norm": p_norm,
+        "grad_norm_rel_err": abs(k_norm - p_norm) / p_norm,
+        "bound_grad_norm_rel_err": TRAIN_GNORM_REL_TOL,
+        "leaf_max_abs_diff_over_max_abs_grad": leaf_rel,
+        "free_routing": {"plain_loss": f_loss.item(),
+                         "abs_loss_diff": abs(k_loss.item() - f_loss.item()),
+                         "plain_grad_norm": f_norm,
+                         "grad_norm_rel_err": abs(k_norm - f_norm) / f_norm},
+    }
+    emit("train_step_vs_plain_gmm", arch=cfg.name, layers=layers, batch=b, seq=s,
+         routing="replayed", routing_calls=len(choices), **agreement)
+    if not (agreement["abs_loss_diff"] <= agreement["bound_abs_loss_diff"]
+            and agreement["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL):
+        raise AssertionError(f"kernel and plain training steps disagree: {agreement}")
+    del params, k_grads, choices
+    torch.cuda.empty_cache()
+
+    # (b) the loss falls on one repeated batch; (c) one step's launches
+    opt = AdamW(schedule=cosine_schedule(1e-3, 1, LEARN_STEPS), weight_decay=0.0)
+    pgen.manual_seed(1)
+    state = init_train_state(mcfg, opt, pgen)
+    step = make_train_step(mcfg, opt)
+    losses = []
+    for i in range(LEARN_STEPS):
+        reset()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            step_launches = counts()
+    emit("train_learns", arch=cfg.name, layers=layers, steps=LEARN_STEPS,
+         losses=losses, bound_last_over_first=LEARN_DROP, step_launches=step_launches)
+    if not losses[-1] < LEARN_DROP * losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if step_launches != moe_step_launches(layers):
+        raise AssertionError(f"one train step launched {step_launches}, want "
+                             f"{moe_step_launches(layers)}")
+
+    # -- 6. profile: where the time of one train step goes --------------------
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit("profile_train_step", arch=cfg.name, layers=layers, batch=b, seq=s,
+         nvidia_smi=card, **summarize(trace, wall, 1))
+    del state, step, metrics, batches, batch
+    torch.cuda.empty_cache()
+
+    # -- the dx and dw calls of one train step: gate, up and down a layer ----
+    sizes = moe_group_sizes(gen, dev, b * s, e, k)
+    nonempty = int((sizes > 0).sum())
+    x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    hid = torch.randn((rows, f), generator=gen, device=dev).to(torch.bfloat16)
+    w_in = (torch.randn((e, d, f), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    w_down = (torch.randn((e, f, d), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    # (x, w, dy) of each product; gate and up share x and their shapes
+    calls = [(x, w_in, hid), (x, w_in, hid), (hid, w_down, x)] * layers
+    entries = []
+    for part, kernel_fn, plain_fn in (
+            ("dx", lambda a, w, g: moe_gmm.grouped_matmul_dx(g, w, sizes),
+             lambda a, w, g: moe_gmm.grouped_matmul_dx_plain(g, w, sizes)),
+            ("dw", lambda a, w, g: moe_gmm.grouped_matmul_dw(a, g, sizes),
+             lambda a, w, g: moe_gmm.grouped_matmul_dw_plain(a, g, sizes))):
+        floors = [gmm_floor_ms(rows, w.shape[2], w.shape[1], nonempty) if part == "dx"
+                  else gmm_dw_floor_ms(rows, w.shape[1], w.shape[2], e)
+                  for _, w, _ in calls]
+        mix_bound_ms, mix_bound_by = bound(sum(fl[0] for fl in floors),
+                                           sum(fl[1] for fl in floors))
+        libs = [grouped_mm_call(g, w.transpose(1, 2), sizes) if part == "dx"
+                else grouped_mm_call(a.t(), g, sizes) for a, w, g in calls[:3]]
+        no_lib = next((why for call, why in libs if call is None), None)
+        mix = {
+            "ms": time_ms(lambda: [kernel_fn(*c) for c in calls], 5),
+            "plain_ms": time_ms(lambda: [plain_fn(*c) for c in calls], 1, 1),
+            "library_ms": (None if no_lib else
+                           time_ms(lambda: [call() for call, _ in libs * layers], 5)),
+            "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
+        }
+        emit("kernel_train_mix", kernel=f"grouped_matmul_{part}", calls=len(calls),
+             layers=layers, shape=[rows, d, f, e], nonempty_experts=nonempty,
+             library=no_lib or "torch._grouped_mm", nvidia_smi=card, **mix)
+        entries.append({
+            "name": f"grouped_matmul_{part}", "route": "cuda", "source": GMM_SOURCE,
+            "replaces": GMM_BWD_REPLACES,
+            "launches": launches[f"grouped_matmul_{part}"],
+            "max_abs_err": max_err[part], **mix})
+        del libs
+    del x, hid, w_in, w_down, calls
+    torch.cuda.empty_cache()
+
+    # -- launch.train on the card, smoke config --------------------------------
+    reset()
+    out = train.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cuda",
+                      "--steps", "3"])
+    torch.cuda.synchronize()
+    emit("launch_train", arch="olmoe-1b-7b", smoke=True, steps=out["steps_run"],
+         loss=out["loss"], launches=counts())
+    if out["steps_run"] != 3 or not math.isfinite(out["loss"]) or (
+            counts()["grouped_matmul_dw"] == 0):
+        raise AssertionError(f"launch.train on the smoke MoE config: {out}, {counts()}")
+    return entries
+
+
 def gang_path(dev, card) -> None:
     """The gang trainer: gemma3-1b at full width, two members with their own
     lr in one batched run against each member alone (the same core with
     M = 1): the losses of every step agree and the flash-attention launches
     a step do not grow with M; then a smoke-size mamba2 gang, so that the
-    SSD scan's vmap rule launches its kernels."""
+    SSD scan's vmap rule launches its kernels, and a smoke-size olmoe gang,
+    so that the grouped GEMM's rule folds the members into its experts."""
     from repro_torch.configs import get, get_smoke
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm
     from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.train import ensemble
 
     def fa_counts():
         return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches}
+
+    def gmm_counts():
+        return {"grouped_matmul": moe_gmm.launches,
+                "grouped_matmul_dx": moe_gmm.dx_launches,
+                "grouped_matmul_dw": moe_gmm.dw_launches, **fa_counts()}
 
     def ssd_counts():
         return {"ssd_chunk_state": kssd.state_launches,
@@ -2140,9 +2613,11 @@ def gang_path(dev, card) -> None:
         fa.launches = fa.bwd_launches = 0
         kssd.state_launches = kssd.scan_launches = 0
         kssd.state_bwd_launches = kssd.scan_bwd_launches = 0
+        moe_gmm.launches = moe_gmm.dx_launches = moe_gmm.dw_launches = 0
 
     for cfg, batch, seq in ((get(GANG_ARCH), GANG_BATCH, GANG_SEQ),
-                            (get_smoke("mamba2-780m"), 2, 64)):
+                            (get_smoke("mamba2-780m"), 2, 64),
+                            (get_smoke("olmoe-1b-7b"), 2, 64)):
         runs = {}
         for members in ((0,), (1,), (0, 1)):
             torch.cuda.empty_cache()
@@ -2157,7 +2632,8 @@ def gang_path(dev, card) -> None:
                                          warmup=max(1, GANG_STEPS // 10))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            counts = fa_counts() if "attn" in cfg.layer_types else ssd_counts()
+            counts = (gmm_counts() if "moe" in cfg.layer_types else
+                      ssd_counts() if "ssm" in cfg.layer_types else fa_counts())
             runs[members] = {
                 "losses": losses.float().cpu().T.tolist(),
                 "launches_per_step": {k: v / GANG_STEPS for k, v in counts.items()},
@@ -2236,6 +2712,9 @@ def main() -> None:
     kernels.append(gemma3_train_path(dev, card))
     torch.cuda.empty_cache()
     kernels += ssm_train_path(dev, card)
+    torch.cuda.empty_cache()
+    kernels += moe_train_path(dev, card)
+    torch.cuda.empty_cache()
     gang_path(dev, card)
 
     print(json.dumps({"kernels": kernels}), flush=True)

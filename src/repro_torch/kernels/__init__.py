@@ -7,8 +7,8 @@ import torch
 def refuse_grad(kernel: str, *tensors: torch.Tensor | None) -> None:
     """Raises when autograd would need a gradient through ``kernel``.
 
-    The grouped-GEMM kernel, and the two SSD-scan kernels called alone, have
-    no backward (flash attention and the whole SSD scan have one, as
+    The two SSD-scan kernels called alone have no backward (flash
+    attention, the whole SSD scan and the grouped GEMM have one, as
     autograd.Functions): their outputs are fresh
     tensors filled outside autograd, so a gradient would silently skip them.
     Their wrappers call this for a tensor off the CPU, before they launch: under

@@ -383,6 +383,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "r"(src), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              uint32_t src, int c0, int c1,
                                              int c2, int c3) {
@@ -472,6 +481,12 @@ inline EncodeTiled encoder() {
 inline bool encode(CUtensorMap* map, const void* base, int rank,
                    const cuuint64_t* dims, const cuuint64_t* strides,
                    const cuuint32_t* box) {
+  // cuTensorMapEncodeTiled needs a current context, which a thread that
+  // has made no launch yet (autograd's backward thread, say) lacks:
+  // setting the current device makes its primary context current.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return false;
   const EncodeTiled fn = encoder();
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,

@@ -1,34 +1,45 @@
-// Grouped (ragged) expert matmul for Hopper (sm_90a): y[t] = x[t] @ w[e(t)]
+// Grouped (ragged) expert matmul for Hopper (sm_90a) and its gradient:
+//   forward      y[t]  = x[t] @ w[e(t)]          (grouped_matmul)
+//   dx           dx[t] = dy[t] @ w[e(t)]^T       (grouped_matmul_dx)
+//   dw           dw[e] = x_e^T @ dy_e            (grouped_matmul_dw)
 // for rows sorted by expert; bf16 in, fp32 sums, bf16 out.
 //
-// Replaces the TPU kernel src/repro/kernels/moe_gmm.py:66 (grouped_matmul;
-// body _gmm_kernel :57, pack pass _pack :25, the pl.pallas_call at :92; jit
-// wrapper kernels/ops.py::grouped_matmul).  Same function: x (T, d) rows
-// sorted by expert, w (E, d, f), group_sizes (E,) summing to T; an expert
-// with no rows contributes nothing.
+// The forward replaces the TPU kernel src/repro/kernels/moe_gmm.py:66
+// (grouped_matmul; body _gmm_kernel :57, pack pass _pack :25, the
+// pl.pallas_call at :92; jit wrapper kernels/ops.py::grouped_matmul).  Same
+// function: x (T, d) rows sorted by expert, w (E, d, f), group_sizes (E,)
+// summing to T; an expert with no rows contributes nothing.  dx and dw are
+// its gradient, which the reference gets by differentiating
+// jax.lax.ragged_dot (src/repro/models/moe.py:161-163) with XLA: no Pallas
+// kernel of its own.
 //
-// What bounds it on an H100: at olmoe-1b-7b prefill (T = 4 x 2048 x 8 =
-// 65536 rows, d 2048, f 1024, E 64) one call does 2 T d f = 2.7e11 FLOPs
-// (0.278 ms at 989 TFLOP/s) against 671 MB of x, w and y (0.200 ms at
-// 3.35 TB/s): bound by operations, so the tensor cores must be kept busy.
-// At decode (32 rows over 64 experts, ~30 of them with rows) it does
-// 1.3e8 FLOPs against the non-empty experts' weights, ~126 MB (0.038 ms):
-// bound by bytes, so it must read only those weights, with enough loads in
-// flight to stream them at the memory's rate.
+// What bounds them on an H100: at olmoe-1b-7b training (T = 4 x 2048 x 8 =
+// 65536 rows, d 2048, f 1024, E 64) each call does 2 T d f = 2.7e11 FLOPs
+// (0.278 ms at 989 TFLOP/s) against 671 MB of operands and output read
+// and written once (0.200 ms at 3.35 TB/s): bound by operations, so the
+// tensor cores must be kept busy.
+// At decode (32 rows over 64 experts, ~30 of them with rows) the forward
+// does 1.3e8 FLOPs against the non-empty experts' weights, ~126 MB
+// (0.038 ms): bound by bytes, so it must read only those weights, with
+// enough loads in flight to stream them at the memory's rate.
 //
-// What the design does about that:
+// What the design does about that (the forward, and dx, which is the
+// forward's kernel with w read transposed):
 // * A block computes 128 x 256 output tiles (at BN 128 each product needs
-//   4/3 the operand bytes, and a build of it was slower at every shape).  Products by wgmma m64n256k16 (bf16 operands, fp32
-//   accumulators in registers), both operands read from shared memory:
-//   x K-major, w as it lies (N contiguous: the instruction's transpose flag
-//   for B), so the weights keep the port's layout.
+//   4/3 the operand bytes, and a build of it was slower at every shape).
+//   Products by wgmma m64n256k16 (bf16 operands, fp32 accumulators in
+//   registers), both operands read from shared memory: x K-major, w as it
+//   lies.  For y, w[e] (d, f) is N-major (the instruction's transpose flag
+//   for B); for dx, B = w[e]^T with K = f and N = d, so the same rows of
+//   w are K-major, wgmma's native B layout: no transposed copy of w.
 // * Operands arrive by TMA into a ring of kStages (3) stages, each one
 //   k-step (64 deep, 128 bytes of bf16: the 128-byte swizzle) of a 128-row
 //   tile of x and a 64 x BN slab of the expert's weight.  x is a 2-D
 //   tensor map (d, T): a tile starts at any row; rows past T come in as
 //   zeros, rows past the group's end (the next expert's) are loaded and
-//   never stored.  w is a 3-D map (f, d, E), so a K tail (d not a multiple
-//   of 64) is zero-filled inside the expert and never reads expert e + 1.
+//   never stored.  w is a 3-D map (f, d, E), so a K tail (d, or f for dx,
+//   not a multiple of 64) is zero-filled inside the expert and never reads
+//   expert e + 1.
 // * Warp specialisation: one producer warpgroup (one thread issues every
 //   load; setmaxnreg.dec to 40 registers) and two consumer warpgroups
 //   (64 rows of the tile each; setmaxnreg.inc to 232), handing stages over
@@ -60,9 +71,29 @@
 // * The ring gets 3 stages, not 4: the epilogue's buffer (66 KB) takes the
 //   fourth's room.
 //
+// dw, grouped_matmul_dw_kernel: one 128 x 256 output tile per (expert,
+// d-tile, f-tile), numbered expert slowest and f-tile fastest, so the
+// blocks working at one time share one or two experts' rows of x and dy
+// in L2; the count is known on the host (E x d-tiles x f-tiles), and the
+// same persistent walk, ring, roles and epilogue as above.  K runs over
+// the expert's rows [off[e], off[e] + size[e]) in steps of 64, each a TMA
+// load starting at any row.  A = x_e^T is M-major (two 64 x 64 boxes of x,
+// one a consumer warpgroup: the transpose flag for A), B = dy_e N-major
+// (four 64 x 64 boxes, as w in the forward).  The last step of an expert
+// whose size is not a multiple of 64 holds the next expert's rows (or
+// zeros past T): each consumer warpgroup zeroes them in its box of x and
+// in two of the four boxes of dy, then both meet at a named barrier
+// before any wgmma reads the stage; so a row of another expert never
+// enters the sum.  An empty expert has no k-step: its tiles store the
+// zeroed accumulators, so its slab is exactly zero without the caller
+// filling dw.  Every element is summed by one block in row order: no
+// split-K, no atomics, deterministic (a gang member's dw has the same
+// bits alone and with others folded into the expert axis).  At olmoe's
+// training shape there are 64 x 16 x 4 = 4096 tiles.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/_build.py).  Plain C
-// interface, loaded with ctypes; the kernel allocates nothing.  The tensor
+// interface, loaded with ctypes; the kernels allocate nothing.  The tensor
 // maps are encoded on the host for every call (x moves) by hopper.cuh's
 // encoder, which finds the driver's through the runtime
 // (cudaGetDriverEntryPoint), so nothing beyond the runtime is linked.
@@ -102,12 +133,15 @@ constexpr int kSmemBytes = kStages * kStageBytes + kOutBytes + 1024;
 constexpr int kMaxExperts = 512;
 static_assert(kSmemBytes <= 227 * 1024, "shared memory");
 static_assert(kATile % 1024 == 0 && kWChunk % 1024 == 0, "swizzle atoms");
+static_assert(kATile == kConsumers * kWChunk, "dw: one 64 x 64 box of x a warpgroup");
 
 using namespace hopper;
 
-// d (64 x 256, fp32, the wgmma fragment) += a (64 x 16, K-major) *
-// b (16 x 256, N-major: the transpose flag), both from shared memory;
-// with accumulate == 0, d = a * b.
+// d (64 x 256, fp32, the wgmma fragment) += a (64 x 16) * b (16 x 256),
+// both from shared memory; kTransA / kTransB 1 reads that operand MN-major
+// (the instruction's transpose flags), 0 K-major; with accumulate == 0,
+// d = a * b.
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_tile(float (&d)[128], uint64_t desc_a,
                                            uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -129,7 +163,7 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[128], uint64_t desc_a,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -162,12 +196,53 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[128], uint64_t desc_a,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA),
+        "n"(kTransB));
 }
 
-// Where tile `tile` of the walk lies: its expert, first row, the end of the
-// expert's rows and its first output column.  Tiles are numbered column
-// tile fastest.
+
+// -- the tile walks ------------------------------------------------------------
+
+// Inclusive prefix sums over the experts of their rows (clamped to `rows`,
+// so that sizes that do not sum to T never reach past x or y) and of their
+// 128-row tiles, into shared memory: every thread reads, one warp scans.
+__device__ __forceinline__ void group_ends(const int* group_sizes, int experts,
+                                           int rows, int* s_row_end,
+                                           int* s_tile_end) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < experts; e += kThreads)
+    s_row_end[e] = min(max(group_sizes[e], 0), rows);
+  __syncthreads();
+  if (tid < 32) {
+    int row_carry = 0;
+    int tile_carry = 0;
+    for (int base = 0; base < experts; base += 32) {
+      const int e = base + tid;
+      int size = e < experts ? s_row_end[e] : 0;
+      int tiles = (size + kBM - 1) / kBM;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int size_up = __shfl_up_sync(0xffffffffu, size, off);
+        const int tiles_up = __shfl_up_sync(0xffffffffu, tiles, off);
+        if (tid >= off) {
+          size += size_up;
+          tiles += tiles_up;
+        }
+      }
+      if (e < experts) {
+        s_row_end[e] = min(row_carry + size, rows);
+        s_tile_end[e] = tile_carry + tiles;
+      }
+      row_carry = min(row_carry + __shfl_sync(0xffffffffu, size, 31), rows);
+      tile_carry += __shfl_sync(0xffffffffu, tiles, 31);
+    }
+  }
+  __syncthreads();
+}
+
+// Where tile `tile` of the forward's (or dx's) walk lies: its expert, first
+// row, the end of the expert's rows and its first output column.  Tiles
+// are numbered column tile fastest.
 struct Tile {
   int e, row0, row_end, n0;
 };
@@ -197,6 +272,66 @@ __device__ __forceinline__ Tile locate(int tile, int col_tiles, int experts,
   return t;
 }
 
+// Where tile `tile` of dw's walk lies: its expert, first output row (of d)
+// and column (of f), and the expert's rows of x and dy [start, end).
+// Numbered expert slowest, f-tile fastest.
+struct SlabTile {
+  int e, m0, n0, start, end;
+};
+
+__device__ __forceinline__ SlabTile locate_slab(int tile, int m_tiles,
+                                                int n_tiles,
+                                                const int* s_row_end) {
+  SlabTile t;
+  t.e = tile / (m_tiles * n_tiles);
+  const int rest = tile % (m_tiles * n_tiles);
+  t.m0 = (rest / n_tiles) * kBM;
+  t.n0 = (rest % n_tiles) * kBN;
+  t.start = t.e > 0 ? s_row_end[t.e - 1] : 0;
+  t.end = s_row_end[t.e];
+  return t;
+}
+
+__device__ __forceinline__ void init_ring(uint64_t* full_bar,
+                                          uint64_t* empty_bar) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_addr(&full_bar[s]), 1);
+      mbar_init(smem_addr(&empty_bar[s]), kConsumers * 4);  // every warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+// Rounds a consumer warpgroup's fp32 fragment to bf16 into its 64 rows of
+// the epilogue's buffer: fragment element 4j + r holds row 16 warp +
+// lane / 4 (+ 8 for r >= 2) and columns 8j + 2 (lane % 4) (+ 1 for odd
+// r); column 8j lies in box j / 8, at 16-byte chunk j % 8 of its row,
+// which the 128-byte swizzle moves to chunk (j % 8) ^ (row % 8).
+__device__ __forceinline__ void stage_out(const float (&acc)[kBN / 2],
+                                          unsigned char* out_ptr, int warp,
+                                          int lane) {
+  const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          out_ptr + (j / 8) * kOutBox + (r0 + 8 * half) * 128 +
+          (((j % 8) ^ (r0 % 8)) * 16) + (lane % 4) * 4) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                acc[4 * j + 2 * half + 1]);
+  }
+}
+
+// A barrier over the two consumer warpgroups (id 3; 1 and 2 are theirs).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 3, %0;\n" ::"n"(kConsumers * 128) : "memory");
+}
+
+// -- y = x @ w[e] (kWT false) and dx = dy @ w[e]^T (kWT true) -----------------
+
+template <bool kWT>
 __global__ void __launch_bounds__(kThreads, 1)
     grouped_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
                           const __grid_constant__ CUtensorMap map_w,
@@ -214,43 +349,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t ring = (smem_addr(smem_raw) + 1023) & ~1023u;
 
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(smem_addr(&full_bar[s]), 1);
-      mbar_init(smem_addr(&empty_bar[s]), kConsumers * 4);  // every warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  for (int e = tid; e < experts; e += kThreads) {
-    // clamped, so that sizes that do not sum to T never reach past x or y
-    s_row_end[e] = min(max(group_sizes[e], 0), rows);
-  }
-  __syncthreads();
-  if (tid < 32) {
-    int row_carry = 0;
-    int tile_carry = 0;
-    for (int base = 0; base < experts; base += 32) {
-      const int e = base + tid;
-      int size = e < experts ? s_row_end[e] : 0;
-      int tiles = (size + kBM - 1) / kBM;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int size_up = __shfl_up_sync(0xffffffffu, size, off);
-        const int tiles_up = __shfl_up_sync(0xffffffffu, tiles, off);
-        if (tid >= off) {
-          size += size_up;
-          tiles += tiles_up;
-        }
-      }
-      if (e < experts) {
-        s_row_end[e] = min(row_carry + size, rows);
-        s_tile_end[e] = tile_carry + tiles;
-      }
-      row_carry = min(row_carry + __shfl_sync(0xffffffffu, size, 31), rows);
-      tile_carry += __shfl_sync(0xffffffffu, tiles, 31);
-    }
-  }
-  __syncthreads();
+  init_ring(full_bar, empty_bar);
+  group_ends(group_sizes, experts, rows, s_row_end, s_tile_end);
 
   const int col_tiles = (n_dim + kBN - 1) / kBN;
   const int tiles = s_tile_end[experts - 1] * col_tiles;
@@ -263,17 +363,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     // -- producer: one thread issues every TMA load ------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == kConsumers * 128) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&map_x))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&map_w))
-                   : "memory");
+      prefetch_tensormap(&map_x);
+      prefetch_tensormap(&map_w);
       int it = 0;  // k-steps loaded so far, over all of this block's tiles
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const Tile t = locate(tile, col_tiles, experts, s_row_end, s_tile_end);
-        // boxes of w wholly past f would load only zeros: skip them (their
-        // columns are never stored)
+        // boxes of w wholly past the output's columns would load only zeros:
+        // skip them (their columns are never stored)
         const int chunks =
             min(kBN / kChunkN, (n_dim - t.n0 + kChunkN - 1) / kChunkN);
         for (int ks = 0; ks < k_steps; ++ks, ++it) {
@@ -283,9 +379,16 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_expect_tx(full, kATile + chunks * kWChunk);
           const uint32_t a = ring + stage * kStageBytes;
           tma_load_2d(a, &map_x, full, ks * kBK, t.row0);
-          for (int c = 0; c < chunks; ++c)
-            tma_load_3d(a + kATile + c * kWChunk, &map_w, full,
-                        t.n0 + c * kChunkN, ks * kBK, t.e);
+          for (int c = 0; c < chunks; ++c) {
+            // w[e] lies (N, K) for dx: 64 of its rows (output columns) a
+            // box, K-major; (K, N) for y: 64 of its columns a box
+            if (kWT)
+              tma_load_3d(a + kATile + c * kWChunk, &map_w, full, ks * kBK,
+                          t.n0 + c * kChunkN, t.e);
+            else
+              tma_load_3d(a + kATile + c * kWChunk, &map_w, full,
+                          t.n0 + c * kChunkN, ks * kBK, t.e);
+          }
         }
       }
     }
@@ -313,12 +416,21 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kk = 0; kk < kBK / 16; ++kk) {
           // x: K-major rows of 128 bytes, 8-row swizzle atoms 1024 bytes
           // apart (SBO); a 16-deep slice starts 32 bytes further along.
-          // w: N-major, rows of 64 columns 128 bytes apart, 8-row atoms
-          // 1024 bytes apart (SBO), the 64-column boxes kWChunk apart (LBO);
-          // a 16-deep slice starts 16 rows further down.
-          wgmma_tile(acc, smem_desc(a + kk * 32, 16, 1024),
-                     smem_desc(b + kk * 16 * 128, kWChunk, 1024),
-                     ks > 0 || kk > 0);
+          if constexpr (kWT) {
+            // w[e] for dx: K-major like x, its 256 rows contiguous (the
+            // four boxes follow each other)
+            wgmma_tile<0, 0>(acc, smem_desc(a + kk * 32, 16, 1024),
+                             smem_desc(b + kk * 32, 16, 1024),
+                             ks > 0 || kk > 0);
+          } else {
+            // w[e] for y: N-major, rows of 64 columns 128 bytes apart,
+            // 8-row atoms 1024 bytes apart (SBO), the 64-column boxes
+            // kWChunk apart (LBO); a 16-deep slice starts 16 rows further
+            // down.
+            wgmma_tile<0, 1>(acc, smem_desc(a + kk * 32, 16, 1024),
+                             smem_desc(b + kk * 16 * 128, kWChunk, 1024),
+                             ks > 0 || kk > 0);
+          }
         }
         wgmma_commit();
         fence_acc(acc);
@@ -333,27 +445,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_arrive(smem_addr(&empty_bar[(it + kStages - 1) % kStages]));
 
       // Epilogue: round to bf16 into shared memory, then TMA stores of the
-      // warpgroup's 64 rows (cut at f and T by the tensor map) if they all
-      // lie in the group, else 16-byte stores of the rows that do.  The
-      // TMA stores run on while the next tile is multiplied; the buffer is
-      // written again only once they have read it.
+      // warpgroup's 64 rows (cut at the columns and T by the tensor map)
+      // if they all lie in the group, else 16-byte stores of the rows that
+      // do.  The TMA stores run on while the next tile is multiplied; the
+      // buffer is written again only once they have read it.
       if (tid % 128 == 0) bulk_wait_read();
       warpgroup_sync(1 + wg);
-      // fragment element 4j + r holds row 16 warp + lane / 4 (+ 8 for
-      // r >= 2) and columns 8j + 2 (lane % 4) (+ 1 for odd r); column 8j
-      // lies in box j / 8, at 16-byte chunk j % 8 of its row, which the
-      // 128-byte swizzle moves to chunk (j % 8) ^ (row % 8)
-      const int r0 = warp * 16 + lane / 4;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-#pragma unroll
-        for (int j = 0; j < kBN / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(
-              out_ptr + (j / 8) * kOutBox + (r0 + 8 * half) * 128 +
-              (((j % 8) ^ (r0 % 8)) * 16) + (lane % 4) * 4) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * half],
-                                    acc[4 * j + 2 * half + 1]);
-      }
+      stage_out(acc, out_ptr, warp, lane);
       fence_async_shared();
       warpgroup_sync(1 + wg);
       const int row0 = t.row0 + wg * 64;
@@ -382,10 +480,216 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Per device: the SM count, and whether the kernel's shared memory limit
-// has been raised.
+// -- dw[e] = x_e^T @ dy_e -------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 1)
+    grouped_matmul_dw_kernel(const __grid_constant__ CUtensorMap map_x,
+                             const __grid_constant__ CUtensorMap map_dy,
+                             const __grid_constant__ CUtensorMap map_dw,
+                             const int* __restrict__ group_sizes, int rows,
+                             int m_dim, int n_dim, int experts) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int s_row_end[kMaxExperts];
+  __shared__ int s_tile_end[kMaxExperts];
+  __shared__ uint64_t full_bar[kStages];
+  __shared__ uint64_t empty_bar[kStages];
+  const uint32_t ring = (smem_addr(smem_raw) + 1023) & ~1023u;
+
+  const int tid = threadIdx.x;
+  init_ring(full_bar, empty_bar);
+  group_ends(group_sizes, experts, rows, s_row_end, s_tile_end);
+
+  const int m_tiles = (m_dim + kBM - 1) / kBM;
+  const int n_tiles = (n_dim + kBN - 1) / kBN;
+  const int tiles = experts * m_tiles * n_tiles;
+  const int wg = tid / 128;
+
+  if (wg == kConsumers) {
+    // -- producer: a stage is 64 rows of the expert: two 64 x 64 boxes of x
+    // (d columns m0 ..) and four of dy (f columns n0 ..) ---------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == kConsumers * 128) {
+      prefetch_tensormap(&map_x);
+      prefetch_tensormap(&map_dy);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const SlabTile t = locate_slab(tile, m_tiles, n_tiles, s_row_end);
+        // boxes wholly past d or f would load only zeros: skip them
+        const int a_boxes = min(kConsumers, (m_dim - t.m0 + 63) / 64);
+        const int chunks =
+            min(kBN / kChunkN, (n_dim - t.n0 + kChunkN - 1) / kChunkN);
+        for (int row = t.start; row < t.end; row += kBK, ++it) {
+          const int stage = it % kStages;
+          const uint32_t full = smem_addr(&full_bar[stage]);
+          mbar_wait(smem_addr(&empty_bar[stage]), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(full, (a_boxes + chunks) * kWChunk);
+          const uint32_t a = ring + stage * kStageBytes;
+          for (int c = 0; c < a_boxes; ++c)
+            tma_load_2d(a + c * kWChunk, &map_x, full, t.m0 + c * 64, row);
+          for (int c = 0; c < chunks; ++c)
+            tma_load_2d(a + kATile + c * kWChunk, &map_dy, full,
+                        t.n0 + c * kChunkN, row);
+        }
+      }
+    }
+  } else {
+    // -- consumers: warpgroup wg owns rows [m0 + 64 wg, + 64) of d ----------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    const uint32_t out =
+        ring + kStages * kStageBytes + wg * (kBN / kChunkN) * kOutBox;
+    unsigned char* out_ptr = smem_raw + (out - smem_addr(smem_raw));
+    unsigned char* ring_ptr = smem_raw + (ring - smem_addr(smem_raw));
+    float acc[kBN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const SlabTile t = locate_slab(tile, m_tiles, n_tiles, s_row_end);
+      // every step accumulates; an empty expert stores these zeros
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+      for (int row = t.start; row < t.end; row += kBK, ++it) {
+        const int stage = it % kStages;
+        mbar_wait(smem_addr(&full_bar[stage]), (it / kStages) & 1);
+        const uint32_t a = ring + stage * kStageBytes + wg * kWChunk;
+        const uint32_t b = ring + stage * kStageBytes + kATile;
+        const int valid = t.end - row;
+        if (valid < kBK) {
+          // The stage's rows [valid, 64) are past the expert's end: zero
+          // them in this warpgroup's box of x and in boxes 2 wg, 2 wg + 1
+          // of dy (a row keeps its 128 bytes under the swizzle), then wait
+          // for the other warpgroup's half before either reads the stage.
+          unsigned char* stage_ptr = ring_ptr + stage * kStageBytes;
+          const int chunks_a_box = (kBK - valid) * 8;  // 16-byte chunks
+          for (int i = tid % 128; i < 3 * chunks_a_box; i += 128) {
+            const int box = i / chunks_a_box;
+            const int box_off = box == 0
+                                    ? wg * kWChunk
+                                    : kATile + (2 * wg + box - 1) * kWChunk;
+            *reinterpret_cast<uint4*>(stage_ptr + box_off + valid * 128 +
+                                      (i % chunks_a_box) * 16) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          fence_async_shared();
+          consumers_sync();
+        }
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // x_e^T: M-major (64 d-columns of 128 bytes a row of x, the
+          // transpose flag), dy_e: N-major like w in the forward; 8-row
+          // atoms 1024 bytes apart (SBO), boxes kWChunk apart (LBO); a
+          // 16-deep slice starts 16 rows further down.
+          wgmma_tile<1, 1>(acc, smem_desc(a + kk * 16 * 128, kWChunk, 1024),
+                           smem_desc(b + kk * 16 * 128, kWChunk, 1024), 1);
+        }
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();
+        if (row > t.start && lane == 0)
+          mbar_arrive(smem_addr(&empty_bar[(it + kStages - 1) % kStages]));
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (t.end > t.start && lane == 0)
+        mbar_arrive(smem_addr(&empty_bar[(it + kStages - 1) % kStages]));
+
+      // Epilogue: every row of the tile is the expert's; TMA stores cut at
+      // f and d by the 3-D map of dw, which never reaches expert e + 1.
+      if (tid % 128 == 0) bulk_wait_read();
+      warpgroup_sync(1 + wg);
+      stage_out(acc, out_ptr, warp, lane);
+      fence_async_shared();
+      warpgroup_sync(1 + wg);
+      if (tid % 128 == 0 && t.m0 + wg * 64 < m_dim) {
+        for (int b = 0; b < kBN / kChunkN && t.n0 + b * kChunkN < n_dim; ++b)
+          tma_store_3d(&map_dw, out + b * kOutBox, t.n0 + b * kChunkN,
+                       t.m0 + wg * 64, t.e);
+        bulk_commit();
+      }
+    }
+    if (tid % 128 == 0) bulk_wait();
+  }
+}
+
+// -- host ----------------------------------------------------------------------
+
+// Per kernel and device: the SM count, once the kernel's shared memory
+// limit has been raised there.
 constexpr int kMaxDevices = 64;
-int device_sms[kMaxDevices];
+enum KernelId { kForward, kDx, kDw, kKernelIds };
+int device_sms[kKernelIds][kMaxDevices];
+
+cudaError_t prepare(const void* kernel, KernelId id, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (device_sms[id][dev] == 0) {
+    int count = 0;
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    device_sms[id][dev] = count;
+  }
+  *sms = device_sms[id][dev];
+  return cudaSuccess;
+}
+
+bool bad_shape(int rows, int k_dim, int n_dim, int experts) {
+  return rows <= 0 || k_dim <= 0 || n_dim <= 0 || experts <= 0 ||
+         experts > kMaxExperts || k_dim % 8 || n_dim % 8;
+}
+
+// out (rows, n_dim) = a (rows, k_dim) @ w[e] with w (E, k_dim, n_dim)
+// (kWT false: the forward), or a @ w[e]^T with w (E, n_dim, k_dim) (kWT
+// true: dx).
+template <bool kWT>
+int launch_rows(const void* a, const void* w, const void* group_sizes,
+                void* out, int rows, int k_dim, int n_dim, int experts,
+                void* stream) {
+  if (bad_shape(rows, k_dim, n_dim, experts)) return cudaErrorInvalidValue;
+  const void* kernel = reinterpret_cast<const void*>(grouped_matmul_kernel<kWT>);
+  int sms = 0;
+  cudaError_t err = prepare(kernel, kWT ? kDx : kForward, &sms);
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap map_a, map_w, map_out;
+  const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(k_dim),
+                                static_cast<cuuint64_t>(rows)};
+  const cuuint64_t a_strides[1] = {static_cast<cuuint64_t>(k_dim) * 2};
+  const cuuint32_t a_box[2] = {kBK, kBM};
+  // w innermost first: (n_dim, k_dim, E) for y, (k_dim, n_dim, E) for dx
+  const cuuint64_t inner = kWT ? k_dim : n_dim;
+  const cuuint64_t w_dims[3] = {inner, static_cast<cuuint64_t>(kWT ? n_dim : k_dim),
+                                static_cast<cuuint64_t>(experts)};
+  const cuuint64_t w_strides[2] = {inner * 2,
+                                   static_cast<cuuint64_t>(k_dim) * n_dim * 2};
+  const cuuint32_t w_box[3] = {static_cast<cuuint32_t>(kWT ? kBK : kChunkN),
+                               static_cast<cuuint32_t>(kWT ? kChunkN : kBK), 1};
+  const cuuint64_t out_dims[2] = {static_cast<cuuint64_t>(n_dim),
+                                  static_cast<cuuint64_t>(rows)};
+  const cuuint64_t out_strides[1] = {static_cast<cuuint64_t>(n_dim) * 2};
+  const cuuint32_t out_box[2] = {kChunkN, 64};
+  if (!encode(&map_a, a, 2, a_dims, a_strides, a_box) ||
+      !encode(&map_w, w, 3, w_dims, w_strides, w_box) ||
+      !encode(&map_out, out, 2, out_dims, out_strides, out_box))
+    return cudaErrorInvalidValue;
+
+  // Each expert with rows adds at most one partial row tile.
+  const long long row_tiles =
+      (rows + kBM - 1) / kBM + (experts < rows ? experts : rows);
+  const long long worst = row_tiles * ((n_dim + kBN - 1) / kBN);
+  const int blocks = static_cast<int>(worst < sms ? worst : sms);
+  grouped_matmul_kernel<kWT><<<blocks, kThreads, kSmemBytes,
+                               static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_w, map_out, static_cast<const int*>(group_sizes),
+      static_cast<bf16*>(out), rows, k_dim, n_dim, experts);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -398,55 +702,56 @@ extern "C" {
 int grouped_matmul(const void* x, const void* w, const void* group_sizes,
                    void* y, int rows, int k_dim, int n_dim, int experts,
                    void* stream) {
-  if (rows <= 0 || k_dim <= 0 || n_dim <= 0 || experts <= 0 ||
-      experts > kMaxExperts || k_dim % 8 || n_dim % 8)
-    return cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  return launch_rows<false>(x, w, group_sizes, y, rows, k_dim, n_dim, experts,
+                            stream);
+}
+
+// dx = dy @ w[e]^T: dy (rows, f), w (experts, d, f), dx (rows, d); the
+// same requirements.
+int grouped_matmul_dx(const void* dy, const void* w, const void* group_sizes,
+                      void* dx, int rows, int d, int f, int experts,
+                      void* stream) {
+  return launch_rows<true>(dy, w, group_sizes, dx, rows, f, d, experts, stream);
+}
+
+// dw[e] = x_e^T @ dy_e: x (rows, d), dy (rows, f), dw (experts, d, f), every
+// element written (an empty expert's slab with zeros); the same
+// requirements.
+int grouped_matmul_dw(const void* x, const void* dy, const void* group_sizes,
+                      void* dw, int rows, int d, int f, int experts,
+                      void* stream) {
+  if (bad_shape(rows, d, f, experts)) return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = prepare(
+      reinterpret_cast<const void*>(grouped_matmul_dw_kernel), kDw, &sms);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (device_sms[dev] == 0) {
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(grouped_matmul_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return err;
-    device_sms[dev] = sms;
-  }
 
-  CUtensorMap map_x, map_w, map_y;
-  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(k_dim),
+  CUtensorMap map_x, map_dy, map_dw;
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(d),
                                 static_cast<cuuint64_t>(rows)};
-  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(k_dim) * 2};
-  const cuuint32_t x_box[2] = {kBK, kBM};
-  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(n_dim),
-                                static_cast<cuuint64_t>(k_dim),
-                                static_cast<cuuint64_t>(experts)};
-  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(n_dim) * 2,
-                                   static_cast<cuuint64_t>(k_dim) * n_dim * 2};
-  const cuuint32_t w_box[3] = {kChunkN, kBK, 1};
-  const cuuint64_t y_dims[2] = {static_cast<cuuint64_t>(n_dim),
-                                static_cast<cuuint64_t>(rows)};
-  const cuuint64_t y_strides[1] = {static_cast<cuuint64_t>(n_dim) * 2};
-  const cuuint32_t y_box[2] = {kChunkN, 64};
-  if (!encode(&map_x, x, 2, x_dims, x_strides, x_box) ||
-      !encode(&map_w, w, 3, w_dims, w_strides, w_box) ||
-      !encode(&map_y, y, 2, y_dims, y_strides, y_box))
+  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint64_t dy_dims[2] = {static_cast<cuuint64_t>(f),
+                                 static_cast<cuuint64_t>(rows)};
+  const cuuint64_t dy_strides[1] = {static_cast<cuuint64_t>(f) * 2};
+  const cuuint32_t box[2] = {64, kBK};
+  const cuuint64_t dw_dims[3] = {static_cast<cuuint64_t>(f),
+                                 static_cast<cuuint64_t>(d),
+                                 static_cast<cuuint64_t>(experts)};
+  const cuuint64_t dw_strides[2] = {static_cast<cuuint64_t>(f) * 2,
+                                    static_cast<cuuint64_t>(d) * f * 2};
+  const cuuint32_t dw_box[3] = {kChunkN, 64, 1};
+  if (!encode(&map_x, x, 2, x_dims, x_strides, box) ||
+      !encode(&map_dy, dy, 2, dy_dims, dy_strides, box) ||
+      !encode(&map_dw, dw, 3, dw_dims, dw_strides, dw_box))
     return cudaErrorInvalidValue;
 
-  // Each expert with rows adds at most one partial row tile.
-  const long long row_tiles =
-      (rows + kBM - 1) / kBM + (experts < rows ? experts : rows);
-  const long long worst = row_tiles * ((n_dim + kBN - 1) / kBN);
-  const int blocks =
-      static_cast<int>(worst < device_sms[dev] ? worst : device_sms[dev]);
-  grouped_matmul_kernel<<<blocks, kThreads, kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      map_x, map_w, map_y, static_cast<const int*>(group_sizes),
-      static_cast<bf16*>(y),
-      rows, k_dim, n_dim, experts);
+  const long long tiles = static_cast<long long>(experts) *
+                          ((d + kBM - 1) / kBM) * ((f + kBN - 1) / kBN);
+  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
+  grouped_matmul_dw_kernel<<<blocks, kThreads, kSmemBytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      map_x, map_dy, map_dw, static_cast<const int*>(group_sizes), rows, d, f,
+      experts);
   return cudaGetLastError();
 }
 

@@ -112,9 +112,38 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     builds (at olmoe-1b-7b prefill that tensor would be 550 GB)."""
     out = torch.zeros((x.shape[0], w.shape[2]), dtype=torch.float32,
                       device=x.device)
-    start = 0
-    for e, end in enumerate(torch.cumsum(group_sizes, 0).tolist()):
-        if end > start:
-            out[start:end] = x[start:end].float() @ w[e].float()
-        start = end
+    for e, start, end in _groups(group_sizes):
+        out[start:end] = x[start:end].float() @ w[e].float()
+    return out.to(x.dtype)
+
+
+def _groups(group_sizes: torch.Tensor) -> list[tuple[int, int, int]]:
+    """(expert, first row, end row) of each expert that has rows."""
+    ends = torch.cumsum(group_sizes, 0).tolist()
+    return [(e, start, end) for e, (start, end) in enumerate(zip([0] + ends, ends))
+            if end > start]
+
+
+def grouped_matmul_dx_ref(dy: torch.Tensor, w: torch.Tensor,
+                          group_sizes: torch.Tensor) -> torch.Tensor:
+    """The grouped matmul's gradient for x: ``dx[t] = dy[t] @ w[e(t)]ᵀ``.
+    dy (T,f) rows sorted by expert; w (E,d,f).  fp32 products, one per
+    non-empty expert; output (T,d) in dy's dtype."""
+    out = torch.zeros((dy.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=dy.device)
+    for e, start, end in _groups(group_sizes):
+        out[start:end] = dy[start:end].float() @ w[e].float().mT
+    return out.to(dy.dtype)
+
+
+def grouped_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor,
+                          group_sizes: torch.Tensor) -> torch.Tensor:
+    """The grouped matmul's gradient for w: ``dw[e] = x_eᵀ @ dy_e`` over
+    expert e's rows.  x (T,d), dy (T,f), rows sorted by expert.  fp32 sums,
+    one product per non-empty expert; an empty expert's slab is exactly
+    zero.  Output (E,d,f) in x's dtype."""
+    out = torch.zeros((group_sizes.shape[0], x.shape[1], dy.shape[1]),
+                      dtype=torch.float32, device=x.device)
+    for e, start, end in _groups(group_sizes):
+        out[e] = x[start:end].float().mT @ dy[start:end].float()
     return out.to(x.dtype)

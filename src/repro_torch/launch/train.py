@@ -8,10 +8,10 @@ Full width unless ``--smoke``; on ``cuda`` unless ``--device cpu``; one
 device (no mesh).  Builds the train state, the data stream and the train
 step; checkpoints every ``--ckpt-every`` steps and at the end, and resumes
 from the latest checkpoint when restarted: kill it mid-run and rerun the
-same command.  On a card the attention runs the flash-attention kernels
-and the SSM (mamba2-780m) the SSD-scan kernels, forward and backward; MoE
-training on a card raises (the grouped-GEMM kernel has no backward yet),
-and on the CPU every kernel takes its plain version.  Runs under the PaPaS engine like any program, e.g. a study with
+same command.  On a card the attention runs the flash-attention kernels,
+the SSM (mamba2-780m) the SSD-scan kernels and the MoE FFN (olmoe-1b-7b)
+the grouped-GEMM kernels, forward and backward; on the CPU every kernel
+takes its plain version.  Runs under the PaPaS engine like any program, e.g. a study with
 ``command: python -m repro_torch.launch.train --lr ${args:lr}``.
 """
 from __future__ import annotations
@@ -54,11 +54,6 @@ def main(argv: list[str] | None = None) -> dict:
 
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     dev = resolve_device(args.device)
-    if dev.type == "cuda" and "moe" in cfg.layer_types:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training on a card needs the grouped-GEMM "
-            f"kernel's backward, which is not written yet; train on the CPU "
-            f"(--device cpu)")
     opt = AdamW(schedule=cosine_schedule(args.lr, args.warmup, args.steps))
     step_fn = make_train_step(cfg, opt, TrainStepConfig(n_micro=args.n_micro))
 

@@ -21,7 +21,10 @@ its plain version.
 
 Nothing here reads a device tensor on the host (no ``.item()``, no
 ``bincount``, no boolean-mask indexing), so a MoE layer adds no host
-synchronisation to a decode step.  ``moe_sorted_local`` and
+synchronisation to a decode step.  Nothing updates a fresh tensor in
+place from a batched one, so a gang runs the layer under
+``torch.func.vmap``: the grouped GEMM's vmap rule folds the members into
+its expert axis.  ``moe_sorted_local`` and
 ``moe_ragged_sharded`` need a device mesh and are not ported yet.
 """
 from __future__ import annotations
@@ -61,7 +64,8 @@ def _expert_mask(top_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     reference's one-hot summed over k), by a scatter."""
     mask = torch.zeros((top_idx.shape[0], n_experts), dtype=torch.float32,
                        device=top_idx.device)
-    return mask.scatter_add_(1, top_idx, torch.ones_like(top_idx, dtype=torch.float32))
+    # out of place: under torch.func.vmap (a gang) top_idx is batched
+    return mask.scatter_add(1, top_idx, torch.ones_like(top_idx, dtype=torch.float32))
 
 
 def _queue_positions(top_idx: torch.Tensor, n_experts: int, groups: int
@@ -77,7 +81,7 @@ def _queue_positions(top_idx: torch.Tensor, n_experts: int, groups: int
     sorted_key = key.gather(0, order)
     rank = torch.arange(key.numel(), device=key.device)
     in_queue = rank - torch.searchsorted(sorted_key, sorted_key, side="left")
-    return torch.empty_like(in_queue).scatter_(0, order, in_queue).view(t, k)
+    return torch.empty_like(in_queue).scatter(0, order, in_queue).view(t, k)
 
 
 def _route(x: torch.Tensor, w_router: torch.Tensor, top_k: int,
@@ -100,14 +104,13 @@ def _expert_rows(x: torch.Tensor, p: dict[str, Any], top_idx: torch.Tensor,
     flat_expert = top_idx.reshape(-1)
     order = torch.argsort(flat_expert, stable=True)
     xs = cast(x, cd).index_select(0, order // k)
-    sizes = torch.zeros(n_experts, dtype=torch.int32, device=x.device)
-    sizes.scatter_add_(0, flat_expert,
-                       torch.ones_like(flat_expert, dtype=torch.int32))
+    sizes = torch.zeros(n_experts, dtype=torch.int32, device=x.device).scatter_add(
+        0, flat_expert, torch.ones_like(flat_expert, dtype=torch.int32))
     fn = _act(act)
     gate = moe_gmm.grouped_matmul(xs, cast(p["wi_gate"], cd), sizes)
     up = moe_gmm.grouped_matmul(xs, cast(p["wi_up"], cd), sizes)
     h = moe_gmm.grouped_matmul(fn(gate) * up, cast(p["wo"], cd), sizes)
-    inverse = torch.empty_like(order).scatter_(
+    inverse = torch.empty_like(order).scatter(
         0, order, torch.arange(order.numel(), device=order.device))
     return h.index_select(0, inverse)
 

@@ -169,9 +169,11 @@ def _layers(seg: Any, count: int, axis: int = 0) -> list[Any]:
     return list(torch.unbind(seg, dim=axis))
 
 
-def _zero_aux(device: torch.device | str) -> dict[str, torch.Tensor]:
-    """Zero aux losses: the sum's start, and a model without MoE layers'."""
-    return {name: torch.zeros((), dtype=torch.float32, device=device)
+def _zero_aux(device: torch.device | str, shape: tuple[int, ...] = ()
+              ) -> dict[str, torch.Tensor]:
+    """Zero aux losses: the sum's start, and a model without MoE layers'
+    (``shape`` (M,) for a gang's members, each summing its own)."""
+    return {name: torch.zeros(shape, dtype=torch.float32, device=device)
             for name in ("load_balance", "router_z", "dropped")}
 
 
@@ -248,14 +250,6 @@ def _remat(cfg: ArchConfig, fn):
     return functools.partial(ckpt.checkpoint, fn, **kwargs)
 
 
-def check_gang(cfg: ArchConfig) -> None:
-    """Raises for an architecture whose layers a gang cannot batch yet."""
-    if "moe" in cfg.layer_types:
-        raise ValueError(
-            f"{cfg.name}: a gang cannot batch its MoE layers yet (the "
-            f"grouped-GEMM kernel has no member-axis rule and no backward)")
-
-
 def _over_members(fn, members: bool, out_dims: Any = 0):
     """``fn``, or for a gang ``fn`` under ``torch.func.vmap`` over the
     leading member axis of every argument."""
@@ -267,7 +261,7 @@ def backbone(cfg: ArchConfig, params: dict[str, Any],
              members: bool = False
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Embeddings → layers → final norm.  Returns (x (B,S,d), aux losses
-    summed over the layers).
+    summed over the layers, each (M,) for a gang).
 
     With ``members`` the parameters and tokens of a gang carry a leading
     member axis and x is (M,B,S,d): every piece (the embedding, each layer
@@ -275,8 +269,6 @@ def backbone(cfg: ArchConfig, params: dict[str, Any],
     so one pass serves all members (the kernels' vmap rules fold the members
     into their batch)."""
     _check_supported(cfg)
-    if members:
-        check_gang(cfg)
     x = _over_members(
         lambda tok, table: embed_tokens(tok, table, cfg.embed_scale,
                                         cfg.compute_dtype),
@@ -284,15 +276,17 @@ def backbone(cfg: ArchConfig, params: dict[str, Any],
     b, s = x.shape[-3], x.shape[-2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    aux_total = _zero_aux(x.device)
+    aux_total = _zero_aux(x.device, x.shape[:-3])
     for (kind, count), seg in zip(cfg.segments(), params["segments"]):
         def body(xc, lp, _kind=kind):
             xn, aux, _ = layer_body(cfg, _kind, xc, lp, positions,
                                     moe_groups=moe_groups)
             return xn, aux
 
-        # (a gang has no MoE layer, so no aux losses: out_dims None)
-        run = _remat(cfg, _over_members(body, members, out_dims=(0, None)))
+        # an MoE layer's aux losses come back per member; other kinds have
+        # none (None)
+        run = _remat(cfg, _over_members(
+            body, members, out_dims=(0, 0 if kind == "moe" else None)))
         for lp in _layers(seg, count, axis=int(members)):
             x, aux = run(x, lp)
             if aux is not None:

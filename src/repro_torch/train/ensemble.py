@@ -20,8 +20,9 @@ functions take the smoke config of ``arch``, as the reference does;
 :func:`train_gang` under them takes any :class:`ArchConfig`, the members'
 initial parameters and their tokens.  Parameters and tokens come from a
 ``torch.Generator`` seeded by each member's seed (``jax.random`` cannot be
-reproduced).  MoE architectures raise (see
-:func:`repro_torch.models.transformer.check_gang`).
+reproduced).  Every ported layer kind batches, MoE included: each member
+adds its own MoE aux losses to its loss, as the reference's vmapped
+``loss_fn`` does.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 from repro_torch.configs import get_smoke
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import check_gang, init_params, loss_fn
+from repro_torch.models.transformer import init_params, loss_fn
 from repro_torch.optim.adamw import AdamW, cosine_schedule, value_and_grad
 from repro_torch.tree import tree_map
 
@@ -91,7 +92,6 @@ def train_gang(cfg: ArchConfig, params: Any, tokens: torch.Tensor,
     lr each on a unit-base cosine schedule over the steps.  Each step's
     labels are its tokens rolled by one, as in the reference.  Returns the
     losses (steps, M), each taken before its step's update."""
-    check_gang(cfg)
     m, steps = tokens.shape[:2]
     if len(lrs) != m:
         raise ValueError(f"{len(lrs)} learning rates for {m} members")

@@ -293,6 +293,12 @@ def test_routing_is_recorded_and_replayed():
      "ssd_scan_bwd"),
     ("(anonymous namespace)::grouped_matmul_kernel(__nv_bfloat16 const*, ...)",
      "grouped_matmul"),
+    ("void (anonymous namespace)::grouped_matmul_kernel<false>(CUtensorMap, ...)",
+     "grouped_matmul"),
+    ("void (anonymous namespace)::grouped_matmul_kernel<true>(CUtensorMap, ...)",
+     "grouped_matmul_bwd"),
+    ("void (anonymous namespace)::grouped_matmul_dw_kernel(CUtensorMap, ...)",
+     "grouped_matmul_bwd"),
     ("nvjet_tst_192x192_64x3_2x1_v_bz_coopB_NNN", "matmul"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul"),
     ("Memcpy HtoD (Pageable -> Device)", "copy"),
@@ -463,3 +469,115 @@ def test_grad_row_err_gates_each_row_on_its_own_scale():
     got = want + torch.tensor([[0.0, 0.0], [0.002, 0.0]])
     err, over = cs.grad_row_err(got, want)
     assert err == pytest.approx(0.002) and over > 0
+
+
+def test_olmoe_train_gmm_backward_bounds():
+    """At olmoe-1b-7b training (T 65536, d 2048, f 1024, E 64): dx moves
+    what the forward moves (dy and dx once, the non-empty experts' weights
+    once); dw reads x and dy and writes every expert's slab; each does
+    2·T·d·f FLOPs and is bound by them."""
+    t, d, f, e = 65536, 2048, 1024, 64
+    ops, nbytes = cs.gmm_dw_floor_ms(t, d, f, e)
+    assert ops == pytest.approx(2 * t * d * f / 989e12 * 1e3)
+    want = 2 * (t * d + t * f + e * d * f)
+    assert nbytes == pytest.approx(want / 3.35e12 * 1e3)
+    assert cs.bound(ops, nbytes) == (ops, "operations")
+    # dx of the gate (dy (T, f) against w (E, d, f)): the forward's counts
+    dx_ops, dx_bytes = cs.gmm_floor_ms(t, f, d, e)
+    assert dx_ops == pytest.approx(ops)
+    assert dx_bytes == pytest.approx(
+        2 * (t * f + e * d * f + t * d) / 3.35e12 * 1e3)
+    # an empty expert's weights are not read by dx, but dw writes its zeros
+    assert cs.gmm_floor_ms(t, f, d, 10)[1] < dx_bytes
+    assert cs.gmm_dw_floor_ms(t, d, f, e)[1] > cs.gmm_dw_floor_ms(t, d, f, 10)[1]
+
+
+@pytest.mark.parametrize("layers", [1, 4, 8])
+def test_moe_step_launches(layers):
+    """Full remat: 3 grouped GEMMs and one attention a layer, forward and
+    recompute; a dx and a dw for each GEMM and one attention backward."""
+    assert cs.moe_step_launches(layers) == {
+        "grouped_matmul": 6 * layers, "grouped_matmul_dx": 3 * layers,
+        "grouped_matmul_dw": 3 * layers, "flash_attention": 2 * layers,
+        "flash_attention_bwd": layers}
+
+
+def test_moe_train_depth_by_memory():
+    """olmoe-1b-7b: a layer holds ~419.6 M parameters (experts 402.7 M), the
+    embedding and the untied unembedding 206 M.  Parameters, gradients,
+    AdamW's master copy and moments take 20 bytes a parameter: 16 layers
+    ~138 GB, 8 ~71.3 GB, 4 ~37.7 GB; with AdamW's temporaries of a stacked
+    expert weight (5 x 4.3 GB at 8 layers) and the activations only 4
+    layers fit 72 GB."""
+    from repro_torch.configs import get
+    cfg = get("olmoe-1b-7b")
+    per_layer = (cs.cut_depth(cfg, 2).param_count() - cs.cut_depth(cfg, 1).param_count())
+    assert per_layer == pytest.approx(419.6e6, rel=1e-3)
+    assert 64 * 3 * 2048 * 1024 == pytest.approx(402.7e6, rel=1e-3)
+    state = {n: cs.moe_train_reckoning_gb(cfg, n)["state_gb"] for n in (16, 8, 4)}
+    assert state == pytest.approx({16: 138.4, 8: 71.3, 4: 37.7}, abs=0.1)
+    eight = cs.moe_train_reckoning_gb(cfg, 8)
+    assert eight["update_gb"] == pytest.approx(5 * 4 * 8 * 64 * 2048 * 1024 / 1e9)
+    assert eight["total_gb"] == pytest.approx(
+        eight["state_gb"] + eight["update_gb"] + eight["activation_gb"])
+    assert cs.moe_train_depth(cfg) == 4
+    assert cs.moe_train_depth(cfg, budget_gb=110.0) == 8
+    assert cs.moe_train_depth(cfg, budget_gb=110.0, depths=(16, 8, 4)) == 8
+    with pytest.raises(ValueError, match="not even 4 layers"):
+        cs.moe_train_depth(cfg, budget_gb=50.0)
+    cut = cs.cut_depth(cfg, 8)
+    assert (cut.n_layers, cut.layer_types, cut.d_model, cut.n_experts) == (
+        8, ("moe",) * 8, 2048, 64)
+
+
+def test_active_params_count_top_k_of_the_experts():
+    """olmoe at 8 layers: each token passes 8 of 64 experts a layer."""
+    from repro_torch.configs import get
+    cut = cs.cut_depth(get("olmoe-1b-7b"), 8)
+    experts = 8 * 64 * 3 * 2048 * 1024
+    assert cs.active_params(cut) == cut.param_count() - experts * 56 // 64
+    assert cs.active_params(cut) == pytest.approx(744e6, rel=2e-3)
+
+
+def test_dw_errors_want_every_slab_within_its_own_scale():
+    sizes = torch.tensor([3, 0, 5], dtype=torch.int32)
+    want = torch.zeros((3, 2, 2))
+    want[0] = 10.0
+    want[2] = 0.1
+    out = want.clone()
+    out[0, 0, 0] += 0.15          # 1.5e-2 of the slab's largest: passes
+    assert cs.dw_errors(out, want, sizes)["max_slab_rel_err"] == pytest.approx(0.015, rel=1e-5)
+    bad = want.clone()
+    bad[2, 0, 0] += 0.01          # 1e-1 of a small slab's scale
+    with pytest.raises(AssertionError, match="grouped_matmul_dw disagrees"):
+        cs.dw_errors(bad, want, sizes)
+    bad = want.clone()
+    bad[1, 1, 1] = 1e-30          # an empty expert's slab not exactly zero
+    with pytest.raises(AssertionError, match="empty_slabs_exactly_zero"):
+        cs.dw_errors(bad, want, sizes)
+    bad = want.clone()
+    bad[1, 0, 0] = float("nan")   # an element the kernel never wrote
+    with pytest.raises(AssertionError, match="all_finite"):
+        cs.dw_errors(bad, want, sizes)
+
+
+def test_expert_choices_are_replayed_with_differentiable_probs():
+    """recorded_choices keeps each routing call's top-k indices;
+    replayed_choices makes another router choose them, its weights the
+    probabilities at those indices, through which the gradient flows."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 8, generator=gen)
+    w1, w2 = (torch.randn(8, 4, generator=gen) for _ in range(2))
+    with cs.recorded_choices(moe) as calls:
+        moe._route(x, w1, 2, False)
+    assert len(calls) == 1 and calls[0].shape == (6, 2)
+    w2.requires_grad_(True)
+    with cs.replayed_choices(moe, calls):
+        probs, _, top_p, top_idx = moe._route(x, w2, 2, True)
+    assert moe._route.__name__ == "_route"
+    assert torch.equal(top_idx, calls[0])
+    assert torch.allclose(top_p, probs.gather(-1, calls[0]) / probs.gather(
+        -1, calls[0]).sum(-1, keepdim=True))
+    (top_p[:, 0].sum()).backward()
+    assert w2.grad is not None and w2.grad.abs().sum() > 0

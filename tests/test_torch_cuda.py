@@ -3,7 +3,8 @@
 Marked ``cuda``: skipped where there is no card.  Run on a machine with
 one:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Tolerances in bf16, as the reference's kernel tests: 2e-2 for flash
-attention and the grouped matmul, 5e-2 for the SSD scan.  The flash-attention
+attention and the grouped matmul (its dx too; its dw within 2e-2 of each
+expert's largest |element|), 5e-2 for the SSD scan.  The flash-attention
 backward (no Pallas counterpart) is held against its plain backward at 2e-2
 of each row's largest |element| plus 1e-3, the gate of ``chip_smoke.py``;
 the SSD backward kernels (no Pallas counterpart either) against theirs at
@@ -265,7 +266,7 @@ def _gmm_inputs(dev, t, d, f, e, seed=0):
     return x, w
 
 
-@pytest.mark.parametrize("t,d,f,e", [
+GMM_SHAPES = [
     (1, 64, 32, 8),          # one row
     (37, 64, 32, 8),         # smoke widths
     (300, 128, 136, 5),      # f past one column tile, ragged
@@ -278,8 +279,12 @@ def _gmm_inputs(dev, t, d, f, e, seed=0):
     (65, 128, 256, 4),       # one row past a 64-row warpgroup's half
     (600, 128, 256, 512),    # 512 experts: most empty, many of one row
     (32, 2048, 1024, 64),    # olmoe decode: 4 tokens x top-8
-])
-@pytest.mark.parametrize("kind", ["random", "one", "first-empty-last"])
+]
+GMM_KINDS = ["random", "one", "first-empty-last"]
+
+
+@pytest.mark.parametrize("t,d,f,e", GMM_SHAPES)
+@pytest.mark.parametrize("kind", GMM_KINDS)
 def test_gmm_kernel_matches_plain(dev, t, d, f, e, kind):
     from repro_torch.kernels import moe_gmm
     x, w = _gmm_inputs(dev, t, d, f, e)
@@ -291,6 +296,101 @@ def test_gmm_kernel_matches_plain(dev, t, d, f, e, kind):
     assert out.dtype == torch.bfloat16 and out.shape == (t, f)
     want = moe_gmm.grouped_matmul_plain(x, w, sizes)
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def _slab_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over experts of max |got - want| less 2e-2 of the expert's
+    largest |want|; <= 0 passes (an empty expert's slab must be exact)."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().amax((1, 2)) - 2e-2 * w.abs().amax((1, 2))).max().item()
+
+
+@pytest.mark.parametrize("t,d,f,e", GMM_SHAPES)
+@pytest.mark.parametrize("kind", GMM_KINDS)
+def test_gmm_backward_kernels_match_plain(dev, t, d, f, e, kind):
+    """dx at the forward's tolerance; dw within 2e-2 of each expert's
+    largest |plain|, every element written (the buffer starts as NaN), an
+    empty expert's slab exactly zero."""
+    from repro_torch.kernels import moe_gmm
+    x, w = _gmm_inputs(dev, t, d, f, e)
+    dy = _gmm_inputs(dev, t, f, 8, 1, seed=1)[0]
+    sizes = _gmm_sizes(dev, t, e, kind)
+    before = (moe_gmm.dx_launches, moe_gmm.dw_launches)
+    dx = moe_gmm.grouped_matmul_dx(dy, w, sizes)
+    dw = moe_gmm.grouped_matmul_dw(x, dy, sizes, out=torch.full(
+        (e, d, f), float("nan"), dtype=torch.bfloat16, device=dev))
+    torch.cuda.synchronize()
+    assert (moe_gmm.dx_launches, moe_gmm.dw_launches) == (before[0] + 1, before[1] + 1)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    assert dx.shape == (t, d) and dw.shape == (e, d, f)
+    torch.testing.assert_close(dx.float(), moe_gmm.grouped_matmul_dx_plain(
+        dy, w, sizes).float(), atol=2e-2, rtol=2e-2)
+    assert bool(torch.isfinite(dw).all())
+    assert _slab_err(dw, moe_gmm.grouped_matmul_dw_plain(x, dy, sizes)) <= 0
+    assert bool((dw[sizes == 0] == 0).all())
+
+
+def test_gmm_backward_kernels_are_deterministic(dev):
+    from repro_torch.kernels import moe_gmm
+    x, w = _gmm_inputs(dev, 4096, 1024, 2048, 64)
+    dy = _gmm_inputs(dev, 4096, 2048, 8, 1, seed=1)[0]
+    sizes = _gmm_sizes(dev, 4096, 64, "random")
+    for _ in range(2):
+        got = (moe_gmm.grouped_matmul_dx(dy, w, sizes),
+               moe_gmm.grouped_matmul_dw(x, dy, sizes))
+        if _ == 0:
+            first = got
+    for a, b in zip(first, got):
+        assert torch.equal(a, b)
+
+
+def test_grouped_matmul_gives_the_gradient_under_grad(dev):
+    """An input that requires grad sends the call through GroupedMatmul:
+    one forward launch, one dx and one dw launch in the backward, and the
+    plain versions' gradient (dw in w's dtype)."""
+    from repro_torch.kernels import moe_gmm
+    x, w = _gmm_inputs(dev, 1000, 256, 192, 16)
+    dy = _gmm_inputs(dev, 1000, 192, 8, 1, seed=1)[0]
+    sizes = _gmm_sizes(dev, 1000, 16, "first-empty-last")
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    before = (moe_gmm.launches, moe_gmm.dx_launches, moe_gmm.dw_launches)
+    y = moe_gmm.grouped_matmul(x, w, sizes)
+    dx, dw = torch.autograd.grad(y, (x, w), dy)
+    assert (moe_gmm.launches, moe_gmm.dx_launches, moe_gmm.dw_launches) == tuple(
+        c + 1 for c in before)
+    assert dw.dtype == w.dtype and y.requires_grad
+    torch.testing.assert_close(dx.float(), moe_gmm.grouped_matmul_dx_plain(
+        dy, w.detach(), sizes).float(), atol=2e-2, rtol=2e-2)
+    assert _slab_err(dw, moe_gmm.grouped_matmul_dw_plain(x.detach(), dy, sizes)) <= 0
+
+
+def test_gmm_vmap_rule_folds_members_into_the_expert_axis(dev):
+    """Under torch.func.vmap over 3 members the grouped GEMM launches each
+    kernel once, forward and backward, and each member's output and
+    gradients have the bits of that member alone."""
+    from repro_torch.kernels import moe_gmm
+    m, t, d, f, e = 3, 700, 256, 128, 8
+    xs, ws, dys, ss = [], [], [], []
+    for i in range(m):
+        x, w = _gmm_inputs(dev, t, d, f, e, seed=i)
+        xs.append(x)
+        ws.append(w)
+        dys.append(_gmm_inputs(dev, t, f, 8, 1, seed=10 + i)[0])
+        ss.append(_gmm_sizes(dev, t, e, "random", seed=i))
+    x, w = torch.stack(xs).requires_grad_(), torch.stack(ws).requires_grad_()
+    sizes, dy = torch.stack(ss), torch.stack(dys)
+    before = (moe_gmm.launches, moe_gmm.dx_launches, moe_gmm.dw_launches)
+    y = torch.func.vmap(moe_gmm.grouped_matmul)(x, w, sizes)
+    gx, gw = torch.autograd.grad(y, (x, w), dy)
+    assert (moe_gmm.launches, moe_gmm.dx_launches, moe_gmm.dw_launches) == tuple(
+        c + 1 for c in before)
+    for i in range(m):
+        xi, wi = xs[i].clone().requires_grad_(), ws[i].clone().requires_grad_()
+        yi = moe_gmm.grouped_matmul(xi, wi, ss[i])
+        assert torch.equal(y[i], yi)
+        for got, want in zip((gx[i], gw[i]), torch.autograd.grad(yi, (xi, wi), dys[i])):
+            assert torch.equal(got, want)
 
 
 def test_gmm_kernel_is_deterministic(dev):
@@ -349,15 +449,10 @@ def test_moe_forward_on_card_matches_cpu(dev, arch, dispatch):
 def _grad_calls(dev):
     """name -> (launch count, a call of the wrapper on card tensors, the
     inputs that can require grad)."""
-    from repro_torch.kernels import moe_gmm
     from repro_torch.kernels import ssd_scan as kssd
-    xg, w = _gmm_inputs(dev, 64, 64, 32, 4)
-    sizes = _gmm_sizes(dev, 64, 4, "random")
     x, la, bm, cm, _ = _ssd(dev, 1, 128, 2, 64, 1, 128, False)
     prev, _ = kssd.chunk_state(x, la, bm, chunk=64)
     return {
-        "grouped_matmul": (lambda: moe_gmm.launches,
-                           lambda: moe_gmm.grouped_matmul(xg, w, sizes), (xg, w)),
         "ssd_chunk_state": (lambda: kssd.state_launches,
                             lambda: kssd.chunk_state(x, la, bm, chunk=64),
                             (x, la, bm)),
@@ -367,8 +462,7 @@ def _grad_calls(dev):
     }
 
 
-@pytest.mark.parametrize("name", ["grouped_matmul", "ssd_chunk_state",
-                                  "ssd_chunk_scan"])
+@pytest.mark.parametrize("name", ["ssd_chunk_state", "ssd_chunk_scan"])
 def test_kernels_refuse_a_gradient_they_cannot_give(dev, name):
     """An input that requires grad under grad mode is refused before the
     launch; under no_grad and inference_mode the kernel runs."""
@@ -532,14 +626,22 @@ def test_gemma3_trains_on_card_through_the_backward_kernel(dev):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b"])
-def test_ssm_and_moe_training_on_card_raise(dev, arch):
-    """MoE training on the card raises, naming the grouped-GEMM backward it
-    lacks, with no fallback to the plain path (the SSM trains since the SSD
-    scan has its backward kernels: see the next test)."""
+def test_moe_trains_on_card_through_the_gmm_backward_kernels(dev, arch):
+    """launch.train on a smoke MoE config: finite losses, and a step's
+    launches 6 forward grouped GEMMs a layer (3 and 3 recomputed by the full
+    remat), 3 dx and 3 dw."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import moe_gmm
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="grouped-GEMM"):
-        train.main(["--arch", arch, "--smoke", "--steps", "1", "--batch", "1",
-                    "--seq", "32"])
+    cfg = get_smoke(arch)
+    moe_gmm.launches = moe_gmm.dx_launches = moe_gmm.dw_launches = 0
+    out = train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "2",
+                      "--seq", "32", "--log-every", "1"])
+    torch.cuda.synchronize()
+    assert out["steps_run"] == 2 and out["loss"] == out["loss"]
+    n = cfg.n_layers
+    assert (moe_gmm.launches, moe_gmm.dx_launches, moe_gmm.dw_launches) == (
+        12 * n, 6 * n, 6 * n)
 
 
 def test_mamba2_trains_on_card_through_the_ssd_backward_kernels(dev):

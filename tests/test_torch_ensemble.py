@@ -14,9 +14,11 @@ smoke sizes, against the JAX package's ``repro.train.ensemble``.
   ``SSDScan.vmap``) under ``torch.func.vmap`` with the launches replaced
   by the plain versions: one call per kernel for all members, results as a
   loop over the members.
-* A mamba2 gang, an MoE gang (refused), and the unchanged engine's
-  ``GangExecutor`` dispatching the port's ``train_ensemble`` once for four
-  members.
+* The grouped GEMM's member-axis rule (``GroupedMatmul.vmap``) in an
+  olmoe gang: its launches a step do not grow with the members, and a gang
+  of two gives each member's losses alone.
+* A mamba2 gang, and the unchanged engine's ``GangExecutor`` dispatching
+  the port's ``train_ensemble`` once for four members.
 """
 
 import jax
@@ -87,7 +89,7 @@ def _jax_seam(jcfg, seeds, steps, batch, seq):
             torch.from_numpy(np.stack(tokens).astype(np.int64)))
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gang_matches_jax_from_the_same_init_and_tokens(monkeypatch, arch, dtype):
     steps, batch, seq = 4, 2, 16
@@ -199,7 +201,8 @@ def test_ssd_scan_vmap_rule_launches_once_for_all_members(plain_launches, with_i
             np.testing.assert_allclose(got[i], w, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("arch,seq", [("gemma3-1b", 16), ("mamba2-780m", 32)])
+@pytest.mark.parametrize("arch,seq", [("gemma3-1b", 16), ("mamba2-780m", 32),
+                                      ("olmoe-1b-7b", 16)])
 def test_gang_step_launches_do_not_grow_with_members(plain_launches, arch, seq):
     """One gang step through the kernels' branches (plain launches;
     ``use_kernels`` sends CPU tensors there, and gemma3's smoke window of
@@ -216,8 +219,12 @@ def test_gang_step_launches_do_not_grow_with_members(plain_launches, arch, seq):
     assert counts[1] == counts[3]
     # the full remat runs each layer's forward twice; one backward a layer
     n = cfg.n_layers
-    want = ({"fa": 2 * n, "fa_bwd": n} if arch == "gemma3-1b" else
-            {"state": 2 * n, "scan": 2 * n, "state_bwd": n, "scan_bwd": n})
+    want = {"gemma3-1b": {"fa": 2 * n, "fa_bwd": n},
+            "mamba2-780m": {"state": 2 * n, "scan": 2 * n, "state_bwd": n,
+                            "scan_bwd": n},
+            # 3 grouped GEMMs a layer, each with a dx and a dw
+            "olmoe-1b-7b": {"fa": 2 * n, "fa_bwd": n, "gmm": 6 * n,
+                            "gmm_dx": 3 * n, "gmm_dw": 3 * n}}[arch]
     assert {k: v for k, v in counts[1].items() if v} == want
     np.testing.assert_allclose(losses[3][:, 0], losses[1][:, 0], atol=1e-5)
 
@@ -232,9 +239,22 @@ def test_mamba2_gang_learns():
     assert bool((losses[-1] < losses[0]).all())
 
 
-def test_moe_gang_raises():
-    with pytest.raises(ValueError, match="MoE"):
-        ensemble.train_ensemble(_members("olmoe-1b-7b", steps=1), device="cpu")
+@pytest.mark.parametrize("dispatch", ["einsum", "ragged"])
+def test_moe_gang_matches_each_member_alone(dispatch):
+    """A smoke olmoe gang of two members (own seed and lr): every step's
+    loss of each member, its own MoE aux losses included, is that member's
+    alone (M = 1)."""
+    cfg = get_smoke("olmoe-1b-7b", compute_dtype="float32", moe_dispatch=dispatch)
+    lrs = (1e-3, 3e-3)
+    runs = {}
+    for members in ((0,), (1,), (0, 1)):
+        params, tokens = ensemble.init_members(cfg, members, 3, 2, 16, "cpu")
+        runs[members] = ensemble.train_gang(cfg, params, tokens,
+                                            [lrs[i] for i in members], warmup=1)
+    for i in (0, 1):
+        np.testing.assert_allclose(runs[(0, 1)][:, i], runs[(i,)][:, 0],
+                                   rtol=1e-5, atol=1e-5)
+    assert not torch.equal(runs[(0, 1)][:, 0], runs[(0, 1)][:, 1])
 
 
 def test_engine_dispatches_the_port_gang_once(tmp_path):

@@ -1,12 +1,13 @@
 """The kernel wrappers' contract where there is no card.
 
 * A tensor off the CPU that requires grad while grad mode is on is
-  refused before any launch by the grouped-GEMM wrapper and by the two
-  SSD-scan kernels' wrappers called alone (they have no backward of their
-  own); under ``no_grad`` or ``inference_mode``, or without
-  ``requires_grad``, the wrapper goes on to its checks.  Flash attention
-  and the whole SSD scan have a backward: under grad their wrappers go
-  through their ``autograd.Function`` instead of any guard.  Meta tensors
+  refused before any launch by the two SSD-scan kernels' wrappers called
+  alone (they have no backward of their own); under ``no_grad`` or
+  ``inference_mode``, or without ``requires_grad``, the wrapper goes on to
+  its checks.  Flash attention, the whole SSD scan and the grouped GEMM
+  have a backward: under grad (or, for the grouped GEMM, under vmap)
+  their wrappers go through their ``autograd.Function`` instead of any
+  guard.  Meta tensors
   stand in for a card's: they reach the same branch and fail later, at the
   device check, never at a launch.
 * CPU tensors still take the plain versions, which differentiate.
@@ -72,7 +73,7 @@ def meta_is_card(monkeypatch):
 
 WRAPPERS = sorted(_calls(False))
 #: the wrappers whose kernels have no backward, so refuse a gradient
-GUARDED = [name for name in WRAPPERS if name != "flash_attention"]
+GUARDED = [name for name in WRAPPERS if name not in ("flash_attention", "grouped_matmul")]
 
 
 @pytest.mark.parametrize("name", GUARDED)
@@ -125,6 +126,42 @@ def test_flash_attention_under_grad_reaches_its_autograd_function(monkeypatch, w
     # without grad the same call never enters it
     with torch.no_grad(), pytest.raises(ValueError, match="no kernel for device"):
         fa.flash_attention(q, k, v)
+    assert len(entered) == 1
+
+
+@pytest.mark.parametrize("how", ["x requires grad", "w requires grad", "batched"])
+def test_grouped_matmul_under_grad_or_vmap_reaches_its_autograd_function(monkeypatch,
+                                                                         how):
+    """A grad-requiring or a batched call of ``grouped_matmul`` goes through
+    ``GroupedMatmul`` (its vmap rule folds two members into the expert axis
+    first), past no guard, and fails at the device check on a meta tensor:
+    no build, no launch."""
+    def no_launch(*a, **k):
+        raise AssertionError("a kernel was built or launched")
+
+    entered = []
+    forward = moe_gmm.GroupedMatmul.forward
+
+    def spy(*args):
+        entered.append([tuple(a.shape) for a in args])
+        return forward(*args)
+
+    monkeypatch.setattr(_build, "library", no_launch)
+    monkeypatch.setattr(moe_gmm.GroupedMatmul, "forward", staticmethod(spy))
+    m = 2 if how == "batched" else 1
+    lead = (m,) if how == "batched" else ()
+    x = _meta(*lead, 64, 64, grad=how == "x requires grad")
+    w = _meta(*lead, 4, 64, 32, grad=how == "w requires grad")
+    gs = _meta(*lead, 4, dtype=torch.int32)
+    call = torch.func.vmap(moe_gmm.grouped_matmul) if lead else moe_gmm.grouped_matmul
+    with pytest.raises(ValueError, match="no kernel for device meta") as err:
+        call(x, w, gs)
+    assert GRAD_ERROR not in str(err.value)
+    assert entered == [[(m * 64, 64), (m * 4, 64, 32), (m * 4,)]]
+    # without grad the same unbatched call never enters it
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel for device"):
+        moe_gmm.grouped_matmul(_meta(64, 64), _meta(4, 64, 32),
+                               _meta(4, dtype=torch.int32))
     assert len(entered) == 1
 
 
@@ -208,7 +245,8 @@ def _c_entry_points(source: str) -> dict[str, list]:
 
 @pytest.mark.parametrize("module,source,names", [
     (fa, "flash_attention.cu", ["flash_attention_bwd", "flash_attention_fwd"]),
-    (moe_gmm, "moe_gmm.cu", ["grouped_matmul"]),
+    (moe_gmm, "moe_gmm.cu", ["grouped_matmul", "grouped_matmul_dw",
+                             "grouped_matmul_dx"]),
     (kssd, "ssd_scan.cu", ["ssd_chunk_scan", "ssd_chunk_scan_bwd",
                            "ssd_chunk_state", "ssd_chunk_state_bwd"])])
 def test_bind_declares_the_c_entry_points_of_the_source(module, source, names):

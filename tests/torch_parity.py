@@ -44,15 +44,17 @@ def randn(seed: int, *shape: int, scale: float = 1.0) -> np.ndarray:
 
 
 def patch_plain_launches(monkeypatch) -> dict[str, int]:
-    """Every kernel launch of flash attention and the SSD scan replaced by
-    its plain version on the CPU tensors it is given, each counted by name
-    in the dict returned; the wrappers take their card's branches (the
-    autograd.Functions and their vmap rules) for CPU tensors."""
+    """Every kernel launch of flash attention, the SSD scan and the grouped
+    GEMM replaced by its plain version on the CPU tensors it is given, each
+    counted by name in the dict returned; the wrappers take their card's
+    branches (the autograd.Functions and their vmap rules) for CPU
+    tensors (the grouped GEMM's take them on the CPU as well)."""
     from repro_torch.kernels import batched, needs_grad
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm
     from repro_torch.kernels import ssd_scan as kssd
     calls = {"fa": 0, "fa_bwd": 0, "state": 0, "scan": 0, "state_bwd": 0,
-             "scan_bwd": 0}
+             "scan_bwd": 0, "gmm": 0, "gmm_dx": 0, "gmm_dw": 0}
 
     def q_of(x, chunk):
         return min(chunk, x.shape[1])
@@ -77,6 +79,11 @@ def patch_plain_launches(monkeypatch) -> dict[str, int]:
     monkeypatch.setattr(fa, "flash_attention_bwd", counted(
         "fa_bwd", fa.flash_attention_bwd_plain))
     monkeypatch.setattr(fa, "flash_attention", fa_on_card)
+    monkeypatch.setattr(moe_gmm, "_forward", counted("gmm", moe_gmm.grouped_matmul_plain))
+    monkeypatch.setattr(moe_gmm, "grouped_matmul_dx", counted(
+        "gmm_dx", moe_gmm.grouped_matmul_dx_plain))
+    monkeypatch.setattr(moe_gmm, "grouped_matmul_dw", counted(
+        "gmm_dw", moe_gmm.grouped_matmul_dw_plain))
     monkeypatch.setattr(kssd, "_on_card", lambda x: True)
     monkeypatch.setattr(kssd, "_state_launch", counted(
         "state", lambda x, la, b, chunk, init:

@@ -323,6 +323,14 @@ GMM_TOL = 2e-2
 #: reference differentiates jax.lax.ragged_dot with XLA
 GMM_BWD_REPLACES = ("gradient of src/repro/kernels/moe_gmm.py:66; the reference "
                     "differentiates jax.lax.ragged_dot, src/repro/models/moe.py:161-163")
+#: the gradient kernels' design, redesigned for Hopper after a first one
+#: (the forward's structure) whose consumers waited for their operands half
+#: of the time
+GMM_BWD_DESIGN = ("wgmma + TMA, warp-specialised, 128 x 256 tiles, a 4-stage ring: "
+                  "2-block clusters on two tiles that share their larger operand (dw: "
+                  "dy_e's rows for two d-tiles; dx: w[e]'s slab for two row tiles of "
+                  "one expert), each block loading half of it into both by TMA "
+                  "multicast; each tile stored straight from registers")
 # dw against its plain version: max |kernel - plain| within 2e-2 of each
 # expert slab's largest |plain| (a slab sums up to T rows, so its elements
 # reach ~sqrt(rows); the output is rounded to bf16 on both sides, 2**-8 of
@@ -564,6 +572,18 @@ def gmm_row_tiles(group_sizes: torch.Tensor) -> int:
     rows in tiles of 128, the last one partial (against T / 128 if every
     tile were full)."""
     return int(((group_sizes.long() + 127) // 128).sum())
+
+
+def gmm_dense_call(part: str, x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """One dense ``torch.matmul`` with the FLOPs of a grouped backward
+    product, all rows one group: dx's (T, f)·(f, d) with expert 0's weight,
+    or dw's (d, T)·(T, f).  cuBLAS's rate on this card at that size, a
+    yardstick only: never used by the port."""
+    if part == "dx":
+        w0t = w[0].t()
+        return lambda: torch.matmul(dy, w0t)
+    xt = x.t()
+    return lambda: torch.matmul(xt, dy)
 
 
 def gmm_dw_floor_ms(t: int, d: int, f: int, experts: int) -> tuple[float, float]:
@@ -865,7 +885,7 @@ def kernel_class(name: str) -> str:
         return "ssd_scan_bwd"
     if "ssd_chunk" in low:
         return "ssd_scan"
-    if "grouped_matmul_dw" in low or "grouped_matmul_kernel<true>" in low:
+    if "grouped_matmul_dw" in low or "grouped_matmul_dx" in low:
         return "grouped_matmul_bwd"
     if "grouped_matmul" in low:
         return "grouped_matmul"
@@ -2550,6 +2570,7 @@ def moe_train_path(dev, card) -> list[dict]:
         libs = [grouped_mm_call(g, w.transpose(1, 2), sizes) if part == "dx"
                 else grouped_mm_call(a.t(), g, sizes) for a, w, g in calls[:3]]
         no_lib = next((why for call, why in libs if call is None), None)
+        dense = [gmm_dense_call(part, a, w, g) for a, w, g in calls[:3]]
         mix = {
             "ms": time_ms(lambda: [kernel_fn(*c) for c in calls], 5),
             "plain_ms": time_ms(lambda: [plain_fn(*c) for c in calls], 1, 1),
@@ -2559,13 +2580,15 @@ def moe_train_path(dev, card) -> list[dict]:
         }
         emit("kernel_train_mix", kernel=f"grouped_matmul_{part}", calls=len(calls),
              layers=layers, shape=[rows, d, f, e], nonempty_experts=nonempty,
-             library=no_lib or "torch._grouped_mm", nvidia_smi=card, **mix)
+             library=no_lib or "torch._grouped_mm",
+             dense_matmul_ms=time_ms(lambda: [c() for c in dense * layers], 5),
+             nvidia_smi=card, **mix)
         entries.append({
             "name": f"grouped_matmul_{part}", "route": "cuda", "source": GMM_SOURCE,
-            "replaces": GMM_BWD_REPLACES,
+            "replaces": GMM_BWD_REPLACES, "design": GMM_BWD_DESIGN,
             "launches": launches[f"grouped_matmul_{part}"],
             "max_abs_err": max_err[part], **mix})
-        del libs
+        del libs, dense
     del x, hid, w_in, w_down, calls
     torch.cuda.empty_cache()
 

@@ -6,6 +6,7 @@ card, in one process.
     python3 scripts/kernel_against.py fa OTHER_CSRC [--prefill-pairs N]
     python3 scripts/kernel_against.py ssd OTHER_CSRC [--prefill-pairs N]
     python3 scripts/kernel_against.py ssd_bwd OTHER_CSRC
+    python3 scripts/kernel_against.py gmm_bwd OTHER_CSRC
 
 Run from the repository root.  ``OTHER_CSRC`` is another tree's
 ``src/repro_torch/kernels/csrc`` (e.g. an older commit unpacked under
@@ -77,6 +78,22 @@ port's wrappers (``chunk_state_bwd``, ``chunk_scan_bwd``, ``ssd_scan_bwd``):
   each of this tree's kernels and of the function
   (``chip_smoke.ssd_bwd_floor_ms``): one JSON line a case;
 
+and for ``gmm_bwd``, the grouped GEMM's backward kernels (``moe_gmm.cu``'s
+``grouped_matmul_dx`` and ``grouped_matmul_dw``, the same C entry points in
+both trees, e.g. the first design's, ``git archive 41d7246``):
+
+* at olmoe-1b-7b's and qwen2-moe-a2.7b's training shapes (gate/up and
+  down, group sizes of a top-k routing), each build's error against the
+  plain versions (dx: ``chip_smoke.gmm_errors``; dw, into a NaN-filled
+  buffer: ``chip_smoke.dw_errors``) and each kernel's time in turns (this,
+  other, other, this), beside ``torch._grouped_mm``, the dense
+  ``torch.matmul`` with the same FLOPs (``chip_smoke.gmm_dense_call``) and
+  the bound: one JSON line a case;
+* olmoe-1b-7b's train step mix at 4 layers (``chip_smoke.py``'s
+  ``kernel_train_mix``: gate, up and down a layer, 12 calls of each
+  kernel), each build in turns beside the same yardsticks: one JSON line a
+  kernel;
+
 then the card's name and power limit.
 """
 from __future__ import annotations
@@ -100,7 +117,16 @@ from repro_torch.kernels import ssd_scan  # noqa: E402
 
 #: kernel argument -> (wrapper module, source name)
 KERNELS = {"gmm": (moe_gmm, "moe_gmm"), "fa": (flash_attention, "flash_attention"),
-           "ssd": (ssd_scan, "ssd_scan"), "ssd_bwd": (ssd_scan, "ssd_scan")}
+           "ssd": (ssd_scan, "ssd_scan"), "ssd_bwd": (ssd_scan, "ssd_scan"),
+           "gmm_bwd": (moe_gmm, "moe_gmm")}
+
+#: the grouped GEMM's backward cases: name, T, d, f, E, top-k of the routing
+GMM_BWD_SHAPES = [("olmoe-1b-7b gate/up", 65536, 2048, 1024, 64, 8),
+                  ("olmoe-1b-7b down", 65536, 1024, 2048, 64, 8),
+                  ("qwen2-moe-a2.7b gate/up", 32768, 2048, 1408, 60, 4),
+                  ("qwen2-moe-a2.7b down", 32768, 1408, 2048, 60, 4)]
+#: layers of olmoe-1b-7b's train step mix (chip_smoke.py's depth cut)
+GMM_BWD_MIX_LAYERS = 4
 
 #: the SSD backward's cases: name, B, S, H, P, G, N, chunk
 SSD_BWD_SHAPES = [("mamba2-780m train", 4, 2048, 48, 64, 1, 128, 256),
@@ -159,6 +185,106 @@ def gmm_cases(libs: dict, dev) -> None:
                 library=no_lib or "torch._grouped_mm",
                 bound_ms=cs.bound(*cs.gmm_floor_ms(t, d, f, nonempty))[0])
         del x, w, want
+
+
+def gmm_bwd_calls(x, w, dy, sizes) -> dict:
+    """dx's and dw's kernel calls on one product's operands: x (T, d), w
+    (E, d, f), dy (T, f)."""
+    return {"dx": lambda: moe_gmm.grouped_matmul_dx(dy, w, sizes),
+            "dw": lambda: moe_gmm.grouped_matmul_dw(x, dy, sizes)}
+
+
+def gmm_bwd_cases(libs: dict, dev) -> None:
+    """Each build in ``libs`` at each of :data:`GMM_BWD_SHAPES`, then at
+    olmoe-1b-7b's train step mix: errors, then times in turns."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    turns = (*libs, *reversed(libs))
+    for name, t, d, f, e, k in GMM_BWD_SHAPES:
+        x = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((e, d, f), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        dy = torch.randn((t, f), generator=gen, device=dev).to(torch.bfloat16)
+        sizes = cs.moe_group_sizes(gen, dev, t // k, e, k)
+        nonempty = int((sizes > 0).sum())
+        want = {"dx": moe_gmm.grouped_matmul_dx_plain(dy, w, sizes),
+                "dw": moe_gmm.grouped_matmul_dw_plain(x, dy, sizes)}
+        calls = gmm_bwd_calls(x, w, dy, sizes)
+        floors = {"dx": cs.gmm_floor_ms(t, f, d, nonempty),
+                  "dw": cs.gmm_dw_floor_ms(t, d, f, e)}
+        lib_calls = {"dx": cs.grouped_mm_call(dy, w.transpose(1, 2), sizes),
+                     "dw": cs.grouped_mm_call(x.t(), dy, sizes)}
+        out = {}
+        for part in ("dx", "dw"):
+            errs, times = {}, {v: [] for v in libs}
+            for v, lib in libs.items():
+                with using(moe_gmm, lib):
+                    if part == "dx":
+                        errs[v] = cs.gmm_errors(calls["dx"](), want["dx"])
+                    else:
+                        errs[v] = cs.dw_errors(moe_gmm.grouped_matmul_dw(
+                            x, dy, sizes, out=torch.full((e, d, f), float("nan"),
+                                                         dtype=torch.bfloat16,
+                                                         device=dev)),
+                            want["dw"], sizes)
+            for v in turns:
+                with using(moe_gmm, libs[v]):
+                    times[v].append(cs.time_ms(calls[part], 20))
+            lib_call, no_lib = lib_calls[part]
+            bound_ms, bound_by = cs.bound(*floors[part])
+            out[part] = {"errors": errs, "ms": times,
+                         "library_ms": cs.time_ms(lib_call, 20) if lib_call else None,
+                         "library": no_lib or "torch._grouped_mm",
+                         "dense_matmul_ms": cs.time_ms(
+                             cs.gmm_dense_call(part, x, w, dy), 20),
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        cs.emit("gmm_bwd_against", case=name, shape=[t, d, f, e],
+                nonempty_experts=nonempty, largest_group=int(sizes.max()), **out)
+        del x, w, dy, want, calls, lib_calls
+        torch.cuda.empty_cache()
+    gmm_bwd_mix(libs, dev, gen)
+
+
+def gmm_bwd_mix(libs: dict, dev, gen) -> None:
+    """olmoe-1b-7b's train step mix (gate, up and down a layer over
+    :data:`GMM_BWD_MIX_LAYERS` layers) of dx and of dw, each build in
+    turns, as chip_smoke.py's ``kernel_train_mix`` times it."""
+    t, d, f, e, k = 65536, 2048, 1024, 64, 8
+    sizes = cs.moe_group_sizes(gen, dev, t // k, e, k)
+    nonempty = int((sizes > 0).sum())
+    x = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+    hid = torch.randn((t, f), generator=gen, device=dev).to(torch.bfloat16)
+    w_in = (torch.randn((e, d, f), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    w_down = (torch.randn((e, f, d), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    # (x, w, dy) of each product; gate and up share x and their shapes
+    calls = [(x, w_in, hid), (x, w_in, hid), (hid, w_down, x)] * GMM_BWD_MIX_LAYERS
+    turns = (*libs, *reversed(libs))
+    for part in ("dx", "dw"):
+        mix = [gmm_bwd_calls(a, w, g, sizes)[part] for a, w, g in calls]
+        floors = [cs.gmm_floor_ms(t, w.shape[2], w.shape[1], nonempty) if part == "dx"
+                  else cs.gmm_dw_floor_ms(t, w.shape[1], w.shape[2], e)
+                  for _, w, _ in calls]
+        bound_ms, bound_by = cs.bound(sum(fl[0] for fl in floors),
+                                      sum(fl[1] for fl in floors))
+        lib_calls = [cs.grouped_mm_call(g, w.transpose(1, 2), sizes) if part == "dx"
+                     else cs.grouped_mm_call(a.t(), g, sizes) for a, w, g in calls[:3]]
+        no_lib = next((why for call, why in lib_calls if call is None), None)
+        dense = [cs.gmm_dense_call(part, a, w, g) for a, w, g in calls[:3]]
+        times = {v: [] for v in libs}
+        for v in turns:
+            with using(moe_gmm, libs[v]):
+                times[v].append(cs.time_ms(lambda: [c() for c in mix], 5))
+        cs.emit("gmm_bwd_mix_against", kernel=f"grouped_matmul_{part}", calls=len(calls),
+                layers=GMM_BWD_MIX_LAYERS, shape=[t, d, f, e], nonempty_experts=nonempty,
+                ms=times,
+                library_ms=None if no_lib else cs.time_ms(
+                    lambda: [c() for c, _ in lib_calls * GMM_BWD_MIX_LAYERS], 5),
+                library=no_lib or "torch._grouped_mm",
+                dense_matmul_ms=cs.time_ms(
+                    lambda: [c() for c in dense * GMM_BWD_MIX_LAYERS], 5),
+                bound_ms=bound_ms, bound_by=bound_by)
+        del mix, lib_calls, dense
+    del x, hid, w_in, w_down, calls
+    torch.cuda.empty_cache()
 
 
 def serve_pairs(libs: dict, dev, pairs: int) -> None:
@@ -484,6 +610,8 @@ def main() -> None:
             prefill_pairs(libs, dev, args.prefill_pairs)
     elif args.kernel == "ssd_bwd":
         ssd_bwd_cases(libs, dev)
+    elif args.kernel == "gmm_bwd":
+        gmm_bwd_cases(libs, dev)
     else:
         ssd_cases(libs, dev)
         if args.prefill_pairs:

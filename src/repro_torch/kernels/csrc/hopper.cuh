@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by the port's kernels: shared-memory
-// addresses, mbarriers, TMA loads and stores through tensor maps, plain
+// addresses, mbarriers (also across a thread-block cluster), TMA loads (also
+// multicast to a cluster's blocks) and stores through tensor maps, plain
 // bulk copies (a load, a store, an fp32 add into global memory), wgmma
 // descriptors, the wgmma instructions the kernels use (m64n32/64/128/256k16,
 // bf16 in, fp32 sums; A from shared memory or registers; either operand
@@ -115,6 +116,60 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// -- thread-block clusters ----------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// Every thread of every block of the cluster meets here; what each wrote
+// to shared memory before it (mbarrier inits too) is visible to all.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Arrives on the mbarrier at the same shared-memory offset as `bar` in
+// block `rank` of the cluster (this block's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// A TMA load written to the same offset `dst` in every block of `mask`
+// (bit r: rank r), each block's mbarrier at `bar`'s offset counting the
+// bytes that land in it.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      int c2, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 

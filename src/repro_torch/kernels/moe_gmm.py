@@ -9,10 +9,13 @@ persistent grid (one block an SM) walks 128 x 256 output tiles, each block
 finding its tiles' experts from the device's group sizes; in a block one
 warpgroup issues TMA loads into a 3-stage shared-memory ring and two
 warpgroups multiply with wgmma, then stage the bf16 tile in shared memory
-for TMA stores.  ``grouped_matmul_dx`` is the forward's kernel with w read
-transposed; ``grouped_matmul_dw`` walks one tile per (expert, d-tile,
-f-tile) over that expert's rows.  The source's header says what bounds
-them and what the design does about that.
+for TMA stores.  ``grouped_matmul_dx`` (w read K-major, no transposed
+copy) and ``grouped_matmul_dw`` (one tile per (expert, d-tile, f-tile)
+over that expert's rows) run as clusters of two blocks on two tiles that
+share their larger operand, each block loading half of it into both by
+TMA multicast, with 4-stage rings and each tile stored straight from
+registers.  The source's header says what bounds them and what the
+design does about that.
 
 * A CPU tensor goes to the plain versions (``ref.grouped_matmul_ref``,
   ``grouped_matmul_dx_ref``, ``grouped_matmul_dw_ref``: one fp32 product per

@@ -295,7 +295,9 @@ def test_routing_is_recorded_and_replayed():
      "grouped_matmul"),
     ("void (anonymous namespace)::grouped_matmul_kernel<false>(CUtensorMap, ...)",
      "grouped_matmul"),
-    ("void (anonymous namespace)::grouped_matmul_kernel<true>(CUtensorMap, ...)",
+    ("void (anonymous namespace)::grouped_matmul_kernel(CUtensorMap, ...)",
+     "grouped_matmul"),
+    ("void (anonymous namespace)::grouped_matmul_dx_kernel(CUtensorMap, ...)",
      "grouped_matmul_bwd"),
     ("void (anonymous namespace)::grouped_matmul_dw_kernel(CUtensorMap, ...)",
      "grouped_matmul_bwd"),

@@ -344,6 +344,48 @@ def test_gmm_backward_kernels_are_deterministic(dev):
         assert torch.equal(a, b)
 
 
+def _skewed_sizes(dev, t, e, seed=0):
+    """Group sizes summing to t: one expert (e // 3) holds half of the rows,
+    the others split the rest at random cuts (ragged, off 64-row steps)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    half = t // 2
+    cuts = torch.randint(0, t - half + 1, (e - 2,), generator=gen, device=dev).sort().values
+    rest = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), t - half)]).diff()
+    return torch.cat([rest[:e // 3], rest.new_full((1,), half), rest[e // 3:]]
+                     ).to(torch.int32)
+
+
+@pytest.mark.parametrize("t,d,f,e", [
+    (4099, 2048, 1024, 64),   # olmoe gate/up widths
+    (4099, 1024, 2048, 64),   # olmoe down
+    (2051, 1408, 2048, 60),   # qwen2-moe down: dw's 11 d-tiles, an odd pair
+])
+def test_gmm_backward_kernels_with_skewed_groups(dev, t, d, f, e):
+    """One expert holding half of T (its K several times the others'), the
+    rest ragged: dx and dw against the plain versions (dw into a NaN-filled
+    buffer, an empty expert's slab exactly zero), and a second run gives
+    the same bits."""
+    from repro_torch.kernels import moe_gmm
+    x, w = _gmm_inputs(dev, t, d, f, e)
+    dy = _gmm_inputs(dev, t, f, 8, 1, seed=1)[0]
+    sizes = _skewed_sizes(dev, t, e)
+    assert int(sizes.sum()) == t and int(sizes.max()) == t // 2
+    runs = []
+    for _ in range(2):
+        runs.append((moe_gmm.grouped_matmul_dx(dy, w, sizes),
+                     moe_gmm.grouped_matmul_dw(x, dy, sizes, out=torch.full(
+                         (e, d, f), float("nan"), dtype=torch.bfloat16, device=dev))))
+    torch.cuda.synchronize()
+    dx, dw = runs[0]
+    torch.testing.assert_close(dx.float(), moe_gmm.grouped_matmul_dx_plain(
+        dy, w, sizes).float(), atol=2e-2, rtol=2e-2)
+    assert bool(torch.isfinite(dw).all())
+    assert _slab_err(dw, moe_gmm.grouped_matmul_dw_plain(x, dy, sizes)) <= 0
+    assert bool((dw[sizes == 0] == 0).all())
+    assert torch.equal(runs[1][0], dx) and torch.equal(runs[1][1], dw)
+
+
 def test_grouped_matmul_gives_the_gradient_under_grad(dev):
     """An input that requires grad sends the call through GroupedMatmul:
     one forward launch, one dx and one dw launch in the backward, and the
@@ -377,6 +419,35 @@ def test_gmm_vmap_rule_folds_members_into_the_expert_axis(dev):
         xs.append(x)
         ws.append(w)
         dys.append(_gmm_inputs(dev, t, f, 8, 1, seed=10 + i)[0])
+        ss.append(_gmm_sizes(dev, t, e, "random", seed=i))
+    x, w = torch.stack(xs).requires_grad_(), torch.stack(ws).requires_grad_()
+    sizes, dy = torch.stack(ss), torch.stack(dys)
+    before = (moe_gmm.launches, moe_gmm.dx_launches, moe_gmm.dw_launches)
+    y = torch.func.vmap(moe_gmm.grouped_matmul)(x, w, sizes)
+    gx, gw = torch.autograd.grad(y, (x, w), dy)
+    assert (moe_gmm.launches, moe_gmm.dx_launches, moe_gmm.dw_launches) == tuple(
+        c + 1 for c in before)
+    for i in range(m):
+        xi, wi = xs[i].clone().requires_grad_(), ws[i].clone().requires_grad_()
+        yi = moe_gmm.grouped_matmul(xi, wi, ss[i])
+        assert torch.equal(y[i], yi)
+        for got, want in zip((gx[i], gw[i]), torch.autograd.grad(yi, (xi, wi), dys[i])):
+            assert torch.equal(got, want)
+
+
+def test_gmm_vmap_rule_folds_a_gang_into_the_most_experts(dev):
+    """A gang of 8 members x 64 experts folds into 512 groups, the most the
+    kernels take: one launch of each kernel, forward and backward, and each
+    member's output and gradients have the bits of that member alone."""
+    from repro_torch.kernels import moe_gmm
+    m, t, d, f, e = 8, 300, 256, 128, 64
+    assert m * e == moe_gmm.MAX_EXPERTS
+    xs, ws, dys, ss = [], [], [], []
+    for i in range(m):
+        x, w = _gmm_inputs(dev, t, d, f, e, seed=i)
+        xs.append(x)
+        ws.append(w)
+        dys.append(_gmm_inputs(dev, t, f, 8, 1, seed=20 + i)[0])
         ss.append(_gmm_sizes(dev, t, e, "random", seed=i))
     x, w = torch.stack(xs).requires_grad_(), torch.stack(ws).requires_grad_()
     sizes, dy = torch.stack(ss), torch.stack(dys)

@@ -4,11 +4,13 @@ checks them.
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Three serving paths: gemma3-1b (attention: the flash-attention kernel),
-mamba2-780m (SSM: the two SSD-scan kernels) and olmoe-1b-7b (MoE: the
-grouped-GEMM kernel, with flash attention); then the gemma3-1b training
-path (the flash-attention forward with its LSE and the backward kernels),
-the mamba2-780m training path (the SSD scan's backward kernels), the
+Four serving paths: gemma3-1b (attention: the flash-attention kernel),
+mamba2-780m (SSM: the two SSD-scan kernels), hymba-1.5b (an attention and
+an SSM branch in every layer: both kernel families) and olmoe-1b-7b (MoE:
+the grouped-GEMM kernel, with flash attention); then the gemma3-1b
+training path (the flash-attention forward with its LSE and the backward
+kernels), the mamba2-780m training path (the SSD scan's backward kernels),
+the hymba-1.5b training path (both families' backward kernels), the
 olmoe-1b-7b training path (the grouped GEMM's dx and dw kernels) and the
 gang trainer (several members in one batched run).
 Phases, each printing one
@@ -22,10 +24,12 @@ result line:
    lines that flag a kernel: spills, an ignored setmaxnreg, wgmma
    serialised by the compiler;
 
-then for each path in turn (gemma3-1b, mamba2-780m, olmoe-1b-7b):
+then for each path in turn (gemma3-1b, mamba2-780m, hymba-1.5b,
+olmoe-1b-7b):
 
 3. kernels against their plain versions at the path's shapes (gemma3-1b
-   prefill plus h2o-danube, deepseek and hymba head dims; mamba2-780m prefill
+   prefill plus h2o-danube, deepseek and hymba-1.5b's global and window
+   shapes; mamba2-780m prefill
    plus hymba-1.5b's SSD shape, G > 1, S < chunk, an initial state, a chunk
    of 96 (partial row tiles) and 256 chunks a chain (the state hand-off);
    olmoe-1b-7b prefill and decode plus qwen2-moe-a2.7b's expert shapes and
@@ -46,8 +50,11 @@ then for each path in turn (gemma3-1b, mamba2-780m, olmoe-1b-7b):
 5. correctness at full width: prefill against teacher-forced decode, and
    a forward against the same model with the kernels' plain version in
    their place (for olmoe-1b-7b also the count of routing decisions that
-   differ between the two runs); then the card's forward against the
-   CPU's on a small config;
+   differ between the two runs; for hymba-1.5b both kernel families'
+   plain versions, and prefill against decode also past its window of
+   1024, on its first 4 layers over 1280 positions); then the card's
+   forward against the CPU's on a small config (hymba's with an SSD state
+   of 16, CARD_SMOKE);
 6. serve: ``ServeEngine`` answers 8 requests of 16 new tokens each;
 7. profile: one prefill and a window of decode steps under
    ``torch.profiler``: device busy time and idle share, kernel launches,
@@ -98,6 +105,14 @@ Then the training path of mamba2-780m (the SSD scan's backward kernels):
    kernel, 48 + 48 by the full remat; 48 of each backward);
 6. profile: one train step.
 
+Then the training path of hymba-1.5b: the backward kernels' calls of one
+train step (32 of each, timed together), its memory reckoned, then
+``launch.train.main`` at full width and depth (2 warm-up and 3 timed
+steps on (4, 2048) batches), the kernels' step against the plain versions'
+of both families, 8 steps on one batch and one step's launches (64 flash
+attention and 64 of each SSD forward kernel with the remat, 32 of each
+backward), and its profile.
+
 Then the training path of olmoe-1b-7b (the grouped GEMM's backward):
 
 3. ptxas's registers and spills of the grouped GEMM's kernels; dx =
@@ -111,7 +126,7 @@ Then the training path of olmoe-1b-7b (the grouped GEMM's backward):
    their times, the plain versions', ``torch._grouped_mm``'s and the bound;
 4. train: full width (d 2048, 64 experts top-8, 16 heads of 128, the
    einsum dispatch), depth cut by memory (MOE_TRAIN_DEPTHS: 8 of 16 layers
-   if the reckoning and the measured peak fit MOE_TRAIN_BUDGET_GB, else
+   if the reckoning and the measured peak fit TRAIN_BUDGET_GB, else
    4), ``init_train_state`` and ``make_train_step`` with ``launch.train``'s
    optimizer and schedule on (4, 2048) batches from ``make_stream``, 2
    warm-up and 3 timed steps, the launch counts reset before and read
@@ -134,8 +149,9 @@ steps) each alone and both in one gang: every step's loss of the gang
 within 5e-3 (relative) of the member's alone, and the flash-attention
 launches a step the same for two members as for one; step time and peak
 memory of each run; the same for a smoke-size mamba2 gang (the SSD scan's
-vmap rule) and a smoke-size olmoe gang (the grouped GEMM's, forward, dx
-and dw); a one-step gang of two gemma3-1b members under the profiler.
+vmap rule), a smoke-size olmoe gang (the grouped GEMM's, forward, dx and
+dw) and a smoke-size hymba gang (both families' rules in one layer); a
+one-step gang of two gemma3-1b members under the profiler.
 
 Then the kernels line, the card line and, last, the result line.  There is
 no CPU mode: without a CUDA device the script exits with an error.
@@ -192,6 +208,8 @@ CONSISTENCY_LAYERS = 26
 CONSISTENCY_PROMPT = 160      # 3 key tiles of 64: the online softmax runs
 WINDOW_CHECK_SEQ = 600        # past gemma3-1b's window of 512
 PROFILE_DECODE_STEPS = 8
+#: a prefill's batch: the tokens of each path's prefill phase
+PREFILL_BATCH, PREFILL_SEQ = 4, 2048
 #: host-side runtime calls that launch a kernel or wait for the device
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
@@ -214,6 +232,7 @@ FA_CASES = [
     ("gemma3-1b ragged swa", 4, 1000, 4, 1, 256, True, 512),
     ("h2o-danube-1.8b", 4, 2048, 32, 8, 80, True, 4096),
     ("deepseek-7b", 4, 2048, 32, 32, 128, True, 0),
+    ("hymba-1.5b global", 4, 2048, 25, 5, 64, True, 0),
     ("hymba-1.5b swa", 4, 2048, 25, 5, 64, True, 1024),
     ("bidirectional D128", 2, 200, 4, 2, 128, False, 0),
     ("smoke D32 window", 2, 40, 2, 1, 32, True, 16),
@@ -230,6 +249,7 @@ FA_BWD_CASES = [
     ("gemma3-1b ragged", 4, 1000, 4, 1, 256, True, 0, False),
     ("olmoe-1b-7b D128", 4, 2048, 16, 16, 128, True, 0, False),
     ("deepseek-7b D128", 4, 2048, 32, 32, 128, True, 0, False),
+    ("hymba-1.5b global", 4, 2048, 25, 5, 64, True, 0, False),
     ("hymba-1.5b swa", 4, 2048, 25, 5, 64, True, 1024, False),
     ("bidirectional D80", 2, 200, 4, 2, 80, False, 0, False),
     ("smoke D32 window", 2, 40, 2, 1, 32, True, 16, False),
@@ -344,25 +364,50 @@ QWEN2_MOE_DEPTH_SCALE = math.sqrt(QWEN2_MOE_LAYERS / CONSISTENCY_LAYERS)
 #: parameters, gradients, AdamW's fp32 master copy and its two moments hold
 #: TRAIN_BYTES_PER_PARAM bytes a parameter; AdamW's update makes a few
 #: fp32 temporaries of one leaf at a time (UPDATE_TEMPORARIES of the
-#: largest, a stacked expert weight (layers, E, d, f)); and a step's
-#: activations, with full remat one MoE layer's recompute at a time (its
-#: T·K rows through three grouped GEMMs, the fp32 combine, dw in bf16 and
-#: its fp32 cast), take a few GB.  The depth is the deepest of
-#: MOE_TRAIN_DEPTHS whose reckoning fits MOE_TRAIN_BUDGET_GB; a measured
-#: peak above the budget falls to the next.
+#: largest: for olmoe a stacked expert weight (layers, E, d, f), for hymba
+#: a stacked in_proj (layers, d, 2·d_inner + 2·G·N + H)); and a step's
+#: activations take a few GB, TRAIN_ACTIVATION_GB: with full remat one
+#: layer's recompute at a time (olmoe: its T·K rows through three grouped
+#: GEMMs, the fp32 combine, dw in bf16 and its fp32 cast; hymba: both
+#: branches' fp32 gating and conv), the residual stream at every layer and
+#: the logits with their gradient.  The depth is the deepest of
+#: MOE_TRAIN_DEPTHS whose reckoning fits TRAIN_BUDGET_GB; a measured peak
+#: above the budget falls to the next.
 MOE_TRAIN_DEPTHS = (8, 4)
-MOE_TRAIN_BUDGET_GB = 72.0
+TRAIN_BUDGET_GB = 72.0
 TRAIN_BYTES_PER_PARAM = 20
 UPDATE_TEMPORARIES = 5
-MOE_TRAIN_ACTIVATION_GB = 8.0
+TRAIN_ACTIVATION_GB = 8.0
 MOE_TRAIN_WARMUP, MOE_TRAIN_TIMED = 2, 3
+#: hymba-1.5b, after mamba2-780m's paths.  Its check past the window runs
+#: a cut of the model, its first HYMBA_WINDOW_LAYERS layers (one hyb_g,
+#: three hyb_l), over HYMBA_WINDOW_SEQ positions (five chunks of 256),
+#: past the 1024-entry ring of the hyb_l layers: at full depth 1280
+#: host-bound decode steps would cost too much time.  The cut's bounds take
+#: the sqrt depth scaling, as qwen2-moe-a2.7b's cut does.
+HYMBA_WINDOW_LAYERS = 4
+HYMBA_WINDOW_SEQ = 1280
+HYMBA_WINDOW_DEPTH_SCALE = math.sqrt(HYMBA_WINDOW_LAYERS / CONSISTENCY_LAYERS)
+HYMBA_TRAIN_WARMUP, HYMBA_TRAIN_TIMED = 2, 3
+#: the smoke configs the card runs where the reference's is not one the
+#: kernels take: hymba-1.5b's smoke SSD state of 8 is not a multiple of 16
+#: (the SSD kernels' N), so on the card its smoke config has a state of 16
+CARD_SMOKE = {"hymba-1.5b": {"ssm_state": 16}}
+#: layer kinds that run the attention kernels, and the SSD kernels
+ATTENTION_KINDS = ("attn", "swa", "moe", "hyb_g", "hyb_l")
+SSM_KINDS = ("ssm", "hyb_g", "hyb_l")
 #: host synchronisations a decode step may make besides one a layer (the
 #: attention's 0-d scale): the engine's token upload and argmax read
 DECODE_ENGINE_SYNCS = 4
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -597,24 +642,102 @@ def gmm_dw_floor_ms(t: int, d: int, f: int, experts: int) -> tuple[float, float]
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def moe_train_reckoning_gb(cfg, layers: int) -> dict[str, float]:
+def largest_leaf(cfg) -> int:
+    """Elements of ``cfg``'s largest parameter leaf: the embedding table or
+    a segment's stacked weight (an expert weight, an SSM in_proj, an MLP
+    or attention projection)."""
+    d = cfg.d_model
+    sizes = [cfg.padded_vocab * d]
+    for kind, count in cfg.segments():
+        per_layer = [d * cfg.attn_dim] if kind in ATTENTION_KINDS else []
+        if kind in SSM_KINDS:
+            gn = cfg.ssm_groups * cfg.ssm_state
+            per_layer.append(d * (2 * cfg.d_inner + 2 * gn + cfg.ssm_heads))
+        if kind == "moe":
+            per_layer.append(cfg.n_experts * d * cfg.moe_d_ff)
+        elif kind != "ssm":
+            per_layer.append(d * cfg.d_ff)
+        sizes.append(count * max(per_layer))
+    return max(sizes)
+
+
+def train_reckoning_gb(cfg, layers: int) -> dict[str, float]:
     """GB that training ``cfg`` cut to its first ``layers`` layers needs:
-    the state (TRAIN_BYTES_PER_PARAM a parameter), AdamW's temporaries of
-    its largest leaf, the activations, and their total."""
-    state = TRAIN_BYTES_PER_PARAM * cut_depth(cfg, layers).param_count() / 1e9
-    largest = 4 * layers * cfg.n_experts * cfg.d_model * cfg.moe_d_ff / 1e9
-    out = {"state_gb": state, "update_gb": UPDATE_TEMPORARIES * largest,
-           "activation_gb": MOE_TRAIN_ACTIVATION_GB}
+    the state (TRAIN_BYTES_PER_PARAM a parameter), AdamW's fp32
+    temporaries of its largest leaf, the activations, and their total."""
+    cut = cut_depth(cfg, layers)
+    out = {"state_gb": TRAIN_BYTES_PER_PARAM * cut.param_count() / 1e9,
+           "update_gb": UPDATE_TEMPORARIES * 4 * largest_leaf(cut) / 1e9,
+           "activation_gb": TRAIN_ACTIVATION_GB}
     return {**out, "total_gb": sum(out.values())}
 
 
-def moe_train_depth(cfg, budget_gb: float = MOE_TRAIN_BUDGET_GB,
-                    depths: tuple[int, ...] = MOE_TRAIN_DEPTHS) -> int:
+def train_depth(cfg, budget_gb: float = TRAIN_BUDGET_GB,
+                depths: tuple[int, ...] = MOE_TRAIN_DEPTHS) -> int:
     """The deepest of ``depths`` whose reckoning fits ``budget_gb``."""
     for layers in depths:
-        if moe_train_reckoning_gb(cfg, layers)["total_gb"] <= budget_gb:
+        if train_reckoning_gb(cfg, layers)["total_gb"] <= budget_gb:
             return layers
     raise ValueError(f"{cfg.name}: not even {depths[-1]} layers fit {budget_gb} GB")
+
+
+def card_smoke(arch: str, **overrides):
+    """``arch``'s smoke config as the card runs it (CARD_SMOKE)."""
+    from repro_torch.configs import get_smoke
+    return get_smoke(arch, **{**CARD_SMOKE.get(arch, {}), **overrides})
+
+
+def path_kernels(cfg, backward: bool) -> tuple[str, ...]:
+    """The kernels a forward of ``cfg`` launches, and with ``backward``
+    those of a train step: flash attention for an attention layer, the SSD
+    kernels for an SSM layer (a hybrid layer has both), the grouped GEMM
+    for an MoE layer."""
+    kinds = set(cfg.layer_types)
+    names = []
+    if kinds & set(ATTENTION_KINDS):
+        names += ["flash_attention"] + (["flash_attention_bwd"] if backward else [])
+    if kinds & set(SSM_KINDS):
+        names += ["ssd_chunk_state", "ssd_chunk_scan"] + (
+            ["ssd_chunk_state_bwd", "ssd_chunk_scan_bwd"] if backward else [])
+    if "moe" in kinds:
+        names += ["grouped_matmul"] + (
+            ["grouped_matmul_dx", "grouped_matmul_dw"] if backward else [])
+    return tuple(names)
+
+
+def launch_counts(names: tuple[str, ...]) -> dict[str, int]:
+    """The launch counts of the kernels ``names`` since their last reset."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels import ssd_scan as kssd
+    counts = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+              "ssd_chunk_state": kssd.state_launches,
+              "ssd_chunk_scan": kssd.scan_launches,
+              "ssd_chunk_state_bwd": kssd.state_bwd_launches,
+              "ssd_chunk_scan_bwd": kssd.scan_bwd_launches,
+              "grouped_matmul": moe_gmm.launches,
+              "grouped_matmul_dx": moe_gmm.dx_launches,
+              "grouped_matmul_dw": moe_gmm.dw_launches}
+    return {name: counts[name] for name in names}
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels import ssd_scan as kssd
+    fa.launches = fa.bwd_launches = 0
+    kssd.state_launches = kssd.scan_launches = 0
+    kssd.state_bwd_launches = kssd.scan_bwd_launches = 0
+    moe_gmm.launches = moe_gmm.dx_launches = moe_gmm.dw_launches = 0
+
+
+def attention_windows(cfg) -> list[int]:
+    """The window each attention layer of ``cfg`` gives the kernel, in
+    layer order: ``cfg.window`` for a windowed layer (swa, hymba's hyb_l),
+    0 for a global one."""
+    return [cfg.window if kind in ("swa", "hyb_l") else 0
+            for kind in cfg.layer_types if kind in ATTENTION_KINDS]
 
 
 def cut_depth(cfg, layers: int):
@@ -629,16 +752,6 @@ def active_params(cfg) -> int:
     moe_layers = sum(kind == "moe" for kind in cfg.layer_types)
     experts = moe_layers * cfg.n_experts * 3 * cfg.d_model * cfg.moe_d_ff
     return cfg.param_count() - experts * (cfg.n_experts - cfg.top_k) // cfg.n_experts
-
-
-def moe_step_launches(layers: int) -> dict[str, int]:
-    """Kernel launches of one MoE train step under full remat: each layer's
-    three grouped GEMMs and its attention run in the forward and again in
-    the recompute; the backward launches a dx and a dw for each GEMM and
-    one attention backward."""
-    return {"grouped_matmul": 6 * layers, "grouped_matmul_dx": 3 * layers,
-            "grouped_matmul_dw": 3 * layers, "flash_attention": 2 * layers,
-            "flash_attention_bwd": layers}
 
 
 def dw_errors(out: torch.Tensor, want: torch.Tensor,
@@ -1076,26 +1189,11 @@ def gemma3_path(dev, card) -> dict:
 
     # the work of one gemma3-1b prefill: one call per layer, at its window
     cfg = get("gemma3-1b")
-    windows = [cfg.window if kind == "swa" else 0 for kind in cfg.layer_types]
     b, s = 4, 2048
-    q, k, v = qkv(b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    lib_calls = [sdpa_call(q, k, v, True, w) for w in windows]
-    floors = [attention_floor_ms(b, s, cfg.n_heads, cfg.n_kv_heads,
-                                 cfg.head_dim, True, w) for w in windows]
-    mix_bound_ms, mix_bound_by = bound(sum(f[0] for f in floors),
-                                       sum(f[1] for f in floors))
-    prefill_attn = {
-        "ms": time_ms(lambda: [fa.flash_attention(q, k, v, window=w)
-                               for w in windows], 10),
-        "plain_ms": time_ms(lambda: [fa.flash_attention_plain(q, k, v, window=w)
-                                     for w in windows], 2, 1),
-        "library_ms": time_ms(lambda: [c() for c in lib_calls], 10),
-        "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
-    }
-    emit("kernel_prefill_mix", kernel="flash_attention",
-         layers=len(windows), shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+    prefill_attn = fa_prefill_mix(cfg, gen, dev, b, s)
+    emit("kernel_prefill_mix", kernel="flash_attention", arch=cfg.name,
+         layers=cfg.n_layers, shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
          nvidia_smi=card, **prefill_attn)
-    del q, k, v, lib_calls
 
     # -- 4. prefill: the main path, at full width -----------------------------
     model = Model(cfg, dev)
@@ -1131,16 +1229,10 @@ def gemma3_path(dev, card) -> dict:
     # (a) prefill (kernel) against teacher-forced decode (plain attention),
     # over a prompt of several key tiles
     prompt = synthetic_batch(cfg, 1, CONSISTENCY_PROMPT, gen, dev)["tokens"]
-    with torch.inference_mode():
-        fwd = model.forward(params, {"tokens": prompt})[0].float()
-        cache = model.init_cache(1, CONSISTENCY_PROMPT)
-        dec = []
-        for t in range(prompt.shape[1]):
-            lg, cache = model.decode_step(params, cache, prompt[:, t:t + 1])
-            dec.append(lg[0].float())
+    fwd, dec, _ = prefill_and_decode(model, params, prompt)
     emit("prefill_decode_consistency", arch=cfg.name, prompt=CONSISTENCY_PROMPT,
-         **logits_agreement(torch.stack(dec), fwd))
-    del fwd, dec, cache
+         **logits_agreement(dec, fwd))
+    del fwd, dec
 
     # (a2) the kernel's forward against the same forward with the plain
     # attention in the kernel's place, past the window
@@ -1200,9 +1292,9 @@ def gemma3_path(dev, card) -> dict:
          **prof)
 
     return {
-        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
-        "replaces": FA_REPLACES, "launches": prefill_launches,
-        "max_abs_err": max_err, **prefill_attn,
+        "name": "flash_attention", "path": "gemma3-1b prefill", "route": "cuda",
+        "source": FA_SOURCE, "replaces": FA_REPLACES, "launches": prefill_launches,
+        **prefill_attn, "max_abs_err": max(max_err, prefill_attn["max_abs_err"]),
     }
 
 
@@ -1217,6 +1309,173 @@ def ssd_inputs(gen, dev, b, s, h, p, g, n, init):
     cm = normal(b, s, g, n, scale=0.3).to(torch.bfloat16)
     h0 = normal(b, h, p, n, scale=0.2) if init else None
     return x, log_a, bm, cm, h0
+
+
+def fa_prefill_mix(cfg, gen, dev, b: int, s: int) -> dict:
+    """The flash-attention calls of one prefill of ``cfg`` on (b, s) tokens,
+    one a layer at its window, timed together by CUDA events: the kernel's,
+    the plain version's and SDPA's ms and the bound of the same work; and
+    the kernel's largest |error| against the plain version over the
+    windows."""
+    from repro_torch.kernels import flash_attention as fa
+    windows = attention_windows(cfg)
+    q, k, v = (torch.randn((b, s, h, cfg.head_dim), generator=gen, device=dev
+                           ).to(torch.bfloat16)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    err = max((fa.flash_attention(q, k, v, window=w).float()
+               - fa.flash_attention_plain(q, k, v, window=w).float()).abs().max().item()
+              for w in set(windows))
+    lib_calls = [sdpa_call(q, k, v, True, w) for w in windows]
+    floors = [attention_floor_ms(b, s, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim, True, w) for w in windows]
+    mix_bound_ms, mix_bound_by = bound(sum(f[0] for f in floors),
+                                       sum(f[1] for f in floors))
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: [fa.flash_attention(q, k, v, window=w)
+                               for w in windows], 10),
+        "plain_ms": time_ms(lambda: [fa.flash_attention_plain(q, k, v, window=w)
+                                     for w in windows], 2, 1),
+        "library_ms": time_ms(lambda: [c() for c in lib_calls], 10),
+        "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
+    }
+
+
+def fa_train_mix(cfg, gen, dev, b: int, s: int) -> dict:
+    """The flash-attention backward calls of one train step of ``cfg`` on
+    (b, s) tokens, one a layer at its window, timed together: the kernel's,
+    the plain backward's and ``torch.autograd.grad`` through SDPA's ms and
+    the bound; and the kernel's largest |error| (dQ, dK, dV) against the
+    plain backward over the windows."""
+    from repro_torch.kernels import flash_attention as fa
+    windows = attention_windows(cfg)
+
+    def normal(h):
+        return torch.randn((b, s, h, cfg.head_dim), generator=gen, device=dev
+                           ).to(torch.bfloat16)
+
+    q, k, v, do = (normal(h) for h in (cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.n_kv_heads, cfg.n_heads))
+    saved = {w: fa.flash_attention_with_lse(q, k, v, window=w) for w in set(windows)}
+    err = max((a.float() - w.float()).abs().max().item()
+              for win in saved
+              for a, w in zip(fa.flash_attention_bwd(q, k, v, *saved[win], do, window=win),
+                              fa.flash_attention_bwd_plain(q, k, v, *saved[win], do,
+                                                           window=win)))
+    lib_calls = [sdpa_grad_call(q, k, v, do, True, w) for w in windows]
+    floors = [attention_bwd_floor_ms(b, s, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim, True, w) for w in windows]
+    mix_bound_ms, mix_bound_by = bound(sum(f[0] for f in floors),
+                                       sum(f[1] for f in floors))
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: [fa.flash_attention_bwd(q, k, v, *saved[w], do, window=w)
+                               for w in windows], 5),
+        "plain_ms": time_ms(lambda: [fa.flash_attention_bwd_plain(
+            q, k, v, *saved[w], do, window=w) for w in windows], 1, 1),
+        "library_ms": time_ms(lambda: [c() for c in lib_calls], 5),
+        "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
+    }
+
+
+def ssd_prefill_mix(cfg, gen, dev, b: int, s: int) -> dict[str, dict]:
+    """The SSD scans of one prefill of ``cfg`` on (b, s) tokens, one a layer
+    with SSM heads, timed together by CUDA events for each kernel and for
+    the whole scan (``function``): the kernels' ms and their own device ms
+    (the profiler's), the plain versions' and the bound; and each kernel's
+    largest |error| against its plain version (the scan on the state
+    kernel's passed states)."""
+    from repro_torch.kernels import ssd_scan as kssd
+    h, p, g, n, chunk = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                         cfg.ssm_state, cfg.ssm_chunk)
+    x, la, bm, cm, _ = ssd_inputs(gen, dev, b, s, h, p, g, n, False)
+    prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk)
+    want_prev, _ = kssd.chunk_state_plain(x, la, bm, chunk)
+    y = kssd.chunk_scan(x, la, bm, cm, prev, chunk=chunk)
+    want_y = kssd.chunk_scan_plain(x, la, bm, cm, prev, chunk)
+    errs = {"chunk_state": (prev - want_prev).abs().max().item(),
+            "chunk_scan": (y.float() - want_y.float()).abs().max().item()}
+    errs["function"] = max(errs.values())
+    del want_prev, y, want_y
+    layers = range(sum(kind in SSM_KINDS for kind in cfg.layer_types))
+    mix = {}
+    for part, kernel, plain in (
+            ("chunk_state", lambda: kssd.chunk_state(x, la, bm, chunk=chunk),
+             lambda: kssd.chunk_state_plain(x, la, bm, chunk)),
+            ("chunk_scan", lambda: kssd.chunk_scan(x, la, bm, cm, prev, chunk=chunk),
+             lambda: kssd.chunk_scan_plain(x, la, bm, cm, prev, chunk)),
+            ("function", lambda: kssd.ssd_scan(x, la, bm, cm, chunk=chunk),
+             lambda: kssd.ssd_scan_plain(x, la, bm, cm, chunk=chunk))):
+        ops_ms, bytes_ms = ssd_floor_ms(b, s, h, p, g, n, chunk, part)
+        mix_bound_ms, mix_bound_by = bound(len(layers) * ops_ms, len(layers) * bytes_ms)
+        mix[part] = {
+            "max_abs_err": errs[part],
+            "ms": time_ms(lambda: [kernel() for _ in layers], 10),
+            # the kernels' own device time: the wrappers' host time a call
+            # (~60-100 us) can exceed ssd_chunk_state's, and then ``ms``
+            # counts the card waiting for the host
+            "kernel_ms": kernel_ms(lambda: [kernel() for _ in layers],
+                                   "ssd_" + part if part != "function" else "ssd_chunk", 3),
+            "plain_ms": time_ms(lambda: [plain() for _ in layers], 2, 1),
+            "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
+            "library_ms": None,
+        }
+    return mix
+
+
+def ssd_train_mix(cfg, gen, dev, b: int, s: int) -> dict[str, dict]:
+    """The SSD backward of one train step of ``cfg`` on (b, s) tokens, one
+    a layer with SSM heads, timed together for each backward kernel and for
+    the whole backward (both kernels and the glue, as ``SSDScan`` runs it,
+    against the function's bound): the kernels' ms, the plain versions' and
+    the bounds; and each kernel's largest |error| against its plain version
+    (the scan's dB and dC slices added)."""
+    from repro_torch.kernels import ssd_scan as kssd
+    h, p, g, n, chunk = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                         cfg.ssm_state, cfg.ssm_chunk)
+    x, la, bm, cm, _ = ssd_inputs(gen, dev, b, s, h, p, g, n, False)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
+    prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk)
+    state = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=chunk)
+    gnext, _, d_total = state
+    scan = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, gnext, d_total, chunk=chunk)
+    want_state = kssd.chunk_state_bwd_plain(dy, la, cm, prev, chunk)
+    want_scan = kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, gnext, d_total, chunk)
+
+    def summed(out):   # the scan backward's dB and dC slices added
+        return out[0], out[1], out[2].sum(3), out[3].sum(3)
+
+    errs = {"chunk_state_bwd": max((a.float() - w.float()).abs().max().item()
+                                   for a, w in zip(state, want_state)),
+            "chunk_scan_bwd": max((a.float() - w.float()).abs().max().item()
+                                  for a, w in zip(summed(scan), summed(want_scan)))}
+    errs["function"] = max(errs.values())
+    del state, scan, want_state, want_scan
+    slices = h // kssd.bwd_heads_per_block(h, g) // g
+    layers = range(sum(kind in SSM_KINDS for kind in cfg.layer_types))
+    mix = {}
+    for part, kernel, plain in (
+            ("chunk_scan_bwd",
+             lambda: kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, gnext, d_total,
+                                         chunk=chunk),
+             lambda: kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, gnext,
+                                               d_total, chunk)),
+            ("chunk_state_bwd",
+             lambda: kssd.chunk_state_bwd(dy, la, cm, prev, chunk=chunk),
+             lambda: kssd.chunk_state_bwd_plain(dy, la, cm, prev, chunk)),
+            ("function",
+             lambda: kssd.ssd_scan_bwd(x, la, bm, cm, prev, dy, chunk=chunk),
+             lambda: kssd.ssd_scan_bwd_plain(x, la, bm, cm, prev, dy, chunk))):
+        ops_ms, bytes_ms = ssd_bwd_floor_ms(b, s, h, p, g, n, chunk, part,
+                                            slices=slices)
+        mix_bound_ms, mix_bound_by = bound(len(layers) * ops_ms, len(layers) * bytes_ms)
+        mix[part] = {
+            "max_abs_err": errs[part],
+            "ms": time_ms(lambda: [kernel() for _ in layers], 3, 1),
+            "plain_ms": time_ms(lambda: [plain() for _ in layers], 1, 1),
+            "bound_ms": mix_bound_ms, "bound_by": mix_bound_by, "library_ms": None,
+        }
+    return mix
 
 
 def mamba2_path(dev, card) -> list[dict]:
@@ -1303,34 +1562,9 @@ def mamba2_path(dev, card) -> list[dict]:
 
     # the SSD work of one mamba2-780m prefill: one scan per layer
     b, s = 4, 2048
-    x, la, bm, cm, _ = ssd_inputs(gen, dev, b, s, h, p, g, n, False)
-    prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk)
-    layers = range(cfg.n_layers)
-    mix = {}
-    for part, kernel, plain in (
-            ("chunk_state", lambda: kssd.chunk_state(x, la, bm, chunk=chunk),
-             lambda: kssd.chunk_state_plain(x, la, bm, chunk)),
-            ("chunk_scan", lambda: kssd.chunk_scan(x, la, bm, cm, prev, chunk=chunk),
-             lambda: kssd.chunk_scan_plain(x, la, bm, cm, prev, chunk)),
-            ("function", lambda: kssd.ssd_scan(x, la, bm, cm, chunk=chunk),
-             lambda: kssd.ssd_scan_plain(x, la, bm, cm, chunk=chunk))):
-        ops_ms, bytes_ms = ssd_floor_ms(b, s, h, p, g, n, chunk, part)
-        mix_bound_ms, mix_bound_by = bound(cfg.n_layers * ops_ms,
-                                           cfg.n_layers * bytes_ms)
-        mix[part] = {
-            "ms": time_ms(lambda: [kernel() for _ in layers], 10),
-            # the kernels' own device time: the wrappers' host time a call
-            # (~60-100 us) can exceed ssd_chunk_state's, and then ``ms``
-            # counts the card waiting for the host
-            "kernel_ms": kernel_ms(lambda: [kernel() for _ in layers],
-                                   "ssd_" + part if part != "function" else "ssd_chunk", 3),
-            "plain_ms": time_ms(lambda: [plain() for _ in layers], 2, 1),
-            "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
-            "library_ms": None,
-        }
-    emit("kernel_prefill_mix", kernel="ssd_scan", layers=cfg.n_layers,
+    mix = ssd_prefill_mix(cfg, gen, dev, b, s)
+    emit("kernel_prefill_mix", kernel="ssd_scan", arch=cfg.name, layers=cfg.n_layers,
          shape=[b, s, h, p, g, n, chunk], nvidia_smi=card, **mix)
-    del x, la, bm, cm, prev
 
     # -- 4. prefill: the main path, at full width -----------------------------
     model = Model(cfg, dev)
@@ -1370,14 +1604,7 @@ def mamba2_path(dev, card) -> list[dict]:
     # (a) prefill (kernels) against teacher-forced decode (ssd_step), over
     # two chunks, so the inter-chunk path runs
     prompt = synthetic_batch(cfg, 1, SSD_CONSISTENCY_PROMPT, gen, dev)["tokens"]
-    with torch.inference_mode():
-        fwd = model.forward(params, {"tokens": prompt})[0].float()
-        cache = model.init_cache(1, SSD_CONSISTENCY_PROMPT)
-        dec = []
-        for t in range(prompt.shape[1]):
-            lg, cache = model.decode_step(params, cache, prompt[:, t:t + 1])
-            dec.append(lg[0].float())
-    dec = torch.stack(dec)
+    fwd, dec, _ = prefill_and_decode(model, params, prompt)
     emit("prefill_decode_consistency", arch=cfg.name, prompt=SSD_CONSISTENCY_PROMPT,
          chunks=SSD_CONSISTENCY_PROMPT // chunk,
          **logits_agreement(dec, fwd, cfg.n_layers))
@@ -1400,7 +1627,7 @@ def mamba2_path(dev, card) -> list[dict]:
             for name, out in (("prefill", fwd), ("decode", dec))},
          **{f"{name}_mean_rel_to_std": (out - ref).abs().mean().item() / spread
             for name, out in (("prefill", fwd), ("decode", dec))})
-    del fwd, dec, cache, ref, ref_params
+    del fwd, dec, ref, ref_params
 
     # (a2) the kernels' forward against the same forward with the plain
     # version in their place, over 8 chunks
@@ -1457,11 +1684,216 @@ def mamba2_path(dev, card) -> list[dict]:
              "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")},
          **prof)
 
-    return [{"name": name, "route": "cuda", "source": SSD_SOURCE,
-             "replaces": SSD_REPLACES[name], "launches": launches[name],
-             "max_abs_err": max_err[name], **mix[part]}
+    return [{"name": name, "path": "mamba2-780m prefill", "route": "cuda",
+             "source": SSD_SOURCE, "replaces": SSD_REPLACES[name],
+             "launches": launches[name], **mix[part],
+             "max_abs_err": max(max_err[name], mix[part]["max_abs_err"])}
             for name, part in (("ssd_chunk_state", "chunk_state"),
                                ("ssd_chunk_scan", "chunk_scan"))]
+
+
+def prefill_and_decode(model, params, prompt: torch.Tensor):
+    """The logits of a (1, S) prompt by one forward and by S teacher-forced
+    decode steps into a cache of S positions: (forward (S, V), decode
+    (S, V), the cache after the last step), fp32."""
+    with torch.inference_mode():
+        fwd = model.forward(params, {"tokens": prompt})[0].float()
+        cache = model.init_cache(1, prompt.shape[1])
+        dec = []
+        for t in range(prompt.shape[1]):
+            lg, cache = model.decode_step(params, cache, prompt[:, t:t + 1])
+            dec.append(lg[0].float())
+    return fwd, torch.stack(dec), cache
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """flash attention and the SSD scan replaced by their plain versions
+    (differentiable by autograd) where the model calls them."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as kssd
+    kernels = fa.flash_attention, kssd.ssd_scan
+    fa.flash_attention, kssd.ssd_scan = fa.flash_attention_plain, kssd.ssd_scan_plain
+    try:
+        yield
+    finally:
+        fa.flash_attention, kssd.ssd_scan = kernels
+
+
+def step_launches(cfg, steps: int = 1) -> dict[str, int]:
+    """Kernel launches of ``steps`` train steps of ``cfg`` under full remat:
+    each layer's forward kernels twice (the forward and the recompute), its
+    backward kernels once; an MoE layer's three grouped GEMMs each with a
+    dx and a dw."""
+    attn = sum(kind in ATTENTION_KINDS for kind in cfg.layer_types) * steps
+    ssm = sum(kind in SSM_KINDS for kind in cfg.layer_types) * steps
+    moe = sum(kind == "moe" for kind in cfg.layer_types) * steps
+    out = {}
+    if attn:
+        out.update(flash_attention=2 * attn, flash_attention_bwd=attn)
+    if ssm:
+        out.update(ssd_chunk_state=2 * ssm, ssd_chunk_scan=2 * ssm,
+                   ssd_chunk_state_bwd=ssm, ssd_chunk_scan_bwd=ssm)
+    if moe:
+        out.update(grouped_matmul=6 * moe, grouped_matmul_dx=3 * moe,
+                   grouped_matmul_dw=3 * moe)
+    return out
+
+
+def hymba_path(dev, card) -> list[dict]:
+    """Phases 3-7 for hymba-1.5b (an attention and an SSM branch in every
+    layer; its kernel shapes are checked among FA_CASES and mamba2's SSD
+    cases): the kernels' calls of one prefill, prefill at full width and
+    depth, prefill against teacher-forced decode at full depth and, cut to
+    its first four layers, past the 1024-entry window, the kernels against
+    their plain versions, the card against the CPU, serve and profile.
+    Returns its prefill's entries of the kernels line."""
+    from repro_torch import bridge
+    from repro_torch.configs import get
+    from repro_torch.models import Model, compute_copy, synthetic_batch
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    cfg = get("hymba-1.5b")
+    kernels = path_kernels(cfg, backward=False)
+    h, p, g, n, chunk = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                         cfg.ssm_state, cfg.ssm_chunk)
+
+    # -- 3. the kernels' calls of one prefill, timed together ------------------
+    b, s = PREFILL_BATCH, PREFILL_SEQ
+    windows = attention_windows(cfg)
+    fa_mix = fa_prefill_mix(cfg, gen, dev, b, s)
+    emit("kernel_prefill_mix", kernel="flash_attention", arch=cfg.name,
+         layers=len(windows), global_layers=windows.count(0),
+         shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+         window=cfg.window, nvidia_smi=card, **fa_mix)
+    ssd_mix = ssd_prefill_mix(cfg, gen, dev, b, s)
+    emit("kernel_prefill_mix", kernel="ssd_scan", arch=cfg.name, layers=cfg.n_layers,
+         shape=[b, s, h, p, g, n, chunk], nvidia_smi=card, **ssd_mix)
+    torch.cuda.empty_cache()
+
+    # -- 4. prefill: the main path, at full width and depth -------------------
+    model = Model(cfg, dev)
+    params = compute_copy(cfg, model.init(seed=0))   # bf16 serving copy
+    batch = synthetic_batch(cfg, b, s, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.inference_mode():
+        logits = model.forward(params, batch)
+    torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    want = {name: cfg.n_layers for name in kernels}
+    if launches != want:
+        raise AssertionError(f"prefill launches {launches}, want {want}")
+    if tuple(logits.shape) != (b, s, cfg.vocab_size):
+        raise AssertionError(f"logits shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite")
+    del logits
+    times = []
+    with torch.inference_mode():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model.forward(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    prefill_s = float(np.median(times))
+    emit("prefill", arch=cfg.name, batch=b, seq=s, launches=launches,
+         seconds=prefill_s, tokens_per_s=b * s / prefill_s, runs=times,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=card)
+
+    # -- 5. correctness ---------------------------------------------------------
+    # (a) prefill (kernels) against teacher-forced decode (plain attention
+    # over the cache, ssd_step) at full depth, over two chunks
+    prompt = synthetic_batch(cfg, 1, SSD_CONSISTENCY_PROMPT, gen, dev)["tokens"]
+    fwd, dec, _ = prefill_and_decode(model, params, prompt)
+    emit("prefill_decode_consistency", arch=cfg.name, prompt=SSD_CONSISTENCY_PROMPT,
+         chunks=SSD_CONSISTENCY_PROMPT // chunk, **logits_agreement(dec, fwd, cfg.n_layers))
+    del fwd, dec
+
+    # (a2) the same past the window, on the first HYMBA_WINDOW_LAYERS layers
+    # (one hyb_g, then hyb_l): the hyb_l ring of 1024 entries wraps
+    cut = cut_depth(cfg, HYMBA_WINDOW_LAYERS)
+    cut_model = Model(cut, dev)
+    cut_params = compute_copy(cut, cut_model.init(seed=1))
+    prompt = synthetic_batch(cut, 1, HYMBA_WINDOW_SEQ, gen, dev)["tokens"]
+    fwd, dec, cache = prefill_and_decode(cut_model, cut_params, prompt)
+    ring = [seg["attn"]["k"].shape[2] for seg in cache["segments"]]
+    if ring != [HYMBA_WINDOW_SEQ, cfg.window] or cache["pos"] != HYMBA_WINDOW_SEQ:
+        raise AssertionError(f"cut cache: KV lengths {ring}, pos {cache['pos']}")
+    emit("prefill_decode_past_window", arch=cfg.name,
+         layers=f"{HYMBA_WINDOW_LAYERS} of {cfg.n_layers}",
+         layer_types=list(cut.layer_types), prompt=HYMBA_WINDOW_SEQ,
+         window=cfg.window, kv_lengths=ring, chunks=HYMBA_WINDOW_SEQ // chunk,
+         depth_scale=HYMBA_WINDOW_DEPTH_SCALE,
+         **logits_agreement(dec, fwd, HYMBA_WINDOW_LAYERS,
+                            depth_scale=HYMBA_WINDOW_DEPTH_SCALE))
+    del fwd, dec, cache, cut_model, cut_params
+
+    # (a3) the kernels' forward against the same forward with the plain
+    # versions of both in their place, past the window, over 8 chunks
+    toks = synthetic_batch(cfg, 1, SSD_PLAIN_CHECK_SEQ, gen, dev)
+    with torch.inference_mode():
+        got = model.forward(params, toks)[0].float()
+        with plain_kernels():
+            want_logits = model.forward(params, toks)[0].float()
+    emit("forward_vs_plain_kernels", arch=cfg.name, seq=SSD_PLAIN_CHECK_SEQ,
+         window=cfg.window, chunks=SSD_PLAIN_CHECK_SEQ // chunk,
+         **logits_agreement(got, want_logits, cfg.n_layers))
+    del got, want_logits
+
+    # (b) the card's forward (kernels) against the CPU's (their plain
+    # versions), on the card's smoke config, past its window of 16
+    small = card_smoke("hymba-1.5b", use_kernels=True)
+    sm_cpu = Model(small, "cpu")
+    sp_cpu = sm_cpu.init(seed=1)
+    sp_gpu = bridge.params_from_numpy(bridge.params_to_numpy(sp_cpu), dev)
+    seq = 3 * small.ssm_chunk
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, small.vocab_size, (2, seq)))
+    with torch.inference_mode():
+        want_small = sm_cpu.forward(sp_cpu, {"tokens": toks}).float()
+        got_small = Model(small, dev).forward(sp_gpu, {"tokens": toks.to(dev)}).float().cpu()
+    small_err = (got_small - want_small).abs().max().item()
+    emit("small_forward_vs_cpu", arch=small.name, ssm_state=small.ssm_state, seq=seq,
+         max_abs=small_err, tol=CPU_GPU_TOL)
+    if not small_err <= CPU_GPU_TOL:
+        raise AssertionError(f"card vs CPU forward: {small_err} > {CPU_GPU_TOL}")
+
+    # -- 6. serve -----------------------------------------------------------------
+    rng = np.random.default_rng(0)
+    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
+    emit("serve", arch=cfg.name, requests=8, slots=4, max_len=1024, new_tokens=n_tok,
+         final_pos=engine.cache["pos"], seconds=serve_s,
+         decode_tokens_per_s=n_tok / serve_s,
+         steps_per_s=engine.cache["pos"] / serve_s, nvidia_smi=card)
+
+    # -- 7. profile: where the time goes ------------------------------------------
+    with torch.inference_mode():
+        prof = profiled(lambda: model.forward(params, batch), 1)
+    emit("profile_prefill", arch=cfg.name, batch=b, seq=s, nvidia_smi=card, **prof)
+    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
+    for rid in range(4):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, 4).tolist(), max_new=PROFILE_DECODE_STEPS + 8))
+    for _ in range(4):                                      # warm-up
+        engine.step()
+    prof = profiled(engine.step, PROFILE_DECODE_STEPS)
+    emit("profile_decode", arch=cfg.name, slots=4, max_len=1024, nvidia_smi=card,
+         per_step={k: prof[k] / PROFILE_DECODE_STEPS for k in (
+             "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")},
+         **prof)
+    del engine, model, params, batch
+
+    path = "hymba-1.5b prefill"
+    return [{"name": "flash_attention", "path": path, "route": "cuda",
+             "source": FA_SOURCE, "replaces": FA_REPLACES,
+             "launches": launches["flash_attention"], **fa_mix}] + [
+        {"name": name, "path": path, "route": "cuda", "source": SSD_SOURCE,
+         "replaces": SSD_REPLACES[name], "launches": launches[name], **ssd_mix[part]}
+        for name, part in (("ssd_chunk_state", "chunk_state"),
+                           ("ssd_chunk_scan", "chunk_scan"))]
 
 
 def moe_group_sizes(gen, dev, tokens: int, n_experts: int, top_k: int,
@@ -1841,7 +2273,8 @@ def olmoe_path(dev, card) -> dict:
     del out, qparams, qmodel, qr, qbatch
 
     return {
-        "name": "grouped_matmul", "route": "cuda", "source": GMM_SOURCE,
+        "name": "grouped_matmul", "path": "olmoe-1b-7b prefill", "route": "cuda",
+        "source": GMM_SOURCE,
         "replaces": GMM_REPLACES, "launches": main_launches,
         "max_abs_err": max_err, **gmm_mix,
     }
@@ -1919,29 +2352,11 @@ def gemma3_train_path(dev, card) -> dict:
 
     # the backward's work in one gemma3-1b train step: one call per layer
     cfg = get("gemma3-1b")
-    windows = [cfg.window if kind == "swa" else 0 for kind in cfg.layer_types]
     b, s = TRAIN_BATCH, TRAIN_SEQ
-    q, k, v = (normal(b, s, h, cfg.head_dim)
-               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
-    do = normal(b, s, cfg.n_heads, cfg.head_dim)
-    saved = {w: fa.flash_attention_with_lse(q, k, v, window=w) for w in set(windows)}
-    lib_calls = [sdpa_grad_call(q, k, v, do, True, w) for w in windows]
-    floors = [attention_bwd_floor_ms(b, s, cfg.n_heads, cfg.n_kv_heads,
-                                     cfg.head_dim, True, w) for w in windows]
-    mix_bound_ms, mix_bound_by = bound(sum(f[0] for f in floors),
-                                       sum(f[1] for f in floors))
-    train_attn = {
-        "ms": time_ms(lambda: [fa.flash_attention_bwd(q, k, v, *saved[w], do, window=w)
-                               for w in windows], 5),
-        "plain_ms": time_ms(lambda: [fa.flash_attention_bwd_plain(
-            q, k, v, *saved[w], do, window=w) for w in windows], 1, 1),
-        "library_ms": time_ms(lambda: [c() for c in lib_calls], 5),
-        "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
-    }
-    emit("kernel_train_mix", kernel="flash_attention_bwd", layers=len(windows),
-         shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+    train_attn = fa_train_mix(cfg, gen, dev, b, s)
+    emit("kernel_train_mix", kernel="flash_attention_bwd", arch=cfg.name,
+         layers=cfg.n_layers, shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
          nvidia_smi=card, **train_attn)
-    del q, k, v, do, saved, lib_calls
     torch.cuda.empty_cache()
 
     # -- 4. train: the main path, at full width and depth ----------------------
@@ -2062,9 +2477,10 @@ def gemma3_train_path(dev, card) -> dict:
     torch.cuda.empty_cache()
 
     return {
-        "name": "flash_attention_bwd", "route": "cuda", "source": FA_SOURCE,
-        "replaces": FA_REPLACES, "launches": bwd_launches,
-        "design": FA_BWD_DESIGN, "max_abs_err": max_err, **train_attn,
+        "name": "flash_attention_bwd", "path": "gemma3-1b train", "route": "cuda",
+        "source": FA_SOURCE, "replaces": FA_REPLACES, "launches": bwd_launches,
+        "design": FA_BWD_DESIGN, **train_attn,
+        "max_abs_err": max(max_err, train_attn["max_abs_err"]),
     }
 
 
@@ -2161,66 +2577,25 @@ def ssm_train_path(dev, card) -> list[dict]:
     # kernel per layer, and the whole backward (both kernels and the glue,
     # as SSDScan runs it) against the function's bound
     b, s = TRAIN_BATCH, TRAIN_SEQ
-    x, la, bm, cm, _ = ssd_inputs(gen, dev, b, s, h, p, g, n, False)
-    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
-    prev, _ = kssd.chunk_state(x, la, bm, chunk=chunk)
-    gnext, _, d_total = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=chunk)
-    slices = h // kssd.bwd_heads_per_block(h, g) // g
-    layers = range(cfg.n_layers)
-    mix = {}
-    for part, kernel, plain in (
-            ("chunk_scan_bwd",
-             lambda: kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, gnext, d_total,
-                                         chunk=chunk),
-             lambda: kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, gnext,
-                                               d_total, chunk)),
-            ("chunk_state_bwd",
-             lambda: kssd.chunk_state_bwd(dy, la, cm, prev, chunk=chunk),
-             lambda: kssd.chunk_state_bwd_plain(dy, la, cm, prev, chunk)),
-            ("function",
-             lambda: kssd.ssd_scan_bwd(x, la, bm, cm, prev, dy, chunk=chunk),
-             lambda: kssd.ssd_scan_bwd_plain(x, la, bm, cm, prev, dy, chunk))):
-        ops_ms, bytes_ms = ssd_bwd_floor_ms(b, s, h, p, g, n, chunk, part,
-                                            slices=slices)
-        mix_bound_ms, mix_bound_by = bound(cfg.n_layers * ops_ms,
-                                           cfg.n_layers * bytes_ms)
-        mix[part] = {
-            "ms": time_ms(lambda: [kernel() for _ in layers], 3, 1),
-            "plain_ms": time_ms(lambda: [plain() for _ in layers], 1, 1),
-            "bound_ms": mix_bound_ms, "bound_by": mix_bound_by, "library_ms": None,
-        }
-    emit("kernel_train_mix", kernel="ssd_scan_bwd", layers=cfg.n_layers,
-         shape=[b, s, h, p, g, n, chunk], slices_per_group=slices, nvidia_smi=card,
+    mix = ssd_train_mix(cfg, gen, dev, b, s)
+    emit("kernel_train_mix", kernel="ssd_scan_bwd", arch=cfg.name, layers=cfg.n_layers,
+         shape=[b, s, h, p, g, n, chunk],
+         slices_per_group=h // kssd.bwd_heads_per_block(h, g) // g, nvidia_smi=card,
          **mix)
-    del x, la, bm, cm, dy, prev, gnext, d_total
     torch.cuda.empty_cache()
 
-    def counts():
-        return {"ssd_chunk_state": kssd.state_launches,
-                "ssd_chunk_scan": kssd.scan_launches,
-                "ssd_chunk_state_bwd": kssd.state_bwd_launches,
-                "ssd_chunk_scan_bwd": kssd.scan_bwd_launches}
-
-    def reset():
-        kssd.state_launches = kssd.scan_launches = 0
-        kssd.state_bwd_launches = kssd.scan_bwd_launches = 0
-
-    def per_steps(k):
-        return {"ssd_chunk_state": 2 * cfg.n_layers * k,
-                "ssd_chunk_scan": 2 * cfg.n_layers * k,
-                "ssd_chunk_state_bwd": cfg.n_layers * k,
-                "ssd_chunk_scan_bwd": cfg.n_layers * k}
+    kernels = path_kernels(cfg, backward=True)
 
     # -- 4. train: the main path, at full width and depth ----------------------
     torch.cuda.reset_peak_memory_stats()
     steps = SSM_TRAIN_WARMUP + SSM_TRAIN_TIMED
-    reset()
+    reset_launches()
     out = train.main(["--arch", "mamba2-780m", "--steps", str(steps), "--batch", str(b),
                       "--seq", str(s), "--log-every", "1"])
-    launches = counts()
-    if launches != per_steps(steps):
+    launches = launch_counts(kernels)
+    if launches != step_launches(cfg, steps):
         raise AssertionError(f"mamba2 training launched {launches}, want "
-                             f"{per_steps(steps)}")
+                             f"{step_launches(cfg, steps)}")
     if out["steps_run"] != steps or not math.isfinite(out["loss"]):
         raise AssertionError(f"training ran {out['steps_run']} steps, loss {out['loss']}")
     step_s = float(np.median(out["step_seconds"][SSM_TRAIN_WARMUP:]))
@@ -2282,19 +2657,19 @@ def ssm_train_path(dev, card) -> list[dict]:
     step = make_train_step(cfg, opt)
     losses = []
     for i in range(LEARN_STEPS):
-        reset()
+        reset_launches()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
         if i == 0:
-            step_launches = counts()
+            one_step = launch_counts(kernels)
     emit("train_learns", arch=cfg.name, steps=LEARN_STEPS, losses=losses,
-         bound_last_over_first=LEARN_DROP, step_launches=step_launches)
+         bound_last_over_first=LEARN_DROP, step_launches=one_step)
     if not losses[-1] < LEARN_DROP * losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    if step_launches != per_steps(1):
-        raise AssertionError(f"one train step launched {step_launches}, want "
-                             f"{per_steps(1)} (the forward kernels twice a layer "
-                             f"by the full remat, the backward kernels once)")
+    if one_step != step_launches(cfg):
+        raise AssertionError(f"one train step launched {one_step}, want "
+                             f"{step_launches(cfg)} (the forward kernels twice a "
+                             f"layer by the full remat, the backward kernels once)")
 
     # -- 6. profile: where the time of one train step goes --------------------
     torch.cuda.synchronize()
@@ -2308,11 +2683,162 @@ def ssm_train_path(dev, card) -> list[dict]:
     del state, step, batch
     torch.cuda.empty_cache()
 
-    return [{"name": "ssd_" + part, "route": "cuda", "source": SSD_SOURCE,
-             "replaces": SSD_BWD_REPLACES, "launches": launches["ssd_" + part],
-             "design": SSD_BWD_DESIGN, "max_abs_err": max_err["ssd_" + part],
-             **mix[part]}
+    return [{"name": "ssd_" + part, "path": "mamba2-780m train", "route": "cuda",
+             "source": SSD_SOURCE, "replaces": SSD_BWD_REPLACES,
+             "launches": launches["ssd_" + part], "design": SSD_BWD_DESIGN,
+             **mix[part],
+             "max_abs_err": max(max_err["ssd_" + part], mix[part]["max_abs_err"])}
             for part in ("chunk_scan_bwd", "chunk_state_bwd")]
+
+
+def hymba_train_path(dev, card) -> list[dict]:
+    """hymba-1.5b training: the backward kernels' calls of one train step,
+    then training at full width and depth through ``launch.train`` (its
+    memory reckoned first), the kernels' step against the plain versions'
+    (flash attention and the SSD scan both), a falling loss, one step's
+    launches and its profile.  Returns the backward kernels' entries of the
+    kernels line."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import (
+        AdamW, cosine_schedule, global_norm, value_and_grad,
+    )
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    cfg = get("hymba-1.5b")
+    kernels = path_kernels(cfg, backward=True)
+    h, p, g, n, chunk = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+                         cfg.ssm_state, cfg.ssm_chunk)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+
+    # -- 3. the backward kernels' calls of one train step, timed together ----
+    fa_mix = fa_train_mix(cfg, gen, dev, b, s)
+    emit("kernel_train_mix", kernel="flash_attention_bwd", arch=cfg.name,
+         layers=cfg.n_layers, shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+         window=cfg.window, nvidia_smi=card, **fa_mix)
+    ssd_mix = ssd_train_mix(cfg, gen, dev, b, s)
+    emit("kernel_train_mix", kernel="ssd_scan_bwd", arch=cfg.name, layers=cfg.n_layers,
+         shape=[b, s, h, p, g, n, chunk],
+         slices_per_group=h // kssd.bwd_heads_per_block(h, g) // g, nvidia_smi=card,
+         **ssd_mix)
+    torch.cuda.empty_cache()
+
+    # -- 4. train: the main path, at full width and depth ----------------------
+    reckoning = train_reckoning_gb(cfg, cfg.n_layers)
+    emit("train_reckoning", arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+         largest_leaf=largest_leaf(cfg), budget_gb=TRAIN_BUDGET_GB, **reckoning)
+    if reckoning["total_gb"] > TRAIN_BUDGET_GB:
+        raise AssertionError(f"{cfg.name} at full depth needs {reckoning} > "
+                             f"{TRAIN_BUDGET_GB} GB")
+    torch.cuda.reset_peak_memory_stats()
+    steps = HYMBA_TRAIN_WARMUP + HYMBA_TRAIN_TIMED
+    reset_launches()
+    out = train.main(["--arch", "hymba-1.5b", "--steps", str(steps), "--batch", str(b),
+                      "--seq", str(s), "--log-every", "1"])
+    launches = launch_counts(kernels)
+    if launches != step_launches(cfg, steps):
+        raise AssertionError(f"hymba training launched {launches}, want "
+                             f"{step_launches(cfg, steps)}")
+    if out["steps_run"] != steps or not math.isfinite(out["loss"]):
+        raise AssertionError(f"training ran {out['steps_run']} steps, loss {out['loss']}")
+    step_s = float(np.median(out["step_seconds"][HYMBA_TRAIN_WARMUP:]))
+    n_params, tokens = cfg.param_count(), b * s
+    emit("train", arch=cfg.name, batch=b, seq=s, remat=cfg.remat,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         loss_chunk=cfg.loss_chunk, warmup_steps=HYMBA_TRAIN_WARMUP,
+         step_seconds=out["step_seconds"], step_ms=step_s * 1e3,
+         tokens_per_s=tokens / step_s, params=n_params,
+         mfu_6nt=6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+         final_loss=out["loss"], final_grad_norm=out["grad_norm"], nvidia_smi=card)
+    torch.cuda.empty_cache()
+
+    # -- 5. correctness at full width and depth --------------------------------
+    # (a) the kernels' step against the plain versions', one step's loss and
+    # gradients
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             make_stream(cfg, b, s, seed=0).batch_at(0).items()}
+    pgen = torch.Generator(device=dev)
+    pgen.manual_seed(0)
+    params = tfm.init_params(cfg, pgen)
+
+    def loss(prm, bt):
+        return tfm.loss_fn(cfg, prm, bt)
+
+    (k_loss, _), k_grads = value_and_grad(loss, params, batch)
+    with plain_kernels():
+        (p_loss, _), p_grads = value_and_grad(loss, params, batch)
+    with torch.no_grad():
+        logit_std = tfm.forward(cfg, params, {"tokens": batch["tokens"][:1]}).float().std().item()
+    k_norm, p_norm = global_norm(k_grads).item(), global_norm(p_grads).item()
+    plain_flat = flatten(p_grads)
+    agreement = {
+        "loss": k_loss.item(), "plain_loss": p_loss.item(),
+        "abs_loss_diff": abs(k_loss.item() - p_loss.item()), "logit_std": logit_std,
+        "bound_abs_loss_diff": TRAIN_LOSS_STD_TOL * logit_std,
+        "grad_norm": k_norm, "plain_grad_norm": p_norm,
+        "grad_norm_rel_err": abs(k_norm - p_norm) / p_norm,
+        "bound_grad_norm_rel_err": TRAIN_GNORM_REL_TOL,
+        "leaf_max_abs_diff_over_max_abs_grad": {
+            key: ((a - plain_flat[key]).abs().max()
+                  / plain_flat[key].abs().max().clamp_min(1e-30)).item()
+            for key, a in flatten(k_grads).items()},
+    }
+    emit("train_step_vs_plain_kernels", arch=cfg.name, batch=b, seq=s, **agreement)
+    if not (agreement["abs_loss_diff"] <= agreement["bound_abs_loss_diff"]
+            and agreement["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL):
+        raise AssertionError(f"kernel and plain hymba training steps disagree: {agreement}")
+    del params, k_grads, p_grads, plain_flat
+    torch.cuda.empty_cache()
+
+    # (b) the loss falls on one repeated batch; (c) one step's launches
+    opt = AdamW(schedule=cosine_schedule(1e-3, 1, LEARN_STEPS), weight_decay=0.0)
+    pgen.manual_seed(1)
+    state = init_train_state(cfg, opt, pgen)
+    step = make_train_step(cfg, opt)
+    losses = []
+    for i in range(LEARN_STEPS):
+        reset_launches()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            one_step = launch_counts(kernels)
+    emit("train_learns", arch=cfg.name, steps=LEARN_STEPS, losses=losses,
+         bound_last_over_first=LEARN_DROP, step_launches=one_step)
+    if not losses[-1] < LEARN_DROP * losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if one_step != step_launches(cfg):
+        raise AssertionError(f"one train step launched {one_step}, want "
+                             f"{step_launches(cfg)} (the forward kernels twice a "
+                             f"layer by the full remat, the backward kernels once)")
+
+    # -- 6. profile: where the time of one train step goes --------------------
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit("profile_train_step", arch=cfg.name, batch=b, seq=s, nvidia_smi=card,
+         **summarize(trace, wall, 1))
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    path = "hymba-1.5b train"
+    return [{"name": "flash_attention_bwd", "path": path, "route": "cuda",
+             "source": FA_SOURCE, "replaces": FA_REPLACES,
+             "launches": launches["flash_attention_bwd"], "design": FA_BWD_DESIGN,
+             **fa_mix}] + [
+        {"name": "ssd_" + part, "path": path, "route": "cuda", "source": SSD_SOURCE,
+         "replaces": SSD_BWD_REPLACES, "launches": launches["ssd_" + part],
+         "design": SSD_BWD_DESIGN, **ssd_mix[part]}
+        for part in ("chunk_scan_bwd", "chunk_state_bwd")]
 
 
 def moe_train_path(dev, card) -> list[dict]:
@@ -2327,7 +2853,6 @@ def moe_train_path(dev, card) -> list[dict]:
     from repro_torch.configs import get
     from repro_torch.data.pipeline import make_stream
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm
     from repro_torch.launch import train
     from repro_torch.models import moe
@@ -2344,15 +2869,7 @@ def moe_train_path(dev, card) -> list[dict]:
     b, s = TRAIN_BATCH, TRAIN_SEQ
     rows, qrows = b * s * k, b * s * qcfg.top_k
 
-    def counts():
-        return {"grouped_matmul": moe_gmm.launches,
-                "grouped_matmul_dx": moe_gmm.dx_launches,
-                "grouped_matmul_dw": moe_gmm.dw_launches,
-                "flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches}
-
-    def reset():
-        moe_gmm.launches = moe_gmm.dx_launches = moe_gmm.dw_launches = 0
-        fa.launches = fa.bwd_launches = 0
+    kernels = path_kernels(cfg, backward=True)
 
     # -- 3. dx and dw against their plain versions ----------------------------
     # (ptxas of the forward, dx and dw kernels, from this run's build)
@@ -2410,14 +2927,14 @@ def moe_train_path(dev, card) -> list[dict]:
     torch.cuda.empty_cache()
 
     # -- 4. train: full width, the depth the memory allows ---------------------
-    reckoning = {layers: moe_train_reckoning_gb(cfg, layers) for layers in MOE_TRAIN_DEPTHS}
+    reckoning = {layers: train_reckoning_gb(cfg, layers) for layers in MOE_TRAIN_DEPTHS}
     steps = MOE_TRAIN_WARMUP + MOE_TRAIN_TIMED
     opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))   # launch.train's defaults
     stream = make_stream(cfg, b, s, seed=0)
     batches = [{key: torch.from_numpy(v).to(dev) for key, v in
                 stream.batch_at(i).items()} for i in range(steps)]
     pgen = torch.Generator(device=dev)
-    first = moe_train_depth(cfg, MOE_TRAIN_BUDGET_GB, MOE_TRAIN_DEPTHS)
+    first = train_depth(cfg, TRAIN_BUDGET_GB, MOE_TRAIN_DEPTHS)
     for layers in MOE_TRAIN_DEPTHS[MOE_TRAIN_DEPTHS.index(first):]:
         mcfg = cut_depth(cfg, layers)
         torch.cuda.empty_cache()
@@ -2426,7 +2943,7 @@ def moe_train_path(dev, card) -> list[dict]:
         state = init_train_state(mcfg, opt, pgen)
         step = make_train_step(mcfg, opt)
         torch.cuda.synchronize()
-        reset()
+        reset_launches()
         times, losses = [], []
         for batch in batches:
             t0 = time.perf_counter()
@@ -2434,24 +2951,24 @@ def moe_train_path(dev, card) -> list[dict]:
             losses.append(float(metrics["loss"]))     # waits for the step
             times.append(time.perf_counter() - t0)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        launches = counts()
+        launches = launch_counts(kernels)
         del state, step, metrics
-        if peak_gb <= MOE_TRAIN_BUDGET_GB or layers == MOE_TRAIN_DEPTHS[-1]:
+        if peak_gb <= TRAIN_BUDGET_GB or layers == MOE_TRAIN_DEPTHS[-1]:
             break
         emit("train_depth_over_budget", arch=cfg.name, layers=layers,
-             peak_mem_gb=peak_gb, budget_gb=MOE_TRAIN_BUDGET_GB)
-    want = {key: v * steps for key, v in moe_step_launches(layers).items()}
+             peak_mem_gb=peak_gb, budget_gb=TRAIN_BUDGET_GB)
+    want = step_launches(mcfg, steps)
     if launches != want:
         raise AssertionError(f"{mcfg.name} training launched {launches}, want {want}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{mcfg.name} training losses {losses}")
-    if peak_gb > MOE_TRAIN_BUDGET_GB:
+    if peak_gb > TRAIN_BUDGET_GB:
         raise AssertionError(f"{mcfg.name} at {layers} layers peaks at {peak_gb} GB "
-                             f"> {MOE_TRAIN_BUDGET_GB}")
+                             f"> {TRAIN_BUDGET_GB}")
     step_s = float(np.median(times[MOE_TRAIN_WARMUP:]))
     n_active, tokens = active_params(mcfg), b * s
     emit("train", arch=cfg.name, layers=f"{layers} of {cfg.n_layers}",
-         reckoning_by_layers=reckoning, budget_gb=MOE_TRAIN_BUDGET_GB,
+         reckoning_by_layers=reckoning, budget_gb=TRAIN_BUDGET_GB,
          batch=b, seq=s, remat=mcfg.remat, moe_dispatch=mcfg.moe_dispatch,
          param_dtype=mcfg.param_dtype, compute_dtype=mcfg.compute_dtype,
          warmup_steps=MOE_TRAIN_WARMUP, step_seconds=times, step_ms=step_s * 1e3,
@@ -2522,18 +3039,18 @@ def moe_train_path(dev, card) -> list[dict]:
     step = make_train_step(mcfg, opt)
     losses = []
     for i in range(LEARN_STEPS):
-        reset()
+        reset_launches()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
         if i == 0:
-            step_launches = counts()
+            one_step = launch_counts(kernels)
     emit("train_learns", arch=cfg.name, layers=layers, steps=LEARN_STEPS,
-         losses=losses, bound_last_over_first=LEARN_DROP, step_launches=step_launches)
+         losses=losses, bound_last_over_first=LEARN_DROP, step_launches=one_step)
     if not losses[-1] < LEARN_DROP * losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    if step_launches != moe_step_launches(layers):
-        raise AssertionError(f"one train step launched {step_launches}, want "
-                             f"{moe_step_launches(layers)}")
+    if one_step != step_launches(mcfg):
+        raise AssertionError(f"one train step launched {one_step}, want "
+                             f"{step_launches(mcfg)}")
 
     # -- 6. profile: where the time of one train step goes --------------------
     torch.cuda.synchronize()
@@ -2584,7 +3101,8 @@ def moe_train_path(dev, card) -> list[dict]:
              dense_matmul_ms=time_ms(lambda: [c() for c in dense * layers], 5),
              nvidia_smi=card, **mix)
         entries.append({
-            "name": f"grouped_matmul_{part}", "route": "cuda", "source": GMM_SOURCE,
+            "name": f"grouped_matmul_{part}", "path": f"olmoe-1b-7b train ({layers} layers)",
+            "route": "cuda", "source": GMM_SOURCE,
             "replaces": GMM_BWD_REPLACES, "design": GMM_BWD_DESIGN,
             "launches": launches[f"grouped_matmul_{part}"],
             "max_abs_err": max_err[part], **mix})
@@ -2593,15 +3111,16 @@ def moe_train_path(dev, card) -> list[dict]:
     torch.cuda.empty_cache()
 
     # -- launch.train on the card, smoke config --------------------------------
-    reset()
+    reset_launches()
     out = train.main(["--arch", "olmoe-1b-7b", "--smoke", "--device", "cuda",
                       "--steps", "3"])
     torch.cuda.synchronize()
+    launches = launch_counts(kernels)
     emit("launch_train", arch="olmoe-1b-7b", smoke=True, steps=out["steps_run"],
-         loss=out["loss"], launches=counts())
+         loss=out["loss"], launches=launches)
     if out["steps_run"] != 3 or not math.isfinite(out["loss"]) or (
-            counts()["grouped_matmul_dw"] == 0):
-        raise AssertionError(f"launch.train on the smoke MoE config: {out}, {counts()}")
+            launches["grouped_matmul_dw"] == 0):
+        raise AssertionError(f"launch.train on the smoke MoE config: {out}, {launches}")
     return entries
 
 
@@ -2610,37 +3129,18 @@ def gang_path(dev, card) -> None:
     lr in one batched run against each member alone (the same core with
     M = 1): the losses of every step agree and the flash-attention launches
     a step do not grow with M; then a smoke-size mamba2 gang, so that the
-    SSD scan's vmap rule launches its kernels, and a smoke-size olmoe gang,
-    so that the grouped GEMM's rule folds the members into its experts."""
-    from repro_torch.configs import get, get_smoke
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_gmm
-    from repro_torch.kernels import ssd_scan as kssd
+    SSD scan's vmap rule launches its kernels, a smoke-size olmoe gang, so
+    that the grouped GEMM's rule folds the members into its experts, and a
+    smoke-size hymba gang, whose layers run both the attention's and the
+    SSD scan's rules inside one checkpoint."""
+    from repro_torch.configs import get
     from repro_torch.train import ensemble
 
-    def fa_counts():
-        return {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches}
-
-    def gmm_counts():
-        return {"grouped_matmul": moe_gmm.launches,
-                "grouped_matmul_dx": moe_gmm.dx_launches,
-                "grouped_matmul_dw": moe_gmm.dw_launches, **fa_counts()}
-
-    def ssd_counts():
-        return {"ssd_chunk_state": kssd.state_launches,
-                "ssd_chunk_scan": kssd.scan_launches,
-                "ssd_chunk_state_bwd": kssd.state_bwd_launches,
-                "ssd_chunk_scan_bwd": kssd.scan_bwd_launches}
-
-    def reset():
-        fa.launches = fa.bwd_launches = 0
-        kssd.state_launches = kssd.scan_launches = 0
-        kssd.state_bwd_launches = kssd.scan_bwd_launches = 0
-        moe_gmm.launches = moe_gmm.dx_launches = moe_gmm.dw_launches = 0
-
     for cfg, batch, seq in ((get(GANG_ARCH), GANG_BATCH, GANG_SEQ),
-                            (get_smoke("mamba2-780m"), 2, 64),
-                            (get_smoke("olmoe-1b-7b"), 2, 64)):
+                            (card_smoke("mamba2-780m"), 2, 64),
+                            (card_smoke("olmoe-1b-7b"), 2, 64),
+                            (card_smoke("hymba-1.5b"), 2, 64)):
+        kernels = path_kernels(cfg, backward=True)
         runs = {}
         for members in ((0,), (1,), (0, 1)):
             torch.cuda.empty_cache()
@@ -2648,15 +3148,14 @@ def gang_path(dev, card) -> None:
             params, tokens = ensemble.init_members(cfg, members, GANG_STEPS, batch,
                                                    seq, dev)
             torch.cuda.synchronize()
-            reset()
+            reset_launches()
             t0 = time.perf_counter()
             losses = ensemble.train_gang(cfg, params, tokens,
                                          [GANG_LRS[i] for i in members],
                                          warmup=max(1, GANG_STEPS // 10))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            counts = (gmm_counts() if "moe" in cfg.layer_types else
-                      ssd_counts() if "ssm" in cfg.layer_types else fa_counts())
+            counts = launch_counts(kernels)
             runs[members] = {
                 "losses": losses.float().cpu().T.tolist(),
                 "launches_per_step": {k: v / GANG_STEPS for k, v in counts.items()},
@@ -2730,11 +3229,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernels += mamba2_path(dev, card)
     torch.cuda.empty_cache()
+    kernels += hymba_path(dev, card)
+    torch.cuda.empty_cache()
     kernels.append(olmoe_path(dev, card))
     torch.cuda.empty_cache()
     kernels.append(gemma3_train_path(dev, card))
     torch.cuda.empty_cache()
     kernels += ssm_train_path(dev, card)
+    torch.cuda.empty_cache()
+    kernels += hymba_train_path(dev, card)
     torch.cuda.empty_cache()
     kernels += moe_train_path(dev, card)
     torch.cuda.empty_cache()

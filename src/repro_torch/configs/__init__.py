@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get(arch_id)`` / ``get_smoke(arch_id)``.
 
 Same published numbers as ``repro.configs``, for the dense token-mode,
-Mamba2 (``ssm``) and MoE architectures this package runs.  The reference's other
+Mamba2 (``ssm``), MoE and hybrid (hymba: attention and SSM heads in every
+layer) architectures this package runs.  The reference's encoder and VLM
 architectures raise ``NotImplementedError`` until their layers are ported.
 """
 from __future__ import annotations
@@ -13,10 +14,10 @@ from repro_torch.models.config import ArchConfig
 
 #: CLI ids of the ported architectures
 PORTED = ("gemma-7b", "h2o-danube-1.8b", "deepseek-7b", "gemma3-1b",
-          "mamba2-780m", "olmoe-1b-7b", "qwen2-moe-a2.7b")
+          "mamba2-780m", "olmoe-1b-7b", "qwen2-moe-a2.7b", "hymba-1.5b")
 
 #: architectures of the reference whose layer kinds are not ported yet
-NOT_PORTED = ("internvl2-26b", "hubert-xlarge", "hymba-1.5b")
+NOT_PORTED = ("internvl2-26b", "hubert-xlarge")
 
 
 def _module_name(arch_id: str) -> str:

@@ -4,9 +4,12 @@
         --requests 8 --slots 4 --max-new 16 [--smoke] [--device cpu]
 
 ``--arch`` takes any ported id: gemma3-1b, mamba2-780m, olmoe-1b-7b (MoE,
-the grouped-GEMM kernel), qwen2-moe-a2.7b, ...  At full depth
-qwen2-moe-a2.7b does not fit one 80 GB card (fp32 init plus the bf16
-serving copy, ~86 GB).
+the grouped-GEMM kernel), qwen2-moe-a2.7b, hymba-1.5b (attention and SSM
+heads in every layer: the flash-attention and SSD-scan kernels), ...  At
+full depth qwen2-moe-a2.7b does not fit one 80 GB card (fp32 init plus the
+bf16 serving copy, ~86 GB).  hymba-1.5b's ``--smoke`` config (SSD state 8)
+has no SSD kernel on the card, whose state dims are multiples of 16: run
+it with ``--device cpu``.
 
 Full width unless ``--smoke``; on ``cuda`` unless ``--device cpu``.
 Runs under the PaPaS engine like any program, e.g. a study with

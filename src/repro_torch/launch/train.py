@@ -9,8 +9,9 @@ device (no mesh).  Builds the train state, the data stream and the train
 step; checkpoints every ``--ckpt-every`` steps and at the end, and resumes
 from the latest checkpoint when restarted: kill it mid-run and rerun the
 same command.  On a card the attention runs the flash-attention kernels,
-the SSM (mamba2-780m) the SSD-scan kernels and the MoE FFN (olmoe-1b-7b)
-the grouped-GEMM kernels, forward and backward; on the CPU every kernel
+the SSM (mamba2-780m) the SSD-scan kernels, hymba-1.5b's hybrid layers
+both, and the MoE FFN (olmoe-1b-7b) the grouped-GEMM kernels, forward and
+backward; on the CPU every kernel
 takes its plain version.  Runs under the PaPaS engine like any program, e.g. a study with
 ``command: python -m repro_torch.launch.train --lr ${args:lr}``.
 """

@@ -1,15 +1,18 @@
 """Model assembly: embeddings → layer segments → head.
 
 Port of ``repro.models.transformer`` for the kinds ``attn``, ``swa``,
-``ssm`` and ``moe`` with token inputs.  Consecutive layers of one kind form
-a *segment* whose parameters are stacked on a leading layer axis, the
-reference's layout; a Python loop over that axis replaces ``lax.scan``.
+``ssm``, ``moe`` and the hybrid ``hyb_g``/``hyb_l`` (hymba: an attention
+branch and a Mamba2 branch on the same normed input, fused as the mean of
+their RMS-normed outputs) with token inputs.  Consecutive layers of one
+kind form a *segment* whose parameters are stacked on a leading layer
+axis, the reference's layout; a Python loop over that axis replaces
+``lax.scan``.
 The MoE aux losses are summed over the layers, as the reference's scan
 carry does, and ``loss_fn`` adds them to the masked cross entropy; each
 layer runs under ``torch.utils.checkpoint`` as ``cfg.remat`` says (the
 reference's ``jax.checkpoint``).  A gang's members (``members=True``)
 are stacked on a leading axis of every leaf and run in one batched pass.
-Hybrid and encoder layers are not ported yet.
+Encoder layers are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,7 +30,12 @@ from .layers import (
 from .moe import moe_block
 from .ssm import init_ssm_cache, mamba2_block
 
-PORTED_KINDS = ("attn", "swa", "ssm", "moe")
+PORTED_KINDS = ("attn", "swa", "ssm", "moe", "hyb_g", "hyb_l")
+HYBRID_KINDS = ("hyb_g", "hyb_l")
+#: the attention kind each layer kind runs (the reference's map): a hybrid
+#: global layer attends causally over every position, a hybrid local one
+#: over the window, from a ring cache
+_ATTN_KIND = {"moe": "attn", "hyb_g": "attn", "hyb_l": "swa"}
 
 #: leaves the reference casts to the compute dtype at every use (matmul
 #: weights, expert weights included, and the embedding table); norm
@@ -119,7 +127,11 @@ def _init_segment(gen: torch.Generator, cfg: ArchConfig, kind: str, n: int
     mlp_p = {"wi_gate": normal_init(gen, (n, d, ff), dt),
              "wi_up": normal_init(gen, (n, d, ff), dt),
              "wo": normal_init(gen, (n, ff, d), dt)}
-    return {"norm1": zeros(d), "norm2": zeros(d), "attn": attn, "mlp": mlp_p}
+    p = {"norm1": zeros(d), "norm2": zeros(d), "attn": attn, "mlp": mlp_p}
+    if kind in HYBRID_KINDS:   # the SSM branch beside the attention
+        p.update(ssm=_init_ssm(gen, cfg, n), branch_norm_attn=zeros(d),
+                 branch_norm_ssm=zeros(d))
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict[str, Any]:
@@ -181,26 +193,11 @@ def _zero_aux(device: torch.device | str, shape: tuple[int, ...] = ()
 # Layer body
 # ---------------------------------------------------------------------------
 
-def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
-               lp: dict[str, Any], positions: torch.Tensor,
-               cache: dict | None = None, moe_groups: int = 1
-               ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None, dict | None]:
-    """One layer: returns (x, aux, new_cache).  ``aux`` is None for a layer
-    without an MoE FFN, whose aux losses are zero (the reference returns
-    zeros; here serving then allocates nothing for them)."""
-    eps = cfg.norm_eps
-    aux = None
-    h = rms_norm(x, lp["norm1"], eps)
-    if kind == "ssm":
-        y, new_cache = mamba2_block(
-            h, lp["ssm"], d_inner=cfg.d_inner, state_dim=cfg.ssm_state,
-            head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
-            conv_width=cfg.ssm_conv, chunk=cfg.ssm_chunk,
-            compute_dtype=cfg.compute_dtype, cache=cache,
-            use_kernels=cfg.use_kernels)
-        return x + y.to(x.dtype), aux, new_cache
-    attn_kind = "attn" if kind == "moe" else kind
-    a_out, new_cache = attn_block(
+def _attn_sublayer(cfg: ArchConfig, kind: str, h: torch.Tensor,
+                   lp: dict[str, Any], positions: torch.Tensor,
+                   cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+    attn_kind = _ATTN_KIND.get(kind, kind)
+    return attn_block(
         h, lp["attn"],
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, kind=attn_kind, window=cfg.window,
@@ -208,9 +205,50 @@ def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
         rope_theta=(cfg.rope_theta_global if attn_kind == "attn"
                     else cfg.rope_theta),
         q_chunk=cfg.attn_q_chunk, softcap=cfg.logit_softcap,
-        qk_norm=cfg.qk_norm, norm_eps=eps, compute_dtype=cfg.compute_dtype,
-        use_kernels=cfg.use_kernels, cache=cache)
-    x = x + a_out.to(x.dtype)
+        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+        compute_dtype=cfg.compute_dtype, use_kernels=cfg.use_kernels,
+        cache=cache)
+
+
+def _ssm_sublayer(cfg: ArchConfig, h: torch.Tensor, lp: dict[str, Any],
+                  cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+    return mamba2_block(
+        h, lp["ssm"], d_inner=cfg.d_inner, state_dim=cfg.ssm_state,
+        head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
+        conv_width=cfg.ssm_conv, chunk=cfg.ssm_chunk,
+        compute_dtype=cfg.compute_dtype, cache=cache,
+        use_kernels=cfg.use_kernels)
+
+
+def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
+               lp: dict[str, Any], positions: torch.Tensor,
+               cache: dict | None = None, moe_groups: int = 1
+               ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None, dict | None]:
+    """One layer: returns (x, aux, new_cache).  ``aux`` is None for a layer
+    without an MoE FFN, whose aux losses are zero (the reference returns
+    zeros; here serving then allocates nothing for them).  A hybrid
+    layer's cache is ``{"attn": {k, v, pos}, "ssm": {conv, ssm, pos}}``."""
+    eps = cfg.norm_eps
+    aux = None
+    h = rms_norm(x, lp["norm1"], eps)
+    if kind == "ssm":
+        y, new_cache = _ssm_sublayer(cfg, h, lp, cache)
+        return x + y.to(x.dtype), aux, new_cache
+    if kind in HYBRID_KINDS:
+        a_out, attn_cache = _attn_sublayer(
+            cfg, kind, h, lp, positions, None if cache is None else cache["attn"])
+        s_out, ssm_cache = _ssm_sublayer(
+            cfg, h, lp, None if cache is None else cache["ssm"])
+        # hymba's fusion: the mean of the branches' normed outputs, the SSM
+        # branch's cast to the attention's dtype before its norm
+        y = 0.5 * (rms_norm(a_out, lp["branch_norm_attn"], eps)
+                   + rms_norm(s_out.to(a_out.dtype), lp["branch_norm_ssm"], eps))
+        x = x + y.to(x.dtype)
+        new_cache = (None if cache is None
+                     else {"attn": attn_cache, "ssm": ssm_cache})
+    else:
+        a_out, new_cache = _attn_sublayer(cfg, kind, h, lp, positions, cache)
+        x = x + a_out.to(x.dtype)
     h2 = rms_norm(x, lp["norm2"], eps)
     if kind == "moe":
         f_out, aux = moe_block(
@@ -364,29 +402,61 @@ def loss_fn(cfg: ArchConfig, params: dict[str, Any],
 # Decode (serve) path
 # ---------------------------------------------------------------------------
 
+def _kv_cache(cfg: ArchConfig, kind: str, count: int, batch: int,
+              max_len: int, dtype: str | torch.dtype,
+              device: torch.device | str) -> dict[str, torch.Tensor]:
+    """K and V of ``count`` layers, stacked: ``max_len`` entries, or a ring
+    of ``min(window, max_len)`` for a windowed kind."""
+    windowed = _ATTN_KIND.get(kind, kind) == "swa" and cfg.window
+    t = min(cfg.window, max_len) if windowed else max_len
+    shape = (count, batch, t, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=as_dtype(dtype), device=device),
+            "v": torch.zeros(shape, dtype=as_dtype(dtype), device=device)}
+
+
+def _ssm_cache(cfg: ArchConfig, count: int, batch: int,
+               dtype: str | torch.dtype,
+               device: torch.device | str) -> dict[str, torch.Tensor]:
+    """Conv state (in ``dtype``) and SSM state (fp32) of ``count`` layers,
+    stacked."""
+    c = init_ssm_cache(batch, cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim,
+                       cfg.ssm_groups, cfg.ssm_conv, dtype, device)
+    return {k: v[None].repeat(count, *([1] * v.dim()))
+            for k, v in c.items() if k != "pos"}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: str | torch.dtype = torch.bfloat16,
                device: torch.device | str = "cuda") -> dict[str, Any]:
     """Per-segment stacked caches: KV for attention and moe layers (swa
     segments hold a ring of ``min(window, max_len)`` entries), conv state
-    in ``dtype`` and SSM state in fp32 for ssm.  ``pos`` is one Python int shared by every
-    slot, as in the reference."""
+    in ``dtype`` and SSM state in fp32 for ssm, and both, nested as
+    ``{"attn": {k, v}, "ssm": {conv, ssm}}``, for a hybrid segment (a
+    ``hyb_l`` ring as swa's).  ``pos`` is one Python int shared by every
+    slot, as in the reference, and by both halves of a hybrid cache."""
     _check_supported(cfg)
     segments = []
     for kind, count in cfg.segments():
         if kind == "ssm":
-            c = init_ssm_cache(batch, cfg.d_inner, cfg.ssm_state,
-                               cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_conv,
-                               dtype, device)
-            segments.append({k: v[None].repeat(count, *([1] * v.dim()))
-                             for k, v in c.items() if k != "pos"})
-            continue
-        t = min(cfg.window, max_len) if kind == "swa" and cfg.window else max_len
-        shape = (count, batch, t, cfg.n_kv_heads, cfg.head_dim)
-        segments.append({
-            "k": torch.zeros(shape, dtype=as_dtype(dtype), device=device),
-            "v": torch.zeros(shape, dtype=as_dtype(dtype), device=device)})
+            seg = _ssm_cache(cfg, count, batch, dtype, device)
+        elif kind in HYBRID_KINDS:
+            seg = {"attn": _kv_cache(cfg, kind, count, batch, max_len, dtype, device),
+                   "ssm": _ssm_cache(cfg, count, batch, dtype, device)}
+        else:
+            seg = _kv_cache(cfg, kind, count, batch, max_len, dtype, device)
+        segments.append(seg)
     return {"pos": 0, "segments": segments}
+
+
+def _layer_cache(kind: str, seg_cache: dict[str, Any], i: int, pos: int
+                 ) -> dict[str, Any]:
+    """Layer ``i``'s views of a segment's stacked cache, with ``pos``."""
+    def view(c):
+        return {**{k: v[i] for k, v in c.items()}, "pos": pos}
+
+    if kind in HYBRID_KINDS:
+        return {"attn": view(seg_cache["attn"]), "ssm": view(seg_cache["ssm"])}
+    return view(seg_cache)
 
 
 def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
@@ -394,10 +464,11 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
     """One autoregressive step → (logits (B,V), cache).  token: (B, 1).
 
     The cache tensors are updated in place; the returned cache holds the
-    same tensors and ``pos + 1``.  An ssm segment's conv state takes the
-    dtype the reference's concatenation gives it (cache and compute dtype
-    promoted): a bf16 conv cache under fp32 compute becomes fp32 at the
-    first step, as the reference's returned cache does."""
+    same tensors and ``pos + 1``.  The conv state of an ssm or hybrid
+    segment takes the dtype the reference's concatenation gives it (cache
+    and compute dtype promoted): a bf16 conv cache under fp32 compute
+    becomes fp32 at the first step, as the reference's returned cache
+    does."""
     if not cfg.has_decode():
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
     pos = cache["pos"]
@@ -406,19 +477,20 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     for (kind, count), seg, seg_cache in zip(
             cfg.segments(), params["segments"], cache["segments"]):
-        if kind == "ssm":
-            conv_dt = torch.promote_types(seg_cache["conv"].dtype, x.dtype)
-            seg_cache["conv"] = seg_cache["conv"].to(conv_dt)
-            for i, lp in enumerate(_layers(seg, count)):
-                lc = {"conv": seg_cache["conv"][i], "ssm": seg_cache["ssm"][i],
-                      "pos": pos}
-                x, _, nc = layer_body(cfg, kind, x, lp, positions, cache=lc)
-                seg_cache["conv"][i] = nc["conv"]
-                seg_cache["ssm"][i] = nc["ssm"]
-            continue
+        hybrid = kind in HYBRID_KINDS
+        # the SSM states, which the mixer returns anew (the KV cache is
+        # written in place by the attention)
+        ssm = seg_cache["ssm"] if hybrid else seg_cache if kind == "ssm" else None
+        if ssm is not None:
+            ssm["conv"] = ssm["conv"].to(
+                torch.promote_types(ssm["conv"].dtype, x.dtype))
         for i, lp in enumerate(_layers(seg, count)):
-            lc = {"k": seg_cache["k"][i], "v": seg_cache["v"][i], "pos": pos}
-            x, _, _ = layer_body(cfg, kind, x, lp, positions, cache=lc)
+            x, _, nc = layer_body(cfg, kind, x, lp, positions,
+                                  cache=_layer_cache(kind, seg_cache, i, pos))
+            if ssm is not None:
+                nc = nc["ssm"] if hybrid else nc
+                ssm["conv"][i] = nc["conv"]
+                ssm["ssm"][i] = nc["ssm"]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x, _head(cfg, params), cfg.compute_dtype)[:, 0]
     return (logits[..., :cfg.vocab_size],

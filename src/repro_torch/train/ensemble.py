@@ -20,9 +20,11 @@ functions take the smoke config of ``arch``, as the reference does;
 :func:`train_gang` under them takes any :class:`ArchConfig`, the members'
 initial parameters and their tokens.  Parameters and tokens come from a
 ``torch.Generator`` seeded by each member's seed (``jax.random`` cannot be
-reproduced).  Every ported layer kind batches, MoE included: each member
-adds its own MoE aux losses to its loss, as the reference's vmapped
-``loss_fn`` does.
+reproduced).  Every ported layer kind batches, MoE and hymba's hybrid
+layers included: each member adds its own MoE aux losses to its loss, as
+the reference's vmapped ``loss_fn`` does, and a hybrid layer runs its
+attention and SSD kernels, each under its own vmap rule, inside one
+checkpoint.
 """
 from __future__ import annotations
 

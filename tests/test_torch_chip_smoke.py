@@ -498,7 +498,8 @@ def test_olmoe_train_gmm_backward_bounds():
 def test_moe_step_launches(layers):
     """Full remat: 3 grouped GEMMs and one attention a layer, forward and
     recompute; a dx and a dw for each GEMM and one attention backward."""
-    assert cs.moe_step_launches(layers) == {
+    from repro_torch.configs import get
+    assert cs.step_launches(cs.cut_depth(get("olmoe-1b-7b"), layers)) == {
         "grouped_matmul": 6 * layers, "grouped_matmul_dx": 3 * layers,
         "grouped_matmul_dw": 3 * layers, "flash_attention": 2 * layers,
         "flash_attention_bwd": layers}
@@ -516,17 +517,17 @@ def test_moe_train_depth_by_memory():
     per_layer = (cs.cut_depth(cfg, 2).param_count() - cs.cut_depth(cfg, 1).param_count())
     assert per_layer == pytest.approx(419.6e6, rel=1e-3)
     assert 64 * 3 * 2048 * 1024 == pytest.approx(402.7e6, rel=1e-3)
-    state = {n: cs.moe_train_reckoning_gb(cfg, n)["state_gb"] for n in (16, 8, 4)}
+    state = {n: cs.train_reckoning_gb(cfg, n)["state_gb"] for n in (16, 8, 4)}
     assert state == pytest.approx({16: 138.4, 8: 71.3, 4: 37.7}, abs=0.1)
-    eight = cs.moe_train_reckoning_gb(cfg, 8)
+    eight = cs.train_reckoning_gb(cfg, 8)
     assert eight["update_gb"] == pytest.approx(5 * 4 * 8 * 64 * 2048 * 1024 / 1e9)
     assert eight["total_gb"] == pytest.approx(
         eight["state_gb"] + eight["update_gb"] + eight["activation_gb"])
-    assert cs.moe_train_depth(cfg) == 4
-    assert cs.moe_train_depth(cfg, budget_gb=110.0) == 8
-    assert cs.moe_train_depth(cfg, budget_gb=110.0, depths=(16, 8, 4)) == 8
+    assert cs.train_depth(cfg) == 4
+    assert cs.train_depth(cfg, budget_gb=110.0) == 8
+    assert cs.train_depth(cfg, budget_gb=110.0, depths=(16, 8, 4)) == 8
     with pytest.raises(ValueError, match="not even 4 layers"):
-        cs.moe_train_depth(cfg, budget_gb=50.0)
+        cs.train_depth(cfg, budget_gb=50.0)
     cut = cs.cut_depth(cfg, 8)
     assert (cut.n_layers, cut.layer_types, cut.d_model, cut.n_experts) == (
         8, ("moe",) * 8, 2048, 64)
@@ -583,3 +584,104 @@ def test_expert_choices_are_replayed_with_differentiable_probs():
         -1, calls[0]).sum(-1, keepdim=True))
     (top_p[:, 0].sum()).backward()
     assert w2.grad is not None and w2.grad.abs().sum() > 0
+
+
+def test_fa_cases_hold_hymbas_global_and_window_shapes():
+    """hymba-1.5b's two attention shapes (25 query heads, 5 KV heads of 64,
+    S 2048): its global layers (causal, no window) and its hyb_l layers
+    (window 1024), forward and backward."""
+    for want in (("hymba-1.5b global", 4, 2048, 25, 5, 64, True, 0),
+                 ("hymba-1.5b swa", 4, 2048, 25, 5, 64, True, 1024)):
+        assert want in cs.FA_CASES
+        assert (*want, False) in cs.FA_BWD_CASES
+
+
+def test_attention_windows_in_layer_order():
+    from repro_torch.configs import get
+    hymba = cs.attention_windows(get("hymba-1.5b"))
+    assert len(hymba) == 32
+    assert [i for i, w in enumerate(hymba) if w == 0] == [0, 15, 31]
+    assert set(hymba) == {0, 1024}
+    gemma3 = cs.attention_windows(get("gemma3-1b"))
+    assert gemma3 == [0 if kind == "attn" else 512 for kind in get("gemma3-1b").layer_types]
+    assert cs.attention_windows(get("mamba2-780m")) == []
+    assert cs.attention_windows(get("olmoe-1b-7b")) == [0] * 16
+
+
+def test_path_kernels_pick_both_families_for_a_hybrid_config():
+    """The gang's count picker: a hybrid config launches the attention and
+    the SSD kernels (forward, and with the backward both backward kernels);
+    the other configs only their own."""
+    from repro_torch.configs import get
+    hymba = cs.card_smoke("hymba-1.5b")
+    assert set(cs.path_kernels(hymba, backward=True)) == {
+        "flash_attention", "flash_attention_bwd", "ssd_chunk_state", "ssd_chunk_scan",
+        "ssd_chunk_state_bwd", "ssd_chunk_scan_bwd"}
+    assert cs.path_kernels(get("hymba-1.5b"), backward=False) == (
+        "flash_attention", "ssd_chunk_state", "ssd_chunk_scan")
+    assert set(cs.path_kernels(cs.card_smoke("mamba2-780m"), True)) == {
+        "ssd_chunk_state", "ssd_chunk_scan", "ssd_chunk_state_bwd", "ssd_chunk_scan_bwd"}
+    assert cs.path_kernels(get("gemma3-1b"), True) == (
+        "flash_attention", "flash_attention_bwd")
+    assert set(cs.path_kernels(cs.card_smoke("olmoe-1b-7b"), True)) == {
+        "flash_attention", "flash_attention_bwd", "grouped_matmul",
+        "grouped_matmul_dx", "grouped_matmul_dw"}
+    # every name is a counter the script reads
+    cs.reset_launches()
+    assert cs.launch_counts(cs.path_kernels(hymba, True)) == dict.fromkeys(
+        cs.path_kernels(hymba, True), 0)
+
+
+def test_card_smoke_hymba_takes_a_state_the_ssd_kernels_have():
+    """The reference's smoke hymba has an SSD state of 8, which the SSD
+    kernels (state dims multiples of 16) do not take; the card's smoke
+    config differs in that field only."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.ssd_scan import HEAD_STATE_DIMS
+    ref, card = get_smoke("hymba-1.5b"), cs.card_smoke("hymba-1.5b")
+    assert (ref.ssm_head_dim, ref.ssm_state) not in HEAD_STATE_DIMS
+    assert (card.ssm_head_dim, card.ssm_state) in HEAD_STATE_DIMS
+    assert dataclasses.replace(card, ssm_state=ref.ssm_state) == ref
+    assert cs.card_smoke("mamba2-780m") == get_smoke("mamba2-780m")
+    assert cs.card_smoke("hymba-1.5b", use_kernels=True).use_kernels
+
+
+def test_hymba_train_reckoning():
+    """hymba-1.5b: 1,589,773,120 parameters at 20 bytes (fp32 parameters,
+    gradients, AdamW's master copy and two moments) hold 31.8 GB; AdamW's
+    temporaries of the largest leaf, the 15-layer hyb_l segment's in_proj
+    (15 x 1600 x 6482), 3.1 GB; with 8 GB of activations the full depth
+    fits the 72 GB budget."""
+    from repro_torch.configs import get
+    cfg = get("hymba-1.5b")
+    assert cfg.param_count() == 1_589_773_120
+    assert cs.largest_leaf(cfg) == 15 * 1600 * (2 * 3200 + 2 * 16 + 50)
+    got = cs.train_reckoning_gb(cfg, cfg.n_layers)
+    assert got["state_gb"] == pytest.approx(31.795, abs=1e-3)
+    assert got["update_gb"] == pytest.approx(5 * 4 * 155_568_000 / 1e9)
+    assert got["total_gb"] == pytest.approx(42.907, abs=1e-3)
+    assert cs.train_depth(cfg, depths=(32, 16)) == 32
+    # the cut of the past-the-window check: one global, three local layers
+    cut = cs.cut_depth(cfg, cs.HYMBA_WINDOW_LAYERS)
+    assert cut.layer_types == ("hyb_g", "hyb_l", "hyb_l", "hyb_l")
+    assert cs.HYMBA_WINDOW_SEQ > cfg.window
+    assert cs.HYMBA_WINDOW_SEQ % cfg.ssm_chunk == 0
+    assert cs.HYMBA_WINDOW_DEPTH_SCALE == pytest.approx((4 / 26) ** 0.5)
+
+
+def test_step_launches_under_full_remat():
+    """A layer's forward kernels run twice a step (the forward and the
+    recompute), its backward kernels once: hymba's 32 layers launch both
+    families."""
+    from repro_torch.configs import get
+    assert cs.step_launches(get("hymba-1.5b")) == {
+        "flash_attention": 64, "flash_attention_bwd": 32,
+        "ssd_chunk_state": 64, "ssd_chunk_scan": 64,
+        "ssd_chunk_state_bwd": 32, "ssd_chunk_scan_bwd": 32}
+    assert cs.step_launches(get("hymba-1.5b"), 5)["ssd_chunk_scan_bwd"] == 160
+    assert cs.step_launches(get("gemma3-1b")) == {
+        "flash_attention": 52, "flash_attention_bwd": 26}
+    assert cs.step_launches(get("mamba2-780m"), 5) == {
+        "ssd_chunk_state": 480, "ssd_chunk_scan": 480,
+        "ssd_chunk_state_bwd": 240, "ssd_chunk_scan_bwd": 240}

@@ -17,6 +17,8 @@ smoke sizes, against the JAX package's ``repro.train.ensemble``.
 * The grouped GEMM's member-axis rule (``GroupedMatmul.vmap``) in an
   olmoe gang: its launches a step do not grow with the members, and a gang
   of two gives each member's losses alone.
+* A hymba gang (both kernel families in one layer, one checkpoint and one
+  ``vmap``): against JAX, and its launches a step for M = 3 as for M = 1.
 * A mamba2 gang, and the unchanged engine's ``GangExecutor`` dispatching
   the port's ``train_ensemble`` once for four members.
 """
@@ -89,7 +91,8 @@ def _jax_seam(jcfg, seeds, steps, batch, seq):
             torch.from_numpy(np.stack(tokens).astype(np.int64)))
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b",
+                                  "hymba-1.5b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gang_matches_jax_from_the_same_init_and_tokens(monkeypatch, arch, dtype):
     steps, batch, seq = 4, 2, 16
@@ -202,12 +205,16 @@ def test_ssd_scan_vmap_rule_launches_once_for_all_members(plain_launches, with_i
 
 
 @pytest.mark.parametrize("arch,seq", [("gemma3-1b", 16), ("mamba2-780m", 32),
-                                      ("olmoe-1b-7b", 16)])
+                                      ("olmoe-1b-7b", 16), ("hymba-1.5b", 16),
+                                      ("hymba-1.5b", 32)])
 def test_gang_step_launches_do_not_grow_with_members(plain_launches, arch, seq):
     """One gang step through the kernels' branches (plain launches;
     ``use_kernels`` sends CPU tensors there, and gemma3's smoke window of
     16 covers the sequence): the launches for M = 3 are those for M = 1,
-    and the losses match."""
+    and the losses match.  hymba's smoke window of 16 covers a sequence of
+    16 (one chunk); at 32 (two chunks) its one ``hyb_l`` layer attends by
+    the windowed plain attention on the CPU, and only the two ``hyb_g``
+    layers launch flash attention."""
     cfg = get_smoke(arch, compute_dtype="float32", use_kernels=True)
     counts, losses = {}, {}
     for m in (1, 3):
@@ -219,9 +226,11 @@ def test_gang_step_launches_do_not_grow_with_members(plain_launches, arch, seq):
     assert counts[1] == counts[3]
     # the full remat runs each layer's forward twice; one backward a layer
     n = cfg.n_layers
+    ssd = {"state": 2 * n, "scan": 2 * n, "state_bwd": n, "scan_bwd": n}
+    attn = n if seq <= cfg.window else cfg.layer_types.count("hyb_g")
     want = {"gemma3-1b": {"fa": 2 * n, "fa_bwd": n},
-            "mamba2-780m": {"state": 2 * n, "scan": 2 * n, "state_bwd": n,
-                            "scan_bwd": n},
+            "mamba2-780m": ssd,
+            "hymba-1.5b": {"fa": 2 * attn, "fa_bwd": attn, **ssd},
             # 3 grouped GEMMs a layer, each with a dx and a dw
             "olmoe-1b-7b": {"fa": 2 * n, "fa_bwd": n, "gmm": 6 * n,
                             "gmm_dx": 3 * n, "gmm_dw": 3 * n}}[arch]

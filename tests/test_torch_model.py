@@ -1,6 +1,6 @@
 """Whole-model parity of the port against the JAX package, on the smoke
-configs of every ported architecture (four dense, mamba2), with the JAX
-weights bridged across.
+configs of every ported architecture (dense, mamba2, MoE, hymba), with
+the JAX weights bridged across.
 
 Tolerances on the logits (|logits| ≲ 1 here):
 * fp32 compute: 1e-4 (summation order only, over a few layers);
@@ -46,11 +46,17 @@ def _tokens(cfg, b, s, seed=0):
     return both(np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)))
 
 
+SSM_KINDS = ("ssm", "hyb_g", "hyb_l")
+
+
 def _prefill_len(cfg):
-    """24 for the dense archs (past the smoke window of 16); for an ssm
-    arch two chunks (32 at the smoke chunk of 16), since the reference
-    rejects a sequence that is not a multiple of its chunk."""
-    return 2 * cfg.ssm_chunk if "ssm" in cfg.layer_types else 24
+    """24 for the dense archs (past the smoke window of 16); for an arch
+    with SSM layers (mamba2, hymba's hybrid layers) two chunks (32 at the
+    smoke chunk of 16, past hymba's smoke window of 16), since the
+    reference rejects a sequence that is not a multiple of its chunk."""
+    if any(kind in SSM_KINDS for kind in cfg.layer_types):
+        return 2 * cfg.ssm_chunk
+    return 24
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -65,7 +71,7 @@ def test_configs_match_reference(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get("hymba-1.5b")
+        get("hubert-xlarge")
     with pytest.raises(KeyError):
         get("no-such-arch")
 
@@ -102,10 +108,18 @@ def test_decode_steps_match_jax(arch, dtype):
             got, tc = tm.decode_step(tp, tc, tt[:, t:t + 1])
         assert_close(got, want, TOLS[dtype])
         assert tc["pos"] == int(jc["pos"]) == t + 1
-    for (seg_t, seg_j) in zip(tc["segments"], jc["segments"]):
-        for name in ("conv", "ssm") if "ssm" in seg_t else ("k",):
-            assert seg_t[name].dtype == TORCH_DT[str(seg_j[name].dtype)]
-            assert_close(seg_t[name], seg_j[name], TOLS[dtype])
+    assert_caches_match(tc, jc, TOLS[dtype])
+
+
+def assert_caches_match(tc, jc, tol):
+    """Every tensor of the port's cache (nested for a hybrid layer: attn k
+    and v, ssm conv and ssm) has the JAX cache's dtype and values."""
+    want = bridge.flatten(jax.device_get(jc["segments"]))
+    got = bridge.flatten(tc["segments"])
+    assert set(got) == set(want)
+    for key, w in want.items():
+        assert got[key].dtype == TORCH_DT[str(w.dtype)], key
+        assert_close(got[key], w, tol)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

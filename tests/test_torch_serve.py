@@ -1,8 +1,8 @@
 """The port's ServeEngine against the JAX ServeEngine: same bridged
-weights, same requests (gemma3, mamba2, olmoe and qwen2-moe smoke, fp32)
-→ the same greedy tokens.  Both engines keep a slot's cache when a new request takes the
-slot (for mamba2: its conv and SSM state), so the tokens match only if
-the port keeps it too."""
+weights, same requests (gemma3, mamba2, olmoe, qwen2-moe and hymba smoke,
+fp32) → the same greedy tokens.  Both engines keep a slot's cache when a
+new request takes the slot (for mamba2 and hymba: its conv and SSM
+state), so the tokens match only if the port keeps it too."""
 import dataclasses
 
 import jax
@@ -30,7 +30,7 @@ def _requests(vocab, n, cls):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "hymba-1.5b"])
 def test_greedy_tokens_match_jax_engine(arch):
     jcfg = dataclasses.replace(jget_smoke(arch), compute_dtype="float32")
     cfg = get_smoke(arch, compute_dtype="float32")
@@ -51,7 +51,7 @@ def test_greedy_tokens_match_jax_engine(arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "hymba-1.5b"])
 def test_serve_cli_on_cpu(capsys, arch):
     done = serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--requests", "3", "--slots", "2", "--max-new", "4"])

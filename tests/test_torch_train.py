@@ -104,6 +104,8 @@ CASES = [
     ("mamba2-780m", {"loss_chunk": 16}, False),
     ("olmoe-1b-7b", {}, True),
     ("olmoe-1b-7b", {"loss_chunk": 8, "moe_dispatch": "ragged"}, False),
+    ("hymba-1.5b", {}, True),
+    ("hymba-1.5b", {"loss_chunk": 16}, False),
 ]
 
 
@@ -124,7 +126,8 @@ def test_loss_and_grad_match_reference(arch, overrides, ignore):
     _assert_leaves_close(tg, jg, GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b",
+                                  "hymba-1.5b"])
 def test_bf16_loss_matches_reference(arch):
     jcfg, cfg, jp, tp = _params(arch)
     assert cfg.compute_dtype == "bfloat16"
@@ -191,7 +194,7 @@ def _states(jcfg, jp, lr=1e-3):
 @pytest.mark.parametrize("arch,step_cfg", [
     ("gemma3-1b", {}), ("gemma3-1b", {"n_micro": 2}),
     ("gemma3-1b", {"compress_grads": True}), ("mamba2-780m", {}),
-    ("olmoe-1b-7b", {"n_micro": 2})])
+    ("olmoe-1b-7b", {"n_micro": 2}), ("hymba-1.5b", {})])
 def test_train_step_matches_reference(arch, step_cfg):
     jcfg, cfg, jp, _ = _params(arch, compute_dtype="float32")
     jopt, opt, jstate, tstate = _states(jcfg, jp)

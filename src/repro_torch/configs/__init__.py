@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get(arch_id)`` / ``get_smoke(arch_id)``.
 
-Same published numbers as ``repro.configs``, for the dense token-mode,
-Mamba2 (``ssm``), MoE and hybrid (hymba: attention and SSM heads in every
-layer) architectures this package runs.  The reference's encoder and VLM
-architectures raise ``NotImplementedError`` until their layers are ported.
+Same published numbers as ``repro.configs``, for every architecture of
+the reference: dense token-mode, Mamba2 (``ssm``), MoE, hybrid (hymba:
+attention and SSM heads in every layer), the encoder (hubert-xlarge:
+frame embeddings in, bidirectional) and the VLM backbone (internvl2-26b:
+patch embeddings, then tokens).
 """
 from __future__ import annotations
 
@@ -14,10 +15,12 @@ from repro_torch.models.config import ArchConfig
 
 #: CLI ids of the ported architectures
 PORTED = ("gemma-7b", "h2o-danube-1.8b", "deepseek-7b", "gemma3-1b",
-          "mamba2-780m", "olmoe-1b-7b", "qwen2-moe-a2.7b", "hymba-1.5b")
+          "mamba2-780m", "olmoe-1b-7b", "qwen2-moe-a2.7b", "hymba-1.5b",
+          "hubert-xlarge", "internvl2-26b")
 
-#: architectures of the reference whose layer kinds are not ported yet
-NOT_PORTED = ("internvl2-26b", "hubert-xlarge")
+#: architectures of the reference whose layer kinds are not ported: none
+#: since hubert-xlarge and internvl2-26b
+NOT_PORTED: tuple[str, ...] = ()
 
 
 def _module_name(arch_id: str) -> str:
@@ -26,8 +29,6 @@ def _module_name(arch_id: str) -> str:
 
 def _module(arch_id: str):
     name = _module_name(arch_id)
-    if name in map(_module_name, NOT_PORTED):
-        raise NotImplementedError(f"{arch_id}: not yet ported")
     if name not in map(_module_name, PORTED):
         raise KeyError(f"unknown architecture {arch_id!r}; known: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{name}")

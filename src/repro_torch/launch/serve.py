@@ -5,9 +5,13 @@
 
 ``--arch`` takes any ported id: gemma3-1b, mamba2-780m, olmoe-1b-7b (MoE,
 the grouped-GEMM kernel), qwen2-moe-a2.7b, hymba-1.5b (attention and SSM
-heads in every layer: the flash-attention and SSD-scan kernels), ...  At
-full depth qwen2-moe-a2.7b does not fit one 80 GB card (fp32 init plus the
-bf16 serving copy, ~86 GB).  hymba-1.5b's ``--smoke`` config (SSD state 8)
+heads in every layer: the flash-attention and SSD-scan kernels),
+internvl2-26b (a VLM backbone: the engine decodes tokens; patch
+embeddings reach only ``forward``), ...  The weights are made straight in
+the compute dtype (``Model.init(serving=True)``), so internvl2-26b's 19.9 B
+parameters take 39.8 GB and qwen2-moe-a2.7b runs at full depth on one
+card.  hubert-xlarge is encoder-only: there is nothing to decode, and the
+command exits saying so.  hymba-1.5b's ``--smoke`` config (SSD state 8)
 has no SSD kernel on the card, whose state dims are multiples of 16: run
 it with ``--device cpu``.
 
@@ -45,7 +49,7 @@ def main(argv: list[str] | None = None) -> list[Request]:
     if not cfg.has_decode():
         raise SystemExit(f"{cfg.name} is encoder-only; nothing to decode")
     model = Model(cfg, args.device)
-    params = model.init(args.seed)
+    params = model.init(args.seed, serving=True)
     engine = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
                          device=model.device)
 

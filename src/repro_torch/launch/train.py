@@ -8,11 +8,17 @@ Full width unless ``--smoke``; on ``cuda`` unless ``--device cpu``; one
 device (no mesh).  Builds the train state, the data stream and the train
 step; checkpoints every ``--ckpt-every`` steps and at the end, and resumes
 from the latest checkpoint when restarted: kill it mid-run and rerun the
-same command.  On a card the attention runs the flash-attention kernels,
-the SSM (mamba2-780m) the SSD-scan kernels, hymba-1.5b's hybrid layers
-both, and the MoE FFN (olmoe-1b-7b) the grouped-GEMM kernels, forward and
-backward; on the CPU every kernel
-takes its plain version.  Runs under the PaPaS engine like any program, e.g. a study with
+same command.  On a card the attention runs the flash-attention kernels
+(bidirectional for hubert-xlarge's encoder), the SSM (mamba2-780m) the
+SSD-scan kernels, hymba-1.5b's hybrid layers both, and the MoE FFN
+(olmoe-1b-7b) the grouped-GEMM kernels, forward and backward; on the CPU
+every kernel takes its plain version.  The batches follow the config's
+input mode (hubert-xlarge: frame embeddings; internvl2-26b: patch
+embeddings, then tokens).  On a card the train state's memory is reckoned
+first (:func:`repro_torch.train.step.train_memory_gb`) and held against
+the card's: a model that does not fit one card (internvl2-26b, ~503 GB;
+olmoe-1b-7b at full depth) is refused before anything is allocated.
+Runs under the PaPaS engine like any program, e.g. a study with
 ``command: python -m repro_torch.launch.train --lr ${args:lr}``.
 """
 from __future__ import annotations
@@ -27,7 +33,9 @@ from repro_torch.configs import get, get_smoke
 from repro_torch.data.pipeline import make_stream
 from repro_torch.device import resolve_device
 from repro_torch.optim.adamw import AdamW, cosine_schedule
-from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
+from repro_torch.train.step import (
+    TrainStepConfig, init_train_state, make_train_step, train_memory_gb,
+)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -55,6 +63,17 @@ def main(argv: list[str] | None = None) -> dict:
 
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        need = train_memory_gb(cfg)
+        have = torch.cuda.get_device_properties(dev).total_memory / 1e9
+        if need["total_gb"] > have:
+            raise SystemExit(
+                f"{cfg.name}: training needs ~{need['total_gb']:.1f} GB "
+                f"({need['state_gb']:.1f} GB of fp32 state for "
+                f"{cfg.param_count():,} parameters, {need['update_gb']:.1f} GB "
+                f"of optimizer temporaries, {need['activation_gb']:.1f} GB of "
+                f"activations); the card has {have:.1f} GB. It needs the "
+                f"multi-device layer, which is not ported")
     opt = AdamW(schedule=cosine_schedule(args.lr, args.warmup, args.steps))
     step_fn = make_train_step(cfg, opt, TrainStepConfig(n_micro=args.n_micro))
 

@@ -2,8 +2,7 @@
 
 Same field names and defaults as the reference ``ArchConfig``, so
 ``dataclasses.replace(cfg, compute_dtype="float32")`` works alike in both
-packages.  The ``enc`` kind and the ``embeds``/``mixed`` input modes are
-described here but not yet run by this package.
+packages.
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ import torch
 from repro_torch.device import resolve_device
 
 from .config import ArchConfig
-from .transformer import decode_step, forward, init_cache, init_params, loss_fn
+from .transformer import (
+    decode_step, forward, init_cache, init_params, init_serving_params, loss_fn,
+)
 
 
 class Model:
@@ -21,11 +23,14 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
 
-    def init(self, seed: int = 0) -> dict[str, Any]:
-        """Random parameters from a ``torch.Generator`` seeded with ``seed``."""
+    def init(self, seed: int = 0, serving: bool = False) -> dict[str, Any]:
+        """Random parameters from a ``torch.Generator`` seeded with
+        ``seed``: in ``param_dtype`` for training, or with ``serving`` the
+        serving tree made directly in the compute dtype
+        (:func:`~repro_torch.models.transformer.init_serving_params`)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return init_params(self.cfg, gen)
+        return (init_serving_params if serving else init_params)(self.cfg, gen)
 
     def forward(self, params: dict[str, Any],
                 batch: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -48,15 +53,36 @@ def synthetic_batch(cfg: ArchConfig, batch: int, seq: int,
                     rng: torch.Generator | np.random.Generator,
                     device: str | torch.device | None = None
                     ) -> dict[str, torch.Tensor]:
-    """Random token batch (token mode) from a torch or a numpy generator;
-    labels are the tokens shifted left by one, as in the reference."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"input mode {cfg.input_mode!r} not yet ported")
+    """A random batch of ``seq`` positions from a torch or a numpy
+    generator, by the input mode, as the reference's: tokens with the
+    tokens shifted left by one as labels; frame embeddings (N(0, 0.1²),
+    bf16) with random labels (``embeds``); or ``min(n_patches, seq // 2)``
+    patch embeddings (bf16) then tokens, the patches' labels -100
+    (``mixed``)."""
     dev = resolve_device(device)
-    if isinstance(rng, np.random.Generator):
-        toks = torch.from_numpy(
-            rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int64)).to(dev)
-    else:
-        toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=rng,
+
+    def ints(*shape):
+        if isinstance(rng, np.random.Generator):
+            return torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, shape).astype(np.int64)).to(dev)
+        return torch.randint(0, cfg.vocab_size, shape, generator=rng,
                              device=rng.device).to(dev)
-    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+
+    def normal(*shape):
+        if isinstance(rng, np.random.Generator):
+            x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        else:
+            x = torch.randn(shape, generator=rng, device=rng.device)
+        return (x * 0.1).to(device=dev, dtype=torch.bfloat16)
+
+    if cfg.input_mode == "tokens":
+        toks = ints(batch, seq)
+        return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    if cfg.input_mode == "embeds":
+        return {"embeds": normal(batch, seq, cfg.d_model), "labels": ints(batch, seq)}
+    npatch = min(cfg.n_patches, seq // 2)
+    toks = ints(batch, seq - npatch)
+    patches = normal(batch, npatch, cfg.d_model)
+    labels = torch.cat([torch.full((batch, npatch), -100, dtype=torch.int64,
+                                   device=dev), ints(batch, seq - npatch)], dim=1)
+    return {"tokens": toks, "patch_embeds": patches, "labels": labels}

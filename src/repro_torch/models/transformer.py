@@ -1,22 +1,26 @@
 """Model assembly: embeddings → layer segments → head.
 
-Port of ``repro.models.transformer`` for the kinds ``attn``, ``swa``,
-``ssm``, ``moe`` and the hybrid ``hyb_g``/``hyb_l`` (hymba: an attention
-branch and a Mamba2 branch on the same normed input, fused as the mean of
-their RMS-normed outputs) with token inputs.  Consecutive layers of one
-kind form a *segment* whose parameters are stacked on a leading layer
-axis, the reference's layout; a Python loop over that axis replaces
-``lax.scan``.
+Port of ``repro.models.transformer`` for every layer kind of the
+reference: ``attn``, ``swa``, ``ssm``, ``moe``, the hybrid
+``hyb_g``/``hyb_l`` (hymba: an attention branch and a Mamba2 branch on
+the same normed input, fused as the mean of their RMS-normed outputs) and
+the encoder's ``enc`` (bidirectional attention, LayerNorm, a non-gated
+GELU MLP with biases), and for its three input modes: tokens, frame
+embeddings (``embeds``, hubert) and patch embeddings followed by tokens
+(``mixed``, a VLM), both projected by ``frontend_proj``.  Consecutive
+layers of one kind form a *segment* whose parameters are stacked on a
+leading layer axis, the reference's layout; a Python loop over that axis
+replaces ``lax.scan``.
 The MoE aux losses are summed over the layers, as the reference's scan
 carry does, and ``loss_fn`` adds them to the masked cross entropy; each
 layer runs under ``torch.utils.checkpoint`` as ``cfg.remat`` says (the
 reference's ``jax.checkpoint``).  A gang's members (``members=True``)
 are stacked on a leading axis of every leaf and run in one batched pass.
-Encoder layers are not ported yet.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any
 
 import torch
@@ -25,12 +29,12 @@ from torch.utils import checkpoint as ckpt
 from .attention import attn_block
 from .config import ArchConfig
 from .layers import (
-    as_dtype, cast, embed_tokens, mlp, normal_init, rms_norm, unembed,
+    as_dtype, cast, embed_tokens, layer_norm, mlp, normal_init, rms_norm,
+    unembed,
 )
 from .moe import moe_block
 from .ssm import init_ssm_cache, mamba2_block
 
-PORTED_KINDS = ("attn", "swa", "ssm", "moe", "hyb_g", "hyb_l")
 HYBRID_KINDS = ("hyb_g", "hyb_l")
 #: the attention kind each layer kind runs (the reference's map): a hybrid
 #: global layer attends causally over every position, a hybrid local one
@@ -38,127 +42,200 @@ HYBRID_KINDS = ("hyb_g", "hyb_l")
 _ATTN_KIND = {"moe": "attn", "hyb_g": "attn", "hyb_l": "swa"}
 
 #: leaves the reference casts to the compute dtype at every use (matmul
-#: weights, expert weights included, and the embedding table); norm
-#: scales, the conv, dt_bias, A_log, D, the MoE router and the shared
+#: weights, expert weights included, the embedding table, the frontend
+#: projection and the non-gated MLP's biases); norm scales and LayerNorm
+#: biases, the conv, dt_bias, A_log, D, the MoE router and the shared
 #: expert's token gate stay in param dtype (the reference reads the last
-#: two in fp32)
-_CAST_ON_USE = ("embed", "lm_head", "wq", "wk", "wv", "wo", "wi_gate",
-                "wi_up", "in_proj", "out_proj")
+#: two, and LayerNorm's scale and bias, in fp32)
+_CAST_ON_USE = ("embed", "lm_head", "frontend_proj", "wq", "wk", "wv", "wo",
+                "wi_gate", "wi_up", "wi", "bi", "bo", "in_proj", "out_proj")
 
-
-def _check_supported(cfg: ArchConfig) -> None:
-    kinds = set(cfg.layer_types) - set(PORTED_KINDS)
-    if kinds or cfg.input_mode != "tokens" or cfg.mlp_act == "gelu_nogate":
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)} / input mode "
-            f"{cfg.input_mode!r} / MLP {cfg.mlp_act!r} not yet ported")
+#: fp32 elements of one draw of the serving init (256 MB): a stacked leaf
+#: is filled a layer at a time, the embedding and the head a block of rows
+#: at a time
+_DRAW_ELEMENTS = 1 << 26
 
 
 # ---------------------------------------------------------------------------
 # Parameter initialization
 # ---------------------------------------------------------------------------
 
-def _init_ssm(gen: torch.Generator, cfg: ArchConfig, n: int) -> dict[str, Any]:
+class _Leaves:
+    """Makes the leaves of an init on the generator's device: every leaf in
+    the param dtype, or with ``serving`` every leaf of ``_CAST_ON_USE`` in
+    the compute dtype already, a drawn one filled a block of its leading
+    axis at a time from fp32 draws (so no fp32 copy of it is ever whole)."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+                 serving: bool = False) -> None:
+        self.gen = gen
+        self.param_dtype = as_dtype(cfg.param_dtype)
+        self.cast_dtype = as_dtype(cfg.compute_dtype) if serving else self.param_dtype
+
+    def dtype(self, key: str) -> torch.dtype:
+        return self.cast_dtype if key in _CAST_ON_USE else self.param_dtype
+
+    def normal(self, key: str, shape: tuple[int, ...],
+               stddev: float = 0.02) -> torch.Tensor:
+        dt = self.dtype(key)
+        if dt == self.param_dtype:
+            return normal_init(self.gen, shape, dt, stddev)
+        out = torch.empty(shape, dtype=dt, device=self.gen.device)
+        step = max(1, _DRAW_ELEMENTS // math.prod(shape[1:]))
+        for start in range(0, shape[0], step):
+            block = out[start:start + step]
+            block.copy_(torch.randn(block.shape, generator=self.gen,
+                                    dtype=torch.float32,
+                                    device=self.gen.device).mul_(stddev))
+        return out
+
+    def fill(self, key: str, shape: tuple[int, ...],
+             value: float = 0.0) -> torch.Tensor:
+        return torch.full(shape, value, dtype=self.dtype(key),
+                          device=self.gen.device)
+
+    def layer_norm(self, shape: tuple[int, ...]) -> dict[str, torch.Tensor]:
+        return {"scale": self.fill("scale", shape, 1.0),
+                "bias": self.fill("bias", shape)}
+
+
+def _init_ssm(leaves: _Leaves, cfg: ArchConfig, n: int) -> dict[str, Any]:
     """Mamba2 mixer parameters of ``n`` layers, stacked (reference
     ``_init_ssm``)."""
     d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
-    dt = as_dtype(cfg.param_dtype)
     gn = cfg.ssm_groups * cfg.ssm_state
     conv_ch = di + 2 * gn
-    dev = gen.device
-    a_init = torch.linspace(1.0, 16.0, h, device=dev)
+    a_init = torch.linspace(1.0, 16.0, h, device=leaves.gen.device)
     return {
-        "in_proj": normal_init(gen, (n, d, 2 * di + 2 * gn + h), dt),
-        "conv_w": normal_init(gen, (n, cfg.ssm_conv, conv_ch), dt, 0.2),
-        "conv_b": torch.zeros((n, conv_ch), dtype=dt, device=dev),
-        "dt_bias": torch.zeros((n, h), dtype=dt, device=dev),
-        "A_log": torch.log(a_init).to(dt).expand(n, h).clone(),
-        "D": torch.ones((n, h), dtype=dt, device=dev),
-        "norm": torch.zeros((n, di), dtype=dt, device=dev),
-        "out_proj": normal_init(gen, (n, di, d), dt),
+        "in_proj": leaves.normal("in_proj", (n, d, 2 * di + 2 * gn + h)),
+        "conv_w": leaves.normal("conv_w", (n, cfg.ssm_conv, conv_ch), 0.2),
+        "conv_b": leaves.fill("conv_b", (n, conv_ch)),
+        "dt_bias": leaves.fill("dt_bias", (n, h)),
+        "A_log": torch.log(a_init).to(leaves.dtype("A_log")).expand(n, h).clone(),
+        "D": leaves.fill("D", (n, h), 1.0),
+        "norm": leaves.fill("norm", (n, di)),
+        "out_proj": leaves.normal("out_proj", (n, di, d)),
     }
 
 
-def _init_moe(gen: torch.Generator, cfg: ArchConfig, n: int) -> dict[str, Any]:
+def _init_moe(leaves: _Leaves, cfg: ArchConfig, n: int) -> dict[str, Any]:
     """Router, routed experts and the optional shared expert (with its
     token gate) of ``n`` layers, stacked (reference ``_init_moe``)."""
     d, ffm, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-    dt = as_dtype(cfg.param_dtype)
     p: dict[str, Any] = {
-        "router": normal_init(gen, (n, d, e), dt),
-        "wi_gate": normal_init(gen, (n, e, d, ffm), dt),
-        "wi_up": normal_init(gen, (n, e, d, ffm), dt),
-        "wo": normal_init(gen, (n, e, ffm, d), dt),
+        "router": leaves.normal("router", (n, d, e)),
+        "wi_gate": leaves.normal("wi_gate", (n, e, d, ffm)),
+        "wi_up": leaves.normal("wi_up", (n, e, d, ffm)),
+        "wo": leaves.normal("wo", (n, e, ffm, d)),
     }
     if cfg.n_shared_experts:
         ffs = cfg.d_ff
         p["shared"] = {
-            "wi_gate": normal_init(gen, (n, d, ffs), dt),
-            "wi_up": normal_init(gen, (n, d, ffs), dt),
-            "wo": normal_init(gen, (n, ffs, d), dt),
-            "gate": normal_init(gen, (n, d, 1), dt),
+            "wi_gate": leaves.normal("wi_gate", (n, d, ffs)),
+            "wi_up": leaves.normal("wi_up", (n, d, ffs)),
+            "wo": leaves.normal("wo", (n, ffs, d)),
+            "gate": leaves.normal("gate", (n, d, 1)),
         }
     return p
 
 
-def _init_segment(gen: torch.Generator, cfg: ArchConfig, kind: str, n: int
-                  ) -> dict[str, Any]:
-    """Parameters of ``n`` layers of one kind, stacked on a leading axis."""
-    d, ad, kd, ff = cfg.d_model, cfg.attn_dim, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff
-    dt = as_dtype(cfg.param_dtype)
+def _init_mlp(leaves: _Leaves, cfg: ArchConfig, n: int) -> dict[str, Any]:
+    """A gated MLP, or a non-gated GELU one with biases (``gelu_nogate``),
+    of ``n`` layers, stacked (reference ``_init_mlp``)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act == "gelu_nogate":
+        return {"wi": leaves.normal("wi", (n, d, ff)),
+                "bi": leaves.fill("bi", (n, ff)),
+                "wo": leaves.normal("wo", (n, ff, d)),
+                "bo": leaves.fill("bo", (n, d))}
+    return {"wi_gate": leaves.normal("wi_gate", (n, d, ff)),
+            "wi_up": leaves.normal("wi_up", (n, d, ff)),
+            "wo": leaves.normal("wo", (n, ff, d))}
 
-    def zeros(*shape):
-        return torch.zeros((n, *shape), dtype=dt, device=gen.device)
+
+def _init_segment(leaves: _Leaves, cfg: ArchConfig, kind: str, n: int
+                  ) -> dict[str, Any]:
+    """Parameters of ``n`` layers of one kind, stacked on a leading axis
+    (reference ``_init_layer``): an ``enc`` layer's norms are LayerNorms,
+    ``{"scale", "bias"}``, every other kind's RMSNorm scales."""
+    d, ad, kd = cfg.d_model, cfg.attn_dim, cfg.n_kv_heads * cfg.head_dim
+
+    def norm(key):
+        return (leaves.layer_norm((n, d)) if kind == "enc"
+                else leaves.fill(key, (n, d)))
 
     if kind == "ssm":   # norm1 → mixer → residual; no norm2, no MLP
-        return {"norm1": zeros(d), "ssm": _init_ssm(gen, cfg, n)}
+        return {"norm1": norm("norm1"), "ssm": _init_ssm(leaves, cfg, n)}
     attn = {
-        "wq": normal_init(gen, (n, d, ad), dt),
-        "wk": normal_init(gen, (n, d, kd), dt),
-        "wv": normal_init(gen, (n, d, kd), dt),
-        "wo": normal_init(gen, (n, ad, d), dt),
+        "wq": leaves.normal("wq", (n, d, ad)),
+        "wk": leaves.normal("wk", (n, d, kd)),
+        "wv": leaves.normal("wv", (n, d, kd)),
+        "wo": leaves.normal("wo", (n, ad, d)),
     }
     if cfg.qk_norm:
-        attn["q_norm"] = zeros(cfg.head_dim)
-        attn["k_norm"] = zeros(cfg.head_dim)
+        attn["q_norm"] = leaves.fill("q_norm", (n, cfg.head_dim))
+        attn["k_norm"] = leaves.fill("k_norm", (n, cfg.head_dim))
     if kind == "moe":   # the MoE FFN in place of the MLP
-        return {"norm1": zeros(d), "norm2": zeros(d), "attn": attn,
-                "moe": _init_moe(gen, cfg, n)}
-    mlp_p = {"wi_gate": normal_init(gen, (n, d, ff), dt),
-             "wi_up": normal_init(gen, (n, d, ff), dt),
-             "wo": normal_init(gen, (n, ff, d), dt)}
-    p = {"norm1": zeros(d), "norm2": zeros(d), "attn": attn, "mlp": mlp_p}
+        return {"norm1": norm("norm1"), "norm2": norm("norm2"), "attn": attn,
+                "moe": _init_moe(leaves, cfg, n)}
+    p = {"norm1": norm("norm1"), "norm2": norm("norm2"), "attn": attn,
+         "mlp": _init_mlp(leaves, cfg, n)}
     if kind in HYBRID_KINDS:   # the SSM branch beside the attention
-        p.update(ssm=_init_ssm(gen, cfg, n), branch_norm_attn=zeros(d),
-                 branch_norm_ssm=zeros(d))
+        p.update(ssm=_init_ssm(leaves, cfg, n),
+                 branch_norm_attn=norm("branch_norm_attn"),
+                 branch_norm_ssm=norm("branch_norm_ssm"))
     return p
+
+
+def _init_tree(cfg: ArchConfig, leaves: _Leaves) -> dict[str, Any]:
+    """The parameter tree in the reference's layout (reference
+    ``init_params``): ``frontend_proj`` for the ``embeds`` and ``mixed``
+    input modes (``embed`` is kept in ``embeds`` mode, where nothing reads
+    it, so both packages name the same leaves), a LayerNorm final norm when
+    the first layer is ``enc``."""
+    d = cfg.d_model
+    params: dict[str, Any] = {
+        "embed": leaves.normal("embed", (cfg.padded_vocab, d))}
+    if cfg.input_mode in ("embeds", "mixed"):
+        params["frontend_proj"] = leaves.normal("frontend_proj", (d, d))
+    params["segments"] = [_init_segment(leaves, cfg, kind, count)
+                          for kind, count in cfg.segments()]
+    params["final_norm"] = (leaves.layer_norm((d,))
+                            if cfg.layer_types and cfg.layer_types[0] == "enc"
+                            else leaves.fill("final_norm", (d,)))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = leaves.normal("lm_head", (d, cfg.padded_vocab))
+    return params
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict[str, Any]:
     """Random parameters on the generator's device, in the reference's
-    layout (the values differ: jax.random cannot be reproduced)."""
-    _check_supported(cfg)
-    dt = as_dtype(cfg.param_dtype)
-    params: dict[str, Any] = {
-        "embed": normal_init(generator, (cfg.padded_vocab, cfg.d_model), dt),
-        "segments": [_init_segment(generator, cfg, kind, count)
-                     for kind, count in cfg.segments()],
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dt,
-                                  device=generator.device),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = normal_init(
-            generator, (cfg.d_model, cfg.padded_vocab), dt)
-    return params
+    layout and ``param_dtype`` (the values differ: jax.random cannot be
+    reproduced)."""
+    return _init_tree(cfg, _Leaves(cfg, generator))
+
+
+def init_serving_params(cfg: ArchConfig, generator: torch.Generator
+                        ) -> dict[str, Any]:
+    """A serving tree made directly: the paths, shapes and dtypes of
+    ``compute_copy(cfg, init_params(cfg, generator))`` without the fp32
+    tree.  Each leaf that ``compute_copy`` casts is allocated in the
+    compute dtype and filled from fp32 draws of at most ``_DRAW_ELEMENTS``
+    (one layer of a stacked leaf, a block of the embedding's or the head's
+    rows), so the peak is the tree plus one draw: internvl2-26b's 39.8 GB
+    of bf16 where the fp32 init alone would be 79.6 GB.  The values are
+    other draws from the same distributions as ``init_params``'s."""
+    return _init_tree(cfg, _Leaves(cfg, generator, serving=True))
 
 
 def compute_copy(cfg: ArchConfig, params: dict[str, Any]) -> dict[str, Any]:
     """The parameters with every leaf that the reference casts at each use
     held in the compute dtype already.  A cast gives the same values once
     as at every use, so serving from this copy changes no result and saves
-    re-casting the weights on every step.  For serving only: training casts
-    at each use, as the reference does, so that the fp32 leaves get fp32
-    gradients."""
+    re-casting the weights on every step; a leaf already in the compute
+    dtype (a tree from :func:`init_serving_params`) is kept, not copied.
+    For serving only: training casts at each use, as the reference does,
+    so that the fp32 leaves get fp32 gradients."""
     def walk(node: Any, key: str) -> Any:
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
@@ -192,6 +269,14 @@ def _zero_aux(device: torch.device | str, shape: tuple[int, ...] = ()
 # ---------------------------------------------------------------------------
 # Layer body
 # ---------------------------------------------------------------------------
+
+def _norm(x: torch.Tensor, p: Any, eps: float) -> torch.Tensor:
+    """LayerNorm for a ``{"scale", "bias"}`` dict (an ``enc`` layer's),
+    RMSNorm for a scale (reference ``_norm``)."""
+    if isinstance(p, dict):
+        return layer_norm(x, p["scale"], p["bias"], eps)
+    return rms_norm(x, p, eps)
+
 
 def _attn_sublayer(cfg: ArchConfig, kind: str, h: torch.Tensor,
                    lp: dict[str, Any], positions: torch.Tensor,
@@ -230,7 +315,7 @@ def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
     layer's cache is ``{"attn": {k, v, pos}, "ssm": {conv, ssm, pos}}``."""
     eps = cfg.norm_eps
     aux = None
-    h = rms_norm(x, lp["norm1"], eps)
+    h = _norm(x, lp["norm1"], eps)
     if kind == "ssm":
         y, new_cache = _ssm_sublayer(cfg, h, lp, cache)
         return x + y.to(x.dtype), aux, new_cache
@@ -249,7 +334,7 @@ def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
     else:
         a_out, new_cache = _attn_sublayer(cfg, kind, h, lp, positions, cache)
         x = x + a_out.to(x.dtype)
-    h2 = rms_norm(x, lp["norm2"], eps)
+    h2 = _norm(x, lp["norm2"], eps)
     if kind == "moe":
         f_out, aux = moe_block(
             h2, lp["moe"], n_experts=cfg.n_experts,
@@ -265,6 +350,23 @@ def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Forward pass
 # ---------------------------------------------------------------------------
+
+def _embed_inputs(cfg: ArchConfig, params: dict[str, Any],
+                  batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The input rows (B, S, d) in the compute dtype (reference
+    ``_embed_inputs``): the token embeddings; frame embeddings times
+    ``frontend_proj`` (``embeds``); or patch embeddings times
+    ``frontend_proj`` followed by the token embeddings on the sequence axis
+    (``mixed``: the patches take the first positions)."""
+    cd = cfg.compute_dtype
+    if cfg.input_mode == "tokens":
+        return embed_tokens(batch["tokens"], params["embed"], cfg.embed_scale, cd)
+    if cfg.input_mode == "embeds":
+        return cast(batch["embeds"], cd) @ cast(params["frontend_proj"], cd)
+    patches = cast(batch["patch_embeds"], cd) @ cast(params["frontend_proj"], cd)
+    tokens = embed_tokens(batch["tokens"], params["embed"], cfg.embed_scale, cd)
+    return torch.cat([patches, tokens], dim=-2)
+
 
 def _save_dots(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
     """remat="dots": keep the matrix products without batch dims (the
@@ -306,11 +408,10 @@ def backbone(cfg: ArchConfig, params: dict[str, Any],
     inside its checkpoint, the final norm) runs under ``torch.func.vmap``,
     so one pass serves all members (the kernels' vmap rules fold the members
     into their batch)."""
-    _check_supported(cfg)
-    x = _over_members(
-        lambda tok, table: embed_tokens(tok, table, cfg.embed_scale,
-                                        cfg.compute_dtype),
-        members)(batch["tokens"], params["embed"])
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    tables = {k: params[k] for k in ("embed", "frontend_proj") if k in params}
+    x = _over_members(lambda b, p: _embed_inputs(cfg, p, b),
+                      members)(inputs, tables)
     b, s = x.shape[-3], x.shape[-2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -329,7 +430,7 @@ def backbone(cfg: ArchConfig, params: dict[str, Any],
             x, aux = run(x, lp)
             if aux is not None:
                 aux_total = {k: v + aux[k] for k, v in aux_total.items()}
-    final = _over_members(lambda xf, w: rms_norm(xf, w, cfg.norm_eps), members)
+    final = _over_members(lambda xf, w: _norm(xf, w, cfg.norm_eps), members)
     return final(x, params["final_norm"]), aux_total
 
 
@@ -433,8 +534,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     in ``dtype`` and SSM state in fp32 for ssm, and both, nested as
     ``{"attn": {k, v}, "ssm": {conv, ssm}}``, for a hybrid segment (a
     ``hyb_l`` ring as swa's).  ``pos`` is one Python int shared by every
-    slot, as in the reference, and by both halves of a hybrid cache."""
-    _check_supported(cfg)
+    slot, as in the reference, and by both halves of a hybrid cache.  An
+    encoder-only config has no decode step, hence no cache: it raises."""
+    if not cfg.has_decode():
+        raise ValueError(f"{cfg.name} is encoder-only; no decode step")
     segments = []
     for kind, count in cfg.segments():
         if kind == "ssm":
@@ -491,7 +594,7 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
                 nc = nc["ssm"] if hybrid else nc
                 ssm["conv"][i] = nc["conv"]
                 ssm["ssm"][i] = nc["ssm"]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x, _head(cfg, params), cfg.compute_dtype)[:, 0]
     return (logits[..., :cfg.vocab_size],
             {"pos": pos + 1, "segments": cache["segments"]})

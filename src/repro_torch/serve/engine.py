@@ -41,7 +41,11 @@ class ServeEngine:
     """Token-level continuous batching over ``slots`` sequences.
 
     Serves from a compute-dtype copy of ``params`` (see
-    :func:`repro_torch.models.transformer.compute_copy`)."""
+    :func:`repro_torch.models.transformer.compute_copy`), which keeps a leaf
+    already in the compute dtype (a tree from ``Model.init(serving=True)``)
+    without a copy.  It decodes tokens only, as the reference's engine
+    does: a VLM's patch embeddings reach only ``forward``, and an
+    encoder-only config (no decode step) raises here."""
 
     def __init__(self, cfg: ArchConfig, params: Any, slots: int = 8,
                  max_len: int = 256,

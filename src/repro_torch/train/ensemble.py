@@ -24,7 +24,9 @@ reproduced).  Every ported layer kind batches, MoE and hymba's hybrid
 layers included: each member adds its own MoE aux losses to its loss, as
 the reference's vmapped ``loss_fn`` does, and a hybrid layer runs its
 attention and SSD kernels, each under its own vmap rule, inside one
-checkpoint.
+checkpoint.  The gang takes token batches only, as the reference's does
+(``repro.train.ensemble`` draws tokens): a config whose input mode is
+``embeds`` or ``mixed`` (hubert-xlarge, internvl2-26b) is refused.
 """
 from __future__ import annotations
 
@@ -72,11 +74,20 @@ def stack_members(trees: Sequence[Any]) -> Any:
     return tree_map(lambda *leaves: torch.stack(leaves), *trees)
 
 
+def _require_tokens(cfg: ArchConfig) -> None:
+    if cfg.input_mode != "tokens":
+        raise ValueError(
+            f"{cfg.name}: the gang trains on token batches only (rolled tokens "
+            f"as labels, as the reference's gang draws them); input mode "
+            f"{cfg.input_mode!r} needs batches of embeddings it does not make")
+
+
 def init_members(cfg: ArchConfig, seeds: Sequence[int], steps: int, batch: int,
                  seq: int, device: torch.device | str
                  ) -> tuple[Any, torch.Tensor]:
     """Each member's initial parameters and tokens from a generator seeded
     by its seed: (stacked parameters, tokens (M, steps, batch, seq))."""
+    _require_tokens(cfg)
     params, tokens = [], []
     for seed in seeds:
         gen = torch.Generator(device=device)
@@ -94,6 +105,7 @@ def train_gang(cfg: ArchConfig, params: Any, tokens: torch.Tensor,
     lr each on a unit-base cosine schedule over the steps.  Each step's
     labels are its tokens rolled by one, as in the reference.  Returns the
     losses (steps, M), each taken before its step's update."""
+    _require_tokens(cfg)
     m, steps = tokens.shape[:2]
     if len(lrs) != m:
         raise ValueError(f"{len(lrs)} learning rates for {m} members")

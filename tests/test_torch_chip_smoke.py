@@ -685,3 +685,131 @@ def test_step_launches_under_full_remat():
     assert cs.step_launches(get("mamba2-780m"), 5) == {
         "ssd_chunk_state": 480, "ssd_chunk_scan": 480,
         "ssd_chunk_state_bwd": 240, "ssd_chunk_scan_bwd": 240}
+
+
+def test_fa_cases_hold_huberts_and_internvl2s_shapes():
+    """hubert-xlarge's attention (16 heads of 80, MHA, bidirectional, S
+    2048), forward and backward, and internvl2-26b's (48 query heads, 8 KV
+    heads of 128, causal), forward."""
+    hubert = ("hubert-xlarge", 4, 2048, 16, 16, 80, False, 0)
+    assert hubert in cs.FA_CASES and (*hubert, False) in cs.FA_BWD_CASES
+    assert ("internvl2-26b", 4, 2048, 48, 8, 128, True, 0) in cs.FA_CASES
+
+
+def test_encoder_and_vlm_attention_bounds():
+    """Operations bound the new shapes: hubert 4·B·Hq·D·S² = 85.9 GFLOP a
+    call (0.0869 ms at 989 TFLOP/s, 4.17 ms for its 48 layers); internvl2
+    206 GFLOP a call over the causal pairs (0.209 ms); hubert's backward
+    2.5x its forward."""
+    ops, nbytes = cs.attention_floor_ms(4, 2048, 16, 16, 80, False, 0)
+    assert 4 * 4 * 16 * 80 * 2048 ** 2 == pytest.approx(85.9e9, rel=1e-3)
+    assert ops == pytest.approx(0.08686, rel=1e-3) and ops > nbytes
+    assert 48 * ops == pytest.approx(4.169, rel=1e-3)
+    ops, nbytes = cs.attention_floor_ms(4, 2048, 48, 8, 128, True, 0)
+    assert ops == pytest.approx(206.3e9 / 989e12 * 1e3, rel=1e-3) and ops > nbytes
+    bwd_ops, _ = cs.attention_bwd_floor_ms(4, 2048, 16, 16, 80, False, 0)
+    assert bwd_ops == pytest.approx(2.5 * 0.08686, rel=1e-3)
+
+
+def test_hubert_and_internvl2_kernels_windows_and_launches():
+    """An encoder's layers are attention layers: 48 bidirectional calls
+    with no window a forward, 96 and 48 backward a train step under full
+    remat; internvl2's 48 causal ones."""
+    from repro_torch.configs import get
+    hubert, vlm = get("hubert-xlarge"), get("internvl2-26b")
+    assert cs.attention_windows(hubert) == [0] * 48
+    assert cs.attention_windows(vlm) == [0] * 48
+    assert cs.path_kernels(hubert, backward=True) == ("flash_attention",
+                                                      "flash_attention_bwd")
+    assert cs.path_kernels(vlm, backward=False) == ("flash_attention",)
+    assert cs.step_launches(hubert) == {"flash_attention": 96, "flash_attention_bwd": 48}
+    assert cs.step_launches(hubert, 5) == {"flash_attention": 480,
+                                           "flash_attention_bwd": 240}
+
+
+def test_train_reckoning_of_hubert_and_internvl2():
+    """hubert-xlarge: 947,202,560 parameters hold 18.9 GB of state; its
+    largest leaf is the 48-layer MLP weight (48 x 1280 x 5120).  internvl2-
+    26b's 19.9 B parameters need ~398 GB of state: launch.train refuses it
+    on one card, by the same reckoning."""
+    from repro_torch.configs import get
+    from repro_torch.train.step import train_memory_gb
+    hubert = get("hubert-xlarge")
+    assert hubert.param_count() == 947_202_560
+    assert cs.largest_leaf(hubert) == 48 * 1280 * 5120
+    got = cs.train_reckoning_gb(hubert, hubert.n_layers)
+    assert got["state_gb"] == pytest.approx(18.944, abs=1e-3)
+    assert got == train_memory_gb(hubert)
+    assert got["total_gb"] < cs.TRAIN_BUDGET_GB
+    vlm = cs.train_reckoning_gb(get("internvl2-26b"), 48)
+    assert vlm["state_gb"] == pytest.approx(397.98, abs=1e-2)
+    assert vlm["total_gb"] > 80
+
+
+def test_attention_mixes_take_the_configs_causality(monkeypatch):
+    """fa_prefill_mix and fa_train_mix run an encoder's calls
+    bidirectionally: their operations are the bidirectional pairs' (the
+    bound here reads the operations alone: at this size the bytes bound
+    both masks alike), and the kernel's plain version is held against
+    itself at that mask."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters, warmup=2: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "bound", lambda ops_ms, bytes_ms: (ops_ms, "operations"))
+    cfg = get_smoke("hubert-xlarge")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    b, s = 2, 24
+    fwd = cs.fa_prefill_mix(cfg, gen, "cpu", b, s)
+    bwd = cs.fa_train_mix(cfg, gen, "cpu", b, s)
+    args = (b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, False, 0)
+    assert fwd["bound_ms"] == pytest.approx(cfg.n_layers * cs.attention_floor_ms(*args)[0])
+    assert bwd["bound_ms"] == pytest.approx(
+        cfg.n_layers * cs.attention_bwd_floor_ms(*args)[0])
+    assert fwd["max_abs_err"] == bwd["max_abs_err"] == 0.0
+    causal = cs.fa_prefill_mix(dataclasses.replace(cfg, causal=True), gen, "cpu", b, s)
+    assert causal["bound_ms"] < fwd["bound_ms"]
+
+
+def test_model_inputs_and_tree_bytes():
+    batch = {"tokens": torch.zeros((2, 3), dtype=torch.int64),
+             "patch_embeds": torch.zeros((2, 1, 4), dtype=torch.bfloat16),
+             "labels": torch.zeros((2, 4), dtype=torch.int64)}
+    assert set(cs.model_inputs(batch)) == {"tokens", "patch_embeds"}
+    assert cs.tree_bytes({"a": [batch["tokens"]], "b": batch["patch_embeds"]}) == 48 + 16
+
+
+def test_rounding_agreement_holds_two_paths_to_the_models_own_rounding():
+    """Within bounds when the two tables are no farther apart (mean and
+    max) than the reference is from its input-moved self."""
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    want = torch.randn((64, 50), generator=gen)
+    moved = want + 0.1 * torch.randn((64, 50), generator=gen)
+    close = want + 0.05 * torch.randn((64, 50), generator=gen)
+    out = cs.rounding_agreement(close, want, moved)
+    assert out["within_bounds"] and out["positions"] == 64
+    assert out["mean_abs"] < out["bound_mean_abs"] and out["max_abs"] < out["bound_max_abs"]
+    far = want + 0.2 * torch.randn((64, 50), generator=gen)
+    assert not cs.rounding_agreement(far, want, moved)["within_bounds"]
+    # one position far off fails on the max alone
+    spike = close.clone()
+    spike[7, 3] += 5.0
+    out = cs.rounding_agreement(spike, want, moved)
+    assert out["mean_abs"] < out["bound_mean_abs"] and not out["within_bounds"]
+
+
+def test_clustered_frames_make_the_labels_a_function_of_the_frames():
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    labels = torch.tensor([[0, 1, 2, 1], [2, 2, 0, 1]])
+    batch = {"embeds": torch.zeros((2, 4, 256), dtype=torch.bfloat16), "labels": labels}
+    out = cs.clustered_frames(batch, gen)
+    assert out["labels"] is labels and out["embeds"].dtype == torch.bfloat16
+    frames = out["embeds"].float().reshape(8, 256)
+    # frames of one label are nearer each other than frames of two labels
+    dist = torch.cdist(frames, frames)
+    same = labels.reshape(-1)[:, None] == labels.reshape(-1)[None, :]
+    off_diagonal = ~torch.eye(8, dtype=torch.bool)
+    assert dist[same & off_diagonal].max() < dist[~same].min()
+    assert abs(frames.std().item() - (0.1 ** 2 + 0.05 ** 2) ** 0.5) < 0.03

@@ -21,6 +21,9 @@ smoke sizes, against the JAX package's ``repro.train.ensemble``.
   ``vmap``): against JAX, and its launches a step for M = 3 as for M = 1.
 * A mamba2 gang, and the unchanged engine's ``GangExecutor`` dispatching
   the port's ``train_ensemble`` once for four members.
+* hubert (frame embeddings) and internvl2 (patch embeddings, then tokens):
+  the reference's gang draws token batches only and fails on them; the
+  port's refuses them up front.
 """
 
 import jax
@@ -92,13 +95,27 @@ def _jax_seam(jcfg, seeds, steps, batch, seq):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "hubert-xlarge", "internvl2-26b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gang_matches_jax_from_the_same_init_and_tokens(monkeypatch, arch, dtype):
     steps, batch, seq = 4, 2, 16
     lrs, seeds = (1e-3, 3e-3), (0, 1)
     jcfg = jget_smoke(arch, compute_dtype=dtype)
     monkeypatch.setattr(jens, "get_smoke", lambda a: jget_smoke(a, compute_dtype=dtype))
+    if jcfg.input_mode != "tokens":
+        # the reference's gang draws tokens and misses the embeddings its
+        # loss reads; the port's gang refuses the config up front
+        with pytest.raises(KeyError, match="embeds"):
+            jens.train_ensemble(_members(arch, lrs, seeds, steps, batch, seq))
+        with pytest.raises(ValueError, match="token batches only"):
+            ensemble.train_ensemble(_members(arch, lrs, seeds, steps, batch, seq),
+                                    device="cpu")
+        cfg = get_smoke(arch, compute_dtype=dtype)
+        with pytest.raises(ValueError, match="token batches only"):
+            ensemble.train_gang(cfg, {}, torch.zeros((2, steps, batch, seq),
+                                                     dtype=torch.int64),
+                                list(lrs), warmup=1)
+        return
     want = jens.train_ensemble(_members(arch, lrs, seeds, steps, batch, seq))
     params, tokens = _jax_seam(jcfg, seeds, steps, batch, seq)
     got = ensemble.train_gang(get_smoke(arch, compute_dtype=dtype), params,

@@ -1,6 +1,8 @@
 """Whole-model parity of the port against the JAX package, on the smoke
-configs of every ported architecture (dense, mamba2, MoE, hymba), with
-the JAX weights bridged across.
+configs of every ported architecture (dense, mamba2, MoE, hymba, the
+hubert encoder on frame embeddings, the internvl2 backbone on patch
+embeddings and tokens), with the JAX weights bridged across.  hubert is
+encoder-only: its decode cases hold that both packages refuse to decode.
 
 Tolerances on the logits (|logits| ≲ 1 here):
 * fp32 compute: 1e-4 (summation order only, over a few layers);
@@ -18,11 +20,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.checkpoint import ckpt  # noqa: E402
-from repro.configs import get as jget, get_smoke as jget_smoke  # noqa: E402
+from repro.configs import (  # noqa: E402
+    all_archs as jall_archs, get as jget, get_smoke as jget_smoke,
+)
 from repro.models import Model as JModel  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import all_archs, get, get_smoke  # noqa: E402
+from repro_torch.configs import NOT_PORTED, all_archs, get, get_smoke  # noqa: E402
 from repro_torch.models import Model, compute_copy  # noqa: E402
 from torch_parity import assert_close, both, np32  # noqa: E402
 
@@ -44,6 +48,23 @@ def _pair(arch, **overrides):
 
 def _tokens(cfg, b, s, seed=0):
     return both(np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)))
+
+
+def _inputs(cfg, b, s, seed=0):
+    """(JAX batch, port batch) of ``s`` positions by the input mode: tokens;
+    frame embeddings (``embeds``); or min(n_patches, s // 2) patch
+    embeddings then tokens (``mixed``)."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeds":
+        pairs = {"embeds": both(rng.standard_normal((b, s, cfg.d_model)) * 0.1)}
+    elif cfg.input_mode == "mixed":
+        npatch = min(cfg.n_patches, s // 2)
+        pairs = {"patch_embeds": both(rng.standard_normal((b, npatch, cfg.d_model)) * 0.1),
+                 "tokens": both(rng.integers(0, cfg.vocab_size, (b, s - npatch)))}
+    else:
+        pairs = {"tokens": both(rng.integers(0, cfg.vocab_size, (b, s)))}
+    return ({k: j for k, (j, _) in pairs.items()},
+            {k: t for k, (_, t) in pairs.items()})
 
 
 SSM_KINDS = ("ssm", "hyb_g", "hyb_l")
@@ -70,10 +91,13 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get("hubert-xlarge")
+    """Every architecture of the reference is ported; an unknown id raises."""
+    assert NOT_PORTED == ()
+    assert set(all_archs()) == set(jall_archs())
     with pytest.raises(KeyError):
         get("no-such-arch")
+    with pytest.raises(KeyError):
+        get_smoke("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -82,15 +106,15 @@ def test_unported_arch_raises():
 def test_forward_matches_jax(arch, dtype, use_kernels):
     jm, jp, tm, tp = _pair(arch, compute_dtype=dtype, use_kernels=use_kernels)
     s = _prefill_len(tm.cfg)
-    tj, tt = _tokens(tm.cfg, 2, s)
-    want, _ = jax.jit(jm.forward)(jp, {"tokens": tj})
+    jb, tb = _inputs(tm.cfg, 2, s)
+    want, _ = jax.jit(jm.forward)(jp, jb)
     with torch.inference_mode():
-        got = tm.forward(tp, {"tokens": tt})
+        got = tm.forward(tp, tb)
     assert got.shape == (2, s, tm.cfg.vocab_size)
     assert_close(got, want, TOLS[dtype])
     # serving from the compute-dtype copy gives the same logits
     with torch.inference_mode():
-        again = tm.forward(compute_copy(tm.cfg, tp), {"tokens": tt})
+        again = tm.forward(compute_copy(tm.cfg, tp), tb)
     torch.testing.assert_close(again, got, atol=0, rtol=0)
 
 
@@ -100,8 +124,17 @@ def test_decode_steps_match_jax(arch, dtype):
     jm, jp, tm, tp = _pair(arch, compute_dtype=dtype)
     tj, tt = _tokens(tm.cfg, 2, 8, seed=1)
     jc = jm.init_cache(2, 12, dtype=JNP_DT[dtype])
-    tc = tm.init_cache(2, 12, dtype=dtype)
     jstep = jax.jit(jm.decode_step)
+    if not tm.cfg.has_decode():
+        # encoder-only: the reference refuses the step, the port its cache
+        with pytest.raises(ValueError, match="encoder-only"):
+            jstep(jp, jc, tj[:, :1])
+        with pytest.raises(ValueError, match="encoder-only"):
+            tm.init_cache(2, 12, dtype=dtype)
+        with pytest.raises(ValueError, match="encoder-only"):
+            tm.decode_step(tp, {"pos": 0, "segments": []}, tt[:, :1])
+        return
+    tc = tm.init_cache(2, 12, dtype=dtype)
     for t in range(8):
         want, jc = jstep(jp, jc, tj[:, t:t + 1])
         with torch.inference_mode():
@@ -125,13 +158,22 @@ def assert_caches_match(tc, jc, tol):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_consistency(arch):
     """Teacher-forced decode reproduces the forward logits (the port alone,
-    as tests/test_archs_smoke.py checks the reference), threshold 0.1."""
+    as tests/test_archs_smoke.py checks the reference), threshold 0.1.  A
+    VLM's prompt is text alone here (no patch embeddings: decode takes
+    tokens only); an encoder-only model has no decode to compare."""
     tm = Model(get_smoke(arch), device="cpu")
     params = tm.init(0)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, tm.cfg.vocab_size, (1, 8)))
+    if not tm.cfg.has_decode():
+        with pytest.raises(ValueError, match="encoder-only"):
+            tm.init_cache(1, 16, dtype="float32")
+        return
+    batch = {"tokens": toks}
+    if tm.cfg.input_mode == "mixed":
+        batch["patch_embeds"] = torch.zeros((1, 0, tm.cfg.d_model))
     with torch.inference_mode():
-        logits_all = tm.forward(params, {"tokens": toks})
+        logits_all = tm.forward(params, batch)
         cache = tm.init_cache(1, 16, dtype="float32")
         outs = []
         for t in range(8):

@@ -58,17 +58,33 @@ LOSS_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 
 
 def _batches(cfg, b, s, seed=0, ignore=False):
-    """(JAX batch, port batch) of tokens and next-token labels; with
-    ``ignore`` some labels are -100."""
+    """(JAX batch, port batch) of ``s`` positions by the input mode: tokens
+    and next-token labels; frame embeddings and random labels
+    (``embeds``); or min(n_patches, s // 2) patch embeddings, then tokens,
+    the patches' labels -100 (``mixed``).  With ``ignore`` some labels are
+    -100."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
-    labels = np.roll(toks, -1, axis=1)
+    host = {}
+    if cfg.input_mode == "embeds":
+        host["embeds"] = (rng.standard_normal((b, s, cfg.d_model)) * 0.1).astype(np.float32)
+        labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    elif cfg.input_mode == "mixed":
+        npatch = min(cfg.n_patches, s // 2)
+        host["patch_embeds"] = (rng.standard_normal((b, npatch, cfg.d_model))
+                                * 0.1).astype(np.float32)
+        host["tokens"] = rng.integers(0, cfg.vocab_size, (b, s - npatch)).astype(np.int32)
+        labels = np.concatenate([np.full((b, npatch), -100, np.int32),
+                                 np.roll(host["tokens"], -1, axis=1)], axis=1)
+    else:
+        host["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+        labels = np.roll(host["tokens"], -1, axis=1)
     if ignore:
         labels[0, :5] = -100
         labels[-1, -3:] = -100
-    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
-    tb = {k: torch.from_numpy(v.astype(np.int64)) for k, v in
-          (("tokens", toks), ("labels", labels))}
+    host["labels"] = labels
+    jb = {k: jnp.asarray(v) for k, v in host.items()}
+    tb = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v)
+          for k, v in host.items()}
     return jb, tb
 
 
@@ -106,6 +122,10 @@ CASES = [
     ("olmoe-1b-7b", {"loss_chunk": 8, "moe_dispatch": "ragged"}, False),
     ("hymba-1.5b", {}, True),
     ("hymba-1.5b", {"loss_chunk": 16}, False),
+    ("hubert-xlarge", {}, True),
+    ("hubert-xlarge", {"loss_chunk": 8, "remat": "dots"}, False),
+    ("internvl2-26b", {}, False),
+    ("internvl2-26b", {"loss_chunk": 8}, True),
 ]
 
 
@@ -127,7 +147,7 @@ def test_loss_and_grad_match_reference(arch, overrides, ignore):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "hubert-xlarge", "internvl2-26b"])
 def test_bf16_loss_matches_reference(arch):
     jcfg, cfg, jp, tp = _params(arch)
     assert cfg.compute_dtype == "bfloat16"
@@ -194,7 +214,8 @@ def _states(jcfg, jp, lr=1e-3):
 @pytest.mark.parametrize("arch,step_cfg", [
     ("gemma3-1b", {}), ("gemma3-1b", {"n_micro": 2}),
     ("gemma3-1b", {"compress_grads": True}), ("mamba2-780m", {}),
-    ("olmoe-1b-7b", {"n_micro": 2}), ("hymba-1.5b", {})])
+    ("olmoe-1b-7b", {"n_micro": 2}), ("hymba-1.5b", {}),
+    ("hubert-xlarge", {"n_micro": 2}), ("internvl2-26b", {})])
 def test_train_step_matches_reference(arch, step_cfg):
     jcfg, cfg, jp, _ = _params(arch, compute_dtype="float32")
     jopt, opt, jstate, tstate = _states(jcfg, jp)

@@ -174,6 +174,25 @@ vmap rule), a smoke-size olmoe gang (the grouped GEMM's, forward, dx and
 dw) and a smoke-size hymba gang (both families' rules in one layer); a
 one-step gang of two gemma3-1b members under the profiler.
 
+Then the mesh section (the multi-device layer, part 1): (a) gemma3-1b at
+full width and depth through ``launch.train`` on the one-rank NCCL mesh
+(its state DTensors by the sharding rules, the data-parallel step with
+ZeRO-1), one step against ``make_train_step`` without a mesh on the same
+state and batch (loss, grad_norm and every parameter the same bits), then
+timed steps, peak memory and one step's profile with its NCCL time; (b)
+olmoe-1b-7b with the ragged dispatch under the mesh (``moe_ragged_sharded``
+→ ``moe_sorted_local``: the grouped GEMM with every group size Cl, 1280 at
+4 x 2048): a prefill at full width and depth from the serving init (48
+launches, ``dropped``, each layer's busiest expert), the forward against
+the GEMM's plain version (the olmoe path's routing and agreement gates),
+the 48 calls at that shape against one ``torch.bmm`` each and the bound,
+a train step at 4 layers (24 forward GEMMs with the remat, 12 dx, 12 dw)
+and its dx and dw calls timed the same way; (c) two ranks on the one card
+over gloo (NCCL takes one rank a device): gemma3-1b through
+``launch.train`` at data 2 on a global 4 x 2048 batch, the ZeRO-1 shards
+split in two, both processes' memory reckoned first, held against one
+rank on the concatenated batch.
+
 Then the script's total seconds (the ``done`` phase), the kernels line,
 the card line and, last, the result line.  There is no CPU mode: without a
 CUDA device the script exits with an error.
@@ -3501,6 +3520,465 @@ def gang_path(dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+#: the mesh step at data 1 against the step without a mesh: the same
+#: arithmetic on the same state and batch (a sum over one rank is the
+#: value, ZeRO-1's one shard is the whole leaf), so the same bits
+MESH_STEP_TOL = 0.0
+#: pairs of steps with and without the mesh, in turns, in phase (a)
+MESH_TURNS = 4
+#: olmoe-1b-7b's layers in the mesh section's train step (as
+#: MOE_TRAIN_DEPTHS' last: 4 of 16 hold ~52 GB at 4 x 2048)
+MESH_MOE_TRAIN_LAYERS = 4
+#: moe_sorted_local's capacity factor (the reference's default)
+SORTED_CAPACITY_FACTOR = 1.25
+
+
+def sorted_local_capacity(tokens: int, top_k: int, n_experts: int) -> int:
+    """moe_sorted_local's slots an expert, Cl: T·K·1.25 / E rounded up to a
+    multiple of 128, at least 128."""
+    cl = int(tokens * top_k * SORTED_CAPACITY_FACTOR / n_experts)
+    return max(128, ((cl + 127) // 128) * 128)
+
+
+def equal_gmm_floor_ms(part: str, rows: int, d: int, f: int,
+                       experts: int) -> tuple[float, float]:
+    """(ms for its operations, ms for its bytes) of one product of
+    moe_sorted_local, every expert's group ``rows`` / E slots (the padded
+    slots are rows the function computes): the forward (E, Cl, d)·(E, d, f)
+    and dx as :func:`gmm_floor_ms` with every expert non-empty, dw as
+    :func:`gmm_dw_floor_ms`."""
+    if part == "dw":
+        return gmm_dw_floor_ms(rows, d, f, experts)
+    if part == "dx":
+        return gmm_floor_ms(rows, f, d, experts)
+    return gmm_floor_ms(rows, d, f, experts)
+
+
+def mesh_dp_path(dev, card, fwd_entry: dict, bwd_entry: dict
+                 ) -> tuple[list[dict], float]:
+    """Phase (a): gemma3-1b at full width and depth through
+    ``launch.train`` on the one-rank NCCL mesh (parameters replicated, the
+    ZeRO-1 shards whole), one step against ``make_train_step`` without a
+    mesh on the same state and batch (loss, grad_norm and every parameter
+    within MESH_STEP_TOL), then timed steps of the same mesh step,
+    MESH_TURNS pairs of it and the step without a mesh on the same tensors
+    in turns, and one under the profiler (its NCCL time).  Returns the flash-attention entries
+    of the path, timed at its shapes by the gemma3-1b paths
+    (``fwd_entry``, ``bwd_entry``), and the timed steps' peak memory (GB)."""
+    import torch.distributed as dist
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = get("gemma3-1b")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    argv = ["--arch", "gemma3-1b", "--steps", "1", "--batch", str(b), "--seq", str(s),
+            "--log-every", "1"]
+    # the step without a mesh: launch.train's seed, optimizer and first batch
+    opt = AdamW(schedule=cosine_schedule(3e-4, 20, 1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = init_train_state(cfg, opt, gen)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in make_stream(cfg, b, s, seed=0).batch_at(0).items()}
+    state, metrics = make_train_step(cfg, opt)(state, batch)
+    want = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+    want_params = {k: v.detach().cpu() for k, v in flatten(state["params"]).items()}
+    del state, metrics
+    torch.cuda.empty_cache()
+
+    mesh = make_local_mesh()        # the group: launch.train reuses it
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out, mstate = train.run(argv)
+        launches = launch_counts(("flash_attention", "flash_attention_bwd"))
+        got_params = flatten(mstate["params"])
+        diffs = {k: (got_params[k].to_local().detach().cpu() - w).abs().max().item()
+                 for k, w in want_params.items()}
+        agreement = {"loss": out["loss"], "no_mesh_loss": want["loss"],
+                     "grad_norm": out["grad_norm"],
+                     "no_mesh_grad_norm": want["grad_norm"],
+                     "max_param_abs_diff": max(diffs.values()),
+                     "leaves": len(diffs), "tol": MESH_STEP_TOL}
+        emit("mesh_train_vs_no_mesh", arch=cfg.name, batch=b, seq=s,
+             mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+             backend=dist.get_backend(), launches=launches, **agreement)
+        if not (abs(out["loss"] - want["loss"]) <= MESH_STEP_TOL
+                and abs(out["grad_norm"] - want["grad_norm"]) <= MESH_STEP_TOL
+                and agreement["max_param_abs_diff"] <= MESH_STEP_TOL):
+            raise AssertionError(f"the mesh step differs from the step without "
+                                 f"one: {agreement}")
+        if launches != {"flash_attention": 2 * cfg.n_layers,
+                        "flash_attention_bwd": cfg.n_layers}:
+            raise AssertionError(f"the mesh step launched {launches}")
+        del want_params, got_params
+
+        # timed steps of the same step on the same mesh, then one profiled
+        step = make_train_step(cfg, AdamW(schedule=cosine_schedule(3e-4, 20, 100)))
+        stream = iter(make_stream(cfg, b, s, seed=1))
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        with mesh_ctx.set_mesh(mesh):
+            for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+                bt = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+                t0 = time.perf_counter()
+                mstate, metrics = step(mstate, bt)
+                float(metrics["loss"])
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            # the mesh's own cost on one rank: the same step without the mesh
+            # on the same tensors (the local tensors are the whole leaves),
+            # in turns
+            plain_state = tree_map(shd.local, mstate)
+            turns = {"mesh": [], "no_mesh": []}
+            for i in range(MESH_TURNS):
+                for kind in (("mesh", "no_mesh") if i % 2 == 0 else ("no_mesh", "mesh")):
+                    t0 = time.perf_counter()
+                    if kind == "mesh":
+                        mstate, metrics = step(mstate, bt)
+                    else:
+                        plain_state, metrics = step(plain_state, bt)
+                    float(metrics["loss"])
+                    turns[kind].append(time.perf_counter() - t0)
+            del plain_state
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+                t0 = time.perf_counter()
+                mstate, metrics = step(mstate, bt)
+                float(metrics["loss"])
+                wall = time.perf_counter() - t0
+        nccl_ms = sum((e.time_range.end - e.time_range.start) / 1e3
+                      for e in trace.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "nccl" in e.name.lower())
+        step_s = float(np.median(times[TRAIN_WARMUP:]))
+        tokens = b * s
+        emit("mesh_train", arch=cfg.name, batch=b, seq=s, data=mesh.size(0),
+             step_seconds=times, step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+             mfu_6nt=6 * cfg.param_count() * tokens / (step_s * PEAK_BF16_FLOPS),
+             peak_mem_gb=peak, nccl_device_ms=nccl_ms, nvidia_smi=card,
+             turns_ms={k: [t * 1e3 for t in v] for k, v in turns.items()},
+             turns_median_ms={k: float(np.median(v)) * 1e3 for k, v in turns.items()},
+             **summarize(trace, wall, 1))
+        del mstate, step
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    path = "gemma3-1b DP train (launch.train, one-rank mesh)"
+    return [{**fwd_entry, "path": path, "launches": launches["flash_attention"]},
+            {**bwd_entry, "path": path, "launches": launches["flash_attention_bwd"]}], peak
+
+
+def mesh_moe_path(dev, card) -> list[dict]:
+    """Phase (b): olmoe-1b-7b with the ragged dispatch under the one-rank
+    mesh: ``moe_ragged_sharded`` → ``moe_sorted_local`` → the grouped GEMM
+    with every group size Cl.  A prefill at full width and depth from the
+    serving init (4 x 2048; 48 launches; ``dropped``), the forward against
+    the same with the GEMM's plain version (the routing and agreement gates
+    of the olmoe path), the 48 calls at the equal-size shape against one
+    ``torch.bmm`` each and the bound; then a train step at
+    MESH_MOE_TRAIN_LAYERS layers (the forward GEMMs twice a layer by the
+    remat, dx and dw), its dx and dw calls timed the same way.  Returns the
+    grouped GEMM's three entries for this path."""
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model, moe, synthetic_batch, transformer
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get("olmoe-1b-7b", moe_dispatch="ragged")
+    b, s = PREFILL_BATCH, PREFILL_SEQ
+    d, f, e, k, n_layers = (cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.top_k,
+                            cfg.n_layers)
+    cl = sorted_local_capacity(b * s, k, e)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    mesh = make_local_mesh()
+    entries = []
+    try:
+        with mesh_ctx.set_mesh(mesh):
+            model = Model(cfg, dev)
+            params = model.init(seed=0, serving=True)
+            inputs = model_inputs(synthetic_batch(cfg, b, s, gen, dev))
+            reset_launches()
+            with torch.inference_mode(), recorded_choices(moe) as choices:
+                logits = model.forward(params, inputs)
+            torch.cuda.synchronize()
+            main_launches = launch_counts(("grouped_matmul",))["grouped_matmul"]
+            # each layer's busiest expert against the mean load (Cl is 1.25x it)
+            loads = [torch.bincount(c.reshape(-1), minlength=e).float() for c in choices]
+            busiest = [(ld.max() / ld.mean()).item() for ld in loads]
+            if main_launches != 3 * n_layers:
+                raise AssertionError(f"the mesh prefill launched grouped_matmul "
+                                     f"{main_launches} times, want {3 * n_layers}")
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError("the mesh prefill's logits are not finite")
+            del logits
+            prefill_s, runs = timed_forward(model, params, inputs)
+            with torch.inference_mode():
+                _, aux = transformer.backbone(cfg, params, inputs)
+            emit("mesh_prefill", arch=cfg.name, moe_dispatch=cfg.moe_dispatch,
+                 path="moe_ragged_sharded -> moe_sorted_local", batch=b, seq=s,
+                 slots_per_expert=cl, grouped_matmul_launches=main_launches,
+                 dropped_mean_over_layers=aux["dropped"].item() / n_layers,
+                 busiest_expert_over_mean_load=busiest,
+                 prefill_ms=prefill_s * 1e3, runs_ms=[t * 1e3 for t in runs],
+                 tokens_per_s=b * s / prefill_s, nvidia_smi=card)
+            toks = synthetic_batch(cfg, 1, MOE_PLAIN_CHECK_SEQ, gen, dev)
+            out = forward_vs_plain_gmm(model, params, toks, n_layers, k)
+            emit("mesh_forward_vs_plain_gmm", arch=cfg.name,
+                 moe_dispatch=cfg.moe_dispatch, seq=MOE_PLAIN_CHECK_SEQ,
+                 slots_per_expert=sorted_local_capacity(MOE_PLAIN_CHECK_SEQ, k, e),
+                 routing=out["routing"], same_routing=out["same_routing"], **out["free"])
+            require_agreement(out["free"])
+            require_agreement(out["same_routing"])
+            del params, model, inputs, toks
+            torch.cuda.empty_cache()
+
+            # the 48 products of a prefill at moe_sorted_local's shape
+            rows = e * cl
+            sizes = torch.full((e,), cl, dtype=torch.int32, device=dev)
+            x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+            hid = torch.randn((rows, f), generator=gen, device=dev).to(torch.bfloat16)
+            w_in = (torch.randn((e, d, f), generator=gen, device=dev) * 0.02
+                    ).to(torch.bfloat16)
+            w_down = (torch.randn((e, f, d), generator=gen, device=dev) * 0.02
+                      ).to(torch.bfloat16)
+            layer = [(x, w_in), (x, w_in), (hid, w_down)]
+            errs = [gmm_errors(moe_gmm.grouped_matmul(a, w, sizes),
+                               moe_gmm.grouped_matmul_plain(a, w, sizes))
+                    for a, w in layer[1:]]
+            calls = layer * n_layers
+            floors = [equal_gmm_floor_ms("fwd", rows, a.shape[1], w.shape[2], e)
+                      for a, w in calls]
+            fwd = {"max_abs_err": max(er["max_abs_err"] for er in errs),
+                   "ms": time_ms(lambda: [moe_gmm.grouped_matmul(a, w, sizes)
+                                          for a, w in calls], 5),
+                   "plain_ms": time_ms(lambda: [moe_gmm.grouped_matmul_plain(a, w, sizes)
+                                                for a, w in calls], 1, 1),
+                   "library_ms": time_ms(lambda: [torch.bmm(a.view(e, cl, -1), w)
+                                                  for a, w in calls], 5)}
+            fwd["bound_ms"], fwd["bound_by"] = bound(sum(fl[0] for fl in floors),
+                                                     sum(fl[1] for fl in floors))
+            emit("kernel_mesh_mix", kernel="grouped_matmul", calls=len(calls),
+                 shape=[e, cl, d, f], group_sizes="every expert Cl",
+                 errors=errs, library="torch.bmm", nvidia_smi=card, **fwd)
+            entries.append({"name": "grouped_matmul", "route": "cuda",
+                            "path": "olmoe-1b-7b ragged prefill (mesh: moe_sorted_local)",
+                            "source": GMM_SOURCE, "replaces": GMM_REPLACES,
+                            "launches": main_launches, **fwd})
+
+            # a train step at MESH_MOE_TRAIN_LAYERS layers: dx and dw
+            cut = cut_depth(cfg, MESH_MOE_TRAIN_LAYERS)
+            opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))
+            state = init_train_state(cut, opt, gen, mesh)
+            step = make_train_step(cut, opt)
+            stream = iter(make_stream(cut, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+            times, losses = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(3):
+                bt = {kk: torch.from_numpy(v).to(dev) for kk, v in next(stream).items()}
+                if i == 0:
+                    reset_launches()
+                t0 = time.perf_counter()
+                state, metrics = step(state, bt)
+                losses.append(float(metrics["loss"]))
+                times.append(time.perf_counter() - t0)
+                if i == 0:
+                    step_launches = launch_counts(("grouped_matmul", "grouped_matmul_dx",
+                                                   "grouped_matmul_dw"))
+                    dropped = float(metrics["dropped"]) / MESH_MOE_TRAIN_LAYERS
+            want = {"grouped_matmul": 6 * MESH_MOE_TRAIN_LAYERS,
+                    "grouped_matmul_dx": 3 * MESH_MOE_TRAIN_LAYERS,
+                    "grouped_matmul_dw": 3 * MESH_MOE_TRAIN_LAYERS}
+            emit("mesh_moe_train", arch=cut.name, layers=MESH_MOE_TRAIN_LAYERS,
+                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses, step_seconds=times,
+                 step_ms=times[-1] * 1e3, launches=step_launches,
+                 dropped_mean_over_layers=dropped,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=card)
+            if step_launches != want or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"the mesh MoE train step launched "
+                                     f"{step_launches} (want {want}), losses {losses}")
+            del state, step
+            torch.cuda.empty_cache()
+
+            # its dx and dw calls at the equal-size shape
+            dy_in = torch.randn((rows, f), generator=gen, device=dev).to(torch.bfloat16)
+            dy_down = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+            bwd_calls = [(dy_in, x, w_in), (dy_in, x, w_in),
+                         (dy_down, hid, w_down)] * MESH_MOE_TRAIN_LAYERS
+            for part in ("dx", "dw"):
+                if part == "dx":
+                    kernel = lambda dy, a, w: moe_gmm.grouped_matmul_dx(dy, w, sizes)  # noqa: E731
+                    plain = lambda dy, a, w: moe_gmm.grouped_matmul_dx_plain(dy, w, sizes)  # noqa: E731
+                    lib = lambda dy, a, w: torch.bmm(dy.view(e, cl, -1), w.mT)  # noqa: E731
+                else:
+                    kernel = lambda dy, a, w: moe_gmm.grouped_matmul_dw(a, dy, sizes)  # noqa: E731
+                    plain = lambda dy, a, w: moe_gmm.grouped_matmul_dw_plain(a, dy, sizes)  # noqa: E731
+                    lib = lambda dy, a, w: torch.bmm(a.view(e, cl, -1).mT,  # noqa: E731
+                                                     dy.view(e, cl, -1))
+                part_errs = []
+                for dy, a, w in bwd_calls[:3:2]:
+                    got, want_t = kernel(dy, a, w), plain(dy, a, w)
+                    part_errs.append(dw_errors(got, want_t, sizes) if part == "dw"
+                                     else gmm_errors(got, want_t))
+                floors = [equal_gmm_floor_ms(part, rows, a.shape[1], w.shape[2], e)
+                          for dy, a, w in bwd_calls]
+                mix = {"max_abs_err": max(er["max_abs_err"] for er in part_errs),
+                       "ms": time_ms(lambda: [kernel(*c) for c in bwd_calls], 5),
+                       "plain_ms": time_ms(lambda: [plain(*c) for c in bwd_calls], 1, 1),
+                       "library_ms": time_ms(lambda: [lib(*c) for c in bwd_calls], 5)}
+                mix["bound_ms"], mix["bound_by"] = bound(sum(fl[0] for fl in floors),
+                                                         sum(fl[1] for fl in floors))
+                emit("kernel_mesh_train_mix", kernel=f"grouped_matmul_{part}",
+                     calls=len(bwd_calls), shape=[e, cl, d, f], errors=part_errs,
+                     library="torch.bmm", nvidia_smi=card, **mix)
+                entries.append({"name": f"grouped_matmul_{part}", "route": "cuda",
+                                "path": f"olmoe-1b-7b ragged train, {MESH_MOE_TRAIN_LAYERS} "
+                                        "layers (mesh: moe_sorted_local)",
+                                "source": GMM_SOURCE, "replaces": GMM_BWD_REPLACES,
+                                "launches": step_launches[f"grouped_matmul_{part}"],
+                                **mix})
+            del x, hid, w_in, w_down, dy_in, dy_down
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return entries
+
+
+#: phase (c): two ranks share the card over gloo (NCCL takes one rank a
+#: device); each rank's products run on 2 of the 4 rows, so cuBLAS may pick
+#: other kernels and round the bf16 logits differently than one rank on all
+#: 4: the loss within 1e-3 and the gradient norm within 1e-2 (relative) of
+#: one rank on the concatenated batch
+TWO_RANK_LOSS_REL_TOL = 1e-3
+TWO_RANK_GNORM_REL_TOL = 1e-2
+#: the parameters phase (c) brings back from its ranks
+TWO_RANK_LEAVES = ("embed", "segments/[0]/attn/wq", "segments/[1]/mlp/wo",
+                   "final_norm")
+
+
+def two_rank_worker(rank: int, init_file: str, out_dir: str, argv: list[str]) -> None:
+    """One of phase (c)'s two ranks on card 0, in a gloo group:
+    ``launch.train``'s run at data 2; writes its loss, grad_norm, peak
+    memory, the shape of its ZeRO-1 shard of the embedding's m and the
+    TWO_RANK_LEAVES of its parameters."""
+    import torch.distributed as dist
+    from repro_torch.bridge import flatten
+    from repro_torch.launch import train
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=2)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out, state = train.run(argv)
+        m = state["opt"]["m"]["embed"]
+        params = flatten(state["params"])
+        torch.save({"loss": out["loss"], "grad_norm": out["grad_norm"],
+                    "step_seconds": out["step_seconds"],
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "shard": [list(m.to_local().shape), list(m.shape)],
+                    "leaves": {k: params[k].to_local().cpu() for k in TWO_RANK_LEAVES}},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks_path(dev, card, one_rank_peak_gb: float) -> None:
+    """Phase (c): gemma3-1b at full width and depth through ``launch.train``
+    at data 2, two processes on the one card over gloo (which takes CUDA
+    tensors for the step's all-reduce and all-gather; NCCL refuses two
+    ranks on one device), a global 4 x 2048 batch (2 rows a rank), the
+    ZeRO-1 shards split in two; held against one rank without a mesh on the
+    concatenation of the two ranks' batches.  Both processes' memory is
+    reckoned first from phase (a)'s measured peak."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import init_train_state, make_train_step, train_memory_gb
+
+    cfg = get("gemma3-1b")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    one, two = train_memory_gb(cfg, 1), train_memory_gb(cfg, 2)
+    activations = one_rank_peak_gb - one["state_gb"] - one["update_gb"]
+    per_rank = two["state_gb"] + two["update_gb"] + activations / 2
+    have = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    emit("two_ranks_reckoning", arch=cfg.name, one_rank_peak_gb=one_rank_peak_gb,
+         activations_gb_at_4_rows=activations, per_rank_gb=per_rank,
+         both_gb=2 * per_rank, card_gb=have)
+    if 2 * per_rank > have:
+        raise AssertionError(f"two ranks need ~{2 * per_rank:.1f} GB; the card "
+                             f"has {have:.1f} GB")
+    argv = ["--arch", "gemma3-1b", "--steps", "1", "--batch", str(b), "--seq", str(s),
+            "--log-every", "1"]
+    out_dir = Path(__file__).resolve().parent / "build" / "two_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.start_processes(two_rank_worker, args=(str(out_dir / "store"), str(out_dir), argv),
+                       nprocs=2, join=True, start_method="spawn")
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    # one rank without a mesh on the concatenated batch, as launch.train
+    # would start it: seed 0, its optimizer
+    opt = AdamW(schedule=cosine_schedule(3e-4, 20, 1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = init_train_state(cfg, opt, gen)
+    hosts = [SyntheticStream(cfg, b, s, seed=0, n_hosts=2, host_id=h).batch_at(0)
+             for h in range(2)]
+    batch = {k: torch.from_numpy(np.concatenate([h[k] for h in hosts])).to(dev)
+             for k in hosts[0]}
+    state, metrics = make_train_step(cfg, opt)(state, batch)
+    params = flatten(state["params"])
+    lr = float(metrics["lr"])
+    moved = {k: (ranks[0]["leaves"][k].to(dev) - params[k]).abs() for k in TWO_RANK_LEAVES}
+    agreement = {
+        "loss": ranks[0]["loss"], "one_rank_loss": float(metrics["loss"]),
+        "loss_rel_err": abs(ranks[0]["loss"] / float(metrics["loss"]) - 1),
+        "grad_norm": ranks[0]["grad_norm"],
+        "one_rank_grad_norm": float(metrics["grad_norm"]),
+        "grad_norm_rel_err": abs(ranks[0]["grad_norm"] / float(metrics["grad_norm"]) - 1),
+        "lr": lr,
+        "param_max_abs_diff_over_lr": {k: v.max().item() / lr for k, v in moved.items()},
+        "param_share_off_by_half_lr": {k: (v > lr / 2).float().mean().item()
+                                       for k, v in moved.items()},
+        "ranks_agree": (ranks[0]["loss"] == ranks[1]["loss"]
+                        and all(torch.equal(ranks[0]["leaves"][k], ranks[1]["leaves"][k])
+                                for k in TWO_RANK_LEAVES)),
+        "zero1_shard_of_embed_m": ranks[0]["shard"],
+    }
+    emit("two_ranks_train", arch=cfg.name, batch=b, seq=s, ranks=2, backend="gloo",
+         seconds_both_ranks=seconds, step_seconds=[r["step_seconds"] for r in ranks],
+         peak_gb=[r["peak_gb"] for r in ranks], nvidia_smi=card,
+         loss_rel_tol=TWO_RANK_LOSS_REL_TOL, grad_norm_rel_tol=TWO_RANK_GNORM_REL_TOL,
+         **agreement)
+    local, full = ranks[0]["shard"]
+    if not (agreement["loss_rel_err"] <= TWO_RANK_LOSS_REL_TOL
+            and agreement["grad_norm_rel_err"] <= TWO_RANK_GNORM_REL_TOL
+            and agreement["ranks_agree"]
+            and math.prod(local) * 2 == math.prod(full)):
+        raise AssertionError(f"two ranks disagree with one: {agreement}")
+    del state, params, moved
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -3544,7 +4022,8 @@ def main() -> None:
     torch.cuda.empty_cache()      # internvl2's 40 GB tree is gone from here
     kernels.append(olmoe_path(dev, card))
     torch.cuda.empty_cache()
-    kernels.append(gemma3_train_path(dev, card))
+    gemma3_train_entry = gemma3_train_path(dev, card)
+    kernels.append(gemma3_train_entry)
     torch.cuda.empty_cache()
     kernels += ssm_train_path(dev, card)
     torch.cuda.empty_cache()
@@ -3553,6 +4032,15 @@ def main() -> None:
     kernels += moe_train_path(dev, card)
     torch.cuda.empty_cache()
     gang_path(dev, card)
+    torch.cuda.empty_cache()
+    # the mesh section: launch.train's data-parallel step on a one-rank
+    # mesh, then the MoE dispatch under a mesh
+    entries, one_rank_peak_gb = mesh_dp_path(dev, card, kernels[0], gemma3_train_entry)
+    kernels += entries
+    torch.cuda.empty_cache()
+    kernels += mesh_moe_path(dev, card)
+    torch.cuda.empty_cache()
+    two_ranks_path(dev, card, one_rank_peak_gb)
 
     emit("done", seconds=time.perf_counter() - _START, kernel_entries=len(kernels))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,9 +4,10 @@
 Each host draws exactly its shard of the global batch, and the stream is
 reproducible from (seed, step) alone, which is what makes a resumed run
 deterministic.  The draws are the reference's, so both packages give the
-same numpy batches.  The number of hosts and this host's index come from
-``torch.distributed`` when it is initialised (the reference reads
-``jax.process_count`` and ``jax.process_index``), else 1 and 0.
+same numpy batches.  The hosts are the data-parallel ranks of the ambient
+mesh, else the ranks of ``torch.distributed`` when it is initialised (the
+reference reads ``jax.process_count`` and ``jax.process_index``: one
+process a host, where the port runs one a device), else one host.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.distributed import context as mesh_ctx
 from repro_torch.models.config import ArchConfig
 
 
@@ -66,8 +68,11 @@ class SyntheticStream:
 
 
 def _hosts() -> tuple[int, int]:
-    """(number of hosts, this host's index) of the initialised process
-    group, else (1, 0)."""
+    """(number of hosts, this host's index): the data-parallel ranks of the
+    ambient mesh (ranks that differ only along ``model`` draw the same
+    batch), else the initialised process group's ranks, else (1, 0)."""
+    if mesh_ctx.get_mesh() is not None:
+        return mesh_ctx.dp_size(), mesh_ctx.dp_index()
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()

@@ -1,0 +1,424 @@
+"""Per-architecture sharding rules (port of ``repro.distributed.sharding``).
+
+Layout (the reference's baseline):
+
+* batch dims → ``("pod", "data")`` (data parallel across pods too);
+* tensor parallel over ``model``: attention heads (wq/wk/wv out-dim, wo
+  in-dim), the MLP hidden size, each MoE expert's hidden size, SSD
+  ``d_inner`` and the vocabulary (embedding rows, logits);
+* a stacked segment's leading layer axis is never sharded;
+* ZeRO-1: the optimizer's m, v and master also shard their largest free
+  axis over the data-parallel axes (leaves of 1 MiB or more).
+
+Two layers:
+
+* **the rules**, pure functions of (path, shape, mesh shape) returning a
+  :class:`Spec`: one entry per leading dim, each ``None``, an axis name or
+  a tuple of names (the entries of the reference's ``PartitionSpec``; a
+  spec may be shorter than the leaf's rank).  A
+  "mesh" here is anything with axis sizes: a ``DeviceMesh``, or an object
+  whose ``shape`` maps axis names to sizes and that has ``axis_names`` (the
+  reference's meshes and the tests' stubs), so the rules run with no
+  device at all.  ``*_shardings`` return trees of specs in the tree's
+  nesting;
+* **placements**: :func:`placements` turns a spec into ``DTensor``
+  placements on a ``DeviceMesh`` (a dim sharded over ``("pod", "data")``
+  is ``Shard(dim)`` on both mesh dims, major to minor as JAX orders them),
+  :func:`local_slices` says which slice of the full leaf a rank holds, and
+  :func:`from_local` and :func:`distribute` store a rank's slice, or a
+  full leaf, as a DTensor by its spec.
+
+Path names are :func:`repro_torch.bridge.flatten`'s segments
+(``segments/[0]/attn/wq``), as the reference's ``_path_names`` gives them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.bridge import SEP, flatten
+from repro_torch.distributed.context import DP_AXES
+from repro_torch.tree import tree_map
+
+ZERO1_MIN_BYTES = 1 << 20
+
+Entry = Any          # None | str | tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """The entries of a ``PartitionSpec``, one a leading dim: None, an axis
+    name or a tuple of names.  A leaf of the port's trees (not a tuple, so
+    :mod:`repro_torch.tree` does not walk into it); ``tuple(spec)`` gives
+    the entries."""
+
+    entries: tuple = ()
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, i: int) -> Entry:
+        return self.entries[i]
+
+
+# ---------------------------------------------------------------------------
+# Meshes as axis sizes
+# ---------------------------------------------------------------------------
+
+def axis_sizes(mesh: Any) -> dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or of a mesh-like object with a
+    ``shape`` mapping (the reference's ``Mesh``, a stub)."""
+    if isinstance(mesh, DeviceMesh):
+        return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
+    return dict(mesh.shape)
+
+
+def _dp_axes(sizes: dict[str, int]) -> tuple[str, ...]:
+    return tuple(a for a in DP_AXES if a in sizes)
+
+
+def _dp_entry(sizes: dict[str, int]) -> Entry:
+    """The batch dim's entry: ``("pod", "data")``, ``"data"`` or None."""
+    dp = _dp_axes(sizes)
+    if not dp:
+        return None
+    return dp if len(dp) > 1 else dp[0]
+
+
+def _entry_size(sizes: dict[str, int], entry: Entry) -> int:
+    if entry is None:
+        return 1
+    if isinstance(entry, (tuple, list)):
+        n = 1
+        for a in entry:
+            n *= sizes[a]
+        return n
+    return sizes[entry]
+
+
+# ---------------------------------------------------------------------------
+# The rules
+# ---------------------------------------------------------------------------
+
+def param_spec(names: Sequence[str], ndim: int) -> Spec:
+    """The spec of one parameter leaf, by its path names and rank."""
+    name = names[-1]
+    parents = set(names[:-1])
+    routed = "moe" in parents and "shared" not in parents
+
+    def lead(base):               # a stacked segment's layer axis
+        return (None,) * (ndim - base)
+
+    if name == "embed":
+        return Spec(("model", None))
+    if name == "lm_head":
+        return Spec((None, "model"))
+    if name == "frontend_proj":
+        return Spec((None, None))
+    if name in ("wq", "wk", "wv", "in_proj"):
+        return Spec((*lead(2), None, "model"))
+    if name in ("wi", "wi_gate", "wi_up"):
+        if routed:
+            return Spec((*lead(3), None, None, "model"))  # (E, d, ffm)
+        return Spec((*lead(2), None, "model"))
+    if name == "wo":
+        if routed:
+            return Spec((*lead(3), None, "model", None))  # (E, ffm, d)
+        return Spec((*lead(2), "model", None))
+    if name == "out_proj":
+        return Spec((*lead(2), "model", None))
+    if name == "conv_w":
+        return Spec((*lead(2), None, "model"))
+    if name in ("conv_b", "bi"):
+        return Spec((*lead(1), "model"))
+    if name == "norm" and "ssm" in parents:               # (d_inner,) gated norm
+        return Spec((*lead(1), "model"))
+    if name in ("router", "gate"):
+        return Spec((*lead(2), None, None))
+    # norms, biases, A_log, D, dt_bias, q_norm/k_norm, scalars
+    return Spec((None,) * ndim)
+
+
+def zero1_spec(spec: Spec, shape: Sequence[int], mesh: Any) -> Spec:
+    """``spec`` with the data-parallel axes on the leaf's largest unsharded
+    axis that has at least as many elements as data-parallel ranks (ZeRO-1);
+    unchanged for a leaf under ZERO1_MIN_BYTES in fp32."""
+    numel = 1
+    for s in shape:
+        numel *= s
+    if numel * 4 < ZERO1_MIN_BYTES:
+        return spec
+    sizes = axis_sizes(mesh)
+    dp = _dp_axes(sizes)
+    if not dp:
+        return spec
+    n_dp = _entry_size(sizes, dp)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    best, best_size = -1, 0
+    for i, (e, size) in enumerate(zip(entries, shape)):
+        if e is None and size > best_size and size >= n_dp:
+            best, best_size = i, size
+    if best < 0:
+        return spec
+    entries[best] = dp if len(dp) > 1 else dp[0]
+    return Spec(tuple(entries))
+
+
+def fit_spec(spec: Spec, shape: Sequence[int], mesh: Any) -> Spec:
+    """Drop the sharding of each dim its axes do not divide; an odd-vocab
+    (V, d) table whose row sharding was dropped shards d over ``model``
+    instead."""
+    sizes = axis_sizes(mesh)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, entry in zip(shape, entries):
+        if entry is not None and dim % _entry_size(sizes, entry) != 0:
+            entry = None
+        out.append(entry)
+    if (len(shape) == 2 and out[0] is None and out[1] is None
+            and spec and spec[0] == "model"
+            and shape[1] % _entry_size(sizes, "model") == 0):
+        out[1] = "model"
+    return Spec(tuple(out))
+
+
+def batch_spec(mesh: Any) -> Spec:
+    return Spec((_dp_entry(axis_sizes(mesh)),))
+
+
+def _names(key: str) -> list[str]:
+    return key.split(SEP)
+
+
+def _map_with_path(fn, tree: Any) -> Any:
+    """``fn(path names, leaf)`` over a tree's leaves, in its nesting."""
+    flat = flatten(tree)
+    keys = iter(flat)
+    return tree_map(lambda leaf: fn(_names(next(keys)), leaf), tree)
+
+
+def params_shardings(params: Any, mesh: Any) -> Any:
+    """The spec of every parameter leaf, fitted to its shape."""
+    return _map_with_path(
+        lambda names, leaf: fit_spec(param_spec(names, leaf.dim()), leaf.shape, mesh),
+        params)
+
+
+def opt_shardings(opt: Any, mesh: Any) -> Any:
+    """m, v and master follow the parameters, plus ZeRO-1; count is
+    replicated."""
+    def one(names, leaf):
+        if names[0] == "count":
+            return Spec()
+        spec = fit_spec(param_spec(names[1:], leaf.dim()), leaf.shape, mesh)
+        return fit_spec(zero1_spec(spec, leaf.shape, mesh), leaf.shape, mesh)
+    return _map_with_path(one, opt)
+
+
+def state_shardings(state: dict[str, Any], mesh: Any) -> dict[str, Any]:
+    return {"params": params_shardings(state["params"], mesh),
+            "opt": opt_shardings(state["opt"], mesh),
+            "step": Spec()}
+
+
+def batch_shardings(batch: Any, mesh: Any) -> Any:
+    dp = _dp_entry(axis_sizes(mesh))
+    return tree_map(lambda leaf: fit_spec(Spec((dp,) + (None,) * (leaf.dim() - 1)),
+                                          leaf.shape, mesh), batch)
+
+
+def cache_shardings(cache: Any, mesh: Any) -> Any:
+    """Decode caches: batch over the data-parallel axes; KV heads (or the
+    head dim where they do not divide) and SSM heads over ``model``; ``pos``
+    replicated."""
+    sizes = axis_sizes(mesh)
+    msize = sizes.get("model", 1)
+    dp = _dp_entry(sizes)
+
+    def one(names, leaf):
+        name = names[-1]
+        if name == "pos":
+            return Spec()
+        nd, shape = leaf.dim(), leaf.shape
+        if name in ("k", "v"):               # (R, B, T, Hkv, D)
+            lead = (None,) * (nd - 4)
+            if shape[-2] % msize == 0:
+                return fit_spec(Spec((*lead, dp, None, "model", None)), shape, mesh)
+            return fit_spec(Spec((*lead, dp, None, None, "model")), shape, mesh)
+        if name == "ssm":                    # (R, B, H, P, N)
+            return fit_spec(Spec((None,) * (nd - 4) + (dp, "model", None, None)),
+                            shape, mesh)
+        if name == "conv":                   # (R, B, K-1, C)
+            return fit_spec(Spec((None,) * (nd - 3) + (dp, None, "model")),
+                            shape, mesh)
+        return Spec((None,) * nd)
+
+    return _map_with_path(one, cache)
+
+
+# ---------------------------------------------------------------------------
+# Specs as DTensor placements
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry: Entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def placements(spec: Spec, mesh: DeviceMesh) -> tuple:
+    """The ``DTensor`` placements of ``spec`` on ``mesh``: ``Shard(dim)`` on
+    each mesh dim whose axis shards tensor dim ``dim``, ``Replicate()`` on
+    the others.  A dim over several axes must name them in mesh order
+    (major first), which is how DTensor nests shards."""
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in mesh order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {names[i]} shards two dims of {spec}")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def local_slices(spec: Spec, shape: Sequence[int], mesh: DeviceMesh
+                 ) -> tuple[slice, ...]:
+    """The slice of the full leaf this rank holds under ``spec`` (every
+    sharded dim divisible by its axes, as :func:`fit_spec` leaves it)."""
+    out = []
+    for dim, size in enumerate(shape):
+        lo, hi = 0, size
+        entry = spec[dim] if dim < len(spec) else None
+        for a in _entry_axes(entry):          # major to minor
+            n = mesh.size(mesh.mesh_dim_names.index(a))
+            step = (hi - lo) // n
+            lo += mesh.get_local_rank(a) * step
+            hi = lo + step
+        out.append(slice(lo, hi))
+    return tuple(out)
+
+
+def spec_of(leaf: DTensor) -> Spec:
+    """The spec a DTensor's placements stand for (the inverse of
+    :func:`placements`)."""
+    names = leaf.device_mesh.mesh_dim_names
+    entries: list[list[str]] = [[] for _ in range(leaf.dim())]
+    for i, pl in enumerate(leaf.placements):
+        if isinstance(pl, Shard):
+            entries[pl.dim].append(names[i])
+    return Spec(tuple(None if not e else e[0] if len(e) == 1 else tuple(e)
+                      for e in entries))
+
+
+#: elements of one block that :func:`gather_shards` gathers at a time
+_GATHER_ELEMENTS = 1 << 26
+
+
+def _gather_dim(region: torch.Tensor, dim: int, n: int, index: int,
+                group: dist.ProcessGroup) -> None:
+    """``region`` holds n equal parts along ``dim``, this rank's at
+    ``index``: fill the others from the group's ranks, in place, a block
+    of at most _GATHER_ELEMENTS at a time (a block of rows along dim 0
+    when ``dim`` > 0)."""
+    k = region.shape[dim] // n
+    if dim == 0:
+        part = region.narrow(0, index * k, k).clone()
+        dist.all_gather_into_tensor(region, part, group=group)
+        return
+    rows = max(1, _GATHER_ELEMENTS // max(1, region[0].numel()))
+    for r0 in range(0, region.shape[0], rows):
+        block = region[r0:r0 + rows]
+        part = block.narrow(dim, index * k, k).contiguous()
+        buf = part.new_empty((n * part.shape[0],) + tuple(part.shape[1:]))
+        dist.all_gather_into_tensor(buf, part, group=group)
+        block.copy_(buf.view((n,) + tuple(part.shape)).movedim(0, dim)
+                    .reshape(block.shape))
+
+
+@torch.no_grad()
+def gather_shards(full_leaf: torch.Tensor, spec: Spec, mesh: DeviceMesh) -> None:
+    """Each rank has written its :func:`local_slices` of ``full_leaf`` (a
+    replicated tensor, contiguous): fill in the other ranks' slices, in
+    place (ZeRO-1's all-gather of the updated parameters; a dim over
+    several axes gathers its minor axis first)."""
+    names = list(mesh.mesh_dim_names)
+    for dim, entry in enumerate(spec):
+        axes = [a for a in _entry_axes(entry) if mesh.size(names.index(a)) > 1]
+        if not axes:
+            continue
+        # the region this rank's slice lies in, widened one axis at a time
+        sl = list(local_slices(spec, full_leaf.shape, mesh))
+        extent = sl[dim].stop - sl[dim].start
+        for a in reversed(axes):
+            n = mesh.size(names.index(a))
+            idx = mesh.get_local_rank(a)
+            lo = sl[dim].start - idx * extent
+            sl[dim] = slice(lo, lo + n * extent)
+            region = full_leaf[tuple(slice(None) if i != dim else sl[dim]
+                                     for i in range(full_leaf.dim()))]
+            _gather_dim(region, dim, n, idx, mesh.get_group(a))
+            extent *= n
+
+
+def from_local(local: torch.Tensor, shape: Sequence[int], spec: Spec,
+               mesh: DeviceMesh) -> DTensor:
+    """This rank's slice ``local`` (its :func:`local_slices`) of a leaf of
+    ``shape`` as a DTensor placed by ``spec``; no collective."""
+    return DTensor.from_local(
+        local, mesh, placements(spec, mesh), run_check=False,
+        shape=torch.Size(shape), stride=torch.empty(shape, device="meta").stride())
+
+
+def distribute(leaf: torch.Tensor, spec: Spec, mesh: DeviceMesh) -> DTensor:
+    """A full leaf (the same on every rank) as a DTensor by ``spec``: each
+    rank keeps a copy of its slice (a view where the slice is the whole
+    leaf), no collective."""
+    sl = local_slices(spec, leaf.shape, mesh)
+    local = leaf[sl]
+    if local.numel() < leaf.numel():
+        local = local.contiguous().clone()
+    return from_local(local, leaf.shape, spec, mesh)
+
+
+def spec_leaves(specs: Any) -> list[Spec]:
+    """The Specs of a spec tree, in leaf order."""
+    if isinstance(specs, dict):
+        return [s for v in specs.values() for s in spec_leaves(v)]
+    if isinstance(specs, list):
+        return [s for v in specs for s in spec_leaves(v)]
+    return [specs]
+
+
+@torch.no_grad()
+def local(leaf: Any) -> Any:
+    """A DTensor's local tensor (a plain tensor as it is), detached: the
+    port's compute runs on local tensors.  (Without grad mode ``to_local``
+    hands the tensor over without an autograd node: a step reads ~400.)"""
+    if isinstance(leaf, DTensor):
+        return leaf.to_local().detach()
+    return leaf
+
+
+def is_distributed(tree: Any) -> bool:
+    """Whether a tree holds DTensors."""
+    return any(isinstance(leaf, DTensor) for leaf in flatten(tree).values())
+
+
+def full(leaf: Any) -> torch.Tensor:
+    """A DTensor gathered into the full tensor on every rank (a plain tensor
+    as it is)."""
+    if isinstance(leaf, DTensor):
+        return leaf.full_tensor()
+    return leaf

@@ -2,7 +2,8 @@
 
 Same field names and defaults as the reference ``ArchConfig``, so
 ``dataclasses.replace(cfg, compute_dtype="float32")`` works alike in both
-packages.
+packages; ``ShapeConfig``, ``SHAPES`` and ``cell_applicable`` name the
+(arch × shape) cells as the reference does.
 """
 from __future__ import annotations
 
@@ -101,6 +102,12 @@ class ArchConfig:
         """Encoder-only architectures have no autoregressive step."""
         return self.causal
 
+    def subquadratic(self) -> bool:
+        """True when the arch has at least one sub-quadratic sequence
+        mechanism (SSM state or sliding window): it gates the long_500k
+        cell; pure full-attention archs skip it."""
+        return bool(set(self.layer_types) & {"swa", "ssm", "hyb_l"})
+
     def param_count(self) -> int:
         """Exact parameter count from the config (embedding included)."""
         d = self.d_model
@@ -148,3 +155,43 @@ class ArchConfig:
         if self.layer_types and self.layer_types[0] == "enc":
             n += d                                               # final bias
         return n
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top-k + shared only)."""
+        if not self.n_experts:
+            return self.param_count()
+        n_moe_layers = sum(1 for k in self.layer_types if k == "moe")
+        inactive = (n_moe_layers * (self.n_experts - self.top_k) * 3
+                    * self.d_model * self.moe_d_ff)
+        return self.param_count() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: sequence length, global batch and kind."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch × shape) cell runs; returns (ok, reason-if-not)."""
+    if shape.kind == "decode" and not cfg.has_decode():
+        return False, "encoder-only: no autoregressive decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic():
+        return False, "pure full-attention arch: long_500k needs sub-quadratic attention"
+    return True, ""

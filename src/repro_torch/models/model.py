@@ -1,6 +1,9 @@
 """Public model API: ``Model`` binds an ArchConfig and a device to the
 functions of :mod:`repro_torch.models.transformer` (port of
-``repro.models.model``)."""
+``repro.models.model``).  ``input_specs`` and ``cache_specs`` give meta
+tensors for every input of an (arch × shape) cell, and
+``Model.init_abstract`` the parameter tree's: the sharding rules and a dry
+run read their shapes without allocating anything."""
 from __future__ import annotations
 
 from typing import Any
@@ -10,9 +13,10 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .config import ArchConfig
+from .config import ArchConfig, ShapeConfig
 from .transformer import (
-    decode_step, forward, init_cache, init_params, init_serving_params, loss_fn,
+    decode_step, forward, init_abstract_params, init_cache, init_params,
+    init_serving_params, loss_fn,
 )
 
 
@@ -32,6 +36,11 @@ class Model:
         gen.manual_seed(seed)
         return (init_serving_params if serving else init_params)(self.cfg, gen)
 
+    def init_abstract(self) -> dict[str, Any]:
+        """The parameter tree as meta tensors (paths, shapes, dtypes; no
+        allocation)."""
+        return init_abstract_params(self.cfg)
+
     def forward(self, params: dict[str, Any],
                 batch: dict[str, torch.Tensor]) -> torch.Tensor:
         return forward(self.cfg, params, batch)
@@ -47,6 +56,38 @@ class Model:
     def decode_step(self, params: dict[str, Any], cache: dict[str, Any],
                     token: torch.Tensor) -> tuple[torch.Tensor, dict[str, Any]]:
         return decode_step(self.cfg, params, cache, token)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict[str, torch.Tensor]:
+    """Meta tensors for one (arch × shape) cell's inputs, in the reference's
+    dtypes: train/prefill → the training batch (tokens and labels int32,
+    embeddings bf16; ``mixed``: ``n_patches`` patch embeddings, then
+    tokens); decode → the one-token step's input (the cache:
+    :func:`cache_specs`)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.input_mode == "tokens":
+            return {"tokens": meta(b, s), "labels": meta(b, s)}
+        if cfg.input_mode == "embeds":
+            return {"embeds": meta(b, s, cfg.d_model, dtype=torch.bfloat16),
+                    "labels": meta(b, s)}
+        return {"tokens": meta(b, s - cfg.n_patches),
+                "patch_embeds": meta(b, cfg.n_patches, cfg.d_model,
+                                     dtype=torch.bfloat16),
+                "labels": meta(b, s)}
+    return {"token": meta(b, 1)}
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeConfig,
+                dtype: str | torch.dtype = torch.bfloat16) -> dict[str, Any]:
+    """A decode cell's cache as meta tensors; ``pos``, a Python int in a
+    live cache, stands as the reference's 0-d int32."""
+    cache = init_cache(cfg, shape.global_batch, shape.seq_len, dtype, "meta")
+    return {**cache, "pos": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def synthetic_batch(cfg: ArchConfig, batch: int, seq: int,

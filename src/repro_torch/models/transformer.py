@@ -26,6 +26,8 @@ from typing import Any
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed import context as mesh_ctx
+
 from .attention import attn_block
 from .config import ArchConfig
 from .layers import (
@@ -66,9 +68,12 @@ class _Leaves:
     the compute dtype already, a drawn one filled a block of its leading
     axis at a time from fp32 draws (so no fp32 copy of it is ever whole)."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator | None,
                  serving: bool = False) -> None:
         self.gen = gen
+        # no generator: the tree's shapes and dtypes on the meta device,
+        # nothing drawn or allocated
+        self.device = gen.device if gen is not None else torch.device("meta")
         self.param_dtype = as_dtype(cfg.param_dtype)
         self.cast_dtype = as_dtype(cfg.compute_dtype) if serving else self.param_dtype
 
@@ -78,21 +83,23 @@ class _Leaves:
     def normal(self, key: str, shape: tuple[int, ...],
                stddev: float = 0.02) -> torch.Tensor:
         dt = self.dtype(key)
+        if self.gen is None:
+            return torch.empty(shape, dtype=dt, device=self.device)
         if dt == self.param_dtype:
             return normal_init(self.gen, shape, dt, stddev)
-        out = torch.empty(shape, dtype=dt, device=self.gen.device)
+        out = torch.empty(shape, dtype=dt, device=self.device)
         step = max(1, _DRAW_ELEMENTS // math.prod(shape[1:]))
         for start in range(0, shape[0], step):
             block = out[start:start + step]
             block.copy_(torch.randn(block.shape, generator=self.gen,
                                     dtype=torch.float32,
-                                    device=self.gen.device).mul_(stddev))
+                                    device=self.device).mul_(stddev))
         return out
 
     def fill(self, key: str, shape: tuple[int, ...],
              value: float = 0.0) -> torch.Tensor:
         return torch.full(shape, value, dtype=self.dtype(key),
-                          device=self.gen.device)
+                          device=self.device)
 
     def layer_norm(self, shape: tuple[int, ...]) -> dict[str, torch.Tensor]:
         return {"scale": self.fill("scale", shape, 1.0),
@@ -105,7 +112,7 @@ def _init_ssm(leaves: _Leaves, cfg: ArchConfig, n: int) -> dict[str, Any]:
     d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
     gn = cfg.ssm_groups * cfg.ssm_state
     conv_ch = di + 2 * gn
-    a_init = torch.linspace(1.0, 16.0, h, device=leaves.gen.device)
+    a_init = torch.linspace(1.0, 16.0, h, device=leaves.device)
     return {
         "in_proj": leaves.normal("in_proj", (n, d, 2 * di + 2 * gn + h)),
         "conv_w": leaves.normal("conv_w", (n, cfg.ssm_conv, conv_ch), 0.2),
@@ -213,6 +220,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict[str, Any]:
     layout and ``param_dtype`` (the values differ: jax.random cannot be
     reproduced)."""
     return _init_tree(cfg, _Leaves(cfg, generator))
+
+
+def init_abstract_params(cfg: ArchConfig) -> dict[str, Any]:
+    """The parameter tree's paths, shapes and dtypes as meta tensors:
+    nothing is drawn or allocated (the reference's ``eval_shape`` of
+    ``init_params``)."""
+    return _init_tree(cfg, _Leaves(cfg, None))
 
 
 def init_serving_params(cfg: ArchConfig, generator: torch.Generator
@@ -474,7 +488,14 @@ def loss_fn(cfg: ArchConfig, params: dict[str, Any],
     checkpointed, so the (B,S,V) logits are never resident at once.
     Returns (loss, {"ce", "loss", load_balance, router_z, dropped}).  With
     ``members`` (a gang, see :func:`backbone`) the loss and the CE are per
-    member, (M,), each CE chunk under ``torch.func.vmap``."""
+    member, (M,), each CE chunk under ``torch.func.vmap``.
+
+    Over a data axis of D > 1 (the ambient mesh) the batch is this rank's
+    block of the global batch and every returned value is this rank's
+    share: its NLL over the global count of labels >= 0, and the MoE aux
+    shares (:mod:`repro_torch.models.moe`), so the sum over the data ranks
+    of the values and of their gradients is the single program's on the
+    global batch."""
     x, aux = backbone(cfg, params, batch, moe_groups, members)
     labels = batch["labels"]
     head = _head(cfg, params)
@@ -493,8 +514,11 @@ def loss_fn(cfg: ArchConfig, params: dict[str, Any],
                 if torch.is_grad_enabled() else ce_terms(*args))
     else:
         nll_sum = ce_terms(x, head, labels)
-    denom = (labels >= 0).flatten(-2).sum(-1).clamp_min(1).float()
-    ce = nll_sum / denom
+    count = (labels >= 0).flatten(-2).sum(-1)
+    if mesh_ctx.dp_size() > 1:
+        # this rank's share: its NLL over the global batch's label count
+        count = mesh_ctx.dp_all_reduce(count)
+    ce = nll_sum / count.clamp_min(1).float()
     loss = ce + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
     return loss, {"ce": ce, "loss": loss, **aux}
 

@@ -86,12 +86,16 @@ class AdamW:
                 "count": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
     @torch.no_grad()
-    def update(self, grads: Pytree, state: dict[str, Pytree], params: Pytree
+    def update(self, grads: Pytree, state: dict[str, Pytree], params: Pytree,
+               grad_norm: torch.Tensor | None = None
                ) -> tuple[Pytree, dict[str, Pytree], dict[str, torch.Tensor]]:
         """One step; writes m, v, master and the parameters in place and
-        returns them with the metrics ``lr`` and ``grad_norm``."""
+        returns them with the metrics ``lr`` and ``grad_norm``.  The
+        arithmetic is elementwise, so the leaves may be matching slices of
+        the full ones (ZeRO-1); then ``grad_norm`` is the full gradients'
+        global norm, which clipping uses (default: the norm of ``grads``)."""
         count = state["count"] + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
         scale = (torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
                  if self.clip_norm else None)
         b1, b2 = self.b1, self.b2

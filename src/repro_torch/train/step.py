@@ -3,12 +3,29 @@ optional int8 round trip of the gradients (port of ``repro.train.step``).
 
 The state is ``{"params", "opt", "step"}`` as in the reference.  The step
 writes the new parameters and optimizer state into the state's tensors and
-returns the state (the reference's loop donates it).  One card, so the int8
-round trip stands for the data-parallel reduction it would compress.  The
-batch's inputs follow the config's input mode (tokens, frame embeddings,
-or patch embeddings then tokens); the step passes them through as they
-are.  :func:`train_memory_gb` reckons what a train state and one step
-need on the card.
+returns the state (the reference's loop donates it).  The batch's inputs
+follow the config's input mode (tokens, frame embeddings, or patch
+embeddings then tokens); the step passes them through as they are.
+
+**Data parallel on a device mesh.**  A state whose leaves are DTensors
+(:func:`init_train_state` or :func:`distribute_state` with a mesh, placed
+by :func:`repro_torch.distributed.sharding.state_shardings`: parameters
+replicated, m, v and master sharded over ``data`` by ZeRO-1) takes the DP
+step, one process a device.  Each rank's batch is its block of the global
+batch.  The compute runs on local tensors: the loss is this rank's share
+(its NLL over the global label count, the MoE aux shares), so the sum over
+``data`` of the shares' gradients is the single program's gradient on the
+global batch.  The step sums the gradients over ``data``, applies the int8
+round trip to the sums (where the reference's numbers put it), clips by
+their global norm, updates each rank's ZeRO-1 shard of m, v and master
+from the matching slice of the gradients, and all-gathers the new
+parameters.  Tensor parallelism over a ``model`` axis larger than 1, and
+``n_micro`` > 1 over more than one data rank (the reference's microbatch is
+a block of the global batch, not of each rank's rows), are part 2 of the
+multi-device layer: the step refuses them.
+
+:func:`train_memory_gb` reckons what a train state and one step need on
+each device.
 """
 from __future__ import annotations
 
@@ -16,45 +33,63 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import HYBRID_KINDS, init_params, loss_fn
-from repro_torch.optim.adamw import (
-    AdamW, accumulate_grads, compress_int8, decompress_int8, value_and_grad,
+from repro_torch.models.transformer import (
+    HYBRID_KINDS, init_abstract_params, init_params, loss_fn,
 )
+from repro_torch.optim.adamw import (
+    AdamW, accumulate_grads, compress_int8, decompress_int8, global_norm,
+    value_and_grad,
+)
+from repro_torch.tree import tree_leaves, tree_map
+
+#: what the multi-device layer's first part leaves out, named by refusals
+PART_2 = ("part 2 of the multi-device layer (tensor parallelism over the "
+          "model axis), which is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
     n_micro: int = 1              # gradient-accumulation microbatches
     moe_groups: int = 1           # GShard dispatch groups
-    compress_grads: bool = False  # int8 round trip of the gradients
-    seq_spec: Any = None          # sequence-parallel sharding: not ported
+    compress_grads: bool = False  # int8 round trip of the summed gradients
+    seq_spec: Any = None          # sequence-parallel activations: part 2
 
 
 def make_train_step(cfg: ArchConfig, opt: AdamW,
                     step_cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.  Batch
     leaves have the batch dim first; with ``n_micro`` > 1 the batch is split
-    on it and the grads are averaged over the pieces."""
+    on it and the grads are averaged over the pieces.  A state of DTensors
+    takes the data-parallel step (module docstring); its metrics are the
+    global batch's."""
     if step_cfg.seq_spec is not None:
         raise NotImplementedError(
-            "sequence-parallel activations (seq_spec) need the multi-device "
-            "layer, which is not ported")
+            "sequence-parallel activations (seq_spec) shard the sequence "
+            f"over the model axis: {PART_2}")
 
     def _loss(params, batch):
         return loss_fn(cfg, params, batch, step_cfg.moe_groups)
 
-    def train_step(state: dict[str, Any], batch: dict[str, torch.Tensor]
-                   ) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
-        params = state["params"]
+    def grads_of(params, batch):
         if step_cfg.n_micro > 1:
             n = step_cfg.n_micro
             micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
                      for k, v in batch.items()}
             grads, loss, aux = accumulate_grads(_loss, params, micro, n)
-        else:
-            (loss, aux), grads = value_and_grad(_loss, params, batch)
+            return (loss, aux), grads
+        return value_and_grad(_loss, params, batch)
+
+    def train_step(state: dict[str, Any], batch: dict[str, torch.Tensor]
+                   ) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
+        if isinstance(state["step"], DTensor):
+            return _dp_step(state, batch)
+        params = state["params"]
+        (loss, aux), grads = grads_of(params, batch)
         if step_cfg.compress_grads:
             grads = decompress_int8(compress_int8(grads))
         new_params, new_opt, opt_metrics = opt.update(grads, state["opt"], params)
@@ -62,21 +97,101 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
         return {"params": new_params, "opt": new_opt,
                 "step": state["step"] + 1}, metrics
 
+    def _dp_step(state, batch):
+        mesh = state["step"].device_mesh
+        if mesh_ctx.axis_size("model", mesh) > 1:
+            raise NotImplementedError(
+                f"a model axis of {mesh_ctx.axis_size('model', mesh)}: {PART_2}")
+        if step_cfg.n_micro > 1 and mesh_ctx.dp_size(mesh) > 1:
+            raise NotImplementedError(
+                f"n_micro={step_cfg.n_micro} over {mesh_ctx.dp_size(mesh)} data "
+                "ranks: the reference's microbatch is a block of the global "
+                f"batch, which spans ranks; {PART_2}")
+        with mesh_ctx.set_mesh(mesh):
+            params = tree_map(shd.local, state["params"])
+            (loss, aux), grads = grads_of(params, tree_map(shd.local, batch))
+            for g in tree_leaves(grads):
+                mesh_ctx.dp_all_reduce(g)
+            shares = {"loss": loss, **aux}
+            total = mesh_ctx.dp_all_reduce(torch.stack(
+                [v.float() for v in shares.values()]))
+            metrics = dict(zip(shares, total.unbind(0)))
+            if step_cfg.compress_grads:
+                grads = decompress_int8(compress_int8(grads))
+            gnorm = global_norm(grads)
+            opt_state = state["opt"]
+            specs = tree_map(shd.spec_of, opt_state["master"])
+            slices = tree_map(lambda p, spec: shd.local_slices(spec, p.shape, mesh),
+                              params, specs)
+            count = shd.local(opt_state["count"])
+            _, _, opt_metrics = opt.update(
+                tree_map(lambda g, sl: g[sl], grads, slices),
+                {"m": tree_map(shd.local, opt_state["m"]),
+                 "v": tree_map(shd.local, opt_state["v"]),
+                 "master": tree_map(shd.local, opt_state["master"]),
+                 "count": count.clone()},
+                tree_map(lambda p, sl: p[sl], params, slices),
+                grad_norm=gnorm)
+            count.add_(1)
+            tree_map(lambda p, spec: shd.gather_shards(p, spec, mesh),
+                     params, specs)
+            shd.local(state["step"]).add_(1)
+        return state, {**metrics, **opt_metrics}
+
     return train_step
 
 
-def init_train_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator
-                     ) -> dict[str, Any]:
+def init_train_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator,
+                     mesh: Any = None) -> dict[str, Any]:
     """Random parameters on the generator's device, their optimizer state
-    and step 0."""
+    and step 0.  With a ``DeviceMesh``, the state is stored as DTensors by
+    the sharding rules: the parameters (drawn whole, the same on every rank
+    from the same generator) replicated, and each rank makes only its
+    ZeRO-1 shard of m, v and master (as ``AdamW.init``: zeros, and the
+    parameters in fp32)."""
     params = init_params(cfg, generator)
+    zero = torch.zeros((), dtype=torch.int32, device=generator.device)
+    if mesh is None:
+        return {"params": params, "opt": opt.init(params), "step": zero}
+    abstract = {"m": params, "v": params, "master": params, "count": zero}
+    specs = shd.state_shardings({"params": params, "opt": abstract}, mesh)
+
+    def opt_part(key):
+        def one(p, spec):
+            sl = shd.local_slices(spec, p.shape, mesh)
+            local = (p[sl].detach().to(torch.float32, copy=True) if key == "master"
+                     else torch.zeros(p[sl].shape, dtype=torch.float32, device=p.device))
+            return shd.from_local(local, p.shape, spec, mesh)
+        return tree_map(one, params, specs["opt"][key])
+
+    return {"params": tree_map(lambda p, spec: shd.distribute(p, spec, mesh),
+                               params, specs["params"]),
+            "opt": {"m": opt_part("m"), "v": opt_part("v"),
+                    "master": opt_part("master"),
+                    "count": shd.distribute(zero.clone(), shd.Spec(), mesh)},
+            "step": shd.distribute(zero.clone(), shd.Spec(), mesh)}
+
+
+def distribute_state(state: dict[str, Any], mesh: Any) -> dict[str, Any]:
+    """A whole train state (the same on every rank) stored as DTensors by
+    the sharding rules; each rank keeps its slices."""
+    return tree_map(lambda leaf, spec: shd.distribute(leaf, spec, mesh),
+                    state, shd.state_shardings(state, mesh))
+
+
+def abstract_train_state(cfg: ArchConfig, opt: AdamW) -> dict[str, Any]:
+    """The train state's paths, shapes and dtypes as meta tensors (the
+    reference's ``eval_shape``): nothing is drawn or allocated."""
+    params = init_abstract_params(cfg)
     return {"params": params, "opt": opt.init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=generator.device)}
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
 
 
-#: bytes a parameter of a train state holds: fp32 parameters, gradients,
-#: AdamW's fp32 master copy and its two moments
-BYTES_PER_PARAM = 20
+#: bytes a parameter holds on every device: fp32 parameters and gradients
+REPLICATED_BYTES = 8
+#: bytes a parameter holds in AdamW's state (fp32 master, m and v),
+#: sharded over the data ranks by ZeRO-1
+SHARDED_BYTES = 12
 #: fp32 temporaries of one leaf that AdamW's update makes, one leaf at a
 #: time: counted against the largest leaf
 UPDATE_TEMPORARIES = 5
@@ -104,12 +219,16 @@ def largest_leaf(cfg: ArchConfig) -> int:
     return max(sizes)
 
 
-def train_memory_gb(cfg: ArchConfig) -> dict[str, float]:
-    """GB that training ``cfg`` on one device needs, reckoned before
-    anything is allocated: the state (BYTES_PER_PARAM a parameter), AdamW's
-    fp32 temporaries of the largest leaf, the activations, and their
-    total."""
-    out = {"state_gb": BYTES_PER_PARAM * cfg.param_count() / 1e9,
-           "update_gb": UPDATE_TEMPORARIES * 4 * largest_leaf(cfg) / 1e9,
+def train_memory_gb(cfg: ArchConfig, data: int = 1) -> dict[str, float]:
+    """GB that training ``cfg`` over ``data`` data-parallel ranks needs on
+    each device, reckoned before anything is allocated: the state
+    (REPLICATED_BYTES a parameter, plus SHARDED_BYTES a parameter over
+    ``data``), AdamW's fp32 temporaries of the largest leaf's shard, the
+    activations, and their total; and ``replicated_gb``, the part no data
+    size divides."""
+    n = cfg.param_count()
+    replicated = REPLICATED_BYTES * n / 1e9
+    out = {"state_gb": replicated + SHARDED_BYTES * n / data / 1e9,
+           "update_gb": UPDATE_TEMPORARIES * 4 * largest_leaf(cfg) / data / 1e9,
            "activation_gb": ACTIVATION_GB}
-    return {**out, "total_gb": sum(out.values())}
+    return {**out, "total_gb": sum(out.values()), "replicated_gb": replicated}

@@ -813,3 +813,46 @@ def test_clustered_frames_make_the_labels_a_function_of_the_frames():
     off_diagonal = ~torch.eye(8, dtype=torch.bool)
     assert dist[same & off_diagonal].max() < dist[~same].min()
     assert abs(frames.std().item() - (0.1 ** 2 + 0.05 ** 2) ** 0.5) < 0.03
+
+
+def test_sorted_local_capacity_and_equal_size_gmm_bounds():
+    """olmoe-1b-7b's prefill under the mesh: 4 x 2048 tokens, top-8 of 64,
+    Cl = 65,536 · 1.25 / 64 = 1280 (a multiple of 128); the gate/up product
+    (E·Cl = 81,920 rows, 2048 → 1024) moves 2·(81,920·2048 + 64·2048·1024 +
+    81,920·1024) bytes and does 2·81,920·2048·1024 FLOPs: bound by
+    operations.  dx and dw do the same FLOPs; dw writes every expert's
+    slab."""
+    assert cs.sorted_local_capacity(4 * 2048, 8, 64) == 1280
+    assert cs.sorted_local_capacity(100, 2, 8) == 128            # at least 128
+    assert cs.sorted_local_capacity(2048, 8, 64) == 384          # rounded up
+    rows, d, f, e = 64 * 1280, 2048, 1024, 64
+    ops, nbytes = cs.equal_gmm_floor_ms("fwd", rows, d, f, e)
+    assert ops == pytest.approx(2 * rows * d * f / 989e12 * 1e3)
+    assert nbytes == pytest.approx(2 * (rows * d + e * d * f + rows * f) / 3.35e12 * 1e3)
+    assert cs.bound(ops, nbytes)[1] == "operations"
+    dx_ops, dx_bytes = cs.equal_gmm_floor_ms("dx", rows, d, f, e)
+    assert dx_ops == pytest.approx(ops) and dx_bytes == pytest.approx(nbytes)
+    dw_ops, dw_bytes = cs.equal_gmm_floor_ms("dw", rows, d, f, e)
+    assert dw_ops == pytest.approx(ops)
+    assert dw_bytes == pytest.approx(2 * (rows * d + rows * f + e * d * f) / 3.35e12 * 1e3)
+
+
+def test_train_reckoning_per_device_with_a_data_size():
+    """Per device, ZeRO-1: the fp32 parameters and gradients (8 bytes a
+    parameter) on every device, the master and the moments (12) and the
+    largest leaf's update temporaries over the data size.  internvl2-26b:
+    its replicated 159.2 GB alone pass a card, so no data size fits;
+    olmoe-1b-7b fits an 85 GB card at a data size of 8 and not at 4."""
+    from repro_torch.configs import get
+    from repro_torch.train.step import train_memory_gb
+    vlm = get("internvl2-26b")
+    assert train_memory_gb(vlm, 1)["total_gb"] == pytest.approx(
+        cs.train_reckoning_gb(vlm, 48)["total_gb"])
+    assert train_memory_gb(vlm, 1)["replicated_gb"] == pytest.approx(8 * 19_899_009_024 / 1e9)
+    assert all(train_memory_gb(vlm, n)["total_gb"] > 85 for n in (8, 64, 1024))
+    olmoe = get("olmoe-1b-7b")
+    n = olmoe.param_count()
+    at8 = train_memory_gb(olmoe, 8)
+    assert at8["state_gb"] == pytest.approx((8 * n + 12 * n / 8) / 1e9)
+    assert at8["update_gb"] == pytest.approx(train_memory_gb(olmoe)["update_gb"] / 8)
+    assert at8["total_gb"] < 85 < train_memory_gb(olmoe, 4)["total_gb"]

@@ -161,8 +161,11 @@ def test_launch_train_refuses_a_card_it_does_not_fit(monkeypatch):
     monkeypatch.setattr(train_cli, "init_train_state", allocates)
     with pytest.raises(SystemExit, match=r"needs ~502\.6 GB .* the card has 85\.0 GB"):
         train_cli.main(["--arch", ARCH, "--steps", "1"])
-    # a config that fits goes on to allocate (its generator made on the CPU
-    # here)
+    # a config that fits goes on to build its mesh and allocate (the mesh and
+    # the generator made on the CPU here)
+    real_mesh = train_cli.make_local_mesh
+    monkeypatch.setattr(train_cli, "make_local_mesh",
+                        lambda model=1, device=None: real_mesh(model, "cpu"))
     cpu_generator = torch.Generator
     monkeypatch.setattr(torch, "Generator", lambda device: cpu_generator())
     with pytest.raises(AssertionError, match="allocated before refusing"):

@@ -1,0 +1,223 @@
+"""Rank workers for the port's multi-rank tests on the CPU.
+
+``spawn`` starts ``world`` processes with ``torch.multiprocessing`` (spawn),
+joins them in a gloo process group through a ``file://`` store under the
+test's own directory (no port: the suite runs under several workers), builds
+a ``DeviceMesh`` of the asked shape and axes, runs one job of this module
+in every rank and returns each rank's result.  This module imports torch,
+numpy and the port only, so the ranks never import jax; their inputs and
+results are numpy arrays.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch import bridge
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import get_smoke
+from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import sharding as shd
+from repro_torch.optim.adamw import AdamW, cosine_schedule
+from repro_torch.tree import tree_map
+
+LR = 1e-3
+
+
+def optimizer() -> AdamW:
+    """The optimizer every DP case uses, in both processes and references."""
+    return AdamW(schedule=cosine_schedule(LR, 2, 10))
+
+
+def to_torch(tree: Any) -> Any:
+    """numpy → CPU tensors (ints as int64, as the tests' batches)."""
+    def one(x):
+        x = np.asarray(x)
+        if np.issubdtype(x.dtype, np.integer) and x.ndim:
+            return torch.from_numpy(x.astype(np.int64))
+        return torch.from_numpy(np.array(x, copy=True))
+    return tree_map(one, tree)
+
+
+def rank_rows(batch: dict, index: int, n: int) -> dict:
+    """Rank ``index``'s block of ``n`` of a global batch (rows)."""
+    return {k: v[index * (v.shape[0] // n):(index + 1) * (v.shape[0] // n)]
+            for k, v in batch.items()}
+
+
+def _numpy(tree: Any) -> Any:
+    """A copy of a tree's local tensors as numpy (bf16 widened)."""
+    def one(x):
+        x = shd.local(x)
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy().copy()
+    return tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# Jobs: each runs in every rank, on the mesh, and returns numpy
+# ---------------------------------------------------------------------------
+
+def job_dp(mesh, cases: list[dict]) -> list[dict]:
+    """Each case: the data-parallel step for ``len(batches)`` steps from a
+    whole numpy state, this rank taking its block of each global batch.
+    Returns each step's metrics, the parameters after every step, and this
+    rank's m, v and master shards with their slices after the last."""
+    from repro_torch.train.step import TrainStepConfig, distribute_state, make_train_step
+    out = []
+    for case in cases:
+        cfg = get_smoke(case["arch"], **case["overrides"])
+        step = make_train_step(cfg, optimizer(), TrainStepConfig(**case["step_cfg"]))
+        state = distribute_state(to_torch(case["state"]), mesh)
+        metrics, params = [], []
+        with mesh_ctx.set_mesh(mesh):
+            n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+        for batch in case["batches"]:
+            state, m = step(state, to_torch(rank_rows(batch, i, n)))
+            metrics.append({k: float(v) for k, v in m.items()})
+            params.append(bridge.flatten(_numpy(state["params"])))
+        shards = {}
+        for key in ("m", "v", "master"):
+            for path, leaf in bridge.flatten(state["opt"][key]).items():
+                sl = shd.local_slices(shd.spec_of(leaf), leaf.shape, mesh)
+                shards[f"{key}/{path}"] = (leaf.to_local().numpy().copy(),
+                                           [(s.start, s.stop) for s in sl])
+        out.append({"metrics": metrics, "params": params, "shards": shards,
+                    "step": int(state["step"].to_local())})
+    return out
+
+
+def job_placements(mesh, arrays: dict[str, tuple]) -> dict:
+    """Each (array, spec entries) distributed by its spec: this rank's local
+    chunk, its local_slices and the gathered full tensor."""
+    out = {}
+    for name, (arr, entries) in arrays.items():
+        spec = shd.Spec(tuple(tuple(e) if isinstance(e, list) else e for e in entries))
+        dt = shd.distribute(torch.from_numpy(arr), spec, mesh)
+        sl = shd.local_slices(spec, arr.shape, mesh)
+        full = torch.zeros_like(torch.from_numpy(arr))
+        full[sl] = dt.to_local()
+        shd.gather_shards(full, spec, mesh)
+        out[name] = {"local": dt.to_local().numpy(),
+                     "slices": [(s.start, s.stop) for s in sl],
+                     "full": dt.full_tensor().numpy(), "gathered": full.numpy(),
+                     "coords": {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}}
+    return out
+
+
+def job_ragged(mesh, x: np.ndarray, params: dict, cot: np.ndarray,
+               cfg_args: dict, aux_weight: float) -> dict:
+    """moe_ragged_sharded on this rank's data shard of ``x`` (B, S, d) and
+    its model slice of the experts: the output, the aux losses, and the
+    gradients of sum(out * cot) + aux_weight · Σ aux of x, the router and
+    the expert slices."""
+    from repro_torch.models.moe import moe_ragged_sharded
+    with mesh_ctx.set_mesh(mesh):
+        n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+        m, j = mesh_ctx.axis_size("model"), mesh.get_local_rank("model")
+        f = params["wo"].shape[1] // m
+        local = {"router": params["router"],
+                 "wi_gate": params["wi_gate"][:, :, j * f:(j + 1) * f],
+                 "wi_up": params["wi_up"][:, :, j * f:(j + 1) * f],
+                 "wo": params["wo"][:, j * f:(j + 1) * f, :]}
+        p = {k: torch.tensor(np.ascontiguousarray(v), requires_grad=True)
+             for k, v in local.items()}
+        xs = torch.tensor(rank_rows({"x": x}, i, n)["x"], requires_grad=True)
+        out, aux = moe_ragged_sharded(xs, p, **cfg_args)
+        cot_local = torch.from_numpy(rank_rows({"c": cot}, i, n)["c"])
+        loss = (out.float() * cot_local).sum() + aux_weight * sum(aux.values())
+        grads = torch.autograd.grad(loss, [xs, *p.values()])
+    return {"out": out.detach().numpy(), "aux": {k: float(v) for k, v in aux.items()},
+            "grads": dict(zip(["x", *p], (g.numpy() for g in grads))),
+            "data": i, "model": j}
+
+
+def job_elastic(mesh, arch: str, state: dict | None, ckpt_dir: str,
+                save_step: int | None, batches: list[dict]) -> dict:
+    """Restore the latest checkpoint of ``ckpt_dir`` onto this mesh (or, with
+    ``state``, start from it), run a step on each global batch, and with
+    ``save_step`` save after the first ``save_step`` steps.  Returns each
+    step's loss and the restored step."""
+    from repro_torch.train.step import (
+        distribute_state, init_train_state, make_train_step,
+    )
+    cfg = get_smoke(arch, compute_dtype="float32")
+    step = make_train_step(cfg, optimizer())
+    if state is not None:
+        st = distribute_state(to_torch(state), mesh)
+    else:
+        gen = torch.Generator()
+        gen.manual_seed(123)       # other values: the restore must replace them
+        target = init_train_state(cfg, optimizer(), gen, mesh)
+        with mesh_ctx.set_mesh(mesh):
+            st = ckpt.restore(target, ckpt_dir,
+                              shardings=shd.state_shardings(target, mesh))
+    restored = int(st["step"].to_local())
+    with mesh_ctx.set_mesh(mesh):
+        n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+    losses = []
+    for k, batch in enumerate(batches):
+        st, m = step(st, to_torch(rank_rows(batch, i, n)))
+        losses.append(float(m["loss"]))
+        if save_step is not None and k + 1 == save_step:
+            ckpt.save(st, ckpt_dir, int(st["step"].to_local()))
+    return {"losses": losses, "restored_step": restored}
+
+
+def job_launch_train(mesh, argv: list[str]) -> dict:
+    """``launch.train.main`` under the running group (which it reuses and
+    leaves running)."""
+    from repro_torch.launch import train
+    out = train.main(argv)
+    return {"metrics": {k: v for k, v in out.items() if isinstance(v, float)},
+            "steps_run": out["steps_run"], "group_alive": dist.is_initialized(),
+            "world": dist.get_world_size()}
+
+
+JOBS = {"dp": job_dp, "placements": job_placements, "ragged": job_ragged,
+        "elastic": job_elastic, "launch_train": job_launch_train}
+
+
+# ---------------------------------------------------------------------------
+# Spawning
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Job:
+    name: str
+    kwargs: dict
+    mesh_shape: tuple[int, ...] = ()
+    axes: tuple[str, ...] = ("data", "model")
+
+
+def _rank(rank: int, world: int, init_file: str, out_dir: str,
+          jobs: list[Job]) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        results = []
+        for job in jobs:
+            shape = job.mesh_shape or (world, 1)
+            mesh = init_device_mesh("cpu", shape, mesh_dim_names=job.axes)
+            results.append(JOBS[job.name](mesh, **job.kwargs))
+        torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(world: int, jobs: list[Job], tmp: Path) -> list[list[Any]]:
+    """Run ``jobs`` in order in ``world`` spawned gloo ranks; returns
+    ``results[rank][job]``."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    init_file = tmp / "store"
+    mp.start_processes(_rank, args=(world, str(init_file), str(tmp), jobs),
+                       nprocs=world, join=True, start_method="spawn")
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]

@@ -3979,6 +3979,426 @@ def two_ranks_path(dev, card, one_rank_peak_gb: float) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The tensor-parallel section: two gloo ranks on the one card, a model axis
+# of 2 (the multi-device layer's part 2)
+# ---------------------------------------------------------------------------
+
+#: its gates: PR 25's two-rank gates (each rank's products run on its half
+#: of the heads or hidden units, and f's backward and g add two bf16
+#: partial sums where one rank's product adds in fp32 and rounds once):
+#: the loss within 1e-3 and the gradient norm within 1e-2 (relative) of
+#: one rank on the same state and batch
+TP_LOSS_REL_TOL = TWO_RANK_LOSS_REL_TOL
+TP_GNORM_REL_TOL = TWO_RANK_GNORM_REL_TOL
+#: every parameter after the step against the one-rank step's slice of it:
+#: AdamW's first step moves a weight by lr · (1 + weight_decay · |w|) at
+#: most, so two runs from one state differ by at most ~2·lr; a wrong slice
+#: or update differs by a weight's size (~0.02, a thousand lr).  And the
+#: share of a leaf's elements off by more than lr / 2 (a gradient at noise
+#: level whose sign flipped; PR 25's two data ranks: up to 0.6%)
+TP_PARAM_LR_BOUND = 2.5
+TP_PARAM_SHARE = 0.05
+#: the parameters after one step see only each gradient's sign, so each
+#: rank's first moment (0.1 · the clipped gradient after that step) is
+#: held against its slice of one rank's: the largest |Δ| over the leaf's
+#: largest |m|.  A gradient summed M times over ``model`` (a gather's
+#: backward that should have been a slice) or a partial one (a leaf read in
+#: the sliced work without f) reads 0.5 or more; bf16 reads up to 0.073 on
+#: the card (gemma3's q_norm: its gradient sums two ranks' bf16 partials,
+#: which cancel; fp32 on the CPU: 3e-6)
+TP_MOMENT_REL_TOL = 0.25
+#: the section's global batch (data 1: every model rank takes all of it),
+#: its seed and AdamW's schedule (launch.train's)
+TP_BATCH, TP_SEQ, TP_SEED = 2, 2048, 0
+#: the phases: (name, arch, layers (None: full depth), sequence-parallel);
+#: mamba2-780m and olmoe-1b-7b cut in depth (the one-rank reference of
+#: olmoe's 4 layers holds 36 GB of fp32 state; 8 mamba2 layers keep the
+#: in_proj gathers through gloo, host memory, short)
+TP_PHASES = (("a", "gemma3-1b", None, False),
+             ("b", "mamba2-780m", 8, False),
+             ("b", "olmoe-1b-7b", 4, False),
+             ("c", "gemma3-1b", None, True))
+
+
+def tp_config(arch: str, layers: int | None):
+    from repro_torch.configs import get
+    cfg = get(arch)
+    return cfg if layers is None else cut_depth(cfg, layers)
+
+
+def tp_local_config(cfg, model: int = 2, rank: int = 0):
+    """``cfg`` as one ``model`` rank's kernels see it: its query and KV
+    heads (``attn_view``), its SSM heads (``ssm_view``; d_model scaled so
+    that d_inner is its heads' width) and its block of the experts' hidden
+    units (``hidden_view``)."""
+    from repro_torch.distributed import sharding as shd
+    out = {}
+    if cfg.n_heads:
+        v = shd.attn_view(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, model, rank)
+        (h0, h1), (k0, k1) = v["heads"], v["kv_heads"]
+        out.update(n_heads=h1 - h0, n_kv_heads=k1 - k0)
+    if cfg.ssm_state:
+        v = shd.ssm_view(cfg.d_inner, cfg.ssm_head_dim, cfg.ssm_state,
+                         cfg.ssm_groups, model, rank)
+        h0, h1 = v["heads"]
+        out.update(d_model=(h1 - h0) * cfg.ssm_head_dim // cfg.ssm_expand)
+    if cfg.n_experts:
+        (f0, f1), = shd.hidden_view(cfg.moe_d_ff, model, rank)
+        out.update(moe_d_ff=f1 - f0)
+    return dataclasses.replace(cfg, **out)
+
+
+def tp_batch(cfg, dev) -> dict:
+    from repro_torch.data.pipeline import SyntheticStream
+    host = SyntheticStream(cfg, TP_BATCH, TP_SEQ, seed=TP_SEED).batch_at(0)
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def tp_leaf_agreement(got: dict, want: dict, lr: float, dev) -> dict:
+    """For each leaf ``path``: got[path] = (this rank's tensor, its slice of
+    the whole), want[path] the whole (or the same slice): the largest |Δ|
+    over lr and the share of elements off by more than lr / 2, on the card
+    a leaf at a time."""
+    out = {}
+    for path, (t, sl) in got.items():
+        w = want[path]
+        w = (w[sl] if w.shape != t.shape else w).to(dev)
+        diff = (t.to(dev).float() - w.float()).abs()
+        out[path] = (diff.max().item() / lr, (diff > lr / 2).float().mean().item())
+        del w, diff
+    return out
+
+
+def tp_moment_agreement(got: dict, want: dict, dev) -> dict:
+    """For each leaf ``path``: got[path] = (this rank's first moment, its
+    slice of the whole), want[path] the whole (or the same slice): the
+    largest |Δ| over want[path]'s largest |m|, on the card a leaf at a
+    time."""
+    out = {}
+    for path, (t, sl) in got.items():
+        w = want[path].to(dev)
+        scale = w.float().abs().max().item()
+        w = w[sl] if w.shape != t.shape else w
+        out[path] = (t.to(dev).float() - w.float()).abs().max().item() / max(scale, 1e-30)
+        del w
+    return out
+
+
+def tp_rank_worker(rank: int, init_file: str, out_dir: str, device_type: str) -> None:
+    """One of the section's two ranks on card 0, a (data 1, model 2) mesh
+    over gloo.  Each phase: the mesh step once on the state of TP_SEED and
+    one batch (its launches counted from 0), each stored shard brought to
+    the host; then for (a) and (b) rank 0 runs one rank's step without a
+    mesh on the same state and batch, rank 1 sends it its shards and rank
+    0 holds every leaf of both, and of their first moments, against its
+    slice; (c) each rank holds its shards against its own of (a).  Writes
+    the results."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.bridge import flatten
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
+    dev = torch.device(device_type, 0)
+    if device_type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=2)
+    results, kept = [], None
+
+    def shards(tree):
+        return {path: (leaf.to_local().detach().cpu(),
+                       shd.local_slices(shd.spec_of(leaf), leaf.shape, mesh))
+                for path, leaf in flatten(tree).items()}
+
+    try:
+        mesh = init_device_mesh(device_type, (1, 2), mesh_dim_names=("data", "model"))
+        for phase, arch, layers, seq in TP_PHASES:
+            cfg = tp_config(arch, layers)
+            opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(TP_SEED)
+            state = init_train_state(cfg, opt, gen, mesh)
+            batch = tp_batch(cfg, dev)
+            spec = shd.Spec(("data", "model", None)) if seq else None
+            step = make_train_step(cfg, opt, TrainStepConfig(seq_spec=spec))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            step_s = time.perf_counter() - t0
+            launches = launch_counts(path_kernels(cfg, backward=True))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            local, moments = shards(state["params"]), shards(state["opt"]["m"])
+            split = sum(t.numel() < math.prod(leaf.shape) for (t, _), leaf in
+                        zip(local.values(), flatten(state["params"]).values()))
+            del state, step
+            torch.cuda.empty_cache()
+            out = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers, "seq": seq,
+                   "metrics": metrics, "step_s": step_s, "launches": launches,
+                   "peak_gb": peak, "split_leaves": split, "leaves": len(local),
+                   "lr": metrics["lr"]}
+            if seq:
+                out["vs_a"] = tp_leaf_agreement(
+                    local, {k: v for k, (v, _) in kept[0].items()}, metrics["lr"], dev)
+                out["m_vs_a"] = tp_moment_agreement(
+                    moments, {k: v for k, (v, _) in kept[1].items()}, dev)
+            else:
+                out.update(tp_against_one_rank(rank, cfg, opt, local, moments, batch, dev))
+                if phase == "a":
+                    kept = local, moments
+            results.append(out)
+            del local, moments, batch
+            torch.cuda.empty_cache()
+        torch.save(results, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_against_one_rank(rank, cfg, opt, local, moments, batch, dev) -> dict:
+    """Rank 0: one rank's step without a mesh on TP_SEED's state and
+    ``batch`` (its metrics), and every stored shard of both ranks against
+    its slice of that step's parameters, and each shard's first moment
+    against its slice of that step's (rank 1 sends its own over gloo; the
+    replicated leaves must be bit-equal on the two ranks)."""
+    import torch.distributed as dist
+    from repro_torch.bridge import flatten
+    from repro_torch.train.step import init_train_state, make_train_step
+    dist.barrier()
+    if rank == 1:
+        for t, _ in [*local.values(), *moments.values()]:
+            dist.send(t.contiguous(), dst=0)
+        dist.barrier()
+        return {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TP_SEED)
+    state = init_train_state(cfg, opt, gen)
+    state, metrics = make_train_step(cfg, opt)(state, batch)
+    want = {k: v.detach() for k, v in flatten(state["params"]).items()}
+    want_m = {k: v.detach() for k, v in flatten(state["opt"]["m"]).items()}
+    del state
+    torch.cuda.empty_cache()
+    lr = float(metrics["lr"])
+    other, same = {}, True
+    for (path, (t, sl)), leaf in zip(local.items(), want.values()):
+        buf = torch.empty_like(t)
+        dist.recv(buf, src=1)
+        if t.numel() == leaf.numel():        # kept whole on both ranks
+            same = same and torch.equal(buf, t)
+        else:                                 # rank 1's block: the next one
+            dim = next(i for i, (a, b) in enumerate(zip(t.shape, leaf.shape)) if a != b)
+            sl = tuple(slice(t.shape[i], 2 * t.shape[i]) if i == dim else slice(None)
+                       for i in range(t.dim()))
+        other[path] = (buf, sl)
+    other_m = {}
+    for path, (t, _) in moments.items():
+        buf = torch.empty_like(t)
+        dist.recv(buf, src=1)
+        other_m[path] = (buf, other[path][1])   # data 1: the parameter's slice
+    dist.barrier()
+    agreement = {"rank0": tp_leaf_agreement(local, want, lr, dev),
+                 "rank1": tp_leaf_agreement(other, want, lr, dev),
+                 "m_rank0": tp_moment_agreement(moments, want_m, dev),
+                 "m_rank1": tp_moment_agreement(other_m, want_m, dev)}
+    del want, want_m, other, other_m
+    torch.cuda.empty_cache()
+    return {"one_rank": {k: float(v) for k, v in metrics.items()},
+            "replicated_leaves_equal": same, **agreement}
+
+
+def tp_gmm_entries(cfg, gen, dev, card, launches: dict) -> list[dict]:
+    """The grouped GEMM's forward, dx and dw at one model rank's shape of
+    olmoe-1b-7b (every expert's f / 2 hidden units; the T·K rows of the
+    section's batch, a real routing's group sizes): a train step's calls
+    of each (3 a layer), against the plain versions, ``torch._grouped_mm``
+    and the bound."""
+    from repro_torch.kernels import moe_gmm
+    local = tp_local_config(cfg)
+    d, f, e, k = cfg.d_model, local.moe_d_ff, cfg.n_experts, cfg.top_k
+    rows = TP_BATCH * TP_SEQ * k
+    sizes = moe_group_sizes(gen, dev, TP_BATCH * TP_SEQ, e, k)
+    nonempty = int((sizes > 0).sum())
+    x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    hid = torch.randn((rows, f), generator=gen, device=dev).to(torch.bfloat16)
+    w_in = (torch.randn((e, d, f), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    w_down = (torch.randn((e, f, d), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    calls = [(x, w_in, hid), (x, w_in, hid), (hid, w_down, x)] * cfg.n_layers
+    parts = {
+        "grouped_matmul": (
+            lambda a, w, g: moe_gmm.grouped_matmul(a, w, sizes),
+            lambda a, w, g: moe_gmm.grouped_matmul_plain(a, w, sizes),
+            lambda a, w, g: grouped_mm_call(a, w, sizes),
+            lambda a, w, g: gmm_floor_ms(rows, w.shape[1], w.shape[2], nonempty),
+            GMM_REPLACES, gmm_errors),
+        "grouped_matmul_dx": (
+            lambda a, w, g: moe_gmm.grouped_matmul_dx(g, w, sizes),
+            lambda a, w, g: moe_gmm.grouped_matmul_dx_plain(g, w, sizes),
+            lambda a, w, g: grouped_mm_call(g, w.transpose(1, 2), sizes),
+            lambda a, w, g: gmm_floor_ms(rows, w.shape[2], w.shape[1], nonempty),
+            GMM_BWD_REPLACES, gmm_errors),
+        "grouped_matmul_dw": (
+            lambda a, w, g: moe_gmm.grouped_matmul_dw(a, g, sizes),
+            lambda a, w, g: moe_gmm.grouped_matmul_dw_plain(a, g, sizes),
+            lambda a, w, g: grouped_mm_call(a.t(), g, sizes),
+            lambda a, w, g: gmm_dw_floor_ms(rows, w.shape[1], w.shape[2], e),
+            GMM_BWD_REPLACES, lambda out, want: dw_errors(out, want, sizes)),
+    }
+    entries = []
+    for name, (kernel, plain, lib, floor, replaces, errors) in parts.items():
+        errs = [errors(kernel(*c), plain(*c)) for c in calls[1:3]]
+        libs = [lib(*c) for c in calls[:3]]
+        no_lib = next((why for call, why in libs if call is None), None)
+        floors = [floor(*c) for c in calls]
+        mix = {"max_abs_err": max(er["max_abs_err"] for er in errs),
+               "ms": time_ms(lambda: [kernel(*c) for c in calls], 5),
+               "plain_ms": time_ms(lambda: [plain(*c) for c in calls], 1, 1),
+               "library_ms": (None if no_lib else
+                              time_ms(lambda: [call() for call, _ in libs * cfg.n_layers], 5))}
+        mix["bound_ms"], mix["bound_by"] = bound(sum(fl[0] for fl in floors),
+                                                 sum(fl[1] for fl in floors))
+        emit("kernel_tp_mix", kernel=name, calls=len(calls), shape=[rows, d, f, e],
+             nonempty_experts=nonempty, library=no_lib or "torch._grouped_mm",
+             errors=errs, nvidia_smi=card, **mix)
+        entries.append({"name": name, "route": "cuda", "source": GMM_SOURCE,
+                        "replaces": replaces,
+                        "path": f"{cfg.name} TP train, model 2 ({cfg.n_layers} layers)",
+                        "launches": launches[name], **mix})
+        del libs
+    return entries
+
+
+def tp_path(dev, card) -> list[dict]:
+    """The tensor-parallel section: TP_PHASES in two gloo ranks sharing the
+    card, a (data 1, model 2) mesh (NCCL takes one rank a device): (a)
+    gemma3-1b at full width and depth, one train step on a global 2 x 2048
+    batch, against one rank without a mesh on the same state and batch
+    (loss, grad_norm, every stored shard against its slice); (b)
+    mamba2-780m and olmoe-1b-7b (einsum) cut in depth, the same way; (c)
+    gemma3-1b with the sequence over ``model``, against (a).  Then each
+    kernel at one rank's shapes (2 query heads over the replicated KV head
+    at D 256; 24 of mamba2's 48 SSD heads; olmoe's experts at f 512)
+    against its plain version.  Returns the kernels' entries."""
+    import shutil
+    import torch.multiprocessing as mp
+    out_dir = Path(__file__).resolve().parent / "build" / "tp_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    for _, arch, layers, _ in TP_PHASES:
+        cfg = tp_config(arch, layers)
+        local = tp_local_config(cfg)
+        emit("tp_shapes", arch=cfg.name, layers=cfg.n_layers, model=2,
+             q_heads=local.n_heads, kv_heads=local.n_kv_heads, head_dim=cfg.head_dim,
+             ssm_heads=local.ssm_heads if cfg.ssm_state else 0,
+             expert_hidden=local.moe_d_ff, reckoned_gb_a_rank=train_reckoning_gb_tp(cfg))
+    t0 = time.perf_counter()
+    mp.start_processes(tp_rank_worker,
+                       args=(str(out_dir / "store"), str(out_dir), dev.type),
+                       nprocs=2, join=True, start_method="spawn")
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    failures, launches = [], {}
+    for i, (phase, arch, layers, seq) in enumerate(TP_PHASES):
+        r0, r1 = ranks[0][i], ranks[1][i]
+        cfg = tp_config(arch, layers)
+        want_launches = step_launches(cfg)
+        ref = r0["one_rank"] if not seq else ranks[0][0]["one_rank"]
+        got = r0["metrics"]
+        line = {"loss": got["loss"], "one_rank_loss": ref["loss"],
+                "loss_rel_err": abs(got["loss"] / ref["loss"] - 1),
+                "grad_norm": got["grad_norm"], "one_rank_grad_norm": ref["grad_norm"],
+                "grad_norm_rel_err": abs(got["grad_norm"] / ref["grad_norm"] - 1),
+                "ranks_loss_equal": r0["metrics"]["loss"] == r1["metrics"]["loss"],
+                "launches": r0["launches"], "want_launches": want_launches}
+        if seq:
+            a = ranks[0][0]["metrics"]
+            line.update(tp_loss=a["loss"], loss_rel_err_vs_tp=abs(got["loss"] / a["loss"] - 1),
+                        grad_norm_rel_err_vs_tp=abs(got["grad_norm"] / a["grad_norm"] - 1))
+            leaves = {f"rank{r}": rr[i]["vs_a"] for r, rr in enumerate(ranks)}
+            moms = {f"rank{r}": rr[i]["m_vs_a"] for r, rr in enumerate(ranks)}
+        else:
+            line["replicated_leaves_equal"] = r0["replicated_leaves_equal"]
+            leaves = {"rank0": r0["rank0"], "rank1": r0["rank1"]}
+            moms = {"rank0": r0["m_rank0"], "rank1": r0["m_rank1"]}
+        worst = {r: max(v.values(), key=lambda x: x[0]) for r, v in leaves.items()}
+        worst_m = max(((e, path) for v in moms.values() for path, e in v.items()))
+        line.update(
+            param_max_abs_diff_over_lr=max(w[0] for w in worst.values()),
+            param_worst_share_off_by_half_lr=max(s for v in leaves.values()
+                                                 for _, s in v.values()),
+            m_max_rel_err=worst_m[0], m_worst_leaf=worst_m[1],
+            leaves=r0["leaves"], split_leaves=r0["split_leaves"])
+        emit(f"tp_train_{phase}", arch=cfg.name, layers=cfg.n_layers, batch=TP_BATCH,
+             seq=TP_SEQ, mesh={"data": 1, "model": 2}, backend="gloo",
+             sequence_parallel=seq, step_s=[r0["step_s"], r1["step_s"]],
+             peak_gb=[r0["peak_gb"], r1["peak_gb"]], lr=r0["lr"], nvidia_smi=card,
+             loss_rel_tol=TP_LOSS_REL_TOL, grad_norm_rel_tol=TP_GNORM_REL_TOL,
+             param_lr_bound=TP_PARAM_LR_BOUND, param_share_tol=TP_PARAM_SHARE,
+             m_rel_tol=TP_MOMENT_REL_TOL, **line)
+        ok = (line["loss_rel_err"] <= TP_LOSS_REL_TOL
+              and line["grad_norm_rel_err"] <= TP_GNORM_REL_TOL
+              and line["ranks_loss_equal"] and r0["launches"] == want_launches
+              and line["param_max_abs_diff_over_lr"] <= TP_PARAM_LR_BOUND
+              and line["param_worst_share_off_by_half_lr"] <= TP_PARAM_SHARE
+              and line["m_max_rel_err"] <= TP_MOMENT_REL_TOL
+              and line["split_leaves"] > 0)
+        if seq:
+            ok = ok and (line["loss_rel_err_vs_tp"] <= TP_LOSS_REL_TOL
+                         and line["grad_norm_rel_err_vs_tp"] <= TP_GNORM_REL_TOL)
+        else:
+            ok = ok and line["replicated_leaves_equal"]
+        if not ok:
+            failures.append((phase, cfg.name, line))
+        launches[(phase, arch)] = r0["launches"]
+    emit("tp_section", seconds_both_ranks=seconds, phases=len(TP_PHASES))
+    if failures:
+        raise AssertionError(f"tensor parallelism disagrees with one rank: {failures}")
+
+    # -- the kernels at one model rank's shapes --------------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    gemma = tp_local_config(tp_config("gemma3-1b", None))
+    mamba = tp_local_config(tp_config("mamba2-780m", 8))
+    path_a = "gemma3-1b TP train, model 2"
+    path_b = "mamba2-780m TP train, model 2 (8 layers)"
+    fa_fwd = fa_prefill_mix(gemma, gen, dev, TP_BATCH, TP_SEQ)
+    fa_bwd = fa_train_mix(gemma, gen, dev, TP_BATCH, TP_SEQ)
+    ssd_fwd = ssd_prefill_mix(mamba, gen, dev, TP_BATCH, TP_SEQ)
+    ssd_bwd = ssd_train_mix(mamba, gen, dev, TP_BATCH, TP_SEQ)
+    la, lb = launches[("a", "gemma3-1b")], launches[("b", "mamba2-780m")]
+    entries = [
+        {"name": "flash_attention", "path": path_a, "route": "cuda", "source": FA_SOURCE,
+         "replaces": FA_REPLACES, "launches": la["flash_attention"], **fa_fwd},
+        {"name": "flash_attention_bwd", "path": path_a, "route": "cuda",
+         "source": FA_SOURCE, "replaces": FA_REPLACES,
+         "launches": la["flash_attention_bwd"], **fa_bwd}]
+    for part in ("chunk_state", "chunk_scan"):
+        entries.append({"name": "ssd_" + part, "path": path_b, "route": "cuda",
+                        "source": SSD_SOURCE, "replaces": SSD_REPLACES["ssd_" + part],
+                        "launches": lb["ssd_" + part], **ssd_fwd[part]})
+    for part in ("chunk_state_bwd", "chunk_scan_bwd"):
+        entries.append({"name": "ssd_" + part, "path": path_b, "route": "cuda",
+                        "source": SSD_SOURCE, "replaces": SSD_BWD_REPLACES,
+                        "launches": lb["ssd_" + part], **ssd_bwd[part]})
+    for entry in entries:
+        emit("kernel_tp_entry", **entry, nvidia_smi=card)
+    entries += tp_gmm_entries(tp_config("olmoe-1b-7b", 4), gen, dev, card,
+                              launches[("b", "olmoe-1b-7b")])
+    torch.cuda.empty_cache()
+    return entries
+
+
+def train_reckoning_gb_tp(cfg) -> float:
+    """GB a model rank's state and step need at model 2 (the port's
+    ``train_memory_gb`` with the model size), its activations at the
+    section's smaller batch counted as the reckoning's."""
+    from repro_torch.train.step import train_memory_gb
+    return train_memory_gb(cfg, 1, 2)["total_gb"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -4041,6 +4461,9 @@ def main() -> None:
     kernels += mesh_moe_path(dev, card)
     torch.cuda.empty_cache()
     two_ranks_path(dev, card, one_rank_peak_gb)
+    torch.cuda.empty_cache()
+    # the tensor-parallel section
+    kernels += tp_path(dev, card)
 
     emit("done", seconds=time.perf_counter() - _START, kernel_entries=len(kernels))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,10 +17,11 @@ the reference casts it back to the target's dtype on restore, as this
 module does).
 
 A state of DTensors (one process a device, :mod:`repro_torch.train.step`)
-is saved as the same full arrays: every rank gathers each leaf, rank 0
-writes, and all ranks wait at a barrier after the rename, so no rank reads
-or prunes a half-written step.  :func:`restore` places each leaf by its
-placements, so a run saved at one data size resumes at another.
+is saved as the same full arrays: every rank gathers each leaf (over the
+data-parallel axes and ``model``), rank 0 writes, and all ranks wait at a
+barrier after the rename, so no rank reads or prunes a half-written step.
+:func:`restore` places each leaf by its placements, so a run saved on one
+(data, model) mesh resumes on another, or on one device.
 """
 from __future__ import annotations
 
@@ -114,7 +115,7 @@ def restore(target: Any, directory: str | Path, step: int | None = None,
     :class:`~repro_torch.distributed.sharding.Spec` in ``target``'s
     nesting, e.g. ``state_shardings``), each leaf is placed as a DTensor by
     its spec on the ambient mesh: every rank reads the full array and keeps
-    its slice, so a run resumes at any data size."""
+    its slice, so a run resumes on any (data, model) mesh."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)

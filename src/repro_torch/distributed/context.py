@@ -19,7 +19,22 @@ JAX orders a ``("pod", "data")`` sharding.
 * :func:`model_copy` and :func:`model_sum`: Megatron's f and g over the
   ``model`` axis, differentiable: f is the identity whose backward sums
   the gradient over ``model``; g sums over ``model`` and its backward is
-  the identity.  Both are the identity where ``model`` has one rank.
+  the identity;
+* :func:`model_gather` (an all-gather along a dim; its backward is a
+  reduce-scatter where each rank's work on the whole differs, a slice
+  where every rank does the same work), :func:`model_reduce_scatter`,
+  :func:`model_slice`, :func:`model_stat_sum` (a statistic that sliced
+  work reads: summed both ways) and :func:`model_max` (no gradient);
+* :func:`enter`, :func:`leave`, :func:`enter_replicated` and
+  :func:`leave_replicated`: where the residual stream meets a block's
+  work, without and with sequence-parallel activations (``seq``: each
+  ``model`` rank holds ``(B, S/M, d)`` between blocks; f becomes an
+  all-gather over the sequence and g a reduce-scatter);
+* :func:`model_view`: a block's compute view of a parameter stored whole
+  or as this rank's ``model`` shard, the one place that chooses the
+  gather's backward.
+
+Every one is the identity where ``model`` has one rank.
 """
 from __future__ import annotations
 
@@ -170,3 +185,233 @@ def model_sum(x: torch.Tensor, mesh: DeviceMesh | None = None) -> torch.Tensor:
     if axis_size("model", mesh) == 1:
         return x
     return _ModelSum.apply(x, _group("model", mesh))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+#: ``reduce_scatter_single`` where this torch has it (the newer name),
+#: else ``reduce_scatter_tensor``; the same arguments
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def model_rank(mesh: DeviceMesh | None = None) -> int:
+    """This rank's index on ``model`` (0 with no ``model`` axis)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    if axis_size("model", mesh) == 1:
+        return 0
+    return mesh.get_local_rank("model")
+
+
+def _gather(x: torch.Tensor, dim: int, group: dist.ProcessGroup, n: int
+            ) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in rank order."""
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((n * front.shape[0],) + tuple(front.shape[1:]))
+    dist.all_gather_into_tensor(out, front, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_sum(x: torch.Tensor, dim: int, group: dist.ProcessGroup, n: int
+                 ) -> torch.Tensor:
+    """The group's ``x`` summed, this rank's n-th part along ``dim``."""
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((front.shape[0] // n,) + tuple(front.shape[1:]))
+    _reduce_scatter(out, front, group=group)
+    return out.movedim(0, dim)
+
+
+def _own(x: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
+    k = x.shape[dim] // n
+    return x.narrow(dim, rank * k, k).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``; the backward sums over the group and keeps
+    this rank's part (``summed``) or keeps it alone."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, n, summed):
+        ctx.args = (dim, group, rank, n, summed)
+        return _gather(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dim, group, rank, n, summed = ctx.args
+        dx = _scatter_sum(dy, dim, group, n) if summed else _own(dy, dim, rank, n)
+        return dx, None, None, None, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Reduce-scatter along ``dim``; the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return _scatter_sum(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dim, group, n = ctx.args
+        return _gather(dy, dim, group, n), None, None, None
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's part along ``dim``; the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, n):
+        ctx.args = (dim, group, n)
+        return _own(x, dim, rank, n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dim, group, n = ctx.args
+        return _gather(dy, dim, group, n), None, None, None, None
+
+
+class _StatSum(torch.autograd.Function):
+    """A sum over the group whose gradient is summed too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        dy = dy.contiguous().clone()
+        dist.all_reduce(dy, group=ctx.group)
+        return dy, None
+
+
+def _model(mesh: DeviceMesh | None) -> tuple[dist.ProcessGroup, int, int]:
+    return _group("model", mesh), model_rank(mesh), axis_size("model", mesh)
+
+
+def model_gather(x: torch.Tensor, dim: int, summed: bool,
+                 mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """The ``model`` ranks' ``x`` concatenated along ``dim``.  Backward:
+    with ``summed``, a reduce-scatter (each rank's work on the whole gave it
+    a different gradient, whose sum is the whole's); without, this rank's
+    part of the gradient (every rank did the same work)."""
+    if axis_size("model", mesh) == 1:
+        return x
+    group, rank, n = _model(mesh)
+    return _Gather.apply(x, dim % x.dim(), group, rank, n, summed)
+
+
+def model_reduce_scatter(x: torch.Tensor, dim: int,
+                         mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """``x`` summed over ``model``, this rank's part along ``dim``; the
+    backward all-gathers (sequence-parallel g)."""
+    if axis_size("model", mesh) == 1:
+        return x
+    group, _, n = _model(mesh)
+    return _ScatterSum.apply(x, dim % x.dim(), group, n)
+
+
+def model_slice(x: torch.Tensor, dim: int,
+                mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """This rank's part of ``x`` (the same on every rank) along ``dim``;
+    the backward all-gathers."""
+    if axis_size("model", mesh) == 1:
+        return x
+    group, rank, n = _model(mesh)
+    return _Slice.apply(x, dim % x.dim(), group, rank, n)
+
+
+def model_stat_sum(x: torch.Tensor, mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """A statistic of each rank's slice summed over ``model`` for that
+    slice's work (the gated norm's sum of squares): forward and backward
+    both sum, since every rank's slice reads the total."""
+    if axis_size("model", mesh) == 1:
+        return x
+    return _StatSum.apply(x, _group("model", mesh))
+
+
+@torch.no_grad()
+def model_max(x: torch.Tensor, mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """The elementwise maximum over ``model`` (no gradient)."""
+    if axis_size("model", mesh) == 1:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group("model", mesh))
+    return out
+
+
+def check_seq(s: int, mesh: DeviceMesh | None = None) -> None:
+    """Raises unless ``model``'s ranks divide a sequence of ``s`` positions
+    (sequence-parallel shards are equal)."""
+    m = axis_size("model", mesh)
+    if s % m:
+        raise ValueError(f"sequence-parallel activations: a sequence of {s} "
+                         f"positions does not split over {m} model ranks")
+
+
+def enter(x: torch.Tensor, seq: bool) -> torch.Tensor:
+    """The residual stream (B, S, d), or its sequence shard with ``seq``,
+    entering work that each ``model`` rank does on its own slice of the
+    weights: f, or with ``seq`` an all-gather over the sequence whose
+    backward is a reduce-scatter."""
+    return model_gather(x, -2, summed=True) if seq else model_copy(x)
+
+
+def leave(y: torch.Tensor, seq: bool) -> torch.Tensor:
+    """Each rank's partial sum leaving sliced work: g, or with ``seq`` a
+    reduce-scatter over the sequence."""
+    return model_reduce_scatter(y, -2) if seq else model_sum(y)
+
+
+def enter_replicated(x: torch.Tensor, seq: bool) -> torch.Tensor:
+    """The residual stream entering work every ``model`` rank does whole:
+    unchanged, or with ``seq`` all-gathered over the sequence (its
+    backward keeps this rank's part)."""
+    return model_gather(x, -2, summed=False) if seq else x
+
+
+def leave_replicated(y: torch.Tensor, seq: bool) -> torch.Tensor:
+    """Work every rank did whole leaving for the residual stream:
+    unchanged, or with ``seq`` this rank's sequence shard."""
+    return model_slice(y, -2) if seq else y
+
+
+Ranges = tuple[tuple[int, int], ...]
+
+
+def model_view(w: torch.Tensor, dim: int, ranges: Ranges, full: int, *,
+               sliced: bool = True, mesh: DeviceMesh | None = None
+               ) -> torch.Tensor:
+    """A block's compute view of a parameter: the index ``ranges`` of its
+    dim ``dim`` (of ``full`` entries in the whole leaf), concatenated.
+    ``w`` is the stored leaf: whole, or this rank's 1/M of ``dim`` (the
+    sharding rules' contiguous blocks).
+
+    * a shard whose block is the view: ``w`` itself, no communication;
+    * another shard: gathered over ``model``, then indexed; the gather's
+      backward is a reduce-scatter for ``sliced`` work (each rank's part of
+      the block gives the whole leaf a different gradient) and this rank's
+      block for work every rank does whole;
+    * a whole leaf: indexed, after f for ``sliced`` work (its gradient is
+      summed over ``model``: a norm scale that every head reads, a slice of
+      a leaf the rules keep whole).
+
+    With one ``model`` rank the ranges must be the whole dim: ``w``."""
+    m = axis_size("model", mesh)
+    if m == 1:
+        return w
+    n = w.shape[dim]
+    if n != full:
+        lo = model_rank(mesh) * n
+        if tuple(ranges) == ((lo, lo + n),):
+            return w
+        whole = model_gather(w, dim, summed=sliced, mesh=mesh)
+    else:
+        whole = model_copy(w, mesh) if sliced else w
+    if tuple(ranges) == ((0, full),):
+        return whole
+    parts = [whole.narrow(dim, a, b - a) for a, b in ranges]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)

@@ -26,7 +26,14 @@ Two layers:
   is ``Shard(dim)`` on both mesh dims, major to minor as JAX orders them),
   :func:`local_slices` says which slice of the full leaf a rank holds, and
   :func:`from_local` and :func:`distribute` store a rank's slice, or a
-  full leaf, as a DTensor by its spec.
+  full leaf, as a DTensor by its spec;
+* **compute views** (tensor parallelism): which heads, hidden units and
+  columns a ``model`` rank computes with, pure functions of (config,
+  ``model`` size, rank): :func:`head_split` (query heads by whole KV
+  groups, SSM heads by B/C groups), :func:`attn_view`, :func:`ssm_view`,
+  :func:`hidden_view` and :func:`vocab_view`.  A rank's stored shard (the
+  rules' contiguous block) is its view where the two agree; elsewhere the
+  model gathers it (``repro_torch.distributed.context.model_view``).
 
 Path names are :func:`repro_torch.bridge.flatten`'s segments
 (``segments/[0]/attn/wq``), as the reference's ``_path_names`` gives them.
@@ -102,6 +109,18 @@ def _entry_size(sizes: dict[str, int], entry: Entry) -> int:
             n *= sizes[a]
         return n
     return sizes[entry]
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisSizes:
+    """A mesh as its axis sizes alone (what the rules read), e.g.
+    ``AxisSizes({"data": 2, "model": 4})``: reckoning with no device."""
+
+    shape: dict
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return tuple(self.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +293,20 @@ def _entry_axes(entry: Entry) -> tuple[str, ...]:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
+def sharded_over(spec: Spec, axis: str) -> bool:
+    """Whether ``spec`` shards a dim over ``axis``."""
+    return any(axis in _entry_axes(e) for e in spec)
+
+
+def without_axis(spec: Spec, axis: str) -> Spec:
+    """``spec`` with ``axis`` taken out of every entry (a ``model`` shard's
+    own slicing over the other axes)."""
+    def drop(entry):
+        axes = tuple(a for a in _entry_axes(entry) if a != axis)
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+    return Spec(tuple(drop(e) for e in spec))
+
+
 def placements(spec: Spec, mesh: DeviceMesh) -> tuple:
     """The ``DTensor`` placements of ``spec`` on ``mesh``: ``Shard(dim)`` on
     each mesh dim whose axis shards tensor dim ``dim``, ``Replicate()`` on
@@ -422,3 +455,115 @@ def full(leaf: Any) -> torch.Tensor:
     if isinstance(leaf, DTensor):
         return leaf.full_tensor()
     return leaf
+
+
+# ---------------------------------------------------------------------------
+# Compute views: what each ``model`` rank computes with
+# ---------------------------------------------------------------------------
+
+Range = tuple[int, int]
+
+
+def split_range(n: int, m: int, j: int) -> Range:
+    """Rank ``j``'s block of ``n`` items over ``m`` ranks, contiguous, the
+    first ``n % m`` blocks one longer (``numpy.array_split``)."""
+    k, extra = divmod(n, m)
+    lo = j * k + min(j, extra)
+    return lo, lo + k + (j < extra)
+
+
+def head_split(n_heads: int, n_groups: int, m: int, j: int
+               ) -> tuple[Range, Range] | None:
+    """(heads, groups) that ``model`` rank ``j`` of ``m`` computes, for
+    ``n_heads`` heads in ``n_groups`` groups of consecutive heads (GQA's
+    query heads over KV heads; an SSM's heads over its B/C groups).
+
+    * ``n_groups`` >= m: whole groups, as evenly as they go (hymba's 5 KV
+      heads over 2 ranks: 3 and 2 groups, 15 and 10 query heads);
+    * fewer groups, ``m`` a multiple of them: each group's heads split over
+      m / n_groups ranks, and a rank reads its one group, computed
+      whole (gemma3-1b's 4 query heads over 1 KV head at 2 ranks: 2 each);
+    * otherwise None: the block runs whole on every rank."""
+    if m == 1:
+        return (0, n_heads), (0, n_groups)
+    per = n_heads // n_groups
+    if n_groups >= m:
+        g0, g1 = split_range(n_groups, m, j)
+        return (g0 * per, g1 * per), (g0, g1)
+    r = m // n_groups
+    if m % n_groups or per < r:
+        return None
+    g = j // r
+    a, b = split_range(per, r, j % r)
+    return (g * per + a, g * per + b), (g, g + 1)
+
+
+def attn_view(n_heads: int, n_kv_heads: int, head_dim: int, m: int, j: int
+              ) -> dict[str, Any] | None:
+    """Attention's view on rank ``j`` of ``m``: its query and KV heads and
+    the column ranges of ``wq``, ``wk``, ``wv`` and row ranges of ``wo``;
+    None where the heads do not split (the block runs whole)."""
+    split = head_split(n_heads, n_kv_heads, m, j)
+    if split is None:
+        return None
+    (h0, h1), (k0, k1) = split
+    d = head_dim
+    q, kv = ((h0 * d, h1 * d),), ((k0 * d, k1 * d),)
+    return {"heads": (h0, h1), "kv_heads": (k0, k1),
+            "wq": q, "wk": kv, "wv": kv, "wo": q}
+
+
+def ssm_view(d_inner: int, head_dim: int, state_dim: int, n_groups: int,
+             m: int, j: int) -> dict[str, Any] | None:
+    """The Mamba2 mixer's view on rank ``j`` of ``m``: its heads, its B/C
+    groups (with one group, the group every head reads), and the ranges
+    of the packed leaves: ``in_proj``'s columns [z | x | B | C | dt],
+    ``conv_w``'s and ``conv_b``'s [x | B | C], and ``inner``, the d_inner
+    range of z, y, the gated norm's scale and ``out_proj``'s rows; None
+    where the heads do not split."""
+    split = head_split(d_inner // head_dim, n_groups, m, j)
+    if split is None:
+        return None
+    (h0, h1), (g0, g1) = split
+    di, p, n = d_inner, head_dim, state_dim
+    gn = n_groups * n
+    x = (h0 * p, h1 * p)
+    bc = (g0 * n, g1 * n)
+
+    def at(base, r):
+        return (base + r[0], base + r[1])
+
+    return {"heads": (h0, h1), "groups": (g0, g1), "inner": (x,),
+            "in_proj": (x, at(di, x), at(2 * di, bc), at(2 * di + gn, bc),
+                        at(2 * di + 2 * gn, (h0, h1))),
+            "conv": (x, at(di, bc), at(di + gn, bc))}
+
+
+def hidden_view(n: int, m: int, j: int) -> tuple[Range]:
+    """The hidden units (an MLP's, an expert's) rank ``j`` of ``m``
+    computes: its block of ``n``, which is its stored shard where ``m``
+    divides ``n``."""
+    return (split_range(n, m, j),)
+
+
+def vocab_view(cfg: Any, m: int) -> dict[str, str]:
+    """How the rules store the embedding (``"embed"``) and the head
+    (``"head"``) on ``m`` model ranks, and so how they are computed:
+    ``"vocab"`` (rows of ``embed``, columns of ``lm_head``: a masked lookup
+    and a vocab-parallel cross entropy), ``"d"`` (the odd-vocab fallback:
+    ``embed``'s d columns; a gathered lookup, and for a tied head logits
+    summed over ``model``) or ``"whole"`` (computed whole on every rank;
+    both, with one rank)."""
+    if m == 1:
+        return {"embed": "whole", "head": "whole"}
+    sizes = AxisSizes({"model": m})
+    v, d = cfg.padded_vocab, cfg.d_model
+    embed = fit_spec(param_spec(["embed"], 2), (v, d), sizes)
+    kinds = {"embed": "vocab" if embed[0] == "model" else
+             "d" if embed[1] == "model" else "whole"}
+    if cfg.tie_embeddings:
+        kinds["head"] = kinds["embed"]
+    else:
+        head = fit_spec(param_spec(["lm_head"], 2), (d, v), sizes)
+        kinds["head"] = "vocab" if head[1] == "model" else "whole"
+    return kinds

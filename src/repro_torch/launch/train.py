@@ -30,9 +30,11 @@ data size (:func:`repro_torch.train.step.train_memory_gb`), and held
 against the card's: a model that does not fit is refused before anything
 is allocated, naming the data size that would fit (olmoe-1b-7b at full
 depth: 8), or, where none does (internvl2-26b: its replicated parameters
-and gradients alone are 159 GB), part 2 of the multi-device layer.  Runs
-under the PaPaS engine like any program, e.g. a study with ``command:
-python -m repro_torch.launch.train --lr ${args:lr}``.
+and gradients alone are 159 GB), the (data, model) mesh whose tensor
+parallelism would fit it, which this entry point does not run yet (see
+:data:`PART_3`).  Runs under the PaPaS engine like any program, e.g. a
+study with ``command: python -m repro_torch.launch.train --lr
+${args:lr}``.
 """
 from __future__ import annotations
 
@@ -51,12 +53,18 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import local_world, make_local_mesh
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.train.step import (
-    PART_2, TrainStepConfig, init_train_state, make_train_step, train_memory_gb,
+    TrainStepConfig, init_train_state, make_train_step, train_memory_gb,
 )
 
 #: the data sizes the refusal names (powers of two: they divide the batch
 #: and the leaves ZeRO-1 shards)
 DATA_SIZES = tuple(2 ** i for i in range(11))
+#: the model sizes it reckons with where no data size fits
+MODEL_SIZES = (2, 4, 8, 16)
+#: what the multi-device layer leaves to its third part, named by the refusal
+PART_3 = ("launch.train on a (data, model) mesh is part 3 of the multi-device "
+          "layer, not ported yet (the step, repro_torch.train.step, runs it: "
+          "see scripts/tp_across_cards.py)")
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -110,17 +118,32 @@ def _refuse_unless_fits(cfg, dev: torch.device, data: int) -> None:
         return
     fits = next((n for n in DATA_SIZES if n > data
                  and train_memory_gb(cfg, n)["total_gb"] <= have), None)
-    remedy = (f"it fits at a data size of {fits} (torchrun --nproc-per-node "
-              f"{fits}, one card a rank)" if fits else
-              f"no data size fits (the replicated fp32 parameters and "
-              f"gradients alone are {need['replicated_gb']:.1f} GB); it needs "
-              f"{PART_2}")
+    if fits:
+        remedy = (f"it fits at a data size of {fits} (torchrun --nproc-per-node "
+                  f"{fits}, one card a rank)")
+    else:
+        remedy = (f"no data size fits (the replicated fp32 parameters and "
+                  f"gradients alone are {need['replicated_gb']:.1f} GB); "
+                  f"{_tensor_parallel_fit(cfg, have)}; {PART_3}")
     raise SystemExit(
         f"{cfg.name}: training needs ~{need['total_gb']:.1f} GB a device at a "
         f"data size of {data} ({need['state_gb']:.1f} GB of fp32 state for "
         f"{cfg.param_count():,} parameters, {need['update_gb']:.1f} GB of "
         f"optimizer temporaries, {need['activation_gb']:.1f} GB of "
         f"activations); the card has {have:.1f} GB; {remedy}")
+
+
+def _tensor_parallel_fit(cfg, have: float) -> str:
+    """The fewest cards whose (data, model) mesh fits ``cfg`` (the smallest
+    model axis first), or that none of MODEL_SIZES does."""
+    meshes = sorted(((d * m, m, d) for m in MODEL_SIZES for d in DATA_SIZES
+                     if train_memory_gb(cfg, d, m)["total_gb"] <= have))
+    if not meshes:
+        return f"no (data, model) mesh up to model {MODEL_SIZES[-1]} fits"
+    cards, m, d = meshes[0]
+    gb = train_memory_gb(cfg, d, m)["total_gb"]
+    return (f"tensor parallelism fits it on {cards} cards at (data {d}, model "
+            f"{m}), ~{gb:.1f} GB a device")
 
 
 def _train(args, cfg, mesh) -> tuple[dict, dict]:

@@ -11,11 +11,20 @@ Port of ``repro.models.attention``.  Shapes: q (B,S,Hq,D); k,v
 ``attn_block`` sends prefill attention on a CUDA tensor to the
 flash-attention kernel, whatever ``use_kernels`` says; on a CPU tensor it
 takes the reference's branches exactly.
+
+Under an ambient mesh with M > 1 ``model`` ranks (prefill and training;
+decode stays at one), each rank computes the query heads that
+:func:`repro_torch.distributed.sharding.attn_view` gives it, whole KV
+groups or, with fewer KV heads than ranks, part of one group whose KV
+head it computes whole; RoPE and ``qk_norm`` see whole heads.  Where the
+heads do not split, every rank runs the block whole.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import flash_attention as fa
 
 from .layers import apply_rope, as_dtype, cast, rms_norm, scalar
@@ -196,11 +205,17 @@ def attn_block(
     compute_dtype: str | torch.dtype = torch.bfloat16,
     use_kernels: bool = False,
     cache: dict | None = None,
+    seq: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     """Complete attention sub-layer.  With ``cache`` (decode), x is
     (B,1,d) and the cache tensors are written in place at ``cache['pos']``
-    (a Python int), where the reference returns updated copies."""
+    (a Python int), where the reference returns updated copies.  With M >
+    1 ``model`` ranks the parameters are this rank's stored shards and
+    ``seq`` says x (and the output) is its sequence shard."""
     cd = as_dtype(compute_dtype)
+    m = mesh_ctx.axis_size("model")
+    p, x, n_heads, n_kv_heads, leave = _tp_view(
+        p, x, m, n_heads, n_kv_heads, head_dim, seq, cache is not None)
     b, s, _ = x.shape
     xc = cast(x, cd)
     q = (xc @ cast(p["wq"], cd)).reshape(b, s, n_heads, head_dim)
@@ -246,4 +261,36 @@ def attn_block(
         out = full_attention(q, k, v, causal=True, softcap=softcap,
                              q_chunk=q_chunk)
     out = out.reshape(b, s, n_heads * head_dim)
-    return out @ cast(p["wo"], cd), new_cache
+    return leave(out @ cast(p["wo"], cd)), new_cache
+
+
+def _tp_view(p: dict[str, torch.Tensor], x: torch.Tensor, m: int, n_heads: int,
+             n_kv_heads: int, head_dim: int, seq: bool, decode: bool):
+    """(parameters, x, query heads, KV heads, the output's way out) of this
+    ``model`` rank: with one rank, all as given and the identity."""
+    if m == 1:
+        return p, x, n_heads, n_kv_heads, lambda y: y
+    if decode:
+        raise NotImplementedError(
+            f"decode under a model axis of {m}: decode runs at one model rank "
+            "(the cache placements' decode is part 3 of the multi-device layer)")
+    view = shd.attn_view(n_heads, n_kv_heads, head_dim, m, mesh_ctx.model_rank())
+    sliced = view is not None
+    q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim
+    # (dim, whole size) of each leaf; q_norm and k_norm: every head reads them
+    where = {"wq": (-1, q_dim), "wk": (-1, kv_dim), "wv": (-1, kv_dim),
+             "wo": (-2, q_dim), "q_norm": (0, head_dim), "k_norm": (0, head_dim)}
+
+    def one(key, w):
+        dim, size = where[key]
+        ranges = view[key] if sliced and key in view else ((0, size),)
+        return mesh_ctx.model_view(w, dim, ranges, size, sliced=sliced)
+
+    local = {k: one(k, w) for k, w in p.items()}
+    if not sliced:
+        return (local, mesh_ctx.enter_replicated(x, seq), n_heads, n_kv_heads,
+                lambda y: mesh_ctx.leave_replicated(y, seq))
+    (h0, h1), (k0, k1) = view["heads"], view["kv_heads"]
+    return (local, mesh_ctx.enter(x, seq), h1 - h0, k1 - k0,
+            lambda y: mesh_ctx.leave(y, seq))
+

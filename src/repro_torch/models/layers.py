@@ -3,11 +3,21 @@
 Port of ``repro.models.layers``.  Functions on tensors; parameters are
 plain dicts.  Parameters are stored in ``param_dtype`` and cast to
 ``compute_dtype`` at the point of use, where the reference casts them.
+
+Under an ambient mesh with a ``model`` axis of M > 1 ranks (tensor
+parallelism, :mod:`repro_torch.distributed.context`), the parameters are
+this rank's stored shards: :func:`mlp` computes its block of the hidden
+units (Megatron's f before, g after) and :func:`embed_tokens` looks up the
+tokens of its rows (zeros for the others, then g) or, for a table whose d
+columns are sharded, gathers the looked-up columns.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import sharding as shd
 
 
 def as_dtype(dtype: str | torch.dtype) -> torch.dtype:
@@ -89,17 +99,34 @@ def _act(name: str):
 
 
 def mlp(x: torch.Tensor, p: dict[str, torch.Tensor], act: str,
-        compute_dtype: str | torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Gated (SwiGLU/GeGLU) or plain two-layer MLP."""
+        compute_dtype: str | torch.dtype = torch.bfloat16, *, d_ff: int = 0,
+        seq: bool = False) -> torch.Tensor:
+    """Gated (SwiGLU/GeGLU) or plain two-layer MLP.  With M > 1 ``model``
+    ranks each computes its block of the ``d_ff`` hidden units between
+    :func:`~repro_torch.distributed.context.enter` and ``leave`` (``seq``:
+    x is this rank's sequence shard, and so is the output).  ``d_ff`` is
+    the whole leaf's hidden size; with one rank the leaves are used whole
+    and it may be left 0."""
     fn = _act(act)
     cd = as_dtype(compute_dtype)
-    xc = cast(x, cd)
+    m = mesh_ctx.axis_size("model")
+    if m > 1 and d_ff < 1:
+        raise ValueError(f"mlp over {m} model ranks needs the whole hidden "
+                         f"size d_ff, got {d_ff}")
+    hid = shd.hidden_view(d_ff, m, mesh_ctx.model_rank())
+
+    def w(key, dim):
+        return cast(mesh_ctx.model_view(p[key], dim, hid, d_ff), cd)
+
+    xc = cast(mesh_ctx.enter(x, seq), cd)
     if act == "gelu_nogate":
-        h = fn(xc @ cast(p["wi"], cd) + cast(p["bi"], cd))
-        return h @ cast(p["wo"], cd) + cast(p["bo"], cd)
-    gate = xc @ cast(p["wi_gate"], cd)
-    up = xc @ cast(p["wi_up"], cd)
-    return (fn(gate) * up) @ cast(p["wo"], cd)
+        h = fn(xc @ w("wi", -1) + w("bi", -1))
+        # bo acts on the stream: on a sequence shard, through f
+        bo = mesh_ctx.model_copy(p["bo"]) if seq else p["bo"]
+        return mesh_ctx.leave(h @ w("wo", -2), seq) + cast(bo, cd)
+    gate = xc @ w("wi_gate", -1)
+    up = xc @ w("wi_up", -1)
+    return mesh_ctx.leave((fn(gate) * up) @ w("wo", -2), seq)
 
 
 # ---------------------------------------------------------------------------
@@ -107,13 +134,33 @@ def mlp(x: torch.Tensor, p: dict[str, torch.Tensor], act: str,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, scale: bool,
-                 compute_dtype: str | torch.dtype = torch.bfloat16
-                 ) -> torch.Tensor:
-    x = cast(table[tokens], compute_dtype)
+                 compute_dtype: str | torch.dtype = torch.bfloat16,
+                 layout: str = "whole") -> torch.Tensor:
+    """The rows of ``tokens``, in the compute dtype (times sqrt(d) with
+    ``scale``).  ``layout`` is how this ``model`` rank holds the table
+    (:func:`repro_torch.distributed.sharding.vocab_view`): ``"whole"``,
+    ``"vocab"`` (its block of rows: it looks up the tokens in its range,
+    zeros for the others, then g) or ``"d"`` (its block of d columns: the
+    looked-up columns are gathered)."""
+    if layout == "vocab":
+        rows = table.shape[0]
+        local = tokens - mesh_ctx.model_rank() * rows
+        mine = (local >= 0) & (local < rows)
+        x = cast(table[local.clamp(0, rows - 1)], compute_dtype)
+        x = torch.where(mine[..., None], x, 0.0)
+        return mesh_ctx.model_sum(_scaled(x, scale, table.shape[-1]))
+    if layout == "d":
+        d = table.shape[-1] * mesh_ctx.axis_size("model")
+        x = _scaled(cast(table[tokens], compute_dtype), scale, d)
+        return mesh_ctx.model_gather(x, -1, summed=False)
+    return _scaled(cast(table[tokens], compute_dtype), scale, table.shape[-1])
+
+
+def _scaled(x: torch.Tensor, scale: bool, d: int) -> torch.Tensor:
     if scale:
         # sqrt(d) rounded to the compute dtype first: 34.0, not 33.94, in
         # bf16 at d = 1152 (reference layers.py:120)
-        x = x * scalar(table.shape[-1] ** 0.5, x)
+        x = x * scalar(d ** 0.5, x)
     return x
 
 

@@ -46,6 +46,14 @@ Over a data axis of D > 1 each aux value is this rank's *share*: the sum
 over the data ranks is the value (the train step sums them, with the
 gradients).  With no mesh, or a data axis of 1, the numbers are the
 single-device ones.
+
+Tensor parallelism over M > 1 ``model`` ranks: the router and the tokens
+are the same on every ``model`` rank, so is the routing; each rank runs
+the three products on its block of every expert's hidden units
+(``(E, ·, d)·(E, d, f/M)``), the rows and the combine weights entering
+through f, and the partial outputs are summed (g; with sequence-parallel
+activations the tokens are all-gathered first and the sum is a
+reduce-scatter).  The shared expert is a tensor-parallel MLP.
 """
 from __future__ import annotations
 
@@ -54,6 +62,7 @@ from typing import Any
 import torch
 
 from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import moe_gmm
 
 from .layers import _act, as_dtype, cast, mlp
@@ -150,14 +159,17 @@ def _route(x: torch.Tensor, w_router: torch.Tensor, top_k: int,
 
 
 def _expert_rows(x: torch.Tensor, p: dict[str, Any], top_idx: torch.Tensor,
-                 n_experts: int, act: str, cd: torch.dtype) -> torch.Tensor:
+                 n_experts: int, act: str, cd: torch.dtype,
+                 tp: bool = False) -> torch.Tensor:
     """Each (token, k) row through its expert's gated FFN: (T·K, d) in the
     compute dtype, in (token, k) order.  The rows go through the grouped
-    GEMMs sorted by expert; the group sizes are counted on the device."""
+    GEMMs sorted by expert; the group sizes are counted on the device.
+    With ``tp`` the experts are this rank's hidden block (the rows enter
+    through f; the output is this rank's partial sum)."""
     k = top_idx.shape[1]
     flat_expert = top_idx.reshape(-1)
     order = torch.argsort(flat_expert, stable=True)
-    xs = cast(x, cd).index_select(0, order // k)
+    xs = cast(mesh_ctx.model_copy(x) if tp else x, cd).index_select(0, order // k)
     sizes = torch.zeros(n_experts, dtype=torch.int32, device=x.device).scatter_add(
         0, flat_expert, torch.ones_like(flat_expert, dtype=torch.int32))
     fn = _act(act)
@@ -188,12 +200,15 @@ def moe_ragged(x: torch.Tensor, p: dict[str, Any], *, n_experts: int,
 def moe_einsum(x: torch.Tensor, p: dict[str, Any], *, n_experts: int,
                top_k: int, capacity_factor: float, act: str,
                router_renorm: bool, groups: int,
-               compute_dtype: str | torch.dtype = torch.bfloat16
+               compute_dtype: str | torch.dtype = torch.bfloat16,
+               tp: bool = False
                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """GShard capacity dispatch.  Tokens split into G groups of Tg;
     capacity per group and expert as the reference's.  x (T,d) → (out
     (T,d) in x's dtype, aux with ``dropped``, the mean share of a token's
-    k slots over capacity)."""
+    k slots over capacity).  With ``tp`` the experts are this ``model``
+    rank's hidden block and ``out`` is its partial sum in fp32 (the caller
+    sums it over ``model``)."""
     t, d = x.shape
     cd = as_dtype(compute_dtype)
     t_total = t * mesh_ctx.dp_size()            # the global batch's tokens
@@ -208,11 +223,13 @@ def moe_einsum(x: torch.Tensor, p: dict[str, Any], *, n_experts: int,
     keep = _queue_positions(top_idx, n_experts, tg, g) < capacity
     # combine weights in the compute dtype; the sum over k rounded to it
     weight = torch.where(keep, top_p, 0.0).to(cd)
-    h = _expert_rows(x, p, top_idx, n_experts, act, cd)
+    h = _expert_rows(x, p, top_idx, n_experts, act, cd, tp)
+    if tp:
+        weight = mesh_ctx.model_copy(weight)
     out = (h.float().view(t, top_k, d) * weight.float()[..., None]).sum(dim=1)
     aux = _aux_losses(probs, logits, top_idx, n_experts, top_k,
                       1.0 - keep.float().sum(dim=-1) / top_k)
-    return out.to(cd).to(x.dtype), aux
+    return (out if tp else out.to(cd).to(x.dtype)), aux
 
 
 def moe_sorted_local(x: torch.Tensor, p: dict[str, Any], *, n_experts: int,
@@ -233,8 +250,9 @@ def moe_sorted_local(x: torch.Tensor, p: dict[str, Any], *, n_experts: int,
 
     With ``tp`` the expert weights are this rank's ``model`` slice of their
     hidden size: the rows entering the products and the combine weights go
-    through Megatron's f (their gradients summed over ``model``), and the
-    caller sums the output over ``model``."""
+    through Megatron's f (their gradients summed over ``model``), and
+    ``out`` is this rank's partial sum in fp32, which the caller sums over
+    ``model``."""
     t, d = x.shape
     cd = as_dtype(compute_dtype)
     probs, logits, top_p, top_idx = _route(x, p["router"], top_k, router_renorm)
@@ -271,54 +289,89 @@ def moe_sorted_local(x: torch.Tensor, p: dict[str, Any], *, n_experts: int,
         "router_z": router_z_loss(logits),
         "dropped": 1.0 - keep.float().mean(),
     }
-    return out.to(x.dtype), aux
+    return (out if tp else out.to(x.dtype)), aux
+
+
+def _expert_view(p: dict[str, Any], moe_d_ff: int) -> dict[str, Any]:
+    """The router and this ``model`` rank's hidden block of every expert,
+    from leaves stored whole or as the rules' ``model`` shards of an
+    expert hidden size ``moe_d_ff`` (with one rank: the leaves whole, and
+    ``moe_d_ff`` may be 0)."""
+    m = mesh_ctx.axis_size("model")
+    if m > 1 and moe_d_ff < 1:
+        raise ValueError(f"experts over {m} model ranks need the whole hidden "
+                         f"size moe_d_ff, got {moe_d_ff}")
+    hid = shd.hidden_view(moe_d_ff, m, mesh_ctx.model_rank())
+    out = {"router": p["router"],
+           "wi_gate": mesh_ctx.model_view(p["wi_gate"], -1, hid, moe_d_ff),
+           "wi_up": mesh_ctx.model_view(p["wi_up"], -1, hid, moe_d_ff),
+           "wo": mesh_ctx.model_view(p["wo"], -2, hid, moe_d_ff)}
+    ffm = out["wo"].shape[-2]
+    if out["wi_gate"].shape[-1] != ffm or out["wi_up"].shape[-1] != ffm:
+        raise ValueError(f"expert slices disagree: wi_gate {tuple(p['wi_gate'].shape)}, "
+                         f"wi_up {tuple(p['wi_up'].shape)}, wo {tuple(p['wo'].shape)}")
+    return out
 
 
 def moe_ragged_sharded(x: torch.Tensor, p: dict[str, Any], *, n_experts: int,
                        top_k: int, act: str, router_renorm: bool,
-                       compute_dtype: str | torch.dtype
+                       compute_dtype: str | torch.dtype, moe_d_ff: int,
+                       seq: bool = False
                        ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The ragged dispatch on the ambient mesh (the reference's
     ``shard_map``): a sort per rank, capacity-padded, so rows past Cl
-    drop.  x (B,S,d) is this rank's data shard;
-    ``wi_gate``/``wi_up`` (E, d, f/M) and ``wo`` (E, f/M, d) are its
-    ``model`` slice of M.  Each rank sorts its own tokens
-    (:func:`moe_sorted_local`), the output is summed over ``model``
-    (Megatron's g), and the aux losses are each rank's own statistics
-    averaged over data (the reference's ``pmean``; over D > 1 each rank
-    returns its share, aux / D)."""
+    drop.  x (B,S,d) is this rank's data shard (with ``seq``, its
+    sequence shard, all-gathered first); ``wi_gate``/``wi_up`` (E, d, f)
+    and ``wo`` (E, f, d) of ``f = moe_d_ff`` are stored whole or as the
+    rules' ``model`` shards, from which its slice is taken.  Each
+    rank sorts its own tokens (:func:`moe_sorted_local`), the output is
+    summed over ``model`` (Megatron's g), and the aux losses are each
+    rank's own statistics averaged over data (the reference's ``pmean``;
+    over D > 1 each rank returns its share, aux / D)."""
     m = mesh_ctx.axis_size("model")
-    ffm = p["wo"].shape[-2]
-    if p["wi_gate"].shape[-1] != ffm or p["wi_up"].shape[-1] != ffm:
-        raise ValueError(f"expert slices disagree: wi_gate {tuple(p['wi_gate'].shape)}, "
-                         f"wi_up {tuple(p['wi_up'].shape)}, wo {tuple(p['wo'].shape)}")
-    b, s, d = x.shape
+    xr = mesh_ctx.enter_replicated(x, seq)
+    b, s, d = xr.shape
     out, aux = moe_sorted_local(
-        x.reshape(b * s, d), p, n_experts=n_experts, top_k=top_k, act=act,
-        router_renorm=router_renorm, compute_dtype=compute_dtype, tp=m > 1)
-    out = mesh_ctx.model_sum(out.float())
+        xr.reshape(b * s, d), _expert_view(p, moe_d_ff), n_experts=n_experts,
+        top_k=top_k, act=act, router_renorm=router_renorm,
+        compute_dtype=compute_dtype, tp=m > 1)
+    out = mesh_ctx.leave(out.float().reshape(b, s, d), seq)
     dp = mesh_ctx.dp_size()
     if dp > 1:
         aux = {k: v / dp for k, v in aux.items()}
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return out.to(x.dtype), aux
 
 
 def moe_block(x: torch.Tensor, p: dict[str, Any], *, n_experts: int,
               n_shared: int, top_k: int, capacity_factor: float, act: str,
               router_renorm: bool, dispatch: str, groups: int,
-              compute_dtype: str | torch.dtype = torch.bfloat16
+              compute_dtype: str | torch.dtype = torch.bfloat16,
+              moe_d_ff: int = 0, d_ff: int = 0, seq: bool = False
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Full MoE FFN: routed experts (+ the shared expert, gated per token
     by an fp32 sigmoid, where ``n_shared``).  x (B,S,d) → (out (B,S,d),
     aux: load_balance, router_z, dropped).  ``ragged`` under a mesh with a
-    ``model`` axis takes :func:`moe_ragged_sharded`, as the reference."""
+    ``model`` axis takes :func:`moe_ragged_sharded`, as the reference.
+    With M > 1 ``model`` ranks the experts' hidden size ``moe_d_ff`` and
+    the shared expert's ``d_ff`` are split (module docstring); ``seq``
+    says x (and the output) is this rank's sequence shard."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     if dispatch == "ragged" and "model" in mesh_ctx.mesh_axis_names():
         out, aux = moe_ragged_sharded(
             x, p, n_experts=n_experts, top_k=top_k, act=act,
-            router_renorm=router_renorm, compute_dtype=compute_dtype)
+            router_renorm=router_renorm, compute_dtype=compute_dtype,
+            moe_d_ff=moe_d_ff, seq=seq)
         out = out.reshape(b * s, d)
+    elif mesh_ctx.axis_size("model") > 1:
+        xr = mesh_ctx.enter_replicated(x, seq)
+        out, aux = moe_einsum(
+            xr.reshape(-1, d), _expert_view(p, moe_d_ff), n_experts=n_experts,
+            top_k=top_k, capacity_factor=capacity_factor, act=act,
+            router_renorm=router_renorm, groups=groups,
+            compute_dtype=compute_dtype, tp=True)
+        out = mesh_ctx.leave(out.view(xr.shape), seq)
+        out = out.to(as_dtype(compute_dtype)).to(x.dtype).reshape(b * s, d)
     elif dispatch == "ragged":
         out, aux = moe_ragged(
             flat, p, n_experts=n_experts, top_k=top_k, act=act,
@@ -331,7 +384,9 @@ def moe_block(x: torch.Tensor, p: dict[str, Any], *, n_experts: int,
             compute_dtype=compute_dtype)
     if n_shared:
         sp = p["shared"]
-        shared = mlp(flat, sp, act, compute_dtype)
-        gate = torch.sigmoid(flat.float() @ sp["gate"].float())
+        shared = mlp(flat, sp, act, compute_dtype, d_ff=d_ff, seq=seq)
+        # the token gate acts on the stream: on a sequence shard, through f
+        gate_w = mesh_ctx.model_copy(sp["gate"]) if seq else sp["gate"]
+        gate = torch.sigmoid(flat.float() @ gate_w.float())
         out = out + (shared.float() * gate).to(out.dtype)
     return out.reshape(b, s, d), aux

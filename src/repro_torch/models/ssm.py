@@ -16,6 +16,14 @@ h // (H/G), nothing is repeated to H heads.
 
 Block layout follows mamba_ssm's Mamba2: fused in_proj → causal depthwise
 conv over (x,B,C) → SSD → gated RMSNorm → out_proj.
+
+Under an ambient mesh with M > 1 ``model`` ranks (prefill and training),
+each rank runs the heads :func:`repro_torch.distributed.sharding.ssm_view`
+gives it: its z, x and dt columns of the packed ``in_proj`` and its x
+columns of the conv, the B and C of the groups those heads read (with one
+group, B and C whole), its slice of ``A_log``, ``D`` and ``dt_bias``; the
+gated norm's sum of squares is summed over ``model`` before the rsqrt, and
+``out_proj``'s rows give partial sums (g).
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ssd_scan as kssd
 
 from .layers import as_dtype, cast, rms_norm
@@ -138,10 +148,16 @@ def mamba2_block(
     compute_dtype: str | torch.dtype = torch.bfloat16,
     cache: dict[str, Any] | None = None,
     use_kernels: bool = False,
+    seq: bool = False,
 ) -> tuple[torch.Tensor, dict[str, Any] | None]:
     """Mamba2 mixer.  With ``cache`` performs one decode step (S==1) and
-    returns the new conv and SSM states (the caller stores them)."""
+    returns the new conv and SSM states (the caller stores them).  With M
+    > 1 ``model`` ranks the parameters are this rank's stored shards and
+    ``seq`` says x (and the output) is its sequence shard."""
     cd = as_dtype(compute_dtype)
+    full_inner = d_inner
+    p, x, d_inner, n_groups, leave, sliced = _tp_view(
+        p, x, d_inner, state_dim, head_dim, n_groups, seq, cache is not None)
     bsz, s, _ = x.shape
     n_heads = d_inner // head_dim
     gn = n_groups * state_dim
@@ -183,8 +199,56 @@ def mamba2_block(
     y = y.reshape(bsz, s, d_inner)
     # gated RMSNorm (mamba2: norm(y * silu(z)))
     y = y.float() * F.silu(z.float())
-    y = rms_norm(y.to(cd), p["norm"], 1e-5)
-    return y @ cast(p["out_proj"], cd), new_cache
+    y = _gated_norm(y.to(cd), p["norm"], 1e-5, full_inner, sliced)
+    return leave(y @ cast(p["out_proj"], cd)), new_cache
+
+
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float, d_inner: int,
+                sliced: bool) -> torch.Tensor:
+    """The gated RMSNorm over ``d_inner`` channels; on a ``model`` rank's
+    slice of them, with the sum of squares summed over ``model``."""
+    if not sliced:
+        return rms_norm(y, scale, eps)
+    y32 = y.float()
+    var = mesh_ctx.model_stat_sum(y32.square().sum(dim=-1, keepdim=True)) / d_inner
+    return (y32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(y.dtype)
+
+
+def _tp_view(p: dict[str, Any], x: torch.Tensor, d_inner: int, state_dim: int,
+             head_dim: int, n_groups: int, seq: bool, decode: bool):
+    """(parameters, x, d_inner, groups, the output's way out, sliced) of
+    this ``model`` rank: with one rank, all as given."""
+    m = mesh_ctx.axis_size("model")
+    if m == 1:
+        return p, x, d_inner, n_groups, lambda y: y, False
+    if decode:
+        raise NotImplementedError(
+            f"decode under a model axis of {m}: decode runs at one model rank "
+            "(the cache placements' decode is part 3 of the multi-device layer)")
+    h = d_inner // head_dim
+    gn = n_groups * state_dim
+    view = shd.ssm_view(d_inner, head_dim, state_dim, n_groups, m,
+                        mesh_ctx.model_rank())
+    sliced = view is not None
+    conv_ch, in_ch = d_inner + 2 * gn, 2 * d_inner + 2 * gn + h
+    if sliced:
+        (h0, h1), (g0, g1) = view["heads"], view["groups"]
+        heads, inner = ((h0, h1),), view["inner"]
+        in_r, conv_r = view["in_proj"], view["conv"]
+    else:
+        heads, inner = ((0, h),), ((0, d_inner),)
+        in_r, conv_r = ((0, in_ch),), ((0, conv_ch),)
+    where = {"in_proj": (-1, in_r, in_ch), "conv_w": (-1, conv_r, conv_ch),
+             "conv_b": (-1, conv_r, conv_ch), "norm": (-1, inner, d_inner),
+             "out_proj": (-2, inner, d_inner), "A_log": (-1, heads, h),
+             "D": (-1, heads, h), "dt_bias": (-1, heads, h)}
+    local = {k: mesh_ctx.model_view(w, where[k][0], where[k][1], where[k][2],
+                                    sliced=sliced) for k, w in p.items()}
+    if not sliced:
+        return (local, mesh_ctx.enter_replicated(x, seq), d_inner, n_groups,
+                lambda y: mesh_ctx.leave_replicated(y, seq), False)
+    return (local, mesh_ctx.enter(x, seq), (h1 - h0) * head_dim, g1 - g0,
+            lambda y: mesh_ctx.leave(y, seq), True)
 
 
 def init_ssm_cache(bsz: int, d_inner: int, state_dim: int, head_dim: int,

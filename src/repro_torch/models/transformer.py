@@ -16,6 +16,21 @@ carry does, and ``loss_fn`` adds them to the masked cross entropy; each
 layer runs under ``torch.utils.checkpoint`` as ``cfg.remat`` says (the
 reference's ``jax.checkpoint``).  A gang's members (``members=True``)
 are stacked on a leading axis of every leaf and run in one batched pass.
+
+Under an ambient mesh with M > 1 ``model`` ranks (tensor parallelism) the
+parameters are each rank's stored shards (the sharding rules), the
+residual stream is the same on every ``model`` rank, and each block
+computes its slice between Megatron's f and g (attention, the MLP, the
+experts, the Mamba2 mixer; a block whose heads do not split runs whole).
+The embedding looks up its rows and sums over ``model``; the head is
+vocab-parallel where the rules shard the vocabulary (a cross entropy over
+the local logit columns: the max, the sum of ``exp`` and the gold logit
+summed over ``model``), a product summed over ``model`` for a tied table
+whose d columns are sharded (an odd vocabulary), and whole otherwise.
+With ``seq_spec`` (sequence-parallel activations) each ``model`` rank
+holds the residual stream as its ``(B, S/M, d)`` shard between blocks:
+the norms run on the shard, each layer's checkpoint saves it, and f and g
+become an all-gather and a reduce-scatter over the sequence.
 """
 from __future__ import annotations
 
@@ -27,6 +42,8 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import sharding as shd
+from repro_torch.tree import tree_map
 
 from .attention import attn_block
 from .config import ArchConfig
@@ -284,6 +301,22 @@ def _zero_aux(device: torch.device | str, shape: tuple[int, ...] = ()
 # Layer body
 # ---------------------------------------------------------------------------
 
+#: a layer's leaves that act on the residual stream itself: with
+#: sequence-parallel activations they see this rank's shard of the tokens
+_STREAM_LEAVES = ("norm1", "norm2", "branch_norm_attn", "branch_norm_ssm")
+
+
+def _on_shard(lp: dict[str, Any], seq: bool) -> dict[str, Any]:
+    """A layer's parameters with the leaves that act on the residual
+    stream entering through f where the stream is this rank's sequence
+    shard (``seq``): each rank's tokens give them a part of their
+    gradient, summed over ``model``."""
+    if not seq:
+        return lp
+    return {k: (tree_map(mesh_ctx.model_copy, v) if k in _STREAM_LEAVES else v)
+            for k, v in lp.items()}
+
+
 def _norm(x: torch.Tensor, p: Any, eps: float) -> torch.Tensor:
     """LayerNorm for a ``{"scale", "bias"}`` dict (an ``enc`` layer's),
     RMSNorm for a scale (reference ``_norm``)."""
@@ -294,7 +327,8 @@ def _norm(x: torch.Tensor, p: Any, eps: float) -> torch.Tensor:
 
 def _attn_sublayer(cfg: ArchConfig, kind: str, h: torch.Tensor,
                    lp: dict[str, Any], positions: torch.Tensor,
-                   cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+                   cache: dict | None, seq: bool = False
+                   ) -> tuple[torch.Tensor, dict | None]:
     attn_kind = _ATTN_KIND.get(kind, kind)
     return attn_block(
         h, lp["attn"],
@@ -306,38 +340,44 @@ def _attn_sublayer(cfg: ArchConfig, kind: str, h: torch.Tensor,
         q_chunk=cfg.attn_q_chunk, softcap=cfg.logit_softcap,
         qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
         compute_dtype=cfg.compute_dtype, use_kernels=cfg.use_kernels,
-        cache=cache)
+        cache=cache, seq=seq)
 
 
 def _ssm_sublayer(cfg: ArchConfig, h: torch.Tensor, lp: dict[str, Any],
-                  cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+                  cache: dict | None, seq: bool = False
+                  ) -> tuple[torch.Tensor, dict | None]:
     return mamba2_block(
         h, lp["ssm"], d_inner=cfg.d_inner, state_dim=cfg.ssm_state,
         head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
         conv_width=cfg.ssm_conv, chunk=cfg.ssm_chunk,
         compute_dtype=cfg.compute_dtype, cache=cache,
-        use_kernels=cfg.use_kernels)
+        use_kernels=cfg.use_kernels, seq=seq)
 
 
 def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
                lp: dict[str, Any], positions: torch.Tensor,
-               cache: dict | None = None, moe_groups: int = 1
+               cache: dict | None = None, moe_groups: int = 1,
+               seq: bool = False
                ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None, dict | None]:
     """One layer: returns (x, aux, new_cache).  ``aux`` is None for a layer
     without an MoE FFN, whose aux losses are zero (the reference returns
     zeros; here serving then allocates nothing for them).  A hybrid
-    layer's cache is ``{"attn": {k, v, pos}, "ssm": {conv, ssm, pos}}``."""
+    layer's cache is ``{"attn": {k, v, pos}, "ssm": {conv, ssm, pos}}``.
+    ``seq``: x is this ``model`` rank's sequence shard (``positions``
+    stay the whole sequence's)."""
     eps = cfg.norm_eps
     aux = None
+    lp = _on_shard(lp, seq)
     h = _norm(x, lp["norm1"], eps)
     if kind == "ssm":
-        y, new_cache = _ssm_sublayer(cfg, h, lp, cache)
+        y, new_cache = _ssm_sublayer(cfg, h, lp, cache, seq)
         return x + y.to(x.dtype), aux, new_cache
     if kind in HYBRID_KINDS:
         a_out, attn_cache = _attn_sublayer(
-            cfg, kind, h, lp, positions, None if cache is None else cache["attn"])
+            cfg, kind, h, lp, positions, None if cache is None else cache["attn"],
+            seq)
         s_out, ssm_cache = _ssm_sublayer(
-            cfg, h, lp, None if cache is None else cache["ssm"])
+            cfg, h, lp, None if cache is None else cache["ssm"], seq)
         # hymba's fusion: the mean of the branches' normed outputs, the SSM
         # branch's cast to the attention's dtype before its norm
         y = 0.5 * (rms_norm(a_out, lp["branch_norm_attn"], eps)
@@ -346,7 +386,7 @@ def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
         new_cache = (None if cache is None
                      else {"attn": attn_cache, "ssm": ssm_cache})
     else:
-        a_out, new_cache = _attn_sublayer(cfg, kind, h, lp, positions, cache)
+        a_out, new_cache = _attn_sublayer(cfg, kind, h, lp, positions, cache, seq)
         x = x + a_out.to(x.dtype)
     h2 = _norm(x, lp["norm2"], eps)
     if kind == "moe":
@@ -355,9 +395,11 @@ def layer_body(cfg: ArchConfig, kind: str, x: torch.Tensor,
             n_shared=cfg.n_shared_experts, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, act=cfg.mlp_act,
             router_renorm=cfg.router_renorm, dispatch=cfg.moe_dispatch,
-            groups=moe_groups, compute_dtype=cfg.compute_dtype)
+            groups=moe_groups, compute_dtype=cfg.compute_dtype,
+            moe_d_ff=cfg.moe_d_ff, d_ff=cfg.d_ff, seq=seq)
     else:
-        f_out = mlp(h2, lp["mlp"], cfg.mlp_act, cfg.compute_dtype)
+        f_out = mlp(h2, lp["mlp"], cfg.mlp_act, cfg.compute_dtype, d_ff=cfg.d_ff,
+                    seq=seq)
     return x + f_out.to(x.dtype), aux, new_cache
 
 
@@ -373,13 +415,22 @@ def _embed_inputs(cfg: ArchConfig, params: dict[str, Any],
     ``frontend_proj`` followed by the token embeddings on the sequence axis
     (``mixed``: the patches take the first positions)."""
     cd = cfg.compute_dtype
+    layout = _vocab_view(cfg)["embed"]
     if cfg.input_mode == "tokens":
-        return embed_tokens(batch["tokens"], params["embed"], cfg.embed_scale, cd)
+        return embed_tokens(batch["tokens"], params["embed"], cfg.embed_scale, cd,
+                            layout)
     if cfg.input_mode == "embeds":
         return cast(batch["embeds"], cd) @ cast(params["frontend_proj"], cd)
     patches = cast(batch["patch_embeds"], cd) @ cast(params["frontend_proj"], cd)
-    tokens = embed_tokens(batch["tokens"], params["embed"], cfg.embed_scale, cd)
+    tokens = embed_tokens(batch["tokens"], params["embed"], cfg.embed_scale, cd,
+                          layout)
     return torch.cat([patches, tokens], dim=-2)
+
+
+def _vocab_view(cfg: ArchConfig) -> dict[str, str]:
+    """How this rank holds the embedding and the head (the rules' layout
+    on the ambient ``model`` axis)."""
+    return shd.vocab_view(cfg, mesh_ctx.axis_size("model"))
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
@@ -410,12 +461,20 @@ def _over_members(fn, members: bool, out_dims: Any = 0):
     return torch.func.vmap(fn, out_dims=out_dims) if members else fn
 
 
+def seq_parallel(seq_spec: Any) -> bool:
+    """Whether ``seq_spec`` shards the residual stream's sequence: a spec
+    given, under a mesh with more than one ``model`` rank."""
+    return seq_spec is not None and mesh_ctx.axis_size("model") > 1
+
+
 def backbone(cfg: ArchConfig, params: dict[str, Any],
              batch: dict[str, torch.Tensor], moe_groups: int = 1,
-             members: bool = False
+             members: bool = False, seq_spec: Any = None
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Embeddings → layers → final norm.  Returns (x (B,S,d), aux losses
-    summed over the layers, each (M,) for a gang).
+    summed over the layers, each (M,) for a gang).  With ``seq_spec``
+    under a ``model`` axis of M > 1, x is this rank's (B, S/M, d) shard of
+    the sequence (module docstring); S must divide by M.
 
     With ``members`` the parameters and tokens of a gang carry a leading
     member axis and x is (M,B,S,d): every piece (the embedding, each layer
@@ -429,11 +488,15 @@ def backbone(cfg: ArchConfig, params: dict[str, Any],
     b, s = x.shape[-3], x.shape[-2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    seq = seq_parallel(seq_spec)
+    if seq:
+        mesh_ctx.check_seq(s)
+        x = mesh_ctx.leave_replicated(x, seq)
     aux_total = _zero_aux(x.device, x.shape[:-3])
     for (kind, count), seg in zip(cfg.segments(), params["segments"]):
         def body(xc, lp, _kind=kind):
             xn, aux, _ = layer_body(cfg, _kind, xc, lp, positions,
-                                    moe_groups=moe_groups)
+                                    moe_groups=moe_groups, seq=seq)
             return xn, aux
 
         # an MoE layer's aux losses come back per member; other kinds have
@@ -445,7 +508,10 @@ def backbone(cfg: ArchConfig, params: dict[str, Any],
             if aux is not None:
                 aux_total = {k: v + aux[k] for k, v in aux_total.items()}
     final = _over_members(lambda xf, w: _norm(xf, w, cfg.norm_eps), members)
-    return final(x, params["final_norm"]), aux_total
+    final_norm = params["final_norm"]
+    if seq:
+        final_norm = tree_map(mesh_ctx.model_copy, final_norm)
+    return final(x, final_norm), aux_total
 
 
 def _head(cfg: ArchConfig, params: dict[str, Any]) -> torch.Tensor:
@@ -453,21 +519,45 @@ def _head(cfg: ArchConfig, params: dict[str, Any]) -> torch.Tensor:
             else params["embed"].mT)
 
 
+def _partial_logits(x: torch.Tensor, head: torch.Tensor,
+                    compute_dtype: str | torch.dtype) -> torch.Tensor:
+    """Logits (fp32) from this rank's block of d rows of the head: the
+    product of x's matching columns (after f), summed over ``model``."""
+    rows = head.shape[-2]
+    xs = mesh_ctx.model_copy(x).narrow(-1, mesh_ctx.model_rank() * rows, rows)
+    return mesh_ctx.model_sum(unembed(xs, head, compute_dtype).float())
+
+
 def forward(cfg: ArchConfig, params: dict[str, Any],
             batch: dict[str, torch.Tensor]) -> torch.Tensor:
     """Full forward pass → logits (B,S,V), sliced to ``vocab_size``.  (The
     reference also returns the MoE aux losses; here ``loss_fn`` reads them
-    from ``backbone``, and serving needs only the logits.)"""
+    from ``backbone``, and serving needs only the logits.)  Under a
+    ``model`` axis of M > 1 every rank returns the whole logits."""
     x, _ = backbone(cfg, params, batch)
-    logits = unembed(x, _head(cfg, params), cfg.compute_dtype)
+    head = _head(cfg, params)
+    kind = _vocab_view(cfg)["head"]
+    if kind == "vocab":
+        local = unembed(mesh_ctx.model_copy(x), head, cfg.compute_dtype)
+        logits = mesh_ctx.model_gather(local, -1, summed=False)
+    elif kind == "d":
+        logits = _partial_logits(x, head, cfg.compute_dtype).to(
+            as_dtype(cfg.compute_dtype))
+    else:
+        logits = unembed(x, head, cfg.compute_dtype)
     return logits[..., :cfg.vocab_size]
 
 
 def _ce_terms(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-              compute_dtype: str | torch.dtype, vocab_size: int) -> torch.Tensor:
+              compute_dtype: str | torch.dtype, vocab_size: int,
+              kind: str = "whole") -> torch.Tensor:
     """Summed masked NLL for one (B, C, d) slice.  Pad-vocab columns (>=
-    ``vocab_size``) are masked out of the softmax; labels < 0 are ignored."""
-    logits = unembed(x, head, compute_dtype).float()
+    ``vocab_size``) are masked out of the softmax; labels < 0 are ignored.
+    ``kind`` is how this rank holds the head (:func:`_vocab_view`)."""
+    if kind == "vocab":
+        return _ce_terms_vocab(x, head, labels, compute_dtype, vocab_size)
+    logits = (_partial_logits(x, head, compute_dtype) if kind == "d"
+              else unembed(x, head, compute_dtype).float())
     if logits.shape[-1] > vocab_size:
         col = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(col < vocab_size, logits, -1e30)
@@ -478,9 +568,32 @@ def _ce_terms(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     return ((lse - gold) * mask).sum()
 
 
+def _ce_terms_vocab(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                    compute_dtype: str | torch.dtype, vocab_size: int
+                    ) -> torch.Tensor:
+    """:func:`_ce_terms` on this ``model`` rank's block of the vocabulary's
+    columns (vocab-parallel): the max over ``model`` (no gradient), the sum
+    of ``exp`` over ``model`` and the gold logit from the rank whose block
+    holds the label; pad columns masked by their global index."""
+    logits = unembed(x, head, compute_dtype).float()
+    cols = logits.shape[-1]
+    first = mesh_ctx.model_rank() * cols
+    if first + cols > vocab_size:
+        col = first + torch.arange(cols, device=logits.device)
+        logits = torch.where(col < vocab_size, logits, -1e30)
+    top = mesh_ctx.model_max(logits.detach().amax(dim=-1))
+    lse = top + torch.log(mesh_ctx.model_sum(
+        torch.exp(logits - top[..., None]).sum(dim=-1)))
+    local = labels - first
+    mine = (local >= 0) & (local < cols)
+    gold = logits.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    gold = mesh_ctx.model_sum(torch.where(mine, gold, 0.0))
+    return ((lse - gold) * (labels >= 0).float()).sum()
+
+
 def loss_fn(cfg: ArchConfig, params: dict[str, Any],
             batch: dict[str, torch.Tensor], moe_groups: int = 1,
-            members: bool = False
+            members: bool = False, seq_spec: Any = None
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Masked causal-LM cross entropy (+ MoE aux).  labels < 0 ignored.
 
@@ -495,15 +608,21 @@ def loss_fn(cfg: ArchConfig, params: dict[str, Any],
     share: its NLL over the global count of labels >= 0, and the MoE aux
     shares (:mod:`repro_torch.models.moe`), so the sum over the data ranks
     of the values and of their gradients is the single program's on the
-    global batch."""
-    x, aux = backbone(cfg, params, batch, moe_groups, members)
+    global batch.  Over a ``model`` axis every ``model`` rank returns the
+    same values (``seq_spec``: see :func:`backbone`; the head's input is
+    all-gathered over the sequence again)."""
+    x, aux = backbone(cfg, params, batch, moe_groups, members, seq_spec)
     labels = batch["labels"]
     head = _head(cfg, params)
+    kind = _vocab_view(cfg)["head"]
+    seq = seq_parallel(seq_spec)
+    x = (mesh_ctx.enter(x, seq) if kind == "vocab"
+         else mesh_ctx.enter_replicated(x, seq))
     s = x.shape[-2]
     chunk = cfg.loss_chunk
     ce_terms = _over_members(
         functools.partial(_ce_terms, compute_dtype=cfg.compute_dtype,
-                          vocab_size=cfg.vocab_size), members)
+                          vocab_size=cfg.vocab_size, kind=kind), members)
     if chunk and s > chunk and s % chunk == 0:
         nll_sum = torch.zeros(x.shape[:-3], dtype=torch.float32, device=x.device)
         for start in range(0, s, chunk):
@@ -598,6 +717,10 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
     does."""
     if not cfg.has_decode():
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
+    if mesh_ctx.axis_size("model") > 1:
+        raise NotImplementedError(
+            "decode under a model axis: decode runs at one model rank (the "
+            "cache placements' decode is part 3 of the multi-device layer)")
     pos = cache["pos"]
     b = token.shape[0]
     x = embed_tokens(token, params["embed"], cfg.embed_scale, cfg.compute_dtype)

@@ -7,25 +7,35 @@ returns the state (the reference's loop donates it).  The batch's inputs
 follow the config's input mode (tokens, frame embeddings, or patch
 embeddings then tokens); the step passes them through as they are.
 
-**Data parallel on a device mesh.**  A state whose leaves are DTensors
-(:func:`init_train_state` or :func:`distribute_state` with a mesh, placed
-by :func:`repro_torch.distributed.sharding.state_shardings`: parameters
-replicated, m, v and master sharded over ``data`` by ZeRO-1) takes the DP
-step, one process a device.  Each rank's batch is its block of the global
-batch.  The compute runs on local tensors: the loss is this rank's share
-(its NLL over the global label count, the MoE aux shares), so the sum over
-``data`` of the shares' gradients is the single program's gradient on the
-global batch.  The step sums the gradients over ``data``, applies the int8
-round trip to the sums (where the reference's numbers put it), clips by
-their global norm, updates each rank's ZeRO-1 shard of m, v and master
-from the matching slice of the gradients, and all-gathers the new
-parameters.  Tensor parallelism over a ``model`` axis larger than 1, and
-``n_micro`` > 1 over more than one data rank (the reference's microbatch is
-a block of the global batch, not of each rank's rows), are part 2 of the
-multi-device layer: the step refuses them.
+**On a device mesh** (``(data, model)`` or ``(pod, data, model)``).  A
+state whose leaves are DTensors (:func:`init_train_state` or
+:func:`distribute_state` with a mesh, placed by
+:func:`repro_torch.distributed.sharding.state_shardings`: each parameter
+as the rules store it over ``model``, m, v and master also sharded over
+the data-parallel axes by ZeRO-1) takes the mesh step, one process a
+device.  Each rank's batch is its data-parallel block of the global batch
+(every ``model`` rank of a block gets the same rows).  The compute runs
+on local tensors: the model computes each block's ``model`` slice
+(tensor parallelism, :mod:`repro_torch.models.transformer`), and the loss
+is this rank's share (its NLL over the global label count, the MoE aux
+shares), so the sum over the data-parallel axes of the shares' gradients
+is the single program's gradient on the global batch.  The step sums the
+gradients over the data-parallel axes only (a leaf kept whole over
+``model`` has the same gradient on every ``model`` rank), applies the int8
+round trip to the sums (each leaf's scale from its whole), clips by the
+global norm (the squares of ``model``-sharded leaves summed over
+``model``, a whole leaf's counted once), updates each rank's ZeRO-1 shard
+of m, v and master from the matching slice of its gradients, and
+all-gathers the new parameters over the data-parallel axes within each
+``model`` slice.  With one ``model`` rank these are the data-parallel
+step's numbers, bit for bit.  ``seq_spec`` (or ``cfg.seq_shard``) shards
+the residual stream's sequence over ``model`` between blocks.
+``n_micro`` > 1 over more than one data rank (the reference's microbatch
+is a block of the global batch, not of each rank's rows) is refused: see
+:data:`STILL_REFUSED`.
 
 :func:`train_memory_gb` reckons what a train state and one step need on
-each device.
+each device of a (data, model) mesh.
 """
 from __future__ import annotations
 
@@ -42,14 +52,14 @@ from repro_torch.models.transformer import (
     HYBRID_KINDS, init_abstract_params, init_params, loss_fn,
 )
 from repro_torch.optim.adamw import (
-    AdamW, accumulate_grads, compress_int8, decompress_int8, global_norm,
+    AdamW, accumulate_grads, compress_int8, decompress_int8,
     value_and_grad,
 )
 from repro_torch.tree import tree_leaves, tree_map
 
-#: what the multi-device layer's first part leaves out, named by refusals
-PART_2 = ("part 2 of the multi-device layer (tensor parallelism over the "
-          "model axis), which is not ported yet")
+#: what the multi-device layer still leaves out, named by refusals
+STILL_REFUSED = ("microbatches that span data ranks (ROADMAP A7.3), which "
+                 "are not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +67,22 @@ class TrainStepConfig:
     n_micro: int = 1              # gradient-accumulation microbatches
     moe_groups: int = 1           # GShard dispatch groups
     compress_grads: bool = False  # int8 round trip of the summed gradients
-    seq_spec: Any = None          # sequence-parallel activations: part 2
+    #: sequence-parallel activations: a Spec (dp, "model", None) of the
+    #: (B, S, d) residual stream (the reference's NamedSharding), or None
+    seq_spec: Any = None
+
+
+def _check_seq_spec(spec: Any) -> None:
+    """Raises unless ``spec`` shards a (B, S, d) activation's sequence over
+    ``model`` and nothing else over it: (None | "data" | ("pod", "data"),
+    "model", None)."""
+    entries = tuple(spec) if isinstance(spec, (shd.Spec, tuple, list)) else None
+    dp = (None, "data", ("pod", "data"), ["pod", "data"])
+    if (entries is None or len(entries) != 3 or entries[0] not in dp
+            or entries[1] != "model" or entries[2] is not None):
+        raise NotImplementedError(
+            f"seq_spec {spec!r}: sequence-parallel activations are ported as "
+            "the sequence over the model axis, (dp, 'model', None)")
 
 
 def make_train_step(cfg: ArchConfig, opt: AdamW,
@@ -67,13 +92,14 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
     on it and the grads are averaged over the pieces.  A state of DTensors
     takes the data-parallel step (module docstring); its metrics are the
     global batch's."""
-    if step_cfg.seq_spec is not None:
-        raise NotImplementedError(
-            "sequence-parallel activations (seq_spec) shard the sequence "
-            f"over the model axis: {PART_2}")
+    seq_spec = step_cfg.seq_spec
+    if seq_spec is None and cfg.seq_shard:
+        seq_spec = shd.Spec((("pod", "data"), "model", None))
+    if seq_spec is not None:
+        _check_seq_spec(seq_spec)
 
     def _loss(params, batch):
-        return loss_fn(cfg, params, batch, step_cfg.moe_groups)
+        return loss_fn(cfg, params, batch, step_cfg.moe_groups, seq_spec=seq_spec)
 
     def grads_of(params, batch):
         if step_cfg.n_micro > 1:
@@ -99,14 +125,11 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
 
     def _dp_step(state, batch):
         mesh = state["step"].device_mesh
-        if mesh_ctx.axis_size("model", mesh) > 1:
-            raise NotImplementedError(
-                f"a model axis of {mesh_ctx.axis_size('model', mesh)}: {PART_2}")
         if step_cfg.n_micro > 1 and mesh_ctx.dp_size(mesh) > 1:
             raise NotImplementedError(
                 f"n_micro={step_cfg.n_micro} over {mesh_ctx.dp_size(mesh)} data "
                 "ranks: the reference's microbatch is a block of the global "
-                f"batch, which spans ranks; {PART_2}")
+                f"batch, which spans ranks; {STILL_REFUSED}")
         with mesh_ctx.set_mesh(mesh):
             params = tree_map(shd.local, state["params"])
             (loss, aux), grads = grads_of(params, tree_map(shd.local, batch))
@@ -116,11 +139,17 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
             total = mesh_ctx.dp_all_reduce(torch.stack(
                 [v.float() for v in shares.values()]))
             metrics = dict(zip(shares, total.unbind(0)))
+            tp = mesh_ctx.axis_size("model", mesh) > 1
+            split = tree_map(
+                lambda p: tp and shd.sharded_over(shd.spec_of(p), "model"),
+                state["params"])
             if step_cfg.compress_grads:
-                grads = decompress_int8(compress_int8(grads))
-            gnorm = global_norm(grads)
+                grads = _int8_round_trip(grads, split)
+            gnorm = _tp_global_norm(grads, split)
             opt_state = state["opt"]
-            specs = tree_map(shd.spec_of, opt_state["master"])
+            # ZeRO-1's data-parallel slices of this rank's model shards
+            specs = tree_map(lambda m: shd.without_axis(shd.spec_of(m), "model"),
+                             opt_state["master"])
             slices = tree_map(lambda p, spec: shd.local_slices(spec, p.shape, mesh),
                               params, specs)
             count = shd.local(opt_state["count"])
@@ -139,6 +168,33 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
         return state, {**metrics, **opt_metrics}
 
     return train_step
+
+
+def _tp_global_norm(grads: Any, split: Any) -> torch.Tensor:
+    """The global norm of gradients held as ``model`` shards (``split``
+    True) or whole on every ``model`` rank: the shards' squares summed over
+    ``model``, a whole leaf's counted once. With no leaf split it is
+    ``global_norm``, bit for bit (the same sum in the same order)."""
+    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    flags = tree_leaves(split)
+    sharded = sum((q for q, f in zip(sq, flags) if f), torch.zeros_like(sq[0]))
+    whole = sum((q for q, f in zip(sq, flags) if not f), torch.zeros_like(sq[0]))
+    return torch.sqrt(mesh_ctx.model_sum(sharded) + whole)
+
+
+def _int8_round_trip(grads: Any, split: Any) -> Any:
+    """``decompress_int8(compress_int8(grads))`` with each leaf's scale from
+    its whole: a ``model`` shard's largest magnitude is the maximum over
+    ``model``. With no leaf split it is that round trip, bit for bit (the
+    same operations in the same order)."""
+    def one(g, sharded):
+        amax = torch.max(torch.abs(g))
+        if sharded:
+            amax = mesh_ctx.model_max(amax)
+        scale = (amax + 1e-12) / 127.0
+        q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+        return q.to(torch.float32) * scale.to(torch.float32)
+    return tree_map(one, grads, split)
 
 
 def init_train_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator,
@@ -219,16 +275,30 @@ def largest_leaf(cfg: ArchConfig) -> int:
     return max(sizes)
 
 
-def train_memory_gb(cfg: ArchConfig, data: int = 1) -> dict[str, float]:
-    """GB that training ``cfg`` over ``data`` data-parallel ranks needs on
-    each device, reckoned before anything is allocated: the state
-    (REPLICATED_BYTES a parameter, plus SHARDED_BYTES a parameter over
-    ``data``), AdamW's fp32 temporaries of the largest leaf's shard, the
-    activations, and their total; and ``replicated_gb``, the part no data
-    size divides."""
-    n = cfg.param_count()
+def params_per_device(cfg: ArchConfig, model: int = 1) -> float:
+    """Parameters a device holds with ``model`` ranks on the ``model`` axis:
+    each leaf the sharding rules split over ``model`` a 1/model share, the
+    others whole (the rules on the tree's shapes; nothing allocated)."""
+    if model == 1:
+        return float(cfg.param_count())
+    params = init_abstract_params(cfg)
+    specs = shd.params_shardings(params, shd.AxisSizes({"data": 1, "model": model}))
+    return float(sum(leaf.numel() / (model if shd.sharded_over(spec, "model") else 1)
+                     for leaf, spec in zip(tree_leaves(params), shd.spec_leaves(specs))))
+
+
+def train_memory_gb(cfg: ArchConfig, data: int = 1, model: int = 1
+                    ) -> dict[str, float]:
+    """GB that training ``cfg`` on a (``data``, ``model``) mesh needs on each
+    device, reckoned before anything is allocated: the state
+    (REPLICATED_BYTES a parameter the device holds, plus SHARDED_BYTES of
+    each over ``data``), AdamW's fp32 temporaries of the largest leaf's
+    shard, the activations, and their total; and ``replicated_gb``, the
+    part no data size divides."""
+    n = params_per_device(cfg, model)
     replicated = REPLICATED_BYTES * n / 1e9
     out = {"state_gb": replicated + SHARDED_BYTES * n / data / 1e9,
-           "update_gb": UPDATE_TEMPORARIES * 4 * largest_leaf(cfg) / data / 1e9,
+           "update_gb": (UPDATE_TEMPORARIES * 4 * largest_leaf(cfg)
+                         / data / model / 1e9),
            "activation_gb": ACTIVATION_GB}
     return {**out, "total_gb": sum(out.values()), "replicated_gb": replicated}

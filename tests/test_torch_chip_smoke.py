@@ -856,3 +856,65 @@ def test_train_reckoning_per_device_with_a_data_size():
     assert at8["state_gb"] == pytest.approx((8 * n + 12 * n / 8) / 1e9)
     assert at8["update_gb"] == pytest.approx(train_memory_gb(olmoe)["update_gb"] / 8)
     assert at8["total_gb"] < 85 < train_memory_gb(olmoe, 4)["total_gb"]
+
+
+def test_train_reckoning_with_a_model_axis():
+    """Per device on a (data, model) mesh: the leaves the rules split over
+    ``model`` count 1/model (deepseek-7b: all but its norms), so the state
+    is 20 bytes over model at (1, 4) and 8 / 2 + 12 / 4 at (2, 2) a
+    parameter, and the update temporaries shrink with both; internvl2-26b
+    still passes an 85 GB card on 4 cards, at either split."""
+    from repro_torch.configs import get
+    from repro_torch.train.step import params_per_device, train_memory_gb
+    ds = get("deepseek-7b")
+    n = ds.param_count()
+    norms = ds.n_layers * 2 * ds.d_model + ds.d_model    # kept whole
+    assert params_per_device(ds, 4) == pytest.approx((n - norms) / 4 + norms)
+    at14, at22 = train_memory_gb(ds, 1, 4), train_memory_gb(ds, 2, 2)
+    assert at14["state_gb"] == pytest.approx(20 * params_per_device(ds, 4) / 1e9)
+    assert at14["state_gb"] == pytest.approx(34.56, abs=0.01)
+    assert at22["state_gb"] == pytest.approx(
+        (8 + 12 / 2) * params_per_device(ds, 2) / 1e9)
+    assert at22["state_gb"] == pytest.approx(48.37, abs=0.01)
+    assert at14["update_gb"] == pytest.approx(train_memory_gb(ds)["update_gb"] / 4)
+    assert at22["total_gb"] < 80 < train_memory_gb(ds, 4, 1)["total_gb"]
+    vlm = get("internvl2-26b")
+    assert min(train_memory_gb(vlm, d, 4 // d)["total_gb"] for d in (1, 2)) > 85
+    assert train_memory_gb(vlm, 1, 8)["total_gb"] < 85
+    assert train_memory_gb(ds, 3) == train_memory_gb(ds, 3, 1)
+
+
+@pytest.mark.parametrize("arch,layers,want", [
+    ("gemma3-1b", None, {"n_heads": 2, "n_kv_heads": 1, "head_dim": 256}),
+    ("mamba2-780m", 8, {"ssm_heads": 24, "ssm_head_dim": 64, "ssm_state": 128}),
+    ("olmoe-1b-7b", 4, {"n_heads": 8, "n_kv_heads": 8, "moe_d_ff": 512}),
+])
+def test_tp_local_shapes_and_their_bounds(arch, layers, want):
+    """One model rank's kernel shapes at model 2 (the views' heads and
+    hidden units), and their bounds: a rank's half of the heads or of the
+    hidden units is half the operations of the whole (the same (B, S))."""
+    cfg = cs.tp_config(arch, layers)
+    local = cs.tp_local_config(cfg)
+    assert {k: getattr(local, k) for k in want} == want
+    b, s = cs.TP_BATCH, cs.TP_SEQ
+    if arch == "gemma3-1b":
+        for w in (0, cfg.window):
+            ops, nbytes = cs.attention_floor_ms(b, s, 2, 1, 256, True, w)
+            full_ops, _ = cs.attention_floor_ms(b, s, 4, 1, 256, True, w)
+            assert ops == pytest.approx(full_ops / 2)
+            assert nbytes == pytest.approx(2 * (2 * b * s * 2 * 256 + 2 * b * s * 256)
+                                           / 3.35e12 * 1e3)
+            bwd_ops, _ = cs.attention_bwd_floor_ms(b, s, 2, 1, 256, True, w)
+            assert bwd_ops == pytest.approx(2.5 * ops)
+    elif arch == "mamba2-780m":
+        ops, _ = cs.ssd_floor_ms(b, s, 24, 64, 1, 128, 256)
+        full_ops, _ = cs.ssd_floor_ms(b, s, 48, 64, 1, 128, 256)
+        assert ops < full_ops
+        assert local.layer_types == cfg.layer_types and local.n_layers == 8
+    else:
+        rows = b * s * cfg.top_k
+        ops, nbytes = cs.gmm_floor_ms(rows, cfg.d_model, 512, cfg.n_experts)
+        assert ops == pytest.approx(2 * rows * 2048 * 512 / 989e12 * 1e3)
+        assert nbytes == pytest.approx(
+            2 * (rows * 2048 + 64 * 2048 * 512 + rows * 512) / 3.35e12 * 1e3)
+        assert cs.bound(ops, nbytes)[1] == "bytes"

@@ -213,6 +213,7 @@ def runs(tmp_path_factory):
             "--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu", "--steps", "2",
             "--batch", "4", "--seq", "16", "--log-every", "1",
             "--ckpt-dir", str(tmp / "launch")])),
+        Job("refusals", {}),
     ], tmp / "two")
     elastic["to_1"] = _in_one_rank_group(lambda mesh: worker.job_elastic(
         mesh, ELASTIC_ARCH, None, str(two_dir), None, e_batches[2:]), tmp)
@@ -417,14 +418,16 @@ def test_launch_train_runs_under_two_ranks(runs):
     ("olmoe-1b-7b", 4, r"needs ~94\.8 GB a device at a data size of 4 .* fits at a "
                        r"data size of 8"),
     ("internvl2-26b", 8, r"no data size fits \(the replicated fp32 parameters and "
-                         r"gradients alone are 159\.2 GB\); it needs part 2 of the "
-                         r"multi-device layer"),
+                         r"gradients alone are 159\.2 GB\); tensor parallelism fits "
+                         r"it on 8 cards at \(data 1, model 8\), ~80\.4 GB a device; "
+                         r"launch\.train on a \(data, model\) mesh is part 3"),
 ])
 def test_launch_train_reckons_each_device_with_the_data_size(monkeypatch, arch, world,
                                                              message):
     """On a card, launch.train refuses before it builds a mesh or allocates,
     reckoning a device's memory with the data size of the world it runs in
-    and naming the data size that fits, or part 2 where none does."""
+    and naming the data size that fits, or, where none does, the (data,
+    model) mesh that would and part 3, which runs it."""
     import types
     from repro_torch.launch import train as train_cli
     monkeypatch.setattr(train_cli, "resolve_device", lambda device: torch.device("cuda"))
@@ -440,12 +443,17 @@ def test_launch_train_reckons_each_device_with_the_data_size(monkeypatch, arch, 
         train_cli.main(["--arch", arch, "--steps", "1"])
 
 
-def test_dp_step_refuses_what_part_2_covers():
-    """A model axis larger than 1, n_micro > 1 over several data ranks and a
-    sequence-parallel spec are refused, naming part 2 (never silently
-    different numbers)."""
+def test_dp_step_refuses_what_part_2_covers(runs):
+    """What the mesh step still refuses after tensor parallelism: n_micro >
+    1 over several data ranks (the reference's microbatch is a block of the
+    global batch; ROADMAP A7.3), naming it, never silently different
+    numbers; and a sequence-parallel spec over another axis than model."""
+    for rank in runs["two"]:
+        message = rank[5]["n_micro"]
+        assert message is not None and "n_micro=2 over 2 data ranks" in message
+        assert "A7.3" in message
     from repro_torch.optim.adamw import AdamW, cosine_schedule
-    with pytest.raises(NotImplementedError, match="part 2"):
+    with pytest.raises(NotImplementedError, match="seq_spec"):
         make_train_step(get_smoke("gemma3-1b"), AdamW(schedule=cosine_schedule(1e-3, 2, 10)),
                         TrainStepConfig(seq_spec="data"))
 

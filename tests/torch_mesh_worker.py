@@ -10,9 +10,11 @@ results are numpy arrays.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
@@ -94,6 +96,210 @@ def job_dp(mesh, cases: list[dict]) -> list[dict]:
     return out
 
 
+def _step_config(step_cfg: dict):
+    """A TrainStepConfig from a case's plain dict (``seq_spec`` a list of
+    entries, made a Spec)."""
+    from repro_torch.train.step import TrainStepConfig
+    sc = dict(step_cfg)
+    if sc.get("seq_spec") is not None:
+        sc["seq_spec"] = shd.Spec(tuple(sc["seq_spec"]))
+    return TrainStepConfig(**sc)
+
+
+def _with_slices(tree: Any, mesh) -> dict:
+    """{path: (this rank's local array, its slice bounds in the whole
+    leaf)} of a tree of DTensors."""
+    out = {}
+    for path, leaf in bridge.flatten(tree).items():
+        sl = shd.local_slices(shd.spec_of(leaf), leaf.shape, mesh)
+        x = leaf.to_local()
+        out[path] = ((x.float() if x.dtype == torch.bfloat16 else x).numpy().copy(),
+                     [(s.start, s.stop) for s in sl])
+    return out
+
+
+def job_tp(mesh, cases: list[dict]) -> list[dict]:
+    """Each case: the mesh step (data and model) for ``len(batches)``
+    steps from a whole numpy state, this rank taking its data-parallel
+    block of each global batch.  Returns each step's metrics, this rank's
+    stored parameter shards with their slices after every step, and its
+    m, v and master shards after the last."""
+    from repro_torch.train.step import distribute_state, make_train_step
+    out = []
+    for case in cases:
+        cfg = get_smoke(case["arch"], **case["overrides"])
+        step = make_train_step(cfg, optimizer(), _step_config(case["step_cfg"]))
+        state = distribute_state(to_torch(case["state"]), mesh)
+        with mesh_ctx.set_mesh(mesh):
+            n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+        metrics, params = [], []
+        for batch in case["batches"]:
+            state, m = step(state, to_torch(rank_rows(batch, i, n)))
+            metrics.append({k: float(v) for k, v in m.items()})
+            params.append(_with_slices(state["params"], mesh))
+        shards = {f"{key}/{path}": v for key in ("m", "v", "master")
+                  for path, v in _with_slices(state["opt"][key], mesh).items()}
+        out.append({"metrics": metrics, "params": params, "shards": shards,
+                    "step": int(state["step"].to_local()),
+                    "coords": {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}})
+    return out
+
+
+def job_refusals(mesh) -> dict:
+    """What the mesh step still refuses: ``n_micro`` > 1 over the data
+    ranks (the message), and a seq_spec over another axis."""
+    from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
+    cfg = get_smoke("gemma3-1b")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    state = init_train_state(cfg, optimizer(), gen, mesh)
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int64),
+             "labels": torch.zeros((2, 8), dtype=torch.int64)}
+    out = {}
+    try:
+        make_train_step(cfg, optimizer(), TrainStepConfig(n_micro=2))(state, batch)
+        out["n_micro"] = None
+    except NotImplementedError as e:
+        out["n_micro"] = str(e)
+    return out
+
+
+def job_collectives(mesh, x: np.ndarray, cots: np.ndarray) -> dict:
+    """Each differentiable ``model`` collective on this rank's inputs: ``x``
+    (whole, the same on every rank) and its rank's cotangent ``cots[j]``.
+    Returns each op's output and the gradient of sum(out * cot) of its
+    input."""
+    with mesh_ctx.set_mesh(mesh):
+        j, m = mesh_ctx.model_rank(), mesh_ctx.axis_size("model")
+        k = x.shape[1] // m
+        part = np.ascontiguousarray(x[:, j * k:(j + 1) * k])
+        cot = torch.from_numpy(cots[j])
+        ops = {
+            "gather_summed": (part, lambda t: mesh_ctx.model_gather(t, 1, summed=True)),
+            "gather_slice": (part, lambda t: mesh_ctx.model_gather(t, 1, summed=False)),
+            "reduce_scatter": (x, lambda t: mesh_ctx.model_reduce_scatter(t * (j + 1), 1)),
+            "slice": (x, lambda t: mesh_ctx.model_slice(t, 1)),
+            "stat_sum": (x, lambda t: mesh_ctx.model_stat_sum(t * (j + 1))),
+            "copy": (x, mesh_ctx.model_copy),
+            "sum": (x, lambda t: mesh_ctx.model_sum(t * (j + 1))),
+            # a view across the shards' boundary, for sliced work
+            "view": (part, lambda t: mesh_ctx.model_view(
+                t, 1, ((k // 2, k // 2 + k),), x.shape[1])),
+        }
+        out = {}
+        for name, (inp, fn) in ops.items():
+            t = torch.tensor(inp, requires_grad=True)
+            y = fn(t)
+            c = cot[tuple(slice(0, n) for n in y.shape)]
+            (g,) = torch.autograd.grad((y * c).sum(), [t])
+            out[name] = (y.detach().numpy(), g.numpy())
+        out["max"] = mesh_ctx.model_max(torch.tensor(float(j))).item()
+    return {"ops": out, "model": j}
+
+
+def block_call(name: str, kwargs: dict):
+    """One tensor-parallel site of the model as ``fn(x, params) -> (out,
+    aux or None)``: the module's function with its keyword arguments."""
+    from repro_torch.models import attention, layers, moe, ssm
+    if name == "mlp":
+        return lambda x, p: (layers.mlp(x, p, **kwargs), None)
+    if name == "embed":
+        def embed(x, p):
+            v, d = p["embed"].shape
+            table = SimpleNamespace(padded_vocab=kwargs["vocab"], d_model=kwargs["d"],
+                                    tie_embeddings=True)
+            layout = shd.vocab_view(table, mesh_ctx.axis_size("model"))["embed"]
+            return layers.embed_tokens(x, p["embed"], kwargs["scale"], "float32",
+                                       layout), None
+        return embed
+    if name == "attn":
+        def attn(x, p):
+            b, s, _ = x.shape
+            pos = torch.arange(s).expand(b, s)
+            return attention.attn_block(x, p, positions=pos, **kwargs)[0], None
+        return attn
+    if name == "ssm":
+        return lambda x, p: (ssm.mamba2_block(x, p, **kwargs)[0], None)
+    if name == "moe":
+        return lambda x, p: moe.moe_block(x, p, **kwargs)
+    raise KeyError(name)
+
+
+def _block_spec(path: str, shape: tuple, mesh) -> shd.Spec:
+    """A block leaf's spec as the rules store it in a model: a layer's leaf
+    on a stacked segment's leading layer axis (so no 2-D fallback), the
+    embedding as it is."""
+    names = path.split("/")
+    if names[0] == "embed":
+        return shd.fit_spec(shd.param_spec(names, len(shape)), shape, mesh)
+    spec = shd.fit_spec(shd.param_spec(names, len(shape) + 1), (1,) + tuple(shape), mesh)
+    return shd.Spec(tuple(spec)[1:])
+
+
+def run_block(name: str, kwargs: dict, x: np.ndarray, params: dict,
+              cot: np.ndarray, mesh=None) -> dict:
+    """``block_call(name)`` on ``x`` and ``params`` (this rank's stored
+    shards under ``mesh``, placed by the sharding rules on the paths
+    ``params`` names; whole without a mesh): its output, and the gradients
+    of sum(out · cot) (+ the aux losses) of x and of each parameter leaf."""
+    fn = block_call(name, kwargs)
+    local, tree = {}, {}
+    for path, arr in params.items():
+        names = path.split("/")
+        if mesh is not None:
+            arr = arr[shd.local_slices(_block_spec(path, arr.shape, mesh), arr.shape, mesh)]
+        local[path] = torch.tensor(np.ascontiguousarray(arr), requires_grad=True)
+        node = tree                       # the block's tree: the path past its name
+        for key in names[1:-1]:
+            node = node.setdefault(key, {})
+        node[names[-1]] = local[path]
+    xt = torch.from_numpy(x)
+    if xt.is_floating_point():
+        xt.requires_grad_(True)
+    ctx = mesh_ctx.set_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    with ctx:
+        out, aux = fn(xt, tree)
+        loss = (out.float() * torch.from_numpy(cot)).sum()
+        if aux is not None:
+            loss = loss + 0.37 * sum(aux.values())
+        leaves = list(local.values()) + ([xt] if xt.requires_grad else [])
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    names = list(params) + (["x"] if xt.requires_grad else [])
+    return {"out": out.detach().numpy().copy(),
+            "grads": {n: (None if g is None else g.numpy().copy())
+                      for n, g in zip(names, grads)}}
+
+
+def job_blocks(mesh, cases: list[dict]) -> list[dict]:
+    """Each case through :func:`run_block` on this rank's stored shards;
+    with each leaf's slice bounds."""
+    out = []
+    for case in cases:
+        res = run_block(mesh=mesh, **case)
+        res["slices"] = {}
+        for path, arr in case["params"].items():
+            spec = _block_spec(path, arr.shape, mesh)
+            res["slices"][path] = [(s.start, s.stop)
+                                   for s in shd.local_slices(spec, arr.shape, mesh)]
+        out.append(res)
+    return out
+
+
+def job_forward(mesh, cases: list[dict]) -> list[np.ndarray]:
+    """Each case's ``transformer.forward`` (the logits) on this rank's
+    stored shards of a whole numpy parameter tree."""
+    from repro_torch.models.transformer import forward
+    out = []
+    for case in cases:
+        cfg = get_smoke(case["arch"], **case["overrides"])
+        params = to_torch(case["params"])
+        local = tree_map(lambda leaf, spec: leaf[shd.local_slices(spec, leaf.shape, mesh)],
+                         params, shd.params_shardings(params, mesh))
+        with mesh_ctx.set_mesh(mesh), torch.no_grad():
+            out.append(forward(cfg, local, to_torch(case["batch"])).numpy().copy())
+    return out
+
+
 def job_placements(mesh, arrays: dict[str, tuple]) -> dict:
     """Each (array, spec entries) distributed by its spec: this rank's local
     chunk, its local_slices and the gathered full tensor."""
@@ -130,7 +336,8 @@ def job_ragged(mesh, x: np.ndarray, params: dict, cot: np.ndarray,
         p = {k: torch.tensor(np.ascontiguousarray(v), requires_grad=True)
              for k, v in local.items()}
         xs = torch.tensor(rank_rows({"x": x}, i, n)["x"], requires_grad=True)
-        out, aux = moe_ragged_sharded(xs, p, **cfg_args)
+        out, aux = moe_ragged_sharded(xs, p, moe_d_ff=params["wo"].shape[1],
+                                      **cfg_args)
         cot_local = torch.from_numpy(rank_rows({"c": cot}, i, n)["c"])
         loss = (out.float() * cot_local).sum() + aux_weight * sum(aux.values())
         grads = torch.autograd.grad(loss, [xs, *p.values()])
@@ -181,7 +388,9 @@ def job_launch_train(mesh, argv: list[str]) -> dict:
             "world": dist.get_world_size()}
 
 
-JOBS = {"dp": job_dp, "placements": job_placements, "ragged": job_ragged,
+JOBS = {"dp": job_dp, "tp": job_tp, "refusals": job_refusals,
+        "collectives": job_collectives, "blocks": job_blocks, "forward": job_forward,
+        "placements": job_placements, "ragged": job_ragged,
         "elastic": job_elastic, "launch_train": job_launch_train}
 
 

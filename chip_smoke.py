@@ -193,6 +193,24 @@ over gloo (NCCL takes one rank a device): gemma3-1b through
 split in two, both processes' memory reckoned first, held against one
 rank on the concatenated batch.
 
+Then the tensor-parallel section (two gloo ranks at (data 1, model 2):
+each arch's train step against one rank, then each kernel at one rank's
+shapes), and decode under a ``model`` axis (``tp_decode``): gemma3-1b,
+mamba2-780m, hymba-1.5b and olmoe-1b-7b at full width and depth from bf16
+serving trees, each rank holding only its shards of the weights and the
+cache, 16 teacher-forced tokens on 4 slots and a 2048 cache against one
+rank on the same weights (§2's decode gates on the logits, each cache
+shard's shape exact and within the model's own bf16 rounding of one
+rank's, measured against a decode at fp32 compute), olmoe's decode
+grouped GEMMs at f 512 against their plain version; then
+``dryrun_vs_card``: the dry run's count on the meta device
+(``repro_torch.launch.dryrun``) against the same counter on the card for
+gemma3-1b's train step at 4 x 2048 and mamba2-780m's prefill on one
+card, and gemma3-1b's train and decode steps on the two ranks: FLOPs, HBM
+bytes, each kernel's calls and the collectives equal, the reckoned peak
+within 10% of ``max_memory_allocated`` on one card, the measured step no
+shorter than the roofline's bound.
+
 Then the script's total seconds (the ``done`` phase), the kernels line,
 the card line and, last, the result line.  There is no CPU mode: without a
 CUDA device the script exits with an error.
@@ -204,6 +222,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -564,102 +583,49 @@ def kernel_ms(fn, match: str, iters: int = 10) -> float:
     return us / iters / 1e3
 
 
+def kcosts():
+    """The port's kernel cost formulas (``repro_torch.kernels.costs``): the
+    bounds here and the dry run's counter read one formula a kernel."""
+    from repro_torch.kernels import costs
+    return costs
+
+
 def mask_pairs(s: int, causal: bool, window: int) -> int:
     """(q, k) pairs the mask allows: the work a kernel call must do."""
-    q = np.arange(s, dtype=np.int64)
-    hi = q if causal else np.full(s, s - 1)
-    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(s, np.int64)
-    return int((hi - lo + 1).sum())
+    return kcosts().mask_pairs(s, causal, window)
+
+
+def floor_ms(cost: tuple[int, int]) -> tuple[float, float]:
+    """(ms for the operations, ms for the bytes) of a (FLOPs, bytes) cost
+    at the card's datasheet rates."""
+    return cost[0] / PEAK_BF16_FLOPS * 1e3, cost[1] / PEAK_BYTES * 1e3
 
 
 def attention_floor_ms(b, s, hq, hkv, d, causal, window) -> tuple[float, float]:
-    """(ms for its tensor-core operations, ms for its bytes) on the card:
-    4·B·Hq·D FLOPs per allowed (q, k) pair; Q, K, V read and O written
-    once, in bf16."""
-    flops = 4 * b * hq * d * mask_pairs(s, causal, window)
-    nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
-    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    """(ms for its tensor-core operations, ms for its bytes) on the card
+    (``costs.attention``)."""
+    return floor_ms(kcosts().attention(b, s, hq, hkv, d, causal, window))
 
 
 def ssd_floor_ms(b, s, h, p, g, n, chunk, part="function",
                  init_bytes=0) -> tuple[float, float]:
     """(ms for its operations, ms for its bytes) on the card, for the whole
-    SSD scan (``part="function"``) or for one kernel's own reads and writes
-    (``"chunk_state"``, ``"chunk_scan"``).  Operations are the chunked
-    algorithm's: C·Bᵀ once per group and (scores)·X over the allowed
-    (i, j ≤ i) pairs of each chunk, the chunk states and the inter-chunk
-    term.  Bytes: x, y, B, C, the final state in bf16, log_a fp32, the
-    initial state at ``init_bytes`` an element (0: none), and the fp32
-    passed states (one per chunk) that go from the first kernel to the
-    second."""
-    q = min(chunk, s)
-    c = s // q
-    pairs = c * q * (q + 1) // 2
-    x = 2 * b * s * h * p                 # x, and y alike
-    la = 4 * b * s * h
-    bc = 2 * b * s * g * n                # B, and C alike
-    states = 4 * b * h * c * p * n
-    final = 2 * b * h * p * n
-    init = init_bytes * b * h * p * n
-    f_state = 2 * b * h * s * p * n
-    f_scan = 2 * b * g * pairs * n + 2 * b * h * pairs * p + 2 * b * h * s * n * p
-    flops, nbytes = {
-        "chunk_state": (f_state, x + la + bc + init + states + final),
-        "chunk_scan": (f_scan, 2 * x + la + 2 * bc + states),
-        "function": (f_state + f_scan, 2 * x + la + 2 * bc + final + init),
-    }[part]
-    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    SSD scan or one kernel's own reads and writes (``costs.ssd``)."""
+    return floor_ms(kcosts().ssd(b, s, h, p, g, n, chunk, part, init_bytes))
 
 
 def ssd_bwd_floor_ms(b, s, h, p, g, n, chunk, part, dfinal=False, init=False,
                      slices=1) -> tuple[float, float]:
     """(ms for its operations, ms for its bytes) on the card for the SSD
-    scan's whole backward (``part="function"``) or one call of a backward
-    kernel, its own reads and writes each counted once.
-
-    Operations (bf16 tensor-core FLOPs, the least the card could take): C·Bᵀ
-    once per group and dS = dy·xᵀ, dx, dB and dC over the allowed (i, j ≤ i)
-    pairs, the inter term prev_cᵀ·dy, dprev and the chunk-state term's G·B_j
-    and Gᵀ·x_j over every step.  ``"chunk_state_bwd"``: dprev; reads dy and
-    C (bf16), log_a, prev (fp32, for dT) and dfinal, writes G_c+1, G_0 and
-    dT (fp32).  ``"chunk_scan_bwd"``: the rest; reads x, dy, B, C (bf16),
-    log_a, prev, G_c+1 and dT, writes dx (bf16), dlog_a and dB and dC as
-    ``slices`` fp32 slices a group.  ``"function"``: both; reads x, dy, B,
-    C, log_a, prev and dfinal once and writes dx, dlog_a, dB and dC (in
-    their inputs' dtypes) and the initial state's gradient once."""
-    q = min(chunk, s)
-    c = s // q
-    pairs = c * q * (q + 1) // 2
-    x = 2 * b * s * h * p                 # x, dy and dx alike (bf16)
-    bc = 2 * b * s * g * n                # B, C, dB and dC alike (bf16)
-    la = 4 * b * s * h                    # log_a, and dlog_a alike (fp32)
-    states = 4 * b * h * c * p * n        # prev, and G alike (fp32)
-    fin = 4 * b * h * p * n               # dfinal, and G_0 alike (fp32)
-    dt = 4 * b * h * c
-    slab = 4 * b * s * g * slices * n     # dB, and dC alike, as fp32 slices
-    f_state = 2 * b * h * s * p * n
-    f_scan = 2 * b * g * pairs * n + 2 * b * h * pairs * (2 * p + 2 * n) \
-        + 6 * b * h * s * p * n
-    dfin = fin if dfinal else 0
-    flops, nbytes = {
-        "chunk_state_bwd": (f_state, x + bc + la + states + dfin + states + fin + dt),
-        "chunk_scan_bwd": (f_scan, 2 * x + 2 * bc + la + 2 * states + dt
-                           + x + la + 2 * slab),
-        "function": (f_state + f_scan, 2 * x + 2 * bc + la + states + dfin
-                     + x + la + 2 * bc + (fin if init else 0)),
-    }[part]
-    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    scan's whole backward or one backward kernel (``costs.ssd_bwd``)."""
+    return floor_ms(kcosts().ssd_bwd(b, s, h, p, g, n, chunk, part, dfinal, init,
+                                     slices))
 
 
 def gmm_floor_ms(t: int, d: int, f: int, nonempty: int) -> tuple[float, float]:
     """(ms for its operations, ms for its bytes) on the card for one grouped
-    matmul of T rows (d -> f) over ``nonempty`` experts that have rows:
-    2·T·d·f tensor-core FLOPs; x and y read and written once and the
-    weights of the non-empty experts read once (an empty expert's are not
-    needed), all bf16."""
-    flops = 2 * t * d * f
-    nbytes = 2 * (t * d + nonempty * d * f + t * f)
-    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    matmul over ``nonempty`` experts that have rows (``costs.gmm``)."""
+    return floor_ms(kcosts().gmm(t, d, f, nonempty))
 
 
 def gmm_row_tiles(group_sizes: torch.Tensor) -> int:
@@ -683,13 +649,8 @@ def gmm_dense_call(part: str, x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
 
 def gmm_dw_floor_ms(t: int, d: int, f: int, experts: int) -> tuple[float, float]:
     """(ms for its operations, ms for its bytes) for one dw = x_eᵀ·dy_e over
-    T rows: 2·T·d·f FLOPs; x (T, d) and dy (T, f) read once, dw (E, d, f)
-    written once (every expert's slab, the empty ones' zeros too), bf16.
-    (dx = dy·w[e]ᵀ moves what the forward moves: :func:`gmm_floor_ms` with
-    d and f in the forward's roles.)"""
-    flops = 2 * t * d * f
-    nbytes = 2 * (t * d + t * f + experts * d * f)
-    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    T rows (``costs.gmm_dw``)."""
+    return floor_ms(kcosts().gmm_dw(t, d, f, experts))
 
 
 def largest_leaf(cfg) -> int:
@@ -1170,12 +1131,8 @@ def sdpa_grad_call(q, k, v, do, causal, window):
 
 def attention_bwd_floor_ms(b, s, hq, hkv, d, causal, window) -> tuple[float, float]:
     """(ms for its tensor-core operations, ms for its bytes) of the attention
-    backward: five products per allowed (q, k) pair (S, dP, dV, dQ, dK), so
-    2.5x the forward's 4·B·Hq·D FLOPs; q, k, v, O, dO and dQ, dK, dV once in
-    bf16 and the LSE once in fp32."""
-    flops = 10 * b * hq * d * mask_pairs(s, causal, window)
-    nbytes = 2 * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s
-    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    backward (``costs.attention_bwd``)."""
+    return floor_ms(kcosts().attention_bwd(b, s, hq, hkv, d, causal, window))
 
 
 def grad_row_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -4399,6 +4356,429 @@ def train_reckoning_gb_tp(cfg) -> float:
     return train_memory_gb(cfg, 1, 2)["total_gb"]
 
 
+# ---------------------------------------------------------------------------
+# Decode under a model axis (tp_decode) and the dry run against the card
+# (dryrun_vs_card)
+# ---------------------------------------------------------------------------
+
+#: tp_decode: at full width and depth from the serving init (bf16), 4
+#: slots, a cache of 2048 positions, 16 teacher-forced tokens; gemma3-1b
+#: (its KV head split over the head dim), mamba2-780m (the conv cut across
+#: x | B | C), hymba-1.5b (head dim split, 25 of 50 SSM heads a rank) and
+#: olmoe-1b-7b (KV heads split, experts at f 512)
+TP_DECODE_ARCHS = ("gemma3-1b", "mamba2-780m", "hymba-1.5b", "olmoe-1b-7b")
+TP_DECODE_SLOTS, TP_DECODE_LEN, TP_DECODE_TOKENS = 4, 2048, 16
+#: each rank's cache shard against its slice of one rank's cache after the
+#: 16 tokens, ||Δ|| / ||slice|| (e_tp), held against the model's own bf16
+#: rounding: the same measure between one rank's bf16 decode and its
+#: decode at fp32 compute on the same weights (e_ref).  e_tp ≤
+#: TP_DECODE_CACHE_REF × e_ref, or ≤ TP_DECODE_CACHE_FLOOR (two bf16 steps)
+#: where e_ref is smaller.  The k and v entries are bf16, formed from
+#: hidden states whose sums ran in another order, and the random init
+#: amplifies a rounding over depth (ROADMAP C10): the largest |Δ| of a leaf
+#: moves by 2× between the ranks of one run on the card, the norm of Δ
+#: does not.
+#: A wrong slice or a missing sum over model reads ~1.  The largest |Δ|
+#: over the leaf's largest |value| is reported beside it
+TP_DECODE_CACHE_REF = 2.0
+TP_DECODE_CACHE_FLOOR = 2.0 ** -7
+#: the logits: §2's decode gates (max ≤ 0.25·std, mean ≤ 0.05·std at 26
+#: layers, scaled by depth, as the prefill-against-decode checks), and
+#: their mean distance from the fp32-compute logits within
+#: TP_DECODE_FP32_REF × one rank's
+TP_DECODE_FP32_REF = 2.0
+#: dryrun_vs_card: (label, arch, ShapeConfig fields, mesh shape).  (a) and
+#: (b) on one card at (1, 1); (c) on tp_decode's two gloo ranks at (1, 2)
+DRYRUN_CELLS = (("a", "gemma3-1b", ("train_4x2048", 2048, 4, "train"), (1, 1)),
+                ("b", "mamba2-780m", ("prefill_4x2048", 2048, 4, "prefill"), (1, 1)),
+                ("c", "gemma3-1b", ("train_2x2048", 2048, 2, "train"), (1, 2)),
+                ("c", "gemma3-1b", ("decode_4x2048", 2048, 4, "decode"), (1, 2)))
+#: the reckoned peak against torch.cuda.max_memory_allocated, (a) and (b)
+DRYRUN_PEAK_REL_TOL = 0.10
+#: (c)'s timed calls: one, after the counted call (its train step through
+#: gloo takes seconds, against a bound of a tenth of one; its peak is not
+#: gated, so no warm-up before the count)
+DRYRUN_TP_TIMED = 1
+#: what the meta run and the card run must count alike
+DRYRUN_EQUAL = ("flops", "hbm_bytes", "kernel_calls", "collectives")
+
+
+def count_on_card(arch: str, shape_fields: tuple, mesh, dev, timed: int = 3) -> dict:
+    """A dry-run cell's step (``repro_torch.launch.dryrun.build_step``: the
+    same trees and settings, zeros on the card) under the same counter as
+    the dry run: one counted call (its peak from
+    ``torch.cuda.max_memory_allocated``), after a warm-up call where
+    ``timed`` > 1, then the median of ``timed`` timed calls."""
+    from repro_torch.launch import costs, dryrun
+    from repro_torch.models.config import ShapeConfig
+    cfg = dryrun.cell_config(arch)
+    fn, args = dryrun.build_step(cfg, ShapeConfig(*shape_fields), mesh, dev.type)
+    if timed > 1:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter = costs.Counter(dev.type)
+    counter.track(*args)
+    with counter:
+        fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del args, fn
+    torch.cuda.empty_cache()
+    return {"summary": {**counter.summary(), "kernel_calls": counter.kernel_calls()},
+            "max_memory_allocated": peak, "step_s": float(np.median(times))}
+
+
+def dryrun_vs_card_worker(rank: int, init_file: str, out_dir: str) -> None:
+    """(a) and (b) of dryrun_vs_card in a one-rank gloo group on card 0."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        out = {f"{label} {arch} {fields[0]}": count_on_card(arch, fields, mesh, dev)
+               for label, arch, fields, shape in DRYRUN_CELLS if shape == (1, 1)}
+        torch.save(out, Path(out_dir) / "card.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_meta(out_dir: Path) -> tuple[subprocess.Popen, Path]:
+    """Every DRYRUN_CELLS cell reckoned by the dry run on the meta device, in
+    a process of its own (its fake process group is process-wide), started
+    now: (the process, the JSON it writes: each ``model`` rank's counts and
+    the roofline)."""
+    code = """
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.models.config import ShapeConfig
+out = {}
+for label, arch, fields, shape in %r:
+    cfg = dryrun.cell_config(arch)
+    axes = ("data", "model")
+    for j in range(shape[1]):
+        counter, seconds = dryrun.count_rank(cfg, ShapeConfig(*fields), shape, axes, j)
+        rl = dryrun.roofline(counter.flops, counter.hbm_bytes, counter.by_axis,
+                             dict(zip(axes, shape)))
+        out[f"{label} {arch} {fields[0]} rank {j}"] = {
+            **counter.summary(), "kernel_calls": counter.kernel_calls(),
+            "roofline": rl, "seconds": seconds}
+json.dump(out, open(sys.argv[1], "w"))
+""" % (DRYRUN_CELLS,)
+    path = out_dir / "meta.json"
+    root = Path(__file__).resolve().parent
+    return subprocess.Popen([sys.executable, "-c", code, str(path)], cwd=root,
+                            env={**os.environ, "PYTHONPATH": str(root / "src")}), path
+
+
+@contextlib.contextmanager
+def plain_grouped_matmul():
+    """The grouped GEMM replaced by its plain version where the MoE layer
+    calls it (a reference run at fp32 compute)."""
+    from repro_torch.kernels import moe_gmm
+    kernel = moe_gmm.grouped_matmul
+    moe_gmm.grouped_matmul = moe_gmm.grouped_matmul_plain
+    try:
+        yield
+    finally:
+        moe_gmm.grouped_matmul = kernel
+
+
+def model_rank_slices(spec, shape, j: int, m: int = 2) -> tuple[slice, ...]:
+    """The slice of a leaf of ``shape`` that ``model`` rank ``j`` of ``m``
+    holds under ``spec`` on a (data 1, model m) mesh."""
+    out = []
+    for dim, size in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+        k = size // m if "model" in axes else size
+        out.append(slice(j * k, (j + 1) * k) if "model" in axes else slice(None))
+    return tuple(out)
+
+
+def tp_decode_worker(rank: int, init_file: str, out_dir: str, device_type: str) -> None:
+    """One of tp_decode's two ranks on card 0, a (data 1, model 2) mesh
+    over gloo.  Each arch: the serving tree (the same on both ranks, from
+    one seed), one rank's decode of the tokens on it with no mesh (bf16
+    on rank 0, fp32 compute on rank 1, shared through files), then this
+    rank's shards of the tree and of a new cache (``init_cache`` with the
+    mesh) and the same tokens through ``decode_step`` under the mesh, its
+    launches counted from 0 and its collectives' bytes read; the logits
+    (this rank's columns) and every cache shard against one rank's.  Then
+    dryrun_vs_card's (c) cells on this mesh.  Writes the results."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import bridge, events
+    from repro_torch.configs import get
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import (
+        decode_step, init_cache, init_serving_params,
+    )
+    from repro_torch.tree import tree_map
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    if device_type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=2)
+    results = {}
+    try:
+        mesh = init_device_mesh(device_type, (1, 2), mesh_dim_names=("data", "model"))
+        for arch in TP_DECODE_ARCHS:
+            t_arch = time.perf_counter()
+            cfg = get(arch)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(TP_SEED)
+            params = init_serving_params(cfg, gen)
+            rng = np.random.default_rng(TP_SEED)
+            tokens = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (TP_DECODE_TOKENS, TP_DECODE_SLOTS))).to(dev)
+
+            # one rank's decode of the tokens on the whole tree, in bf16 on
+            # rank 0 and at fp32 compute on rank 1 (the grouped GEMM's plain
+            # version in the kernel's place: the kernel takes bf16 only), at
+            # once; each writes its logits and both ranks' slices of its cache
+            run_cfg = cfg if rank == 0 else dataclasses.replace(cfg, compute_dtype="float32")
+            cache = init_cache(run_cfg, TP_DECODE_SLOTS, TP_DECODE_LEN, device=dev)
+            logits_all = []
+            with (plain_grouped_matmul() if rank else contextlib.nullcontext()), \
+                    torch.inference_mode():
+                for t in range(TP_DECODE_TOKENS):
+                    logits, cache = decode_step(run_cfg, params, cache, tokens[t, :, None])
+                    logits_all.append(logits.float().cpu())
+            specs = shd.cache_shardings(cache, mesh)
+            torch.save({"logits": torch.cat(logits_all), "slices": [
+                {path: leaf[model_rank_slices(spec, leaf.shape, j)].cpu()
+                 for (path, leaf), spec in zip(bridge.flatten(cache).items(),
+                                               shd.spec_leaves(specs))
+                 if isinstance(leaf, torch.Tensor)} for j in range(2)]},
+                Path(out_dir) / f"{arch}_ref{rank}.pt")
+            del cache, logits_all
+            dist.barrier()
+            refs = [torch.load(Path(out_dir) / f"{arch}_ref{r}.pt") for r in range(2)]
+            want, want_cache = refs[0]["logits"].to(dev), refs[0]["slices"][rank]
+            fp32, fp32_cache = refs[1]["logits"].to(dev), refs[1]["slices"][rank]
+            del refs
+            t_ref = time.perf_counter()
+            local = tree_map(lambda leaf, spec: leaf[shd.local_slices(
+                spec, leaf.shape, mesh)].clone(), params, shd.params_shardings(params, mesh))
+            del params
+            torch.cuda.empty_cache()
+            cache = init_cache(cfg, TP_DECODE_SLOTS, TP_DECODE_LEN, device=dev, mesh=mesh)
+            shard_shapes = all(tuple(bridge.flatten(cache)[p].shape) == tuple(w.shape)
+                               for p, w in want_cache.items())
+            moved = {}
+
+            def listen(event, *details):
+                if event == events.COLLECTIVE:
+                    kind, _, nbytes = details
+                    moved[kind] = moved.get(kind, 0) + nbytes
+
+            got, times = [], []
+            reset_launches()
+            with mesh_ctx.set_mesh(mesh), torch.inference_mode(), events.counting(listen):
+                for t in range(TP_DECODE_TOKENS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, cache = decode_step(cfg, local, cache, tokens[t, :, None])
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    got.append(logits.float())
+            launches = launch_counts(path_kernels(cfg, backward=False))
+            t_tp = time.perf_counter()
+            # this rank's vocabulary columns, or the whole (a head that is
+            # not vocab-sharded)
+            got = torch.cat(got)
+            first = 0 if got.shape[-1] == cfg.vocab_size else rank * -(-cfg.padded_vocab // 2)
+            want, fp32 = (t[:, first:first + got.shape[-1]] for t in (want, fp32))
+            agreement = logits_agreement(got, want, layers=cfg.n_layers, gate=False)
+            one_vs_fp32 = logits_agreement(want, fp32, layers=cfg.n_layers, gate=False)
+            tp_vs_fp32 = logits_agreement(got, fp32, layers=cfg.n_layers, gate=False)
+
+            def rel(a, b):
+                """(||a - b|| / ||b||, max |a - b| / max |b|)"""
+                a, b = a.float(), b.float()
+                return ((a - b).norm().item() / max(b.norm().item(), 1e-30),
+                        (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+
+            cache_err = {path: (*rel(bridge.flatten(cache)[path], w.to(dev)),
+                                *rel(w.to(dev), fp32_cache[path].to(dev)))
+                         for path, w in want_cache.items()}
+            cache_ok = all(e[0] <= max(TP_DECODE_CACHE_REF * e[2], TP_DECODE_CACHE_FLOOR)
+                           for e in cache_err.values())
+            worst = max(cache_err.items(), key=lambda kv: kv[1][0] / max(kv[1][2], 1e-30))
+            results[arch] = {
+                "agreement": agreement, "one_rank_vs_fp32": one_vs_fp32,
+                "tp_vs_fp32": tp_vs_fp32, "cache_shard_shapes_equal": shard_shapes,
+                "cache_rel_err": {p: dict(zip(("norm", "max", "ref_norm", "ref_max"), e))
+                                  for p, e in cache_err.items()},
+                "cache_within_rounding": cache_ok, "cache_worst_leaf": worst[0],
+                "cache_worst": dict(zip(("norm", "max", "ref_norm", "ref_max"), worst[1])),
+                "launches": launches, "step_ms": 1e3 * float(np.median(times)),
+                "collective_bytes_a_token": {k: v / TP_DECODE_TOKENS
+                                             for k, v in moved.items()},
+                "view": shd.cache_view(cfg, 2, rank),
+                # wall time: the init and one rank's decodes (files included),
+                # then the shards and the decode under the mesh
+                "seconds": {"one_rank": t_ref - t_arch, "model_2": t_tp - t_ref}}
+            del local, cache, want_cache, fp32_cache, got, want, fp32
+            torch.cuda.empty_cache()
+        results["dryrun"] = {
+            f"{label} {arch} {fields[0]} rank {rank}": count_on_card(
+                arch, fields, mesh, dev, timed=DRYRUN_TP_TIMED)
+            for label, arch, fields, shape in DRYRUN_CELLS if shape == (1, 2)}
+        torch.save(results, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_decode_gmm_entry(cfg, gen, dev, card, launches: int) -> dict:
+    """The grouped GEMM at one model rank's decode shape of olmoe-1b-7b
+    (4 slots, top-8: 32 rows, every expert's f 512 of 1024; a real
+    routing's group sizes): a decode step's 3 calls a layer against the
+    plain version, ``torch._grouped_mm`` and the bound."""
+    from repro_torch.kernels import moe_gmm
+    d, f, e, k = cfg.d_model, cfg.moe_d_ff // 2, cfg.n_experts, cfg.top_k
+    rows = TP_DECODE_SLOTS * k
+    sizes = moe_group_sizes(gen, dev, TP_DECODE_SLOTS, e, k)
+    nonempty = int((sizes > 0).sum())
+    x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    hid = torch.randn((rows, f), generator=gen, device=dev).to(torch.bfloat16)
+    w_in = (torch.randn((e, d, f), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    w_down = (torch.randn((e, f, d), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    calls = [(x, w_in), (x, w_in), (hid, w_down)] * cfg.n_layers
+    errs = [gmm_errors(moe_gmm.grouped_matmul(a, w, sizes),
+                       moe_gmm.grouped_matmul_plain(a, w, sizes)) for a, w in calls[1:3]]
+    libs = [grouped_mm_call(a, w, sizes) for a, w in calls[:3]]
+    no_lib = next((why for call, why in libs if call is None), None)
+    floors = [gmm_floor_ms(rows, w.shape[1], w.shape[2], nonempty) for _, w in calls]
+    mix = {"max_abs_err": max(er["max_abs_err"] for er in errs),
+           "ms": time_ms(lambda: [moe_gmm.grouped_matmul(a, w, sizes) for a, w in calls], 5),
+           "plain_ms": time_ms(lambda: [moe_gmm.grouped_matmul_plain(a, w, sizes)
+                                        for a, w in calls], 1, 1),
+           "library_ms": (None if no_lib else
+                          time_ms(lambda: [c() for c, _ in libs * cfg.n_layers], 5))}
+    mix["bound_ms"], mix["bound_by"] = bound(sum(fl[0] for fl in floors),
+                                             sum(fl[1] for fl in floors))
+    emit("kernel_tp_decode_mix", kernel="grouped_matmul", calls=len(calls),
+         shape=[rows, d, f, e], nonempty_experts=nonempty,
+         library=no_lib or "torch._grouped_mm", errors=errs, nvidia_smi=card, **mix)
+    return {"name": "grouped_matmul", "route": "cuda", "source": GMM_SOURCE,
+            "replaces": GMM_REPLACES, "launches": launches,
+            "path": f"{cfg.name} TP decode, model 2 ({TP_DECODE_TOKENS} tokens, f 512)",
+            **mix}
+
+
+def dryrun_compare(meta: dict, card_runs: dict, card: str) -> list[str]:
+    """Each card run against the dry run's count of the same cell and rank:
+    a line each; the cells that fail the gates (DRYRUN_EQUAL equal, the
+    peak within DRYRUN_PEAK_REL_TOL on one card, the step no shorter than
+    the roofline's bound)."""
+    bad = []
+    for name, card_run in sorted(card_runs.items()):
+        key = name if name in meta else f"{name} rank 0"
+        m, c = meta[key], card_run["summary"]
+        equal = {k: m[k] == c[k] for k in DRYRUN_EQUAL}
+        line = {"cell": name, "meta": {k: m[k] for k in DRYRUN_EQUAL},
+                "card": {k: c[k] for k in DRYRUN_EQUAL}, "equal": equal,
+                "reckoned_peak_bytes": m["peak_bytes"],
+                "max_memory_allocated": card_run["max_memory_allocated"],
+                "peak_rel_err": abs(m["peak_bytes"] / card_run["max_memory_allocated"] - 1),
+                "step_s": card_run["step_s"],
+                "roofline_s": m["roofline"]["step_s_lower_bound"],
+                "dominant": m["roofline"]["dominant"],
+                "step_over_bound": card_run["step_s"] / m["roofline"]["step_s_lower_bound"]}
+        if not all(equal.values()):
+            line["ops_differing"] = {
+                op: [m["ops"].get(op), c["ops"].get(op)]
+                for op in set(m["ops"]) | set(c["ops"]) if m["ops"].get(op) != c["ops"].get(op)}
+        emit("dryrun_vs_card", nvidia_smi=card, **line)
+        peak_gated = not name.startswith("c ")
+        if (not all(equal.values()) or line["step_s"] < line["roofline_s"]
+                or (peak_gated and line["peak_rel_err"] > DRYRUN_PEAK_REL_TOL)):
+            bad.append(name)
+    return bad
+
+
+def tp_decode_path(dev, card) -> list[dict]:
+    """tp_decode and dryrun_vs_card.  tp_decode: TP_DECODE_ARCHS at full
+    width and depth in two gloo ranks on the card at (data 1, model 2),
+    each rank's logits within §2's decode gates of one rank's on the same
+    weights and tokens and no further from the fp32-compute logits than
+    TP_DECODE_FP32_REF times one rank's, its cache leaves exactly its
+    shards' shapes and within the model's own rounding of one rank's
+    slice (TP_DECODE_CACHE_REF, TP_DECODE_CACHE_FLOOR); the step's ms
+    through gloo and the collective bytes a token reported.
+    dryrun_vs_card: DRYRUN_CELLS counted on the meta device by the dry run
+    (in a process started first, beside the ranks) and on the card by the
+    same counter: FLOPs, HBM bytes, each kernel's calls and the collectives
+    equal, the reckoned peak within DRYRUN_PEAK_REL_TOL of
+    max_memory_allocated for (a) and (b), and the measured step no shorter
+    than the roofline's bound.  Returns the kernels' entries."""
+    import shutil
+    import torch.multiprocessing as mp
+    out_dir = Path(__file__).resolve().parent / "build" / "tp_decode"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    meta_proc, meta_path = dryrun_meta(out_dir)   # on the host, beside the ranks
+    try:
+        t0 = time.perf_counter()
+        mp.start_processes(tp_decode_worker,
+                           args=(str(out_dir / "store"), str(out_dir), dev.type),
+                           nprocs=2, join=True, start_method="spawn")
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        failures = []
+        for arch in TP_DECODE_ARCHS:
+            per = [r[arch] for r in ranks]
+            ok = all(p["agreement"]["within_bounds"] and p["cache_shard_shapes_equal"]
+                     and p["cache_within_rounding"]
+                     and p["tp_vs_fp32"]["mean_rel_to_std"]
+                     <= TP_DECODE_FP32_REF * p["one_rank_vs_fp32"]["mean_rel_to_std"]
+                     for p in per)
+            emit("tp_decode", arch=arch, mesh={"data": 1, "model": 2}, backend="gloo",
+                 slots=TP_DECODE_SLOTS, cache_len=TP_DECODE_LEN, tokens=TP_DECODE_TOKENS,
+                 cache_ref=TP_DECODE_CACHE_REF, cache_floor=TP_DECODE_CACHE_FLOOR,
+                 fp32_ref=TP_DECODE_FP32_REF, ok=ok, nvidia_smi=card, ranks=per)
+            if not ok:
+                failures.append(arch)
+        emit("tp_decode_section", seconds_both_ranks=seconds)
+
+        # -- dryrun_vs_card --------------------------------------------------
+        t0 = time.perf_counter()
+        mp.start_processes(dryrun_vs_card_worker, args=(str(out_dir / "store1"), str(out_dir)),
+                           nprocs=1, join=True, start_method="spawn")
+        card_runs = torch.load(out_dir / "card.pt", weights_only=False)
+        if meta_proc.wait() != 0:
+            raise RuntimeError(f"the dry run of DRYRUN_CELLS failed: exit {meta_proc.returncode}")
+        meta = json.loads(meta_path.read_text())
+        for r in ranks:
+            card_runs.update(r["dryrun"])
+        bad = dryrun_compare(meta, card_runs, card)
+        emit("dryrun_vs_card_section", seconds=time.perf_counter() - t0, cells=len(card_runs))
+        if failures or bad:
+            raise AssertionError(f"decode under model disagrees with one rank: {failures}; "
+                                 f"the dry run's reckoning strays from the card: {bad}")
+    finally:
+        if meta_proc.poll() is None:
+            meta_proc.kill()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    from repro_torch.configs import get
+    olmoe = get("olmoe-1b-7b")
+    return [tp_decode_gmm_entry(olmoe, gen, dev, card,
+                                ranks[0]["olmoe-1b-7b"]["launches"]["grouped_matmul"])]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a card")
@@ -4464,6 +4844,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     # the tensor-parallel section
     kernels += tp_path(dev, card)
+    torch.cuda.empty_cache()
+    # decode under a model axis, and the dry run against the card
+    kernels += tp_decode_path(dev, card)
 
     emit("done", seconds=time.perf_counter() - _START, kernel_entries=len(kernels))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -32,22 +32,87 @@ JAX orders a ``("pod", "data")`` sharding.
   all-gather over the sequence and g a reduce-scatter);
 * :func:`model_view`: a block's compute view of a parameter stored whole
   or as this rank's ``model`` shard, the one place that chooses the
-  gather's backward.
+  gather's backward;
+* :func:`decode_gather` and :func:`decode_sum`: decode's small activation
+  gathers over ``model`` (a row of a projection's columns, conv outputs,
+  each head's output slice) and its sums (the partial scores over a head
+  dim split, a statistic), no gradient.
 
 Every one is the identity where ``model`` has one rank.
+
+Every collective of the port goes through :func:`all_reduce`,
+:func:`all_gather` or :func:`reduce_scatter`, which report the kind, the
+axis and the payload bytes (the result's, as the reference's dry run reads
+them from the HLO) as a :data:`repro_torch.events.COLLECTIVE` event, to
+a cost counter that is off unless one listens.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch import events
+
 _MESHES: list[DeviceMesh] = []
 
 DP_AXES = ("pod", "data")
+
+_INSIDE = threading.local()
+
+
+def inside_collective() -> bool:
+    """Whether this thread is inside one of the collectives below: the ops
+    a backend dispatches to carry one out (gloo stages a CUDA tensor's
+    reduce-scatter through copies) are the collective's, not the model's."""
+    return getattr(_INSIDE, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _collective(kind: str, axis: str, t: torch.Tensor) -> Iterator[None]:
+    # kind: all-reduce, all-gather or reduce-scatter; axis: the mesh axis
+    # the group spans
+    if events.active():
+        events.report(events.COLLECTIVE, kind, axis, t.numel() * t.element_size())
+    _INSIDE.depth = getattr(_INSIDE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _INSIDE.depth -= 1
+
+
+#: ``reduce_scatter_single`` where this torch has it (the newer name),
+#: else ``reduce_scatter_tensor``; the same arguments
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def all_reduce(t: torch.Tensor, group: dist.ProcessGroup, axis: str,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``dist.all_reduce`` of ``t`` in place over ``group`` (the ranks of
+    mesh axis ``axis``), reported."""
+    with _collective("all-reduce", axis, t):
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_gather(out: torch.Tensor, t: torch.Tensor, group: dist.ProcessGroup,
+               axis: str) -> torch.Tensor:
+    """``dist.all_gather_into_tensor`` of ``t`` into ``out``, reported."""
+    with _collective("all-gather", axis, out):
+        dist.all_gather_into_tensor(out, t, group=group)
+    return out
+
+
+def reduce_scatter(out: torch.Tensor, t: torch.Tensor, group: dist.ProcessGroup,
+                   axis: str) -> torch.Tensor:
+    """The group's ``t`` summed, this rank's part into ``out``, reported."""
+    with _collective("reduce-scatter", axis, out):
+        _reduce_scatter(out, t, group=group)
+    return out
 
 
 @contextlib.contextmanager
@@ -124,7 +189,7 @@ def dp_all_reduce(t: torch.Tensor, mesh: DeviceMesh | None = None) -> torch.Tens
     sum over both, and a sum over one rank is the value)."""
     for a in dp_axes(mesh):
         if axis_size(a, mesh) > 1:
-            dist.all_reduce(t, group=_group(a, mesh))
+            all_reduce(t, _group(a, mesh), a)
     return t
 
 
@@ -136,7 +201,7 @@ def dp_all_gather(t: torch.Tensor, mesh: DeviceMesh | None = None) -> torch.Tens
     for a in reversed(dp_axes(mesh)):        # minor axis first
         n = axis_size(a, mesh)
         buf = out.new_empty((n * out.shape[0],) + tuple(out.shape[1:]))
-        dist.all_gather_into_tensor(buf, out.contiguous(), group=_group(a, mesh))
+        all_gather(buf, out.contiguous(), _group(a, mesh), a)
         out = buf
     return out
 
@@ -151,9 +216,7 @@ class _ModelCopy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        dy = dy.contiguous().clone()
-        dist.all_reduce(dy, group=ctx.group)
-        return dy, None
+        return all_reduce(dy.contiguous().clone(), ctx.group, "model"), None
 
 
 class _ModelSum(torch.autograd.Function):
@@ -161,9 +224,7 @@ class _ModelSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return all_reduce(x.contiguous().clone(), group, "model")
 
     @staticmethod
     def backward(ctx, dy):
@@ -191,11 +252,6 @@ def model_sum(x: torch.Tensor, mesh: DeviceMesh | None = None) -> torch.Tensor:
 # Tensor parallelism over ``model``
 # ---------------------------------------------------------------------------
 
-#: ``reduce_scatter_single`` where this torch has it (the newer name),
-#: else ``reduce_scatter_tensor``; the same arguments
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-
-
 def model_rank(mesh: DeviceMesh | None = None) -> int:
     """This rank's index on ``model`` (0 with no ``model`` axis)."""
     mesh = mesh if mesh is not None else get_mesh()
@@ -209,7 +265,7 @@ def _gather(x: torch.Tensor, dim: int, group: dist.ProcessGroup, n: int
     """The group's ``x`` concatenated along ``dim`` in rank order."""
     front = x.movedim(dim, 0).contiguous()
     out = front.new_empty((n * front.shape[0],) + tuple(front.shape[1:]))
-    dist.all_gather_into_tensor(out, front, group=group)
+    all_gather(out, front, group, "model")
     return out.movedim(0, dim)
 
 
@@ -218,7 +274,7 @@ def _scatter_sum(x: torch.Tensor, dim: int, group: dist.ProcessGroup, n: int
     """The group's ``x`` summed, this rank's n-th part along ``dim``."""
     front = x.movedim(dim, 0).contiguous()
     out = front.new_empty((front.shape[0] // n,) + tuple(front.shape[1:]))
-    _reduce_scatter(out, front, group=group)
+    reduce_scatter(out, front, group, "model")
     return out.movedim(0, dim)
 
 
@@ -277,15 +333,11 @@ class _StatSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return all_reduce(x.contiguous().clone(), group, "model")
 
     @staticmethod
     def backward(ctx, dy):
-        dy = dy.contiguous().clone()
-        dist.all_reduce(dy, group=ctx.group)
-        return dy, None
+        return all_reduce(dy.contiguous().clone(), ctx.group, "model"), None
 
 
 def _model(mesh: DeviceMesh | None) -> tuple[dist.ProcessGroup, int, int]:
@@ -338,9 +390,8 @@ def model_max(x: torch.Tensor, mesh: DeviceMesh | None = None) -> torch.Tensor:
     """The elementwise maximum over ``model`` (no gradient)."""
     if axis_size("model", mesh) == 1:
         return x
-    out = x.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group("model", mesh))
-    return out
+    return all_reduce(x.contiguous().clone(), _group("model", mesh), "model",
+                      op=dist.ReduceOp.MAX)
 
 
 def check_seq(s: int, mesh: DeviceMesh | None = None) -> None:
@@ -415,3 +466,28 @@ def model_view(w: torch.Tensor, dim: int, ranges: Ranges, full: int, *,
         return whole
     parts = [whole.narrow(dim, a, b - a) for a, b in ranges]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+# ---------------------------------------------------------------------------
+# Decode over ``model``: small activations move, never a cache leaf or a
+# weight
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def decode_gather(x: torch.Tensor, dim: int,
+                  mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """The ``model`` ranks' ``x`` (equal shapes) concatenated along ``dim``
+    in rank order (no gradient)."""
+    if axis_size("model", mesh) == 1:
+        return x
+    group, _, n = _model(mesh)
+    return _gather(x, dim % x.dim(), group, n)
+
+
+@torch.no_grad()
+def decode_sum(x: torch.Tensor, mesh: DeviceMesh | None = None) -> torch.Tensor:
+    """``x`` summed over ``model`` (no gradient): decode's partial scores
+    over a head-dim slice, or a statistic of each rank's slice."""
+    if axis_size("model", mesh) == 1:
+        return x
+    return all_reduce(x.contiguous().clone(), _group("model", mesh), "model")

@@ -49,6 +49,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.bridge import SEP, flatten
+from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed.context import DP_AXES
 from repro_torch.tree import tree_map
 
@@ -254,33 +255,37 @@ def batch_shardings(batch: Any, mesh: Any) -> Any:
                                           leaf.shape, mesh), batch)
 
 
+def cache_leaf_spec(name: str, shape: Sequence[int], mesh: Any) -> Spec:
+    """The spec of one decode-cache leaf by its name (``k``, ``v``, ``ssm``,
+    ``conv``, ``pos``) and shape: batch over the data-parallel axes; KV
+    heads over ``model``, or the head dim where they do not divide; SSM
+    heads and conv channels over ``model``; fitted to the shape."""
+    sizes = axis_sizes(mesh)
+    msize = sizes.get("model", 1)
+    dp = _dp_entry(sizes)
+    nd = len(shape)
+    if name == "pos":
+        return Spec()
+    if name in ("k", "v"):               # (R, B, T, Hkv, D)
+        lead = (None,) * (nd - 4)
+        if shape[-2] % msize == 0:
+            return fit_spec(Spec((*lead, dp, None, "model", None)), shape, mesh)
+        return fit_spec(Spec((*lead, dp, None, None, "model")), shape, mesh)
+    if name == "ssm":                    # (R, B, H, P, N)
+        return fit_spec(Spec((None,) * (nd - 4) + (dp, "model", None, None)),
+                        shape, mesh)
+    if name == "conv":                   # (R, B, K-1, C)
+        return fit_spec(Spec((None,) * (nd - 3) + (dp, None, "model")), shape, mesh)
+    return Spec((None,) * nd)
+
+
 def cache_shardings(cache: Any, mesh: Any) -> Any:
     """Decode caches: batch over the data-parallel axes; KV heads (or the
     head dim where they do not divide) and SSM heads over ``model``; ``pos``
     replicated."""
-    sizes = axis_sizes(mesh)
-    msize = sizes.get("model", 1)
-    dp = _dp_entry(sizes)
-
-    def one(names, leaf):
-        name = names[-1]
-        if name == "pos":
-            return Spec()
-        nd, shape = leaf.dim(), leaf.shape
-        if name in ("k", "v"):               # (R, B, T, Hkv, D)
-            lead = (None,) * (nd - 4)
-            if shape[-2] % msize == 0:
-                return fit_spec(Spec((*lead, dp, None, "model", None)), shape, mesh)
-            return fit_spec(Spec((*lead, dp, None, None, "model")), shape, mesh)
-        if name == "ssm":                    # (R, B, H, P, N)
-            return fit_spec(Spec((None,) * (nd - 4) + (dp, "model", None, None)),
-                            shape, mesh)
-        if name == "conv":                   # (R, B, K-1, C)
-            return fit_spec(Spec((None,) * (nd - 3) + (dp, None, "model")),
-                            shape, mesh)
-        return Spec((None,) * nd)
-
-    return _map_with_path(one, cache)
+    return _map_with_path(
+        lambda names, leaf: cache_leaf_spec(names[-1], getattr(leaf, "shape", ()), mesh),
+        cache)
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +365,7 @@ _GATHER_ELEMENTS = 1 << 26
 
 
 def _gather_dim(region: torch.Tensor, dim: int, n: int, index: int,
-                group: dist.ProcessGroup) -> None:
+                group: dist.ProcessGroup, axis: str) -> None:
     """``region`` holds n equal parts along ``dim``, this rank's at
     ``index``: fill the others from the group's ranks, in place, a block
     of at most _GATHER_ELEMENTS at a time (a block of rows along dim 0
@@ -368,14 +373,14 @@ def _gather_dim(region: torch.Tensor, dim: int, n: int, index: int,
     k = region.shape[dim] // n
     if dim == 0:
         part = region.narrow(0, index * k, k).clone()
-        dist.all_gather_into_tensor(region, part, group=group)
+        mesh_ctx.all_gather(region, part, group, axis)
         return
     rows = max(1, _GATHER_ELEMENTS // max(1, region[0].numel()))
     for r0 in range(0, region.shape[0], rows):
         block = region[r0:r0 + rows]
         part = block.narrow(dim, index * k, k).contiguous()
         buf = part.new_empty((n * part.shape[0],) + tuple(part.shape[1:]))
-        dist.all_gather_into_tensor(buf, part, group=group)
+        mesh_ctx.all_gather(buf, part, group, axis)
         block.copy_(buf.view((n,) + tuple(part.shape)).movedim(0, dim)
                     .reshape(block.shape))
 
@@ -401,7 +406,7 @@ def gather_shards(full_leaf: torch.Tensor, spec: Spec, mesh: DeviceMesh) -> None
             sl[dim] = slice(lo, lo + n * extent)
             region = full_leaf[tuple(slice(None) if i != dim else sl[dim]
                                      for i in range(full_leaf.dim()))]
-            _gather_dim(region, dim, n, idx, mesh.get_group(a))
+            _gather_dim(region, dim, n, idx, mesh.get_group(a), a)
             extent *= n
 
 
@@ -567,3 +572,70 @@ def vocab_view(cfg: Any, m: int) -> dict[str, str]:
         head = fit_spec(param_spec(["lm_head"], 2), (d, v), sizes)
         kinds["head"] = "vocab" if head[1] == "model" else "whole"
     return kinds
+
+
+# ---------------------------------------------------------------------------
+# Cache views: what each ``model`` rank stores of a decode cache, and so
+# what it computes at decode
+# ---------------------------------------------------------------------------
+
+def _stored(n: int, split: bool, m: int, j: int) -> Range:
+    """Rank ``j``'s block of ``n`` where the spec splits the dim over ``m``
+    ranks, else the whole."""
+    return (j * (n // m), (j + 1) * (n // m)) if split else (0, n)
+
+
+def attn_cache_view(n_heads: int, n_kv_heads: int, head_dim: int, m: int,
+                    j: int) -> dict[str, Any]:
+    """The attention part of :func:`cache_view`."""
+    g = n_heads // n_kv_heads
+    spec = cache_leaf_spec("k", (1, 1, 1, n_kv_heads, head_dim), AxisSizes({"model": m}))
+    split = "heads" if spec[3] == "model" else "d" if spec[4] == "model" else "whole"
+    kv = _stored(n_kv_heads, split == "heads", m, j)
+    return {"split": split, "kv_heads": kv, "q_heads": (kv[0] * g, kv[1] * g),
+            "d": _stored(head_dim, split == "d", m, j)}
+
+
+def ssm_cache_view(d_inner: int, head_dim: int, state_dim: int, n_groups: int,
+                   m: int, j: int) -> dict[str, Any]:
+    """The SSM part of :func:`cache_view`."""
+    sizes = AxisSizes({"model": m})
+    h = d_inner // head_dim
+    conv_ch = d_inner + 2 * n_groups * state_dim
+    heads_split = cache_leaf_spec("ssm", (1, 1, h, 1, 1), sizes)[2] == "model"
+    conv_split = cache_leaf_spec("conv", (1, 1, 1, conv_ch), sizes)[3] == "model"
+    return {"heads": _stored(h, heads_split, m, j), "whole": not heads_split,
+            "conv": _stored(conv_ch, conv_split, m, j), "conv_split": conv_split}
+
+
+def cache_view(cfg: Any, m: int, j: int) -> dict[str, Any]:
+    """What ``model`` rank ``j`` of ``m`` stores of each decode-cache leaf
+    (:func:`cache_leaf_spec`: the same for every segment of a kind) and the
+    work that implies, a pure function of (config, ``model`` size, rank).
+
+    ``"attn"`` (configs with attention): ``split`` is ``"heads"`` (the
+    rank stores whole KV heads ``kv_heads`` and computes them and their
+    query groups ``q_heads``, from its stored columns of wq/wk/wv and rows
+    of wo), ``"d"`` (every KV head, the head-dim range ``d``: q, k and v
+    are formed whole, with RoPE and ``qk_norm``, then sliced to ``d``; the
+    scores over the slice are partial sums, summed over ``model``; p·v
+    gives the rank's slice of every head's output) or ``"whole"`` (the
+    block runs whole on every rank).
+
+    ``"ssm"`` (configs with SSM layers): ``heads`` the SSM heads whose state
+    the rank stores (all of them, ``whole``, where the heads do not
+    divide: every rank steps every head, identically), ``conv`` the conv
+    channels it stores (and convolves), with ``conv_split``."""
+    out: dict[str, Any] = {}
+    if cfg.n_heads:
+        out["attn"] = attn_cache_view(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, m, j)
+    if cfg.ssm_state:
+        out["ssm"] = ssm_cache_view(cfg.d_inner, cfg.ssm_head_dim, cfg.ssm_state,
+                                    cfg.ssm_groups, m, j)
+    return out
+
+
+def leaf_block(n: int, stored: int, m: int, j: int) -> Range:
+    """The block of a dim of ``n`` entries that rank ``j`` of ``m`` holds
+    when it stores ``stored`` of them: its 1/m block, or the whole."""
+    return (0, n) if stored == n else (j * stored, (j + 1) * stored)

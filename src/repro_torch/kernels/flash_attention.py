@@ -27,7 +27,13 @@ The source's header says what bounds each and what its design does about it.
   softmax in fp32 (the oracle ``ref.flash_attention_ref``), which
   differentiates by autograd.
 * A CUDA tensor goes to the kernels, or the wrapper raises: bf16 only, head
-  dims in :data:`HEAD_DIMS`, contiguous (B, S, H, D) layout.  Under grad
+  dims in :data:`HEAD_DIMS`, contiguous (B, S, H, D) layout.
+* A meta tensor takes the kernels' route and never the plain version.  While
+  a cost counter listens (a dry run, :func:`repro_torch.events.counting`)
+  its meta route stands in for the launch: the same checks, the same
+  outputs and scratch allocated on the meta device, and the call's cost
+  reported; no launch count.  With none listening it raises at the device
+  check, as for any device without a kernel.  Under grad
   mode with an input that requires grad, or under ``torch.func.vmap``, the
   call goes through :class:`FlashAttention`, whose forward saves the LSE,
   whose backward launches the backward kernels and whose vmap rule folds
@@ -44,7 +50,7 @@ import functools
 
 import torch
 
-from . import _build, batched, fold_members, needs_grad, unfold_members
+from . import _build, batched, costs, fold_members, needs_grad, unfold_members
 from .ref import flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref
 
 #: head dims the CUDA source is compiled for (its ``switch`` in
@@ -85,7 +91,7 @@ def _library() -> ctypes.CDLL:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            *like_q: torch.Tensor) -> None:
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not costs.meta_route(q):
         raise ValueError(f"no kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,S,Hq,D), k = v (B,S,Hkv,D); got "
@@ -123,6 +129,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    cost = (costs.attention, b, s, hq, k.shape[2], d, causal, window)
+    if costs.meta_route(q):
+        costs.report("flash_attention", *cost)
+        return out, lse
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
@@ -134,6 +144,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")
     launches += 1
+    costs.report("flash_attention", *cost)
     return out, lse
 
 
@@ -188,6 +199,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     work = torch.empty(_bwd_workspace_bytes(b, s, hq, k.shape[2], d) // 4,
                        dtype=torch.float32,
                        device=q.device)
+    cost = (costs.attention_bwd, b, s, hq, k.shape[2], d, causal, window)
+    if costs.meta_route(q):
+        costs.report("flash_attention_bwd", *cost)
+        return dq, dk, dv
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
@@ -200,6 +215,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"cudaError {err}")
     bwd_launches += 1
+    costs.report("flash_attention_bwd", *cost)
     return dq, dk, dv
 
 

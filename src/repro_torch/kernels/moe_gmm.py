@@ -25,6 +25,11 @@ design does about that.
   experts, group sizes a contiguous int32 tensor on the same device.  There
   is no fallback to the plain versions.  The wrappers never read the group
   sizes on the host, so a call does not synchronise.
+* A meta tensor takes the kernels' route, never the plain versions: while a
+  cost counter listens (a dry run) its meta route stands in for each
+  launch (the same checks and outputs, the call's cost reported to
+  :mod:`repro_torch.kernels.costs`, every expert counted as non-empty, no
+  launch count); with none listening it raises at the device check.
 * Under grad mode with an input that requires grad, or under
   ``torch.func.vmap``, :func:`grouped_matmul` goes through
   :class:`GroupedMatmul` (on either device): its backward launches dx and
@@ -41,7 +46,7 @@ import functools
 
 import torch
 
-from . import _build, batched, fold_members, needs_grad, unfold_members
+from . import _build, batched, costs, fold_members, needs_grad, unfold_members
 from .ref import grouped_matmul_dw_ref, grouped_matmul_dx_ref, grouped_matmul_ref
 
 #: the most experts the kernels take (``kMaxExperts`` in the CUDA source);
@@ -94,7 +99,7 @@ def _check(a: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
 
 def _check_kernel_inputs(e: int, d: int, f: int, group_sizes: torch.Tensor,
                          first: torch.Tensor, **operands: torch.Tensor) -> None:
-    if first.device.type != "cuda":
+    if first.device.type != "cuda" and not costs.meta_route(first):
         raise ValueError(f"no kernel for device {first.device}")
     if not 0 < e <= MAX_EXPERTS:
         raise ValueError(f"{e} experts: the kernel takes 1 to {MAX_EXPERTS}")
@@ -118,13 +123,23 @@ def _check_kernel_inputs(e: int, d: int, f: int, group_sizes: torch.Tensor,
 
 def _launch(entry: str, a: torch.Tensor, b: torch.Tensor,
             group_sizes: torch.Tensor, out: torch.Tensor, t: int, d: int,
-            f: int, e: int) -> None:
+            f: int, e: int) -> bool:
+    """One launch of ``entry``, its cost reported; on a meta tensor the
+    report alone.  Returns whether it launched."""
+    cost = ((costs.gmm_dw, t, d, f, e) if entry == "grouped_matmul_dw"
+            else (costs.gmm, t, f, d, e) if entry == "grouped_matmul_dx"
+            else (costs.gmm, t, d, f, e))
+    if costs.meta_route(a):
+        costs.report(entry, *cost)
+        return False
     with torch.cuda.device(a.device):
         err = getattr(_library(), entry)(
             a.data_ptr(), b.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
             t, d, f, e, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    costs.report(entry, *cost)
+    return True
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor,
@@ -139,8 +154,8 @@ def _forward(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty((t, f), dtype=x.dtype, device=x.device)
     if t == 0:
         return y
-    _launch("grouped_matmul", x, w, group_sizes, y, t, d, f, e)
-    launches += 1
+    if _launch("grouped_matmul", x, w, group_sizes, y, t, d, f, e):
+        launches += 1
     return y
 
 
@@ -157,8 +172,8 @@ def grouped_matmul_dx(dy: torch.Tensor, w: torch.Tensor,
     dx = torch.empty((t, d), dtype=dy.dtype, device=dy.device)
     if t == 0:
         return dx
-    _launch("grouped_matmul_dx", dy, w, group_sizes, dx, t, d, f, e)
-    dx_launches += 1
+    if _launch("grouped_matmul_dx", dy, w, group_sizes, dx, t, d, f, e):
+        dx_launches += 1
     return dx
 
 
@@ -189,8 +204,8 @@ def grouped_matmul_dw(x: torch.Tensor, dy: torch.Tensor,
                          f"on {x.device}")
     if t == 0:   # no rows: nothing to launch, every slab is zero
         return dw.zero_()
-    _launch("grouped_matmul_dw", x, dy, group_sizes, dw, t, d, f, e)
-    dw_launches += 1
+    if _launch("grouped_matmul_dw", x, dy, group_sizes, dw, t, d, f, e):
+        dw_launches += 1
     return dw
 
 

@@ -26,6 +26,11 @@ tensor goes to the kernels, or the wrapper raises: x, B and C bf16 and
 log_a fp32; each of them with its last dim contiguous, rows 16-byte
 aligned (any other strides are read in place); (P, N) in
 :data:`HEAD_STATE_DIMS`; Q = min(chunk, S) at most 256 and dividing S.
+A meta tensor takes the kernels' route, never the plain version: while a
+cost counter listens (a dry run) its meta route stands in for each launch
+(the same checks and allocations, the call's cost reported to
+:mod:`repro_torch.kernels.costs`, no launch count); with none listening it
+raises, as for any device without a kernel.
 Under grad mode with an input that requires grad, or under
 ``torch.func.vmap``, :func:`ssd_scan` goes through :class:`SSDScan`;
 :func:`chunk_state` and :func:`chunk_scan` alone refuse a gradient (they
@@ -43,7 +48,7 @@ import functools
 import torch
 
 from . import (
-    _build, batched, fold_members, needs_grad, refuse_grad, unfold_members,
+    _build, batched, costs, fold_members, needs_grad, refuse_grad, unfold_members,
 )
 
 #: (head dim P, state dim N) pairs the CUDA source is compiled for (its
@@ -341,13 +346,19 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _on_card(x: torch.Tensor) -> bool:
-    """False for a CPU tensor (the plain version); True for a CUDA one;
-    raises for any other device."""
+    """False for a CPU tensor (the plain version); True for a CUDA one and
+    for a meta one under a cost counter (the kernels' route; a dry run's
+    stand-in); raises for any other device."""
     if x.device.type == "cpu":
         return False
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not costs.meta_route(x):
         raise ValueError(f"no kernel for device {x.device}")
     return True
+
+
+def _dims_of(x, b_mat, q):
+    bsz, s, h, p = x.shape
+    return bsz, s, h, p, b_mat.shape[2], b_mat.shape[3], q
 
 
 def chunk_state(x: torch.Tensor, log_a: torch.Tensor, b_mat: torch.Tensor, *,
@@ -379,6 +390,10 @@ def _state_launch(x, log_a, b_mat, chunk, initial_state):
                        device=x.device)
     init = (initial_state.to(torch.float32).contiguous()
             if initial_state is not None else None)
+    cost = (costs.ssd, *_dims_of(x, b_mat, q), "chunk_state", 4 if init is not None else 0)
+    if costs.meta_route(x):
+        costs.report("ssd_chunk_state", *cost)
+        return prev, final
     dims = _dims(x, log_a, b_mat, b_mat, q)
     with torch.cuda.device(x.device):
         _raise_on(_library().ssd_chunk_state(
@@ -389,6 +404,7 @@ def _state_launch(x, log_a, b_mat, chunk, initial_state):
             ctypes.addressof(dims),
             torch.cuda.current_stream(x.device).cuda_stream), "ssd_chunk_state")
     state_launches += 1
+    costs.report("ssd_chunk_state", *cost)
     return prev, final
 
 
@@ -420,6 +436,10 @@ def _scan_launch(x, log_a, b_mat, c_mat, prev, chunk):
     n = b_mat.shape[3]
     _check_fp32("prev", prev, (bsz, h, s // q, p, n), x.device)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    cost = (costs.ssd, *_dims_of(x, b_mat, q), "chunk_scan")
+    if costs.meta_route(x):
+        costs.report("ssd_chunk_scan", *cost)
+        return y
     dims = _dims(x, log_a, b_mat, c_mat, q)
     with torch.cuda.device(x.device):
         _raise_on(_library().ssd_chunk_scan(
@@ -427,6 +447,7 @@ def _scan_launch(x, log_a, b_mat, c_mat, prev, chunk):
             prev.data_ptr(), y.data_ptr(), ctypes.addressof(dims),
             torch.cuda.current_stream(x.device).cuda_stream), "ssd_chunk_scan")
     scan_launches += 1
+    costs.report("ssd_chunk_scan", *cost)
     return y
 
 
@@ -473,6 +494,10 @@ def _state_bwd_launch(dy, log_a, c_mat, prev, dfinal, chunk):
     d_total = torch.empty((bsz, h, s // q), **f32)
     # the hand-off's flags, one a chunk, then its ticket: zeroed every call
     work = torch.zeros(bsz * h * (s // q) + 1, dtype=torch.int32, device=dy.device)
+    cost = (costs.ssd_bwd, *_dims_of(dy, c_mat, q), "chunk_state_bwd", dfinal is not None)
+    if costs.meta_route(dy):
+        costs.report("ssd_chunk_state_bwd", *cost)
+        return gnext, dinit, d_total
     dims = _dims(dy, log_a, c_mat, c_mat, q)
     with torch.cuda.device(dy.device):
         _raise_on(_library().ssd_chunk_state_bwd(
@@ -482,6 +507,7 @@ def _state_bwd_launch(dy, log_a, c_mat, prev, dfinal, chunk):
             work.data_ptr() + 4 * bsz * h * (s // q), ctypes.addressof(dims),
             torch.cuda.current_stream(dy.device).cuda_stream), "ssd_chunk_state_bwd")
     state_bwd_launches += 1
+    costs.report("ssd_chunk_state_bwd", *cost)
     return gnext, dinit, d_total
 
 
@@ -521,6 +547,11 @@ def _scan_bwd_launch(x, log_a, b_mat, c_mat, prev, dy, gnext, d_total, chunk):
     dla = torch.empty((bsz, s, h), **f32)
     db = torch.empty((bsz, s, h // rep, n), **f32)
     dc = torch.empty((bsz, s, h // rep, n), **f32)
+    k = h // rep // g
+    cost = (costs.ssd_bwd, *_dims_of(x, b_mat, q), "chunk_scan_bwd")
+    if costs.meta_route(x):
+        costs.report("ssd_chunk_scan_bwd", *cost, slices=k)
+        return dx, dla, db.view(bsz, s, g, k, n), dc.view(bsz, s, g, k, n)
     dims = _dims(x, log_a, b_mat, c_mat, q, rep)
     with torch.cuda.device(x.device):
         _raise_on(_library().ssd_chunk_scan_bwd(
@@ -530,7 +561,7 @@ def _scan_bwd_launch(x, log_a, b_mat, c_mat, prev, dy, gnext, d_total, chunk):
             ctypes.addressof(dims),
             torch.cuda.current_stream(x.device).cuda_stream), "ssd_chunk_scan_bwd")
     scan_bwd_launches += 1
-    k = h // rep // g
+    costs.report("ssd_chunk_scan_bwd", *cost, slices=k)
     return dx, dla, db.view(bsz, s, g, k, n), dc.view(bsz, s, g, k, n)
 
 

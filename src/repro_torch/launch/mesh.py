@@ -12,8 +12,11 @@ or else as a group of one rank; NCCL on ``cuda``, gloo on ``cpu``.
 Importing this module starts nothing.
 
 Roofline inputs: one NVIDIA H100 SXM5 by NVIDIA's H100 Tensor Core GPU
-datasheet (dense rates, no sparsity, at the 700 W limit).  They are the
-card's specification, not measurements.
+datasheet (dense rates, no sparsity, at the 700 W limit), and the links
+of NVIDIA's DGX H100 system datasheet: 8 cards a node on NVLink 4, each
+card with its own ConnectX-7 400 Gb/s InfiniBand port to other nodes.
+They are the specification, not measurements.  :func:`axis_link` says
+which link a mesh axis's collectives cross.
 """
 from __future__ import annotations
 
@@ -29,6 +32,10 @@ from repro_torch.device import resolve_device
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s, dense bf16 tensor cores
 HBM_BW = 3.35e12                  # B/s, HBM3
 LINK_BW = 900e9                   # B/s, NVLink 4 (18 links, both directions)
+# NVIDIA DGX H100 datasheet: 8 H100 a node; one ConnectX-7 port a card,
+# 400 Gb/s InfiniBand NDR = 50 GB/s a direction
+CARDS_PER_NODE = 8
+INTER_NODE_BW = 50e9              # B/s, a card's InfiniBand port
 
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
@@ -88,6 +95,21 @@ def make_production_mesh(*, multi_pod: bool = False,
     (2, 16, 16) with ``multi_pod``; raises in a world of another size."""
     shape, axes = PRODUCTION_SHAPES[multi_pod]
     return _mesh(shape, axes, device)
+
+
+def axis_link(sizes: dict[str, int], axis: str) -> tuple[str, float]:
+    """(link name, bytes/s) that mesh axis ``axis``'s collectives cross,
+    for a mesh of ``sizes`` (axis name: size, major first) laid out in
+    rank order on nodes of CARDS_PER_NODE cards: ``"nvlink"`` where the
+    ranks of one group (``size`` of them, ``stride`` apart: the product of
+    the minor axes' sizes) lie in one node, else ``"inter-node"``."""
+    names = list(sizes)
+    stride = 1
+    for a in names[names.index(axis) + 1:]:
+        stride *= sizes[a]
+    if sizes[axis] * stride <= CARDS_PER_NODE:
+        return "nvlink", LINK_BW
+    return "inter-node", INTER_NODE_BW
 
 
 def mesh_chips(mesh: DeviceMesh) -> int:

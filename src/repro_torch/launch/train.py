@@ -31,8 +31,9 @@ against the card's: a model that does not fit is refused before anything
 is allocated, naming the data size that would fit (olmoe-1b-7b at full
 depth: 8), or, where none does (internvl2-26b: its replicated parameters
 and gradients alone are 159 GB), the (data, model) mesh whose tensor
-parallelism would fit it, which this entry point does not run yet (see
-:data:`PART_3`).  Runs under the PaPaS engine like any program, e.g. a
+parallelism would fit it, which this entry point does not run (see
+:data:`PART_3`; ``python -m repro_torch.launch.dryrun`` reckons every
+cell's memory on the production meshes).  Runs under the PaPaS engine like any program, e.g. a
 study with ``command: python -m repro_torch.launch.train --lr
 ${args:lr}``.
 """
@@ -61,10 +62,15 @@ from repro_torch.train.step import (
 DATA_SIZES = tuple(2 ** i for i in range(11))
 #: the model sizes it reckons with where no data size fits
 MODEL_SIZES = (2, 4, 8, 16)
-#: what the multi-device layer leaves to its third part, named by the refusal
-PART_3 = ("launch.train on a (data, model) mesh is part 3 of the multi-device "
-          "layer, not ported yet (the step, repro_torch.train.step, runs it: "
-          "see scripts/tp_across_cards.py)")
+#: what the multi-device layer still leaves out, named by the refusal: the
+#: reference's launcher has no model axis either (its make_local_mesh runs
+#: model 1), and microbatches over data ranks are refused by the step
+PART_3 = ("launch.train on a (data, model) mesh is part 3's last step, beyond "
+          "the reference's launcher (it runs model 1): a --model axis here is "
+          "not ported (the step, repro_torch.train.step, runs any (data, model) "
+          "mesh: see scripts/tp_across_cards.py; python -m "
+          "repro_torch.launch.dryrun reckons the production meshes), nor are "
+          "microbatches that span data ranks (ROADMAP A7.3)")
 
 
 def main(argv: list[str] | None = None) -> dict:

@@ -12,12 +12,20 @@ Port of ``repro.models.attention``.  Shapes: q (B,S,Hq,D); k,v
 flash-attention kernel, whatever ``use_kernels`` says; on a CPU tensor it
 takes the reference's branches exactly.
 
-Under an ambient mesh with M > 1 ``model`` ranks (prefill and training;
-decode stays at one), each rank computes the query heads that
+Under an ambient mesh with M > 1 ``model`` ranks, prefill and training
+compute on each rank the query heads that
 :func:`repro_torch.distributed.sharding.attn_view` gives it, whole KV
 groups or, with fewer KV heads than ranks, part of one group whose KV
 head it computes whole; RoPE and ``qk_norm`` see whole heads.  Where the
-heads do not split, every rank runs the block whole.
+heads do not split, every rank runs the block whole.  Decode follows the
+cache's placement instead (:func:`repro_torch.distributed.sharding.cache_view`,
+:func:`_decode_model`): a rank stores whole KV heads, or a slice of every
+head's dim, and computes what it stores; only small activations move.
+
+``attn_block`` sends prefill attention on a meta tensor (a dry run) to
+the kernel's wrapper too, whose meta route allocates what the kernel
+would and reports its cost; a meta tensor never reaches the plain
+version.
 """
 from __future__ import annotations
 
@@ -146,17 +154,24 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor,
-                     softcap: float = 0.0) -> torch.Tensor:
+                     softcap: float = 0.0, *, head_dim: int = 0,
+                     score_sum=None) -> torch.Tensor:
     """One new query per sequence against the KV cache.
 
     q (B,1,Hq,D); caches (B,T,Hkv,D); lengths (B,) valid entries.  The
     reference's flash-decode: cache blocks of up to 4096 entries under an
-    online softmax in fp32; products in the cache dtype, sums in fp32."""
+    online softmax in fp32; products in the cache dtype, sums in fp32.
+
+    For a rank that holds a slice of every head's dim (decode over
+    ``model``), D is the slice, ``head_dim`` the whole head's (the scale's
+    1/sqrt) and ``score_sum`` sums each block's partial scores over the
+    ranks before the softmax; the output is the rank's slice of every
+    head's."""
     b, _, hq, d = q.shape
     t, hkv = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
     q0 = q[:, 0].reshape(b, hkv, g, d)
-    qg = q0 * scalar(d ** -0.5, q0)                              # (B,Hkv,G,D)
+    qg = q0 * scalar((head_dim or d) ** -0.5, q0)                # (B,Hkv,G,D)
     blk = t if t % 4096 else 4096
 
     m = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
@@ -167,6 +182,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         v_blk = v_cache[:, start:start + blk]
         s = torch.sum(qg[:, None] * k_blk[:, :, :, None, :], dim=-1,
                       dtype=torch.float32)                       # (B,blk,Hkv,G)
+        if score_sum is not None:
+            s = score_sum(s)
         s = _softcap(s, softcap)
         kpos = start + torch.arange(blk, device=q.device)
         valid = (kpos[None, :] < lengths[:, None])[:, :, None, None]
@@ -214,8 +231,13 @@ def attn_block(
     ``seq`` says x (and the output) is its sequence shard."""
     cd = as_dtype(compute_dtype)
     m = mesh_ctx.axis_size("model")
+    if cache is not None:
+        return _decode_model(
+            x, p, cache, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
+            kind=kind, window=window, positions=positions, rope_theta=rope_theta,
+            softcap=softcap, qk_norm=qk_norm, norm_eps=norm_eps, cd=cd)
     p, x, n_heads, n_kv_heads, leave = _tp_view(
-        p, x, m, n_heads, n_kv_heads, head_dim, seq, cache is not None)
+        p, x, m, n_heads, n_kv_heads, head_dim, seq)
     b, s, _ = x.shape
     xc = cast(x, cd)
     q = (xc @ cast(p["wq"], cd)).reshape(b, s, n_heads, head_dim)
@@ -227,23 +249,10 @@ def attn_block(
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
 
-    new_cache = None
-    if cache is not None:
-        # decode: write k,v at pos (ring slot pos % t for SWA), then attend
-        t = cache["k"].shape[1]
-        pos = cache["pos"]
-        slot = pos % t if kind == "swa" and window > 0 else pos
-        slot = min(slot, t - 1)  # dynamic_update_slice clamps its start
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-        lengths = torch.full((b,), min(pos + 1, t), dtype=torch.int32,
-                             device=x.device)
-        out = decode_attention(q, cache["k"], cache["v"], lengths, softcap)
-        new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
-    elif x.is_cuda:
+    if x.is_cuda or x.is_meta:
         # all prefill attention on the card goes to the kernel, including
         # swa with s > window (its window mask is exact) and enc
-        # (bidirectional)
+        # (bidirectional); a meta tensor takes the kernel's meta route
         if softcap and softcap > 0:
             raise NotImplementedError(
                 "the flash-attention kernel has no logit softcap")
@@ -261,19 +270,89 @@ def attn_block(
         out = full_attention(q, k, v, causal=True, softcap=softcap,
                              q_chunk=q_chunk)
     out = out.reshape(b, s, n_heads * head_dim)
-    return leave(out @ cast(p["wo"], cd)), new_cache
+    return leave(out @ cast(p["wo"], cd)), None
+
+
+def _decode_write_attend(q, k, v, cache: dict, kind: str, window: int,
+                         softcap: float, head_dim: int = 0, score_sum=None):
+    """Decode: write k, v at ``pos`` (ring slot pos % t for SWA), then
+    attend.  Returns (out, the new cache)."""
+    b = q.shape[0]
+    t = cache["k"].shape[1]
+    pos = cache["pos"]
+    slot = pos % t if kind == "swa" and window > 0 else pos
+    slot = min(slot, t - 1)  # dynamic_update_slice clamps its start
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    lengths = torch.full((b,), min(pos + 1, t), dtype=torch.int32, device=q.device)
+    out = decode_attention(q, cache["k"], cache["v"], lengths, softcap,
+                           head_dim=head_dim, score_sum=score_sum)
+    return out, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def _decode_model(x: torch.Tensor, p: dict[str, torch.Tensor], cache: dict, *,
+                  n_heads: int, n_kv_heads: int, head_dim: int, kind: str,
+                  window: int, positions: torch.Tensor, rope_theta: float,
+                  softcap: float, qk_norm: bool, norm_eps: float,
+                  cd: torch.dtype) -> tuple[torch.Tensor, dict]:
+    """One decode step on this ``model`` rank's cache shard, by the cache's
+    placement (:func:`repro_torch.distributed.sharding.attn_cache_view`);
+    with one ``model`` rank the shard is the whole cache and nothing moves.
+    Each projection is the product of x (B, 1, d) with the rank's stored
+    columns; a row is gathered only where those are not the heads the rank
+    computes.  KV heads split: the rank's KV heads and their query groups
+    from its own columns, no gather.  Head dim split: q, k and v formed
+    whole (RoPE and ``qk_norm`` read whole heads), sliced to the stored
+    range, scores over the slice summed over ``model``, and each head's
+    output slices gathered for ``wo``'s stored rows.  Then ``wo``'s rows
+    and g (the sum over ``model``) where ``wo`` is split."""
+    m, j = mesh_ctx.axis_size("model"), mesh_ctx.model_rank()
+    view = shd.attn_cache_view(n_heads, n_kv_heads, head_dim, m, j)
+    d = head_dim
+    (q0, q1), (k0, k1), (d0, d1) = view["q_heads"], view["kv_heads"], view["d"]
+    b = x.shape[0]
+    xc = cast(x, cd)
+
+    def proj(key: str, heads: int, want: tuple[int, int]) -> torch.Tensor:
+        w = p[key]
+        y = xc @ cast(w, cd)
+        if shd.leaf_block(heads * d, w.shape[-1], m, j) == (want[0] * d, want[1] * d):
+            return y
+        if w.shape[-1] != heads * d:
+            y = mesh_ctx.decode_gather(y, -1)
+        return y[..., want[0] * d:want[1] * d]
+
+    q = proj("wq", n_heads, (q0, q1)).reshape(b, 1, q1 - q0, d)
+    k = proj("wk", n_kv_heads, (k0, k1)).reshape(b, 1, k1 - k0, d)
+    v = proj("wv", n_kv_heads, (k0, k1)).reshape(b, 1, k1 - k0, d)
+    if qk_norm:
+        q = rms_norm(q, p["q_norm"], norm_eps)
+        k = rms_norm(k, p["k_norm"], norm_eps)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    split_d = view["split"] == "d"
+    if split_d:
+        q, k, v = (t[..., d0:d1] for t in (q, k, v))
+    out, new_cache = _decode_write_attend(
+        q, k, v, cache, kind, window, softcap, head_dim=d,
+        score_sum=mesh_ctx.decode_sum if split_d else None)
+    if split_d:
+        out = mesh_ctx.decode_gather(out, -1)
+    out = out.reshape(b, 1, (q1 - q0) * d)
+    wo = p["wo"]
+    rows = shd.leaf_block(n_heads * d, wo.shape[-2], m, j)
+    if rows != (q0 * d, q1 * d):
+        out = out[..., rows[0] - q0 * d:rows[1] - q0 * d]
+    y = out @ cast(wo, cd)
+    return (mesh_ctx.model_sum(y) if wo.shape[-2] != n_heads * d else y), new_cache
 
 
 def _tp_view(p: dict[str, torch.Tensor], x: torch.Tensor, m: int, n_heads: int,
-             n_kv_heads: int, head_dim: int, seq: bool, decode: bool):
+             n_kv_heads: int, head_dim: int, seq: bool):
     """(parameters, x, query heads, KV heads, the output's way out) of this
     ``model`` rank: with one rank, all as given and the identity."""
     if m == 1:
         return p, x, n_heads, n_kv_heads, lambda y: y
-    if decode:
-        raise NotImplementedError(
-            f"decode under a model axis of {m}: decode runs at one model rank "
-            "(the cache placements' decode is part 3 of the multi-device layer)")
     view = shd.attn_view(n_heads, n_kv_heads, head_dim, m, mesh_ctx.model_rank())
     sliced = view is not None
     q_dim, kv_dim = n_heads * head_dim, n_kv_heads * head_dim

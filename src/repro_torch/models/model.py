@@ -50,8 +50,11 @@ class Model:
         return loss_fn(self.cfg, params, batch, moe_groups)
 
     def init_cache(self, batch: int, max_len: int,
-                   dtype: str | torch.dtype = torch.bfloat16) -> dict[str, Any]:
-        return init_cache(self.cfg, batch, max_len, dtype, self.device)
+                   dtype: str | torch.dtype = torch.bfloat16,
+                   mesh: Any = None) -> dict[str, Any]:
+        """The decode cache; with a ``DeviceMesh``, only this rank's shards
+        of it (``batch`` the global batch)."""
+        return init_cache(self.cfg, batch, max_len, dtype, self.device, mesh)
 
     def decode_step(self, params: dict[str, Any], cache: dict[str, Any],
                     token: torch.Tensor) -> tuple[torch.Tensor, dict[str, Any]]:

@@ -23,7 +23,12 @@ gives it: its z, x and dt columns of the packed ``in_proj`` and its x
 columns of the conv, the B and C of the groups those heads read (with one
 group, B and C whole), its slice of ``A_log``, ``D`` and ``dt_bias``; the
 gated norm's sum of squares is summed over ``model`` before the rsqrt, and
-``out_proj``'s rows give partial sums (g).
+``out_proj``'s rows give partial sums (g).  Decode follows the cache's
+placement instead (:func:`_decode_model`).
+
+A meta tensor (a dry run) takes the kernels' route at prefill: their
+wrappers' meta route allocates what the kernels would and reports their
+cost; it never reaches the plain version.
 """
 from __future__ import annotations
 
@@ -156,8 +161,11 @@ def mamba2_block(
     ``seq`` says x (and the output) is its sequence shard."""
     cd = as_dtype(compute_dtype)
     full_inner = d_inner
+    if cache is not None and mesh_ctx.axis_size("model") > 1:
+        return _decode_model(x, p, cache, d_inner=d_inner, state_dim=state_dim,
+                             head_dim=head_dim, n_groups=n_groups, cd=cd)
     p, x, d_inner, n_groups, leave, sliced = _tp_view(
-        p, x, d_inner, state_dim, head_dim, n_groups, seq, cache is not None)
+        p, x, d_inner, state_dim, head_dim, n_groups, seq)
     bsz, s, _ = x.shape
     n_heads = d_inner // head_dim
     gn = n_groups * state_dim
@@ -190,7 +198,7 @@ def mamba2_block(
         y = y[:, None]
         new_cache = {"conv": conv_state, "ssm": new_state,
                      "pos": cache["pos"] + 1}
-    elif x.is_cuda or use_kernels:
+    elif x.is_cuda or x.is_meta or use_kernels:
         y, _ = kssd.ssd_scan(x_scaled, log_a, b_mat, c_mat, chunk=chunk)
     else:
         y, _ = ssd_chunked(x_scaled, log_a, b_mat, c_mat, chunk=chunk)
@@ -214,17 +222,84 @@ def _gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float, d_inner: int,
     return (y32 * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(y.dtype)
 
 
+def _head_groups(t: torch.Tensor, h0: int, h1: int, rep: int) -> torch.Tensor:
+    """The B or C rows (B, G, N) that heads [h0, h1) read, for
+    :func:`ssd_step` (head h reads group h // rep): the groups the heads
+    cover where they are whole groups or lie in one group, else one row
+    per head."""
+    g0, g1 = h0 // rep, (h1 - 1) // rep + 1
+    if (h0 % rep == 0 and h1 % rep == 0) or g1 - g0 == 1:
+        return t[:, g0:g1]
+    return t[:, torch.arange(h0, h1, device=t.device) // rep]
+
+
+def _decode_model(x: torch.Tensor, p: dict[str, Any], cache: dict[str, Any], *,
+                  d_inner: int, state_dim: int, head_dim: int, n_groups: int,
+                  cd: torch.dtype) -> tuple[torch.Tensor, dict[str, Any]]:
+    """One decode step on this ``model`` rank's cache shard, by the cache's
+    placement (:func:`repro_torch.distributed.sharding.ssm_cache_view`):
+    ``in_proj``'s stored columns give their outputs and the (B, 1, ·) row
+    is gathered; the conv runs on the stored channels (its cache shard and
+    ``conv_w``/``conv_b`` columns) and its outputs are gathered; the SSM
+    step runs on the stored heads, or on all of them where the state is
+    stored whole; the gated norm's sum of squares is summed over ``model``
+    where the heads are split; ``out_proj``'s stored rows, then g where
+    they are split.  Only activations move."""
+    m, j = mesh_ctx.axis_size("model"), mesh_ctx.model_rank()
+    view = shd.ssm_cache_view(d_inner, head_dim, state_dim, n_groups, m, j)
+    bsz = x.shape[0]
+    h, gn = d_inner // head_dim, n_groups * state_dim
+    in_ch = 2 * d_inner + 2 * gn + h
+    zxbcdt = cast(x, cd) @ cast(p["in_proj"], cd)
+    if p["in_proj"].shape[-1] != in_ch:
+        zxbcdt = mesh_ctx.decode_gather(zxbcdt, -1)
+    z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, d_inner + 2 * gn, h], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+
+    c0, c1 = view["conv"]
+    xbc_act, conv_state = _causal_conv(xbc[..., c0:c1], p["conv_w"], p["conv_b"],
+                                       cache["conv"])
+    if view["conv_split"]:
+        xbc_act = mesh_ctx.decode_gather(xbc_act, -1)
+    xbc_act = F.silu(xbc_act.float()).to(cd)
+    xs, b_mat, c_mat = torch.split(xbc_act, [d_inner, gn, gn], dim=-1)
+
+    h0, h1 = view["heads"]
+    rep = h // n_groups
+    xs = xs.reshape(bsz, h, head_dim)[:, h0:h1]
+    dt = dt.reshape(bsz, h)[:, h0:h1]
+    a = -torch.exp(p["A_log"].float())[h0:h1]
+    x_scaled = xs * dt[..., None].to(cd)
+    new_state, y = ssd_step(
+        cache["ssm"], x_scaled, dt * a,
+        _head_groups(b_mat.reshape(bsz, n_groups, state_dim), h0, h1, rep),
+        _head_groups(c_mat.reshape(bsz, n_groups, state_dim), h0, h1, rep))
+    y = y + xs.to(y.dtype) * p["D"].to(y.dtype)[h0:h1, None]
+    y = y.reshape(bsz, 1, (h1 - h0) * head_dim)
+    y = (y.float() * F.silu(z[..., h0 * head_dim:h1 * head_dim].float())).to(cd)
+    # the gated norm over d_inner: a sum of squares over the rank's heads,
+    # summed over model where they are split; then out_proj's stored rows
+    y32 = y.float()
+    sq = y32.square().sum(dim=-1, keepdim=True)
+    if not view["whole"]:
+        sq = mesh_ctx.decode_sum(sq)
+    wo = p["out_proj"]
+    r0, r1 = shd.leaf_block(d_inner, wo.shape[-2], m, j)
+    y32 = y32[..., r0 - h0 * head_dim:r1 - h0 * head_dim]
+    y = (y32 * torch.rsqrt(sq / d_inner + 1e-5) * (1.0 + p["norm"].float())).to(cd)
+    out = y @ cast(wo, cd)
+    if wo.shape[-2] != d_inner:
+        out = mesh_ctx.model_sum(out)
+    return out, {"conv": conv_state, "ssm": new_state, "pos": cache["pos"] + 1}
+
+
 def _tp_view(p: dict[str, Any], x: torch.Tensor, d_inner: int, state_dim: int,
-             head_dim: int, n_groups: int, seq: bool, decode: bool):
+             head_dim: int, n_groups: int, seq: bool):
     """(parameters, x, d_inner, groups, the output's way out, sliced) of
     this ``model`` rank: with one rank, all as given."""
     m = mesh_ctx.axis_size("model")
     if m == 1:
         return p, x, d_inner, n_groups, lambda y: y, False
-    if decode:
-        raise NotImplementedError(
-            f"decode under a model axis of {m}: decode runs at one model rank "
-            "(the cache placements' decode is part 3 of the multi-device layer)")
     h = d_inner // head_dim
     gn = n_groups * state_dim
     view = shd.ssm_view(d_inner, head_dim, state_dim, n_groups, m,

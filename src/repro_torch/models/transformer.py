@@ -529,23 +529,38 @@ def _partial_logits(x: torch.Tensor, head: torch.Tensor,
 
 
 def forward(cfg: ArchConfig, params: dict[str, Any],
-            batch: dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: dict[str, torch.Tensor], moe_groups: int = 1,
+            seq_spec: Any = None, gather: bool = True) -> torch.Tensor:
     """Full forward pass → logits (B,S,V), sliced to ``vocab_size``.  (The
     reference also returns the MoE aux losses; here ``loss_fn`` reads them
     from ``backbone``, and serving needs only the logits.)  Under a
-    ``model`` axis of M > 1 every rank returns the whole logits."""
-    x, _ = backbone(cfg, params, batch)
+    ``model`` axis of M > 1 every rank returns the whole logits, or with
+    ``gather`` False its own columns of a vocab-sharded head
+    (:func:`sharded_logits`, as the reference's prefill leaves them);
+    ``moe_groups`` and ``seq_spec`` as in :func:`backbone`."""
+    x, _ = backbone(cfg, params, batch, moe_groups, seq_spec=seq_spec)
     head = _head(cfg, params)
     kind = _vocab_view(cfg)["head"]
+    seq = seq_parallel(seq_spec)
     if kind == "vocab":
-        local = unembed(mesh_ctx.model_copy(x), head, cfg.compute_dtype)
+        local = unembed(mesh_ctx.enter(x, seq), head, cfg.compute_dtype)
+        if not gather:
+            return _own_columns(cfg, local)
         logits = mesh_ctx.model_gather(local, -1, summed=False)
     elif kind == "d":
-        logits = _partial_logits(x, head, cfg.compute_dtype).to(
-            as_dtype(cfg.compute_dtype))
+        logits = _partial_logits(mesh_ctx.enter_replicated(x, seq), head,
+                                 cfg.compute_dtype).to(as_dtype(cfg.compute_dtype))
     else:
-        logits = unembed(x, head, cfg.compute_dtype)
+        logits = unembed(mesh_ctx.enter_replicated(x, seq), head, cfg.compute_dtype)
     return logits[..., :cfg.vocab_size]
+
+
+def _own_columns(cfg: ArchConfig, local: torch.Tensor) -> torch.Tensor:
+    """This ``model`` rank's block of the padded vocabulary's logits, the
+    columns below ``vocab_size``."""
+    cols = local.shape[-1]
+    keep = max(0, min(cols, cfg.vocab_size - mesh_ctx.model_rank() * cols))
+    return local[..., :keep]
 
 
 def _ce_terms(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
@@ -671,16 +686,35 @@ def _ssm_cache(cfg: ArchConfig, count: int, batch: int,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: str | torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cuda") -> dict[str, Any]:
+               device: torch.device | str = "cuda", mesh: Any = None
+               ) -> dict[str, Any]:
     """Per-segment stacked caches: KV for attention and moe layers (swa
     segments hold a ring of ``min(window, max_len)`` entries), conv state
     in ``dtype`` and SSM state in fp32 for ssm, and both, nested as
     ``{"attn": {k, v}, "ssm": {conv, ssm}}``, for a hybrid segment (a
     ``hyb_l`` ring as swa's).  ``pos`` is one Python int shared by every
     slot, as in the reference, and by both halves of a hybrid cache.  An
-    encoder-only config has no decode step, hence no cache: it raises."""
+    encoder-only config has no decode step, hence no cache: it raises.
+
+    With a ``DeviceMesh`` (``batch`` the global batch) each leaf is
+    allocated as this rank's shard by the cache's sharding
+    (:func:`repro_torch.distributed.sharding.cache_shardings`): its rows
+    of the batch, its KV heads or slice of the head dim, its SSM heads and
+    conv channels; nothing else."""
     if not cfg.has_decode():
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
+    if mesh is not None:
+        whole = init_cache(cfg, batch, max_len, dtype, "meta")
+        specs = shd.cache_shardings(whole, mesh)
+
+        def shard(leaf, spec):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            sl = shd.local_slices(spec, leaf.shape, mesh)
+            return torch.zeros([s.stop - s.start for s in sl], dtype=leaf.dtype,
+                               device=device)
+
+        return tree_map(shard, whole, specs)
     segments = []
     for kind, count in cfg.segments():
         if kind == "ssm":
@@ -705,6 +739,26 @@ def _layer_cache(kind: str, seg_cache: dict[str, Any], i: int, pos: int
     return view(seg_cache)
 
 
+def sharded_logits(cfg: ArchConfig, x: torch.Tensor, params: dict[str, Any]
+                   ) -> torch.Tensor:
+    """The logits of the final-normed (B, S, d) ``x`` as this ``model`` rank
+    holds the head: the whole (B, S, vocab_size); with the head
+    vocab-sharded, this rank's block of the padded vocabulary's columns,
+    those below ``vocab_size`` (the reference leaves its decode logits
+    sharded over ``model``); for a tied table split over d, the product
+    summed over ``model``."""
+    head = _head(cfg, params)
+    kind = _vocab_view(cfg)["head"]
+    if kind == "vocab":
+        return _own_columns(cfg, unembed(x, head, cfg.compute_dtype))
+    if kind == "d":
+        logits = _partial_logits(x, head, cfg.compute_dtype).to(
+            as_dtype(cfg.compute_dtype))
+    else:
+        logits = unembed(x, head, cfg.compute_dtype)
+    return logits[..., :cfg.vocab_size]
+
+
 def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
                 token: torch.Tensor) -> tuple[torch.Tensor, dict[str, Any]]:
     """One autoregressive step → (logits (B,V), cache).  token: (B, 1).
@@ -714,16 +768,19 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
     segment takes the dtype the reference's concatenation gives it (cache
     and compute dtype promoted): a bf16 conv cache under fp32 compute
     becomes fp32 at the first step, as the reference's returned cache
-    does."""
+    does.
+
+    Under a ``model`` axis of M > 1 (the ambient mesh) the parameters and
+    the cache are this rank's shards (``init_cache`` with the mesh), token
+    this rank's rows of the batch; each block computes what the rank's
+    cache shard holds (:func:`repro_torch.distributed.sharding.cache_view`)
+    and the logits are this rank's columns (:func:`sharded_logits`)."""
     if not cfg.has_decode():
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
-    if mesh_ctx.axis_size("model") > 1:
-        raise NotImplementedError(
-            "decode under a model axis: decode runs at one model rank (the "
-            "cache placements' decode is part 3 of the multi-device layer)")
     pos = cache["pos"]
     b = token.shape[0]
-    x = embed_tokens(token, params["embed"], cfg.embed_scale, cfg.compute_dtype)
+    x = embed_tokens(token, params["embed"], cfg.embed_scale, cfg.compute_dtype,
+                     _vocab_view(cfg)["embed"])
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     for (kind, count), seg, seg_cache in zip(
             cfg.segments(), params["segments"], cache["segments"]):
@@ -742,6 +799,5 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
                 ssm["conv"][i] = nc["conv"]
                 ssm["ssm"][i] = nc["ssm"]
     x = _norm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(x, _head(cfg, params), cfg.compute_dtype)[:, 0]
-    return (logits[..., :cfg.vocab_size],
-            {"pos": pos + 1, "segments": cache["segments"]})
+    logits = sharded_logits(cfg, x, params)[:, 0]
+    return logits, {"pos": pos + 1, "segments": cache["segments"]}

@@ -3,7 +3,10 @@
 Port of ``repro.serve.engine``: the same admission (a freed slot takes
 the next queued request) and the same teacher-forced prompt feeding
 (prompt tokens go through the decode step one at a time).  The one cache
-position is shared by all slots, as in the reference.
+position is shared by all slots, as in the reference.  ``ServeEngine``
+runs at one ``model`` rank, as the reference's engine does;
+``make_serve_step`` with a mesh is the step on a rank's shards (the dry
+run's decode cells).
 """
 from __future__ import annotations
 
@@ -13,18 +16,31 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.distributed import context as mesh_ctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import compute_copy, decode_step
+from repro_torch.tree import tree_map
 
 
-def make_serve_step(cfg: ArchConfig) -> Callable:
-    """(params, cache, token (B,1)) → (logits (B,V), cache)."""
+def make_serve_step(cfg: ArchConfig, mesh: Any = None) -> Callable:
+    """(params, cache, token (B,1)) → (logits (B,V), cache).  With a
+    ``DeviceMesh`` the step runs under it on this rank's shards: the
+    parameters as the sharding rules store them (DTensors or their local
+    tensors), the cache from ``init_cache`` with the mesh, token this
+    rank's rows; the logits are this rank's (``sharded_logits``)."""
+    if mesh is None:
+        def serve_step(params, cache, token):
+            return decode_step(cfg, params, cache, token)
+        return serve_step
 
-    def serve_step(params, cache, token):
-        return decode_step(cfg, params, cache, token)
+    def serve_step_on_mesh(params, cache, token):
+        with mesh_ctx.set_mesh(mesh):
+            return decode_step(cfg, tree_map(shd.local, params), cache,
+                               shd.local(token))
 
-    return serve_step
+    return serve_step_on_mesh
 
 
 @dataclasses.dataclass

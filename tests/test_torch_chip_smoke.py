@@ -918,3 +918,42 @@ def test_tp_local_shapes_and_their_bounds(arch, layers, want):
         assert nbytes == pytest.approx(
             2 * (rows * 2048 + 64 * 2048 * 512 + rows * 512) / 3.35e12 * 1e3)
         assert cs.bound(ops, nbytes)[1] == "bytes"
+
+
+#: the bounds chip_smoke.py printed before the kernels' cost formulas moved
+#: into the package (repro_torch.kernels.costs), at a few shapes:
+#: (floor function, arguments, (ms for the operations, ms for the bytes))
+BOUNDS_BEFORE_THE_MOVE = [
+    ("attention_floor_ms", (4, 2048, 4, 1, 256, True, 512),
+     (0.015203821880687562, 0.012520310447761194)),
+    ("attention_floor_ms", (2, 1000, 32, 8, 80, False, 0),
+     (0.02070778564206269, 0.007641791044776119)),
+    ("attention_bwd_floor_ms", (4, 2048, 25, 5, 64, True, 1024),
+     (0.10181604044489383, 0.03780546865671642)),
+    ("attention_bwd_floor_ms", (1, 777, 16, 16, 128, True, 0),
+     (0.006258990333670374, 0.007615063880597015)),
+    ("ssd_floor_ms", (4, 2048, 48, 64, 1, 128, 256, "function"),
+     (0.01984024538725986, 0.03270931104477612)),
+    ("ssd_floor_ms", (4, 2048, 48, 64, 1, 128, 256, "chunk_state"),
+     (0.006514106111223458, 0.03208329552238806)),
+    ("ssd_floor_ms", (4, 2048, 48, 64, 1, 128, 256, "chunk_scan"),
+     (0.013326139276036401, 0.04679466029850746)),
+    ("ssd_floor_ms", (2, 512, 50, 64, 1, 16, 256, "function", 4),
+     (0.001067809391304348, 0.004176697313432835)),
+    ("ssd_bwd_floor_ms", (4, 2048, 48, 64, 1, 128, 256, "function", True, True, 4),
+     (0.0655662168008089, 0.06729666865671642)),
+    ("ssd_bwd_floor_ms", (4, 2048, 48, 64, 1, 128, 256, "chunk_state_bwd", True, True, 4),
+     (0.006514106111223458, 0.04992657194029851)),
+    ("ssd_bwd_floor_ms", (4, 2048, 48, 64, 1, 128, 256, "chunk_scan_bwd", True, True, 4),
+     (0.059052110689585435, 0.08733099940298507)),
+    ("gmm_floor_ms", (65536, 2048, 1024, 60), (0.2779351940788676, 0.19531684298507462)),
+    ("gmm_dw_floor_ms", (65536, 2048, 1024, 64), (0.2779351940788676, 0.2003249671641791)),
+]
+
+
+@pytest.mark.parametrize("name,args,want", BOUNDS_BEFORE_THE_MOVE,
+                         ids=[f"{n}-{i}" for i, (n, _, _) in enumerate(BOUNDS_BEFORE_THE_MOVE)])
+def test_bounds_unchanged_by_the_shared_cost_formulas(name, args, want):
+    """chip_smoke.py's bounds now read repro_torch.kernels.costs (the dry
+    run's counter reads the same formulas): the same numbers as before."""
+    assert getattr(cs, name)(*args) == pytest.approx(want, rel=1e-12)

@@ -23,7 +23,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import init_device_mesh
 
-from repro_torch import bridge
+from repro_torch import bridge, events
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_smoke
 from repro_torch.distributed import context as mesh_ctx
@@ -388,10 +388,81 @@ def job_launch_train(mesh, argv: list[str]) -> dict:
             "world": dist.get_world_size()}
 
 
+def job_decode(mesh, cases: list[dict]) -> list[dict]:
+    """Each case: ``decode_step`` under the mesh on this rank's stored
+    shards of a whole numpy parameter tree and its shards of a cache made
+    by ``init_cache`` with the mesh, teacher-forced on ``tokens`` (steps,
+    B) (this rank's rows).  Returns each step's logits (this rank's
+    columns), the cache leaves with their slices in the whole cache after
+    the last step, the cache view, and the collective bytes by kind a
+    step."""
+    from repro_torch.models.transformer import decode_step, init_cache
+    out = []
+    for case in cases:
+        cfg = get_smoke(case["arch"], **case["overrides"])
+        params = to_torch(case["params"])
+        local = tree_map(lambda leaf, spec: leaf[shd.local_slices(spec, leaf.shape, mesh)],
+                         params, shd.params_shardings(params, mesh))
+        tokens = torch.from_numpy(case["tokens"].astype(np.int64))
+        batch = tokens.shape[1]
+        cache = init_cache(cfg, batch, case["max_len"], case["cache_dtype"], "cpu", mesh)
+        whole = init_cache(cfg, batch, case["max_len"], case["cache_dtype"], "meta")
+        with mesh_ctx.set_mesh(mesh):
+            n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+            j = mesh_ctx.model_rank()
+        rows = slice(i * (batch // n), (i + 1) * (batch // n))
+        logits, moved = [], []
+        with mesh_ctx.set_mesh(mesh), torch.no_grad():
+            for t in range(tokens.shape[0]):
+                sent = {}
+
+                def listen(event, kind, axis, nbytes, sent=sent):
+                    if event == events.COLLECTIVE:
+                        sent[kind] = sent.get(kind, 0) + nbytes
+
+                with events.counting(listen):
+                    lg, cache = decode_step(cfg, local, cache, tokens[t, rows, None])
+                logits.append(lg.float().numpy().copy())
+                moved.append(sent)
+        specs = shd.cache_shardings(whole, mesh)
+        leaves = {}
+        for (path, leaf), spec, w in zip(bridge.flatten(cache).items(),
+                                         shd.spec_leaves(specs),
+                                         bridge.flatten(whole).values()):
+            if not isinstance(leaf, torch.Tensor):
+                continue
+            leaves[path] = (leaf.float().numpy().copy(),
+                            [(s.start, s.stop) for s in
+                             shd.local_slices(spec, w.shape, mesh)])
+        out.append({"logits": logits, "cache": leaves, "pos": cache["pos"],
+                    "moved": moved, "model": j, "data": i,
+                    "view": shd.cache_view(cfg, mesh_ctx.axis_size("model", mesh), j)})
+    return out
+
+
+def job_counted(mesh, cells: list[dict]) -> list[dict]:
+    """Each cell (an arch's smoke config with the dry run's settings and a
+    ``ShapeConfig``'s fields): the dry run's step built on this rank's
+    shards as zeros on the CPU and run under its cost counter; returns the
+    counter's summary."""
+    from repro_torch.launch import costs, dryrun
+    from repro_torch.models.config import ShapeConfig
+    out = []
+    for cell in cells:
+        cfg = dryrun.cell_config(cell["arch"], smoke=True, overrides=cell.get("overrides"))
+        fn, _ = dryrun.build_step(cfg, ShapeConfig(*cell["shape"]), mesh, "cpu")
+        counter = costs.Counter("cpu")
+        with counter:
+            fn()
+        out.append(counter.summary())
+    return out
+
+
 JOBS = {"dp": job_dp, "tp": job_tp, "refusals": job_refusals,
         "collectives": job_collectives, "blocks": job_blocks, "forward": job_forward,
         "placements": job_placements, "ragged": job_ragged,
-        "elastic": job_elastic, "launch_train": job_launch_train}
+        "elastic": job_elastic, "launch_train": job_launch_train,
+        "decode": job_decode, "counted": job_counted}
 
 
 # ---------------------------------------------------------------------------

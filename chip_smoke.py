@@ -11,7 +11,9 @@ the grouped-GEMM kernel, with flash attention, then qwen2-moe-a2.7b at
 full depth); the hubert-xlarge encoder's forward and training
 (bidirectional attention at D 80, frame embeddings); internvl2-26b
 serving (a 19.9 B VLM backbone from the serving init straight into bf16,
-patch embeddings then tokens); then the gemma3-1b
+patch embeddings then tokens); gemma-7b, h2o-danube-1.8b and deepseek-7b
+served whole (the dense configurations, each through the flash-attention
+kernel at its own shape); then the gemma3-1b
 training path (the flash-attention forward with its LSE and the backward
 kernels), the mamba2-780m training path (the SSD scan's backward kernels),
 the hymba-1.5b training path (both families' backward kernels), the
@@ -58,11 +60,13 @@ olmoe-1b-7b):
    differ between the two runs; for hymba-1.5b both kernel families'
    plain versions, and prefill against decode also past its window of
    1024, on its first 4 layers over 1280 positions; qwen2-moe-a2.7b's
-   plain-GEMM check on 4 of its 24 layers); then the card's forward
+   plain-GEMM check on 4 of its 24 layers; mamba2-780m's and hymba-1.5b's
+   prefill against decode over 512 positions on their first 12 and 8
+   layers, SSD_CONSISTENCY_LAYERS); then the card's forward
    against the CPU's on a small config (hymba's with an SSD state of 16,
    CARD_SMOKE);
 6. serve: ``ServeEngine`` answers 8 requests of 16 new tokens each;
-7. profile: one prefill and a window of decode steps under
+7. profile: one prefill and a window of 4 decode steps under
    ``torch.profiler``: device busy time and idle share, kernel launches,
    host synchronisations and device time by kernel class.
 
@@ -124,7 +128,14 @@ a prefill timed together, the serving init (its peak against the tree's
 bytes and one fp32 draw), a prefill on (4, 2048) positions of which 256
 are patch embeddings, the forward against the plain attention's, the card
 against the CPU, serve (tokens only) and a profile; its 40 GB are freed
-before olmoe-1b-7b's path.
+before the dense configurations: gemma-7b (28 layers, MHA at D 256,
+vocabulary 256,000), h2o-danube-1.8b (D 80, a window of 4096) and
+deepseek-7b (MHA at D 128), each from the serving init (its peak beside
+the tree's bytes): the attention calls of a prefill timed together, a
+prefill on (4, 2048) tokens, prefill against decode over 160 positions
+at full depth, for h2o-danube-1.8b a forward on one row of 4608
+positions against the plain attention's (past its window), the card
+against the CPU and serve; then olmoe-1b-7b's path.
 
 Then the training path of hymba-1.5b: the backward kernels' calls of one
 train step (32 of each, timed together), its memory reckoned, then
@@ -132,7 +143,10 @@ train step (32 of each, timed together), its memory reckoned, then
 steps on (4, 2048) batches), the kernels' step against the plain versions'
 of both families, 8 steps on one batch and one step's launches (64 flash
 attention and 64 of each SSD forward kernel with the remat, 32 of each
-backward), and its profile.
+backward), and its profile.  Then h2o-danube-1.8b's training the same
+way (its 24 backward calls timed together, launch.train at full width
+and depth, train_checks), and launch.train refusing gemma-7b and
+deepseek-7b on one card before it allocates.
 
 Then the training path of olmoe-1b-7b (the grouped GEMM's backward):
 
@@ -191,25 +205,28 @@ and its dx and dw calls timed the same way; (c) two ranks on the one card
 over gloo (NCCL takes one rank a device): gemma3-1b through
 ``launch.train`` at data 2 on a global 4 x 2048 batch, the ZeRO-1 shards
 split in two, both processes' memory reckoned first, held against one
-rank on the concatenated batch.
+rank on the concatenated batch; then in the same processes at
+``--n-micro 2`` (each rank's share of each microbatch, a block of the
+global batch, by an all-to-all), held against one rank at n_micro 2.
 
 Then the tensor-parallel section (two gloo ranks at (data 1, model 2):
 each arch's train step against one rank, then each kernel at one rank's
 shapes), and decode under a ``model`` axis (``tp_decode``): gemma3-1b,
 mamba2-780m, hymba-1.5b and olmoe-1b-7b at full width and depth from bf16
 serving trees, each rank holding only its shards of the weights and the
-cache, 16 teacher-forced tokens on 4 slots and a 2048 cache against one
+cache, 8 teacher-forced tokens on 4 slots and a 2048 cache against one
 rank on the same weights (§2's decode gates on the logits, each cache
 shard's shape exact and within the model's own bf16 rounding of one
 rank's, measured against a decode at fp32 compute), olmoe's decode
 grouped GEMMs at f 512 against their plain version; then
 ``dryrun_vs_card``: the dry run's count on the meta device
 (``repro_torch.launch.dryrun``) against the same counter on the card for
-gemma3-1b's train step at 4 x 2048 and mamba2-780m's prefill on one
-card, and gemma3-1b's train and decode steps on the two ranks: FLOPs, HBM
-bytes, each kernel's calls and the collectives equal, the reckoned peak
-within 10% of ``max_memory_allocated`` on one card, the measured step no
-shorter than the roofline's bound.
+gemma3-1b's train step at 4 x 2048 (at n_micro 1 and 2) and
+mamba2-780m's prefill on one card, and gemma3-1b's train and decode
+steps on the two ranks: FLOPs, HBM bytes, each kernel's calls and the
+collectives equal, the reckoned peak within 10% of
+``max_memory_allocated`` on one card, the measured step no shorter than
+the roofline's bound.
 
 Then the script's total seconds (the ``done`` phase), the kernels line,
 the card line and, last, the result line.  There is no CPU mode: without a
@@ -267,7 +284,10 @@ CONSISTENCY_MEAN_REL = 0.05
 CONSISTENCY_LAYERS = 26
 CONSISTENCY_PROMPT = 160      # 3 key tiles of 64: the online softmax runs
 WINDOW_CHECK_SEQ = 600        # past gemma3-1b's window of 512
-PROFILE_DECODE_STEPS = 8
+#: decode steps a profile_decode window holds, after 4 warm-up steps (8
+#: until the script's time ran short: the profiler's trace of a decode
+#: step, ~3,000 launches, takes it seconds to read)
+PROFILE_DECODE_STEPS = 4
 #: a prefill's batch: the tokens of each path's prefill phase
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
 #: host-side runtime calls that launch a kernel or wait for the device
@@ -291,6 +311,7 @@ FA_CASES = [
     ("gemma3-1b ragged", 4, 1000, 4, 1, 256, True, 0),
     ("gemma3-1b ragged swa", 4, 1000, 4, 1, 256, True, 512),
     ("h2o-danube-1.8b", 4, 2048, 32, 8, 80, True, 4096),
+    ("h2o-danube-1.8b past window", 1, 4608, 32, 8, 80, True, 4096),
     ("deepseek-7b", 4, 2048, 32, 32, 128, True, 0),
     ("hymba-1.5b global", 4, 2048, 25, 5, 64, True, 0),
     ("hymba-1.5b swa", 4, 2048, 25, 5, 64, True, 1024),
@@ -311,6 +332,7 @@ FA_BWD_CASES = [
     ("gemma3-1b ragged", 4, 1000, 4, 1, 256, True, 0, False),
     ("olmoe-1b-7b D128", 4, 2048, 16, 16, 128, True, 0, False),
     ("deepseek-7b D128", 4, 2048, 32, 32, 128, True, 0, False),
+    ("h2o-danube-1.8b past window", 1, 4608, 32, 8, 80, True, 4096, False),
     ("hymba-1.5b global", 4, 2048, 25, 5, 64, True, 0, False),
     ("hymba-1.5b swa", 4, 2048, 25, 5, 64, True, 1024, False),
     ("hubert-xlarge", 4, 2048, 16, 16, 80, False, 0, False),
@@ -368,6 +390,14 @@ SSD_TOL = 5e-2                # bf16, the reference's SSD kernel tolerance
 SSD_SLAB_REL_TOL = 5e-2
 SSD_CONSISTENCY_PROMPT = 512  # two chunks of 256: the inter-chunk term runs
 SSD_PLAIN_CHECK_SEQ = 2048    # eight chunks
+#: the SSM paths' prefill-against-decode checks over SSD_CONSISTENCY_PROMPT
+#: positions run on a cut of the model, its first SSD_CONSISTENCY_LAYERS
+#: layers from a serving init of their own, the bounds at the sqrt depth
+#: scaling of the other cuts (QWEN2_MOE_DEPTH_SCALE): at full depth its
+#: 512 host-bound decode steps took 33-48 s (mamba2-780m) and 53-60 s
+#: (hymba-1.5b) of the script's time.  hymba's 8 layers hold one hyb_g and
+#: seven hyb_l layers
+SSD_CONSISTENCY_LAYERS = {"mamba2-780m": 12, "hymba-1.5b": 8}
 #: the SSD backward kernels replace no Pallas kernel: the reference
 #: differentiates its plain SSD with XLA autodiff
 SSD_BWD_REPLACES = ("XLA autodiff of repro.kernels.ssd_scan / "
@@ -1052,7 +1082,9 @@ def summarize(prof, wall_s: float, steps: int) -> dict:
     """One profiled window: host wall time (ending in a synchronise), the
     device's busy time (union of its kernel and copy intervals) and idle
     share, kernel launches and host synchronisations, device time by
-    kernel class and by kernel name, and the host's own time by operator."""
+    kernel class and by kernel name, and the host's own time by operator;
+    ``summary_s``, the seconds this reading of the trace took."""
+    t0 = time.perf_counter()
     device, launches, syncs = [], 0, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1080,6 +1112,7 @@ def summarize(prof, wall_s: float, steps: int) -> dict:
         "device_ms_by_class": dict(sorted(by_class.items(), key=lambda x: -x[1])),
         "top_kernels_ms": dict(by_name.most_common(12)),
         "top_host_ops_ms": dict(host_ms.most_common(12)),
+        "summary_s": time.perf_counter() - t0,
     }
 
 
@@ -1577,18 +1610,24 @@ def mamba2_path(dev, card) -> list[dict]:
 
     # -- 5. correctness ---------------------------------------------------------
     # (a) prefill (kernels) against teacher-forced decode (ssd_step), over
-    # two chunks, so the inter-chunk path runs
+    # two chunks, so the inter-chunk path runs; on the first
+    # SSD_CONSISTENCY_LAYERS layers
+    layers = SSD_CONSISTENCY_LAYERS[cfg.name]
+    cut = cut_depth(cfg, layers)
+    cut_model = Model(cut, dev)
+    cut_params = cut_model.init(seed=1, serving=True)
     prompt = synthetic_batch(cfg, 1, SSD_CONSISTENCY_PROMPT, gen, dev)["tokens"]
-    fwd, dec, _ = prefill_and_decode(model, params, prompt)
+    fwd, dec, _ = prefill_and_decode(cut_model, cut_params, prompt)
+    scale = math.sqrt(layers / CONSISTENCY_LAYERS)
     emit("prefill_decode_consistency", arch=cfg.name, prompt=SSD_CONSISTENCY_PROMPT,
-         chunks=SSD_CONSISTENCY_PROMPT // chunk,
-         **logits_agreement(dec, fwd, cfg.n_layers))
+         chunks=SSD_CONSISTENCY_PROMPT // chunk, layers=f"{layers} of {cfg.n_layers}",
+         depth_scale=scale, **logits_agreement(dec, fwd, layers, depth_scale=scale))
     # how far each of the two bf16 paths is from the fp32 logits of the same
     # weights (the kernels' plain version computing in fp32): a rounding
     # difference leaves them about equally far, a fault in the kernels
     # leaves the prefill farther
-    ref_cfg = dataclasses.replace(cfg, compute_dtype="float32")
-    ref_params = compute_copy(ref_cfg, params)
+    ref_cfg = dataclasses.replace(cut, compute_dtype="float32")
+    ref_params = compute_copy(ref_cfg, cut_params)
     kernel = kssd.ssd_scan
     with torch.inference_mode():
         kssd.ssd_scan = kssd.ssd_scan_plain
@@ -1598,11 +1637,12 @@ def mamba2_path(dev, card) -> list[dict]:
             kssd.ssd_scan = kernel
     spread = ref.std().item()
     emit("distance_from_fp32", arch=cfg.name, prompt=SSD_CONSISTENCY_PROMPT,
+         layers=f"{layers} of {cfg.n_layers}",
          **{f"{name}_max_rel_to_std": (out - ref).abs().max().item() / spread
             for name, out in (("prefill", fwd), ("decode", dec))},
          **{f"{name}_mean_rel_to_std": (out - ref).abs().mean().item() / spread
             for name, out in (("prefill", fwd), ("decode", dec))})
-    del fwd, dec, ref, ref_params
+    del fwd, dec, ref, ref_params, cut_model, cut_params
 
     # (a2) the kernels' forward against the same forward with the plain
     # version in their place, over 8 chunks
@@ -1920,12 +1960,20 @@ def hymba_path(dev, card) -> list[dict]:
 
     # -- 5. correctness ---------------------------------------------------------
     # (a) prefill (kernels) against teacher-forced decode (plain attention
-    # over the cache, ssd_step) at full depth, over two chunks
+    # over the cache, ssd_step) over two chunks, on the first
+    # SSD_CONSISTENCY_LAYERS layers
+    layers = SSD_CONSISTENCY_LAYERS[cfg.name]
+    cut = cut_depth(cfg, layers)
+    cut_model = Model(cut, dev)
+    cut_params = cut_model.init(seed=2, serving=True)
     prompt = synthetic_batch(cfg, 1, SSD_CONSISTENCY_PROMPT, gen, dev)["tokens"]
-    fwd, dec, _ = prefill_and_decode(model, params, prompt)
+    fwd, dec, _ = prefill_and_decode(cut_model, cut_params, prompt)
+    scale = math.sqrt(layers / CONSISTENCY_LAYERS)
     emit("prefill_decode_consistency", arch=cfg.name, prompt=SSD_CONSISTENCY_PROMPT,
-         chunks=SSD_CONSISTENCY_PROMPT // chunk, **logits_agreement(dec, fwd, cfg.n_layers))
-    del fwd, dec
+         chunks=SSD_CONSISTENCY_PROMPT // chunk, layers=f"{layers} of {cfg.n_layers}",
+         layer_types=list(cut.layer_types), depth_scale=scale,
+         **logits_agreement(dec, fwd, layers, depth_scale=scale))
+    del fwd, dec, cut_model, cut_params
 
     # (a2) the same past the window, on the first HYMBA_WINDOW_LAYERS layers
     # (one hyb_g, then hyb_l): the hyb_l ring of 1024 entries wraps
@@ -2061,36 +2109,14 @@ def hubert_path(dev, card) -> list[dict]:
              "launches": launches["flash_attention"], **fa_mix}]
 
 
-def internvl2_path(dev, card) -> list[dict]:
-    """Serving internvl2-26b (the VLM backbone: 48 layers, d 6144, 48/8
-    heads of 128; the patches' embeddings through ``frontend_proj`` first,
-    then the tokens) at full width and depth: the 48 attention calls of one
-    prefill timed together, the serving init (its peak memory beside the
-    tree's bytes: one card holds the 39.8 GB bf16 tree, not the 79.6 GB
-    fp32 init), a prefill on (4, 2048) positions of which 256 are patches,
-    the forward against the plain attention's, the card against the CPU on
-    the smoke config, serve (tokens only, as the reference's engine) and a
-    profile.  Returns the prefill's entry of the kernels line."""
-    from repro_torch.configs import get
-    from repro_torch.models import Model, synthetic_batch
+def checked_serving_init(model, card):
+    """The serving init of ``model`` (``Model.init(serving=True)``: the
+    tree made straight in bf16), timed, its peak memory beside the tree's
+    bytes; raises if the peak passes the tree and one fp32 draw (a layer, or
+    a block of rows).  Returns the parameters."""
     from repro_torch.models.transformer import _DRAW_ELEMENTS
-    from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.tree import tree_leaves
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(9)
-    cfg = get("internvl2-26b")
-    b, s = PREFILL_BATCH, PREFILL_SEQ
-
-    # -- 3. the kernel's calls of one prefill, timed together ------------------
-    fa_mix = fa_prefill_mix(cfg, gen, dev, b, s)
-    emit("kernel_prefill_mix", kernel="flash_attention", arch=cfg.name,
-         layers=cfg.n_layers, shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-         nvidia_smi=card, **fa_mix)
-    torch.cuda.empty_cache()
-
-    # -- the serving init: at most the tree and one fp32 draw -----------------
-    model = Model(cfg, dev)
+    cfg = model.cfg
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2108,6 +2134,38 @@ def internvl2_path(dev, card) -> list[dict]:
     if peak > tree + draw:
         raise AssertionError(f"the serving init peaked at {peak / 1e9} GB, past the "
                              f"tree's {tree / 1e9} GB and one draw's {draw / 1e9} GB")
+    return params
+
+
+def internvl2_path(dev, card) -> list[dict]:
+    """Serving internvl2-26b (the VLM backbone: 48 layers, d 6144, 48/8
+    heads of 128; the patches' embeddings through ``frontend_proj`` first,
+    then the tokens) at full width and depth: the 48 attention calls of one
+    prefill timed together, the serving init (its peak memory beside the
+    tree's bytes: one card holds the 39.8 GB bf16 tree, not the 79.6 GB
+    fp32 init), a prefill on (4, 2048) positions of which 256 are patches,
+    the forward against the plain attention's, the card against the CPU on
+    the smoke config, serve (tokens only, as the reference's engine) and a
+    profile.  Returns the prefill's entry of the kernels line."""
+    from repro_torch.configs import get
+    from repro_torch.models import Model, synthetic_batch
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    cfg = get("internvl2-26b")
+    b, s = PREFILL_BATCH, PREFILL_SEQ
+
+    # -- 3. the kernel's calls of one prefill, timed together ------------------
+    fa_mix = fa_prefill_mix(cfg, gen, dev, b, s)
+    emit("kernel_prefill_mix", kernel="flash_attention", arch=cfg.name,
+         layers=cfg.n_layers, shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+         nvidia_smi=card, **fa_mix)
+    torch.cuda.empty_cache()
+
+    # -- the serving init: at most the tree and one fp32 draw -----------------
+    model = Model(cfg, dev)
+    params = checked_serving_init(model, card)
 
     # -- 4. prefill: the main path, at full width and depth -------------------
     batch = synthetic_batch(cfg, b, s, gen, dev)
@@ -2185,6 +2243,147 @@ def internvl2_path(dev, card) -> list[dict]:
     return [{"name": "flash_attention", "path": "internvl2-26b prefill", "route": "cuda",
              "source": FA_SOURCE, "replaces": FA_REPLACES,
              "launches": launches["flash_attention"], **fa_mix}]
+
+
+#: the prefill-against-decode check of a dense configuration where §2's max
+#: bound does not hold: the kernels' prefill no farther from the
+#: fp32-compute logits than this many times the plain decode is (the
+#: tp_decode rule, TP_DECODE_FP32_REF), in max and in mean
+DENSE_FP32_REF = 2.0
+
+
+def consistency_or_own_rounding(dec: torch.Tensor, fwd: torch.Tensor,
+                                ref: torch.Tensor, layers: int) -> dict:
+    """Prefill (``fwd``, the kernels) against teacher-forced decode
+    (``dec``, plain attention over the bf16 cache): §2's bounds at the
+    model's depth (``logits_agreement``), and each path's distance from
+    ``ref``, the same weights' logits at fp32 compute, relative to its
+    spread.  Within bounds where §2's hold; or where only §2's max bound
+    fails (its mean bound and the decisive argmaxes hold) and the prefill
+    is no farther from ``ref`` than DENSE_FP32_REF times the decode, in max
+    and mean: then the two differ by the model's own bf16 rounding, which a
+    random init amplifies with width (ROADMAP C10), not by the kernels'."""
+    out = logits_agreement(dec, fwd, layers, gate=False)
+    spread = ref.std().item()
+    for name, logits in (("prefill", fwd), ("decode", dec)):
+        dist = (logits - ref).abs()
+        out[f"{name}_vs_fp32_max_rel_to_std"] = dist.max().item() / spread
+        out[f"{name}_vs_fp32_mean_rel_to_std"] = dist.mean().item() / spread
+    out["within_section_2"] = out["within_bounds"]
+    if not out["within_bounds"]:
+        top2 = fwd.topk(2, dim=-1).values
+        decisive = top2[:, 0] - top2[:, 1] > 2 * (fwd - dec).abs().max()
+        out["within_bounds"] = (
+            out["mean_rel_to_std"] <= out["bound_mean_rel"]
+            and bool((fwd.argmax(-1) == dec.argmax(-1))[decisive].all())
+            and all(out[f"prefill_vs_fp32_{m}_rel_to_std"]
+                    <= DENSE_FP32_REF * out[f"decode_vs_fp32_{m}_rel_to_std"]
+                    for m in ("max", "mean")))
+    out["held_to"] = "section 2" if out["within_section_2"] else "own rounding"
+    return out
+
+
+#: the ported dense configurations served whole on the card (ROADMAP A8):
+#: gemma-7b (28 layers, d 3072, MHA 16/16 at D 256, vocab 256,000),
+#: h2o-danube-1.8b (24 layers, d 2560, 32/8 heads at D 80, a window of
+#: 4096) and deepseek-7b (30 layers, d 4096, MHA 32/32 at D 128)
+DENSE_ARCHS = ("gemma-7b", "h2o-danube-1.8b", "deepseek-7b")
+#: h2o-danube-1.8b's window bites past 4096 positions: its forward on one
+#: row of this many, the kernel against the plain attention
+DANUBE_WINDOW_CHECK_SEQ = 4608
+
+
+def dense_path(dev, card) -> list[dict]:
+    """Serving DENSE_ARCHS at full width and depth, each from the serving
+    init straight into bf16 (its peak beside the tree's bytes): the
+    attention calls of one prefill timed together (kernel, plain, SDPA, the
+    bound), a prefill on (4, 2048) tokens (the median of 3, its launches
+    one a layer, tokens/s and peak), prefill against teacher-forced decode
+    over CONSISTENCY_PROMPT positions under §2's gates at the model's
+    depth, for h2o-danube-1.8b the forward on one row of
+    DANUBE_WINDOW_CHECK_SEQ positions against the plain attention's, the
+    card against the CPU on the smoke config, and ``ServeEngine`` on 4
+    slots (8 requests of 16 tokens).  Returns each prefill's entry of the
+    kernels line."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model, compute_copy, synthetic_batch
+
+    entries = []
+    for i, arch in enumerate(DENSE_ARCHS):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(20 + i)
+        cfg = get(arch)
+        b, s = PREFILL_BATCH, PREFILL_SEQ
+        shape = [b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim]
+
+        # -- 3. the kernel's calls of one prefill, timed together ----------
+        fa_mix = fa_prefill_mix(cfg, gen, dev, b, s)
+        emit("kernel_prefill_mix", kernel="flash_attention", arch=cfg.name,
+             layers=cfg.n_layers, shape=shape, window=cfg.window, nvidia_smi=card,
+             **fa_mix)
+        torch.cuda.empty_cache()
+
+        # -- the serving init, then 4. prefill at full width and depth -----
+        model = Model(cfg, dev)
+        params = checked_serving_init(model, card)
+        tree_gb = tree_bytes(params) / 1e9
+        batch = synthetic_batch(cfg, b, s, gen, dev)
+        torch.cuda.reset_peak_memory_stats()
+        launches = checked_forward(model, params, batch,
+                                   {"flash_attention": cfg.n_layers},
+                                   (b, s, cfg.vocab_size))
+        prefill_s, times = timed_forward(model, params, batch)
+        emit("prefill", arch=cfg.name, batch=b, seq=s, launches=launches,
+             seconds=prefill_s, tokens_per_s=b * s / prefill_s, runs=times,
+             tree_gb=tree_gb, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             nvidia_smi=card)
+        del batch
+
+        # -- 5. correctness ---------------------------------------------------
+        # (a) prefill (kernel) against teacher-forced decode (plain attention
+        # over the cache), over a prompt of several key tiles; each beside
+        # the same weights' logits at fp32 compute (plain attention)
+        prompt = synthetic_batch(cfg, 1, CONSISTENCY_PROMPT, gen, dev)["tokens"]
+        fwd, dec, _ = prefill_and_decode(model, params, prompt)
+        ref_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        with torch.inference_mode(), plain_kernels():
+            ref = Model(ref_cfg, dev).forward(compute_copy(ref_cfg, params),
+                                              {"tokens": prompt})[0].float()
+        agreement = consistency_or_own_rounding(dec, fwd, ref, cfg.n_layers)
+        emit("prefill_decode_consistency", arch=cfg.name, prompt=CONSISTENCY_PROMPT,
+             **agreement)
+        require_agreement(agreement)
+        del fwd, dec, ref
+        # (a2) past the window: the kernel's forward against the plain
+        # attention's on one row
+        if cfg.window:
+            toks = synthetic_batch(cfg, 1, DANUBE_WINDOW_CHECK_SEQ, gen, dev)
+            with torch.inference_mode():
+                got = model.forward(params, toks)[0].float()
+                with plain_kernels():
+                    want = model.forward(params, toks)[0].float()
+            emit("forward_vs_plain_attention", arch=cfg.name, seq=DANUBE_WINDOW_CHECK_SEQ,
+                 window=cfg.window, **logits_agreement(got, want, cfg.n_layers))
+            del got, want
+        # (b) the card against the CPU on the smoke config
+        card_vs_cpu(arch, dev, 40)
+
+        # -- 6. serve -----------------------------------------------------------
+        fa.launches = 0
+        rng = np.random.default_rng(0)
+        engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
+        emit("serve", arch=cfg.name, requests=8, slots=4, max_len=1024,
+             new_tokens=n_tok, final_pos=engine.cache["pos"], seconds=serve_s,
+             decode_tokens_per_s=n_tok / serve_s,
+             steps_per_s=engine.cache["pos"] / serve_s,
+             flash_attention_launches=fa.launches, nvidia_smi=card)
+        del engine, model, params
+        torch.cuda.empty_cache()
+        entries.append({"name": "flash_attention", "path": f"{cfg.name} prefill",
+                        "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
+                        "launches": launches["flash_attention"], **fa_mix})
+    return entries
 
 
 def moe_group_sizes(gen, dev, tokens: int, n_experts: int, top_k: int,
@@ -3063,6 +3262,94 @@ def hymba_train_path(dev, card) -> list[dict]:
         for part in ("chunk_scan_bwd", "chunk_state_bwd")]
 
 
+#: the dense configurations' training on one card: h2o-danube-1.8b at full
+#: width and depth through launch.train (2 warm-up and 3 timed steps);
+#: gemma-7b and deepseek-7b, which launch.train refuses on one card
+DANUBE_TRAIN_WARMUP, DANUBE_TRAIN_TIMED = 2, 3
+REFUSED_ON_ONE_CARD = ("gemma-7b", "deepseek-7b")
+
+
+def dense_train_path(dev, card) -> list[dict]:
+    """h2o-danube-1.8b training at full width and depth on one card: the
+    backward kernel's calls of one train step timed together, its memory
+    reckoned, ``launch.train.main`` on (4, 2048) batches (step ms,
+    tokens/s, 6·N·T, peak; launches as step_launches), then train_checks
+    (the kernels' step against the plain attention's, 8 steps on one batch
+    in which the loss falls, one step's launches, a profiled step); then
+    ``launch.train`` refusing REFUSED_ON_ONE_CARD before it allocates,
+    naming their memory.  Returns the backward's entry of the kernels
+    line."""
+    from repro_torch.configs import get
+    from repro_torch.launch import train
+    from repro_torch.train.step import train_memory_gb
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    arch = "h2o-danube-1.8b"
+    cfg = get(arch)
+    kernels = path_kernels(cfg, backward=True)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+
+    # -- 3. the backward kernel's calls of one train step, timed together ----
+    fa_mix = fa_train_mix(cfg, gen, dev, b, s)
+    emit("kernel_train_mix", kernel="flash_attention_bwd", arch=cfg.name,
+         layers=cfg.n_layers, shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+         window=cfg.window, nvidia_smi=card, **fa_mix)
+    torch.cuda.empty_cache()
+
+    # -- 4. train: the main path, at full width and depth ----------------------
+    reckoning = train_reckoning_gb(cfg, cfg.n_layers)
+    emit("train_reckoning", arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+         largest_leaf=largest_leaf(cfg), budget_gb=TRAIN_BUDGET_GB, **reckoning)
+    if reckoning["total_gb"] > TRAIN_BUDGET_GB:
+        raise AssertionError(f"{cfg.name} at full depth needs {reckoning} > "
+                             f"{TRAIN_BUDGET_GB} GB")
+    torch.cuda.reset_peak_memory_stats()
+    steps = DANUBE_TRAIN_WARMUP + DANUBE_TRAIN_TIMED
+    reset_launches()
+    out = train.main(["--arch", arch, "--steps", str(steps), "--batch", str(b),
+                      "--seq", str(s), "--log-every", "1"])
+    launches = launch_counts(kernels)
+    if launches != step_launches(cfg, steps):
+        raise AssertionError(f"{cfg.name} training launched {launches}, want "
+                             f"{step_launches(cfg, steps)}")
+    if out["steps_run"] != steps or not math.isfinite(out["loss"]):
+        raise AssertionError(f"training ran {out['steps_run']} steps, loss {out['loss']}")
+    step_s = float(np.median(out["step_seconds"][DANUBE_TRAIN_WARMUP:]))
+    n_params, tokens = cfg.param_count(), b * s
+    emit("train", arch=cfg.name, batch=b, seq=s, remat=cfg.remat,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         warmup_steps=DANUBE_TRAIN_WARMUP, step_seconds=out["step_seconds"],
+         step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, params=n_params,
+         mfu_6nt=6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+         final_loss=out["loss"], final_grad_norm=out["grad_norm"], nvidia_smi=card)
+    torch.cuda.empty_cache()
+
+    # -- 5, 6. correctness at full width and depth, and a profiled step -------
+    train_checks(cfg, dev, card, kernels)
+
+    # -- the two that one card does not hold: refused before any allocation --
+    for refused in REFUSED_ON_ONE_CARD:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            train.main(["--arch", refused, "--steps", "1"])
+        except SystemExit as e:
+            message = str(e)
+        else:
+            raise AssertionError(f"launch.train trained {refused} on one card")
+        if "training needs" not in message or torch.cuda.memory_allocated() != before:
+            raise AssertionError(f"launch.train's refusal of {refused}: {message!r}")
+        emit("train_refused", arch=refused, message=message,
+             reckoned=train_memory_gb(get(refused)), nvidia_smi=card)
+
+    return [{"name": "flash_attention_bwd", "path": f"{cfg.name} train", "route": "cuda",
+             "source": FA_SOURCE, "replaces": FA_REPLACES,
+             "launches": launches["flash_attention_bwd"], "design": FA_BWD_DESIGN,
+             **fa_mix}]
+
+
 def hubert_train_path(dev, card) -> list[dict]:
     """hubert-xlarge training: the attention backward's 48 calls of one
     train step (bidirectional, D 80) timed together, its memory reckoned,
@@ -3827,11 +4114,13 @@ TWO_RANK_LEAVES = ("embed", "segments/[0]/attn/wq", "segments/[1]/mlp/wo",
                    "final_norm")
 
 
-def two_rank_worker(rank: int, init_file: str, out_dir: str, argv: list[str]) -> None:
+def two_rank_worker(rank: int, init_file: str, out_dir: str, argvs: list[list[str]]
+                    ) -> None:
     """One of phase (c)'s two ranks on card 0, in a gloo group:
-    ``launch.train``'s run at data 2; writes its loss, grad_norm, peak
-    memory, the shape of its ZeRO-1 shard of the embedding's m and the
-    TWO_RANK_LEAVES of its parameters."""
+    ``launch.train``'s run at data 2 for each of ``argvs`` in turn; writes
+    each run's loss, grad_norm, step seconds, peak memory, the shape of its
+    ZeRO-1 shard of the embedding's m and the TWO_RANK_LEAVES of its
+    parameters."""
     import torch.distributed as dist
     from repro_torch.bridge import flatten
     from repro_torch.launch import train
@@ -3839,27 +4128,38 @@ def two_rank_worker(rank: int, init_file: str, out_dir: str, argv: list[str]) ->
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=2)
     try:
-        torch.cuda.reset_peak_memory_stats()
-        out, state = train.run(argv)
-        m = state["opt"]["m"]["embed"]
-        params = flatten(state["params"])
-        torch.save({"loss": out["loss"], "grad_norm": out["grad_norm"],
-                    "step_seconds": out["step_seconds"],
-                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                    "shard": [list(m.to_local().shape), list(m.shape)],
-                    "leaves": {k: params[k].to_local().cpu() for k in TWO_RANK_LEAVES}},
-                   Path(out_dir) / f"rank{rank}.pt")
+        runs = []
+        for argv in argvs:
+            torch.cuda.reset_peak_memory_stats()
+            out, state = train.run(argv)
+            m = state["opt"]["m"]["embed"]
+            params = flatten(state["params"])
+            runs.append({"loss": out["loss"], "grad_norm": out["grad_norm"],
+                         "step_seconds": out["step_seconds"],
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "shard": [list(m.to_local().shape), list(m.shape)],
+                         "leaves": {k: params[k].to_local().cpu() for k in TWO_RANK_LEAVES}})
+            del out, state, m, params
+            torch.cuda.empty_cache()
+        torch.save(runs, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+#: phase (c)'s runs: launch.train at n_micro 1, then 2 (each rank's share of
+#: each microbatch, a block of the global batch, by an all-to-all)
+TWO_RANK_N_MICRO = (1, 2)
 
 
 def two_ranks_path(dev, card, one_rank_peak_gb: float) -> None:
     """Phase (c): gemma3-1b at full width and depth through ``launch.train``
     at data 2, two processes on the one card over gloo (which takes CUDA
-    tensors for the step's all-reduce and all-gather; NCCL refuses two
-    ranks on one device), a global 4 x 2048 batch (2 rows a rank), the
-    ZeRO-1 shards split in two; held against one rank without a mesh on the
-    concatenation of the two ranks' batches.  Both processes' memory is
+    tensors for the step's all-reduce, all-gather and all-to-all; NCCL
+    refuses two ranks on one device), a global 4 x 2048 batch (2 rows a
+    rank), the ZeRO-1 shards split in two; once at n_micro 1 and once at
+    n_micro 2 (one row a rank a microbatch), in the same two processes;
+    each held against one rank without a mesh on the concatenation of the
+    two ranks' batches at the same n_micro.  Both processes' memory is
     reckoned first from phase (a)'s measured peak."""
     import shutil
     import torch.multiprocessing as mp
@@ -3867,73 +4167,86 @@ def two_ranks_path(dev, card, one_rank_peak_gb: float) -> None:
     from repro_torch.configs import get
     from repro_torch.data.pipeline import SyntheticStream
     from repro_torch.optim.adamw import AdamW, cosine_schedule
-    from repro_torch.train.step import init_train_state, make_train_step, train_memory_gb
+    from repro_torch.train.step import (
+        TrainStepConfig, init_train_state, make_train_step, train_memory_gb,
+    )
 
     cfg = get("gemma3-1b")
     b, s = TRAIN_BATCH, TRAIN_SEQ
-    one, two = train_memory_gb(cfg, 1), train_memory_gb(cfg, 2)
+    one = train_memory_gb(cfg, 1)
     activations = one_rank_peak_gb - one["state_gb"] - one["update_gb"]
-    per_rank = two["state_gb"] + two["update_gb"] + activations / 2
     have = torch.cuda.get_device_properties(dev).total_memory / 1e9
-    emit("two_ranks_reckoning", arch=cfg.name, one_rank_peak_gb=one_rank_peak_gb,
-         activations_gb_at_4_rows=activations, per_rank_gb=per_rank,
-         both_gb=2 * per_rank, card_gb=have)
-    if 2 * per_rank > have:
-        raise AssertionError(f"two ranks need ~{2 * per_rank:.1f} GB; the card "
-                             f"has {have:.1f} GB")
+    for n_micro in TWO_RANK_N_MICRO:
+        two = train_memory_gb(cfg, 2, n_micro=n_micro)
+        per_rank = (two["state_gb"] + two["update_gb"] + two["accumulator_gb"]
+                    + activations / 2 / n_micro)
+        emit("two_ranks_reckoning", arch=cfg.name, n_micro=n_micro,
+             one_rank_peak_gb=one_rank_peak_gb, activations_gb_at_4_rows=activations,
+             per_rank_gb=per_rank, both_gb=2 * per_rank, card_gb=have)
+        if 2 * per_rank > have:
+            raise AssertionError(f"two ranks need ~{2 * per_rank:.1f} GB; the card "
+                                 f"has {have:.1f} GB")
     argv = ["--arch", "gemma3-1b", "--steps", "1", "--batch", str(b), "--seq", str(s),
             "--log-every", "1"]
+    argvs = [argv + ["--n-micro", str(n)] for n in TWO_RANK_N_MICRO]
     out_dir = Path(__file__).resolve().parent / "build" / "two_ranks"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     t0 = time.perf_counter()
-    mp.start_processes(two_rank_worker, args=(str(out_dir / "store"), str(out_dir), argv),
+    mp.start_processes(two_rank_worker, args=(str(out_dir / "store"), str(out_dir), argvs),
                        nprocs=2, join=True, start_method="spawn")
     seconds = time.perf_counter() - t0
     ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(2)]
 
-    # one rank without a mesh on the concatenated batch, as launch.train
-    # would start it: seed 0, its optimizer
-    opt = AdamW(schedule=cosine_schedule(3e-4, 20, 1))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    state = init_train_state(cfg, opt, gen)
     hosts = [SyntheticStream(cfg, b, s, seed=0, n_hosts=2, host_id=h).batch_at(0)
              for h in range(2)]
     batch = {k: torch.from_numpy(np.concatenate([h[k] for h in hosts])).to(dev)
              for k in hosts[0]}
-    state, metrics = make_train_step(cfg, opt)(state, batch)
-    params = flatten(state["params"])
-    lr = float(metrics["lr"])
-    moved = {k: (ranks[0]["leaves"][k].to(dev) - params[k]).abs() for k in TWO_RANK_LEAVES}
-    agreement = {
-        "loss": ranks[0]["loss"], "one_rank_loss": float(metrics["loss"]),
-        "loss_rel_err": abs(ranks[0]["loss"] / float(metrics["loss"]) - 1),
-        "grad_norm": ranks[0]["grad_norm"],
-        "one_rank_grad_norm": float(metrics["grad_norm"]),
-        "grad_norm_rel_err": abs(ranks[0]["grad_norm"] / float(metrics["grad_norm"]) - 1),
-        "lr": lr,
-        "param_max_abs_diff_over_lr": {k: v.max().item() / lr for k, v in moved.items()},
-        "param_share_off_by_half_lr": {k: (v > lr / 2).float().mean().item()
-                                       for k, v in moved.items()},
-        "ranks_agree": (ranks[0]["loss"] == ranks[1]["loss"]
-                        and all(torch.equal(ranks[0]["leaves"][k], ranks[1]["leaves"][k])
-                                for k in TWO_RANK_LEAVES)),
-        "zero1_shard_of_embed_m": ranks[0]["shard"],
-    }
-    emit("two_ranks_train", arch=cfg.name, batch=b, seq=s, ranks=2, backend="gloo",
-         seconds_both_ranks=seconds, step_seconds=[r["step_seconds"] for r in ranks],
-         peak_gb=[r["peak_gb"] for r in ranks], nvidia_smi=card,
-         loss_rel_tol=TWO_RANK_LOSS_REL_TOL, grad_norm_rel_tol=TWO_RANK_GNORM_REL_TOL,
-         **agreement)
-    local, full = ranks[0]["shard"]
-    if not (agreement["loss_rel_err"] <= TWO_RANK_LOSS_REL_TOL
-            and agreement["grad_norm_rel_err"] <= TWO_RANK_GNORM_REL_TOL
-            and agreement["ranks_agree"]
-            and math.prod(local) * 2 == math.prod(full)):
-        raise AssertionError(f"two ranks disagree with one: {agreement}")
-    del state, params, moved
-    torch.cuda.empty_cache()
+    failed = []
+    for i, n_micro in enumerate(TWO_RANK_N_MICRO):
+        # one rank without a mesh on the concatenated batch, as launch.train
+        # would start it: seed 0, its optimizer
+        opt = AdamW(schedule=cosine_schedule(3e-4, 20, 1))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state = init_train_state(cfg, opt, gen)
+        state, metrics = make_train_step(cfg, opt, TrainStepConfig(n_micro=n_micro))(
+            state, batch)
+        params = flatten(state["params"])
+        lr = float(metrics["lr"])
+        run = [r[i] for r in ranks]
+        moved = {k: (run[0]["leaves"][k].to(dev) - params[k]).abs() for k in TWO_RANK_LEAVES}
+        agreement = {
+            "loss": run[0]["loss"], "one_rank_loss": float(metrics["loss"]),
+            "loss_rel_err": abs(run[0]["loss"] / float(metrics["loss"]) - 1),
+            "grad_norm": run[0]["grad_norm"],
+            "one_rank_grad_norm": float(metrics["grad_norm"]),
+            "grad_norm_rel_err": abs(run[0]["grad_norm"] / float(metrics["grad_norm"]) - 1),
+            "lr": lr,
+            "param_max_abs_diff_over_lr": {k: v.max().item() / lr for k, v in moved.items()},
+            "param_share_off_by_half_lr": {k: (v > lr / 2).float().mean().item()
+                                           for k, v in moved.items()},
+            "ranks_agree": (run[0]["loss"] == run[1]["loss"]
+                            and all(torch.equal(run[0]["leaves"][k], run[1]["leaves"][k])
+                                    for k in TWO_RANK_LEAVES)),
+            "zero1_shard_of_embed_m": run[0]["shard"],
+        }
+        emit("two_ranks_train", arch=cfg.name, batch=b, seq=s, ranks=2, backend="gloo",
+             n_micro=n_micro, seconds_both_ranks_all_runs=seconds,
+             step_seconds=[r["step_seconds"] for r in run],
+             peak_gb=[r["peak_gb"] for r in run], nvidia_smi=card,
+             loss_rel_tol=TWO_RANK_LOSS_REL_TOL, grad_norm_rel_tol=TWO_RANK_GNORM_REL_TOL,
+             **agreement)
+        local, full = run[0]["shard"]
+        if not (agreement["loss_rel_err"] <= TWO_RANK_LOSS_REL_TOL
+                and agreement["grad_norm_rel_err"] <= TWO_RANK_GNORM_REL_TOL
+                and agreement["ranks_agree"]
+                and math.prod(local) * 2 == math.prod(full)):
+            failed.append((n_micro, agreement))
+        del state, params, moved
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"two ranks disagree with one: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -4362,14 +4675,15 @@ def train_reckoning_gb_tp(cfg) -> float:
 # ---------------------------------------------------------------------------
 
 #: tp_decode: at full width and depth from the serving init (bf16), 4
-#: slots, a cache of 2048 positions, 16 teacher-forced tokens; gemma3-1b
+#: slots, a cache of 2048 positions, 8 teacher-forced tokens (16 until
+#: the script's time ran short); gemma3-1b
 #: (its KV head split over the head dim), mamba2-780m (the conv cut across
 #: x | B | C), hymba-1.5b (head dim split, 25 of 50 SSM heads a rank) and
 #: olmoe-1b-7b (KV heads split, experts at f 512)
 TP_DECODE_ARCHS = ("gemma3-1b", "mamba2-780m", "hymba-1.5b", "olmoe-1b-7b")
-TP_DECODE_SLOTS, TP_DECODE_LEN, TP_DECODE_TOKENS = 4, 2048, 16
+TP_DECODE_SLOTS, TP_DECODE_LEN, TP_DECODE_TOKENS = 4, 2048, 8
 #: each rank's cache shard against its slice of one rank's cache after the
-#: 16 tokens, ||Δ|| / ||slice|| (e_tp), held against the model's own bf16
+#: tokens, ||Δ|| / ||slice|| (e_tp), held against the model's own bf16
 #: rounding: the same measure between one rank's bf16 decode and its
 #: decode at fp32 compute on the same weights (e_ref).  e_tp ≤
 #: TP_DECODE_CACHE_REF × e_ref, or ≤ TP_DECODE_CACHE_FLOOR (two bf16 steps)
@@ -4387,12 +4701,14 @@ TP_DECODE_CACHE_FLOOR = 2.0 ** -7
 #: their mean distance from the fp32-compute logits within
 #: TP_DECODE_FP32_REF × one rank's
 TP_DECODE_FP32_REF = 2.0
-#: dryrun_vs_card: (label, arch, ShapeConfig fields, mesh shape).  (a) and
-#: (b) on one card at (1, 1); (c) on tp_decode's two gloo ranks at (1, 2)
-DRYRUN_CELLS = (("a", "gemma3-1b", ("train_4x2048", 2048, 4, "train"), (1, 1)),
-                ("b", "mamba2-780m", ("prefill_4x2048", 2048, 4, "prefill"), (1, 1)),
-                ("c", "gemma3-1b", ("train_2x2048", 2048, 2, "train"), (1, 2)),
-                ("c", "gemma3-1b", ("decode_4x2048", 2048, 4, "decode"), (1, 2)))
+#: dryrun_vs_card: (label, arch, ShapeConfig fields, mesh shape, n_micro).
+#: (a), (b) and (d), (a) at n_micro 2, on one card at (1, 1); (c) on
+#: tp_decode's two gloo ranks at (1, 2)
+DRYRUN_CELLS = (("a", "gemma3-1b", ("train_4x2048", 2048, 4, "train"), (1, 1), 1),
+                ("b", "mamba2-780m", ("prefill_4x2048", 2048, 4, "prefill"), (1, 1), 1),
+                ("c", "gemma3-1b", ("train_2x2048", 2048, 2, "train"), (1, 2), 1),
+                ("c", "gemma3-1b", ("decode_4x2048", 2048, 4, "decode"), (1, 2), 1),
+                ("d", "gemma3-1b", ("train_4x2048", 2048, 4, "train"), (1, 1), 2))
 #: the reckoned peak against torch.cuda.max_memory_allocated, (a) and (b)
 DRYRUN_PEAK_REL_TOL = 0.10
 #: (c)'s timed calls: one, after the counted call (its train step through
@@ -4403,16 +4719,18 @@ DRYRUN_TP_TIMED = 1
 DRYRUN_EQUAL = ("flops", "hbm_bytes", "kernel_calls", "collectives")
 
 
-def count_on_card(arch: str, shape_fields: tuple, mesh, dev, timed: int = 3) -> dict:
+def count_on_card(arch: str, shape_fields: tuple, mesh, dev, timed: int = 3,
+                  n_micro: int = 1) -> dict:
     """A dry-run cell's step (``repro_torch.launch.dryrun.build_step``: the
-    same trees and settings, zeros on the card) under the same counter as
-    the dry run: one counted call (its peak from
-    ``torch.cuda.max_memory_allocated``), after a warm-up call where
-    ``timed`` > 1, then the median of ``timed`` timed calls."""
+    same trees and settings, zeros on the card; ``n_micro`` microbatches a
+    train step) under the same counter as the dry run: one counted call
+    (its peak from ``torch.cuda.max_memory_allocated``), after a warm-up
+    call where ``timed`` > 1, then the median of ``timed`` timed calls."""
     from repro_torch.launch import costs, dryrun
     from repro_torch.models.config import ShapeConfig
     cfg = dryrun.cell_config(arch)
-    fn, args = dryrun.build_step(cfg, ShapeConfig(*shape_fields), mesh, dev.type)
+    fn, args = dryrun.build_step(cfg, ShapeConfig(*shape_fields), mesh, dev.type,
+                                 n_micro=n_micro)
     if timed > 1:
         fn()
     torch.cuda.synchronize()
@@ -4436,7 +4754,8 @@ def count_on_card(arch: str, shape_fields: tuple, mesh, dev, timed: int = 3) -> 
 
 
 def dryrun_vs_card_worker(rank: int, init_file: str, out_dir: str) -> None:
-    """(a) and (b) of dryrun_vs_card in a one-rank gloo group on card 0."""
+    """The one-card cells of dryrun_vs_card ((a), (b), (d)) in a one-rank
+    gloo group on card 0."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     dev = torch.device("cuda", 0)
@@ -4445,8 +4764,9 @@ def dryrun_vs_card_worker(rank: int, init_file: str, out_dir: str) -> None:
                             world_size=1)
     try:
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
-        out = {f"{label} {arch} {fields[0]}": count_on_card(arch, fields, mesh, dev)
-               for label, arch, fields, shape in DRYRUN_CELLS if shape == (1, 1)}
+        out = {f"{label} {arch} {fields[0]}": count_on_card(arch, fields, mesh, dev,
+                                                            n_micro=n_micro)
+               for label, arch, fields, shape, n_micro in DRYRUN_CELLS if shape == (1, 1)}
         torch.save(out, Path(out_dir) / "card.pt")
     finally:
         dist.destroy_process_group()
@@ -4462,11 +4782,12 @@ import json, sys
 from repro_torch.launch import dryrun
 from repro_torch.models.config import ShapeConfig
 out = {}
-for label, arch, fields, shape in %r:
+for label, arch, fields, shape, n_micro in %r:
     cfg = dryrun.cell_config(arch)
     axes = ("data", "model")
     for j in range(shape[1]):
-        counter, seconds = dryrun.count_rank(cfg, ShapeConfig(*fields), shape, axes, j)
+        counter, seconds = dryrun.count_rank(cfg, ShapeConfig(*fields), shape, axes, j,
+                                             n_micro)
         rl = dryrun.roofline(counter.flops, counter.hbm_bytes, counter.by_axis,
                              dict(zip(axes, shape)))
         out[f"{label} {arch} {fields[0]} rank {j}"] = {
@@ -4635,7 +4956,7 @@ def tp_decode_worker(rank: int, init_file: str, out_dir: str, device_type: str) 
         results["dryrun"] = {
             f"{label} {arch} {fields[0]} rank {rank}": count_on_card(
                 arch, fields, mesh, dev, timed=DRYRUN_TP_TIMED)
-            for label, arch, fields, shape in DRYRUN_CELLS if shape == (1, 2)}
+            for label, arch, fields, shape, _ in DRYRUN_CELLS if shape == (1, 2)}
         torch.save(results, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4764,6 +5085,11 @@ def tp_decode_path(dev, card) -> list[dict]:
         for r in ranks:
             card_runs.update(r["dryrun"])
         bad = dryrun_compare(meta, card_runs, card)
+        one, two = "a gemma3-1b train_4x2048", "d gemma3-1b train_4x2048"
+        emit("dryrun_n_micro", arch="gemma3-1b", cells={"n_micro 1": one, "n_micro 2": two},
+             card_peak_gb=[card_runs[c]["max_memory_allocated"] / 1e9 for c in (one, two)],
+             reckoned_peak_gb=[meta[f"{c} rank 0"]["peak_bytes"] / 1e9 for c in (one, two)],
+             step_s=[card_runs[c]["step_s"] for c in (one, two)], nvidia_smi=card)
         emit("dryrun_vs_card_section", seconds=time.perf_counter() - t0, cells=len(card_runs))
         if failures or bad:
             raise AssertionError(f"decode under model disagrees with one rank: {failures}; "
@@ -4820,6 +5146,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernels += internvl2_path(dev, card)
     torch.cuda.empty_cache()      # internvl2's 40 GB tree is gone from here
+    kernels += dense_path(dev, card)
+    torch.cuda.empty_cache()
     kernels.append(olmoe_path(dev, card))
     torch.cuda.empty_cache()
     gemma3_train_entry = gemma3_train_path(dev, card)
@@ -4828,6 +5156,8 @@ def main() -> None:
     kernels += ssm_train_path(dev, card)
     torch.cuda.empty_cache()
     kernels += hymba_train_path(dev, card)
+    torch.cuda.empty_cache()
+    kernels += dense_train_path(dev, card)
     torch.cuda.empty_cache()
     kernels += moe_train_path(dev, card)
     torch.cuda.empty_cache()

@@ -16,6 +16,9 @@ JAX orders a ``("pod", "data")`` sharding.
 
 * :func:`dp_all_reduce` and :func:`dp_all_gather`: a sum, and a stack in
   rank order, over the data-parallel axes (no gradient);
+* :func:`dp_microbatches`: this rank's share of each microbatch of the
+  global batch (the reference's microbatch is a block of the global batch,
+  which spans ranks), by an all-to-all over each data-parallel axis;
 * :func:`model_copy` and :func:`model_sum`: Megatron's f and g over the
   ``model`` axis, differentiable: f is the identity whose backward sums
   the gradient over ``model``; g sums over ``model`` and its backward is
@@ -41,14 +44,16 @@ JAX orders a ``("pod", "data")`` sharding.
 Every one is the identity where ``model`` has one rank.
 
 Every collective of the port goes through :func:`all_reduce`,
-:func:`all_gather` or :func:`reduce_scatter`, which report the kind, the
-axis and the payload bytes (the result's, as the reference's dry run reads
-them from the HLO) as a :data:`repro_torch.events.COLLECTIVE` event, to
+:func:`all_gather`, :func:`reduce_scatter` or :func:`all_to_all`, which
+report the kind, the axis and the payload bytes (the result's, as the
+reference's dry run reads them from the HLO; an all-to-all's, the rows
+that leave the rank) as a :data:`repro_torch.events.COLLECTIVE` event, to
 a cost counter that is off unless one listens.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Iterator
 
@@ -73,11 +78,11 @@ def inside_collective() -> bool:
 
 
 @contextlib.contextmanager
-def _collective(kind: str, axis: str, t: torch.Tensor) -> Iterator[None]:
-    # kind: all-reduce, all-gather or reduce-scatter; axis: the mesh axis
-    # the group spans
+def _collective(kind: str, axis: str, nbytes: int) -> Iterator[None]:
+    # kind: all-reduce, all-gather, reduce-scatter or all-to-all; axis: the
+    # mesh axis the group spans
     if events.active():
-        events.report(events.COLLECTIVE, kind, axis, t.numel() * t.element_size())
+        events.report(events.COLLECTIVE, kind, axis, nbytes)
     _INSIDE.depth = getattr(_INSIDE, "depth", 0) + 1
     try:
         yield
@@ -94,7 +99,7 @@ def all_reduce(t: torch.Tensor, group: dist.ProcessGroup, axis: str,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``dist.all_reduce`` of ``t`` in place over ``group`` (the ranks of
     mesh axis ``axis``), reported."""
-    with _collective("all-reduce", axis, t):
+    with _collective("all-reduce", axis, _nbytes(t)):
         dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -102,7 +107,7 @@ def all_reduce(t: torch.Tensor, group: dist.ProcessGroup, axis: str,
 def all_gather(out: torch.Tensor, t: torch.Tensor, group: dist.ProcessGroup,
                axis: str) -> torch.Tensor:
     """``dist.all_gather_into_tensor`` of ``t`` into ``out``, reported."""
-    with _collective("all-gather", axis, out):
+    with _collective("all-gather", axis, _nbytes(out)):
         dist.all_gather_into_tensor(out, t, group=group)
     return out
 
@@ -110,9 +115,24 @@ def all_gather(out: torch.Tensor, t: torch.Tensor, group: dist.ProcessGroup,
 def reduce_scatter(out: torch.Tensor, t: torch.Tensor, group: dist.ProcessGroup,
                    axis: str) -> torch.Tensor:
     """The group's ``t`` summed, this rank's part into ``out``, reported."""
-    with _collective("reduce-scatter", axis, out):
+    with _collective("reduce-scatter", axis, _nbytes(out)):
         _reduce_scatter(out, t, group=group)
     return out
+
+
+def all_to_all(out: torch.Tensor, t: torch.Tensor, out_rows: list[int],
+               in_rows: list[int], group: dist.ProcessGroup, axis: str,
+               sent: int) -> torch.Tensor:
+    """``dist.all_to_all_single``: ``in_rows[k]`` leading rows of ``t``
+    (in order) to the group's rank k, ``out_rows[k]`` from it into ``out``;
+    reported with ``sent``, the bytes that leave this rank."""
+    with _collective("all-to-all", axis, sent):
+        dist.all_to_all_single(out, t, out_rows, in_rows, group=group)
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 @contextlib.contextmanager
@@ -204,6 +224,83 @@ def dp_all_gather(t: torch.Tensor, mesh: DeviceMesh | None = None) -> torch.Tens
         all_gather(buf, out.contiguous(), _group(a, mesh), a)
         out = buf
     return out
+
+
+def _coords(index: int, sizes: tuple[int, ...]) -> tuple[int, ...]:
+    """The coordinates of data-parallel index ``index`` (pod-major) on axes
+    of ``sizes``."""
+    out = []
+    for n in reversed(sizes):
+        out.append(index % n)
+        index //= n
+    return tuple(reversed(out))
+
+
+@torch.no_grad()
+def dp_microbatches(t: torch.Tensor, n: int, mesh: DeviceMesh | None = None
+                    ) -> torch.Tensor:
+    """This rank's share of each of the ``n`` microbatches of the global
+    batch, whose data-parallel block ``t`` is (rows on dim 0): ``(n,
+    B/(n·D), ...)``, where its i-th entry holds the global rows ``i·B/n +
+    r·B/(n·D) + [0, B/(n·D))``, r this rank's data-parallel index.  The
+    reference's microbatch i is block i of the global batch (a reshape),
+    so with n ≤ D it lies on the first ranks; each rank gets its exact
+    share of it, the rows every rank of a microbatch would hold in a
+    data-parallel step on that microbatch alone.  The rows move by one
+    all-to-all over each data-parallel axis on which any moves (minor
+    first), each rank sending only the rows it does not keep: no rank
+    gathers the batch.  With one data rank, or n = 1, it is the reshape."""
+    d = dp_size(mesh)
+    b = t.shape[0]
+    if b % n:
+        raise ValueError(f"a data-parallel block of {b} rows does not split into "
+                         f"{n} microbatches")
+    c = b // n
+    rest = tuple(t.shape[1:])
+    if d == 1:
+        return t.reshape((n, c) + rest)
+    axes = dp_axes(mesh)
+    sizes = tuple(axis_size(a, mesh) for a in axes)
+    row = _nbytes(t) // b
+    me = dp_index(mesh)
+    # the pieces of c rows by their global index q (the global rows q·c +
+    # [0, c)): rank r holds r·n + [0, n) to start with, and piece q is the
+    # share of rank q % D in microbatch q // D
+    held = [list(range(r * n, (r + 1) * n)) for r in range(d)]
+    x = t.contiguous()
+    for k in reversed(range(len(axes))):          # minor axis first
+        if sizes[k] == 1:
+            continue
+        stride = math.prod(sizes[k + 1:])
+        to = [_coords(q % d, sizes)[k] for q in range(n * d)]
+
+        def peers(r):
+            """The ranks of r's group on axis k, in the axis's order."""
+            at = _coords(r, sizes)[k]
+            return [r + (a - at) * stride for a in range(sizes[k])]
+
+        if all(to[q] == _coords(r, sizes)[k] for r in range(d) for q in held[r]):
+            continue                              # no piece moves on this axis
+        mine = _coords(me, sizes)[k]
+        order = [j for a in range(sizes[k]) for j, q in enumerate(held[me]) if to[q] == a]
+        in_rows = [c * sum(to[q] == a for q in held[me]) for a in range(sizes[k])]
+        out_rows = [c * sum(to[q] == mine for q in held[p]) for p in peers(me)]
+        out = x.new_empty((sum(out_rows),) + rest)
+        all_to_all(out, _pieces(x, c, order), out_rows, in_rows, _group(axes[k], mesh),
+                   axes[k], (sum(in_rows) - in_rows[mine]) * row)
+        held = [[q for p in peers(r) for q in held[p] if to[q] == _coords(r, sizes)[k]]
+                for r in range(d)]
+        x = out
+    order = sorted(range(len(held[me])), key=held[me].__getitem__)
+    return _pieces(x, c, order).view((n, c) + rest)
+
+
+def _pieces(x: torch.Tensor, c: int, order: list[int]) -> torch.Tensor:
+    """``x``'s pieces of ``c`` rows in ``order`` (``x`` itself where that is
+    their order)."""
+    if order == list(range(len(order))):
+        return x
+    return torch.cat([x.narrow(0, j * c, c) for j in order])
 
 
 class _ModelCopy(torch.autograd.Function):

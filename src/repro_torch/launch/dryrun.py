@@ -176,19 +176,21 @@ def cell_config(arch: str, smoke: bool = False, loss_chunk: int = 1024,
     return dataclasses.replace((get_smoke if smoke else get)(arch), **opts)
 
 
-def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh, device: str = "meta"
-               ) -> tuple[Callable[[], Any], tuple]:
+def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh, device: str = "meta",
+               n_micro: int = 1) -> tuple[Callable[[], Any], tuple]:
     """(the cell's step as a call, its arguments) on this rank's meta
     shards (or, on another ``device``, zeros of the same shapes): the train
-    step, a prefill (``forward``, remat off, the logits left vocab-sharded)
-    or a decode step (``make_serve_step`` on the mesh, the cache at its
-    last position)."""
+    step (with ``n_micro`` microbatches, as the reference's
+    ``lower_train_cell``), a prefill (``forward``, remat off, the logits
+    left vocab-sharded) or a decode step (``make_serve_step`` on the mesh,
+    the cache at its last position)."""
     sizes = shd.axis_sizes(mesh)
     dp = shd._dp_entry(sizes)
     batch = input_specs(cfg, shape)
     if shape.kind == "train":
         opt = AdamW(schedule=cosine_schedule(3e-4, 2000, 100_000))
-        step = make_train_step(cfg, opt, TrainStepConfig(moe_groups=_moe_groups(shape)))
+        step = make_train_step(cfg, opt, TrainStepConfig(
+            n_micro=n_micro, moe_groups=_moe_groups(shape)))
         state = abstract_train_state(cfg, opt)
         state = dtensor_shards(state, shd.state_shardings(state, mesh), mesh, device)
         batch = local_shards(batch, shd.batch_shardings(batch, mesh), mesh, device)
@@ -245,14 +247,14 @@ def rank_classes(cfg: ArchConfig, m: int) -> dict[tuple, int]:
 
 
 def count_rank(cfg: ArchConfig, shape: ShapeConfig, mesh_shape: tuple,
-               axes: tuple, rank: int) -> tuple[costs.Counter, float]:
+               axes: tuple, rank: int, n_micro: int = 1) -> tuple[costs.Counter, float]:
     """``model`` rank ``rank`` (pod 0, data 0) of a ``mesh_shape`` mesh over
     ``axes`` in a fake group: its step on meta shards under the counter
     (strict: no tensor made off meta).  Returns (the counter, the seconds
     the count took)."""
     mesh = fake_mesh(mesh_shape, axes, rank)
     try:
-        fn, args = build_step(cfg, shape, mesh)
+        fn, args = build_step(cfg, shape, mesh, n_micro=n_micro)
         counter = costs.Counter("meta", strict=True)
         counter.track(*args)
         t0 = time.perf_counter()
@@ -283,11 +285,14 @@ def mesh_of(multi_pod: bool, mesh_shape: tuple | None) -> tuple[tuple, tuple, st
 def run_cell(arch: str, shape_name: str | ShapeConfig, multi_pod: bool,
              outdir: Path | None = None, loss_chunk: int = 1024,
              overrides: dict | None = None, mesh_shape: tuple | None = None,
-             smoke: bool = False, ranks: tuple[int, ...] | None = None) -> dict:
+             smoke: bool = False, ranks: tuple[int, ...] | None = None,
+             n_micro: int = 1) -> dict:
     """One cell's record.  ``mesh_shape`` re-maps the same chips to another
     (data, model) or (pod, data, model) split; ``ranks`` plays these
     ``model`` ranks instead of one of each class; ``shape_name`` may be a
-    ``ShapeConfig`` of its own (a cell of another size)."""
+    ``ShapeConfig`` of its own (a cell of another size); a train cell runs
+    ``n_micro`` microbatches (the reference's ``lower_train_cell``
+    argument; the CLI, as the reference's, has no flag for it)."""
     cfg = cell_config(arch, smoke, loss_chunk, overrides)
     shape = shape_name if isinstance(shape_name, ShapeConfig) else SHAPES[shape_name]
     mshape, axes, mesh_name = mesh_of(multi_pod, mesh_shape)
@@ -303,7 +308,7 @@ def run_cell(arch: str, shape_name: str | ShapeConfig, multi_pod: bool,
     runs = []
     for j in plays:                               # pod 0, data 0, model j
         try:
-            counter, seconds = count_rank(cfg, shape, mshape, axes, j)
+            counter, seconds = count_rank(cfg, shape, mshape, axes, j, n_micro)
         except Exception as e:
             raise type(e)(f"{arch} {shape.name} {mesh_name} model rank {j}: {e}") from e
         runs.append((counter.peak, counter.flops, j, counter, seconds))

@@ -18,7 +18,11 @@ ZeRO-1) and trained by the data-parallel step
 ``--batch`` (the data stream's hosts are the data ranks).  Checkpoints
 every ``--ckpt-every`` steps and at the end (the full arrays, written by
 rank 0), and resumes from the latest checkpoint when restarted, at any
-data size: kill it mid-run and rerun the same command.  On a card the
+data size: kill it mid-run and rerun the same command.  ``--n-micro N``
+splits each global batch into N microbatches, each a block of the global
+batch as in the reference (each rank takes its share of every microbatch,
+:mod:`repro_torch.train.step`); the global batch must divide by N times
+the data size.  On a card the
 attention runs the flash-attention kernels (bidirectional for
 hubert-xlarge's encoder), the SSM (mamba2-780m) the SSD-scan kernels,
 hymba-1.5b's hybrid layers both, and the MoE FFN (olmoe-1b-7b) the
@@ -26,14 +30,15 @@ grouped-GEMM kernels, forward and backward; on the CPU every kernel takes
 its plain version.  The batches follow the config's input mode
 (hubert-xlarge: frame embeddings; internvl2-26b: patch embeddings, then
 tokens).  On a card the memory a device needs is reckoned first, with the
-data size (:func:`repro_torch.train.step.train_memory_gb`), and held
-against the card's: a model that does not fit is refused before anything
-is allocated, naming the data size that would fit (olmoe-1b-7b at full
-depth: 8), or, where none does (internvl2-26b: its replicated parameters
-and gradients alone are 159 GB), the (data, model) mesh whose tensor
-parallelism would fit it, which this entry point does not run (see
-:data:`PART_3`; ``python -m repro_torch.launch.dryrun`` reckons every
-cell's memory on the production meshes).  Runs under the PaPaS engine like any program, e.g. a
+data size and ``--n-micro`` (:func:`repro_torch.train.step.train_memory_gb`),
+and held against the card's: a model that does not fit is refused before
+anything is allocated, naming the data size that would fit (olmoe-1b-7b
+at full depth: 8), or, where none does (internvl2-26b: its replicated
+parameters and gradients alone are 159 GB), the (data, model) mesh whose
+tensor parallelism would fit it, which this entry point does not run, as
+the reference's does not (see :data:`PART_3`; ``python -m
+repro_torch.launch.dryrun`` reckons every cell's memory on the production
+meshes).  Runs under the PaPaS engine like any program, e.g. a
 study with ``command: python -m repro_torch.launch.train --lr
 ${args:lr}``.
 """
@@ -62,15 +67,13 @@ from repro_torch.train.step import (
 DATA_SIZES = tuple(2 ** i for i in range(11))
 #: the model sizes it reckons with where no data size fits
 MODEL_SIZES = (2, 4, 8, 16)
-#: what the multi-device layer still leaves out, named by the refusal: the
-#: reference's launcher has no model axis either (its make_local_mesh runs
-#: model 1), and microbatches over data ranks are refused by the step
+#: what this entry point leaves out, named by the refusal: the reference's
+#: launcher has no model axis either (its make_local_mesh runs model 1)
 PART_3 = ("launch.train on a (data, model) mesh is part 3's last step, beyond "
           "the reference's launcher (it runs model 1): a --model axis here is "
           "not ported (the step, repro_torch.train.step, runs any (data, model) "
           "mesh: see scripts/tp_across_cards.py; python -m "
-          "repro_torch.launch.dryrun reckons the production meshes), nor are "
-          "microbatches that span data ranks (ROADMAP A7.3)")
+          "repro_torch.launch.dryrun reckons the production meshes)")
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -105,7 +108,7 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict]:
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
-        _refuse_unless_fits(cfg, dev, local_world())
+        _refuse_unless_fits(cfg, dev, local_world(), args.n_micro)
     started = not dist.is_initialized()
     mesh = make_local_mesh(device=dev)
     try:
@@ -115,39 +118,42 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict]:
             dist.destroy_process_group()
 
 
-def _refuse_unless_fits(cfg, dev: torch.device, data: int) -> None:
+def _refuse_unless_fits(cfg, dev: torch.device, data: int, n_micro: int = 1) -> None:
     """Exits, naming the memory, if training ``cfg`` over ``data`` ranks
-    does not fit one card; before anything is allocated."""
-    need = train_memory_gb(cfg, data)
+    (``n_micro`` microbatches a step) does not fit one card; before
+    anything is allocated."""
+    need = train_memory_gb(cfg, data, n_micro=n_micro)
     have = torch.cuda.get_device_properties(dev).total_memory / 1e9
     if need["total_gb"] <= have:
         return
     fits = next((n for n in DATA_SIZES if n > data
-                 and train_memory_gb(cfg, n)["total_gb"] <= have), None)
+                 and train_memory_gb(cfg, n, n_micro=n_micro)["total_gb"] <= have), None)
     if fits:
         remedy = (f"it fits at a data size of {fits} (torchrun --nproc-per-node "
                   f"{fits}, one card a rank)")
     else:
         remedy = (f"no data size fits (the replicated fp32 parameters and "
                   f"gradients alone are {need['replicated_gb']:.1f} GB); "
-                  f"{_tensor_parallel_fit(cfg, have)}; {PART_3}")
+                  f"{_tensor_parallel_fit(cfg, have, n_micro)}; {PART_3}")
+    accumulator = (f", {need['accumulator_gb']:.1f} GB of the microbatches' "
+                   f"gradient sum" if n_micro > 1 else "")
     raise SystemExit(
         f"{cfg.name}: training needs ~{need['total_gb']:.1f} GB a device at a "
         f"data size of {data} ({need['state_gb']:.1f} GB of fp32 state for "
         f"{cfg.param_count():,} parameters, {need['update_gb']:.1f} GB of "
         f"optimizer temporaries, {need['activation_gb']:.1f} GB of "
-        f"activations); the card has {have:.1f} GB; {remedy}")
+        f"activations{accumulator}); the card has {have:.1f} GB; {remedy}")
 
 
-def _tensor_parallel_fit(cfg, have: float) -> str:
+def _tensor_parallel_fit(cfg, have: float, n_micro: int = 1) -> str:
     """The fewest cards whose (data, model) mesh fits ``cfg`` (the smallest
     model axis first), or that none of MODEL_SIZES does."""
     meshes = sorted(((d * m, m, d) for m in MODEL_SIZES for d in DATA_SIZES
-                     if train_memory_gb(cfg, d, m)["total_gb"] <= have))
+                     if train_memory_gb(cfg, d, m, n_micro)["total_gb"] <= have))
     if not meshes:
         return f"no (data, model) mesh up to model {MODEL_SIZES[-1]} fits"
     cards, m, d = meshes[0]
-    gb = train_memory_gb(cfg, d, m)["total_gb"]
+    gb = train_memory_gb(cfg, d, m, n_micro)["total_gb"]
     return (f"tensor parallelism fits it on {cards} cards at (data {d}, model "
             f"{m}), ~{gb:.1f} GB a device")
 

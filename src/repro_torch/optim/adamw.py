@@ -148,8 +148,8 @@ def value_and_grad(loss_fn: Callable, params: Pytree, batch: Any
 def accumulate_grads(loss_fn: Callable, params: Pytree, batches: dict[str, torch.Tensor],
                      n_micro: int) -> tuple[Pytree, torch.Tensor, dict[str, torch.Tensor]]:
     """Over ``n_micro`` microbatches (leading axis of ``batches``): the mean
-    of the grads (summed in fp32), the mean loss and the last microbatch's
-    aux."""
+    of the grads (summed in fp32, in place: one fp32 tree beside each
+    microbatch's grads), the mean loss and the last microbatch's aux."""
     total = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                            device=x.device), params)
     loss_sum = 0.0
@@ -157,9 +157,10 @@ def accumulate_grads(loss_fn: Callable, params: Pytree, batches: dict[str, torch
     for i in range(n_micro):
         (loss, aux), g = value_and_grad(
             loss_fn, params, {k: v[i] for k, v in batches.items()})
-        total = tree_map(torch.add, total, g)
+        tree_map(torch.Tensor.add_, total, g)
+        del g
         loss_sum = loss_sum + loss
-    return tree_map(lambda g: g / n_micro, total), loss_sum / n_micro, aux
+    return tree_map(lambda t: t.div_(n_micro), total), loss_sum / n_micro, aux
 
 
 # ---------------------------------------------------------------------------

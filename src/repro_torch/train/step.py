@@ -30,9 +30,17 @@ all-gathers the new parameters over the data-parallel axes within each
 ``model`` slice.  With one ``model`` rank these are the data-parallel
 step's numbers, bit for bit.  ``seq_spec`` (or ``cfg.seq_shard``) shards
 the residual stream's sequence over ``model`` between blocks.
-``n_micro`` > 1 over more than one data rank (the reference's microbatch
-is a block of the global batch, not of each rank's rows) is refused: see
-:data:`STILL_REFUSED`.
+
+With ``n_micro`` = n > 1 over D > 1 data ranks, microbatch i is block i of
+the global batch of B rows, as in the reference, not a block of each
+rank's rows: each rank first takes its share of every microbatch, the
+global rows ``i·B/n + r·B/(n·D) + [0, B/(n·D))``, by an all-to-all over
+the data-parallel axes (:func:`repro_torch.distributed.context.dp_microbatches`;
+B must divide by n·D).  Each microbatch is then a data-parallel step of
+its own on the ranks' shares (the label count, the MoE statistics, the
+dispatch groups and capacity drops are the microbatch's), and the metrics
+are the reference's: the mean loss, the last microbatch's aux.  With one
+data rank, or n = 1, nothing moves.
 
 :func:`train_memory_gb` reckons what a train state and one step need on
 each device of a (data, model) mesh.
@@ -56,11 +64,6 @@ from repro_torch.optim.adamw import (
     value_and_grad,
 )
 from repro_torch.tree import tree_leaves, tree_map
-
-#: what the multi-device layer still leaves out, named by refusals
-STILL_REFUSED = ("microbatches that span data ranks (ROADMAP A7.3), which "
-                 "are not ported yet")
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
@@ -104,8 +107,9 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
     def grads_of(params, batch):
         if step_cfg.n_micro > 1:
             n = step_cfg.n_micro
-            micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
+            # under a mesh each rank's share of every microbatch; else a
+            # reshape (and with one data rank, the same reshape)
+            micro = {k: mesh_ctx.dp_microbatches(v, n) for k, v in batch.items()}
             grads, loss, aux = accumulate_grads(_loss, params, micro, n)
             return (loss, aux), grads
         return value_and_grad(_loss, params, batch)
@@ -125,14 +129,17 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
 
     def _dp_step(state, batch):
         mesh = state["step"].device_mesh
-        if step_cfg.n_micro > 1 and mesh_ctx.dp_size(mesh) > 1:
-            raise NotImplementedError(
-                f"n_micro={step_cfg.n_micro} over {mesh_ctx.dp_size(mesh)} data "
-                "ranks: the reference's microbatch is a block of the global "
-                f"batch, which spans ranks; {STILL_REFUSED}")
+        batch = tree_map(shd.local, batch)
+        n, d = step_cfg.n_micro, mesh_ctx.dp_size(mesh)
+        rows = d * next(iter(batch.values())).shape[0]
+        if n > 1 and rows % (n * d):
+            raise ValueError(
+                f"a global batch of {rows} rows does not split into n_micro={n} "
+                f"microbatches over {d} data ranks: it must divide by n_micro x "
+                f"data ranks = {n * d}")
         with mesh_ctx.set_mesh(mesh):
             params = tree_map(shd.local, state["params"])
-            (loss, aux), grads = grads_of(params, tree_map(shd.local, batch))
+            (loss, aux), grads = grads_of(params, batch)
             for g in tree_leaves(grads):
                 mesh_ctx.dp_all_reduce(g)
             shares = {"loss": loss, **aux}
@@ -252,8 +259,12 @@ SHARDED_BYTES = 12
 #: time: counted against the largest leaf
 UPDATE_TEMPORARIES = 5
 #: a step's activations with full remat: one layer's recompute at a time,
-#: the residual stream at every layer, the logits with their gradient
+#: the residual stream at every layer, the logits with their gradient (an
+#: upper bound at any ``n_micro``: a microbatch's are fewer)
 ACTIVATION_GB = 8.0
+#: bytes a parameter holds in ``accumulate_grads``' fp32 sum of the
+#: microbatches' gradients, beside each microbatch's (``n_micro`` > 1)
+ACCUMULATOR_BYTES = 4
 
 
 def largest_leaf(cfg: ArchConfig) -> int:
@@ -287,18 +298,20 @@ def params_per_device(cfg: ArchConfig, model: int = 1) -> float:
                      for leaf, spec in zip(tree_leaves(params), shd.spec_leaves(specs))))
 
 
-def train_memory_gb(cfg: ArchConfig, data: int = 1, model: int = 1
-                    ) -> dict[str, float]:
+def train_memory_gb(cfg: ArchConfig, data: int = 1, model: int = 1,
+                    n_micro: int = 1) -> dict[str, float]:
     """GB that training ``cfg`` on a (``data``, ``model``) mesh needs on each
     device, reckoned before anything is allocated: the state
     (REPLICATED_BYTES a parameter the device holds, plus SHARDED_BYTES of
     each over ``data``), AdamW's fp32 temporaries of the largest leaf's
-    shard, the activations, and their total; and ``replicated_gb``, the
-    part no data size divides."""
+    shard, the activations, with ``n_micro`` > 1 the gradients' fp32 sum
+    (ACCUMULATOR_BYTES a parameter the device holds), and their total; and
+    ``replicated_gb``, the part no data size divides."""
     n = params_per_device(cfg, model)
-    replicated = REPLICATED_BYTES * n / 1e9
-    out = {"state_gb": replicated + SHARDED_BYTES * n / data / 1e9,
+    replicated = (REPLICATED_BYTES + (ACCUMULATOR_BYTES if n_micro > 1 else 0)) * n / 1e9
+    out = {"state_gb": REPLICATED_BYTES * n / 1e9 + SHARDED_BYTES * n / data / 1e9,
            "update_gb": (UPDATE_TEMPORARIES * 4 * largest_leaf(cfg)
                          / data / model / 1e9),
-           "activation_gb": ACTIVATION_GB}
+           "activation_gb": ACTIVATION_GB,
+           "accumulator_gb": ACCUMULATOR_BYTES * n / 1e9 if n_micro > 1 else 0.0}
     return {**out, "total_gb": sum(out.values()), "replicated_gb": replicated}

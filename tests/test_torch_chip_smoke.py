@@ -1,6 +1,7 @@
 """The card script's arithmetic on the CPU: its bound, its error gates and
 its profile summary (the script itself runs only on a card)."""
 import importlib.util
+import math
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -31,9 +32,11 @@ def test_mask_pairs_counts_the_allowed_pairs(s, causal, window):
 
 def test_fa_cases_cover_every_head_dim():
     """The card script holds the kernel against its plain version at every
-    head dim it is compiled for."""
+    head dim it is compiled for, and at h2o-danube-1.8b's shape past its
+    window of 4096 (D 80, causal, 4608 positions)."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     assert {case[5] for case in cs.FA_CASES} >= set(HEAD_DIMS)
+    assert ("h2o-danube-1.8b past window", 1, 4608, 32, 8, 80, True, 4096) in cs.FA_CASES
 
 
 def test_gemma3_prefill_bound():
@@ -448,6 +451,70 @@ def test_fa_bwd_cases_cover_every_head_dim():
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     assert {case[5] for case in cs.FA_BWD_CASES} >= set(HEAD_DIMS)
     assert any(case[8] for case in cs.FA_BWD_CASES)   # rows without keys
+    assert (("h2o-danube-1.8b past window", 1, 4608, 32, 8, 80, True, 4096, False)
+            in cs.FA_BWD_CASES)
+
+
+def test_dense_archs_are_the_ported_dense_configs_and_what_one_card_trains():
+    """The three dense configs that the card serves whole are ported, with
+    the attention the kernels take (D 256 MHA, D 80 with a window of 4096
+    that DANUBE_WINDOW_CHECK_SEQ passes, D 128 MHA); h2o-danube-1.8b's
+    training fits the budget by launch.train's reckoning, gemma-7b's and
+    deepseek-7b's do not fit one card."""
+    from repro_torch.configs import PORTED, get
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.train.step import train_memory_gb
+    assert set(cs.DENSE_ARCHS) <= set(PORTED)
+    shapes = {a: (get(a).n_heads, get(a).n_kv_heads, get(a).head_dim, get(a).window)
+              for a in cs.DENSE_ARCHS}
+    assert shapes == {"gemma-7b": (16, 16, 256, 0), "h2o-danube-1.8b": (32, 8, 80, 4096),
+                      "deepseek-7b": (32, 32, 128, 0)}
+    assert {s[2] for s in shapes.values()} <= set(HEAD_DIMS)
+    assert cs.DANUBE_WINDOW_CHECK_SEQ > get("h2o-danube-1.8b").window
+    danube = cs.train_reckoning_gb(get("h2o-danube-1.8b"), 24)
+    assert danube == train_memory_gb(get("h2o-danube-1.8b"))
+    assert danube["total_gb"] < cs.TRAIN_BUDGET_GB
+    for arch in cs.REFUSED_ON_ONE_CARD:
+        assert train_memory_gb(get(arch))["total_gb"] > 80
+
+
+def test_ssd_consistency_cuts_and_their_bounds():
+    """The SSM paths' prefill-against-decode checks run on cuts of the
+    model: mamba2-780m's first 12 SSM layers, hymba-1.5b's first 8 (one
+    hyb_g, seven hyb_l); the bounds take the sqrt depth scaling."""
+    from repro_torch.configs import get
+    mamba = cs.cut_depth(get("mamba2-780m"), cs.SSD_CONSISTENCY_LAYERS["mamba2-780m"])
+    hymba = cs.cut_depth(get("hymba-1.5b"), cs.SSD_CONSISTENCY_LAYERS["hymba-1.5b"])
+    assert mamba.layer_types == ("ssm",) * 12
+    assert tuple(hymba.layer_types) == ("hyb_g",) + ("hyb_l",) * 7
+    assert hymba.n_layers == 8 and mamba.n_layers == 12
+    want = torch.from_numpy(np.random.default_rng(1).normal(size=(6, 50))).float()
+    out = cs.logits_agreement(want.clone(), want, 8, depth_scale=math.sqrt(8 / 26))
+    assert out["bound_max_rel"] == pytest.approx(0.25 * math.sqrt(8 / 26))
+    assert out["bound_mean_rel"] == pytest.approx(0.05 * math.sqrt(8 / 26))
+
+
+def test_dryrun_cells_hold_the_train_cell_at_two_microbatches():
+    """dryrun_vs_card's (d) is (a), gemma3-1b's train step at 4 x 2048 on
+    one card, at n_micro 2; every other cell runs one microbatch."""
+    cells = {c[0] + " " + c[2][0]: c for c in cs.DRYRUN_CELLS}
+    a, d = cells["a train_4x2048"], cells["d train_4x2048"]
+    assert d[1:4] == a[1:4] and (a[4], d[4]) == (1, 2)
+    assert [c[4] for c in cs.DRYRUN_CELLS].count(2) == 1
+
+
+def test_train_reckoning_counts_the_microbatches_gradient_sum():
+    """With n_micro > 1 a device also holds the fp32 sum of the
+    microbatches' gradients (4 bytes a parameter it holds); at n_micro 1
+    nothing changes."""
+    from repro_torch.configs import get
+    from repro_torch.train.step import train_memory_gb
+    cfg = get("gemma3-1b")
+    one, two = train_memory_gb(cfg, 2), train_memory_gb(cfg, 2, n_micro=2)
+    assert one["accumulator_gb"] == 0.0
+    assert two["accumulator_gb"] == pytest.approx(4 * cfg.param_count() / 1e9)
+    assert two["total_gb"] == pytest.approx(one["total_gb"] + two["accumulator_gb"])
+    assert two["replicated_gb"] == pytest.approx(12 * cfg.param_count() / 1e9)
 
 
 def test_attention_backward_bound():
@@ -957,3 +1024,24 @@ def test_bounds_unchanged_by_the_shared_cost_formulas(name, args, want):
     """chip_smoke.py's bounds now read repro_torch.kernels.costs (the dry
     run's counter reads the same formulas): the same numbers as before."""
     assert getattr(cs, name)(*args) == pytest.approx(want, rel=1e-12)
+
+
+def test_dense_consistency_holds_a_model_to_its_own_rounding_past_section_2():
+    """Within §2's bounds the check is §2's; where only the max bound fails
+    it passes when the kernels' prefill is no farther from the fp32 logits
+    than DENSE_FP32_REF times the plain decode (max and mean), and fails
+    when the prefill is the farther one."""
+    rng = np.random.default_rng(3)
+    ref = torch.from_numpy(rng.normal(size=(8, 200))).float()
+    noise = torch.from_numpy(rng.normal(size=(8, 200))).float()
+    close = cs.consistency_or_own_rounding(ref + 0.001 * noise, ref - 0.001 * noise, ref, 26)
+    assert close["within_bounds"] and close["held_to"] == "section 2"
+    spike = torch.zeros_like(ref)
+    spike[0, 0] = 0.4                       # one logit past the max bound
+    other = torch.from_numpy(rng.normal(size=(8, 200))).float()
+    own = cs.consistency_or_own_rounding(ref + spike + 0.001 * other, ref - 0.001 * noise,
+                                         ref, 26)
+    assert not own["within_section_2"] and own["within_bounds"]
+    assert own["held_to"] == "own rounding"
+    worse = cs.consistency_or_own_rounding(ref, ref + spike, ref, 26)
+    assert not worse["within_bounds"]

@@ -15,7 +15,9 @@ subprocess:
   placeholder devices);
 * the collective bytes the counter reads under the fake group at (data,
   model) = (1, 2) equal those it reads on a real two-rank gloo run of the
-  same step (tests/torch_mesh_worker.py).
+  same step (tests/torch_mesh_worker.py);
+* at ``n_micro`` 2 over two data ranks the counter sees the microbatches'
+  all-to-all on ``data``, the FLOPs stay and the peak falls.
 
 In this process: a kernel's meta route refuses what its kernel refuses
 and reports the cost formula's numbers, and the strict counter raises on
@@ -244,6 +246,43 @@ print(json.dumps(out))
     for cell, want, got in zip(CELLS, fake, gloo[0][0]):
         assert got["collectives"] == want, cell
         assert sum(v["bytes"] for v in want.values()) > 0, cell
+
+
+#: a smoke train cell whose activations outweigh the fp32 sum of the
+#: microbatches' gradients, as at full size: (name, seq, batch, kind)
+MICRO_CELL = ("train_micro", 256, 8, "train")
+
+
+def test_n_micro_moves_each_ranks_share_in_the_dry_run():
+    """run_cell and build_step at n_micro = 2 on gemma3-1b's smoke train
+    cell at (data 2, model 1) on the meta device: the counter reports the
+    microbatches' all-to-all on data, (D - 1) / D of the rank's batch
+    (tokens and labels, int32), which n_micro = 1 has none of; the FLOPs
+    are within 1% of n_micro = 1's; the live-bytes peak is lower (a
+    microbatch's activations)."""
+    code = """
+import json
+from repro_torch.launch import dryrun
+from repro_torch.models.config import ShapeConfig
+out = {}
+for n in (1, 2):
+    rec = dryrun.run_cell("gemma3-1b", ShapeConfig(*%r), False, mesh_shape=(2, 1),
+                          smoke=True, ranks=(0,), n_micro=n)
+    out[n] = {"by_axis": rec["collectives_by_axis"], "flops": rec["hlo_flops_per_device"],
+              "peak": rec["memory"]["peak_bytes"], "count": rec["collectives"]["all-to-all"]}
+print(json.dumps(out))
+""" % (MICRO_CELL,)
+    got = json.loads(_python(code))
+    one, two = got["1"], got["2"]
+    _, seq, batch, _ = MICRO_CELL
+    d = 2
+    rank_batch = 2 * (batch // d) * seq * 4          # tokens and labels, int32
+    assert "all-to-all" not in one["by_axis"]["data"]
+    assert two["by_axis"]["data"]["all-to-all"] == rank_batch * (d - 1) // d
+    assert two["count"] == {"count": 2, "bytes": rank_batch * (d - 1) // d}
+    assert set(two["by_axis"]) == {"data"}
+    assert two["flops"] == pytest.approx(one["flops"], rel=1e-2)
+    assert two["peak"] < one["peak"]
 
 
 def _meta(*shape, dtype=torch.bfloat16):

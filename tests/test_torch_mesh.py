@@ -15,12 +15,21 @@ Two spawns (2 and 4 ranks) and two one-rank groups in this process cover:
   the aux losses and ``grad_norm`` after each step, the parameters after
   each step, and each rank's ZeRO-1 shards of m, v and master against the
   matching slices of the one-process tree;
+* the same at ``n_micro`` 2 (gemma3-1b, olmoe-1b-7b at ``moe_groups`` 1,
+  internvl2-26b) on global batches of 8 rows, against one process and JAX
+  at ``n_micro`` 2: microbatch i is block i of the global batch, so each
+  rank's share of it comes by an all-to-all (``dp_microbatches``, checked
+  row by row at data 2 and 4, (2, 2) and (pod 2, data 2)); the grouping in
+  which each rank splits its own rows is shown to miss the reference
+  (olmoe's load balance and drops, internvl2's label counts); ``n_micro``
+  1 posts no all-to-all, and one data rank is the reshape, bit for bit;
 * ``moe_ragged_sharded`` at (data, model) = (1, 2) and (2, 2), forward and
   gradients, against JAX's ``moe_sorted_local`` on each data shard;
 * placements: each rank's DTensor chunk is the numpy slice the spec names,
   and the in-place gather restores the whole;
 * elastic checkpoints, 1 → 2 and 2 → 1 ranks, resuming with the unbroken
-  run's loss; ``launch.train.main`` under two ranks.
+  run's loss; ``launch.train.main`` under two ranks, also at ``--n-micro``
+  2.
 
 Tolerances, fixed up front (fp32, summation order only): metrics to 2e-5
 relative (the aux losses and ``dropped`` also 1e-7 absolute); m and v to
@@ -28,7 +37,14 @@ relative (the aux losses and ``dropped`` also 1e-7 absolute); m and v to
 leaf's largest element wherever the one-process run's m has been settled
 at every step so far (above 1e-3 of its leaf's largest and above 1e-6):
 Adam moves a weight by about lr·g/(|g| + eps), so a gradient at rounding
-level, or near eps, may move it by any amount up to lr.
+level, or near eps, may move it by any amount up to lr.  At ``n_micro`` 2
+the parameters, m, v and master are held at R = max(2e-5, 4 × the case's
+own sensitivity), as tests/test_torch_tp.py holds its cases: the largest
+relative change of any m or v of the one-process run after a one-ulp
+perturbation of its starting state, over three draws (gemma3-1b 9.7e-5,
+olmoe-1b-7b 4.9e-5, internvl2-26b 1.7e-5: two microbatches carry fp32
+rounding past 2e-5, which no summation order of the data-parallel step
+can be held to).
 """
 
 import jax
@@ -49,6 +65,7 @@ import torch_mesh_worker as worker  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.train.step import TrainStepConfig, make_train_step  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -70,28 +87,51 @@ CASES = {
                     {"moe_groups": "data"}),
     "internvl2": ("internvl2-26b", V, {}),
 }
+#: microbatches that span the data ranks, on global batches of 8 rows
+MICRO_CASES = {
+    "gemma3_micro2": ("gemma3-1b", V, {"n_micro": 2}),
+    "olmoe_g1_micro2": ("olmoe-1b-7b", {**V, "capacity_factor": 0.5},
+                        {"moe_groups": 1, "n_micro": 2}),
+    "internvl2_micro2": ("internvl2-26b", V, {"n_micro": 2}),
+}
+#: the cases whose grouping of rows into microbatches the reference's
+#: numbers tell apart (not gemma3's: every label counts, so a grouping
+#: moves only the rounding)
+GROUPING_CASES = ("olmoe_g1_micro2", "internvl2_micro2")
+ALL_CASES = {**CASES, **MICRO_CASES}
+#: dp_microbatches' cases: (n_micro, rows a rank holds of a microbatch)
+MICRO_ROWS = [(1, 2), (2, 1), (2, 3), (3, 1), (4, 2), (6, 1)]
+#: the MICRO_CASES' bound on parameters, m, v and master, relative to each
+#: leaf's largest element: R = max(RTOL, SENSITIVITY x the case's own
+#: sensitivity, _sensitivity), as tests/test_torch_tp.py bounds its cases
+SENSITIVITY = 4
 ELASTIC_ARCH = "gemma3-1b"
 RAGGED = dict(n_experts=8, top_k=2, act="silu", router_renorm=False,
               compute_dtype="float32")
 RAGGED_AUX_WEIGHT = 0.37
 
 
-def _batch(cfg, seed):
-    """A global (BATCH, SEQ) batch as numpy; internvl2's first rows carry
+def _rows(step_cfg):
+    """A case's global batch: BATCH rows a microbatch."""
+    return BATCH * step_cfg.get("n_micro", 1)
+
+
+def _batch(cfg, seed, rows=BATCH):
+    """A global (rows, SEQ) batch as numpy; internvl2's first rows carry
     more -100 labels than the others."""
     rng = np.random.default_rng(seed)
     if cfg.input_mode == "mixed":
         npatch = min(cfg.n_patches, SEQ // 2)
-        toks = rng.integers(0, cfg.vocab_size, (BATCH, SEQ - npatch))
-        labels = np.concatenate([np.full((BATCH, npatch), -100),
+        toks = rng.integers(0, cfg.vocab_size, (rows, SEQ - npatch))
+        labels = np.concatenate([np.full((rows, npatch), -100),
                                  np.roll(toks, -1, axis=1)], axis=1)
         labels[0, :24] = -100
         labels[1, 10:20] = -100
         return {"tokens": toks.astype(np.int32),
-                "patch_embeds": (rng.standard_normal((BATCH, npatch, cfg.d_model))
+                "patch_embeds": (rng.standard_normal((rows, npatch, cfg.d_model))
                                  * 0.1).astype(np.float32),
                 "labels": labels.astype(np.int32)}
-    toks = rng.integers(0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (rows, SEQ)).astype(np.int32)
     return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
 
 
@@ -127,6 +167,30 @@ def _one_process(arch, overrides, step_cfg, state, batches):
     opt = {f"{key}/{k}": v.numpy() for key in ("m", "v", "master")
            for k, v in bridge.flatten(st["opt"][key]).items()}
     return {"metrics": metrics, "params": params, "opt": opt, "settled": settled}
+
+
+def _sensitivity(arch, overrides, step_cfg, state, batches, port, draws=3):
+    """A case's own sensitivity: the largest change, relative to its leaf's
+    largest element, of any m or v of the one-process run after a one-ulp
+    perturbation (a random sign) of every float of its starting state, the
+    largest over ``draws`` draws."""
+    def ulp(rng):
+        def one(x):
+            x = np.asarray(x)
+            if x.dtype != np.float32 or not x.ndim:
+                return x
+            return (x * (1 + rng.choice([-1.0, 1.0], x.shape) * 2.0 ** -23)
+                    ).astype(np.float32)
+        return one
+
+    worst = 0.0
+    for seed in range(draws):
+        moved = _one_process(arch, overrides, step_cfg,
+                             tree_map(ulp(np.random.default_rng(seed)), state), batches)
+        worst = max([worst] + [np.abs(moved["opt"][k] - v).max() / max(np.abs(v).max(), 1e-30)
+                               for k, v in port["opt"].items()
+                               if k.split("/")[0] in ("m", "v")])
+    return worst
 
 
 def _jax(jcfg, jopt, step_cfg, state, batches):
@@ -172,9 +236,9 @@ def runs(tmp_path_factory):
     """Every multi-rank run of the module, and the references, once."""
     tmp = tmp_path_factory.mktemp("mesh")
     refs, dp_jobs = {}, {data: [] for data in DATA_SIZES}
-    for name, (arch, overrides, step_cfg) in CASES.items():
+    for name, (arch, overrides, step_cfg) in ALL_CASES.items():
         cfg = get_smoke(arch, **overrides)
-        batches = [_batch(cfg, seed) for seed in range(STEPS)]
+        batches = [_batch(cfg, seed, _rows(step_cfg)) for seed in range(STEPS)]
         jcfg, jopt, state = _state(arch, overrides)
         for data in DATA_SIZES:
             sc = _step_cfg(step_cfg, data)
@@ -184,6 +248,9 @@ def runs(tmp_path_factory):
                 refs[ref_key] = {
                     "port": _one_process(arch, overrides, sc, state, batches),
                     "jax": _jax(jcfg, jopt, sc, state, batches)}
+                if name in MICRO_CASES:
+                    refs[ref_key]["sensitivity"] = _sensitivity(
+                        arch, overrides, sc, state, batches, refs[ref_key]["port"])
             dp_jobs[data].append({"key": key, "arch": arch,
                                   "overrides": {"compute_dtype": "float32", **overrides},
                                   "step_cfg": sc, "state": state, "batches": batches})
@@ -214,6 +281,11 @@ def runs(tmp_path_factory):
             "--batch", "4", "--seq", "16", "--log-every", "1",
             "--ckpt-dir", str(tmp / "launch")])),
         Job("refusals", {}),
+        Job("microbatches", {"cases": MICRO_ROWS}),
+        Job("step_collectives", {"n_micros": [1, 2]}),
+        Job("launch_train", dict(argv=[
+            "--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--steps", "2",
+            "--batch", "4", "--seq", "16", "--log-every", "1", "--n-micro", "2"])),
     ], tmp / "two")
     elastic["to_1"] = _in_one_rank_group(lambda mesh: worker.job_elastic(
         mesh, ELASTIC_ARCH, None, str(two_dir), None, e_batches[2:]), tmp)
@@ -225,17 +297,22 @@ def runs(tmp_path_factory):
         Job("ragged", ragged_args, (2, 2)),
         Job("placements", {"arrays": arrays[False]}, (2, 2)),
         Job("placements", {"arrays": arrays[True]}, (2, 2, 1), ("pod", "data", "model")),
+        Job("microbatches", {"cases": MICRO_ROWS}),
+        Job("microbatches", {"cases": MICRO_ROWS}, (2, 2)),
+        Job("microbatches", {"cases": MICRO_ROWS}, (2, 2, 1), ("pod", "data", "model")),
     ], tmp / "four")
     dp = {}
     for data, results in ((2, two), (4, four)):
         for i, case in enumerate(dp_jobs[data]):
             dp[case["key"]] = [r[0][i] for r in results]
     return {"dp": dp, "refs": refs, "two": two, "four": four, "elastic": elastic,
-            "arrays": arrays, "ragged_inputs": (x, rparams, cot)}
+            "arrays": arrays, "ragged_inputs": (x, rparams, cot),
+            "batches": {name: [_batch(get_smoke(a, **o), seed, _rows(sc)) for seed in range(STEPS)]
+                        for name, (a, o, sc) in ALL_CASES.items()}}
 
 
 def _ref(runs, name, data):
-    sc = _step_cfg(CASES[name][2], data)
+    sc = _step_cfg(ALL_CASES[name][2], data)
     return runs["refs"][(name, sc.get("moe_groups", 1))]
 
 
@@ -252,6 +329,11 @@ def _assert_metrics(got, want, keys):
 def test_dp_metrics_match_one_process_and_jax(runs, name, data):
     """Every step's loss, ce, aux losses, grad_norm and lr, on every rank,
     against one process and JAX on the concatenated batch."""
+    _metrics_match(runs, name, data)
+
+
+def _metrics_match(runs, name, data):
+    """test_dp_metrics_match_one_process_and_jax's checks."""
     ref = _ref(runs, name, data)
     for rank in runs["dp"][(name, data)]:
         assert rank["step"] == STEPS
@@ -268,6 +350,34 @@ def test_dp_params_and_zero1_shards_match_one_process(runs, name, data):
     """The replicated parameters after every step (the same bits on every
     rank), and each rank's m, v and master shard against the matching slice
     of the one-process tree; the shards of a large leaf really split."""
+    _params_and_shards_match(runs, name, data, RTOL)
+
+
+@pytest.mark.parametrize("data", DATA_SIZES)
+@pytest.mark.parametrize("name", MICRO_CASES)
+def test_dp_micro_metrics_match_one_process_and_jax(runs, name, data):
+    """At n_micro = 2: every step's loss, ce, aux losses (the last
+    microbatch's), grad_norm and lr, on every rank, within RTOL of one
+    process and of JAX's make_train_step(n_micro=2) on the global batch."""
+    _metrics_match(runs, name, data)
+
+
+@pytest.mark.parametrize("data", DATA_SIZES)
+@pytest.mark.parametrize("name", MICRO_CASES)
+def test_dp_micro_params_and_zero1_shards_match_one_process(runs, name, data):
+    """At n_micro = 2: the parameters after every step (the same bits on
+    every rank) and each rank's m, v and master shards against the
+    one-process tree, within R = max(RTOL, SENSITIVITY x the case's own
+    sensitivity) of each leaf's largest element."""
+    refs = _ref(runs, name, data)
+    rel = max(RTOL, SENSITIVITY * refs["sensitivity"])
+    _params_and_shards_match(runs, name, data, rel)
+
+
+def _params_and_shards_match(runs, name, data, rel):
+    """The parameters' and the ZeRO-1 shards' checks of
+    test_dp_params_and_zero1_shards_match_one_process, relative to each
+    leaf's largest element at ``rel``."""
     ref = _ref(runs, name, data)["port"]
     ranks = runs["dp"][(name, data)]
     split = 0
@@ -278,7 +388,7 @@ def test_dp_params_and_zero1_shards_match_one_process(runs, name, data):
                 got = rank["params"][step][key]
                 np.testing.assert_array_equal(got, ranks[0]["params"][step][key])
                 err = np.abs(got - want)[settled[key]]
-                assert err.max(initial=0) <= RTOL * np.abs(want).max(), (key, step)
+                assert err.max(initial=0) <= rel * np.abs(want).max(), (key, step)
         for key, (local, bounds) in rank["shards"].items():
             part, path = key.split("/", 1)
             sl = tuple(slice(a, b) for a, b in bounds)
@@ -289,7 +399,7 @@ def test_dp_params_and_zero1_shards_match_one_process(runs, name, data):
             err = np.abs(local - want)
             if part == "master":
                 err = err[ref["settled"][-1][path][sl]]
-            assert err.max(initial=0) <= RTOL * scale, key
+            assert err.max(initial=0) <= rel * scale, key
     assert split > 0
 
 
@@ -444,18 +554,157 @@ def test_launch_train_reckons_each_device_with_the_data_size(monkeypatch, arch, 
 
 
 def test_dp_step_refuses_what_part_2_covers(runs):
-    """What the mesh step still refuses after tensor parallelism: n_micro >
-    1 over several data ranks (the reference's microbatch is a block of the
-    global batch; ROADMAP A7.3), naming it, never silently different
-    numbers; and a sequence-parallel spec over another axis than model."""
-    for rank in runs["two"]:
-        message = rank[5]["n_micro"]
-        assert message is not None and "n_micro=2 over 2 data ranks" in message
-        assert "A7.3" in message
+    """What the mesh step once refused it now runs: n_micro = 2 over two
+    data ranks (the reference's microbatch is a block of the global batch,
+    which spans ranks) gives one process's numbers on the global batch,
+    step by step on every rank; a sequence-parallel spec over another axis
+    than model is still refused."""
     from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import init_train_state
+    cfg = get_smoke("gemma3-1b", compute_dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    state = init_train_state(cfg, worker.optimizer(), gen)
+    step = make_train_step(cfg, worker.optimizer(), TrainStepConfig(n_micro=2))
+    want = []
+    for batch in worker.refusal_batches(cfg):
+        state, m = step(state, worker.to_torch(batch))
+        want.append({k: float(v) for k, v in m.items()})
+    for rank in runs["two"]:
+        got = rank[5]["n_micro"]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert set(g) == set(w)
+            _assert_metrics(g, w, g)
     with pytest.raises(NotImplementedError, match="seq_spec"):
         make_train_step(get_smoke("gemma3-1b"), AdamW(schedule=cosine_schedule(1e-3, 2, 10)),
                         TrainStepConfig(seq_spec="data"))
+
+
+def test_dp_step_refuses_a_batch_that_does_not_split(runs):
+    """A global batch of 4 rows at n_micro = 4 over two data ranks (4 is not
+    a multiple of 4 x 2): a ValueError naming the rows, n_micro and the
+    data ranks, on every rank, before any collective."""
+    for rank in runs["two"]:
+        message = rank[5]["indivisible"]
+        assert message is not None
+        assert "global batch of 4 rows" in message and "n_micro=4" in message
+        assert "over 2 data ranks" in message and "= 8" in message
+
+
+def _micro_results(runs, mesh):
+    """dp_microbatches' results of every rank on ``mesh``."""
+    spawn, job = {"2": ("two", 6), "4": ("four", 4), "2x2": ("four", 5),
+                  "2x2x1": ("four", 6)}[mesh]
+    return [r[job] for r in runs[spawn]]
+
+
+@pytest.mark.parametrize("mesh", ["2", "4", "2x2", "2x2x1"])
+def test_dp_microbatches_give_each_rank_its_share_of_the_reference_blocks(runs, mesh):
+    """Each rank's share of microbatch i is the global rows i·B/n +
+    r·B/(n·D) + [0, B/(n·D)) of the reference's reshape, at every (n, rows)
+    of MICRO_ROWS, on data 2 and 4, (data 2, model 2) and (pod 2, data 2);
+    the bytes reported are the rows that leave the rank, on the axes that
+    move them (no all-to-all at n = 1: the reshape)."""
+    for rank in _micro_results(runs, mesh):
+        for (n, c), res in zip(MICRO_ROWS, rank):
+            d, r = res["dp"], res["rank"]
+            rows = n * d * c
+            whole = np.arange(rows * 3, dtype=np.float32).reshape(rows, 3)
+            want = np.stack([whole[i * (rows // n) + r * c:i * (rows // n) + (r + 1) * c]
+                             for i in range(n)])
+            np.testing.assert_array_equal(res["got"], want)
+            if n == 1:
+                assert res["sent"] == {}, (n, c)
+                continue
+            # over one axis: a piece leaves its rank unless it is that
+            # rank's own share; no all-to-all where none leaves any rank
+            leave = sum((r * n + s) % d != r for s in range(n)) * c * 3 * 4
+            moves = any((q * n + s) % d != q for q in range(d) for s in range(n))
+            if mesh != "2x2x1":
+                assert res["sent"] == ({"all-to-all data": leave} if moves else {}), (n, c)
+            else:
+                assert set(res["sent"]) <= {"all-to-all data", "all-to-all pod"}
+                assert sum(res["sent"].values()) >= leave
+
+
+def test_n_micro_one_posts_no_all_to_all(runs):
+    """The mesh step at n_micro = 1 over two data ranks moves no rows (its
+    collectives are the all-reduces and gathers of the step as it was); at
+    n_micro = 2 it adds an all-to-all on data for each batch leaf (tokens
+    and labels, int64), each of half a rank's rows (one of its two rows of
+    8), and the second microbatch's label count."""
+    for rank in runs["two"]:
+        one, two = rank[7]
+        assert not any(k.startswith("all-to-all") for k in one["collectives"])
+        extra = {k: [a - b for a, b in zip(v, one["collectives"].get(k, [0, 0]))]
+                 for k, v in two["collectives"].items()}
+        assert extra.pop("all-to-all data") == [2, 2 * 8 * 8]
+        assert extra == {k: [0, 0] for k in extra} | {"all-reduce data": [1, 8]}
+
+
+def test_one_data_rank_n_micro_is_the_reshape_bit_for_bit(tmp_path):
+    """On a one-rank mesh the step at n_micro = 2 is the step without a mesh
+    at n_micro = 2, bit for bit: nothing moves, the microbatches are the
+    reshape of the batch."""
+    arch, overrides, step_cfg = MICRO_CASES["gemma3_micro2"]
+    cfg = get_smoke(arch, **overrides)
+    _, _, state = _state(arch, overrides)
+    batches = [_batch(cfg, seed, _rows(step_cfg)) for seed in range(2)]
+    port = _one_process(arch, overrides, step_cfg, state, batches)
+    job = {"arch": arch, "overrides": {"compute_dtype": "float32", **overrides},
+           "step_cfg": step_cfg, "state": state, "batches": batches}
+    got = _in_one_rank_group(lambda mesh: worker.job_dp(mesh, [job])[0], tmp_path)
+    for step in range(2):
+        assert got["metrics"][step] == port["metrics"][step]
+        for path, want in port["params"][step].items():
+            np.testing.assert_array_equal(got["params"][step][path], want)
+
+
+def _naive_order(rows, data, n):
+    """The rows in the order that makes one process's microbatches the
+    grouping in which each of ``data`` ranks splits its own block into
+    ``n``: microbatch s is every rank's s-th piece."""
+    b, c = rows // data, rows // data // n
+    return np.concatenate([np.arange(r * b + s * c, r * b + (s + 1) * c)
+                           for s in range(n) for r in range(data)])
+
+
+@pytest.mark.parametrize("data", DATA_SIZES)
+@pytest.mark.parametrize("name", GROUPING_CASES)
+def test_the_per_rank_grouping_misses_the_reference(runs, name, data):
+    """One process at n_micro = 2 on the global batch's rows permuted so
+    that each microbatch is every rank's own piece (each rank splitting its
+    rows): its first step misses the reference by more than RTOL (olmoe:
+    the last microbatch's load balance and drops, from other tokens;
+    internvl2: the microbatches' label counts), where the data-parallel
+    step at n_micro = 2 meets it; so the parity tests tell the two
+    groupings apart."""
+    arch, overrides, step_cfg = MICRO_CASES[name]
+    batch = runs["batches"][name][0]
+    rows = next(iter(batch.values())).shape[0]
+    order = _naive_order(rows, data, step_cfg["n_micro"])
+    naive = {k: v[order] for k, v in batch.items()}
+    _, _, state = _state(arch, overrides)
+    got = _one_process(arch, overrides, step_cfg, state, [naive])["metrics"][0]
+    want = _ref(runs, name, data)["jax"][0]
+    missed = {k: abs(got[k] - want[k]) / max(abs(want[k]), AUX_ATOL)
+              for k in want if k != "lr"}
+    assert max(missed.values()) > 10 * RTOL, missed
+    key = "load_balance" if name.startswith("olmoe") else "ce"
+    assert missed[key] > RTOL, missed
+    for rank in runs["dp"][(name, data)]:
+        _assert_metrics(rank["metrics"][0], want, want)
+
+
+def test_launch_train_runs_n_micro_under_two_ranks(runs):
+    """launch.train.main at --n-micro 2 in two ranks: both ranks finish the
+    two steps with the same finite loss."""
+    outs = [rank[8] for rank in runs["two"]]
+    for out in outs:
+        assert out["steps_run"] == 2 and out["group_alive"] and out["world"] == 2
+        assert np.isfinite(out["metrics"]["loss"])
+        assert out["metrics"]["loss"] == outs[0]["metrics"]["loss"]
 
 
 def test_meshes_refuse_a_world_of_another_size(monkeypatch):

@@ -31,6 +31,8 @@ gemma3-1b.  The cases set the traps of the storage layout on purpose:
 * ``seq_spec`` (the sequence over ``model``) on gemma3, mamba2, olmoe,
   hymba, both odd vocabularies, hubert and qwen2-moe, against tensor
   parallelism alone;
+* ``n_micro`` 2 at (2, 2) on gemma3-1b: each microbatch a block of the
+  global batch, each rank's share of it by an all-to-all over ``data``;
 * elastic checkpoints, (2, 2) → (1, 1) and (1, 1) → (1, 2), resuming with
   the unbroken run's loss.
 
@@ -63,7 +65,6 @@ import test_torch_mesh as dp_tests  # noqa: E402
 import torch_mesh_worker as worker  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.distributed import sharding as shd  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -93,6 +94,8 @@ CASES = {
     "gemma3_odd_vocab": ("gemma3-1b", {"vocab_size": 129}, {}, ("1x2", "2x2")),
     "hubert": ("hubert-xlarge", {}, {}, ("1x2", "2x2")),
     "qwen2_moe_shared": ("qwen2-moe-a2.7b", {}, {}, ("1x2",)),
+    # microbatches that span the two data ranks, under tensor parallelism
+    "gemma3_micro2": ("gemma3-1b", {}, {"n_micro": 2}, ("2x2",)),
 }
 #: the cases run again with the sequence over ``model``
 SEQ_CASES = ("gemma3", "mamba2", "olmoe_g1", "hymba_5_heads", "internvl2_odd_vocab",
@@ -109,31 +112,6 @@ def _batch(cfg, seed):
                            ).astype(np.float32),
                 "labels": rng.integers(0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)}
     return dp_tests._batch(cfg, seed)
-
-
-def _sensitivity(arch, overrides, step_cfg, state, batches, port):
-    """The case's own sensitivity: the largest change, relative to its
-    leaf's largest element, of any m or v of the one-process run after a
-    one-ulp perturbation (a random sign) of every float of its starting
-    state, the largest over PERTURBATIONS draws."""
-    def ulp(rng):
-        def one(x):
-            x = np.asarray(x)
-            if x.dtype != np.float32 or not x.ndim:
-                return x
-            return (x * (1 + rng.choice([-1.0, 1.0], x.shape) * 2.0 ** -23)
-                    ).astype(np.float32)
-        return one
-
-    worst = 0.0
-    for seed in range(PERTURBATIONS):
-        moved = dp_tests._one_process(arch, overrides, step_cfg,
-                                      tree_map(ulp(np.random.default_rng(seed)), state),
-                                      batches)
-        worst = max([worst] + [np.abs(moved["opt"][k] - v).max() / max(np.abs(v).max(), 1e-30)
-                               for k, v in port["opt"].items()
-                               if k.split("/")[0] in ("m", "v")])
-    return worst
 
 
 def _step_cfg(step_cfg, data, seq=False):
@@ -169,7 +147,8 @@ def runs(tmp_path_factory):
                 port = dp_tests._one_process(arch, overrides, sc, state, batches)
                 refs[ref_key] = {
                     "port": port, "jax": dp_tests._jax(jcfg, jopt, sc, state, batches),
-                    "sensitivity": _sensitivity(arch, overrides, sc, state, batches, port)}
+                    "sensitivity": dp_tests._sensitivity(arch, overrides, sc, state, batches,
+                                                         port, PERTURBATIONS)}
             for seq in (False, True):
                 if not seq or (name in SEQ_CASES and mesh in SEQ_MESHES):
                     by_mesh[mesh].append(((name, mesh, seq),

@@ -146,21 +146,89 @@ def job_tp(mesh, cases: list[dict]) -> list[dict]:
 
 
 def job_refusals(mesh) -> dict:
-    """What the mesh step still refuses: ``n_micro`` > 1 over the data
-    ranks (the message), and a seq_spec over another axis."""
+    """What the mesh step once refused and runs now: ``n_micro`` = 2 over
+    the data ranks on this rank's block of a global batch (each step's
+    metrics), and the message of a global batch that does not divide by
+    n_micro x data ranks."""
     from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
-    cfg = get_smoke("gemma3-1b")
+    cfg = get_smoke("gemma3-1b", compute_dtype="float32")
     gen = torch.Generator()
     gen.manual_seed(0)
     state = init_train_state(cfg, optimizer(), gen, mesh)
-    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int64),
-             "labels": torch.zeros((2, 8), dtype=torch.int64)}
-    out = {}
+    step = make_train_step(cfg, optimizer(), TrainStepConfig(n_micro=2))
+    with mesh_ctx.set_mesh(mesh):
+        n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+    out = {"n_micro": []}
+    for batch in refusal_batches(cfg):
+        state, m = step(state, to_torch(rank_rows(batch, i, n)))
+        out["n_micro"].append({k: float(v) for k, v in m.items()})
     try:
-        make_train_step(cfg, optimizer(), TrainStepConfig(n_micro=2))(state, batch)
-        out["n_micro"] = None
-    except NotImplementedError as e:
-        out["n_micro"] = str(e)
+        make_train_step(cfg, optimizer(), TrainStepConfig(n_micro=4))(
+            state, to_torch(rank_rows(refusal_batches(cfg)[0], i, n)))
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return out
+
+
+def refusal_batches(cfg) -> list[dict]:
+    """job_refusals' two global batches of 4 rows of 8 tokens."""
+    rng = np.random.default_rng(5)
+    out = []
+    for _ in range(2):
+        toks = rng.integers(0, cfg.vocab_size, (4, 8))
+        out.append({"tokens": toks, "labels": np.roll(toks, -1, axis=1)})
+    return out
+
+
+def job_microbatches(mesh, cases: list[tuple[int, int]]) -> list[dict]:
+    """``dp_microbatches`` on this rank's block of a global batch of row
+    numbers, for each (n, rows a rank a microbatch): what it returns, and
+    the bytes of the all-to-alls it reports by axis."""
+    out = []
+    with mesh_ctx.set_mesh(mesh):
+        d, r = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+        for n, c in cases:
+            rows = n * d * c
+            block = torch.arange(rows * 3, dtype=torch.float32).view(rows, 3)
+            sent: dict[str, int] = {}
+
+            def listen(event, kind, axis, nbytes):
+                if event == events.COLLECTIVE:
+                    sent[f"{kind} {axis}"] = sent.get(f"{kind} {axis}", 0) + nbytes
+
+            with events.counting(listen):
+                got = mesh_ctx.dp_microbatches(block[r * n * c:(r + 1) * n * c], n)
+            out.append({"got": got.numpy().copy(), "sent": sent, "rank": r, "dp": d})
+    return out
+
+
+def job_step_collectives(mesh, n_micros: list[int]) -> list[dict]:
+    """One gemma3-1b smoke step of the mesh step at each ``n_micro`` on this
+    rank's block of refusal_batches' first batch: the collectives it reports
+    (count and bytes by kind and axis) and its metrics."""
+    from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
+    cfg = get_smoke("gemma3-1b")
+    with mesh_ctx.set_mesh(mesh):
+        n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+    out = []
+    for n_micro in n_micros:
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        state = init_train_state(cfg, optimizer(), gen, mesh)
+        seen: dict[str, list[int]] = {}
+
+        def listen(event, *details):
+            if event == events.COLLECTIVE:
+                kind, axis, nbytes = details
+                entry = seen.setdefault(f"{kind} {axis}", [0, 0])
+                entry[0] += 1
+                entry[1] += nbytes
+
+        step = make_train_step(cfg, optimizer(), TrainStepConfig(n_micro=n_micro))
+        with events.counting(listen):
+            _, m = step(state, to_torch(rank_rows(refusal_batches(cfg)[0], i, n)))
+        out.append({"collectives": seen, "metrics": {k: float(v) for k, v in m.items()}})
     return out
 
 
@@ -459,6 +527,7 @@ def job_counted(mesh, cells: list[dict]) -> list[dict]:
 
 
 JOBS = {"dp": job_dp, "tp": job_tp, "refusals": job_refusals,
+        "microbatches": job_microbatches, "step_collectives": job_step_collectives,
         "collectives": job_collectives, "blocks": job_blocks, "forward": job_forward,
         "placements": job_placements, "ragged": job_ragged,
         "elastic": job_elastic, "launch_train": job_launch_train,

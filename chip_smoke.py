@@ -782,7 +782,10 @@ def cut_depth(cfg, layers: int):
 
 def active_params(cfg) -> int:
     """Parameters a token passes through: every parameter but the routed
-    experts a token does not choose (top-k of E in each MoE layer)."""
+    experts a token does not choose (top-k of E in each MoE layer; all of a
+    dense config's)."""
+    if not cfg.n_experts:
+        return cfg.param_count()
     moe_layers = sum(kind == "moe" for kind in cfg.layer_types)
     experts = moe_layers * cfg.n_experts * 3 * cfg.d_model * cfg.moe_d_ff
     return cfg.param_count() - experts * (cfg.n_experts - cfg.top_k) // cfg.n_experts
@@ -1046,6 +1049,8 @@ def forward_vs_plain_gmm(model, params, toks, layers: int, top_k: int,
 def kernel_class(name: str) -> str:
     """A coarse class of a device event in a profile, by its name."""
     low = name.lower()
+    if "nccl" in low:
+        return "nccl"
     if "flash_attention_bwd" in low:
         return "flash_attention_bwd"
     if "flash_attention" in low:
@@ -1078,6 +1083,21 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
+#: the profiler's device-side span around each NCCL collective
+#: ("nccl:all_reduce"), as long as the collective's own kernel: counted once,
+#: by the kernel
+NCCL_ANNOTATION = "nccl:"
+
+
+def nccl_device_ms(prof) -> float:
+    """Device ms of the NCCL kernels in a profile (their spans not counted
+    again)."""
+    return sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel_class(e.name) == "nccl"
+               and not e.name.startswith(NCCL_ANNOTATION))
+
+
 def summarize(prof, wall_s: float, steps: int) -> dict:
     """One profiled window: host wall time (ending in a synchronise), the
     device's busy time (union of its kernel and copy intervals) and idle
@@ -1088,7 +1108,8 @@ def summarize(prof, wall_s: float, steps: int) -> dict:
     device, launches, syncs = [], 0, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            device.append(e)
+            if not e.name.startswith(NCCL_ANNOTATION):   # its kernel is counted
+                device.append(e)
         elif e.name in LAUNCH_CALLS:
             launches += 1
         elif e.name in SYNC_CALLS:
@@ -4479,17 +4500,18 @@ def tp_against_one_rank(rank, cfg, opt, local, moments, batch, dev) -> dict:
             "replicated_leaves_equal": same, **agreement}
 
 
-def tp_gmm_entries(cfg, gen, dev, card, launches: dict) -> list[dict]:
+def tp_gmm_entries(cfg, gen, dev, card, launches: dict, model: int = 2,
+                   tokens: int = TP_BATCH * TP_SEQ) -> list[dict]:
     """The grouped GEMM's forward, dx and dw at one model rank's shape of
-    olmoe-1b-7b (every expert's f / 2 hidden units; the T·K rows of the
-    section's batch, a real routing's group sizes): a train step's calls
-    of each (3 a layer), against the plain versions, ``torch._grouped_mm``
-    and the bound."""
+    olmoe-1b-7b (every expert's f / ``model`` hidden units; the T·K rows of
+    ``tokens``, the section's batch by default, a real routing's group
+    sizes): a train step's calls of each (3 a layer), against the plain
+    versions, ``torch._grouped_mm`` and the bound."""
     from repro_torch.kernels import moe_gmm
-    local = tp_local_config(cfg)
+    local = tp_local_config(cfg, model)
     d, f, e, k = cfg.d_model, local.moe_d_ff, cfg.n_experts, cfg.top_k
-    rows = TP_BATCH * TP_SEQ * k
-    sizes = moe_group_sizes(gen, dev, TP_BATCH * TP_SEQ, e, k)
+    rows = tokens * k
+    sizes = moe_group_sizes(gen, dev, tokens, e, k)
     nonempty = int((sizes > 0).sum())
     x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
     hid = torch.randn((rows, f), generator=gen, device=dev).to(torch.bfloat16)
@@ -4529,12 +4551,12 @@ def tp_gmm_entries(cfg, gen, dev, card, launches: dict) -> list[dict]:
                               time_ms(lambda: [call() for call, _ in libs * cfg.n_layers], 5))}
         mix["bound_ms"], mix["bound_by"] = bound(sum(fl[0] for fl in floors),
                                                  sum(fl[1] for fl in floors))
-        emit("kernel_tp_mix", kernel=name, calls=len(calls), shape=[rows, d, f, e],
-             nonempty_experts=nonempty, library=no_lib or "torch._grouped_mm",
-             errors=errs, nvidia_smi=card, **mix)
+        emit("kernel_tp_mix", kernel=name, model=model, calls=len(calls),
+             shape=[rows, d, f, e], nonempty_experts=nonempty,
+             library=no_lib or "torch._grouped_mm", errors=errs, nvidia_smi=card, **mix)
         entries.append({"name": name, "route": "cuda", "source": GMM_SOURCE,
                         "replaces": replaces,
-                        "path": f"{cfg.name} TP train, model 2 ({cfg.n_layers} layers)",
+                        "path": f"{cfg.name} TP train, model {model} ({cfg.n_layers} layers)",
                         "launches": launches[name], **mix})
         del libs
     return entries
@@ -4657,6 +4679,163 @@ def tp_path(dev, card) -> list[dict]:
         emit("kernel_tp_entry", **entry, nvidia_smi=card)
     entries += tp_gmm_entries(tp_config("olmoe-1b-7b", 4), gen, dev, card,
                               launches[("b", "olmoe-1b-7b")])
+    torch.cuda.empty_cache()
+    return entries
+
+
+#: the kernels at one rank's shapes of scripts/tp_across_cards.py's train
+#: steps at (data 1, model 4) on 4 cards, a (4, 2048) batch: olmoe-1b-7b's
+#: grouped GEMMs at f 256 of 1024 (16 layers' calls) and gemma-7b's
+#: attention at 4 of its 16 query and KV heads, D 256 (28 layers' calls).
+#: Their launches are counted in a model-4 rank's train step at full depth
+#: on this card (tp4_rank_steps: rank 0 of a ``fake`` group of 4, whose
+#: collectives move nothing)
+TP4_MODEL, TP4_BATCH, TP4_SEQ = 4, 4, 2048
+TP4_GMM_ARCH, TP4_FA_ARCH = "olmoe-1b-7b", "gemma-7b"
+
+
+def tp4_fa_errors(cfg, gen, dev, b: int, s: int) -> dict:
+    """flash attention's forward (with its LSE) and backward at ``cfg``'s
+    heads on one set of (b, s) inputs against the plain versions; raises
+    past KERNEL_TOL and ROW_REL_TOL (the output) or the backward's row gate
+    (dQ, dK, dV; BWD_ROW_REL_TOL, BWD_ABS_FLOOR)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def normal(h):
+        return torch.randn((b, s, h, cfg.head_dim), generator=gen, device=dev
+                           ).to(torch.bfloat16)
+
+    q, k, v, do = (normal(h) for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads,
+                                        cfg.n_heads))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=cfg.causal, window=0)
+    want = fa.flash_attention_plain(q, k, v, causal=cfg.causal, window=0)
+    errs = {"max_abs_err": (out.float() - want.float()).abs().max().item(),
+            "max_row_rel_err": row_rel_err(out, want)}
+    if not (errs["max_abs_err"] <= KERNEL_TOL and errs["max_row_rel_err"] <= ROW_REL_TOL):
+        raise AssertionError(f"flash_attention at {cfg.name}'s rank shape: {errs} "
+                             f"(tol {KERNEL_TOL}, row-relative {ROW_REL_TOL})")
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=cfg.causal, window=0)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=cfg.causal, window=0)
+    for part, a, w in zip(("dq", "dk", "dv"), got, want):
+        errs[f"{part}_max_abs_err"], over = grad_row_err(a, w)
+        if over > 0:
+            raise AssertionError(
+                f"flash_attention_bwd at {cfg.name}'s rank shape: {part} past the row "
+                f"gate ({BWD_ROW_REL_TOL} of the row's largest |plain| + "
+                f"{BWD_ABS_FLOOR}) by {over}")
+    return errs
+
+
+def tp4_rank_step(cfg, mesh, dev, batch: int = TP4_BATCH, seq: int = TP4_SEQ) -> dict:
+    """One rank's train step as scripts/tp_across_cards.py takes it at
+    (data 1, model 4), ``init_train_state`` on ``mesh`` then one step of
+    ``make_train_step`` on a (batch, seq) batch, in this one process on a
+    ``fake`` group's mesh, whose collectives move nothing: the values are
+    not the 4-card run's, the work, the memory and the kernels a rank
+    launches are.  Returns the init's peak and seconds, the step's peak
+    and seconds and its launches, counted from 0 (peaks None off a card)."""
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import init_train_state, make_train_step
+    on_card = dev.type == "cuda"
+
+    def fresh():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def peak_gb():
+        if on_card:
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated() / 1e9
+        return None
+
+    opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TP_SEED)
+    t0 = fresh()
+    state = init_train_state(cfg, opt, gen, mesh)
+    init_peak = peak_gb()
+    init_s = time.perf_counter() - t0
+    host = SyntheticStream(cfg, batch, seq, seed=TP_SEED).batch_at(0)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    step = make_train_step(cfg, opt)
+    reset_launches()
+    t0 = fresh()
+    with mesh_ctx.set_mesh(mesh):
+        state, _ = step(state, data)
+    step_peak = peak_gb()
+    out = {"init_peak_gb": init_peak, "init_s": init_s, "step_peak_gb": step_peak,
+           "step_s": time.perf_counter() - t0,
+           "launches": launch_counts(path_kernels(cfg, backward=True))}
+    del state, data, step
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp4_rank_steps(dev, card) -> dict[str, dict]:
+    """tp4_rank_step of TP4_FA_ARCH and TP4_GMM_ARCH at full width and
+    depth, model rank 0 of a ``fake`` group of TP4_MODEL ranks on this
+    card; fails unless each step launched ``step_launches`` of its config
+    (4 cards launch the same on every rank).  Returns each arch's
+    launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import fake_mesh
+    from repro_torch.train.step import train_memory_gb
+    mesh = fake_mesh((1, TP4_MODEL), ("data", "model"), 0, device=dev.type)
+    launches = {}
+    try:
+        for arch in (TP4_FA_ARCH, TP4_GMM_ARCH):
+            cfg = get(arch)
+            got = tp4_rank_step(cfg, mesh, dev)
+            want = step_launches(cfg)
+            emit("tp4_rank_step", arch=arch, layers=cfg.n_layers, batch=TP4_BATCH,
+                 seq=TP4_SEQ, mesh={"data": 1, "model": TP4_MODEL}, backend="fake",
+                 reckoned_gb=train_memory_gb(cfg, 1, TP4_MODEL)["total_gb"],
+                 want_launches=want, nvidia_smi=card, **got)
+            if got["launches"] != want:
+                raise AssertionError(f"{arch}'s model-{TP4_MODEL} rank launched "
+                                     f"{got['launches']}, want {want}")
+            launches[arch] = got["launches"]
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def tp4_entries(dev, card, launches: dict[str, dict]) -> list[dict]:
+    """The kernels at one model-4 rank's shapes (TP4_*): flash attention's
+    forward and backward at gemma-7b's, the grouped GEMM's forward, dx and
+    dw at olmoe-1b-7b's, each held against its plain version and a train
+    step's calls timed together beside the library call and the bound;
+    ``launches`` are tp4_rank_steps' counts.  Returns their entries of the
+    kernels line."""
+    from repro_torch.configs import get
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    gemma, olmoe = get(TP4_FA_ARCH), get(TP4_GMM_ARCH)
+    local = tp_local_config(gemma, TP4_MODEL)
+    errs = tp4_fa_errors(local, gen, dev, TP4_BATCH, TP4_SEQ)
+    fa_fwd = fa_prefill_mix(local, gen, dev, TP4_BATCH, TP4_SEQ)
+    fa_bwd = fa_train_mix(local, gen, dev, TP4_BATCH, TP4_SEQ)
+    fa_launches = launches[TP4_FA_ARCH]
+    path = f"{gemma.name} TP train, model {TP4_MODEL} ({gemma.n_layers} layers)"
+    entries = [
+        {"name": "flash_attention", "path": path, "route": "cuda", "source": FA_SOURCE,
+         "replaces": FA_REPLACES, "launches": fa_launches["flash_attention"], **fa_fwd},
+        {"name": "flash_attention_bwd", "path": path, "route": "cuda", "source": FA_SOURCE,
+         "replaces": FA_REPLACES, "launches": fa_launches["flash_attention_bwd"], **fa_bwd}]
+    emit("tp4_shapes", arch=gemma.name, model=TP4_MODEL, batch=TP4_BATCH, seq=TP4_SEQ,
+         q_heads=local.n_heads, kv_heads=local.n_kv_heads, head_dim=local.head_dim,
+         calls=len(attention_windows(local)), errors=errs,
+         expert_hidden=tp_local_config(olmoe, TP4_MODEL).moe_d_ff, nvidia_smi=card)
+    for entry in entries:
+        emit("kernel_tp_entry", **entry, nvidia_smi=card)
+    entries += tp_gmm_entries(olmoe, gen, dev, card, launches[TP4_GMM_ARCH], TP4_MODEL,
+                              TP4_BATCH * TP4_SEQ)
     torch.cuda.empty_cache()
     return entries
 
@@ -4814,38 +4993,183 @@ def plain_grouped_matmul():
         moe_gmm.grouped_matmul = kernel
 
 
-def model_rank_slices(spec, shape, j: int, m: int = 2) -> tuple[slice, ...]:
-    """The slice of a leaf of ``shape`` that ``model`` rank ``j`` of ``m``
-    holds under ``spec`` on a (data 1, model m) mesh."""
-    out = []
-    for dim, size in enumerate(shape):
-        entry = spec[dim] if dim < len(spec) else None
-        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
-        k = size // m if "model" in axes else size
-        out.append(slice(j * k, (j + 1) * k) if "model" in axes else slice(None))
-    return tuple(out)
+def tp_decode_check(cfg, mesh, dev, length: int = TP_DECODE_LEN,
+                    depth_scale: float | None = None, profile_tokens: int = 0) -> dict:
+    """tp_decode's check of ``cfg``, called by every rank of a (data 1,
+    model m) mesh over any backend (gloo on one card here, NCCL across
+    cards in scripts/tp_across_cards.py).  The serving tree (the same on
+    every rank, from TP_SEED); one rank's decode of TP_DECODE_TOKENS
+    teacher-forced tokens on TP_DECODE_SLOTS slots and a cache of
+    ``length`` on the whole tree, in bf16 on rank 0 and at fp32 compute on
+    rank 1 (the grouped GEMM's plain version in the kernel's place: the
+    kernel takes bf16 only), at once, each broadcast to every rank, which
+    keeps its slice of the cache; then this rank's shards of the tree and
+    of a new cache (``init_cache`` with the mesh) and the same tokens
+    through ``make_serve_step(cfg, mesh)``, its launches counted from 0 and
+    its collectives (count, bytes) read from ``repro_torch.events``.
+    ``agrees``: its logits (this rank's vocabulary columns) within §2's
+    decode gates of one rank's (scaled by ``depth_scale``, else by depth)
+    and no further from the fp32 ones than TP_DECODE_FP32_REF times one
+    rank's; its cache shards exactly their slices' shapes and within the
+    model's own rounding of one rank's (TP_DECODE_CACHE_REF,
+    TP_DECODE_CACHE_FLOOR).  With ``profile_tokens``, that many more
+    tokens under the profiler.  Returns this rank's results; a step is one
+    token on every slot."""
+    import torch.distributed as dist
+    from repro_torch import bridge, events
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import init_cache, init_serving_params
+    from repro_torch.serve.engine import make_serve_step
+    from repro_torch.tree import tree_map
+    t_start = time.perf_counter()
+    rank, m = dist.get_rank(), shd.axis_sizes(mesh)["model"]
+    j, on_card = mesh.get_local_rank("model"), dev.type == "cuda"
+    slots, n_tokens = TP_DECODE_SLOTS, TP_DECODE_TOKENS
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TP_SEED)
+    params = init_serving_params(cfg, gen)
+    rng = np.random.default_rng(TP_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (n_tokens, slots))).to(dev)
+    whole = init_cache(cfg, slots, length, device="meta")
+    shapes, slices = {}, {}
+    for (path, leaf), spec in zip(bridge.flatten(whole).items(),
+                                  shd.spec_leaves(shd.cache_shardings(whole, mesh))):
+        if isinstance(leaf, torch.Tensor):
+            shapes[path] = tuple(leaf.shape)
+            slices[path] = shd.local_slices(spec, leaf.shape, mesh)
+
+    one, one_rank_ms = {}, []
+    if rank < 2:
+        run_cfg = cfg if rank == 0 else dataclasses.replace(cfg, compute_dtype="float32")
+        cache = init_cache(run_cfg, slots, length, device=dev)
+        serve = make_serve_step(run_cfg)
+        logits = []
+        with (plain_grouped_matmul() if rank else contextlib.nullcontext()), \
+                torch.no_grad():
+            for t in range(n_tokens):
+                sync()
+                t0 = time.perf_counter()
+                out, cache = serve(params, cache, tokens[t, :, None])
+                sync()
+                one_rank_ms.append(1e3 * (time.perf_counter() - t0))
+                logits.append(out.float())
+        one = {**bridge.flatten(cache), "logits": torch.cat(logits)}
+        del cache, logits
+
+    def from_rank(src, path, shape):
+        """Rank ``src``'s ``path`` in fp32 on every rank."""
+        buf = (one[path].float().contiguous() if rank == src
+               else torch.empty(shape, dtype=torch.float32, device=dev))
+        dist.broadcast(buf, src=src)
+        return buf
+
+    refs = [(from_rank(src, "logits", (n_tokens * slots, cfg.vocab_size)),
+             {p: from_rank(src, p, shape)[slices[p]].clone() for p, shape in shapes.items()})
+            for src in (0, 1)]
+    del one
+    t_ref = time.perf_counter()
+
+    local = tree_map(lambda leaf, spec: leaf[shd.local_slices(spec, leaf.shape, mesh)].clone(),
+                     params, shd.params_shardings(params, mesh))
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    cache = init_cache(cfg, slots, length, device=dev, mesh=mesh)
+    flat = bridge.flatten(cache)
+    shard_shapes = all(tuple(flat[p].shape) == tuple(refs[0][1][p].shape) for p in shapes)
+    serve = make_serve_step(cfg, mesh)
+    moved: dict[str, list[int]] = {}
+
+    def listen(event, *details):
+        if event == events.COLLECTIVE:
+            kind, _, nbytes = details
+            count = moved.setdefault(kind, [0, 0])
+            count[0] += 1
+            count[1] += nbytes
+
+    got, step_ms = [], []
+    reset_launches()
+    with torch.no_grad(), events.counting(listen):
+        for t in range(n_tokens):
+            sync()
+            t0 = time.perf_counter()
+            out, cache = serve(local, cache, tokens[t, :, None])
+            sync()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            got.append(out.float())
+    launches = launch_counts(path_kernels(cfg, backward=False))
+    t_tp = time.perf_counter()
+
+    got = torch.cat(got)
+    first = 0 if got.shape[-1] == cfg.vocab_size else j * -(-cfg.padded_vocab // m)
+    want, fp32 = (refs[r][0][:, first:first + got.shape[-1]] for r in (0, 1))
+    gates = {"layers": cfg.n_layers, "gate": False, "depth_scale": depth_scale}
+    agreement = logits_agreement(got, want, **gates)
+    one_vs_fp32 = logits_agreement(want, fp32, **gates)
+    tp_vs_fp32 = logits_agreement(got, fp32, **gates)
+
+    def rel(a, b):
+        """(||a - b|| / ||b||, max |a - b| / max |b|)"""
+        a, b = a.float(), b.float()
+        return ((a - b).norm().item() / max(b.norm().item(), 1e-30),
+                (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+
+    flat = bridge.flatten(cache)
+    cache_err = ({p: (*rel(flat[p], refs[0][1][p]), *rel(refs[0][1][p], refs[1][1][p]))
+                  for p in shapes} if shard_shapes else {})
+    cache_ok = shard_shapes and all(
+        e[0] <= max(TP_DECODE_CACHE_REF * e[2], TP_DECODE_CACHE_FLOOR)
+        for e in cache_err.values())
+    worst = max(cache_err.items(), key=lambda kv: kv[1][0] / max(kv[1][2], 1e-30),
+                default=(None, ()))
+    keys = ("norm", "max", "ref_norm", "ref_max")
+    out = {"rank": rank,
+           "agrees": (agreement["within_bounds"] and cache_ok
+                      and tp_vs_fp32["mean_rel_to_std"]
+                      <= TP_DECODE_FP32_REF * one_vs_fp32["mean_rel_to_std"]),
+           "agreement": agreement, "one_rank_vs_fp32": one_vs_fp32,
+           "tp_vs_fp32": tp_vs_fp32, "cache_shard_shapes_equal": shard_shapes,
+           "cache_rel_err": {p: dict(zip(keys, e)) for p, e in cache_err.items()},
+           "cache_within_rounding": cache_ok, "cache_worst_leaf": worst[0],
+           "cache_worst": dict(zip(keys, worst[1])),
+           "launches": launches, "step_ms": float(np.median(step_ms)), "step_ms_each": step_ms,
+           # rank 0's is one rank's bf16 decode, rank 1's its fp32 one
+           "one_rank_step_ms": float(np.median(one_rank_ms)) if one_rank_ms else None,
+           "collectives_a_step": {k: {"count": c / n_tokens, "bytes": b / n_tokens}
+                                  for k, (c, b) in moved.items()},
+           "view": shd.cache_view(cfg, m, j),
+           # wall time: the init, one rank's decodes and their broadcast,
+           # then the shards and the decode under the mesh
+           "seconds": {"one_rank": t_ref - t_start, "model": t_tp - t_ref}}
+    del refs, want, fp32, got
+    if profile_tokens:
+        sync()
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if on_card else [])) as trace:
+            t0 = time.perf_counter()
+            for t in range(profile_tokens):
+                _, cache = serve(local, cache, tokens[t % n_tokens, :, None])
+            sync()
+            wall = time.perf_counter() - t0
+        out["nccl_device_ms_a_step"] = (nccl_device_ms(trace) / profile_tokens
+                                        if on_card else None)
+        out["profile"] = {k: v for k, v in summarize(trace, wall, profile_tokens).items()
+                          if k != "top_kernels_ms"}
+    return out
 
 
 def tp_decode_worker(rank: int, init_file: str, out_dir: str, device_type: str) -> None:
     """One of tp_decode's two ranks on card 0, a (data 1, model 2) mesh
-    over gloo.  Each arch: the serving tree (the same on both ranks, from
-    one seed), one rank's decode of the tokens on it with no mesh (bf16
-    on rank 0, fp32 compute on rank 1, shared through files), then this
-    rank's shards of the tree and of a new cache (``init_cache`` with the
-    mesh) and the same tokens through ``decode_step`` under the mesh, its
-    launches counted from 0 and its collectives' bytes read; the logits
-    (this rank's columns) and every cache shard against one rank's.  Then
+    over gloo: ``tp_decode_check`` of each TP_DECODE_ARCHS, then
     dryrun_vs_card's (c) cells on this mesh.  Writes the results."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch import bridge, events
     from repro_torch.configs import get
-    from repro_torch.distributed import context as mesh_ctx
-    from repro_torch.distributed import sharding as shd
-    from repro_torch.models.transformer import (
-        decode_step, init_cache, init_serving_params,
-    )
-    from repro_torch.tree import tree_map
     dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
     if device_type == "cuda":
         torch.cuda.set_device(dev)
@@ -4855,104 +5179,9 @@ def tp_decode_worker(rank: int, init_file: str, out_dir: str, device_type: str) 
     try:
         mesh = init_device_mesh(device_type, (1, 2), mesh_dim_names=("data", "model"))
         for arch in TP_DECODE_ARCHS:
-            t_arch = time.perf_counter()
-            cfg = get(arch)
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(TP_SEED)
-            params = init_serving_params(cfg, gen)
-            rng = np.random.default_rng(TP_SEED)
-            tokens = torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, (TP_DECODE_TOKENS, TP_DECODE_SLOTS))).to(dev)
-
-            # one rank's decode of the tokens on the whole tree, in bf16 on
-            # rank 0 and at fp32 compute on rank 1 (the grouped GEMM's plain
-            # version in the kernel's place: the kernel takes bf16 only), at
-            # once; each writes its logits and both ranks' slices of its cache
-            run_cfg = cfg if rank == 0 else dataclasses.replace(cfg, compute_dtype="float32")
-            cache = init_cache(run_cfg, TP_DECODE_SLOTS, TP_DECODE_LEN, device=dev)
-            logits_all = []
-            with (plain_grouped_matmul() if rank else contextlib.nullcontext()), \
-                    torch.inference_mode():
-                for t in range(TP_DECODE_TOKENS):
-                    logits, cache = decode_step(run_cfg, params, cache, tokens[t, :, None])
-                    logits_all.append(logits.float().cpu())
-            specs = shd.cache_shardings(cache, mesh)
-            torch.save({"logits": torch.cat(logits_all), "slices": [
-                {path: leaf[model_rank_slices(spec, leaf.shape, j)].cpu()
-                 for (path, leaf), spec in zip(bridge.flatten(cache).items(),
-                                               shd.spec_leaves(specs))
-                 if isinstance(leaf, torch.Tensor)} for j in range(2)]},
-                Path(out_dir) / f"{arch}_ref{rank}.pt")
-            del cache, logits_all
-            dist.barrier()
-            refs = [torch.load(Path(out_dir) / f"{arch}_ref{r}.pt") for r in range(2)]
-            want, want_cache = refs[0]["logits"].to(dev), refs[0]["slices"][rank]
-            fp32, fp32_cache = refs[1]["logits"].to(dev), refs[1]["slices"][rank]
-            del refs
-            t_ref = time.perf_counter()
-            local = tree_map(lambda leaf, spec: leaf[shd.local_slices(
-                spec, leaf.shape, mesh)].clone(), params, shd.params_shardings(params, mesh))
-            del params
-            torch.cuda.empty_cache()
-            cache = init_cache(cfg, TP_DECODE_SLOTS, TP_DECODE_LEN, device=dev, mesh=mesh)
-            shard_shapes = all(tuple(bridge.flatten(cache)[p].shape) == tuple(w.shape)
-                               for p, w in want_cache.items())
-            moved = {}
-
-            def listen(event, *details):
-                if event == events.COLLECTIVE:
-                    kind, _, nbytes = details
-                    moved[kind] = moved.get(kind, 0) + nbytes
-
-            got, times = [], []
-            reset_launches()
-            with mesh_ctx.set_mesh(mesh), torch.inference_mode(), events.counting(listen):
-                for t in range(TP_DECODE_TOKENS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    logits, cache = decode_step(cfg, local, cache, tokens[t, :, None])
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-                    got.append(logits.float())
-            launches = launch_counts(path_kernels(cfg, backward=False))
-            t_tp = time.perf_counter()
-            # this rank's vocabulary columns, or the whole (a head that is
-            # not vocab-sharded)
-            got = torch.cat(got)
-            first = 0 if got.shape[-1] == cfg.vocab_size else rank * -(-cfg.padded_vocab // 2)
-            want, fp32 = (t[:, first:first + got.shape[-1]] for t in (want, fp32))
-            agreement = logits_agreement(got, want, layers=cfg.n_layers, gate=False)
-            one_vs_fp32 = logits_agreement(want, fp32, layers=cfg.n_layers, gate=False)
-            tp_vs_fp32 = logits_agreement(got, fp32, layers=cfg.n_layers, gate=False)
-
-            def rel(a, b):
-                """(||a - b|| / ||b||, max |a - b| / max |b|)"""
-                a, b = a.float(), b.float()
-                return ((a - b).norm().item() / max(b.norm().item(), 1e-30),
-                        (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
-
-            cache_err = {path: (*rel(bridge.flatten(cache)[path], w.to(dev)),
-                                *rel(w.to(dev), fp32_cache[path].to(dev)))
-                         for path, w in want_cache.items()}
-            cache_ok = all(e[0] <= max(TP_DECODE_CACHE_REF * e[2], TP_DECODE_CACHE_FLOOR)
-                           for e in cache_err.values())
-            worst = max(cache_err.items(), key=lambda kv: kv[1][0] / max(kv[1][2], 1e-30))
-            results[arch] = {
-                "agreement": agreement, "one_rank_vs_fp32": one_vs_fp32,
-                "tp_vs_fp32": tp_vs_fp32, "cache_shard_shapes_equal": shard_shapes,
-                "cache_rel_err": {p: dict(zip(("norm", "max", "ref_norm", "ref_max"), e))
-                                  for p, e in cache_err.items()},
-                "cache_within_rounding": cache_ok, "cache_worst_leaf": worst[0],
-                "cache_worst": dict(zip(("norm", "max", "ref_norm", "ref_max"), worst[1])),
-                "launches": launches, "step_ms": 1e3 * float(np.median(times)),
-                "collective_bytes_a_token": {k: v / TP_DECODE_TOKENS
-                                             for k, v in moved.items()},
-                "view": shd.cache_view(cfg, 2, rank),
-                # wall time: the init and one rank's decodes (files included),
-                # then the shards and the decode under the mesh
-                "seconds": {"one_rank": t_ref - t_arch, "model_2": t_tp - t_ref}}
-            del local, cache, want_cache, fp32_cache, got, want, fp32
-            torch.cuda.empty_cache()
+            results[arch] = tp_decode_check(get(arch), mesh, dev)
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
         results["dryrun"] = {
             f"{label} {arch} {fields[0]} rank {rank}": count_on_card(
                 arch, fields, mesh, dev, timed=DRYRUN_TP_TIMED)
@@ -5061,11 +5290,7 @@ def tp_decode_path(dev, card) -> list[dict]:
         failures = []
         for arch in TP_DECODE_ARCHS:
             per = [r[arch] for r in ranks]
-            ok = all(p["agreement"]["within_bounds"] and p["cache_shard_shapes_equal"]
-                     and p["cache_within_rounding"]
-                     and p["tp_vs_fp32"]["mean_rel_to_std"]
-                     <= TP_DECODE_FP32_REF * p["one_rank_vs_fp32"]["mean_rel_to_std"]
-                     for p in per)
+            ok = all(p["agrees"] for p in per)
             emit("tp_decode", arch=arch, mesh={"data": 1, "model": 2}, backend="gloo",
                  slots=TP_DECODE_SLOTS, cache_len=TP_DECODE_LEN, tokens=TP_DECODE_TOKENS,
                  cache_ref=TP_DECODE_CACHE_REF, cache_floor=TP_DECODE_CACHE_FLOOR,
@@ -5172,8 +5397,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     two_ranks_path(dev, card, one_rank_peak_gb)
     torch.cuda.empty_cache()
-    # the tensor-parallel section
+    # the tensor-parallel section, then the kernels at a model-4 rank's shapes
     kernels += tp_path(dev, card)
+    torch.cuda.empty_cache()
+    kernels += tp4_entries(dev, card, tp4_rank_steps(dev, card))
     torch.cuda.empty_cache()
     # decode under a model axis, and the dry run against the card
     kernels += tp_decode_path(dev, card)

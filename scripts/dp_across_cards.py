@@ -110,14 +110,11 @@ def main() -> None:
             state, m = step(state, batch)
             float(m["loss"])
             wall = time.perf_counter() - t0
-    nccl_ms = sum((e.time_range.end - e.time_range.start) / 1e3 for e in trace.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "nccl" in e.name.lower())
     step_s = float(np.median(times[WARMUP:]))
     shard = state["opt"]["m"]["embed"]
     emit("steps", arch=cfg.name, batch=4 * world, seq=SEQ, step_seconds=times,
          step_ms=step_s * 1e3, tokens_per_s=4 * world * SEQ / step_s,
-         peak_gb_per_rank=peaks.tolist(), nccl_device_ms=nccl_ms,
+         peak_gb_per_rank=peaks.tolist(), nccl_device_ms=cs.nccl_device_ms(trace),
          zero1_shard_of_embed_m=[list(shard.to_local().shape), list(shard.shape)],
          **cs.summarize(trace, wall, 1))
     dist.destroy_process_group()

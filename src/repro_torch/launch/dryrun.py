@@ -114,16 +114,17 @@ def roofline(flops: float, hbm_bytes: float, by_axis: dict[str, dict[str, int]],
 # One process as any rank of a mesh
 # ---------------------------------------------------------------------------
 
-def fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...], rank: int):
-    """A ``DeviceMesh`` of ``shape`` over ``axes`` in a ``fake`` process
-    group of that many ranks, this process playing ``rank`` (a running
-    group is replaced)."""
+def fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...], rank: int,
+              device: str = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` over ``axes`` on ``device`` in a
+    ``fake`` process group of that many ranks, this process playing
+    ``rank`` (a running group is replaced)."""
     store = _fake_store()
     if dist.is_initialized():
         dist.destroy_process_group()
     dist.init_process_group("fake", rank=rank, world_size=math.prod(shape),
                             store=store)
-    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    return init_device_mesh(device, shape, mesh_dim_names=axes)
 
 
 def _fake_store():

@@ -38,9 +38,11 @@ parameters and gradients alone are 159 GB), the (data, model) mesh whose
 tensor parallelism would fit it, which this entry point does not run, as
 the reference's does not (see :data:`PART_3`; ``python -m
 repro_torch.launch.dryrun`` reckons every cell's memory on the production
-meshes).  Runs under the PaPaS engine like any program, e.g. a
-study with ``command: python -m repro_torch.launch.train --lr
-${args:lr}``.
+meshes).  Where such a mesh takes 4 cards, fewer than the data size that
+fits (gemma-7b, olmoe-1b-7b, deepseek-7b), the refusal also names
+``scripts/tp_across_cards.py``, which trains it on 4 cards.  Runs under
+the PaPaS engine like any program, e.g. a study with ``command: python -m
+repro_torch.launch.train --lr ${args:lr}``.
 """
 from __future__ import annotations
 
@@ -67,6 +69,9 @@ from repro_torch.train.step import (
 DATA_SIZES = tuple(2 ** i for i in range(11))
 #: the model sizes it reckons with where no data size fits
 MODEL_SIZES = (2, 4, 8, 16)
+#: the cards of one host that ``scripts/tp_across_cards.py`` trains a
+#: configuration on, on the (data, model) meshes that fit
+TP_SCRIPT_CARDS = 4
 #: what this entry point leaves out, named by the refusal: the reference's
 #: launcher has no model axis either (its make_local_mesh runs model 1)
 PART_3 = ("launch.train on a (data, model) mesh is part 3's last step, beyond "
@@ -131,10 +136,13 @@ def _refuse_unless_fits(cfg, dev: torch.device, data: int, n_micro: int = 1) -> 
     if fits:
         remedy = (f"it fits at a data size of {fits} (torchrun --nproc-per-node "
                   f"{fits}, one card a rank)")
+        cards, tp = _tensor_parallel_fit(cfg, have, n_micro)
+        if cards and cards < fits:
+            remedy += f"; {tp}"
     else:
         remedy = (f"no data size fits (the replicated fp32 parameters and "
                   f"gradients alone are {need['replicated_gb']:.1f} GB); "
-                  f"{_tensor_parallel_fit(cfg, have, n_micro)}; {PART_3}")
+                  f"{_tensor_parallel_fit(cfg, have, n_micro)[1]}; {PART_3}")
     accumulator = (f", {need['accumulator_gb']:.1f} GB of the microbatches' "
                    f"gradient sum" if n_micro > 1 else "")
     raise SystemExit(
@@ -145,17 +153,27 @@ def _refuse_unless_fits(cfg, dev: torch.device, data: int, n_micro: int = 1) -> 
         f"activations{accumulator}); the card has {have:.1f} GB; {remedy}")
 
 
-def _tensor_parallel_fit(cfg, have: float, n_micro: int = 1) -> str:
-    """The fewest cards whose (data, model) mesh fits ``cfg`` (the smallest
-    model axis first), or that none of MODEL_SIZES does."""
+def _tensor_parallel_fit(cfg, have: float, n_micro: int = 1) -> tuple[int, str]:
+    """(cards, text): the fewest cards whose (data, model) mesh fits ``cfg``
+    (the smallest model axis first) and, on TP_SCRIPT_CARDS cards, the
+    script that trains it there at (data 1, model TP_SCRIPT_CARDS), or (0,
+    that none of MODEL_SIZES does)."""
     meshes = sorted(((d * m, m, d) for m in MODEL_SIZES for d in DATA_SIZES
                      if train_memory_gb(cfg, d, m, n_micro)["total_gb"] <= have))
     if not meshes:
-        return f"no (data, model) mesh up to model {MODEL_SIZES[-1]} fits"
+        return 0, f"no (data, model) mesh up to model {MODEL_SIZES[-1]} fits"
     cards, m, d = meshes[0]
     gb = train_memory_gb(cfg, d, m, n_micro)["total_gb"]
-    return (f"tensor parallelism fits it on {cards} cards at (data {d}, model "
+    text = (f"tensor parallelism fits it on {cards} cards at (data {d}, model "
             f"{m}), ~{gb:.1f} GB a device")
+    if cards == TP_SCRIPT_CARDS:
+        # the script's first mesh, the least memory of its cards (its steps
+        # take one microbatch)
+        gb = train_memory_gb(cfg, 1, cards)["total_gb"]
+        text += (f"; scripts/tp_across_cards.py trains it on {cards} cards at (data 1, "
+                 f"model {cards}), ~{gb:.1f} GB a device: torchrun --nproc-per-node "
+                 f"{cards} scripts/tp_across_cards.py --arch {cfg.name}")
+    return cards, text
 
 
 def _train(args, cfg, mesh) -> tuple[dict, dict]:

@@ -34,6 +34,7 @@ become an all-gather and a reduce-scatter over the sequence.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any
@@ -41,6 +42,7 @@ from typing import Any
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.bridge import SEP
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.tree import tree_map
@@ -86,8 +88,13 @@ class _Leaves:
     axis at a time from fp32 draws (so no fp32 copy of it is ever whole)."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator | None,
-                 serving: bool = False) -> None:
+                 serving: bool = False, place: Any = None) -> None:
         self.gen = gen
+        # with ``place``, each leaf goes to ``place(path, leaf)`` as it is
+        # made, and the tree holds what that returns; its path is the keys
+        # entered by ``at`` and its own
+        self.place = place
+        self.prefix: list[str] = []
         # no generator: the tree's shapes and dtypes on the meta device,
         # nothing drawn or allocated
         self.device = gen.device if gen is not None else torch.device("meta")
@@ -97,13 +104,26 @@ class _Leaves:
     def dtype(self, key: str) -> torch.dtype:
         return self.cast_dtype if key in _CAST_ON_USE else self.param_dtype
 
+    @contextlib.contextmanager
+    def at(self, *keys: str):
+        self.prefix.extend(keys)
+        try:
+            yield
+        finally:
+            del self.prefix[-len(keys):]
+
+    def made(self, key: str, leaf: torch.Tensor) -> torch.Tensor:
+        if self.place is None:
+            return leaf
+        return self.place(SEP.join([*self.prefix, key]), leaf)
+
     def normal(self, key: str, shape: tuple[int, ...],
                stddev: float = 0.02) -> torch.Tensor:
         dt = self.dtype(key)
         if self.gen is None:
-            return torch.empty(shape, dtype=dt, device=self.device)
+            return self.made(key, torch.empty(shape, dtype=dt, device=self.device))
         if dt == self.param_dtype:
-            return normal_init(self.gen, shape, dt, stddev)
+            return self.made(key, normal_init(self.gen, shape, dt, stddev))
         out = torch.empty(shape, dtype=dt, device=self.device)
         step = max(1, _DRAW_ELEMENTS // math.prod(shape[1:]))
         for start in range(0, shape[0], step):
@@ -111,16 +131,18 @@ class _Leaves:
             block.copy_(torch.randn(block.shape, generator=self.gen,
                                     dtype=torch.float32,
                                     device=self.device).mul_(stddev))
-        return out
+        return self.made(key, out)
 
     def fill(self, key: str, shape: tuple[int, ...],
              value: float = 0.0) -> torch.Tensor:
-        return torch.full(shape, value, dtype=self.dtype(key),
-                          device=self.device)
+        return self.made(key, torch.full(shape, value, dtype=self.dtype(key),
+                                         device=self.device))
 
-    def layer_norm(self, shape: tuple[int, ...]) -> dict[str, torch.Tensor]:
-        return {"scale": self.fill("scale", shape, 1.0),
-                "bias": self.fill("bias", shape)}
+    def layer_norm(self, key: str, shape: tuple[int, ...]
+                   ) -> dict[str, torch.Tensor]:
+        with self.at(key):
+            return {"scale": self.fill("scale", shape, 1.0),
+                    "bias": self.fill("bias", shape)}
 
 
 def _init_ssm(leaves: _Leaves, cfg: ArchConfig, n: int) -> dict[str, Any]:
@@ -130,36 +152,40 @@ def _init_ssm(leaves: _Leaves, cfg: ArchConfig, n: int) -> dict[str, Any]:
     gn = cfg.ssm_groups * cfg.ssm_state
     conv_ch = di + 2 * gn
     a_init = torch.linspace(1.0, 16.0, h, device=leaves.device)
-    return {
-        "in_proj": leaves.normal("in_proj", (n, d, 2 * di + 2 * gn + h)),
-        "conv_w": leaves.normal("conv_w", (n, cfg.ssm_conv, conv_ch), 0.2),
-        "conv_b": leaves.fill("conv_b", (n, conv_ch)),
-        "dt_bias": leaves.fill("dt_bias", (n, h)),
-        "A_log": torch.log(a_init).to(leaves.dtype("A_log")).expand(n, h).clone(),
-        "D": leaves.fill("D", (n, h), 1.0),
-        "norm": leaves.fill("norm", (n, di)),
-        "out_proj": leaves.normal("out_proj", (n, di, d)),
-    }
+    with leaves.at("ssm"):
+        return {
+            "in_proj": leaves.normal("in_proj", (n, d, 2 * di + 2 * gn + h)),
+            "conv_w": leaves.normal("conv_w", (n, cfg.ssm_conv, conv_ch), 0.2),
+            "conv_b": leaves.fill("conv_b", (n, conv_ch)),
+            "dt_bias": leaves.fill("dt_bias", (n, h)),
+            "A_log": leaves.made("A_log", torch.log(a_init).to(
+                leaves.dtype("A_log")).expand(n, h).clone()),
+            "D": leaves.fill("D", (n, h), 1.0),
+            "norm": leaves.fill("norm", (n, di)),
+            "out_proj": leaves.normal("out_proj", (n, di, d)),
+        }
 
 
 def _init_moe(leaves: _Leaves, cfg: ArchConfig, n: int) -> dict[str, Any]:
     """Router, routed experts and the optional shared expert (with its
     token gate) of ``n`` layers, stacked (reference ``_init_moe``)."""
     d, ffm, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-    p: dict[str, Any] = {
-        "router": leaves.normal("router", (n, d, e)),
-        "wi_gate": leaves.normal("wi_gate", (n, e, d, ffm)),
-        "wi_up": leaves.normal("wi_up", (n, e, d, ffm)),
-        "wo": leaves.normal("wo", (n, e, ffm, d)),
-    }
-    if cfg.n_shared_experts:
-        ffs = cfg.d_ff
-        p["shared"] = {
-            "wi_gate": leaves.normal("wi_gate", (n, d, ffs)),
-            "wi_up": leaves.normal("wi_up", (n, d, ffs)),
-            "wo": leaves.normal("wo", (n, ffs, d)),
-            "gate": leaves.normal("gate", (n, d, 1)),
+    with leaves.at("moe"):
+        p: dict[str, Any] = {
+            "router": leaves.normal("router", (n, d, e)),
+            "wi_gate": leaves.normal("wi_gate", (n, e, d, ffm)),
+            "wi_up": leaves.normal("wi_up", (n, e, d, ffm)),
+            "wo": leaves.normal("wo", (n, e, ffm, d)),
         }
+        if cfg.n_shared_experts:
+            ffs = cfg.d_ff
+            with leaves.at("shared"):
+                p["shared"] = {
+                    "wi_gate": leaves.normal("wi_gate", (n, d, ffs)),
+                    "wi_up": leaves.normal("wi_up", (n, d, ffs)),
+                    "wo": leaves.normal("wo", (n, ffs, d)),
+                    "gate": leaves.normal("gate", (n, d, 1)),
+                }
     return p
 
 
@@ -167,14 +193,15 @@ def _init_mlp(leaves: _Leaves, cfg: ArchConfig, n: int) -> dict[str, Any]:
     """A gated MLP, or a non-gated GELU one with biases (``gelu_nogate``),
     of ``n`` layers, stacked (reference ``_init_mlp``)."""
     d, ff = cfg.d_model, cfg.d_ff
-    if cfg.mlp_act == "gelu_nogate":
-        return {"wi": leaves.normal("wi", (n, d, ff)),
-                "bi": leaves.fill("bi", (n, ff)),
-                "wo": leaves.normal("wo", (n, ff, d)),
-                "bo": leaves.fill("bo", (n, d))}
-    return {"wi_gate": leaves.normal("wi_gate", (n, d, ff)),
-            "wi_up": leaves.normal("wi_up", (n, d, ff)),
-            "wo": leaves.normal("wo", (n, ff, d))}
+    with leaves.at("mlp"):
+        if cfg.mlp_act == "gelu_nogate":
+            return {"wi": leaves.normal("wi", (n, d, ff)),
+                    "bi": leaves.fill("bi", (n, ff)),
+                    "wo": leaves.normal("wo", (n, ff, d)),
+                    "bo": leaves.fill("bo", (n, d))}
+        return {"wi_gate": leaves.normal("wi_gate", (n, d, ff)),
+                "wi_up": leaves.normal("wi_up", (n, d, ff)),
+                "wo": leaves.normal("wo", (n, ff, d))}
 
 
 def _init_segment(leaves: _Leaves, cfg: ArchConfig, kind: str, n: int
@@ -185,20 +212,21 @@ def _init_segment(leaves: _Leaves, cfg: ArchConfig, kind: str, n: int
     d, ad, kd = cfg.d_model, cfg.attn_dim, cfg.n_kv_heads * cfg.head_dim
 
     def norm(key):
-        return (leaves.layer_norm((n, d)) if kind == "enc"
+        return (leaves.layer_norm(key, (n, d)) if kind == "enc"
                 else leaves.fill(key, (n, d)))
 
     if kind == "ssm":   # norm1 → mixer → residual; no norm2, no MLP
         return {"norm1": norm("norm1"), "ssm": _init_ssm(leaves, cfg, n)}
-    attn = {
-        "wq": leaves.normal("wq", (n, d, ad)),
-        "wk": leaves.normal("wk", (n, d, kd)),
-        "wv": leaves.normal("wv", (n, d, kd)),
-        "wo": leaves.normal("wo", (n, ad, d)),
-    }
-    if cfg.qk_norm:
-        attn["q_norm"] = leaves.fill("q_norm", (n, cfg.head_dim))
-        attn["k_norm"] = leaves.fill("k_norm", (n, cfg.head_dim))
+    with leaves.at("attn"):
+        attn = {
+            "wq": leaves.normal("wq", (n, d, ad)),
+            "wk": leaves.normal("wk", (n, d, kd)),
+            "wv": leaves.normal("wv", (n, d, kd)),
+            "wo": leaves.normal("wo", (n, ad, d)),
+        }
+        if cfg.qk_norm:
+            attn["q_norm"] = leaves.fill("q_norm", (n, cfg.head_dim))
+            attn["k_norm"] = leaves.fill("k_norm", (n, cfg.head_dim))
     if kind == "moe":   # the MoE FFN in place of the MLP
         return {"norm1": norm("norm1"), "norm2": norm("norm2"), "attn": attn,
                 "moe": _init_moe(leaves, cfg, n)}
@@ -222,9 +250,11 @@ def _init_tree(cfg: ArchConfig, leaves: _Leaves) -> dict[str, Any]:
         "embed": leaves.normal("embed", (cfg.padded_vocab, d))}
     if cfg.input_mode in ("embeds", "mixed"):
         params["frontend_proj"] = leaves.normal("frontend_proj", (d, d))
-    params["segments"] = [_init_segment(leaves, cfg, kind, count)
-                          for kind, count in cfg.segments()]
-    params["final_norm"] = (leaves.layer_norm((d,))
+    params["segments"] = []
+    for i, (kind, count) in enumerate(cfg.segments()):
+        with leaves.at("segments", f"[{i}]"):
+            params["segments"].append(_init_segment(leaves, cfg, kind, count))
+    params["final_norm"] = (leaves.layer_norm("final_norm", (d,))
                             if cfg.layer_types and cfg.layer_types[0] == "enc"
                             else leaves.fill("final_norm", (d,)))
     if not cfg.tie_embeddings:
@@ -232,11 +262,18 @@ def _init_tree(cfg: ArchConfig, leaves: _Leaves) -> dict[str, Any]:
     return params
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator) -> dict[str, Any]:
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                place: Any = None) -> dict[str, Any]:
     """Random parameters on the generator's device, in the reference's
     layout and ``param_dtype`` (the values differ: jax.random cannot be
-    reproduced)."""
-    return _init_tree(cfg, _Leaves(cfg, generator))
+    reproduced).
+
+    With ``place``, each leaf goes to ``place(path, leaf)`` (its path as
+    :func:`repro_torch.bridge.flatten` keys it) as soon as it is made, and
+    the tree holds what that returns: a caller that keeps a rank's slice
+    holds one drawn leaf whole at a time, not the tree.  The draws, and so
+    the values, are the same."""
+    return _init_tree(cfg, _Leaves(cfg, generator, place=place))
 
 
 def init_abstract_params(cfg: ArchConfig) -> dict[str, Any]:

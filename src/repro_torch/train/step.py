@@ -53,6 +53,7 @@ from typing import Any, Callable
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.bridge import flatten
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ArchConfig
@@ -63,7 +64,7 @@ from repro_torch.optim.adamw import (
     AdamW, accumulate_grads, compress_int8, decompress_int8,
     value_and_grad,
 )
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
@@ -208,27 +209,38 @@ def init_train_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator,
                      mesh: Any = None) -> dict[str, Any]:
     """Random parameters on the generator's device, their optimizer state
     and step 0.  With a ``DeviceMesh``, the state is stored as DTensors by
-    the sharding rules: the parameters (drawn whole, the same on every rank
-    from the same generator) replicated, and each rank makes only its
-    ZeRO-1 shard of m, v and master (as ``AdamW.init``: zeros, and the
-    parameters in fp32)."""
-    params = init_params(cfg, generator)
+    the sharding rules: each parameter (drawn whole, the same on every rank
+    from the same generator, one leaf at a time) keeps this rank's slice as
+    the rules store it, and each rank makes only its ZeRO-1 shard of m, v
+    and master (as ``AdamW.init``: zeros, and the parameters in fp32), so
+    a rank holds its shards and one drawn leaf, never the whole tree."""
     zero = torch.zeros((), dtype=torch.int32, device=generator.device)
     if mesh is None:
+        params = init_params(cfg, generator)
         return {"params": params, "opt": opt.init(params), "step": zero}
-    abstract = {"m": params, "v": params, "master": params, "count": zero}
-    specs = shd.state_shardings({"params": params, "opt": abstract}, mesh)
+    whole = init_abstract_params(cfg)
+    specs = shd.state_shardings(
+        {"params": whole, "opt": {"m": whole, "v": whole, "master": whole,
+                                  "count": zero}}, mesh)
+    param_specs, master_specs = flatten(specs["params"]), flatten(specs["opt"]["master"])
+    masters = {}
+
+    def place(path, leaf):
+        sl = shd.local_slices(master_specs[path], leaf.shape, mesh)
+        masters[path] = leaf[sl].detach().to(torch.float32, copy=True)
+        return shd.distribute(leaf, param_specs[path], mesh)
+
+    params = init_params(cfg, generator, place)
+    paths = tree_unflatten(params, list(flatten(params)))
 
     def opt_part(key):
-        def one(p, spec):
-            sl = shd.local_slices(spec, p.shape, mesh)
-            local = (p[sl].detach().to(torch.float32, copy=True) if key == "master"
-                     else torch.zeros(p[sl].shape, dtype=torch.float32, device=p.device))
+        def one(p, spec, path):
+            local = (masters[path] if key == "master"
+                     else torch.zeros_like(masters[path]))
             return shd.from_local(local, p.shape, spec, mesh)
-        return tree_map(one, params, specs["opt"][key])
+        return tree_map(one, params, specs["opt"][key], paths)
 
-    return {"params": tree_map(lambda p, spec: shd.distribute(p, spec, mesh),
-                               params, specs["params"]),
+    return {"params": params,
             "opt": {"m": opt_part("m"), "v": opt_part("v"),
                     "master": opt_part("master"),
                     "count": shd.distribute(zero.clone(), shd.Spec(), mesh)},

@@ -1045,3 +1045,118 @@ def test_dense_consistency_holds_a_model_to_its_own_rounding_past_section_2():
     assert own["held_to"] == "own rounding"
     worse = cs.consistency_or_own_rounding(ref, ref + spike, ref, 26)
     assert not worse["within_bounds"]
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("olmoe-1b-7b", {"n_heads": 4, "n_kv_heads": 4, "head_dim": 128, "moe_d_ff": 256}),
+    ("gemma-7b", {"n_heads": 4, "n_kv_heads": 4, "head_dim": 256, "d_model": 3072}),
+])
+def test_tp_local_shapes_at_model_4(arch, want):
+    """Every rank of a model-4 mesh: olmoe-1b-7b's experts at f 256 of 1024
+    and 4 of its 16 heads; gemma-7b's 4 of 16 query and 4 of 16 KV heads at
+    D 256 (one KV head a query head, as the whole)."""
+    from repro_torch.configs import get
+    cfg = get(arch)
+    for rank in range(cs.TP4_MODEL):
+        local = cs.tp_local_config(cfg, model=cs.TP4_MODEL, rank=rank)
+        assert {k: getattr(local, k) for k in want} == want
+        assert local.n_layers == cfg.n_layers
+    assert cs.tp_local_config(cfg) == cs.tp_local_config(cfg, model=2)
+
+
+def test_model_4_bounds_are_the_shared_cost_formulas():
+    """The model-4 entries' bounds read ``repro_torch.kernels.costs`` as the
+    model-2 entries do: gemma-7b's rank does a quarter of the whole's
+    attention operations at (4, 2048); olmoe-1b-7b's grouped GEMMs at f 256
+    move the rows, a quarter of the experts' weights and the hidden units,
+    bytes-bound; dw writes every expert's slab."""
+    from repro_torch.kernels import costs
+    b, s = cs.TP4_BATCH, cs.TP4_SEQ
+    ops, nbytes = cs.attention_floor_ms(b, s, 4, 4, 256, True, 0)
+    assert (ops, nbytes) == cs.floor_ms(costs.attention(b, s, 4, 4, 256, True, 0))
+    assert ops == pytest.approx(cs.attention_floor_ms(b, s, 16, 16, 256, True, 0)[0] / 4)
+    assert nbytes == pytest.approx(2 * 4 * b * s * 4 * 256 / 3.35e12 * 1e3)
+    bwd = cs.attention_bwd_floor_ms(b, s, 4, 4, 256, True, 0)
+    assert bwd == cs.floor_ms(costs.attention_bwd(b, s, 4, 4, 256, True, 0))
+    assert bwd[0] == pytest.approx(2.5 * ops)
+    rows = b * s * 8
+    ops, nbytes = cs.gmm_floor_ms(rows, 2048, 256, 64)
+    assert ops == pytest.approx(2 * rows * 2048 * 256 / 989e12 * 1e3)
+    assert nbytes == pytest.approx(
+        2 * (rows * 2048 + 64 * 2048 * 256 + rows * 256) / 3.35e12 * 1e3)
+    assert cs.bound(ops, nbytes)[1] == "bytes"
+    assert cs.gmm_dw_floor_ms(rows, 2048, 256, 64) == cs.floor_ms(
+        costs.gmm_dw(rows, 2048, 256, 64))
+
+
+def test_model_4_entries_carry_the_kernels_line_keys(monkeypatch):
+    """``tp4_entries`` on the CPU (the plain versions, one (1, 64) batch,
+    the timer stubbed): five entries, flash attention's forward and
+    backward on gemma-7b's model-4 path and the grouped GEMM's forward, dx
+    and dw on olmoe-1b-7b's, each with the launches it is given (those
+    tp4_rank_steps counts) and every key the kernels line needs."""
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters, warmup=2: (fn(), 0.5)[1])
+    monkeypatch.setattr(cs, "TP4_BATCH", 1)
+    monkeypatch.setattr(cs, "TP4_SEQ", 64)
+    counted = {"gemma-7b": {"flash_attention": 11, "flash_attention_bwd": 12},
+               "olmoe-1b-7b": {"flash_attention": 13, "flash_attention_bwd": 14,
+                               "grouped_matmul": 15, "grouped_matmul_dx": 16,
+                               "grouped_matmul_dw": 17}}
+    entries = cs.tp4_entries(torch.device("cpu"), "cpu", counted)
+    assert [(e["name"], e["path"], e["launches"]) for e in entries] == [
+        ("flash_attention", "gemma-7b TP train, model 4 (28 layers)", 11),
+        ("flash_attention_bwd", "gemma-7b TP train, model 4 (28 layers)", 12),
+        ("grouped_matmul", "olmoe-1b-7b TP train, model 4 (16 layers)", 15),
+        ("grouped_matmul_dx", "olmoe-1b-7b TP train, model 4 (16 layers)", 16),
+        ("grouped_matmul_dw", "olmoe-1b-7b TP train, model 4 (16 layers)", 17)]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for entry in entries:
+        assert keys <= set(entry) and entry["route"] == "cuda"
+        assert entry["bound_ms"] > 0 and entry["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("arch,overrides", [("olmoe-1b-7b", {}),
+                                            ("gemma-7b", {"n_heads": 4, "n_kv_heads": 4})])
+def test_a_model_4_rank_steps_alone_on_a_fake_group(arch, overrides):
+    """``tp4_rank_step`` on the CPU at smoke size: model rank 0 of a fake
+    group of 4 (its collectives move nothing) draws its shards of the
+    state and takes one train step on them; every kernel of the path is
+    counted, none launched here (the CPU takes the plain versions), and no
+    peak is read off a card."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.dryrun import fake_mesh
+    cfg = get_smoke(arch, **overrides)
+    mesh = fake_mesh((1, cs.TP4_MODEL), ("data", "model"), 0)
+    try:
+        got = cs.tp4_rank_step(cfg, mesh, torch.device("cpu"), batch=2, seq=16)
+    finally:
+        dist.destroy_process_group()
+    assert got["launches"] == dict.fromkeys(cs.path_kernels(cfg, backward=True), 0)
+    assert got["init_peak_gb"] is None and got["step_peak_gb"] is None
+    assert got["init_s"] > 0 and got["step_s"] > 0
+
+
+def test_nccl_kernels_are_counted_once():
+    """A profile of an NCCL collective holds its kernel and the profiler's
+    device-side span of the same length around it ("nccl:all_reduce"): the
+    NCCL ms and the busy time count the kernel alone, in class "nccl"
+    (an all-gather's kernel is not elementwise work)."""
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def event(name, start, end, device=cuda):
+        return SimpleNamespace(name=name, device_type=device,
+                               time_range=SimpleNamespace(start=start, end=end))
+
+    events = [event("nccl:all_reduce", 0, 3000),
+              event("ncclDevKernel_AllReduce_Sum_bf16_RING_LL(args)", 0, 3000),
+              event("ncclDevKernel_AllGather_RING_LL(args)", 4000, 5000),
+              event("void at::native::vectorized_elementwise_kernel<4>", 5000, 6000)]
+    prof = SimpleNamespace(events=lambda: events, key_averages=lambda: [])
+    assert cs.nccl_device_ms(prof) == pytest.approx(4.0)
+    assert cs.kernel_class("ncclDevKernel_AllGather_RING_LL(args)") == "nccl"
+    out = cs.summarize(prof, wall_s=0.01, steps=1)
+    assert out["device_events"] == 3 and out["device_busy_ms"] == pytest.approx(5.0)
+    assert out["device_ms_by_class"] == {"nccl": pytest.approx(4.0),
+                                         "elementwise": pytest.approx(1.0)}

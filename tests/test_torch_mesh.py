@@ -531,13 +531,20 @@ def test_launch_train_runs_under_two_ranks(runs):
                          r"gradients alone are 159\.2 GB\); tensor parallelism fits "
                          r"it on 8 cards at \(data 1, model 8\), ~80\.4 GB a device; "
                          r"launch\.train on a \(data, model\) mesh is part 3"),
+    ("gemma-7b", 1, r"needs ~221\.0 GB a device at a data size of 1 .* fits at a data "
+                    r"size of 32 .*; tensor parallelism fits it on 4 cards at \(data 2, "
+                    r"model 2\), ~78\.3 GB a device; scripts/tp_across_cards\.py trains "
+                    r"it on 4 cards at \(data 1, model 4\), ~61\.3 GB a device: torchrun "
+                    r"--nproc-per-node 4 scripts/tp_across_cards\.py --arch gemma-7b$"),
 ])
 def test_launch_train_reckons_each_device_with_the_data_size(monkeypatch, arch, world,
                                                              message):
     """On a card, launch.train refuses before it builds a mesh or allocates,
     reckoning a device's memory with the data size of the world it runs in
     and naming the data size that fits, or, where none does, the (data,
-    model) mesh that would and part 3, which runs it."""
+    model) mesh that would and part 3, which runs it; where that mesh is
+    4 cards, fewer than the data size (gemma-7b), the script that trains
+    it there and the mesh it takes first, (data 1, model 4)."""
     import types
     from repro_torch.launch import train as train_cli
     monkeypatch.setattr(train_cli, "resolve_device", lambda device: torch.device("cuda"))

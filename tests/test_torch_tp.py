@@ -7,7 +7,8 @@ process on the concatenated batch and against the JAX package's
 Every case runs at an fp32 ``compute_dtype`` from weights made by the JAX
 init and handed over as numpy; the global batches are numpy from seeds.
 The meshes are (data, model) = (1, 2) and (2, 2), and (1, 4) for
-gemma3-1b.  The cases set the traps of the storage layout on purpose:
+gemma3-1b, olmoe-1b-7b (one head and f 8 a rank) and gemma-7b.  The cases
+set the traps of the storage layout on purpose:
 
 * gemma3-1b: MQA, one KV head for 2 query heads, ``qk_norm`` over a
   ``head_dim`` that the rules split mid-head (``wk``, ``wv`` column
@@ -28,6 +29,9 @@ gemma3-1b.  The cases set the traps of the storage layout on purpose:
 * hubert-xlarge: the encoder (LayerNorm, a GELU MLP with biases);
 * qwen2-moe-a2.7b: the shared expert (a tensor-parallel MLP) and its
   token gate beside the routed experts;
+* gemma-7b with 4 query and 4 KV heads: one head a rank at model 4, as
+  its 16 split at full width over 4 cards (``scripts/tp_across_cards.py``),
+  and its tied embedding split over the vocabulary;
 * ``seq_spec`` (the sequence over ``model``) on gemma3, mamba2, olmoe,
   hymba, both odd vocabularies, hubert and qwen2-moe, against tensor
   parallelism alone;
@@ -84,7 +88,7 @@ CASES = {
                          ("1x2", "2x2", "1x4")),
     "mamba2": ("mamba2-780m", {}, {}, ("1x2", "2x2")),
     "olmoe_g1": ("olmoe-1b-7b", {"capacity_factor": 0.5}, {"moe_groups": 1},
-                 ("1x2", "2x2")),
+                 ("1x2", "2x2", "1x4")),
     "olmoe_gdata": ("olmoe-1b-7b", {"capacity_factor": 0.5}, {"moe_groups": "data"},
                     ("1x2", "2x2")),
     "olmoe_ragged": ("olmoe-1b-7b", {"moe_dispatch": "ragged"}, {}, ("1x2", "2x2")),
@@ -94,6 +98,9 @@ CASES = {
     "gemma3_odd_vocab": ("gemma3-1b", {"vocab_size": 129}, {}, ("1x2", "2x2")),
     "hubert": ("hubert-xlarge", {}, {}, ("1x2", "2x2")),
     "qwen2_moe_shared": ("qwen2-moe-a2.7b", {}, {}, ("1x2",)),
+    # heads that split one a rank at model 4, as gemma-7b's 16 do at full
+    # width (the smoke config's 2 do not split over 4 ranks)
+    "gemma7b_mha": ("gemma-7b", {"n_heads": 4, "n_kv_heads": 4}, {}, ("2x2", "1x4")),
     # microbatches that span the two data ranks, under tensor parallelism
     "gemma3_micro2": ("gemma3-1b", {}, {"n_micro": 2}, ("2x2",)),
 }

@@ -188,6 +188,16 @@ vmap rule), a smoke-size olmoe gang (the grouped GEMM's, forward, dx and
 dw) and a smoke-size hymba gang (both families' rules in one layer); a
 one-step gang of two gemma3-1b members under the profiler.
 
+Then the PaPaS driver (``repro_torch.launch.sweep``, the sweep phase): a
+study of 4 gemma3-1b smoke training runs (2 lrs x 2 seeds, 5 steps of 4 x
+64 tokens) gang-packed by ``--gang`` (one dispatch, every instance ok and
+finite, the flash-attention launches of the whole run one member's), one
+dispatch a task (4 x the launches, each value within 5e-3 of the gang's;
+both walls and their ratio) and at ``--pool thread --slots 2``, then
+``python -m repro_torch.launch.sweep`` in a process that cannot import
+jax, yaml or the reference, on an olmoe-1b-7b smoke gang (the grouped
+GEMM's three kernels launched, every instance ok).
+
 Then the mesh section (the multi-device layer, part 1): (a) gemma3-1b at
 full width and depth through ``launch.train`` on the one-rank NCCL mesh
 (its state DTensors by the sharding rules, the data-parallel step with
@@ -3785,6 +3795,181 @@ def gang_path(dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+#: the sweep phase: a study of training runs through the port's PaPaS driver
+#: (``repro_torch.launch.sweep``), 2 lrs x 2 seeds of gemma3-1b's smoke config
+SWEEP_STUDY = """\
+sweep_lr:
+  args:
+    lr: [0.0003, 0.001]
+    seed: ["0:1"]
+    arch: [gemma3-1b]
+    steps: [5]
+    batch: [4]
+    seq: [64]
+  command: train
+"""
+#: the same of olmoe-1b-7b's smoke config, run by ``python -m`` with jax,
+#: yaml and the reference blocked: the grouped GEMM's three kernels
+SWEEP_MOE_STUDY = SWEEP_STUDY.replace("sweep_lr", "sweep_moe").replace(
+    "gemma3-1b", "olmoe-1b-7b").replace("steps: [5]", "steps: [3]").replace(
+    "batch: [4]", "batch: [2]")
+SWEEP_MEMBERS = 4
+SWEEP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_sweep"
+GANG_LINE = re.compile(r"^\[gang\] (\d+) tasks in (\d+) dispatches")
+RESULT_LINE = re.compile(r"^  (\S+): (\w+) \([0-9.]+s\)(?: @\S+)? ?(.*)$")
+BLOCKED_SWEEP = (
+    "import json, runpy, sys\n"
+    "sys.modules['yaml'] = sys.modules['jax'] = sys.modules['repro'] = None\n"
+    "sys.argv = ['sweep', *sys.argv[1:]]\n"
+    "runpy.run_module('repro_torch.launch.sweep', run_name='__main__')\n"
+    "from repro_torch.kernels import moe_gmm\n"
+    "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'yaml', 'repro')\n"
+    "       and sys.modules[m] is not None]\n"
+    "assert not bad, bad\n"
+    "print(json.dumps({'grouped_matmul': moe_gmm.launches,\n"
+    "                  'grouped_matmul_dx': moe_gmm.dx_launches,\n"
+    "                  'grouped_matmul_dw': moe_gmm.dw_launches}))\n")
+
+
+def check_sweep_results(results: dict, want: int) -> dict[str, float]:
+    """Each instance's value by node id.  Raises unless the study ran
+    ``want`` instances, every one ``ok`` with a finite value: the engine
+    records a failed task (a kernel that did not build or launch included)
+    and carries on, and the sweep still exits 0."""
+    bad = {rid: (r.status, r.error, r.value) for rid, r in results.items()
+           if r.status != "ok" or not isinstance(r.value, (int, float))
+           or not math.isfinite(r.value)}
+    if bad or len(results) != want:
+        raise AssertionError(f"sweep: {len(results)} results for {want} instances, "
+                             f"failed or not finite: {bad}")
+    return {rid: float(r.value) for rid, r in results.items()}
+
+
+def gang_dispatches(out: str) -> tuple[int, int]:
+    """(tasks, dispatches) from the sweep's ``[gang]`` line."""
+    for line in out.splitlines():
+        m = GANG_LINE.match(line)
+        if m:
+            return int(m.group(1)), int(m.group(2))
+    raise AssertionError(f"sweep: no [gang] line in its output:\n{out}")
+
+
+def run_sweep(study: Path, root: Path, *extra: str) -> tuple[dict, str, float]:
+    """``repro_torch.launch.sweep.main`` on the card: (results, its stdout,
+    wall seconds)."""
+    import io
+
+    from repro_torch.launch import sweep
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = sweep.main([str(study), "--root", str(root), "--device", "cuda", *extra])
+    torch.cuda.synchronize()
+    return results, out.getvalue(), time.perf_counter() - t0
+
+
+def max_rel_diff(got: dict[str, float], want: dict[str, float]) -> float:
+    if got.keys() != want.keys():
+        raise AssertionError(f"sweep: instances {sorted(got)} against {sorted(want)}")
+    return max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+
+
+def sweep_path(dev, card) -> None:
+    """The PaPaS driver on the card: (a) a study of 4 gemma3-1b training
+    runs gang-packed by ``--gang`` into one dispatch, whose flash-attention
+    launches are one member's; (b) the same study one dispatch a task
+    (4 x the launches, each value within GANG_LOSS_REL_TOL of the gang's);
+    (c) the same at ``--pool thread --slots 2`` (two tasks at once in one
+    process); (d) ``python -m repro_torch.launch.sweep`` in a process that
+    cannot import jax, yaml or the reference, on an olmoe-1b-7b gang that
+    reaches the grouped GEMM's three kernels."""
+    import importlib.util
+    import shutil
+
+    from repro_torch.train import ensemble
+
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    SWEEP_DIR.mkdir(parents=True)
+    study = SWEEP_DIR / "lr.yaml"
+    study.write_text(SWEEP_STUDY)
+    kernels = ("flash_attention", "flash_attention_bwd")
+    member = {"args:lr": 3e-4, "args:seed": 0, "args:arch": "gemma3-1b",
+              "args:steps": 5, "args:batch": 4, "args:seq": 64}
+    reset_launches()
+    ensemble.train_members([member], device=dev)
+    one_member = launch_counts(kernels)
+    # (a) the gang
+    reset_launches()
+    gang, gang_out, gang_s = run_sweep(study, SWEEP_DIR / "gang", "--gang")
+    gang_launches = launch_counts(kernels)
+    # (b) one dispatch a task
+    reset_launches()
+    each, _, each_s = run_sweep(study, SWEEP_DIR / "each")
+    each_launches = launch_counts(kernels)
+    # (c) two tasks at once on two threads
+    threaded, _, threaded_s = run_sweep(study, SWEEP_DIR / "threads", "--pool", "thread",
+                                        "--slots", "2")
+    # (d) the entry point on its own, olmoe's gang
+    moe_study = SWEEP_DIR / "moe.yaml"
+    moe_study.write_text(SWEEP_MOE_STUDY)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_SWEEP, str(moe_study), "--root",
+         str(SWEEP_DIR / "moe"), "--gang", "--device", "cuda"],
+        capture_output=True, text=True, timeout=600, cwd=SWEEP_DIR,
+        env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")})
+    moe_s = time.perf_counter() - t0
+    moe_lines = proc.stdout.splitlines()
+    moe_results = [m.groups()[1:] for m in map(RESULT_LINE.match, moe_lines) if m]
+    moe_statuses = [status for status, _ in moe_results]
+    moe_launches = json.loads(moe_lines[-1]) if proc.returncode == 0 else {}
+
+    gang_vals = check_sweep_results(gang, SWEEP_MEMBERS)
+    each_vals = check_sweep_results(each, SWEEP_MEMBERS)
+    threaded_vals = check_sweep_results(threaded, SWEEP_MEMBERS)
+    emit("sweep", nvidia_smi=card, members=SWEEP_MEMBERS, arch="gemma3-1b", steps=5,
+         batch=4, seq=64, one_member_launches=one_member,
+         gang={"wall_s": gang_s, "tasks_dispatches": gang_dispatches(gang_out),
+               "launches": gang_launches, "values": gang_vals},
+         one_a_task={"wall_s": each_s, "launches": each_launches, "values": each_vals},
+         threads_2={"wall_s": threaded_s, "values": threaded_vals},
+         one_a_task_over_gang_wall=each_s / gang_s,
+         max_rel_diff_one_a_task_vs_gang=max_rel_diff(each_vals, gang_vals),
+         max_rel_diff_threads_vs_one_a_task=max_rel_diff(threaded_vals, each_vals),
+         bound_rel_diff=GANG_LOSS_REL_TOL,
+         moe_blocked_imports={"rc": proc.returncode, "wall_s": moe_s,
+                              "statuses": moe_statuses, "launches": moe_launches,
+                              "stderr_tail": proc.stderr[-2000:] if proc.returncode else ""},
+         yaml_importable=importlib.util.find_spec("yaml") is not None,
+         jax_importable=importlib.util.find_spec("jax") is not None)
+    if gang_dispatches(gang_out) != (SWEEP_MEMBERS, 1):
+        raise AssertionError(f"sweep: the gang made {gang_dispatches(gang_out)} "
+                             f"(tasks, dispatches), not ({SWEEP_MEMBERS}, 1)")
+    if gang_launches != one_member or not all(one_member.values()):
+        raise AssertionError(f"sweep: the gang launched {gang_launches}, one member "
+                             f"{one_member}")
+    if each_launches != {k: SWEEP_MEMBERS * v for k, v in one_member.items()}:
+        raise AssertionError(f"sweep: one dispatch a task launched {each_launches}, "
+                             f"not {SWEEP_MEMBERS} x {one_member}")
+    for what, diff in (("one a task vs the gang", max_rel_diff(each_vals, gang_vals)),
+                       ("two threads vs one a task", max_rel_diff(threaded_vals, each_vals))):
+        if not diff <= GANG_LOSS_REL_TOL:
+            raise AssertionError(f"sweep: {what} differ by {diff} > {GANG_LOSS_REL_TOL}")
+    if proc.returncode != 0:
+        raise AssertionError(f"sweep: the blocked-import run failed:\n{proc.stderr[-4000:]}")
+    if (moe_statuses != ["ok"] * SWEEP_MEMBERS
+            or f"{SWEEP_MEMBERS}/{SWEEP_MEMBERS} instances complete" not in proc.stdout
+            or gang_dispatches(proc.stdout) != (SWEEP_MEMBERS, 1)):
+        raise AssertionError(f"sweep: the blocked-import olmoe gang:\n{proc.stdout}")
+    if not all(re.fullmatch(r"-?[0-9.]+(?:e[-+]?[0-9]+)?", value) and
+               math.isfinite(float(value)) for _, value in moe_results):
+        raise AssertionError(f"sweep: the olmoe gang's values:\n{proc.stdout}")
+    if not all(moe_launches.get(k) for k in ("grouped_matmul", "grouped_matmul_dx",
+                                             "grouped_matmul_dw")):
+        raise AssertionError(f"sweep: the olmoe gang launched {moe_launches}")
+
+
 #: the mesh step at data 1 against the step without a mesh: the same
 #: arithmetic on the same state and batch (a sum over one rank is the
 #: value, ZeRO-1's one shard is the whole leaf), so the same bits
@@ -5387,6 +5572,8 @@ def main() -> None:
     kernels += moe_train_path(dev, card)
     torch.cuda.empty_cache()
     gang_path(dev, card)
+    torch.cuda.empty_cache()
+    sweep_path(dev, card)
     torch.cuda.empty_cache()
     # the mesh section: launch.train's data-parallel step on a one-rank
     # mesh, then the MoE dispatch under a mesh

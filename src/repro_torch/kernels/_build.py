@@ -7,8 +7,11 @@ file under ``csrc/`` and the flags, so an edited source is rebuilt and an
 unchanged one is not.  One :func:`build` starts an nvcc for each source that
 is not built yet, all at once, and waits for them all.  Another directory of
 sources (an older commit's ``csrc/``, to time its kernels beside these) is
-built and loaded the same way.  Nothing here runs at import: the CPU tests
-import every module.
+built and loaded the same way.  A lock serialises :func:`build` and
+:func:`library` within a process, so threads that reach a kernel first at
+the same time (a study's ``train`` tasks under ``--pool thread``) compile
+each source once and never share a temporary file.  Nothing here runs at
+import: the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -28,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: compiler output of the builds this process ran, by source name
 #: (``"flash_attention.cu"``); a source built by an earlier process has none
 build_log: dict[str, str] = {}
+
+#: held by build() and library(); library() builds under it (so reentrant)
+_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -56,6 +63,11 @@ def build(csrc: Path = CSRC) -> float:
     """Compiles every source of ``csrc`` not built already, in parallel.
     Returns the seconds spent; raises with the compiler's output if a build
     fails (after every started nvcc has ended)."""
+    with _LOCK:
+        return _build(csrc)
+
+
+def _build(csrc: Path) -> float:
     t0 = time.perf_counter()
     jobs = []
     for src in sources(csrc):
@@ -86,5 +98,6 @@ def library(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     source = csrc / f"{name}.cu"
     if not source.exists():
         raise FileNotFoundError(source)
-    build(csrc)
-    return ctypes.CDLL(str(_target(source)))
+    with _LOCK:
+        build(csrc)
+        return ctypes.CDLL(str(_target(source)))

@@ -1160,3 +1160,59 @@ def test_nccl_kernels_are_counted_once():
     assert out["device_events"] == 3 and out["device_busy_ms"] == pytest.approx(5.0)
     assert out["device_ms_by_class"] == {"nccl": pytest.approx(4.0),
                                          "elementwise": pytest.approx(1.0)}
+
+
+def test_sweep_check_raises_on_a_failed_instance(tmp_path):
+    """The sweep phase reads every result: a study whose run exits 0 with
+    one instance failed (here its arch is unknown, as a kernel that does
+    not build fails a task on the card) makes the check raise, and so
+    does a value that is not finite."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import sweep
+    study = tmp_path / "s.yaml"
+    study.write_text(cs.SWEEP_STUDY.replace("arch: [gemma3-1b]", "arch: [gemma3-1b, nope]")
+                     .replace("lr: [0.0003, 0.001]", "lr: [0.001]")
+                     .replace('seed: ["0:1"]', "seed: [0]").replace("steps: [5]", "steps: [1]")
+                     .replace("batch: [4]", "batch: [1]").replace("seq: [64]", "seq: [8]"))
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        results = sweep.main([str(study), "--root", str(tmp_path), "--device", "cpu"])
+    assert "1/2 instances complete" in out.getvalue()
+    with pytest.raises(AssertionError, match="failed or not finite"):
+        cs.check_sweep_results(results, 2)
+    ok = {rid: r for rid, r in results.items() if r.status == "ok"}
+    assert list(cs.check_sweep_results(ok, 1).values())[0] > 0
+    with pytest.raises(AssertionError, match="1 results for 2"):
+        cs.check_sweep_results(ok, 2)
+    nan = {rid: SimpleNamespace(status="ok", error=None, value=float("nan")) for rid in ok}
+    with pytest.raises(AssertionError, match="failed or not finite"):
+        cs.check_sweep_results(nan, 1)
+
+
+def test_sweep_blocked_import_run_on_the_cpu(tmp_path):
+    """The sweep phase's subprocess (jax, yaml and the reference blocked)
+    on the olmoe study, cut to one step and run on the CPU: its output
+    parses as the phase parses it (no launches: the CPU takes the plain
+    versions)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    study = tmp_path / "moe.yaml"
+    study.write_text(cs.SWEEP_MOE_STUDY.replace("steps: [3]", "steps: [1]")
+                     .replace("seq: [64]", "seq: [16]"))
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", cs.BLOCKED_SWEEP, str(study), "--root", str(tmp_path / "r"),
+         "--gang", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+        env={**os.environ, "PYTHONPATH": str(root / "src"), "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert cs.gang_dispatches(proc.stdout) == (cs.SWEEP_MEMBERS, 1)
+    results = [m.groups() for m in map(cs.RESULT_LINE.match, lines) if m]
+    assert [r[1] for r in results] == ["ok"] * cs.SWEEP_MEMBERS
+    assert all(math.isfinite(float(r[2])) for r in results)
+    assert json.loads(lines[-1]) == {"grouped_matmul": 0, "grouped_matmul_dx": 0,
+                                     "grouped_matmul_dw": 0}

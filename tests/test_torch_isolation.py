@@ -1,4 +1,5 @@
-"""The port stands alone: no jax, no ``repro`` import, no CPU fallback."""
+"""The port stands alone: no jax, no ``repro`` and no PyYAML import, no CPU
+fallback."""
 import ast
 import os
 import subprocess
@@ -28,7 +29,7 @@ def _imported_modules(path: Path) -> list[str]:
 def test_no_jax_or_reference_import(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+        assert top not in ("jax", "jaxlib", "repro", "yaml"), f"{path}: imports {name}"
 
 
 def _run(code: str, **env) -> subprocess.CompletedProcess:
@@ -39,16 +40,18 @@ def _run(code: str, **env) -> subprocess.CompletedProcess:
 
 
 def test_imports_without_triton_or_cuda():
-    """Every module of the port imports with no triton and no card, and
-    importing it loads neither jax nor the reference package."""
+    """Every module of the port imports with no triton, no PyYAML and no
+    card, and importing it loads neither jax nor the reference package."""
     mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
             for p in PORT_FILES if p.suffix == ".py" and "src" in p.parts]
     mods = [m.removesuffix(".__init__") for m in mods]
     code = (
         "import importlib, sys\n"
         "sys.modules['triton'] = None\n"          # importing triton fails
+        "sys.modules['yaml'] = None\n"            # and so does PyYAML's
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')\n"
+        "       or m.split('.')[0] == 'yaml' and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     res = _run(code, CUDA_VISIBLE_DEVICES="")

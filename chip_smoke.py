@@ -63,8 +63,8 @@ olmoe-1b-7b):
    plain-GEMM check on 4 of its 24 layers; mamba2-780m's and hymba-1.5b's
    prefill against decode over 512 positions on their first 12 and 8
    layers, SSD_CONSISTENCY_LAYERS); then the card's forward
-   against the CPU's on a small config (hymba's with an SSD state of 16,
-   CARD_SMOKE);
+   against the CPU's on the reference's smoke config (hymba's with its
+   SSD state of 8, the kernels' (16, 8) instance);
 6. serve: ``ServeEngine`` answers 8 requests of 16 new tokens each;
 7. profile: one prefill and a window of 4 decode steps under
    ``torch.profiler``: device busy time and idle share, kernel launches,
@@ -196,7 +196,18 @@ dispatch a task (4 x the launches, each value within 5e-3 of the gang's;
 both walls and their ratio) and at ``--pool thread --slots 2``, then
 ``python -m repro_torch.launch.sweep`` in a process that cannot import
 jax, yaml or the reference, on an olmoe-1b-7b smoke gang (the grouped
-GEMM's three kernels launched, every instance ok).
+GEMM's three kernels launched, every instance ok); (e) a study over the
+architecture axis, the smoke config of each of the 8 token-input
+architectures as the reference's sweep trains it (2 lrs, seed 0, 3 steps
+of 2 x 64 tokens), once ``--gang`` (16 tasks in 8 dispatches, one an
+arch) and once one dispatch a task: every instance ok and finite, each
+value within 5e-3 of the gang's, each arch's dispatches launching every
+kernel its layers have (hymba-1.5b's the SSD kernels' (16, 8) instance),
+one a task twice the gang's launches; (f) one real-size shell task, the
+reference-shaped ``launch.train`` on hymba-1.5b at full width and depth (2
+steps of 4 x 2048), its record ok with exit code 0; then the four SSD
+kernels at (e)'s hymba shape (head dim 16, state 8) against their plain
+versions, with (e)'s launches.
 
 Then the mesh section (the multi-device layer, part 1): (a) gemma3-1b at
 full width and depth through ``launch.train`` on the one-rank NCCL mesh
@@ -425,6 +436,7 @@ SSD_BWD_CASES = [
     ("hymba-1.5b SSD", 4, 2048, 50, 64, 1, 16, 256, False),
     ("(64, 64), G 4", 2, 1024, 16, 64, 4, 64, 256, False),
     ("(16, 16)", 2, 1024, 8, 16, 1, 16, 256, False),
+    ("(16, 8)", 2, 1024, 8, 16, 1, 8, 256, True),
     ("initial state and dfinal", 2, 512, 48, 64, 1, 128, 256, True),
 ]
 #: the mamba2-780m training path: launch.train at full width and depth on a
@@ -498,10 +510,6 @@ HYMBA_TRAIN_WARMUP, HYMBA_TRAIN_TIMED = 2, 3
 #: hubert-xlarge's training path: launch.train at full width and depth on
 #: (4, 2048) frame-embedding batches, 2 warm-up and 3 timed steps
 HUBERT_TRAIN_WARMUP, HUBERT_TRAIN_TIMED = 2, 3
-#: the smoke configs the card runs where the reference's is not one the
-#: kernels take: hymba-1.5b's smoke SSD state of 8 is not a multiple of 16
-#: (the SSD kernels' N), so on the card its smoke config has a state of 16
-CARD_SMOKE = {"hymba-1.5b": {"ssm_state": 16}}
 #: layer kinds that run the attention kernels, and the SSD kernels
 ATTENTION_KINDS = ("attn", "swa", "enc", "moe", "hyb_g", "hyb_l")
 SSM_KINDS = ("ssm", "hyb_g", "hyb_l")
@@ -606,21 +614,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, match: str, iters: int = 10) -> float:
+def kernel_ms(fn, match: str, iters: int = 10) -> float | None:
     """Mean device time in ms, per call of ``fn``, of the kernels whose
     names contain ``match``, from the profiler's kernel intervals: unlike
     CUDA events around a loop, it leaves out the time the card waits for
     the host between launches (a wrapper's host time can exceed a short
-    kernel's device time)."""
+    kernel's device time).  None where the profiler caught no such kernel
+    in two tries (late in the script it has missed some: not measured,
+    never a time of 0)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
-    return us / iters / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+        if spans:
+            return sum(spans) / iters / 1e3
+    return None
 
 
 def kcosts():
@@ -717,12 +730,6 @@ def train_depth(cfg, budget_gb: float = TRAIN_BUDGET_GB,
         if train_reckoning_gb(cfg, layers)["total_gb"] <= budget_gb:
             return layers
     raise ValueError(f"{cfg.name}: not even {depths[-1]} layers fit {budget_gb} GB")
-
-
-def card_smoke(arch: str, **overrides):
-    """``arch``'s smoke config as the card runs it (CARD_SMOKE)."""
-    from repro_torch.configs import get_smoke
-    return get_smoke(arch, **{**CARD_SMOKE.get(arch, {}), **overrides})
 
 
 def path_kernels(cfg, backward: bool) -> tuple[str, ...]:
@@ -1558,6 +1565,8 @@ def mamba2_path(dev, card) -> list[dict]:
         ("mamba2-780m prefill", 4, 2048, h, p, g, n, chunk, False),
         ("hymba-1.5b SSD", 4, 2048, 50, 64, 1, 16, 256, False),
         ("G 4, N 64", 2, 1024, 16, 64, 4, 64, 256, False),
+        # hymba-1.5b's smoke pair, over chunks of four row tiles
+        ("(16, 8)", 2, 1024, 8, 16, 1, 8, 256, True),
         ("S 100 < chunk", 4, 100, h, p, g, n, chunk, False),
         ("initial state", 2, 512, h, p, g, n, chunk, True),
         # Q not a multiple of 64 over several chunks: partial row tiles
@@ -1811,14 +1820,15 @@ def checked_forward(model, params, inputs, want: dict[str, int], shape: tuple) -
 
 def card_vs_cpu(arch: str, dev, seq: int, **overrides) -> None:
     """The card's forward (kernels) against the CPU's (plain versions) on
-    ``arch``'s smoke config as the card runs it (``card_smoke``, with
-    ``overrides``: ``use_kernels=True`` makes the CPU take the kernels'
-    plain versions rather than the reference's attention branches), the
-    same weights and a numpy-drawn batch of ``seq`` positions (by its input
-    mode); raises past CPU_GPU_TOL."""
+    ``arch``'s smoke config, the reference's (with ``overrides``:
+    ``use_kernels=True`` makes the CPU take the kernels' plain versions
+    rather than the reference's attention branches), the same weights and a
+    numpy-drawn batch of ``seq`` positions (by its input mode); raises past
+    CPU_GPU_TOL."""
     from repro_torch import bridge
+    from repro_torch.configs import get_smoke
     from repro_torch.models import Model, synthetic_batch
-    small = card_smoke(arch, **overrides)
+    small = get_smoke(arch, **overrides)
     sm_cpu = Model(small, "cpu")
     sp_cpu = sm_cpu.init(seed=1)
     sp_gpu = bridge.params_from_numpy(bridge.params_to_numpy(sp_cpu), dev)
@@ -1952,7 +1962,7 @@ def hymba_path(dev, card) -> list[dict]:
     its first four layers, past the 1024-entry window, the kernels against
     their plain versions, the card against the CPU, serve and profile.
     Returns its prefill's entries of the kernels line."""
-    from repro_torch.configs import get
+    from repro_torch.configs import get, get_smoke
     from repro_torch.models import Model, synthetic_batch
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -2038,9 +2048,9 @@ def hymba_path(dev, card) -> list[dict]:
     del got, want_logits
 
     # (b) the card's forward (kernels) against the CPU's (their plain
-    # versions), on the card's smoke config (an SSD state of 16), past its
-    # window of 16
-    card_vs_cpu("hymba-1.5b", dev, 3 * card_smoke("hymba-1.5b").ssm_chunk,
+    # versions), on the reference's smoke config (SSD head dim 16, state 8),
+    # past its window of 16
+    card_vs_cpu("hymba-1.5b", dev, 3 * get_smoke("hymba-1.5b").ssm_chunk,
                 use_kernels=True)
 
     # -- 6. serve -----------------------------------------------------------------
@@ -3732,13 +3742,13 @@ def gang_path(dev, card) -> None:
     that the grouped GEMM's rule folds the members into its experts, and a
     smoke-size hymba gang, whose layers run both the attention's and the
     SSD scan's rules inside one checkpoint."""
-    from repro_torch.configs import get
+    from repro_torch.configs import get, get_smoke
     from repro_torch.train import ensemble
 
     for cfg, batch, seq in ((get(GANG_ARCH), GANG_BATCH, GANG_SEQ),
-                            (card_smoke("mamba2-780m"), 2, 64),
-                            (card_smoke("olmoe-1b-7b"), 2, 64),
-                            (card_smoke("hymba-1.5b"), 2, 64)):
+                            (get_smoke("mamba2-780m"), 2, 64),
+                            (get_smoke("olmoe-1b-7b"), 2, 64),
+                            (get_smoke("hymba-1.5b"), 2, 64)):
         kernels = path_kernels(cfg, backward=True)
         runs = {}
         for members in ((0,), (1,), (0, 1)):
@@ -3815,6 +3825,38 @@ SWEEP_MOE_STUDY = SWEEP_STUDY.replace("sweep_lr", "sweep_moe").replace(
     "batch: [4]", "batch: [2]")
 SWEEP_MEMBERS = 4
 SWEEP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_sweep"
+#: part (e): a study over the architecture axis, every token-input
+#: architecture's smoke config as the reference's sweep trains it (a
+#: ``train`` task takes ``get_smoke(arch)``); hubert-xlarge and
+#: internvl2-26b take frames and patches, which a train task cannot make
+#: (as in the reference).  2 lrs, seed 0, 3 steps of (2, 64) tokens
+SWEEP_ARCHS = ("gemma3-1b", "gemma-7b", "h2o-danube-1.8b", "deepseek-7b",
+               "mamba2-780m", "olmoe-1b-7b", "qwen2-moe-a2.7b", "hymba-1.5b")
+SWEEP_ARCH_LRS, SWEEP_ARCH_STEPS, SWEEP_ARCH_BATCH, SWEEP_ARCH_SEQ = (
+    (1e-3, 3e-4), 3, 2, 64)
+SWEEP_ARCH_STUDY = f"""\
+sweep_archs:
+  args:
+    lr: [{", ".join(map(str, SWEEP_ARCH_LRS))}]
+    seed: [0]
+    arch: [{", ".join(SWEEP_ARCHS)}]
+    steps: [{SWEEP_ARCH_STEPS}]
+    batch: [{SWEEP_ARCH_BATCH}]
+    seq: [{SWEEP_ARCH_SEQ}]
+  command: train
+"""
+#: part (f): one real-size task, a shell command of the study: launch.train
+#: on hymba-1.5b at full width and depth by the reference-shaped CLI
+SWEEP_REAL_ARGS = ("-m repro_torch.launch.train --arch hymba-1.5b --steps 2 --warmup 1 "
+                   "--batch 4 --seq 2048")
+SWEEP_REAL_STUDY = """\
+sweep_real:
+  command: {python} {args}
+  capture:
+    rc: rc
+    loss:
+      regex: "done: final loss ([0-9.]+)"
+"""
 GANG_LINE = re.compile(r"^\[gang\] (\d+) tasks in (\d+) dispatches")
 RESULT_LINE = re.compile(r"^  (\S+): (\w+) \([0-9.]+s\)(?: @\S+)? ?(.*)$")
 BLOCKED_SWEEP = (
@@ -3875,7 +3917,240 @@ def max_rel_diff(got: dict[str, float], want: dict[str, float]) -> float:
     return max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
 
 
-def sweep_path(dev, card) -> None:
+@contextlib.contextmanager
+def dispatches_by_arch(dev, runs: dict):
+    """Inside the block, each dispatch of a sweep's ``train`` tasks (a call
+    of ``train_ensemble`` or ``train_members``) runs with every launch
+    count set to 0 just before it and read just after, and is timed:
+    ``runs[arch]`` adds up its dispatches, seconds and the launches of the
+    kernels that arch's layers have (``path_kernels``)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.train import ensemble
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def counted(fn):
+        def dispatch(members, **kwargs):
+            arch = members[0]["args:arch"]
+            names = path_kernels(get_smoke(arch), backward=True)
+            sync()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = fn(members, **kwargs)
+            sync()
+            run = runs.setdefault(arch, {"dispatches": 0, "seconds": 0.0,
+                                         "launches": dict.fromkeys(names, 0)})
+            run["dispatches"] += 1
+            run["seconds"] += time.perf_counter() - t0
+            for name, count in launch_counts(names).items():
+                run["launches"][name] += count
+            return out
+        return dispatch
+
+    originals = {name: getattr(ensemble, name) for name in ("train_ensemble", "train_members")}
+    for name, fn in originals.items():
+        setattr(ensemble, name, counted(fn))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(ensemble, name, fn)
+
+
+def values_by_arch(results: dict, root: Path) -> dict[str, dict[str, float]]:
+    """Each instance's value (``check_sweep_results``) under its arch, from
+    the study's provenance records (the combo of each task id)."""
+    vals = check_sweep_results(results, len(SWEEP_ARCH_LRS) * len(SWEEP_ARCHS))
+    archs = {}
+    for line in (root / "sweep_archs" / "records.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        archs[rec["task_id"]] = rec["combo"]["args:arch"]
+    out = {}
+    for rid, value in vals.items():
+        out.setdefault(archs[rid], {})[rid] = value
+    return out
+
+
+def sweep_archs_path(dev, card) -> dict:
+    """Part (e): the study over the architecture axis (SWEEP_ARCH_STUDY)
+    through ``repro_torch.launch.sweep.main`` on the card, with ``--gang``
+    (16 tasks in 8 dispatches, one an arch) and one dispatch a task: every
+    instance ok and finite, each value one a task within GANG_LOSS_REL_TOL
+    of the gang's, each arch's dispatches launching every kernel its layers
+    have, one a task twice the gang's launches (a gang's launches do not
+    grow with its members).  Prints the ``sweep_archs`` line; returns
+    hymba-1.5b's launches in the gang (the (16, 8) SSD instance's)."""
+    study = SWEEP_DIR / "archs.yaml"
+    study.write_text(SWEEP_ARCH_STUDY)
+    runs = {}
+    for mode, extra in (("gang", ("--gang",)), ("one_a_task", ())):
+        archs = {}
+        with dispatches_by_arch(dev, archs):
+            results, out, wall = run_sweep(study, SWEEP_DIR / f"archs_{mode}", *extra)
+        runs[mode] = {"wall_s": wall, "out": out, "archs": archs,
+                      "values": values_by_arch(results, SWEEP_DIR / f"archs_{mode}")}
+    gang, each = runs["gang"], runs["one_a_task"]
+    per_arch = {arch: {
+        "gang_s": gang["archs"][arch]["seconds"], "one_a_task_s": each["archs"][arch]["seconds"],
+        "gang_dispatches": gang["archs"][arch]["dispatches"],
+        "one_a_task_dispatches": each["archs"][arch]["dispatches"],
+        "gang_launches": gang["archs"][arch]["launches"],
+        "one_a_task_launches": each["archs"][arch]["launches"],
+        "max_rel_diff": max_rel_diff(each["values"][arch], gang["values"][arch]),
+    } for arch in SWEEP_ARCHS}
+    emit("sweep_archs", nvidia_smi=card, archs=list(SWEEP_ARCHS), lrs=list(SWEEP_ARCH_LRS),
+         seed=0, steps=SWEEP_ARCH_STEPS, batch=SWEEP_ARCH_BATCH, seq=SWEEP_ARCH_SEQ,
+         gang={"wall_s": gang["wall_s"], "tasks_dispatches": gang_dispatches(gang["out"])},
+         one_a_task={"wall_s": each["wall_s"]}, per_arch=per_arch,
+         bound_rel_diff=GANG_LOSS_REL_TOL)
+    members = len(SWEEP_ARCH_LRS)
+    want = (members * len(SWEEP_ARCHS), len(SWEEP_ARCHS))
+    if gang_dispatches(gang["out"]) != want:
+        raise AssertionError(f"sweep (e): the gang made {gang_dispatches(gang['out'])} "
+                             f"(tasks, dispatches), not {want}")
+    for arch, run in per_arch.items():
+        if (run["gang_dispatches"], run["one_a_task_dispatches"]) != (1, members):
+            raise AssertionError(f"sweep (e) {arch}: {run['gang_dispatches']} gang and "
+                                 f"{run['one_a_task_dispatches']} one-a-task dispatches")
+        if not all(run["gang_launches"].values()):
+            raise AssertionError(f"sweep (e) {arch}: the gang launched {run['gang_launches']}")
+        if run["one_a_task_launches"] != {k: members * v
+                                          for k, v in run["gang_launches"].items()}:
+            raise AssertionError(f"sweep (e) {arch}: one a task launched "
+                                 f"{run['one_a_task_launches']}, not {members} x the "
+                                 f"gang's {run['gang_launches']}")
+        if not run["max_rel_diff"] <= GANG_LOSS_REL_TOL:
+            raise AssertionError(f"sweep (e) {arch}: one a task differs from the gang by "
+                                 f"{run['max_rel_diff']} > {GANG_LOSS_REL_TOL}")
+    return gang["archs"]["hymba-1.5b"]["launches"]
+
+
+def sweep_real_path(card) -> None:
+    """Part (f): one real-size shell task through the port's sweep on the
+    card, ``launch.train`` on hymba-1.5b at full width and depth (a new
+    process, which finds the port by PYTHONPATH); its record must be ok and
+    carry the program's exit code 0."""
+    study = SWEEP_DIR / "real.yaml"
+    study.write_text(SWEEP_REAL_STUDY.format(python=sys.executable, args=SWEEP_REAL_ARGS))
+    root = SWEEP_DIR / "real"
+    src = str(Path(__file__).resolve().parent / "src")
+    before = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = src if before is None else f"{src}{os.pathsep}{before}"
+    try:
+        results, out, wall = run_sweep(study, root)
+    finally:
+        if before is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = before
+    records = [json.loads(line) for line in
+               (root / "sweep_real" / "records.jsonl").read_text().splitlines()]
+    emit("sweep_real", nvidia_smi=card, command=f"python {SWEEP_REAL_ARGS}", wall_s=wall,
+         records=[{k: r.get(k) for k in ("status", "runtime", "metrics", "error")}
+                  for r in records])
+    metrics = (records[0].get("metrics") or {}) if records else {}
+    loss = metrics.get("loss")
+    if (len(results) != 1 or [r["status"] for r in records] != ["ok"]
+            or metrics.get("rc") != 0
+            or not (isinstance(loss, float) and math.isfinite(loss))):
+        raise AssertionError(f"sweep (f): the real-size task's records {records}:\n{out}")
+
+
+def ssd_smoke_entries(dev, card, launches: dict[str, int]) -> list[dict]:
+    """The four SSD kernels at hymba-1.5b's smoke shape (the reference's
+    smoke config: SSD head dim 16, state 8, chunk 16, at part (e)'s (2, 64)
+    tokens) against their plain versions on the same inputs: the forward
+    pair, then the backward pair (the scan's on the plain state pass's
+    outputs), every output within SSD_SLAB_REL_TOL of its (batch, head)'s
+    largest |plain| (the forward's also within SSD_TOL); each call's ms and
+    its kernel's own device ms, the plain version's and the bound.
+    ``launches`` are part (e)'s hymba gang's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ssd_scan as kssd
+    cfg = get_smoke("hymba-1.5b")
+    b, s = SWEEP_ARCH_BATCH, SWEEP_ARCH_SEQ
+    h, p, g, n, ch = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state,
+                      cfg.ssm_chunk)
+    q = min(ch, s)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    x, la, bm, cm, _ = ssd_inputs(gen, dev, b, s, h, p, g, n, False)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
+    prev, final = kssd.chunk_state(x, la, bm, chunk=ch)
+    y = kssd.chunk_scan(x, la, bm, cm, prev, chunk=ch)
+    want_prev, want_final = kssd.chunk_state_plain(x, la, bm, q)
+    want_y = kssd.chunk_scan_plain(x, la, bm, cm, prev, q)
+    state = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=ch)
+    want_state = kssd.chunk_state_bwd_plain(dy, la, cm, prev, q)
+    gnext, _, d_total = want_state
+    scan = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, gnext, d_total, chunk=ch)
+    want_scan = kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, gnext, d_total, q)
+    torch.cuda.synchronize()
+
+    def summed(out):   # the scan backward's dB and dC slices added
+        return out[0], out[1], out[2].sum(3), out[3].sum(3)
+
+    outputs = {   # kernel: (output, got, want, the dims of a (batch, head) slab)
+        "ssd_chunk_state": [("prev", prev, want_prev, (0, 1)),
+                            ("final", final, want_final, (0, 1))],
+        "ssd_chunk_scan": [("y", y, want_y, (0, 2))],
+        "ssd_chunk_state_bwd": [(part, a, w, (0, 1)) for part, a, w in
+                                zip(("gnext", "dinit", "dT"), state, want_state)],
+        "ssd_chunk_scan_bwd": [(part, a, w, (0, 2)) for part, a, w in
+                               zip(("dx", "dlog_a", "dB", "dC"), summed(scan),
+                                   summed(want_scan))],
+    }
+    errors = {}
+    for name, outs in outputs.items():
+        for part, a, w, keep in outs:
+            err, rel = (a.float() - w.float()).abs().max().item(), slab_rel_err(a, w, keep)
+            errors[f"{name} {part}"] = {"max_abs_err": err, "max_bh_rel_err": rel}
+            if not (rel <= SSD_SLAB_REL_TOL and (name.endswith("_bwd") or err <= SSD_TOL)):
+                raise AssertionError(f"ssd (16, 8) {name} {part}: max |err| {err} (tol "
+                                     f"{SSD_TOL}), per (b, h) {rel} (tol {SSD_SLAB_REL_TOL})")
+    slices = h // kssd.bwd_heads_per_block(h, g) // g
+    calls = {   # kernel: (its call, its plain version's, its bound (ops ms, bytes ms))
+        "ssd_chunk_state": (lambda: kssd.chunk_state(x, la, bm, chunk=ch),
+                            lambda: kssd.chunk_state_plain(x, la, bm, q),
+                            ssd_floor_ms(b, s, h, p, g, n, ch, "chunk_state")),
+        "ssd_chunk_scan": (lambda: kssd.chunk_scan(x, la, bm, cm, prev, chunk=ch),
+                           lambda: kssd.chunk_scan_plain(x, la, bm, cm, prev, q),
+                           ssd_floor_ms(b, s, h, p, g, n, ch, "chunk_scan")),
+        "ssd_chunk_state_bwd": (
+            lambda: kssd.chunk_state_bwd(dy, la, cm, prev, chunk=ch),
+            lambda: kssd.chunk_state_bwd_plain(dy, la, cm, prev, q),
+            ssd_bwd_floor_ms(b, s, h, p, g, n, ch, "chunk_state_bwd", slices=slices)),
+        "ssd_chunk_scan_bwd": (
+            lambda: kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, gnext, d_total, chunk=ch),
+            lambda: kssd.chunk_scan_bwd_plain(x, la, bm, cm, prev, dy, gnext, d_total, q),
+            ssd_bwd_floor_ms(b, s, h, p, g, n, ch, "chunk_scan_bwd", slices=slices)),
+    }
+    entries = []
+    for name, (kernel, plain, floors) in calls.items():
+        bound_ms, bound_by = bound(*floors)
+        entries.append({
+            "name": name, "path": "sweep (e): hymba-1.5b smoke gang, SSD (16, 8)",
+            "route": "cuda", "source": SSD_SOURCE,
+            "replaces": SSD_REPLACES.get(name, SSD_BWD_REPLACES),
+            "launches": launches[name],
+            "max_abs_err": max(e["max_abs_err"] for k, e in errors.items()
+                               if k.split()[0] == name),
+            "ms": time_ms(kernel, 20),
+            # the kernel's own device time: at this size a call is the
+            # wrapper's host time
+            "kernel_ms": kernel_ms(kernel, name, 5),
+            "plain_ms": time_ms(plain, 5, 1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    emit("kernel_check", kernel="ssd_scan (16, 8)", case="hymba-1.5b smoke",
+         shape=[b, s, h, p, g, n, q], errors=errors, tol=SSD_TOL,
+         bh_rel_tol=SSD_SLAB_REL_TOL, slices_per_group=slices, nvidia_smi=card,
+         entries=entries)
+    return entries
+
+
+def sweep_path(dev, card) -> list[dict]:
     """The PaPaS driver on the card: (a) a study of 4 gemma3-1b training
     runs gang-packed by ``--gang`` into one dispatch, whose flash-attention
     launches are one member's; (b) the same study one dispatch a task
@@ -3883,7 +4158,10 @@ def sweep_path(dev, card) -> None:
     (c) the same at ``--pool thread --slots 2`` (two tasks at once in one
     process); (d) ``python -m repro_torch.launch.sweep`` in a process that
     cannot import jax, yaml or the reference, on an olmoe-1b-7b gang that
-    reaches the grouped GEMM's three kernels."""
+    reaches the grouped GEMM's three kernels; (e) the study over every
+    token-input architecture (``sweep_archs_path``), (f) one real-size
+    task (``sweep_real_path``).  Returns the entries of the SSD kernels'
+    (16, 8) instance, at the shape (e)'s hymba tasks give it."""
     import importlib.util
     import shutil
 
@@ -3968,6 +4246,10 @@ def sweep_path(dev, card) -> None:
     if not all(moe_launches.get(k) for k in ("grouped_matmul", "grouped_matmul_dx",
                                              "grouped_matmul_dw")):
         raise AssertionError(f"sweep: the olmoe gang launched {moe_launches}")
+    hymba_launches = sweep_archs_path(dev, card)
+    torch.cuda.empty_cache()
+    sweep_real_path(card)
+    return ssd_smoke_entries(dev, card, hymba_launches)
 
 
 #: the mesh step at data 1 against the step without a mesh: the same
@@ -5573,7 +5855,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     gang_path(dev, card)
     torch.cuda.empty_cache()
-    sweep_path(dev, card)
+    kernels += sweep_path(dev, card)
     torch.cuda.empty_cache()
     # the mesh section: launch.train's data-parallel step on a one-rank
     # mesh, then the MoE dispatch under a mesh

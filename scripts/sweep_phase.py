@@ -3,7 +3,10 @@
 PaPaS driver on a study of gemma3-1b smoke training runs as one gang, one
 dispatch a task and on two threads, then ``python -m
 repro_torch.launch.sweep`` with jax, yaml and the reference blocked on an
-olmoe-1b-7b gang (``chip_smoke.sweep_path``).
+olmoe-1b-7b gang, a study over the 8 token-input architectures as 8 gangs
+and one dispatch a task, one real-size hymba-1.5b ``launch.train`` as a
+shell task, and the SSD kernels' (16, 8) instance against its plain
+versions (``chip_smoke.sweep_path``).
 
     python3 scripts/sweep_phase.py
 
@@ -31,8 +34,7 @@ def main() -> None:
     cs.emit("environment", nvidia_smi=card, torch=torch.__version__,
             cuda=torch.version.cuda, python=sys.version.split()[0])
     cs.emit("build", seconds=_build.build())
-    cs.sweep_path(dev, card)
-    cs.emit("done")
+    cs.emit("done", kernels=cs.sweep_path(dev, card))
 
 
 if __name__ == "__main__":

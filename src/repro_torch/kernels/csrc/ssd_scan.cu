@@ -38,7 +38,7 @@
 //   registers: ldmatrix.trans of the x tile, scaled, split into bf16 hi +
 //   lo, two wgmmas; B is read N-major from shared memory through the
 //   transpose flag.  P 16 is padded to the 64 rows of a wgmma by the x
-//   map's zero fill, N 16 to 64 columns by the B map's.
+//   map's zero fill, N 8 and 16 to 64 columns by the B map's.
 // * The state pass is a chained hand-off (a decoupled look-back over the
 //   chunks).  Each block takes its (b, h, c) from an atomic ticket, chunk
 //   by chunk, so the block of chunk c - 1 took an earlier ticket and has
@@ -138,7 +138,7 @@ constexpr int kLoaderBar = 3;        // named barrier of the loading warpgroup
 // Head dim P and state dim N padded to the 64 columns of a box.
 template <int P, int N>
 struct Shape {
-  static_assert(P % 16 == 0 && P <= 64 && N % 16 == 0 && N <= 128, "dims");
+  static_assert(P % 16 == 0 && P <= 64 && N % 8 == 0 && N <= 128, "dims");
   static constexpr int kNPad = (N + 63) / 64 * 64;
   static constexpr int kNBoxes = kNPad / 64;
   // dynamic shared memory: the state kernel's ring, the scan kernel's
@@ -876,7 +876,9 @@ template <int P, int N>
 struct BwdShape {
   static constexpr int kNPad = Shape<P, N>::kNPad;
   static constexpr int kNB = Shape<P, N>::kNBoxes;
-  static constexpr int kKN = N / 16;    // 16-deep k-steps over n
+  // 16-deep k-steps over n; N 8 takes one, its columns 8-15 zeros in both
+  // operands (the maps' fill past N, the planes' zeros)
+  static constexpr int kKN = (N + 15) / 16;
   static constexpr int kKP = P / 16;    // ... over p
   // dynamic shared memory for `tiles` row tiles: B_J (kNB boxes), x_J, C_I
   // (kNB), dy_I, the operand planes (hi, lo: kNB boxes each), the chunk's
@@ -1594,6 +1596,7 @@ int launch_scan_bwd(const Call& call, int rep, const void* x, const void* b,
   if (call.p == 64 && call.n == 64) return FN<64, 64>(__VA_ARGS__);     \
   if (call.p == 64 && call.n == 16) return FN<64, 16>(__VA_ARGS__);     \
   if (call.p == 16 && call.n == 16) return FN<16, 16>(__VA_ARGS__);     \
+  if (call.p == 16 && call.n == 8) return FN<16, 8>(__VA_ARGS__);       \
   return cudaErrorInvalidValue;
 
 extern "C" {

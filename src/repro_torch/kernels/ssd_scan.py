@@ -53,7 +53,7 @@ from . import (
 
 #: (head dim P, state dim N) pairs the CUDA source is compiled for (its
 #: ``SSD_DISPATCH``)
-HEAD_STATE_DIMS = ((64, 128), (64, 64), (64, 16), (16, 16))
+HEAD_STATE_DIMS = ((64, 128), (64, 64), (64, 16), (16, 16), (16, 8))
 
 #: the longest chunk the kernels take (Q rows of one chunk in one block)
 MAX_CHUNK = 256

@@ -11,9 +11,8 @@ embeddings reach only ``forward``), ...  The weights are made straight in
 the compute dtype (``Model.init(serving=True)``), so internvl2-26b's 19.9 B
 parameters take 39.8 GB and qwen2-moe-a2.7b runs at full depth on one
 card.  hubert-xlarge is encoder-only: there is nothing to decode, and the
-command exits saying so.  hymba-1.5b's ``--smoke`` config (SSD state 8)
-has no SSD kernel on the card, whose state dims are multiples of 16: run
-it with ``--device cpu``.
+command exits saying so.  hymba-1.5b's ``--smoke`` config (SSD head dim
+16, state 8) runs on the card too: the SSD kernels take that pair.
 
 Full width unless ``--smoke``; on ``cuda`` unless ``--device cpu``.
 Runs under the PaPaS engine like any program, e.g. a study with

@@ -9,8 +9,9 @@ steps=5``: ``key=value`` defaults under the swept ``args``) are resolved
 to in-process training calls on the smoke config of their arch
 (registry execution, ``repro_torch.train.ensemble.train_members``, one
 member a call); anything else runs as a shell command.  ``--gang``
-gang-packs stackable instances (same arch/shape, different scalars)
-into ONE batched run through ``repro_torch.train.ensemble.train_ensemble``
+gang-packs stackable instances into ONE batched run for each (arch,
+steps, batch, seq) their combos give (the scalars, lr and seed, differ
+within it) through ``repro_torch.train.ensemble.train_ensemble``
 — the members stacked on a leading axis of every tensor and folded into
 each kernel's launch: the paper's job-batching (§4.3) on one card.
 ``--device`` (``cuda`` by default, ``cpu`` for the tests) is where the
@@ -281,11 +282,17 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             extra_kwargs["on_result"] = _tick
 
     if args.gang:
+        from repro_torch.train import ensemble
+
         def gang_runner(nodes):
-            from repro_torch.train.ensemble import train_ensemble
             members = [dict(n.combo) for n in nodes]
-            return train_ensemble(members, device=args.device)
-        gang = GangExecutor(stackable_key, gang_runner)
+            return ensemble.train_ensemble(members, device=args.device)
+
+        def gang_key(node):
+            # an axis over a shape-affecting key (arch, steps, batch, seq)
+            # makes one gang a value: members of one dispatch share them
+            return (*stackable_key(node), ensemble.shape_key(node.combo))
+        gang = GangExecutor(gang_key, gang_runner)
         results = study.run(gang=gang, resume=args.resume,
                             window=args.window, **extra_kwargs)
         print(f"[gang] {gang.stats.tasks} tasks in "

@@ -58,11 +58,22 @@ def _uniform(members: Sequence[dict], key: str, default: Any) -> Any:
     return _arg(members[0], key, default)
 
 
+#: the member keys that shape a run, with their defaults: one gang's
+#: members share them
+SHAPE_KEYS = (("arch", "gemma3-1b"), ("steps", 20), ("batch", 4), ("seq", 64))
+
+
+def shape_key(member: dict[str, Any]) -> tuple[str, ...]:
+    """The values of :data:`SHAPE_KEYS` ``member`` runs with: members with
+    the same key stack into one gang."""
+    return tuple(repr(_arg(member, key, default)) for key, default in SHAPE_KEYS)
+
+
 def _common(members: Sequence[dict]) -> dict[str, Any]:
-    steps = int(_uniform(members, "steps", 20))
-    return {"arch": _uniform(members, "arch", "gemma3-1b"), "steps": steps,
-            "batch": int(_uniform(members, "batch", 4)),
-            "seq": int(_uniform(members, "seq", 64)),
+    arch, steps, batch, seq = (_uniform(members, key, default)
+                               for key, default in SHAPE_KEYS)
+    steps = int(steps)
+    return {"arch": arch, "steps": steps, "batch": int(batch), "seq": int(seq),
             "warmup": max(1, steps // 10),
             "lrs": [float(_arg(m, "lr", 1e-3)) for m in members],
             "seeds": [int(_arg(m, "seed", 0)) for m in members]}

@@ -447,6 +447,38 @@ def test_kernel_ms_sums_only_the_matching_kernels_per_call(monkeypatch):
     assert len(calls) == 3   # one warm-up, then the profiled calls
 
 
+def test_kernel_ms_is_none_where_the_profiler_catches_no_kernel(monkeypatch):
+    """A profile with no kernel of the name, twice over, is not measured
+    (None), never a device time of 0; a second try that catches it counts."""
+    tries = []
+
+    class Profile:
+        def __init__(self, activities):
+            tries.append(1)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            span = SimpleNamespace(start=0.0, end=40.0)
+            return [SimpleNamespace(name="ssd_chunk_scan_kernel<16, 8>", time_range=span,
+                                    device_type=cs.torch.autograd.DeviceType.CUDA)
+                    ] if len(tries) == caught_on else []
+
+    monkeypatch.setattr(cs, "profile", Profile)
+    monkeypatch.setattr(cs.torch.cuda, "synchronize", lambda: None)
+    calls = []
+    caught_on = 3
+    assert cs.kernel_ms(lambda: calls.append(1), "ssd_chunk_scan", iters=2) is None
+    assert len(tries) == 2 and len(calls) == 5
+    tries.clear()
+    caught_on = 2
+    assert cs.kernel_ms(lambda: None, "ssd_chunk_scan", iters=2) == pytest.approx(0.020)
+
+
 def test_fa_bwd_cases_cover_every_head_dim():
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     assert {case[5] for case in cs.FA_BWD_CASES} >= set(HEAD_DIMS)
@@ -679,18 +711,18 @@ def test_path_kernels_pick_both_families_for_a_hybrid_config():
     """The gang's count picker: a hybrid config launches the attention and
     the SSD kernels (forward, and with the backward both backward kernels);
     the other configs only their own."""
-    from repro_torch.configs import get
-    hymba = cs.card_smoke("hymba-1.5b")
+    from repro_torch.configs import get, get_smoke
+    hymba = get_smoke("hymba-1.5b")
     assert set(cs.path_kernels(hymba, backward=True)) == {
         "flash_attention", "flash_attention_bwd", "ssd_chunk_state", "ssd_chunk_scan",
         "ssd_chunk_state_bwd", "ssd_chunk_scan_bwd"}
     assert cs.path_kernels(get("hymba-1.5b"), backward=False) == (
         "flash_attention", "ssd_chunk_state", "ssd_chunk_scan")
-    assert set(cs.path_kernels(cs.card_smoke("mamba2-780m"), True)) == {
+    assert set(cs.path_kernels(get_smoke("mamba2-780m"), True)) == {
         "ssd_chunk_state", "ssd_chunk_scan", "ssd_chunk_state_bwd", "ssd_chunk_scan_bwd"}
     assert cs.path_kernels(get("gemma3-1b"), True) == (
         "flash_attention", "flash_attention_bwd")
-    assert set(cs.path_kernels(cs.card_smoke("olmoe-1b-7b"), True)) == {
+    assert set(cs.path_kernels(get_smoke("olmoe-1b-7b"), True)) == {
         "flash_attention", "flash_attention_bwd", "grouped_matmul",
         "grouped_matmul_dx", "grouped_matmul_dw"}
     # every name is a counter the script reads
@@ -699,19 +731,31 @@ def test_path_kernels_pick_both_families_for_a_hybrid_config():
         cs.path_kernels(hymba, True), 0)
 
 
-def test_card_smoke_hymba_takes_a_state_the_ssd_kernels_have():
-    """The reference's smoke hymba has an SSD state of 8, which the SSD
-    kernels (state dims multiples of 16) do not take; the card's smoke
-    config differs in that field only."""
-    import dataclasses
-    from repro_torch.configs import get_smoke
+def _ssm_configs():
+    from repro_torch.configs import all_archs, get, get_smoke
+    return [pytest.param(cfg, id=cfg.name) for arch in all_archs()
+            for cfg in (get(arch), get_smoke(arch))]
+
+
+@pytest.mark.parametrize("cfg", _ssm_configs())
+def test_every_config_takes_an_ssd_pair_the_kernels_have(cfg):
+    """Every config, full and smoke (the reference's, as the card runs
+    them), with SSM layers has its (head dim, state dim) among the pairs
+    the SSD kernels are compiled for: hymba-1.5b's smoke (16, 8) too."""
     from repro_torch.kernels.ssd_scan import HEAD_STATE_DIMS
-    ref, card = get_smoke("hymba-1.5b"), cs.card_smoke("hymba-1.5b")
-    assert (ref.ssm_head_dim, ref.ssm_state) not in HEAD_STATE_DIMS
-    assert (card.ssm_head_dim, card.ssm_state) in HEAD_STATE_DIMS
-    assert dataclasses.replace(card, ssm_state=ref.ssm_state) == ref
-    assert cs.card_smoke("mamba2-780m") == get_smoke("mamba2-780m")
-    assert cs.card_smoke("hymba-1.5b", use_kernels=True).use_kernels
+    if set(cfg.layer_types) & set(cs.SSM_KINDS):
+        assert (cfg.ssm_head_dim, cfg.ssm_state) in HEAD_STATE_DIMS
+    else:   # no SSM layer, and no SSD dims that could escape the check
+        assert cfg.ssm_state == 0
+
+
+def test_the_ssd_cases_cover_every_pair():
+    """The card script holds the forward and backward SSD kernels against
+    their plain versions at every (P, N) pair they are compiled for."""
+    import inspect
+    from repro_torch.kernels.ssd_scan import HEAD_STATE_DIMS
+    assert {(case[4], case[6]) for case in cs.SSD_BWD_CASES} == set(HEAD_STATE_DIMS)
+    assert '("(16, 8)", 2, 1024, 8, 16, 1, 8, 256, True)' in inspect.getsource(cs.mamba2_path)
 
 
 def test_hymba_train_reckoning():
@@ -1216,3 +1260,33 @@ def test_sweep_blocked_import_run_on_the_cpu(tmp_path):
     assert all(math.isfinite(float(r[2])) for r in results)
     assert json.loads(lines[-1]) == {"grouped_matmul": 0, "grouped_matmul_dx": 0,
                                      "grouped_matmul_dw": 0}
+
+
+def test_sweep_over_the_arch_axis_on_the_cpu(tmp_path):
+    """Part (e)'s study on the CPU through the port's sweep (each train
+    task on its arch's smoke config): ``--gang`` makes 16 tasks in 8
+    dispatches, one an arch, and one dispatch a task 2 an arch; every
+    instance ok and finite, and each value one a task within
+    GANG_LOSS_REL_TOL of the gang's."""
+    import contextlib
+    import io
+    from repro_torch.launch import sweep
+    study = tmp_path / "archs.yaml"
+    study.write_text(cs.SWEEP_ARCH_STUDY)
+    runs = {}
+    for mode, extra in (("gang", ["--gang"]), ("each", [])):
+        archs, out = {}, io.StringIO()
+        with cs.dispatches_by_arch(torch.device("cpu"), archs), \
+                contextlib.redirect_stdout(out):
+            results = sweep.main([str(study), "--root", str(tmp_path / mode),
+                                  "--device", "cpu", *extra])
+        runs[mode] = (archs, out.getvalue(), cs.values_by_arch(results, tmp_path / mode))
+    assert cs.gang_dispatches(runs["gang"][1]) == (16, 8)
+    assert "[gang]" not in runs["each"][1]
+    assert set(runs["gang"][0]) == set(runs["each"][0]) == set(cs.SWEEP_ARCHS)
+    for arch in cs.SWEEP_ARCHS:
+        assert runs["gang"][0][arch]["dispatches"] == 1
+        assert runs["each"][0][arch]["dispatches"] == 2
+        assert len(runs["gang"][2][arch]) == 2
+        assert cs.max_rel_diff(runs["each"][2][arch],
+                               runs["gang"][2][arch]) <= cs.GANG_LOSS_REL_TOL

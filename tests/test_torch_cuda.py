@@ -109,7 +109,7 @@ def _ssd(dev, b, s, h, p, g, n, init, seed=0):
 @pytest.mark.parametrize("s,chunk", [(64, 64), (512, 256), (100, 256),
                                      (192, 64), (48, 16)])
 @pytest.mark.parametrize("h,p,g,n", [(4, 64, 1, 128), (6, 64, 2, 64),
-                                     (4, 64, 4, 16), (2, 16, 1, 16)])
+                                     (4, 64, 4, 16), (2, 16, 1, 16), (8, 16, 1, 8)])
 @pytest.mark.parametrize("init", [False, True])
 def test_ssd_kernels_match_plain(dev, s, chunk, h, p, g, n, init):
     from repro_torch.kernels import ssd_scan as kssd
@@ -134,7 +134,7 @@ def test_ssd_kernels_match_plain(dev, s, chunk, h, p, g, n, init):
 
 @pytest.mark.parametrize("s,chunk", [(480, 96), (480, 160), (300, 100)])
 @pytest.mark.parametrize("h,p,g,n", [(4, 64, 1, 128), (6, 64, 2, 64),
-                                     (4, 64, 4, 16), (2, 16, 1, 16)])
+                                     (4, 64, 4, 16), (2, 16, 1, 16), (8, 16, 1, 8)])
 def test_ssd_kernels_match_plain_ragged_chunks(dev, s, chunk, h, p, g, n):
     """Q not a multiple of 64 over several chunks: each chunk's last row
     tile is partial, and the hand-off runs along them."""
@@ -171,7 +171,8 @@ def test_ssd_hand_off_along_256_chunks(dev):
 
 @pytest.mark.parametrize("s,chunk,h,p,g,n,init", [
     (2048, 256, 48, 64, 1, 128, False), (2048, 256, 50, 64, 1, 16, False),
-    (1024, 256, 16, 64, 4, 64, True), (480, 96, 4, 16, 1, 16, True)])
+    (1024, 256, 16, 64, 4, 64, True), (480, 96, 4, 16, 1, 16, True),
+    (64, 16, 8, 16, 1, 8, False)])
 def test_ssd_kernels_are_deterministic(dev, s, chunk, h, p, g, n, init):
     """No atomics in any sum and each state handed on once: two calls on
     the same inputs give the same bits."""
@@ -768,7 +769,7 @@ def _slices_summed(out):
 
 
 @pytest.mark.parametrize("h,p,g,n", [(4, 64, 1, 128), (6, 64, 2, 64),
-                                     (4, 64, 4, 16), (2, 16, 1, 16)])
+                                     (4, 64, 4, 16), (2, 16, 1, 16), (8, 16, 1, 8)])
 @pytest.mark.parametrize("s,chunk,init", [(512, 256, False), (480, 96, True),
                                           (64, 64, True)])
 def test_ssd_backward_kernels_match_plain(dev, h, p, g, n, s, chunk, init):
@@ -813,7 +814,7 @@ def test_ssd_backward_kernels_match_plain(dev, h, p, g, n, s, chunk, init):
 
 @pytest.mark.parametrize("s,chunk,h,p,g,n,init", [
     (2048, 256, 48, 64, 1, 128, True), (2048, 256, 50, 64, 1, 16, False),
-    (480, 96, 4, 16, 1, 16, True)])
+    (480, 96, 4, 16, 1, 16, True), (64, 16, 8, 16, 1, 8, False)])
 def test_ssd_backward_kernels_are_deterministic(dev, s, chunk, h, p, g, n, init):
     """No atomics in any sum and each G handed on once: two calls give the
     same bits."""

@@ -60,10 +60,8 @@ KEYS = {"arch", "shape", "mesh", "applicable", "chips", "rank", "links", "memory
 OPTS = dict(loss_chunk=1024, vocab_pad=256, param_dtype="bfloat16", attn_q_chunk=1024,
             seq_shard=True)
 #: the smoke configs cut to shapes the kernels take at model 16 (an
-#: expert's f / 16 a multiple of 8; the SSD kernels' state of 16, as
-#: chip_smoke.py's CARD_SMOKE)
-SMOKE_OVERRIDES = {"hymba-1.5b": {"ssm_state": 16},
-                   "olmoe-1b-7b": {"moe_d_ff": 128},
+#: expert's f / 16 a multiple of 8)
+SMOKE_OVERRIDES = {"olmoe-1b-7b": {"moe_d_ff": 128},
                    "qwen2-moe-a2.7b": {"moe_d_ff": 128}}
 
 
@@ -299,7 +297,7 @@ def test_meta_route_refuses_what_the_kernel_refuses():
                                    _meta(4, dtype=torch.int32))
         with pytest.raises(ValueError, match="not supported by the kernel"):
             kssd.ssd_scan(_meta(1, 64, 2, 16), _meta(1, 64, 2, dtype=torch.float32),
-                          _meta(1, 64, 1, 8), _meta(1, 64, 1, 8), chunk=64)
+                          _meta(1, 64, 1, 4), _meta(1, 64, 1, 4), chunk=64)
         with pytest.raises(TypeError, match="bfloat16"):
             fa.flash_attention(*(_meta(1, 64, 2, 64, dtype=torch.float32),) * 3)
         assert calls == []
@@ -315,6 +313,36 @@ def test_meta_route_refuses_what_the_kernel_refuses():
         ("ssd_chunk_state", *kcosts.ssd(1, 64, 2, 64, 1, 128, 32, "chunk_state")),
         ("ssd_chunk_scan", *kcosts.ssd(1, 64, 2, 64, 1, 128, 32, "chunk_scan"))]
     assert fa.launches == 0 and moe_gmm.launches == 0 and kssd.state_launches == 0
+
+
+def test_meta_route_takes_the_16_8_pair():
+    """hymba-1.5b's smoke SSD pair (head dim 16, state 8): each of the four
+    SSD kernels' meta routes takes it and reports its cost, with no launch
+    counted; (16, 4), which no instance compiles, still raises."""
+    f32 = torch.float32
+    b, s, h, p, g, n, q = 2, 64, 8, 16, 1, 8, 16
+    x, dy = _meta(b, s, h, p), _meta(b, s, h, p)
+    la, bm, cm = _meta(b, s, h, dtype=f32), _meta(b, s, g, n), _meta(b, s, g, n)
+    calls = []
+    with events.counting(lambda event, *a: calls.append(a)):
+        prev, final = kssd.chunk_state(x, la, bm, chunk=q)
+        y = kssd.chunk_scan(x, la, bm, cm, prev, chunk=q)
+        gnext, dinit, d_total = kssd.chunk_state_bwd(dy, la, cm, prev, chunk=q)
+        dx, dla, db, dc = kssd.chunk_scan_bwd(x, la, bm, cm, prev, dy, gnext, d_total,
+                                              chunk=q)
+        with pytest.raises(ValueError, match="not supported by the kernel"):
+            kssd.chunk_state(x, la, _meta(b, s, g, 4), chunk=q)
+    assert prev.shape == (b, h, s // q, p, n) and final.shape == (b, h, p, n)
+    assert y.shape == (b, s, h, p) and dx.shape == (b, s, h, p)
+    assert db.shape == dc.shape == (b, s, g, 1, n)
+    assert all(t.device.type == "meta" for t in (prev, y, gnext, dinit, d_total, dla))
+    assert calls == [
+        ("ssd_chunk_state", *kcosts.ssd(b, s, h, p, g, n, q, "chunk_state")),
+        ("ssd_chunk_scan", *kcosts.ssd(b, s, h, p, g, n, q, "chunk_scan")),
+        ("ssd_chunk_state_bwd", *kcosts.ssd_bwd(b, s, h, p, g, n, q, "chunk_state_bwd")),
+        ("ssd_chunk_scan_bwd", *kcosts.ssd_bwd(b, s, h, p, g, n, q, "chunk_scan_bwd"))]
+    assert (kssd.state_launches, kssd.scan_launches, kssd.state_bwd_launches,
+            kssd.scan_bwd_launches) == (0, 0, 0, 0)
 
 
 def test_without_a_counter_a_meta_tensor_has_no_kernel():

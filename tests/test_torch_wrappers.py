@@ -257,3 +257,17 @@ def test_bind_declares_the_c_entry_points_of_the_source(module, source, names):
     for name, argtypes in entries.items():
         assert list(getattr(lib, name).argtypes) == argtypes, name
         assert getattr(lib, name).restype is ctypes.c_int
+
+
+def test_ssd_dispatch_compiles_the_pairs_the_wrapper_takes():
+    """``SSD_DISPATCH`` in ``ssd_scan.cu`` instantiates every (P, N) pair of
+    ``HEAD_STATE_DIMS`` and no other, in the same order: the wrapper's
+    check and the source's instances are one list."""
+    text = (_build.CSRC / "ssd_scan.cu").read_text()
+    macro = text[text.index("#define SSD_DISPATCH"):]
+    macro = macro[:macro.index("return cudaErrorInvalidValue;")]
+    pairs = re.findall(r"call\.p == (\d+) && call\.n == (\d+)\) return FN<(\d+), (\d+)>",
+                       macro)
+    assert all((p, n) == (tp, tn) for p, n, tp, tn in pairs)
+    assert tuple((int(p), int(n)) for p, n, _, _ in pairs) == kssd.HEAD_STATE_DIMS
+    assert (16, 8) in kssd.HEAD_STATE_DIMS

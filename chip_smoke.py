@@ -53,7 +53,8 @@ olmoe-1b-7b):
 4. prefill: full-width ``forward`` on a (4, 2048) batch, with the launch
    counts reset just before it and read just after, the weights made by
    the serving init straight into bf16 (olmoe-1b-7b with both MoE
-   dispatches; then qwen2-moe-a2.7b at full width and depth);
+   dispatches; then qwen2-moe-a2.7b at full width and depth, which is
+   served on the graphed engine too, its tree reused);
 5. correctness at full width: prefill against teacher-forced decode, and
    a forward against the same model with the kernels' plain version in
    their place (for olmoe-1b-7b also the count of routing decisions that
@@ -65,10 +66,18 @@ olmoe-1b-7b):
    layers, SSD_CONSISTENCY_LAYERS); then the card's forward
    against the CPU's on the reference's smoke config (hymba's with its
    SSD state of 8, the kernels' (16, 8) instance);
-6. serve: ``ServeEngine`` answers 8 requests of 16 new tokens each;
-7. profile: one prefill and a window of 4 decode steps under
-   ``torch.profiler``: device busy time and idle share, kernel launches,
-   host synchronisations and device time by kernel class.
+6. serve (``graph_serve``): ``ServeEngine``, which on the card captures
+   the decode step once as a CUDA graph and replays it every tick, first
+   on a cache of 8 positions against the eager step on a second cache,
+   both fed the same 12 teacher-forced ticks past every ring, under §2's
+   decode gates (bit-equal predicted); then on a cache of 1024 it answers
+   8 requests of 16 new tokens each, its kernels' launches counted from
+   the replays; then graphed and eager decode tokens/s in turns;
+7. profile: one prefill, a window of 4 graphed decode ticks (one
+   cudaGraphLaunch and at most DECODE_ENGINE_SYNCS host synchronisations
+   a tick) and one eager tick under ``torch.profiler``: device busy time
+   and idle share, kernel launches, host synchronisations and device time
+   by kernel class.
 
 Then the training path of gemma3-1b:
 
@@ -135,7 +144,11 @@ the tree's bytes): the attention calls of a prefill timed together, a
 prefill on (4, 2048) tokens, prefill against decode over 160 positions
 at full depth, for h2o-danube-1.8b a forward on one row of 4608
 positions against the plain attention's (past its window), the card
-against the CPU and serve; then olmoe-1b-7b's path.
+against the CPU, serve and the decode profiles; then olmoe-1b-7b's path,
+whose grouped GEMM (48 calls a tick, qwen2-moe-a2.7b's 72) is held
+inside the graphed decode too: its launches counted from the replays, one
+tick's calls timed as one captured graph against their plain versions,
+``torch._grouped_mm`` and the bound (an entry of the kernels line each).
 
 Then the training path of hymba-1.5b: the backward kernels' calls of one
 train step (32 of each, timed together), its memory reckoned, then
@@ -311,9 +324,11 @@ WINDOW_CHECK_SEQ = 600        # past gemma3-1b's window of 512
 PROFILE_DECODE_STEPS = 4
 #: a prefill's batch: the tokens of each path's prefill phase
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
-#: host-side runtime calls that launch a kernel or wait for the device
+#: host-side runtime calls that launch a kernel (or a captured graph of
+#: them: GRAPH_CALLS) or wait for the device
+GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                "cuLaunchKernelEx")
+                "cuLaunchKernelEx") + GRAPH_CALLS
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -513,9 +528,20 @@ HUBERT_TRAIN_WARMUP, HUBERT_TRAIN_TIMED = 2, 3
 #: layer kinds that run the attention kernels, and the SSD kernels
 ATTENTION_KINDS = ("attn", "swa", "enc", "moe", "hyb_g", "hyb_l")
 SSM_KINDS = ("ssm", "hyb_g", "hyb_l")
-#: host synchronisations a decode step may make besides one a layer (the
-#: attention's 0-d scale): the engine's token upload and argmax read
+#: host synchronisations a decode tick may make: the graphed engine reads
+#: the next tokens back (one; its tokens go up from pinned memory), and no
+#: layer adds one (the attention's 0-d scale is a fill on the card)
 DECODE_ENGINE_SYNCS = 4
+#: the graphed engine against the eager step (graph_vs_eager): a cache of
+#: GRAPH_CHECK_LEN positions (every ring min(window, GRAPH_CHECK_LEN) long)
+#: fed GRAPH_CHECK_TICKS teacher-forced ticks, past each ring
+GRAPH_CHECK_LEN, GRAPH_CHECK_TICKS = 8, 12
+#: ticks of each timed turn of graph_serve (eager, graphed, graphed,
+#: eager), 4 slots, a cache of 1024
+GRAPH_TIMED_TICKS = 8
+#: eager ticks a profile_decode_eager window holds (the profiler's trace of
+#: one, 3,000-5,700 launches, takes it 1.5-4 s to read)
+PROFILE_EAGER_TICKS = 1
 
 
 _START = time.perf_counter()
@@ -752,29 +778,15 @@ def path_kernels(cfg, backward: bool) -> tuple[str, ...]:
 
 def launch_counts(names: tuple[str, ...]) -> dict[str, int]:
     """The launch counts of the kernels ``names`` since their last reset."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_gmm
-    from repro_torch.kernels import ssd_scan as kssd
-    counts = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
-              "ssd_chunk_state": kssd.state_launches,
-              "ssd_chunk_scan": kssd.scan_launches,
-              "ssd_chunk_state_bwd": kssd.state_bwd_launches,
-              "ssd_chunk_scan_bwd": kssd.scan_bwd_launches,
-              "grouped_matmul": moe_gmm.launches,
-              "grouped_matmul_dx": moe_gmm.dx_launches,
-              "grouped_matmul_dw": moe_gmm.dw_launches}
+    from repro_torch import kernels
+    counts = kernels.launch_counts()
     return {name: counts[name] for name in names}
 
 
 def reset_launches() -> None:
     """Every kernel wrapper's launch count set to 0."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_gmm
-    from repro_torch.kernels import ssd_scan as kssd
-    fa.launches = fa.bwd_launches = 0
-    kssd.state_launches = kssd.scan_launches = 0
-    kssd.state_bwd_launches = kssd.scan_bwd_launches = 0
-    moe_gmm.launches = moe_gmm.dx_launches = moe_gmm.dw_launches = 0
+    from repro_torch import kernels
+    kernels.reset_launches()
 
 
 def attention_windows(cfg) -> list[int]:
@@ -1122,13 +1134,14 @@ def summarize(prof, wall_s: float, steps: int) -> dict:
     kernel class and by kernel name, and the host's own time by operator;
     ``summary_s``, the seconds this reading of the trace took."""
     t0 = time.perf_counter()
-    device, launches, syncs = [], 0, 0
+    device, launches, replays, syncs = [], 0, 0, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if not e.name.startswith(NCCL_ANNOTATION):   # its kernel is counted
                 device.append(e)
         elif e.name in LAUNCH_CALLS:
             launches += 1
+            replays += e.name in GRAPH_CALLS
         elif e.name in SYNC_CALLS:
             syncs += 1
     busy_ms = busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3
@@ -1146,7 +1159,7 @@ def summarize(prof, wall_s: float, steps: int) -> dict:
         "steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms if device else None,
         "device_events": len(device), "kernel_launches": launches,
-        "host_syncs": syncs,
+        "graph_launches": replays, "host_syncs": syncs,
         "device_ms_by_class": dict(sorted(by_class.items(), key=lambda x: -x[1])),
         "top_kernels_ms": dict(by_name.most_common(12)),
         "top_host_ops_ms": dict(host_ms.most_common(12)),
@@ -1216,12 +1229,14 @@ def grad_row_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
             (err - BWD_ROW_REL_TOL * w.abs().amax(-1) - BWD_ABS_FLOOR).max().item())
 
 
-def serve_requests(cfg, params, dev, rng):
-    """Phase 6's workload: ``ServeEngine`` on 4 slots (``max_len`` 1024)
-    answers 8 requests of 16 new tokens, prompts of 2-5 tokens drawn from
-    ``rng``.  Returns the engine, the tokens generated and the seconds."""
+def serve_requests(cfg, params, dev, rng, engine=None):
+    """Phase 6's workload: ``ServeEngine`` on 4 slots (``max_len`` 1024;
+    or ``engine``, made already) answers 8 requests of 16 new tokens,
+    prompts of 2-5 tokens drawn from ``rng``.  Returns the engine, the
+    tokens generated and the seconds."""
     from repro_torch.serve.engine import Request, ServeEngine
-    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
+    if engine is None:
+        engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
     for rid in range(8):
         prompt_ids = rng.integers(0, cfg.vocab_size, rng.integers(2, 6)).tolist()
         engine.submit(Request(rid=rid, prompt=prompt_ids, max_new=16))
@@ -1235,13 +1250,162 @@ def serve_requests(cfg, params, dev, rng):
     return engine, sum(len(r.generated) for r in done), serve_s
 
 
+def eager_ticks(step, params, cache, tokens: np.ndarray, ticks: int, dev):
+    """``ticks`` greedy ticks of the eager step as the engine ran them
+    before it captured a graph: the (B, 1) ``tokens`` uploaded, the step
+    op by op, the argmax read back.  Returns the cache."""
+    with torch.inference_mode():
+        for _ in range(ticks):
+            logits, cache = step(params, cache, torch.from_numpy(tokens).to(dev))
+            tokens = logits.argmax(dim=-1, keepdim=True).cpu().numpy()
+    return cache
+
+
+def graph_vs_eager(cfg, params, dev, layers: int, rng) -> dict:
+    """The graphed ``ServeEngine`` on a cache of GRAPH_CHECK_LEN positions
+    against the eager ``make_serve_step`` on a second cache, both fed the
+    same teacher-forced tokens (each slot a prompt of GRAPH_CHECK_TICKS
+    random tokens) past every ring of the cache: each tick's (4, V) logits,
+    stacked, under §2's decode gates at the model's depth
+    (``logits_agreement``, which raises), with the max |Δ| and whether the
+    two are bit-equal; and the engine's capture (seconds, the graph's pool
+    and the kernels' launches a replay)."""
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Request, ServeEngine, make_serve_step
+    feed = rng.integers(0, cfg.vocab_size, (4, GRAPH_CHECK_TICKS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, params, slots=4, max_len=GRAPH_CHECK_LEN, device=dev)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    for rid in range(4):
+        engine.submit(Request(rid=rid, prompt=feed[rid].tolist(), max_new=1))
+    step = make_serve_step(cfg)
+    cache = Model(cfg, dev).init_cache(4, GRAPH_CHECK_LEN)
+    got, want = [], []
+    with torch.inference_mode():
+        for t in range(GRAPH_CHECK_TICKS):
+            engine.step()
+            got.append(engine.logits.to(torch.float32, copy=True))  # reused buffer
+            logits, cache = step(engine.params, cache,
+                                 torch.from_numpy(feed[:, t:t + 1]).to(dev))
+            want.append(logits.float())
+    if engine.queue or any(engine.active):
+        raise AssertionError(f"{cfg.name}: the teacher-forced feed did not end "
+                             f"in {GRAPH_CHECK_TICKS} ticks")
+    got, want = torch.cat(got), torch.cat(want)
+    out = {"ticks": GRAPH_CHECK_TICKS, "cache_len": GRAPH_CHECK_LEN,
+           "capture_s": capture_s, "graph_pool_bytes": engine.graph_pool_bytes,
+           "replay_launches": engine.replay_launches,
+           "bit_equal": bool(torch.equal(got, want)),
+           **logits_agreement(got, want, layers)}
+    del engine, cache
+    return out
+
+
+def graph_serve(cfg, params, dev, card, kernel_names: tuple[str, ...] = ()) -> dict:
+    """Phases 6 and 7's decode on the graphed engine, for one card:
+
+    (a) ``graph_vs_eager``, emitted;
+    (b) serve: a ``ServeEngine`` (4 slots, ``max_len`` 1024) captured
+        once, then 8 requests of 16 new tokens; every launch count set to
+        0 after the capture and read after the run, so each kernel of
+        ``kernel_names`` (the grouped GEMM: 3 a MoE layer a tick) counts
+        the replays' launches;
+    (c) decode tokens/s of the eager step (``eager_ticks`` on a cache of
+        1024) and of the graphed engine in turns, eager, graphed, graphed,
+        eager, GRAPH_TIMED_TICKS ticks on 4 slots each;
+    (d) profile_decode: PROFILE_DECODE_STEPS ticks of the graphed engine
+        (one cudaGraphLaunch a tick, at most DECODE_ENGINE_SYNCS host
+        synchronisations a tick), its replay's device ms by CUDA events,
+        and profile_decode_eager, PROFILE_EAGER_TICKS eager ticks.
+
+    Returns the serve's launches of ``kernel_names`` and its ticks."""
+    from repro_torch import kernels
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Request, ServeEngine, make_serve_step
+    rng = np.random.default_rng(0)
+    emit("graph_vs_eager", arch=cfg.name, slots=4, nvidia_smi=card,
+         **graph_vs_eager(cfg, params, dev, cfg.n_layers, rng))
+
+    # -- (b) serve -------------------------------------------------------------
+    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
+    kernels.reset_launches()
+    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng, engine)
+    ticks = int(engine.cache["pos"])
+    launches = {name: kernels.launch_counts()[name] for name in kernel_names}
+    moe_layers = sum(kind == "moe" for kind in cfg.layer_types)
+    want = {name: 3 * moe_layers * ticks if name == "grouped_matmul" else None
+            for name in kernel_names}
+    if any(n == 0 or want[name] not in (None, n) for name, n in launches.items()):
+        raise AssertionError(f"{cfg.name} serve launched {launches} in {ticks} "
+                             f"ticks (grouped_matmul: 3 a MoE layer a tick)")
+    emit("serve", arch=cfg.name, requests=8, slots=4, max_len=1024, new_tokens=n_tok,
+         final_pos=ticks, seconds=serve_s, decode_tokens_per_s=n_tok / serve_s,
+         steps_per_s=ticks / serve_s, launches=launches,
+         replay_launches=engine.replay_launches, graph_pool_bytes=engine.graph_pool_bytes,
+         nvidia_smi=card)
+
+    # -- (c) graphed against eager, in turns -------------------------------------
+    step = make_serve_step(cfg)
+    cache = Model(cfg, dev).init_cache(4, 1024)
+    first = rng.integers(0, cfg.vocab_size, (4, 1))
+    eager_ticks(step, engine.params, cache, first, 1, dev)          # warm-up
+    turns = []
+    for kind in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "eager":
+            cache = eager_ticks(step, engine.params, cache, first, GRAPH_TIMED_TICKS, dev)
+        else:
+            for rid in range(4):
+                engine.submit(Request(rid=rid, prompt=first[rid].tolist(),
+                                      max_new=GRAPH_TIMED_TICKS))
+            engine.run()
+        torch.cuda.synchronize()
+        turns.append((kind, 4 * GRAPH_TIMED_TICKS / (time.perf_counter() - t0)))
+    rates = {kind: float(np.median([r for k, r in turns if k == kind]))
+             for kind in ("eager", "graphed")}
+    emit("decode_graphed_vs_eager", arch=cfg.name, slots=4, max_len=1024,
+         ticks=GRAPH_TIMED_TICKS, turns=turns,
+         graphed_tokens_per_s=rates["graphed"], eager_tokens_per_s=rates["eager"],
+         speedup=rates["graphed"] / rates["eager"], nvidia_smi=card)
+
+    # -- (d) profiles ------------------------------------------------------------
+    for rid in range(4):
+        engine.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab_size, 4).tolist(), max_new=PROFILE_DECODE_STEPS + 8))
+    for _ in range(4):                                      # warm-up
+        engine.step()
+    prof = profiled(engine.step, PROFILE_DECODE_STEPS)
+    per_step = {key: prof[key] / PROFILE_DECODE_STEPS for key in (
+        "wall_ms", "device_busy_ms", "kernel_launches", "graph_launches",
+        "host_syncs")}
+    replay_ms = time_ms(engine.graph.replay, 5)
+    emit("profile_decode", arch=cfg.name, slots=4, max_len=1024, graphed=True,
+         replay_ms=replay_ms, nvidia_smi=card, per_step=per_step, **prof)
+    if per_step["graph_launches"] != 1 or per_step["host_syncs"] > DECODE_ENGINE_SYNCS:
+        raise AssertionError(f"{cfg.name}: a graphed decode tick made "
+                             f"{per_step['graph_launches']} graph launches and "
+                             f"{per_step['host_syncs']} host synchronisations "
+                             f"(want 1 and at most {DECODE_ENGINE_SYNCS})")
+    tokens = rng.integers(0, cfg.vocab_size, (4, 1))
+    prof = profiled(lambda: eager_ticks(step, engine.params, cache, tokens, 1, dev),
+                    PROFILE_EAGER_TICKS)
+    emit("profile_decode_eager", arch=cfg.name, slots=4, max_len=1024, nvidia_smi=card,
+         per_step={key: prof[key] / PROFILE_EAGER_TICKS for key in (
+             "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")},
+         **prof)
+    del engine, cache
+    return {"launches": launches, "ticks": ticks}
+
+
 def gemma3_path(dev, card) -> dict:
     """Phases 3-7 for gemma3-1b; returns its kernel's entry of the kernels
     line."""
     from repro_torch.configs import get
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Model, synthetic_batch
-    from repro_torch.serve.engine import Request, ServeEngine
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device=dev)
@@ -1326,32 +1490,11 @@ def gemma3_path(dev, card) -> dict:
     # (b) the card's forward (kernel) against the CPU's (plain path)
     card_vs_cpu("gemma3-1b", dev, 40)
 
-    # -- 6. serve -----------------------------------------------------------------
-    fa.launches = 0
-    rng = np.random.default_rng(0)
-    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
-    serve_launches = fa.launches
-    emit("serve", arch=cfg.name, requests=8, slots=4, max_len=1024,
-         new_tokens=n_tok, final_pos=engine.cache["pos"], seconds=serve_s,
-         decode_tokens_per_s=n_tok / serve_s,
-         steps_per_s=engine.cache["pos"] / serve_s,
-         flash_attention_launches=serve_launches, nvidia_smi=card)
-
-    # -- 7. profile: where the time goes ------------------------------------------
+    # -- 6, 7. serve on the graphed engine, the profiles --------------------------
+    graph_serve(cfg, params, dev, card)
     with torch.inference_mode():
         prof = profiled(lambda: model.forward(params, batch), 1)
     emit("profile_prefill", arch=cfg.name, batch=b, seq=s, nvidia_smi=card, **prof)
-    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
-    for rid in range(4):
-        engine.submit(Request(rid=rid, prompt=rng.integers(
-            0, cfg.vocab_size, 4).tolist(), max_new=PROFILE_DECODE_STEPS + 8))
-    for _ in range(4):                                      # warm-up
-        engine.step()
-    prof = profiled(engine.step, PROFILE_DECODE_STEPS)
-    emit("profile_decode", arch=cfg.name, slots=4, max_len=1024, nvidia_smi=card,
-         per_step={k: prof[k] / PROFILE_DECODE_STEPS for k in (
-             "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")},
-         **prof)
 
     return {
         "name": "flash_attention", "path": "gemma3-1b prefill", "route": "cuda",
@@ -1552,7 +1695,6 @@ def mamba2_path(dev, card) -> list[dict]:
     from repro_torch.configs import get, get_smoke
     from repro_torch.kernels import ssd_scan as kssd
     from repro_torch.models import Model, compute_copy, synthetic_batch
-    from repro_torch.serve.engine import Request, ServeEngine
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -1703,29 +1845,11 @@ def mamba2_path(dev, card) -> list[dict]:
     card_vs_cpu("mamba2-780m", dev, 3 * get_smoke("mamba2-780m").ssm_chunk,
                 use_kernels=True)
 
-    # -- 6. serve -----------------------------------------------------------------
-    rng = np.random.default_rng(0)
-    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
-    emit("serve", arch=cfg.name, requests=8, slots=4, new_tokens=n_tok,
-         final_pos=engine.cache["pos"], seconds=serve_s,
-         decode_tokens_per_s=n_tok / serve_s,
-         steps_per_s=engine.cache["pos"] / serve_s, nvidia_smi=card)
-
-    # -- 7. profile: where the time goes ------------------------------------------
+    # -- 6, 7. serve on the graphed engine, the profiles --------------------------
+    graph_serve(cfg, params, dev, card)
     with torch.inference_mode():
         prof = profiled(lambda: model.forward(params, batch), 1)
     emit("profile_prefill", arch=cfg.name, batch=b, seq=s, nvidia_smi=card, **prof)
-    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
-    for rid in range(4):
-        engine.submit(Request(rid=rid, prompt=rng.integers(
-            0, cfg.vocab_size, 4).tolist(), max_new=PROFILE_DECODE_STEPS + 8))
-    for _ in range(4):                                      # warm-up
-        engine.step()
-    prof = profiled(engine.step, PROFILE_DECODE_STEPS)
-    emit("profile_decode", arch=cfg.name, slots=4, nvidia_smi=card,
-         per_step={k: prof[k] / PROFILE_DECODE_STEPS for k in (
-             "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")},
-         **prof)
 
     return [{"name": name, "path": "mamba2-780m prefill", "route": "cuda",
              "source": SSD_SOURCE, "replaces": SSD_REPLACES[name],
@@ -1737,16 +1861,21 @@ def mamba2_path(dev, card) -> list[dict]:
 
 def prefill_and_decode(model, params, prompt: torch.Tensor):
     """The logits of a (1, S) prompt by one forward and by S teacher-forced
-    decode steps into a cache of S positions: (forward (S, V), decode
-    (S, V), the cache after the last step), fp32."""
+    decode ticks of ``ServeEngine`` on one slot and a cache of S positions
+    (on the card the captured step, which ``graph_vs_eager`` holds to the
+    eager one): (forward (S, V), decode (S, V), the engine's cache after
+    the last tick), fp32."""
+    from repro_torch.serve.engine import Request, ServeEngine
     with torch.inference_mode():
         fwd = model.forward(params, {"tokens": prompt})[0].float()
-        cache = model.init_cache(1, prompt.shape[1])
-        dec = []
-        for t in range(prompt.shape[1]):
-            lg, cache = model.decode_step(params, cache, prompt[:, t:t + 1])
-            dec.append(lg[0].float())
-    return fwd, torch.stack(dec), cache
+    engine = ServeEngine(model.cfg, params, slots=1, max_len=prompt.shape[1],
+                         device=model.device)
+    engine.submit(Request(rid=0, prompt=prompt[0].tolist(), max_new=1))
+    dec = []
+    while engine.queue or any(engine.active):
+        engine.step()
+        dec.append(engine.logits[0].to(torch.float32, copy=True))
+    return fwd, torch.stack(dec), engine.cache
 
 
 @contextlib.contextmanager
@@ -1964,7 +2093,6 @@ def hymba_path(dev, card) -> list[dict]:
     Returns its prefill's entries of the kernels line."""
     from repro_torch.configs import get, get_smoke
     from repro_torch.models import Model, synthetic_batch
-    from repro_torch.serve.engine import Request, ServeEngine
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
@@ -2053,30 +2181,12 @@ def hymba_path(dev, card) -> list[dict]:
     card_vs_cpu("hymba-1.5b", dev, 3 * get_smoke("hymba-1.5b").ssm_chunk,
                 use_kernels=True)
 
-    # -- 6. serve -----------------------------------------------------------------
-    rng = np.random.default_rng(0)
-    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
-    emit("serve", arch=cfg.name, requests=8, slots=4, max_len=1024, new_tokens=n_tok,
-         final_pos=engine.cache["pos"], seconds=serve_s,
-         decode_tokens_per_s=n_tok / serve_s,
-         steps_per_s=engine.cache["pos"] / serve_s, nvidia_smi=card)
-
-    # -- 7. profile: where the time goes ------------------------------------------
+    # -- 6, 7. serve on the graphed engine, the profiles --------------------------
+    graph_serve(cfg, params, dev, card)
     with torch.inference_mode():
         prof = profiled(lambda: model.forward(params, batch), 1)
     emit("profile_prefill", arch=cfg.name, batch=b, seq=s, nvidia_smi=card, **prof)
-    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
-    for rid in range(4):
-        engine.submit(Request(rid=rid, prompt=rng.integers(
-            0, cfg.vocab_size, 4).tolist(), max_new=PROFILE_DECODE_STEPS + 8))
-    for _ in range(4):                                      # warm-up
-        engine.step()
-    prof = profiled(engine.step, PROFILE_DECODE_STEPS)
-    emit("profile_decode", arch=cfg.name, slots=4, max_len=1024, nvidia_smi=card,
-         per_step={k: prof[k] / PROFILE_DECODE_STEPS for k in (
-             "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")},
-         **prof)
-    del engine, model, params, batch
+    del model, params, batch
 
     path = "hymba-1.5b prefill"
     return [{"name": "flash_attention", "path": path, "route": "cuda",
@@ -2190,7 +2300,6 @@ def internvl2_path(dev, card) -> list[dict]:
     profile.  Returns the prefill's entry of the kernels line."""
     from repro_torch.configs import get
     from repro_torch.models import Model, synthetic_batch
-    from repro_torch.serve.engine import Request, ServeEngine
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
@@ -2255,31 +2364,12 @@ def internvl2_path(dev, card) -> list[dict]:
     # (b) the card against the CPU on the smoke config (4 patches, then tokens)
     card_vs_cpu("internvl2-26b", dev, 40)
 
-    # -- 6. serve: tokens only -----------------------------------------------------
-    rng = np.random.default_rng(0)
-    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
-    emit("serve", arch=cfg.name, requests=8, slots=4, max_len=1024, new_tokens=n_tok,
-         final_pos=engine.cache["pos"], seconds=serve_s,
-         decode_tokens_per_s=n_tok / serve_s,
-         steps_per_s=engine.cache["pos"] / serve_s, nvidia_smi=card)
-    del engine
-
-    # -- 7. profile: where the time goes ------------------------------------------
+    # -- 6, 7. serve (tokens only) on the graphed engine, the profiles ------------
+    graph_serve(cfg, params, dev, card)
     with torch.inference_mode():
         prof = profiled(lambda: model.forward(params, inputs), 1)
     emit("profile_prefill", arch=cfg.name, batch=b, seq=s, nvidia_smi=card, **prof)
-    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
-    for rid in range(4):
-        engine.submit(Request(rid=rid, prompt=rng.integers(
-            0, cfg.vocab_size, 4).tolist(), max_new=PROFILE_DECODE_STEPS + 8))
-    for _ in range(4):                                      # warm-up
-        engine.step()
-    prof = profiled(engine.step, PROFILE_DECODE_STEPS)
-    emit("profile_decode", arch=cfg.name, slots=4, max_len=1024, nvidia_smi=card,
-         per_step={k: prof[k] / PROFILE_DECODE_STEPS for k in (
-             "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")},
-         **prof)
-    del engine, model, params, batch, inputs, one
+    del model, params, batch, inputs, one
 
     return [{"name": "flash_attention", "path": "internvl2-26b prefill", "route": "cuda",
              "source": FA_SOURCE, "replaces": FA_REPLACES,
@@ -2347,7 +2437,6 @@ def dense_path(dev, card) -> list[dict]:
     slots (8 requests of 16 tokens).  Returns each prefill's entry of the
     kernels line."""
     from repro_torch.configs import get
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Model, compute_copy, synthetic_batch
 
     entries = []
@@ -2410,16 +2499,9 @@ def dense_path(dev, card) -> list[dict]:
         # (b) the card against the CPU on the smoke config
         card_vs_cpu(arch, dev, 40)
 
-        # -- 6. serve -----------------------------------------------------------
-        fa.launches = 0
-        rng = np.random.default_rng(0)
-        engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
-        emit("serve", arch=cfg.name, requests=8, slots=4, max_len=1024,
-             new_tokens=n_tok, final_pos=engine.cache["pos"], seconds=serve_s,
-             decode_tokens_per_s=n_tok / serve_s,
-             steps_per_s=engine.cache["pos"] / serve_s,
-             flash_attention_launches=fa.launches, nvidia_smi=card)
-        del engine, model, params
+        # -- 6, 7. serve on the graphed engine, the decode profiles ------------
+        graph_serve(cfg, params, dev, card)
+        del model, params
         torch.cuda.empty_cache()
         entries.append({"name": "flash_attention", "path": f"{cfg.name} prefill",
                         "route": "cuda", "source": FA_SOURCE, "replaces": FA_REPLACES,
@@ -2475,17 +2557,84 @@ def grouped_mm_call(x, w, sizes):
     return (lambda: grouped_mm(x, w, offs=offs)), None
 
 
-def olmoe_path(dev, card) -> dict:
-    """Phases 3-7 for olmoe-1b-7b, then qwen2-moe-a2.7b's prefill at full
-    width and depth from the serving init and its plain-GEMM check at 4 of
-    its 24 layers; returns the grouped GEMM's entry of the kernels line."""
+def gmm_decode_entry(cfg, gen, dev, card, served: dict) -> dict:
+    """The grouped GEMM's entry of the kernels line for ``cfg``'s graphed
+    decode on 4 slots: the launches the serve's replays counted
+    (``served``, graph_serve's; 3 a MoE layer a tick), and the calls of one
+    tick (gate, up and down a layer on the 4·top-k rows of a real routing
+    of 4 tokens) against their plain versions, timed by CUDA events as one
+    captured graph (``ms``, as the engine replays them) and launched one by
+    one (``eager_ms``), beside the plain versions', ``torch._grouped_mm``'s
+    and the bound of the same work (``costs.gmm`` over the experts with
+    rows)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import moe_gmm
+    d, f, e, k = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.top_k
+    layers = sum(kind == "moe" for kind in cfg.layer_types)
+    rows = 4 * k
+    sizes = moe_group_sizes(gen, dev, 4, e, k, d)
+    nonempty = int((sizes > 0).sum())
+    x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    hid = torch.randn((rows, f), generator=gen, device=dev).to(torch.bfloat16)
+    w_in = [(torch.randn((e, d, f), generator=gen, device=dev) * 0.02
+             ).to(torch.bfloat16) for _ in range(2)]
+    w_down = (torch.randn((e, f, d), generator=gen, device=dev) * 0.02
+              ).to(torch.bfloat16)
+    calls = [(x, w_in[0]), (x, w_in[1]), (hid, w_down)] * layers
+    max_err = max(gmm_errors(moe_gmm.grouped_matmul(a, w, sizes),
+                             moe_gmm.grouped_matmul_plain(a, w, sizes))["max_abs_err"]
+                  for a, w in calls[:3])
+    floors = [gmm_floor_ms(rows, a.shape[1], w.shape[2], nonempty) for a, w in calls]
+    bound_ms, bound_by = bound(sum(fl[0] for fl in floors), sum(fl[1] for fl in floors))
+    libs = [grouped_mm_call(a, w, sizes) for a, w in calls[:3]]
+    no_lib = next((why for call, why in libs if call is None), None)
+
+    def tick():
+        return [moe_gmm.grouped_matmul(a, w, sizes) for a, w in calls]
+
+    before = kernels.launch_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tick()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        tick()
+    kernels.add_launches({name: before[name] - n
+                          for name, n in kernels.launch_counts().items()})
+    out = {
+        "ms": time_ms(graph.replay, 20), "eager_ms": time_ms(tick, 5),
+        "plain_ms": time_ms(lambda: [moe_gmm.grouped_matmul_plain(a, w, sizes)
+                                     for a, w in calls], 1, 1),
+        "library_ms": (None if no_lib else
+                       time_ms(lambda: [call() for call, _ in libs * layers], 5)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    launches = served["launches"]["grouped_matmul"]
+    emit("kernel_decode_mix", kernel="grouped_matmul", arch=cfg.name, calls=len(calls),
+         shape=[rows, d, f, e], nonempty_experts=nonempty, max_abs_err=max_err,
+         serve_launches=launches, serve_ticks=served["ticks"],
+         library=no_lib or "torch._grouped_mm", nvidia_smi=card, **out)
+    del x, hid, w_in, w_down, calls, libs, graph
+    return {"name": "grouped_matmul", "path": f"{cfg.name} graphed decode",
+            "route": "cuda", "source": GMM_SOURCE, "replaces": GMM_REPLACES,
+            "launches": launches, "launches_per_tick": launches // served["ticks"],
+            "max_abs_err": max_err, **out}
+
+
+def olmoe_path(dev, card) -> list[dict]:
+    """Phases 3-7 for olmoe-1b-7b, then qwen2-moe-a2.7b's prefill and
+    graphed decode at full width and depth from the serving init and its
+    plain-GEMM check at 4 of its 24 layers; returns the grouped GEMM's
+    entries of the kernels line: olmoe's prefill, olmoe's and qwen2-moe's
+    graphed decode."""
     from repro_torch import bridge
     from repro_torch.configs import get, get_smoke
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm
     from repro_torch.models import Model, moe, synthetic_batch
     from repro_torch.models import transformer
-    from repro_torch.serve.engine import Request, ServeEngine
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -2712,59 +2861,31 @@ def olmoe_path(dev, card) -> dict:
             if not small_err <= CPU_GPU_TOL:
                 raise AssertionError(f"card vs CPU forward: {small_err} > {CPU_GPU_TOL}")
 
-    # -- 6. serve (default dispatch) --------------------------------------------
-    moe_gmm.launches = 0
-    rng = np.random.default_rng(0)
-    engine, n_tok, serve_s = serve_requests(cfg, params, dev, rng)
-    serve_launches = moe_gmm.launches
-    if serve_launches != 3 * n_layers * engine.cache["pos"]:
-        raise AssertionError(f"serve launched grouped_matmul {serve_launches} "
-                             f"times in {engine.cache['pos']} steps")
-    emit("serve", arch=cfg.name, moe_dispatch=cfg.moe_dispatch, requests=8,
-         slots=4, max_len=1024, new_tokens=n_tok, final_pos=engine.cache["pos"],
-         seconds=serve_s, decode_tokens_per_s=n_tok / serve_s,
-         steps_per_s=engine.cache["pos"] / serve_s,
-         grouped_matmul_launches=serve_launches, nvidia_smi=card)
-
-    # -- 7. profile: where the time goes ------------------------------------------
+    # -- 6, 7. serve (default dispatch) on the graphed engine, the profiles ---------
+    # the MoE layer reads nothing back: the graph replays its grouped GEMMs
+    served = graph_serve(cfg, params, dev, card, ("grouped_matmul",))
     with torch.inference_mode():
         prof = profiled(lambda: model.forward(params, batch), 1)
     emit("profile_prefill", arch=cfg.name, batch=b, seq=s, nvidia_smi=card, **prof)
-    engine = ServeEngine(cfg, params, slots=4, max_len=1024, device=dev)
-    for rid in range(4):
-        engine.submit(Request(rid=rid, prompt=rng.integers(
-            0, cfg.vocab_size, 4).tolist(), max_new=PROFILE_DECODE_STEPS + 8))
-    for _ in range(4):                                      # warm-up
-        engine.step()
-    prof = profiled(engine.step, PROFILE_DECODE_STEPS)
-    per_step = {key: prof[key] / PROFILE_DECODE_STEPS for key in (
-        "wall_ms", "device_busy_ms", "kernel_launches", "host_syncs")}
-    emit("profile_decode", arch=cfg.name, slots=4, max_len=1024, nvidia_smi=card,
-         per_step=per_step, **prof)
-    # the MoE layer reads nothing back: one synchronisation a layer (the
-    # attention's existing 0-d scale) and the engine's own
-    if per_step["host_syncs"] > n_layers + DECODE_ENGINE_SYNCS:
-        raise AssertionError(f"{per_step['host_syncs']} host synchronisations a "
-                             f"decode step, want at most {n_layers} + "
-                             f"{DECODE_ENGINE_SYNCS}")
-    del engine, model, params, batch
+    decode_entry = gmm_decode_entry(cfg, gen, dev, card, served)
+    del model, params, batch
     torch.cuda.empty_cache()
 
-    qwen2_moe_path(dev, card, gen)
-
-    return {
+    return [{
         "name": "grouped_matmul", "path": "olmoe-1b-7b prefill", "route": "cuda",
         "source": GMM_SOURCE,
         "replaces": GMM_REPLACES, "launches": main_launches,
         "max_abs_err": max_err, **gmm_mix,
-    }
+    }, decode_entry, qwen2_moe_path(dev, card, gen)]
 
 
-def qwen2_moe_path(dev, card, gen) -> None:
+def qwen2_moe_path(dev, card, gen) -> dict:
     """qwen2-moe-a2.7b (60 experts top-4 and a gated shared expert, 24
     layers): a prefill at full width and depth from the serving init (28.6
     GB of bf16: the fp32 init, 57.3 GB, and its serving copy would not fit
-    one card), then the plain-GEMM check at 4 of its 24 layers."""
+    one card) and the graphed decode on the same tree, then the plain-GEMM
+    check at 4 of its 24 layers.  Returns the grouped GEMM's entry of the
+    kernels line for the graphed decode."""
     from repro_torch.configs import get
     from repro_torch.models import Model, synthetic_batch
 
@@ -2789,7 +2910,11 @@ def qwen2_moe_path(dev, card, gen) -> None:
          seconds=prefill_s, tokens_per_s=b * s / prefill_s, runs=times,
          tree_gb=tree_bytes(qparams) / 1e9, init_peak_mem_gb=init_peak_gb,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=card)
-    del qparams, qmodel, qinputs
+    del qinputs
+    # -- 6, 7 on the same tree: serve on the graphed engine, the decode profiles
+    decode_entry = gmm_decode_entry(
+        qcfg, gen, dev, card, graph_serve(qcfg, qparams, dev, card, ("grouped_matmul",)))
+    del qparams, qmodel
     torch.cuda.empty_cache()
 
     # -- 5 at full width, 4 of its 24 layers ------------------------------------
@@ -2815,6 +2940,7 @@ def qwen2_moe_path(dev, card, gen) -> None:
          same_routing=out["same_routing"], **out["free"])
     require_agreement(out["same_routing"])
     del out, qparams, qr
+    return decode_entry
 
 
 def gemma3_train_path(dev, card) -> dict:
@@ -5840,7 +5966,7 @@ def main() -> None:
     torch.cuda.empty_cache()      # internvl2's 40 GB tree is gone from here
     kernels += dense_path(dev, card)
     torch.cuda.empty_cache()
-    kernels.append(olmoe_path(dev, card))
+    kernels += olmoe_path(dev, card)
     torch.cuda.empty_cache()
     gemma3_train_entry = gemma3_train_path(dev, card)
     kernels.append(gemma3_train_entry)

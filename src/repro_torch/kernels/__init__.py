@@ -1,7 +1,52 @@
-"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version."""
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+Each wrapper adds one to its module's launch counter where it launches its
+kernel (:data:`LAUNCH_COUNTERS`).  A counter is Python state, so a CUDA
+graph's replay, which launches what the capture launched, moves none: a
+caller that replays a graph adds the counts its capture made
+(:func:`launch_counts` before and after it) with :func:`add_launches`.
+"""
 from __future__ import annotations
 
+import importlib
+
 import torch
+
+#: each kernel's launch counter: kernel name -> (module, attribute)
+LAUNCH_COUNTERS = {
+    "flash_attention": ("flash_attention", "launches"),
+    "flash_attention_bwd": ("flash_attention", "bwd_launches"),
+    "ssd_chunk_state": ("ssd_scan", "state_launches"),
+    "ssd_chunk_scan": ("ssd_scan", "scan_launches"),
+    "ssd_chunk_state_bwd": ("ssd_scan", "state_bwd_launches"),
+    "ssd_chunk_scan_bwd": ("ssd_scan", "scan_bwd_launches"),
+    "grouped_matmul": ("moe_gmm", "launches"),
+    "grouped_matmul_dx": ("moe_gmm", "dx_launches"),
+    "grouped_matmul_dw": ("moe_gmm", "dw_launches"),
+}
+
+
+def _counter(name: str) -> tuple[object, str]:
+    module, attr = LAUNCH_COUNTERS[name]
+    return importlib.import_module(f"{__name__}.{module}"), attr
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch count since its last reset."""
+    return {name: getattr(*_counter(name)) for name in LAUNCH_COUNTERS}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Adds ``counts`` (kernel name -> launches) to the kernels' counters."""
+    for name, n in counts.items():
+        module, attr = _counter(name)
+        setattr(module, attr, getattr(module, attr) + n)
+
+
+def reset_launches() -> None:
+    """Every kernel's launch counter set to 0."""
+    for name in LAUNCH_COUNTERS:
+        setattr(*_counter(name), 0)
 
 
 def refuse_grad(kernel: str, *tensors: torch.Tensor | None) -> None:

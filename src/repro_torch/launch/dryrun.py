@@ -212,8 +212,8 @@ def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh, device: str = "meta",
     params = transformer.init_abstract_params(cfg)
     params = local_shards(params, shd.params_shardings(params, mesh), mesh, device)
     cache = cache_specs(cfg, shape)
-    cache = {**local_shards(cache, shd.cache_shardings(cache, mesh), mesh, device),
-             "pos": shape.seq_len - 1}
+    # pos, the cache's 0-d int32 tensor, passes through replicated
+    cache = local_shards(cache, shd.cache_shardings(cache, mesh), mesh, device)
     token = local_shards(batch["token"], shd.batch_shardings(batch["token"], mesh), mesh,
                        device)
     serve_step = make_serve_step(cfg, mesh)

@@ -14,7 +14,10 @@ card.  hubert-xlarge is encoder-only: there is nothing to decode, and the
 command exits saying so.  hymba-1.5b's ``--smoke`` config (SSD head dim
 16, state 8) runs on the card too: the SSD kernels take that pair.
 
-Full width unless ``--smoke``; on ``cuda`` unless ``--device cpu``.
+Full width unless ``--smoke``; on ``cuda`` unless ``--device cpu``.  On
+the card ``ServeEngine`` captures the decode step once as a CUDA graph and
+replays it every tick (the reference's jitted, donated serve step); with
+``--device cpu`` it runs the step eagerly.
 Runs under the PaPaS engine like any program, e.g. a study with
 ``command: python -m repro_torch.launch.serve --arch ${args:arch}``.
 """

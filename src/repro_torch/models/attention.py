@@ -226,9 +226,10 @@ def attn_block(
 ) -> tuple[torch.Tensor, dict | None]:
     """Complete attention sub-layer.  With ``cache`` (decode), x is
     (B,1,d) and the cache tensors are written in place at ``cache['pos']``
-    (a Python int), where the reference returns updated copies.  With M >
-    1 ``model`` ranks the parameters are this rank's stored shards and
-    ``seq`` says x (and the output) is its sequence shard."""
+    (the cache's 0-d tensor, or a Python int), where the reference returns
+    updated copies.  With M > 1 ``model`` ranks the parameters are this
+    rank's stored shards and ``seq`` says x (and the output) is its
+    sequence shard."""
     cd = as_dtype(compute_dtype)
     m = mesh_ctx.axis_size("model")
     if cache is not None:
@@ -276,15 +277,22 @@ def attn_block(
 def _decode_write_attend(q, k, v, cache: dict, kind: str, window: int,
                          softcap: float, head_dim: int = 0, score_sum=None):
     """Decode: write k, v at ``pos`` (ring slot pos % t for SWA), then
-    attend.  Returns (out, the new cache)."""
+    attend.  Returns (out, the new cache).  ``pos`` is the cache's 0-d
+    tensor or a Python int; the slot and the valid length are formed on
+    the device (a remainder and a clamp, then ``index_copy_``), so the
+    write neither synchronises nor bakes the position into a captured
+    graph."""
     b = q.shape[0]
     t = cache["k"].shape[1]
     pos = cache["pos"]
-    slot = pos % t if kind == "swa" and window > 0 else pos
-    slot = min(slot, t - 1)  # dynamic_update_slice clamps its start
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    lengths = torch.full((b,), min(pos + 1, t), dtype=torch.int32, device=q.device)
+    at = (pos if isinstance(pos, torch.Tensor)
+          else torch.full((), pos, device=q.device)).reshape(1).long()
+    # a ring's slot; past a full cache, dynamic_update_slice clamps its start
+    slot = (torch.remainder(at, t) if kind == "swa" and window > 0
+            else at.clamp(max=t - 1))
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    lengths = (at + 1).clamp(max=t).expand(b)
     out = decode_attention(q, cache["k"], cache["v"], lengths, softcap,
                            head_dim=head_dim, score_sum=score_sum)
     return out, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

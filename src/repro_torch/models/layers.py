@@ -33,8 +33,11 @@ def cast(x: torch.Tensor, dtype: str | torch.dtype) -> torch.Tensor:
 def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     """A 0-d tensor of ``like``'s dtype: a constant is rounded to the
     tensor's dtype before it multiplies, as a JAX weak-typed scalar is
-    (a Python float would multiply at full precision)."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    (a Python float would multiply at full precision).  Made by a fill on
+    ``like``'s device, not copied from the host: a decode step builds
+    nothing from host data, so it neither synchronises nor bakes a value
+    into a captured CUDA graph."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 # ---------------------------------------------------------------------------

@@ -87,10 +87,9 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict[str, torch.Tensor]:
 
 def cache_specs(cfg: ArchConfig, shape: ShapeConfig,
                 dtype: str | torch.dtype = torch.bfloat16) -> dict[str, Any]:
-    """A decode cell's cache as meta tensors; ``pos``, a Python int in a
-    live cache, stands as the reference's 0-d int32."""
-    cache = init_cache(cfg, shape.global_batch, shape.seq_len, dtype, "meta")
-    return {**cache, "pos": torch.empty((), dtype=torch.int32, device="meta")}
+    """A decode cell's cache as meta tensors, ``pos`` the reference's 0-d
+    int32 as in a live cache."""
+    return init_cache(cfg, shape.global_batch, shape.seq_len, dtype, "meta")
 
 
 def synthetic_batch(cfg: ArchConfig, batch: int, seq: int,

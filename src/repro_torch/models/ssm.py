@@ -330,7 +330,10 @@ def init_ssm_cache(bsz: int, d_inner: int, state_dim: int, head_dim: int,
                    n_groups: int, conv_width: int,
                    dtype: str | torch.dtype = torch.float32,
                    device: torch.device | str = "cuda") -> dict[str, Any]:
-    """Conv state in ``dtype``, SSM state in fp32, ``pos`` a Python int."""
+    """Conv state in ``dtype``, SSM state in fp32, ``pos`` a Python int (a
+    model's cache holds one 0-d int32 tensor for every layer instead,
+    ``transformer.init_cache``; the mixer takes either and returns
+    ``pos + 1``)."""
     n_heads = d_inner // head_dim
     conv_ch = d_inner + 2 * n_groups * state_dim
     return {

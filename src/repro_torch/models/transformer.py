@@ -729,15 +729,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     segments hold a ring of ``min(window, max_len)`` entries), conv state
     in ``dtype`` and SSM state in fp32 for ssm, and both, nested as
     ``{"attn": {k, v}, "ssm": {conv, ssm}}``, for a hybrid segment (a
-    ``hyb_l`` ring as swa's).  ``pos`` is one Python int shared by every
-    slot, as in the reference, and by both halves of a hybrid cache.  An
+    ``hyb_l`` ring as swa's).  ``pos`` is one 0-d int32 tensor on the
+    cache's device, as the reference's ``jnp.zeros((), jnp.int32)``,
+    shared by every slot and by both halves of a hybrid cache: a decode
+    step reads it on the device and advances it in place, so the step
+    never synchronises on it and replays as a captured CUDA graph.  An
     encoder-only config has no decode step, hence no cache: it raises.
 
     With a ``DeviceMesh`` (``batch`` the global batch) each leaf is
     allocated as this rank's shard by the cache's sharding
     (:func:`repro_torch.distributed.sharding.cache_shardings`): its rows
     of the batch, its KV heads or slice of the head dim, its SSM heads and
-    conv channels; nothing else."""
+    conv channels; ``pos`` replicated; nothing else."""
     if not cfg.has_decode():
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
     if mesh is not None:
@@ -762,11 +765,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         else:
             seg = _kv_cache(cfg, kind, count, batch, max_len, dtype, device)
         segments.append(seg)
-    return {"pos": 0, "segments": segments}
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "segments": segments}
 
 
-def _layer_cache(kind: str, seg_cache: dict[str, Any], i: int, pos: int
-                 ) -> dict[str, Any]:
+def _layer_cache(kind: str, seg_cache: dict[str, Any], i: int,
+                 pos: torch.Tensor) -> dict[str, Any]:
     """Layer ``i``'s views of a segment's stacked cache, with ``pos``."""
     def view(c):
         return {**{k: v[i] for k, v in c.items()}, "pos": pos}
@@ -800,12 +804,14 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
                 token: torch.Tensor) -> tuple[torch.Tensor, dict[str, Any]]:
     """One autoregressive step → (logits (B,V), cache).  token: (B, 1).
 
-    The cache tensors are updated in place; the returned cache holds the
-    same tensors and ``pos + 1``.  The conv state of an ssm or hybrid
-    segment takes the dtype the reference's concatenation gives it (cache
-    and compute dtype promoted): a bf16 conv cache under fp32 compute
-    becomes fp32 at the first step, as the reference's returned cache
-    does.
+    The cache tensors are updated in place, ``pos`` too (``add_``): the
+    returned cache holds the same tensors, the reference's donated cache.
+    The positions, the ring slots and the valid lengths are formed from
+    ``pos`` on the device, so the step reads nothing back and builds
+    nothing from host data: captured once as a CUDA graph, it replays at
+    every position (:class:`repro_torch.serve.engine.ServeEngine`).  The
+    conv state of an ssm or hybrid segment takes its promoted dtype at the
+    first step (:func:`promote_conv`).
 
     Under a ``model`` axis of M > 1 (the ambient mesh) the parameters and
     the cache are this rank's shards (``init_cache`` with the mesh), token
@@ -818,16 +824,14 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
     b = token.shape[0]
     x = embed_tokens(token, params["embed"], cfg.embed_scale, cfg.compute_dtype,
                      _vocab_view(cfg)["embed"])
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    positions = pos.reshape(1, 1).expand(b, 1)
+    promote_conv(cfg, cache)
     for (kind, count), seg, seg_cache in zip(
             cfg.segments(), params["segments"], cache["segments"]):
         hybrid = kind in HYBRID_KINDS
         # the SSM states, which the mixer returns anew (the KV cache is
         # written in place by the attention)
         ssm = seg_cache["ssm"] if hybrid else seg_cache if kind == "ssm" else None
-        if ssm is not None:
-            ssm["conv"] = ssm["conv"].to(
-                torch.promote_types(ssm["conv"].dtype, x.dtype))
         for i, lp in enumerate(_layers(seg, count)):
             x, _, nc = layer_body(cfg, kind, x, lp, positions,
                                   cache=_layer_cache(kind, seg_cache, i, pos))
@@ -837,4 +841,21 @@ def decode_step(cfg: ArchConfig, params: dict[str, Any], cache: dict[str, Any],
                 ssm["ssm"][i] = nc["ssm"]
     x = _norm(x, params["final_norm"], cfg.norm_eps)
     logits = sharded_logits(cfg, x, params)[:, 0]
-    return logits, {"pos": pos + 1, "segments": cache["segments"]}
+    return logits, {"pos": pos.add_(1), "segments": cache["segments"]}
+
+
+def promote_conv(cfg: ArchConfig, cache: dict[str, Any]) -> None:
+    """Gives the conv state of every ssm or hybrid segment of ``cache`` the
+    dtype the reference's concatenation gives it (cache and compute dtype
+    promoted), in place in the dict: a bf16 conv cache under fp32 compute
+    becomes fp32 at the first step, as the reference's returned cache
+    does.  A leaf that has that dtype is kept, so no step after the first
+    reallocates a cache leaf; an engine that captures the step calls this
+    before it captures."""
+    dtype = as_dtype(cfg.compute_dtype)
+    for (kind, _), seg_cache in zip(cfg.segments(), cache["segments"]):
+        ssm = (seg_cache["ssm"] if kind in HYBRID_KINDS
+               else seg_cache if kind == "ssm" else None)
+        if ssm is not None:
+            ssm["conv"] = ssm["conv"].to(
+                torch.promote_types(ssm["conv"].dtype, dtype))

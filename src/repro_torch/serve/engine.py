@@ -7,6 +7,15 @@ position is shared by all slots, as in the reference.  ``ServeEngine``
 runs at one ``model`` rank, as the reference's engine does;
 ``make_serve_step`` with a mesh is the step on a rank's shards (the dry
 run's decode cells).
+
+The reference jits its serve step with the cache donated
+(``jax.jit(make_serve_step(cfg), donate_argnums=(1,))``).  On a CUDA
+device ``ServeEngine`` does the same with a CUDA graph: it captures
+``decode_step`` and the argmax once over static buffers (its cache, a
+token buffer, the logits and next tokens) and replays the graph every
+tick; the step updates the cache and its position in place, the donated
+cache's counterpart.  On the CPU, which the caller asks for, it runs the
+step eagerly.  ``make_serve_step`` is the eager step.
 """
 from __future__ import annotations
 
@@ -16,12 +25,18 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import compute_copy, decode_step
-from repro_torch.tree import tree_map
+from repro_torch.models.transformer import compute_copy, decode_step, promote_conv
+from repro_torch.tree import tree_leaves, tree_map
+
+#: eager steps run before the capture (kernels built and loaded, library
+#: handles and workspaces made on the capture's stream); the cache is
+#: zeroed after them
+WARMUP_STEPS = 2
 
 
 def make_serve_step(cfg: ArchConfig, mesh: Any = None) -> Callable:
@@ -61,7 +76,15 @@ class ServeEngine:
     already in the compute dtype (a tree from ``Model.init(serving=True)``)
     without a copy.  It decodes tokens only, as the reference's engine
     does: a VLM's patch embeddings reach only ``forward``, and an
-    encoder-only config (no decode step) raises here."""
+    encoder-only config (no decode step) raises here.
+
+    On a CUDA device the constructor captures the step
+    (:meth:`_capture`): a tick then copies its tokens from pinned memory,
+    replays the graph and reads the ``(B,)`` next tokens back, one
+    synchronisation.  A capture or a replay that fails raises; there is
+    no eager retry on the card.  ``logits`` is the last tick's ``(B, V)``
+    logits (on the card the graph's output buffer, overwritten by the next
+    tick)."""
 
     def __init__(self, cfg: ArchConfig, params: Any, slots: int = 8,
                  max_len: int = 256,
@@ -72,10 +95,72 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.cache = self.model.init_cache(slots, max_len)
+        promote_conv(cfg, self.cache)       # no leaf reallocated by a step
         self._step = make_serve_step(cfg)
         self.active: list[Request | None] = [None] * slots
         self.queue: list[Request] = []
-        self.tokens = np.zeros((slots, 1), np.int64)
+        self.logits: torch.Tensor | None = None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        #: the kernel launches one replay makes (counted at the capture)
+        self.replay_launches: dict[str, int] = {}
+        #: bytes the capture added to the device's reserved memory: the
+        #: graph's private pool
+        self.graph_pool_bytes = 0
+        if self.model.device.type == "cuda":
+            # the tick's tokens, written by the host straight into pinned
+            # memory and copied into the graph's token buffer
+            host = torch.zeros((slots, 1), dtype=torch.int64, pin_memory=True)
+            self.tokens = host.numpy()
+            self._tokens_host = host
+            self._capture()
+        else:
+            self.tokens = np.zeros((slots, 1), np.int64)
+
+    @torch.inference_mode()
+    def _capture(self) -> None:
+        """Warm-up steps on a side stream, the cache zeroed (every engine
+        starts from a zeroed cache, as the reference's), then one graph of
+        the step and the argmax captured on that stream, its kernel
+        launches recorded and taken off the counters (a capture launches
+        nothing)."""
+        dev = self.model.device
+        token = torch.zeros((self.slots, 1), dtype=torch.int64, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self._step(self.params, self.cache, token)
+            for leaf in tree_leaves(self.cache):
+                leaf.zero_()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(graph, stream=side):
+            logits, _ = self._step(self.params, self.cache, token)
+            nxt = logits.argmax(dim=-1)
+        after = kernels.launch_counts()
+        self.replay_launches = {k: after[k] - before[k] for k in after
+                                if after[k] != before[k]}
+        kernels.add_launches({k: -n for k, n in self.replay_launches.items()})
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.graph, self._token, self._logits, self._next = graph, token, logits, nxt
+
+    def _decode(self) -> np.ndarray:
+        """One step on the tick's tokens → the next token of every slot."""
+        if self.graph is None:
+            token = torch.from_numpy(self.tokens).to(self.model.device)
+            self.logits, self.cache = self._step(self.params, self.cache, token)
+            # argmax on the device; ties go to the first index, as np.argmax
+            return self.logits.argmax(dim=-1).cpu().numpy()
+        self._token.copy_(self._tokens_host, non_blocking=True)
+        with torch.cuda.device(self.model.device):
+            self.graph.replay()
+        kernels.add_launches(self.replay_launches)
+        self.logits = self._logits
+        return self._next.cpu().numpy()
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -95,10 +180,7 @@ class ServeEngine:
         self._admit()
         if not any(self.active):
             return []
-        token = torch.from_numpy(self.tokens).to(self.model.device)
-        logits, self.cache = self._step(self.params, self.cache, token)
-        # argmax on the device; ties go to the first index, as np.argmax
-        nxt_all = logits.argmax(dim=-1).cpu().numpy()
+        nxt_all = self._decode()
         finished: list[Request] = []
         for i, req in enumerate(self.active):
             if req is None:

@@ -1290,3 +1290,78 @@ def test_sweep_over_the_arch_axis_on_the_cpu(tmp_path):
         assert len(runs["gang"][2][arch]) == 2
         assert cs.max_rel_diff(runs["each"][2][arch],
                                runs["gang"][2][arch]) <= cs.GANG_LOSS_REL_TOL
+
+
+def test_a_graph_launch_is_a_launch_and_a_replay():
+    """A profile's cudaGraphLaunch counts among the launch calls and, on its
+    own, as a graph replay; a stream synchronisation as a host sync."""
+    cpu = torch.autograd.DeviceType.CPU
+
+    def event(name):
+        return SimpleNamespace(name=name, device_type=cpu,
+                               time_range=SimpleNamespace(start=0, end=1))
+
+    events = [event("cudaGraphLaunch"), event("cudaLaunchKernel"),
+              event("cudaMemcpyAsync"), event("cudaStreamSynchronize")]
+    prof = SimpleNamespace(events=lambda: events, key_averages=lambda: [])
+    out = cs.summarize(prof, wall_s=0.01, steps=1)
+    assert out["kernel_launches"] == 2 and out["graph_launches"] == 1
+    assert out["host_syncs"] == 1
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "olmoe-1b-7b"])
+def test_graph_vs_eager_feeds_both_past_the_ring(monkeypatch, arch):
+    """The engine against the eager step on one teacher-forced feed, past
+    the smoke window's ring of 16 (GRAPH_CHECK_LEN): on the CPU the engine
+    runs the eager step, so the two are bit-equal and the capture is
+    empty."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model, compute_copy
+    monkeypatch.setattr(cs.torch.cuda, "synchronize", lambda: None)
+    cfg = get_smoke(arch)
+    params = compute_copy(cfg, Model(cfg, "cpu").init(seed=0))
+    out = cs.graph_vs_eager(cfg, params, "cpu", cfg.n_layers, np.random.default_rng(0))
+    assert out["ticks"] == cs.GRAPH_CHECK_TICKS > cs.GRAPH_CHECK_LEN
+    assert out["bit_equal"] and out["max_abs"] == 0.0 and out["within_bounds"]
+    assert out["positions"] == 4 * cs.GRAPH_CHECK_TICKS
+    assert out["replay_launches"] == {} and out["graph_pool_bytes"] == 0
+
+
+def test_eager_ticks_decode_greedily_from_the_tokens():
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import make_serve_step
+    cfg = get_smoke("gemma3-1b")
+    model = Model(cfg, "cpu")
+    params = model.init(seed=0)
+    tokens = np.array([[1], [2]])
+    cache = cs.eager_ticks(make_serve_step(cfg), params, model.init_cache(2, 8),
+                           tokens, 3, "cpu")
+    want = model.init_cache(2, 8)
+    with torch.inference_mode():
+        for _ in range(3):
+            logits, want = model.decode_step(params, want, torch.from_numpy(tokens))
+            tokens = logits.argmax(-1, keepdim=True).numpy()
+    assert int(cache["pos"]) == 3
+    torch.testing.assert_close(cache["segments"][0]["k"], want["segments"][0]["k"],
+                               atol=0, rtol=0)
+
+
+def test_prefill_and_decode_feeds_the_prompt_through_the_engine(monkeypatch):
+    """The teacher-forced decode of the consistency checks goes through
+    ServeEngine on one slot and a cache of the prompt's length, past the
+    smoke window's ring: its logits are the decode step's, and its cache
+    holds the prompt."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model
+    cfg = get_smoke("h2o-danube-1.8b")
+    model = Model(cfg, "cpu")
+    params = model.init(seed=0, serving=True)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 24)))
+    fwd, dec, cache = cs.prefill_and_decode(model, params, prompt)
+    assert fwd.shape == dec.shape == (24, cfg.vocab_size) and int(cache["pos"]) == 24
+    want = model.init_cache(1, 24)
+    with torch.inference_mode():
+        for t in range(24):
+            logits, want = model.decode_step(params, want, prompt[:, t:t + 1])
+            torch.testing.assert_close(dec[t], logits[0].float(), atol=0, rtol=0)

@@ -920,3 +920,42 @@ def test_vmap_rules_launch_once_for_all_members(dev):
         assert _slab_over(y[i], wy, (0, 2)) <= 0
         for g_, w_ in zip(grads, torch.autograd.grad(wy, mine, dy[i])):
             assert _slab_over(g_[i], w_, (0, 2)) <= 0
+
+
+GRAPH_ARCHS = ["gemma3-1b", "mamba2-780m", "olmoe-1b-7b", "qwen2-moe-a2.7b",
+               "hymba-1.5b", "internvl2-26b", "h2o-danube-1.8b"]
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graphed_engine_matches_eager_step(dev, arch):
+    """ServeEngine replays one captured graph a tick; its logits at every
+    tick are the eager step's on a second cache fed the same tokens (past
+    the smoke window's ring of 16), and a replay counts the launches its
+    capture recorded (the grouped GEMM 3 a MoE layer a tick)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Request, ServeEngine, make_serve_step
+    cfg = get_smoke(arch)
+    model = Model(cfg, dev)
+    params = model.init(0, serving=True)
+    engine = ServeEngine(cfg, params, slots=2, max_len=24, device=dev)
+    assert engine.graph is not None and int(engine.cache["pos"]) == 0
+    moe_layers = sum(n for kind, n in cfg.segments() if kind == "moe")
+    assert engine.replay_launches.get("grouped_matmul", 0) == 3 * moe_layers
+    engine.submit(Request(rid=0, prompt=[1, 2, 3], max_new=18))
+    engine.submit(Request(rid=1, prompt=[4, 5], max_new=18))
+    step = make_serve_step(cfg)
+    cache = model.init_cache(2, 24)
+    ticks = launched = 0
+    while engine.queue or any(engine.active):
+        before = kernels.launch_counts()["grouped_matmul"]
+        engine.step()
+        launched += kernels.launch_counts()["grouped_matmul"] - before
+        ticks += 1
+        with torch.inference_mode():
+            want, cache = step(engine.params, cache, engine._token.clone())
+        torch.testing.assert_close(engine.logits.float(), want.float(),
+                                   atol=2e-2, rtol=2e-2)
+    assert ticks == 20 and int(engine.cache["pos"]) == int(cache["pos"]) == ticks
+    assert launched == 3 * moe_layers * ticks

@@ -497,8 +497,8 @@ def job_decode(mesh, cases: list[dict]) -> list[dict]:
         for (path, leaf), spec, w in zip(bridge.flatten(cache).items(),
                                          shd.spec_leaves(specs),
                                          bridge.flatten(whole).values()):
-            if not isinstance(leaf, torch.Tensor):
-                continue
+            if not isinstance(leaf, torch.Tensor) or path == "pos":
+                continue          # pos, replicated, is reported on its own
             leaves[path] = (leaf.float().numpy().copy(),
                             [(s.start, s.stop) for s in
                              shd.local_slices(spec, w.shape, mesh)])

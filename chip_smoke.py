@@ -198,8 +198,23 @@ within 5e-3 (relative) of the member's alone, and the flash-attention
 launches a step the same for two members as for one; step time and peak
 memory of each run; the same for a smoke-size mamba2 gang (the SSD scan's
 vmap rule), a smoke-size olmoe gang (the grouped GEMM's, forward, dx and
-dw) and a smoke-size hymba gang (both families' rules in one layer); a
-one-step gang of two gemma3-1b members under the profiler.
+dw) and a smoke-size hymba gang (both families' rules in one layer); one
+eager step of a gang of two gemma3-1b members under the profiler.  Since
+the gang's step is captured (its first step eager, then one CUDA graph
+replayed a step), these runs are graphed.
+
+Then graph_train: every configuration that trains on one card (gemma3-1b,
+mamba2-780m, hymba-1.5b, hubert-xlarge and h2o-danube-1.8b through
+``launch.train``, which on one card captures its step after the first and
+replays it; olmoe-1b-7b at 4 of its 16 layers through
+``GraphedTrainStep``) and the M-2 gemma3-1b gang, each 3 steps eager,
+graphed and eager again from the same seed on the same batches: the
+graphed run no farther from the first eager run than the second eager run
+is in each step's metrics and every parameter leaf (bit-equal where the
+eager runs are), its kernels' launches with the replays added the eager
+run's, one launch (the graph launch) a profiled graphed step; graphed and
+eager step ms by CUDA events in turns, capture seconds, the graph's pool,
+both peaks, and the graphed step's idle share and host syncs.
 
 Then the PaPaS driver (``repro_torch.launch.sweep``, the sweep phase): a
 study of 4 gemma3-1b smoke training runs (2 lrs x 2 seeds, 5 steps of 4 x
@@ -3859,6 +3874,278 @@ def moe_train_path(dev, card) -> list[dict]:
     return entries
 
 
+#: graph_train: every configuration that trains on one card, run
+#: GRAPH_TRAIN_STEPS steps graphed (the first the warm-up, then a replay a
+#: step) between two eager runs from the same seed on the same batches:
+#: (arch, layers: None through launch.train at full depth, else init_train_state
+#: and make_train_step at that cut depth, as moe_train_path trains it)
+GRAPH_TRAIN_CASES = (("gemma3-1b", None), ("mamba2-780m", None), ("hymba-1.5b", None),
+                     ("hubert-xlarge", None), ("h2o-danube-1.8b", None),
+                     ("olmoe-1b-7b", 4))
+GRAPH_TRAIN_STEPS = 3
+#: steps timed by CUDA events after each run (warm by then), and graphed
+#: steps under the profiler
+GRAPH_TRAIN_TIMED, GRAPH_TRAIN_PROFILED = 2, 1
+#: the gang's steps: the compared ones, then the timed and profiled ones
+GANG_GRAPH_STEPS = GRAPH_TRAIN_STEPS + GRAPH_TRAIN_TIMED + GRAPH_TRAIN_PROFILED
+
+
+def recording_step_class(graphed: bool, runs: list):
+    """A ``GraphedTrainStep`` that keeps a copy of each step's metrics (and
+    appends itself to ``runs``); with ``graphed`` False every call runs the
+    step eagerly on the same static buffers (the eager runs of
+    graph_train)."""
+    from repro_torch.train.step import GraphedTrainStep
+
+    class Recording(GraphedTrainStep):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.recorded = []
+            runs.append(self)
+
+        def __call__(self, state, batch):
+            if graphed:
+                state, metrics = super().__call__(state, batch)
+            else:
+                self._load(batch)
+                state, metrics = self._eager_step()
+            self.recorded.append({k: v.detach().float().clone() for k, v in metrics.items()})
+            return state, metrics
+
+    return Recording
+
+
+def graph_train_run(arch: str, layers, dev, graphed: bool) -> dict:
+    """One run of GRAPH_TRAIN_STEPS steps of ``arch`` from seed 0 on the
+    stream's batches (4, 2048), graphed or eager: through
+    ``launch.train.run`` (its step class replaced by a recording one) where
+    ``layers`` is None, else at that cut depth through ``init_train_state``
+    and ``make_train_step`` with launch.train's optimizer and schedule.
+    Returns each step's metrics, the parameters after the last step (flat,
+    this rank's tensors), each step's host seconds (ending at a read of its
+    metrics), the kernels' launches, the peaks, the step object (its graph
+    alive) and ``call``, one more step the same way."""
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    runs: list = []
+    step_cls = recording_step_class(graphed, runs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    if layers is None:
+        saved = train.GraphedTrainStep
+        train.GraphedTrainStep = step_cls
+        try:
+            out, state = train.run(["--arch", arch, "--steps", str(GRAPH_TRAIN_STEPS),
+                                    "--batch", str(b), "--seq", str(s), "--log-every", "1"])
+        finally:
+            train.GraphedTrainStep = saved
+        seconds = out["step_seconds"]
+        cfg = get(arch)
+    else:
+        cfg = cut_depth(get(arch), layers)
+        opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))   # launch.train's defaults
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state = init_train_state(cfg, opt, gen)
+        stream = make_stream(cfg, b, s, seed=0)
+        step, seconds = None, []
+        for i in range(GRAPH_TRAIN_STEPS):
+            host = stream.batch_at(i)
+            t0 = time.perf_counter()
+            if step is None:
+                step = step_cls(make_train_step(cfg, opt), state, host)
+            state, metrics = step(state, host)
+            float(metrics["loss"])                           # waits for the step
+            seconds.append(time.perf_counter() - t0)
+    if len(runs) != 1:
+        raise AssertionError(f"{arch}: {len(runs)} step objects")
+    run = runs.pop()      # no cycle (the class's closure holds the list) keeps it
+    if run.state is not state or (run.graph is not None) != graphed:
+        raise AssertionError(f"{arch}: graph {run.graph}, graphed {graphed}")
+    params = {k: shd.local(v) for k, v in flatten(state["params"]).items()}
+    batch = {k: v.cpu() for k, v in run.batch.items()}
+    return {"metrics": run.recorded, "params": params, "seconds": seconds,
+            "launches": launch_counts(path_kernels(cfg, backward=True)),
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9, "step": run,
+            "call": lambda: run(run.state, batch)}
+
+
+def metric_gaps(got: list, want: list) -> dict[str, float]:
+    """Each metric's largest |Δ| over the steps (and a gang's members)."""
+    return {key: max((g[key] - w[key]).abs().max().item() for g, w in zip(got, want))
+            for key in want[0]}
+
+
+def leaf_gaps(got: dict, want: dict) -> dict[str, float]:
+    """Each parameter leaf's largest |Δ| (``want`` on the host, each leaf
+    brought to ``got``'s device in turn)."""
+    return {key: (got[key].float() - w.to(got[key].device).float()).abs().max().item()
+            for key, w in want.items()}
+
+
+def graph_gate(name: str, eager_gaps: dict, graph_gaps: dict) -> list[str]:
+    """The keys where the graphed run lies farther from the first eager run
+    than the second eager run does (raises on none; returns them)."""
+    return [f"{name} {key}: graphed {graph_gaps[key]} > eager {eager_gaps[key]}"
+            for key in eager_gaps if graph_gaps[key] > eager_gaps[key]]
+
+
+def graph_train_case(name: str, run, card, **fields) -> dict:
+    """graph_train for one configuration: ``run(graphed)`` eager, graphed,
+    eager, each from the same seed on the same batches, then
+    GRAPH_TRAIN_TIMED more steps of each run timed by CUDA events (so the
+    step ms in turns: eager, graphed, eager; each run's seconds, its
+    setup included, reported).  Fails the run unless the
+    graphed run lies no farther from the first eager run than the second
+    eager run does, in each step's metrics and in every parameter leaf (so
+    bit-equal where the eager runs are); unless its kernels' launches,
+    with the replays added, are the eager run's and a replay's are one
+    eager step's; and unless a profiled graphed step (its inputs copied
+    in) makes one launch, a graph launch.  Emits the step ms graphed and
+    eager, capture seconds, the graph's pool, the peaks, and the graphed
+    step's profile (idle share, launches, host syncs)."""
+    t0 = time.perf_counter()
+    first = run(graphed=False)
+    run_seconds = [time.perf_counter() - t0]
+    # held on the host: a copy on the card would sit in the first run's
+    # freed blocks and keep their segments from the graph's pool
+    want = {k: v.to("cpu", copy=True) for k, v in first["params"].items()}
+    first_metrics, eager_launches = first["metrics"][:], first["launches"]
+    eager_ms = [time_ms(first["call"], GRAPH_TRAIN_TIMED, warmup=0)]
+    del first
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    graphed = run(graphed=True)
+    run_seconds.append(time.perf_counter() - t0)
+    step = graphed["step"]
+    graph_metric_gaps = metric_gaps(graphed["metrics"], first_metrics)
+    graph_leaf_gaps = leaf_gaps(graphed["params"], want)
+    steps = len(first_metrics)
+    if graphed["launches"] != eager_launches or {
+            k: step.replay_launches.get(k, 0) * steps for k in eager_launches
+    } != eager_launches:
+        raise AssertionError(f"{name}: graphed launches {graphed['launches']} (a "
+                             f"replay {step.replay_launches}), eager {eager_launches}")
+    graphed_ms = time_ms(graphed["call"], GRAPH_TRAIN_TIMED, warmup=0)
+    prof = profiled(graphed["call"], GRAPH_TRAIN_PROFILED)
+    per_step = {key: prof[key] / GRAPH_TRAIN_PROFILED for key in (
+        "wall_ms", "device_busy_ms", "kernel_launches", "graph_launches", "host_syncs")}
+    if per_step["graph_launches"] != 1 or per_step["kernel_launches"] != 1:
+        raise AssertionError(f"{name}: a graphed train step made "
+                             f"{per_step['graph_launches']} graph launches of "
+                             f"{per_step['kernel_launches']} launches (want 1)")
+    out = {"capture_s": step.capture_seconds, "graph_pool_bytes": step.graph_pool_bytes,
+           "replay_launches": step.replay_launches, "graphed_step_seconds": graphed["seconds"],
+           "graphed_peak_allocated_gb": graphed["peak_allocated_gb"],
+           "graphed_peak_reserved_gb": graphed["peak_reserved_gb"]}
+    del graphed, step
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    second = run(graphed=False)
+    run_seconds.append(time.perf_counter() - t0)
+    eager_metric_gaps = metric_gaps(second["metrics"], first_metrics)
+    eager_leaf_gaps = leaf_gaps(second["params"], want)
+    if second["launches"] != eager_launches:
+        raise AssertionError(f"{name}: the eager runs launched {eager_launches} "
+                             f"and {second['launches']}")
+    eager_ms.append(time_ms(second["call"], GRAPH_TRAIN_TIMED, warmup=0))
+    over = (graph_gate("metric", eager_metric_gaps, graph_metric_gaps)
+            + graph_gate("leaf", eager_leaf_gaps, graph_leaf_gaps))
+    out.update(
+        **fields, steps=steps, run_seconds=run_seconds,
+        eager_step_seconds=second["seconds"],
+        graphed_step_ms=graphed_ms, eager_step_ms=eager_ms,
+        speedup=float(np.mean(eager_ms)) / graphed_ms,
+        eager_peak_allocated_gb=second["peak_allocated_gb"],
+        eager_peak_reserved_gb=second["peak_reserved_gb"], launches=eager_launches,
+        graph_metric_gaps=graph_metric_gaps, eager_metric_gaps=eager_metric_gaps,
+        bit_equal=not any(graph_metric_gaps.values()) and not any(graph_leaf_gaps.values()),
+        eager_runs_bit_equal=not any(eager_metric_gaps.values())
+        and not any(eager_leaf_gaps.values()),
+        graph_max_leaf_gap=max(graph_leaf_gaps.values()),
+        eager_max_leaf_gap=max(eager_leaf_gaps.values()),
+        losses=[float(m["loss"].float().sum()) for m in first_metrics],
+        per_step=per_step, profile=prof)
+    del second, want
+    torch.cuda.empty_cache()
+    emit("graph_train", name=name, nvidia_smi=card, gate_failures=over, **out)
+    if over:
+        raise AssertionError(f"{name}: the graphed run lies farther from the first "
+                             f"eager run than the second does: {over[:8]}")
+    return out
+
+
+def graph_gang_run(cfg, dev, graphed: bool) -> dict:
+    """The M-2 gang of gang_path (GANG_ARCH at full width, GANG_BATCH x
+    GANG_SEQ, seeds 0 and 1, GANG_LRS) over GRAPH_TRAIN_STEPS steps, its
+    tokens drawn for GANG_GRAPH_STEPS (the schedule's length), graphed
+    (``Gang.step``) or eager (the step it captures, ``Gang._eager_step``).
+    Returns graph_train_run's fields."""
+    from repro_torch.bridge import flatten
+    from repro_torch.train import ensemble
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, tokens = ensemble.init_members(cfg, (0, 1), GANG_GRAPH_STEPS, GANG_BATCH,
+                                           GANG_SEQ, dev)
+    gang = ensemble.Gang(cfg, params, tokens, list(GANG_LRS), warmup=1)
+    reset_launches()
+    metrics, seconds = [], []
+    for i in range(GRAPH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        if graphed:
+            gang.step()
+        else:
+            gang._eager_step()
+        metrics.append({"loss": gang.losses[i].clone()})
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    if (gang.graph is not None) != graphed:
+        raise AssertionError(f"gang graph {gang.graph}, graphed {graphed}")
+    return {"metrics": metrics, "params": flatten(gang.params), "seconds": seconds,
+            "launches": launch_counts(path_kernels(cfg, backward=True)),
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "step": gang, "call": gang.step if graphed else gang._eager_step}
+
+
+def graph_train_path(dev, card) -> dict[str, dict]:
+    """graph_train for every configuration of GRAPH_TRAIN_CASES and for
+    gang_path's M-2 gemma3-1b gang.  The one-rank NCCL group is started
+    first and ended last: ``launch.train`` reuses it, and the eager runs'
+    steps after it (timed) run on its mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_local_mesh
+    out = {}
+    make_local_mesh()
+    try:
+        for arch, layers in GRAPH_TRAIN_CASES:
+            out[arch] = graph_train_case(
+                f"{arch} train", lambda graphed: graph_train_run(arch, layers, dev, graphed),
+                card, arch=arch, layers=layers or get(arch).n_layers, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, route="launch.train" if layers is None else "make_train_step")
+    finally:
+        dist.destroy_process_group()
+    cfg = get(GANG_ARCH)
+    out["gang"] = graph_train_case(
+        f"{cfg.name} gang", lambda graphed: graph_gang_run(cfg, dev, graphed), card,
+        arch=cfg.name, layers=cfg.n_layers, members=2, batch=GANG_BATCH, seq=GANG_SEQ,
+        route="Gang")
+    return out
+
+
 def gang_path(dev, card) -> None:
     """The gang trainer: gemma3-1b at full width, two members with their own
     lr in one batched run against each member alone (the same core with
@@ -3915,14 +4202,15 @@ def gang_path(dev, card) -> None:
             raise AssertionError(f"{cfg.name}: launches a step {gang['launches_per_step']} "
                                  f"for 2 members, {one} for one")
         torch.cuda.empty_cache()
-    # where the time of a one-step gang of two gemma3-1b members goes (the
-    # optimizer state's allocation included)
+    # where the time of one eager step of a gang of two gemma3-1b members
+    # goes (the optimizer state's allocation included; graph_train profiles
+    # the graphed step)
     cfg = get(GANG_ARCH)
     params, tokens = ensemble.init_members(cfg, (0, 1), 1, GANG_BATCH, GANG_SEQ, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
         t0 = time.perf_counter()
-        ensemble.train_gang(cfg, params, tokens, list(GANG_LRS), warmup=1)
+        ensemble.Gang(cfg, params, tokens, list(GANG_LRS), warmup=1)._eager_step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     emit("profile_gang_step", arch=cfg.name, members=2, batch=GANG_BATCH,
@@ -5980,6 +6268,8 @@ def main() -> None:
     kernels += moe_train_path(dev, card)
     torch.cuda.empty_cache()
     gang_path(dev, card)
+    torch.cuda.empty_cache()
+    graph_train_path(dev, card)
     torch.cuda.empty_cache()
     kernels += sweep_path(dev, card)
     torch.cuda.empty_cache()

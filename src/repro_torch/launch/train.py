@@ -22,7 +22,13 @@ data size: kill it mid-run and rerun the same command.  ``--n-micro N``
 splits each global batch into N microbatches, each a block of the global
 batch as in the reference (each rank takes its share of every microbatch,
 :mod:`repro_torch.train.step`); the global batch must divide by N times
-the data size.  On a card the
+the data size.  On one card (one rank) the step is compiled, as the
+reference jits it with the state donated: the first step runs eagerly and
+is then captured as a CUDA graph over the state
+(:class:`repro_torch.train.step.GraphedTrainStep`), and every later step
+is one replay of that graph, its batch copied in from pinned memory; the
+metrics are read on the host only at log steps.  Over more than one rank,
+and on the CPU, every step runs eagerly.  On a card the
 attention runs the flash-attention kernels (bidirectional for
 hubert-xlarge's encoder), the SSM (mamba2-780m) the SSD-scan kernels,
 hymba-1.5b's hybrid layers both, and the MoE FFN (olmoe-1b-7b) the
@@ -61,7 +67,8 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import local_world, make_local_mesh
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.train.step import (
-    TrainStepConfig, init_train_state, make_train_step, train_memory_gb,
+    GraphedTrainStep, TrainStepConfig, init_train_state, make_train_step,
+    train_memory_gb,
 )
 
 #: the data sizes the refusal names (powers of two: they divide the batch
@@ -201,12 +208,20 @@ def _train(args, cfg, mesh) -> tuple[dict, dict]:
         tokens = 0
         metrics: dict[str, float] = {}
         step_seconds = []
+        # one card: the step captured as a CUDA graph at its first call (a
+        # real step, the warm-up) and replayed from then on
+        graphed = dev.type == "cuda" and dist.get_world_size() == 1
         for i, host_batch in enumerate(stream):
             step = start_step + i
             if step >= args.steps:
                 break
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
-            state, out = step_fn(state, batch)
+            if graphed:
+                if i == 0:
+                    step_fn = GraphedTrainStep(step_fn, state, host_batch)
+                state, out = step_fn(state, host_batch)
+            else:
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+                state, out = step_fn(state, batch)
             tokens += args.batch * args.seq
             if step % args.log_every == 0 or step == args.steps - 1:
                 metrics = {k: float(v) for k, v in out.items()}

@@ -166,10 +166,14 @@ def _expert_rows(x: torch.Tensor, p: dict[str, Any], top_idx: torch.Tensor,
     GEMMs sorted by expert; the group sizes are counted on the device.
     With ``tp`` the experts are this rank's hidden block (the rows enter
     through f; the output is this rank's partial sum)."""
-    k = top_idx.shape[1]
+    t, k = top_idx.shape
     flat_expert = top_idx.reshape(-1)
     order = torch.argsort(flat_expert, stable=True)
-    xs = cast(mesh_ctx.model_copy(x) if tp else x, cd).index_select(0, order // k)
+    # each token's K copies, then the permutation: the gradient sums a
+    # token's K rows in a fixed order (a gather of each token K times
+    # would sum them by atomic adds, in a different order every run)
+    xs = cast(mesh_ctx.model_copy(x) if tp else x, cd)
+    xs = xs.unsqueeze(1).expand(t, k, xs.shape[-1]).reshape(t * k, -1).index_select(0, order)
     sizes = torch.zeros(n_experts, dtype=torch.int32, device=x.device).scatter_add(
         0, flat_expert, torch.ones_like(flat_expert, dtype=torch.int32))
     fn = _act(act)

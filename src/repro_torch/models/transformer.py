@@ -485,7 +485,9 @@ def _remat(cfg: ArchConfig, fn):
     checkpointed with the matrix products saved (``"dots"``)."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    kwargs: dict[str, Any] = {"use_reentrant": False}
+    # no layer draws random numbers: the generator's state is not saved
+    # (reading it is refused while a CUDA graph is captured)
+    kwargs: dict[str, Any] = {"use_reentrant": False, "preserve_rng_state": False}
     if cfg.remat == "dots":
         kwargs["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
@@ -681,7 +683,8 @@ def loss_fn(cfg: ArchConfig, params: dict[str, Any],
             args = (x[..., start:start + chunk, :], head,
                     labels[..., start:start + chunk])
             nll_sum = nll_sum + (
-                ckpt.checkpoint(ce_terms, *args, use_reentrant=False)
+                ckpt.checkpoint(ce_terms, *args, use_reentrant=False,
+                                preserve_rng_state=False)
                 if torch.is_grad_enabled() else ce_terms(*args))
     else:
         nll_sum = ce_terms(x, head, labels)

@@ -6,10 +6,13 @@ checkpoint of either package restores into the other.  It is a dict of
 tensors, not a ``torch.optim.Optimizer``.
 
 Unlike the reference, whose arrays are immutable, :meth:`AdamW.update`
-writes the new m, v, master and parameters into the tensors it is given (the
-reference's train loop donates the state, ``donate_argnums=(0,)``): at 1 B
-parameters a second copy of the state would cost 20 GB of card memory.  The
-arithmetic is the reference's, leaf by leaf.
+writes the new m, v, master, parameters and count into the tensors it is
+given (the reference's train loop donates the state, ``donate_argnums=(0,)``):
+at 1 B parameters a second copy of the state would cost 20 GB of card
+memory, and a step captured as a CUDA graph replays on the same tensors.
+The count is a 0-d int32 tensor on the state's device, advanced in place,
+and the learning rate is computed from it there.  The arithmetic is the
+reference's, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -89,12 +92,12 @@ class AdamW:
     def update(self, grads: Pytree, state: dict[str, Pytree], params: Pytree,
                grad_norm: torch.Tensor | None = None
                ) -> tuple[Pytree, dict[str, Pytree], dict[str, torch.Tensor]]:
-        """One step; writes m, v, master and the parameters in place and
-        returns them with the metrics ``lr`` and ``grad_norm``.  The
+        """One step; writes m, v, master, the parameters and the count in
+        place and returns them with the metrics ``lr`` and ``grad_norm``.  The
         arithmetic is elementwise, so the leaves may be matching slices of
         the full ones (ZeRO-1); then ``grad_norm`` is the full gradients'
         global norm, which clipping uses (default: the norm of ``grads``)."""
-        count = state["count"] + 1
+        count = state["count"].add_(1)
         gnorm = global_norm(grads) if grad_norm is None else grad_norm
         scale = (torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
                  if self.clip_norm else None)
@@ -115,7 +118,6 @@ class AdamW:
                 step = step + self.weight_decay * w
             w.copy_(w - lr * step)
             p.copy_(w)
-        state["count"] = count
         return params, state, {"lr": lr, "grad_norm": gnorm}
 
 

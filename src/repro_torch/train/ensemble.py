@@ -2,7 +2,8 @@
 (port of ``repro.train.ensemble``, the paper's job batching on one device).
 
 ``train_members``  — one run per member, one after another (the paper's
-                     one-job-per-task baseline).
+                     one-job-per-task baseline), each member loaded into
+                     the first one's buffers, so one capture serves all.
 ``train_ensemble`` — all members at once: their parameters and optimizer
                      states stacked on a leading member axis of every leaf,
                      each step one forward and backward over all members
@@ -27,6 +28,9 @@ attention and SSD kernels, each under its own vmap rule, inside one
 checkpoint.  The gang takes token batches only, as the reference's does
 (``repro.train.ensemble`` draws tokens): a config whose input mode is
 ``embeds`` or ``mixed`` (hubert-xlarge, internvl2-26b) is refused.
+
+The reference compiles each run whole; here a run is a :class:`Gang`,
+whose step is captured as a CUDA graph on the card and replayed.
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import init_params, loss_fn
 from repro_torch.optim.adamw import AdamW, cosine_schedule, value_and_grad
-from repro_torch.tree import tree_map
+from repro_torch.train.step import CapturedStep
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _arg(m: dict[str, Any], key: str, default: Any) -> Any:
@@ -109,43 +114,102 @@ def init_members(cfg: ArchConfig, seeds: Sequence[int], steps: int, batch: int,
     return stack_members(params), torch.stack(tokens)
 
 
-def train_gang(cfg: ArchConfig, params: Any, tokens: torch.Tensor,
-               lrs: Sequence[float], *, warmup: int) -> torch.Tensor:
-    """Trains M members together: ``params`` stacked (a leading member axis
-    on every leaf, updated in place), ``tokens`` (M, steps, batch, seq), one
-    lr each on a unit-base cosine schedule over the steps.  Each step's
-    labels are its tokens rolled by one, as in the reference.  Returns the
-    losses (steps, M), each taken before its step's update."""
-    _require_tokens(cfg)
-    m, steps = tokens.shape[:2]
-    if len(lrs) != m:
-        raise ValueError(f"{len(lrs)} learning rates for {m} members")
-    base = cosine_schedule(1.0, warmup, steps)
-    opt = AdamW(schedule=base)
-    state = opt.init(params)
-    state["count"] = torch.zeros((m,), dtype=torch.int32, device=tokens.device)
-    lr = torch.tensor(lrs, dtype=torch.float32, device=tokens.device)
+class Gang(CapturedStep):
+    """M members trained together, one batched step at a time: ``params``
+    stacked (a leading member axis on every leaf, updated in
+    place), their AdamW state, ``tokens`` (M, steps, batch, seq) and one lr
+    each on a unit-base cosine schedule over the steps.  Each step takes
+    its tokens through :attr:`index`, a 0-d int64 on the device that the
+    step advances in place, labels them with the tokens rolled by one, as
+    in the reference, and writes each member's loss, taken before the
+    update, into row ``index`` of :attr:`losses` (steps, M).
 
-    def gang_loss(p, batch):
+    The reference compiles the whole gang as one program
+    (``jax.jit(jax.vmap(train_one))``); here the step is a
+    :class:`repro_torch.train.step.CapturedStep`: on a card the first
+    :meth:`step` runs eagerly, the warm-up, and every later one replays
+    one captured CUDA graph.  :meth:`load` puts other members' parameters
+    and tokens into the same buffers and resets the optimizer state, so
+    one capture serves a run of members one after another."""
+
+    def __init__(self, cfg: ArchConfig, params: Any, tokens: torch.Tensor,
+                 lrs: Sequence[float], *, warmup: int) -> None:
+        _require_tokens(cfg)
+        m, steps = tokens.shape[:2]
+        if len(lrs) != m:
+            raise ValueError(f"{len(lrs)} learning rates for {m} members")
+        dev = tokens.device
+        super().__init__(dev)
+        self.cfg, self.params, self.tokens = cfg, params, tokens
+        base = cosine_schedule(1.0, warmup, steps)
+        self.opt_state = AdamW(schedule=base).init(params)
+        self.opt_state["count"] = torch.zeros((m,), dtype=torch.int32, device=dev)
+        self.lr = torch.tensor(lrs, dtype=torch.float32, device=dev)
+        self.index = torch.zeros((), dtype=torch.int64, device=dev)
+        self.losses = torch.zeros((steps, m), dtype=torch.float32, device=dev)
+        self.steps_run = 0
+
+        def member_update(grads, opt_state, p, lr_m):
+            # the member's lr scales the unit-base schedule
+            scaled = AdamW(schedule=lambda c: lr_m * base(c))
+            return scaled.update(grads, opt_state, p)[2]
+
+        self._update = torch.func.vmap(member_update)
+
+    def _loss(self, p, batch):
         # the sum's gradient is each member's own: members share nothing
-        loss, _ = loss_fn(cfg, p, batch, members=True)
+        loss, _ = loss_fn(self.cfg, p, batch, members=True)
         return loss.sum(), {"loss": loss}
 
-    def member_update(grads, opt_state, p, lr_m):
-        # the member's lr scales the unit-base schedule
-        scaled = AdamW(schedule=lambda c: lr_m * base(c))
-        _, new_state, _ = scaled.update(grads, opt_state, p)
-        return new_state["count"]
-
-    update = torch.func.vmap(member_update)
-    losses = []
-    for i in range(steps):
-        toks = tokens[:, i]
+    def _eager_step(self) -> None:
+        toks = self.tokens.index_select(1, self.index.view(1)).squeeze(1)
         batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
-        (_, aux), grads = value_and_grad(gang_loss, params, batch)
-        state["count"] = update(grads, state, params, lr)
-        losses.append(aux["loss"])
-    return torch.stack(losses)
+        (_, aux), grads = value_and_grad(self._loss, self.params, batch)
+        self._update(grads, self.opt_state, self.params, self.lr)
+        self.losses.index_copy_(0, self.index.view(1), aux["loss"][None])
+        self.index.add_(1)
+
+    def step(self) -> None:
+        """One step of every member: eager on the CPU and at the first step
+        on a card, a replay of the captured step after it."""
+        if self.steps_run == self.losses.shape[0]:
+            raise ValueError(f"the gang has run its {self.steps_run} steps")
+        self.steps_run += 1
+        self._run_step()
+
+    def run(self) -> torch.Tensor:
+        """The steps not run yet; returns :attr:`losses`."""
+        while self.steps_run < self.losses.shape[0]:
+            self.step()
+        return self.losses
+
+    @torch.no_grad()
+    def load(self, params: Any, tokens: torch.Tensor, lrs: Sequence[float]) -> None:
+        """Other members of the same shapes into the buffers, from step 0:
+        their parameters, tokens and lrs copied in, the optimizer state as
+        ``AdamW.init`` makes it, the index and losses zeroed."""
+        for dst, src in zip(tree_leaves(self.params), tree_leaves(params)):
+            dst.copy_(src)
+        self.tokens.copy_(tokens)
+        self.lr.copy_(torch.tensor(lrs, dtype=torch.float32))
+        for key in ("m", "v"):
+            for leaf in tree_leaves(self.opt_state[key]):
+                leaf.zero_()
+        for dst, src in zip(tree_leaves(self.opt_state["master"]), tree_leaves(params)):
+            dst.copy_(src)
+        for t in (self.opt_state["count"], self.index, self.losses):
+            t.zero_()
+        self.steps_run = 0
+
+
+def train_gang(cfg: ArchConfig, params: Any, tokens: torch.Tensor,
+               lrs: Sequence[float], *, warmup: int) -> torch.Tensor:
+    """Trains M members together (:class:`Gang`): ``params`` stacked (a
+    leading member axis on every leaf, updated in place), ``tokens`` (M,
+    steps, batch, seq), one lr each on a unit-base cosine schedule over the
+    steps.  Returns the losses (steps, M), each taken before its step's
+    update."""
+    return Gang(cfg, params, tokens, lrs, warmup=warmup).run()
 
 
 def _run(members: Sequence[dict], device, gang: bool) -> list[float]:
@@ -155,13 +219,19 @@ def _run(members: Sequence[dict], device, gang: bool) -> list[float]:
     groups = ([range(len(members))] if gang
               else [[i] for i in range(len(members))])
     out = []
+    run = None
     for idx in groups:
         params, tokens = init_members(
             cfg, [common["seeds"][i] for i in idx], common["steps"],
             common["batch"], common["seq"], dev)
-        losses = train_gang(cfg, params, tokens, [common["lrs"][i] for i in idx],
-                            warmup=common["warmup"])
-        out += [float(x) for x in losses[-1]]
+        lrs = [common["lrs"][i] for i in idx]
+        if run is None:
+            run = Gang(cfg, params, tokens, lrs, warmup=common["warmup"])
+        else:
+            # one member after another on the first one's buffers (and, on
+            # a card, its captured step)
+            run.load(params, tokens, lrs)
+        out += [float(x) for x in run.run()[-1]]
     return out
 
 

@@ -2,10 +2,17 @@
 optional int8 round trip of the gradients (port of ``repro.train.step``).
 
 The state is ``{"params", "opt", "step"}`` as in the reference.  The step
-writes the new parameters and optimizer state into the state's tensors and
-returns the state (the reference's loop donates it).  The batch's inputs
-follow the config's input mode (tokens, frame embeddings, or patch
-embeddings then tokens); the step passes them through as they are.
+writes the new parameters, optimizer state and step count into the state's
+tensors, every leaf keeping its storage, and returns the state (the
+reference's loop donates it).  The batch's inputs follow the config's input
+mode (tokens, frame embeddings, or patch embeddings then tokens); the step
+passes them through as they are.
+
+**Compiled.** The reference jits the step with the state donated
+(``jax.jit(step_fn, donate_argnums=(0,))``).  :class:`GraphedTrainStep` is
+the port's form of it on a CUDA device: the step captured once as a CUDA
+graph over the state and static batch buffers, and replayed every step
+(:class:`CapturedStep`, which the gang's step is too).
 
 **On a device mesh** (``(data, model)`` or ``(pod, data, model)``).  A
 state whose leaves are DTensors (:func:`init_train_state` or
@@ -48,11 +55,14 @@ each device of a (data, model) mesh.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Any, Callable
 
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import kernels
 from repro_torch.bridge import flatten
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding as shd
@@ -123,10 +133,9 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
         (loss, aux), grads = grads_of(params, batch)
         if step_cfg.compress_grads:
             grads = decompress_int8(compress_int8(grads))
-        new_params, new_opt, opt_metrics = opt.update(grads, state["opt"], params)
-        metrics = {"loss": loss, **aux, **opt_metrics}
-        return {"params": new_params, "opt": new_opt,
-                "step": state["step"] + 1}, metrics
+        _, _, opt_metrics = opt.update(grads, state["opt"], params)
+        state["step"].add_(1)
+        return state, {"loss": loss, **aux, **opt_metrics}
 
     def _dp_step(state, batch):
         mesh = state["step"].device_mesh
@@ -160,22 +169,167 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
                              opt_state["master"])
             slices = tree_map(lambda p, spec: shd.local_slices(spec, p.shape, mesh),
                               params, specs)
-            count = shd.local(opt_state["count"])
             _, _, opt_metrics = opt.update(
                 tree_map(lambda g, sl: g[sl], grads, slices),
                 {"m": tree_map(shd.local, opt_state["m"]),
                  "v": tree_map(shd.local, opt_state["v"]),
                  "master": tree_map(shd.local, opt_state["master"]),
-                 "count": count.clone()},
+                 "count": shd.local(opt_state["count"])},
                 tree_map(lambda p, sl: p[sl], params, slices),
                 grad_norm=gnorm)
-            count.add_(1)
             tree_map(lambda p, spec: shd.gather_shards(p, spec, mesh),
                      params, specs)
             shd.local(state["step"]).add_(1)
         return state, {**metrics, **opt_metrics}
 
     return train_step
+
+
+#: one capture at a time in a process (a sweep's thread pool may train
+#: several runs at once; each capture is also thread-local in its errors)
+_CAPTURE_LOCK = threading.Lock()
+
+
+class CapturedStep:
+    """A step on fixed buffers (:meth:`_eager_step`, no arguments) run as the
+    reference runs its compiled step.  On the CPU every :meth:`_run_step`
+    runs it eagerly.  On a CUDA device the first runs it eagerly on a side
+    stream, the warm-up (the kernels built and their per-device set-up
+    done, library handles and workspaces made on that stream); the second
+    releases the cached blocks the warm-up left, captures the step once as
+    a CUDA graph on that stream (a capture runs nothing) and replays it;
+    every later one replays it: one graph launch a step.  The kernels'
+    launches at the capture are taken off their counters and added back at
+    each replay (:attr:`replay_launches`).  A replay returns the captured
+    call's outputs, the graph's buffers, overwritten by the next replay.  A
+    capture or replay that fails raises, and so does every later step: the
+    step is never run eagerly in its place; out of memory, the capture
+    names the memory."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs: Any = None
+        #: the kernel launches one replay makes (counted at the capture)
+        self.replay_launches: dict[str, int] = {}
+        #: bytes the capture added to the device's reserved memory: the
+        #: graph's private pool
+        self.graph_pool_bytes = 0
+        self.capture_seconds = 0.0
+        #: the warm-up's and the capture's stream, made by the warm-up
+        self._side: torch.cuda.Stream | None = None
+
+    def _eager_step(self) -> Any:
+        raise NotImplementedError
+
+    def _run_step(self) -> Any:
+        if self.device.type != "cuda":
+            return self._eager_step()
+        current = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self._side.wait_stream(current)
+            with torch.cuda.stream(self._side):
+                out = self._eager_step()
+            current.wait_stream(self._side)
+            return out
+        if self.graph is None:
+            self._side.wait_stream(current)
+            self._capture()
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        kernels.add_launches(self.replay_launches)
+        return self.outputs
+
+    def _capture(self) -> None:
+        dev = self.device
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with _CAPTURE_LOCK:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            before = kernels.launch_counts()
+            try:
+                with torch.cuda.device(dev), torch.cuda.graph(
+                        graph, stream=self._side, capture_error_mode="thread_local"):
+                    outputs = self._eager_step()
+            except torch.OutOfMemoryError as e:
+                total = torch.cuda.get_device_properties(dev).total_memory
+                raise torch.OutOfMemoryError(
+                    f"the captured step does not fit: {reserved / 1e9:.2f} GB "
+                    f"reserved before the capture (the state and its buffers), "
+                    f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB when it ran "
+                    f"out, of the card's {total / 1e9:.2f} GB") from e
+            after = kernels.launch_counts()
+        self.replay_launches = {k: after[k] - before[k] for k in after
+                                if after[k] != before[k]}
+        kernels.add_launches({k: -n for k, n in self.replay_launches.items()})
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_seconds = time.perf_counter() - t0
+        self.graph, self.outputs = graph, outputs
+
+
+class GraphedTrainStep(CapturedStep):
+    """``step_fn`` (from :func:`make_train_step`) as a :class:`CapturedStep`,
+    the state updated in place: the reference's ``jax.jit(step_fn,
+    donate_argnums=(0,))``.  On a card the run's first step is the warm-up
+    (a real step: the state is neither copied nor rolled back), and every
+    step after it one replay of the captured graph.
+
+    Called as ``step(state, batch) -> (state, metrics)``, always with the
+    state it was built with.  Each call first copies the batch (host arrays
+    or tensors of ``example_batch``'s shapes and dtypes) into static
+    buffers on the state's device; a host batch goes through pinned memory
+    without a synchronisation (the host waits only until the previous
+    step's copy has left the pinned buffer).  A replay's metrics are the
+    graph's output buffers, overwritten by the next replay."""
+
+    def __init__(self, step_fn: Callable, state: dict[str, Any],
+                 example_batch: dict[str, Any]) -> None:
+        super().__init__(shd.local(state["step"]).device)
+        self._step_fn = step_fn
+        self.state = state
+        host = {k: torch.as_tensor(v) for k, v in example_batch.items()}
+        self.batch = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                      for k, v in host.items()}
+        if self.device.type == "cuda":
+            self._pinned = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                            for k, v in host.items()}
+            #: recorded after each copy out of the pinned buffers
+            self._copied = torch.cuda.Event()
+
+    def __call__(self, state: dict[str, Any], batch: dict[str, Any]
+                 ) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
+        if state is not self.state:
+            raise ValueError("a graphed train step runs on the state it was "
+                             "built with, which each step updates in place")
+        self._load(batch)
+        return self.state, self._run_step()[1]
+
+    def _eager_step(self) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
+        return self._step_fn(self.state, self.batch)
+
+    def _load(self, batch: dict[str, Any]) -> None:
+        """The batch copied into the static buffers, on the current stream."""
+        if set(batch) != set(self.batch):
+            raise ValueError(f"batch keys {sorted(batch)}, want {sorted(self.batch)}")
+        values = {k: torch.as_tensor(v) for k, v in batch.items()}
+        for k, v in values.items():
+            if v.shape != self.batch[k].shape or v.dtype != self.batch[k].dtype:
+                raise ValueError(f"batch {k!r}: {v.dtype} {tuple(v.shape)}, want "
+                                 f"{self.batch[k].dtype} {tuple(self.batch[k].shape)}")
+        on_host = self.device.type == "cuda" and all(
+            v.device.type == "cpu" for v in values.values())
+        if on_host:
+            self._copied.synchronize()
+            for k, v in values.items():
+                self._pinned[k].copy_(v)
+            values = self._pinned
+        for k, v in values.items():
+            self.batch[k].copy_(v, non_blocking=on_host)
+        if on_host:
+            self._copied.record()
 
 
 def _tp_global_norm(grads: Any, split: Any) -> torch.Tensor:

@@ -1365,3 +1365,63 @@ def test_prefill_and_decode_feeds_the_prompt_through_the_engine(monkeypatch):
         for t in range(24):
             logits, want = model.decode_step(params, want, prompt[:, t:t + 1])
             torch.testing.assert_close(dec[t], logits[0].float(), atol=0, rtol=0)
+
+
+def test_graph_train_covers_every_one_card_training_config():
+    """graph_train runs the graphed step on every configuration that trains
+    on one card (olmoe-1b-7b at 4 of its 16 layers, as moe_train_path
+    trains it) and on gang_path's M-2 gang, and main drives it."""
+    import inspect
+    assert dict(cs.GRAPH_TRAIN_CASES) == {
+        "gemma3-1b": None, "mamba2-780m": None, "hymba-1.5b": None,
+        "hubert-xlarge": None, "h2o-danube-1.8b": None, "olmoe-1b-7b": 4}
+    assert cs.MOE_TRAIN_DEPTHS[-1] == 4 and cs.GRAPH_TRAIN_STEPS == 3
+    assert "graph_train_path(dev, card)" in inspect.getsource(cs.main)
+    source = inspect.getsource(cs.graph_train_path)
+    assert "graph_gang_run" in source and "GRAPH_TRAIN_CASES" in source
+    assert cs.GANG_GRAPH_STEPS >= (cs.GRAPH_TRAIN_STEPS + cs.GRAPH_TRAIN_TIMED
+                                   + cs.GRAPH_TRAIN_PROFILED)
+
+
+def _fake_graph_runs(monkeypatch, graphed_gap=0.0, eager_gap=0.0, graph_launches=1,
+                     replay=None):
+    """graph_train_case's run on the CPU: three runs of one leaf and one
+    metric, the graphed one ``graphed_gap`` from the first, the second
+    eager one ``eager_gap``; the card's calls replaced."""
+    for name in ("empty_cache", "reset_peak_memory_stats", "synchronize"):
+        monkeypatch.setattr(cs.torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters, warmup=2: 1.0)
+    monkeypatch.setattr(cs, "profiled", lambda fn, steps: {
+        "wall_ms": 2.0 * steps, "device_busy_ms": 1.0 * steps,
+        "kernel_launches": graph_launches * steps, "graph_launches": graph_launches * steps,
+        "host_syncs": steps})
+    eager_runs = iter((0.0, eager_gap))
+
+    def run(graphed):
+        gap = graphed_gap if graphed else next(eager_runs)
+        step = SimpleNamespace(replay_launches=replay or {"flash_attention": 2},
+                               capture_seconds=0.5, graph_pool_bytes=1 << 20)
+        return {"metrics": [{"loss": torch.tensor(2.0 + gap)}] * 3,
+                "params": {"w": torch.full((2,), 1.0 + gap)}, "seconds": [1.0, 0.5, 0.5],
+                "launches": {"flash_attention": 6}, "peak_allocated_gb": 1.0,
+                "peak_reserved_gb": 2.0, "step": step, "call": lambda: None}
+    return run
+
+
+def test_graph_train_gate_passes_a_graph_as_close_as_two_eager_runs(monkeypatch):
+    out = cs.graph_train_case("x", _fake_graph_runs(monkeypatch), "card")
+    assert out["bit_equal"] and out["eager_runs_bit_equal"]
+    assert out["per_step"]["graph_launches"] == 1 and out["steps"] == 3
+    out = cs.graph_train_case("x", _fake_graph_runs(monkeypatch, 1e-3, 2e-3), "card")
+    assert not out["bit_equal"] and out["graph_max_leaf_gap"] == pytest.approx(1e-3, rel=1e-3)
+
+
+@pytest.mark.parametrize("fault", [
+    {"graphed_gap": 1e-6},                       # eager runs bit-equal, graph not
+    {"graphed_gap": 2e-3, "eager_gap": 1e-3},    # farther than the eager spread
+    {"graph_launches": 2},                       # two graph launches a step
+    {"replay": {"flash_attention": 1}},          # a replay's launches not a step's
+])
+def test_graph_train_gate_fails_the_run(monkeypatch, fault):
+    with pytest.raises(AssertionError):
+        cs.graph_train_case("x", _fake_graph_runs(monkeypatch, **fault), "card")

@@ -959,3 +959,132 @@ def test_graphed_engine_matches_eager_step(dev, arch):
                                    atol=2e-2, rtol=2e-2)
     assert ticks == 20 and int(engine.cache["pos"]) == int(cache["pos"]) == ticks
     assert launched == 3 * moe_layers * ticks
+
+
+GRAPH_TRAIN_ARCHS = ["gemma3-1b", "mamba2-780m", "hymba-1.5b", "olmoe-1b-7b",
+                     "hubert-xlarge"]
+
+
+def _train_run(dev, arch, graphed, steps=4):
+    """``steps`` steps of ``arch``'s smoke config from seed 0 on the same
+    host batches, through GraphedTrainStep (graphed) or the eager step:
+    each step's metrics, the parameters after the last, the kernels'
+    launches and the step object."""
+    from repro_torch import kernels
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import GraphedTrainStep, init_train_state, make_train_step
+    cfg = get_smoke(arch)
+    opt = AdamW(schedule=cosine_schedule(1e-3, 2, 10))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = init_train_state(cfg, opt, gen)
+    stream = make_stream(cfg, 2, 64, seed=0)
+    step = make_train_step(cfg, opt)
+    kernels.reset_launches()
+    metrics, graph = [], None
+    for i in range(steps):
+        host = stream.batch_at(i)
+        if graphed:
+            graph = graph or GraphedTrainStep(step, state, host)
+            _, out = graph(state, host)
+        else:
+            _, out = step(state, {k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+        metrics.append({k: v.clone() for k, v in out.items()})
+    return metrics, flatten(state["params"]), kernels.launch_counts(), graph
+
+
+@pytest.mark.parametrize("arch", GRAPH_TRAIN_ARCHS)
+def test_graphed_train_step_matches_eager_step(dev, arch):
+    """GraphedTrainStep warms up on the first step, then replays one
+    captured graph a step: every step's metrics and the parameters after
+    the last are the eager step's, bit for bit (the same kernels on the
+    same inputs), and its launches, the replays' added, are the eager
+    run's."""
+    got, got_params, got_launches, graph = _train_run(dev, arch, graphed=True)
+    want, want_params, want_launches, _ = _train_run(dev, arch, graphed=False)
+    assert graph.graph is not None and graph.capture_seconds > 0
+    assert got_launches == want_launches
+    assert {k: 4 * n for k, n in graph.replay_launches.items()} == {
+        k: n for k, n in want_launches.items() if n}
+    for g, w in zip(got, want):
+        for key in w:
+            assert torch.equal(g[key], w[key]), key
+    for key, w in want_params.items():
+        assert torch.equal(got_params[key], w), key
+
+
+def test_graphed_gang_matches_eager_gang_and_members_capture_once(dev):
+    """The gang replays one captured step a step: its losses and parameters
+    are its eager step's, bit for bit; train_members captures once for
+    all its members, each member's loss that of a gang of it alone."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.train import ensemble
+    cfg = get_smoke("gemma3-1b")
+    runs = []
+    for graphed in (True, False):
+        params, tokens = ensemble.init_members(cfg, [0, 1], 4, 2, 64, dev)
+        gang = ensemble.Gang(cfg, params, tokens, [1e-3, 3e-3], warmup=1)
+        for _ in range(4):
+            gang.step() if graphed else gang._eager_step()
+        runs.append((gang.losses.clone(), gang.graph, params))
+    (got, graph, got_params), (want, _, want_params) = runs
+    assert graph is not None and torch.equal(got, want)
+    for g, w in zip(ensemble.tree_leaves(got_params), ensemble.tree_leaves(want_params)):
+        assert torch.equal(g, w)
+    members = [{"args:lr": lr, "args:seed": seed, "args:steps": 3, "args:batch": 2,
+                "args:seq": 64} for lr, seed in ((1e-3, 0), (3e-3, 1), (2e-3, 2))]
+    built = []
+    gang_cls = ensemble.Gang
+
+    def counted(*args, **kwargs):
+        built.append(gang_cls(*args, **kwargs))
+        return built[-1]
+
+    ensemble.Gang = counted
+    try:
+        losses = ensemble.train_members(members, device=dev)
+    finally:
+        ensemble.Gang = gang_cls
+    assert len(built) == 1 and built[0].graph is not None
+    alone = [ensemble.train_ensemble([m], device=dev)[0] for m in members]
+    assert losses == alone
+
+
+def test_a_failed_capture_raises_and_never_runs_eagerly(dev):
+    """A step that reads a device value on the host cannot be captured: the
+    first call (the warm-up, eager) runs, the capture raises, and every
+    later call raises too, with nothing run eagerly in its place; a
+    capture that runs out of memory names the memory."""
+    from repro_torch.train.step import GraphedTrainStep
+    state = {"params": {"w": torch.zeros(4, device=dev)},
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    batch = {"x": torch.ones(4)}
+
+    def host_read(state, batch):
+        state["step"].add_(1)
+        state["params"]["w"].add_(batch["x"] * float(batch["x"].sum()))
+        return state, {"loss": state["params"]["w"].sum()}
+
+    step = GraphedTrainStep(host_read, state, batch)
+    step(state, batch)
+    assert int(state["step"]) == 1
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            step(state, batch)
+    assert step.graph is None and int(state["step"]) == 1
+
+    calls = []
+
+    def too_big(state, batch):
+        calls.append(1)
+        if len(calls) == 2:
+            torch.empty(1 << 40, dtype=torch.uint8, device=dev)
+        return state, {"loss": state["params"]["w"].sum()}
+
+    step = GraphedTrainStep(too_big, state, batch)
+    step(state, batch)
+    with pytest.raises(torch.OutOfMemoryError, match="does not fit"):
+        step(state, batch)

@@ -256,7 +256,11 @@ over gloo (NCCL takes one rank a device): gemma3-1b through
 split in two, both processes' memory reckoned first, held against one
 rank on the concatenated batch; then in the same processes at
 ``--n-micro 2`` (each rank's share of each microbatch, a block of the
-global batch, by an all-to-all), held against one rank at n_micro 2.
+global batch, by an all-to-all), held against one rank at n_micro 2; over
+gloo no CUDA graph captures the collectives, so each run must report
+``graphed`` False and ``GraphedTrainStep`` refuse its state, naming gloo
+(over NCCL, on 4 cards, ``scripts/dp_across_cards.py`` and
+``scripts/tp_across_cards.py`` hold the graphed mesh steps).
 
 Then the tensor-parallel section (two gloo ranks at (data 1, model 2):
 each arch's train step against one rank, then each kernel at one rank's
@@ -286,6 +290,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -3980,8 +3985,10 @@ def graph_train_run(arch: str, layers, dev, graphed: bool) -> dict:
 
 
 def metric_gaps(got: list, want: list) -> dict[str, float]:
-    """Each metric's largest |Δ| over the steps (and a gang's members)."""
-    return {key: max((g[key] - w[key]).abs().max().item() for g, w in zip(got, want))
+    """Each metric's largest |Δ| over the steps (and a gang's members);
+    metrics as tensors or floats."""
+    return {key: max(torch.as_tensor(g[key] - w[key]).abs().max().item()
+                     for g, w in zip(got, want))
             for key in want[0]}
 
 
@@ -4143,6 +4150,203 @@ def graph_train_path(dev, card) -> dict[str, dict]:
         f"{cfg.name} gang", lambda graphed: graph_gang_run(cfg, dev, graphed), card,
         arch=cfg.name, layers=cfg.n_layers, members=2, batch=GANG_BATCH, seq=GANG_SEQ,
         route="Gang")
+    return out
+
+
+#: the 4-card scripts' mesh steps graphed and eager (mesh_graph_case): the
+#: steps compared from one seed, then steps timed by CUDA events
+MESH_GRAPH_STEPS, MESH_GRAPH_TIMED = 3, 2
+
+
+def heard_collectives():
+    """(a listener of ``repro_torch.events``, the dict it fills): each
+    collective's count and bytes by "kind axis"."""
+    from repro_torch import events
+    seen: dict[str, list[int]] = {}
+
+    def listen(event, *details):
+        if event == events.COLLECTIVE:
+            kind, axis, nbytes = details
+            entry = seen.setdefault(f"{kind} {axis}", [0, 0])
+            entry[0] += 1
+            entry[1] += nbytes
+    return listen, seen
+
+
+def mesh_graph_run(cfg, mesh, dev, rows: int, seq: int, graphed: bool) -> dict:
+    """One run of ``cfg`` on ``mesh`` from seed 0 (launch.train's optimizer
+    and schedule), MESH_GRAPH_STEPS steps on ``make_stream``'s batches of
+    ``rows`` rows a data rank, through a ``GraphedTrainStep`` built as
+    ``launch.train`` builds it (its first host batch): replayed
+    (``graphed``), or its step run eagerly on the same buffers.  Returns
+    each step's metrics, kernel launches and collectives (heard from the
+    replays where graphed), its host seconds (ending at a read of its
+    loss), this rank's parameters after the last step (flat, local), the
+    peaks, the step object and ``call``, one more step on the last batch."""
+    from repro_torch import events
+    from repro_torch.bridge import flatten
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import GraphedTrainStep, init_train_state, make_train_step
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))   # launch.train's defaults
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = init_train_state(cfg, opt, gen, mesh)
+    with mesh_ctx.set_mesh(mesh):
+        stream = make_stream(cfg, mesh_ctx.dp_size(mesh) * rows, seq, seed=1)
+    step = GraphedTrainStep(make_train_step(cfg, opt), state, stream.batch_at(0))
+
+    def call(batch):
+        if graphed:
+            return step(state, batch)[1]
+        step._load(batch)
+        return step._eager_step()[1]
+
+    metrics, launches, heard, seconds = [], [], [], []
+    for i in range(MESH_GRAPH_STEPS):
+        listen, seen = heard_collectives()
+        reset_launches()
+        t0 = time.perf_counter()
+        with events.counting(listen):
+            out = call(stream.batch_at(i))
+        metrics.append({k: float(v) for k, v in out.items()})   # waits for the step
+        seconds.append(time.perf_counter() - t0)
+        launches.append(launch_counts(path_kernels(cfg, backward=True)))
+        heard.append(seen)
+    if (step.graph is not None) != (graphed and on_card):
+        raise AssertionError(f"{cfg.name}: graph {step.graph}, graphed {graphed}")
+    last = stream.batch_at(MESH_GRAPH_STEPS - 1)
+    return {"metrics": metrics, "launches": launches, "collectives": heard,
+            "seconds": seconds, "step": step, "call": lambda: call(last),
+            "params": {k: shd.local(v) for k, v in flatten(state["params"]).items()},
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9 if on_card else None}
+
+
+def mesh_profile(call, on_card: bool) -> dict | None:
+    """One call of ``call`` under the profiler on the card: ``summarize``'s
+    fields and the NCCL kernels' device ms (None off a card)."""
+    if not on_card:
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return {**summarize(prof, wall, 1), "nccl_device_ms": nccl_device_ms(prof)}
+
+
+def mesh_graph_case(cfg, mesh, dev, rows: int, seq: int) -> dict:
+    """The mesh step of ``cfg`` graphed and eager on every rank of
+    ``mesh``: ``mesh_graph_run`` eager, graphed, eager, each from the same
+    seed on the same batches (each run freed before the next), and after
+    each MESH_GRAPH_TIMED more steps timed by CUDA events and one profiled
+    (on a card).  Returns this rank's fields and ``failures``, what it
+    fails on: a graphed step's loss or gradient norm off the first eager
+    run's past the two-rank gates (TWO_RANK_LOSS_REL_TOL,
+    TWO_RANK_GNORM_REL_TOL); a step's kernel launches or collectives (its
+    count and bytes by kind and axis) other than the eager step's; on a
+    card, a profiled graphed step of other than one launch, a graph's.
+    ``bit_equal``: every graphed metric and parameter equal to the first
+    eager run's.  A capture that does not fit the card (on any rank: every
+    rank's ``GraphedTrainStep`` raises) is no failure but a finding:
+    ``graphed_does_not_fit`` names the memory, and the case ends with the
+    first eager run."""
+    from repro_torch.distributed import context as mesh_ctx
+    on_card = dev.type == "cuda"
+    tokens = mesh_ctx.dp_size(mesh) * rows * seq
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def timed(run):
+        return time_ms(run["call"], MESH_GRAPH_TIMED, warmup=0) if on_card else None
+
+    first = mesh_graph_run(cfg, mesh, dev, rows, seq, graphed=False)
+    want = {k: v.to("cpu", copy=True) for k, v in first["params"].items()}
+    eager = {k: first[k] for k in ("metrics", "launches", "collectives", "seconds",
+                                   "peak_allocated_gb", "peak_reserved_gb")}
+    eager_ms = [timed(first)]
+    del first
+    free()
+
+    try:
+        graphed = mesh_graph_run(cfg, mesh, dev, rows, seq, graphed=True)
+    except (torch.OutOfMemoryError, RuntimeError) as e:
+        if not (isinstance(e, torch.OutOfMemoryError)
+                or str(e).startswith("another rank's capture")):
+            raise
+        reason = str(e)
+    else:
+        reason = None
+    if reason is not None:
+        gc.collect()    # the error's frames hold the run's state and graph in a cycle
+        free()
+        return {"graphed_does_not_fit": reason, "failures": [], "steps": MESH_GRAPH_STEPS,
+                "eager_step_ms": eager_ms, "eager_step_seconds": eager["seconds"],
+                "eager_tokens_per_s": [tokens / ms * 1e3 for ms in eager_ms],
+                "eager_peak_allocated_gb": eager["peak_allocated_gb"],
+                "eager_peak_reserved_gb": eager["peak_reserved_gb"],
+                "graphed_peak_allocated_gb": None, "launches_a_step": eager["launches"][-1],
+                "collectives_a_step": eager["collectives"][-1],
+                "losses": [m["loss"] for m in eager["metrics"]]}
+    step = graphed["step"]
+    gaps = metric_gaps(graphed["metrics"], eager["metrics"])
+    leaves = leaf_gaps(graphed["params"], want)
+    rel = [{k: abs(g[k] / w[k] - 1) if w[k] else abs(g[k]) for k in ("loss", "grad_norm")}
+           for g, w in zip(graphed["metrics"], eager["metrics"])]
+    failures = []
+    if any(r["loss"] > TWO_RANK_LOSS_REL_TOL or r["grad_norm"] > TWO_RANK_GNORM_REL_TOL
+           for r in rel):
+        failures.append(f"graphed metrics off the eager run's: {rel}")
+    if graphed["launches"] != eager["launches"]:
+        failures.append(f"launches graphed {graphed['launches']}, eager {eager['launches']}")
+    if graphed["collectives"] != eager["collectives"]:
+        failures.append(f"collectives graphed {graphed['collectives']}, "
+                        f"eager {eager['collectives']}")
+    graphed_ms = timed(graphed)
+    prof = mesh_profile(graphed["call"], on_card)
+    if prof and (prof["graph_launches"] != 1 or prof["kernel_launches"] != 1):
+        failures.append(f"a graphed step made {prof['graph_launches']} graph launches of "
+                        f"{prof['kernel_launches']} launches (want 1)")
+    out = {"capture_s": step.capture_seconds, "graph_pool_gb": step.graph_pool_bytes / 1e9,
+           "replay_launches": step.replay_launches,
+           "replay_collectives": len([e for e in step.replay_events if e[0] == "collective"]),
+           "graphed_step_seconds": graphed["seconds"],
+           "graphed_peak_allocated_gb": graphed["peak_allocated_gb"],
+           "graphed_peak_reserved_gb": graphed["peak_reserved_gb"],
+           "graphed_profile": prof}
+    del graphed, step
+    free()
+
+    second = mesh_graph_run(cfg, mesh, dev, rows, seq, graphed=False)
+    eager_gaps = metric_gaps(second["metrics"], eager["metrics"])
+    eager_leaves = leaf_gaps(second["params"], want)
+    eager_ms.append(timed(second))
+    eager_prof = mesh_profile(second["call"], on_card)
+    del second, want
+    free()
+    out.update(
+        steps=MESH_GRAPH_STEPS, graphed_step_ms=graphed_ms, eager_step_ms=eager_ms,
+        graphed_tokens_per_s=tokens / graphed_ms * 1e3 if on_card else None,
+        eager_tokens_per_s=([tokens / ms * 1e3 for ms in eager_ms] if on_card else None),
+        eager_step_seconds=eager["seconds"], eager_peak_allocated_gb=eager["peak_allocated_gb"],
+        eager_peak_reserved_gb=eager["peak_reserved_gb"], eager_profile=eager_prof,
+        launches_a_step=eager["launches"][-1], collectives_a_step=eager["collectives"][-1],
+        graphed_rel_err=rel, graph_metric_gaps=gaps, eager_metric_gaps=eager_gaps,
+        graph_max_leaf_gap=max(leaves.values()), eager_max_leaf_gap=max(eager_leaves.values()),
+        graphed_does_not_fit=None,
+        bit_equal=not any(gaps.values()) and not any(leaves.values()),
+        eager_runs_bit_equal=not any(eager_gaps.values()) and not any(eager_leaves.values()),
+        losses=[m["loss"] for m in eager["metrics"]], failures=failures)
     return out
 
 
@@ -5020,12 +5224,14 @@ def two_rank_worker(rank: int, init_file: str, out_dir: str, argvs: list[list[st
                     ) -> None:
     """One of phase (c)'s two ranks on card 0, in a gloo group:
     ``launch.train``'s run at data 2 for each of ``argvs`` in turn; writes
-    each run's loss, grad_norm, step seconds, peak memory, the shape of its
-    ZeRO-1 shard of the embedding's m and the TWO_RANK_LEAVES of its
-    parameters."""
+    each run's loss, grad_norm, step seconds, peak memory, whether it was
+    graphed, what ``GraphedTrainStep`` says on its state (a gloo mesh: a
+    refusal), the shape of its ZeRO-1 shard of the embedding's m and the
+    TWO_RANK_LEAVES of its parameters."""
     import torch.distributed as dist
     from repro_torch.bridge import flatten
     from repro_torch.launch import train
+    from repro_torch.train.step import GraphedTrainStep
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=2)
@@ -5034,10 +5240,16 @@ def two_rank_worker(rank: int, init_file: str, out_dir: str, argvs: list[list[st
         for argv in argvs:
             torch.cuda.reset_peak_memory_stats()
             out, state = train.run(argv)
+            try:
+                GraphedTrainStep(lambda st, batch: (st, {}), state, {"x": np.zeros(1)})
+                refused = None
+            except ValueError as e:
+                refused = str(e)
             m = state["opt"]["m"]["embed"]
             params = flatten(state["params"])
             runs.append({"loss": out["loss"], "grad_norm": out["grad_norm"],
-                         "step_seconds": out["step_seconds"],
+                         "step_seconds": out["step_seconds"], "graphed": out["graphed"],
+                         "refused": refused,
                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                          "shard": [list(m.to_local().shape), list(m.shape)],
                          "leaves": {k: params[k].to_local().cpu() for k in TWO_RANK_LEAVES}})
@@ -5061,8 +5273,11 @@ def two_ranks_path(dev, card, one_rank_peak_gb: float) -> None:
     rank), the ZeRO-1 shards split in two; once at n_micro 1 and once at
     n_micro 2 (one row a rank a microbatch), in the same two processes;
     each held against one rank without a mesh on the concatenation of the
-    two ranks' batches at the same n_micro.  Both processes' memory is
-    reckoned first from phase (a)'s measured peak."""
+    two ranks' batches at the same n_micro.  Over gloo a CUDA graph cannot
+    capture the step's collectives: each run must report ``graphed`` False
+    (every step eager) and ``GraphedTrainStep`` refuse its state, naming
+    gloo.  Both processes' memory is reckoned first from phase (a)'s
+    measured peak."""
     import shutil
     import torch.multiprocessing as mp
     from repro_torch.bridge import flatten
@@ -5131,6 +5346,10 @@ def two_ranks_path(dev, card, one_rank_peak_gb: float) -> None:
             "ranks_agree": (run[0]["loss"] == run[1]["loss"]
                             and all(torch.equal(run[0]["leaves"][k], run[1]["leaves"][k])
                                     for k in TWO_RANK_LEAVES)),
+            # over gloo a CUDA graph cannot capture the collectives: every
+            # step eager, and GraphedTrainStep refuses the state
+            "graphed": [r["graphed"] for r in run],
+            "graph_refusal": run[0]["refused"],
             "zero1_shard_of_embed_m": run[0]["shard"],
         }
         emit("two_ranks_train", arch=cfg.name, batch=b, seq=s, ranks=2, backend="gloo",
@@ -5143,6 +5362,8 @@ def two_ranks_path(dev, card, one_rank_peak_gb: float) -> None:
         if not (agreement["loss_rel_err"] <= TWO_RANK_LOSS_REL_TOL
                 and agreement["grad_norm_rel_err"] <= TWO_RANK_GNORM_REL_TOL
                 and agreement["ranks_agree"]
+                and agreement["graphed"] == [False, False]
+                and all(r["refused"] and "over gloo" in r["refused"] for r in run)
                 and math.prod(local) * 2 == math.prod(full)):
             failed.append((n_micro, agreement))
         del state, params, moved

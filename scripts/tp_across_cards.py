@@ -19,19 +19,38 @@ group), each state freed before the next:
    loss and the gradient norm, relative, and the architecture's LEAVES and
    their first moments gathered whole (largest |Δ| over the learning rate,
    and over the leaf's largest |m|), each held to ``chip_smoke.py``'s
-   tensor-parallel gates; every rank exits non-zero on a disagreement,
-   before any timing;
+   tensor-parallel gates; then at the same mesh and depth the graphed mesh
+   step (``GraphedTrainStep``: on the cards, over NCCL, one captured CUDA
+   graph a step after the first) against the eager mesh step, on two
+   copies of one state (each drawn from seed 0) on the same batches over
+   GRAPH_AGREEMENT_STEPS steps, held to the same gates (each step's loss
+   and gradient norm; the LEAVES and their first moments after the last),
+   and whether they are bit-equal (every metric, and every rank's local
+   parameters and optimizer state); every rank exits non-zero on a
+   disagreement, before any timing;
 2. ``steps``: full depth on each (data, model) mesh of the N ranks with a
    model axis (model N first) whose ``train_memory_gb(cfg, data, model)``
    is within ``chip_smoke.TRAIN_BUDGET_GB`` (a mesh left out gets a
    ``steps_skipped`` line with its reckoning), 4 x 2048 tokens a data
-   rank, WARMUP and TIMED steps: step ms (the median of the timed),
-   tokens/s, 6·N·T (MoE: the active parameters) against the cards' bf16
-   peak, each rank's peak memory after the init and over the steps
-   against the reckoning; then one step under the profiler: its kernel
-   launches on each rank (``step_launches`` of the config on a card), the
-   device time of the NCCL kernels on rank 0 and its busy time and idle
-   share.  The loss must be finite and no rank's peak over its card;
+   rank, graphed and eager in turns (``chip_smoke.mesh_graph_case``: three
+   runs from seed 0 on the same batches, eager, graphed and eager, each of
+   MESH_GRAPH_STEPS steps and MESH_GRAPH_TIMED more timed by CUDA events,
+   and one profiled): step ms and tokens/s of both, 6·N·T (MoE: the active
+   parameters) against the cards' bf16 peak at the graphed step's ms (the
+   eager one's where the capture does not fit the card: then
+   ``graphed_does_not_fit`` names the memory, and the mesh has no graphed
+   figures),
+   whether the graphed run is bit-equal to the eager one, rank 0's graphed
+   and eager step profiled (idle share, NCCL device ms, launches, graph
+   launches, host syncs), the kernels' launches a step on each rank
+   (``step_launches`` of the config on a card: flash attention's forward
+   and backward, the grouped GEMM's forward, dx and dw; counted from the
+   replays where graphed), the collectives a step (heard from the
+   replays), the capture's seconds and pool, and each rank's peak over a
+   run (its init included) against the reckoning.  Each graphed step's
+   loss and gradient norm must lie within the two-rank gates of its eager
+   step's, its launches and collectives be the eager step's, a graphed
+   step be one launch, the loss finite and no rank's peak over its card;
 3. ``decode``: at (data 1, model N), ``chip_smoke.tp_decode_check`` on
    every rank, its tp_decode check over NCCL: a bf16 serving tree (the
    same on every rank, from one seed), ``init_cache`` with the mesh and
@@ -56,20 +75,18 @@ import argparse
 import json
 import math
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 ARCHS = ("olmoe-1b-7b", "gemma-7b")
-WARMUP, TIMED = 2, 3
+#: the agreement phase's graphed and eager steps
+GRAPH_AGREEMENT_STEPS = 3
 #: rows a data rank and positions: full size, and with --smoke
 ROWS, SEQ, SMOKE_SEQ = 4, 2048, 32
 AGREEMENT_LAYERS = 4
@@ -161,27 +178,20 @@ class Run:
         if self.on_card:
             torch.cuda.empty_cache()
 
-    def reset_peak(self):
-        if self.on_card:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-
-    def peaks(self) -> list[float] | None:
-        """Each rank's peak GB since the last reset (None off a card)."""
+    def peaks(self, mine: float | None) -> list[float] | None:
+        """Each rank's ``mine`` (a peak in GB; None off a card)."""
         if not self.on_card:
             return None
-        peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9], device=self.dev)
         peaks = torch.empty(self.world, device=self.dev)
-        dist.all_gather_into_tensor(peaks, peak)
+        dist.all_gather_into_tensor(peaks, torch.tensor([mine], device=self.dev))
         return peaks.tolist()
 
-    def activities(self):
-        return ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if self.on_card
-                else [ProfilerActivity.CPU])
+    def any_rank(self, failed: bool) -> bool:
+        """Whether any rank failed (every rank learns it)."""
+        flag = torch.tensor(float(failed), device=self.dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
-    def sync(self):
-        if self.on_card:
-            torch.cuda.synchronize()
 
 
 def agreement(run: Run, cfg) -> None:
@@ -240,13 +250,71 @@ def agreement(run: Run, cfg) -> None:
         dist.destroy_process_group()
         raise SystemExit(f"{cut.name} at model {run.world} disagrees with one rank "
                          "(the agreement line above)")
+    graph_agreement(run, cut, mesh, leaves)
+
+
+def graph_agreement(run: Run, cut, mesh, leaves: tuple[str, ...]) -> None:
+    """The graphed mesh step against the eager one on two copies of one
+    state (each drawn from seed 0), GRAPH_AGREEMENT_STEPS steps on the
+    same batches; every rank exits on a disagreement."""
+    from repro_torch.bridge import flatten
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import GraphedTrainStep, init_train_state, make_train_step
+    cs = run.cs
+    opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))
+    graphed_state, eager_state = (init_train_state(cut, opt, run.generator(0), mesh)
+                                  for _ in range(2))
+    with mesh_ctx.set_mesh(mesh):
+        stream = make_stream(cut, mesh_ctx.dp_size(mesh) * ROWS, run.seq, seed=2)
+    graphed = GraphedTrainStep(make_train_step(cut, opt), graphed_state, stream.batch_at(0))
+    eager = make_train_step(cut, opt)
+    got, want = [], []
+    for i in range(GRAPH_AGREEMENT_STEPS):
+        host = stream.batch_at(i)
+        got.append({k: float(v) for k, v in graphed(graphed_state, host)[1].items()})
+        _, m = eager(eager_state, {k: torch.from_numpy(v).to(run.dev) for k, v in host.items()})
+        want.append({k: float(v) for k, v in m.items()})
+    lr = want[-1]["lr"]
+    rel = [{k: abs(g[k] / w[k] - 1) for k in ("loss", "grad_norm")} for g, w in zip(got, want)]
+    trees = [(flatten(st["params"]), flatten(st["opt"]["m"])) for st in (graphed_state,
+                                                                           eager_state)]
+    diffs, m_errs = {}, {}
+    for k in leaves:
+        (gp, gm), (ep, em) = trees
+        diffs[k] = (gp[k].full_tensor() - ep[k].full_tensor()).abs().max().item() / lr
+        whole_m = em[k].full_tensor()
+        m_errs[k] = ((gm[k].full_tensor() - whole_m).abs().max() / whole_m.abs().max()).item()
+    local_equal = all(torch.equal(shd.local(a), shd.local(b)) for a, b in zip(
+        flatten(graphed_state).values(), flatten(eager_state).values()))
+    bit_equal = got == want and not run.any_rank(not local_equal)
+    agrees = (all(r["loss"] <= cs.TP_LOSS_REL_TOL and r["grad_norm"] <= cs.TP_GNORM_REL_TOL
+                  for r in rel)
+              and max(diffs.values()) <= cs.TP_PARAM_LR_BOUND
+              and max(m_errs.values()) <= cs.TP_MOMENT_REL_TOL
+              and (graphed.graph is not None) == run.on_card)
+    run.emit("graph_agreement", arch=cut.name, layers=cut.n_layers,
+             mesh={"data": 1, "model": run.world}, batch=ROWS, seq=run.seq,
+             steps=GRAPH_AGREEMENT_STEPS, graphed=graphed.graph is not None,
+             capture_s=graphed.capture_seconds, losses=[g["loss"] for g in got],
+             eager_losses=[w["loss"] for w in want], rel_err=rel,
+             leaf_max_abs_diff_over_lr=diffs, m_max_rel_err=m_errs,
+             loss_rel_tol=cs.TP_LOSS_REL_TOL, grad_norm_rel_tol=cs.TP_GNORM_REL_TOL,
+             param_lr_bound=cs.TP_PARAM_LR_BOUND, m_rel_tol=cs.TP_MOMENT_REL_TOL,
+             bit_equal=bit_equal, agrees=agrees)
+    del graphed, eager, graphed_state, eager_state, trees
+    run.free()
+    if run.any_rank(not agrees):
+        dist.destroy_process_group()
+        raise SystemExit(f"{cut.name}: the graphed mesh step at model {run.world} "
+                         "disagrees with the eager one (the graph_agreement line above)")
 
 
 def steps(run: Run, cfg) -> None:
-    """Phase 2: full depth on each mesh that fits, timed and profiled."""
-    from repro_torch.distributed import context as mesh_ctx
-    from repro_torch.optim.adamw import AdamW, cosine_schedule
-    from repro_torch.train.step import init_train_state, make_train_step
+    """Phase 2: full depth on each mesh that fits, graphed and eager in
+    turns."""
     cs = run.cs
     for data, model, reckoned, fits in step_meshes(cfg, run.world, cs.TRAIN_BUDGET_GB):
         where = {"data": data, "model": model}
@@ -256,55 +324,39 @@ def steps(run: Run, cfg) -> None:
                      reason=f"train_memory_gb reckons {reckoned:.1f} GB a device, over "
                             f"the {cs.TRAIN_BUDGET_GB} GB budget")
             continue
-        mesh = run.mesh(model)
-        opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))
-        run.reset_peak()
-        state = init_train_state(cfg, opt, run.generator(0), mesh)
-        init_peaks = run.peaks()
-        step = make_train_step(cfg, opt)
-        run.free()
-        run.reset_peak()
-        times = []
-        with mesh_ctx.set_mesh(mesh):
-            index = mesh_ctx.dp_index()
-            for i in range(WARMUP + TIMED):
-                batch = _batch(cfg, ROWS, run.seq, 100 * i + index, run.dev)
-                t0 = time.perf_counter()
-                state, m = step(state, batch)
-                float(m["loss"])
-                times.append(time.perf_counter() - t0)
-            peaks = run.peaks()
-            run.sync()
-            cs.reset_launches()
-            with profile(activities=run.activities()) as trace:
-                t0 = time.perf_counter()
-                state, m = step(state, batch)
-                loss = float(m["loss"])
-                run.sync()
-                wall = time.perf_counter() - t0
-            launches = cs.launch_counts(cs.path_kernels(cfg, backward=True))
-        step_s = float(np.median(times[WARMUP:]))
+        out = cs.mesh_graph_case(cfg, run.mesh(model), run.dev, ROWS, run.seq)
+        peaks = {k: run.peaks(out[f"{k}_peak_allocated_gb"] or 0.0)
+                 for k in ("graphed", "eager")}
         tokens = data * ROWS * run.seq
         flops = 6 * cs.active_params(cfg) * tokens
         have = (torch.cuda.get_device_properties(run.dev).total_memory / 1e9
                 if run.on_card else None)
+        launches = out["launches_a_step"]
         want_launches = cs.step_launches(cfg) if run.on_card else launches
-        ok = (math.isfinite(loss) and launches == want_launches
-              and (not run.on_card or max(peaks + init_peaks) <= have))
+        failures = out["failures"] + [
+            what for what, bad in (
+                ("a loss not finite", not all(map(math.isfinite, out["losses"]))),
+                (f"launches {launches}, want {want_launches}", launches != want_launches),
+                ("a rank's peak over its card",
+                 run.on_card and max(peaks["graphed"] + peaks["eager"]) > have)) if bad]
+        ok = not run.any_rank(bool(failures))
+        # the graphed step's ms, or the eager one's where the capture did
+        # not fit the card
+        step_ms = (out.get("graphed_step_ms") or min(out["eager_step_ms"])
+                   if run.on_card else None)
         run.emit("steps", arch=cfg.name, layers=cfg.n_layers, mesh=where,
-                 batch=data * ROWS, seq=run.seq, step_seconds=times,
-                 step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
-                 model_flops_6nt=flops, active_params=cs.active_params(cfg),
-                 mfu_6nt=(flops / (step_s * run.world * cs.PEAK_BF16_FLOPS)
+                 batch=data * ROWS, seq=run.seq, loss=out["losses"][-1],
+                 model_flops_6nt=flops,
+                 active_params=cs.active_params(cfg),
+                 mfu_6nt=(flops / (step_ms / 1e3 * run.world * cs.PEAK_BF16_FLOPS)
                           if run.on_card else None),
-                 loss=loss, init_peak_gb_per_rank=init_peaks, peak_gb_per_rank=peaks,
-                 card_gb=have, reckoned_gb=reckoned, launches=launches,
-                 want_launches=want_launches,
-                 nccl_device_ms=cs.nccl_device_ms(trace) if run.on_card else None,
-                 ok=ok, **cs.summarize(trace, wall, 1))
+                 graphed_peak_gb_per_rank=peaks["graphed"],
+                 eager_peak_gb_per_rank=peaks["eager"], card_gb=have, reckoned_gb=reckoned,
+                 want_launches=want_launches, ok=ok,
+                 **{k: v for k, v in out.items() if k != "failures"}, failures=failures)
         if not ok:
             run.failed.append(f"steps {cfg.name} {where}")
-        del state, step, trace
+        del out
         run.free()
         dist.barrier()
 

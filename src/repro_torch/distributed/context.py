@@ -197,6 +197,32 @@ def mesh_device(mesh: DeviceMesh | None = None) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def _cuda_backend(group: dist.ProcessGroup) -> str:
+    """The backend that runs ``group``'s collectives on CUDA tensors (a
+    group may name one a device type: ``"cpu:gloo,cuda:nccl"``)."""
+    name = str(dist.get_backend(group))
+    for part in name.split(","):
+        device, _, backend = part.rpartition(":")
+        if device in ("", "cuda"):
+            return backend
+    return name
+
+
+def uncapturable(mesh: DeviceMesh | None = None) -> str | None:
+    """Why a CUDA graph cannot capture the collectives of a step on
+    ``mesh``, or None where it can: every axis of more than one rank must
+    run them over NCCL (gloo stages a CUDA tensor through the host, which
+    a capture does not record)."""
+    mesh = mesh if mesh is not None else get_mesh()
+    for i, name in enumerate(mesh.mesh_dim_names or ()):
+        if mesh.size(i) > 1:
+            backend = _cuda_backend(mesh.get_group(name))
+            if backend != "nccl":
+                return (f"the mesh's {name} axis of {mesh.size(i)} ranks runs its "
+                        f"collectives over {backend}: a CUDA graph captures NCCL's only")
+    return None
+
+
 def _group(name: str, mesh: DeviceMesh | None = None) -> dist.ProcessGroup:
     mesh = mesh if mesh is not None else get_mesh()
     return mesh.get_group(name)

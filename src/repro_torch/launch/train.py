@@ -22,13 +22,17 @@ data size: kill it mid-run and rerun the same command.  ``--n-micro N``
 splits each global batch into N microbatches, each a block of the global
 batch as in the reference (each rank takes its share of every microbatch,
 :mod:`repro_torch.train.step`); the global batch must divide by N times
-the data size.  On one card (one rank) the step is compiled, as the
-reference jits it with the state donated: the first step runs eagerly and
-is then captured as a CUDA graph over the state
-(:class:`repro_torch.train.step.GraphedTrainStep`), and every later step
-is one replay of that graph, its batch copied in from pinned memory; the
-metrics are read on the host only at log steps.  Over more than one rank,
-and on the CPU, every step runs eagerly.  On a card the
+the data size.  On a card the step is compiled, as the reference jits it
+with the state donated on any mesh: the first step runs eagerly and is
+then captured as a CUDA graph over the state
+(:class:`repro_torch.train.step.GraphedTrainStep`; over N ranks, the
+data-parallel step with its collectives, on every rank), and every later
+step is one replay of that graph, each rank's batch copied in from pinned
+memory; the metrics are read on the host only at log steps.  That needs
+the mesh's collectives on NCCL (``torchrun`` on N cards); over gloo with
+more than one rank (ranks sharing a card), and on the CPU, every step
+runs eagerly.  Rank 0 says which at the start, and :func:`main` returns
+it (``graphed``).  On a card the
 attention runs the flash-attention kernels (bidirectional for
 hubert-xlarge's encoder), the SSM (mamba2-780m) the SSD-scan kernels,
 hymba-1.5b's hybrid layers both, and the MoE FFN (olmoe-1b-7b) the
@@ -90,10 +94,11 @@ PART_3 = ("launch.train on a (data, model) mesh is part 3's last step, beyond "
 
 def main(argv: list[str] | None = None) -> dict:
     """Runs the training; returns the last logged step's metrics, and
-    ``steps_run``, ``tokens``, ``seconds`` and ``step_seconds``: the host
-    time of each step, which ends at its log line's reading of the metrics
-    (a wait for the device), so with ``--log-every 1`` each is the step's
-    whole time."""
+    ``steps_run``, ``tokens``, ``seconds``, ``step_seconds`` (the host
+    time of each step, which ends at its log line's reading of the metrics,
+    a wait for the device, so with ``--log-every 1`` each is the step's
+    whole time) and ``graphed``, whether the steps after the first replay
+    a captured CUDA graph."""
     return run(argv)[0]
 
 
@@ -208,9 +213,15 @@ def _train(args, cfg, mesh) -> tuple[dict, dict]:
         tokens = 0
         metrics: dict[str, float] = {}
         step_seconds = []
-        # one card: the step captured as a CUDA graph at its first call (a
-        # real step, the warm-up) and replayed from then on
-        graphed = dev.type == "cuda" and dist.get_world_size() == 1
+        # the step captured as a CUDA graph at its first call (a real
+        # step, the warm-up) and replayed from then on, wherever the mesh's
+        # collectives can be captured
+        why = "on the cpu" if dev.type != "cuda" else mesh_ctx.uncapturable(mesh)
+        graphed = why is None
+        if log:
+            print(f"[graph] graphed={graphed} " + (
+                "(the first step eager, then one CUDA graph a step)" if graphed
+                else f"(every step eager: {why})"), flush=True)
         for i, host_batch in enumerate(stream):
             step = start_step + i
             if step >= args.steps:
@@ -250,7 +261,7 @@ def _train(args, cfg, mesh) -> tuple[dict, dict]:
         else:
             print(f"done: no step to run (at step {start_step} of {args.steps})")
     return {**metrics, "steps_run": len(step_seconds), "tokens": tokens,
-            "seconds": seconds, "step_seconds": step_seconds}, state
+            "seconds": seconds, "step_seconds": step_seconds, "graphed": graphed}, state
 
 if __name__ == "__main__":
     main()

@@ -9,10 +9,12 @@ mode (tokens, frame embeddings, or patch embeddings then tokens); the step
 passes them through as they are.
 
 **Compiled.** The reference jits the step with the state donated
-(``jax.jit(step_fn, donate_argnums=(0,))``).  :class:`GraphedTrainStep` is
-the port's form of it on a CUDA device: the step captured once as a CUDA
-graph over the state and static batch buffers, and replayed every step
-(:class:`CapturedStep`, which the gang's step is too).
+(``jax.jit(step_fn, donate_argnums=(0,))``), on whatever mesh it runs.
+:class:`GraphedTrainStep` is the port's form of it on a CUDA device: the
+step captured once as a CUDA graph over the state and static batch
+buffers, and replayed every step (:class:`CapturedStep`, which the gang's
+step is too); on a mesh whose collectives run over NCCL, the mesh step
+with its collectives, on every rank.
 
 **On a device mesh** (``(data, model)`` or ``(pod, data, model)``).  A
 state whose leaves are DTensors (:func:`init_train_state` or
@@ -62,7 +64,7 @@ from typing import Any, Callable
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch import kernels
+from repro_torch import events, kernels
 from repro_torch.bridge import flatten
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding as shd
@@ -195,16 +197,22 @@ class CapturedStep:
     reference runs its compiled step.  On the CPU every :meth:`_run_step`
     runs it eagerly.  On a CUDA device the first runs it eagerly on a side
     stream, the warm-up (the kernels built and their per-device set-up
-    done, library handles and workspaces made on that stream); the second
-    releases the cached blocks the warm-up left, captures the step once as
-    a CUDA graph on that stream (a capture runs nothing) and replays it;
-    every later one replays it: one graph launch a step.  The kernels'
-    launches at the capture are taken off their counters and added back at
-    each replay (:attr:`replay_launches`).  A replay returns the captured
-    call's outputs, the graph's buffers, overwritten by the next replay.  A
+    done, library handles and workspaces made on that stream; on a mesh,
+    every collective run once, so that NCCL has made each group's
+    communicator, which a capture cannot); the second releases the cached
+    blocks the warm-up left, captures the step once as a CUDA graph on
+    that stream (a capture runs nothing) and replays it; every later one
+    replays it: one graph launch a step.  The kernels' launches at the
+    capture are taken off their counters and added back at each replay
+    (:attr:`replay_launches`); what the capture reports to
+    :mod:`repro_torch.events` (each collective, each kernel call's cost)
+    reaches no listener then and is reported again at each replay
+    (:attr:`replay_events`).  A replay returns the captured call's
+    outputs, the graph's buffers, overwritten by the next replay.  A
     capture or replay that fails raises, and so does every later step: the
     step is never run eagerly in its place; out of memory, the capture
-    names the memory."""
+    names the memory.  On a mesh every rank captures and replays the same
+    step, so the replays' collectives meet."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
@@ -212,6 +220,8 @@ class CapturedStep:
         self.outputs: Any = None
         #: the kernel launches one replay makes (counted at the capture)
         self.replay_launches: dict[str, int] = {}
+        #: the events one replay reports (recorded at the capture)
+        self.replay_events: list[tuple] = []
         #: bytes the capture added to the device's reserved memory: the
         #: graph's private pool
         self.graph_pool_bytes = 0
@@ -239,6 +249,7 @@ class CapturedStep:
         with torch.cuda.device(self.device):
             self.graph.replay()
         kernels.add_launches(self.replay_launches)
+        events.replay(self.replay_events)
         return self.outputs
 
     def _capture(self) -> None:
@@ -251,8 +262,11 @@ class CapturedStep:
             reserved = torch.cuda.memory_reserved(dev)
             before = kernels.launch_counts()
             try:
-                with torch.cuda.device(dev), torch.cuda.graph(
-                        graph, stream=self._side, capture_error_mode="thread_local"):
+                # thread-local: NCCL's watchdog thread queries events
+                # meanwhile, which a global capture would refuse
+                with events.recording() as recorded, torch.cuda.device(dev), \
+                        torch.cuda.graph(graph, stream=self._side,
+                                         capture_error_mode="thread_local"):
                     outputs = self._eager_step()
             except torch.OutOfMemoryError as e:
                 total = torch.cuda.get_device_properties(dev).total_memory
@@ -265,6 +279,7 @@ class CapturedStep:
         self.replay_launches = {k: after[k] - before[k] for k in after
                                 if after[k] != before[k]}
         kernels.add_launches({k: -n for k, n in self.replay_launches.items()})
+        self.replay_events = recorded
         self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_seconds = time.perf_counter() - t0
         self.graph, self.outputs = graph, outputs
@@ -275,7 +290,13 @@ class GraphedTrainStep(CapturedStep):
     the state updated in place: the reference's ``jax.jit(step_fn,
     donate_argnums=(0,))``.  On a card the run's first step is the warm-up
     (a real step: the state is neither copied nor rolled back), and every
-    step after it one replay of the captured graph.
+    step after it one replay of the captured graph.  A state of DTensors
+    takes the mesh step, captured on every rank (each rank's own batch):
+    on a card its mesh must run every collective over NCCL, and on one that
+    does not (gloo over more than one rank) this raises, naming the
+    backend.  After the capture the ranks agree (one all-reduce) that every
+    rank captured: where one failed (out of memory, say) every rank raises,
+    so that no rank replays collectives that another never meets.
 
     Called as ``step(state, batch) -> (state, metrics)``, always with the
     state it was built with.  Each call first copies the batch (host arrays
@@ -288,6 +309,13 @@ class GraphedTrainStep(CapturedStep):
     def __init__(self, step_fn: Callable, state: dict[str, Any],
                  example_batch: dict[str, Any]) -> None:
         super().__init__(shd.local(state["step"]).device)
+        #: the state's mesh where a capture's success must be agreed on
+        self._mesh = (state["step"].device_mesh if self.device.type == "cuda"
+                      and isinstance(state["step"], DTensor) else None)
+        if self._mesh is not None:
+            why = mesh_ctx.uncapturable(self._mesh)
+            if why:
+                raise ValueError(f"a graphed train step cannot be captured: {why}")
         self._step_fn = step_fn
         self.state = state
         host = {k: torch.as_tensor(v) for k, v in example_batch.items()}
@@ -309,6 +337,28 @@ class GraphedTrainStep(CapturedStep):
 
     def _eager_step(self) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
         return self._step_fn(self.state, self.batch)
+
+    def _capture(self) -> None:
+        failed = None
+        try:
+            super()._capture()
+        except Exception as e:      # told to the other ranks, then raised
+            failed = e
+        if self._mesh is not None:
+            ok = torch.tensor(float(failed is None), device=self.device)
+            for i, name in enumerate(self._mesh.mesh_dim_names):
+                if self._mesh.size(i) > 1:   # not a step's collective: unreported
+                    torch.distributed.all_reduce(ok, torch.distributed.ReduceOp.MIN,
+                                                 group=self._mesh.get_group(name))
+            if failed is None and not ok.item():
+                self.graph = self.outputs = None
+                raise RuntimeError("another rank's capture of the mesh step failed "
+                                   "(its error says why); this rank's graph is dropped")
+        if failed is not None:
+            try:
+                raise failed
+            finally:
+                failed = None       # no cycle through this frame keeps the state
 
     def _load(self, batch: dict[str, Any]) -> None:
         """The batch copied into the static buffers, on the current stream."""

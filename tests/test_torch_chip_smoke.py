@@ -1425,3 +1425,85 @@ def test_graph_train_gate_passes_a_graph_as_close_as_two_eager_runs(monkeypatch)
 def test_graph_train_gate_fails_the_run(monkeypatch, fault):
     with pytest.raises(AssertionError):
         cs.graph_train_case("x", _fake_graph_runs(monkeypatch, **fault), "card")
+
+
+def _fake_mesh_runs(monkeypatch, graphed_gap=0.0, graph_launches=1, launches=None,
+                    collectives=None):
+    """mesh_graph_case's runs on the CPU, as on a card: three runs of one
+    leaf and two metrics, the graphed one ``graphed_gap`` (relative) off
+    the eager ones, with its own ``launches`` and ``collectives`` a step
+    where given; the card's calls replaced."""
+    monkeypatch.setattr(cs.torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters, warmup=2: 4.0)
+    monkeypatch.setattr(cs, "mesh_profile", lambda call, on_card: {
+        "kernel_launches": graph_launches, "graph_launches": graph_launches,
+        "nccl_device_ms": 1.0})
+
+    def run(cfg, mesh, dev, rows, seq, graphed):
+        gap = graphed_gap if graphed else 0.0
+        step = SimpleNamespace(replay_launches={"flash_attention": 2}, capture_seconds=0.5,
+                               graph_pool_bytes=1 << 20,
+                               replay_events=[("collective", "all-reduce", "data", 8)])
+        return {"metrics": [{"loss": 2.0 * (1 + gap), "grad_norm": 1.0}] * 3,
+                "launches": [(launches if graphed and launches else {"flash_attention": 2})] * 3,
+                "collectives": [(collectives if graphed and collectives
+                                 else {"all-reduce data": [1, 8]})] * 3,
+                "seconds": [1.0, 0.5, 0.5], "step": step, "call": lambda: None,
+                "params": {"w": torch.full((2,), 1.0 + gap)},
+                "peak_allocated_gb": 1.0, "peak_reserved_gb": 2.0}
+
+    monkeypatch.setattr(cs, "mesh_graph_run", run)
+    return SimpleNamespace(type="cuda")
+
+
+def test_mesh_graph_case_passes_a_graph_within_the_two_rank_gates(monkeypatch):
+    """The 4-card scripts' graphed-against-eager case: a graphed run equal
+    to the eager ones passes, bit-equal; one off by less than the two-rank
+    loss gate passes, not bit-equal; the steps' tokens/s from the timed
+    ms."""
+    out = cs.mesh_graph_case(None, None, _fake_mesh_runs(monkeypatch), 4, 16)
+    assert out["failures"] == [] and out["bit_equal"] and out["eager_runs_bit_equal"]
+    assert out["graphed_tokens_per_s"] == 4 * 16 / 4.0 * 1e3
+    assert out["collectives_a_step"] == {"all-reduce data": [1, 8]}
+    assert out["replay_collectives"] == 1
+    out = cs.mesh_graph_case(None, None, _fake_mesh_runs(monkeypatch, 5e-4), 4, 16)
+    assert out["failures"] == [] and not out["bit_equal"]
+
+
+@pytest.mark.parametrize("fault", [
+    {"graphed_gap": 2e-3},                                 # past the loss gate
+    {"graph_launches": 2},                                 # two launches a step
+    {"launches": {"flash_attention": 1}},                  # a replay's launches
+    {"collectives": {"all-reduce data": [2, 16]}},         # a replay's collectives
+])
+def test_mesh_graph_case_names_each_failure(monkeypatch, fault):
+    out = cs.mesh_graph_case(None, None, _fake_mesh_runs(monkeypatch, **fault), 4, 16)
+    assert len(out["failures"]) == 1, out["failures"]
+
+
+def test_mesh_graph_case_reports_a_capture_that_does_not_fit(monkeypatch):
+    """A capture out of memory (on this rank, or another rank's: every
+    rank's GraphedTrainStep raises) ends the case after the first eager
+    run with ``graphed_does_not_fit`` naming it, no failure; any other
+    error is raised."""
+    dev = _fake_mesh_runs(monkeypatch)
+    eager_run = cs.mesh_graph_run
+
+    def run(cfg, mesh, dev, rows, seq, graphed):
+        if graphed:
+            raise torch.OutOfMemoryError("the captured step does not fit: 41 GB reserved")
+        return eager_run(cfg, mesh, dev, rows, seq, graphed)
+
+    monkeypatch.setattr(cs, "mesh_graph_run", run)
+    out = cs.mesh_graph_case(None, None, dev, 4, 16)
+    assert out["failures"] == [] and "does not fit" in out["graphed_does_not_fit"]
+    assert out["eager_step_ms"] == [4.0] and out["graphed_peak_allocated_gb"] is None
+
+    def broken(cfg, mesh, dev, rows, seq, graphed):
+        if graphed:
+            raise RuntimeError("a replay failed")
+        return eager_run(cfg, mesh, dev, rows, seq, graphed)
+
+    monkeypatch.setattr(cs, "mesh_graph_run", broken)
+    with pytest.raises(RuntimeError, match="a replay failed"):
+        cs.mesh_graph_case(None, None, dev, 4, 16)

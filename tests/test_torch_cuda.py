@@ -965,12 +965,14 @@ GRAPH_TRAIN_ARCHS = ["gemma3-1b", "mamba2-780m", "hymba-1.5b", "olmoe-1b-7b",
                      "hubert-xlarge"]
 
 
-def _train_run(dev, arch, graphed, steps=4):
+def _train_run(dev, arch, graphed, steps=4, heard=None):
     """``steps`` steps of ``arch``'s smoke config from seed 0 on the same
     host batches, through GraphedTrainStep (graphed) or the eager step:
     each step's metrics, the parameters after the last, the kernels'
-    launches and the step object."""
-    from repro_torch import kernels
+    launches and the step object; with ``heard`` (a list), each step's
+    events from ``repro_torch.events`` appended to it."""
+    import contextlib
+    from repro_torch import events, kernels
     from repro_torch.bridge import flatten
     from repro_torch.configs import get_smoke
     from repro_torch.data.pipeline import make_stream
@@ -987,11 +989,17 @@ def _train_run(dev, arch, graphed, steps=4):
     metrics, graph = [], None
     for i in range(steps):
         host = stream.batch_at(i)
-        if graphed:
-            graph = graph or GraphedTrainStep(step, state, host)
-            _, out = graph(state, host)
-        else:
-            _, out = step(state, {k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+        seen = []
+        with (events.counting(lambda *event: seen.append(event)) if heard is not None
+              else contextlib.nullcontext()):
+            if graphed:
+                graph = graph or GraphedTrainStep(step, state, host)
+                _, out = graph(state, host)
+            else:
+                _, out = step(state, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in host.items()})
+        if heard is not None:
+            heard.append(seen)
         metrics.append({k: v.clone() for k, v in out.items()})
     return metrics, flatten(state["params"]), kernels.launch_counts(), graph
 
@@ -1014,6 +1022,26 @@ def test_graphed_train_step_matches_eager_step(dev, arch):
             assert torch.equal(g[key], w[key]), key
     for key, w in want_params.items():
         assert torch.equal(got_params[key], w), key
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b"])
+def test_graphed_train_step_replays_report_the_eager_steps_events(dev, arch):
+    """A listener of ``repro_torch.events`` hears from each graphed step,
+    the warm-up, the capture's first replay and the later replays alike,
+    what it hears from the eager step: each kernel call's cost event, in
+    order (flash attention's forward and backward; olmoe's grouped GEMM,
+    its dx and dw)."""
+    from repro_torch import events
+    got, want = [], []
+    _, _, _, graph = _train_run(dev, arch, graphed=True, heard=got)
+    _train_run(dev, arch, graphed=False, heard=want)
+    assert graph.graph is not None and graph.replay_events
+    assert got == want and len(got) == 4
+    names = {e[1] for e in want[0] if e[0] == events.KERNEL}
+    assert {"flash_attention", "flash_attention_bwd"} <= names
+    if arch == "olmoe-1b-7b":
+        assert {"grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw"} <= names
+    assert all(step == want[0] for step in want)
 
 
 def test_graphed_gang_matches_eager_gang_and_members_capture_once(dev):

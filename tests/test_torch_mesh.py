@@ -514,12 +514,18 @@ def test_elastic_restore_resumes_the_unbroken_run(runs):
 
 def test_launch_train_runs_under_two_ranks(runs):
     """launch.train.main in two ranks of a running group: both ranks finish
-    with the same finite loss, and the group is left running."""
+    with the same finite loss, and the group is left running.  Its steps
+    are not graphed (``graphed`` False): on the CPU no step is, and a mesh
+    whose data axis runs over gloo could not be captured on a card either
+    (``uncapturable`` names the axis and the backend)."""
     outs = [rank[4] for rank in runs["two"]]
     for out in outs:
         assert out["steps_run"] == 2 and out["group_alive"] and out["world"] == 2
         assert np.isfinite(out["metrics"]["loss"])
         assert out["metrics"]["loss"] == outs[0]["metrics"]["loss"]
+        assert out["graphed"] is False
+        assert "data axis of 2 ranks" in out["uncapturable"]
+        assert "over gloo" in out["uncapturable"]
 
 
 @pytest.mark.parametrize("arch,world,message", [

@@ -3,8 +3,11 @@ over 4 gloo ranks (``torchrun``, one process a rank), the meshes it picks
 at full size, and the rank-sliced draw of the train state it relies on.
 
 On 4 cards the script trains olmoe-1b-7b and gemma-7b at full width over
-NCCL; here the same phases run the smoke configs (gemma-7b's with 4 query
-and 4 KV heads, one a rank), with every kernel's plain version.
+NCCL, graphed (one captured CUDA graph a step) and eager; here the same
+phases run the smoke configs (gemma-7b's with 4 query and 4 KV heads, one
+a rank), with every kernel's plain version, the graphed step
+(``GraphedTrainStep``, eager on its fixed buffers on the CPU) held
+against the eager step, bit-equal.
 """
 import importlib.util
 import json
@@ -84,6 +87,33 @@ def test_the_script_runs_every_phase_at_smoke_size(smoke_lines):
         assert line["ms_a_step"] > 0 and line["one_card_ms_a_step"] > 0
         assert line["tokens_per_s"] == pytest.approx(
             1e3 * line["slots"] / line["ms_a_step"])
+
+
+def test_graphed_mesh_steps_against_eager_at_smoke_size(smoke_lines):
+    """For each default architecture a graph_agreement line (the graphed
+    mesh step against the eager one on copies of one state, 3 steps at
+    (1, 4)) bit-equal, and on each mesh the steps phase's graphed run
+    bit-equal to its eager runs, with the eager step's launches (the
+    config's kernels, none launched on the CPU; olmoe's grouped GEMM, dx
+    and dw among them) and collectives a step: the sums over ``model``,
+    and at (2, 2) over ``data`` too."""
+    _, lines, _ = smoke_lines
+    agreements = [line for line in lines if line["phase"] == "graph_agreement"]
+    assert [line["arch"] for line in agreements] == [f"{a}-smoke" for a in tp.ARCHS]
+    for line in agreements:
+        assert line["agrees"] and line["bit_equal"] and line["graphed"] is False
+        assert line["mesh"] == {"data": 1, "model": 4} and line["steps"] == 3
+        assert line["losses"] == line["eager_losses"]
+    for line in (line for line in lines if line["phase"] == "steps"):
+        assert line["failures"] == [] and line["bit_equal"], line["failures"]
+        want = {"flash_attention", "flash_attention_bwd"}
+        if line["arch"].startswith("olmoe"):
+            want |= {"grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw"}
+        assert set(line["launches_a_step"]) == want
+        assert line["launches_a_step"] == line["want_launches"]
+        axes = {key.split()[1] for key in line["collectives_a_step"]}
+        assert axes == ({"model", "data"} if line["mesh"]["data"] > 1 else {"model"})
+        assert len(line["graphed_step_seconds"]) == 3 and line["graphed_step_ms"] is None
 
 
 def test_full_size_meshes_are_the_ones_train_memory_gb_fits():

@@ -37,9 +37,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
-from torch.utils._pytree import tree_map as pytree_map  # noqa: E402
-
 from repro.configs import get_smoke as jget_smoke  # noqa: E402
 from repro.models.transformer import init_params as jinit  # noqa: E402
 from repro.optim.adamw import AdamW as JAdamW, cosine_schedule as jcosine  # noqa: E402
@@ -48,74 +45,21 @@ from repro.train.step import make_train_step as jmake_train_step  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
-from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels import moe_gmm  # noqa: E402
-from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.optim.adamw import AdamW, cosine_schedule  # noqa: E402
 from repro_torch.train import ensemble  # noqa: E402
 from repro_torch.train.step import (  # noqa: E402
     GraphedTrainStep, init_train_state, make_train_step,
 )
 from repro_torch.tree import tree_leaves  # noqa: E402
-from torch_parity import patch_plain_launches  # noqa: E402
+from torch_launches import Trace, assert_same_and_clean, record_launches  # noqa: E402
 
 torch.set_num_threads(1)   # the suite runs under 6 xdist workers
 
 ARCHS = ["gemma3-1b", "mamba2-780m", "hymba-1.5b", "olmoe-1b-7b", "hubert-xlarge"]
-#: ops that read a device value on the host, or make a tensor from host data
-FORBIDDEN = ("aten.lift_fresh", "aten._local_scalar_dense", "aten.nonzero")
-#: each kernel's launch, by the attribute the wrappers call it through
-LAUNCHES = ((fa, "_forward"), (fa, "flash_attention_bwd"), (moe_gmm, "_forward"),
-            (moe_gmm, "grouped_matmul_dx"), (moe_gmm, "grouped_matmul_dw"),
-            (kssd, "_state_launch"), (kssd, "_scan_launch"),
-            (kssd, "_state_bwd_launch"), (kssd, "_scan_bwd_launch"))
 BATCH, SEQ, STEPS = 2, 32, 3
 GRAD_TOL = 1e-4            # test_torch_train.py's tolerances
 METRIC_TOL = 1e-5
 GANG_TOL = {"float32": 1e-4, "bfloat16": 5e-3}   # test_torch_ensemble.py's
-
-
-def _sig(x):
-    return ("T", x.dtype, tuple(x.shape)) if isinstance(x, torch.Tensor) else x
-
-
-class _Trace(TorchDispatchMode):
-    """Each aten op: its name, and its arguments with every tensor as its
-    (dtype, shape) and every other value as it is.  Nothing is recorded
-    while ``paused``."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-        self.paused = False
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if not self.paused:
-            self.ops.append((str(func), pytree_map(_sig, args), pytree_map(_sig, kwargs)))
-        return func(*args, **kwargs)
-
-
-def _record_launches(monkeypatch, trace):
-    """The wrappers take their card's branches on CPU tensors with the
-    plain versions as launches (``patch_plain_launches``); each launch is
-    recorded as one op with its arguments, its plain version unrecorded
-    (the grouped GEMM's reads the group sizes on the host, which the kernel
-    reads on the device)."""
-    patch_plain_launches(monkeypatch)
-    for module, name in LAUNCHES:
-        plain = getattr(module, name)
-
-        def launch(*args, _plain=plain, _name=name, **kwargs):
-            trace.ops.append((f"{_name} kernel", pytree_map(_sig, args),
-                              pytree_map(_sig, kwargs)))
-            trace.paused = True
-            try:
-                return _plain(*args, **kwargs)
-            finally:
-                trace.paused = False
-
-        monkeypatch.setattr(module, name, launch)
 
 
 def _host_batch(cfg, seed):
@@ -149,8 +93,8 @@ def _traced_steps(cfg, opt, state, monkeypatch):
     traces = []
     for seed in (1, 2):
         batch = {k: torch.from_numpy(v) for k, v in _host_batch(cfg, seed).items()}
-        trace = _Trace()
-        _record_launches(monkeypatch, trace)
+        trace = Trace()
+        record_launches(monkeypatch, trace)
         with trace:
             step(state, batch)
         monkeypatch.undo()
@@ -158,24 +102,11 @@ def _traced_steps(cfg, opt, state, monkeypatch):
     return traces
 
 
-def _assert_same_and_clean(first, second, launches=True):
-    """Two traces equal op by op, neither with a forbidden op; with
-    ``launches``, some kernel launched (on the CPU hubert's bidirectional
-    attention takes the plain attention, not the kernel's branch)."""
-    assert any(op[0].endswith(" kernel") for op in first) == launches
-    bad = sorted({op[0] for op in first + second
-                  if op[0].split(".")[:2] in [f.split(".") for f in FORBIDDEN]})
-    assert not bad, bad
-    assert len(first) == len(second)
-    for i, (a, b) in enumerate(zip(first, second)):
-        assert a == b, f"op {i} differs between steps 1 and 2: {a} / {b}"
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_step_is_the_same_at_steps_one_and_two(arch, monkeypatch):
     cfg, opt, state = _state(arch, use_kernels=True)
     first, second = _traced_steps(cfg, opt, state, monkeypatch)
-    _assert_same_and_clean(first, second, launches=cfg.causal)
+    assert_same_and_clean(first, second, launches=cfg.causal)
     assert int(state["step"]) == int(state["opt"]["count"]) == 2
 
 
@@ -189,7 +120,7 @@ def test_one_rank_mesh_step_is_the_same_at_steps_one_and_two(monkeypatch):
     try:
         cfg, opt, state = _state("gemma3-1b", mesh, use_kernels=True)
         first, second = _traced_steps(cfg, opt, state, monkeypatch)
-        _assert_same_and_clean(first, second)
+        assert_same_and_clean(first, second)
         assert int(state["step"].to_local()) == 2
     finally:
         if started:
@@ -287,6 +218,29 @@ def _assert_params_close(state, jstate):
             assert not (off & settled).any(), key
 
 
+def test_a_captures_events_are_reported_at_each_replay():
+    """What a capture reports to ``repro_torch.events`` (a collective, a
+    kernel call's cost) reaches no listener then, since a capture runs
+    nothing; each replay reports it again, to the listeners of that moment
+    (``CapturedStep`` records with ``events.recording`` and replays with
+    ``events.replay``)."""
+    from repro_torch import events
+    heard = []
+    with events.counting(lambda *event: heard.append(event)):
+        with events.recording() as recorded:
+            assert events.active()
+            events.report(events.COLLECTIVE, "all-reduce", "data", 8)
+            events.report(events.KERNEL, "flash_attention", 10, 20)
+        assert heard == []
+        assert recorded == [(events.COLLECTIVE, "all-reduce", "data", 8),
+                            (events.KERNEL, "flash_attention", 10, 20)]
+        events.replay(recorded)
+        events.replay(recorded)
+    assert heard == recorded * 2
+    events.replay(recorded)              # nothing listens: nothing is reported
+    assert len(heard) == 4 and not events.active()
+
+
 def test_graphed_step_refuses_another_state_or_batch():
     cfg, opt, state = _state("gemma3-1b")
     batch = _host_batch(cfg, 0)
@@ -312,13 +266,13 @@ def test_gang_step_is_the_same_at_steps_one_and_two(arch, monkeypatch):
     gang = _gang(arch, use_kernels=True)
     traces = []
     for _ in range(2):
-        trace = _Trace()
-        _record_launches(monkeypatch, trace)
+        trace = Trace()
+        record_launches(monkeypatch, trace)
         with trace:
             gang.step()
         monkeypatch.undo()
         traces.append(trace.ops)
-    _assert_same_and_clean(*traces)
+    assert_same_and_clean(*traces)
     assert int(gang.index) == 2
 
 

@@ -232,6 +232,84 @@ def job_step_collectives(mesh, n_micros: list[int]) -> list[dict]:
     return out
 
 
+def _steps_of(step, state, batches: list[dict], mesh) -> dict:
+    """``step`` on each of this rank's ``batches`` (tensors): each step's
+    metrics and parameters (this rank's tensors), and after the last its
+    m, v and master shards with their slices."""
+    metrics, params = [], []
+    for batch in batches:
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        params.append(bridge.flatten(_numpy(state["params"])))
+    shards = {f"{key}/{path}": v for key in ("m", "v", "master")
+              for path, v in _with_slices(state["opt"][key], mesh).items()}
+    return {"metrics": metrics, "params": params, "shards": shards,
+            "step": int(state["step"].to_local())}
+
+
+def job_graph_step(mesh, arch: str, overrides: dict, step_cfg: dict, state: dict,
+                   batches: list[dict]) -> dict:
+    """The mesh step as a CUDA graph would capture it, from a whole numpy
+    state on this rank's block of each global batch:
+
+    * ``trace``: two steps under :class:`torch_launches.Trace` (each kernel
+      launch one op, the wrappers on their card's branches; the config's
+      kernels on): whether their aten ops are the same and clean (None, or
+      what differs), the ops and launches counted, the c10d ops seen, each
+      step's events as ``repro_torch.events`` hears them, and whether every
+      state leaf (a DTensor) and its local storage were kept;
+    * ``graphed`` and ``plain``: ``GraphedTrainStep`` and
+      ``make_train_step``'s step on copies of the state, every batch (the
+      graphed step eager on its fixed buffers on the CPU)."""
+    import pytest
+    from torch_launches import Trace, assert_same_and_clean, record_launches
+
+    from repro_torch.train.step import GraphedTrainStep, distribute_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_smoke(arch, **overrides)
+    with mesh_ctx.set_mesh(mesh):
+        n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+    mine = [to_torch(rank_rows(b, i, n)) for b in batches]
+
+    traced = get_smoke(arch, **{**overrides, "use_kernels": True})
+    st = distribute_state(to_torch(state), mesh)
+    step = make_train_step(traced, optimizer(), _step_config(step_cfg))
+    leaves = tree_leaves(st)
+    storages = [shd.local(leaf).untyped_storage().data_ptr() for leaf in leaves]
+    ops, heard = [], []
+    for batch in mine[:2]:
+        trace, seen = Trace(), []
+        with pytest.MonkeyPatch.context() as patch:
+            record_launches(patch, trace)
+            with events.counting(lambda *event, seen=seen: seen.append(event)), trace:
+                out, _ = step(st, batch)
+        ops.append(trace.ops)
+        heard.append(seen)
+    try:
+        assert_same_and_clean(*ops)
+        differs = None
+    except AssertionError as e:
+        differs = str(e) or "the traces differ"
+    kept = (out is st and all(a is b for a, b in zip(tree_leaves(out), leaves))
+            and [shd.local(leaf).untyped_storage().data_ptr()
+                 for leaf in tree_leaves(out)] == storages)
+    trace = {"differs": differs, "ops": len(ops[0]),
+             "launches": sum(op[0].endswith(" kernel") for op in ops[0]),
+             "c10d": sorted({op[0] for op in ops[0] if op[0].startswith("c10d.")}),
+             "heard": heard, "kept": kept, "leaves": len(leaves),
+             "step": int(st["step"].to_local())}
+
+    runs = {}
+    for name in ("graphed", "plain"):
+        st = distribute_state(to_torch(state), mesh)
+        step = make_train_step(cfg, optimizer(), _step_config(step_cfg))
+        if name == "graphed":
+            step = GraphedTrainStep(step, st, mine[0])
+        runs[name] = _steps_of(step, st, mine, mesh)
+        runs[name]["graph"] = getattr(step, "graph", None) is not None
+    return {"trace": trace, **runs}
+
+
 def job_collectives(mesh, x: np.ndarray, cots: np.ndarray) -> dict:
     """Each differentiable ``model`` collective on this rank's inputs: ``x``
     (whole, the same on every rank) and its rank's cotangent ``cots[j]``.
@@ -448,12 +526,14 @@ def job_elastic(mesh, arch: str, state: dict | None, ckpt_dir: str,
 
 def job_launch_train(mesh, argv: list[str]) -> dict:
     """``launch.train.main`` under the running group (which it reuses and
-    leaves running)."""
+    leaves running), and why a CUDA graph could not capture a step on this
+    mesh (``uncapturable``)."""
     from repro_torch.launch import train
     out = train.main(argv)
     return {"metrics": {k: v for k, v in out.items() if isinstance(v, float)},
             "steps_run": out["steps_run"], "group_alive": dist.is_initialized(),
-            "world": dist.get_world_size()}
+            "world": dist.get_world_size(), "graphed": out["graphed"],
+            "uncapturable": mesh_ctx.uncapturable(mesh)}
 
 
 def job_decode(mesh, cases: list[dict]) -> list[dict]:
@@ -531,7 +611,7 @@ JOBS = {"dp": job_dp, "tp": job_tp, "refusals": job_refusals,
         "collectives": job_collectives, "blocks": job_blocks, "forward": job_forward,
         "placements": job_placements, "ragged": job_ragged,
         "elastic": job_elastic, "launch_train": job_launch_train,
-        "decode": job_decode, "counted": job_counted}
+        "decode": job_decode, "counted": job_counted, "graph_step": job_graph_step}
 
 
 # ---------------------------------------------------------------------------

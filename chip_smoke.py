@@ -660,6 +660,27 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def captured_graph(calls, dev) -> "torch.cuda.CUDAGraph":
+    """``calls`` (no arguments) captured once as a CUDA graph through the
+    port's one capture path (``repro_torch.capture.CapturedStep``: run once
+    on a side stream, then captured on it under the capture lock with
+    thread-local capture errors, the capture's launches and events taken
+    off).  The graph; ``graph.replay()`` runs the calls again without
+    counting their launches."""
+    from repro_torch.capture import CapturedStep
+
+    class Calls(CapturedStep):
+        what = "kernel calls"
+
+        def _eager_step(self):
+            return calls()
+
+    step = Calls(torch.device(dev))
+    step._warm_up(1)
+    step._capture()
+    return step.graph
+
+
 def kernel_ms(fn, match: str, iters: int = 10) -> float | None:
     """Mean device time in ms, per call of ``fn``, of the kernels whose
     names contain ``match``, from the profiler's kernel intervals: unlike
@@ -2587,7 +2608,6 @@ def gmm_decode_entry(cfg, gen, dev, card, served: dict) -> dict:
     one (``eager_ms``), beside the plain versions', ``torch._grouped_mm``'s
     and the bound of the same work (``costs.gmm`` over the experts with
     rows)."""
-    from repro_torch import kernels
     from repro_torch.kernels import moe_gmm
     d, f, e, k = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.top_k
     layers = sum(kind == "moe" for kind in cfg.layer_types)
@@ -2612,17 +2632,7 @@ def gmm_decode_entry(cfg, gen, dev, card, served: dict) -> dict:
     def tick():
         return [moe_gmm.grouped_matmul(a, w, sizes) for a, w in calls]
 
-    before = kernels.launch_counts()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        tick()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        tick()
-    kernels.add_launches({name: before[name] - n
-                          for name, n in kernels.launch_counts().items()})
+    graph = captured_graph(tick, dev)
     out = {
         "ms": time_ms(graph.replay, 20), "eager_ms": time_ms(tick, 5),
         "plain_ms": time_ms(lambda: [moe_gmm.grouped_matmul_plain(a, w, sizes)
@@ -5982,6 +5992,11 @@ TP_DECODE_CACHE_FLOOR = 2.0 ** -7
 #: their mean distance from the fp32-compute logits within
 #: TP_DECODE_FP32_REF × one rank's
 TP_DECODE_FP32_REF = 2.0
+#: the graphed mesh decode (``tp_decode_graphed``, on the cards): steps in
+#: each turn of its timing against the eager step (eager, graphed,
+#: graphed, eager, by CUDA events), steps profiled, and one card's
+#: graphed ServeEngine ticks timed beside it
+TP_DECODE_TIMED, TP_DECODE_PROFILED, TP_DECODE_ENGINE_TICKS = 8, 4, 8
 #: dryrun_vs_card: (label, arch, ShapeConfig fields, mesh shape, n_micro).
 #: (a), (b) and (d), (a) at n_micro 2, on one card at (1, 1); (c) on
 #: tp_decode's two gloo ranks at (1, 2)
@@ -6096,7 +6111,8 @@ def plain_grouped_matmul():
 
 
 def tp_decode_check(cfg, mesh, dev, length: int = TP_DECODE_LEN,
-                    depth_scale: float | None = None, profile_tokens: int = 0) -> dict:
+                    depth_scale: float | None = None, profile_tokens: int = 0,
+                    graphed: bool = False) -> dict:
     """tp_decode's check of ``cfg``, called by every rank of a (data 1,
     model m) mesh over any backend (gloo on one card here, NCCL across
     cards in scripts/tp_across_cards.py).  The serving tree (the same on
@@ -6114,9 +6130,12 @@ def tp_decode_check(cfg, mesh, dev, length: int = TP_DECODE_LEN,
     and no further from the fp32 ones than TP_DECODE_FP32_REF times one
     rank's; its cache shards exactly their slices' shapes and within the
     model's own rounding of one rank's (TP_DECODE_CACHE_REF,
-    TP_DECODE_CACHE_FLOOR).  With ``profile_tokens``, that many more
-    tokens under the profiler.  Returns this rank's results; a step is one
-    token on every slot."""
+    TP_DECODE_CACHE_FLOOR).  With ``graphed``, ``tp_decode_graphed``: the
+    graphed mesh step against this eager one on the same shards (and on
+    rank 0, one card's graphed ServeEngine on the whole tree, timed:
+    ``engine_ticks``).  With ``profile_tokens``, that many more tokens of
+    the eager step under the profiler.  Returns this rank's results; a step
+    is one token on every slot."""
     import torch.distributed as dist
     from repro_torch import bridge, events
     from repro_torch.distributed import sharding as shd
@@ -6145,7 +6164,7 @@ def tp_decode_check(cfg, mesh, dev, length: int = TP_DECODE_LEN,
             shapes[path] = tuple(leaf.shape)
             slices[path] = shd.local_slices(spec, leaf.shape, mesh)
 
-    one, one_rank_ms = {}, []
+    one, one_rank_ms, engine = {}, [], None
     if rank < 2:
         run_cfg = cfg if rank == 0 else dataclasses.replace(cfg, compute_dtype="float32")
         cache = init_cache(run_cfg, slots, length, device=dev)
@@ -6162,6 +6181,8 @@ def tp_decode_check(cfg, mesh, dev, length: int = TP_DECODE_LEN,
                 logits.append(out.float())
         one = {**bridge.flatten(cache), "logits": torch.cat(logits)}
         del cache, logits
+        if graphed and rank == 0 and on_card:
+            engine = engine_ticks(cfg, params, dev, length)
 
     def from_rank(src, path, shape):
         """Rank ``src``'s ``path`` in fp32 on every rank."""
@@ -6185,15 +6206,7 @@ def tp_decode_check(cfg, mesh, dev, length: int = TP_DECODE_LEN,
     flat = bridge.flatten(cache)
     shard_shapes = all(tuple(flat[p].shape) == tuple(refs[0][1][p].shape) for p in shapes)
     serve = make_serve_step(cfg, mesh)
-    moved: dict[str, list[int]] = {}
-
-    def listen(event, *details):
-        if event == events.COLLECTIVE:
-            kind, _, nbytes = details
-            count = moved.setdefault(kind, [0, 0])
-            count[0] += 1
-            count[1] += nbytes
-
+    listen, moved = collectives_by_kind()
     got, step_ms = [], []
     reset_launches()
     with torch.no_grad(), events.counting(listen):
@@ -6247,7 +6260,14 @@ def tp_decode_check(cfg, mesh, dev, length: int = TP_DECODE_LEN,
            "view": shd.cache_view(cfg, m, j),
            # wall time: the init, one rank's decodes and their broadcast,
            # then the shards and the decode under the mesh
-           "seconds": {"one_rank": t_ref - t_start, "model": t_tp - t_ref}}
+           "seconds": {"one_rank": t_ref - t_start, "model": t_tp - t_ref},
+           "one_card_engine": engine}
+    if graphed:
+        out["graphed"] = tp_decode_graphed(
+            cfg, mesh, dev, local, tokens, length, depth_scale,
+            {"logits": got, "cache": {p: flat[p] for p in shapes}, "moved": moved,
+             "launches": launches, "serve": serve, "cache_tree": cache,
+             "ref_norm": {p: cache_err[p][2] if p in cache_err else 0.0 for p in shapes}})
     del refs, want, fp32, got
     if profile_tokens:
         sync()
@@ -6265,9 +6285,176 @@ def tp_decode_check(cfg, mesh, dev, length: int = TP_DECODE_LEN,
     return out
 
 
+def collectives_by_kind():
+    """(a listener of ``repro_torch.events``, the dict it fills): each
+    collective's count and bytes by kind."""
+    from repro_torch import events
+    moved: dict[str, list[int]] = {}
+
+    def listen(event, *details):
+        if event == events.COLLECTIVE:
+            kind, _, nbytes = details
+            count = moved.setdefault(kind, [0, 0])
+            count[0] += 1
+            count[1] += nbytes
+    return listen, moved
+
+
+def engine_ticks(cfg, params, dev, length: int) -> dict:
+    """One card's graphed ``ServeEngine`` on the whole tree, TP_DECODE_SLOTS
+    slots and a cache of ``length``: after two ticks, TP_DECODE_ENGINE_TICKS
+    ticks timed by the host's clock (each tick's tokens in from the host,
+    the next tokens read back) and its replay alone by CUDA events; its
+    capture's seconds and pool."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    ticks = TP_DECODE_ENGINE_TICKS
+    engine = ServeEngine(cfg, params, slots=TP_DECODE_SLOTS, max_len=length, device=dev)
+    for rid in range(TP_DECODE_SLOTS):
+        engine.submit(Request(rid=rid, prompt=[rid], max_new=ticks + 2))
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        engine.step()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / ticks
+    out = {"tick_ms": tick_ms, "tokens_per_s": 1e3 * TP_DECODE_SLOTS / tick_ms,
+           "replay_ms": time_ms(engine.graph.replay, ticks, warmup=0),
+           "capture_s": engine.graphed.capture_seconds,
+           "graph_pool_gb": engine.graph_pool_bytes / 1e9, "ticks": ticks}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_decode_graphed(cfg, mesh, dev, local, tokens, length: int,
+                      depth_scale: float | None, eager: dict) -> dict:
+    """The graphed mesh decode, called by every rank after
+    ``tp_decode_check``'s eager one (``eager``: its logits, cache leaves,
+    collectives, launches, serve step and cache, and each leaf's one-rank
+    bf16 against fp32 distance): ``GraphedServeStep(cfg, local, cache,
+    slots, mesh)`` on a cache of its own (the warm-up and the capture on a
+    card), fed the same TP_DECODE_TOKENS tokens.  It fails (``failures``)
+    where its logits are past §2's decode gates of the eager step's or a
+    cache leaf past the model's own rounding of the eager one
+    (TP_DECODE_CACHE_REF, TP_DECODE_CACHE_FLOOR), where its launches or its
+    collectives (count and bytes by kind, heard from the replays) are not
+    the eager step's, or, on a card, where it captured no graph or a
+    profiled step made other than one graph launch.  ``bit_equal``: its
+    logits and cache the eager step's, bit for bit.  On a card, then:
+    graphed and eager in turns (TP_DECODE_TIMED steps each, CUDA events),
+    TP_DECODE_PROFILED graphed steps profiled (NCCL device ms, busy ms,
+    idle share, launches, host syncs a step), the capture's seconds and
+    pool, and this rank's peak."""
+    from repro_torch import bridge, events
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serve.engine import GraphedServeStep
+    on_card = dev.type == "cuda"
+    slots, n_tokens = TP_DECODE_SLOTS, TP_DECODE_TOKENS
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    cache = init_cache(cfg, slots, length, device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    step = GraphedServeStep(cfg, local, cache, slots, mesh)
+    build_s = time.perf_counter() - t0
+    listen, moved = collectives_by_kind()
+    reset_launches()
+    got = []
+    with events.counting(listen):
+        for t in range(n_tokens):
+            got.append(step(tokens[t, :, None]).to(torch.float32, copy=True))
+    launches = launch_counts(path_kernels(cfg, backward=False))
+    got = torch.cat(got)
+    flat = bridge.flatten(cache)
+    agreement = logits_agreement(got, eager["logits"], layers=cfg.n_layers, gate=False,
+                                 depth_scale=depth_scale)
+    cache_err = {p: ((flat[p].float() - w.float()).norm()
+                     / w.float().norm().clamp_min(1e-30)).item()
+                 for p, w in eager["cache"].items()}
+    cache_ok = all(e <= max(TP_DECODE_CACHE_REF * eager["ref_norm"][p], TP_DECODE_CACHE_FLOOR)
+                   for p, e in cache_err.items())
+    bit_equal = bool(torch.equal(got, eager["logits"]) and all(
+        torch.equal(flat[p], w) for p, w in eager["cache"].items()))
+    failures = [what for what, bad in (
+        (f"logits off the eager step's: {agreement}", not agreement["within_bounds"]),
+        (f"cache off the eager step's: {cache_err}", not cache_ok),
+        (f"launches {launches}, eager {eager['launches']}", launches != eager["launches"]),
+        (f"collectives {moved}, eager {eager['moved']}", moved != eager["moved"]),
+        ("no graph captured", on_card and step.graph is None)) if bad]
+    out = {"bit_equal": bit_equal, "agreement": agreement, "cache_rel_err": cache_err,
+           "cache_within_rounding": cache_ok, "graph": step.graph is not None,
+           "launches": launches, "replay_launches": step.replay_launches,
+           "collectives_a_step": {k: {"count": c / n_tokens, "bytes": b / n_tokens}
+                                  for k, (c, b) in moved.items()},
+           "build_s": build_s, "capture_s": step.capture_seconds,
+           "graph_pool_gb": step.graph_pool_bytes / 1e9}
+    if on_card:
+        def eager_step():
+            with torch.no_grad():
+                eager["serve"](local, eager["cache_tree"], tokens[0, :, None])
+
+        def graphed_steps(n):
+            return lambda: [step(tokens[0, :, None]) for _ in range(n)]
+
+        turns = [(kind, time_ms(eager_step if kind == "eager" else graphed_steps(1),
+                                TP_DECODE_TIMED, warmup=1))
+                 for kind in ("eager", "graphed", "graphed", "eager")]
+        ms = {kind: float(np.median([t for k, t in turns if k == kind]))
+              for kind in ("eager", "graphed")}
+        prof = mesh_profile(graphed_steps(TP_DECODE_PROFILED), on_card)
+        per_step = {k: prof[k] / TP_DECODE_PROFILED for k in (
+            "wall_ms", "device_busy_ms", "nccl_device_ms", "kernel_launches",
+            "graph_launches", "host_syncs")}
+        if per_step["graph_launches"] != 1:
+            failures.append(f"a profiled graphed step made {per_step['graph_launches']} "
+                            "graph launches (want 1)")
+        out.update(turns=turns, graphed_ms_a_step=ms["graphed"], eager_ms_a_step=ms["eager"],
+                   graphed_tokens_per_s=1e3 * slots / ms["graphed"],
+                   eager_tokens_per_s=1e3 * slots / ms["eager"],
+                   profile={**{k: v for k, v in prof.items() if k != "top_kernels_ms"},
+                            "per_step": per_step},
+                   peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out.update(failures=failures, agrees=not failures)
+    del step, cache
+    return out
+
+
+def gloo_refusal(mesh, dev) -> str:
+    """What ``GraphedServeStep`` says on a card of ``mesh``, whose model
+    axis runs over gloo: it must raise before it warms up or captures
+    (AssertionError otherwise).  Returns its message."""
+    from repro_torch.capture import CapturedStep
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.serve.engine import GraphedServeStep
+    cfg = get_smoke("gemma3-1b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    cache = init_cache(cfg, TP_DECODE_SLOTS, 16, device=dev, mesh=mesh)
+    ran = []
+    saved = CapturedStep._warm_up, CapturedStep._capture
+    CapturedStep._warm_up = lambda self, steps: ran.append("warm-up")
+    CapturedStep._capture = lambda self: ran.append("capture")
+    try:
+        GraphedServeStep(cfg, params, cache, TP_DECODE_SLOTS, mesh)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        refused = None
+    finally:
+        CapturedStep._warm_up, CapturedStep._capture = saved
+    if refused is None or "over gloo" not in refused or ran:
+        raise AssertionError(f"GraphedServeStep on a gloo mesh on the card: refused "
+                             f"{refused!r}, ran {ran}")
+    return refused
+
+
 def tp_decode_worker(rank: int, init_file: str, out_dir: str, device_type: str) -> None:
     """One of tp_decode's two ranks on card 0, a (data 1, model 2) mesh
-    over gloo: ``tp_decode_check`` of each TP_DECODE_ARCHS, then
+    over gloo: ``GraphedServeStep`` refusing the mesh on the card
+    (``gloo_refusal``), ``tp_decode_check`` of each TP_DECODE_ARCHS, then
     dryrun_vs_card's (c) cells on this mesh.  Writes the results."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -6280,6 +6467,8 @@ def tp_decode_worker(rank: int, init_file: str, out_dir: str, device_type: str) 
     results = {}
     try:
         mesh = init_device_mesh(device_type, (1, 2), mesh_dim_names=("data", "model"))
+        if device_type == "cuda":
+            results["refused"] = gloo_refusal(mesh, dev)
         for arch in TP_DECODE_ARCHS:
             results[arch] = tp_decode_check(get(arch), mesh, dev)
             if device_type == "cuda":
@@ -6293,13 +6482,16 @@ def tp_decode_worker(rank: int, init_file: str, out_dir: str, device_type: str) 
         dist.destroy_process_group()
 
 
-def tp_decode_gmm_entry(cfg, gen, dev, card, launches: int) -> dict:
-    """The grouped GEMM at one model rank's decode shape of olmoe-1b-7b
-    (4 slots, top-8: 32 rows, every expert's f 512 of 1024; a real
-    routing's group sizes): a decode step's 3 calls a layer against the
-    plain version, ``torch._grouped_mm`` and the bound."""
+def tp_decode_gmm_entry(cfg, gen, dev, card, launches: int, model: int = 2) -> dict:
+    """The grouped GEMM at one of ``model`` ranks' decode shape of
+    olmoe-1b-7b (4 slots, top-8: 32 rows, every expert's f / ``model``; a
+    real routing's group sizes): a decode step's 3 calls a layer against
+    the plain version, ``torch._grouped_mm`` and the bound; and
+    ``replayed_ms``, the same calls captured once as a CUDA graph and
+    replayed, as a captured decode step runs them (their launches at the
+    capture taken off the counter)."""
     from repro_torch.kernels import moe_gmm
-    d, f, e, k = cfg.d_model, cfg.moe_d_ff // 2, cfg.n_experts, cfg.top_k
+    d, f, e, k = cfg.d_model, cfg.moe_d_ff // model, cfg.n_experts, cfg.top_k
     rows = TP_DECODE_SLOTS * k
     sizes = moe_group_sizes(gen, dev, TP_DECODE_SLOTS, e, k)
     nonempty = int((sizes > 0).sum())
@@ -6321,12 +6513,16 @@ def tp_decode_gmm_entry(cfg, gen, dev, card, launches: int) -> dict:
                           time_ms(lambda: [c() for c, _ in libs * cfg.n_layers], 5))}
     mix["bound_ms"], mix["bound_by"] = bound(sum(fl[0] for fl in floors),
                                              sum(fl[1] for fl in floors))
+    graph = captured_graph(lambda: [moe_gmm.grouped_matmul(a, w, sizes)
+                                    for a, w in calls], dev)
+    mix["replayed_ms"] = time_ms(graph.replay, 5)
+    del graph
     emit("kernel_tp_decode_mix", kernel="grouped_matmul", calls=len(calls),
-         shape=[rows, d, f, e], nonempty_experts=nonempty,
+         shape=[rows, d, f, e], model=model, nonempty_experts=nonempty,
          library=no_lib or "torch._grouped_mm", errors=errs, nvidia_smi=card, **mix)
     return {"name": "grouped_matmul", "route": "cuda", "source": GMM_SOURCE,
             "replaces": GMM_REPLACES, "launches": launches,
-            "path": f"{cfg.name} TP decode, model 2 ({TP_DECODE_TOKENS} tokens, f 512)",
+            "path": f"{cfg.name} TP decode, model {model} ({TP_DECODE_TOKENS} tokens, f {f})",
             **mix}
 
 
@@ -6399,7 +6595,8 @@ def tp_decode_path(dev, card) -> list[dict]:
                  fp32_ref=TP_DECODE_FP32_REF, ok=ok, nvidia_smi=card, ranks=per)
             if not ok:
                 failures.append(arch)
-        emit("tp_decode_section", seconds_both_ranks=seconds)
+        emit("tp_decode_section", seconds_both_ranks=seconds,
+             graphed_serve_step_refused=[r.get("refused") for r in ranks])
 
         # -- dryrun_vs_card --------------------------------------------------
         t0 = time.perf_counter()

@@ -63,7 +63,23 @@ group), each state freed before the next:
    the collectives a step (count and bytes, from ``repro_torch.events``),
    and over PROFILE_TOKENS more steps under the profiler the NCCL device
    ms a step, the device's busy time and idle share and the host's time by
-   operator on each rank.
+   operator on each rank; then (``decode_graphed``) the graphed mesh step
+   (``GraphedServeStep``: on the cards, over NCCL, the step captured once
+   as a CUDA graph after its warm-up, replayed every token, the cache
+   updated in place) against the eager one, from the same shards on two
+   caches over the same tokens (``chip_smoke.tp_decode_graphed``: the same
+   logit and cache gates, its launches and collectives a step, heard from
+   the replays, equal to the eager step's, one graph launch a profiled
+   step on each rank; whether the two are bit-equal), then both timed in
+   turns by CUDA events (ms a step, tokens/s) beside one card's graphed
+   ``ServeEngine`` on the whole tree (a tick by the host's clock, its
+   replay by CUDA events), rank 0's graphed step profiled (NCCL device
+   ms, busy ms, idle share, launches, host syncs), the capture's seconds
+   and pool and each rank's peak; the grouped GEMM's launches a token
+   (olmoe: 3 a layer, from the replays), and on rank 0 its calls at a
+   model-N rank's decode shape against their plain version,
+   ``torch._grouped_mm`` and the bound, eager and replayed
+   (``decode_gmm``).  A rank whose capture fails makes every rank raise.
 
 Rank 0 prints one JSON line a phase, with the card's name and power limit
 (``--device cpu``: none; every time is then the host's).  The script exits
@@ -370,15 +386,51 @@ def depth_scale(run: Run, cfg) -> float | None:
 
 def decode(run: Run, cfg) -> None:
     """Phase 3: decode at model N against one card's decode of the same
-    tokens (``chip_smoke.tp_decode_check`` on every rank)."""
+    tokens, and the graphed mesh step against the eager one
+    (``chip_smoke.tp_decode_check`` with ``graphed`` on every rank)."""
     cs = run.cs
     length = SMOKE_DECODE_LEN if run.smoke else cs.TP_DECODE_LEN
     mine = cs.tp_decode_check(cfg, run.mesh(run.world), run.dev, length,
-                              depth_scale(run, cfg), PROFILE_TOKENS)
+                              depth_scale(run, cfg), PROFILE_TOKENS, graphed=True)
     ranks = [None] * run.world
     dist.all_gather_object(ranks, mine)
     agrees = all(r["agrees"] for r in ranks)
     first, slots = ranks[0], cs.TP_DECODE_SLOTS
+    graphed = [r["graphed"] for r in ranks]
+    moe_layers = sum(n for kind, n in cfg.segments() if kind == "moe")
+    gmm_a_token = graphed[0]["launches"].get("grouped_matmul", 0) / cs.TP_DECODE_TOKENS
+    failures = [f"rank {i}: {f}" for i, g in enumerate(graphed) for f in g["failures"]]
+    if run.on_card and moe_layers and gmm_a_token != 3 * moe_layers:
+        failures.append(f"grouped_matmul launched {gmm_a_token} times a token from the "
+                        f"replays, want {3 * moe_layers}")
+    run.emit("decode_graphed", arch=cfg.name, layers=cfg.n_layers,
+             mesh={"data": 1, "model": run.world}, slots=slots, cache_len=length,
+             tokens=cs.TP_DECODE_TOKENS, timed=cs.TP_DECODE_TIMED,
+             graphed_ms_a_step=graphed[0].get("graphed_ms_a_step"),
+             eager_ms_a_step=graphed[0].get("eager_ms_a_step"),
+             graphed_tokens_per_s=graphed[0].get("graphed_tokens_per_s"),
+             eager_tokens_per_s=graphed[0].get("eager_tokens_per_s"),
+             one_card_engine=first["one_card_engine"],
+             one_card_eager_ms_a_step=first["one_rank_step_ms"],
+             bit_equal=all(g["bit_equal"] for g in graphed),
+             grouped_matmul_a_token=gmm_a_token,
+             collectives_a_step=graphed[0]["collectives_a_step"],
+             eager_collectives_a_step=first["collectives_a_step"],
+             capture_s=[g["capture_s"] for g in graphed],
+             graph_pool_gb=[g["graph_pool_gb"] for g in graphed],
+             peak_allocated_gb=[g.get("peak_allocated_gb") for g in graphed],
+             graph_launches_a_step=[(g.get("profile") or {}).get("per_step", {}).get(
+                 "graph_launches") for g in graphed],
+             agrees=not failures, failures=failures, per_rank=graphed)
+    if failures:
+        run.failed.append(f"decode_graphed {cfg.name}")
+    if run.on_card and moe_layers:
+        if run.rank == 0:
+            entry = cs.tp_decode_gmm_entry(cfg, run.generator(11), run.dev, run.card,
+                                           graphed[0]["launches"]["grouped_matmul"],
+                                           model=run.world)
+            run.emit("decode_gmm", arch=cfg.name, **entry)
+        dist.barrier()
     run.emit("decode", arch=cfg.name, layers=cfg.n_layers,
              mesh={"data": 1, "model": run.world}, slots=slots, cache_len=length,
              tokens=cs.TP_DECODE_TOKENS, ms_a_step=first["step_ms"],

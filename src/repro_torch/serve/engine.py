@@ -9,13 +9,15 @@ runs at one ``model`` rank, as the reference's engine does;
 run's decode cells).
 
 The reference jits its serve step with the cache donated
-(``jax.jit(make_serve_step(cfg), donate_argnums=(1,))``).  On a CUDA
-device ``ServeEngine`` does the same with a CUDA graph: it captures
-``decode_step`` and the argmax once over static buffers (its cache, a
-token buffer, the logits and next tokens) and replays the graph every
-tick; the step updates the cache and its position in place, the donated
-cache's counterpart.  On the CPU, which the caller asks for, it runs the
-step eagerly.  ``make_serve_step`` is the eager step.
+(``jax.jit(make_serve_step(cfg), donate_argnums=(1,))``; on a mesh, with
+the parameters, cache and tokens sharded, ``lower_decode_cell``).
+:class:`GraphedServeStep` is the port's form of it on a CUDA device: the
+step (on a mesh, this rank's step with its collectives) captured once as a
+CUDA graph over static buffers (the cache, a token buffer, the logits and
+the next tokens) and replayed every token; the step updates the cache and
+its position in place, the donated cache's counterpart.  ``ServeEngine``
+replays one on its card.  On the CPU, which the caller asks for, both run
+the step eagerly.  ``make_serve_step`` is the eager step.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch import kernels
+from repro_torch.capture import CapturedStep
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ArchConfig
@@ -58,6 +60,70 @@ def make_serve_step(cfg: ArchConfig, mesh: Any = None) -> Callable:
     return serve_step_on_mesh
 
 
+class GraphedServeStep(CapturedStep):
+    """``make_serve_step(cfg, mesh)`` on this rank's parameters, ``cache``
+    and a static ``(slots, 1)`` token buffer (:attr:`token`), as a
+    :class:`repro_torch.capture.CapturedStep`: the reference's jitted serve
+    step with the cache donated.  ``slots`` are the rows this rank decodes;
+    ``params`` are its stored tensors (DTensors or their local tensors:
+    their local tensors are taken once, so every step reads the same
+    ones), ``cache`` its cache (``init_cache``, with the mesh on a mesh),
+    updated in place.
+
+    On a CUDA device the constructor warms up (the step run WARMUP_STEPS
+    times on a side stream: the kernels built and loaded, library handles
+    and workspaces made, and on a mesh every collective of the step run
+    once, so that NCCL has made its communicators), zeroes the cache and
+    its position, and captures the step; every call replays it.  On a mesh
+    each rank captures its own step, its collectives too: the mesh must
+    run them over NCCL (one of more than one rank over gloo is refused,
+    naming the backend, before anything runs), and where any rank's
+    capture fails every rank raises.  A capture or replay that fails
+    raises; no step runs eagerly in its place.  On the CPU every call runs
+    the step eagerly on the same buffers.
+
+    Called as ``step(token) -> logits``: ``token`` (slots, 1) is copied
+    into the token buffer (from pinned host memory without a
+    synchronisation), then the step runs.  ``logits`` are this rank's
+    vocabulary columns (``sharded_logits``: the reference's ``P(dp,
+    "model")`` out-sharding); :attr:`next` their argmax where this rank
+    holds the whole vocabulary, else None.  On the card both are the
+    graph's buffers, overwritten by the next step."""
+
+    what = "serve step"
+
+    def __init__(self, cfg: ArchConfig, params: Any, cache: dict[str, Any],
+                 slots: int, mesh: Any = None) -> None:
+        device = cache["pos"].device
+        super().__init__(device, mesh)
+        self.cfg = cfg
+        self.params = tree_map(shd.local, params)
+        self.cache = cache
+        promote_conv(cfg, cache)            # no leaf reallocated by a step
+        self.token = torch.zeros((slots, 1), dtype=torch.int64, device=device)
+        self._serve = make_serve_step(cfg, mesh)
+        self.logits: torch.Tensor | None = None
+        self.next: torch.Tensor | None = None
+        if device.type == "cuda":
+            self._warm_up(WARMUP_STEPS)
+            for leaf in tree_leaves(cache):
+                leaf.zero_()
+            self._capture()
+
+    def __call__(self, token: torch.Tensor) -> torch.Tensor:
+        self.token.copy_(token, non_blocking=token.device.type == "cpu"
+                         and token.is_pinned())
+        self.logits, self.next = self._run_step()
+        return self.logits
+
+    def _eager_step(self) -> tuple[torch.Tensor, torch.Tensor | None]:
+        with torch.inference_mode():
+            logits, _ = self._serve(self.params, self.cache, self.token)
+            # argmax on the device; ties go to the first index, as np.argmax
+            whole = logits.shape[-1] == self.cfg.vocab_size
+            return logits, logits.argmax(dim=-1) if whole else None
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -78,13 +144,14 @@ class ServeEngine:
     does: a VLM's patch embeddings reach only ``forward``, and an
     encoder-only config (no decode step) raises here.
 
-    On a CUDA device the constructor captures the step
-    (:meth:`_capture`): a tick then copies its tokens from pinned memory,
-    replays the graph and reads the ``(B,)`` next tokens back, one
-    synchronisation.  A capture or a replay that fails raises; there is
-    no eager retry on the card.  ``logits`` is the last tick's ``(B, V)``
-    logits (on the card the graph's output buffer, overwritten by the next
-    tick)."""
+    The step is a :class:`GraphedServeStep` (:attr:`graphed`) on the
+    engine's cache: on a CUDA device the constructor captures it, and a
+    tick then copies its tokens from pinned memory, replays the graph and
+    reads the ``(B,)`` next tokens back, one synchronisation; a capture or
+    a replay that fails raises, and there is no eager retry on the card.
+    On the CPU it runs the step eagerly.  ``logits`` is the last tick's
+    ``(B, V)`` logits (on the card the graph's output buffer, overwritten
+    by the next tick)."""
 
     def __init__(self, cfg: ArchConfig, params: Any, slots: int = 8,
                  max_len: int = 256,
@@ -95,72 +162,35 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.cache = self.model.init_cache(slots, max_len)
-        promote_conv(cfg, self.cache)       # no leaf reallocated by a step
-        self._step = make_serve_step(cfg)
         self.active: list[Request | None] = [None] * slots
         self.queue: list[Request] = []
         self.logits: torch.Tensor | None = None
-        self.graph: torch.cuda.CUDAGraph | None = None
-        #: the kernel launches one replay makes (counted at the capture)
-        self.replay_launches: dict[str, int] = {}
-        #: bytes the capture added to the device's reserved memory: the
-        #: graph's private pool
-        self.graph_pool_bytes = 0
-        if self.model.device.type == "cuda":
-            # the tick's tokens, written by the host straight into pinned
-            # memory and copied into the graph's token buffer
-            host = torch.zeros((slots, 1), dtype=torch.int64, pin_memory=True)
-            self.tokens = host.numpy()
-            self._tokens_host = host
-            self._capture()
-        else:
-            self.tokens = np.zeros((slots, 1), np.int64)
+        # the tick's tokens, written by the host into memory that the step
+        # copies into its token buffer (pinned on a card)
+        self._tokens_host = torch.zeros((slots, 1), dtype=torch.int64,
+                                        pin_memory=self.model.device.type == "cuda")
+        self.tokens = self._tokens_host.numpy()
+        self.graphed = GraphedServeStep(cfg, self.params, self.cache, slots)
 
-    @torch.inference_mode()
-    def _capture(self) -> None:
-        """Warm-up steps on a side stream, the cache zeroed (every engine
-        starts from a zeroed cache, as the reference's), then one graph of
-        the step and the argmax captured on that stream, its kernel
-        launches recorded and taken off the counters (a capture launches
-        nothing)."""
-        dev = self.model.device
-        token = torch.zeros((self.slots, 1), dtype=torch.int64, device=dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self._step(self.params, self.cache, token)
-            for leaf in tree_leaves(self.cache):
-                leaf.zero_()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        before = kernels.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), torch.cuda.graph(graph, stream=side):
-            logits, _ = self._step(self.params, self.cache, token)
-            nxt = logits.argmax(dim=-1)
-        after = kernels.launch_counts()
-        self.replay_launches = {k: after[k] - before[k] for k in after
-                                if after[k] != before[k]}
-        kernels.add_launches({k: -n for k, n in self.replay_launches.items()})
-        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.graph, self._token, self._logits, self._next = graph, token, logits, nxt
+    @property
+    def graph(self) -> torch.cuda.CUDAGraph | None:
+        return self.graphed.graph
+
+    @property
+    def replay_launches(self) -> dict[str, int]:
+        """The kernel launches one replay makes (counted at the capture)."""
+        return self.graphed.replay_launches
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Bytes the capture added to the device's reserved memory: the
+        graph's private pool."""
+        return self.graphed.graph_pool_bytes
 
     def _decode(self) -> np.ndarray:
         """One step on the tick's tokens → the next token of every slot."""
-        if self.graph is None:
-            token = torch.from_numpy(self.tokens).to(self.model.device)
-            self.logits, self.cache = self._step(self.params, self.cache, token)
-            # argmax on the device; ties go to the first index, as np.argmax
-            return self.logits.argmax(dim=-1).cpu().numpy()
-        self._token.copy_(self._tokens_host, non_blocking=True)
-        with torch.cuda.device(self.model.device):
-            self.graph.replay()
-        kernels.add_launches(self.replay_launches)
-        self.logits = self._logits
-        return self._next.cpu().numpy()
+        self.logits = self.graphed(self._tokens_host)
+        return self.graphed.next.cpu().numpy()
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)

@@ -38,12 +38,12 @@ from typing import Any, Sequence
 
 import torch
 
+from repro_torch.capture import CapturedStep
 from repro_torch.configs import get_smoke
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import init_params, loss_fn
 from repro_torch.optim.adamw import AdamW, cosine_schedule, value_and_grad
-from repro_torch.train.step import CapturedStep
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -126,7 +126,7 @@ class Gang(CapturedStep):
 
     The reference compiles the whole gang as one program
     (``jax.jit(jax.vmap(train_one))``); here the step is a
-    :class:`repro_torch.train.step.CapturedStep`: on a card the first
+    :class:`repro_torch.capture.CapturedStep`: on a card the first
     :meth:`step` runs eagerly, the warm-up, and every later one replays
     one captured CUDA graph.  :meth:`load` puts other members' parameters
     and tokens into the same buffers and resets the optimizer state, so

@@ -57,15 +57,13 @@ each device of a (data, model) mesh.
 from __future__ import annotations
 
 import dataclasses
-import threading
-import time
 from typing import Any, Callable
 
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch import events, kernels
 from repro_torch.bridge import flatten
+from repro_torch.capture import CapturedStep
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ArchConfig
@@ -187,104 +185,6 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
     return train_step
 
 
-#: one capture at a time in a process (a sweep's thread pool may train
-#: several runs at once; each capture is also thread-local in its errors)
-_CAPTURE_LOCK = threading.Lock()
-
-
-class CapturedStep:
-    """A step on fixed buffers (:meth:`_eager_step`, no arguments) run as the
-    reference runs its compiled step.  On the CPU every :meth:`_run_step`
-    runs it eagerly.  On a CUDA device the first runs it eagerly on a side
-    stream, the warm-up (the kernels built and their per-device set-up
-    done, library handles and workspaces made on that stream; on a mesh,
-    every collective run once, so that NCCL has made each group's
-    communicator, which a capture cannot); the second releases the cached
-    blocks the warm-up left, captures the step once as a CUDA graph on
-    that stream (a capture runs nothing) and replays it; every later one
-    replays it: one graph launch a step.  The kernels' launches at the
-    capture are taken off their counters and added back at each replay
-    (:attr:`replay_launches`); what the capture reports to
-    :mod:`repro_torch.events` (each collective, each kernel call's cost)
-    reaches no listener then and is reported again at each replay
-    (:attr:`replay_events`).  A replay returns the captured call's
-    outputs, the graph's buffers, overwritten by the next replay.  A
-    capture or replay that fails raises, and so does every later step: the
-    step is never run eagerly in its place; out of memory, the capture
-    names the memory.  On a mesh every rank captures and replays the same
-    step, so the replays' collectives meet."""
-
-    def __init__(self, device: torch.device) -> None:
-        self.device = device
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.outputs: Any = None
-        #: the kernel launches one replay makes (counted at the capture)
-        self.replay_launches: dict[str, int] = {}
-        #: the events one replay reports (recorded at the capture)
-        self.replay_events: list[tuple] = []
-        #: bytes the capture added to the device's reserved memory: the
-        #: graph's private pool
-        self.graph_pool_bytes = 0
-        self.capture_seconds = 0.0
-        #: the warm-up's and the capture's stream, made by the warm-up
-        self._side: torch.cuda.Stream | None = None
-
-    def _eager_step(self) -> Any:
-        raise NotImplementedError
-
-    def _run_step(self) -> Any:
-        if self.device.type != "cuda":
-            return self._eager_step()
-        current = torch.cuda.current_stream(self.device)
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-            self._side.wait_stream(current)
-            with torch.cuda.stream(self._side):
-                out = self._eager_step()
-            current.wait_stream(self._side)
-            return out
-        if self.graph is None:
-            self._side.wait_stream(current)
-            self._capture()
-        with torch.cuda.device(self.device):
-            self.graph.replay()
-        kernels.add_launches(self.replay_launches)
-        events.replay(self.replay_events)
-        return self.outputs
-
-    def _capture(self) -> None:
-        dev = self.device
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with _CAPTURE_LOCK:
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            before = kernels.launch_counts()
-            try:
-                # thread-local: NCCL's watchdog thread queries events
-                # meanwhile, which a global capture would refuse
-                with events.recording() as recorded, torch.cuda.device(dev), \
-                        torch.cuda.graph(graph, stream=self._side,
-                                         capture_error_mode="thread_local"):
-                    outputs = self._eager_step()
-            except torch.OutOfMemoryError as e:
-                total = torch.cuda.get_device_properties(dev).total_memory
-                raise torch.OutOfMemoryError(
-                    f"the captured step does not fit: {reserved / 1e9:.2f} GB "
-                    f"reserved before the capture (the state and its buffers), "
-                    f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB when it ran "
-                    f"out, of the card's {total / 1e9:.2f} GB") from e
-            after = kernels.launch_counts()
-        self.replay_launches = {k: after[k] - before[k] for k in after
-                                if after[k] != before[k]}
-        kernels.add_launches({k: -n for k, n in self.replay_launches.items()})
-        self.replay_events = recorded
-        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.capture_seconds = time.perf_counter() - t0
-        self.graph, self.outputs = graph, outputs
-
-
 class GraphedTrainStep(CapturedStep):
     """``step_fn`` (from :func:`make_train_step`) as a :class:`CapturedStep`,
     the state updated in place: the reference's ``jax.jit(step_fn,
@@ -294,9 +194,8 @@ class GraphedTrainStep(CapturedStep):
     takes the mesh step, captured on every rank (each rank's own batch):
     on a card its mesh must run every collective over NCCL, and on one that
     does not (gloo over more than one rank) this raises, naming the
-    backend.  After the capture the ranks agree (one all-reduce) that every
-    rank captured: where one failed (out of memory, say) every rank raises,
-    so that no rank replays collectives that another never meets.
+    backend; after the capture the ranks agree that every rank captured
+    (:class:`repro_torch.capture.CapturedStep`).
 
     Called as ``step(state, batch) -> (state, metrics)``, always with the
     state it was built with.  Each call first copies the batch (host arrays
@@ -306,16 +205,13 @@ class GraphedTrainStep(CapturedStep):
     step's copy has left the pinned buffer).  A replay's metrics are the
     graph's output buffers, overwritten by the next replay."""
 
+    what = "train step"
+
     def __init__(self, step_fn: Callable, state: dict[str, Any],
                  example_batch: dict[str, Any]) -> None:
-        super().__init__(shd.local(state["step"]).device)
-        #: the state's mesh where a capture's success must be agreed on
-        self._mesh = (state["step"].device_mesh if self.device.type == "cuda"
-                      and isinstance(state["step"], DTensor) else None)
-        if self._mesh is not None:
-            why = mesh_ctx.uncapturable(self._mesh)
-            if why:
-                raise ValueError(f"a graphed train step cannot be captured: {why}")
+        super().__init__(shd.local(state["step"]).device,
+                         state["step"].device_mesh
+                         if isinstance(state["step"], DTensor) else None)
         self._step_fn = step_fn
         self.state = state
         host = {k: torch.as_tensor(v) for k, v in example_batch.items()}
@@ -337,28 +233,6 @@ class GraphedTrainStep(CapturedStep):
 
     def _eager_step(self) -> tuple[dict[str, Any], dict[str, torch.Tensor]]:
         return self._step_fn(self.state, self.batch)
-
-    def _capture(self) -> None:
-        failed = None
-        try:
-            super()._capture()
-        except Exception as e:      # told to the other ranks, then raised
-            failed = e
-        if self._mesh is not None:
-            ok = torch.tensor(float(failed is None), device=self.device)
-            for i, name in enumerate(self._mesh.mesh_dim_names):
-                if self._mesh.size(i) > 1:   # not a step's collective: unreported
-                    torch.distributed.all_reduce(ok, torch.distributed.ReduceOp.MIN,
-                                                 group=self._mesh.get_group(name))
-            if failed is None and not ok.item():
-                self.graph = self.outputs = None
-                raise RuntimeError("another rank's capture of the mesh step failed "
-                                   "(its error says why); this rank's graph is dropped")
-        if failed is not None:
-            try:
-                raise failed
-            finally:
-                failed = None       # no cycle through this frame keeps the state
 
     def _load(self, batch: dict[str, Any]) -> None:
         """The batch copied into the static buffers, on the current stream."""

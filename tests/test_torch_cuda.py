@@ -954,11 +954,44 @@ def test_graphed_engine_matches_eager_step(dev, arch):
         launched += kernels.launch_counts()["grouped_matmul"] - before
         ticks += 1
         with torch.inference_mode():
-            want, cache = step(engine.params, cache, engine._token.clone())
+            want, cache = step(engine.params, cache, engine.graphed.token.clone())
         torch.testing.assert_close(engine.logits.float(), want.float(),
                                    atol=2e-2, rtol=2e-2)
     assert ticks == 20 and int(engine.cache["pos"]) == int(cache["pos"]) == ticks
     assert launched == 3 * moe_layers * ticks
+
+
+def test_graphed_engine_replays_report_the_eager_steps_events(dev):
+    """The engine's GraphedServeStep on olmoe's smoke config: a listener of
+    ``repro_torch.events`` hears from each replayed tick what it hears from
+    the eager step on the same tokens, the grouped GEMM's cost events (3 a
+    MoE layer) in order, and a replay counts the launches its capture
+    recorded (the grouped GEMM's 3 a MoE layer, nothing else)."""
+    from repro_torch import events
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Request, ServeEngine, make_serve_step
+    cfg = get_smoke("olmoe-1b-7b")
+    model = Model(cfg, dev)
+    engine = ServeEngine(cfg, model.init(0, serving=True), slots=2, max_len=24, device=dev)
+    moe_layers = sum(n for kind, n in cfg.segments() if kind == "moe")
+    assert engine.replay_launches == {"grouped_matmul": 3 * moe_layers}
+    assert engine.graphed.replay_events
+    engine.submit(Request(rid=0, prompt=[1, 2], max_new=4))
+    engine.submit(Request(rid=1, prompt=[3], max_new=4))
+    step = make_serve_step(cfg)
+    cache = model.init_cache(2, 24)
+    got, want = [], []
+    for _ in range(4):
+        for heard, run in ((got, engine.step), (want, lambda: step(
+                engine.params, cache, engine.graphed.token.clone()))):
+            seen = []
+            with events.counting(lambda *event: seen.append(event)), torch.inference_mode():
+                run()
+            heard.append(seen)
+    assert got == want
+    assert [e[1] for e in want[0] if e[0] == events.KERNEL] == ["grouped_matmul"] * (
+        3 * moe_layers)
 
 
 GRAPH_TRAIN_ARCHS = ["gemma3-1b", "mamba2-780m", "hymba-1.5b", "olmoe-1b-7b",

@@ -177,13 +177,13 @@ def test_cpu_engine_is_eager_and_keeps_the_logits(arch):
     engine.submit(Request(rid=0, prompt=[1, 2, 3], max_new=4))
     engine.submit(Request(rid=1, prompt=[4], max_new=4))
     fed = []
-    engine_step = engine._step
+    engine_step = engine.graphed._serve
 
     def feed(params, cache, token):
         fed.append(token.clone())
         return engine_step(params, cache, token)
 
-    engine._step = feed
+    engine.graphed._serve = feed
     step = make_serve_step(cfg)
     cache = Model(cfg, device="cpu").init_cache(2, MAX_LEN)
     while engine.queue or any(engine.active):

@@ -116,6 +116,22 @@ def test_graphed_mesh_steps_against_eager_at_smoke_size(smoke_lines):
         assert len(line["graphed_step_seconds"]) == 3 and line["graphed_step_ms"] is None
 
 
+def test_graphed_mesh_decode_against_eager_at_smoke_size(smoke_lines):
+    """For each default architecture a decode_graphed line: the graphed
+    mesh step (GraphedServeStep, eager on its fixed buffers on the CPU)
+    against the eager one at (1, 4) on the same shards and tokens, agreeing
+    and bit-equal on every rank, its collectives a step the eager step's."""
+    _, lines, _ = smoke_lines
+    graphed = [line for line in lines if line["phase"] == "decode_graphed"]
+    assert [line["arch"] for line in graphed] == [f"{a}-smoke" for a in tp.ARCHS]
+    for line in graphed:
+        assert line["agrees"] and line["bit_equal"] and line["failures"] == []
+        assert line["mesh"] == {"data": 1, "model": 4} and len(line["per_rank"]) == 4
+        assert line["collectives_a_step"] == line["eager_collectives_a_step"]
+        assert line["collectives_a_step"]["all-reduce"]["count"] > 0
+        assert not any(r["graph"] for r in line["per_rank"])
+
+
 def test_full_size_meshes_are_the_ones_train_memory_gb_fits():
     """On 4 cards and chip_smoke's 72 GB budget: gemma-7b at (1, 4) only
     (78.3 GB at (2, 2)), olmoe-1b-7b at (1, 4) and (2, 2); the reckoning

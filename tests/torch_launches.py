@@ -15,8 +15,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import ssd_scan as kssd
 
-#: ops that read a device value on the host, or make a tensor from host data
-FORBIDDEN = ("aten.lift_fresh", "aten._local_scalar_dense", "aten.nonzero")
+#: ops that read a device value on the host (``.item()`` reaches a dispatch
+#: mode as ``aten.item``), or make a tensor from host data
+FORBIDDEN = ("aten.lift_fresh", "aten._local_scalar_dense", "aten.item", "aten.nonzero")
 #: each kernel's launch, by the attribute the wrappers call it through
 LAUNCHES = ((fa, "_forward"), (fa, "flash_attention_bwd"), (moe_gmm, "_forward"),
             (moe_gmm, "grouped_matmul_dx"), (moe_gmm, "grouped_matmul_dw"),

@@ -588,6 +588,116 @@ def job_decode(mesh, cases: list[dict]) -> list[dict]:
     return out
 
 
+def job_graph_decode(mesh, cases: list[dict]) -> dict:
+    """Each case (as ``job_decode``'s): this rank's decode step on the mesh
+    as ``GraphedServeStep`` captures it on a card, on its stored shards of
+    a whole numpy parameter tree and its shards of a cache made by
+    ``init_cache`` with the mesh, teacher-forced on ``tokens`` (steps, B)
+    (this rank's rows):
+
+    * ``trace``: the first two tokens through a ``GraphedServeStep`` under
+      :class:`torch_launches.Trace` (each kernel launch one op, the
+      wrappers on their card's branches; the config's kernels on): whether
+      their aten ops are the same and clean (None, or what differs), the
+      ops and launches counted, the c10d ops seen, each token's events as
+      ``repro_torch.events`` hears them, and whether every cache leaf kept
+      its storage and ``pos`` is the same tensor, advanced;
+    * ``graphed`` and ``plain``: ``GraphedServeStep`` (eager on the CPU)
+      and ``make_serve_step(cfg, mesh)``, each on a cache of its own, every
+      token: each token's logits (this rank's columns), the cache leaves
+      after the last, ``pos``.
+
+    And once: ``refused``, what a ``CapturedStep`` on a CUDA device says
+    of this mesh; ``agreement``, what each rank raises when model rank 1's
+    capture fails (the ranks' agreement after a capture, run on the CPU)."""
+    import pytest
+    from torch_launches import Trace, assert_same_and_clean, record_launches
+
+    from repro_torch.capture import CapturedStep
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serve.engine import GraphedServeStep, make_serve_step
+    from repro_torch.tree import tree_leaves
+    with mesh_ctx.set_mesh(mesh):
+        n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+        j = mesh_ctx.model_rank()
+    out = {"cases": [], "data": i, "model": j}
+    for case in cases:
+        cfg = get_smoke(case["arch"], **case["overrides"])
+        params = to_torch(case["params"])
+        local = tree_map(lambda leaf, spec: leaf[shd.local_slices(spec, leaf.shape, mesh)],
+                         params, shd.params_shardings(params, mesh))
+        tokens = torch.from_numpy(case["tokens"].astype(np.int64))
+        batch = tokens.shape[1]
+        rows = slice(i * (batch // n), (i + 1) * (batch // n))
+        mine = [tokens[t, rows, None] for t in range(tokens.shape[0])]
+
+        def new_cache():
+            return init_cache(cfg, batch, case["max_len"], case["cache_dtype"], "cpu", mesh)
+
+        traced = get_smoke(case["arch"], **{**case["overrides"], "use_kernels": True})
+        step = GraphedServeStep(traced, local, new_cache(), len(mine[0]), mesh)
+        pos, leaves = step.cache["pos"], tree_leaves(step.cache)
+        storages = [leaf.untyped_storage().data_ptr() for leaf in leaves]
+        ops, heard = [], []
+        for token in mine[:2]:
+            trace, seen = Trace(), []
+            with pytest.MonkeyPatch.context() as patch:
+                record_launches(patch, trace)
+                with events.counting(lambda *event, seen=seen: seen.append(event)), trace:
+                    step(token)
+            ops.append(trace.ops)
+            heard.append(seen)
+        try:
+            assert_same_and_clean(*ops, launches=cfg.n_experts > 0)
+            differs = None
+        except AssertionError as e:
+            differs = str(e) or "the traces differ"
+        kept = (step.cache["pos"] is pos and int(pos) == 2
+                and [leaf.untyped_storage().data_ptr() for leaf in tree_leaves(step.cache)]
+                == storages)
+        res = {"trace": {"differs": differs, "ops": len(ops[0]),
+                         "launches": sum(op[0].endswith(" kernel") for op in ops[0]),
+                         "c10d": sorted({op[0] for op in ops[0] if op[0].startswith("c10d.")}),
+                         "heard": heard, "kept": kept, "leaves": len(leaves)}}
+        for name in ("graphed", "plain"):
+            cache = new_cache()
+            if name == "graphed":
+                graphed = GraphedServeStep(cfg, local, cache, len(mine[0]), mesh)
+                call = graphed
+            else:
+                serve = make_serve_step(cfg, mesh)
+
+                def call(token, serve=serve, cache=cache):
+                    with torch.no_grad():
+                        return serve(local, cache, token)[0]
+            logits = [call(token).float().numpy().copy() for token in mine]
+            res[name] = {"logits": logits, "pos": int(cache["pos"]),
+                         "cache": {k: v.float().numpy().copy()
+                                   for k, v in bridge.flatten(cache).items() if k != "pos"},
+                         "graph": name == "graphed" and graphed.graph is not None}
+        out["cases"].append(res)
+
+    try:
+        CapturedStep(torch.device("cuda", 0), mesh)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+
+    class FailsAtRankOne(CapturedStep):
+        def _record(self):
+            if j == 1:
+                raise torch.OutOfMemoryError("rank 1's capture does not fit")
+
+    step = FailsAtRankOne(torch.device("cpu"))
+    step._mesh = mesh               # the agreement a card's mesh runs
+    try:
+        step._capture()
+        out["agreement"] = None
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        out["agreement"] = (type(e).__name__, str(e))
+    return out
+
+
 def job_counted(mesh, cells: list[dict]) -> list[dict]:
     """Each cell (an arch's smoke config with the dry run's settings and a
     ``ShapeConfig``'s fields): the dry run's step built on this rank's
@@ -611,7 +721,8 @@ JOBS = {"dp": job_dp, "tp": job_tp, "refusals": job_refusals,
         "collectives": job_collectives, "blocks": job_blocks, "forward": job_forward,
         "placements": job_placements, "ragged": job_ragged,
         "elastic": job_elastic, "launch_train": job_launch_train,
-        "decode": job_decode, "counted": job_counted, "graph_step": job_graph_step}
+        "decode": job_decode, "counted": job_counted, "graph_step": job_graph_step,
+        "graph_decode": job_graph_decode}
 
 
 # ---------------------------------------------------------------------------

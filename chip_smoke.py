@@ -216,6 +216,19 @@ run's, one launch (the graph launch) a profiled graphed step; graphed and
 eager step ms by CUDA events in turns, capture seconds, the graph's pool,
 both peaks, and the graphed step's idle share and host syncs.
 
+Then cell_options: gemma3-1b at the reference's cell options
+(``launch.dryrun.cell_config``: bf16 parameters, ``loss_chunk`` 1024,
+``vocab_pad`` 256, ``attn_q_chunk`` 1024, ``seq_shard``): its first step's
+loss and gradient norm within the train gates of the step at the
+config's own options (fp32 parameters, the CE whole) from the same
+weights, then graph_train's three runs on (4, 2048), which must be
+bit-equal with the step's launches.
+
+Every train phase prints its measured peak beside its reckoning, the
+port's ``train.step.train_memory_gb`` at the phase's tokens (``train``,
+``graph_train``, ``mesh_train``, ``tp_train_*``, ``tp4_rank_step`` and
+``tp4_cell_step``), and fails the run where the peak passes it.
+
 Then the PaPaS driver (``repro_torch.launch.sweep``, the sweep phase): a
 study of 4 gemma3-1b smoke training runs (2 lrs x 2 seeds, 5 steps of 4 x
 64 tokens) gang-packed by ``--gang`` (one dispatch, every instance ok and
@@ -263,8 +276,12 @@ gloo no CUDA graph captures the collectives, so each run must report
 ``scripts/tp_across_cards.py`` hold the graphed mesh steps).
 
 Then the tensor-parallel section (two gloo ranks at (data 1, model 2):
-each arch's train step against one rank, then each kernel at one rank's
-shapes), and decode under a ``model`` axis (``tp_decode``): gemma3-1b,
+each arch's train step against one rank, gemma3-1b's sequence over
+``model`` against (a) and, at the reference's cell options, its first 8
+layers against one rank; then each kernel at one rank's shapes), the
+kernels at a model-4 rank's shapes of ``scripts/tp_across_cards.py``'s
+steps and of its train cell (8 x 4096 at the cell options), each counted
+in that rank's step on this card, and decode under a ``model`` axis (``tp_decode``): gemma3-1b,
 mamba2-780m, hymba-1.5b and olmoe-1b-7b at full width and depth from bf16
 serving trees, each rank holding only its shards of the weights and the
 cache, 8 teacher-forced tokens on 4 slots and a 2048 cache against one
@@ -780,14 +797,30 @@ def largest_leaf(cfg) -> int:
     return leaf(cfg)
 
 
-def train_reckoning_gb(cfg, layers: int) -> dict[str, float]:
-    """GB that training ``cfg`` cut to its first ``layers`` layers needs, as
-    ``launch.train`` reckons it before it allocates (the port's
-    ``train.step.train_memory_gb``): the state (20 bytes a parameter),
-    AdamW's fp32 temporaries of its largest leaf, the activations, and
-    their total."""
+def train_reckoning_gb(cfg, layers: int, rows: int = TRAIN_BATCH,
+                       seq: int = TRAIN_SEQ) -> dict[str, float]:
+    """GB that training ``cfg`` cut to its first ``layers`` layers on
+    ``rows`` x ``seq`` tokens needs, as ``launch.train`` reckons it before
+    it allocates (the port's ``train.step.train_memory_gb``): the state
+    (the parameters and their gradients by ``param_dtype``, AdamW's 12
+    fp32 bytes a parameter), AdamW's fp32 temporaries of its largest leaf
+    or the activations (the logits of a CE chunk among them), whichever is
+    larger, a workspace, and their total."""
     from repro_torch.train.step import train_memory_gb
-    return train_memory_gb(cut_depth(cfg, layers))
+    return train_memory_gb(cut_depth(cfg, layers), rows=rows, seq=seq)
+
+
+def within_reckoning(peak_gb: float, reckoned_gb: float) -> dict:
+    """The fields a train phase prints beside its measured peak: the
+    reckoning (``train.step.train_memory_gb``) and whether the peak lies
+    within it (:func:`require_within_reckoning` fails the run where not)."""
+    return {"reckoned_gb": reckoned_gb, "peak_over_reckoned": peak_gb / reckoned_gb,
+            "within_reckoning": peak_gb <= reckoned_gb}
+
+
+def require_within_reckoning(what: str, fields: dict) -> None:
+    if not fields["within_reckoning"]:
+        raise AssertionError(f"{what}: a measured peak passes its reckoning: {fields}")
 
 
 def train_depth(cfg, budget_gb: float = TRAIN_BUDGET_GB,
@@ -1557,22 +1590,30 @@ def ssd_inputs(gen, dev, b, s, h, p, g, n, init):
     return x, log_a, bm, cm, h0
 
 
-def fa_prefill_mix(cfg, gen, dev, b: int, s: int) -> dict:
+def fa_prefill_mix(cfg, gen, dev, b: int, s: int, plain: bool = True) -> dict:
     """The flash-attention calls of one prefill of ``cfg`` on (b, s) tokens,
     one a layer at its window (bidirectional for an encoder), timed
     together by CUDA events: the kernel's, the plain version's and SDPA's
     ms and the bound of the same work; and the kernel's largest |error|
-    against the plain version over the windows."""
+    against the plain version over the windows.  Without ``plain`` (a
+    sequence whose dense (S, S) scores do not fit the card) the error is
+    held against SDPA instead and the plain version is not timed."""
     from repro_torch.kernels import flash_attention as fa
     windows, causal = attention_windows(cfg), cfg.causal
     q, k, v = (torch.randn((b, s, h, cfg.head_dim), generator=gen, device=dev
                            ).to(torch.bfloat16)
                for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
-    err = max((fa.flash_attention(q, k, v, causal=causal, window=w).float()
-               - fa.flash_attention_plain(q, k, v, causal=causal, window=w).float()
-               ).abs().max().item()
-              for w in set(windows))
     lib_calls = [sdpa_call(q, k, v, causal, w) for w in windows]
+    if plain:
+        err = max((fa.flash_attention(q, k, v, causal=causal, window=w).float()
+                   - fa.flash_attention_plain(q, k, v, causal=causal, window=w).float()
+                   ).abs().max().item()
+                  for w in set(windows))
+    else:
+        err = max((fa.flash_attention(q, k, v, causal=causal, window=w).float()
+                   - sdpa_call(q, k, v, causal, w)().transpose(1, 2).float()
+                   ).abs().max().item()
+                  for w in set(windows))
     floors = [attention_floor_ms(b, s, cfg.n_heads, cfg.n_kv_heads,
                                  cfg.head_dim, causal, w) for w in windows]
     mix_bound_ms, mix_bound_by = bound(sum(f[0] for f in floors),
@@ -1583,9 +1624,10 @@ def fa_prefill_mix(cfg, gen, dev, b: int, s: int) -> dict:
                                for w in windows], 10),
         "plain_ms": time_ms(lambda: [fa.flash_attention_plain(q, k, v, causal=causal,
                                                               window=w)
-                                     for w in windows], 2, 1),
+                                     for w in windows], 2, 1) if plain else None,
         "library_ms": time_ms(lambda: [c() for c in lib_calls], 10),
         "bound_ms": mix_bound_ms, "bound_by": mix_bound_by,
+        "error_against": "plain" if plain else "sdpa",
     }
 
 
@@ -2425,7 +2467,8 @@ DENSE_FP32_REF = 2.0
 
 
 def consistency_or_own_rounding(dec: torch.Tensor, fwd: torch.Tensor,
-                                ref: torch.Tensor, layers: int) -> dict:
+                                ref: torch.Tensor, layers: int,
+                                depth_scale: float | None = None) -> dict:
     """Prefill (``fwd``, the kernels) against teacher-forced decode
     (``dec``, plain attention over the bf16 cache): §2's bounds at the
     model's depth (``logits_agreement``), and each path's distance from
@@ -2434,8 +2477,9 @@ def consistency_or_own_rounding(dec: torch.Tensor, fwd: torch.Tensor,
     fails (its mean bound and the decisive argmaxes hold) and the prefill
     is no farther from ``ref`` than DENSE_FP32_REF times the decode, in max
     and mean: then the two differ by the model's own bf16 rounding, which a
-    random init amplifies with width (ROADMAP C10), not by the kernels'."""
-    out = logits_agreement(dec, fwd, layers, gate=False)
+    random init amplifies with width (ROADMAP C10), not by the kernels'.
+    ``depth_scale`` as ``logits_agreement``'s."""
+    out = logits_agreement(dec, fwd, layers, gate=False, depth_scale=depth_scale)
     spread = ref.std().item()
     for name, logits in (("prefill", fwd), ("decode", dec)):
         dist = (logits - ref).abs()
@@ -3069,16 +3113,19 @@ def gemma3_train_path(dev, card) -> dict:
     timed = out["step_seconds"][TRAIN_WARMUP:]
     step_s = float(np.median(timed))
     n_params, tokens = cfg.param_count(), b * s
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reckoned = within_reckoning(peak, train_reckoning_gb(cfg, cfg.n_layers)["total_gb"])
     emit("train", arch=cfg.name, batch=b, seq=s, remat=cfg.remat,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
          loss_chunk=cfg.loss_chunk, warmup_steps=TRAIN_WARMUP,
          step_seconds=out["step_seconds"], step_ms=step_s * 1e3,
          tokens_per_s=tokens / step_s, params=n_params,
          mfu_6nt=6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         peak_mem_gb=peak, **reckoned,
          flash_attention_launches=fwd_launches,
          flash_attention_bwd_launches=bwd_launches,
          final_loss=out["loss"], final_grad_norm=out["grad_norm"], nvidia_smi=card)
+    require_within_reckoning(f"{cfg.name} train", reckoned)
     torch.cuda.empty_cache()
 
     # -- 5. correctness at full width ------------------------------------------
@@ -3293,13 +3340,16 @@ def ssm_train_path(dev, card) -> list[dict]:
         raise AssertionError(f"training ran {out['steps_run']} steps, loss {out['loss']}")
     step_s = float(np.median(out["step_seconds"][SSM_TRAIN_WARMUP:]))
     n_params, tokens = cfg.param_count(), b * s
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reckoned = within_reckoning(peak, train_reckoning_gb(cfg, cfg.n_layers)["total_gb"])
     emit("train", arch=cfg.name, batch=b, seq=s, remat=cfg.remat,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
          warmup_steps=SSM_TRAIN_WARMUP, step_seconds=out["step_seconds"],
          step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, params=n_params,
          mfu_6nt=6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+         peak_mem_gb=peak, **reckoned, launches=launches,
          final_loss=out["loss"], final_grad_norm=out["grad_norm"], nvidia_smi=card)
+    require_within_reckoning(f"{cfg.name} train", reckoned)
     torch.cuda.empty_cache()
 
     # -- 5. correctness at full width ------------------------------------------
@@ -3435,14 +3485,17 @@ def hymba_train_path(dev, card) -> list[dict]:
         raise AssertionError(f"training ran {out['steps_run']} steps, loss {out['loss']}")
     step_s = float(np.median(out["step_seconds"][HYMBA_TRAIN_WARMUP:]))
     n_params, tokens = cfg.param_count(), b * s
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reckoned = within_reckoning(peak, train_reckoning_gb(cfg, cfg.n_layers)["total_gb"])
     emit("train", arch=cfg.name, batch=b, seq=s, remat=cfg.remat,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
          loss_chunk=cfg.loss_chunk, warmup_steps=HYMBA_TRAIN_WARMUP,
          step_seconds=out["step_seconds"], step_ms=step_s * 1e3,
          tokens_per_s=tokens / step_s, params=n_params,
          mfu_6nt=6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+         peak_mem_gb=peak, **reckoned, launches=launches,
          final_loss=out["loss"], final_grad_norm=out["grad_norm"], nvidia_smi=card)
+    require_within_reckoning(f"{cfg.name} train", reckoned)
     torch.cuda.empty_cache()
 
     # -- 5, 6. correctness at full width and depth, and a profiled step -------
@@ -3514,13 +3567,16 @@ def dense_train_path(dev, card) -> list[dict]:
         raise AssertionError(f"training ran {out['steps_run']} steps, loss {out['loss']}")
     step_s = float(np.median(out["step_seconds"][DANUBE_TRAIN_WARMUP:]))
     n_params, tokens = cfg.param_count(), b * s
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reckoned = within_reckoning(peak, train_reckoning_gb(cfg, cfg.n_layers)["total_gb"])
     emit("train", arch=cfg.name, batch=b, seq=s, remat=cfg.remat,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
          warmup_steps=DANUBE_TRAIN_WARMUP, step_seconds=out["step_seconds"],
          step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, params=n_params,
          mfu_6nt=6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+         peak_mem_gb=peak, **reckoned, launches=launches,
          final_loss=out["loss"], final_grad_norm=out["grad_norm"], nvidia_smi=card)
+    require_within_reckoning(f"{cfg.name} train", reckoned)
     torch.cuda.empty_cache()
 
     # -- 5, 6. correctness at full width and depth, and a profiled step -------
@@ -3587,14 +3643,17 @@ def hubert_train_path(dev, card) -> list[dict]:
         raise AssertionError(f"training ran {out['steps_run']} steps, loss {out['loss']}")
     step_s = float(np.median(out["step_seconds"][HUBERT_TRAIN_WARMUP:]))
     n_params, tokens = cfg.param_count(), b * s
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reckoned = within_reckoning(peak, train_reckoning_gb(cfg, cfg.n_layers)["total_gb"])
     emit("train", arch=cfg.name, batch=b, seq=s, inputs="embeds", remat=cfg.remat,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
          loss_chunk=cfg.loss_chunk, warmup_steps=HUBERT_TRAIN_WARMUP,
          step_seconds=out["step_seconds"], step_ms=step_s * 1e3,
          tokens_per_s=tokens / step_s, params=n_params,
          mfu_6nt=6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS),
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+         peak_mem_gb=peak, **reckoned, launches=launches,
          final_loss=out["loss"], final_grad_norm=out["grad_norm"], nvidia_smi=card)
+    require_within_reckoning(f"{cfg.name} train", reckoned)
     torch.cuda.empty_cache()
 
     # -- 5, 6. correctness at full width and depth, and a profiled step -------
@@ -3732,6 +3791,7 @@ def moe_train_path(dev, card) -> list[dict]:
                              f"> {TRAIN_BUDGET_GB}")
     step_s = float(np.median(times[MOE_TRAIN_WARMUP:]))
     n_active, tokens = active_params(mcfg), b * s
+    reckoned = within_reckoning(peak_gb, reckoning[layers]["total_gb"])
     emit("train", arch=cfg.name, layers=f"{layers} of {cfg.n_layers}",
          reckoning_by_layers=reckoning, budget_gb=TRAIN_BUDGET_GB,
          batch=b, seq=s, remat=mcfg.remat, moe_dispatch=mcfg.moe_dispatch,
@@ -3740,7 +3800,9 @@ def moe_train_path(dev, card) -> list[dict]:
          tokens_per_s=tokens / step_s, params=mcfg.param_count(),
          active_params=n_active,
          mfu_6nt=6 * n_active * tokens / (step_s * PEAK_BF16_FLOPS),
-         peak_mem_gb=peak_gb, launches=launches, losses=losses, nvidia_smi=card)
+         peak_mem_gb=peak_gb, **reckoned, launches=launches, losses=losses,
+         nvidia_smi=card)
+    require_within_reckoning(f"{mcfg.name} train", reckoned)
     torch.cuda.empty_cache()
 
     # -- 5. correctness at full width ------------------------------------------
@@ -3930,16 +3992,19 @@ def recording_step_class(graphed: bool, runs: list):
     return Recording
 
 
-def graph_train_run(arch: str, layers, dev, graphed: bool) -> dict:
+def graph_train_run(arch: str, layers, dev, graphed: bool, cfg=None) -> dict:
     """One run of GRAPH_TRAIN_STEPS steps of ``arch`` from seed 0 on the
     stream's batches (4, 2048), graphed or eager: through
     ``launch.train.run`` (its step class replaced by a recording one) where
-    ``layers`` is None, else at that cut depth through ``init_train_state``
-    and ``make_train_step`` with launch.train's optimizer and schedule.
+    ``layers`` and ``cfg`` are None, else at that cut depth (or as ``cfg``
+    says) through ``init_train_state`` and ``make_train_step`` with
+    launch.train's optimizer and schedule.
     Returns each step's metrics, the parameters after the last step (flat,
     this rank's tensors), each step's host seconds (ending at a read of its
-    metrics), the kernels' launches, the peaks, the step object (its graph
-    alive) and ``call``, one more step the same way."""
+    metrics), the kernels' launches, the peaks, what was allocated before
+    the run began (``held_before_gb``: earlier phases' tensors, which the
+    peak counts too), the step object (its graph alive) and ``call``, one
+    more step the same way."""
     from repro_torch.bridge import flatten
     from repro_torch.configs import get
     from repro_torch.data.pipeline import make_stream
@@ -3950,11 +4015,14 @@ def graph_train_run(arch: str, layers, dev, graphed: bool) -> dict:
 
     runs: list = []
     step_cls = recording_step_class(graphed, runs)
+    # an earlier run's state held in a reference cycle is freed first
+    gc.collect()
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     b, s = TRAIN_BATCH, TRAIN_SEQ
-    if layers is None:
+    if layers is None and cfg is None:
         saved = train.GraphedTrainStep
         train.GraphedTrainStep = step_cls
         try:
@@ -3965,7 +4033,7 @@ def graph_train_run(arch: str, layers, dev, graphed: bool) -> dict:
         seconds = out["step_seconds"]
         cfg = get(arch)
     else:
-        cfg = cut_depth(get(arch), layers)
+        cfg = cfg or cut_depth(get(arch), layers)
         opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))   # launch.train's defaults
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -3990,7 +4058,8 @@ def graph_train_run(arch: str, layers, dev, graphed: bool) -> dict:
     return {"metrics": run.recorded, "params": params, "seconds": seconds,
             "launches": launch_counts(path_kernels(cfg, backward=True)),
             "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9, "step": run,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "held_before_gb": held / 1e9, "step": run,
             "call": lambda: run(run.state, batch)}
 
 
@@ -4002,11 +4071,21 @@ def metric_gaps(got: list, want: list) -> dict[str, float]:
             for key in want[0]}
 
 
+#: elements of a leaf compared at a time by leaf_gaps
+LEAF_GAP_BLOCK = 1 << 26
+
+
 def leaf_gaps(got: dict, want: dict) -> dict[str, float]:
-    """Each parameter leaf's largest |Δ| (``want`` on the host, each leaf
-    brought to ``got``'s device in turn)."""
-    return {key: (got[key].float() - w.to(got[key].device).float()).abs().max().item()
-            for key, w in want.items()}
+    """Each parameter leaf's largest |Δ| (``want`` on the host, brought to
+    ``got``'s device a block of LEAF_GAP_BLOCK elements at a time: a
+    graphed run's pool may leave no room for an fp32 copy of a whole
+    embedding)."""
+    def gap(g, w):
+        g, w = g.reshape(-1), w.reshape(-1)
+        return max((g[i:i + LEAF_GAP_BLOCK].float()
+                    - w[i:i + LEAF_GAP_BLOCK].to(g.device).float()).abs().max().item()
+                   for i in range(0, g.numel(), LEAF_GAP_BLOCK))
+    return {key: gap(got[key], w) for key, w in want.items()}
 
 
 def graph_gate(name: str, eager_gaps: dict, graph_gaps: dict) -> list[str]:
@@ -4029,7 +4108,10 @@ def graph_train_case(name: str, run, card, **fields) -> dict:
     eager step's; and unless a profiled graphed step (its inputs copied
     in) makes one launch, a graph launch.  Emits the step ms graphed and
     eager, capture seconds, the graph's pool, the peaks, and the graphed
-    step's profile (idle share, launches, host syncs)."""
+    step's profile (idle share, launches, host syncs).  Where ``fields``
+    give ``reckoned_gb`` (``train.step.train_memory_gb``), fails the run
+    unless both runs' own peaks (over what was allocated before each
+    began) lie within it."""
     t0 = time.perf_counter()
     first = run(graphed=False)
     run_seconds = [time.perf_counter() - t0]
@@ -4064,7 +4146,8 @@ def graph_train_case(name: str, run, card, **fields) -> dict:
     out = {"capture_s": step.capture_seconds, "graph_pool_bytes": step.graph_pool_bytes,
            "replay_launches": step.replay_launches, "graphed_step_seconds": graphed["seconds"],
            "graphed_peak_allocated_gb": graphed["peak_allocated_gb"],
-           "graphed_peak_reserved_gb": graphed["peak_reserved_gb"]}
+           "graphed_peak_reserved_gb": graphed["peak_reserved_gb"],
+           "graphed_held_before_gb": graphed["held_before_gb"]}
     del graphed, step
     torch.cuda.empty_cache()
 
@@ -4085,6 +4168,7 @@ def graph_train_case(name: str, run, card, **fields) -> dict:
         graphed_step_ms=graphed_ms, eager_step_ms=eager_ms,
         speedup=float(np.mean(eager_ms)) / graphed_ms,
         eager_peak_allocated_gb=second["peak_allocated_gb"],
+        eager_held_before_gb=second["held_before_gb"],
         eager_peak_reserved_gb=second["peak_reserved_gb"], launches=eager_launches,
         graph_metric_gaps=graph_metric_gaps, eager_metric_gaps=eager_metric_gaps,
         bit_equal=not any(graph_metric_gaps.values()) and not any(graph_leaf_gaps.values()),
@@ -4096,10 +4180,18 @@ def graph_train_case(name: str, run, card, **fields) -> dict:
         per_step=per_step, profile=prof)
     del second, want
     torch.cuda.empty_cache()
+    if "reckoned_gb" in fields:
+        # each run's own peak: over what earlier phases left allocated
+        peaks = [out[f"{k}_peak_allocated_gb"] - out[f"{k}_held_before_gb"]
+                 for k in ("graphed", "eager")]
+        out["within_reckoning"] = max(peaks) <= fields["reckoned_gb"]
+        over += [] if out["within_reckoning"] else [
+            f"peaks {peaks} GB over the reckoning {fields['reckoned_gb']:.2f} GB"]
     emit("graph_train", name=name, nvidia_smi=card, gate_failures=over, **out)
     if over:
         raise AssertionError(f"{name}: the graphed run lies farther from the first "
-                             f"eager run than the second does: {over[:8]}")
+                             f"eager run than the second does, or a peak passes "
+                             f"its reckoning: {over[:8]}")
     return out
 
 
@@ -4112,6 +4204,7 @@ def graph_gang_run(cfg, dev, graphed: bool) -> dict:
     from repro_torch.bridge import flatten
     from repro_torch.train import ensemble
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     params, tokens = ensemble.init_members(cfg, (0, 1), GANG_GRAPH_STEPS, GANG_BATCH,
                                            GANG_SEQ, dev)
@@ -4133,7 +4226,8 @@ def graph_gang_run(cfg, dev, graphed: bool) -> dict:
             "launches": launch_counts(path_kernels(cfg, backward=True)),
             "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
-            "step": gang, "call": gang.step if graphed else gang._eager_step}
+            "held_before_gb": held / 1e9, "step": gang,
+            "call": gang.step if graphed else gang._eager_step}
 
 
 def graph_train_path(dev, card) -> dict[str, dict]:
@@ -4149,10 +4243,12 @@ def graph_train_path(dev, card) -> dict[str, dict]:
     make_local_mesh()
     try:
         for arch, layers in GRAPH_TRAIN_CASES:
+            depth = layers or get(arch).n_layers
             out[arch] = graph_train_case(
                 f"{arch} train", lambda graphed: graph_train_run(arch, layers, dev, graphed),
-                card, arch=arch, layers=layers or get(arch).n_layers, batch=TRAIN_BATCH,
-                seq=TRAIN_SEQ, route="launch.train" if layers is None else "make_train_step")
+                card, arch=arch, layers=depth, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, route="launch.train" if layers is None else "make_train_step",
+                reckoned_gb=train_reckoning_gb(get(arch), depth)["total_gb"])
     finally:
         dist.destroy_process_group()
     cfg = get(GANG_ARCH)
@@ -4160,6 +4256,86 @@ def graph_train_path(dev, card) -> dict[str, dict]:
         f"{cfg.name} gang", lambda graphed: graph_gang_run(cfg, dev, graphed), card,
         arch=cfg.name, layers=cfg.n_layers, members=2, batch=GANG_BATCH, seq=GANG_SEQ,
         route="Gang")
+    return out
+
+
+#: the cell_options phase: CELL_ARCH at the reference's cell options
+#: (``launch.dryrun.cell_config``: bf16 parameters, loss_chunk 1024,
+#: vocab_pad 256, attn_q_chunk 1024, seq_shard) trained on TRAIN_BATCH x
+#: TRAIN_SEQ, graphed and eager in turns (graph_train_case)
+CELL_ARCH = "gemma3-1b"
+
+
+def cell_options_path(dev, card) -> dict:
+    """The cell_options phase: CELL_ARCH at the reference's cell options,
+    its memory reckoned first; its first step's loss and gradient norm
+    against the step of the config's own options (fp32 parameters, the CE
+    unchunked) from the same weights (those drawn in fp32, then rounded to
+    the cell's bf16) under the train gates (|Δloss| <=
+    TRAIN_LOSS_STD_TOL·std(logits), grad-norm relative error <=
+    TRAIN_GNORM_REL_TOL); then graph_train_case, which must come out
+    bit-equal, with step_launches a step and the peaks within the
+    reckoning."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import make_stream
+    from repro_torch.launch.dryrun import cell_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import global_norm, value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, own = cell_config(CELL_ARCH), get(CELL_ARCH)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    reckoning = train_reckoning_gb(cfg, cfg.n_layers)
+    emit("train_reckoning", arch=cfg.name, layers=cfg.n_layers, params=cfg.param_count(),
+         cell_options=True, param_dtype=cfg.param_dtype, loss_chunk=cfg.loss_chunk,
+         largest_leaf=largest_leaf(cfg), budget_gb=TRAIN_BUDGET_GB, **reckoning)
+
+    # -- the first step against the step at the config's own options ---------
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             make_stream(cfg, b, s, seed=0).batch_at(0).items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = tfm.init_params(own, gen)
+    with torch.no_grad():
+        first = {k: v[:1] for k, v in model_inputs(batch).items()}
+        logit_std = tfm.forward(own, params, first).float().std().item()
+    steps = {}
+    for name, c in (("fp32", own), ("cell", cfg)):
+        if name == "cell":
+            params = tree_map(lambda p: p.detach().to(torch.bfloat16), params)
+            want = [tuple(t.shape) for t in tree_leaves(tfm.init_abstract_params(cfg))]
+            if [tuple(t.shape) for t in tree_leaves(params)] != want:
+                raise AssertionError("the cell options change the parameters' shapes")
+        (loss, _), grads = value_and_grad(lambda p, bt, c=c: tfm.loss_fn(c, p, bt),
+                                          params, batch)
+        steps[name] = {"loss": loss.item(), "grad_norm": global_norm(grads).item(),
+                       "grad_dtype": str(tree_leaves(grads)[0].dtype)}
+        del grads
+        torch.cuda.empty_cache()
+    del params
+    agreement = {
+        "fp32": steps["fp32"], "cell": steps["cell"], "logit_std": logit_std,
+        "abs_loss_diff": abs(steps["cell"]["loss"] - steps["fp32"]["loss"]),
+        "bound_abs_loss_diff": TRAIN_LOSS_STD_TOL * logit_std,
+        "grad_norm_rel_err": abs(steps["cell"]["grad_norm"] / steps["fp32"]["grad_norm"] - 1),
+        "bound_grad_norm_rel_err": TRAIN_GNORM_REL_TOL}
+    emit("cell_options_vs_fp32", arch=cfg.name, batch=b, seq=s, nvidia_smi=card, **agreement)
+    if not (agreement["abs_loss_diff"] <= agreement["bound_abs_loss_diff"]
+            and agreement["grad_norm_rel_err"] <= TRAIN_GNORM_REL_TOL):
+        raise AssertionError(f"the cell options' first step disagrees with the fp32 "
+                             f"step's: {agreement}")
+
+    # -- graphed against eager in turns ----------------------------------------
+    out = graph_train_case(
+        f"{cfg.name} cell options",
+        lambda graphed: graph_train_run(CELL_ARCH, None, dev, graphed, cfg=cfg), card,
+        arch=cfg.name, layers=cfg.n_layers, batch=b, seq=s, route="make_train_step",
+        cell_options=True, param_dtype=cfg.param_dtype, loss_chunk=cfg.loss_chunk,
+        seq_shard=cfg.seq_shard, reckoned_gb=reckoning["total_gb"])
+    want = step_launches(cfg, out["steps"])
+    if not out["bit_equal"] or out["launches"] != want:
+        raise AssertionError(f"the cell options graphed: bit-equal {out['bit_equal']}, "
+                             f"launches {out['launches']}, want {want}")
     return out
 
 
@@ -4183,11 +4359,13 @@ def heard_collectives():
     return listen, seen
 
 
-def mesh_graph_run(cfg, mesh, dev, rows: int, seq: int, graphed: bool) -> dict:
+def mesh_graph_run(cfg, mesh, dev, rows: int, seq: int, graphed: bool,
+                   step_cfg=None) -> dict:
     """One run of ``cfg`` on ``mesh`` from seed 0 (launch.train's optimizer
     and schedule), MESH_GRAPH_STEPS steps on ``make_stream``'s batches of
     ``rows`` rows a data rank, through a ``GraphedTrainStep`` built as
-    ``launch.train`` builds it (its first host batch): replayed
+    ``launch.train`` builds it (its first host batch; the step's
+    ``TrainStepConfig`` ``step_cfg``, launch.train's by default): replayed
     (``graphed``), or its step run eagerly on the same buffers.  Returns
     each step's metrics, kernel launches and collectives (heard from the
     replays where graphed), its host seconds (ending at a read of its
@@ -4199,8 +4377,11 @@ def mesh_graph_run(cfg, mesh, dev, rows: int, seq: int, graphed: bool) -> dict:
     from repro_torch.distributed import context as mesh_ctx
     from repro_torch.distributed import sharding as shd
     from repro_torch.optim.adamw import AdamW, cosine_schedule
-    from repro_torch.train.step import GraphedTrainStep, init_train_state, make_train_step
+    from repro_torch.train.step import (
+        GraphedTrainStep, TrainStepConfig, init_train_state, make_train_step,
+    )
     on_card = dev.type == "cuda"
+    gc.collect()          # an earlier run's state held in a reference cycle
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4210,7 +4391,8 @@ def mesh_graph_run(cfg, mesh, dev, rows: int, seq: int, graphed: bool) -> dict:
     state = init_train_state(cfg, opt, gen, mesh)
     with mesh_ctx.set_mesh(mesh):
         stream = make_stream(cfg, mesh_ctx.dp_size(mesh) * rows, seq, seed=1)
-    step = GraphedTrainStep(make_train_step(cfg, opt), state, stream.batch_at(0))
+    step = GraphedTrainStep(make_train_step(cfg, opt, step_cfg or TrainStepConfig()),
+                            state, stream.batch_at(0))
 
     def call(batch):
         if graphed:
@@ -4253,10 +4435,11 @@ def mesh_profile(call, on_card: bool) -> dict | None:
     return {**summarize(prof, wall, 1), "nccl_device_ms": nccl_device_ms(prof)}
 
 
-def mesh_graph_case(cfg, mesh, dev, rows: int, seq: int) -> dict:
+def mesh_graph_case(cfg, mesh, dev, rows: int, seq: int, step_cfg=None) -> dict:
     """The mesh step of ``cfg`` graphed and eager on every rank of
     ``mesh``: ``mesh_graph_run`` eager, graphed, eager, each from the same
-    seed on the same batches (each run freed before the next), and after
+    seed on the same batches (each run freed before the next; the step's
+    ``TrainStepConfig`` ``step_cfg``), and after
     each MESH_GRAPH_TIMED more steps timed by CUDA events and one profiled
     (on a card).  Returns this rank's fields and ``failures``, what it
     fails on: a graphed step's loss or gradient norm off the first eager
@@ -4280,7 +4463,7 @@ def mesh_graph_case(cfg, mesh, dev, rows: int, seq: int) -> dict:
     def timed(run):
         return time_ms(run["call"], MESH_GRAPH_TIMED, warmup=0) if on_card else None
 
-    first = mesh_graph_run(cfg, mesh, dev, rows, seq, graphed=False)
+    first = mesh_graph_run(cfg, mesh, dev, rows, seq, graphed=False, step_cfg=step_cfg)
     want = {k: v.to("cpu", copy=True) for k, v in first["params"].items()}
     eager = {k: first[k] for k in ("metrics", "launches", "collectives", "seconds",
                                    "peak_allocated_gb", "peak_reserved_gb")}
@@ -4289,7 +4472,7 @@ def mesh_graph_case(cfg, mesh, dev, rows: int, seq: int) -> dict:
     free()
 
     try:
-        graphed = mesh_graph_run(cfg, mesh, dev, rows, seq, graphed=True)
+        graphed = mesh_graph_run(cfg, mesh, dev, rows, seq, graphed=True, step_cfg=step_cfg)
     except (torch.OutOfMemoryError, RuntimeError) as e:
         if not (isinstance(e, torch.OutOfMemoryError)
                 or str(e).startswith("another rank's capture")):
@@ -4337,7 +4520,7 @@ def mesh_graph_case(cfg, mesh, dev, rows: int, seq: int) -> dict:
     del graphed, step
     free()
 
-    second = mesh_graph_run(cfg, mesh, dev, rows, seq, graphed=False)
+    second = mesh_graph_run(cfg, mesh, dev, rows, seq, graphed=False, step_cfg=step_cfg)
     eager_gaps = metric_gaps(second["metrics"], eager["metrics"])
     eager_leaves = leaf_gaps(second["params"], want)
     eager_ms.append(timed(second))
@@ -4957,6 +5140,7 @@ def mesh_dp_path(dev, card, fwd_entry: dict, bwd_entry: dict
     mesh = make_local_mesh()        # the group: launch.train reuses it
     try:
         reset_launches()
+        held = torch.cuda.memory_allocated() / 1e9   # earlier phases' tensors
         torch.cuda.reset_peak_memory_stats()
         out, mstate = train.run(argv)
         launches = launch_counts(("flash_attention", "flash_attention_bwd"))
@@ -5021,13 +5205,18 @@ def mesh_dp_path(dev, card, fwd_entry: dict, bwd_entry: dict
                       and "nccl" in e.name.lower())
         step_s = float(np.median(times[TRAIN_WARMUP:]))
         tokens = b * s
+        # the step's own peak, over what earlier phases left allocated
+        reckoned = within_reckoning(peak - held,
+                                    train_reckoning_gb(cfg, cfg.n_layers)["total_gb"])
         emit("mesh_train", arch=cfg.name, batch=b, seq=s, data=mesh.size(0),
              step_seconds=times, step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
              mfu_6nt=6 * cfg.param_count() * tokens / (step_s * PEAK_BF16_FLOPS),
-             peak_mem_gb=peak, nccl_device_ms=nccl_ms, nvidia_smi=card,
+             peak_mem_gb=peak, held_before_gb=held, **reckoned, nccl_device_ms=nccl_ms,
+             nvidia_smi=card,
              turns_ms={k: [t * 1e3 for t in v] for k, v in turns.items()},
              turns_median_ms={k: float(np.median(v)) * 1e3 for k, v in turns.items()},
              **summarize(trace, wall, 1))
+        require_within_reckoning(f"{cfg.name} mesh_train", reckoned)
         del mstate, step
     finally:
         dist.destroy_process_group()
@@ -5414,20 +5603,35 @@ TP_MOMENT_REL_TOL = 0.25
 #: the section's global batch (data 1: every model rank takes all of it),
 #: its seed and AdamW's schedule (launch.train's)
 TP_BATCH, TP_SEQ, TP_SEED = 2, 2048, 0
-#: the phases: (name, arch, layers (None: full depth), sequence-parallel);
-#: mamba2-780m and olmoe-1b-7b cut in depth (the one-rank reference of
-#: olmoe's 4 layers holds 36 GB of fp32 state; 8 mamba2 layers keep the
-#: in_proj gathers through gloo, host memory, short)
+#: the phases: (name, arch, layers (None: full depth), sequence-parallel:
+#: True held against (a), or "cell": at the reference's cell options,
+#: ``launch.dryrun.cell_config``, bf16 parameters among them, held against
+#: one rank at the same options); mamba2-780m and olmoe-1b-7b cut in depth
+#: (the one-rank reference of olmoe's 4 layers holds 36 GB of fp32 state;
+#: 8 mamba2 layers keep the in_proj gathers through gloo, host memory,
+#: short), and gemma3-1b at the cell options (its first 8 layers, local and
+#: global ones: a full-depth step through gloo takes half a minute)
 TP_PHASES = (("a", "gemma3-1b", None, False),
              ("b", "mamba2-780m", 8, False),
              ("b", "olmoe-1b-7b", 4, False),
-             ("c", "gemma3-1b", None, True))
+             ("c", "gemma3-1b", None, True),
+             ("c", "gemma3-1b", 8, "cell"))
 
 
-def tp_config(arch: str, layers: int | None):
+def tp_config(arch: str, layers: int | None, cell: bool = False):
+    """``arch`` cut to ``layers`` (None: whole), at the reference's cell
+    options with ``cell``."""
     from repro_torch.configs import get
-    cfg = get(arch)
+    from repro_torch.launch.dryrun import cell_config
+    cfg = cell_config(arch) if cell else get(arch)
     return cfg if layers is None else cut_depth(cfg, layers)
+
+
+def tp_held(state: dict, cfg) -> dict:
+    """The weights the section holds against one rank's: the parameters,
+    or with bf16 ones AdamW's fp32 master (the parameters are its rounding,
+    a bf16 step of which is 5 learning rates at |w| 0.02)."""
+    return state["params"] if cfg.param_dtype == "float32" else state["opt"]["master"]
 
 
 def tp_local_config(cfg, model: int = 2, rank: int = 0):
@@ -5495,8 +5699,8 @@ def tp_rank_worker(rank: int, init_file: str, out_dir: str, device_type: str) ->
     the host; then for (a) and (b) rank 0 runs one rank's step without a
     mesh on the same state and batch, rank 1 sends it its shards and rank
     0 holds every leaf of both, and of their first moments, against its
-    slice; (c) each rank holds its shards against its own of (a).  Writes
-    the results."""
+    slice; (c) each rank holds its shards against its own of (a), and at
+    the cell options against one rank as (a) does.  Writes the results."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.bridge import flatten
@@ -5518,7 +5722,7 @@ def tp_rank_worker(rank: int, init_file: str, out_dir: str, device_type: str) ->
     try:
         mesh = init_device_mesh(device_type, (1, 2), mesh_dim_names=("data", "model"))
         for phase, arch, layers, seq in TP_PHASES:
-            cfg = tp_config(arch, layers)
+            cfg = tp_config(arch, layers, seq == "cell")
             opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))
             gen = torch.Generator(device=dev)
             gen.manual_seed(TP_SEED)
@@ -5535,7 +5739,7 @@ def tp_rank_worker(rank: int, init_file: str, out_dir: str, device_type: str) ->
             step_s = time.perf_counter() - t0
             launches = launch_counts(path_kernels(cfg, backward=True))
             peak = torch.cuda.max_memory_allocated() / 1e9
-            local, moments = shards(state["params"]), shards(state["opt"]["m"])
+            local, moments = shards(tp_held(state, cfg)), shards(state["opt"]["m"])
             split = sum(t.numel() < math.prod(leaf.shape) for (t, _), leaf in
                         zip(local.values(), flatten(state["params"]).values()))
             del state, step
@@ -5544,7 +5748,7 @@ def tp_rank_worker(rank: int, init_file: str, out_dir: str, device_type: str) ->
                    "metrics": metrics, "step_s": step_s, "launches": launches,
                    "peak_gb": peak, "split_leaves": split, "leaves": len(local),
                    "lr": metrics["lr"]}
-            if seq:
+            if seq is True:
                 out["vs_a"] = tp_leaf_agreement(
                     local, {k: v for k, (v, _) in kept[0].items()}, metrics["lr"], dev)
                 out["m_vs_a"] = tp_moment_agreement(
@@ -5580,7 +5784,7 @@ def tp_against_one_rank(rank, cfg, opt, local, moments, batch, dev) -> dict:
     gen.manual_seed(TP_SEED)
     state = init_train_state(cfg, opt, gen)
     state, metrics = make_train_step(cfg, opt)(state, batch)
-    want = {k: v.detach() for k, v in flatten(state["params"]).items()}
+    want = {k: v.detach() for k, v in flatten(tp_held(state, cfg)).items()}
     want_m = {k: v.detach() for k, v in flatten(state["opt"]["m"]).items()}
     del state
     torch.cuda.empty_cache()
@@ -5613,7 +5817,7 @@ def tp_against_one_rank(rank, cfg, opt, local, moments, batch, dev) -> dict:
 
 
 def tp_gmm_entries(cfg, gen, dev, card, launches: dict, model: int = 2,
-                   tokens: int = TP_BATCH * TP_SEQ) -> list[dict]:
+                   tokens: int = TP_BATCH * TP_SEQ, label: str = "") -> list[dict]:
     """The grouped GEMM's forward, dx and dw at one model rank's shape of
     olmoe-1b-7b (every expert's f / ``model`` hidden units; the T·K rows of
     ``tokens``, the section's batch by default, a real routing's group
@@ -5668,7 +5872,8 @@ def tp_gmm_entries(cfg, gen, dev, card, launches: dict, model: int = 2,
              library=no_lib or "torch._grouped_mm", errors=errs, nvidia_smi=card, **mix)
         entries.append({"name": name, "route": "cuda", "source": GMM_SOURCE,
                         "replaces": replaces,
-                        "path": f"{cfg.name} TP train, model {model} ({cfg.n_layers} layers)",
+                        "path": f"{cfg.name} {label}TP train, model {model} "
+                                f"({cfg.n_layers} layers)",
                         "launches": launches[name], **mix})
         del libs
     return entries
@@ -5690,8 +5895,8 @@ def tp_path(dev, card) -> list[dict]:
     out_dir = Path(__file__).resolve().parent / "build" / "tp_ranks"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    for _, arch, layers, _ in TP_PHASES:
-        cfg = tp_config(arch, layers)
+    for _, arch, layers, seq in TP_PHASES:
+        cfg = tp_config(arch, layers, seq == "cell")
         local = tp_local_config(cfg)
         emit("tp_shapes", arch=cfg.name, layers=cfg.n_layers, model=2,
              q_heads=local.n_heads, kv_heads=local.n_kv_heads, head_dim=cfg.head_dim,
@@ -5707,9 +5912,9 @@ def tp_path(dev, card) -> list[dict]:
     failures, launches = [], {}
     for i, (phase, arch, layers, seq) in enumerate(TP_PHASES):
         r0, r1 = ranks[0][i], ranks[1][i]
-        cfg = tp_config(arch, layers)
+        cfg = tp_config(arch, layers, seq == "cell")
         want_launches = step_launches(cfg)
-        ref = r0["one_rank"] if not seq else ranks[0][0]["one_rank"]
+        ref = r0["one_rank"] if seq is not True else ranks[0][0]["one_rank"]
         got = r0["metrics"]
         line = {"loss": got["loss"], "one_rank_loss": ref["loss"],
                 "loss_rel_err": abs(got["loss"] / ref["loss"] - 1),
@@ -5717,7 +5922,7 @@ def tp_path(dev, card) -> list[dict]:
                 "grad_norm_rel_err": abs(got["grad_norm"] / ref["grad_norm"] - 1),
                 "ranks_loss_equal": r0["metrics"]["loss"] == r1["metrics"]["loss"],
                 "launches": r0["launches"], "want_launches": want_launches}
-        if seq:
+        if seq is True:
             a = ranks[0][0]["metrics"]
             line.update(tp_loss=a["loss"], loss_rel_err_vs_tp=abs(got["loss"] / a["loss"] - 1),
                         grad_norm_rel_err_vs_tp=abs(got["grad_norm"] / a["grad_norm"] - 1))
@@ -5729,6 +5934,8 @@ def tp_path(dev, card) -> list[dict]:
             moms = {"rank0": r0["m_rank0"], "rank1": r0["m_rank1"]}
         worst = {r: max(v.values(), key=lambda x: x[0]) for r, v in leaves.items()}
         worst_m = max(((e, path) for v in moms.values() for path, e in v.items()))
+        reckoned = within_reckoning(max(r0["peak_gb"], r1["peak_gb"]),
+                                    train_reckoning_gb_tp(cfg))
         line.update(
             param_max_abs_diff_over_lr=max(w[0] for w in worst.values()),
             param_worst_share_off_by_half_lr=max(s for v in leaves.values()
@@ -5737,8 +5944,11 @@ def tp_path(dev, card) -> list[dict]:
             leaves=r0["leaves"], split_leaves=r0["split_leaves"])
         emit(f"tp_train_{phase}", arch=cfg.name, layers=cfg.n_layers, batch=TP_BATCH,
              seq=TP_SEQ, mesh={"data": 1, "model": 2}, backend="gloo",
-             sequence_parallel=seq, step_s=[r0["step_s"], r1["step_s"]],
+             sequence_parallel=bool(seq), cell_options=seq == "cell",
+             param_dtype=cfg.param_dtype, loss_chunk=cfg.loss_chunk,
+             step_s=[r0["step_s"], r1["step_s"]],
              peak_gb=[r0["peak_gb"], r1["peak_gb"]], lr=r0["lr"], nvidia_smi=card,
+             **reckoned,
              loss_rel_tol=TP_LOSS_REL_TOL, grad_norm_rel_tol=TP_GNORM_REL_TOL,
              param_lr_bound=TP_PARAM_LR_BOUND, param_share_tol=TP_PARAM_SHARE,
              m_rel_tol=TP_MOMENT_REL_TOL, **line)
@@ -5748,15 +5958,15 @@ def tp_path(dev, card) -> list[dict]:
               and line["param_max_abs_diff_over_lr"] <= TP_PARAM_LR_BOUND
               and line["param_worst_share_off_by_half_lr"] <= TP_PARAM_SHARE
               and line["m_max_rel_err"] <= TP_MOMENT_REL_TOL
-              and line["split_leaves"] > 0)
-        if seq:
+              and line["split_leaves"] > 0 and reckoned["within_reckoning"])
+        if seq is True:
             ok = ok and (line["loss_rel_err_vs_tp"] <= TP_LOSS_REL_TOL
                          and line["grad_norm_rel_err_vs_tp"] <= TP_GNORM_REL_TOL)
         else:
             ok = ok and line["replicated_leaves_equal"]
         if not ok:
             failures.append((phase, cfg.name, line))
-        launches[(phase, arch)] = r0["launches"]
+        launches[(phase, arch) if seq != "cell" else ("c cell", arch)] = r0["launches"]
     emit("tp_section", seconds_both_ranks=seconds, phases=len(TP_PHASES))
     if failures:
         raise AssertionError(f"tensor parallelism disagrees with one rank: {failures}")
@@ -5804,6 +6014,10 @@ def tp_path(dev, card) -> list[dict]:
 #: collectives move nothing)
 TP4_MODEL, TP4_BATCH, TP4_SEQ = 4, 4, 2048
 TP4_GMM_ARCH, TP4_FA_ARCH = "olmoe-1b-7b", "gemma-7b"
+#: the same at the train cell of scripts/tp_across_cards.py's cells phase:
+#: the reference's cell options (``launch.dryrun.cell_config``), its
+#: CELL_ROWS x SHAPES["train_4k"] tokens a data rank
+CELL_TP4_BATCH, CELL_TP4_SEQ = 8, 4096
 
 
 def tp4_fa_errors(cfg, gen, dev, b: int, s: int) -> dict:
@@ -5838,18 +6052,21 @@ def tp4_fa_errors(cfg, gen, dev, b: int, s: int) -> dict:
     return errs
 
 
-def tp4_rank_step(cfg, mesh, dev, batch: int = TP4_BATCH, seq: int = TP4_SEQ) -> dict:
+def tp4_rank_step(cfg, mesh, dev, batch: int = TP4_BATCH, seq: int = TP4_SEQ,
+                  step_cfg=None) -> dict:
     """One rank's train step as scripts/tp_across_cards.py takes it at
     (data 1, model 4), ``init_train_state`` on ``mesh`` then one step of
     ``make_train_step`` on a (batch, seq) batch, in this one process on a
     ``fake`` group's mesh, whose collectives move nothing: the values are
     not the 4-card run's, the work, the memory and the kernels a rank
     launches are.  Returns the init's peak and seconds, the step's peak
-    and seconds and its launches, counted from 0 (peaks None off a card)."""
+    and seconds and its launches, counted from 0, and what was allocated
+    before the init (earlier phases' tensors, which the peaks count too;
+    peaks None off a card)."""
     from repro_torch.data.pipeline import SyntheticStream
     from repro_torch.distributed import context as mesh_ctx
     from repro_torch.optim.adamw import AdamW, cosine_schedule
-    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
     on_card = dev.type == "cuda"
 
     def fresh():
@@ -5868,19 +6085,20 @@ def tp4_rank_step(cfg, mesh, dev, batch: int = TP4_BATCH, seq: int = TP4_SEQ) ->
     gen = torch.Generator(device=dev)
     gen.manual_seed(TP_SEED)
     t0 = fresh()
+    held = torch.cuda.memory_allocated() / 1e9 if on_card else None
     state = init_train_state(cfg, opt, gen, mesh)
     init_peak = peak_gb()
     init_s = time.perf_counter() - t0
     host = SyntheticStream(cfg, batch, seq, seed=TP_SEED).batch_at(0)
     data = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, opt, step_cfg or TrainStepConfig())
     reset_launches()
     t0 = fresh()
     with mesh_ctx.set_mesh(mesh):
         state, _ = step(state, data)
     step_peak = peak_gb()
     out = {"init_peak_gb": init_peak, "init_s": init_s, "step_peak_gb": step_peak,
-           "step_s": time.perf_counter() - t0,
+           "held_before_gb": held, "step_s": time.perf_counter() - t0,
            "launches": launch_counts(path_kernels(cfg, backward=True))}
     del state, data, step
     if on_card:
@@ -5888,76 +6106,90 @@ def tp4_rank_step(cfg, mesh, dev, batch: int = TP4_BATCH, seq: int = TP4_SEQ) ->
     return out
 
 
-def tp4_rank_steps(dev, card) -> dict[str, dict]:
+def tp4_rank_steps(dev, card, cell: bool = False) -> dict[str, dict]:
     """tp4_rank_step of TP4_FA_ARCH and TP4_GMM_ARCH at full width and
     depth, model rank 0 of a ``fake`` group of TP4_MODEL ranks on this
-    card; fails unless each step launched ``step_launches`` of its config
-    (4 cards launch the same on every rank).  Returns each arch's
-    launches."""
+    card (with ``cell``, at the train cell: the reference's cell options,
+    its MoE dispatch groups, CELL_TP4_BATCH x CELL_TP4_SEQ); fails unless
+    each step launched ``step_launches`` of its config (4 cards launch the
+    same on every rank) and its peak lies within its reckoning.  Returns
+    each arch's launches."""
     import torch.distributed as dist
     from repro_torch.configs import get
-    from repro_torch.launch.dryrun import fake_mesh
-    from repro_torch.train.step import train_memory_gb
+    from repro_torch.launch.dryrun import cell_config, fake_mesh
+    from repro_torch.train.step import TrainStepConfig, train_memory_gb
+    batch, seq = (CELL_TP4_BATCH, CELL_TP4_SEQ) if cell else (TP4_BATCH, TP4_SEQ)
     mesh = fake_mesh((1, TP4_MODEL), ("data", "model"), 0, device=dev.type)
     launches = {}
     try:
         for arch in (TP4_FA_ARCH, TP4_GMM_ARCH):
-            cfg = get(arch)
-            got = tp4_rank_step(cfg, mesh, dev)
+            cfg = cell_config(arch) if cell else get(arch)
+            # the reference's groups for the cell's tokens (launch.dryrun's)
+            step_cfg = TrainStepConfig(moe_groups=max(32, batch * seq // 2048) if cell else 1)
+            got = tp4_rank_step(cfg, mesh, dev, batch, seq, step_cfg)
             want = step_launches(cfg)
-            emit("tp4_rank_step", arch=arch, layers=cfg.n_layers, batch=TP4_BATCH,
-                 seq=TP4_SEQ, mesh={"data": 1, "model": TP4_MODEL}, backend="fake",
-                 reckoned_gb=train_memory_gb(cfg, 1, TP4_MODEL)["total_gb"],
+            # the step's own peak, over what earlier phases left allocated
+            reckoned = within_reckoning(got["step_peak_gb"] - got["held_before_gb"],
+                                        train_memory_gb(cfg, 1, TP4_MODEL, rows=batch,
+                                                        seq=seq)["total_gb"])
+            emit("tp4_cell_step" if cell else "tp4_rank_step", arch=arch,
+                 layers=cfg.n_layers, batch=batch, seq=seq,
+                 mesh={"data": 1, "model": TP4_MODEL}, backend="fake",
+                 param_dtype=cfg.param_dtype, loss_chunk=cfg.loss_chunk,
+                 seq_shard=cfg.seq_shard, moe_groups=step_cfg.moe_groups, **reckoned,
                  want_launches=want, nvidia_smi=card, **got)
             if got["launches"] != want:
                 raise AssertionError(f"{arch}'s model-{TP4_MODEL} rank launched "
                                      f"{got['launches']}, want {want}")
+            require_within_reckoning(f"{arch}'s model-{TP4_MODEL} rank", reckoned)
             launches[arch] = got["launches"]
     finally:
         dist.destroy_process_group()
     return launches
 
 
-def tp4_entries(dev, card, launches: dict[str, dict]) -> list[dict]:
-    """The kernels at one model-4 rank's shapes (TP4_*): flash attention's
-    forward and backward at gemma-7b's, the grouped GEMM's forward, dx and
-    dw at olmoe-1b-7b's, each held against its plain version and a train
-    step's calls timed together beside the library call and the bound;
-    ``launches`` are tp4_rank_steps' counts.  Returns their entries of the
-    kernels line."""
+def tp4_entries(dev, card, launches: dict[str, dict], cell: bool = False) -> list[dict]:
+    """The kernels at one model-4 rank's shapes (TP4_*; with ``cell`` the
+    train cell's, CELL_TP4_*): flash attention's forward and backward at
+    gemma-7b's, the grouped GEMM's forward, dx and dw at olmoe-1b-7b's,
+    each held against its plain version and a train step's calls timed
+    together beside the library call and the bound; ``launches`` are
+    tp4_rank_steps' counts.  Returns their entries of the kernels line."""
     from repro_torch.configs import get
+    batch, seq = (CELL_TP4_BATCH, CELL_TP4_SEQ) if cell else (TP4_BATCH, TP4_SEQ)
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     gemma, olmoe = get(TP4_FA_ARCH), get(TP4_GMM_ARCH)
     local = tp_local_config(gemma, TP4_MODEL)
-    errs = tp4_fa_errors(local, gen, dev, TP4_BATCH, TP4_SEQ)
-    fa_fwd = fa_prefill_mix(local, gen, dev, TP4_BATCH, TP4_SEQ)
-    fa_bwd = fa_train_mix(local, gen, dev, TP4_BATCH, TP4_SEQ)
+    errs = tp4_fa_errors(local, gen, dev, batch, seq)
+    fa_fwd = fa_prefill_mix(local, gen, dev, batch, seq)
+    fa_bwd = fa_train_mix(local, gen, dev, batch, seq)
     fa_launches = launches[TP4_FA_ARCH]
-    path = f"{gemma.name} TP train, model {TP4_MODEL} ({gemma.n_layers} layers)"
+    label = "cell " if cell else ""
+    path = f"{gemma.name} {label}TP train, model {TP4_MODEL} ({gemma.n_layers} layers)"
     entries = [
         {"name": "flash_attention", "path": path, "route": "cuda", "source": FA_SOURCE,
          "replaces": FA_REPLACES, "launches": fa_launches["flash_attention"], **fa_fwd},
         {"name": "flash_attention_bwd", "path": path, "route": "cuda", "source": FA_SOURCE,
          "replaces": FA_REPLACES, "launches": fa_launches["flash_attention_bwd"], **fa_bwd}]
-    emit("tp4_shapes", arch=gemma.name, model=TP4_MODEL, batch=TP4_BATCH, seq=TP4_SEQ,
-         q_heads=local.n_heads, kv_heads=local.n_kv_heads, head_dim=local.head_dim,
-         calls=len(attention_windows(local)), errors=errs,
+    emit("tp4_cell_shapes" if cell else "tp4_shapes", arch=gemma.name, model=TP4_MODEL,
+         batch=batch, seq=seq, q_heads=local.n_heads, kv_heads=local.n_kv_heads,
+         head_dim=local.head_dim, calls=len(attention_windows(local)), errors=errs,
          expert_hidden=tp_local_config(olmoe, TP4_MODEL).moe_d_ff, nvidia_smi=card)
     for entry in entries:
         emit("kernel_tp_entry", **entry, nvidia_smi=card)
     entries += tp_gmm_entries(olmoe, gen, dev, card, launches[TP4_GMM_ARCH], TP4_MODEL,
-                              TP4_BATCH * TP4_SEQ)
+                              batch * seq, label)
     torch.cuda.empty_cache()
     return entries
 
 
 def train_reckoning_gb_tp(cfg) -> float:
-    """GB a model rank's state and step need at model 2 (the port's
-    ``train_memory_gb`` with the model size), its activations at the
-    section's smaller batch counted as the reckoning's."""
+    """GB a model rank's state and step need at model 2 on the section's
+    TP_BATCH x TP_SEQ batch (the port's ``train_memory_gb`` with the model
+    size)."""
     from repro_torch.train.step import train_memory_gb
-    return train_memory_gb(cfg, 1, 2)["total_gb"]
+    return train_memory_gb(cfg, 1, 2, rows=TP_BATCH, seq=TP_SEQ)["total_gb"]
 
 
 # ---------------------------------------------------------------------------
@@ -6689,6 +6921,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     graph_train_path(dev, card)
     torch.cuda.empty_cache()
+    cell_options_path(dev, card)
+    torch.cuda.empty_cache()
     kernels += sweep_path(dev, card)
     torch.cuda.empty_cache()
     # the mesh section: launch.train's data-parallel step on a one-rank
@@ -6704,6 +6938,9 @@ def main() -> None:
     kernels += tp_path(dev, card)
     torch.cuda.empty_cache()
     kernels += tp4_entries(dev, card, tp4_rank_steps(dev, card))
+    torch.cuda.empty_cache()
+    # the same at the cells of scripts/tp_across_cards.py
+    kernels += tp4_entries(dev, card, tp4_rank_steps(dev, card, cell=True), cell=True)
     torch.cuda.empty_cache()
     # decode under a model axis, and the dry run against the card
     kernels += tp_decode_path(dev, card)

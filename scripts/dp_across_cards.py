@@ -49,7 +49,7 @@ then one captured CUDA graph a step (``GraphedTrainStep``):
    timing.  Then, on one state, a graphed step at each n_micro in turns
    (N_MICRO_TURNS pairs after two pairs of warm-up and capture, the order
    swapped every pair): step ms at each, each rank's peak over its steps
-   against ``train_memory_gb(cfg, ranks, n_micro=n)``, and a step's
+   against ``train_memory_gb(cfg, ranks, n_micro=n)`` at that batch, and a step's
    collectives (kind, count and bytes that leave the rank) heard from a
    replay.
 
@@ -187,7 +187,8 @@ def steps(cs, cfg, mesh, seq: int, emit) -> None:
         "graphed_peak_allocated_gb", "eager_peak_allocated_gb", "graph_pool_gb",
         "capture_s", "bit_equal", "graphed_does_not_fit", "failures")})
     emit("steps", arch=cfg.name, batch=STEP_ROWS * world, seq=seq,
-         reckoned_gb=train_memory_gb(cfg, world)["total_gb"], per_rank=ranks,
+         reckoned_gb=train_memory_gb(cfg, world, rows=STEP_ROWS, seq=seq)["total_gb"],
+         per_rank=ranks,
          **{k: v for k, v in out.items() if k != "failures"}, failures=out["failures"])
     if all_ranks(dev, bool(out["failures"])):
         raise SystemExit(f"rank {rank}: the graphed step disagrees with the eager step "
@@ -376,8 +377,8 @@ def n_micro(cs, cfg, mesh, cli: list[str], seq: int, emit) -> None:
          tokens_per_s={str(n): rows * seq / float(np.median(t)) for n, t in times.items()},
          peak_gb_per_rank=({str(n): [r[i] for r in per_rank] for i, n in enumerate(N_MICRO)}
                            if on_card else None),
-         reckoned_gb={str(n): train_memory_gb(cfg, world, n_micro=n)["total_gb"]
-                      for n in N_MICRO},
+         reckoned_gb={str(n): train_memory_gb(cfg, world, n_micro=n, rows=N_MICRO_ROWS,
+                                              seq=seq)["total_gb"] for n in N_MICRO},
          collectives_a_step=collectives)
     del state, step
     free(dev)

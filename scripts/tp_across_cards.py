@@ -3,6 +3,7 @@
 host, over NCCL.
 
     torchrun --nproc-per-node 4 scripts/tp_across_cards.py [--arch A ...]
+        [--phases agreement steps decode cells]
     torchrun --nproc-per-node 4 scripts/tp_across_cards.py --smoke --device cpu
 
 Run from the repository root, one process a card (``--device cpu``: one
@@ -81,6 +82,22 @@ group), each state freed before the next:
    ``torch._grouped_mm`` and the bound, eager and replayed
    (``decode_gmm``).  A rank whose capture fails makes every rank raise.
 
+4. ``cells`` (only when ``--phases`` names it; its architectures
+   CELL_ARCHS unless ``--arch`` says otherwise): the reference's cell
+   options (``launch.dryrun.cell_config``: bf16 parameters, ``loss_chunk``
+   1024, ``vocab_pad`` 256, ``attn_q_chunk`` 1024, ``seq_shard``) and its
+   MoE dispatch groups.  ``cell_agreement``: the agreement above on the
+   train cell's CELL_ROWS x 4096 batch at model N (AdamW's fp32 master held,
+   olmoe on the mesh step's expert choices where near-ties route a token
+   otherwise); ``cells``: the steps above on each mesh at CELL_ROWS x 4096
+   tokens a data rank, failing also where a rank's peak passes
+   ``train_memory_gb(cfg, data, model, rows, seq)`` or the sequence's
+   reduce-scatter and all-gather over ``model`` are missing from the
+   collectives (``cells_skipped`` past the budget); ``prefill_agreement``
+   and ``prefill``: the prefill cell (``prefill``); on the card
+   ``cell_kernel`` lines, each kernel at a model-N rank's shapes of the
+   cells (``cell_kernels``).
+
 Rank 0 prints one JSON line a phase, with the card's name and power limit
 (``--device cpu``: none; every time is then the host's).  The script exits
 non-zero if any phase failed.
@@ -88,6 +105,7 @@ non-zero if any phase failed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -122,18 +140,37 @@ LEAVES = {
 SMOKE_OVERRIDES = {"gemma-7b": {"n_heads": 4, "n_kv_heads": 4}}
 #: decode: chip_smoke's tp_decode sizes; a shorter cache at smoke size
 SMOKE_DECODE_LEN, PROFILE_TOKENS = 64, 4
+#: the phases ``--phases`` picks from, and the ones a run without it runs
+PHASES = ("agreement", "steps", "decode", "cells")
+DEFAULT_PHASES = ("agreement", "steps", "decode")
+#: the cells phase: the reference's cell options (``launch.dryrun.cell_config``:
+#: bf16 parameters, loss_chunk 1024, vocab_pad 256, attn_q_chunk 1024,
+#: seq_shard) on these architectures (the default ``--arch`` with it); the
+#: train cell at SHAPES["train_4k"]'s positions and CELL_ROWS rows a data
+#: rank (the reference's 16 halved: its 256 rows over 16 data ranks), the
+#: prefill cell at SHAPES["prefill_32k"]'s positions and PREFILL_ROWS rows
+#: a data rank (its 32 over 16), its agreement on PREFILL_ROWS x
+#: PREFILL_AGREEMENT_SEQ; at smoke size SMOKE_CELL_SEQ positions for all
+#: three, the CE chunked at SMOKE_LOSS_CHUNK
+CELL_ARCHS = ("olmoe-1b-7b", "gemma-7b", "deepseek-7b")
+CELL_ROWS, PREFILL_ROWS, PREFILL_AGREEMENT_SEQ = 8, 2, 4096
+SMOKE_CELL_SEQ, SMOKE_LOSS_CHUNK = 32, 16
+#: the full-depth prefill: calls timed by CUDA events after one warm-up
+PREFILL_TIMED = 2
 
 
-def step_meshes(cfg, world: int, budget_gb: float) -> list[tuple[int, int, float, bool]]:
+def step_meshes(cfg, world: int, budget_gb: float, rows: int = ROWS,
+                seq: int = SEQ) -> list[tuple[int, int, float, bool]]:
     """(data, model, reckoned GB a device, fits) for each (data, model)
-    mesh of ``world`` ranks with a model axis, model ``world`` first: fits
-    where ``train_memory_gb`` is within ``budget_gb``."""
+    mesh of ``world`` ranks with a model axis, model ``world`` first, at
+    ``rows`` x ``seq`` tokens a data rank: fits where ``train_memory_gb``
+    is within ``budget_gb``."""
     from repro_torch.train.step import train_memory_gb
     out = []
     for model in range(world, 1, -1):
         if world % model:
             continue
-        gb = train_memory_gb(cfg, world // model, model)["total_gb"]
+        gb = train_memory_gb(cfg, world // model, model, rows=rows, seq=seq)["total_gb"]
         out.append((world // model, model, gb, gb <= budget_gb))
     return out
 
@@ -141,6 +178,27 @@ def step_meshes(cfg, world: int, budget_gb: float) -> list[tuple[int, int, float
 def config(arch: str, smoke: bool):
     from repro_torch.configs import get, get_smoke
     return get_smoke(arch, **SMOKE_OVERRIDES.get(arch, {})) if smoke else get(arch)
+
+
+def cell_config(arch: str, smoke: bool):
+    """``arch`` at the reference's cell options, as the dry run reckons it
+    (``launch.dryrun.cell_config``; at smoke size the CE chunked at
+    SMOKE_LOSS_CHUNK)."""
+    from repro_torch.launch.dryrun import cell_config as cell
+    if smoke:
+        return cell(arch, True, SMOKE_LOSS_CHUNK, SMOKE_OVERRIDES.get(arch))
+    return cell(arch)
+
+
+def cell_step_config(data: int, rows: int, seq: int):
+    """The train cell's ``TrainStepConfig``: the reference's MoE dispatch
+    groups for the cell's global tokens (``launch.dryrun``'s, as its
+    ``lower_train_cell``)."""
+    from repro_torch.launch.dryrun import _moe_groups
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.step import TrainStepConfig
+    return TrainStepConfig(moe_groups=_moe_groups(ShapeConfig("cell", seq, data * rows,
+                                                              "train")))
 
 
 def _batch(cfg, rows, seq, seed, dev):
@@ -210,35 +268,74 @@ class Run:
 
 
 
-def agreement(run: Run, cfg) -> None:
+def routing_flips(got: list, want: list) -> int:
+    """(token, call) pairs whose set of chosen experts differs between two
+    runs' recorded choices (``chip_smoke.recorded_choices``)."""
+    return sum(int((g.sort(-1).values != w.to(g.device).sort(-1).values).any(-1).sum())
+               for g, w in zip(got, want))
+
+
+def agreement(run: Run, cfg, rows: int = ROWS, seq: int | None = None,
+              step_cfg=None, phase: str = "agreement") -> None:
     """Phase 1: a cut of depth at model N against one rank on the same state
-    and batch; every rank exits on a disagreement."""
+    and batch; every rank exits on a disagreement.  With bf16 parameters
+    the weights held are AdamW's fp32 master (the parameters are its
+    rounding to bf16, a step of which is 5 learning rates at |w| 0.02).
+    An MoE config's expert choices are recorded in the mesh step; where
+    near-ties route a token otherwise in the one-rank step (its choices
+    recorded too), the one-rank step is run again on the mesh step's
+    choices and the gates hold that (ROADMAP C7: chip_smoke holds
+    qwen2-moe on the replayed routing)."""
     from repro_torch.bridge import flatten
+    from repro_torch.models import moe as moe_mod
     from repro_torch.optim.adamw import AdamW, cosine_schedule
-    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
     cs = run.cs
+    seq = seq or run.seq
+    step_cfg = step_cfg or TrainStepConfig()
     layers = min(AGREEMENT_LAYERS, cfg.n_layers)
     cut = cs.cut_depth(cfg, layers)
     leaves = LEAVES.get(cfg.name.removesuffix("-smoke"), ("embed",))
+    held = "params" if cut.param_dtype == "float32" else "master"
+
+    def weights(state):
+        return flatten(state["params"] if held == "params" else state["opt"]["master"])
+
     mesh = run.mesh(run.world)
     opt = AdamW(schedule=cosine_schedule(3e-4, 20, 100))
     state = init_train_state(cut, opt, run.generator(0), mesh)
-    batch = _batch(cut, ROWS, run.seq, 0, run.dev)
-    state, m = make_train_step(cut, opt)(state, batch)
+    batch = _batch(cut, rows, seq, 0, run.dev)
+    with cs.recorded_choices(moe_mod) as mesh_choices:
+        state, m = make_train_step(cut, opt, step_cfg)(state, batch)
     got = {k: float(v) for k, v in m.items()}
-    params, moments = flatten(state["params"]), flatten(state["opt"]["m"])
+    params, moments = weights(state), flatten(state["opt"]["m"])
     whole = {k: params[k].full_tensor().cpu() for k in leaves}
     whole_m = {k: moments[k].full_tensor().cpu() for k in leaves}
-    split = sum(params[k].to_local().numel() < params[k].numel() for k in leaves)
-    del state, params, moments
+    stored = flatten(state["params"])
+    split = sum(stored[k].to_local().numel() < stored[k].numel() for k in leaves)
+    del state, params, moments, stored
     run.free()
     dist.barrier()
     agree = torch.zeros((), device=run.dev)
     if run.rank == 0:
-        ref = init_train_state(cut, opt, run.generator(0))
-        ref, rm = make_train_step(cut, opt)(ref, batch)
+        def one_rank(replay: bool):
+            ref = init_train_state(cut, opt, run.generator(0))
+            step = make_train_step(cut, opt, step_cfg)
+            if replay:
+                with cs.replayed_choices(moe_mod, mesh_choices):
+                    return (*step(ref, batch), [])
+            with cs.recorded_choices(moe_mod) as choices:
+                ref, rm = step(ref, batch)
+            return ref, rm, choices
+
+        ref, rm, choices = one_rank(replay=False)
+        flips = routing_flips(mesh_choices, choices)
+        if flips:
+            del ref
+            run.free()
+            ref, rm, _ = one_rank(replay=True)
         lr = float(rm["lr"])
-        want, want_m = flatten(ref["params"]), flatten(ref["opt"]["m"])
+        want, want_m = weights(ref), flatten(ref["opt"]["m"])
         diffs = {k: (whole[k].to(run.dev) - want[k]).abs().max().item() / lr for k in leaves}
         m_errs = {k: ((whole_m[k].to(run.dev) - want_m[k]).abs().max()
                       / want_m[k].abs().max()).item() for k in leaves}
@@ -249,8 +346,12 @@ def agreement(run: Run, cfg) -> None:
                     and max(diffs.values()) <= cs.TP_PARAM_LR_BOUND
                     and max(m_errs.values()) <= cs.TP_MOMENT_REL_TOL
                     and split > 0)
-        run.emit("agreement", arch=cut.name, layers=layers,
-                 mesh={"data": 1, "model": run.world}, batch=ROWS, seq=run.seq,
+        run.emit(phase, arch=cut.name, layers=layers,
+                 mesh={"data": 1, "model": run.world}, batch=rows, seq=seq,
+                 param_dtype=cut.param_dtype, loss_chunk=cut.loss_chunk,
+                 seq_shard=cut.seq_shard, moe_groups=step_cfg.moe_groups, held=held,
+                 routing_calls=len(mesh_choices), routing_flips=flips,
+                 replayed_routing=bool(flips),
                  loss=got["loss"], one_rank_loss=float(rm["loss"]),
                  grad_norm=got["grad_norm"], one_rank_grad_norm=float(rm["grad_norm"]),
                  lr=lr, split_leaves=split, leaf_max_abs_diff_over_lr=diffs,
@@ -260,13 +361,14 @@ def agreement(run: Run, cfg) -> None:
                  agrees=bool(agree), **line)
         del ref, want, want_m
         run.free()
-    del whole, whole_m
+    del whole, whole_m, mesh_choices
     dist.broadcast(agree, src=0)
     if not agree:
         dist.destroy_process_group()
         raise SystemExit(f"{cut.name} at model {run.world} disagrees with one rank "
-                         "(the agreement line above)")
-    graph_agreement(run, cut, mesh, leaves)
+                         f"(the {phase} line above)")
+    if phase == "agreement":
+        graph_agreement(run, cut, mesh, leaves)
 
 
 def graph_agreement(run: Run, cut, mesh, leaves: tuple[str, ...]) -> None:
@@ -328,53 +430,295 @@ def graph_agreement(run: Run, cut, mesh, leaves: tuple[str, ...]) -> None:
                          "disagrees with the eager one (the graph_agreement line above)")
 
 
-def steps(run: Run, cfg) -> None:
+def steps(run: Run, cfg, rows: int = ROWS, seq: int | None = None,
+          phase: str = "steps") -> None:
     """Phase 2: full depth on each mesh that fits, graphed and eager in
-    turns."""
+    turns, ``rows`` x ``seq`` tokens a data rank.  As the cells phase
+    (``phase`` "cells": the cell's MoE dispatch groups) it also fails
+    where a rank's peak passes the reckoning, or where the step's
+    collectives over ``model`` leave out the sequence's reduce-scatter or
+    all-gather that ``seq_shard`` sends through NCCL."""
+    from repro_torch.train.step import TrainStepConfig
     cs = run.cs
-    for data, model, reckoned, fits in step_meshes(cfg, run.world, cs.TRAIN_BUDGET_GB):
+    seq = seq or run.seq
+    cell = phase == "cells"
+    for data, model, reckoned, fits in step_meshes(cfg, run.world, cs.TRAIN_BUDGET_GB,
+                                                   rows, seq):
         where = {"data": data, "model": model}
         if not fits:
-            run.emit("steps_skipped", arch=cfg.name, layers=cfg.n_layers, mesh=where,
-                     reckoned_gb=reckoned, budget_gb=cs.TRAIN_BUDGET_GB,
+            run.emit(f"{phase}_skipped", arch=cfg.name, layers=cfg.n_layers, mesh=where,
+                     batch=data * rows, seq=seq, reckoned_gb=reckoned,
+                     budget_gb=cs.TRAIN_BUDGET_GB,
                      reason=f"train_memory_gb reckons {reckoned:.1f} GB a device, over "
                             f"the {cs.TRAIN_BUDGET_GB} GB budget")
             continue
-        out = cs.mesh_graph_case(cfg, run.mesh(model), run.dev, ROWS, run.seq)
+        step_cfg = cell_step_config(data, rows, seq) if cell else TrainStepConfig()
+        out = cs.mesh_graph_case(cfg, run.mesh(model), run.dev, rows, seq, step_cfg)
         peaks = {k: run.peaks(out[f"{k}_peak_allocated_gb"] or 0.0)
                  for k in ("graphed", "eager")}
-        tokens = data * ROWS * run.seq
+        tokens = data * rows * seq
         flops = 6 * cs.active_params(cfg) * tokens
         have = (torch.cuda.get_device_properties(run.dev).total_memory / 1e9
                 if run.on_card else None)
         launches = out["launches_a_step"]
         want_launches = cs.step_launches(cfg) if run.on_card else launches
+        sequence = {kind for kind in ("reduce-scatter model", "all-gather model")
+                    if kind in out["collectives_a_step"]}
+        over = [p for p in peaks["graphed"] + peaks["eager"] if p > reckoned] \
+            if run.on_card else []
         failures = out["failures"] + [
             what for what, bad in (
                 ("a loss not finite", not all(map(math.isfinite, out["losses"]))),
                 (f"launches {launches}, want {want_launches}", launches != want_launches),
                 ("a rank's peak over its card",
-                 run.on_card and max(peaks["graphed"] + peaks["eager"]) > have)) if bad]
+                 run.on_card and max(peaks["graphed"] + peaks["eager"]) > have),
+                (f"a rank's peak over the reckoning {reckoned:.2f} GB: {over}",
+                 cell and bool(over)),
+                (f"the sequence's collectives over model {sorted(sequence)}, want a "
+                 "reduce-scatter and an all-gather",
+                 cell and cfg.seq_shard and len(sequence) < 2)) if bad]
         ok = not run.any_rank(bool(failures))
         # the graphed step's ms, or the eager one's where the capture did
         # not fit the card
         step_ms = (out.get("graphed_step_ms") or min(out["eager_step_ms"])
                    if run.on_card else None)
-        run.emit("steps", arch=cfg.name, layers=cfg.n_layers, mesh=where,
-                 batch=data * ROWS, seq=run.seq, loss=out["losses"][-1],
+        profile = out.get("graphed_profile") or {}
+        run.emit(phase, arch=cfg.name, layers=cfg.n_layers, mesh=where,
+                 batch=data * rows, seq=seq, param_dtype=cfg.param_dtype,
+                 loss_chunk=cfg.loss_chunk, seq_shard=cfg.seq_shard,
+                 moe_groups=step_cfg.moe_groups, loss=out["losses"][-1],
                  model_flops_6nt=flops,
                  active_params=cs.active_params(cfg),
                  mfu_6nt=(flops / (step_ms / 1e3 * run.world * cs.PEAK_BF16_FLOPS)
                           if run.on_card else None),
+                 graph_launches_a_step=profile.get("graph_launches"),
                  graphed_peak_gb_per_rank=peaks["graphed"],
                  eager_peak_gb_per_rank=peaks["eager"], card_gb=have, reckoned_gb=reckoned,
                  want_launches=want_launches, ok=ok,
                  **{k: v for k, v in out.items() if k != "failures"}, failures=failures)
         if not ok:
-            run.failed.append(f"steps {cfg.name} {where}")
+            run.failed.append(f"{phase} {cfg.name} {where}")
         del out
         run.free()
         dist.barrier()
+
+
+def prefill_params(run: Run, cfg, mesh):
+    """``cfg``'s parameters drawn from seed 5, each leaf whole then this
+    rank's slice by the sharding rules kept (a copy), the rest freed."""
+    from repro_torch.bridge import flatten
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    specs = flatten(shd.params_shardings(tfm.init_abstract_params(cfg), mesh))
+    return tfm.init_params(cfg, run.generator(5), lambda path, leaf: leaf[
+        shd.local_slices(specs[path], leaf.shape, mesh)].clone())
+
+
+def prefill_call(cfg, mesh, params, batch, moe_groups: int):
+    """The reference's prefill cell on this rank (its ``lower_prefill_cell``):
+    ``forward`` with the remat off and the sequence over ``model``, the
+    logits left vocab-sharded; no gradient."""
+    from repro_torch.distributed import context as mesh_ctx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tfm
+    infer = dataclasses.replace(cfg, remat="none")
+    spec = shd.Spec((("pod", "data"), "model", None))
+
+    def call():
+        with mesh_ctx.set_mesh(mesh), torch.no_grad():
+            return tfm.forward(infer, params, batch, moe_groups, spec, gather=False)
+    return call
+
+
+def gathered_logits(run: Run, cfg, local: torch.Tensor) -> torch.Tensor:
+    """The whole (B, S, vocab_size) logits from each rank's vocab-sharded
+    columns (the last rank's cut short by the padding: padded to a block
+    before the all-gather)."""
+    cols = cfg.padded_vocab // run.world
+    block = torch.zeros((*local.shape[:-1], cols), dtype=local.dtype, device=local.device)
+    block[..., :local.shape[-1]] = local
+    blocks = [torch.empty_like(block) for _ in range(run.world)]
+    dist.all_gather(blocks, block)
+    return torch.cat(blocks, dim=-1)[..., :cfg.vocab_size]
+
+
+def prefill(run: Run, cfg) -> None:
+    """The prefill cell at (data 1, model N): AGREEMENT_LAYERS layers on
+    PREFILL_ROWS x PREFILL_AGREEMENT_SEQ tokens, the logits gathered,
+    against one rank's forward of the same tokens on the whole parameters
+    under chip_smoke's prefill gates for a dense config
+    (``chip_smoke.consistency_or_own_rounding``: §2's bounds, scaled to the
+    cut's depth as chip_smoke scales its cuts'; or, where only the max
+    bound fails, the mesh's logits no farther from the same weights'
+    logits at fp32 compute than DENSE_FP32_REF times one rank's); an MoE
+    config on the mesh's expert choices where near-ties route a token
+    otherwise, as in the agreement phase; then full depth on
+    PREFILL_ROWS x 32,768 positions: ms by CUDA events, tokens/s, a call
+    profiled on every rank (rank 0's busy, idle, NCCL ms printed), each
+    rank's peak; ``prefill_does_not_fit`` where the card runs out."""
+    import gc
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch.dryrun import _moe_groups
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import SHAPES, ShapeConfig
+    cs = run.cs
+    mesh = run.mesh(run.world)
+    seq = SMOKE_CELL_SEQ if run.smoke else PREFILL_AGREEMENT_SEQ
+    full_seq = SMOKE_CELL_SEQ if run.smoke else SHAPES["prefill_32k"].seq_len
+
+    def batch(c, s):
+        host = SyntheticStream(c, PREFILL_ROWS, s, seed=3).batch_at(0)
+        return {k: torch.from_numpy(v).to(run.dev) for k, v in host.items()
+                if k != "labels"}
+
+    def groups(s):
+        return _moe_groups(ShapeConfig("prefill", s, PREFILL_ROWS, "prefill"))
+
+    layers = min(AGREEMENT_LAYERS, cfg.n_layers)
+    cut = cs.cut_depth(cfg, layers)
+    inputs = batch(cut, seq)
+    with cs.recorded_choices(moe_mod) as mesh_choices:
+        local = prefill_call(cut, mesh, prefill_params(run, cut, mesh), inputs,
+                             groups(seq))()
+    got = gathered_logits(run, cut, local)
+    del local
+    agree = torch.zeros((), device=run.dev)
+    if run.rank == 0:
+        whole = tfm.init_params(cut, run.generator(5))
+        infer = dataclasses.replace(cut, remat="none")
+
+        def one_rank(c, replay):
+            with torch.no_grad(), (cs.replayed_choices(moe_mod, mesh_choices) if replay
+                                   else cs.recorded_choices(moe_mod)) as choices:
+                return tfm.forward(c, whole, inputs, groups(seq)).flatten(0, 1).float(), choices
+
+        want, choices = one_rank(infer, False)
+        # near-ties may route a token otherwise than the mesh did (C7): then
+        # the one-rank forward takes the mesh's expert choices
+        flips = routing_flips(mesh_choices, choices)
+        if flips:
+            del want
+            want, _ = one_rank(infer, True)
+        # the same weights at fp32 compute (the kernels take bf16: their plain
+        # versions), on the mesh's expert choices
+        with cs.plain_kernels(), cs.plain_grouped_matmul():
+            ref, _ = one_rank(dataclasses.replace(infer, compute_dtype="float32"),
+                              bool(mesh_choices))
+        del whole
+        # chip_smoke's prefill gates for a dense config (its own rounding
+        # where only the max bound fails) at a cut of depth: the bounds
+        # scaled by sqrt(layers / 26), as chip_smoke scales its cuts' (bf16
+        # rounding adds up as a random walk)
+        check = cs.consistency_or_own_rounding(
+            want, got.flatten(0, 1).float(), ref, layers,
+            depth_scale=math.sqrt(layers / cs.CONSISTENCY_LAYERS))
+        agree.fill_(check["within_bounds"])
+        run.emit("prefill_agreement", arch=cut.name, layers=layers,
+                 mesh={"data": 1, "model": run.world}, batch=PREFILL_ROWS, seq=seq,
+                 moe_groups=groups(seq), routing_calls=len(mesh_choices),
+                 routing_flips=flips, replayed_routing=bool(flips),
+                 agrees=bool(agree), **check)
+        del want, ref
+    del got, inputs, mesh_choices
+    run.free()
+    dist.broadcast(agree, src=0)
+    if not agree:
+        dist.destroy_process_group()
+        raise SystemExit(f"{cut.name}'s prefill at model {run.world} disagrees with one "
+                         "rank (the prefill_agreement line above)")
+
+    params = prefill_params(run, cfg, mesh)
+    inputs = batch(cfg, full_seq)
+    call = prefill_call(cfg, mesh, params, inputs, groups(full_seq))
+    tokens = PREFILL_ROWS * full_seq
+    if run.on_card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        shape = tuple(call().shape)
+        ms = cs.time_ms(call, PREFILL_TIMED, warmup=0) if run.on_card else None
+        profile = cs.mesh_profile(call, run.on_card)   # every rank: its collectives
+        reason = None
+    except torch.OutOfMemoryError as e:
+        shape, ms, profile, reason = None, None, None, str(e)
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if run.on_card else None
+    failed = run.any_rank(reason is not None)
+    peaks = run.peaks(peak or 0.0)
+    if failed:
+        run.emit("prefill_does_not_fit", arch=cfg.name, layers=cfg.n_layers,
+                 mesh={"data": 1, "model": run.world}, batch=PREFILL_ROWS, seq=full_seq,
+                 reason=reason, peak_gb_per_rank=peaks)
+    else:
+        run.emit("prefill", arch=cfg.name, layers=cfg.n_layers,
+                 mesh={"data": 1, "model": run.world}, batch=PREFILL_ROWS, seq=full_seq,
+                 param_dtype=cfg.param_dtype, seq_shard=cfg.seq_shard,
+                 moe_groups=groups(full_seq), local_logits_shape=shape, wall_ms=ms,
+                 tokens_per_s=tokens / ms * 1e3 if ms else None,
+                 model_flops_2nt=2 * cs.active_params(cfg) * tokens, profile=profile,
+                 peak_gb_per_rank=peaks)
+    del params, inputs, call
+    run.free()
+    dist.barrier()
+
+
+def cell_kernels(run: Run, cfg, launches: dict[str, int]) -> None:
+    """On rank 0, the kernels at a model-N rank's shapes of the cells: flash
+    attention forward and backward on CELL_ROWS x 4096 and the forward on
+    PREFILL_ROWS x 32,768 (its plain version not timed there: its dense
+    (S, S) scores do not fit a card), the grouped GEMM's forward, dx and
+    dw on the train cell's T·K rows; each call timed by CUDA events beside
+    its plain version, the library call and the bound (``kernels/costs.py``),
+    with ``launches``, a train step's from the replays."""
+    from repro_torch.models.config import SHAPES
+    cs = run.cs
+    if run.rank == 0:
+        gen = run.generator(17)
+        local = cs.tp_local_config(cfg, run.world)
+        seq = SHAPES["train_4k"].seq_len
+        if cfg.n_heads:
+            for name, mix in (("flash_attention", cs.fa_prefill_mix),
+                              ("flash_attention_bwd", cs.fa_train_mix)):
+                run.emit("cell_kernel", kernel=name, arch=cfg.name, model=run.world,
+                         shape=[CELL_ROWS, seq, local.n_heads, local.n_kv_heads,
+                                local.head_dim], calls=len(cs.attention_windows(local)),
+                         launches=launches.get(name), nvidia_smi=run.card,
+                         **mix(local, gen, run.dev, CELL_ROWS, seq))
+                run.free()
+            long = SHAPES["prefill_32k"].seq_len
+            run.emit("cell_kernel", kernel="flash_attention", arch=cfg.name,
+                     model=run.world, cell="prefill",
+                     shape=[PREFILL_ROWS, long, local.n_heads, local.n_kv_heads,
+                            local.head_dim], calls=len(cs.attention_windows(local)),
+                     launches=cfg.n_layers, nvidia_smi=run.card,
+                     **cs.fa_prefill_mix(local, gen, run.dev, PREFILL_ROWS, long,
+                                         plain=False))
+            run.free()
+        if cfg.n_experts:
+            for entry in cs.tp_gmm_entries(cfg, gen, run.dev, run.card, launches,
+                                           run.world, CELL_ROWS * seq):
+                run.emit("cell_kernel", kernel=entry.pop("name"), arch=cfg.name,
+                         model=run.world, nvidia_smi=run.card, **entry)
+            run.free()
+    dist.barrier()
+
+
+def cells(run: Run, arch: str) -> None:
+    """The cells phase for ``arch`` at the reference's cell options: the
+    agreement at AGREEMENT_LAYERS layers on the train cell's batch, the
+    train cell graphed and eager on each mesh that fits (``steps`` as
+    "cells"), the prefill cell, and on the card the kernels at the cells'
+    shapes."""
+    from repro_torch.models.config import SHAPES
+    cfg = cell_config(arch, run.smoke)
+    seq = SMOKE_CELL_SEQ if run.smoke else SHAPES["train_4k"].seq_len
+    agreement(run, cfg, CELL_ROWS, seq, cell_step_config(1, CELL_ROWS, seq),
+              phase="cell_agreement")
+    steps(run, cfg, CELL_ROWS, seq, phase="cells")
+    prefill(run, cfg)
+    if run.on_card:
+        # the steps phase failed unless a step launched these
+        cell_kernels(run, cfg, run.cs.step_launches(cfg))
 
 
 def depth_scale(run: Run, cfg) -> float | None:
@@ -451,17 +795,24 @@ def decode(run: Run, cfg) -> None:
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", nargs="+", default=list(ARCHS))
+    ap.add_argument("--arch", nargs="+", default=None,
+                    help=f"default {' '.join(ARCHS)}; with the cells phase "
+                         f"{' '.join(CELL_ARCHS)}")
+    ap.add_argument("--phases", nargs="+", choices=PHASES, default=list(DEFAULT_PHASES),
+                    help="the phases to run, in their order")
     ap.add_argument("--smoke", action="store_true",
                     help="the smoke configs at a (4, 32) batch a data rank")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     run = Run(args)
-    for arch in args.arch:
+    archs = args.arch or list(CELL_ARCHS if "cells" in args.phases else ARCHS)
+    for arch in archs:
         cfg = config(arch, args.smoke)
-        agreement(run, cfg)
-        steps(run, cfg)
-        decode(run, cfg)
+        for phase in (p for p in PHASES if p in args.phases):
+            if phase == "cells":
+                cells(run, arch)
+            else:
+                {"agreement": agreement, "steps": steps, "decode": decode}[phase](run, cfg)
     dist.destroy_process_group()
     if run.failed:
         raise SystemExit(f"tp_across_cards: failed: {run.failed}")

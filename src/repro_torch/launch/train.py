@@ -125,7 +125,7 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict]:
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
-        _refuse_unless_fits(cfg, dev, local_world(), args.n_micro)
+        _refuse_unless_fits(cfg, dev, local_world(), args.n_micro, args.batch, args.seq)
     started = not dist.is_initialized()
     mesh = make_local_mesh(device=dev)
     try:
@@ -135,52 +135,70 @@ def run(argv: list[str] | None = None) -> tuple[dict, dict]:
             dist.destroy_process_group()
 
 
-def _refuse_unless_fits(cfg, dev: torch.device, data: int, n_micro: int = 1) -> None:
+def _rows(batch: int, data: int) -> int:
+    """Rows a data rank takes of a global batch of ``batch`` rows (at
+    least one)."""
+    return max(1, batch // data)
+
+
+def _refuse_unless_fits(cfg, dev: torch.device, data: int, n_micro: int = 1,
+                        batch: int = 8, seq: int = 128) -> None:
     """Exits, naming the memory, if training ``cfg`` over ``data`` ranks
-    (``n_micro`` microbatches a step) does not fit one card; before
-    anything is allocated."""
-    need = train_memory_gb(cfg, data, n_micro=n_micro)
+    (``n_micro`` microbatches a step, a global batch of ``batch`` x
+    ``seq``) does not fit one card; before anything is allocated."""
+    def need_at(d):
+        return train_memory_gb(cfg, d, 1, n_micro, rows=_rows(batch, d), seq=seq)
+
+    need = need_at(data)
     have = torch.cuda.get_device_properties(dev).total_memory / 1e9
     if need["total_gb"] <= have:
         return
-    fits = next((n for n in DATA_SIZES if n > data
-                 and train_memory_gb(cfg, n, n_micro=n_micro)["total_gb"] <= have), None)
+    fits = next((n for n in DATA_SIZES if n > data and need_at(n)["total_gb"] <= have),
+                None)
     if fits:
         remedy = (f"it fits at a data size of {fits} (torchrun --nproc-per-node "
                   f"{fits}, one card a rank)")
-        cards, tp = _tensor_parallel_fit(cfg, have, n_micro)
+        cards, tp = _tensor_parallel_fit(cfg, have, n_micro, batch, seq)
         if cards and cards < fits:
             remedy += f"; {tp}"
     else:
-        remedy = (f"no data size fits (the replicated fp32 parameters and "
-                  f"gradients alone are {need['replicated_gb']:.1f} GB); "
-                  f"{_tensor_parallel_fit(cfg, have, n_micro)[1]}; {PART_3}")
+        remedy = (f"no data size fits (the replicated {cfg.param_dtype} parameters "
+                  f"and gradients alone are {need['replicated_gb']:.1f} GB); "
+                  f"{_tensor_parallel_fit(cfg, have, n_micro, batch, seq)[1]}; {PART_3}")
     accumulator = (f", {need['accumulator_gb']:.1f} GB of the microbatches' "
                    f"gradient sum" if n_micro > 1 else "")
     raise SystemExit(
         f"{cfg.name}: training needs ~{need['total_gb']:.1f} GB a device at a "
-        f"data size of {data} ({need['state_gb']:.1f} GB of fp32 state for "
-        f"{cfg.param_count():,} parameters, {need['update_gb']:.1f} GB of "
-        f"optimizer temporaries, {need['activation_gb']:.1f} GB of "
-        f"activations{accumulator}); the card has {have:.1f} GB; {remedy}")
+        f"data size of {data} ({need['state_gb']:.1f} GB of state for "
+        f"{cfg.param_count():,} {cfg.param_dtype} parameters, their gradients and "
+        f"AdamW's fp32 master and moments, {need['update_gb']:.1f} GB of "
+        f"optimizer temporaries or {need['activation_gb']:.1f} GB of activations "
+        f"for {_rows(batch, data)} x {seq} tokens, whichever is larger, "
+        f"{need['workspace_gb']:.1f} GB of workspace{accumulator}); the card has "
+        f"{have:.1f} GB; {remedy}")
 
 
-def _tensor_parallel_fit(cfg, have: float, n_micro: int = 1) -> tuple[int, str]:
+def _tensor_parallel_fit(cfg, have: float, n_micro: int = 1, batch: int = 8,
+                         seq: int = 128) -> tuple[int, str]:
     """(cards, text): the fewest cards whose (data, model) mesh fits ``cfg``
-    (the smallest model axis first) and, on TP_SCRIPT_CARDS cards, the
-    script that trains it there at (data 1, model TP_SCRIPT_CARDS), or (0,
-    that none of MODEL_SIZES does)."""
+    (the smallest model axis first) for a global batch of ``batch`` x
+    ``seq`` and, on TP_SCRIPT_CARDS cards, the script that trains it there
+    at (data 1, model TP_SCRIPT_CARDS), or (0, that none of MODEL_SIZES
+    does)."""
+    def gb_at(d, m):
+        return train_memory_gb(cfg, d, m, n_micro, rows=_rows(batch, d),
+                               seq=seq)["total_gb"]
+
     meshes = sorted(((d * m, m, d) for m in MODEL_SIZES for d in DATA_SIZES
-                     if train_memory_gb(cfg, d, m, n_micro)["total_gb"] <= have))
+                     if gb_at(d, m) <= have))
     if not meshes:
         return 0, f"no (data, model) mesh up to model {MODEL_SIZES[-1]} fits"
     cards, m, d = meshes[0]
-    gb = train_memory_gb(cfg, d, m, n_micro)["total_gb"]
     text = (f"tensor parallelism fits it on {cards} cards at (data {d}, model "
-            f"{m}), ~{gb:.1f} GB a device")
+            f"{m}), ~{gb_at(d, m):.1f} GB a device")
     if cards == TP_SCRIPT_CARDS:
         # the script's first mesh, the least memory of its cards (its steps
-        # take one microbatch)
+        # take one microbatch of its own batch, ROWS x SEQ a data rank)
         gb = train_memory_gb(cfg, 1, cards)["total_gb"]
         text += (f"; scripts/tp_across_cards.py trains it on {cards} cards at (data 1, "
                  f"model {cards}), ~{gb:.1f} GB a device: torchrun --nproc-per-node "

@@ -52,7 +52,10 @@ are the reference's: the mean loss, the last microbatch's aux.  With one
 data rank, or n = 1, nothing moves.
 
 :func:`train_memory_gb` reckons what a train state and one step need on
-each device of a (data, model) mesh.
+each device of a (data, model) mesh: the parameters and their gradients
+by ``param_dtype``, AdamW's state, its update's temporaries, and the
+activations from the step's tokens, the layers, the vocabulary,
+``loss_chunk`` and ``seq_shard``.
 """
 from __future__ import annotations
 
@@ -67,6 +70,7 @@ from repro_torch.capture import CapturedStep
 from repro_torch.distributed import context as mesh_ctx
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import as_dtype
 from repro_torch.models.transformer import (
     HYBRID_KINDS, init_abstract_params, init_params, loss_fn,
 )
@@ -340,21 +344,32 @@ def abstract_train_state(cfg: ArchConfig, opt: AdamW) -> dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device="meta")}
 
 
-#: bytes a parameter holds on every device: fp32 parameters and gradients
-REPLICATED_BYTES = 8
 #: bytes a parameter holds in AdamW's state (fp32 master, m and v),
-#: sharded over the data ranks by ZeRO-1
+#: sharded over the data ranks by ZeRO-1.  The parameter and its gradient
+#: are in ``param_dtype`` on every device (:func:`replicated_bytes`):
+#: AdamW keeps its own fp32 master, so bf16 parameters hold 4 bytes, fp32 8
 SHARDED_BYTES = 12
-#: fp32 temporaries of one leaf that AdamW's update makes, one leaf at a
-#: time: counted against the largest leaf
-UPDATE_TEMPORARIES = 5
-#: a step's activations with full remat: one layer's recompute at a time,
-#: the residual stream at every layer, the logits with their gradient (an
-#: upper bound at any ``n_micro``: a microbatch's are fewer)
-ACTIVATION_GB = 8.0
+#: fp32 temporaries of one leaf that AdamW's update holds at once, one leaf
+#: at a time (the clipped gradient, m̂, v̂, the step and the expressions
+#: between them): counted against the largest leaf's shard
+UPDATE_TEMPORARIES = 7
+#: fp32-sized copies of one CE chunk's logits alive at once in the
+#: backward: the product in the compute dtype and its fp32 cast, the
+#: softmax's exponentials, the gradient and its cast back; and of a
+#: vocab-parallel head's block (its max taken without a gradient, its
+#: exponentials summed over ``model``)
+LOGIT_COPIES = {"whole": 5, "d": 5, "vocab": 2}
+#: what a card holds beyond the step's tensors: the CUDA libraries'
+#: workspaces, the batch and the caching allocator's rounding (the card's
+#: peaks read 0.1-2.3 GB over the dry run's count of the same step's
+#: tensors: ``launch.dryrun``'s counter on meta tensors)
+WORKSPACE_GB = 3.0
 #: bytes a parameter holds in ``accumulate_grads``' fp32 sum of the
 #: microbatches' gradients, beside each microbatch's (``n_micro`` > 1)
 ACCUMULATOR_BYTES = 4
+#: the step's tokens on a data rank that :func:`train_memory_gb` reckons
+#: by default: the 4 x 2048 batch every one-card train path runs
+ROWS, SEQ = 4, 2048
 
 
 def largest_leaf(cfg: ArchConfig) -> int:
@@ -388,20 +403,84 @@ def params_per_device(cfg: ArchConfig, model: int = 1) -> float:
                      for leaf, spec in zip(tree_leaves(params), shd.spec_leaves(specs))))
 
 
+def replicated_bytes(cfg: ArchConfig) -> int:
+    """Bytes a parameter and its gradient hold on every device that holds
+    it: two of ``param_dtype``'s (fp32: 8; bf16: 4)."""
+    return 2 * as_dtype(cfg.param_dtype).itemsize
+
+
+def layer_width(cfg: ArchConfig, model: int = 1) -> float:
+    """Elements a token holds in one layer's recompute and backward on a
+    ``model`` rank, the widest of the config's layer kinds: its input
+    (d_model), the attention's queries, keys, values and output (this
+    rank's heads), the MLP's gate, up and their product (this rank's
+    hidden units), an MoE layer's K copies of the token and of its
+    expert's output (fp32: twice) and the experts' gate, up and product
+    at this rank's f, the Mamba2 mixer's in_proj output and its scan's
+    input and output (this rank's share)."""
+    d, widths = cfg.d_model, []
+    for kind in set(cfg.layer_types):
+        width = d
+        if kind != "ssm":
+            width += 2 * (cfg.n_heads + cfg.n_kv_heads) * cfg.head_dim / model
+        if kind == "ssm" or kind in HYBRID_KINDS:
+            gn = cfg.ssm_groups * cfg.ssm_state
+            width += (3 * cfg.d_inner + 2 * gn + cfg.ssm_heads) / model
+        if kind == "moe":
+            width += cfg.top_k * (3 * d + 3 * cfg.moe_d_ff / model)
+        elif kind != "ssm":
+            width += 3 * cfg.d_ff / model
+        widths.append(width)
+    return max(widths)
+
+
+def activation_gb(cfg: ArchConfig, model: int = 1, rows: int = ROWS,
+                  seq: int = SEQ) -> dict[str, float]:
+    """GB of a step's activations on a ``model`` rank for ``rows`` x
+    ``seq`` tokens (a data rank's, or a microbatch's share of them), with
+    full remat: the residual stream saved at every layer's checkpoint in
+    the compute dtype (a 1/model share of the sequence where ``seq_shard``
+    splits it), one layer's recompute (:func:`layer_width`), and
+    LOGIT_COPIES fp32 copies of the logits of one CE chunk (``loss_chunk``
+    positions where the CE is chunked, else the sequence) over this rank's
+    vocabulary (a 1/model share where the head is vocab-parallel:
+    ``sharding.vocab_view``)."""
+    cb = as_dtype(cfg.compute_dtype).itemsize
+    tokens = rows * seq
+    split = model if cfg.seq_shard and model > 1 else 1
+    chunk = cfg.loss_chunk
+    chunk = chunk if chunk and seq > chunk and seq % chunk == 0 else seq
+    head = shd.vocab_view(cfg, model)["head"]
+    vocab = cfg.padded_vocab / (model if head == "vocab" else 1)
+    return {"residual_gb": cfg.n_layers * tokens * cfg.d_model * cb / split / 1e9,
+            "layer_gb": tokens * layer_width(cfg, model) * cb / 1e9,
+            "logits_gb": LOGIT_COPIES[head] * rows * chunk * vocab * 4 / 1e9}
+
+
 def train_memory_gb(cfg: ArchConfig, data: int = 1, model: int = 1,
-                    n_micro: int = 1) -> dict[str, float]:
+                    n_micro: int = 1, rows: int = ROWS, seq: int = SEQ
+                    ) -> dict[str, float]:
     """GB that training ``cfg`` on a (``data``, ``model``) mesh needs on each
-    device, reckoned before anything is allocated: the state
-    (REPLICATED_BYTES a parameter the device holds, plus SHARDED_BYTES of
-    each over ``data``), AdamW's fp32 temporaries of the largest leaf's
-    shard, the activations, with ``n_micro`` > 1 the gradients' fp32 sum
-    (ACCUMULATOR_BYTES a parameter the device holds), and their total; and
-    ``replicated_gb``, the part no data size divides."""
+    device, ``rows`` x ``seq`` tokens a data rank, reckoned before anything
+    is allocated: the state (:func:`replicated_bytes` a parameter the
+    device holds, plus SHARDED_BYTES of each over ``data``); AdamW's fp32
+    temporaries of the largest leaf's shard; the activations of a
+    microbatch's ``rows / n_micro`` rows (:func:`activation_gb`); with
+    ``n_micro`` > 1 the gradients' fp32 sum (ACCUMULATOR_BYTES a parameter
+    the device holds); WORKSPACE_GB; and their total, which counts the
+    larger of the update's temporaries and the activations only (the
+    update runs after the backward has freed them).  ``replicated_gb`` is
+    the part no data size divides."""
     n = params_per_device(cfg, model)
-    replicated = (REPLICATED_BYTES + (ACCUMULATOR_BYTES if n_micro > 1 else 0)) * n / 1e9
-    out = {"state_gb": REPLICATED_BYTES * n / 1e9 + SHARDED_BYTES * n / data / 1e9,
+    per = replicated_bytes(cfg)
+    replicated = (per + (ACCUMULATOR_BYTES if n_micro > 1 else 0)) * n / 1e9
+    acts = activation_gb(cfg, model, max(1, rows // n_micro), seq)
+    out = {"state_gb": per * n / 1e9 + SHARDED_BYTES * n / data / 1e9,
            "update_gb": (UPDATE_TEMPORARIES * 4 * largest_leaf(cfg)
                          / data / model / 1e9),
-           "activation_gb": ACTIVATION_GB,
-           "accumulator_gb": ACCUMULATOR_BYTES * n / 1e9 if n_micro > 1 else 0.0}
-    return {**out, "total_gb": sum(out.values()), "replicated_gb": replicated}
+           "activation_gb": sum(acts.values()),
+           "accumulator_gb": ACCUMULATOR_BYTES * n / 1e9 if n_micro > 1 else 0.0,
+           "workspace_gb": WORKSPACE_GB}
+    total = (out["state_gb"] + max(out["update_gb"], out["activation_gb"])
+             + out["accumulator_gb"] + WORKSPACE_GB)
+    return {**out, **acts, "total_gb": total, "replicated_gb": replicated}

@@ -537,15 +537,19 @@ def test_dryrun_cells_hold_the_train_cell_at_two_microbatches():
 
 def test_train_reckoning_counts_the_microbatches_gradient_sum():
     """With n_micro > 1 a device also holds the fp32 sum of the
-    microbatches' gradients (4 bytes a parameter it holds); at n_micro 1
-    nothing changes."""
+    microbatches' gradients (4 bytes a parameter it holds), and the
+    activations of one microbatch's rows; at n_micro 1 nothing changes."""
     from repro_torch.configs import get
     from repro_torch.train.step import train_memory_gb
     cfg = get("gemma3-1b")
     one, two = train_memory_gb(cfg, 2), train_memory_gb(cfg, 2, n_micro=2)
     assert one["accumulator_gb"] == 0.0
     assert two["accumulator_gb"] == pytest.approx(4 * cfg.param_count() / 1e9)
-    assert two["total_gb"] == pytest.approx(one["total_gb"] + two["accumulator_gb"])
+    assert two["activation_gb"] == pytest.approx(
+        train_memory_gb(cfg, 2, rows=2)["activation_gb"])
+    assert two["total_gb"] == pytest.approx(
+        one["total_gb"] - max(one["update_gb"], one["activation_gb"])
+        + max(two["update_gb"], two["activation_gb"]) + two["accumulator_gb"])
     assert two["replicated_gb"] == pytest.approx(12 * cfg.param_count() / 1e9)
 
 
@@ -609,7 +613,7 @@ def test_moe_train_depth_by_memory():
     embedding and the untied unembedding 206 M.  Parameters, gradients,
     AdamW's master copy and moments take 20 bytes a parameter: 16 layers
     ~138 GB, 8 ~71.3 GB, 4 ~37.7 GB; with AdamW's temporaries of a stacked
-    expert weight (5 x 4.3 GB at 8 layers) and the activations only 4
+    expert weight (7 x 4.3 GB at 8 layers, more than the activations) only 4
     layers fit 72 GB."""
     from repro_torch.configs import get
     cfg = get("olmoe-1b-7b")
@@ -619,9 +623,10 @@ def test_moe_train_depth_by_memory():
     state = {n: cs.train_reckoning_gb(cfg, n)["state_gb"] for n in (16, 8, 4)}
     assert state == pytest.approx({16: 138.4, 8: 71.3, 4: 37.7}, abs=0.1)
     eight = cs.train_reckoning_gb(cfg, 8)
-    assert eight["update_gb"] == pytest.approx(5 * 4 * 8 * 64 * 2048 * 1024 / 1e9)
+    assert eight["update_gb"] == pytest.approx(7 * 4 * 8 * 64 * 2048 * 1024 / 1e9)
+    assert eight["update_gb"] > eight["activation_gb"]
     assert eight["total_gb"] == pytest.approx(
-        eight["state_gb"] + eight["update_gb"] + eight["activation_gb"])
+        eight["state_gb"] + eight["update_gb"] + eight["workspace_gb"])
     assert cs.train_depth(cfg) == 4
     assert cs.train_depth(cfg, budget_gb=110.0) == 8
     assert cs.train_depth(cfg, budget_gb=110.0, depths=(16, 8, 4)) == 8
@@ -762,16 +767,17 @@ def test_hymba_train_reckoning():
     """hymba-1.5b: 1,589,773,120 parameters at 20 bytes (fp32 parameters,
     gradients, AdamW's master copy and two moments) hold 31.8 GB; AdamW's
     temporaries of the largest leaf, the 15-layer hyb_l segment's in_proj
-    (15 x 1600 x 6482), 3.1 GB; with 8 GB of activations the full depth
-    fits the 72 GB budget."""
+    (15 x 1600 x 6482), 4.4 GB; the activations of 4 x 2048 tokens (the
+    logits of its 32,001-word vocabulary the most of them), 6.6 GB, the
+    larger, and the workspace: the full depth fits the 72 GB budget."""
     from repro_torch.configs import get
     cfg = get("hymba-1.5b")
     assert cfg.param_count() == 1_589_773_120
     assert cs.largest_leaf(cfg) == 15 * 1600 * (2 * 3200 + 2 * 16 + 50)
     got = cs.train_reckoning_gb(cfg, cfg.n_layers)
     assert got["state_gb"] == pytest.approx(31.795, abs=1e-3)
-    assert got["update_gb"] == pytest.approx(5 * 4 * 155_568_000 / 1e9)
-    assert got["total_gb"] == pytest.approx(42.907, abs=1e-3)
+    assert got["update_gb"] == pytest.approx(7 * 4 * 155_568_000 / 1e9)
+    assert got["total_gb"] == pytest.approx(41.396, abs=1e-3)
     assert cs.train_depth(cfg, depths=(32, 16)) == 32
     # the cut of the past-the-window check: one global, three local layers
     cut = cs.cut_depth(cfg, cs.HYMBA_WINDOW_LAYERS)
@@ -1404,7 +1410,8 @@ def _fake_graph_runs(monkeypatch, graphed_gap=0.0, eager_gap=0.0, graph_launches
         return {"metrics": [{"loss": torch.tensor(2.0 + gap)}] * 3,
                 "params": {"w": torch.full((2,), 1.0 + gap)}, "seconds": [1.0, 0.5, 0.5],
                 "launches": {"flash_attention": 6}, "peak_allocated_gb": 1.0,
-                "peak_reserved_gb": 2.0, "step": step, "call": lambda: None}
+                "peak_reserved_gb": 2.0, "held_before_gb": 0.0, "step": step,
+                "call": lambda: None}
     return run
 
 
@@ -1439,7 +1446,7 @@ def _fake_mesh_runs(monkeypatch, graphed_gap=0.0, graph_launches=1, launches=Non
         "kernel_launches": graph_launches, "graph_launches": graph_launches,
         "nccl_device_ms": 1.0})
 
-    def run(cfg, mesh, dev, rows, seq, graphed):
+    def run(cfg, mesh, dev, rows, seq, graphed, step_cfg=None):
         gap = graphed_gap if graphed else 0.0
         step = SimpleNamespace(replay_launches={"flash_attention": 2}, capture_seconds=0.5,
                                graph_pool_bytes=1 << 20,
@@ -1489,7 +1496,7 @@ def test_mesh_graph_case_reports_a_capture_that_does_not_fit(monkeypatch):
     dev = _fake_mesh_runs(monkeypatch)
     eager_run = cs.mesh_graph_run
 
-    def run(cfg, mesh, dev, rows, seq, graphed):
+    def run(cfg, mesh, dev, rows, seq, graphed, step_cfg=None):
         if graphed:
             raise torch.OutOfMemoryError("the captured step does not fit: 41 GB reserved")
         return eager_run(cfg, mesh, dev, rows, seq, graphed)
@@ -1499,7 +1506,7 @@ def test_mesh_graph_case_reports_a_capture_that_does_not_fit(monkeypatch):
     assert out["failures"] == [] and "does not fit" in out["graphed_does_not_fit"]
     assert out["eager_step_ms"] == [4.0] and out["graphed_peak_allocated_gb"] is None
 
-    def broken(cfg, mesh, dev, rows, seq, graphed):
+    def broken(cfg, mesh, dev, rows, seq, graphed, step_cfg=None):
         if graphed:
             raise RuntimeError("a replay failed")
         return eager_run(cfg, mesh, dev, rows, seq, graphed)
@@ -1507,3 +1514,102 @@ def test_mesh_graph_case_reports_a_capture_that_does_not_fit(monkeypatch):
     monkeypatch.setattr(cs, "mesh_graph_run", broken)
     with pytest.raises(RuntimeError, match="a replay failed"):
         cs.mesh_graph_case(None, None, dev, 4, 16)
+
+
+def test_a_peak_is_held_against_its_reckoning():
+    """A train phase prints its reckoning beside its measured peak and
+    fails the run where the peak passes it."""
+    fields = cs.within_reckoning(50.0, 55.0)
+    assert fields == {"reckoned_gb": 55.0, "peak_over_reckoned": 50.0 / 55.0,
+                      "within_reckoning": True}
+    cs.require_within_reckoning("x", fields)
+    with pytest.raises(AssertionError, match="passes its reckoning"):
+        cs.require_within_reckoning("x", cs.within_reckoning(60.0, 55.0))
+
+
+@pytest.mark.parametrize("reckoned,ok", [(1.5, True), (0.5, False)])
+def test_graph_train_gate_holds_the_peaks_against_the_reckoning(monkeypatch, reckoned, ok):
+    """graph_train's runs (peaks 1.0 GB here) against ``reckoned_gb``."""
+    run = _fake_graph_runs(monkeypatch)
+    if ok:
+        assert cs.graph_train_case("x", run, "card", reckoned_gb=reckoned)["within_reckoning"]
+    else:
+        with pytest.raises(AssertionError, match="reckoning"):
+            cs.graph_train_case("x", run, "card", reckoned_gb=reckoned)
+
+
+def test_every_train_phase_prints_its_reckoning_beside_its_peak():
+    """Each train phase's line (one card through launch.train or the step,
+    the one-rank mesh, the gloo ranks at model 2, a model-4 rank on the
+    card) carries its measured peak and the reckoning held against it, and
+    each graphed train case but the gang's passes its reckoning."""
+    import ast
+    tree = ast.parse(Path(cs.__file__).read_text())
+    phases = ("train", "mesh_train", "tp4_rank_step", "tp_train_")
+    seen = set()
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "emit"):
+            continue
+        first = node.args[0]
+        names = ({first.value} if isinstance(first, ast.Constant)
+                 else {first.values[0].value} if isinstance(first, ast.JoinedStr)
+                 else {first.body.value, first.orelse.value} if isinstance(first, ast.IfExp)
+                 else set())
+        if not names & set(phases):
+            continue
+        seen |= names & set(phases)
+        splats = [k.value.id for k in node.keywords if k.arg is None
+                  and isinstance(k.value, ast.Name)]
+        peaks = [k.arg for k in node.keywords if k.arg and "peak" in k.arg]
+        assert "reckoned" in splats or "got" in splats, ast.unparse(node)[:200]
+        assert peaks or "got" in splats, ast.unparse(node)[:200]
+    assert seen == set(phases)
+    cases = [node for node in ast.walk(tree) if isinstance(node, ast.Call)
+             and getattr(node.func, "id", None) == "graph_train_case"]
+    keywords = [{k.arg for k in node.keywords} for node in cases]
+    assert sum("reckoned_gb" in k for k in keywords) == len(cases) - 1   # the gang
+
+
+def _cell_options_on_the_cpu(monkeypatch, **fake_out):
+    """cell_options_path at smoke size on the CPU: gemma3-1b's smoke config
+    at the cell options (the CE in chunks of 16) on 2 x 32 tokens; its
+    graph_train_case replaced by one that returns ``fake_out`` over a
+    bit-equal run with the step's launches."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    cell = dryrun.cell_config
+    monkeypatch.setattr(configs, "get", lambda arch, **k: configs.get_smoke(arch, **k))
+    monkeypatch.setattr(dryrun, "cell_config",
+                        lambda arch, smoke=False, loss_chunk=1024, overrides=None:
+                        cell(arch, True, 16, overrides))
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 32)
+    seen = {}
+
+    def case(name, run, card, **fields):
+        seen.update(fields)
+        cfg = dryrun.cell_config(cs.CELL_ARCH)
+        return {"steps": 3, "bit_equal": True, "launches": cs.step_launches(cfg, 3),
+                **fake_out}
+    monkeypatch.setattr(cs, "graph_train_case", case)
+    return seen
+
+
+def test_the_cell_options_phase_on_the_cpu(monkeypatch):
+    """Its first step at the cell options (bf16 parameters, the chunked CE)
+    within the train gates of the fp32-parameter step at the config's own
+    options from the same weights; its graphed case asked to hold the
+    peaks against the reckoning."""
+    from repro_torch.launch import dryrun
+    seen = _cell_options_on_the_cpu(monkeypatch)
+    cs.cell_options_path(torch.device("cpu"), "cpu")
+    cfg = dryrun.cell_config(cs.CELL_ARCH)
+    assert seen["param_dtype"] == "bfloat16" and seen["loss_chunk"] == 16
+    assert seen["reckoned_gb"] == cs.train_reckoning_gb(cfg, cfg.n_layers)["total_gb"]
+
+
+@pytest.mark.parametrize("fault", [{"bit_equal": False}, {"launches": {}}])
+def test_the_cell_options_phase_fails_a_graph_not_bit_equal(monkeypatch, fault):
+    _cell_options_on_the_cpu(monkeypatch, **fault)
+    with pytest.raises(AssertionError, match="cell options graphed"):
+        cs.cell_options_path(torch.device("cpu"), "cpu")

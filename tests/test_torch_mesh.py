@@ -529,18 +529,18 @@ def test_launch_train_runs_under_two_ranks(runs):
 
 
 @pytest.mark.parametrize("arch,world,message", [
-    ("olmoe-1b-7b", 1, r"needs ~189\.3 GB a device at a data size of 1 .* it fits at a "
+    ("olmoe-1b-7b", 1, r"needs ~201\.5 GB a device at a data size of 1 .* it fits at a "
                        r"data size of 8 \(torchrun --nproc-per-node 8"),
-    ("olmoe-1b-7b", 4, r"needs ~94\.8 GB a device at a data size of 4 .* fits at a "
+    ("olmoe-1b-7b", 4, r"needs ~94\.1 GB a device at a data size of 4 .* fits at a "
                        r"data size of 8"),
-    ("internvl2-26b", 8, r"no data size fits \(the replicated fp32 parameters and "
+    ("internvl2-26b", 8, r"no data size fits \(the replicated float32 parameters and "
                          r"gradients alone are 159\.2 GB\); tensor parallelism fits "
-                         r"it on 8 cards at \(data 1, model 8\), ~80\.4 GB a device; "
+                         r"it on 8 cards at \(data 1, model 8\), ~80\.3 GB a device; "
                          r"launch\.train on a \(data, model\) mesh is part 3"),
-    ("gemma-7b", 1, r"needs ~221\.0 GB a device at a data size of 1 .* fits at a data "
-                    r"size of 32 .*; tensor parallelism fits it on 4 cards at \(data 2, "
-                    r"model 2\), ~78\.3 GB a device; scripts/tp_across_cards\.py trains "
-                    r"it on 4 cards at \(data 1, model 4\), ~61\.3 GB a device: torchrun "
+    ("gemma-7b", 1, r"needs ~232\.9 GB a device at a data size of 1 .* fits at a data "
+                    r"size of 16 .*; tensor parallelism fits it on 4 cards at \(data 2, "
+                    r"model 2\), ~77\.6 GB a device; scripts/tp_across_cards\.py trains "
+                    r"it on 4 cards at \(data 1, model 4\), ~60\.5 GB a device: torchrun "
                     r"--nproc-per-node 4 scripts/tp_across_cards\.py --arch gemma-7b$"),
 ])
 def test_launch_train_reckons_each_device_with_the_data_size(monkeypatch, arch, world,

@@ -251,6 +251,48 @@ def test_train_step_matches_reference(arch, step_cfg):
             assert not (off & settled).any(), key
 
 
+#: the reference's cell options (``launch.dryrun.cell_config``) at smoke
+#: size: the CE chunked and the query blocks streamed at 16 of 32 positions
+#: so that both run; ``seq_shard`` changes nothing without a ``model`` axis
+CELL_OPTIONS = {"loss_chunk": 16, "vocab_pad": 256, "param_dtype": "bfloat16",
+                "attn_q_chunk": 16, "seq_shard": True}
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b"])
+def test_train_step_at_the_cell_options_matches_reference(arch):
+    """One train step at the reference's cell options (bf16 parameters and
+    gradients beside AdamW's fp32 master, the chunked CE, padded
+    vocabulary, streamed query blocks) against the reference's
+    ``make_train_step`` under the same options, from the same weights (the
+    JAX init's bf16 leaves, as numpy) and batch: the losses and the
+    gradient norm to 5e-3, the bf16 tolerance; the parameters stay bf16,
+    the master fp32."""
+    from repro_torch.launch.dryrun import cell_config
+    jcfg = jget_smoke(arch, **CELL_OPTIONS)
+    cfg = cell_config(arch, True, CELL_OPTIONS["loss_chunk"],
+                      {"attn_q_chunk": CELL_OPTIONS["attn_q_chunk"]})
+    assert all(getattr(cfg, k) == v for k, v in CELL_OPTIONS.items())
+    jp = jax.device_get(jinit(jcfg, jax.random.PRNGKey(0)))
+    jopt, opt = JAdamW(schedule=jcosine(1e-3, 2, 10)), AdamW(schedule=cosine_schedule(1e-3, 2, 10))
+    jstate = {"params": jp, "opt": jopt.init(jp), "step": jnp.zeros((), jnp.int32)}
+    # numpy has no bf16: each leaf crosses as fp32 (exact) and is cast back
+    params = tree_map(lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16), jp)
+    tstate = {"params": params, "opt": opt.init(params),
+              "step": torch.zeros((), dtype=torch.int32)}
+    jb, tb = _batches(cfg, 4, 32, ignore=True)
+    js, jm = jax.jit(jmake_train_step(jcfg, jopt))(jstate, jb)
+    ts, tm = make_train_step(cfg, opt)(tstate, tb)
+    assert set(tm) == set(jm)
+    for key in ("loss", "ce", "grad_norm"):
+        np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=LOSS_TOL["bfloat16"])
+    np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]), rtol=1e-6)
+    assert int(ts["step"]) == int(js["step"]) == 1
+    assert {str(v.dtype) for v in bridge.flatten(ts["params"]).values()} == {"torch.bfloat16"}
+    assert {str(v.dtype) for v in bridge.flatten(ts["opt"]["master"]).values()} == {
+        "torch.float32"}
+
+
 # ---------------------------------------------------------------------------
 # tests/test_train_integration.py, on the port
 # ---------------------------------------------------------------------------

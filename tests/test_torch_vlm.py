@@ -147,7 +147,8 @@ def test_init_tree_matches_reference_layout():
 def test_launch_train_refuses_a_card_it_does_not_fit(monkeypatch):
     """On a card, launch.train reckons the train state first and exits,
     naming the memory, before it allocates anything: internvl2-26b's 19.9 B
-    parameters need ~398 GB of fp32 state alone."""
+    parameters need ~398 GB of fp32 state alone, ~536 GB in all at the
+    default batch of 8 x 128."""
     need = train_memory_gb(get(ARCH))
     assert need["state_gb"] == pytest.approx(20 * 19_899_009_024 / 1e9)
     assert need["total_gb"] > 400
@@ -159,7 +160,7 @@ def test_launch_train_refuses_a_card_it_does_not_fit(monkeypatch):
         raise AssertionError("launch.train allocated before refusing")
 
     monkeypatch.setattr(train_cli, "init_train_state", allocates)
-    with pytest.raises(SystemExit, match=r"needs ~502\.6 GB .* the card has 85\.0 GB"):
+    with pytest.raises(SystemExit, match=r"needs ~536\.3 GB .* the card has 85\.0 GB"):
         train_cli.main(["--arch", ARCH, "--steps", "1"])
     # a config that fits goes on to build its mesh and allocate (the mesh and
     # the generator made on the CPU here)

@@ -716,13 +716,47 @@ def job_counted(mesh, cells: list[dict]) -> list[dict]:
     return out
 
 
+def job_cell(mesh, cases: list[dict]) -> list[dict]:
+    """Each case: the mesh step of ``arch`` at ``overrides`` over
+    ``cell_config`` (the reference's cell options, smoke size) with the
+    sequence over ``model``, from ``init_train_state`` on the mesh (seed
+    ``seed``), this rank taking its data-parallel block of each global
+    batch.  Returns each step's metrics, and this rank's parameter,
+    master, m and v shards with their slices after every step."""
+    from repro_torch.launch.dryrun import cell_config
+    from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
+    out = []
+    for case in cases:
+        cfg = cell_config(case["arch"], True, case["loss_chunk"], case["overrides"])
+        step = make_train_step(cfg, optimizer(), TrainStepConfig(
+            seq_spec=shd.Spec(("data", "model", None))))
+        gen = torch.Generator()
+        gen.manual_seed(case["seed"])
+        state = init_train_state(cfg, optimizer(), gen, mesh)
+        with mesh_ctx.set_mesh(mesh):
+            n, i = mesh_ctx.dp_size(), mesh_ctx.dp_index()
+        metrics, params, master, moments = [], [], [], []
+        for batch in case["batches"]:
+            state, m = step(state, to_torch(rank_rows(batch, i, n)))
+            metrics.append({k: float(v) for k, v in m.items()})
+            params.append(_with_slices(state["params"], mesh))
+            master.append(_with_slices(state["opt"]["master"], mesh))
+            moments.append({f"{key}/{path}": v for key in ("m", "v")
+                            for path, v in _with_slices(state["opt"][key], mesh).items()})
+        out.append({"metrics": metrics, "params": params, "master": master,
+                    "moments": moments,
+                    "dtypes": sorted({str(v.dtype) for v in
+                                      bridge.flatten(state["params"]).values()})})
+    return out
+
+
 JOBS = {"dp": job_dp, "tp": job_tp, "refusals": job_refusals,
         "microbatches": job_microbatches, "step_collectives": job_step_collectives,
         "collectives": job_collectives, "blocks": job_blocks, "forward": job_forward,
         "placements": job_placements, "ragged": job_ragged,
         "elastic": job_elastic, "launch_train": job_launch_train,
         "decode": job_decode, "counted": job_counted, "graph_step": job_graph_step,
-        "graph_decode": job_graph_decode}
+        "graph_decode": job_graph_decode, "cell": job_cell}
 
 
 # ---------------------------------------------------------------------------

@@ -224,6 +224,25 @@ config's own options (fp32 parameters, the CE whole) from the same
 weights, then graph_train's three runs on (4, 2048), which must be
 bit-equal with the step's launches.
 
+Then decode_cells: the reference's decode cells at its cell options on
+gemma3-1b, mamba2-780m, hymba-1.5b and h2o-danube-1.8b from bf16 serving
+trees, (a) decode_32k (128 slots, a cache of 32,768) and (b) long_500k (1
+slot, 524,288): a cache filled at random on the card, a slab at a time,
+from the position 4 tokens short of its end, the eager step against
+``GraphedServeStep`` on a second cache filled alike over the same 4
+tokens (logits and every cache leaf bit-equal, launches and collectives
+equal), both timed in turns by CUDA events, the graphed step profiled (one
+graph launch a step), long_500k's eager step profiled (its launches and
+idle share), capture seconds, pool, peaks; (c) ``decode_attention`` at
+the deepest layer against a dense fp32 softmax (2e-2 of a row's largest);
+(d) the step at bf16 against fp32 compute on the first 4 layers (6 for
+gemma3-1b, to its first global layer), held to the model's own rounding
+(``rounding_agreement``: every weight and cache element moved by a bf16
+step); (e) ``ServeEngine`` at 128 slots and ``max_len`` 32,768 serving 128
+requests of 8 new tokens (one graph launch a tick, from the replays); each
+cell's eager peak within 10% of the dry run's reckoning of it, run beside
+in a process of its own.
+
 Every train phase prints its measured peak beside its reckoning, the
 port's ``train.step.train_memory_gb`` at the phase's tokens (``train``,
 ``graph_train``, ``mesh_train``, ``tp_train_*``, ``tp4_rank_step`` and
@@ -296,7 +315,8 @@ mamba2-780m's prefill on one card, and gemma3-1b's train and decode
 steps on the two ranks: FLOPs, HBM bytes, each kernel's calls and the
 collectives equal, the reckoned peak within 10% of
 ``max_memory_allocated`` on one card, the measured step no shorter than
-the roofline's bound.
+the roofline's bound; on one card also gemma3-1b's decode_32k cell at the
+cell options (a step on 128 slots of a 32,768-deep cache).
 
 Then the script's total seconds (the ``done`` phase), the kernels line,
 the card line and, last, the result line.  There is no CPU mode: without a
@@ -4339,6 +4359,528 @@ def cell_options_path(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# decode_cells: the reference's decode cells at its cell options
+# ---------------------------------------------------------------------------
+
+#: decode_cells: the reference's decode cells (``models.config.SHAPES``:
+#: decode_32k, 128 sequences on a cache of 32,768 positions, and long_500k,
+#: one on 524,288, where the config has an SSM or a window) at its cell
+#: options (``launch.dryrun.cell_config``: bf16 parameters, the vocabulary
+#: padded to 256), on these archs' serving trees drawn from DECODE_CELL_SEED
+DECODE_CELL_ARCHS = ("gemma3-1b", "mamba2-780m", "hymba-1.5b", "h2o-danube-1.8b")
+DECODE_CELL_SHAPES = ("decode_32k", "long_500k")
+DECODE_CELL_SEED = 7
+#: tokens each check decodes, from position length - DECODE_CELL_TOKENS of a
+#: cache filled at random (the dry run's cache at its last position): the
+#: last of them writes the cache's last entry
+DECODE_CELL_TOKENS = 4
+#: steps a turn of the timing (eager, graphed, graphed, eager; CUDA events),
+#: and graphed steps profiled
+DECODE_CELL_TIMED, DECODE_CELL_PROFILED = 3, 2
+#: the rounding gate's cut of depth: the first DECODE_CELL_LAYERS layers, or
+#: the fewest first layers past them that hold every kind of layer of the
+#: config (gemma3-1b's first global layer is its sixth)
+DECODE_CELL_LAYERS = 4
+#: the rounding gate's ``moved``: every element of the weights and the cache
+#: times 1 + DECODE_CELL_MOVE or 1 - DECODE_CELL_MOVE at random, about one
+#: bf16 step of everything the step reads.  The bf16 step rounds every
+#: product and the residual stream, not the cache alone: moving the cache
+#: alone (every element times 1 + DECODE_CELL_MOVE) is a smaller move than
+#: the bf16 step's own rounding, which a right step then reads past
+DECODE_CELL_MOVE = 2.0 ** -7
+#: (e): new tokens a request, one request a slot
+DECODE_CELL_NEW = 8
+
+
+def decode_cell_shapes(cfg) -> list:
+    """The reference's decode cells that apply to ``cfg`` (its
+    ``cell_applicable``: long_500k only with an SSM or a window)."""
+    from repro_torch.models.config import SHAPES, cell_applicable
+    return [SHAPES[name] for name in DECODE_CELL_SHAPES
+            if cell_applicable(cfg, SHAPES[name])[0]]
+
+
+def decode_cell_depth(cfg) -> int:
+    """The rounding gate's cut: DECODE_CELL_LAYERS layers, more where the
+    first DECODE_CELL_LAYERS lack a kind of layer of ``cfg``."""
+    kinds = set(cfg.layer_types)
+    return next(layers for layers in range(min(DECODE_CELL_LAYERS, cfg.n_layers),
+                                           cfg.n_layers + 1)
+                if set(cfg.layer_types[:layers]) == kinds)
+
+
+def fill_cache(cache: dict, seed: int, pos: int, whole: dict | None = None,
+               mesh=None) -> dict:
+    """Every leaf of ``cache`` but ``pos`` drawn in place from N(0, 1) by a
+    generator on its device seeded with ``seed``, one slab (a layer's
+    sequence: a leaf's first two dims) at a time in the leaf's dtype, so no
+    fp32 copy of a leaf is made; ``pos`` set to ``pos``.  On a ``mesh``,
+    ``cache`` is this rank's shards (``init_cache`` with the mesh) and
+    ``whole`` the whole cache on meta: each slab of the whole is drawn and
+    the rank's part of it kept, so every rank holds its slice of the cache
+    one process fills from the same seed.  Returns ``cache``."""
+    from repro_torch import bridge
+    from repro_torch.distributed import sharding as shd
+    dev = cache["pos"].device
+    shapes, slices = {}, {}
+    if mesh is not None:
+        for (path, leaf), spec in zip(bridge.flatten(whole).items(),
+                                      shd.spec_leaves(shd.cache_shardings(whole, mesh))):
+            shapes[path] = tuple(leaf.shape)
+            slices[path] = shd.local_slices(spec, leaf.shape, mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for path, leaf in bridge.flatten(cache).items():
+        if path == "pos":
+            continue
+        shape = shapes.get(path, tuple(leaf.shape))
+        keep = slices.get(path, tuple(slice(0, n) for n in shape))
+        slab = torch.empty(shape[2:], dtype=leaf.dtype, device=dev)
+        for layer in range(shape[0]):
+            for row in range(shape[1]):
+                slab.normal_(generator=gen)
+                if (keep[0].start <= layer < keep[0].stop
+                        and keep[1].start <= row < keep[1].stop):
+                    leaf[layer - keep[0].start, row - keep[1].start].copy_(slab[keep[2:]])
+    cache["pos"].fill_(pos)
+    return cache
+
+
+def caches_equal(a: dict, b: dict) -> bool:
+    """Whether two caches hold the same bits, compared a layer of a leaf at a
+    time (no temporary the size of a leaf)."""
+    from repro_torch import bridge
+    fa, fb = bridge.flatten(a), bridge.flatten(b)
+    return fa.keys() == fb.keys() and all(
+        torch.equal(fa[p], fb[p]) if fa[p].dim() == 0 else
+        all(torch.equal(fa[p][i], fb[p][i]) for i in range(fa[p].shape[0]))
+        for p in fa)
+
+
+def decode_cell_graphed(cfg, params, new_cache, fill, slots: int, tokens: torch.Tensor,
+                        dev, mesh=None, base: int = 0,
+                        profile_eager: bool = False) -> tuple[dict, dict]:
+    """A decode cell's graphed step against its eager one, on one card or on
+    a rank of ``mesh``: ``make_serve_step(cfg, mesh)`` on a cache from
+    ``new_cache()`` filled by ``fill`` over ``tokens`` ((n, slots), this
+    rank's rows), then ``GraphedServeStep(cfg, params, cache, slots, mesh)``
+    on a second cache, filled again after its capture (the constructor
+    zeroes it), over the same tokens.  ``failures``: the graphed logits or a
+    cache leaf (a layer at a time) other than the eager ones bit for bit,
+    its launches or collectives (heard from the replays) other than the
+    eager step's, and on a card no graph captured or a profiled step of
+    other than one graph launch.  On a card also: ``eager_peak_gb``, the
+    peak of the eager step's first token above ``base`` (what was allocated
+    before the cell's parameters: the dry run reckons one step);
+    ``graphed_peak_gb``, the capture's and the replays' above what was
+    held then (the eager cache among it); the capture's seconds and pool;
+    both timed in turns (eager, graphed, graphed, eager; DECODE_CELL_TIMED
+    steps each by CUDA events); DECODE_CELL_PROFILED graphed steps
+    profiled; with ``profile_eager``, one eager step profiled.  Returns
+    (the fields, the eager cache, which the caller frees)."""
+    from repro_torch import events
+    from repro_torch.serve.engine import GraphedServeStep, make_serve_step
+    on_card = dev.type == "cuda"
+    n = tokens.shape[0]
+    serve = make_serve_step(cfg, mesh)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    eager_cache = fill(new_cache())
+    listen, moved = collectives_by_kind()
+    reset_launches()
+    got, eager_peak = [], None
+    with torch.inference_mode(), events.counting(listen):
+        for t in range(n):
+            if t == 0 and on_card:
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+            logits, _ = serve(params, eager_cache, tokens[t, :, None])
+            if t == 0 and on_card:
+                sync()
+                eager_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            got.append(logits.clone())
+    eager = {"logits": torch.cat(got), "moved": moved,
+             "launches": launch_counts(path_kernels(cfg, backward=False))}
+
+    held = 0
+    if on_card:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    cache = new_cache()
+    t0 = time.perf_counter()
+    step = GraphedServeStep(cfg, params, cache, slots, mesh)
+    sync()
+    build_s = time.perf_counter() - t0
+    fill(cache)
+    listen, moved = collectives_by_kind()
+    reset_launches()
+    got = []
+    with events.counting(listen):
+        for t in range(n):
+            got.append(step(tokens[t, :, None]).clone())
+    got = torch.cat(got)
+    launches = launch_counts(path_kernels(cfg, backward=False))
+    bit_equal = bool(torch.equal(got, eager["logits"])) and caches_equal(cache, eager_cache)
+    failures = [what for what, bad in (
+        ("graphed logits or cache not the eager step's bit for bit", not bit_equal),
+        (f"launches {launches}, eager {eager['launches']}", launches != eager["launches"]),
+        (f"collectives {moved}, eager {eager['moved']}", moved != eager["moved"]),
+        ("no graph captured", on_card and step.graph is None)) if bad]
+    out = {"tokens": n, "bit_equal": bit_equal, "launches": launches,
+           "collectives_a_step": {k: {"count": c / n, "bytes": b / n}
+                                  for k, (c, b) in moved.items()},
+           "logits_shape": list(got.shape), "logits_finite": bool(got.isfinite().all()),
+           "graph": step.graph is not None, "replay_launches": step.replay_launches,
+           "build_s": build_s, "capture_s": step.capture_seconds,
+           "graph_pool_gb": step.graph_pool_bytes / 1e9, "eager_peak_gb": eager_peak}
+    if not out["logits_finite"]:
+        failures.append("logits not finite")
+    t_checked = time.perf_counter()
+    if on_card:
+        out["graphed_peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        tok = tokens[0, :, None]
+
+        def eager_step():
+            with torch.inference_mode():
+                serve(params, eager_cache, tok)
+
+        def graphed_step():
+            step(tok)
+
+        # both steps ran already: no warm-up a turn
+        turns = [(kind, time_ms(eager_step if kind == "eager" else graphed_step,
+                                DECODE_CELL_TIMED, warmup=0))
+                 for kind in ("eager", "graphed", "graphed", "eager")]
+        ms = {kind: float(np.median([t for k, t in turns if k == kind]))
+              for kind in ("eager", "graphed")}
+        t_turns = time.perf_counter()
+        prof = mesh_profile(graphed_step, on_card, DECODE_CELL_PROFILED)
+        prof["per_step"] = {k: prof[k] / DECODE_CELL_PROFILED for k in (
+            "wall_ms", "device_busy_ms", "nccl_device_ms", "kernel_launches",
+            "graph_launches", "host_syncs")}
+        t_prof = time.perf_counter()
+        if prof["per_step"]["graph_launches"] != 1:
+            failures.append(f"a profiled graphed step made "
+                            f"{prof['per_step']['graph_launches']} graph launches (want 1)")
+        out.update(turns=turns, graphed_ms_a_step=ms["graphed"], eager_ms_a_step=ms["eager"],
+                   graphed_tokens_per_s=1e3 * slots / ms["graphed"],
+                   eager_tokens_per_s=1e3 * slots / ms["eager"], graphed_profile=prof)
+        if profile_eager:
+            out["eager_profile"] = mesh_profile(eager_step, on_card)
+        out["seconds"] = {"turns": t_turns - t_checked, "profile": t_prof - t_turns,
+                          "eager_profile": time.perf_counter() - t_prof}
+    out["failures"] = failures
+    del step, cache
+    return out, eager_cache
+
+
+def attention_at_depth(cfg, cache: dict, dev) -> dict | None:
+    """(c): ``decode_attention`` once at ``cfg``'s deepest attention layer
+    of ``cache`` (its first layer whose K and V are the longest; every
+    entry valid) against a dense fp32 softmax over the same cache, a few
+    rows at a time: the largest error over each (row, head)'s largest
+    |dense| (KERNEL_TOL, the kernel gates' scale), its blocks of 4096, the
+    call's ms by CUDA events and the least time to read the layer's K and
+    V.  None for a config without attention."""
+    from repro_torch.models.attention import decode_attention
+    leaves = []
+    for seg in cache["segments"]:
+        kv = seg.get("attn", seg)
+        if "k" in kv:
+            leaves.append((kv["k"].shape[2], kv["k"][0], kv["v"][0]))
+    if not leaves:
+        return None
+    t, k, v = max(leaves, key=lambda x: x[0])
+    b, hkv, d = k.shape[0], k.shape[2], k.shape[3]
+    hq = cfg.n_heads
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(DECODE_CELL_SEED)
+    q = torch.randn((b, 1, hq, d), generator=gen, device=dev).to(k.dtype)
+    lengths = torch.full((b,), t, dtype=torch.int64, device=dev)
+    out = decode_attention(q, k, v, lengths, cfg.logit_softcap)
+    want = []
+    rows = max(1, (1 << 28) // (t * hkv * d))           # ~1 GB of fp32 K a chunk
+    for r in range(0, b, rows):
+        qf = q[r:r + rows, 0].float().reshape(-1, hkv, hq // hkv, d) * d ** -0.5
+        s = torch.einsum("bhgd,bthd->bhgt", qf, k[r:r + rows].float())
+        if cfg.logit_softcap:
+            s = cfg.logit_softcap * torch.tanh(s / cfg.logit_softcap)
+        p = torch.softmax(s, dim=-1)
+        want.append(torch.einsum("bhgt,bthd->bhgd", p, v[r:r + rows].float())
+                    .reshape(-1, 1, hq, d))
+    want = torch.cat(want)
+    err = row_rel_err(out, want)
+    res = {"shape": [b, t, hkv, hq, d], "blocks": t // 4096 if t % 4096 == 0 else 1,
+           "max_abs_err": (out.float() - want).abs().max().item(), "row_rel_err": err,
+           "tol": KERNEL_TOL, "within": err <= KERNEL_TOL}
+    if dev.type == "cuda":
+        res["ms"] = time_ms(lambda: decode_attention(q, k, v, lengths, cfg.logit_softcap), 3)
+        res["bound_ms"] = 2 * k.numel() * k.element_size() / PEAK_BYTES * 1e3
+    return res
+
+
+def move_by_a_bf16_step(tree, gen: torch.Generator) -> None:
+    """Every element of every floating leaf of ``tree`` times
+    1 + DECODE_CELL_MOVE or 1 - DECODE_CELL_MOVE, by a fair coin from
+    ``gen``, in place, 2**24 elements at a time (no temporary the size of a
+    leaf)."""
+    from repro_torch.tree import tree_leaves
+    for leaf in tree_leaves(tree):
+        if not (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()):
+            continue
+        up, down = (torch.tensor(1 + sign * DECODE_CELL_MOVE, dtype=leaf.dtype,
+                                 device=leaf.device) for sign in (1, -1))
+        flat = leaf.view(-1)
+        for i in range(0, flat.numel(), 1 << 24):
+            part = flat[i:i + (1 << 24)]
+            coin = torch.rand(part.shape, generator=gen, device=leaf.device) < 0.5
+            part.mul_(torch.where(coin, up, down))
+
+
+def decode_cell_rounding(cfg, dev, shape) -> dict:
+    """(d): ``cfg`` cut to ``decode_cell_depth`` layers on its cell's slots
+    and cache, from one serving tree and one filled cache: the decode step
+    at bf16 (``got``) against the same step at fp32 compute (``want``) and
+    at fp32 compute with the weights and the cache moved by about one bf16
+    step (``moved``: ``move_by_a_bf16_step``), DECODE_CELL_TOKENS tokens
+    each, each run on a cache of its own; ``rounding_agreement``, and the §2
+    decode bounds' numbers at the cut's sqrt depth scale, ungated."""
+    from repro_torch.models.transformer import init_cache, init_serving_params
+    from repro_torch.serve.engine import make_serve_step
+    from repro_torch.tree import tree_map
+    layers = decode_cell_depth(cfg)
+    cut = cut_depth(cfg, layers)
+    slots, length = shape.global_batch, shape.seq_len
+    start = length - DECODE_CELL_TOKENS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(DECODE_CELL_SEED)
+    params = init_serving_params(cut, gen)
+    rng = np.random.default_rng(DECODE_CELL_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (DECODE_CELL_TOKENS, slots))).to(dev)
+
+    def run(c, moved: bool) -> torch.Tensor:
+        cache = fill_cache(init_cache(c, slots, length, device=dev), DECODE_CELL_SEED, start)
+        weights = params
+        if moved:
+            weights = tree_map(lambda leaf: leaf.clone() if isinstance(leaf, torch.Tensor)
+                               else leaf, params)
+            gen.manual_seed(DECODE_CELL_SEED + 1)
+            move_by_a_bf16_step(weights, gen)
+            move_by_a_bf16_step(cache["segments"], gen)
+        serve = make_serve_step(c)
+        with torch.inference_mode():
+            out = torch.cat([serve(weights, cache, tokens[t, :, None])[0].float()
+                             for t in range(DECODE_CELL_TOKENS)])
+        del cache, weights
+        return out
+
+    fp32 = dataclasses.replace(cut, compute_dtype="float32")
+    got, want, moved = run(cut, False), run(fp32, False), run(fp32, True)
+    out = {"layers": layers, "layer_types": list(cut.layer_types),
+           "moved_by": DECODE_CELL_MOVE, **rounding_agreement(got, want, moved),
+           "decode_bounds": logits_agreement(got, want, layers, gate=False,
+                                             depth_scale=math.sqrt(layers / CONSISTENCY_LAYERS))}
+    del params, got, want, moved
+    return out
+
+
+def decode_cell_engine(cfg, params, dev, shape) -> dict:
+    """(e): ``ServeEngine`` at the cell ``shape``'s slots and cache (at
+    decode_32k what ``python -m repro_torch.launch.serve --slots 128
+    --max-len 32768`` builds) on ``params``, one request a slot of one
+    prompt token and DECODE_CELL_NEW new tokens: tokens/s, ticks, the
+    graph's launches a tick counted from the replays (on a card), the
+    capture's seconds and pool."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    on_card = dev.type == "cuda"
+    slots = shape.global_batch
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, params, slots=slots, max_len=shape.seq_len, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    replays = [0]
+    if on_card:
+        replay = engine.graph.replay
+
+        def counted():
+            replays[0] += 1
+            replay()
+
+        engine.graph.replay = counted
+    rng = np.random.default_rng(DECODE_CELL_SEED)
+    for rid in range(slots):
+        engine.submit(Request(rid=rid, prompt=[int(rng.integers(0, cfg.vocab_size))],
+                              max_new=DECODE_CELL_NEW))
+    t0 = time.perf_counter()
+    done = engine.run()
+    sync()
+    seconds = time.perf_counter() - t0
+    ticks = int(engine.cache["pos"])
+    new = sum(len(r.generated) for r in done)
+    out = {"slots": slots, "max_len": shape.seq_len, "requests": len(done),
+           "new_tokens": new, "ticks": ticks, "seconds": seconds,
+           "tokens_per_s": new / seconds,
+           "graph_launches": replays[0] if on_card else None,
+           "graph_launches_a_tick": replays[0] / ticks if on_card else None,
+           "build_s": build_s,
+           "capture_s": engine.graphed.capture_seconds,
+           "graph_pool_gb": engine.graph_pool_bytes / 1e9,
+           "ok": (len(done) == slots and all(len(r.generated) == DECODE_CELL_NEW for r in done)
+                  and (replays[0] == ticks or not on_card))}
+    del engine
+    return out
+
+
+def reckon_cells(cells: list[tuple[str, str, tuple[int, int]]],
+                 out_dir: Path) -> tuple[subprocess.Popen, Path]:
+    """The dry run's reckoning (``launch.dryrun.run_cell`` on the meta
+    device) of each (arch, shape name, (data, model) mesh) cell, in a
+    process of its own (its fake process group is process-wide), started
+    now: (the process, the JSON it writes: each cell's peak, bytes, FLOPs,
+    roofline and kernel calls, keyed "arch shape DxM")."""
+    code = """
+import json, sys
+from repro_torch.launch import dryrun
+out = {}
+for arch, shape, mesh in json.loads(sys.argv[2]):
+    rec = dryrun.run_cell(arch, shape, False, mesh_shape=tuple(mesh))
+    out[f"{arch} {shape} {rec['mesh']}"] = {
+        "peak_bytes": rec["memory"]["peak_bytes"],
+        "argument_bytes": rec["memory"]["argument_bytes"],
+        "hbm_bytes": rec["hlo_bytes_per_device"], "flops": rec["hlo_flops_per_device"],
+        "roofline": rec["roofline"], "kernels": rec["kernels"],
+        "collectives": rec["collectives"], "seconds": rec["reckon_seconds"]}
+json.dump(out, open(sys.argv[1], "w"))
+"""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "reckoned.json"
+    root = Path(__file__).resolve().parent
+    return subprocess.Popen([sys.executable, "-c", code, str(path), json.dumps(cells)],
+                            cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")}), path
+
+
+def decode_cell_case(cfg, params, dev, card, shape, base: int) -> dict:
+    """(a) or (b), then (c) and (d), for one cell of ``cfg`` on ``params``
+    (the arch's serving tree): ``decode_cell_graphed`` on two caches of the
+    cell's slots and length, filled from DECODE_CELL_SEED at
+    length - DECODE_CELL_TOKENS, over DECODE_CELL_TOKENS tokens (long_500k's
+    eager step profiled too); ``attention_at_depth`` on the eager cache;
+    ``decode_cell_rounding``.  Adds the cache's and the parameters' bytes
+    and the least time to read both once; emits the decode_cell line.
+    Returns its fields."""
+    from repro_torch.models.transformer import init_cache
+    slots, length = shape.global_batch, shape.seq_len
+    start = length - DECODE_CELL_TOKENS
+    rng = np.random.default_rng(DECODE_CELL_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (DECODE_CELL_TOKENS, slots))).to(dev)
+    out, eager_cache = decode_cell_graphed(
+        cfg, params, lambda: init_cache(cfg, slots, length, device=dev),
+        lambda c: fill_cache(c, DECODE_CELL_SEED, start), slots, tokens, dev, base=base,
+        profile_eager=shape.name == "long_500k")
+    cache_bytes, params_bytes = tree_bytes(eager_cache), tree_bytes(params)
+    t0 = time.perf_counter()
+    out["attention_at_depth"] = attention_at_depth(cfg, eager_cache, dev)
+    del eager_cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["rounding"] = decode_cell_rounding(cfg, dev, shape)
+    out.setdefault("seconds", {}).update(attention_at_depth=t1 - t0,
+                                         rounding=time.perf_counter() - t1)
+    depth = out["attention_at_depth"]
+    if depth is not None and not depth["within"]:
+        out["failures"].append(f"decode_attention at depth off the dense softmax: {depth}")
+    if not out["rounding"]["within_bounds"]:
+        out["failures"].append(f"the bf16 step past its own rounding: {out['rounding']}")
+    out.update(cell=shape.name, slots=slots, cache_len=length, start_pos=start,
+               cache_gb=cache_bytes / 1e9, params_gb=params_bytes / 1e9,
+               bound_once_ms=(cache_bytes + params_bytes) / PEAK_BYTES * 1e3)
+    emit("decode_cell", arch=cfg.name, param_dtype=cfg.param_dtype,
+         padded_vocab=cfg.padded_vocab, nvidia_smi=card, **out)
+    return out
+
+
+def decode_cells_path(dev, card) -> None:
+    """The decode_cells phase: for each DECODE_CELL_ARCHS at the cell
+    options, on its bf16 serving tree, each of its decode cells
+    (``decode_cell_case``: (a) decode_32k, (b) long_500k, each with (c) and
+    (d)), then (e) the engine at decode_32k's sizes
+    (``decode_cell_engine``); last, each cell's eager peak against the dry
+    run's reckoning of the same cell at (1, 1) (``reckon_cells``, run
+    beside), within DRYRUN_PEAK_REL_TOL, beside the graphed peak, the pool
+    and the bounds: the dry run's bytes at the card's rate and the cache
+    and parameters read once.  Every gate's failure fails the phase after
+    every line is out."""
+    import shutil
+    from repro_torch.launch.dryrun import cell_config
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.transformer import init_serving_params
+    t_start = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "decode_cells"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cells = [(arch, shape.name) for arch in DECODE_CELL_ARCHS
+             for shape in decode_cell_shapes(cell_config(arch))]
+    proc, path = reckon_cells([(arch, name, (1, 1)) for arch, name in cells], out_dir)
+    measured, failures = {}, []
+    try:
+        for arch in DECODE_CELL_ARCHS:
+            cfg = cell_config(arch)
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(DECODE_CELL_SEED)
+            params = init_serving_params(cfg, gen)
+            for shape in decode_cell_shapes(cfg):
+                out = decode_cell_case(cfg, params, dev, card, shape, base)
+                measured[(arch, shape.name)] = out
+                failures += [f"{arch} {shape.name}: {f}" for f in out["failures"]]
+                torch.cuda.empty_cache()
+            engine = decode_cell_engine(cfg, params, dev, SHAPES["decode_32k"])
+            emit("decode_cell_engine", arch=arch, nvidia_smi=card, **engine)
+            if not engine["ok"]:
+                failures.append(f"{arch} engine: {engine}")
+            del params
+        if proc.wait() != 0:
+            raise RuntimeError(f"the dry run of the decode cells failed: exit {proc.returncode}")
+        reckoned = json.loads(path.read_text())
+        for (arch, name), out in measured.items():
+            r = reckoned[f"{arch} {name} 1x1"]
+            rel = abs(r["peak_bytes"] / (out["eager_peak_gb"] * 1e9) - 1)
+            emit("decode_cell_vs_dryrun", arch=arch, cell=name, nvidia_smi=card,
+                 reckoned_peak_gb=r["peak_bytes"] / 1e9, eager_peak_gb=out["eager_peak_gb"],
+                 peak_rel_err=rel, tol=DRYRUN_PEAK_REL_TOL,
+                 graphed_peak_gb=out["graphed_peak_gb"], graph_pool_gb=out["graph_pool_gb"],
+                 graphed_ms_a_step=out["graphed_ms_a_step"],
+                 eager_ms_a_step=out["eager_ms_a_step"],
+                 bound_bytes_ms=r["roofline"]["memory_s"] * 1e3,
+                 bound_once_ms=out["bound_once_ms"], reckoned_hbm_bytes=r["hbm_bytes"],
+                 reckoned_flops=r["flops"], reckon_s=r["seconds"])
+            if rel > DRYRUN_PEAK_REL_TOL:
+                failures.append(f"{arch} {name}: eager peak {out['eager_peak_gb']:.2f} GB, "
+                                f"reckoned {r['peak_bytes'] / 1e9:.2f}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    emit("decode_cells_section", seconds=time.perf_counter() - t_start, cells=len(measured),
+         failures=failures)
+    if failures:
+        raise AssertionError(f"the decode cells fail: {failures}")
+
+
 #: the 4-card scripts' mesh steps graphed and eager (mesh_graph_case): the
 #: steps compared from one seed, then steps timed by CUDA events
 MESH_GRAPH_STEPS, MESH_GRAPH_TIMED = 3, 2
@@ -4421,18 +4963,20 @@ def mesh_graph_run(cfg, mesh, dev, rows: int, seq: int, graphed: bool,
             "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9 if on_card else None}
 
 
-def mesh_profile(call, on_card: bool) -> dict | None:
-    """One call of ``call`` under the profiler on the card: ``summarize``'s
-    fields and the NCCL kernels' device ms (None off a card)."""
+def mesh_profile(call, on_card: bool, steps: int = 1) -> dict | None:
+    """``steps`` calls of ``call`` under the profiler on the card:
+    ``summarize``'s fields and the NCCL kernels' device ms (None off a
+    card)."""
     if not on_card:
         return None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        call()
+        for _ in range(steps):
+            call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return {**summarize(prof, wall, 1), "nccl_device_ms": nccl_device_ms(prof)}
+    return {**summarize(prof, wall, steps), "nccl_device_ms": nccl_device_ms(prof)}
 
 
 def mesh_graph_case(cfg, mesh, dev, rows: int, seq: int, step_cfg=None) -> dict:
@@ -6230,14 +6774,16 @@ TP_DECODE_FP32_REF = 2.0
 #: graphed ServeEngine ticks timed beside it
 TP_DECODE_TIMED, TP_DECODE_PROFILED, TP_DECODE_ENGINE_TICKS = 8, 4, 8
 #: dryrun_vs_card: (label, arch, ShapeConfig fields, mesh shape, n_micro).
-#: (a), (b) and (d), (a) at n_micro 2, on one card at (1, 1); (c) on
-#: tp_decode's two gloo ranks at (1, 2)
+#: (a), (b), (d), (a) at n_micro 2, and (e), the reference's decode_32k
+#: cell at the cell options (a decode step on 128 slots of a 32,768-deep
+#: cache), on one card at (1, 1); (c) on tp_decode's two gloo ranks at (1, 2)
 DRYRUN_CELLS = (("a", "gemma3-1b", ("train_4x2048", 2048, 4, "train"), (1, 1), 1),
                 ("b", "mamba2-780m", ("prefill_4x2048", 2048, 4, "prefill"), (1, 1), 1),
                 ("c", "gemma3-1b", ("train_2x2048", 2048, 2, "train"), (1, 2), 1),
                 ("c", "gemma3-1b", ("decode_4x2048", 2048, 4, "decode"), (1, 2), 1),
-                ("d", "gemma3-1b", ("train_4x2048", 2048, 4, "train"), (1, 1), 2))
-#: the reckoned peak against torch.cuda.max_memory_allocated, (a) and (b)
+                ("d", "gemma3-1b", ("train_4x2048", 2048, 4, "train"), (1, 1), 2),
+                ("e", "gemma3-1b", ("decode_32k", 32768, 128, "decode"), (1, 1), 1))
+#: the reckoned peak against torch.cuda.max_memory_allocated, every cell but (c)
 DRYRUN_PEAK_REL_TOL = 0.10
 #: (c)'s timed calls: one, after the counted call (its train step through
 #: gloo takes seconds, against a bound of a tenth of one; its peak is not
@@ -6714,18 +7260,21 @@ def tp_decode_worker(rank: int, init_file: str, out_dir: str, device_type: str) 
         dist.destroy_process_group()
 
 
-def tp_decode_gmm_entry(cfg, gen, dev, card, launches: int, model: int = 2) -> dict:
+def tp_decode_gmm_entry(cfg, gen, dev, card, launches: int, model: int = 2,
+                        slots: int = TP_DECODE_SLOTS, path: str | None = None) -> dict:
     """The grouped GEMM at one of ``model`` ranks' decode shape of
-    olmoe-1b-7b (4 slots, top-8: 32 rows, every expert's f / ``model``; a
-    real routing's group sizes): a decode step's 3 calls a layer against
+    olmoe-1b-7b (``slots`` slots, TP_DECODE_SLOTS by default, top-8: 8 rows
+    a slot, every expert's f / ``model``; a real routing's group sizes), its
+    kernels line's ``path`` ``path`` (tp_decode's by default): a decode
+    step's 3 calls a layer against
     the plain version, ``torch._grouped_mm`` and the bound; and
     ``replayed_ms``, the same calls captured once as a CUDA graph and
     replayed, as a captured decode step runs them (their launches at the
     capture taken off the counter)."""
     from repro_torch.kernels import moe_gmm
     d, f, e, k = cfg.d_model, cfg.moe_d_ff // model, cfg.n_experts, cfg.top_k
-    rows = TP_DECODE_SLOTS * k
-    sizes = moe_group_sizes(gen, dev, TP_DECODE_SLOTS, e, k)
+    rows = slots * k
+    sizes = moe_group_sizes(gen, dev, slots, e, k)
     nonempty = int((sizes > 0).sum())
     x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
     hid = torch.randn((rows, f), generator=gen, device=dev).to(torch.bfloat16)
@@ -6754,8 +7303,8 @@ def tp_decode_gmm_entry(cfg, gen, dev, card, launches: int, model: int = 2) -> d
          library=no_lib or "torch._grouped_mm", errors=errs, nvidia_smi=card, **mix)
     return {"name": "grouped_matmul", "route": "cuda", "source": GMM_SOURCE,
             "replaces": GMM_REPLACES, "launches": launches,
-            "path": f"{cfg.name} TP decode, model {model} ({TP_DECODE_TOKENS} tokens, f {f})",
-            **mix}
+            "path": path or f"{cfg.name} TP decode, model {model} ({TP_DECODE_TOKENS} tokens, "
+                            f"f {f})", **mix}
 
 
 def dryrun_compare(meta: dict, card_runs: dict, card: str) -> list[str]:
@@ -6802,7 +7351,7 @@ def tp_decode_path(dev, card) -> list[dict]:
     (in a process started first, beside the ranks) and on the card by the
     same counter: FLOPs, HBM bytes, each kernel's calls and the collectives
     equal, the reckoned peak within DRYRUN_PEAK_REL_TOL of
-    max_memory_allocated for (a) and (b), and the measured step no shorter
+    max_memory_allocated for the one-card cells, and the measured step no shorter
     than the roofline's bound.  Returns the kernels' entries."""
     import shutil
     import torch.multiprocessing as mp
@@ -6922,6 +7471,8 @@ def main() -> None:
     graph_train_path(dev, card)
     torch.cuda.empty_cache()
     cell_options_path(dev, card)
+    torch.cuda.empty_cache()
+    decode_cells_path(dev, card)
     torch.cuda.empty_cache()
     kernels += sweep_path(dev, card)
     torch.cuda.empty_cache()

@@ -3,7 +3,7 @@
 host, over NCCL.
 
     torchrun --nproc-per-node 4 scripts/tp_across_cards.py [--arch A ...]
-        [--phases agreement steps decode cells]
+        [--phases agreement steps decode cells decode_cells]
     torchrun --nproc-per-node 4 scripts/tp_across_cards.py --smoke --device cpu
 
 Run from the repository root, one process a card (``--device cpu``: one
@@ -98,6 +98,21 @@ group), each state freed before the next:
    ``cell_kernel`` lines, each kernel at a model-N rank's shapes of the
    cells (``cell_kernels``).
 
+5. ``decode_cells`` (only when ``--phases`` names it; CELL_ARCHS unless
+   ``--arch`` says otherwise): the reference's decode_32k cell at its cell
+   options, DECODE_CELL_SLOTS sequences a data rank (its 128 over 16 data
+   ranks) on a cache of 32,768 positions filled at random from one seed
+   (each rank draws the whole cache slab by slab and keeps its shard), at
+   (1, N), and for olmoe-1b-7b also at (2, N/2): ``decode_cell_agreement``
+   (AGREEMENT_LAYERS layers against one card on the whole cache, its
+   expert choices the mesh's where near-ties flip them) and
+   ``decode_cells`` (full depth, ``chip_smoke.decode_cell_graphed``: the
+   graphed mesh step bit-equal to the eager one, one graph launch a step,
+   launches and collectives from the replays the eager step's, both timed
+   in turns, NCCL ms, capture, pool, each rank's eager peak within 10% of
+   the dry run's reckoning of the same rank at (16, M), run beside);
+   olmoe's decode GEMMs at the cell's rows (``decode_cells_gmm``).
+
 Rank 0 prints one JSON line a phase, with the card's name and power limit
 (``--device cpu``: none; every time is then the host's).  The script exits
 non-zero if any phase failed.
@@ -141,7 +156,7 @@ SMOKE_OVERRIDES = {"gemma-7b": {"n_heads": 4, "n_kv_heads": 4}}
 #: decode: chip_smoke's tp_decode sizes; a shorter cache at smoke size
 SMOKE_DECODE_LEN, PROFILE_TOKENS = 64, 4
 #: the phases ``--phases`` picks from, and the ones a run without it runs
-PHASES = ("agreement", "steps", "decode", "cells")
+PHASES = ("agreement", "steps", "decode", "cells", "decode_cells")
 DEFAULT_PHASES = ("agreement", "steps", "decode")
 #: the cells phase: the reference's cell options (``launch.dryrun.cell_config``:
 #: bf16 parameters, loss_chunk 1024, vocab_pad 256, attn_q_chunk 1024,
@@ -157,6 +172,13 @@ CELL_ROWS, PREFILL_ROWS, PREFILL_AGREEMENT_SEQ = 8, 2, 4096
 SMOKE_CELL_SEQ, SMOKE_LOSS_CHUNK = 32, 16
 #: the full-depth prefill: calls timed by CUDA events after one warm-up
 PREFILL_TIMED = 2
+#: the decode_cells phase: the reference's decode_32k cell (128 sequences on
+#: a cache of 32,768 positions) at the cell options on CELL_ARCHS,
+#: DECODE_CELL_SLOTS sequences a data rank (its 128 over 16 data ranks) at
+#: (1, N), and for DECODE_CELL_DATA_ARCHS also at (2, N/2); at smoke size on
+#: a cache of SMOKE_DECODE_LEN
+DECODE_CELL_SLOTS = 8
+DECODE_CELL_DATA_ARCHS = ("olmoe-1b-7b",)
 
 
 def step_meshes(cfg, world: int, budget_gb: float, rows: int = ROWS,
@@ -793,6 +815,328 @@ def decode(run: Run, cfg) -> None:
     dist.barrier()
 
 
+def decode_cell_meshes(arch: str, world: int) -> list[tuple[int, int]]:
+    """The (data, model) meshes the decode_cells phase runs ``arch`` on: (1,
+    N), and (2, N/2) for DECODE_CELL_DATA_ARCHS."""
+    meshes = [(1, world)]
+    if arch in DECODE_CELL_DATA_ARCHS and world % 2 == 0 and world > 2:
+        meshes.append((2, world // 2))
+    return meshes
+
+
+def start_decode_reckoning(run: Run, archs: list[str]):
+    """On rank 0, the dry run's reckoning of each decode_cells case's rank at
+    full size, started now beside the ranks (``chip_smoke.reckon_cells``):
+    the reference's decode_32k cell over (16, M), whose rank holds
+    DECODE_CELL_SLOTS sequences at model M as a rank of (data, M) here does.
+    (the process, the JSON path), or None on other ranks and at smoke size."""
+    if run.rank != 0 or run.smoke:
+        return None
+    cells = [(arch, "decode_32k", (16, model)) for arch in archs
+             for _, model in decode_cell_meshes(arch, run.world)]
+    return run.cs.reckon_cells(cells, ROOT / "build" / "tp_decode_cells")
+
+
+def reckoned_peak_gb(reckoning, arch: str, model: int) -> float | None:
+    """The reckoned peak of ``arch``'s decode_32k rank at (16, ``model``)
+    (rank 0, at full size; waits for the reckoning), else None."""
+    if reckoning is None:
+        return None
+    proc, path = reckoning
+    if proc.wait() != 0:
+        raise RuntimeError(f"the dry run of the decode cells failed: exit {proc.returncode}")
+    return json.loads(path.read_text())[f"{arch} decode_32k 16x{model}"]["peak_bytes"] / 1e9
+
+
+def _written(cfg, path: str, t: int, start: int, n: int) -> list[int]:
+    """The positions of a KV leaf at ``path`` (its segment's kind) that n
+    tokens from ``start`` write: a ring's slots, or the positions clamped
+    to the cache's last."""
+    seg = int(path.split("/")[1].strip("[]"))
+    ring = cfg.segments()[seg][0] in ("swa", "hyb_l") and cfg.window
+    return sorted({(start + i) % t if ring else min(start + i, t - 1) for i in range(n)})
+
+
+def _batch_rows(run: Run, mine: torch.Tensor, d: int, data: int) -> torch.Tensor:
+    """A (rows a data rank, ...) tensor of every rank (the same on a data
+    rank's ``model`` ranks) as the whole batch's, data rank by data rank,
+    on every rank."""
+    bufs = torch.empty((run.world * mine.shape[0], *mine.shape[1:]), dtype=mine.dtype,
+                       device=mine.device)
+    dist.all_gather_into_tensor(bufs, mine.contiguous())
+    bufs = bufs.view(run.world, *mine.shape)
+    where = torch.empty(run.world, dtype=torch.int64, device=mine.device)
+    dist.all_gather_into_tensor(where, torch.tensor([d], device=mine.device))
+    first = {}
+    for r, di in enumerate(where.tolist()):
+        first.setdefault(di, r)
+    return torch.cat([bufs[first[di]] for di in range(data)])
+
+
+def decode_cell_agreement(run: Run, cfg, mesh, data: int, length: int) -> bool:
+    """Its first AGREEMENT_LAYERS layers at (``data``, model N) on
+    data x DECODE_CELL_SLOTS sequences and a cache of ``length``, filled from
+    DECODE_CELL_SEED at length - DECODE_CELL_TOKENS (each rank draws the
+    whole cache slab by slab and keeps its shard, ``fill_cache`` with the
+    mesh), against one card's decode of the same tokens on the whole tree
+    and the whole cache filled alike: rank 0 in bf16, rank 1 at fp32
+    compute (the grouped GEMM's plain version in the kernel's place), each
+    broadcast; an MoE config's expert choices recorded in the mesh step,
+    the one-card bf16 step run again on them where near-ties route a token
+    otherwise (C7), the fp32 one on them.  tp_decode's gates: this rank's
+    logits (its rows, its vocabulary columns) within §2's decode gates of
+    one card's at the cut's sqrt depth scale (or, where only the max bound
+    fails, held to the model's own rounding as the prefill agreement holds
+    them, ``chip_smoke.consistency_or_own_rounding``) and no further from
+    the fp32 ones than TP_DECODE_FP32_REF times one card's in mean; its
+    cache shards, a layer of a
+    leaf at a time against the same slices of one card's, within the
+    model's own rounding (TP_DECODE_CACHE_REF, TP_DECODE_CACHE_FLOOR) on
+    the positions the tokens wrote, and bit for bit elsewhere (the fill,
+    untouched).  Returns whether every rank agrees; rank 0 prints the
+    decode_cell_agreement line."""
+    import contextlib
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import init_cache, init_serving_params
+    from repro_torch.serve.engine import make_serve_step
+    from repro_torch.tree import tree_map
+    cs = run.cs
+    layers = min(AGREEMENT_LAYERS, cfg.n_layers)
+    cut = cs.cut_depth(cfg, layers)
+    slots, n = data * DECODE_CELL_SLOTS, cs.DECODE_CELL_TOKENS
+    start = length - n
+    m, j = shd.axis_sizes(mesh)["model"], mesh.get_local_rank("model")
+    d = mesh.get_local_rank("data") if data > 1 else 0
+    rows = slice(d * DECODE_CELL_SLOTS, (d + 1) * DECODE_CELL_SLOTS)
+    params = init_serving_params(cut, run.generator(cs.TP_SEED))
+    rng = np.random.default_rng(cs.DECODE_CELL_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (n, slots))).to(run.dev)
+    whole = init_cache(cut, slots, length, device="meta")
+    slices = {p: shd.local_slices(spec, leaf.shape, mesh) for (p, leaf), spec in zip(
+        bridge.flatten(whole).items(), shd.spec_leaves(shd.cache_shardings(whole, mesh)))
+        if p != "pos"}
+
+    # the mesh first, its expert choices recorded
+    local = tree_map(lambda leaf, spec: leaf[shd.local_slices(spec, leaf.shape, mesh)].clone(),
+                     params, shd.params_shardings(params, mesh))
+    mine = cs.fill_cache(init_cache(cut, slots, length, device=run.dev, mesh=mesh),
+                         cs.DECODE_CELL_SEED, start, whole=whole, mesh=mesh)
+    serve = make_serve_step(cut, mesh)
+    with cs.recorded_choices(moe_mod) as mesh_choices, torch.inference_mode():
+        got = torch.cat([serve(local, mine, tokens[t, rows, None])[0].float()
+                         for t in range(n)])
+    choices = [_batch_rows(run, c, d, data) for c in mesh_choices]
+
+    # one card on the whole tree and cache: rank 0 in bf16 (on the mesh's
+    # expert choices where near-ties route a token otherwise, C7), rank 1 at
+    # fp32 compute on the mesh's choices
+    one, flips = None, 0
+    if run.rank < 2:
+        c = cut if run.rank == 0 else dataclasses.replace(cut, compute_dtype="float32")
+        cache = init_cache(c, slots, length, device=run.dev)
+        serve = make_serve_step(c)
+
+        def decode(replay: bool):
+            cs.fill_cache(cache, cs.DECODE_CELL_SEED, start)
+            with (cs.replayed_choices(moe_mod, choices) if replay
+                  else cs.recorded_choices(moe_mod)) as seen, \
+                    (cs.plain_grouped_matmul() if run.rank else contextlib.nullcontext()), \
+                    torch.inference_mode():
+                return torch.cat([serve(params, cache, tokens[t, :, None])[0].float()
+                                  for t in range(n)]), seen
+
+        if run.rank == 0:
+            logits, seen = decode(False)
+            flips = routing_flips(choices, seen)
+            if flips:
+                logits, _ = decode(True)
+        else:
+            logits, _ = decode(bool(choices))
+        one = {"logits": logits, "cache": bridge.flatten(cache)}
+    del params
+
+    def from_rank(src, value, shape):
+        buf = (value.float().contiguous() if run.rank == src
+               else torch.empty(shape, dtype=torch.float32, device=run.dev))
+        dist.broadcast(buf, src=src)
+        return buf
+
+    first = 0 if got.shape[-1] == cfg.vocab_size else j * -(-cfg.padded_vocab // m)
+    want, fp32 = (from_rank(src, one and one["logits"], (n * slots, cfg.vocab_size))
+                  .view(n, slots, -1)[:, rows].reshape(n * DECODE_CELL_SLOTS, -1)
+                  [:, first:first + got.shape[-1]] for src in (0, 1))
+    gates = {"layers": layers, "gate": False,
+             "depth_scale": math.sqrt(layers / cs.CONSISTENCY_LAYERS)}
+    agreement = cs.consistency_or_own_rounding(want, got, fp32, layers,
+                                               gates["depth_scale"])
+    one_vs_fp32 = cs.logits_agreement(want, fp32, **gates)
+    tp_vs_fp32 = cs.logits_agreement(got, fp32, **gates)
+
+    cache_err, untouched = {}, True
+    flat = bridge.flatten(mine)
+    shapes = {p: tuple(leaf.shape) for p, leaf in bridge.flatten(whole).items()}
+    for path, sl in slices.items():
+        shape, kv = shapes[path], path.endswith(("/k", "/v"))
+        sums = torch.zeros(3, dtype=torch.float64, device=run.dev)
+        for layer in range(shape[0]):
+            r0, r1 = (from_rank(src, one and one["cache"][path][layer], shape[1:])[sl[1:]]
+                      for src in (0, 1))
+            a = flat[path][layer]
+            if kv:
+                idx = torch.tensor(_written(cut, path, shape[2], start, n), device=run.dev)
+                same = a == r0.to(a.dtype)
+                same[:, idx] = True
+                untouched = untouched and bool(same.all())
+                a, r0, r1 = a[:, idx], r0[:, idx], r1[:, idx]
+            a = a.float()
+            sums += torch.stack([(a - r0).square().sum(), (r1 - r0).square().sum(),
+                                 r0.square().sum()]).double()
+        e_tp, e_ref, norm = sums.tolist()
+        cache_err[path] = {"norm": math.sqrt(e_tp / max(norm, 1e-30)),
+                           "ref_norm": math.sqrt(e_ref / max(norm, 1e-30))}
+    del one, mine, local
+    run.free()
+    cache_ok = untouched and all(
+        e["norm"] <= max(cs.TP_DECODE_CACHE_REF * e["ref_norm"], cs.TP_DECODE_CACHE_FLOOR)
+        for e in cache_err.values())
+    mine_ok = (agreement["within_bounds"] and cache_ok
+               and tp_vs_fp32["mean_rel_to_std"]
+               <= cs.TP_DECODE_FP32_REF * one_vs_fp32["mean_rel_to_std"])
+    ranks = [None] * run.world
+    dist.all_gather_object(ranks, {
+        "rank": run.rank, "agrees": mine_ok, "agreement": agreement,
+        "one_card_vs_fp32": one_vs_fp32, "tp_vs_fp32": tp_vs_fp32,
+        "cache_rel_err": cache_err, "untouched_equal": untouched,
+        "cache_within_rounding": cache_ok, "view": shd.cache_view(cut, m, j)})
+    agrees = all(r["agrees"] for r in ranks)
+    run.emit("decode_cell_agreement", arch=cut.name, layers=layers,
+             routing_calls=len(choices), routing_flips=flips, replayed_routing=bool(flips),
+             mesh={"data": data, "model": m}, slots=slots, slots_a_data_rank=DECODE_CELL_SLOTS,
+             cache_len=length, start_pos=start, tokens=n, param_dtype=cut.param_dtype,
+             padded_vocab=cut.padded_vocab, depth_scale=gates["depth_scale"],
+             cache_ref=cs.TP_DECODE_CACHE_REF, cache_floor=cs.TP_DECODE_CACHE_FLOOR,
+             fp32_ref=cs.TP_DECODE_FP32_REF, agrees=agrees, per_rank=ranks)
+    return agrees
+
+
+def decode_cell_full(run: Run, cfg, mesh, data: int, length: int, reckoned: float | None
+                     ) -> None:
+    """Full depth at (``data``, model N), data x DECODE_CELL_SLOTS sequences
+    and a cache of ``length`` filled as in the agreement: each rank's
+    slices of the bf16 serving tree (drawn whole, then freed), then
+    ``chip_smoke.decode_cell_graphed`` on every rank (the graphed mesh step
+    bit-equal to the eager one on two caches filled alike, launches and
+    collectives from the replays the eager step's, one graph launch a
+    profiled step; both in turns by CUDA events, the capture's seconds and
+    pool, NCCL ms).  It also fails where a rank's eager peak (its first
+    step's, the cell's tree and cache included) is not within
+    DRYRUN_PEAK_REL_TOL of the dry run's reckoning of the same rank
+    (``reckoned``, on the card), or where the grouped GEMM's launches a
+    token from the replays are not 3 a MoE layer.  olmoe: its decode GEMMs
+    at the cell's rows (``decode_cells_gmm``)."""
+    import numpy as np
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import init_cache, init_serving_params
+    from repro_torch.tree import tree_map
+    cs = run.cs
+    slots, n = data * DECODE_CELL_SLOTS, cs.DECODE_CELL_TOKENS
+    start = length - n
+    m = shd.axis_sizes(mesh)["model"]
+    d = mesh.get_local_rank("data") if data > 1 else 0
+    rows = slice(d * DECODE_CELL_SLOTS, (d + 1) * DECODE_CELL_SLOTS)
+    run.free()
+    base = torch.cuda.memory_allocated() if run.on_card else 0
+    params = init_serving_params(cfg, run.generator(cs.TP_SEED))
+    local = tree_map(lambda leaf, spec: leaf[shd.local_slices(spec, leaf.shape, mesh)].clone(),
+                     params, shd.params_shardings(params, mesh))
+    del params
+    run.free()
+    rng = np.random.default_rng(cs.DECODE_CELL_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (n, slots)))[:, rows].to(run.dev)
+    whole = init_cache(cfg, slots, length, device="meta")
+    out, eager_cache = cs.decode_cell_graphed(
+        cfg, local, lambda: init_cache(cfg, slots, length, device=run.dev, mesh=mesh),
+        lambda c: cs.fill_cache(c, cs.DECODE_CELL_SEED, start, whole=whole, mesh=mesh),
+        DECODE_CELL_SLOTS, tokens, run.dev, mesh, base=base)
+    del eager_cache, local
+    run.free()
+    peaks = run.peaks(out["eager_peak_gb"] or 0.0)
+    graphed_peaks = run.peaks(out.get("graphed_peak_gb") or 0.0)
+    moe_layers = sum(k == "moe" for k in cfg.layer_types)
+    gmm = out["launches"].get("grouped_matmul", 0) / n
+    failures = list(out["failures"])
+    if run.on_card and moe_layers and gmm != 3 * moe_layers:
+        failures.append(f"grouped_matmul launched {gmm} times a token from the replays, "
+                        f"want {3 * moe_layers}")
+    rel = None
+    if run.rank == 0 and reckoned is not None:
+        rel = [abs(reckoned / p - 1) for p in peaks]
+        if max(rel) > cs.DRYRUN_PEAK_REL_TOL:
+            failures.append(f"eager peaks {peaks} GB, reckoned {reckoned:.2f} GB")
+    ranks = [None] * run.world
+    dist.all_gather_object(ranks, {"rank": run.rank, "failures": failures,
+                                   "bit_equal": out["bit_equal"],
+                                   **{k: out.get(k) for k in (
+                                       "capture_s", "graph_pool_gb", "graph",
+                                       "graphed_ms_a_step", "eager_ms_a_step", "turns",
+                                       "graphed_profile", "seconds")}})
+    ok = not any(r["failures"] for r in ranks)
+    prof = (out.get("graphed_profile") or {}).get("per_step", {})
+    run.emit("decode_cells", arch=cfg.name, layers=cfg.n_layers,
+             mesh={"data": data, "model": m}, slots=slots, slots_a_data_rank=DECODE_CELL_SLOTS,
+             cache_len=length, start_pos=start, tokens=n, param_dtype=cfg.param_dtype,
+             padded_vocab=cfg.padded_vocab,
+             graphed_ms_a_step=out.get("graphed_ms_a_step"),
+             eager_ms_a_step=out.get("eager_ms_a_step"),
+             graphed_tokens_per_s=(1e3 * slots / out["graphed_ms_a_step"]
+                                   if run.on_card else None),
+             eager_tokens_per_s=1e3 * slots / out["eager_ms_a_step"] if run.on_card else None,
+             nccl_device_ms_a_step=prof.get("nccl_device_ms"),
+             idle_share=(out.get("graphed_profile") or {}).get("idle_share"),
+             graph_launches_a_step=[(r["graphed_profile"] or {}).get("per_step", {}).get(
+                 "graph_launches") for r in ranks],
+             bit_equal=all(r["bit_equal"] for r in ranks), launches=out["launches"],
+             grouped_matmul_a_token=gmm, collectives_a_step=out["collectives_a_step"],
+             capture_s=[r["capture_s"] for r in ranks],
+             graph_pool_gb=[r["graph_pool_gb"] for r in ranks],
+             eager_peak_gb_per_rank=peaks, graphed_peak_gb_per_rank=graphed_peaks,
+             reckoned_peak_gb=reckoned, peak_rel_err=rel, peak_rel_tol=cs.DRYRUN_PEAK_REL_TOL,
+             ok=ok, failures=[f for r in ranks for f in r["failures"]], per_rank=ranks)
+    if not ok:
+        run.failed.append(f"decode_cells {cfg.name} {(data, m)}")
+    if run.on_card and moe_layers:
+        if run.rank == 0:
+            entry = cs.tp_decode_gmm_entry(cfg, run.generator(11), run.dev, run.card,
+                                           out["launches"]["grouped_matmul"], model=m,
+                                           slots=DECODE_CELL_SLOTS,
+                                           path=f"{cfg.name} decode_32k cell at "
+                                                f"({data}, {m}), graphed")
+            run.emit("decode_cells_gmm", arch=cfg.name, mesh={"data": data, "model": m},
+                     **entry)
+        dist.barrier()
+    run.free()
+    dist.barrier()
+
+
+def decode_cells(run: Run, arch: str, reckoning) -> None:
+    """The decode_cells phase for ``arch`` at the reference's cell options:
+    on each of ``decode_cell_meshes``, the agreement at AGREEMENT_LAYERS
+    layers, then (where every rank agrees) full depth."""
+    from repro_torch.models.config import SHAPES
+    cfg = cell_config(arch, run.smoke)
+    length = SMOKE_DECODE_LEN if run.smoke else SHAPES["decode_32k"].seq_len
+    for data, model in decode_cell_meshes(arch, run.world):
+        mesh = run.mesh(model)
+        if not decode_cell_agreement(run, cfg, mesh, data, length):
+            run.failed.append(f"decode_cell_agreement {cfg.name} {(data, model)}")
+            continue
+        decode_cell_full(run, cfg, mesh, data, length,
+                         reckoned_peak_gb(reckoning, arch, model))
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", nargs="+", default=None,
@@ -805,14 +1149,21 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     run = Run(args)
-    archs = args.arch or list(CELL_ARCHS if "cells" in args.phases else ARCHS)
+    cell_phases = {"cells", "decode_cells"} & set(args.phases)
+    archs = args.arch or list(CELL_ARCHS if cell_phases else ARCHS)
+    reckoning = (start_decode_reckoning(run, archs) if "decode_cells" in args.phases
+                 else None)
     for arch in archs:
         cfg = config(arch, args.smoke)
         for phase in (p for p in PHASES if p in args.phases):
             if phase == "cells":
                 cells(run, arch)
+            elif phase == "decode_cells":
+                decode_cells(run, arch, reckoning)
             else:
                 {"agreement": agreement, "steps": steps, "decode": decode}[phase](run, cfg)
+    if reckoning is not None and reckoning[0].poll() is None:
+        reckoning[0].kill()
     dist.destroy_process_group()
     if run.failed:
         raise SystemExit(f"tp_across_cards: failed: {run.failed}")

@@ -73,6 +73,94 @@ def cells_lines():
     return proc.returncode, lines, proc.stderr[-4000:]
 
 
+@pytest.fixture(scope="module")
+def decode_cells_lines():
+    """The decode_cells phase at smoke size over 4 gloo ranks (its default
+    architectures): (exit code, rank 0's JSON lines, the tail of the ranks'
+    errors)."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", str(SCRIPT), "--smoke", "--device", "cpu",
+         "--phases", "decode_cells"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    return proc.returncode, lines, proc.stderr[-4000:]
+
+
+def test_the_decode_cells_phase_at_smoke_size(decode_cells_lines):
+    """For each of the cells' architectures at the reference's cell options,
+    on a SMOKE_DECODE_LEN-deep cache filled from one seed (each rank its
+    shard of it), DECODE_CELL_SLOTS sequences a data rank: at (1, 4), and
+    for olmoe-1b-7b also at (2, 2), the first layers against one card on
+    the whole cache (logits, fp32 distance, every cache shard within
+    rounding where the tokens wrote and bit for bit elsewhere), then full
+    depth graphed against eager (eager on its own buffers on the CPU),
+    bit-equal, the collectives of both equal, the sums over ``model``
+    among them."""
+    rc, lines, err = decode_cells_lines
+    assert rc == 0, err
+    by_phase = {}
+    for line in lines:
+        by_phase.setdefault(line["phase"], []).append(line)
+    assert set(by_phase) == {"decode_cell_agreement", "decode_cells"}
+    want = [(f"{a}-smoke", d, m) for a in tp.CELL_ARCHS
+            for d, m in tp.decode_cell_meshes(a, 4)]
+    assert [(a, d, m) for a, d, m in want if a.startswith("olmoe")] == [
+        ("olmoe-1b-7b-smoke", 1, 4), ("olmoe-1b-7b-smoke", 2, 2)]
+    for phase in by_phase:
+        assert [(line["arch"], line["mesh"]["data"], line["mesh"]["model"])
+                for line in by_phase[phase]] == want
+    for line in by_phase["decode_cell_agreement"] + by_phase["decode_cells"]:
+        assert line["slots"] == line["mesh"]["data"] * tp.DECODE_CELL_SLOTS
+        assert line["cache_len"] == tp.SMOKE_DECODE_LEN
+        assert line["start_pos"] == tp.SMOKE_DECODE_LEN - cs.DECODE_CELL_TOKENS
+        assert line["param_dtype"] == "bfloat16"
+    for line in by_phase["decode_cell_agreement"]:
+        assert line["agrees"] and line["layers"] == min(tp.AGREEMENT_LAYERS, 2)
+        moe = line["arch"].startswith("olmoe")
+        assert (line["routing_calls"] > 0) == moe
+        assert line["replayed_routing"] == (line["routing_flips"] > 0)
+        assert len(line["per_rank"]) == 4
+        for rank in line["per_rank"]:
+            assert rank["untouched_equal"] and rank["cache_within_rounding"]
+            assert rank["agreement"]["within_bounds"]
+            assert set(rank["cache_rel_err"]) == {"segments/[0]/k", "segments/[0]/v"}
+    for line in by_phase["decode_cells"]:
+        assert line["ok"] and line["bit_equal"] and line["failures"] == []
+        assert line["collectives_a_step"]["all-reduce"]["count"] > 0
+        assert not any(r["graph"] for r in line["per_rank"])
+
+
+def test_the_dry_run_reckons_the_decode_cells(tmp_path):
+    """``launch.dryrun`` reckons decode_32k at 16x4 (a rank: 8 of the 128
+    sequences, model 4) for every architecture with a decode step, and
+    long_500k at 1x1 for every one with an SSM or a window; every rank
+    fits a card, and the rank the decode_cells phases hold their peaks
+    against is there."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for shape, mesh in (("decode_32k", "16x4"), ("long_500k", "1x1")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--shape", shape,
+             "--mesh-shape", mesh, "--out", str(tmp_path)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    for arch in all_archs():
+        cfg = get(arch)
+        for shape, mesh, applies in (("decode_32k", "16x4", cfg.has_decode()),
+                                     ("long_500k", "1x1", cfg.has_decode()
+                                      and cfg.subquadratic())):
+            path = tmp_path / f"{arch.replace('.', '_')}__{shape}__{mesh}.json"
+            assert path.exists() == applies, (arch, shape)
+            if applies:
+                rec = json.loads(path.read_text())
+                assert rec["memory"]["fits_80gb"] and rec["chips"] == (64 if mesh == "16x4"
+                                                                      else 1)
+                assert rec["roofline"]["dominant"] == "memory", (arch, shape)
+
+
 def test_the_cells_phase_at_smoke_size(cells_lines):
     """For each of the cells' architectures at the reference's cell options
     (bf16 parameters, the CE chunked, the sequence over ``model``): the

@@ -3979,6 +3979,16 @@ def moe_train_path(dev, card) -> list[dict]:
 GRAPH_TRAIN_CASES = (("gemma3-1b", None), ("mamba2-780m", None), ("hymba-1.5b", None),
                      ("hubert-xlarge", None), ("h2o-danube-1.8b", None),
                      ("olmoe-1b-7b", 4))
+#: graph_train at the reference's cell options (``launch.dryrun.cell_config``:
+#: bf16 parameters, loss_chunk 1024, vocab_pad 256, attn_q_chunk 1024,
+#: seq_shard) for the two configurations no card trains whole, (arch,
+#: layers) at full width cut to that depth, after olmoe's case: qwen2-moe's
+#: grouped GEMM backward at E 60, f 1408 and its shared expert, internvl2's
+#: GQA attention backward at 48 / 8 heads of D 128 and its patches.  The
+#: cell options, not fp32 parameters: at fp32 the two reckon 64.1 and 58.6
+#: GB, and qwen2-moe's with what the cases before them leave allocated (up
+#: to ~9.4 GB) would pass TRAIN_BUDGET_GB
+GRAPH_TRAIN_CELL_CASES = (("qwen2-moe-a2.7b", 2), ("internvl2-26b", 2))
 GRAPH_TRAIN_STEPS = 3
 #: steps timed by CUDA events after each run (warm by then), and graphed
 #: steps under the profiler
@@ -4250,11 +4260,73 @@ def graph_gang_run(cfg, dev, graphed: bool) -> dict:
             "call": gang.step if graphed else gang._eager_step}
 
 
-def graph_train_path(dev, card) -> dict[str, dict]:
-    """graph_train for every configuration of GRAPH_TRAIN_CASES and for
-    gang_path's M-2 gemma3-1b gang.  The one-rank NCCL group is started
-    first and ended last: ``launch.train`` reuses it, and the eager runs'
-    steps after it (timed) run on its mesh."""
+def graph_train_cell_cases(dev, card) -> tuple[dict[str, dict], list[dict]]:
+    """graph_train_case for each of GRAPH_TRAIN_CELL_CASES: the arch at the
+    reference's cell options cut to its layers, trained through
+    ``graph_train_run`` on TRAIN_BATCH x TRAIN_SEQ, its peaks held against
+    the cut's reckoning; fails unless the graphed run and both eager runs
+    are bit-equal and each run launched ``step_launches`` a step.  Then
+    each kernel at the case's shapes against its plain version (the
+    attention's forward and backward at its heads under the kernel gates,
+    ``tp4_fa_errors``; the grouped GEMM's forward, dx and dw on its T·K
+    rows, ``tp_gmm_entries``), timed beside the library call and the bound.
+    Returns the cases and the kernels line's entries, their launches the
+    first eager run's."""
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import cell_config
+    out, entries = {}, []
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    for arch, layers in GRAPH_TRAIN_CELL_CASES:
+        cfg = cut_depth(cell_config(arch), layers)
+        case = graph_train_case(
+            f"{arch} train, cell options",
+            lambda graphed: graph_train_run(arch, layers, dev, graphed, cfg=cfg),
+            card, arch=arch, layers=layers, n_layers=get(arch).n_layers,
+            batch=b, seq=s, route="make_train_step",
+            cell_options=True, param_dtype=cfg.param_dtype, loss_chunk=cfg.loss_chunk,
+            seq_shard=cfg.seq_shard,
+            reckoned_gb=train_reckoning_gb(cell_config(arch), layers)["total_gb"])
+        want = step_launches(cfg, case["steps"])
+        if not (case["bit_equal"] and case["eager_runs_bit_equal"]) or (
+                case["launches"] != want):
+            raise AssertionError(
+                f"{arch} at the cell options graphed: bit-equal {case['bit_equal']}, "
+                f"eager runs bit-equal {case['eager_runs_bit_equal']}, launches "
+                f"{case['launches']}, want {want}")
+        out[f"{arch} cell options"] = case
+        torch.cuda.empty_cache()
+        path = f"{cfg.name} train at the cell options ({layers} layers), graphed"
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(23)
+        launches = case["launches"]
+        if cfg.n_heads:
+            errors = tp4_fa_errors(cfg, gen, dev, b, s)
+            torch.cuda.empty_cache()
+            for name, mix in (("flash_attention", fa_prefill_mix),
+                              ("flash_attention_bwd", fa_train_mix)):
+                fields = mix(cfg, gen, dev, b, s)
+                emit("kernel_train_mix", kernel=name, arch=cfg.name, layers=layers,
+                     shape=[b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                     errors=errors, nvidia_smi=card, **fields)
+                entries.append({"name": name, "path": path, "route": "cuda",
+                                "source": FA_SOURCE, "replaces": FA_REPLACES,
+                                "launches": launches[name], **fields})
+                torch.cuda.empty_cache()
+        if cfg.n_experts:
+            for entry in tp_gmm_entries(cfg, gen, dev, card, launches, 1, b * s):
+                entries.append({**entry, "path": path})
+            torch.cuda.empty_cache()
+    return out, entries
+
+
+def graph_train_path(dev, card) -> tuple[dict[str, dict], list[dict]]:
+    """graph_train for every configuration of GRAPH_TRAIN_CASES, then of
+    GRAPH_TRAIN_CELL_CASES (each graphed run bit-equal to the eager ones,
+    with ``step_launches`` a step), and for gang_path's M-2 gemma3-1b
+    gang.  The one-rank NCCL group is started first and ended last:
+    ``launch.train`` reuses it, and the eager runs' steps after it (timed)
+    run on its mesh.  Returns the cases and the kernels line's entries of
+    the cell-option cases."""
     import torch.distributed as dist
 
     from repro_torch.configs import get
@@ -4269,6 +4341,8 @@ def graph_train_path(dev, card) -> dict[str, dict]:
                 card, arch=arch, layers=depth, batch=TRAIN_BATCH,
                 seq=TRAIN_SEQ, route="launch.train" if layers is None else "make_train_step",
                 reckoned_gb=train_reckoning_gb(get(arch), depth)["total_gb"])
+        cases, entries = graph_train_cell_cases(dev, card)
+        out.update(cases)
     finally:
         dist.destroy_process_group()
     cfg = get(GANG_ARCH)
@@ -4276,7 +4350,7 @@ def graph_train_path(dev, card) -> dict[str, dict]:
         f"{cfg.name} gang", lambda graphed: graph_gang_run(cfg, dev, graphed), card,
         arch=cfg.name, layers=cfg.n_layers, members=2, batch=GANG_BATCH, seq=GANG_SEQ,
         route="Gang")
-    return out
+    return out, entries
 
 
 #: the cell_options phase: CELL_ARCH at the reference's cell options
@@ -7468,7 +7542,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     gang_path(dev, card)
     torch.cuda.empty_cache()
-    graph_train_path(dev, card)
+    kernels += graph_train_path(dev, card)[1]
     torch.cuda.empty_cache()
     cell_options_path(dev, card)
     torch.cuda.empty_cache()

@@ -8,10 +8,10 @@ host, over NCCL.
 
 Run from the repository root, one process a card (``--device cpu``: one
 gloo rank a process, the smoke configs at a (4, 32) batch a data rank,
-gemma-7b's with 4 query and 4 KV heads so that they split one a rank as at
-full width).  For each ``--arch`` (olmoe-1b-7b and gemma-7b by default;
-any ported decoder, e.g. deepseek-7b), at full width, all in one process
-group (NCCL's bootstrap does not survive a destroyed and restarted default
+with SMOKE_OVERRIDES so that their heads and vocabularies split over the
+ranks as at full width).  For each ``--arch`` (olmoe-1b-7b and gemma-7b
+by default; any ported decoder, e.g. deepseek-7b, qwen2-moe-a2.7b,
+internvl2-26b), at full width, all in one process group (NCCL's bootstrap does not survive a destroyed and restarted default
 group), each state freed before the next:
 
 1. ``agreement``: its first AGREEMENT_LAYERS layers at (data 1, model N),
@@ -93,10 +93,15 @@ group), each state freed before the next:
    tokens a data rank, failing also where a rank's peak passes
    ``train_memory_gb(cfg, data, model, rows, seq)`` or the sequence's
    reduce-scatter and all-gather over ``model`` are missing from the
-   collectives (``cells_skipped`` past the budget); ``prefill_agreement``
-   and ``prefill``: the prefill cell (``prefill``); on the card
-   ``cell_kernel`` lines, each kernel at a model-N rank's shapes of the
-   cells (``cell_kernels``).
+   collectives (``cells_skipped`` past the budget, then on the same mesh
+   the deepest cut within CUT_BUDGET_GB, ``cut_layers``, under the same
+   gates, its capture required to fit: qwen2-moe-a2.7b and internvl2-26b,
+   whose line carries ``layers`` and ``n_layers``); ``prefill_agreement``
+   and ``prefill``: the prefill cell (``prefill``; its peaks within
+   chip_smoke.DRYRUN_PEAK_REL_TOL of the dry run's prefill_32k rank at
+   (16, N), reckoned beside); on the card ``cell_kernel`` lines, each
+   kernel at a model-N rank's shapes of the cells against its plain
+   version (``cell_kernels``).
 
 5. ``decode_cells`` (only when ``--phases`` names it; CELL_ARCHS unless
    ``--arch`` says otherwise): the reference's decode_32k cell at its cell
@@ -110,8 +115,8 @@ group), each state freed before the next:
    graphed mesh step bit-equal to the eager one, one graph launch a step,
    launches and collectives from the replays the eager step's, both timed
    in turns, NCCL ms, capture, pool, each rank's eager peak within 10% of
-   the dry run's reckoning of the same rank at (16, M), run beside);
-   olmoe's decode GEMMs at the cell's rows (``decode_cells_gmm``).
+   the dry run's reckoning of the same rank at (16, M), run beside); an
+   MoE config's decode GEMMs at the cell's rows (``decode_cells_gmm``).
 
 Rank 0 prints one JSON line a phase, with the card's name and power limit
 (``--device cpu``: none; every time is then the host's).  The script exits
@@ -142,17 +147,34 @@ AGREEMENT_LAYERS = 4
 #: the leaves the agreement phase gathers whole and holds against one
 #: rank's, by architecture: the ones the rules split over ``model``
 #: (olmoe: the experts at f / N a rank; gemma-7b: the tied embedding over
-#: the vocabulary, the attention's heads)
+#: the vocabulary, the attention's heads; qwen2-moe: its routed experts at
+#: f / N, its shared expert at d_ff / N with its sigmoid gate and the router
+#: replicated, the untied embedding and head over the vocabulary;
+#: internvl2: the vocabulary, the GQA heads, the MLP, and the patches'
+#: replicated frontend_proj)
 LEAVES = {
     "olmoe-1b-7b": ("segments/[0]/moe/router", "segments/[0]/moe/wi_gate",
                     "segments/[0]/moe/wo"),
     "gemma-7b": ("embed", "segments/[0]/attn/wq", "segments/[0]/attn/wo"),
     "deepseek-7b": ("embed", "lm_head", "segments/[0]/attn/wq", "segments/[0]/attn/wo",
                     "segments/[0]/mlp/wi_gate", "segments/[0]/mlp/wo", "final_norm"),
+    "qwen2-moe-a2.7b": ("embed", "lm_head", "segments/[0]/moe/router",
+                        "segments/[0]/moe/wi_gate", "segments/[0]/moe/wo",
+                        "segments/[0]/moe/shared/wi_gate", "segments/[0]/moe/shared/wi_up",
+                        "segments/[0]/moe/shared/wo", "segments/[0]/moe/shared/gate"),
+    "internvl2-26b": ("embed", "lm_head", "frontend_proj", "segments/[0]/attn/wq",
+                      "segments/[0]/attn/wk", "segments/[0]/mlp/wi_gate",
+                      "segments/[0]/mlp/wo"),
 }
 #: smoke configs as the script runs them: gemma-7b's 2 heads do not split
-#: over 4 ranks, its full width's 16 do
-SMOKE_OVERRIDES = {"gemma-7b": {"n_heads": 4, "n_kv_heads": 4}}
+#: over 4 ranks, its full width's 16 do; internvl2's 2 KV heads do not
+#: either, its full width's 8 do (2 a rank, each under several query
+#: heads); both vocabularies short of their padding, so that the last rank
+#: holds pad columns beside real ones, as at full width (151,936 of
+#: 152,064 and 92,553 of 92,672) and every rank holds real ones
+SMOKE_OVERRIDES = {"gemma-7b": {"n_heads": 4, "n_kv_heads": 4},
+                   "qwen2-moe-a2.7b": {"vocab_size": 250},
+                   "internvl2-26b": {"n_heads": 16, "n_kv_heads": 8, "vocab_size": 250}}
 #: decode: chip_smoke's tp_decode sizes; a shorter cache at smoke size
 SMOKE_DECODE_LEN, PROFILE_TOKENS = 64, 4
 #: the phases ``--phases`` picks from, and the ones a run without it runs
@@ -170,6 +192,15 @@ DEFAULT_PHASES = ("agreement", "steps", "decode")
 CELL_ARCHS = ("olmoe-1b-7b", "gemma-7b", "deepseek-7b")
 CELL_ROWS, PREFILL_ROWS, PREFILL_AGREEMENT_SEQ = 8, 2, 4096
 SMOKE_CELL_SEQ, SMOKE_LOSS_CHUNK = 32, 16
+#: the train cell on a mesh whose full depth passes chip_smoke.TRAIN_BUDGET_GB
+#: (qwen2-moe-a2.7b's and internvl2-26b's, 89-137 GB a card) runs the deepest
+#: cut whose train_memory_gb lies within this budget instead.  It is below
+#: the full-depth budget because a graphed step's capture reserves memory
+#: past the eager step's: the cells graphed at full depth reserved
+#: 1.22-1.34x their reckoning (olmoe-1b-7b at (2, 2): 70.31 GB at 52.64;
+#: PERF.md §5), so a 72 GB cut would reserve up to ~96 GB of an 85 GB card,
+#: while 62 x 1.34 = 83 GB leaves NCCL's and the context's own memory room
+CUT_BUDGET_GB = 62.0
 #: the full-depth prefill: calls timed by CUDA events after one warm-up
 PREFILL_TIMED = 2
 #: the decode_cells phase: the reference's decode_32k cell (128 sequences on
@@ -452,77 +483,121 @@ def graph_agreement(run: Run, cut, mesh, leaves: tuple[str, ...]) -> None:
                          "disagrees with the eager one (the graph_agreement line above)")
 
 
+def cut_layers(cfg, data: int, model: int, rows: int, seq: int,
+               budget_gb: float) -> int | None:
+    """The deepest cut of ``cfg`` (its first L < n_layers layers,
+    ``chip_smoke.cut_depth``) whose ``train_memory_gb`` at (``data``,
+    ``model``), ``rows`` x ``seq`` tokens a data rank, lies within
+    ``budget_gb``; None where not even one layer does."""
+    import chip_smoke as cs
+    from repro_torch.train.step import train_memory_gb
+    for layers in range(cfg.n_layers - 1, 0, -1):
+        if train_memory_gb(cs.cut_depth(cfg, layers), data, model, rows=rows,
+                           seq=seq)["total_gb"] <= budget_gb:
+            return layers
+    return None
+
+
 def steps(run: Run, cfg, rows: int = ROWS, seq: int | None = None,
-          phase: str = "steps") -> None:
+          phase: str = "steps") -> list:
     """Phase 2: full depth on each mesh that fits, graphed and eager in
     turns, ``rows`` x ``seq`` tokens a data rank.  As the cells phase
     (``phase`` "cells": the cell's MoE dispatch groups) it also fails
     where a rank's peak passes the reckoning, or where the step's
     collectives over ``model`` leave out the sequence's reduce-scatter or
-    all-gather that ``seq_shard`` sends through NCCL."""
-    from repro_torch.train.step import TrainStepConfig
+    all-gather that ``seq_shard`` sends through NCCL; and on a mesh where
+    full depth passes the budget it runs the deepest cut within
+    CUT_BUDGET_GB (``cut_layers``) the same way, failing too where its
+    capture does not fit the card.  Returns the config each mesh trained
+    (full depth or its cut), model N first."""
+    from repro_torch.train.step import train_memory_gb
     cs = run.cs
     seq = seq or run.seq
     cell = phase == "cells"
+    trained = []
     for data, model, reckoned, fits in step_meshes(cfg, run.world, cs.TRAIN_BUDGET_GB,
                                                    rows, seq):
         where = {"data": data, "model": model}
-        if not fits:
-            run.emit(f"{phase}_skipped", arch=cfg.name, layers=cfg.n_layers, mesh=where,
-                     batch=data * rows, seq=seq, reckoned_gb=reckoned,
-                     budget_gb=cs.TRAIN_BUDGET_GB,
-                     reason=f"train_memory_gb reckons {reckoned:.1f} GB a device, over "
-                            f"the {cs.TRAIN_BUDGET_GB} GB budget")
+        if fits:
+            mesh_step(run, cfg, data, model, reckoned, rows, seq, phase)
+            trained.append(cfg)
             continue
-        step_cfg = cell_step_config(data, rows, seq) if cell else TrainStepConfig()
-        out = cs.mesh_graph_case(cfg, run.mesh(model), run.dev, rows, seq, step_cfg)
-        peaks = {k: run.peaks(out[f"{k}_peak_allocated_gb"] or 0.0)
-                 for k in ("graphed", "eager")}
-        tokens = data * rows * seq
-        flops = 6 * cs.active_params(cfg) * tokens
-        have = (torch.cuda.get_device_properties(run.dev).total_memory / 1e9
-                if run.on_card else None)
-        launches = out["launches_a_step"]
-        want_launches = cs.step_launches(cfg) if run.on_card else launches
-        sequence = {kind for kind in ("reduce-scatter model", "all-gather model")
-                    if kind in out["collectives_a_step"]}
-        over = [p for p in peaks["graphed"] + peaks["eager"] if p > reckoned] \
-            if run.on_card else []
-        failures = out["failures"] + [
-            what for what, bad in (
-                ("a loss not finite", not all(map(math.isfinite, out["losses"]))),
-                (f"launches {launches}, want {want_launches}", launches != want_launches),
-                ("a rank's peak over its card",
-                 run.on_card and max(peaks["graphed"] + peaks["eager"]) > have),
-                (f"a rank's peak over the reckoning {reckoned:.2f} GB: {over}",
-                 cell and bool(over)),
-                (f"the sequence's collectives over model {sorted(sequence)}, want a "
-                 "reduce-scatter and an all-gather",
-                 cell and cfg.seq_shard and len(sequence) < 2)) if bad]
-        ok = not run.any_rank(bool(failures))
-        # the graphed step's ms, or the eager one's where the capture did
-        # not fit the card
-        step_ms = (out.get("graphed_step_ms") or min(out["eager_step_ms"])
-                   if run.on_card else None)
-        profile = out.get("graphed_profile") or {}
-        run.emit(phase, arch=cfg.name, layers=cfg.n_layers, mesh=where,
-                 batch=data * rows, seq=seq, param_dtype=cfg.param_dtype,
-                 loss_chunk=cfg.loss_chunk, seq_shard=cfg.seq_shard,
-                 moe_groups=step_cfg.moe_groups, loss=out["losses"][-1],
-                 model_flops_6nt=flops,
-                 active_params=cs.active_params(cfg),
-                 mfu_6nt=(flops / (step_ms / 1e3 * run.world * cs.PEAK_BF16_FLOPS)
-                          if run.on_card else None),
-                 graph_launches_a_step=profile.get("graph_launches"),
-                 graphed_peak_gb_per_rank=peaks["graphed"],
-                 eager_peak_gb_per_rank=peaks["eager"], card_gb=have, reckoned_gb=reckoned,
-                 want_launches=want_launches, ok=ok,
-                 **{k: v for k, v in out.items() if k != "failures"}, failures=failures)
-        if not ok:
-            run.failed.append(f"{phase} {cfg.name} {where}")
-        del out
-        run.free()
-        dist.barrier()
+        run.emit(f"{phase}_skipped", arch=cfg.name, layers=cfg.n_layers, mesh=where,
+                 batch=data * rows, seq=seq, reckoned_gb=reckoned,
+                 budget_gb=cs.TRAIN_BUDGET_GB,
+                 reason=f"train_memory_gb reckons {reckoned:.1f} GB a device, over "
+                        f"the {cs.TRAIN_BUDGET_GB} GB budget")
+        layers = cut_layers(cfg, data, model, rows, seq, CUT_BUDGET_GB) if cell else None
+        if layers is None:
+            continue
+        cut = cs.cut_depth(cfg, layers)
+        mesh_step(run, cut, data, model,
+                  train_memory_gb(cut, data, model, rows=rows, seq=seq)["total_gb"],
+                  rows, seq, phase, n_layers=cfg.n_layers)
+        trained.append(cut)
+    return trained
+
+
+def mesh_step(run: Run, cfg, data: int, model: int, reckoned: float, rows: int,
+              seq: int, phase: str, n_layers: int | None = None) -> None:
+    """``steps`` on one (``data``, ``model``) mesh, ``cfg`` at its depth
+    (``n_layers`` given: a cut of a config that deep, whose capture must
+    fit the card), ``reckoned`` its ``train_memory_gb``."""
+    from repro_torch.train.step import TrainStepConfig
+    cs = run.cs
+    cell = phase == "cells"
+    where = {"data": data, "model": model}
+    step_cfg = cell_step_config(data, rows, seq) if cell else TrainStepConfig()
+    out = cs.mesh_graph_case(cfg, run.mesh(model), run.dev, rows, seq, step_cfg)
+    peaks = {k: run.peaks(out[f"{k}_peak_allocated_gb"] or 0.0) for k in ("graphed", "eager")}
+    tokens = data * rows * seq
+    flops = 6 * cs.active_params(cfg) * tokens
+    have = (torch.cuda.get_device_properties(run.dev).total_memory / 1e9
+            if run.on_card else None)
+    launches = out["launches_a_step"]
+    want_launches = cs.step_launches(cfg) if run.on_card else launches
+    sequence = {kind for kind in ("reduce-scatter model", "all-gather model")
+                if kind in out["collectives_a_step"]}
+    over = [p for p in peaks["graphed"] + peaks["eager"] if p > reckoned] \
+        if run.on_card else []
+    failures = out["failures"] + [
+        what for what, bad in (
+            ("a loss not finite", not all(map(math.isfinite, out["losses"]))),
+            (f"launches {launches}, want {want_launches}", launches != want_launches),
+            ("a rank's peak over its card",
+             run.on_card and max(peaks["graphed"] + peaks["eager"]) > have),
+            (f"a rank's peak over the reckoning {reckoned:.2f} GB: {over}",
+             cell and bool(over)),
+            (f"the sequence's collectives over model {sorted(sequence)}, want a "
+             "reduce-scatter and an all-gather",
+             cell and cfg.seq_shard and len(sequence) < 2),
+            (f"the cut's capture does not fit the card: {out['graphed_does_not_fit']}",
+             n_layers is not None and out["graphed_does_not_fit"] is not None)) if bad]
+    ok = not run.any_rank(bool(failures))
+    # the graphed step's ms, or the eager one's where the capture did
+    # not fit the card
+    step_ms = (out.get("graphed_step_ms") or min(out["eager_step_ms"])
+               if run.on_card else None)
+    profile = out.get("graphed_profile") or {}
+    run.emit(phase, arch=cfg.name, layers=cfg.n_layers, n_layers=n_layers or cfg.n_layers,
+             mesh=where, batch=data * rows, seq=seq, param_dtype=cfg.param_dtype,
+             loss_chunk=cfg.loss_chunk, seq_shard=cfg.seq_shard,
+             moe_groups=step_cfg.moe_groups, loss=out["losses"][-1],
+             model_flops_6nt=flops,
+             active_params=cs.active_params(cfg),
+             mfu_6nt=(flops / (step_ms / 1e3 * run.world * cs.PEAK_BF16_FLOPS)
+                      if run.on_card else None),
+             graph_launches_a_step=profile.get("graph_launches"),
+             graphed_peak_gb_per_rank=peaks["graphed"],
+             eager_peak_gb_per_rank=peaks["eager"], card_gb=have, reckoned_gb=reckoned,
+             cut_budget_gb=CUT_BUDGET_GB if n_layers is not None else None,
+             want_launches=want_launches, ok=ok,
+             **{k: v for k, v in out.items() if k != "failures"}, failures=failures)
+    if not ok:
+        run.failed.append(f"{phase} {cfg.name} {where} at {cfg.n_layers} layers")
+    del out
+    run.free()
+    dist.barrier()
 
 
 def prefill_params(run: Run, cfg, mesh):
@@ -564,7 +639,7 @@ def gathered_logits(run: Run, cfg, local: torch.Tensor) -> torch.Tensor:
     return torch.cat(blocks, dim=-1)[..., :cfg.vocab_size]
 
 
-def prefill(run: Run, cfg) -> None:
+def prefill(run: Run, cfg, reckoning=None) -> None:
     """The prefill cell at (data 1, model N): AGREEMENT_LAYERS layers on
     PREFILL_ROWS x PREFILL_AGREEMENT_SEQ tokens, the logits gathered,
     against one rank's forward of the same tokens on the whole parameters
@@ -577,7 +652,10 @@ def prefill(run: Run, cfg) -> None:
     otherwise, as in the agreement phase; then full depth on
     PREFILL_ROWS x 32,768 positions: ms by CUDA events, tokens/s, a call
     profiled on every rank (rank 0's busy, idle, NCCL ms printed), each
-    rank's peak; ``prefill_does_not_fit`` where the card runs out."""
+    rank's peak, failing where it is not within DRYRUN_PEAK_REL_TOL of the
+    dry run's reckoning of the reference's prefill_32k rank at (16, N)
+    (``reckoning``, on the card); ``prefill_does_not_fit`` where the card
+    runs out."""
     import gc
     from repro_torch.data.pipeline import SyntheticStream
     from repro_torch.launch.dryrun import _moe_groups
@@ -671,76 +749,114 @@ def prefill(run: Run, cfg) -> None:
         run.emit("prefill_does_not_fit", arch=cfg.name, layers=cfg.n_layers,
                  mesh={"data": 1, "model": run.world}, batch=PREFILL_ROWS, seq=full_seq,
                  reason=reason, peak_gb_per_rank=peaks)
+        run.failed.append(f"prefill {cfg.name}: does not fit")
     else:
+        reckoned = reckoned_peak_gb(reckoning, cfg.name, "prefill_32k", run.world)
+        rel = [abs(reckoned / p - 1) for p in peaks] if reckoned is not None else None
+        within = rel is None or max(rel) <= cs.DRYRUN_PEAK_REL_TOL
+        prof = profile or {}
         run.emit("prefill", arch=cfg.name, layers=cfg.n_layers,
                  mesh={"data": 1, "model": run.world}, batch=PREFILL_ROWS, seq=full_seq,
                  param_dtype=cfg.param_dtype, seq_shard=cfg.seq_shard,
                  moe_groups=groups(full_seq), local_logits_shape=shape, wall_ms=ms,
                  tokens_per_s=tokens / ms * 1e3 if ms else None,
-                 model_flops_2nt=2 * cs.active_params(cfg) * tokens, profile=profile,
-                 peak_gb_per_rank=peaks)
+                 model_flops_2nt=2 * cs.active_params(cfg) * tokens,
+                 busy_ms=prof.get("device_busy_ms"), idle_share=prof.get("idle_share"),
+                 nccl_device_ms=prof.get("nccl_device_ms"), profile=profile,
+                 peak_gb_per_rank=peaks, reckoned_peak_gb=reckoned, peak_rel_err=rel,
+                 peak_rel_tol=cs.DRYRUN_PEAK_REL_TOL, within_reckoning=within)
+        if not within:
+            run.failed.append(f"prefill {cfg.name}: peaks {peaks} GB, the dry run's "
+                              f"{reckoned:.2f} GB")
     del params, inputs, call
     run.free()
     dist.barrier()
 
 
-def cell_kernels(run: Run, cfg, launches: dict[str, int]) -> None:
+def cell_kernels(run: Run, cfg, trained, launches: dict[str, int]) -> None:
     """On rank 0, the kernels at a model-N rank's shapes of the cells: flash
     attention forward and backward on CELL_ROWS x 4096 and the forward on
     PREFILL_ROWS x 32,768 (its plain version not timed there: its dense
     (S, S) scores do not fit a card), the grouped GEMM's forward, dx and
     dw on the train cell's T·K rows; each call timed by CUDA events beside
     its plain version, the library call and the bound (``kernels/costs.py``),
-    with ``launches``, a train step's from the replays."""
+    with ``launches``, a train step's from the replays.  The train cell's
+    calls are a step of ``trained`` (``cfg`` or its cut), the prefill's a
+    forward of ``cfg``.  Fails where a kernel disagrees with its plain
+    version (the attention's at 32,768 positions: with SDPA) past
+    chip_smoke's gates."""
     from repro_torch.models.config import SHAPES
     cs = run.cs
+    failures = []
     if run.rank == 0:
         gen = run.generator(17)
-        local = cs.tp_local_config(cfg, run.world)
+        local, train_local = (cs.tp_local_config(c, run.world) for c in (cfg, trained))
         seq = SHAPES["train_4k"].seq_len
         if cfg.n_heads:
+            # forward and backward at the rank's heads against the plain
+            # versions, under chip_smoke's kernel gates
+            try:
+                errors = cs.tp4_fa_errors(train_local, gen, run.dev, CELL_ROWS, seq)
+            except AssertionError as e:
+                errors = None
+                failures.append(str(e))
+            run.free()
             for name, mix in (("flash_attention", cs.fa_prefill_mix),
                               ("flash_attention_bwd", cs.fa_train_mix)):
                 run.emit("cell_kernel", kernel=name, arch=cfg.name, model=run.world,
+                         layers=trained.n_layers,
                          shape=[CELL_ROWS, seq, local.n_heads, local.n_kv_heads,
-                                local.head_dim], calls=len(cs.attention_windows(local)),
-                         launches=launches.get(name), nvidia_smi=run.card,
-                         **mix(local, gen, run.dev, CELL_ROWS, seq))
+                                local.head_dim], calls=len(cs.attention_windows(train_local)),
+                         launches=launches.get(name), errors=errors, nvidia_smi=run.card,
+                         **mix(train_local, gen, run.dev, CELL_ROWS, seq))
                 run.free()
             long = SHAPES["prefill_32k"].seq_len
+            fields = cs.fa_prefill_mix(local, gen, run.dev, PREFILL_ROWS, long, plain=False)
+            if not fields["max_abs_err"] <= cs.KERNEL_TOL:
+                failures.append(f"flash_attention at {PREFILL_ROWS} x {long}: "
+                                f"{fields['max_abs_err']} from SDPA > {cs.KERNEL_TOL}")
             run.emit("cell_kernel", kernel="flash_attention", arch=cfg.name,
                      model=run.world, cell="prefill",
                      shape=[PREFILL_ROWS, long, local.n_heads, local.n_kv_heads,
                             local.head_dim], calls=len(cs.attention_windows(local)),
-                     launches=cfg.n_layers, nvidia_smi=run.card,
-                     **cs.fa_prefill_mix(local, gen, run.dev, PREFILL_ROWS, long,
-                                         plain=False))
+                     launches=cfg.n_layers, tol=cs.KERNEL_TOL, nvidia_smi=run.card,
+                     **fields)
             run.free()
         if cfg.n_experts:
-            for entry in cs.tp_gmm_entries(cfg, gen, run.dev, run.card, launches,
-                                           run.world, CELL_ROWS * seq):
+            # gmm_errors and dw_errors raise past their gates
+            try:
+                entries = cs.tp_gmm_entries(trained, gen, run.dev, run.card, launches,
+                                            run.world, CELL_ROWS * seq)
+            except AssertionError as e:
+                entries = []
+                failures.append(str(e))
+            for entry in entries:
                 run.emit("cell_kernel", kernel=entry.pop("name"), arch=cfg.name,
-                         model=run.world, nvidia_smi=run.card, **entry)
+                         model=run.world, layers=trained.n_layers, nvidia_smi=run.card,
+                         **entry)
             run.free()
-    dist.barrier()
+    if run.any_rank(bool(failures)):
+        run.failed.append(f"cell_kernel {cfg.name}: {failures or 'on rank 0'}")
 
 
-def cells(run: Run, arch: str) -> None:
+def cells(run: Run, arch: str, reckoning=None) -> None:
     """The cells phase for ``arch`` at the reference's cell options: the
     agreement at AGREEMENT_LAYERS layers on the train cell's batch, the
-    train cell graphed and eager on each mesh that fits (``steps`` as
-    "cells"), the prefill cell, and on the card the kernels at the cells'
-    shapes."""
+    train cell graphed and eager on each mesh that fits, or at its deepest
+    cut that does (``steps`` as "cells"), the prefill cell (its peaks
+    against ``reckoning``, the dry run's), and on the card the kernels at
+    the cells' shapes."""
     from repro_torch.models.config import SHAPES
     cfg = cell_config(arch, run.smoke)
     seq = SMOKE_CELL_SEQ if run.smoke else SHAPES["train_4k"].seq_len
     agreement(run, cfg, CELL_ROWS, seq, cell_step_config(1, CELL_ROWS, seq),
               phase="cell_agreement")
-    steps(run, cfg, CELL_ROWS, seq, phase="cells")
-    prefill(run, cfg)
-    if run.on_card:
-        # the steps phase failed unless a step launched these
-        cell_kernels(run, cfg, run.cs.step_launches(cfg))
+    trained = steps(run, cfg, CELL_ROWS, seq, phase="cells")
+    prefill(run, cfg, reckoning)
+    if run.on_card and trained:
+        # the train cell at model N (full depth or its cut): the cells
+        # phase failed unless its step launched these
+        cell_kernels(run, cfg, trained[0], run.cs.step_launches(trained[0]))
 
 
 def depth_scale(run: Run, cfg) -> float | None:
@@ -824,28 +940,33 @@ def decode_cell_meshes(arch: str, world: int) -> list[tuple[int, int]]:
     return meshes
 
 
-def start_decode_reckoning(run: Run, archs: list[str]):
-    """On rank 0, the dry run's reckoning of each decode_cells case's rank at
-    full size, started now beside the ranks (``chip_smoke.reckon_cells``):
-    the reference's decode_32k cell over (16, M), whose rank holds
-    DECODE_CELL_SLOTS sequences at model M as a rank of (data, M) here does.
-    (the process, the JSON path), or None on other ranks and at smoke size."""
+def start_reckoning(run: Run, archs: list[str], phases) -> tuple | None:
+    """On rank 0, the dry run's reckoning of the cells' ranks at full size,
+    started now beside the ranks (``chip_smoke.reckon_cells``): with the
+    cells phase the reference's prefill_32k cell over (16, N), whose rank
+    holds PREFILL_ROWS sequences at model N as the prefill cell's rank
+    here does; with decode_cells its decode_32k cell over (16, M), whose
+    rank holds DECODE_CELL_SLOTS sequences at model M as a rank of (data,
+    M) here does.  (the process, the JSON path), or None on other ranks, at
+    smoke size or with neither phase."""
     if run.rank != 0 or run.smoke:
         return None
-    cells = [(arch, "decode_32k", (16, model)) for arch in archs
-             for _, model in decode_cell_meshes(arch, run.world)]
-    return run.cs.reckon_cells(cells, ROOT / "build" / "tp_decode_cells")
+    cells = [(arch, "prefill_32k", (16, run.world)) for arch in archs
+             if "cells" in phases]
+    cells += [(arch, "decode_32k", (16, model)) for arch in archs if "decode_cells" in phases
+              for _, model in decode_cell_meshes(arch, run.world)]
+    return run.cs.reckon_cells(cells, ROOT / "build" / "tp_cells") if cells else None
 
 
-def reckoned_peak_gb(reckoning, arch: str, model: int) -> float | None:
-    """The reckoned peak of ``arch``'s decode_32k rank at (16, ``model``)
+def reckoned_peak_gb(reckoning, arch: str, shape: str, model: int) -> float | None:
+    """The reckoned peak of ``arch``'s ``shape`` rank at (16, ``model``)
     (rank 0, at full size; waits for the reckoning), else None."""
     if reckoning is None:
         return None
     proc, path = reckoning
     if proc.wait() != 0:
-        raise RuntimeError(f"the dry run of the decode cells failed: exit {proc.returncode}")
-    return json.loads(path.read_text())[f"{arch} decode_32k 16x{model}"]["peak_bytes"] / 1e9
+        raise RuntimeError(f"the dry run of the cells failed: exit {proc.returncode}")
+    return json.loads(path.read_text())[f"{arch} {shape} 16x{model}"]["peak_bytes"] / 1e9
 
 
 def _written(cfg, path: str, t: int, start: int, n: int) -> list[int]:
@@ -1134,7 +1255,7 @@ def decode_cells(run: Run, arch: str, reckoning) -> None:
             run.failed.append(f"decode_cell_agreement {cfg.name} {(data, model)}")
             continue
         decode_cell_full(run, cfg, mesh, data, length,
-                         reckoned_peak_gb(reckoning, arch, model))
+                         reckoned_peak_gb(reckoning, arch, "decode_32k", model))
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -1151,13 +1272,12 @@ def main(argv: list[str] | None = None) -> None:
     run = Run(args)
     cell_phases = {"cells", "decode_cells"} & set(args.phases)
     archs = args.arch or list(CELL_ARCHS if cell_phases else ARCHS)
-    reckoning = (start_decode_reckoning(run, archs) if "decode_cells" in args.phases
-                 else None)
+    reckoning = start_reckoning(run, archs, args.phases)
     for arch in archs:
         cfg = config(arch, args.smoke)
         for phase in (p for p in PHASES if p in args.phases):
             if phase == "cells":
-                cells(run, arch)
+                cells(run, arch, reckoning)
             elif phase == "decode_cells":
                 decode_cells(run, arch, reckoning)
             else:

@@ -35,6 +35,7 @@ import torch_mesh_worker as worker  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.launch.dryrun import cell_config  # noqa: E402
 from repro_torch.train.step import init_train_state, make_train_step  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -43,7 +44,9 @@ BF16_ROUNDING, BF16_TOL, MOMENT_TOL = 2.0 ** -8, 5e-3, 2.0 ** -6
 STEPS, BATCH, SEQ, LOSS_CHUNK = 3, 4, 32, 8
 #: name: (arch, overrides of the cell options beside the fp32 compute)
 CASES = {"gemma3": ("gemma3-1b", {}),
-         "olmoe": ("olmoe-1b-7b", {"capacity_factor": 0.5})}
+         "olmoe": ("olmoe-1b-7b", {"capacity_factor": 0.5}),
+         "qwen2_moe": ("qwen2-moe-a2.7b", {}),
+         "internvl2": ("internvl2-26b", {})}
 
 
 def _case(name):
@@ -55,10 +58,20 @@ def _case(name):
 def _batches(case):
     cfg = cell_config(case["arch"], True, case["loss_chunk"], case["overrides"])
     rng = np.random.default_rng(5)
+    # internvl2's mixed input: its patch embeddings take the first
+    # positions, all on the first rank's shard of the sequence, labels -100
+    npatch = cfg.n_patches if cfg.input_mode == "mixed" else 0
     out = []
     for _ in range(STEPS):
-        tokens = rng.integers(0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
-        out.append({"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)})
+        tokens = rng.integers(0, cfg.vocab_size, (BATCH, SEQ - npatch)).astype(np.int32)
+        labels = np.roll(tokens, -1, axis=1)
+        batch = {"tokens": tokens, "labels": labels}
+        if npatch:
+            batch["patch_embeds"] = (rng.standard_normal((BATCH, npatch, cfg.d_model))
+                                     * 0.1).astype(np.float32)
+            batch["labels"] = np.concatenate(
+                [np.full((BATCH, npatch), -100, np.int32), labels], axis=1)
+        out.append(batch)
     return cfg, out
 
 
@@ -129,3 +142,39 @@ def test_the_cell_options_over_two_ranks_match_one_process(runs, name):
                 rounded = torch.from_numpy(local).to(torch.bfloat16).float().numpy()
                 assert np.array_equal(params[path][0], rounded), path
     assert split > 0
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_the_cell_step_matches_reference(name):
+    """The one-process cell step the ranks are held to, against the
+    reference's ``make_train_step`` at the same options, from the same
+    bf16 parameters (each crossing as fp32, exact) on the same first
+    batch: the loss, CE and gradient norm to 5e-3, the bf16 tolerance
+    (``tests/test_torch_train.py``'s), the lr to 1e-6."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.configs import get_smoke as jget_smoke
+    from repro.optim.adamw import AdamW as JAdamW, cosine_schedule as jcosine
+    from repro.train.step import make_train_step as jmake_train_step
+    from repro_torch.configs import get_smoke
+    case = _case(name)
+    cfg, batches = _batches(case)
+    smoke = get_smoke(case["arch"])
+    jcfg = jget_smoke(case["arch"], **{
+        f: getattr(cfg, f) for f in ("loss_chunk", "vocab_pad", "param_dtype",
+                                     "attn_q_chunk", "seq_shard", "compute_dtype",
+                                     "capacity_factor")
+        if getattr(cfg, f) != getattr(smoke, f)})
+    gen = torch.Generator()
+    gen.manual_seed(case["seed"])
+    state = init_train_state(cfg, worker.optimizer(), gen)
+    # numpy has no bf16: each leaf crosses as fp32 (exact) and is cast back
+    jp = tree_map(lambda x: jnp.asarray(x.float().numpy(), jnp.bfloat16), state["params"])
+    jopt = JAdamW(schedule=jcosine(worker.LR, 2, 10))
+    jstate = {"params": jp, "opt": jopt.init(jp), "step": jnp.zeros((), jnp.int32)}
+    _, jm = jax.jit(jmake_train_step(jcfg, jopt))(
+        jstate, {k: jnp.asarray(v) for k, v in batches[0].items()})
+    _, tm = make_train_step(cfg, worker.optimizer())(state, worker.to_torch(batches[0]))
+    for key in ("loss", "ce", "grad_norm"):
+        assert float(tm[key]) == pytest.approx(float(jm[key]), rel=BF16_TOL), key
+    assert float(tm["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)

@@ -1381,10 +1381,14 @@ def test_graph_train_covers_every_one_card_training_config():
     assert dict(cs.GRAPH_TRAIN_CASES) == {
         "gemma3-1b": None, "mamba2-780m": None, "hymba-1.5b": None,
         "hubert-xlarge": None, "h2o-danube-1.8b": None, "olmoe-1b-7b": 4}
+    # and at the cell options, cut in depth, the two configurations no card
+    # trains whole
+    assert dict(cs.GRAPH_TRAIN_CELL_CASES) == {"qwen2-moe-a2.7b": 2, "internvl2-26b": 2}
     assert cs.MOE_TRAIN_DEPTHS[-1] == 4 and cs.GRAPH_TRAIN_STEPS == 3
     assert "graph_train_path(dev, card)" in inspect.getsource(cs.main)
     source = inspect.getsource(cs.graph_train_path)
     assert "graph_gang_run" in source and "GRAPH_TRAIN_CASES" in source
+    assert "graph_train_cell_cases(dev, card)" in source
     assert cs.GANG_GRAPH_STEPS >= (cs.GRAPH_TRAIN_STEPS + cs.GRAPH_TRAIN_TIMED
                                    + cs.GRAPH_TRAIN_PROFILED)
 
@@ -1613,3 +1617,96 @@ def test_the_cell_options_phase_fails_a_graph_not_bit_equal(monkeypatch, fault):
     _cell_options_on_the_cpu(monkeypatch, **fault)
     with pytest.raises(AssertionError, match="cell options graphed"):
         cs.cell_options_path(torch.device("cpu"), "cpu")
+
+
+@pytest.mark.parametrize("arch,layers", cs.GRAPH_TRAIN_CELL_CASES)
+def test_the_cell_option_train_cases_reckon_within_the_budget(arch, layers):
+    """Each graph_train case at the cell options reckons within
+    TRAIN_BUDGET_GB with room for what the cases before it leave allocated
+    (~9.4 GB): 44.6 and 50.2 GB; at fp32 parameters 64.1 and 58.6, the
+    first past the budget with that room."""
+    from repro_torch.configs import get
+    from repro_torch.launch.dryrun import cell_config
+    cell = cs.train_reckoning_gb(cell_config(arch), layers)["total_gb"]
+    fp32 = cs.train_reckoning_gb(get(arch), layers)["total_gb"]
+    assert cell + 9.4 <= cs.TRAIN_BUDGET_GB
+    assert (cell, fp32) == pytest.approx({"qwen2-moe-a2.7b": (44.6, 64.1),
+                                          "internvl2-26b": (50.2, 58.6)}[arch], abs=0.05)
+
+
+def _cell_cases_on_the_cpu(monkeypatch, **fake_out):
+    """graph_train_cell_cases on the CPU at smoke size: its graph_train_case
+    and the kernels' timed mixes replaced (they time by CUDA events); the
+    case returns a bit-equal run with the step's launches, overridden by
+    ``fake_out``.  Returns the fields each case was asked for."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    cell = dryrun.cell_config
+    monkeypatch.setattr(configs, "get", lambda arch, **k: configs.get_smoke(arch, **k))
+    monkeypatch.setattr(dryrun, "cell_config",
+                        lambda arch, smoke=False, loss_chunk=1024, overrides=None:
+                        cell(arch, True, 16, overrides))
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 32)
+    seen = []
+
+    def case(name, run, card, **fields):
+        seen.append(fields)
+        cfg = cs.cut_depth(dryrun.cell_config(fields["arch"]), fields["layers"])
+        return {"steps": 3, "bit_equal": True, "eager_runs_bit_equal": True,
+                "launches": cs.step_launches(cfg, 3), **fake_out}
+
+    def mix(cfg, gen, dev, b, s, plain=True):
+        return {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "library_ms": 1.0,
+                "bound_ms": 0.5, "bound_by": "operations"}
+
+    def gmm_entries(cfg, gen, dev, card, launches, model=2, tokens=0, label=""):
+        return [{"name": name, "route": "cuda", "source": cs.GMM_SOURCE,
+                 "replaces": cs.GMM_REPLACES, "path": "", "launches": launches[name],
+                 **mix(cfg, gen, dev, 1, 1)}
+                for name in ("grouped_matmul", "grouped_matmul_dx", "grouped_matmul_dw")]
+    monkeypatch.setattr(cs, "graph_train_case", case)
+    monkeypatch.setattr(cs, "tp4_fa_errors", lambda *a: {"max_abs_err": 0.0})
+    monkeypatch.setattr(cs, "fa_prefill_mix", mix)
+    monkeypatch.setattr(cs, "fa_train_mix", mix)
+    monkeypatch.setattr(cs, "tp_gmm_entries", gmm_entries)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    return seen
+
+
+def test_the_cell_option_train_cases_on_the_cpu(monkeypatch):
+    """Each case at the cell options (bf16 parameters, the chunked CE, the
+    sequence over model) cut to its layers, its peaks held against the
+    cut's reckoning; the kernels line gets qwen2-moe's grouped GEMM forward,
+    dx and dw and both archs' attention forward and backward, their
+    launches the case's."""
+    from repro_torch.launch import dryrun
+    seen = _cell_cases_on_the_cpu(monkeypatch)
+    cases, entries = cs.graph_train_cell_cases(torch.device("cpu"), "cpu")
+    assert [f["arch"] for f in seen] == [a for a, _ in cs.GRAPH_TRAIN_CELL_CASES]
+    for fields, (arch, layers) in zip(seen, cs.GRAPH_TRAIN_CELL_CASES):
+        assert (fields["param_dtype"], fields["loss_chunk"], fields["seq_shard"]) == (
+            "bfloat16", 16, True)
+        assert fields["layers"] == layers and fields["cell_options"]
+        assert fields["reckoned_gb"] == cs.train_reckoning_gb(
+            dryrun.cell_config(arch), layers)["total_gb"]
+    assert set(cases) == {f"{a} cell options" for a, _ in cs.GRAPH_TRAIN_CELL_CASES}
+    names = [(e["path"].split()[0], e["name"]) for e in entries]
+    assert names == [
+        ("qwen2-moe-a2.7b-smoke", "flash_attention"),
+        ("qwen2-moe-a2.7b-smoke", "flash_attention_bwd"),
+        ("qwen2-moe-a2.7b-smoke", "grouped_matmul"),
+        ("qwen2-moe-a2.7b-smoke", "grouped_matmul_dx"),
+        ("qwen2-moe-a2.7b-smoke", "grouped_matmul_dw"),
+        ("internvl2-26b-smoke", "flash_attention"),
+        ("internvl2-26b-smoke", "flash_attention_bwd")]
+    for entry in entries:
+        assert entry["launches"] > 0 and "cell options" in entry["path"]
+
+
+@pytest.mark.parametrize("fault", [{"bit_equal": False}, {"eager_runs_bit_equal": False},
+                                   {"launches": {}}])
+def test_the_cell_option_train_cases_fail_a_graph_not_bit_equal(monkeypatch, fault):
+    _cell_cases_on_the_cpu(monkeypatch, **fault)
+    with pytest.raises(AssertionError, match="at the cell options graphed"):
+        cs.graph_train_cell_cases(torch.device("cpu"), "cpu")

@@ -41,19 +41,28 @@ tp = _module("tp_across_cards", SCRIPT)
 cs = _module("chip_smoke", ROOT / "chip_smoke.py")
 
 
+#: the two largest architectures, beside the cells' default ones
+NEW_ARCHS = ("qwen2-moe-a2.7b", "internvl2-26b")
+
+
+def _torchrun(args, timeout=240):
+    """``args`` under torchrun over 4 gloo ranks: (exit code, rank 0's JSON
+    lines, the tail of the ranks' errors)."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", *map(str, args)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    return proc.returncode, lines, proc.stderr[-4000:]
+
+
 @pytest.fixture(scope="module")
 def smoke_lines():
     """The script at smoke size over 4 gloo ranks: (exit code, rank 0's
     JSON lines, the tail of the ranks' errors)."""
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
-           "PYTHONPATH": str(ROOT / "src")}
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "4", str(SCRIPT), "--smoke", "--device", "cpu"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
-    lines = [json.loads(line) for line in proc.stdout.splitlines()
-             if line.startswith("{")]
-    return proc.returncode, lines, proc.stderr[-4000:]
+    return _torchrun([SCRIPT, "--smoke", "--device", "cpu"])
 
 
 @pytest.fixture(scope="module")
@@ -61,16 +70,8 @@ def cells_lines():
     """The cells phase at smoke size over 4 gloo ranks (its default
     architectures): (exit code, rank 0's JSON lines, the tail of the
     ranks' errors)."""
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
-           "PYTHONPATH": str(ROOT / "src")}
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "4", str(SCRIPT), "--smoke", "--device", "cpu",
-         "--phases", "cells"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    lines = [json.loads(line) for line in proc.stdout.splitlines()
-             if line.startswith("{")]
-    return proc.returncode, lines, proc.stderr[-4000:]
+    return _torchrun([SCRIPT, "--smoke", "--device", "cpu", "--phases", "cells"],
+                     timeout=300)
 
 
 @pytest.fixture(scope="module")
@@ -78,16 +79,163 @@ def decode_cells_lines():
     """The decode_cells phase at smoke size over 4 gloo ranks (its default
     architectures): (exit code, rank 0's JSON lines, the tail of the ranks'
     errors)."""
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
-           "PYTHONPATH": str(ROOT / "src")}
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "4", str(SCRIPT), "--smoke", "--device", "cpu",
-         "--phases", "decode_cells"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
-    lines = [json.loads(line) for line in proc.stdout.splitlines()
-             if line.startswith("{")]
-    return proc.returncode, lines, proc.stderr[-4000:]
+    return _torchrun([SCRIPT, "--smoke", "--device", "cpu", "--phases", "decode_cells"])
+
+
+@pytest.fixture(scope="module")
+def new_archs_lines():
+    """The cells and decode_cells phases at smoke size over 4 gloo ranks for
+    qwen2-moe-a2.7b and internvl2-26b."""
+    return _torchrun([SCRIPT, "--smoke", "--device", "cpu", "--phases", "cells",
+                      "decode_cells", "--arch", *NEW_ARCHS])
+
+
+#: runs the script with chip_smoke.TRAIN_BUDGET_GB and CUT_BUDGET_GB set to
+#: its second argument (the repository root its first)
+BUDGET_WRAPPER = """
+import importlib.util, sys
+from pathlib import Path
+root, budget = Path(sys.argv[1]), float(sys.argv[2])
+sys.path[:0] = [str(root), str(root / "src")]
+import chip_smoke
+spec = importlib.util.spec_from_file_location("tp_across_cards",
+                                              root / "scripts" / "tp_across_cards.py")
+tp = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tp)
+chip_smoke.TRAIN_BUDGET_GB = tp.CUT_BUDGET_GB = budget
+tp.main(sys.argv[3:])
+"""
+
+
+@pytest.fixture(scope="module")
+def cut_lines(tmp_path_factory):
+    """The cells phase at smoke size for qwen2-moe-a2.7b with both budgets
+    between its one-layer and its two-layer reckoning on every mesh: full
+    depth refused, the one-layer cut run.  (the budget, the run's lines)"""
+    cfg = tp.cell_config("qwen2-moe-a2.7b", True)
+
+    def gb(layers, d, m):
+        return train_memory_gb(cs.cut_depth(cfg, layers), d, m, rows=tp.CELL_ROWS,
+                               seq=tp.SMOKE_CELL_SEQ)["total_gb"]
+    one = max(gb(1, d, m) for d, m in ((1, 4), (2, 2)))
+    full = min(gb(2, d, m) for d, m in ((1, 4), (2, 2)))
+    assert one < full
+    wrapper = tmp_path_factory.mktemp("cut") / "wrapper.py"
+    wrapper.write_text(BUDGET_WRAPPER)
+    budget = (one + full) / 2
+    return budget, _torchrun([wrapper, ROOT, budget, "--smoke", "--device", "cpu",
+                              "--phases", "cells", "--arch", "qwen2-moe-a2.7b"])
+
+
+def test_the_cells_phases_of_the_two_largest_archs_at_smoke_size(new_archs_lines):
+    """qwen2-moe-a2.7b (its shared expert and sigmoid gate over model, the
+    grouped GEMM at f / 4) and internvl2-26b (2 KV heads a rank under 4
+    query heads each, its patch positions all on rank 0's quarter of the
+    sequence) at the cell options, both vocabularies short of their
+    padding: the agreement with one rank, the train cell graphed against
+    eager at (1, 4) and (2, 2), bit-equal, with the sequence's
+    reduce-scatter and all-gather over model, the prefill's agreement and
+    run, the logits left vocab-sharded; then the decode cell at (1, 4)
+    against one card on the whole cache and graphed against eager."""
+    rc, lines, err = new_archs_lines
+    assert rc == 0, err
+    by_phase = {}
+    for line in lines:
+        by_phase.setdefault(line["phase"], []).append(line)
+    want = [f"{a}-smoke" for a in NEW_ARCHS]
+    assert set(by_phase) == {"cell_agreement", "cells", "prefill_agreement", "prefill",
+                             "decode_cell_agreement", "decode_cells"}
+    for phase in ("cell_agreement", "prefill_agreement", "prefill",
+                  "decode_cell_agreement", "decode_cells"):
+        assert [line["arch"] for line in by_phase[phase]] == want, phase
+    for line in by_phase["cell_agreement"]:
+        assert line["agrees"] and line["held"] == "master" and line["split_leaves"] > 0
+        assert line["replayed_routing"] == (line["routing_flips"] > 0)
+        assert set(line["leaf_max_abs_diff_over_lr"]) == set(
+            tp.LEAVES[line["arch"].removesuffix("-smoke")])
+    assert [(line["arch"], line["mesh"]["data"], line["layers"], line["n_layers"])
+            for line in by_phase["cells"]] == [(a, d, 2, 2) for a in want for d in (1, 2)]
+    for line in by_phase["cells"]:
+        assert line["ok"] and line["bit_equal"] and line["failures"] == []
+        assert {"reduce-scatter model", "all-gather model"} <= set(line["collectives_a_step"])
+    for line in by_phase["prefill_agreement"]:
+        assert line["agrees"] and line["within_bounds"]
+    for line in by_phase["prefill"]:
+        cfg = tp.cell_config(line["arch"].removesuffix("-smoke"), True)
+        assert cfg.vocab_size < cfg.padded_vocab
+        assert line["local_logits_shape"] == [tp.PREFILL_ROWS, tp.SMOKE_CELL_SEQ,
+                                              cfg.padded_vocab // 4]
+    for line in by_phase["decode_cell_agreement"]:
+        assert line["agrees"] and line["mesh"] == {"data": 1, "model": 4}
+        assert all(r["untouched_equal"] and r["cache_within_rounding"]
+                   for r in line["per_rank"])
+    for line in by_phase["decode_cells"]:
+        assert line["ok"] and line["bit_equal"] and line["failures"] == []
+        assert line["mesh"] == {"data": 1, "model": 4}
+
+
+def test_the_train_cell_runs_its_deepest_cut_where_full_depth_does_not_fit(cut_lines):
+    """Where full depth passes the budget the cells phase keeps its
+    cells_skipped line, then runs on the same mesh the deepest cut within
+    CUT_BUDGET_GB through the same gates: graphed bit-equal to eager, the
+    sequence's collectives over model; its line carries the cut's layers
+    and the config's n_layers."""
+    budget, (rc, lines, err) = cut_lines
+    assert rc == 0, err
+    skipped = [line for line in lines if line["phase"] == "cells_skipped"]
+    cut = [line for line in lines if line["phase"] == "cells"]
+    assert [(line["mesh"]["data"], line["layers"]) for line in skipped] == [(1, 2), (2, 2)]
+    assert [(line["mesh"]["data"], line["layers"], line["n_layers"]) for line in cut] == [
+        (1, 1, 2), (2, 1, 2)]
+    for line in cut:
+        assert line["ok"] and line["bit_equal"] and line["failures"] == []
+        assert line["cut_budget_gb"] == budget and line["reckoned_gb"] <= budget
+        assert {"reduce-scatter model", "all-gather model"} <= set(line["collectives_a_step"])
+    assert [line["phase"] for line in lines].count("prefill") == 1
+
+
+@pytest.mark.parametrize("arch", tp.CELL_ARCHS + NEW_ARCHS)
+def test_the_cut_rule_at_full_size(arch):
+    """At CELL_ROWS x 4096 a data rank and the cell options: qwen2-moe-a2.7b
+    and internvl2-26b pass chip_smoke's budget at full depth on both meshes
+    of 4 cards, so the cells phase refuses full depth and runs the deepest
+    cut within CUT_BUDGET_GB: 16 and 13 of 24 layers, 23 and 19 of 48 at
+    (1, 4) and (2, 2); every CELL_ARCHS arch fits whole and keeps its
+    full depth."""
+    from repro_torch.models.config import SHAPES
+    cfg = tp.cell_config(arch, False)
+    seq = SHAPES["train_4k"].seq_len
+    meshes = tp.step_meshes(cfg, 4, cs.TRAIN_BUDGET_GB, tp.CELL_ROWS, seq)
+    if arch in tp.CELL_ARCHS:
+        assert all(fits for *_, fits in meshes)
+        return
+    assert [(d, m) for d, m, _, fits in meshes if not fits] == [(1, 4), (2, 2)]
+    cuts = [tp.cut_layers(cfg, d, m, tp.CELL_ROWS, seq, tp.CUT_BUDGET_GB)
+            for d, m, _, _ in meshes]
+    assert cuts == {"qwen2-moe-a2.7b": [16, 13], "internvl2-26b": [23, 19]}[arch]
+    for (d, m, _, _), layers in zip(meshes, cuts):
+        def gb(n):
+            return train_memory_gb(cs.cut_depth(cfg, n), d, m, rows=tp.CELL_ROWS,
+                                   seq=seq)["total_gb"]
+        assert gb(layers) <= tp.CUT_BUDGET_GB < gb(layers + 1)
+    assert tp.CUT_BUDGET_GB < cs.TRAIN_BUDGET_GB
+
+
+def test_the_prefill_gate_holds_the_recorded_prefill_peaks():
+    """The dry run's reckoning of the reference's prefill_32k rank at 16x4,
+    the prefill cell's gate, against each rank-0 peak the cells phase
+    recorded on the cards (olmoe-1b-7b 15.32, gemma-7b 13.36, deepseek-7b
+    7.82 GB; PERF.md §5): within DRYRUN_PEAK_REL_TOL."""
+    code = ("import json; from repro_torch.launch import dryrun; print(json.dumps({a: "
+            "dryrun.run_cell(a, 'prefill_32k', False, mesh_shape=(16, 4))['memory']"
+            "['peak_bytes'] / 1e9 for a in ('olmoe-1b-7b', 'gemma-7b', 'deepseek-7b')}))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    reckoned = json.loads(proc.stdout.splitlines()[-1])
+    for arch, peak in (("olmoe-1b-7b", 15.32), ("gemma-7b", 13.36), ("deepseek-7b", 7.82)):
+        assert abs(reckoned[arch] / peak - 1) <= cs.DRYRUN_PEAK_REL_TOL, arch
 
 
 def test_the_decode_cells_phase_at_smoke_size(decode_cells_lines):

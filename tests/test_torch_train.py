@@ -258,7 +258,8 @@ CELL_OPTIONS = {"loss_chunk": 16, "vocab_pad": 256, "param_dtype": "bfloat16",
                 "attn_q_chunk": 16, "seq_shard": True}
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b", "qwen2-moe-a2.7b",
+                                  "internvl2-26b"])
 def test_train_step_at_the_cell_options_matches_reference(arch):
     """One train step at the reference's cell options (bf16 parameters and
     gradients beside AdamW's fp32 master, the chunked CE, padded
